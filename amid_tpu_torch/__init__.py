@@ -4,11 +4,13 @@ The JAX package `amid_tpu` is the reference; this package mirrors its module
 layout and names (`config`, `ops/`, `models/`, `serve`) so each counterpart is
 easy to find, and imports neither JAX nor anything under `amid_tpu`.
 
-This slice serves: `models.amid.build_model` builds the SASRec AMID model
-(InterComp, DR heads) and `serve` computes user representations and the
-full-catalog top-K. The SASRec attention core runs as a hand-written CUDA
-kernel (`csrc/attention_fwd.cu`, bound in `ops/attention.py`). Entry points
-run on `cuda` unless the caller passes `device="cpu"`.
+It serves (`models.amid.build_model`, `serve`: user representations and
+the full-catalog top-K) and trains (`train.loop.run_seed`: the doubly-robust
+trainer's phase A, phase B and evaluation, with dense Adam or the lazy table
+Adam). The SASRec attention core, forward and backward, and the lazy Adam's
+unique-row scatters run as hand-written CUDA kernels (`csrc/*.cu`, bound in
+`ops/attention.py` and `ops/scatter.py`). Entry points run on `cuda` unless
+the caller passes `device="cpu"`.
 """
 
 from amid_tpu_torch.config import ModelConfig

@@ -1,6 +1,8 @@
 """Moves a flax parameter tree of the JAX package's AMIDModel (SASRec
 backbone, optional InnerComp/InterComp, DR heads) into this package's
-`state_dict`.
+`state_dict`, and the JAX trainer's optimizer state (optax Adam's `count`,
+`mu`, `nu`; the lazy table Adam's `LazyTableState`) into the port's
+`AdamState` / `LazyTableState`, all from numpy arrays.
 
 Leaves are found by their flax paths, e.g. `enc_d1/attn_0/in_proj_kernel`,
 `itc_d1/PeerMessage_0/trans_bs_kernel`, `predict_ips/fc1_kernel`. Flax
@@ -74,11 +76,11 @@ def _map_leaf(path: str) -> tuple[str, Any]:
     raise ValueError(f"flax leaf {path!r} has no counterpart in amid_tpu_torch")
 
 
-def _expected_names(names: set[str]) -> set[str]:
+def _expected_names(names: set[str], with_table: bool = True) -> set[str]:
     """Every torch name the structure implied by `names` must have."""
     blocks = {int(m.group(1)) for n in names
               if (m := re.fullmatch(r"enc_d[12]\.attn\.(\d+)\..*", n))}
-    want = {"item_embedding"}
+    want = {"item_embedding"} if with_table else set()
     for enc in ("enc_d1", "enc_d2"):
         want |= {f"{enc}.pos_emb", f"{enc}.last_ln.weight", f"{enc}.last_ln.bias"}
         for i in range(max(blocks, default=-1) + 1):
@@ -114,10 +116,49 @@ def convert_leaves(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     return out
 
 
-def params_from_flax(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
-    """flax params (nested dicts of arrays) -> state_dict for AMIDModel."""
+def params_from_flax(tree: Mapping[str, Any],
+                     with_table: bool = True) -> dict[str, torch.Tensor]:
+    """flax params (nested dicts of arrays) -> state_dict for AMIDModel.
+
+    with_table=False converts the tree of the non-table parameters (the lazy
+    table Adam's dense part): `item_embedding` must then be absent."""
     out = convert_leaves(tree)
-    missing = _expected_names(set(out)) - set(out)
+    if not with_table and "item_embedding" in out:
+        raise ValueError("the dense tree must not hold item_embedding")
+    missing = _expected_names(set(out), with_table) - set(out)
     if missing:
         raise ValueError(f"flax tree lacks leaves for {sorted(missing)}")
     return out
+
+
+def adam_state_from_optax(count, mu: Mapping[str, Any], nu: Mapping[str, Any],
+                          with_table: bool = True):
+    """optax `ScaleByAdamState(count, mu, nu)` -> `train.optim.AdamState`.
+
+    `mu` and `nu` are trees shaped like the parameters, so they take the
+    parameters' conversion (and its checks for missing or left-over leaves)."""
+    from amid_tpu_torch.train.optim import AdamState
+
+    mu_t = params_from_flax(mu, with_table)
+    nu_t = params_from_flax(nu, with_table)
+    if set(mu_t) != set(nu_t):
+        raise ValueError(f"mu and nu name different leaves: {sorted(set(mu_t) ^ set(nu_t))}")
+    return AdamState(int(np.asarray(count)), mu_t, nu_t)
+
+
+def lazy_state_from_numpy(dense_count, dense_mu, dense_nu, mu, nu, count):
+    """The JAX lazy table Adam's `LazyTableState(dense_opt, mu, nu, count)` ->
+    the port's. `dense_*` are the optax Adam state over the non-table
+    parameters; `mu`, `nu` the [V, D] table moments; `count` the global step."""
+    from amid_tpu_torch.train.lazy import LazyTableState
+
+    mu, nu = (np.asarray(x, dtype=np.float32) for x in (mu, nu))
+    if mu.ndim != 2 or mu.shape != nu.shape:
+        raise ValueError(f"table moments must share one [V, D] shape; got "
+                         f"{mu.shape} and {nu.shape}")
+    return LazyTableState(
+        dense_opt=adam_state_from_optax(dense_count, dense_mu, dense_nu, with_table=False),
+        mu=torch.tensor(mu),
+        nu=torch.tensor(nu),
+        count=int(np.asarray(count)),
+    )

@@ -12,6 +12,14 @@ imputation heads' outputs, model_seq.py:436-440) beside u_d1/u_d2.
 
 The item table is one embedding shared by both domains (ids are pre-offset
 at data-prep time, model_seq.py:22-29); the lookup is an index_select.
+
+Two optional arguments serve the trainer. `rng` is the step's
+`ops.rng.StepRandom`, the source of train-mode dropout. `lazy_rows=(uids,
+rows)` redirects every lookup to `rows[searchsorted(uids, ids)]` (the
+counterpart of `amid_tpu/parallel/context.py::lazy_rows` and the redirect in
+`parallel/embedding.py::embedding_lookup`): `uids` are the step's sorted
+unique ids and `rows` the gathered table rows, the differentiated leaf of the
+lazy table Adam, so the table itself takes no gradient.
 """
 
 from __future__ import annotations
@@ -72,30 +80,35 @@ class AMIDModel(nn.Module):
             else:
                 m.reset_parameters(gen)
 
-    def lookup(self, ids: torch.Tensor) -> torch.Tensor:
+    def lookup(self, ids: torch.Tensor, lazy_rows=None) -> torch.Tensor:
         table = self.item_embedding
         ids = torch.as_tensor(ids, device=table.device)
-        return torch.index_select(table, 0, ids.reshape(-1)).view(
-            *ids.shape, table.shape[1]
-        )
+        flat = ids.reshape(-1)
+        if lazy_rows is not None:
+            uids, rows = lazy_rows
+            table, flat = rows, torch.searchsorted(uids, flat.to(uids.dtype))
+        return torch.index_select(table, 0, flat).view(*ids.shape, table.shape[1])
 
-    def features(self, batch: Batch) -> tuple[torch.Tensor, torch.Tensor]:
+    def features(self, batch: Batch, rng=None,
+                 lazy_rows=None) -> tuple[torch.Tensor, torch.Tensor]:
         """Pooled per-domain user representations (u_feat_enhance_d1/d2)."""
-        seq_d1 = self.lookup(batch["seq_d1"])  # [B, L, D]
-        seq_d2 = self.lookup(batch["seq_d2"])
+        seq_d1 = self.lookup(batch["seq_d1"], lazy_rows)  # [B, L, D]
+        seq_d2 = self.lookup(batch["seq_d2"], lazy_rows)
         if self.cfg.is_inc:
             seq_d1, seq_d2 = self.inc_d1(seq_d1), self.inc_d2(seq_d2)
-        seq_d1, seq_d2 = self.enc_d1(seq_d1), self.enc_d2(seq_d2)
+        seq_d1, seq_d2 = self.enc_d1(seq_d1, rng), self.enc_d2(seq_d2, rng)
         if self.cfg.is_itc:
             seq_d1, seq_d2 = self.itc_d1(seq_d1, seq_d2), self.itc_d2(seq_d2, seq_d1)
         return seq_d1.mean(dim=1), seq_d2.mean(dim=1)
 
-    def forward(self, batch: Batch, features_only: bool = False):
-        u_d1, u_d2 = self.features(batch)
+    def forward(self, batch: Batch, features_only: bool = False, rng=None,
+                lazy_rows=None):
+        u_d1, u_d2 = self.features(batch, rng, lazy_rows)
         if features_only:
             return u_d1, u_d2
         cand = torch.cat(
-            [self.lookup(batch["target"])[:, None, :], self.lookup(batch["neg_samples"])],
+            [self.lookup(batch["target"], lazy_rows)[:, None, :],
+             self.lookup(batch["neg_samples"], lazy_rows)],
             dim=1,
         )  # [B, 1+K, D]
         out = {"u_d1": u_d1, "u_d2": u_d2}

@@ -8,10 +8,14 @@ Reference quirks kept deliberately, as the JAX package keeps them:
 * a learned position embedding, sliced to the input length;
 * the out_proj bias is trainable and zero at init (nn.MultiheadAttention).
 
-With `kernels="cuda"` the attention core goes through the CUDA kernel
-(`ops.attention.fused_attention`) at every sequence length; with
-`kernels="torch"` through its plain PyTorch version. BERT4Rec and GRU4Rec
-wait for later slices.
+With `kernels="cuda"` the attention core goes through the CUDA kernels
+(`ops.attention.fused_attention`, forward and backward) at every sequence
+length; with `kernels="torch"` through its plain PyTorch version. BERT4Rec
+and GRU4Rec are not ported yet.
+
+Train-mode dropout (on the embedded input, on the attention probabilities
+and twice in the FFN) draws from the step's `ops.rng.StepRandom`, passed as
+`rng`; in eval mode `rng` is not read.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from amid_tpu_torch.ops.attention import attention_plain, fused_attention
+from amid_tpu_torch.ops.rng import apply_dropout
 from amid_tpu_torch.ops.torch_compat import (
     TorchLayerNorm,
     torch_embedding_init_,
@@ -55,14 +60,17 @@ class TorchMultiheadAttention(nn.Module):
         uniform_(self.out_proj.weight, 1.0 / math.sqrt(d), gen)
         nn.init.zeros_(self.out_proj.bias)
 
-    def forward(self, q, k, v, attn_bias):
+    def forward(self, q, k, v, attn_bias, rng=None):
         d = q.shape[-1]
         w, b = self.in_proj_weight, self.in_proj_bias
         qp = F.linear(q, w[:d], b[:d])
         kp = F.linear(k, w[d : 2 * d], b[d : 2 * d])
         vp = F.linear(v, w[2 * d :], b[2 * d :])
         if self.training and self.dropout > 0.0:
-            seed, rate = int(torch.randint(0, 2**31 - 1, ())), self.dropout
+            if rng is None:
+                raise ValueError("train-mode attention dropout needs the step's "
+                                 "StepRandom (pass rng=...)")
+            seed, rate = rng.attention_seed(), self.dropout
         else:
             seed, rate = 0, 0.0
         out = self.attend(qp, kp, vp, attn_bias, seed, self.num_heads, rate)
@@ -77,15 +85,15 @@ class PointWiseFeedForward(nn.Module):
         super().__init__()
         self.conv1 = nn.Linear(d, d)
         self.conv2 = nn.Linear(d, d)
-        self.drop = nn.Dropout(dropout)
+        self.dropout = dropout
 
     def reset_parameters(self, gen: torch.Generator) -> None:
         torch_linear_init_(self.conv1, gen)
         torch_linear_init_(self.conv2, gen)
 
-    def forward(self, x):
-        y = torch.relu(self.drop(self.conv1(x)))
-        return self.drop(self.conv2(y)) + x
+    def forward(self, x, rng=None):
+        y = torch.relu(apply_dropout(self.conv1(x), self.dropout, self.training, rng))
+        return apply_dropout(self.conv2(y), self.dropout, self.training, rng) + x
 
 
 class SasrecEncoder(nn.Module):
@@ -96,7 +104,7 @@ class SasrecEncoder(nn.Module):
                  kernels: str = "torch"):
         super().__init__()
         self.pos_emb = nn.Parameter(torch.empty(seq_len, d))
-        self.emb_drop = nn.Dropout(dropout)
+        self.dropout = dropout
         self.attn_ln = nn.ModuleList(TorchLayerNorm(d) for _ in range(num_blocks))
         self.attn = nn.ModuleList(
             TorchMultiheadAttention(d, num_heads, dropout, kernels)
@@ -115,9 +123,9 @@ class SasrecEncoder(nn.Module):
         for m in (*self.attn, *self.ffn):
             m.reset_parameters(gen)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, rng=None) -> torch.Tensor:
         t = x.shape[1]
-        x = self.emb_drop(x + self.pos_emb[:t])
+        x = apply_dropout(x + self.pos_emb[:t], self.dropout, self.training, rng)
         causal = torch.triu(
             torch.full((t, t), NEG_INF, dtype=x.dtype, device=x.device), diagonal=1
         )[None, None]
@@ -125,6 +133,6 @@ class SasrecEncoder(nn.Module):
             self.attn_ln, self.attn, self.ffn_ln, self.ffn
         ):
             q = attn_ln(x)
-            x = q + attn(q, x, x, causal)  # residual onto the normalised Q
-            x = ffn(ffn_ln(x))
+            x = q + attn(q, x, x, causal, rng)  # residual onto the normalised Q
+            x = ffn(ffn_ln(x), rng)
         return self.last_ln(x)

@@ -6,14 +6,19 @@ D; `bias` is additive, [1|B, 1, 1|T, T] (causal -1e9 for SASRec, key-padding
 for BERT4Rec); the per-head scale is 1/sqrt(dh); dropout with `rate` drops
 attention probabilities and scales the kept ones by 1/(1 - rate).
 
-* `fused_attention` is the wrapper of the CUDA kernel `csrc/attention_fwd.cu`.
-  On CUDA tensors it launches the kernel (counting the launch in
-  `fused_attention.launches`) or raises; on CPU tensors it computes
-  `attention_plain`. It has no backward yet: asking a CUDA input for a
-  gradient raises until the training slice brings the backward kernel.
+* `fused_attention` is the wrapper of the CUDA kernels
+  `csrc/attention_fwd.cu` and `csrc/attention_bwd.cu`, joined by one
+  `torch.autograd.Function`. On CUDA tensors the forward launches the forward
+  kernel (counted in `fused_attention.launches`) and a gradient launches the
+  backward kernel (counted in `fused_attention.backward_launches`), or they
+  raise; on CPU tensors it computes `attention_plain`. `bias` and `seed` get
+  no gradient.
 * `attention_plain` is the same function in plain PyTorch (with autograd),
   the version the CPU tests hold against JAX and the kernel is held against
   on the card.
+* `attention_bwd_plain` repeats the backward kernel's arithmetic in plain
+  PyTorch: dq, dk, dv from q, k, v, bias and the output's gradient, with the
+  probabilities recomputed and the dropout mask regenerated.
 * `dropout_keep_mask` is the counter-based dropout mask both versions use:
   a pure function of (seed, b, h, i, j), so kernel and plain agree bit for
   bit. The TPU's own random bits cannot be reproduced; against JAX only
@@ -138,78 +143,207 @@ def attention_plain(
     return o.transpose(1, 2).reshape(bsz, t, d)
 
 
+def attention_bwd_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    bias: torch.Tensor,
+    dout: torch.Tensor,
+    seed: int,
+    heads: int,
+    rate: float,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of `attention_plain` for the output gradient `dout`
+    [B, T, D], by the backward kernel's arithmetic:
+
+        dV = Pd^T dO;  dP = (dO V^T) * keep / (1 - rate)
+        dS = P * (dP - rowsum(dP * P));  dQ = dS K / sqrt(dh);  dK = dS^T Q / sqrt(dh)
+
+    with P = softmax(S) recomputed and Pd = P * keep / (1 - rate)."""
+    _check_inputs(q, k, v, heads, rate)
+    bsz, t, d = q.shape
+    check_bias(bias, bsz, t)
+    dh = d // heads
+    scale = 1.0 / math.sqrt(dh)
+
+    def split(x):  # [B, T, D] -> [B, h, T, dh]
+        return x.reshape(bsz, t, heads, dh).transpose(1, 2)
+
+    def merge(x):  # [B, h, T, dh] -> [B, T, D]
+        return x.transpose(1, 2).reshape(bsz, t, d)
+
+    with torch.no_grad():
+        qh, kh, vh, gh = split(q), split(k), split(v), split(dout)
+        p = torch.softmax(torch.matmul(qh, kh.transpose(-1, -2)) * scale + bias, dim=-1)
+        dp = torch.matmul(gh, vh.transpose(-1, -2))
+        pd = p
+        if rate > 0.0:
+            keep = dropout_keep_mask(seed, bsz, heads, t, rate, q.device)
+            keep = keep * (1.0 / (1.0 - rate))
+            pd, dp = p * keep, dp * keep
+        dv = torch.matmul(pd.transpose(-1, -2), gh)
+        ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+        dq = torch.matmul(ds, kh) * scale
+        dk = torch.matmul(ds.transpose(-1, -2), qh) * scale
+        return merge(dq), merge(dk), merge(dv)
+
+
 # ---------------------------------------------------------------------------
-# CUDA kernel wrapper
+# CUDA kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _kernel_lib():
+_STRIDES = [ctypes.c_longlong] * 2
+_DROPOUT_ARGS = [ctypes.c_float, ctypes.c_int, ctypes.c_uint32, ctypes.c_float,
+                 ctypes.c_uint32]  # scale, dropout, keep_threshold, inv_keep, seed
+
+
+def _kernel_lib(name: str):
+    """The library of `csrc/attention_fwd.cu` or `csrc/attention_bwd.cu`."""
     from amid_tpu_torch.ops import _build
 
-    lib = _build.load("attention_fwd")
+    lib = _build.load(name)
     if not getattr(lib, "_amid_typed", False):
-        p, ll = ctypes.c_void_p, ctypes.c_longlong
-        lib.attention_fwd.argtypes = [
-            p, p, p, p, p,  # q, k, v, bias, out
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B T D H
-            ll, ll, ll, ll, ll, ll,  # q/k/v batch and time strides
-            ll, ll,  # bias batch and query strides
-            ctypes.c_float, ctypes.c_int, ctypes.c_uint32, ctypes.c_float,
-            ctypes.c_uint32,  # scale, dropout, keep_threshold, inv_keep, seed
-            p,  # stream
-        ]
-        lib.attention_fwd.restype = ctypes.c_int
-        lib.attention_fwd_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
-        lib.attention_fwd_smem_bytes.restype = ctypes.c_size_t
+        p, i = ctypes.c_void_p, ctypes.c_int
+        n_arrays = 3 if name == "attention_fwd" else 4  # strided inputs
+        n_out = 1 if name == "attention_fwd" else 3
+        fn = getattr(lib, name)
+        fn.argtypes = (
+            [p] * (n_arrays + 1 + n_out)  # inputs, bias, outputs
+            + [i, i, i, i]  # B T D H
+            + _STRIDES * n_arrays  # batch and time strides of each input
+            + _STRIDES  # bias batch and query strides
+            + _DROPOUT_ARGS
+            + [p]  # stream
+        )
+        fn.restype = ctypes.c_int
+        smem = getattr(lib, name + "_smem_bytes")
+        smem.argtypes = [i, i]
+        smem.restype = ctypes.c_size_t
         lib._amid_typed = True
     return lib
 
 
-def _launch_kernel(q, k, v, bias, seed: int, heads: int, rate: float):
-    bsz, t, d = q.shape
-    dh = d // heads
-    dev = q.device
-    for name, x in (("q", q), ("k", k), ("v", v), ("bias", bias)):
+def _check_kernel_inputs(named, dev, heads: int, d: int) -> None:
+    for name, x in named:
         if x.device != dev:
             raise ValueError(f"{name} is on {x.device}, q on {dev}")
         if x.dtype != torch.float32:
             raise TypeError(f"the attention kernel takes float32; {name} is {x.dtype}")
         if x.stride(-1) != 1:
             raise ValueError(f"{name} must have unit stride along its last dim")
+    dh = d // heads
     if dh not in KERNEL_HEAD_DIMS:
         raise ValueError(
             f"the attention kernel takes head widths {KERNEL_HEAD_DIMS}; got "
             f"dh={dh} (D={d}, heads={heads})"
         )
-    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v, bias)):
-        raise NotImplementedError(
-            "fused_attention has no backward on CUDA yet: the backward kernel "
-            "comes with the training slice (run under torch.no_grad())"
-        )
-    lib = _kernel_lib()
-    smem = lib.attention_fwd_smem_bytes(t, dh)
+
+
+def _check_smem(lib, name: str, t: int, dh: int) -> None:
+    smem_bytes = getattr(lib, name + "_smem_bytes")
+    smem = smem_bytes(t, dh)
     if smem > _SMEM_LIMIT:
+        largest = max((n for n in range(1, t) if smem_bytes(n, dh) <= _SMEM_LIMIT),
+                      default=0)
         raise ValueError(
-            f"T={t}, dh={dh} needs {smem} bytes of shared memory per block; "
-            f"the limit is {_SMEM_LIMIT}"
+            f"{name}: T={t}, dh={dh} needs {smem} bytes of shared memory per "
+            f"block; the limit is {_SMEM_LIMIT} (largest T at this head width: "
+            f"{largest})"
         )
-    out = torch.empty((bsz, t, d), dtype=torch.float32, device=dev)
-    bias_sb = bias.stride(0) if bias.shape[0] > 1 else 0
-    bias_si = bias.stride(2) if bias.shape[2] > 1 else 0
+
+
+def _bias_strides(bias):
+    return (bias.stride(0) if bias.shape[0] > 1 else 0,
+            bias.stride(2) if bias.shape[2] > 1 else 0)
+
+
+def _dropout_args(dh: int, seed: int, rate: float):
     dropout = rate > 0.0
+    return (1.0 / math.sqrt(dh), int(dropout),
+            keep_threshold(rate) if dropout else 0, 1.0 / (1.0 - rate), seed & _M32)
+
+
+def _launch_forward(q, k, v, bias, seed: int, heads: int, rate: float):
+    bsz, t, d = q.shape
+    dh = d // heads
+    dev = q.device
+    _check_kernel_inputs((("q", q), ("k", k), ("v", v), ("bias", bias)), dev, heads, d)
+    lib = _kernel_lib("attention_fwd")
+    _check_smem(lib, "attention_fwd", t, dh)
+    out = torch.empty((bsz, t, d), dtype=torch.float32, device=dev)
     err = lib.attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(),
         bsz, t, d, heads,
         q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-        v.stride(0), v.stride(1), bias_sb, bias_si,
-        1.0 / math.sqrt(dh), int(dropout),
-        keep_threshold(rate) if dropout else 0,
-        1.0 / (1.0 - rate), seed & _M32,
+        v.stride(0), v.stride(1), *_bias_strides(bias),
+        *_dropout_args(dh, seed, rate),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"attention_fwd kernel launch failed: cudaError {err}")
     fused_attention.launches += 1
     return out
+
+
+def _launch_backward(q, k, v, bias, dout, seed: int, heads: int, rate: float):
+    bsz, t, d = q.shape
+    dh = d // heads
+    dev = q.device
+    if dout.stride(-1) != 1:
+        dout = dout.contiguous()
+    _check_kernel_inputs(
+        (("q", q), ("k", k), ("v", v), ("bias", bias), ("dout", dout)), dev, heads, d)
+    if dout.shape != q.shape:
+        raise ValueError(f"dout must be {tuple(q.shape)}; got {tuple(dout.shape)}")
+    lib = _kernel_lib("attention_bwd")
+    _check_smem(lib, "attention_bwd", t, dh)
+    dq, dk, dv = (torch.empty((bsz, t, d), dtype=torch.float32, device=dev)
+                  for _ in range(3))
+    err = lib.attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), dout.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        bsz, t, d, heads,
+        q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+        v.stride(0), v.stride(1), dout.stride(0), dout.stride(1),
+        *_bias_strides(bias), *_dropout_args(dh, seed, rate),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"attention_bwd kernel launch failed: cudaError {err}")
+    fused_attention.backward_launches += 1
+    return dq, dk, dv
+
+
+def attention_backward(q, k, v, bias, dout, seed: int, heads: int, rate: float):
+    """(dq, dk, dv) for the output gradient `dout`: the backward kernel on
+    CUDA tensors (or an error), `attention_bwd_plain` on CPU tensors."""
+    if q.device.type == "cpu":
+        return attention_bwd_plain(q, k, v, bias, dout, seed, heads, rate)
+    if q.device.type != "cuda":
+        raise ValueError(f"attention_backward runs on cuda or cpu, not {q.device}")
+    _check_inputs(q, k, v, heads, rate)
+    check_bias(bias, q.shape[0], q.shape[1])
+    return _launch_backward(q, k, v, bias, dout, seed, heads, rate)
+
+
+class _FusedAttention(torch.autograd.Function):
+    """Forward kernel and backward kernel as one differentiable function.
+    The residuals are the inputs (q, k, v, bias) and the seed: the backward
+    recomputes the probabilities and regenerates the dropout mask."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, seed, heads, rate):
+        out = _launch_forward(q, k, v, bias, seed, heads, rate)
+        ctx.save_for_backward(q, k, v, bias)
+        ctx.attn_args = (seed, heads, rate)
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dout):
+        q, k, v, bias = ctx.saved_tensors
+        dq, dk, dv = _launch_backward(q, k, v, bias, dout, *ctx.attn_args)
+        return dq, dk, dv, None, None, None, None
 
 
 def fused_attention(
@@ -223,9 +357,9 @@ def fused_attention(
 ) -> torch.Tensor:
     """q, k, v: [B, T, D] float32; bias: additive [1|B, 1, 1|T, T]; seed: int
     keying the dropout mask (read only when rate > 0); heads, rate: Python
-    numbers. Returns [B, T, D].
+    numbers. Returns [B, T, D], differentiable in q, k and v.
 
-    CUDA tensors launch the kernel (or raise); CPU tensors take
+    CUDA tensors launch the kernels (or raise); CPU tensors take
     `attention_plain`."""
     if q.device.type == "cpu":
         return attention_plain(q, k, v, bias, seed, heads, rate)
@@ -233,7 +367,13 @@ def fused_attention(
         raise ValueError(f"fused_attention runs on cuda or cpu, not {q.device}")
     _check_inputs(q, k, v, heads, rate)
     check_bias(bias, q.shape[0], q.shape[1])
-    return _launch_kernel(q, k, v, bias, seed, heads, rate)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        # a gradient will be asked for: fail now if the backward kernel cannot
+        # take this shape, not in the middle of a backward pass
+        _check_smem(_kernel_lib("attention_bwd"), "attention_bwd",
+                    q.shape[1], q.shape[2] // heads)
+    return _FusedAttention.apply(q, k, v, bias, seed, heads, rate)
 
 
-fused_attention.launches = 0  # kernel launches since the last reset
+fused_attention.launches = 0  # forward kernel launches since the last reset
+fused_attention.backward_launches = 0  # backward kernel launches

@@ -1,0 +1,175 @@
+"""Lazy (sparse) Adam for the embedding table — the counterpart of
+`amid_tpu/train/lazy.py`.
+
+Dense Adam touches every row of the item table each step (params, gradient,
+mu, nu) for a step that gathers a few thousand rows. The reference pays the
+same, so dense is the parity default; this opt-in path (`lazy_table_adam`)
+restructures the step so the table's gradient is never materialised and only
+touched rows' parameters/moments move:
+
+1. negatives are sampled first, then the step's unique ids are computed
+   (`torch.unique`, padded to the static `_unique_budget` with the
+   out-of-range sentinel V, so every later shape is static);
+2. the touched rows are gathered ONCE and become the differentiated leaf —
+   the model's lookups are redirected to positions within them
+   (`AMIDModel.lookup(ids, lazy_rows=(uids, rows))`); the table parameter
+   takes no gradient;
+3. the [U, D] row gradient drives a per-row Adam update (bias correction by
+   the GLOBAL step count) written back in place by the unique-row scatter
+   kernel (`ops/scatter.py`), which drops the sentinel rows; dense
+   parameters use Adam as usual.
+
+`torch.unique` sizes its result on the host, so the step synchronises once
+there; the pad to the static budget is what a later CUDA graph needs.
+
+Both DR phases are covered: `make_lazy_train_step` is phase A on optimizer 1,
+`make_lazy_dr_r_step` phase B on optimizer 2 with a second, independent set
+of table moments.
+
+Semantics: identical to dense Adam on the first touch of each row; diverges
+only in that an untouched row's moments do not decay that step (standard
+lazy-Adam behaviour, cf. torch.optim.SparseAdam).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Optional
+
+import torch
+
+from amid_tpu_torch.ops.rng import StepRandom
+from amid_tpu_torch.ops.scatter import (
+    scatter_set_unique,
+    scatter_set_unique3,
+    scatter_set_unique3_plain,
+    scatter_set_unique_plain,
+)
+from amid_tpu_torch.train.optim import Adam, AdamState
+from amid_tpu_torch.train.steps import (
+    TrainState, _draw_negatives, _finish_metrics, _make_labels, _model_batch,
+    phase_a_loss, phase_b_loss,
+)
+
+TABLE_KEY = "item_embedding"
+
+
+@dataclass
+class LazyTableState:
+    dense_opt: AdamState  # Adam state over the non-table params
+    mu: torch.Tensor  # [V, D]
+    nu: torch.Tensor  # [V, D]
+    count: int  # global step, for bias correction
+
+
+def _init_slot(table, dense, tx: Adam) -> LazyTableState:
+    return LazyTableState(
+        dense_opt=tx.init(dense),
+        mu=torch.zeros_like(table),
+        nu=torch.zeros_like(table),
+        count=0,
+    )
+
+
+def init_lazy_state(params, tx_dense: Adam,
+                    tx2_dense: Optional[Adam] = None) -> TrainState:
+    table = params[TABLE_KEY]
+    dense = {k: v for k, v in params.items() if k != TABLE_KEY}
+    opt = _init_slot(table, dense, tx_dense)
+    opt2 = _init_slot(table, dense, tx2_dense) if tx2_dense is not None else None
+    return TrainState(dict(params), opt, opt2)
+
+
+def _unique_budget(batch_size: int, seq_len: int, num_neg: int) -> int:
+    total = batch_size * (1 + num_neg + 2 * seq_len)
+    return -(-total // 1024) * 1024
+
+
+def _make_lazy_step(
+    model,
+    tx_dense: Adam,
+    loss_fn: Callable,
+    slot: int,
+    fused_scatter: bool = True,
+) -> Callable:
+    """Shared lazy-step skeleton. loss_fn(out, labels, batch) ->
+    (loss, metrics); slot selects which optimizer state (1 = opt_state,
+    2 = opt_state2) is read and written — the other is untouched. The table
+    rows take `tx_dense`'s own lr, b1, b2 and eps.
+
+    A model built with kernels='cuda' writes back through the scatter kernel
+    — one fused launch, or three single-array launches with
+    fused_scatter=False; kernels='torch' through the plain versions."""
+    lr, b1, b2, eps = tx_dense.lr, tx_dense.b1, tx_dense.b2, tx_dense.eps
+    on_kernels = model.cfg.kernels == "cuda"
+    set3 = scatter_set_unique3 if on_kernels else scatter_set_unique3_plain
+    set1 = scatter_set_unique if on_kernels else scatter_set_unique_plain
+
+    def step(state: TrainState, batch, pools, pool_sizes, key: int, neg=None):
+        device = pools.device
+        table = state.params[TABLE_KEY]
+        v = table.shape[0]
+        opt: LazyTableState = state.opt_state if slot == 1 else state.opt_state2
+
+        rng = StepRandom(key, device)
+        neg = _draw_negatives(rng, batch, pools, pool_sizes, 1, neg)
+        labels = _make_labels(batch["target"].shape[0], 1, device)
+
+        all_ids = torch.cat([
+            batch["target"].reshape(-1), neg.reshape(-1),
+            batch["seq_d1"].reshape(-1), batch["seq_d2"].reshape(-1),
+        ])
+        u_budget = _unique_budget(
+            batch["target"].shape[0], batch["seq_d1"].shape[1], neg.shape[1]
+        )
+        found = torch.unique(all_ids)  # sorted; sizes its result on the host
+        uids = torch.full((u_budget,), v, dtype=all_ids.dtype, device=device)
+        uids[: found.shape[0]] = found  # sentinel tail
+        safe = uids.clamp(max=v - 1)
+        rows = table.detach().index_select(0, safe).requires_grad_()  # [U, D] — the diff leaf
+
+        dense = {k: p for k, p in state.params.items() if k != TABLE_KEY}
+        model.train()
+        out = model(_model_batch(batch, neg), rng=rng, lazy_rows=(uids, rows))
+        loss, metrics = loss_fn(out, labels, batch)
+        names = list(dense)
+        *g_dense, g_rows = torch.autograd.grad(
+            loss, [*(dense[k] for k in names), rows], allow_unused=True
+        )
+        metrics = _finish_metrics(metrics)
+
+        with torch.no_grad():
+            # dense params: plain Adam
+            tx_dense.update_(dense, dict(zip(names, g_dense)), opt.dense_opt)
+
+            # touched table rows: per-row Adam with global-step bias correction
+            opt.count += 1
+            if g_rows is None:
+                g_rows = torch.zeros_like(rows)
+            mu_new = b1 * opt.mu.index_select(0, safe) + (1.0 - b1) * g_rows
+            nu_new = b2 * opt.nu.index_select(0, safe) + (1.0 - b2) * g_rows**2
+            mhat = mu_new / (1.0 - b1**opt.count)
+            vhat = nu_new / (1.0 - b2**opt.count)
+            new_rows = rows.detach() - lr * mhat / (torch.sqrt(vhat) + eps)
+            if fused_scatter:
+                set3(table, opt.mu, opt.nu, uids, new_rows, mu_new, nu_new)
+            else:
+                set1(table, uids, new_rows)
+                set1(opt.mu, uids, mu_new)
+                set1(opt.nu, uids, nu_new)
+        return state, metrics
+
+    return step
+
+
+def make_lazy_train_step(model, tx_dense: Adam, dr_e_w: Optional[float] = None,
+                         fused_scatter: bool = True) -> Callable:
+    """Phase-A step (masked BCE, + dr_e_w * dr_e when DR) on optimizer 1."""
+    return _make_lazy_step(model, tx_dense, phase_a_loss(dr_e_w), 1, fused_scatter)
+
+
+def make_lazy_dr_r_step(model, tx2_dense: Adam, fused_scatter: bool = True) -> Callable:
+    """Phase-B step (train_sr_dr.py:363-403): imputation/propensity heads on
+    observed+unobserved rows, optimizer2 — with lazy table updates against
+    the second per-row moment set."""
+    return _make_lazy_step(model, tx2_dense, phase_b_loss, 2, fused_scatter)

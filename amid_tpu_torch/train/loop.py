@@ -1,0 +1,256 @@
+"""The trainer: the per-step path of `amid_tpu/train/loop.py::run_seed`.
+
+Protocol reproduced from the reference:
+* per-epoch: full pass over the train loader, then eval (train_sr.py:187-223);
+  DR adds a second pass over the DR loader stepping optimizer2, then a second
+  eval (train_sr_dr.py:362-403).
+* best-metric tracking takes the per-metric max over epochs
+  (train_sr.py:224-270).
+* 5-seed protocol with mean/std aggregation (train_sr.py:439-443,549-569).
+
+The step-key schedule keeps the JAX trainer's shape with integer keys
+(`ops.rng.fold_in`): one stream per epoch, step i of phase A, 20_000 + i of
+phase B, 10_000 and 30_000 for the two evaluations, batch i of an evaluation
+folded into its key.
+
+No host sync inside the step loop: every step's `nonfinite` flag is folded
+into a device-side latch that the host reads at log cadence and epoch end.
+
+Not ported yet (run_seed raises `NotImplementedError` naming the field):
+mesh training, the fast train/eval loops, checkpoints and resume, the
+profiler. `run` (CSVs in, seeds aggregated) arrives with the CLIs.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from amid_tpu_torch.config import TrainConfig
+from amid_tpu_torch.data.loader import BatchIterator
+from amid_tpu_torch.data.packed import PackedDualDomainDataset
+from amid_tpu_torch.models.amid import build_model, resolve_device
+from amid_tpu_torch.ops.rng import fold_in
+from amid_tpu_torch.train.metrics import RankAccumulator
+from amid_tpu_torch.train.optim import Adam
+from amid_tpu_torch.train.steps import (
+    init_state,
+    make_dr_r_step,
+    make_eval_step,
+    make_train_step,
+)
+from amid_tpu_torch.utils.logging import AverageMeter, init_logger
+
+_NOT_PORTED = {  # TrainConfig field -> the part of the JAX trainer it asks for
+    "use_mesh": "mesh training (the parallel layer)",
+    "fast_train": "the device-resident chunked train loop",
+    "fast_eval": "the device-resident eval pass",
+    "checkpoint": "the checkpoint manager",
+    "resume": "the checkpoint manager",
+    "profile_steps": "the profiler",
+}
+
+
+def _device_pools(ds: PackedDualDomainDataset, device):
+    return (torch.as_tensor(ds.pools, device=device),
+            torch.as_tensor(ds.pool_sizes, device=device))
+
+
+def _to_device(batch: dict[str, np.ndarray], device) -> dict[str, torch.Tensor]:
+    return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+
+
+def evaluate(
+    eval_step,
+    val_iter: BatchIterator,
+    pools,
+    pool_sizes,
+    key: int,
+    overlap_eval: bool,
+) -> dict[str, float]:
+    acc = RankAccumulator(overlap_eval)
+    val_losses = []
+    for i, batch in enumerate(val_iter):
+        out = eval_step(_to_device(batch, pools.device), pools, pool_sizes,
+                        fold_in(key, i))
+        # ranks stay on the device until finalize(): no per-batch sync
+        acc.add(out["ranks_fixed"], out["ranks_raw"],
+                batch["domain_id"], batch["overlap"])
+        val_losses.append(out["loss_cls"])
+    metrics = acc.finalize()
+    metrics["val_loss"] = (
+        float(torch.stack(val_losses).mean()) if val_losses else 0.0
+    )
+    return metrics
+
+
+class NonFiniteLossError(RuntimeError):
+    pass
+
+
+def _handle_nan(cfg, log, epoch, step) -> None:
+    """Failure detection: act on a non-finite train loss per cfg.nan_policy
+    ("halt" raises; "restore" has no checkpoint to roll back to yet and, like
+    "ignore", logs and continues)."""
+    msg = f"non-finite train loss at epoch {epoch} step {step}"
+    if cfg.nan_policy == "halt":
+        raise NonFiniteLossError(msg)
+    log.error(f"{msg}; continuing (policy={cfg.nan_policy})")
+
+
+def _track_best(best: dict[str, float], cur: dict[str, float]) -> None:
+    for k, v in cur.items():
+        if k.startswith(("hit_", "ndcg_", "mrr")):
+            best[k] = max(best.get(k, 0.0), v)
+
+
+def _run_phase(step, state, batches, pools, pool_sizes, ekey, key_offset,
+               cfg, log, meter, epoch, keys=None):
+    """One pass over `batches` with `step`; logs the running means of `keys`
+    (default: every metric) every cfg.log_every steps and checks the
+    non-finite latch there and at the end. Returns the number of steps."""
+    device = pools.device
+    latch = torch.zeros((), device=device)
+    n = 0
+    for i, batch in enumerate(batches):
+        state, m = step(state, _to_device(batch, device), pools, pool_sizes,
+                        fold_in(ekey, key_offset + i))
+        latch = torch.maximum(latch, m.pop("nonfinite"))
+        n += 1
+        if i % cfg.log_every == 0:
+            if float(latch) > 0.0:
+                _handle_nan(cfg, log, epoch, i)
+                latch = torch.zeros((), device=device)
+                continue
+            shown = {k: float(v) for k, v in m.items() if keys is None or k in keys}
+            meter.update(**shown)
+            log.info("train " + ", ".join(
+                f"{k}:{meter.mean(k):.5f}" for k in sorted(shown)))
+    if float(latch) > 0.0:
+        _handle_nan(cfg, log, epoch, "end")
+    return n
+
+
+def run_seed(
+    cfg: TrainConfig,
+    seed: int,
+    train_ds: PackedDualDomainDataset,
+    val_ds: PackedDualDomainDataset,
+    dr_ds: Optional[PackedDualDomainDataset] = None,
+    device=None,
+) -> dict[str, float]:
+    """Train one seed; returns the best-metric dict (reference train()
+    return contract, train_sr.py:352-355). Logs to the console and to
+    `cfg.model_dir/log{seed}.txt`.
+
+    Runs on `cuda` unless the caller passes a device (e.g. "cpu"), and
+    raises without a card."""
+    for name, what in _NOT_PORTED.items():
+        if getattr(cfg, name):
+            raise NotImplementedError(
+                f"TrainConfig.{name}={getattr(cfg, name)!r} asks for {what}, "
+                f"which is not ported yet; set it to {type(getattr(cfg, name))()!r}"
+            )
+    if cfg.model.is_c2dsr:
+        raise NotImplementedError("model.is_c2dsr: the C2DSR objective is not ported yet")
+    device = resolve_device(device)
+    log = init_logger(cfg.model_dir, f"log{seed}.txt")
+    model = build_model(cfg.model, device=device, seed=seed)
+    is_dr = cfg.model.is_dr
+    tx = Adam(cfg.lr)
+    tx2 = Adam(cfg.lr * cfg.lr2) if is_dr else None
+    dr_e_w = cfg.dr_e_w if is_dr else None
+
+    if cfg.lazy_table_adam:
+        from amid_tpu_torch.train.lazy import (
+            init_lazy_state, make_lazy_dr_r_step, make_lazy_train_step,
+        )
+
+        state = init_lazy_state(dict(model.named_parameters()), tx, tx2)
+        train_step = make_lazy_train_step(model, tx, dr_e_w=dr_e_w)
+        dr_step = make_lazy_dr_r_step(model, tx2) if is_dr else None
+    else:
+        state = init_state(model, tx, tx2)
+        train_step = make_train_step(model, tx, dr_e_w=dr_e_w)
+        dr_step = make_dr_r_step(model, tx2) if is_dr else None
+    n_params = sum(p.numel() for p in state.params.values())
+    log.info(f"seed {seed}: params={n_params:,} device={device} "
+             f"kernels={model.cfg.kernels}")
+    eval_step = make_eval_step(model, cfg.data.neg_nums)
+
+    pools, pool_sizes = _device_pools(train_ds, device)
+    # eval negatives come from the *val* split's pools (dataset_seq.py:141-142
+    # — each Dataset builds pools from its own csv)
+    vpools, vpool_sizes = _device_pools(val_ds, device)
+    dpools, dpool_sizes = (
+        _device_pools(dr_ds, device) if dr_ds is not None else (None, None)
+    )
+
+    bs = cfg.model.batch_size
+    train_iter = BatchIterator(train_ds, bs, shuffle=True, seed=seed, drop_last=True)
+    val_iter = BatchIterator(val_ds, bs, shuffle=False, seed=seed,
+                             drop_last=cfg.eval_batch_drop_last)
+    dr_iter = (
+        BatchIterator(dr_ds, bs, shuffle=True, seed=seed + 1000)
+        if dr_ds is not None else None
+    )
+
+    root_key = fold_in(seed, 0)
+    best: dict[str, float] = {}
+    train_seconds, train_examples = 0.0, 0
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    for epoch in range(cfg.epochs):
+        meter = AverageMeter()
+        ekey = fold_in(root_key, epoch)
+        sync()
+        t0 = time.perf_counter()
+        n = _run_phase(train_step, state, train_iter, pools, pool_sizes, ekey, 0,
+                       cfg, log, meter, epoch)
+        sync()
+        train_seconds += time.perf_counter() - t0
+        train_examples += n * bs
+
+        ev = evaluate(eval_step, val_iter, vpools, vpool_sizes,
+                      fold_in(ekey, 10_000), cfg.overlap_eval)
+        _track_best(best, ev)
+        log.info(
+            f"epoch {epoch}/{cfg.epochs} val_loss={ev['val_loss']:.4f} "
+            f"HR@10 d1={ev['hit_10_d1']:.4f} d2={ev['hit_10_d2']:.4f} "
+            f"NDCG@10 d1={ev['ndcg_10_d1']:.4f} d2={ev['ndcg_10_d2']:.4f} "
+            f"MRR d1={ev['mrr_d1']:.4f} d2={ev['mrr_d2']:.4f}"
+        )
+
+        if is_dr and dr_iter is not None:
+            _run_phase(dr_step, state, dr_iter, dpools, dpool_sizes, ekey, 20_000,
+                       cfg, log, meter, epoch, keys=("loss_dr_r",))
+            ev = evaluate(eval_step, val_iter, vpools, vpool_sizes,
+                          fold_in(ekey, 30_000), cfg.overlap_eval)
+            _track_best(best, ev)
+            log.info(
+                f"epoch {epoch} (post-DR) HR@10 d1={ev['hit_10_d1']:.4f} "
+                f"d2={ev['hit_10_d2']:.4f} MRR d1={ev['mrr_d1']:.4f} "
+                f"d2={ev['mrr_d2']:.4f}"
+            )
+
+    # phase-A examples over phase-A wall time (synchronised at both ends)
+    best["examples_per_s"] = train_examples / train_seconds if train_seconds else 0.0
+    best["start_epoch"] = 0.0
+    return best
+
+
+def aggregate_seeds(per_seed: list[dict[str, float]], log) -> dict[str, dict]:
+    """5-seed mean/std block (train_sr.py:549-569)."""
+    keys = sorted({k for d in per_seed for k in d})
+    agg = {}
+    for k in keys:
+        vals = [d[k] for d in per_seed if k in d]
+        agg[k] = {"mean": float(np.mean(vals)), "std": float(np.std(vals))}
+        log.info(f"{k}: {agg[k]['mean']:.4f}/{agg[k]['std']:.4f}")
+    return agg

@@ -8,22 +8,40 @@ JAX package. Phases, in order (any failure ends the run with a non-zero exit
 code and no result line):
 
 1. the card's name and power limit; build every CUDA kernel of the serving
-   path from `amid_tpu_torch/csrc/`, timing the build;
+   and training paths from `amid_tpu_torch/csrc/` (one `nvcc` per source, all
+   started together), timing the build;
 2. kernels: each kernel against its plain PyTorch version on the card, at
-   the serving path's shapes (attention forward: causal bias with 8 heads at
+   the main paths' shapes, with its time beside the plain version's, one
+   PyTorch library call's (a yardstick the port never calls) and the card's
+   bound for the same work. Attention forward: causal bias with 8 heads at
    T=150 and T=20; a key-padding bias with 4 heads of width 32 and a fully
    masked row; dropout at rate 0.5 with the two masks compared element for
-   element), with its time beside the plain version's, one PyTorch library
-   call's (`scaled_dot_product_attention`, a yardstick the port never calls)
-   and the card's bound for the same work;
-3. the main path at the full width of the `run.sh` model (SASRec, InterComp
+   element (library: `scaled_dot_product_attention`). Attention backward:
+   dq, dk, dv at the same four cases, rate 0.5 with the forward's seed
+   (library: the backward of `scaled_dot_product_attention` through
+   autograd). Unique-row scatters, fused (three arrays) and single: V=894,820,
+   D=128, U=11,264 and 77,824 with a sentinel tail and rows 0 and V-1, bit
+   for bit, untouched rows unchanged (library: `index_copy_` on pre-filtered
+   ids);
+3. the serving path at the full width of the `run.sh` model (SASRec, InterComp
    ts2=0.4, DR heads, emb 128, hid 32, batch 256, 2 blocks, 8 heads) at the
    amazon shape T=150 with the 894,820-row item table, random weights from
    a seeded generator: `serve.user_representations` (the attention kernel
    must launch 4 times: 2 towers x 2 blocks), checked against the same model
    with kernels='torch' (InterComp gates first), then `serve.full_catalog_topk`
    with k=100 for both domains over the whole table, checked against a dense
-   oracle for 8 users; then the feature pass again at T=20.
+   oracle for 8 users; then the feature pass again at T=20;
+4. the training path at the same width on synthetic packed data made from a
+   numpy seed (`amid_tpu_torch/data/synthetic.py`: item ids over the whole
+   894,820-row table, pools of the real size): `train.loop.run_seed` for one epoch of the DR schedule (phase A,
+   evaluation with 999 negatives, phase B, evaluation) with (a) T=20 and the
+   lazy table Adam, (b) T=150 and dense Adam, counting every kernel launch;
+   then, step by step, one phase-A step, one phase-B step and one evaluation
+   batch of a `kernels='cuda'` model against the same step of a
+   `kernels='torch'` model from the same state, batch and key (4 forward and
+   4 backward attention launches per step, one fused scatter launch per lazy
+   step, three single launches with `fused_scatter=False`, first `loss_cls`
+   near ln 2, no table gradient on the lazy path), and the ms per step.
 
 It prints a JSON line of per-kernel numbers, the `nvidia-smi` name and power
 line, and last `{"ok": true, "device": {...}}`.
@@ -37,6 +55,7 @@ import math
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -44,7 +63,8 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12  # without tensor cores
 
-ATOL, RTOL = 1e-5, 1e-4  # kernel vs plain, fp32, rate 0
+ATOL, RTOL = 1e-5, 1e-4  # forward kernel vs plain, fp32
+BWD_ATOL = 2e-5  # backward: dk, dv sum products over up to 150 queries
 FEATURE_TOL = 1e-4  # whole feature pass, kernel model vs plain model
 TOPK_RTOL, TOPK_ATOL = 1e-5, 1e-6  # catalog top-k vs dense oracle
 FLAGSHIP = dict(
@@ -52,8 +72,27 @@ FLAGSHIP = dict(
     is_itc=True, ts2=0.4, is_dr=True, comp_broadcast_quirk=True,
     sasrec_blocks=2, sasrec_heads=8, item_length=447410,
 )
-SOURCE = "amid_tpu_torch/csrc/attention_fwd.cu"
-REPLACES = "amid_tpu/ops/pallas_attention.py:99"
+KERNELS = {  # name -> (source, the TPU kernel it replaces)
+    "attention_fwd": ("amid_tpu_torch/csrc/attention_fwd.cu",
+                      "amid_tpu/ops/pallas_attention.py:99"),
+    "attention_bwd": ("amid_tpu_torch/csrc/attention_bwd.cu",
+                      "amid_tpu/ops/pallas_attention.py:118"),
+    "scatter_set_unique3": ("amid_tpu_torch/csrc/scatter_rows.cu",
+                            "amid_tpu/ops/pallas_scatter.py:68"),
+    "scatter_set_unique": ("amid_tpu_torch/csrc/scatter_rows.cu",
+                           "amid_tpu/ops/pallas_scatter.py:49"),
+}
+# training phase: one step of a kernels='cuda' model against the same step of
+# a kernels='torch' model (same state, batch and key, dropout 0.5 on)
+LOSS_TOL = 1e-5  # |loss difference|
+MOMENT_TOL = 2e-4  # max |difference| of a moment array over its max |value|
+# Adam's first update is lr * g / (|g| + eps): nearly lr * sign(g), so an
+# element whose gradient is at rounding level may move the other way. Updated
+# values are compared element-wise at UPDATE_ATOL and at most UPDATE_SHARE of
+# the elements may differ by more.
+UPDATE_ATOL, UPDATE_SHARE = 1e-6, 1e-3
+LN2_TOL = 0.05  # first loss_cls vs ln 2
+TRAIN_ROWS, VAL_ROWS, DR_ROWS = 1536, 512, 1536  # 6 + 6 steps, 2 eval batches
 
 
 class SmokeFailure(RuntimeError):
@@ -91,6 +130,42 @@ def attention_bound(b, t, d, heads, bias_numel):
     flops = 4 * b * heads * t * t * dh  # Q.K^T and P.V multiply-adds
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def attention_bwd_bound(b, t, d, heads, bias_numel):
+    """Least time (ms) of one attention backward: q, k, v, dO, bias read,
+    dq, dk, dv written; five products of 2*T*T*dh operations per head."""
+    dh = d // heads
+    nbytes = 4 * (7 * b * t * d + bias_numel)
+    flops = 10 * b * heads * t * t * dh
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def scatter_bound(n_arrays, rows_written, width, n_ids):
+    """Least time (ms) of a unique-row scatter: every written row read once
+    and written once, the ids read once. Pure data movement."""
+    nbytes = n_arrays * 2 * rows_written * width * 4 + 4 * n_ids
+    return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def counters():
+    from amid_tpu_torch.ops.attention import fused_attention
+    from amid_tpu_torch.ops.scatter import scatter_set_unique, scatter_set_unique3
+
+    return {"attention_fwd": (fused_attention, "launches"),
+            "attention_bwd": (fused_attention, "backward_launches"),
+            "scatter_set_unique3": (scatter_set_unique3, "launches"),
+            "scatter_set_unique": (scatter_set_unique, "launches")}
+
+
+def reset_counts() -> None:
+    for fn, attr in counters().values():
+        setattr(fn, attr, 0)
+
+
+def read_counts() -> dict:
+    return {name: getattr(fn, attr) for name, (fn, attr) in counters().items()}
 
 
 # ---------------------------------------------------------------------------
@@ -188,6 +263,129 @@ def kernel_phase(torch, gen):
     require(abs(kept - 0.5) <= 3 * sigma, f"kept share {kept} not within 3 sigma of 0.5")
     emit({"dropout_mask": {"equal": True, "kept_share": kept, "sigma": sigma,
                            "elements": want_mask.numel()}})
+    return cases
+
+
+def backward_kernel_phase(torch, gen):
+    import torch.nn.functional as F
+
+    from amid_tpu_torch.ops.attention import attention_backward, attention_bwd_plain
+
+    def causal(t):
+        return torch.triu(torch.full((t, t), -1e9, device="cuda"), diagonal=1)[None, None]
+
+    def compare(name, b, t, d, bias, heads, seed=0, rate=0.0, timed=True):
+        q, k, v, dout = (torch.randn(b, t, d, device="cuda", generator=gen)
+                         for _ in range(4))
+        got = attention_backward(q, k, v, bias, dout, seed, heads, rate)
+        want = attention_bwd_plain(q, k, v, bias, dout, seed, heads, rate)
+        torch.cuda.synchronize()
+        errs = {n: (g - w).abs().max().item() for n, g, w in zip(("dq", "dk", "dv"), got, want)}
+        for n, g, w in zip(errs, got, want):
+            require(torch.isfinite(g).all().item(), f"{name}: non-finite {n}")
+            require(torch.allclose(g, w, atol=BWD_ATOL, rtol=RTOL),
+                    f"{name}: kernel vs plain {n} max_abs_err {errs[n]}")
+        rec = {"case": name, "shape": [b, t, d], "bias": list(bias.shape), "heads": heads,
+               "rate": rate, "max_abs_err": max(errs.values()), "errs": errs}
+        if timed:
+            dh = d // heads
+            rec["kernel_ms"] = cuda_ms(
+                torch, lambda: attention_backward(q, k, v, bias, dout, seed, heads, rate), 20)
+            rec["plain_ms"] = cuda_ms(
+                torch, lambda: attention_bwd_plain(q, k, v, bias, dout, seed, heads, rate), 10)
+
+            def split(x):
+                return x.view(b, t, heads, dh).transpose(1, 2)
+
+            qh, kh, vh = (split(x).detach().requires_grad_() for x in (q, k, v))
+            gh = split(dout)
+
+            def sdpa_fwd():
+                return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=bias)
+
+            lib = torch.autograd.grad(sdpa_fwd(), (qh, kh, vh), gh)
+            rec["library_max_abs_err"] = max(
+                (g.transpose(1, 2).reshape(b, t, d) - w).abs().max().item()
+                for g, w in zip(lib, want))
+            both = cuda_ms(torch, lambda: torch.autograd.grad(sdpa_fwd(), (qh, kh, vh), gh), 20)
+            with torch.no_grad():
+                fwd_only = cuda_ms(torch, sdpa_fwd, 20)
+            # backward alone: forward + backward less the forward
+            rec["library_ms"] = both - fwd_only
+            rec["bound_ms"], rec["bound_by"] = attention_bwd_bound(
+                b, t, d, heads, bias.numel())
+        emit({"kernel_case_bwd": rec})
+        return rec
+
+    B, D = 256, 128
+    cases = {t: compare(f"bwd_causal_T{t}_h8", B, t, D, causal(t), 8) for t in (150, 20)}
+    t = 150
+    lens = torch.randint(1, t + 1, (B,), device="cuda", generator=gen)
+    key_ok = torch.arange(t, device="cuda")[None, :] >= (t - lens[:, None])
+    bias = torch.where(key_ok, 0.0, -1e9)[:, None, None, :]
+    cases["keypad"] = compare("bwd_keypad_T150_h4", B, t, D, bias, 4)
+    cases["rate0.5"] = compare("bwd_causal_T150_h8_rate0.5", B, t, D, causal(t), 8,
+                               seed=1234, rate=0.5, timed=False)
+    return cases
+
+
+def scatter_kernel_phase(torch, gen):
+    from amid_tpu_torch.ops.scatter import (
+        scatter_set_unique, scatter_set_unique3, scatter_set_unique3_plain,
+        scatter_set_unique_plain,
+    )
+
+    V, D = 2 * FLAGSHIP["item_length"], FLAGSHIP["emb_dim"]
+    tabs = [torch.randn(V, D, device="cuda", generator=gen) for _ in range(3)]
+    refs = [t.clone() for t in tabs]
+    original = tabs[0].clone()
+    cases = {}
+    for U in (11264, 77824):
+        # sorted unique ids with rows 0 and V-1, then a sentinel tail of V
+        real = torch.randperm(V, device="cuda", generator=gen)[: U - U // 10]
+        ids = torch.unique(torch.cat([real, torch.tensor([0, V - 1], device="cuda")]))
+        n_real = ids.numel()
+        ids = torch.cat([ids, torch.full((U - n_real,), V, device="cuda")]).to(torch.int32)
+        rows = [torch.randn(U, D, device="cuda", generator=gen) for _ in range(3)]
+        kept = ids[:n_real].long()
+        kept_rows = [r[:n_real] for r in rows]
+
+        scatter_set_unique3(*tabs, ids, *rows)
+        scatter_set_unique3_plain(*refs, ids, *rows)
+        torch.cuda.synchronize()
+        for i, (a, b) in enumerate(zip(tabs, refs)):
+            require(torch.equal(a, b), f"scatter_set_unique3 U={U}: array {i} != plain")
+        require(torch.equal(tabs[0][kept], rows[0][:n_real]), "scatter: written rows differ")
+        untouched = torch.ones(V, dtype=torch.bool, device="cuda")
+        untouched[kept] = False
+        require(torch.equal(tabs[0][untouched], original[untouched]),
+                f"scatter_set_unique3 U={U}: an untouched row changed")
+        original[kept] = rows[0][:n_real]
+        rec3 = {"case": f"scatter3_U{U}", "V": V, "D": D, "U": U, "rows_written": n_real,
+                "max_abs_err": 0.0,
+                "kernel_ms": cuda_ms(torch, lambda: scatter_set_unique3(*tabs, ids, *rows), 50),
+                "plain_ms": cuda_ms(
+                    torch, lambda: scatter_set_unique3_plain(*refs, ids, *rows), 20),
+                "library_ms": cuda_ms(torch, lambda: [
+                    t.index_copy_(0, kept, r) for t, r in zip(refs, kept_rows)], 50)}
+        rec3["bound_ms"], rec3["bound_by"] = scatter_bound(3, n_real, D, U)
+        emit({"kernel_case_scatter": rec3})
+
+        single = torch.randn(U, D, device="cuda", generator=gen)
+        scatter_set_unique(tabs[1], ids, single)
+        scatter_set_unique_plain(refs[1], ids, single)
+        torch.cuda.synchronize()
+        require(torch.equal(tabs[1], refs[1]), f"scatter_set_unique U={U} != plain")
+        rec1 = {"case": f"scatter1_U{U}", "V": V, "D": D, "U": U, "rows_written": n_real,
+                "max_abs_err": 0.0,
+                "kernel_ms": cuda_ms(torch, lambda: scatter_set_unique(tabs[1], ids, single), 50),
+                "plain_ms": cuda_ms(
+                    torch, lambda: scatter_set_unique_plain(refs[1], ids, single), 20),
+                "library_ms": cuda_ms(
+                    torch, lambda: refs[1].index_copy_(0, kept, single[:n_real]), 50)}
+        rec1["bound_ms"], rec1["bound_by"] = scatter_bound(1, n_real, D, U)
+        emit({"kernel_case_scatter": rec1})
+        cases[U] = {"scatter_set_unique3": rec3, "scatter_set_unique": rec1}
     return cases
 
 
@@ -306,6 +504,197 @@ def main_path_phase(torch, rng):
     return results
 
 
+# ---------------------------------------------------------------------------
+# phase 4: the training path at full width
+# ---------------------------------------------------------------------------
+
+def rel_to_max(a, b) -> float:
+    return ((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
+
+
+def step_checks(torch, cfg, tcfg, train_ds, val_ds, dr_ds, label):
+    """One phase-A step, one phase-B step and one evaluation batch of a
+    kernels='cuda' model against a kernels='torch' model from the same state,
+    batch and key; launch counts per step; ms per step."""
+    from amid_tpu_torch.data.loader import BatchIterator
+    from amid_tpu_torch.models.amid import build_model
+    from amid_tpu_torch.train import lazy, steps
+    from amid_tpu_torch.train.loop import _device_pools, _to_device
+    from amid_tpu_torch.train.optim import Adam
+
+    is_lazy = tcfg.lazy_table_adam
+    lr, lr2 = tcfg.lr, tcfg.lr * tcfg.lr2
+
+    def make(kernels, fused_scatter=True):
+        model = build_model(dataclasses.replace(cfg, kernels=kernels), device="cuda", seed=0)
+        tx, tx2 = Adam(lr), Adam(lr2)
+        if is_lazy:
+            state = lazy.init_lazy_state(dict(model.named_parameters()), tx, tx2)
+            step_a = lazy.make_lazy_train_step(model, tx, dr_e_w=tcfg.dr_e_w,
+                                               fused_scatter=fused_scatter)
+            step_b = lazy.make_lazy_dr_r_step(model, tx2, fused_scatter=fused_scatter)
+        else:
+            state = steps.init_state(model, tx, tx2)
+            step_a = steps.make_train_step(model, tx, dr_e_w=tcfg.dr_e_w)
+            step_b = steps.make_dr_r_step(model, tx2)
+        return model, state, step_a, step_b, steps.make_eval_step(model, tcfg.data.neg_nums)
+
+    model, state, step_a, step_b, eval_step = make("cuda")
+    ref, rstate, rstep_a, rstep_b, reval_step = make("torch")
+    ref.load_state_dict(model.state_dict())
+    require(model.cfg.kernels == "cuda" and ref.cfg.kernels == "torch", "kernel routes")
+
+    bs = cfg.batch_size
+    batches = {name: [_to_device(b, "cuda") for b in BatchIterator(ds, bs, False)]
+               for name, ds in (("train", train_ds), ("val", val_ds), ("dr", dr_ds))}
+    pools = {name: _device_pools(ds, "cuda")
+             for name, ds in (("train", train_ds), ("val", val_ds), ("dr", dr_ds))}
+    want_k2 = 1 if is_lazy else 0
+    table_name, dense_name = "item_embedding", "enc_d1.attn.0.in_proj_weight"
+    rec = {"config": label}
+
+    def moments(st, slot):
+        opt = st.opt_state if slot == 1 else st.opt_state2
+        if is_lazy:
+            return {"table_mu": opt.mu, "table_nu": opt.nu,
+                    "dense_mu": opt.dense_opt.mu[dense_name],
+                    "dense_nu": opt.dense_opt.nu[dense_name]}
+        return {"table_mu": opt.mu[table_name], "table_nu": opt.nu[table_name],
+                "dense_mu": opt.mu[dense_name], "dense_nu": opt.nu[dense_name]}
+
+    for phase, slot, split, fn, rfn, key in (("A", 1, "train", step_a, rstep_a, 1234),
+                                            ("B", 2, "dr", step_b, rstep_b, 4321)):
+        batch = batches[split][0]
+        before = model.item_embedding.detach().clone()
+        reset_counts()
+        _, m = fn(state, batch, *pools[split], key)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        _, rm = rfn(rstate, batch, *pools[split], key)
+        torch.cuda.synchronize()
+        require(read_counts() == counts, f"{label} phase {phase}: the plain model launched a kernel")
+        want = {"attention_fwd": 4, "attention_bwd": 4, "scatter_set_unique3": want_k2,
+                "scatter_set_unique": 0}
+        require(counts == want, f"{label} phase {phase}: launches {counts}, want {want}")
+        for k, v in m.items():
+            require(math.isfinite(float(v)), f"{label} phase {phase}: {k} = {float(v)}")
+            require(abs(float(v) - float(rm[k])) <= LOSS_TOL,
+                    f"{label} phase {phase}: {k} {float(v)} vs plain {float(rm[k])}")
+        require(float(m["nonfinite"]) == 0.0, f"{label} phase {phase}: non-finite flag")
+        if phase == "A":
+            rec["first_loss_cls"] = float(m["loss_cls"])
+            require(abs(rec["first_loss_cls"] - math.log(2)) <= LN2_TOL,
+                    f"{label}: first loss_cls {rec['first_loss_cls']} is not near ln 2")
+        if is_lazy:
+            require(model.item_embedding.grad is None, f"{label}: the table took a gradient")
+        moved = (model.item_embedding.detach() != before).any(dim=1)
+        n_moved = int(moved.sum())
+        require(0 < n_moved <= lazy._unique_budget(bs, cfg.seq_len, 1),
+                f"{label} phase {phase}: {n_moved} table rows moved")
+        shares = {}
+        for name, got_p, want_p in (
+                ("touched_table_rows", model.item_embedding.detach()[moved],
+                 ref.item_embedding.detach()[moved]),
+                (dense_name, dict(model.named_parameters())[dense_name].detach(),
+                 dict(ref.named_parameters())[dense_name].detach())):
+            share = ((got_p - want_p).abs() > UPDATE_ATOL).float().mean().item()
+            require(share <= UPDATE_SHARE,
+                    f"{label} phase {phase}: {share:.2e} of {name} differ from plain")
+            shares[name] = share
+        rels = {k: rel_to_max(v, moments(rstate, slot)[k])
+                for k, v in moments(state, slot).items()}
+        require(max(rels.values()) <= MOMENT_TOL,
+                f"{label} phase {phase}: moments differ from plain: {rels}")
+        rec[f"phase_{phase}"] = {"launches": counts, "rows_moved": n_moved,
+                                 "losses": {k: float(v) for k, v in m.items()},
+                                 "update_mismatch_share": shares, "moment_rel_err": rels}
+
+    # one evaluation batch
+    vb = batches["val"][0]
+    reset_counts()
+    ev = eval_step(vb, *pools["val"], 99)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    rev = reval_step(vb, *pools["val"], 99)
+    require(counts == {"attention_fwd": 4, "attention_bwd": 0, "scatter_set_unique3": 0,
+                       "scatter_set_unique": 0}, f"{label} eval: launches {counts}")
+    require(abs(float(ev["loss_cls"]) - float(rev["loss_cls"])) <= LOSS_TOL,
+            f"{label} eval: loss {float(ev['loss_cls'])} vs plain {float(rev['loss_cls'])}")
+    ranks = ev["ranks_fixed"]
+    require(tuple(ranks.shape) == (bs,) and bool((ranks >= 0).all())
+            and bool((ranks <= tcfg.data.neg_nums).all()), f"{label} eval: ranks out of range")
+    rec["eval"] = {"launches": counts, "loss_cls": float(ev["loss_cls"]),
+                   "ranks_equal_share": (ranks == rev["ranks_fixed"]).float().mean().item()}
+
+    if is_lazy:  # the three-launch control of the same step
+        model3, state3, step3, _, _ = make("cuda", fused_scatter=False)
+        reset_counts()
+        step3(state3, batches["train"][0], *pools["train"], 1234)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        require(counts["scatter_set_unique"] == 3 and counts["scatter_set_unique3"] == 0,
+                f"{label} fused_scatter=False: launches {counts}")
+        rec["unfused_launches"] = counts
+        del model3, state3, step3
+
+    # ms per step, CUDA events after warm-up, cycling over the batches
+    def cycle(fn, st, split, n):
+        it = iter(range(10**9))
+        return lambda: fn(st, batches[split][next(it) % n], *pools[split], 7)
+
+    rec["phase_a_ms"] = cuda_ms(torch, cycle(step_a, state, "train", len(batches["train"])), 6, 2)
+    rec["phase_b_ms"] = cuda_ms(torch, cycle(step_b, state, "dr", len(batches["dr"])), 6, 2)
+    rec["eval_batch_ms"] = cuda_ms(
+        torch, lambda: eval_step(batches["val"][0], *pools["val"], 7), 6, 2)
+    emit({"train_steps": rec})
+    return rec
+
+
+def training_phase(torch, rng):
+    import shutil
+    import tempfile
+
+    from amid_tpu_torch.config import DataConfig, ModelConfig, TrainConfig
+    from amid_tpu_torch.data.synthetic import synth_packed
+    from amid_tpu_torch.train.loop import run_seed
+
+    results = {}
+    for label, t, lazy_adam in (("T20_lazy", 20, True), ("T150_dense", 150, False)):
+        cfg = ModelConfig(**{**FLAGSHIP, "seq_len": t})
+        train_ds, val_ds, dr_ds = (synth_packed(cfg, rng, n)
+                                   for n in (TRAIN_ROWS, VAL_ROWS, DR_ROWS))
+        model_dir = tempfile.mkdtemp(prefix="chip_smoke_")
+        tcfg = TrainConfig(
+            epochs=1, seeds=1, model_dir=model_dir, lazy_table_adam=lazy_adam,
+            nan_policy="halt", checkpoint=False, fast_train=False, fast_eval=False,
+            model=cfg, data=DataConfig(neg_nums=999))
+        try:
+            reset_counts()
+            t0 = time.perf_counter()
+            best = run_seed(tcfg, 0, train_ds, val_ds, dr_ds)  # default device: cuda
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            counts = read_counts()
+        finally:
+            shutil.rmtree(model_dir, ignore_errors=True)
+        n_a, n_b, n_ev = (n // cfg.batch_size for n in (TRAIN_ROWS, DR_ROWS, VAL_ROWS))
+        want = {"attention_fwd": 4 * (n_a + n_b + 2 * n_ev), "attention_bwd": 4 * (n_a + n_b),
+                "scatter_set_unique3": (n_a + n_b) if lazy_adam else 0,
+                "scatter_set_unique": 0}
+        require(counts == want, f"{label} run_seed: launches {counts}, want {want}")
+        for k in ("hit_10_d1", "hit_10_d2", "ndcg_10_d1", "ndcg_10_d2", "mrr_d1", "mrr_d2"):
+            require(k in best and math.isfinite(best[k]) and 0.0 <= best[k] <= 1.0,
+                    f"{label} run_seed: metric {k} = {best.get(k)}")
+        emit({"run_seed": {"config": label, "steps": [n_a, n_b], "eval_batches": 2 * n_ev,
+                           "seconds": seconds, "launches": counts,
+                           "examples_per_s": best["examples_per_s"],
+                           "mrr_d1": best["mrr_d1"], "mrr_d2": best["mrr_d2"]}})
+        rec = step_checks(torch, cfg, tcfg, train_ds, val_ds, dr_ds, label)
+        results[label] = {"launches": counts, **rec}
+        torch.cuda.empty_cache()
+    return results
+
+
 def main() -> int:
     import torch
 
@@ -334,23 +723,45 @@ def main() -> int:
     print(f"torch {torch.__version__}, cuda {torch.version.cuda}, "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
     t0 = time.perf_counter()
-    _build.build(["attention_fwd"])
-    print(f"build: attention_fwd in {time.perf_counter() - t0:.1f} s", flush=True)
+    sources = sorted({Path(src).stem for src, _ in KERNELS.values()})
+    _build.build(sources)
+    print(f"build: {', '.join(sources)} in {time.perf_counter() - t0:.1f} s", flush=True)
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    cases = kernel_phase(torch, gen)
-    main = main_path_phase(torch, np.random.default_rng(0))
+    fwd = kernel_phase(torch, gen)
+    bwd = backward_kernel_phase(torch, gen)
+    scatter = scatter_kernel_phase(torch, gen)
+    torch.cuda.empty_cache()
+    serving = main_path_phase(torch, np.random.default_rng(0))
+    training = training_phase(torch, np.random.default_rng(1))
 
-    c = cases[150]
+    # launches on the main paths: the serving pass and the two run_seed runs,
+    # each driven with the counts at 0 just before it and read just after
+    launches = {name: sum(r["launches"][name] for r in training.values()) for name in KERNELS}
+    launches["attention_fwd"] += sum(r["attention_launches"] for r in serving.values())
+    # run_seed scatters fused; the single-array kernel's path is the lazy step
+    # built with fused_scatter=False, driven once in step_checks
+    launches["scatter_set_unique"] += training["T20_lazy"]["unfused_launches"][
+        "scatter_set_unique"]
+    for name, n in launches.items():
+        require(n > 0, f"kernel {name} was launched no time on the main paths")
+    # the numbers of the row: the amazon shape (T=150; U=77,824 unique ids);
+    # the fused scatter runs on the lazy path, whose shape is U=11,264
+    rows = {"attention_fwd": (fwd[150], fwd.values()),
+            "attention_bwd": (bwd[150], bwd.values()),
+            "scatter_set_unique3": (scatter[11264]["scatter_set_unique3"],
+                                    [c["scatter_set_unique3"] for c in scatter.values()]),
+            "scatter_set_unique": (scatter[11264]["scatter_set_unique"],
+                                   [c["scatter_set_unique"] for c in scatter.values()])}
     emit({"kernels": [{
-        "name": "attention_fwd", "route": "cuda", "source": SOURCE,
-        "replaces": REPLACES, "launches": main[150]["attention_launches"],
-        "max_abs_err": max(r["max_abs_err"] for r in cases.values()),
-        "ms": c["kernel_ms"], "kernel_ms": c["kernel_ms"], "plain_ms": c["plain_ms"],
+        "name": name, "route": "cuda", "source": KERNELS[name][0],
+        "replaces": KERNELS[name][1], "launches": launches[name],
+        "max_abs_err": max(r["max_abs_err"] for r in every),
+        "ms": c["kernel_ms"], "plain_ms": c["plain_ms"],
         "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
-        "library_ms": c["library_ms"],
-    }]})
+        "library_ms": c["library_ms"], "case": c["case"],
+    } for name, (c, every) in rows.items()]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

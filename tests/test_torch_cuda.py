@@ -14,14 +14,25 @@ import torch
 from amid_tpu_torch.config import ModelConfig
 from amid_tpu_torch.models.amid import build_model
 from amid_tpu_torch.ops.attention import (
+    attention_backward,
+    attention_bwd_plain,
     attention_plain,
     dropout_keep_mask,
     fused_attention,
 )
+from amid_tpu_torch.ops.scatter import (
+    scatter_set_unique,
+    scatter_set_unique3,
+    scatter_set_unique3_plain,
+    scatter_set_unique_plain,
+)
 from amid_tpu_torch.serve import user_representations
+from amid_tpu_torch.train import lazy, steps
+from amid_tpu_torch.train.optim import Adam
 
 pytestmark = pytest.mark.cuda
 ATOL, RTOL = 1e-5, 1e-4  # fp32 kernel vs fp32 plain, sums in another order
+BWD_ATOL = 2e-5  # backward: dk, dv sum products over up to T queries
 
 
 @pytest.fixture
@@ -85,12 +96,132 @@ def test_kernel_dropout_mask_equals_plain_mask(gen):
     assert torch.equal(got, dropout_keep_mask(seed, b, heads, t, 0.5, "cuda"))
 
 
-def test_kernel_refuses_gradients(gen):
-    q = torch.randn(2, 8, 32, device="cuda", generator=gen, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        fused_attention(q, q, q, _bias("causal", 2, 8, gen), 0, 2, 0.0)
+@pytest.mark.parametrize("t,d,heads,kind", [
+    (150, 128, 8, "causal"), (20, 128, 8, "causal"), (150, 128, 4, "keypad"),
+    (7, 64, 8, "per_query"), (33, 128, 2, "zeros"), (200, 32, 4, "causal"),
+])
+@pytest.mark.parametrize("rate", [0.0, 0.5])
+def test_backward_kernel_matches_plain(gen, t, d, heads, kind, rate):
+    b = 16
+    q, k, v, dout = (torch.randn(b, t, d, device="cuda", generator=gen) for _ in range(4))
+    bias = _bias(kind, b, t, gen)
+    before = fused_attention.backward_launches
+    got = attention_backward(q, k, v, bias, dout, 123, heads, rate)
+    assert fused_attention.backward_launches == before + 1
+    want = attention_bwd_plain(q, k, v, bias, dout, 123, heads, rate)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=BWD_ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.5])
+def test_gradient_through_the_autograd_function(gen, rate):
+    """Forward and backward kernels joined: gradients of a scalar loss equal
+    autograd of the plain version, with q, k, v column slices of one
+    projection (strided) and the same seed in both directions."""
+    b, t, d, heads = 8, 40, 128, 8
+    qkv = torch.randn(b, t, 3 * d, device="cuda", generator=gen, requires_grad=True)
+    bias = _bias("causal", b, t, gen)
+    fwd, bwd = fused_attention.launches, fused_attention.backward_launches
+    out = fused_attention(*qkv.split(d, dim=-1), bias, 9, heads, rate)
+    (got,) = torch.autograd.grad((out ** 2).sum(), qkv)
+    assert (fused_attention.launches, fused_attention.backward_launches) == (fwd + 1, bwd + 1)
+    ref = attention_plain(*qkv.split(d, dim=-1), bias, 9, heads, rate)
+    (want,) = torch.autograd.grad((ref ** 2).sum(), qkv)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    with torch.no_grad():  # no graph: only the forward kernel runs
+        fused_attention(*qkv.split(d, dim=-1), bias, 9, heads, rate)
+    assert fused_attention.backward_launches == bwd + 1
+
+
+def test_backward_rejects_sequences_its_tile_cannot_hold(gen):
+    """T=400 fits the forward's shared memory but not the backward's [T, T]
+    tile: asking for a gradient raises before anything is launched, and names
+    the largest T."""
+    q = torch.randn(1, 400, 64, device="cuda", generator=gen, requires_grad=True)
+    bias = _bias("zeros", 1, 400, gen)
     with torch.no_grad():
-        fused_attention(q, q, q, _bias("causal", 2, 8, gen), 0, 2, 0.0)
+        fused_attention(q, q, q, bias, 0, 4, 0.0)
+    before = fused_attention.launches
+    with pytest.raises(ValueError, match="largest T"):
+        fused_attention(q, q, q, bias, 0, 4, 0.0)
+    assert fused_attention.launches == before
+    with pytest.raises(ValueError, match="shared memory"):
+        attention_backward(q.detach(), q.detach(), q.detach(), bias, q.detach(), 0, 4, 0.0)
+
+
+@pytest.mark.parametrize("u,id_dtype", [(11264, torch.int32), (1000, torch.int64), (5, torch.int32)])
+def test_scatter_kernels_match_plain_bit_for_bit(gen, u, id_dtype):
+    v, d = 50_000, 128
+    tabs = [torch.randn(v, d, device="cuda", generator=gen) for _ in range(3)]
+    refs = [t.clone() for t in tabs]
+    ids = torch.unique(torch.cat([torch.randperm(v, device="cuda", generator=gen)[: u - u // 5],
+                                  torch.tensor([0, v - 1], device="cuda")]))[:u]
+    ids = torch.cat([ids, torch.full((u - ids.numel(),), v, device="cuda")]).to(id_dtype)
+    rows = [torch.randn(u, d, device="cuda", generator=gen) for _ in range(3)]
+    n3, n1 = scatter_set_unique3.launches, scatter_set_unique.launches
+    scatter_set_unique3(*tabs, ids, *rows)
+    scatter_set_unique3_plain(*refs, ids, *rows)
+    for a, b in zip(tabs, refs):
+        assert torch.equal(a, b)
+    scatter_set_unique(tabs[0], ids, rows[1])
+    scatter_set_unique_plain(refs[0], ids, rows[1])
+    assert torch.equal(tabs[0], refs[0])
+    assert (scatter_set_unique3.launches, scatter_set_unique.launches) == (n3 + 1, n1 + 1)
+
+
+def test_scatter_kernel_takes_unaligned_rows_and_3d_tables(gen):
+    v, k, d, u = 300, 3, 20, 64
+    table = torch.randn(v, k, d, device="cuda", generator=gen)
+    ref = table.clone()
+    ids = torch.cat([torch.randperm(v, device="cuda", generator=gen)[: u - 4],
+                     torch.full((4,), v, device="cuda")]).to(torch.int32)
+    rows = torch.randn(u, k, d, device="cuda", generator=gen)
+    assert torch.equal(scatter_set_unique(table, ids, rows),
+                       scatter_set_unique_plain(ref, ids, rows))
+    flat, flat_ref = torch.zeros(v, 7, device="cuda"), torch.zeros(v, 7, device="cuda")
+    src = torch.randn(u, 9, device="cuda", generator=gen)[:, 1:8]  # odd offset and stride
+    assert torch.equal(scatter_set_unique(flat, ids, src),
+                       scatter_set_unique_plain(flat_ref, ids, src))
+
+
+def test_scatter_on_cuda_raises_on_what_it_does_not_take(gen):
+    table = torch.zeros(8, 4, device="cuda")
+    with pytest.raises(ValueError, match="on cuda"):
+        scatter_set_unique(table, torch.tensor([1, 2]), torch.zeros(2, 4, device="cuda"))
+    with pytest.raises(TypeError, match="float32"):
+        scatter_set_unique(table.double(), torch.tensor([1], device="cuda"),
+                           torch.zeros(1, 4, device="cuda").double())
+
+
+@pytest.mark.parametrize("kind", ["dense", "lazy"])
+def test_train_step_on_cuda_goes_through_the_kernels(gen, kind):
+    cfg = ModelConfig(emb_dim=32, hid_dim=8, seq_len=12, batch_size=8, is_itc=True,
+                      is_dr=True, item_length=50, user_length=50, sasrec_heads=2)
+    model = build_model(cfg)
+    v = cfg.item_table_size
+    batch = {"target": torch.randint(0, v, (8,), device="cuda", generator=gen),
+             "seq_d1": torch.randint(0, v, (8, 12), device="cuda", generator=gen),
+             "seq_d2": torch.randint(0, v, (8, 12), device="cuda", generator=gen),
+             "domain_id": torch.randint(0, 2, (8,), device="cuda", generator=gen),
+             "reject": torch.full((8, 1), v, device="cuda"),
+             "reject_counts": torch.zeros(8, dtype=torch.long, device="cuda"),
+             "ob_label": torch.ones(8, dtype=torch.long, device="cuda")}
+    pools = torch.arange(v, device="cuda").repeat(2, 1)
+    sizes = torch.tensor([v, v], device="cuda")
+    if kind == "dense":
+        state = steps.init_state(model, Adam(1e-3))
+        step = steps.make_train_step(model, Adam(1e-3), dr_e_w=0.1)
+    else:
+        state = lazy.init_lazy_state(dict(model.named_parameters()), Adam(1e-3))
+        step = lazy.make_lazy_train_step(model, Adam(1e-3), dr_e_w=0.1)
+    before = (fused_attention.launches, fused_attention.backward_launches,
+              scatter_set_unique3.launches)
+    _, m = step(state, batch, pools, sizes, 5)
+    after = (fused_attention.launches, fused_attention.backward_launches,
+             scatter_set_unique3.launches)
+    assert tuple(a - b for a, b in zip(after, before)) == (4, 4, int(kind == "lazy"))
+    assert torch.isfinite(m["loss"]) and abs(float(m["loss_cls"]) - 0.693) < 0.05
+    assert model.item_embedding.grad is None
 
 
 @pytest.mark.parametrize("d,heads", [(48, 4), (256, 2)])
