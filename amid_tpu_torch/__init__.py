@@ -5,11 +5,15 @@ layout and names (`config`, `ops/`, `models/`, `serve`) so each counterpart is
 easy to find, and imports neither JAX nor anything under `amid_tpu`.
 
 It serves (`models.amid.build_model`, `serve`: user representations and
-the full-catalog top-K) and trains (`train.loop.run_seed`: the doubly-robust
-trainer's phase A, phase B and evaluation, with dense Adam or the lazy table
-Adam). The SASRec attention core, forward and backward, and the lazy Adam's
-unique-row scatters run as hand-written CUDA kernels (`csrc/*.cu`, bound in
-`ops/attention.py` and `ops/scatter.py`). Entry points run on `cuda` unless
+the full-catalog top-K) and trains (`python3 -m amid_tpu_torch.train_sr_dr`
+and `train_sr`, `train.loop.run` / `run_seed`: the doubly-robust trainer's
+phase A, phase B and evaluation, with dense Adam or the lazy table Adam, in
+the broadcast-quirk or the pairwise mode). Every op the JAX package wrote as
+a TPU kernel runs as a hand-written CUDA kernel (`csrc/*.cu`): the SASRec
+attention core, forward and backward (`ops/attention.py`), the lazy Adam's
+unique-row scatters (`ops/scatter.py`), the embedding gather
+(`ops/embedding.py`), the fused scoring head (`ops/scoring.py`) and the
+pairwise max-affinity (`ops/affinity.py`). Entry points run on `cuda` unless
 the caller passes `device="cpu"`.
 """
 

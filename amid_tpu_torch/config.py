@@ -1,14 +1,19 @@
-"""Configuration — the port's copy of `amid_tpu/config.py`'s dataclasses
-(`ModelConfig`, `DataConfig`, `MeshConfig`, `TrainConfig`).
+"""Configuration — the port's copy of `amid_tpu/config.py`: the dataclasses
+(`ModelConfig`, `DataConfig`, `MeshConfig`, `TrainConfig`) and `parse_cli`.
 
 Field names, defaults and properties are the reference's own, so a config can
 be moved between the two packages field by field. These differ in what they
 accept:
 
-* `kernels` takes `auto|torch|cuda`. `cuda` sends the SASRec attention core
-  through the hand-written kernel (`ops.attention.fused_attention`) at every
-  sequence length; `torch` uses the plain PyTorch version; `auto` means `cuda`
-  on a CUDA device and `torch` on the CPU (resolved by `build_model`).
+* `kernels` takes `auto|torch|cuda`. `cuda` routes every op that has a
+  hand-written kernel through it, at every shape: the SASRec attention core
+  (`ops.attention.fused_attention`, forward and backward), the embedding
+  lookups (`ops.embedding.embedding_gather`), the prediction heads
+  (`ops.scoring.scoring_head`), the pairwise-mode affinity
+  (`ops.affinity.max_affinity`: bf16 inputs, where `torch` computes fp32) and
+  the lazy table Adam's write-back (`ops.scatter`). `torch` uses the plain
+  PyTorch versions; `auto` means `cuda` on a CUDA device and `torch` on the
+  CPU (resolved by `build_model`).
 * `use_bf16`, `matmul_precision` and `remat` are kept for field parity but
   the port runs in fp32 only and does not read them.
 * `DataConfig.data_root` defaults to the relative directory `reference`; the
@@ -19,14 +24,26 @@ accept:
   ported yet (`use_mesh`, `fast_train`, `fast_eval`, `checkpoint`, `resume`,
   `profile_steps`).
 
-`parse_cli` arrives with the CLIs.
+`parse_cli` takes the reference-style flags of the JAX package's `parse_cli`
+with the same defaults and builds the same `TrainConfig`, field by field.
+What differs: `--kernels` is checked against `auto|torch|cuda`;
+`--data_root` defaults to `reference`; `--device` (not a config field: see
+`parse_cli_with_device`) names the device, the card when absent; the flags of
+parts that are not ported (`--fast_train`, `--fast_eval`, `--checkpoint`,
+`--resume`, `--profile_steps`, `--mesh`, `--data_axis`, `--model_axis`,
+`--distributed`, `--isC2DSR`, other `--model`s) parse into their fields and
+meet the `NotImplementedError` of the part they ask for; `--distributed`
+joins no runtime here, it only sets `use_mesh`; `--bf16`, `--remat` and
+`--matmul_precision` fill their fields and are not read.
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 from dataclasses import dataclass, field
+from typing import Optional
 
 # Reference hard-coded vocab constants (train_sr.py:447-450); the table is
 # doubled "for pad id" (train_sr.py:456-457).
@@ -192,3 +209,155 @@ class TrainConfig:
 
     def to_json(self) -> str:
         return json.dumps(dataclasses.asdict(self), indent=2)
+
+
+def _parse_bool(v) -> bool:
+    if isinstance(v, bool):
+        return v
+    return v.strip().lower() in ("1", "true", "yes", "y", "t")
+
+
+def _add_reference_flags(p: argparse.ArgumentParser) -> None:
+    """Reference-compatible CLI surface (train_sr.py:359-389), flag for flag
+    the JAX package's."""
+    p.add_argument("--epoch", type=int, default=50)
+    p.add_argument("--bs", type=int, default=256)
+    p.add_argument("--lr", type=float, default=5e-4)
+    p.add_argument("--lr2", type=float, default=0.01)
+    p.add_argument("--emb_dim", type=int, default=128)
+    p.add_argument("--hid_dim", type=int, default=32)
+    p.add_argument("--seq_len", type=int, default=20)
+    p.add_argument("--long_length", type=int, default=7)
+    p.add_argument("--neg_nums", type=int, default=199)
+    p.add_argument("--overlap_ratio", type=float, default=0.5)
+    p.add_argument("-md", "--model-dir", type=str, default="model/")
+    p.add_argument("--model", type=str, default="sasrec")
+    p.add_argument("-ds", "--dataset_type", type=str, default="amazon")
+    p.add_argument("-dm", "--domain_type", type=str, default="movie_book")
+    # Real booleans (the reference's `type=bool` made "--overlap False" truthy).
+    p.add_argument("--isInC", type=_parse_bool, default=False)
+    p.add_argument("--isItC", type=_parse_bool, default=False)
+    p.add_argument("--ts1", type=float, default=0.5)
+    p.add_argument("--ts2", type=float, default=0.5)
+    p.add_argument("--comp_broadcast_quirk", type=_parse_bool, default=True,
+                   help="True (default): reproduce the reference's degenerate "
+                        "broadcast affinity (shared per-batch message); "
+                        "False: idealized all-pairs affinity")
+    p.add_argument("--overlap", type=_parse_bool, default=False)
+    p.add_argument("--isDR", type=_parse_bool, default=False)
+    p.add_argument("--dr_e_w", type=float, default=0.1)
+    p.add_argument("--isC2DSR", type=_parse_bool, default=False,
+                   help="corrupted-sequence contrastive mode (not ported yet)")
+    p.add_argument("--cl_w", type=float, default=0.1,
+                   help="C2DSR contrastive loss weight")
+    p.add_argument("--data_root", type=str, default="reference")
+    p.add_argument("--seeds", type=int, default=5)
+    p.add_argument("--seed_offset", type=int, default=0,
+                   help="first seed index; seeds run in "
+                        "[seed_offset, seed_offset+seeds)")
+    p.add_argument("--kernels", type=str, default="auto", choices=KERNEL_CHOICES,
+                   help="cuda: the hand-written kernels; torch: their plain "
+                        "PyTorch versions; auto: cuda on a card, torch on the CPU")
+    p.add_argument("--device", type=str, default=None,
+                   help="torch device; absent: cuda (an error without a card), "
+                        "never the CPU unless 'cpu' is given")
+    p.add_argument("--remat", type=_parse_bool, default=False,
+                   help="kept for parity; not read by the port")
+    p.add_argument("--matmul_precision", type=str, default="",
+                   choices=["", "bfloat16", "highest", "float32"],
+                   help="kept for parity; the port runs fp32 with TF32 off")
+    p.add_argument("--profile_steps", type=int, default=0)
+    p.add_argument("--bf16", type=_parse_bool, default=False)
+    p.add_argument("--lazy_table_adam", type=_parse_bool, default=False)
+    p.add_argument("--fast_eval", type=_parse_bool, default=True,
+                   help="device-resident eval pass (not ported yet)")
+    p.add_argument("--fast_train", type=_parse_bool, default=True,
+                   help="device-resident chunked train loop (not ported yet)")
+    p.add_argument("--checkpoint", type=_parse_bool, default=True)
+    p.add_argument("--checkpoint_async", type=_parse_bool, default=True)
+    p.add_argument("--checkpoint_payload", type=str, default="full",
+                   choices=["full", "bf16_moments", "params_only"])
+    p.add_argument("--resume", type=_parse_bool, default=False)
+    p.add_argument("--subdomain", type=int, default=-1,
+                   help=">=0: single-domain mode — keep only rows of this "
+                        "domain (reference SingleDomainSeqDataset)")
+    p.add_argument("--data_axis", type=int, default=-1,
+                   help="data-parallel axis size (mesh training: not ported yet)")
+    p.add_argument("--model_axis", type=int, default=1,
+                   help="model axis size (mesh training: not ported yet)")
+    p.add_argument("--mesh", type=_parse_bool, default=False)
+    p.add_argument("--mesh_impl", type=str, default="gspmd",
+                   choices=("gspmd", "shard_map"))
+    p.add_argument("--distributed", type=_parse_bool, default=False,
+                   help="multi-process training (not ported yet; sets use_mesh)")
+    p.add_argument("--coordinator", type=str, default="")
+    p.add_argument("--num_processes", type=int, default=-1)
+    p.add_argument("--process_id", type=int, default=-1)
+
+
+def parse_cli_with_device(
+    argv: Optional[list[str]] = None, is_dr: bool = False
+) -> tuple[TrainConfig, Optional[str]]:
+    """(TrainConfig, device) from reference-style CLI flags; device is None
+    when `--device` is absent, which every entry point reads as the card."""
+    p = argparse.ArgumentParser(description="amid_tpu_torch trainer")
+    _add_reference_flags(p)
+    a = p.parse_args(argv)
+    model = ModelConfig(
+        backbone=a.model.lower(),
+        emb_dim=a.emb_dim,
+        hid_dim=a.hid_dim,
+        seq_len=a.seq_len,
+        batch_size=a.bs,
+        is_inc=a.isInC,
+        is_itc=a.isItC,
+        ts1=a.ts1,
+        ts2=a.ts2,
+        comp_broadcast_quirk=a.comp_broadcast_quirk,
+        is_dr=a.isDR or is_dr,
+        is_c2dsr=a.isC2DSR,
+        kernels=a.kernels,
+        use_bf16=a.bf16,
+        matmul_precision=a.matmul_precision,
+        remat=a.remat,
+    )
+    data = DataConfig(
+        dataset_type=a.dataset_type,
+        domain_type=a.domain_type,
+        data_root=a.data_root,
+        overlap_ratio=a.overlap_ratio,
+        seq_len=a.seq_len,
+        neg_nums=a.neg_nums,
+        long_length=a.long_length,
+    )
+    cfg = TrainConfig(
+        epochs=a.epoch,
+        lr=a.lr,
+        lr2=a.lr2,
+        dr_e_w=a.dr_e_w,
+        seeds=a.seeds,
+        seed_offset=a.seed_offset,
+        overlap_eval=a.overlap,
+        model_dir=a.model_dir,
+        profile_steps=a.profile_steps,
+        resume=a.resume,
+        subdomain=a.subdomain,
+        lazy_table_adam=a.lazy_table_adam,
+        fast_eval=a.fast_eval,
+        fast_train=a.fast_train,
+        cl_w=a.cl_w,
+        checkpoint=a.checkpoint,
+        checkpoint_async=a.checkpoint_async,
+        checkpoint_payload=a.checkpoint_payload,
+        use_mesh=a.mesh or a.model_axis != 1 or a.data_axis > 0 or a.distributed,
+        mesh_impl=a.mesh_impl,
+        model=model,
+        data=data,
+        mesh=MeshConfig(data_axis=a.data_axis, model_axis=a.model_axis),
+    )
+    return cfg, a.device
+
+
+def parse_cli(argv: Optional[list[str]] = None, is_dr: bool = False) -> TrainConfig:
+    """Build a TrainConfig from reference-style CLI flags."""
+    return parse_cli_with_device(argv, is_dr)[0]

@@ -11,7 +11,10 @@
 imputation heads' outputs, model_seq.py:436-440) beside u_d1/u_d2.
 
 The item table is one embedding shared by both domains (ids are pre-offset
-at data-prep time, model_seq.py:22-29); the lookup is an index_select.
+at data-prep time, model_seq.py:22-29). `kernels='cuda'` gathers through the
+hand-written kernel (`ops.embedding.embedding_gather`), `kernels='torch'`
+through its plain version (an `index_select`); `cfg.kernels` also reaches the
+attention core, the pairwise affinity and the prediction heads.
 
 Two optional arguments serve the trainer. `rng` is the step's
 `ops.rng.StepRandom`, the source of train-mode dropout. `lazy_rows=(uids,
@@ -34,6 +37,7 @@ from amid_tpu_torch.config import KERNEL_CHOICES, ModelConfig
 from amid_tpu_torch.models.comp import InnerComp, InterComp
 from amid_tpu_torch.models.encoders import SasrecEncoder
 from amid_tpu_torch.models.heads import PredictHead
+from amid_tpu_torch.ops.embedding import embedding_gather, embedding_gather_plain
 from amid_tpu_torch.ops.torch_compat import torch_embedding_init_
 
 Batch = dict[str, Any]
@@ -57,20 +61,20 @@ class AMIDModel(nn.Module):
         d, quirk = cfg.emb_dim, cfg.comp_broadcast_quirk
         self.item_embedding = nn.Parameter(torch.empty(cfg.item_table_size, d))
         if cfg.is_inc:
-            self.inc_d1 = InnerComp(d, cfg.batch_size, cfg.ts1, quirk)
-            self.inc_d2 = InnerComp(d, cfg.batch_size, cfg.ts1, quirk)
+            self.inc_d1 = InnerComp(d, cfg.batch_size, cfg.ts1, quirk, cfg.kernels)
+            self.inc_d2 = InnerComp(d, cfg.batch_size, cfg.ts1, quirk, cfg.kernels)
         for name in ("enc_d1", "enc_d2"):
             self.add_module(name, SasrecEncoder(
                 d, cfg.enc_seq_len, cfg.sasrec_blocks, cfg.sasrec_heads,
                 cfg.sasrec_dropout, cfg.kernels,
             ))
         if cfg.is_itc:
-            self.itc_d1 = InterComp(d, cfg.batch_size, cfg.ts2, quirk)
-            self.itc_d2 = InterComp(d, cfg.batch_size, cfg.ts2, quirk)
-        self.predict = PredictHead(d, cfg.hid_dim)
+            self.itc_d1 = InterComp(d, cfg.batch_size, cfg.ts2, quirk, cfg.kernels)
+            self.itc_d2 = InterComp(d, cfg.batch_size, cfg.ts2, quirk, cfg.kernels)
+        self.predict = PredictHead(d, cfg.hid_dim, cfg.kernels)
         if cfg.is_dr:
-            self.predict_ips = PredictHead(d, cfg.hid_dim)
-            self.predict_gfunc = PredictHead(d, cfg.hid_dim)
+            self.predict_ips = PredictHead(d, cfg.hid_dim, cfg.kernels)
+            self.predict_gfunc = PredictHead(d, cfg.hid_dim, cfg.kernels)
 
     def reset_parameters(self, gen: torch.Generator) -> None:
         torch_embedding_init_(self.item_embedding, gen)
@@ -83,11 +87,11 @@ class AMIDModel(nn.Module):
     def lookup(self, ids: torch.Tensor, lazy_rows=None) -> torch.Tensor:
         table = self.item_embedding
         ids = torch.as_tensor(ids, device=table.device)
-        flat = ids.reshape(-1)
         if lazy_rows is not None:
-            uids, rows = lazy_rows
-            table, flat = rows, torch.searchsorted(uids, flat.to(uids.dtype))
-        return torch.index_select(table, 0, flat).view(*ids.shape, table.shape[1])
+            uids, table = lazy_rows
+            ids = torch.searchsorted(uids, ids.to(uids.dtype))
+        gather = embedding_gather if self.cfg.kernels == "cuda" else embedding_gather_plain
+        return gather(table, ids)
 
     def features(self, batch: Batch, rng=None,
                  lazy_rows=None) -> tuple[torch.Tensor, torch.Tensor]:

@@ -12,7 +12,11 @@ message is ONE [M, D] tensor shared by every user:
     msg = sum_j (w_bs[j] g[j]) P_j + (sum_j w_bs[j]) b_nn + b_bs,  P_j = seq_peer[j] Wn^T
 
 `broadcast_quirk=False` (the idealized pairwise reading): A[b, c] is the
-all-pairs max affinity, the gate is per (b, c) and the message per user.
+all-pairs max affinity, the gate is per (b, c) and the message per user. The
+affinity comes from `ops.affinity.max_affinity` by the model's `kernels`:
+`'cuda'` launches the hand-written kernels (bf16 inputs), `'torch'` computes
+it in fp32. `PeerMessage.affinity` holds that function and may be replaced,
+e.g. by `max_affinity_plain` to build a reference for the kernels' gates.
 
 In both modes trans_nn's bias leaks through masked-out peers (the reference
 applies trans_nn after masking, so trans_nn(0) = b_nn still reaches trans_bs),
@@ -23,10 +27,13 @@ be exactly `batch_size` (model_seq.py:457).
 
 from __future__ import annotations
 
+import functools
+from typing import Callable, Optional
+
 import torch
 from torch import nn
 
-from amid_tpu_torch.ops.affinity import diag_max_affinity, max_affinity_xla
+from amid_tpu_torch.ops.affinity import diag_max_affinity, max_affinity
 from amid_tpu_torch.ops.torch_compat import torch_linear_init_
 
 
@@ -34,11 +41,14 @@ class PeerMessage(nn.Module):
     """Affinity-gated peer aggregation; returns the message [B, M, D]."""
 
     def __init__(self, d: int, batch_size: int, threshold: float,
-                 broadcast_quirk: bool = True):
+                 broadcast_quirk: bool = True, kernels: str = "torch",
+                 affinity: Optional[Callable] = None):
         super().__init__()
         self.batch_size = batch_size
         self.threshold = threshold
         self.broadcast_quirk = broadcast_quirk
+        # pairwise mode's A[b, c]: (seq_self, seq_peer) -> [B, C]
+        self.affinity = affinity or functools.partial(max_affinity, kernels=kernels)
         self.trans_nn = nn.Linear(d, d)
         self.trans_bs = nn.Linear(batch_size, 1)
 
@@ -46,14 +56,20 @@ class PeerMessage(nn.Module):
         torch_linear_init_(self.trans_nn, gen)
         torch_linear_init_(self.trans_bs, gen)
 
-    def gate(self, seq_self: torch.Tensor, seq_peer: torch.Tensor) -> torch.Tensor:
-        """The hard 0/1 gate: [B] in quirk mode, [B, B] in pairwise mode."""
+    def gate_probabilities(self, seq_self: torch.Tensor,
+                           seq_peer: torch.Tensor) -> torch.Tensor:
+        """The softmax of the affinity that the threshold is held against:
+        [B] over the batch in quirk mode, [B, B] over each row's peers in
+        pairwise mode."""
         with torch.no_grad():
             if self.broadcast_quirk:
-                aff = torch.softmax(diag_max_affinity(seq_self, seq_peer), dim=0)
-            else:
-                aff = torch.softmax(max_affinity_xla(seq_self, seq_peer), dim=1)
-            return (aff > self.threshold).to(seq_self.dtype)
+                return torch.softmax(diag_max_affinity(seq_self, seq_peer), dim=0)
+            return torch.softmax(self.affinity(seq_self, seq_peer), dim=1)
+
+    def gate(self, seq_self: torch.Tensor, seq_peer: torch.Tensor) -> torch.Tensor:
+        """The hard 0/1 gate: [B] in quirk mode, [B, B] in pairwise mode."""
+        probs = self.gate_probabilities(seq_self, seq_peer)
+        return (probs > self.threshold).to(seq_self.dtype)
 
     def forward(self, seq_self: torch.Tensor, seq_peer: torch.Tensor) -> torch.Tensor:
         if seq_peer.shape[0] != self.batch_size:
@@ -76,9 +92,9 @@ class InnerComp(nn.Module):
     """Intra-domain message passing; doubles the time axis (model_seq.py:471)."""
 
     def __init__(self, d: int, batch_size: int, threshold: float,
-                 broadcast_quirk: bool = True):
+                 broadcast_quirk: bool = True, kernels: str = "torch"):
         super().__init__()
-        self.message = PeerMessage(d, batch_size, threshold, broadcast_quirk)
+        self.message = PeerMessage(d, batch_size, threshold, broadcast_quirk, kernels)
 
     def forward(self, seq: torch.Tensor) -> torch.Tensor:
         return torch.cat([seq, self.message(seq, seq)], dim=1)
@@ -89,9 +105,9 @@ class InterComp(nn.Module):
     the model applies it once in each direction."""
 
     def __init__(self, d: int, batch_size: int, threshold: float,
-                 broadcast_quirk: bool = True):
+                 broadcast_quirk: bool = True, kernels: str = "torch"):
         super().__init__()
-        self.message = PeerMessage(d, batch_size, threshold, broadcast_quirk)
+        self.message = PeerMessage(d, batch_size, threshold, broadcast_quirk, kernels)
 
     def forward(self, seq_self: torch.Tensor, seq_peer: torch.Tensor) -> torch.Tensor:
         return torch.cat([seq_self, self.message(seq_self, seq_peer)], dim=1)

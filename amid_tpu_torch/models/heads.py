@@ -8,8 +8,11 @@ is split into its user and item halves,
     h = relu(u W_u^T + i W_i^T + b1)    # [B, C, H]
     logits = sigmoid(h w2^T + b2)       # [B, C]
 
-The JAX package's `force_pallas` branch (the K5 scoring kernel) waits for
-that kernel's port.
+`kernels='cuda'` scores through the fused kernel (`ops.scoring.scoring_head`,
+one launch per user representation, every candidate count: the TPU package's
+`PALLAS_SCORING_MIN_C` is a TPU setting and is not carried over), which never
+builds `[B, C, H]`; `kernels='torch'` is the plain code below, which shares
+the item half between the two users.
 """
 
 from __future__ import annotations
@@ -18,12 +21,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from amid_tpu_torch.ops.scoring import scoring_head
 from amid_tpu_torch.ops.torch_compat import torch_linear_init_
 
 
 class PredictHead(nn.Module):
-    def __init__(self, d: int, hid_dim: int):
+    def __init__(self, d: int, hid_dim: int, kernels: str = "torch"):
         super().__init__()
+        self.kernels = kernels
         self.fc1 = nn.Linear(2 * d, hid_dim)  # torch init with fan_in = 2D
         self.fc2 = nn.Linear(hid_dim, 1)
 
@@ -40,6 +45,9 @@ class PredictHead(nn.Module):
         """user_d*: [B, D]; item_feat: [B, C, D] -> (logits_d1, logits_d2),
         each [B, C]."""
         w_user, w_item = self.split_fc1()
+        if self.kernels == "cuda":
+            rest = (item_feat, w_user, w_item, self.fc1.bias, self.fc2.weight, self.fc2.bias)
+            return scoring_head(user_d1, *rest), scoring_head(user_d2, *rest)
         i_part = F.linear(item_feat, w_item)  # [B, C, H]
 
         def score(u):

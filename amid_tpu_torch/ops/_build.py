@@ -26,6 +26,8 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
 
+SMEM_LIMIT = 232448  # bytes of shared memory one block may use on sm_90 (227 KB)
+
 _loaded: dict[str, ctypes.CDLL] = {}
 
 

@@ -32,10 +32,11 @@ import math
 
 import torch
 
+from amid_tpu_torch.ops._build import SMEM_LIMIT
+
 _BIAS_SHAPES = "[1|B, 1, 1|T, T]"
 _M32 = 0xFFFFFFFF
 _MIX_KEY0 = 0x9E3779B9
-_SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
 KERNEL_HEAD_DIMS = (8, 16, 32, 64)
 
 
@@ -242,12 +243,12 @@ def _check_kernel_inputs(named, dev, heads: int, d: int) -> None:
 def _check_smem(lib, name: str, t: int, dh: int) -> None:
     smem_bytes = getattr(lib, name + "_smem_bytes")
     smem = smem_bytes(t, dh)
-    if smem > _SMEM_LIMIT:
-        largest = max((n for n in range(1, t) if smem_bytes(n, dh) <= _SMEM_LIMIT),
+    if smem > SMEM_LIMIT:
+        largest = max((n for n in range(1, t) if smem_bytes(n, dh) <= SMEM_LIMIT),
                       default=0)
         raise ValueError(
             f"{name}: T={t}, dh={dh} needs {smem} bytes of shared memory per "
-            f"block; the limit is {_SMEM_LIMIT} (largest T at this head width: "
+            f"block; the limit is {SMEM_LIMIT} (largest T at this head width: "
             f"{largest})"
         )
 

@@ -3,10 +3,12 @@ the DR trainer's steps at the full width of the `run.sh` model.
 
     python -m amid_tpu_torch.profile_step --seq_len 20 --lazy
     python -m amid_tpu_torch.profile_step --seq_len 150
+    python -m amid_tpu_torch.profile_step --seq_len 150 --pairwise
 
 Builds the model (SASRec, InterComp ts2=0.4, DR heads, emb 128, hid 32, batch
-256, 2 blocks, 8 heads, the 894,820-row table, random weights from a seed) and
-a synthetic packed dataset (`data/synthetic.py`), then for the phase-A step,
+256, 2 blocks, 8 heads, the 894,820-row table, random weights from a seed; with
+`--pairwise` in the pairwise mode, whose gates come from the max-affinity
+kernels) and a synthetic packed dataset (`data/synthetic.py`), then for the phase-A step,
 the phase-B step and the evaluation batch (999 negatives):
 
 * times `--steps` steps by the host clock, synchronised at both ends (no
@@ -82,6 +84,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seq_len", type=int, default=20)
     ap.add_argument("--lazy", action="store_true", help="lazy table Adam (default: dense)")
+    ap.add_argument("--pairwise", action="store_true",
+                    help="comp_broadcast_quirk=False (default: the broadcast-quirk mode)")
     ap.add_argument("--steps", type=int, default=10)
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -95,7 +99,7 @@ def main(argv=None) -> int:
 
     cfg = ModelConfig(backbone="sasrec", emb_dim=128, hid_dim=32, batch_size=256,
                       seq_len=a.seq_len, is_itc=True, ts2=0.4, is_dr=True,
-                      sasrec_blocks=2, sasrec_heads=8)
+                      sasrec_blocks=2, sasrec_heads=8, comp_broadcast_quirk=not a.pairwise)
     tcfg = TrainConfig(model=cfg, data=DataConfig(neg_nums=999), lazy_table_adam=a.lazy)
     ds = synth_packed(cfg, np.random.default_rng(0), ROWS)
     model = build_model(cfg, seed=0)
@@ -131,6 +135,7 @@ def main(argv=None) -> int:
             return 1
         print(json.dumps({
             "step": name, "seq_len": a.seq_len, "optimizer": "lazy" if a.lazy else "dense",
+            "pairwise": a.pairwise,
             "wall_ms_per_step": wall, "device_ms_per_step": device,
             "device_idle_share": max(0.0, 1.0 - device / wall),
             "kernel_launches_per_step": launches, "top_kernels": ranked,

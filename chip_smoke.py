@@ -8,8 +8,8 @@ JAX package. Phases, in order (any failure ends the run with a non-zero exit
 code and no result line):
 
 1. the card's name and power limit; build every CUDA kernel of the serving
-   and training paths from `amid_tpu_torch/csrc/` (one `nvcc` per source, all
-   started together), timing the build;
+   and training paths from `amid_tpu_torch/csrc/` (six sources, one `nvcc`
+   each, all started together), timing the build;
 2. kernels: each kernel against its plain PyTorch version on the card, at
    the main paths' shapes, with its time beside the plain version's, one
    PyTorch library call's (a yardstick the port never calls) and the card's
@@ -22,7 +22,14 @@ code and no result line):
    autograd). Unique-row scatters, fused (three arrays) and single: V=894,820,
    D=128, U=11,264 and 77,824 with a sentinel tail and rows 0 and V-1, bit
    for bit, untouched rows unchanged (library: `index_copy_` on pre-filtered
-   ids);
+   ids). Embedding gather from the 894,820-row table at the id shapes of one
+   forward ([256, 999], [256, 150], [256, 20]), bit for bit, with clamped
+   out-of-range ids (library: `index_select`). Scoring head at C=1000 and
+   C=2 (no library call computes it). Max-affinity, bf16 inputs: the blocked
+   kernel at N=M=150 and at N=M=20, the small-N kernel at N=M=20, ragged
+   11 x 13 batches, the two kernels bit-equal to each other (library: the
+   chunked `matmul` + `amax` on bf16 inputs, several calls; the bound is the
+   bf16 tensor-core peak);
 3. the serving path at the full width of the `run.sh` model (SASRec, InterComp
    ts2=0.4, DR heads, emb 128, hid 32, batch 256, 2 blocks, 8 heads) at the
    amazon shape T=150 with the 894,820-row item table, random weights from
@@ -30,7 +37,13 @@ code and no result line):
    must launch 4 times: 2 towers x 2 blocks), checked against the same model
    with kernels='torch' (InterComp gates first), then `serve.full_catalog_topk`
    with k=100 for both domains over the whole table, checked against a dense
-   oracle for 8 users; then the feature pass again at T=20;
+   oracle for 8 users; then the feature pass again at T=20. Every gate check
+   runs twice: at ts2=0.4, where no gate opens at random weights, and at a
+   threshold chosen so that between 5% and 95% of the gates are open. Then
+   the same in pairwise mode (`comp_broadcast_quirk=False`, gates [256, 256]
+   from the max-affinity kernels) at T=20 and T=150, against a reference
+   model whose affinity is `max_affinity_plain`; the number of gates that
+   the bf16 affinity flips against the fp32 one is printed as information;
 4. the training path at the same width on synthetic packed data made from a
    numpy seed (`amid_tpu_torch/data/synthetic.py`: item ids over the whole
    894,820-row table, pools of the real size): `train.loop.run_seed` for one epoch of the DR schedule (phase A,
@@ -41,7 +54,15 @@ code and no result line):
    `kernels='torch'` model from the same state, batch and key (4 forward and
    4 backward attention launches per step, one fused scatter launch per lazy
    step, three single launches with `fused_scatter=False`, first `loss_cls`
-   near ln 2, no table gradient on the lazy path), and the ms per step.
+   near ln 2, no table gradient on the lazy path), and the ms per step;
+5. the pairwise-mode trainer from its CLI: `amid_tpu_torch.train_sr_dr.main`
+   with `--comp_broadcast_quirk False --kernels cuda` on synthetic CSV files
+   written to a temporary directory in the reference's format, (a) T=20 with
+   the lazy table Adam (small-N affinity kernel), (b) T=150 with dense Adam
+   (blocked affinity kernel): CSV -> packed datasets -> phase A, evaluation
+   with 999 negatives, phase B, evaluation, counting every kernel launch;
+   then the step-level checks of phase 4 in pairwise mode against a
+   `kernels='torch'` model whose affinity is `max_affinity_plain`.
 
 It prints a JSON line of per-kernel numbers, the `nvidia-smi` name and power
 line, and last `{"ok": true, "device": {...}}`.
@@ -62,10 +83,16 @@ import numpy as np
 # Published H100 SXM peaks (NVIDIA data sheet) for the bound of each kernel.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12  # without tensor cores
+BF16_TENSOR_FLOPS = 989e12  # dense bf16 on the tensor cores
 
 ATOL, RTOL = 1e-5, 1e-4  # forward kernel vs plain, fp32
 BWD_ATOL = 2e-5  # backward: dk, dv sum products over up to 150 queries
 FEATURE_TOL = 1e-4  # whole feature pass, kernel model vs plain model
+SCORE_ATOL = 1e-5  # scoring head vs plain: sigmoid outputs in (0, 1), fp32 sums
+# max-affinity vs plain: same bf16 inputs and exact products, fp32 sums over
+# D=128 in another order, |A| up to about 60 for unit-normal inputs
+AFF_ATOL, AFF_RTOL = 1e-4, 1e-5
+OPEN_SHARE = (0.05, 0.95)  # share of open gates the opened-threshold check needs
 TOPK_RTOL, TOPK_ATOL = 1e-5, 1e-6  # catalog top-k vs dense oracle
 FLAGSHIP = dict(
     backbone="sasrec", emb_dim=128, hid_dim=32, batch_size=256, seq_len=150,
@@ -81,6 +108,14 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
                             "amid_tpu/ops/pallas_scatter.py:68"),
     "scatter_set_unique": ("amid_tpu_torch/csrc/scatter_rows.cu",
                            "amid_tpu/ops/pallas_scatter.py:49"),
+    "embedding_gather": ("amid_tpu_torch/csrc/gather_rows.cu",
+                         "amid_tpu/ops/pallas_embedding.py:30"),
+    "scoring_head": ("amid_tpu_torch/csrc/scoring_head.cu",
+                     "amid_tpu/ops/pallas_scoring.py:69"),
+    "max_affinity_blocked": ("amid_tpu_torch/csrc/affinity.cu",
+                             "amid_tpu/ops/pallas_affinity.py:39"),
+    "max_affinity_smalln": ("amid_tpu_torch/csrc/affinity.cu",
+                            "amid_tpu/ops/pallas_affinity.py:127"),
 }
 # training phase: one step of a kernels='cuda' model against the same step of
 # a kernels='torch' model (same state, batch and key, dropout 0.5 on)
@@ -92,7 +127,7 @@ MOMENT_TOL = 2e-4  # max |difference| of a moment array over its max |value|
 # the elements may differ by more.
 UPDATE_ATOL, UPDATE_SHARE = 1e-6, 1e-3
 LN2_TOL = 0.05  # first loss_cls vs ln 2
-TRAIN_ROWS, VAL_ROWS, DR_ROWS = 1536, 512, 1536  # 6 + 6 steps, 2 eval batches
+TRAIN_ROWS, VAL_ROWS, DR_ROWS = 768, 256, 768  # 3 + 3 steps, 1 eval batch, twice
 
 
 class SmokeFailure(RuntimeError):
@@ -123,40 +158,90 @@ def cuda_ms(torch, fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def bound(nbytes, flops, peak_flops=FP32_FLOPS):
+    """Least time (ms) for `nbytes` of traffic and `flops` operations."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak_flops
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
 def attention_bound(b, t, d, heads, bias_numel):
     """Least time (ms) of one attention forward on the card, and its limit."""
     dh = d // heads
     nbytes = 4 * (4 * b * t * d + bias_numel)  # q, k, v, bias read; o written
-    flops = 4 * b * heads * t * t * dh  # Q.K^T and P.V multiply-adds
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+    return bound(nbytes, 4 * b * heads * t * t * dh)  # Q.K^T and P.V multiply-adds
 
 
 def attention_bwd_bound(b, t, d, heads, bias_numel):
     """Least time (ms) of one attention backward: q, k, v, dO, bias read,
     dq, dk, dv written; five products of 2*T*T*dh operations per head."""
     dh = d // heads
-    nbytes = 4 * (7 * b * t * d + bias_numel)
-    flops = 10 * b * heads * t * t * dh
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+    return bound(4 * (7 * b * t * d + bias_numel), 10 * b * heads * t * t * dh)
 
 
 def scatter_bound(n_arrays, rows_written, width, n_ids):
     """Least time (ms) of a unique-row scatter: every written row read once
     and written once, the ids read once. Pure data movement."""
-    nbytes = n_arrays * 2 * rows_written * width * 4 + 4 * n_ids
-    return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
+    return bound(n_arrays * 2 * rows_written * width * 4 + 4 * n_ids, 0)
+
+
+def gather_bound(n, width):
+    """A row gather: n rows read and written once, the ids (int32) read once."""
+    return bound(2 * n * width * 4 + 4 * n, 0)
+
+
+def scoring_bound(b, c, d, h):
+    """The scoring head: user, items, both weight halves, b1, w2, b2 read,
+    [B, C] written; three products."""
+    nbytes = 4 * (b * d + b * c * d + 2 * h * d + 2 * h + 1 + b * c)
+    return bound(nbytes, 2 * b * c * d * h + 2 * b * d * h + 2 * b * c * h)
+
+
+def affinity_bound(b, c, n, m, d):
+    """Max-affinity: both fp32 inputs read, [B, C] written; 2*B*C*N*M*D
+    operations against the bf16 tensor-core peak."""
+    return bound(4 * ((b * n + c * m) * d + b * c), 2 * b * c * n * m * d,
+                 BF16_TENSOR_FLOPS)
 
 
 def counters():
+    from amid_tpu_torch.ops.affinity import max_affinity_blocked, max_affinity_smalln
     from amid_tpu_torch.ops.attention import fused_attention
+    from amid_tpu_torch.ops.embedding import embedding_gather
     from amid_tpu_torch.ops.scatter import scatter_set_unique, scatter_set_unique3
+    from amid_tpu_torch.ops.scoring import scoring_head
 
     return {"attention_fwd": (fused_attention, "launches"),
             "attention_bwd": (fused_attention, "backward_launches"),
             "scatter_set_unique3": (scatter_set_unique3, "launches"),
-            "scatter_set_unique": (scatter_set_unique, "launches")}
+            "scatter_set_unique": (scatter_set_unique, "launches"),
+            "embedding_gather": (embedding_gather, "launches"),
+            "scoring_head": (scoring_head, "launches"),
+            "max_affinity_blocked": (max_affinity_blocked, "launches"),
+            "max_affinity_smalln": (max_affinity_smalln, "launches")}
+
+
+def expected_launches(t, pairwise, train_steps=0, eval_batches=0, feature_passes=0,
+                      lazy_adam=False, fused_scatter=True):
+    """Kernel launches of the `run.sh` model (InterComp, DR heads, 2 blocks,
+    2 towers) with kernels='cuda': per forward 4 attention launches, 4 gathers
+    (2 on a features-only pass), 2 scoring launches per head (3 heads), and
+    in pairwise mode 2 affinity launches (the small-N kernel when the peers'
+    tiles fit, else the blocked one); per train step the backward's 4
+    attention launches and, on the lazy path, the table write-back."""
+    from amid_tpu_torch.ops.affinity import smalln_fits
+
+    forwards = train_steps + eval_batches
+    smalln = smalln_fits(t, FLAGSHIP["emb_dim"])
+    affinity = 2 * (forwards + feature_passes) if pairwise else 0
+    scatters = train_steps if lazy_adam else 0
+    return {"attention_fwd": 4 * (forwards + feature_passes),
+            "attention_bwd": 4 * train_steps,
+            "scatter_set_unique3": scatters if fused_scatter else 0,
+            "scatter_set_unique": 0 if fused_scatter else 3 * scatters,
+            "embedding_gather": 4 * forwards + 2 * feature_passes,
+            "scoring_head": 6 * forwards,
+            "max_affinity_blocked": 0 if smalln else affinity,
+            "max_affinity_smalln": affinity if smalln else 0}
 
 
 def reset_counts() -> None:
@@ -389,6 +474,143 @@ def scatter_kernel_phase(torch, gen):
     return cases
 
 
+def gather_kernel_phase(torch, gen):
+    from amid_tpu_torch.ops.embedding import embedding_gather, embedding_gather_plain
+
+    V, D = 2 * FLAGSHIP["item_length"], FLAGSHIP["emb_dim"]
+    table = torch.randn(V, D, device="cuda", generator=gen)
+    cases = {}
+    for shape in ((256, 999), (256, 150), (256, 20)):
+        ids = torch.randint(0, V, shape, device="cuda", generator=gen).to(torch.int32)
+        ids[0, 0], ids[0, 1] = 0, V - 1
+        flat = ids.reshape(-1)
+        got, want = embedding_gather(table, ids), embedding_gather_plain(table, ids)
+        torch.cuda.synchronize()
+        require(tuple(got.shape) == (*shape, D), f"gather {shape}: shape {tuple(got.shape)}")
+        require(torch.equal(got, want), f"gather {shape}: kernel != plain")
+        rec = {"case": f"gather_{shape[0]}x{shape[1]}", "V": V, "D": D, "rows": flat.numel(),
+               "max_abs_err": 0.0,
+               "kernel_ms": cuda_ms(torch, lambda: embedding_gather(table, ids), 50),
+               "plain_ms": cuda_ms(torch, lambda: embedding_gather_plain(table, ids), 50),
+               "library_ms": cuda_ms(torch, lambda: torch.index_select(table, 0, flat), 50)}
+        rec["bound_ms"], rec["bound_by"] = gather_bound(flat.numel(), D)
+        emit({"kernel_case_gather": rec})
+        cases[shape[1]] = rec
+    # ids outside [0, V) are clamped, int64 ids and a narrow, unaligned table too
+    wild = torch.tensor([-5, 0, V - 1, V, V + 7], device="cuda")
+    clamped = torch.tensor([0, 0, V - 1, V - 1, V - 1], device="cuda")
+    require(torch.equal(embedding_gather(table, wild), table[clamped]),
+            "gather: out-of-range ids are not clamped")
+    narrow = torch.randn(100, 7, device="cuda", generator=gen)
+    ids = torch.randint(0, 100, (3, 5), device="cuda", generator=gen)
+    require(torch.equal(embedding_gather(narrow, ids), narrow[ids]), "gather: narrow table")
+    # backward: duplicated ids add up, as index_select's own backward has it
+    small = torch.randn(50, D, device="cuda", generator=gen, requires_grad=True)
+    ids = torch.randint(0, 50, (64, 9), device="cuda", generator=gen)
+    upstream = torch.randn(64, 9, D, device="cuda", generator=gen)
+    (got_g,) = torch.autograd.grad(embedding_gather(small, ids), small, upstream)
+    (want_g,) = torch.autograd.grad(embedding_gather_plain(small, ids), small, upstream)
+    require(torch.allclose(got_g, want_g, atol=1e-5, rtol=1e-5), "gather: backward != plain")
+    return cases
+
+
+def scoring_kernel_phase(torch, gen):
+    from amid_tpu_torch.ops.scoring import scoring_head, scoring_head_plain
+
+    B, D, H = FLAGSHIP["batch_size"], FLAGSHIP["emb_dim"], FLAGSHIP["hid_dim"]
+
+    def rand(*shape, scale=1.0):
+        return torch.randn(*shape, device="cuda", generator=gen) * scale
+
+    fc1 = rand(H, 2 * D, scale=(2 * D) ** -0.5)  # the halves are views, as in the head
+    params = (fc1[:, :D], fc1[:, D:], rand(H, scale=0.1), rand(1, H, scale=H ** -0.5),
+              rand(1, scale=0.1))
+    cases = {}
+    for c in (1000, 2):
+        user, items = rand(B, D), rand(B, c, D)
+        with torch.no_grad():
+            got = scoring_head(user, items, *params)
+            want = scoring_head_plain(user, items, *params)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            require(torch.isfinite(got).all().item(), f"scoring C={c}: non-finite output")
+            require(err <= SCORE_ATOL, f"scoring C={c}: kernel vs plain max_abs_err {err}")
+            rec = {"case": f"scoring_C{c}", "shape": [B, c, D], "H": H, "max_abs_err": err,
+                   "kernel_ms": cuda_ms(torch, lambda: scoring_head(user, items, *params), 50),
+                   "plain_ms": cuda_ms(
+                       torch, lambda: scoring_head_plain(user, items, *params), 20),
+                   "library_ms": None}
+        rec["bound_ms"], rec["bound_by"] = scoring_bound(B, c, D, H)
+        emit({"kernel_case_scoring": rec})
+        cases[c] = rec
+    # all seven gradients against autograd through the plain version (C=2,
+    # the training shape; sums over B*C in another order)
+    user, items = rand(B, D), rand(B, 2, D)
+    leaves = [x.detach().clone().requires_grad_() for x in (user, items, fc1, *params[2:])]
+
+    def grads(fn):
+        u, it, w, b1, w2, b2 = leaves
+        out = fn(u, it, w[:, :D], w[:, D:], b1, w2, b2)
+        return torch.autograd.grad((out * out).sum(), leaves)
+
+    for name, g, w in zip(("user", "items", "fc1", "b1", "w2", "b2"),
+                          grads(scoring_head), grads(scoring_head_plain)):
+        require(torch.allclose(g, w, atol=1e-5, rtol=1e-4),
+                f"scoring backward: d{name} differs by {(g - w).abs().max().item()}")
+    return cases
+
+
+def affinity_kernel_phase(torch, gen):
+    from amid_tpu_torch.ops.affinity import (
+        max_affinity_blocked, max_affinity_plain, max_affinity_smalln, max_affinity_xla,
+        smalln_fits,
+    )
+
+    D = FLAGSHIP["emb_dim"]
+
+    def compare(name, fn, a, b, timed=True):
+        got, want = fn(a, b), max_affinity_plain(a, b)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        require(tuple(got.shape) == (a.shape[0], b.shape[0]), f"{name}: shape")
+        require(torch.allclose(got, want, atol=AFF_ATOL, rtol=AFF_RTOL),
+                f"{name}: kernel vs plain max_abs_err {err}")
+        rec = {"case": name, "a": list(a.shape), "b": list(b.shape), "max_abs_err": err}
+        if timed:
+            a16, b16 = a.to(torch.bfloat16), b.to(torch.bfloat16)
+            rec["kernel_ms"] = cuda_ms(torch, lambda: fn(a, b), 20)
+            rec["plain_ms"] = cuda_ms(torch, lambda: max_affinity_plain(a, b), 5)
+            # several library calls: 32 chunked matmuls and amax reductions
+            rec["library_ms"] = cuda_ms(torch, lambda: max_affinity_xla(a16, b16), 5)
+            rec["bound_ms"], rec["bound_by"] = affinity_bound(
+                a.shape[0], b.shape[0], a.shape[1], b.shape[1], D)
+        emit({"kernel_case_affinity": rec})
+        return rec, got
+
+    def pair(bsz, c, n, m):
+        return (torch.randn(bsz, n, D, device="cuda", generator=gen),
+                torch.randn(c, m, D, device="cuda", generator=gen))
+
+    cases = {"max_affinity_blocked": {}, "max_affinity_smalln": {}}
+    B = FLAGSHIP["batch_size"]
+    a, b = pair(B, B, 150, 150)
+    require(not smalln_fits(150, D), "smalln_fits(150, 128) should be False")
+    cases["max_affinity_blocked"][150], _ = compare("blocked_T150", max_affinity_blocked, a, b)
+    a, b = pair(B, B, 20, 20)
+    require(smalln_fits(20, D), "smalln_fits(20, 128) should be True")
+    cases["max_affinity_blocked"][20], k6 = compare("blocked_T20", max_affinity_blocked, a, b)
+    cases["max_affinity_smalln"][20], k7 = compare("smalln_T20", max_affinity_smalln, a, b)
+    require(torch.equal(k6, k7), "blocked and small-N kernels differ at T=20")
+    # ragged batches (no padding rows), N != M, a doubled time axis
+    for name, fn, shape in (("blocked_11x13", max_affinity_blocked, (11, 13, 150, 150)),
+                            ("smalln_11x13", max_affinity_smalln, (11, 13, 20, 20)),
+                            ("blocked_N33_M9", max_affinity_blocked, (5, 7, 33, 9)),
+                            ("smalln_N33_M9", max_affinity_smalln, (5, 7, 33, 9)),
+                            ("blocked_T300", max_affinity_blocked, (4, 6, 300, 300))):
+        compare(name, fn, *pair(*shape), timed=False)
+    return cases
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the serving path at full width
 # ---------------------------------------------------------------------------
@@ -409,44 +631,110 @@ def make_batch(cfg, rng):
     return batch
 
 
+GATED = ("itc_d1", "itc_d2")  # the InterComp modules of the run.sh model
+
+
+def opened_threshold(probs):
+    """A gate threshold at which between 5% and 95% of `probs` (softmax
+    values over 256 peers) are open: the uniform share 1/256, divided by 4
+    until enough gates open."""
+    thr = 1.0 / probs.shape[-1]
+    for _ in range(16):
+        if OPEN_SHARE[0] <= (probs > thr).float().mean().item() <= OPEN_SHARE[1]:
+            break
+        thr /= 4.0
+    return thr
+
+
+def as_plain_reference(ref):
+    """Gives a kernels='torch' model the affinity kernels' arithmetic (bf16
+    inputs, fp32 sums) in plain PyTorch, so that its pairwise gates are the
+    reference of the kernel model's."""
+    from amid_tpu_torch.ops.affinity import max_affinity_plain
+
+    for name in GATED:
+        getattr(ref, name).message.affinity = max_affinity_plain
+    return ref
+
+
 def feature_check(torch, model, ref, batch, label):
-    """Runs the feature pass on both models, compares InterComp gates first
-    and then the features; returns the kernel model's features and the
-    number of kernel launches in its pass."""
-    from amid_tpu_torch.ops.attention import fused_attention
+    """Runs the feature pass on both models and compares InterComp gates
+    first and then the features, twice: at the configured threshold, and at
+    one chosen so that gates really open and close. Returns the kernel
+    model's features and its first pass's launch counts."""
+    from amid_tpu_torch.ops.affinity import max_affinity_xla
     from amid_tpu_torch.serve import user_representations
 
     def run(m):
         inputs = {}
         hooks = [getattr(m, name).register_forward_hook(
             lambda mod, args, out, name=name: inputs.__setitem__(name, args))
-            for name in ("itc_d1", "itc_d2")]
+            for name in GATED]
         feats = user_representations(m, batch)
         for h in hooks:
             h.remove()
-        gates = {n: getattr(m, n).message.gate(*a) for n, a in inputs.items()}
-        return feats, gates
+        return feats, inputs
 
-    fused_attention.launches = 0
-    feats, gates = run(model)
-    torch.cuda.synchronize()
-    launches = fused_attention.launches
-    ref_feats, ref_gates = run(ref)
-    for name in gates:
-        same = torch.equal(gates[name], ref_gates[name])
-        emit({"intercomp_gate": {"pass": label, "module": name, "equal": same,
-                                 "open": int(gates[name].sum().item()),
-                                 "open_plain": int(ref_gates[name].sum().item())}})
-        require(same, f"{label}: InterComp gate flip in {name} between the kernel "
-                      f"and plain models (a flip changes every user's message)")
-    errs = [(f - r).abs().max().item() for f, r in zip(feats, ref_feats)]
-    for f in feats:
-        require(tuple(f.shape) == (model.cfg.batch_size, model.cfg.emb_dim),
-                f"{label}: feature shape {tuple(f.shape)}")
-        require(torch.isfinite(f).all().item(), f"{label}: non-finite features")
-    emit({"features": {"pass": label, "max_abs_err_vs_plain": errs}})
-    require(max(errs) <= FEATURE_TOL, f"{label}: features differ from plain by {errs}")
-    return feats, launches
+    def gates(m, inputs):
+        return {n: getattr(m, n).message.gate(*a) for n, a in inputs.items()}
+
+    def compare(tag):
+        reset_counts()
+        feats, inputs = run(model)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        ref_feats, ref_inputs = run(ref)
+        got, want = gates(model, inputs), gates(ref, ref_inputs)
+        shares = {}
+        for name in got:
+            same = torch.equal(got[name], want[name])
+            shares[name] = want[name].mean().item()
+            emit({"intercomp_gate": {
+                "pass": tag, "module": name, "equal": same,
+                "threshold": getattr(ref, name).message.threshold,
+                "gates": want[name].numel(), "open": int(got[name].sum().item()),
+                "open_plain": int(want[name].sum().item()), "open_share": shares[name],
+                "differing": int((got[name] != want[name]).sum().item())}})
+            require(same, f"{tag}: InterComp gate flip in {name} between the kernel "
+                          f"and plain models (a flip changes a user's message)")
+        errs = [(f - r).abs().max().item() for f, r in zip(feats, ref_feats)]
+        for f in feats:
+            require(tuple(f.shape) == (model.cfg.batch_size, model.cfg.emb_dim),
+                    f"{tag}: feature shape {tuple(f.shape)}")
+            require(torch.isfinite(f).all().item(), f"{tag}: non-finite features")
+        emit({"features": {"pass": tag, "max_abs_err_vs_plain": errs}})
+        require(max(errs) <= FEATURE_TOL, f"{tag}: features differ from plain by {errs}")
+        return feats, counts, ref_inputs, shares
+
+    feats, counts, ref_inputs, _ = compare(label)
+
+    # InterComp is the last stage before the pooling, so its inputs do not
+    # depend on its threshold: choose the opened threshold from the plain
+    # model's probabilities, set it on both models, and compare again.
+    configured = {n: getattr(ref, n).message.threshold for n in GATED}
+    probs = {n: getattr(ref, n).message.gate_probabilities(*ref_inputs[n]) for n in GATED}
+    try:
+        for n in GATED:
+            thr = opened_threshold(probs[n])
+            getattr(model, n).message.threshold = getattr(ref, n).message.threshold = thr
+        _, _, _, shares = compare(f"{label}_opened")
+        for n, share in shares.items():
+            require(OPEN_SHARE[0] <= share <= OPEN_SHARE[1],
+                    f"{label}: open share {share} of {n} at the opened threshold")
+        if not model.cfg.comp_broadcast_quirk:
+            # information only: the numerics change of bf16 inputs, seen as
+            # gates that differ from those of the fp32 affinity
+            for n in GATED:
+                msg = getattr(ref, n).message
+                fp32 = torch.softmax(max_affinity_xla(*ref_inputs[n]), dim=1) > msg.threshold
+                emit({"bf16_vs_fp32_gates": {
+                    "pass": f"{label}_opened", "module": n, "gates": fp32.numel(),
+                    "differing": int((fp32 != (probs[n] > msg.threshold)).sum().item())}})
+    finally:
+        for n in GATED:
+            getattr(model, n).message.threshold = configured[n]
+            getattr(ref, n).message.threshold = configured[n]
+    return feats, counts
 
 
 def dense_topk(torch, u, table, head, k):
@@ -465,18 +753,22 @@ def main_path_phase(torch, rng):
 
     results = {}
     cfg = ModelConfig(**FLAGSHIP)
-    for t in (150, 20):
-        cfg_t = dataclasses.replace(cfg, seq_len=t)
+    for t, pairwise in ((150, False), (20, False), (20, True), (150, True)):
+        label = f"T{t}_pairwise" if pairwise else f"T{t}"
+        cfg_t = dataclasses.replace(cfg, seq_len=t, comp_broadcast_quirk=not pairwise)
         model = build_model(cfg_t, seed=0)  # default device: cuda
         require(model.cfg.kernels == "cuda", f"kernels resolved to {model.cfg.kernels}")
         ref = build_model(dataclasses.replace(cfg_t, kernels="torch"), device="cuda")
         ref.load_state_dict(model.state_dict())
+        if pairwise:
+            as_plain_reference(ref)
         batch = {k: torch.as_tensor(v, device="cuda") for k, v in make_batch(cfg_t, rng).items()}
-        (u_d1, u_d2), launches = feature_check(torch, model, ref, batch, f"T{t}")
-        require(launches == 4, f"T{t}: attention kernel launched {launches} times, want 4")
-        rec = {"T": t, "attention_launches": launches,
+        (u_d1, u_d2), counts = feature_check(torch, model, ref, batch, label)
+        want = expected_launches(t, pairwise, feature_passes=1)
+        require(counts == want, f"{label}: feature pass launches {counts}, want {want}")
+        rec = {"T": t, "pairwise": pairwise, "launches": counts,
                "feature_ms": cuda_ms(torch, lambda: user_representations(model, batch), 10)}
-        if t == 150:
+        if t == 150 and not pairwise:
             table = model.item_embedding.detach()
             head = model.predict.state_dict()
             k = 100
@@ -486,11 +778,11 @@ def main_path_phase(torch, rng):
                 require(torch.isfinite(scores).all().item(), f"{dom}: non-finite top-k")
                 require(bool((ids >= 0).all() and (ids < table.shape[0]).all()),
                         f"{dom}: item id out of range")
-                dense, want = dense_topk(torch, u[:8], table, head, k)
-                require(torch.allclose(scores[:8], want, rtol=TOPK_RTOL, atol=TOPK_ATOL),
+                dense, want_k = dense_topk(torch, u[:8], table, head, k)
+                require(torch.allclose(scores[:8], want_k, rtol=TOPK_RTOL, atol=TOPK_ATOL),
                         f"{dom}: top-k scores differ from the dense oracle")
                 # ids may differ from the oracle's only where scores tie
-                require(torch.allclose(torch.gather(dense, 1, ids[:8]), want,
+                require(torch.allclose(torch.gather(dense, 1, ids[:8]), want_k,
                                        rtol=TOPK_RTOL, atol=TOPK_ATOL),
                         f"{dom}: top-k ids are not the dense oracle's")
             rec["catalog_rows"] = table.shape[0]
@@ -498,7 +790,7 @@ def main_path_phase(torch, rng):
                 torch, lambda: full_catalog_topk(u_d1, table, head, k=k), 5)
             rec["topk_vs_dense_oracle"] = "match (8 users, both domains)"
         emit({"main_path": rec})
-        results[t] = rec
+        results[label] = rec
         del model, ref
         torch.cuda.empty_cache()
     return results
@@ -515,7 +807,8 @@ def rel_to_max(a, b) -> float:
 def step_checks(torch, cfg, tcfg, train_ds, val_ds, dr_ds, label):
     """One phase-A step, one phase-B step and one evaluation batch of a
     kernels='cuda' model against a kernels='torch' model from the same state,
-    batch and key; launch counts per step; ms per step."""
+    batch and key (in pairwise mode the plain model takes its affinity from
+    `max_affinity_plain`); launch counts per step; ms per step."""
     from amid_tpu_torch.data.loader import BatchIterator
     from amid_tpu_torch.models.amid import build_model
     from amid_tpu_torch.train import lazy, steps
@@ -523,10 +816,16 @@ def step_checks(torch, cfg, tcfg, train_ds, val_ds, dr_ds, label):
     from amid_tpu_torch.train.optim import Adam
 
     is_lazy = tcfg.lazy_table_adam
+    pairwise = not cfg.comp_broadcast_quirk
     lr, lr2 = tcfg.lr, tcfg.lr * tcfg.lr2
+
+    def launches(**kw):
+        return expected_launches(cfg.seq_len, pairwise, lazy_adam=is_lazy, **kw)
 
     def make(kernels, fused_scatter=True):
         model = build_model(dataclasses.replace(cfg, kernels=kernels), device="cuda", seed=0)
+        if pairwise and kernels == "torch":
+            as_plain_reference(model)
         tx, tx2 = Adam(lr), Adam(lr2)
         if is_lazy:
             state = lazy.init_lazy_state(dict(model.named_parameters()), tx, tx2)
@@ -549,7 +848,6 @@ def step_checks(torch, cfg, tcfg, train_ds, val_ds, dr_ds, label):
                for name, ds in (("train", train_ds), ("val", val_ds), ("dr", dr_ds))}
     pools = {name: _device_pools(ds, "cuda")
              for name, ds in (("train", train_ds), ("val", val_ds), ("dr", dr_ds))}
-    want_k2 = 1 if is_lazy else 0
     table_name, dense_name = "item_embedding", "enc_d1.attn.0.in_proj_weight"
     rec = {"config": label}
 
@@ -573,8 +871,7 @@ def step_checks(torch, cfg, tcfg, train_ds, val_ds, dr_ds, label):
         _, rm = rfn(rstate, batch, *pools[split], key)
         torch.cuda.synchronize()
         require(read_counts() == counts, f"{label} phase {phase}: the plain model launched a kernel")
-        want = {"attention_fwd": 4, "attention_bwd": 4, "scatter_set_unique3": want_k2,
-                "scatter_set_unique": 0}
+        want = launches(train_steps=1)
         require(counts == want, f"{label} phase {phase}: launches {counts}, want {want}")
         for k, v in m.items():
             require(math.isfinite(float(v)), f"{label} phase {phase}: {k} = {float(v)}")
@@ -616,8 +913,7 @@ def step_checks(torch, cfg, tcfg, train_ds, val_ds, dr_ds, label):
     torch.cuda.synchronize()
     counts = read_counts()
     rev = reval_step(vb, *pools["val"], 99)
-    require(counts == {"attention_fwd": 4, "attention_bwd": 0, "scatter_set_unique3": 0,
-                       "scatter_set_unique": 0}, f"{label} eval: launches {counts}")
+    require(counts == launches(eval_batches=1), f"{label} eval: launches {counts}")
     require(abs(float(ev["loss_cls"]) - float(rev["loss_cls"])) <= LOSS_TOL,
             f"{label} eval: loss {float(ev['loss_cls'])} vs plain {float(rev['loss_cls'])}")
     ranks = ev["ranks_fixed"]
@@ -632,7 +928,7 @@ def step_checks(torch, cfg, tcfg, train_ds, val_ds, dr_ds, label):
         step3(state3, batches["train"][0], *pools["train"], 1234)
         torch.cuda.synchronize()
         counts = read_counts()
-        require(counts["scatter_set_unique"] == 3 and counts["scatter_set_unique3"] == 0,
+        require(counts == launches(train_steps=1, fused_scatter=False),
                 f"{label} fused_scatter=False: launches {counts}")
         rec["unfused_launches"] = counts
         del model3, state3, step3
@@ -650,48 +946,87 @@ def step_checks(torch, cfg, tcfg, train_ds, val_ds, dr_ds, label):
     return rec
 
 
+def check_run(label, t, pairwise, lazy_adam, counts, metrics, extra):
+    """Launch counts and metrics of one whole run of the DR schedule (phase
+    A, evaluation, phase B, evaluation)."""
+    n_a, n_b, n_ev = (n // FLAGSHIP["batch_size"] for n in (TRAIN_ROWS, DR_ROWS, VAL_ROWS))
+    want = expected_launches(t, pairwise, train_steps=n_a + n_b, eval_batches=2 * n_ev,
+                             lazy_adam=lazy_adam)
+    require(counts == want, f"{label}: launches {counts}, want {want}")
+    for k in ("hit_10_d1", "hit_10_d2", "ndcg_10_d1", "ndcg_10_d2", "mrr_d1", "mrr_d2"):
+        require(k in metrics and math.isfinite(metrics[k]) and 0.0 <= metrics[k] <= 1.0,
+                f"{label}: metric {k} = {metrics.get(k)}")
+    emit({"trainer_run": {"config": label, "steps": [n_a, n_b], "eval_batches": 2 * n_ev,
+                          "launches": counts, "mrr_d1": metrics["mrr_d1"],
+                          "mrr_d2": metrics["mrr_d2"], **extra}})
+
+
 def training_phase(torch, rng):
+    """Phase 4 (quirk mode, `run_seed` on packed data) and phase 5 (pairwise
+    mode, the CLI on CSV files), each at T=20 lazy and T=150 dense."""
     import shutil
     import tempfile
 
+    from amid_tpu_torch import train_sr_dr
     from amid_tpu_torch.config import DataConfig, ModelConfig, TrainConfig
-    from amid_tpu_torch.data.synthetic import synth_packed
+    from amid_tpu_torch.data.packed import load_dual_domain_csv
+    from amid_tpu_torch.data.synthetic import synth_packed, write_synthetic_csvs
     from amid_tpu_torch.train.loop import run_seed
 
     results = {}
-    for label, t, lazy_adam in (("T20_lazy", 20, True), ("T150_dense", 150, False)):
-        cfg = ModelConfig(**{**FLAGSHIP, "seq_len": t})
-        train_ds, val_ds, dr_ds = (synth_packed(cfg, rng, n)
-                                   for n in (TRAIN_ROWS, VAL_ROWS, DR_ROWS))
-        model_dir = tempfile.mkdtemp(prefix="chip_smoke_")
-        tcfg = TrainConfig(
-            epochs=1, seeds=1, model_dir=model_dir, lazy_table_adam=lazy_adam,
-            nan_policy="halt", checkpoint=False, fast_train=False, fast_eval=False,
-            model=cfg, data=DataConfig(neg_nums=999))
-        try:
-            reset_counts()
-            t0 = time.perf_counter()
-            best = run_seed(tcfg, 0, train_ds, val_ds, dr_ds)  # default device: cuda
-            torch.cuda.synchronize()
-            seconds = time.perf_counter() - t0
-            counts = read_counts()
-        finally:
-            shutil.rmtree(model_dir, ignore_errors=True)
-        n_a, n_b, n_ev = (n // cfg.batch_size for n in (TRAIN_ROWS, DR_ROWS, VAL_ROWS))
-        want = {"attention_fwd": 4 * (n_a + n_b + 2 * n_ev), "attention_bwd": 4 * (n_a + n_b),
-                "scatter_set_unique3": (n_a + n_b) if lazy_adam else 0,
-                "scatter_set_unique": 0}
-        require(counts == want, f"{label} run_seed: launches {counts}, want {want}")
-        for k in ("hit_10_d1", "hit_10_d2", "ndcg_10_d1", "ndcg_10_d2", "mrr_d1", "mrr_d2"):
-            require(k in best and math.isfinite(best[k]) and 0.0 <= best[k] <= 1.0,
-                    f"{label} run_seed: metric {k} = {best.get(k)}")
-        emit({"run_seed": {"config": label, "steps": [n_a, n_b], "eval_batches": 2 * n_ev,
-                           "seconds": seconds, "launches": counts,
-                           "examples_per_s": best["examples_per_s"],
-                           "mrr_d1": best["mrr_d1"], "mrr_d2": best["mrr_d2"]}})
-        rec = step_checks(torch, cfg, tcfg, train_ds, val_ds, dr_ds, label)
-        results[label] = {"launches": counts, **rec}
-        torch.cuda.empty_cache()
+    for pairwise in (False, True):
+        for t, lazy_adam in ((20, True), (150, False)):
+            label = f"T{t}_{'lazy' if lazy_adam else 'dense'}" + ("_pairwise" if pairwise else "")
+            cfg = ModelConfig(**{**FLAGSHIP, "seq_len": t, "comp_broadcast_quirk": not pairwise})
+            work = tempfile.mkdtemp(prefix="chip_smoke_")
+            data = DataConfig(dataset_type="synthetic", domain_type="d1_d2",
+                              data_root=f"{work}/data", overlap_ratio=0.25, neg_nums=999)
+            tcfg = TrainConfig(
+                epochs=1, seeds=1, model_dir=f"{work}/model", lazy_table_adam=lazy_adam,
+                nan_policy="halt", checkpoint=False, fast_train=False, fast_eval=False,
+                model=cfg, data=data)
+            try:
+                if pairwise:
+                    # the CLI as a user calls it, on CSV files in the reference's format
+                    write_synthetic_csvs(data, cfg, rng, TRAIN_ROWS, VAL_ROWS, DR_ROWS)
+                    argv = ["--comp_broadcast_quirk", "False", "--kernels", "cuda",
+                            "--model", "sasrec", "--isItC", "True", "--ts2", "0.4",
+                            "--seq_len", str(t), "--neg_nums", "999", "--overlap_ratio", "0.25",
+                            "-ds", data.dataset_type, "-dm", data.domain_type,
+                            "--data_root", data.data_root, "-md", tcfg.model_dir,
+                            "--epoch", "1", "--seeds", "1",
+                            "--lazy_table_adam", str(lazy_adam)]
+                    reset_counts()
+                    t0 = time.perf_counter()
+                    agg = train_sr_dr.main(argv)  # default device: cuda
+                    torch.cuda.synchronize()
+                    seconds = time.perf_counter() - t0
+                    counts = read_counts()
+                    log_all = Path(tcfg.model_dir, "log_all.txt").read_text()
+                    require("turned off for this run: fast_train, fast_eval, checkpoint" in log_all,
+                            f"{label}: the CLI did not log what it turned off")
+                    check_run(f"{label} CLI", t, True, lazy_adam, counts,
+                              {k: v["mean"] for k, v in agg.items()}, {"seconds": seconds})
+                    train_ds, val_ds, dr_ds = (
+                        load_dual_domain_csv(path, t, cfg.pad_id, with_ob_label=ob)
+                        for path, ob in ((data.train_csv(), False), (data.test_csv(), False),
+                                         (data.train_dr_csv(), True)))
+                else:
+                    train_ds, val_ds, dr_ds = (synth_packed(cfg, rng, n)
+                                               for n in (TRAIN_ROWS, VAL_ROWS, DR_ROWS))
+                    reset_counts()
+                    t0 = time.perf_counter()
+                    best = run_seed(tcfg, 0, train_ds, val_ds, dr_ds)  # default device: cuda
+                    torch.cuda.synchronize()
+                    seconds = time.perf_counter() - t0
+                    counts = read_counts()
+                    check_run(f"{label} run_seed", t, False, lazy_adam, counts, best,
+                              {"seconds": seconds, "examples_per_s": best["examples_per_s"]})
+            finally:
+                shutil.rmtree(work, ignore_errors=True)
+            rec = step_checks(torch, cfg, tcfg, train_ds, val_ds, dr_ds, label)
+            results[label] = {"launches": counts, **rec}
+            torch.cuda.empty_cache()
     return results
 
 
@@ -733,27 +1068,40 @@ def main() -> int:
     bwd = backward_kernel_phase(torch, gen)
     scatter = scatter_kernel_phase(torch, gen)
     torch.cuda.empty_cache()
+    gather = gather_kernel_phase(torch, gen)
+    scoring = scoring_kernel_phase(torch, gen)
+    affinity = affinity_kernel_phase(torch, gen)
+    torch.cuda.empty_cache()
     serving = main_path_phase(torch, np.random.default_rng(0))
     training = training_phase(torch, np.random.default_rng(1))
 
-    # launches on the main paths: the serving pass and the two run_seed runs,
-    # each driven with the counts at 0 just before it and read just after
-    launches = {name: sum(r["launches"][name] for r in training.values()) for name in KERNELS}
-    launches["attention_fwd"] += sum(r["attention_launches"] for r in serving.values())
+    # launches on the main paths: the serving passes, the two run_seed runs
+    # and the two CLI runs, each driven with the counts at 0 just before it
+    # and read just after
+    launches = {name: sum(r["launches"][name] for r in (*training.values(), *serving.values()))
+                for name in KERNELS}
     # run_seed scatters fused; the single-array kernel's path is the lazy step
     # built with fused_scatter=False, driven once in step_checks
     launches["scatter_set_unique"] += training["T20_lazy"]["unfused_launches"][
         "scatter_set_unique"]
     for name, n in launches.items():
         require(n > 0, f"kernel {name} was launched no time on the main paths")
-    # the numbers of the row: the amazon shape (T=150; U=77,824 unique ids);
-    # the fused scatter runs on the lazy path, whose shape is U=11,264
+    # the numbers of the row: the amazon shape (T=150) for attention and the
+    # blocked affinity; the lazy path's shape for the scatters (U=11,264) and
+    # the small-N affinity (T=20); the evaluation's shape for the gather
+    # ([256, 999] ids) and the scoring head (C=1000)
     rows = {"attention_fwd": (fwd[150], fwd.values()),
             "attention_bwd": (bwd[150], bwd.values()),
             "scatter_set_unique3": (scatter[11264]["scatter_set_unique3"],
                                     [c["scatter_set_unique3"] for c in scatter.values()]),
             "scatter_set_unique": (scatter[11264]["scatter_set_unique"],
-                                   [c["scatter_set_unique"] for c in scatter.values()])}
+                                   [c["scatter_set_unique"] for c in scatter.values()]),
+            "embedding_gather": (gather[999], gather.values()),
+            "scoring_head": (scoring[1000], scoring.values()),
+            "max_affinity_blocked": (affinity["max_affinity_blocked"][150],
+                                     affinity["max_affinity_blocked"].values()),
+            "max_affinity_smalln": (affinity["max_affinity_smalln"][20],
+                                    affinity["max_affinity_smalln"].values())}
     emit({"kernels": [{
         "name": name, "route": "cuda", "source": KERNELS[name][0],
         "replaces": KERNELS[name][1], "launches": launches[name],

@@ -49,7 +49,9 @@ def _transform(path, x):
 
 
 @pytest.mark.parametrize("overrides", [{}, {"is_inc": True}, {"is_dr": False},
-                                       {"sasrec_blocks": 3}])
+                                       {"sasrec_blocks": 3},
+                                       {"comp_broadcast_quirk": False},  # no kernel adds a leaf
+                                       {"comp_broadcast_quirk": False, "is_inc": True}])
 def test_every_leaf_maps_to_one_parameter(overrides):
     tree = _flax_tree(**overrides)
     sd = params_from_flax(tree)

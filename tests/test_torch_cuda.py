@@ -13,6 +13,15 @@ import torch
 
 from amid_tpu_torch.config import ModelConfig
 from amid_tpu_torch.models.amid import build_model
+from amid_tpu_torch.ops.affinity import (
+    SMEM_LIMIT,
+    blocked_smem_bytes,
+    max_affinity,
+    max_affinity_blocked,
+    max_affinity_plain,
+    max_affinity_smalln,
+    smalln_smem_bytes,
+)
 from amid_tpu_torch.ops.attention import (
     attention_backward,
     attention_bwd_plain,
@@ -20,12 +29,14 @@ from amid_tpu_torch.ops.attention import (
     dropout_keep_mask,
     fused_attention,
 )
+from amid_tpu_torch.ops.embedding import embedding_gather, embedding_gather_plain
 from amid_tpu_torch.ops.scatter import (
     scatter_set_unique,
     scatter_set_unique3,
     scatter_set_unique3_plain,
     scatter_set_unique_plain,
 )
+from amid_tpu_torch.ops.scoring import scoring_head, scoring_head_plain
 from amid_tpu_torch.serve import user_representations
 from amid_tpu_torch.train import lazy, steps
 from amid_tpu_torch.train.optim import Adam
@@ -252,4 +263,225 @@ def test_model_on_cuda_goes_through_the_kernel(gen):
     want = user_representations(plain, batch)
     assert fused_attention.launches == before + 4
     for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# max-affinity kernels
+# ---------------------------------------------------------------------------
+
+AFF_ATOL, AFF_RTOL = 1e-4, 1e-5  # same bf16 inputs, fp32 sums in another order
+
+
+@pytest.mark.parametrize("shape,d", [
+    ((256, 256, 20, 20), 128), ((11, 13, 20, 20), 128), ((5, 7, 33, 9), 32),
+    ((3, 4, 17, 24), 16), ((9, 5, 40, 48), 64), ((1, 1, 1, 1), 128),
+])
+def test_affinity_kernels_match_plain_and_each_other(gen, shape, d):
+    """Both kernels at shapes the small-N kernel takes: ragged batches (no
+    padding rows), N != M, time axes that are no multiple of the fragment
+    height, every compiled width. The two run the same mma steps in the same
+    order, so they agree bit for bit."""
+    b, c, n, m = shape
+    a = torch.randn(b, n, d, device="cuda", generator=gen)
+    bank = torch.randn(c, m, d, device="cuda", generator=gen)
+    before = (max_affinity_blocked.launches, max_affinity_smalln.launches)
+    k6, k7 = max_affinity_blocked(a, bank), max_affinity_smalln(a, bank)
+    assert (max_affinity_blocked.launches, max_affinity_smalln.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = max_affinity_plain(a, bank)
+    torch.testing.assert_close(k6, want, atol=AFF_ATOL, rtol=AFF_RTOL)
+    assert torch.equal(k6, k7)
+    assert k6.dtype == torch.float32 and tuple(k6.shape) == (b, c)
+
+
+@pytest.mark.parametrize("shape", [(64, 64, 150, 150), (11, 13, 150, 150), (4, 6, 300, 300),
+                                   (7, 3, 150, 20)])
+def test_blocked_affinity_kernel_takes_long_sequences(gen, shape):
+    b, c, n, m = shape
+    a = torch.randn(b, n, 128, device="cuda", generator=gen)
+    bank = torch.randn(c, m, 128, device="cuda", generator=gen)
+    torch.testing.assert_close(max_affinity_blocked(a, bank), max_affinity_plain(a, bank),
+                               atol=AFF_ATOL, rtol=AFF_RTOL)
+
+
+def test_affinity_all_negative_scores_survive_the_tile_padding(gen):
+    """Padding rows repeat a real row; a zero row would win a maximum of
+    negative scores."""
+    a = torch.rand(3, 5, 32, device="cuda", generator=gen) + 0.5
+    bank = -(torch.rand(4, 7, 32, device="cuda", generator=gen) + 0.5)
+    want = max_affinity_plain(a, bank)
+    assert (want < 0).all()
+    for fn in (max_affinity_blocked, max_affinity_smalln):
+        torch.testing.assert_close(fn(a, bank), want, atol=AFF_ATOL, rtol=AFF_RTOL)
+
+
+def test_affinity_dispatch_and_refusals(gen):
+    a20 = torch.randn(4, 20, 128, device="cuda", generator=gen)
+    a150 = torch.randn(4, 150, 128, device="cuda", generator=gen)
+    k6, k7 = max_affinity_blocked.launches, max_affinity_smalln.launches
+    max_affinity(a20, a20, "cuda")
+    assert (max_affinity_blocked.launches, max_affinity_smalln.launches) == (k6, k7 + 1)
+    max_affinity(a150, a150, "cuda")
+    assert (max_affinity_blocked.launches, max_affinity_smalln.launches) == (k6 + 1, k7 + 1)
+    max_affinity(a150, a150, "torch")  # fp32, no kernel
+    assert (max_affinity_blocked.launches, max_affinity_smalln.launches) == (k6 + 1, k7 + 1)
+    with pytest.raises(ValueError, match="largest M"):
+        max_affinity_smalln(a150, a150)
+    long = torch.randn(1, 450, 128, device="cuda", generator=gen)
+    assert blocked_smem_bytes(450, 450, 128) > SMEM_LIMIT
+    with pytest.raises(ValueError, match="shared memory"):
+        max_affinity_blocked(long, long)
+    odd = torch.randn(2, 4, 48, device="cuda", generator=gen)
+    with pytest.raises(ValueError, match="D in"):
+        max_affinity_blocked(odd, odd)
+    with pytest.raises(ValueError, match="seq_b on cpu"):
+        max_affinity_blocked(a20, a20.cpu())
+    assert (max_affinity_blocked.launches, max_affinity_smalln.launches) == (k6 + 1, k7 + 1)
+    # the wrappers' shared-memory arithmetic is the kernels' own
+    from amid_tpu_torch.ops.affinity import _kernel_lib
+    lib = _kernel_lib()
+    for n, m, d in ((150, 150, 128), (20, 20, 128), (33, 9, 32), (300, 300, 64)):
+        assert lib.affinity_smem_bytes(n, m, d) == blocked_smem_bytes(n, m, d)
+        assert lib.affinity_smalln_smem_bytes(m, d) == smalln_smem_bytes(m, d)
+
+
+# ---------------------------------------------------------------------------
+# scoring head
+# ---------------------------------------------------------------------------
+
+def _head(gen, b, c, d, h):
+    def rand(*shape, scale=1.0):
+        return torch.randn(*shape, device="cuda", generator=gen) * scale
+
+    fc1 = rand(h, 2 * d, scale=(2 * d) ** -0.5)
+    return [rand(b, d), rand(b, c, d), fc1, rand(h, scale=0.1), rand(1, h, scale=h ** -0.5),
+            rand(1, scale=0.1)]
+
+
+@pytest.mark.parametrize("b,c,d,h", [(256, 1000, 128, 32), (256, 2, 128, 32), (7, 37, 64, 8),
+                                     (5, 9, 32, 40), (3, 1, 128, 33), (2, 130, 256, 64)])
+def test_scoring_head_kernel_matches_plain(gen, b, c, d, h):
+    """Candidate counts that are no multiple of the 4 a warp scores together,
+    hidden widths below, at and above one warp, fc1 read through the row
+    stride of its two halves."""
+    user, items, fc1, b1, w2, b2 = _head(gen, b, c, d, h)
+    args = (user, items, fc1[:, :d], fc1[:, d:], b1, w2, b2)
+    before = scoring_head.launches
+    with torch.no_grad():
+        got = scoring_head(*args)
+        assert scoring_head.launches == before + 1
+        torch.testing.assert_close(got, scoring_head_plain(*args), atol=1e-5, rtol=1e-5)
+        strided = torch.randn(b, c, d + 4, device="cuda", generator=gen)[..., 4:]
+        torch.testing.assert_close(scoring_head(user, strided, *args[2:]),
+                                   scoring_head_plain(user, strided, *args[2:]),
+                                   atol=1e-5, rtol=1e-5)
+
+
+def test_scoring_head_gradients_reach_fc1_as_one_parameter(gen):
+    d = 128
+    leaves = [x.requires_grad_() for x in _head(gen, 16, 5, d, 32)]
+
+    def grads(fn):
+        user, items, fc1, b1, w2, b2 = leaves
+        out = fn(user, items, fc1[:, :d], fc1[:, d:], b1, w2, b2)
+        return torch.autograd.grad((out ** 2).sum(), leaves)
+
+    before = scoring_head.launches
+    got = grads(scoring_head)
+    assert scoring_head.launches == before + 1  # the backward is plain PyTorch
+    for g, w in zip(got, grads(scoring_head_plain)):
+        torch.testing.assert_close(g, w, atol=1e-5, rtol=1e-4)
+    assert tuple(got[2].shape) == (32, 2 * d)
+
+
+def test_scoring_head_refusals(gen):
+    user, items, fc1, b1, w2, b2 = _head(gen, 2, 3, 30, 4)  # D not a multiple of 4
+    with pytest.raises(ValueError, match="multiple of 4"):
+        scoring_head(user, items, fc1[:, :30], fc1[:, 30:], b1, w2, b2)
+    user, items, fc1, b1, w2, b2 = _head(gen, 2, 3, 32, 4)
+    with pytest.raises(ValueError, match="b1 on cpu"):
+        scoring_head(user, items, fc1[:, :32], fc1[:, 32:], b1.cpu(), w2, b2)
+    user, items, fc1, b1, w2, b2 = _head(gen, 1, 1, 1024, 64)
+    with pytest.raises(ValueError, match="shared memory"):
+        scoring_head(user, items, fc1[:, :1024], fc1[:, 1024:], b1, w2, b2)
+
+
+# ---------------------------------------------------------------------------
+# embedding gather
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("v,d,shape,id_dtype", [
+    (50_000, 128, (256, 999), torch.int32), (50_000, 128, (256,), torch.int64),
+    (100, 7, (3, 5), torch.int64), (64, 20, (0,), torch.int32),
+])
+def test_gather_kernel_matches_plain_bit_for_bit(gen, v, d, shape, id_dtype):
+    table = torch.randn(v, d, device="cuda", generator=gen)
+    ids = torch.randint(0, v, shape, device="cuda", generator=gen).to(id_dtype)
+    before = embedding_gather.launches
+    got = embedding_gather(table, ids)
+    assert embedding_gather.launches == before + 1
+    assert torch.equal(got, embedding_gather_plain(table, ids))
+    assert tuple(got.shape) == (*shape, d)
+
+
+def test_gather_kernel_clamps_and_reads_row_views(gen):
+    table = torch.randn(40, 16, device="cuda", generator=gen)
+    wild = torch.tensor([-5, 0, 39, 40, 10**9], device="cuda")
+    want = table[torch.tensor([0, 0, 39, 39, 39], device="cuda")]
+    assert torch.equal(embedding_gather(table, wild), want)
+    wide = torch.randn(40, 24, device="cuda", generator=gen)
+    view = wide[:, 3:19]  # row stride 24, unaligned start: the scalar path
+    ids = torch.randint(0, 40, (9,), device="cuda", generator=gen)
+    assert torch.equal(embedding_gather(view, ids), view[ids])
+    with pytest.raises(ValueError, match="unit stride"):
+        embedding_gather(wide.T, ids)
+    with pytest.raises(ValueError, match="ids on cpu"):
+        embedding_gather(table, ids.cpu())
+
+
+def test_gather_gradient_adds_duplicated_ids(gen):
+    table = torch.randn(50, 128, device="cuda", generator=gen, requires_grad=True)
+    ids = torch.randint(0, 50, (64, 9), device="cuda", generator=gen)
+    upstream = torch.randn(64, 9, 128, device="cuda", generator=gen)
+    (got,) = torch.autograd.grad(embedding_gather(table, ids), table, upstream)
+    (want,) = torch.autograd.grad(embedding_gather_plain(table, ids), table, upstream)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the pairwise model on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("seq_len,kernel", [(12, max_affinity_smalln), (96, max_affinity_blocked)])
+def test_pairwise_step_on_cuda_goes_through_all_kernels(gen, seq_len, kernel):
+    """At D=32 the small-N kernel takes peer sequences up to 88 long."""
+    cfg = ModelConfig(emb_dim=32, hid_dim=8, seq_len=seq_len, batch_size=8, is_itc=True,
+                      ts2=0.1, is_dr=True, item_length=50, user_length=50, sasrec_heads=2,
+                      comp_broadcast_quirk=False)
+    model = build_model(cfg)
+    v = cfg.item_table_size
+    batch = {"target": torch.randint(0, v, (8,), device="cuda", generator=gen),
+             "seq_d1": torch.randint(0, v, (8, seq_len), device="cuda", generator=gen),
+             "seq_d2": torch.randint(0, v, (8, seq_len), device="cuda", generator=gen),
+             "domain_id": torch.randint(0, 2, (8,), device="cuda", generator=gen),
+             "reject": torch.full((8, 1), v, device="cuda"),
+             "reject_counts": torch.zeros(8, dtype=torch.long, device="cuda"),
+             "ob_label": torch.ones(8, dtype=torch.long, device="cuda")}
+    pools = torch.arange(v, device="cuda").repeat(2, 1)
+    sizes = torch.tensor([v, v], device="cuda")
+    state = lazy.init_lazy_state(dict(model.named_parameters()), Adam(1e-3))
+    step = lazy.make_lazy_train_step(model, Adam(1e-3), dr_e_w=0.1)
+    counters = (embedding_gather, scoring_head, kernel)
+    before = [f.launches for f in counters]
+    _, m = step(state, batch, pools, sizes, 5)
+    assert [f.launches - b for f, b in zip(counters, before)] == [4, 6, 2]
+    assert torch.isfinite(m["loss"]) and abs(float(m["loss_cls"]) - 0.693) < 0.05
+    # the same weights with plain everything and the kernels' bf16 affinity
+    plain = build_model(dataclasses.replace(cfg, kernels="torch"), device="cuda")
+    plain.load_state_dict(model.state_dict())
+    for name in ("itc_d1", "itc_d2"):
+        getattr(plain, name).message.affinity = max_affinity_plain
+    feats = {k: batch[k] for k in ("seq_d1", "seq_d2")}
+    for g, w in zip(user_representations(model, feats), user_representations(plain, feats)):
         torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)

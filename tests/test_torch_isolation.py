@@ -15,8 +15,11 @@ import torch
 
 from amid_tpu_torch.config import ModelConfig
 from amid_tpu_torch.models.amid import build_model
+from amid_tpu_torch.ops.affinity import max_affinity_blocked, max_affinity_smalln
 from amid_tpu_torch.ops.attention import fused_attention
+from amid_tpu_torch.ops.embedding import embedding_gather
 from amid_tpu_torch.ops.scatter import scatter_set_unique, scatter_set_unique3
+from amid_tpu_torch.ops.scoring import scoring_head
 from amid_tpu_torch.serve import full_catalog_topk, user_representations
 from amid_tpu_torch.train import lazy
 from amid_tpu_torch.train.optim import Adam
@@ -32,8 +35,14 @@ def _banned(module: str) -> bool:
     return module.split(".")[0] in BANNED
 
 
+NEW_MODULES = {"ops/embedding.py", "ops/scoring.py", "ops/affinity.py", "train_sr.py",
+               "train_sr_dr.py", "train/loop.py", "config.py", "data/synthetic.py"}
+
+
 def test_no_import_line_names_jax_or_the_jax_package():
-    assert len(PORT_FILES) > 25
+    assert len(PORT_FILES) > 29
+    listed = {str(p.relative_to(REPO / "amid_tpu_torch")) for p in PORT_FILES[:-1]}
+    assert NEW_MODULES <= listed and PORT_FILES[-1].name == "chip_smoke.py"
     for path in PORT_FILES:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
             if isinstance(node, ast.Import):
@@ -62,7 +71,7 @@ def test_importing_the_port_loads_no_jax():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 28, proc.stdout
+    assert n_modules >= 32, proc.stdout
 
 
 def test_build_model_without_device_raises_without_cuda(monkeypatch):
@@ -96,7 +105,9 @@ def test_cpu_lazy_step_launches_no_kernel():
     kernels='cuda' model would call them: plain attention through autograd,
     plain scatters, and not one launch counted."""
     counts = lambda: (fused_attention.launches, fused_attention.backward_launches,  # noqa: E731
-                      scatter_set_unique.launches, scatter_set_unique3.launches)
+                      scatter_set_unique.launches, scatter_set_unique3.launches,
+                      embedding_gather.launches, scoring_head.launches,
+                      max_affinity_blocked.launches, max_affinity_smalln.launches)
     before = counts()
     model = build_model(ModelConfig(**SMALL), device="cpu")
     model.cfg = dataclasses.replace(model.cfg, kernels="cuda")  # lazy step: wrappers
@@ -121,3 +132,17 @@ def test_cpu_attention_keeps_autograd():
     q = torch.randn(2, 6, 16, requires_grad=True, generator=torch.Generator().manual_seed(0))
     fused_attention(q, q, q, torch.zeros(1, 1, 6, 6), 0, 2, 0.0).sum().backward()
     assert q.grad is not None and torch.isfinite(q.grad).all()
+
+
+def test_the_port_ships_every_kernel_source():
+    """Six CUDA sources under csrc/, each named by a wrapper's `_build.load`,
+    and the packaging glob that ships them."""
+    sources = sorted(p.stem for p in (REPO / "amid_tpu_torch" / "csrc").glob("*.cu"))
+    assert sources == ["affinity", "attention_bwd", "attention_fwd", "gather_rows",
+                       "scatter_rows", "scoring_head"]
+    ops = "".join(p.read_text() for p in (REPO / "amid_tpu_torch" / "ops").glob("*.py"))
+    for name in ("affinity", "gather_rows", "scatter_rows", "scoring_head"):
+        assert f'_build.load("{name}")' in ops, name
+    assert 'amid_tpu_torch = ["csrc/*.cu"]' in (REPO / "pyproject.toml").read_text()
+    for name in sources:  # a __global__ kernel in each
+        assert "__global__" in (REPO / "amid_tpu_torch" / "csrc" / f"{name}.cu").read_text()

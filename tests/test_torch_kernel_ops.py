@@ -1,0 +1,232 @@
+"""The plain versions and the autograd Functions of the port's gather,
+scoring-head and max-affinity ops against the JAX package's Pallas kernels,
+run on the CPU in interpret mode as the JAX package's own tests run them.
+The same numpy-seeded fp32 inputs go through both; on CPU tensors the port's
+wrappers take their plain versions and launch nothing."""
+
+import numpy as np
+import pytest
+import torch
+import jax
+import jax.numpy as jnp
+from jax.experimental.pallas import tpu as pltpu
+
+from amid_tpu.ops.affinity import max_affinity_xla as jax_max_affinity_xla
+from amid_tpu.ops.pallas_affinity import max_affinity_pallas, max_affinity_pallas_smalln
+from amid_tpu.ops.pallas_embedding import embedding_gather_pallas
+from amid_tpu.ops.pallas_scoring import scoring_head_pallas
+from amid_tpu_torch.ops import affinity, embedding, scoring
+
+
+@pytest.fixture
+def rng():
+    return np.random.default_rng(0)
+
+
+def _normal(rng, *shape, scale=1.0):
+    return (rng.normal(size=shape) * scale).astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# max-affinity
+# ---------------------------------------------------------------------------
+
+AFFINITY_SHAPES = [  # (B, N), (C, M), D
+    ((16, 8), (16, 8), 128),  # square, tests/test_pallas.py's shape
+    ((11, 4), (13, 4), 128),  # ragged batches: padding rows must not leak
+    ((9, 7), (5, 3), 32),  # N != M
+]
+
+
+@pytest.mark.parametrize("jax_kernel", ["blocked", "smalln"])
+@pytest.mark.parametrize("a_shape,b_shape,d", AFFINITY_SHAPES)
+def test_max_affinity_plain_matches_the_pallas_kernels(rng, jax_kernel, a_shape, b_shape, d):
+    """Same bf16 rounding of the inputs, exact products, fp32 sums in another
+    order: rtol 1e-5 / atol 1e-5."""
+    a, b = _normal(rng, *a_shape, d), _normal(rng, *b_shape, d)
+    fn = max_affinity_pallas if jax_kernel == "blocked" else max_affinity_pallas_smalln
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(fn(jnp.asarray(a), jnp.asarray(b)))
+    got = affinity.max_affinity_plain(torch.as_tensor(a), torch.as_tensor(b))
+    assert got.dtype == torch.float32 and tuple(got.shape) == (a_shape[0], b_shape[0])
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    # against the fp32 contraction only at the JAX tests' bf16 tolerance
+    fp32 = np.asarray(jax_max_affinity_xla(jnp.asarray(a), jnp.asarray(b), chunk=1))
+    np.testing.assert_allclose(got.numpy(), fp32, rtol=2e-2, atol=2e-1)
+    assert not np.array_equal(got.numpy(), fp32)  # the rounding is really there
+
+
+def test_max_affinity_wrappers_and_dispatch_on_the_cpu(rng):
+    """On CPU tensors both kernel wrappers are the plain version and count no
+    launch; the dispatcher sends 'cuda' to them and anything else to fp32."""
+    a, b = torch.as_tensor(_normal(rng, 6, 5, 32)), torch.as_tensor(_normal(rng, 4, 5, 32))
+    before = (affinity.max_affinity_blocked.launches, affinity.max_affinity_smalln.launches)
+    plain = affinity.max_affinity_plain(a, b)
+    for fn in (affinity.max_affinity_blocked, affinity.max_affinity_smalln):
+        assert torch.equal(fn(a, b), plain)
+    assert torch.equal(affinity.max_affinity(a, b, "cuda"), plain)
+    fp32 = affinity.max_affinity_xla(a, b)
+    assert torch.equal(affinity.max_affinity(a, b, "torch"), fp32)
+    assert torch.equal(affinity.max_affinity(a, b), fp32)
+    assert not torch.equal(plain, fp32)
+    assert before == (affinity.max_affinity_blocked.launches,
+                      affinity.max_affinity_smalln.launches)
+    with pytest.raises(ValueError, match=r"\[B, N, D\]"):
+        affinity.max_affinity_blocked(a, b[..., :16])
+    with pytest.raises(TypeError, match="float32"):
+        affinity.max_affinity_smalln(a.double(), b.double())
+
+
+def test_smalln_fits_at_its_edges():
+    """The small-N kernel keeps 16 peers' [ceil8(M), D + 8] bf16 tiles and an
+    [8, 16] fp32 output tile resident in at most half of the 232,448 bytes a
+    block may use, so that a second block shares the SM."""
+    half = affinity.SMEM_LIMIT // 2
+    assert half == 116224
+    assert affinity.smalln_smem_bytes(20, 128) == 16 * 24 * 136 * 2 + 512 == 104960
+    assert affinity.smalln_fits(20, 128)  # the mybank shape
+    assert affinity.smalln_fits(24, 128) and not affinity.smalln_fits(25, 128)
+    assert not affinity.smalln_fits(150, 128)  # the amazon shape: blocked kernel
+    assert affinity.smalln_fits(48, 64) and not affinity.smalln_fits(49, 64)
+    assert not affinity.smalln_fits(8, 100)  # a width the kernels are not built for
+    for m, d in ((24, 128), (25, 128), (48, 64)):
+        assert affinity.smalln_fits(m, d) == (affinity.smalln_smem_bytes(m, d) <= half)
+    # the blocked kernel's tile: query rows to 16, peer rows to 8
+    assert affinity.blocked_smem_bytes(150, 150, 128) == (160 + 152) * 136 * 2 + 32
+    assert affinity.blocked_smem_bytes(300, 300, 128) <= affinity.SMEM_LIMIT
+    assert affinity.blocked_smem_bytes(450, 450, 128) > affinity.SMEM_LIMIT
+    assert affinity.blocked_grid_y(256, 256) == 2 and affinity.blocked_grid_y(512, 256) == 1
+    assert affinity.blocked_grid_y(11, 13) == 13 and affinity.blocked_grid_y(1, 7) == 7
+
+
+# ---------------------------------------------------------------------------
+# scoring head
+# ---------------------------------------------------------------------------
+
+def _head_inputs(rng, b, c, d=128, h=32):
+    """user, items and the head's parameters in torch's layout ([H, 2D] first
+    layer, [1, H] second), beside the JAX kernels' [D, H] / [H, 1] views."""
+    user, items = _normal(rng, b, d), _normal(rng, b, c, d)
+    fc1 = _normal(rng, h, 2 * d, scale=0.05)
+    b1, w2, b2 = _normal(rng, h, scale=0.05), _normal(rng, 1, h, scale=0.1), \
+        _normal(rng, 1, scale=0.1)
+    jax_args = tuple(map(jnp.asarray, (user, items, fc1[:, :d].T, fc1[:, d:].T, b1, w2.T, b2)))
+    return (user, items, fc1, b1, w2, b2), jax_args
+
+
+@pytest.mark.parametrize("c", [200, 2])
+def test_scoring_head_forward_matches_the_pallas_kernel(rng, c):
+    (user, items, fc1, b1, w2, b2), jax_args = _head_inputs(rng, 4, c)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(scoring_head_pallas(*jax_args))
+    d = user.shape[1]
+    w = torch.as_tensor(fc1)
+    args = (torch.as_tensor(user), torch.as_tensor(items), w[:, :d], w[:, d:],
+            torch.as_tensor(b1), torch.as_tensor(w2), torch.as_tensor(b2))
+    before = scoring.scoring_head.launches
+    for fn in (scoring.scoring_head_plain, scoring.scoring_head):
+        got = fn(*args)
+        assert tuple(got.shape) == (4, c)
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    assert scoring.scoring_head.launches == before
+
+
+@pytest.mark.parametrize("which", ["function", "plain"])
+def test_scoring_head_gradients_match_the_pallas_vjp(rng, which):
+    """All seven gradients of sum(out ** 2): the Function's hand-written
+    backward and autograd through the plain version, against the JAX
+    custom_vjp. The halves of fc1 are views of one leaf, so its gradient is
+    both halves' side by side. rtol 1e-4 / atol 1e-5 (sums over B*C)."""
+    (user, items, fc1, b1, w2, b2), jax_args = _head_inputs(rng, 4, 130)
+
+    def jax_loss(*a):
+        return jnp.sum(scoring_head_pallas(*a) ** 2)
+
+    with pltpu.force_tpu_interpret_mode():
+        want = [np.asarray(g) for g in jax.grad(jax_loss, argnums=tuple(range(7)))(*jax_args)]
+    d = user.shape[1]
+    leaves = [torch.tensor(x, requires_grad=True) for x in (user, items, fc1, b1, w2, b2)]
+    u, it, w, tb1, tw2, tb2 = leaves
+    fn = scoring.scoring_head if which == "function" else scoring.scoring_head_plain
+    out = fn(u, it, w[:, :d], w[:, d:], tb1, tw2, tb2)
+    got = torch.autograd.grad((out ** 2).sum(), leaves)
+    duser, ditems, dku, dki, db1, dk2, db2 = want
+    want_torch = [duser, ditems, np.concatenate([dku.T, dki.T], axis=1), db1, dk2.T, db2]
+    for name, g, w_ in zip(("user", "items", "fc1", "b1", "w2", "b2"), got, want_torch):
+        np.testing.assert_allclose(g.numpy(), w_, rtol=1e-4, atol=1e-5, err_msg=name)
+
+
+def test_scoring_head_refuses_wrong_shapes(rng):
+    (user, items, fc1, b1, w2, b2), _ = _head_inputs(rng, 3, 5, d=16, h=4)
+    w = torch.as_tensor(fc1)
+    ok = [torch.as_tensor(user), torch.as_tensor(items), w[:, :16], w[:, 16:],
+          torch.as_tensor(b1), torch.as_tensor(w2), torch.as_tensor(b2)]
+    scoring.scoring_head(*ok)
+    with pytest.raises(ValueError, match="w2 must be"):
+        scoring.scoring_head(*ok[:5], ok[5].T, ok[6])
+    with pytest.raises(ValueError, match=r"items \[B, C, D\]"):
+        scoring.scoring_head(ok[0], ok[1][:2], *ok[2:])
+    with pytest.raises(TypeError, match="float32"):
+        scoring.scoring_head(ok[0].double(), *ok[1:])
+    assert scoring.grid_y(256, 1000) == 4 and scoring.grid_y(256, 2) == 1
+    assert scoring.grid_y(4, 1000) == 32
+
+
+# ---------------------------------------------------------------------------
+# embedding gather
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+def test_embedding_gather_matches_the_pallas_kernel(rng, dtype):
+    table = _normal(rng, 64, 128)
+    ids = rng.integers(0, 64, (5, 7)).astype(dtype)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(embedding_gather_pallas(jnp.asarray(table),
+                                                  jnp.asarray(ids.astype(np.int32))))
+    before = embedding.embedding_gather.launches
+    for fn in (embedding.embedding_gather_plain, embedding.embedding_gather):
+        got = fn(torch.as_tensor(table), torch.as_tensor(ids))
+        np.testing.assert_array_equal(got.numpy(), want)  # a copy: exact
+    assert embedding.embedding_gather.launches == before
+
+
+@pytest.mark.parametrize("which", ["function", "plain"])
+def test_embedding_gather_gradient_is_a_scatter_add(rng, which):
+    """Duplicated ids add up, in the Function's backward and in autograd's
+    through the plain version, as in the JAX custom_vjp."""
+    table, w = _normal(rng, 16, 8), _normal(rng, 2, 3, 8)
+    ids = np.array([[0, 3, 3], [15, 3, 0]], np.int32)
+
+    def jax_loss(t):
+        with pltpu.force_tpu_interpret_mode():
+            return jnp.sum(embedding_gather_pallas(t, jnp.asarray(ids)) * jnp.asarray(w))
+
+    want = np.asarray(jax.grad(jax_loss)(jnp.asarray(table)))
+    t = torch.tensor(table, requires_grad=True)
+    fn = embedding.embedding_gather if which == "function" else embedding.embedding_gather_plain
+    (got,) = torch.autograd.grad((fn(t, torch.as_tensor(ids)) * torch.as_tensor(w)).sum(), t)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+    assert np.count_nonzero(got.numpy().any(axis=1)) == 3  # rows 0, 3, 15 only
+
+
+def test_embedding_gather_clamps_ids_outside_the_table(rng):
+    """What the kernel does on the card (it never reads out of bounds), the
+    plain version does too: an id outside [0, V) reads the nearest row, and
+    its gradient lands there. The lazy step's searchsorted position U for an
+    id above every unique id is that case."""
+    table = torch.tensor(_normal(rng, 10, 4), requires_grad=True)
+    ids = torch.tensor([-3, 0, 9, 10, 12])
+    want = table.detach()[torch.tensor([0, 0, 9, 9, 9])]
+    for fn in (embedding.embedding_gather, embedding.embedding_gather_plain):
+        out = fn(table, ids)
+        assert torch.equal(out.detach(), want)
+        (g,) = torch.autograd.grad(out.sum(), table)
+        assert g[0].tolist() == [2.0] * 4 and g[9].tolist() == [3.0] * 4
+        assert torch.count_nonzero(g[1:9]) == 0
+    uids = torch.tensor([2, 5, 7, 10, 10])  # sorted unique ids, sentinel tail V=10
+    rows = table.detach()[uids.clamp(max=9)]
+    pos = torch.searchsorted(uids, torch.tensor([5, 7, 2, 11]))
+    assert pos.tolist() == [1, 2, 0, 5]  # 11 > sentinel: position U, clamped to U - 1
+    assert torch.equal(embedding.embedding_gather(rows, pos), rows[[1, 2, 0, 4]])
+    with pytest.raises(TypeError, match="int32 or int64"):
+        embedding.embedding_gather(table, ids.float())
