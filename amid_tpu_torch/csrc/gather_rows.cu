@@ -8,82 +8,212 @@
 // Contract. ids are int32 or int64; an id outside [0, V) is clamped to the
 // nearest valid row (what a JAX gather does with an out-of-bounds index), so
 // the kernel never reads outside the table whatever the caller passes. The
-// table's rows have unit stride and `table_stride` elements between rows; the
-// output is contiguous [n, width].
+// table's rows have unit stride and `table_stride` elements between rows.
+//
+// One launch serves up to four lookups ("segments") into the same table.
+// Segment k holds n_k ids, `per_user_k` of them for each user (the first axis
+// of the id array); user u's rows land as one contiguous block of
+// per_user_k * width floats at dst_k + u * dst_stride_k. A plain lookup is
+// one segment with a contiguous destination; the model's candidate block
+// [B, 1 + K, D] is two segments (target, negatives) whose destinations are
+// views of one tensor, so no concatenation follows the gather.
 //
 // Design. The TPU kernel prefetches the ids to scalar memory and issues one
-// DMA per row, 16 rows in flight per grid cell; here one warp copies one row:
-// its lanes read the id from global memory (one broadcast load), then move
-// the row as float4 (when width, stride and pointers allow 16-byte accesses)
-// or as floats. Rows are 512 bytes at D = 128, so a warp issues full 128-byte
-// lines. Offsets are 64-bit: the evaluation gather writes 256 x 999 rows
-// (131 MB), and the table holds 458 MB.
+// DMA per row, 16 rows in flight per grid cell. Here a warp takes kRows rows
+// at a time: lanes 0..kRows-1 each read one id (one coalesced load), clamp it
+// and work out the row's source and destination, the warp shares those by
+// shuffle, and every lane then issues its 16-byte piece of all kRows rows
+// before the first store (float4 when width, strides and pointers allow it,
+// floats otherwise). The grid is capped at 16 blocks per SM and strides over
+// the rows, so at the large shapes a block lives for many rows. Sources are
+// read through the read-only path with the default policy, not streamed: most
+// rows are read once, but the padding row of left-padded histories is read by
+// every user and should stay cached. Destinations are written with a
+// streaming store (the evaluation block is 131 MB against 50 MB of L2, and
+// this launch does not read it back). Offsets are 64-bit: the table holds
+// 458 MB.
 //
 // Bound on the H100 (data sheet): pure data movement, n*width*4 bytes read
 // and written plus the ids: 262 MB at n = 255,744, width = 128 (78 us at
 // 3.35 TB/s); 1.3 MB for a [256, 20] sequence (launch-sized).
+//
+// The entry point validates what needs only numbers and returns a negative
+// code for a refusal (see the enum), 0 for success, or the launch's positive
+// cudaError_t.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kWarps = 8;
+constexpr int kWarps = 8;        // warps per block
+constexpr int kRows = 8;         // rows a warp keeps in flight
+constexpr int kMaxSegments = 4;
+constexpr int kBlocksPerSM = 16; // grid cap: a block strides over the rows beyond it
 
-template <typename IdT, bool VEC>
-__global__ void __launch_bounds__(kWarps * 32)
-gather_rows_kernel(const float* __restrict__ table, long long table_stride,
-                   const IdT* __restrict__ ids, float* __restrict__ out,
-                   long long n, long long V, int width) {
-  const long long r = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (r >= n) return;
-  const int lane = threadIdx.x & 31;
-  long long id = (long long)ids[r];
+enum Refusal {
+  kBadTable = -1,     // V < 1 or width < 1
+  kTableStride = -2,  // the table's rows do not have unit stride
+  kBadSegments = -3,  // segment count outside 1..4, a negative count, or ids
+                      // per user that do not divide the segment's ids
+  kTooManyRows = -4,  // more than 2^31 - 1 rows in one launch
+};
+
+struct Segments {
+  const void* ids[kMaxSegments];
+  float* dst[kMaxSegments];
+  long long dst_stride[kMaxSegments];  // floats between two users' blocks
+  unsigned per_user[kMaxSegments];     // ids per user
+  unsigned start[kMaxSegments];        // first row of the launch that is this segment's
+  int n;
+};
+
+// The source and destination of row g of the launch.
+template <typename IdT>
+__device__ __forceinline__ void locate(const Segments& s, unsigned g, const float* table,
+                                       long long table_stride, long long V, int width,
+                                       const float*& src, float*& dst) {
+  const void* ids = s.ids[0];
+  float* base = s.dst[0];
+  long long stride = s.dst_stride[0];
+  unsigned per = s.per_user[0], first = 0;
+#pragma unroll
+  for (int k = 1; k < kMaxSegments; ++k) {
+    if (k < s.n && g >= s.start[k]) {
+      ids = s.ids[k]; base = s.dst[k]; stride = s.dst_stride[k];
+      per = s.per_user[k]; first = s.start[k];
+    }
+  }
+  const unsigned local = g - first;
+  const unsigned user = local / per, j = local - user * per;
+  long long id = (long long)static_cast<const IdT*>(ids)[local];
   id = id < 0 ? 0 : (id >= V ? V - 1 : id);
-  const float* s = table + id * table_stride;
-  float* d = out + r * (long long)width;
-  if (VEC) {
-    const float4* s4 = reinterpret_cast<const float4*>(s);
-    float4* d4 = reinterpret_cast<float4*>(d);
-    for (int c = lane; c < width / 4; c += 32) d4[c] = s4[c];
-  } else {
-    for (int c = lane; c < width; c += 32) d[c] = s[c];
+  src = table + id * table_stride;
+  dst = base + user * stride + (long long)j * width;
+}
+
+// VecT is float4 (width, strides and pointers 16-byte aligned) or float.
+template <typename IdT, typename VecT>
+__global__ void __launch_bounds__(kWarps * 32)
+gather_rows_kernel(const float* __restrict__ table, long long table_stride, long long V,
+                   int width, Segments s, unsigned total) {
+  const int lane = threadIdx.x & 31;
+  const int vecs = width / (int)(sizeof(VecT) / sizeof(float));
+  const unsigned long long step = (unsigned long long)gridDim.x * kWarps * kRows;
+  for (unsigned long long base =
+           ((unsigned long long)blockIdx.x * kWarps + (threadIdx.x >> 5)) * kRows;
+       base < total; base += step) {
+    const float* my_src = nullptr;
+    float* my_dst = nullptr;
+    if (lane < kRows && base + lane < total)
+      locate<IdT>(s, (unsigned)base + lane, table, table_stride, V, width, my_src, my_dst);
+    const VecT* src[kRows];
+    VecT* dst[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      src[r] = reinterpret_cast<const VecT*>(
+          __shfl_sync(0xffffffffu, reinterpret_cast<unsigned long long>(my_src), r));
+      dst[r] = reinterpret_cast<VecT*>(
+          __shfl_sync(0xffffffffu, reinterpret_cast<unsigned long long>(my_dst), r));
+    }
+    for (int c = lane; c < vecs; c += 32) {
+      VecT v[kRows];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r)
+        if (src[r] != nullptr) v[r] = __ldg(src[r] + c);
+#pragma unroll
+      for (int r = 0; r < kRows; ++r)
+        if (src[r] != nullptr) __stcs(dst[r] + c, v[r]);
+    }
   }
 }
 
-template <typename IdT>
-cudaError_t launch(const float* table, long long table_stride, const void* ids,
-                   float* out, long long n, long long V, int width, int vec,
-                   cudaStream_t stream) {
-  const unsigned blocks = (unsigned)((n + kWarps - 1) / kWarps);
-  const IdT* typed = static_cast<const IdT*>(ids);
-  if (vec)
-    gather_rows_kernel<IdT, true><<<blocks, kWarps * 32, 0, stream>>>(
-        table, table_stride, typed, out, n, V, width);
-  else
-    gather_rows_kernel<IdT, false><<<blocks, kWarps * 32, 0, stream>>>(
-        table, table_stride, typed, out, n, V, width);
+template <typename IdT, typename VecT>
+cudaError_t launch(const float* table, long long table_stride, long long V, int width,
+                   const Segments& s, unsigned total, int device, cudaStream_t stream) {
+  int sms = 0;
+  cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // handed to the caller; not left for the next launch to find
+    return err;
+  }
+  const long long want = ((long long)total + kWarps * kRows - 1) / (kWarps * kRows);
+  const long long cap = (long long)sms * kBlocksPerSM;
+  const unsigned blocks = (unsigned)(want < cap ? want : cap);
+  gather_rows_kernel<IdT, VecT><<<blocks, kWarps * 32, 0, stream>>>(
+      table, table_stride, V, width, s, total);
   return cudaGetLastError();
+}
+
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+int run(const float* table, long long table_stride0, long long table_stride1, long long V,
+        long long width, int ids64, Segments& s, const long long* counts, int device,
+        void* stream) {
+  if (V < 1 || width < 1 || width > 0x7fffffffLL) return kBadTable;
+  if (table_stride1 != 1) return kTableStride;
+  if (s.n < 1 || s.n > kMaxSegments) return kBadSegments;
+  bool vec = width % 4 == 0 && table_stride0 % 4 == 0 && aligned16(table);
+  long long total = 0;
+  for (int k = 0; k < s.n; ++k) {
+    const long long n = counts[k], per = s.per_user[k];
+    if (n < 0 || (n > 0 && (per < 1 || n % per != 0))) return kBadSegments;
+    s.start[k] = (unsigned)total;
+    total += n;
+    if (total > 0x7fffffffLL) return kTooManyRows;
+    vec = vec && aligned16(s.dst[k]) && s.dst_stride[k] % 4 == 0;
+    if (n == 0) s.per_user[k] = 1;  // never divided by: the segment owns no row
+  }
+  if (total == 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int w = (int)width;
+  const unsigned t = (unsigned)total;
+  cudaError_t err;
+  if (ids64)
+    err = vec ? launch<long long, float4>(table, table_stride0, V, w, s, t, device, st)
+              : launch<long long, float>(table, table_stride0, V, w, s, t, device, st);
+  else
+    err = vec ? launch<int, float4>(table, table_stride0, V, w, s, t, device, st)
+              : launch<int, float>(table, table_stride0, V, w, s, t, device, st);
+  return (int)err;
+}
+
+template <typename T>
+T* pointer(long long value) {
+  return reinterpret_cast<T*>(static_cast<uintptr_t>(value));
 }
 
 }  // namespace
 
 extern "C" {
 
-// table: fp32 [V, width], unit stride along the row, `table_stride` elements
-// between rows; ids: [n] int32 (ids64 == 0) or int64; out: contiguous fp32
-// [n, width]. vec != 0 promises 16-byte aligned pointers and width and
-// table_stride multiples of 4. Returns the launch's cudaError_t (0 on
-// success).
-int gather_rows(const float* table, long long table_stride, const void* ids,
-                int ids64, float* out, long long n, long long V, int width,
-                int vec, void* stream) {
-  if (n < 0 || V < 1 || width < 1 || (n + kWarps - 1) / kWarps > 0x7fffffffLL)
-    return (int)cudaErrorInvalidValue;
-  if (n == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(ids64 ? launch<long long>(table, table_stride, ids, out, n, V, width, vec, s)
-                     : launch<int>(table, table_stride, ids, out, n, V, width, vec, s));
+// Up to four lookups into one table in one launch. The arguments come as one
+// array of 64-bit integers (pointers as integers), which the Python side packs
+// in one call: converting one argument costs less than converting ten.
+// a = {table, table_stride0, table_stride1, V, width, ids64, n_segments,
+// device, stream}, then for each segment {ids, n, ids per user, destination,
+// destination stride}. table: fp32 [V, width] with those strides in elements;
+// ids: [n] contiguous, all segments int32 (ids64 == 0) or int64; user u's rows
+// are written as one contiguous block at destination + u * stride floats, and
+// the caller keeps the users' blocks apart. device: the index of the card the
+// tensors lie on (its SM count sizes the grid); stream: a stream of that card.
+int gather_rows(const long long* a) {
+  const long long n_segments = a[6];
+  if (n_segments < 1 || n_segments > kMaxSegments) return kBadSegments;
+  Segments s = {};
+  s.n = (int)n_segments;
+  long long counts[kMaxSegments] = {0, 0, 0, 0};
+  for (int k = 0; k < s.n; ++k) {
+    const long long* seg = a + 9 + 5 * k;
+    if (seg[2] < 0 || seg[2] > 0x7fffffffLL) return kBadSegments;
+    s.ids[k] = pointer<const void>(seg[0]);
+    counts[k] = seg[1];
+    s.per_user[k] = (unsigned)seg[2];
+    s.dst[k] = pointer<float>(seg[3]);
+    s.dst_stride[k] = seg[4];
+  }
+  return run(pointer<const float>(a[0]), a[1], a[2], a[3], a[4], (int)a[5], s, counts,
+             (int)a[7], pointer<void>(a[8]));
 }
 
 }  // extern "C"

@@ -11,10 +11,13 @@
 imputation heads' outputs, model_seq.py:436-440) beside u_d1/u_d2.
 
 The item table is one embedding shared by both domains (ids are pre-offset
-at data-prep time, model_seq.py:22-29). `kernels='cuda'` gathers through the
-hand-written kernel (`ops.embedding.embedding_gather`), `kernels='torch'`
-through its plain version (an `index_select`); `cfg.kernels` also reaches the
-attention core, the pairwise affinity and the prediction heads.
+at data-prep time, model_seq.py:22-29). Lookups go in groups, one kernel
+launch each: both sequences of a feature pass, and target with negatives
+straight into the [B, 1+K, D] candidate block. `kernels='cuda'` gathers
+through the hand-written kernel (`ops.embedding.embedding_gather_many`),
+`kernels='torch'` through its plain version (`index_select`); `cfg.kernels`
+also reaches the attention core, the pairwise affinity and the prediction
+heads.
 
 Two optional arguments serve the trainer. `rng` is the step's
 `ops.rng.StepRandom`, the source of train-mode dropout. `lazy_rows=(uids,
@@ -22,7 +25,8 @@ rows)` redirects every lookup to `rows[searchsorted(uids, ids)]` (the
 counterpart of `amid_tpu/parallel/context.py::lazy_rows` and the redirect in
 `parallel/embedding.py::embedding_lookup`): `uids` are the step's sorted
 unique ids and `rows` the gathered table rows, the differentiated leaf of the
-lazy table Adam, so the table itself takes no gradient.
+lazy table Adam, so the table itself takes no gradient. A group of lookups
+shares one `searchsorted`.
 """
 
 from __future__ import annotations
@@ -37,7 +41,7 @@ from amid_tpu_torch.config import KERNEL_CHOICES, ModelConfig
 from amid_tpu_torch.models.comp import InnerComp, InterComp
 from amid_tpu_torch.models.encoders import SasrecEncoder
 from amid_tpu_torch.models.heads import PredictHead
-from amid_tpu_torch.ops.embedding import embedding_gather, embedding_gather_plain
+from amid_tpu_torch.ops.embedding import embedding_gather_many, embedding_gather_many_plain
 from amid_tpu_torch.ops.torch_compat import torch_embedding_init_
 
 Batch = dict[str, Any]
@@ -84,20 +88,31 @@ class AMIDModel(nn.Module):
             else:
                 m.reset_parameters(gen)
 
-    def lookup(self, ids: torch.Tensor, lazy_rows=None) -> torch.Tensor:
+    def lookup(self, ids_list, lazy_rows=None, concat: bool = False):
+        """Rows of the item table for a group of id arrays, in one launch:
+        a tuple of [..., D] tensors, or with `concat` one [B, P, D] block of
+        every array's rows per user side by side."""
         table = self.item_embedding
-        ids = torch.as_tensor(ids, device=table.device)
+        ids_list = [torch.as_tensor(ids, device=table.device) for ids in ids_list]
         if lazy_rows is not None:
             uids, table = lazy_rows
-            ids = torch.searchsorted(uids, ids.to(uids.dtype))
-        gather = embedding_gather if self.cfg.kernels == "cuda" else embedding_gather_plain
-        return gather(table, ids)
+            if concat:  # one id array per user, one segment
+                users = ids_list[0].shape[0]
+                ids = torch.cat([ids.reshape(users, -1) for ids in ids_list], dim=1)
+                ids_list = [torch.searchsorted(uids, ids.to(uids.dtype))]
+            else:
+                flat = torch.cat([ids.reshape(-1) for ids in ids_list])
+                pos = torch.searchsorted(uids, flat.to(uids.dtype))
+                ids_list = [p.view(ids.shape) for p, ids in
+                            zip(pos.split([ids.numel() for ids in ids_list]), ids_list)]
+        gather = (embedding_gather_many if self.cfg.kernels == "cuda"
+                  else embedding_gather_many_plain)
+        return gather(table, ids_list, concat=concat)
 
     def features(self, batch: Batch, rng=None,
                  lazy_rows=None) -> tuple[torch.Tensor, torch.Tensor]:
         """Pooled per-domain user representations (u_feat_enhance_d1/d2)."""
-        seq_d1 = self.lookup(batch["seq_d1"], lazy_rows)  # [B, L, D]
-        seq_d2 = self.lookup(batch["seq_d2"], lazy_rows)
+        seq_d1, seq_d2 = self.lookup((batch["seq_d1"], batch["seq_d2"]), lazy_rows)  # [B, L, D]
         if self.cfg.is_inc:
             seq_d1, seq_d2 = self.inc_d1(seq_d1), self.inc_d2(seq_d2)
         seq_d1, seq_d2 = self.enc_d1(seq_d1, rng), self.enc_d2(seq_d2, rng)
@@ -110,11 +125,8 @@ class AMIDModel(nn.Module):
         u_d1, u_d2 = self.features(batch, rng, lazy_rows)
         if features_only:
             return u_d1, u_d2
-        cand = torch.cat(
-            [self.lookup(batch["target"], lazy_rows)[:, None, :],
-             self.lookup(batch["neg_samples"], lazy_rows)],
-            dim=1,
-        )  # [B, 1+K, D]
+        cand = self.lookup((batch["target"], batch["neg_samples"]), lazy_rows,
+                           concat=True)  # [B, 1+K, D]
         out = {"u_d1": u_d1, "u_d2": u_d2}
         out["logits_d1"], out["logits_d2"] = self.predict(u_d1, u_d2, cand)
         if self.cfg.is_dr:

@@ -7,7 +7,13 @@ named by a hash of the source and the flags, so an edited source is rebuilt
 on its next use and an unchanged one is loaded as it is. `build()` starts one
 `nvcc` per source at once and waits for all of them.
 
-Nothing here runs at import: the first kernel call builds what it needs.
+Nothing is built at import: the first kernel call builds what it needs.
+
+The launch path every wrapper shares is kept thin. `bind` types one C entry
+point; a wrapper binds its functions at its first launch and keeps them in
+module-level names, so a later launch looks nothing up. `raw_stream(index)`
+gives the current CUDA stream's handle as an integer by the cheapest call the
+installed torch has; which one is decided once, at import.
 """
 
 from __future__ import annotations
@@ -18,6 +24,8 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
@@ -89,3 +97,25 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build([name])[name]))
         _loaded[name] = lib
     return lib
+
+
+def bind(fn, argtypes, restype=ctypes.c_int):
+    """Types the C entry point `fn` of a loaded library and returns it."""
+    fn.argtypes = list(argtypes)
+    fn.restype = restype
+    return fn
+
+
+def _stream_getter():
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:  # one C call, no Stream object
+        return raw
+    if not hasattr(torch.cuda, "current_stream"):
+        raise ImportError(
+            "this torch has neither torch._C._cuda_getCurrentRawStream nor "
+            "torch.cuda.current_stream; the kernels launch on torch's current stream"
+        )
+    return lambda index: torch.cuda.current_stream(index).cuda_stream
+
+
+raw_stream = _stream_getter()  # raw_stream(device_index) -> cudaStream_t as an int

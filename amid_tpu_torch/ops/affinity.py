@@ -29,6 +29,7 @@ import ctypes
 
 import torch
 
+from amid_tpu_torch.ops import _build
 from amid_tpu_torch.ops._build import SMEM_LIMIT
 
 KERNEL_WIDTHS = (16, 32, 64, 128)  # D values the kernels are compiled for
@@ -104,21 +105,23 @@ def _check(seq_a: torch.Tensor, seq_b: torch.Tensor, name: str) -> None:
         raise ValueError(f"{name}: seq_a on {seq_a.device}, seq_b on {seq_b.device}")
 
 
-def _kernel_lib():
-    from amid_tpu_torch.ops import _build
+_fns = None  # the bound C entry points, resolved at the first launch
 
-    lib = _build.load("affinity")
-    if not getattr(lib, "_amid_typed", False):
+
+def _kernel_fns():
+    """(max_affinity_blocked, max_affinity_smalln, affinity_smem_bytes,
+    affinity_smalln_smem_bytes) of `csrc/affinity.cu`, typed once."""
+    global _fns
+    if _fns is None:
+        lib = _build.load("affinity")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.max_affinity_blocked.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
-        lib.max_affinity_smalln.argtypes = [p, p, p, p, i, i, i, i, i, p]
-        lib.max_affinity_blocked.restype = lib.max_affinity_smalln.restype = i
-        lib.affinity_smem_bytes.argtypes = [i, i, i]
-        lib.affinity_smalln_smem_bytes.argtypes = [i, i]
-        lib.affinity_smem_bytes.restype = ctypes.c_size_t
-        lib.affinity_smalln_smem_bytes.restype = ctypes.c_size_t
-        lib._amid_typed = True
-    return lib
+        _fns = (
+            _build.bind(lib.max_affinity_blocked, [p, p, p, p, i, i, i, i, i, i, p]),
+            _build.bind(lib.max_affinity_smalln, [p, p, p, p, i, i, i, i, i, p]),
+            _build.bind(lib.affinity_smem_bytes, [i, i, i], ctypes.c_size_t),
+            _build.bind(lib.affinity_smalln_smem_bytes, [i, i], ctypes.c_size_t),
+        )
+    return _fns
 
 
 def blocked_grid_y(bsz: int, c: int) -> int:
@@ -133,9 +136,9 @@ def _launch(seq_a, seq_b, smalln: bool) -> torch.Tensor:
     (bsz, n, d), (c, m, _) = seq_a.shape, seq_b.shape
     if d not in KERNEL_WIDTHS:
         raise ValueError(f"{name}: the affinity kernels take D in {KERNEL_WIDTHS}; got D={d}")
-    lib = _kernel_lib()
+    blocked, small, smem_bytes, smalln_bytes = _fns or _kernel_fns()
     if smalln:
-        need = lib.affinity_smalln_smem_bytes(m, d)
+        need = smalln_bytes(m, d)
         if need > SMEM_LIMIT // 2:
             largest = max((x for x in range(1, m) if smalln_fits(x, d)), default=0)
             raise ValueError(
@@ -143,7 +146,7 @@ def _launch(seq_a, seq_b, smalln: bool) -> torch.Tensor:
                 f"the small-N kernel takes at most {SMEM_LIMIT // 2} (largest M at this "
                 f"width: {largest}); use max_affinity_blocked")
     else:
-        need = lib.affinity_smem_bytes(n, m, d)
+        need = smem_bytes(n, m, d)
         if need > SMEM_LIMIT:
             raise ValueError(
                 f"{name}: N={n}, M={m}, D={d} needs {need} bytes of shared memory per "
@@ -153,14 +156,13 @@ def _launch(seq_a, seq_b, smalln: bool) -> torch.Tensor:
     dev = a.device
     scratch = torch.empty((bsz * n + c * m) * d, dtype=torch.bfloat16, device=dev)
     out = torch.empty((bsz, c), dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = _build.raw_stream(dev.index)
     if smalln:
-        err = lib.max_affinity_smalln(a.data_ptr(), b.data_ptr(), scratch.data_ptr(),
-                                      out.data_ptr(), bsz, c, n, m, d, stream)
+        err = small(a.data_ptr(), b.data_ptr(), scratch.data_ptr(), out.data_ptr(),
+                    bsz, c, n, m, d, stream)
     else:
-        err = lib.max_affinity_blocked(a.data_ptr(), b.data_ptr(), scratch.data_ptr(),
-                                       out.data_ptr(), bsz, c, n, m, d,
-                                       blocked_grid_y(bsz, c), stream)
+        err = blocked(a.data_ptr(), b.data_ptr(), scratch.data_ptr(), out.data_ptr(),
+                      bsz, c, n, m, d, blocked_grid_y(bsz, c), stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
     return out

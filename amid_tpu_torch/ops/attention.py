@@ -32,6 +32,7 @@ import math
 
 import torch
 
+from amid_tpu_torch.ops import _build
 from amid_tpu_torch.ops._build import SMEM_LIMIT
 
 _BIAS_SHAPES = "[1|B, 1, 1|T, T]"
@@ -198,30 +199,40 @@ _DROPOUT_ARGS = [ctypes.c_float, ctypes.c_int, ctypes.c_uint32, ctypes.c_float,
                  ctypes.c_uint32]  # scale, dropout, keep_threshold, inv_keep, seed
 
 
-def _kernel_lib(name: str):
-    """The library of `csrc/attention_fwd.cu` or `csrc/attention_bwd.cu`."""
-    from amid_tpu_torch.ops import _build
+_fwd = None  # (kernel, its shared-memory function) of each source, bound at first use
+_bwd = None
 
+
+def _bind(name: str):
+    """The entry point of `csrc/attention_fwd.cu` or `csrc/attention_bwd.cu`
+    and its `_smem_bytes`, typed once."""
     lib = _build.load(name)
-    if not getattr(lib, "_amid_typed", False):
-        p, i = ctypes.c_void_p, ctypes.c_int
-        n_arrays = 3 if name == "attention_fwd" else 4  # strided inputs
-        n_out = 1 if name == "attention_fwd" else 3
-        fn = getattr(lib, name)
-        fn.argtypes = (
-            [p] * (n_arrays + 1 + n_out)  # inputs, bias, outputs
-            + [i, i, i, i]  # B T D H
-            + _STRIDES * n_arrays  # batch and time strides of each input
-            + _STRIDES  # bias batch and query strides
-            + _DROPOUT_ARGS
-            + [p]  # stream
-        )
-        fn.restype = ctypes.c_int
-        smem = getattr(lib, name + "_smem_bytes")
-        smem.argtypes = [i, i]
-        smem.restype = ctypes.c_size_t
-        lib._amid_typed = True
-    return lib
+    p, i = ctypes.c_void_p, ctypes.c_int
+    n_arrays = 3 if name == "attention_fwd" else 4  # strided inputs
+    n_out = 1 if name == "attention_fwd" else 3
+    kernel = _build.bind(getattr(lib, name), (
+        [p] * (n_arrays + 1 + n_out)  # inputs, bias, outputs
+        + [i, i, i, i]  # B T D H
+        + _STRIDES * n_arrays  # batch and time strides of each input
+        + _STRIDES  # bias batch and query strides
+        + _DROPOUT_ARGS
+        + [p]  # stream
+    ))
+    return kernel, _build.bind(getattr(lib, name + "_smem_bytes"), [i, i], ctypes.c_size_t)
+
+
+def _forward_fns():
+    global _fwd
+    if _fwd is None:
+        _fwd = _bind("attention_fwd")
+    return _fwd
+
+
+def _backward_fns():
+    global _bwd
+    if _bwd is None:
+        _bwd = _bind("attention_bwd")
+    return _bwd
 
 
 def _check_kernel_inputs(named, dev, heads: int, d: int) -> None:
@@ -240,8 +251,7 @@ def _check_kernel_inputs(named, dev, heads: int, d: int) -> None:
         )
 
 
-def _check_smem(lib, name: str, t: int, dh: int) -> None:
-    smem_bytes = getattr(lib, name + "_smem_bytes")
+def _check_smem(smem_bytes, name: str, t: int, dh: int) -> None:
     smem = smem_bytes(t, dh)
     if smem > SMEM_LIMIT:
         largest = max((n for n in range(1, t) if smem_bytes(n, dh) <= SMEM_LIMIT),
@@ -269,16 +279,16 @@ def _launch_forward(q, k, v, bias, seed: int, heads: int, rate: float):
     dh = d // heads
     dev = q.device
     _check_kernel_inputs((("q", q), ("k", k), ("v", v), ("bias", bias)), dev, heads, d)
-    lib = _kernel_lib("attention_fwd")
-    _check_smem(lib, "attention_fwd", t, dh)
+    kernel, smem_bytes = _fwd or _forward_fns()
+    _check_smem(smem_bytes, "attention_fwd", t, dh)
     out = torch.empty((bsz, t, d), dtype=torch.float32, device=dev)
-    err = lib.attention_fwd(
+    err = kernel(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(),
         bsz, t, d, heads,
         q.stride(0), q.stride(1), k.stride(0), k.stride(1),
         v.stride(0), v.stride(1), *_bias_strides(bias),
         *_dropout_args(dh, seed, rate),
-        torch.cuda.current_stream(dev).cuda_stream,
+        _build.raw_stream(dev.index),
     )
     if err != 0:
         raise RuntimeError(f"attention_fwd kernel launch failed: cudaError {err}")
@@ -296,18 +306,18 @@ def _launch_backward(q, k, v, bias, dout, seed: int, heads: int, rate: float):
         (("q", q), ("k", k), ("v", v), ("bias", bias), ("dout", dout)), dev, heads, d)
     if dout.shape != q.shape:
         raise ValueError(f"dout must be {tuple(q.shape)}; got {tuple(dout.shape)}")
-    lib = _kernel_lib("attention_bwd")
-    _check_smem(lib, "attention_bwd", t, dh)
+    kernel, smem_bytes = _bwd or _backward_fns()
+    _check_smem(smem_bytes, "attention_bwd", t, dh)
     dq, dk, dv = (torch.empty((bsz, t, d), dtype=torch.float32, device=dev)
                   for _ in range(3))
-    err = lib.attention_bwd(
+    err = kernel(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), dout.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         bsz, t, d, heads,
         q.stride(0), q.stride(1), k.stride(0), k.stride(1),
         v.stride(0), v.stride(1), dout.stride(0), dout.stride(1),
         *_bias_strides(bias), *_dropout_args(dh, seed, rate),
-        torch.cuda.current_stream(dev).cuda_stream,
+        _build.raw_stream(dev.index),
     )
     if err != 0:
         raise RuntimeError(f"attention_bwd kernel launch failed: cudaError {err}")
@@ -371,7 +381,7 @@ def fused_attention(
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
         # a gradient will be asked for: fail now if the backward kernel cannot
         # take this shape, not in the middle of a backward pass
-        _check_smem(_kernel_lib("attention_bwd"), "attention_bwd",
+        _check_smem((_bwd or _backward_fns())[1], "attention_bwd",
                     q.shape[1], q.shape[2] // heads)
     return _FusedAttention.apply(q, k, v, bias, seed, heads, rate)
 

@@ -1,13 +1,24 @@
 """Embedding row gather — the counterpart of `amid_tpu/ops/pallas_embedding.py`.
 
-    embedding_gather(table, ids) -> table[ids]      # [..., D]
+    embedding_gather(table, ids) -> table[ids]                    # [..., D]
+    embedding_gather_many(table, [ids_0, ids_1, ...]) -> (table[ids_0], ...)
+    embedding_gather_many(table, [ids_0, ...], concat=True)
+        -> cat([table[ids_k].view(B, -1, D) for k], dim=1)        # [B, P, D]
 
 table: [V, D] float32 with unit stride along D (the item table, or the lazy
 step's gathered `[U, D]` rows); ids: any shape, int32 or int64.
 
+`embedding_gather_many` takes up to four lookups into one table in one kernel
+launch; `embedding_gather` is the same call with one lookup. Each id array is
+[B, ...]: its first axis is the user, and a user's rows form one contiguous
+block of the destination. With `concat=True` the blocks of all lookups stand
+side by side in one [B, P, D] tensor (every id array then shares B), written
+in place by the kernel through strided destinations: the model's
+[target ; negatives] candidates need no `torch.cat`.
+
 What the caller owes. Nothing on the device's side checks the ids (that would
 cost a synchronisation): an id outside [0, V) is clamped to the nearest valid
-row, in the kernel and in the plain version alike, as a JAX gather clamps an
+row, in the kernel and in the plain versions alike, as a JAX gather clamps an
 out-of-bounds index. Callers pass real rows: `pad_id` is a row of the table,
 and the lazy step's `searchsorted` positions lie in [0, U) for every id that
 is in its unique list (a position of U could only come from an id above the
@@ -15,19 +26,35 @@ sentinel V, which no batch holds).
 
 The forward is the kernel of `csrc/gather_rows.cu`. The backward is the
 gather's transpose, a scatter-add into a zero `[V, D]` table (duplicated ids
-add up), done with `index_add_` as the TPU package leaves it to XLA.
+add up, across lookups too), done with one `index_add_` as the TPU package
+leaves it to XLA. The `autograd.Function` is entered only when a gradient is
+wanted (grad mode on and a table that requires it); otherwise the wrapper
+launches directly.
 
-On CUDA tensors `embedding_gather` launches the kernel (counting the launch in
-`.launches`) or raises; on CPU tensors its forward is `embedding_gather_plain`
-and its backward the same `index_add_`, so the CPU tests reach it.
+On CUDA tensors the wrappers launch the kernel (counting each launch in
+`embedding_gather.launches`, whichever wrapper made it) or raise; on CPU
+tensors the forward is `embedding_gather_many_plain` and the backward the same
+`index_add_`, so the CPU tests reach it. Types, devices and the grouping are
+checked here, once for both routes (`_check`); strides and counts by the C
+entry point, whose refusals come back as the exceptions of `_REFUSALS`.
 """
 
 from __future__ import annotations
 
 import ctypes
+import struct
 
 import torch
 
+from amid_tpu_torch.ops import _build
+
+MAX_SEGMENTS = 4  # lookups one launch takes (csrc/gather_rows.cu)
+_ID_TYPES = (torch.int32, torch.int64)
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch versions
+# ---------------------------------------------------------------------------
 
 def embedding_gather_plain(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """The same function in plain PyTorch, differentiable by autograd."""
@@ -35,84 +62,181 @@ def embedding_gather_plain(table: torch.Tensor, ids: torch.Tensor) -> torch.Tens
     return torch.index_select(table, 0, flat).view(*ids.shape, table.shape[1])
 
 
-def _check(table: torch.Tensor, ids: torch.Tensor) -> None:
+def _side_by_side(ids_list) -> torch.Tensor:
+    """[B, P] ids of a `concat=True` call: each lookup's ids per user, in order."""
+    users = ids_list[0].shape[0]
+    if len(ids_list) == 1:
+        return ids_list[0].reshape(users, -1)
+    return torch.cat([i.reshape(users, -1) for i in ids_list], dim=1)
+
+
+def embedding_gather_many_plain(table, ids_list, concat: bool = False):
+    """`embedding_gather_many` in plain PyTorch, differentiable by autograd
+    (one `index_select` per lookup, or one in all with `concat=True`)."""
+    ids_list = tuple(ids_list)
+    _check(table, ids_list, concat)
+    return _plain(table, ids_list, concat)
+
+
+def _plain(table, ids_list, concat):
+    if concat:
+        return embedding_gather_plain(table, _side_by_side(ids_list))
+    return tuple(embedding_gather_plain(table, ids) for ids in ids_list)
+
+
+def _check(table, ids_list, concat) -> None:
+    """Every check that needs the tensors, for the kernel and the plain route
+    alike: compares on the way in, the texts on the failure path only."""
     if table.dim() != 2 or table.shape[0] < 1:
         raise ValueError(f"embedding_gather: the table must be [V, D] with V >= 1; "
                          f"got {tuple(table.shape)}")
-    if table.dtype != torch.float32:
+    if table.dtype is not torch.float32:
         raise TypeError(f"embedding_gather takes a float32 table; got {table.dtype}")
-    if ids.dtype not in (torch.int32, torch.int64):
-        raise TypeError(f"embedding_gather takes int32 or int64 ids; got {ids.dtype}")
-    if ids.device != table.device:
-        raise ValueError(f"embedding_gather: table on {table.device}, ids on {ids.device}")
+    if table.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"embedding_gather runs on cuda or cpu, not {table.device}")
+    if not 1 <= len(ids_list) <= MAX_SEGMENTS:
+        raise ValueError(f"embedding_gather_many takes 1 to {MAX_SEGMENTS} id arrays; "
+                         f"got {len(ids_list)}")
+    for ids in ids_list:
+        if ids.dtype not in _ID_TYPES:
+            raise TypeError(f"embedding_gather takes int32 or int64 ids; got {ids.dtype}")
+        if ids.device != table.device:
+            raise ValueError(f"embedding_gather: table on {table.device}, ids on {ids.device}")
+    if concat:
+        users = ids_list[0].shape[0] if ids_list[0].dim() else None
+        for ids in ids_list:
+            if not ids.dim() or ids.shape[0] != users:
+                raise ValueError("embedding_gather_many: concat=True takes id arrays that "
+                                 "share their first axis; got "
+                                 f"{[tuple(i.shape) for i in ids_list]}")
 
 
-def _kernel_lib():
-    from amid_tpu_torch.ops import _build
+# ---------------------------------------------------------------------------
+# CUDA kernel launch
+# ---------------------------------------------------------------------------
 
-    lib = _build.load("gather_rows")
-    if not getattr(lib, "_amid_typed", False):
-        p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        # table, table_stride, ids, ids64, out, n, V, width, vec, stream
-        lib.gather_rows.argtypes = [p, ll, p, i, p, ll, ll, i, i, p]
-        lib.gather_rows.restype = i
-        lib._amid_typed = True
-    return lib
+_REFUSALS = {  # the C entry point's codes (csrc/gather_rows.cu)
+    -1: (ValueError, "embedding_gather: the table must be [V, D] with V >= 1 and D >= 1"),
+    -2: (ValueError, "embedding_gather: the table must have unit stride along D"),
+    -3: (ValueError, "embedding_gather_many: 1 to 4 id arrays, each a whole number of "
+                     "ids per user"),
+    -4: (ValueError, "embedding_gather: more than 2**31 - 1 rows in one launch"),
+}
+
+_gather_rows = None  # the bound C entry point, resolved at the first launch
+# it takes one array of 64-bit integers (csrc/gather_rows.cu has the layout);
+# packing it is one call, where ctypes converts argument by argument
+_PACK = [None] + [struct.Struct(f"{9 + 5 * k}q").pack for k in range(1, MAX_SEGMENTS + 1)]
 
 
-def _launch(table: torch.Tensor, flat: torch.Tensor) -> torch.Tensor:
-    v, width = table.shape
-    if table.stride(1) != 1:
-        raise ValueError("embedding_gather: the table must have unit stride along D")
-    if not flat.is_contiguous():
-        flat = flat.contiguous()
-    n = flat.shape[0]
-    out = torch.empty((n, width), dtype=torch.float32, device=table.device)
-    vec = (width % 4 == 0 and table.stride(0) % 4 == 0
-           and table.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
-    err = _kernel_lib().gather_rows(
-        table.data_ptr(), table.stride(0), flat.data_ptr(),
-        int(flat.dtype == torch.int64), out.data_ptr(), n, v, width, int(vec),
-        torch.cuda.current_stream(table.device).cuda_stream,
-    )
-    if err != 0:
+def _bind() -> None:
+    global _gather_rows
+    _gather_rows = _build.bind(_build.load("gather_rows").gather_rows, [ctypes.c_char_p])
+
+
+def _launch(table, ids_list, concat):
+    """One launch for all lookups, on checked CUDA tensors."""
+    if _gather_rows is None:
+        _bind()
+    rows, width = table.shape
+    kind = ids_list[0].dtype
+    for ids in ids_list:
+        if ids.dtype is not kind:  # one integer type per launch
+            ids_list = [i.long() for i in ids_list]
+            kind = torch.int64
+            break
+    # contiguous copies stay referenced until the launch is in the stream
+    ids_list = [i if i.is_contiguous() else i.contiguous() for i in ids_list]
+    # per lookup: ids pointer, number of ids, ids per user, destination pointer,
+    # destination stride between users in floats
+    segments = []
+    if concat:  # one [B, P, D] block; lookup k owns columns [first_k, first_k + per_k)
+        users = ids_list[0].shape[0]
+        pers = [ids.numel() // users if users else 0 for ids in ids_list]
+        total = sum(pers)
+        out = table.new_empty((users, total, width))
+        ptr = out.data_ptr()
+        for ids, per in zip(ids_list, pers):
+            segments += (ids.data_ptr(), per * users, per, ptr, total * width)
+            ptr += 4 * per * width
+    else:  # one contiguous tensor per lookup: a single block, whoever the users are
+        out = []
+        for ids in ids_list:
+            dst = table.new_empty((*ids.shape, width))
+            n = ids.numel()
+            segments += (ids.data_ptr(), n, n or 1, dst.data_ptr(), 0)
+            out.append(dst)
+        out = tuple(out)
+    index = table.device.index
+    stride0, stride1 = table.stride()
+    err = _gather_rows(_PACK[len(ids_list)](
+        table.data_ptr(), stride0, stride1, rows, width, kind is torch.int64, len(ids_list),
+        index, _build.raw_stream(index), *segments))
+    if err:
+        if err in _REFUSALS:
+            exc, text = _REFUSALS[err]
+            raise exc(text)
         raise RuntimeError(f"gather_rows kernel launch failed: cudaError {err}")
     embedding_gather.launches += 1
     return out
 
 
-class _Gather(torch.autograd.Function):
-    """Forward: the kernel (CUDA) or the plain version (CPU) on flat ids.
-    Backward: scatter-add of the output gradient into a zero [V, D]."""
+def _forward(table, ids_list, concat):
+    """The forward of both wrappers on checked tensors, without autograd."""
+    if table.device.type == "cuda":
+        return _launch(table, ids_list, concat)
+    with torch.no_grad():
+        return _plain(table, ids_list, concat)
+
+
+class _GatherMany(torch.autograd.Function):
+    """Forward: one kernel launch (CUDA) or the plain version (CPU) for all
+    lookups. Backward: one scatter-add of the output gradients into a zero
+    [V, D], over the concatenated ids."""
 
     @staticmethod
-    def forward(ctx, table, flat):
-        if table.device.type == "cuda":
-            out = _launch(table.detach(), flat)
+    def forward(ctx, table, concat, *ids_list):
+        got = _forward(table, ids_list, concat)
+        if concat:
+            flat, got = _side_by_side(ids_list).reshape(-1), (got,)
+        elif len(ids_list) == 1:
+            flat = ids_list[0].reshape(-1)
         else:
-            out = embedding_gather_plain(table.detach(), flat)
+            flat = torch.cat([i.reshape(-1) for i in ids_list])
         ctx.save_for_backward(flat)
         ctx.table_rows = table.shape[0]
-        return out
+        return got
 
     @staticmethod
     @torch.autograd.function.once_differentiable
-    def backward(ctx, g):
+    def backward(ctx, *grads):
         (flat,) = ctx.saved_tensors
-        dtable = torch.zeros((ctx.table_rows, g.shape[1]), dtype=g.dtype, device=g.device)
+        width = grads[0].shape[-1]
+        g = (grads[0].reshape(-1, width) if len(grads) == 1
+             else torch.cat([x.reshape(-1, width) for x in grads]))
+        dtable = torch.zeros((ctx.table_rows, width), dtype=g.dtype, device=g.device)
         dtable.index_add_(0, flat.clamp(0, ctx.table_rows - 1), g)
-        return dtable, None
+        return (dtable, None) + (None,) * (len(ctx.needs_input_grad) - 2)
+
+
+def embedding_gather_many(table: torch.Tensor, ids_list, concat: bool = False):
+    """Up to four lookups into `table` in one kernel launch; see the module
+    docstring. Returns a tuple of tensors shaped `ids_k.shape + (D,)`, or with
+    `concat=True` one [B, P, D] tensor. Differentiable in the table. CUDA
+    tensors launch the kernel (or raise); CPU tensors take the plain version
+    in the forward."""
+    ids_list = tuple(ids_list)
+    _check(table, ids_list, concat)
+    if torch.is_grad_enabled() and table.requires_grad:
+        got = _GatherMany.apply(table, concat, *ids_list)
+        return got[0] if concat else got
+    return _forward(table, ids_list, concat)
 
 
 def embedding_gather(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """`table[ids]` as [..., D], differentiable in the table (see the module
-    docstring for what the caller owes). CUDA tensors launch the kernel (or
-    raise); CPU tensors take `embedding_gather_plain` in the forward."""
-    if table.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"embedding_gather runs on cuda or cpu, not {table.device}")
-    _check(table, ids)
-    out = _Gather.apply(table, ids.reshape(-1))
-    return out.view(*ids.shape, table.shape[1])
+    """`table[ids]` as [..., D], differentiable in the table: one lookup of
+    `embedding_gather_many`."""
+    return embedding_gather_many(table, (ids,))[0]
 
 
-embedding_gather.launches = 0  # kernel launches since the last reset
+embedding_gather.launches = 0  # kernel launches since the last reset, of both wrappers

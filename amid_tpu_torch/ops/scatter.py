@@ -18,33 +18,53 @@ optimizer moment and a `state_dict` entry keep pointing at the same memory.
 On CUDA tensors the wrappers launch the kernel of `csrc/scatter_rows.cu`
 (counting the launch in `.launches`) or raise; on CPU tensors they take the
 plain versions `scatter_set_unique_plain` / `scatter_set_unique3_plain`.
+Types, devices and shapes are checked here, once for both routes (`_check`);
+strides and alignment by the C entry point, whose refusals come back as the
+exceptions of `_REFUSALS`.
 """
 
 from __future__ import annotations
 
 import ctypes
-import math
+import struct
 
 import torch
 
+from amid_tpu_torch.ops import _build
+
+
+_ID_TYPES = (torch.int32, torch.int64)
+
 
 def _check(table: torch.Tensor, ids: torch.Tensor, rows: torch.Tensor, name: str) -> None:
+    """Every check that needs the tensors, for the kernel and the plain route
+    alike: compares on the way in, the texts on the failure path only."""
     if table.dim() not in (2, 3):
         raise ValueError(f"{name}: the table must be [V, D] or [V, K, D]; got {tuple(table.shape)}")
-    if ids.dim() != 1 or ids.dtype not in (torch.int32, torch.int64):
+    if ids.dim() != 1 or ids.dtype not in _ID_TYPES:
         raise ValueError(f"{name}: ids must be [U] int32 or int64; got "
                          f"{tuple(ids.shape)} {ids.dtype}")
-    if tuple(rows.shape) != (ids.shape[0], *table.shape[1:]):
+    if rows.shape[0] != ids.shape[0] or rows.shape[1:] != table.shape[1:]:
         raise ValueError(
             f"{name}: rows must be {(ids.shape[0], *table.shape[1:])}; got {tuple(rows.shape)}"
         )
-    if table.dtype != torch.float32 or rows.dtype != torch.float32:
+    if table.dtype is not torch.float32 or rows.dtype is not torch.float32:
         raise TypeError(f"{name}: the scatter takes float32; got {table.dtype}, {rows.dtype}")
     if not table.is_contiguous():
         raise ValueError(f"{name}: the table must be contiguous")
     if rows.device != table.device or ids.device != table.device:
         raise ValueError(f"{name}: table on {table.device}, rows on {rows.device}, "
                          f"ids on {ids.device}")
+    if table.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cuda or cpu, not {table.device}")
+
+
+def _check3(table, mu, nu, ids, t_rows, m_rows, n_rows) -> None:
+    for i, (dst, src) in enumerate(((table, t_rows), (mu, m_rows), (nu, n_rows))):
+        _check(dst, ids, src, f"scatter_set_unique3[{i}]")
+    if mu.shape != table.shape or nu.shape != table.shape:
+        raise ValueError("scatter_set_unique3: the three tables must share one shape; got "
+                         f"{tuple(table.shape)}, {tuple(mu.shape)} and {tuple(nu.shape)}")
 
 
 # ---------------------------------------------------------------------------
@@ -56,6 +76,10 @@ def scatter_set_unique_plain(table: torch.Tensor, ids: torch.Tensor,
     """`table[ids] = rows` in place for duplicate-free ids, dropping ids
     outside [0, V)."""
     _check(table, ids, rows, "scatter_set_unique")
+    return _plain(table, ids, rows)
+
+
+def _plain(table, ids, rows):
     with torch.no_grad():
         keep = (ids >= 0) & (ids < table.shape[0])
         table.index_copy_(0, ids[keep].long(), rows[keep])
@@ -64,8 +88,13 @@ def scatter_set_unique_plain(table: torch.Tensor, ids: torch.Tensor,
 
 def scatter_set_unique3_plain(table, mu, nu, ids, t_rows, m_rows, n_rows):
     """The three-array form: one id list, three in-place row writes."""
+    _check3(table, mu, nu, ids, t_rows, m_rows, n_rows)
+    return _plain3(table, mu, nu, ids, t_rows, m_rows, n_rows)
+
+
+def _plain3(table, mu, nu, ids, t_rows, m_rows, n_rows):
     for dst, src in ((table, t_rows), (mu, m_rows), (nu, n_rows)):
-        scatter_set_unique_plain(dst, ids, src)
+        _plain(dst, ids, src)
     return table, mu, nu
 
 
@@ -73,66 +102,60 @@ def scatter_set_unique3_plain(table, mu, nu, ids, t_rows, m_rows, n_rows):
 # CUDA kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _kernel_lib():
-    from amid_tpu_torch.ops import _build
+_REFUSALS = {  # the C entry point's codes (csrc/scatter_rows.cu)
+    -1: (ValueError, "scatter_rows: 1 to 3 pairs, U >= 0, V >= 0 and a row width >= 1"),
+    -2: (ValueError, "update rows must have unit stride along the row"),
+}
 
-    lib = _build.load("scatter_rows")
-    if not getattr(lib, "_amid_typed", False):
-        p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.scatter_rows.argtypes = [
-            i, p, p, p, p, p, p, ll, ll, ll,  # n_pairs, 3 dst, 3 src, 3 strides
-            p, i, i, ll, i, i, p,  # ids, ids64, U, V, width, vec, stream
-        ]
-        lib.scatter_rows.restype = ctypes.c_int
-        lib._amid_typed = True
-    return lib
+_scatter_rows = None  # the bound C entry point, resolved at the first launch
+# it takes one array of 64-bit integers (csrc/scatter_rows.cu has the layout);
+# packing it is one call, where ctypes converts argument by argument
+_PACK1 = struct.Struct("12q").pack
+_PACK3 = struct.Struct("20q").pack
 
 
-def _launch(pairs, ids: torch.Tensor) -> None:
-    """pairs: 1 or 3 (table, rows) couples sharing `ids`, already checked."""
-    table0 = pairs[0][0]
-    v = table0.shape[0]
-    width = math.prod(table0.shape[1:])
-    u = ids.shape[0]
+def _bind() -> None:
+    global _scatter_rows
+    _scatter_rows = _build.bind(_build.load("scatter_rows").scatter_rows, [ctypes.c_char_p])
+
+
+def _rows2d(rows: torch.Tensor) -> torch.Tensor:
+    return rows if rows.dim() == 2 else rows.reshape(rows.shape[0], -1)
+
+
+def _launch(ids: torch.Tensor, t0, r0, t1=None, r1=None, t2=None, r2=None) -> None:
+    """1 or 3 (table, rows) couples sharing `ids`, already checked."""
+    if _scatter_rows is None:
+        _bind()
     if not ids.is_contiguous():
         ids = ids.contiguous()
-    dsts, srcs, strides = [], [], []
-    for table, rows in pairs:
-        if tuple(table.shape) != tuple(table0.shape):
-            raise ValueError("the three tables must share one shape; got "
-                             f"{tuple(table.shape)} and {tuple(table0.shape)}")
-        rows2 = rows.reshape(u, width) if rows.dim() != 2 else rows
-        if u and rows2.stride(1) != 1:
-            raise ValueError("update rows must have unit stride along the row")
-        dsts.append(table)
-        srcs.append(rows2)
-        strides.append(rows2.stride(0) if u else width)
-    vec = width % 4 == 0 and all(s % 4 == 0 for s in strides) and all(
-        x.data_ptr() % 16 == 0 for x in (*dsts, *srcs))
-    pad = 3 - len(pairs)
-    err = _kernel_lib().scatter_rows(
-        len(pairs),
-        *[t.data_ptr() for t in dsts], *([None] * pad),
-        *[r.data_ptr() for r in srcs], *([None] * pad),
-        *strides, *([0] * pad),
-        ids.data_ptr(), int(ids.dtype == torch.int64), u, v, width, int(vec),
-        torch.cuda.current_stream(table0.device).cuda_stream,
-    )
-    if err != 0:
+    r0 = _rows2d(r0)
+    index = t0.device.index
+    head = (ids.data_ptr(), ids.dtype is torch.int64, ids.shape[0], t0.shape[0], r0.shape[1],
+            index, _build.raw_stream(index),
+            t0.data_ptr(), r0.data_ptr(), r0.stride(0), r0.stride(1))
+    if t1 is None:
+        err = _scatter_rows(_PACK1(1, *head))
+    else:
+        r1, r2 = _rows2d(r1), _rows2d(r2)
+        err = _scatter_rows(_PACK3(
+            3, *head, t1.data_ptr(), r1.data_ptr(), r1.stride(0), r1.stride(1),
+            t2.data_ptr(), r2.data_ptr(), r2.stride(0), r2.stride(1)))
+    if err:
+        if err in _REFUSALS:
+            kind, text = _REFUSALS[err]
+            raise kind(text)
         raise RuntimeError(f"scatter_rows kernel launch failed: cudaError {err}")
 
 
-def scatter_set_unique(table: torch.Tensor, ids: torch.Tensor,
-                       rows: torch.Tensor) -> torch.Tensor:
+def scatter_set_unique(table: torch.Tensor, ids: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     """`table[ids] = rows` in place (see the module docstring for the
     contract). CUDA tensors launch the kernel (or raise); CPU tensors take
-    `scatter_set_unique_plain`."""
-    if table.device.type == "cpu":
-        return scatter_set_unique_plain(table, ids, rows)
-    if table.device.type != "cuda":
-        raise ValueError(f"scatter_set_unique runs on cuda or cpu, not {table.device}")
+    the plain version."""
     _check(table, ids, rows, "scatter_set_unique")
-    _launch([(table, rows.detach())], ids)
+    if table.device.type == "cpu":
+        return _plain(table, ids, rows)
+    _launch(ids, table, rows)
     scatter_set_unique.launches += 1
     return table
 
@@ -140,15 +163,11 @@ def scatter_set_unique(table: torch.Tensor, ids: torch.Tensor,
 def scatter_set_unique3(table, mu, nu, ids, t_rows, m_rows, n_rows):
     """`table[ids] = t_rows; mu[ids] = m_rows; nu[ids] = n_rows` in place, in
     one launch. CUDA tensors launch the kernel (or raise); CPU tensors take
-    `scatter_set_unique3_plain`."""
+    the plain version."""
+    _check3(table, mu, nu, ids, t_rows, m_rows, n_rows)
     if table.device.type == "cpu":
-        return scatter_set_unique3_plain(table, mu, nu, ids, t_rows, m_rows, n_rows)
-    if table.device.type != "cuda":
-        raise ValueError(f"scatter_set_unique3 runs on cuda or cpu, not {table.device}")
-    pairs = [(table, t_rows), (mu, m_rows), (nu, n_rows)]
-    for i, (dst, src) in enumerate(pairs):
-        _check(dst, ids, src, f"scatter_set_unique3[{i}]")
-    _launch([(dst, src.detach()) for dst, src in pairs], ids)
+        return _plain3(table, mu, nu, ids, t_rows, m_rows, n_rows)
+    _launch(ids, table, t_rows, mu, m_rows, nu, n_rows)
     scatter_set_unique3.launches += 1
     return table, mu, nu
 

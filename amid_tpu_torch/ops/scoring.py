@@ -26,6 +26,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from amid_tpu_torch.ops import _build
 from amid_tpu_torch.ops._build import SMEM_LIMIT
 
 _ROWS_PER_BLOCK = 32  # 8 warps x 4 candidates (csrc/scoring_head.cu)
@@ -56,22 +57,24 @@ def _check(user, items, w_user, w_item, b1, w2, b2) -> None:
             raise ValueError(f"scoring_head: {name} on {x.device}, user on {user.device}")
 
 
-def _kernel_lib():
-    from amid_tpu_torch.ops import _build
+_fns = None  # the bound C entry points, resolved at the first launch
 
-    lib = _build.load("scoring_head")
-    if not getattr(lib, "_amid_typed", False):
+
+def _kernel_fns():
+    """(scoring_head, scoring_head_smem_bytes) of `csrc/scoring_head.cu`, typed once."""
+    global _fns
+    if _fns is None:
+        lib = _build.load("scoring_head")
         p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.scoring_head.argtypes = [
-            p, ll, p, ll, ll, p, ll, p, ll,  # user, items, w_user, w_item + strides
-            p, p, p, p,  # b1, w2, b2, out
-            i, i, i, i, i, p,  # B, C, D, H, grid_y, stream
-        ]
-        lib.scoring_head.restype = i
-        lib.scoring_head_smem_bytes.argtypes = [i, i]
-        lib.scoring_head_smem_bytes.restype = ctypes.c_size_t
-        lib._amid_typed = True
-    return lib
+        _fns = (
+            _build.bind(lib.scoring_head, [
+                p, ll, p, ll, ll, p, ll, p, ll,  # user, items, w_user, w_item + strides
+                p, p, p, p,  # b1, w2, b2, out
+                i, i, i, i, i, p,  # B, C, D, H, grid_y, stream
+            ]),
+            _build.bind(lib.scoring_head_smem_bytes, [i, i], ctypes.c_size_t),
+        )
+    return _fns
 
 
 def grid_y(bsz: int, c: int) -> int:
@@ -85,8 +88,8 @@ def _launch(user, items, w_user, w_item, b1, w2, b2) -> torch.Tensor:
     h = b1.shape[0]
     if d % 4 != 0:
         raise ValueError(f"scoring_head: the kernel takes D a multiple of 4; got D={d}")
-    lib = _kernel_lib()
-    need = lib.scoring_head_smem_bytes(d, h)
+    kernel, smem_bytes = _fns or _kernel_fns()
+    need = smem_bytes(d, h)
     if need > SMEM_LIMIT:
         raise ValueError(f"scoring_head: D={d}, H={h} needs {need} bytes of shared memory "
                          f"per block; the limit is {SMEM_LIMIT}")
@@ -97,12 +100,12 @@ def _launch(user, items, w_user, w_item, b1, w2, b2) -> torch.Tensor:
                             for x in (user, w_user, w_item))
     b1, w2, b2 = b1.contiguous(), w2.contiguous(), b2.contiguous()
     out = torch.empty((bsz, c), dtype=torch.float32, device=user.device)
-    err = lib.scoring_head(
+    err = kernel(
         user.data_ptr(), user.stride(0), items.data_ptr(), items.stride(0), items.stride(1),
         w_user.data_ptr(), w_user.stride(0), w_item.data_ptr(), w_item.stride(0),
         b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), out.data_ptr(),
         bsz, c, d, h, grid_y(bsz, c),
-        torch.cuda.current_stream(user.device).cuda_stream,
+        _build.raw_stream(user.device.index),
     )
     if err != 0:
         raise RuntimeError(f"scoring_head kernel launch failed: cudaError {err}")

@@ -12,7 +12,7 @@ touched rows' parameters/moments move:
    out-of-range sentinel V, so every later shape is static);
 2. the touched rows are gathered ONCE and become the differentiated leaf —
    the model's lookups are redirected to positions within them
-   (`AMIDModel.lookup(ids, lazy_rows=(uids, rows))`); the table parameter
+   (`AMIDModel.lookup(ids_list, lazy_rows=(uids, rows))`); the table parameter
    takes no gradient;
 3. the [U, D] row gradient drives a per-row Adam update (bias correction by
    the GLOBAL step count) written back in place by the unique-row scatter

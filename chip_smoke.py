@@ -13,7 +13,13 @@ code and no result line):
 2. kernels: each kernel against its plain PyTorch version on the card, at
    the main paths' shapes, with its time beside the plain version's, one
    PyTorch library call's (a yardstick the port never calls) and the card's
-   bound for the same work. Attention forward: causal bias with 8 heads at
+   bound for the same work. Kernel and library call are each timed three
+   ways: `kernel_ms` / `library_ms`, back-to-back public calls between CUDA
+   events (at a launch-sized shape this reads the host's cost per call);
+   `device_ms` / `library_device_ms`, the mean over the replay of a CUDA
+   graph of 20 captured calls (the device alone); `host_us` /
+   `library_host_us`, wall time per un-synced call (the host alone). The
+   host-dependent two are the least of three rounds. Attention forward: causal bias with 8 heads at
    T=150 and T=20; a key-padding bias with 4 heads of width 32 and a fully
    masked row; dropout at rate 0.5 with the two masks compared element for
    element (library: `scaled_dot_product_attention`). Attention backward:
@@ -22,9 +28,13 @@ code and no result line):
    autograd). Unique-row scatters, fused (three arrays) and single: V=894,820,
    D=128, U=11,264 and 77,824 with a sentinel tail and rows 0 and V-1, bit
    for bit, untouched rows unchanged (library: `index_copy_` on pre-filtered
-   ids). Embedding gather from the 894,820-row table at the id shapes of one
-   forward ([256, 999], [256, 150], [256, 20]), bit for bit, with clamped
-   out-of-range ids (library: `index_select`). Scoring head at C=1000 and
+   ids). Embedding gather from the 894,820-row table:
+   one lookup per launch at [256, 999], [256, 150] and [256, 20] ids, and the
+   model's groups, one launch each: both sequences of a feature pass (2 x
+   [256, 150], 2 x [256, 20]) and target with negatives straight into one
+   [256, 1+K, 128] block (K = 999 and 1); bit for bit, with clamped
+   out-of-range ids and the gradient of a group (library: `index_select` on
+   the concatenated ids). Scoring head at C=1000 and
    C=2 (no library call computes it). Max-affinity, bf16 inputs: the blocked
    kernel at N=M=150 and at N=M=20, the small-N kernel at N=M=20, ragged
    11 x 13 batches, the two kernels bit-equal to each other (library: the
@@ -52,7 +62,8 @@ code and no result line):
    then, step by step, one phase-A step, one phase-B step and one evaluation
    batch of a `kernels='cuda'` model against the same step of a
    `kernels='torch'` model from the same state, batch and key (4 forward and
-   4 backward attention launches per step, one fused scatter launch per lazy
+   4 backward attention launches and 2 gather launches per step, one fused
+   scatter launch per lazy
    step, three single launches with `fused_scatter=False`, first `loss_cls`
    near ln 2, no table gradient on the lazy path), and the ms per step;
 5. the pairwise-mode trainer from its CLI: `amid_tpu_torch.train_sr_dr.main`
@@ -158,6 +169,59 @@ def cuda_ms(torch, fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+GRAPH_CALLS, GRAPH_REPLAYS = 20, 5  # calls captured into one CUDA graph, replays timed
+
+
+def graph_ms(torch, fn) -> float:
+    """Mean device time of fn() in ms with the host out of the way: GRAPH_CALLS
+    calls are captured into one CUDA graph (a wrapper launches on the current
+    stream, which is the capturing one) and the replay is timed with events.
+    fn must not synchronise. Repeated calls find small inputs in the L2 cache."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(GRAPH_CALLS):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(GRAPH_REPLAYS):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (GRAPH_CALLS * GRAPH_REPLAYS)
+
+
+def host_us(torch, fn, iters: int) -> float:
+    """Wall time per call of fn() in microseconds on the host alone: the queue
+    is drained first and nothing waits for the device in between."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return seconds / iters * 1e6
+
+
+ROUNDS = 3  # the host is shared and swings: kernel_ms and host_us are the least of 3 rounds
+
+
+def timings(torch, fn, iters: int, library: bool = False) -> dict:
+    """The three times of one call: back-to-back public calls between events
+    (`kernel_ms`: the larger of what the host and the device need per call),
+    the device alone (`device_ms`, a graph replay) and the host alone
+    (`host_us`). The two that depend on the host are the least of ROUNDS
+    rounds of `iters` calls. A library call's keys carry the prefix `library_`."""
+    ms = min(cuda_ms(torch, fn, iters) for _ in range(ROUNDS))
+    host = min(host_us(torch, fn, iters) for _ in range(ROUNDS))
+    if library:
+        return {"library_ms": ms, "library_device_ms": graph_ms(torch, fn),
+                "library_host_us": host}
+    return {"kernel_ms": ms, "device_ms": graph_ms(torch, fn), "host_us": host}
+
+
 def bound(nbytes, flops, peak_flops=FP32_FLOPS):
     """Least time (ms) for `nbytes` of traffic and `flops` operations."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak_flops
@@ -223,8 +287,9 @@ def counters():
 def expected_launches(t, pairwise, train_steps=0, eval_batches=0, feature_passes=0,
                       lazy_adam=False, fused_scatter=True):
     """Kernel launches of the `run.sh` model (InterComp, DR heads, 2 blocks,
-    2 towers) with kernels='cuda': per forward 4 attention launches, 4 gathers
-    (2 on a features-only pass), 2 scoring launches per head (3 heads), and
+    2 towers) with kernels='cuda': per forward 4 attention launches, 2 gathers
+    (both sequences in one launch, target and negatives in another; 1 on a
+    features-only pass), 2 scoring launches per head (3 heads), and
     in pairwise mode 2 affinity launches (the small-N kernel when the peers'
     tiles fit, else the blocked one); per train step the backward's 4
     attention launches and, on the lazy path, the table write-back."""
@@ -238,7 +303,7 @@ def expected_launches(t, pairwise, train_steps=0, eval_batches=0, feature_passes
             "attention_bwd": 4 * train_steps,
             "scatter_set_unique3": scatters if fused_scatter else 0,
             "scatter_set_unique": 0 if fused_scatter else 3 * scatters,
-            "embedding_gather": 4 * forwards + 2 * feature_passes,
+            "embedding_gather": 2 * forwards + feature_passes,
             "scoring_head": 6 * forwards,
             "max_affinity_blocked": 0 if smalln else affinity,
             "max_affinity_smalln": affinity if smalln else 0}
@@ -284,8 +349,8 @@ def kernel_phase(torch, gen):
             if timed:
                 b, t, d = q.shape
                 dh = d // heads
-                rec["kernel_ms"] = cuda_ms(
-                    torch, lambda: fused_attention(q, k, v, bias, seed, heads, rate), 50)
+                rec.update(timings(
+                    torch, lambda: fused_attention(q, k, v, bias, seed, heads, rate), 50))
                 rec["plain_ms"] = cuda_ms(
                     torch, lambda: attention_plain(q, k, v, bias, seed, heads, rate), 20)
 
@@ -296,9 +361,9 @@ def kernel_phase(torch, gen):
                 lib = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=bias)
                 rec["library_max_abs_err"] = (
                     lib.transpose(1, 2).reshape(b, t, d) - want).abs().max().item()
-                rec["library_ms"] = cuda_ms(
+                rec.update(timings(
                     torch, lambda: F.scaled_dot_product_attention(
-                        qh, kh, vh, attn_mask=bias), 50)
+                        qh, kh, vh, attn_mask=bias), 50, library=True))
                 rec["bound_ms"], rec["bound_by"] = attention_bound(
                     b, t, d, heads, bias.numel())
         emit({"kernel_case": rec})
@@ -374,8 +439,8 @@ def backward_kernel_phase(torch, gen):
                "rate": rate, "max_abs_err": max(errs.values()), "errs": errs}
         if timed:
             dh = d // heads
-            rec["kernel_ms"] = cuda_ms(
-                torch, lambda: attention_backward(q, k, v, bias, dout, seed, heads, rate), 20)
+            rec.update(timings(
+                torch, lambda: attention_backward(q, k, v, bias, dout, seed, heads, rate), 20))
             rec["plain_ms"] = cuda_ms(
                 torch, lambda: attention_bwd_plain(q, k, v, bias, dout, seed, heads, rate), 10)
 
@@ -392,11 +457,12 @@ def backward_kernel_phase(torch, gen):
             rec["library_max_abs_err"] = max(
                 (g.transpose(1, 2).reshape(b, t, d) - w).abs().max().item()
                 for g, w in zip(lib, want))
-            both = cuda_ms(torch, lambda: torch.autograd.grad(sdpa_fwd(), (qh, kh, vh), gh), 20)
+            both = timings(torch, lambda: torch.autograd.grad(sdpa_fwd(), (qh, kh, vh), gh),
+                         20, library=True)
             with torch.no_grad():
-                fwd_only = cuda_ms(torch, sdpa_fwd, 20)
+                fwd_only = timings(torch, sdpa_fwd, 20, library=True)
             # backward alone: forward + backward less the forward
-            rec["library_ms"] = both - fwd_only
+            rec.update({key: both[key] - fwd_only[key] for key in both})
             rec["bound_ms"], rec["bound_by"] = attention_bwd_bound(
                 b, t, d, heads, bias.numel())
         emit({"kernel_case_bwd": rec})
@@ -445,14 +511,14 @@ def scatter_kernel_phase(torch, gen):
         untouched[kept] = False
         require(torch.equal(tabs[0][untouched], original[untouched]),
                 f"scatter_set_unique3 U={U}: an untouched row changed")
-        original[kept] = rows[0][:n_real]
         rec3 = {"case": f"scatter3_U{U}", "V": V, "D": D, "U": U, "rows_written": n_real,
                 "max_abs_err": 0.0,
-                "kernel_ms": cuda_ms(torch, lambda: scatter_set_unique3(*tabs, ids, *rows), 50),
+                **timings(torch, lambda: scatter_set_unique3(*tabs, ids, *rows), 50),
                 "plain_ms": cuda_ms(
                     torch, lambda: scatter_set_unique3_plain(*refs, ids, *rows), 20),
-                "library_ms": cuda_ms(torch, lambda: [
-                    t.index_copy_(0, kept, r) for t, r in zip(refs, kept_rows)], 50)}
+                **timings(torch, lambda: [
+                    t.index_copy_(0, kept, r) for t, r in zip(refs, kept_rows)], 50,
+                    library=True)}
         rec3["bound_ms"], rec3["bound_by"] = scatter_bound(3, n_real, D, U)
         emit({"kernel_case_scatter": rec3})
 
@@ -463,39 +529,80 @@ def scatter_kernel_phase(torch, gen):
         require(torch.equal(tabs[1], refs[1]), f"scatter_set_unique U={U} != plain")
         rec1 = {"case": f"scatter1_U{U}", "V": V, "D": D, "U": U, "rows_written": n_real,
                 "max_abs_err": 0.0,
-                "kernel_ms": cuda_ms(torch, lambda: scatter_set_unique(tabs[1], ids, single), 50),
+                **timings(torch, lambda: scatter_set_unique(tabs[1], ids, single), 50),
                 "plain_ms": cuda_ms(
                     torch, lambda: scatter_set_unique_plain(refs[1], ids, single), 20),
-                "library_ms": cuda_ms(
-                    torch, lambda: refs[1].index_copy_(0, kept, single[:n_real]), 50)}
+                **timings(torch, lambda: refs[1].index_copy_(0, kept, single[:n_real]), 50,
+                        library=True)}
         rec1["bound_ms"], rec1["bound_by"] = scatter_bound(1, n_real, D, U)
         emit({"kernel_case_scatter": rec1})
+        original[kept] = rows[0][:n_real]  # what the timed calls left in tabs[0]
         cases[U] = {"scatter_set_unique3": rec3, "scatter_set_unique": rec1}
     return cases
 
 
 def gather_kernel_phase(torch, gen):
-    from amid_tpu_torch.ops.embedding import embedding_gather, embedding_gather_plain
+    from amid_tpu_torch.ops.embedding import (
+        embedding_gather, embedding_gather_many, embedding_gather_many_plain,
+        embedding_gather_plain,
+    )
 
     V, D = 2 * FLAGSHIP["item_length"], FLAGSHIP["emb_dim"]
+    B = FLAGSHIP["batch_size"]
     table = torch.randn(V, D, device="cuda", generator=gen)
-    cases = {}
-    for shape in ((256, 999), (256, 150), (256, 20)):
+
+    def make_ids(*shape):
         ids = torch.randint(0, V, shape, device="cuda", generator=gen).to(torch.int32)
-        ids[0, 0], ids[0, 1] = 0, V - 1
-        flat = ids.reshape(-1)
-        got, want = embedding_gather(table, ids), embedding_gather_plain(table, ids)
+        ids.view(-1)[:2] = torch.tensor([0, V - 1], dtype=torch.int32, device="cuda")
+        return ids
+
+    def record(name, rows, got, want, kernel, plain, library):
         torch.cuda.synchronize()
-        require(tuple(got.shape) == (*shape, D), f"gather {shape}: shape {tuple(got.shape)}")
-        require(torch.equal(got, want), f"gather {shape}: kernel != plain")
-        rec = {"case": f"gather_{shape[0]}x{shape[1]}", "V": V, "D": D, "rows": flat.numel(),
-               "max_abs_err": 0.0,
-               "kernel_ms": cuda_ms(torch, lambda: embedding_gather(table, ids), 50),
-               "plain_ms": cuda_ms(torch, lambda: embedding_gather_plain(table, ids), 50),
-               "library_ms": cuda_ms(torch, lambda: torch.index_select(table, 0, flat), 50)}
-        rec["bound_ms"], rec["bound_by"] = gather_bound(flat.numel(), D)
+        for g, w in zip(got, want):
+            require(g.shape == w.shape, f"gather {name}: shape {tuple(g.shape)}")
+            require(torch.equal(g, w), f"gather {name}: kernel != plain")
+        rec = {"case": name, "V": V, "D": D, "rows": rows, "max_abs_err": 0.0,
+               **timings(torch, kernel, 50), "plain_ms": cuda_ms(torch, plain, 50),
+               **timings(torch, library, 50, library=True)}
+        rec["bound_ms"], rec["bound_by"] = gather_bound(rows, D)
         emit({"kernel_case_gather": rec})
-        cases[shape[1]] = rec
+        return rec
+
+    cases = {}
+    with torch.no_grad():
+        # one lookup per launch
+        for shape in ((B, 999), (B, 150), (B, 20)):
+            ids = make_ids(*shape)
+            flat = ids.reshape(-1)
+            cases[shape[1]] = record(
+                f"gather_{shape[0]}x{shape[1]}", flat.numel(),
+                [embedding_gather(table, ids)], [embedding_gather_plain(table, ids)],
+                lambda: embedding_gather(table, ids),
+                lambda: embedding_gather_plain(table, ids),
+                lambda: torch.index_select(table, 0, flat))
+        # the model's groups: both sequences of a feature pass in one launch
+        for t in (150, 20):
+            pair = [make_ids(B, t), make_ids(B, t)]
+            flat = torch.cat([i.reshape(-1) for i in pair])
+            cases[f"pair{t}"] = record(
+                f"gather_pair_{B}x{t}", flat.numel(),
+                embedding_gather_many(table, pair), embedding_gather_many_plain(table, pair),
+                lambda: embedding_gather_many(table, pair),
+                lambda: embedding_gather_many_plain(table, pair),
+                lambda: torch.index_select(table, 0, flat))
+        # target and negatives into one [B, 1+K, D] block (evaluation, training)
+        for k in (999, 1):
+            group = [make_ids(B), make_ids(B, k)]
+            flat = torch.cat([group[0][:, None], group[1]], dim=1).reshape(-1)
+            got = embedding_gather_many(table, group, concat=True)
+            require(tuple(got.shape) == (B, 1 + k, D) and got.is_contiguous(),
+                    f"gather cand {k}: shape {tuple(got.shape)}")
+            cases[f"cand{k}"] = record(
+                f"gather_cand_{B}x{1 + k}", flat.numel(), [got],
+                [embedding_gather_many_plain(table, group, concat=True)],
+                lambda: embedding_gather_many(table, group, concat=True),
+                lambda: embedding_gather_many_plain(table, group, concat=True),
+                lambda: torch.index_select(table, 0, flat))
     # ids outside [0, V) are clamped, int64 ids and a narrow, unaligned table too
     wild = torch.tensor([-5, 0, V - 1, V, V + 7], device="cuda")
     clamped = torch.tensor([0, 0, V - 1, V - 1, V - 1], device="cuda")
@@ -504,13 +611,19 @@ def gather_kernel_phase(torch, gen):
     narrow = torch.randn(100, 7, device="cuda", generator=gen)
     ids = torch.randint(0, 100, (3, 5), device="cuda", generator=gen)
     require(torch.equal(embedding_gather(narrow, ids), narrow[ids]), "gather: narrow table")
-    # backward: duplicated ids add up, as index_select's own backward has it
+    # backward: duplicated ids add up, within a lookup and across a group's lookups
     small = torch.randn(50, D, device="cuda", generator=gen, requires_grad=True)
     ids = torch.randint(0, 50, (64, 9), device="cuda", generator=gen)
     upstream = torch.randn(64, 9, D, device="cuda", generator=gen)
     (got_g,) = torch.autograd.grad(embedding_gather(small, ids), small, upstream)
     (want_g,) = torch.autograd.grad(embedding_gather_plain(small, ids), small, upstream)
     require(torch.allclose(got_g, want_g, atol=1e-5, rtol=1e-5), "gather: backward != plain")
+    group = [ids[:, 0], ids[:, 1:].contiguous()]
+    grads = [torch.autograd.grad((fn(small, group, concat=True) * upstream).sum(), small)[0]
+             for fn in (embedding_gather_many, embedding_gather_many_plain)]
+    require(torch.allclose(grads[0], want_g, atol=1e-5, rtol=1e-5)
+            and torch.allclose(grads[1], want_g, atol=1e-5, rtol=1e-5),
+            "gather: a group's backward != plain")
     return cases
 
 
@@ -536,7 +649,7 @@ def scoring_kernel_phase(torch, gen):
             require(torch.isfinite(got).all().item(), f"scoring C={c}: non-finite output")
             require(err <= SCORE_ATOL, f"scoring C={c}: kernel vs plain max_abs_err {err}")
             rec = {"case": f"scoring_C{c}", "shape": [B, c, D], "H": H, "max_abs_err": err,
-                   "kernel_ms": cuda_ms(torch, lambda: scoring_head(user, items, *params), 50),
+                   **timings(torch, lambda: scoring_head(user, items, *params), 50),
                    "plain_ms": cuda_ms(
                        torch, lambda: scoring_head_plain(user, items, *params), 20),
                    "library_ms": None}
@@ -578,10 +691,10 @@ def affinity_kernel_phase(torch, gen):
         rec = {"case": name, "a": list(a.shape), "b": list(b.shape), "max_abs_err": err}
         if timed:
             a16, b16 = a.to(torch.bfloat16), b.to(torch.bfloat16)
-            rec["kernel_ms"] = cuda_ms(torch, lambda: fn(a, b), 20)
+            rec.update(timings(torch, lambda: fn(a, b), 20))
             rec["plain_ms"] = cuda_ms(torch, lambda: max_affinity_plain(a, b), 5)
             # several library calls: 32 chunked matmuls and amax reductions
-            rec["library_ms"] = cuda_ms(torch, lambda: max_affinity_xla(a16, b16), 5)
+            rec.update(timings(torch, lambda: max_affinity_xla(a16, b16), 5, library=True))
             rec["bound_ms"], rec["bound_by"] = affinity_bound(
                 a.shape[0], b.shape[0], a.shape[1], b.shape[1], D)
         emit({"kernel_case_affinity": rec})
@@ -1089,14 +1202,15 @@ def main() -> int:
     # the numbers of the row: the amazon shape (T=150) for attention and the
     # blocked affinity; the lazy path's shape for the scatters (U=11,264) and
     # the small-N affinity (T=20); the evaluation's shape for the gather
-    # ([256, 999] ids) and the scoring head (C=1000)
+    # (target and 999 negatives of 256 users in one launch) and the scoring
+    # head (C=1000)
     rows = {"attention_fwd": (fwd[150], fwd.values()),
             "attention_bwd": (bwd[150], bwd.values()),
             "scatter_set_unique3": (scatter[11264]["scatter_set_unique3"],
                                     [c["scatter_set_unique3"] for c in scatter.values()]),
             "scatter_set_unique": (scatter[11264]["scatter_set_unique"],
                                    [c["scatter_set_unique"] for c in scatter.values()]),
-            "embedding_gather": (gather[999], gather.values()),
+            "embedding_gather": (gather["cand999"], gather.values()),
             "scoring_head": (scoring[1000], scoring.values()),
             "max_affinity_blocked": (affinity["max_affinity_blocked"][150],
                                      affinity["max_affinity_blocked"].values()),
@@ -1109,6 +1223,7 @@ def main() -> int:
         "ms": c["kernel_ms"], "plain_ms": c["plain_ms"],
         "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
         "library_ms": c["library_ms"], "case": c["case"],
+        "device_ms": c["device_ms"], "host_us": c["host_us"],
     } for name, (c, every) in rows.items()]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -7,6 +7,7 @@ no JAX, so it runs on a machine without it; from the repository root:
 """
 
 import dataclasses
+import struct
 
 import pytest
 import torch
@@ -29,7 +30,14 @@ from amid_tpu_torch.ops.attention import (
     dropout_keep_mask,
     fused_attention,
 )
-from amid_tpu_torch.ops.embedding import embedding_gather, embedding_gather_plain
+from amid_tpu_torch.ops import embedding as embedding_ops
+from amid_tpu_torch.ops import scatter as scatter_ops
+from amid_tpu_torch.ops.embedding import (
+    embedding_gather,
+    embedding_gather_many,
+    embedding_gather_many_plain,
+    embedding_gather_plain,
+)
 from amid_tpu_torch.ops.scatter import (
     scatter_set_unique,
     scatter_set_unique3,
@@ -204,6 +212,68 @@ def test_scatter_on_cuda_raises_on_what_it_does_not_take(gen):
                            torch.zeros(1, 4, device="cuda").double())
 
 
+def _unique_ids(gen, v, u, id_dtype, sentinels):
+    """u ids: distinct rows of [0, v) with 0 and v-1 among them when there is
+    room, then `sentinels` entries of v (dropped by the scatter)."""
+    real = torch.randperm(v, device="cuda", generator=gen)[: u - sentinels]
+    if real.numel() >= 2:
+        real[:2] = torch.tensor([0, v - 1], device="cuda")
+        real = torch.unique(real)
+    ids = torch.cat([real, torch.full((u - real.numel(),), v, device="cuda")])
+    return ids.to(id_dtype)
+
+
+@pytest.mark.parametrize("u,id_dtype,sentinels", [
+    (1, torch.int32, 0), (7, torch.int64, 2), (13, torch.int32, 13), (33, torch.int32, 1),
+    (11_264, torch.int32, 1_126), (77_824, torch.int64, 7_782),
+])
+def test_scatter_row_loop_matches_plain_bit_for_bit(gen, u, id_dtype, sentinels):
+    """The row loop, one and three arrays: batches of rows that
+    end ragged (u no multiple of the 8 or 4 rows a warp takes), a batch of
+    sentinels only, rows 0 and V-1, more rows than one pass of the grid."""
+    v, d = 200_000, 128
+    tabs = [torch.randn(v, d, device="cuda", generator=gen) for _ in range(3)]
+    refs = [t.clone() for t in tabs]
+    ids = _unique_ids(gen, v, u, id_dtype, sentinels)
+    rows = [torch.randn(u, d, device="cuda", generator=gen) for _ in range(3)]
+    scatter_set_unique3(*tabs, ids, *rows)
+    scatter_set_unique3_plain(*refs, ids, *rows)
+    for a, b in zip(tabs, refs):
+        assert torch.equal(a, b)
+    scatter_set_unique(tabs[0], ids, rows[2])
+    scatter_set_unique_plain(refs[0], ids, rows[2])
+    assert torch.equal(tabs[0], refs[0])
+    # negative ids are dropped like the sentinel, a strided source is read in place
+    wide = torch.randn(u, 2 * d, device="cuda", generator=gen)
+    ids[::3] = -1
+    scatter_set_unique(tabs[1], ids, wide[:, d:])
+    scatter_set_unique_plain(refs[1], ids, wide[:, d:])
+    assert torch.equal(tabs[1], refs[1])
+
+
+def test_scatter_refusals_of_the_c_entry_point(gen):
+    """Each code of `csrc/scatter_rows.cu` comes back as its exception."""
+    table = torch.zeros(64, 8, device="cuda")
+    ids = torch.arange(4, device="cuda")
+    before = scatter_set_unique.launches
+    with pytest.raises(ValueError, match="unit stride along the row"):  # -2
+        scatter_set_unique(table, ids, torch.zeros(4, 16, device="cuda")[:, ::2])
+    with pytest.raises(ValueError, match="share one shape"):
+        scatter_set_unique3(table, table.clone(), torch.zeros(32, 8, device="cuda"), ids,
+                            *[torch.zeros(4, 8, device="cuda")] * 3)
+    assert scatter_set_unique.launches == before
+    odd = torch.zeros(64, 7, device="cuda")
+    scatter_set_unique(odd, ids, torch.ones(4, 7, device="cuda"))  # binds the entry point
+    fn = scatter_ops._scatter_rows  # n_pairs, ids, ids64, U, V, width, device, stream | pairs
+    assert fn(struct.pack("8q", 0, 0, 0, 4, 64, 8, 0, 0)) == -1  # no pair
+    assert fn(struct.pack("12q", 1, 0, 0, -1, 64, 8, 0, 0, 0, 0, 8, 1)) == -1  # U < 0
+    assert set(scatter_ops._REFUSALS) == {-1, -2}
+    # a card that is not there: the query's cudaError comes back, nothing is guessed
+    rows = torch.ones(4, 7, device="cuda")
+    assert fn(struct.pack("12q", 1, ids.data_ptr(), 1, 4, 64, 7, 99, 0, odd.data_ptr(),
+                          rows.data_ptr(), 7, 1)) > 0
+
+
 @pytest.mark.parametrize("kind", ["dense", "lazy"])
 def test_train_step_on_cuda_goes_through_the_kernels(gen, kind):
     cfg = ModelConfig(emb_dim=32, hid_dim=8, seq_len=12, batch_size=8, is_itc=True,
@@ -339,11 +409,11 @@ def test_affinity_dispatch_and_refusals(gen):
         max_affinity_blocked(a20, a20.cpu())
     assert (max_affinity_blocked.launches, max_affinity_smalln.launches) == (k6 + 1, k7 + 1)
     # the wrappers' shared-memory arithmetic is the kernels' own
-    from amid_tpu_torch.ops.affinity import _kernel_lib
-    lib = _kernel_lib()
+    from amid_tpu_torch.ops.affinity import _kernel_fns
+    _, _, smem_bytes, smalln_bytes = _kernel_fns()
     for n, m, d in ((150, 150, 128), (20, 20, 128), (33, 9, 32), (300, 300, 64)):
-        assert lib.affinity_smem_bytes(n, m, d) == blocked_smem_bytes(n, m, d)
-        assert lib.affinity_smalln_smem_bytes(m, d) == smalln_smem_bytes(m, d)
+        assert smem_bytes(n, m, d) == blocked_smem_bytes(n, m, d)
+        assert smalln_bytes(m, d) == smalln_smem_bytes(m, d)
 
 
 # ---------------------------------------------------------------------------
@@ -449,6 +519,104 @@ def test_gather_gradient_adds_duplicated_ids(gen):
     torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
 
 
+@pytest.mark.parametrize("n_segments", [1, 2, 3, 4])
+@pytest.mark.parametrize("id_dtype", [torch.int32, torch.int64])
+def test_gather_many_matches_plain_bit_for_bit(gen, n_segments, id_dtype):
+    """1 to 4 lookups in one launch: id arrays of different ranks and lengths
+    per user (1, 37, 2 x 5, 999 ids), ragged against the 8 rows a warp takes."""
+    v, d, b = 50_000, 128, 48
+    table = torch.randn(v, d, device="cuda", generator=gen)
+    shapes = [(b,), (b, 37), (b, 2, 5), (b, 999)][:n_segments]
+    ids = [torch.randint(0, v, s, device="cuda", generator=gen).to(id_dtype) for s in shapes]
+    before = embedding_gather.launches
+    got = embedding_gather_many(table, ids)
+    assert embedding_gather.launches == before + 1
+    for g, w, s in zip(got, embedding_gather_many_plain(table, ids), shapes):
+        assert tuple(g.shape) == (*s, d) and torch.equal(g, w)
+    side = embedding_gather_many(table, ids, concat=True)
+    assert embedding_gather.launches == before + 2
+    assert side.is_contiguous()
+    assert torch.equal(side, embedding_gather_many_plain(table, ids, concat=True))
+    assert torch.equal(side[:, 0], got[0])
+
+
+def test_gather_many_writes_strided_destinations(gen):
+    """`concat=True`: each lookup's destination is a view of the [B, P, D]
+    block with the block's stride between users, also when a lookup brings no
+    id per user. A narrow table and mixed id types take the float route and
+    the int64 conversion."""
+    v, d, b = 1_000, 128, 16
+    table = torch.randn(v, d, device="cuda", generator=gen)
+    ids = [torch.randint(0, v, (b,), device="cuda", generator=gen),
+           torch.randint(0, v, (b, 6), device="cuda", generator=gen).to(torch.int32),
+           torch.randint(0, v, (b, 0), device="cuda", generator=gen),
+           torch.randint(0, v, (b, 3), device="cuda", generator=gen)]
+    block = embedding_gather_many(table, ids, concat=True)
+    assert tuple(block.shape) == (b, 10, d)
+    assert torch.equal(block[:, 0], table[ids[0]])
+    assert torch.equal(block[:, 1:7], table[ids[1].long()])
+    assert torch.equal(block[:, 7:], table[ids[3]])
+    narrow = torch.randn(100, 7, device="cuda", generator=gen)
+    small = [i % 100 for i in ids]
+    for concat in (False, True):
+        got = embedding_gather_many(narrow, small, concat=concat)
+        want = embedding_gather_many_plain(narrow, small, concat=concat)
+        for g, w in zip([got] if concat else got, [want] if concat else want):
+            assert torch.equal(g, w)
+    scalar = torch.tensor(5, device="cuda")  # a lookup without a user axis
+    assert torch.equal(embedding_gather(table, scalar), table[5])
+
+
+@pytest.mark.parametrize("concat", [False, True])
+def test_gather_many_gradient_adds_up_across_lookups(gen, concat):
+    table = torch.randn(50, 128, device="cuda", generator=gen, requires_grad=True)
+    ids = [torch.randint(0, 50, (64,), device="cuda", generator=gen),
+           torch.randint(0, 50, (64, 9), device="cuda", generator=gen)]
+
+    def grad(fn):
+        out = fn(table, ids, concat=concat)
+        loss = (out ** 2).sum() if concat else sum((o ** 2).sum() for o in out)
+        return torch.autograd.grad(loss, table)[0]
+
+    before = embedding_gather.launches
+    got = grad(embedding_gather_many)
+    assert embedding_gather.launches == before + 1
+    torch.testing.assert_close(got, grad(embedding_gather_many_plain), atol=1e-5, rtol=1e-5)
+    with torch.no_grad():  # no Function without a gradient: a plain tensor comes back
+        out = embedding_gather_many(table, ids, concat=concat)
+    assert not (out if concat else out[0]).requires_grad
+
+
+def test_gather_refusals_of_the_c_entry_point(gen):
+    """Each code of `csrc/gather_rows.cu` comes back as its exception."""
+    table = torch.randn(40, 16, device="cuda", generator=gen)
+    ids = torch.randint(0, 40, (4, 3), device="cuda", generator=gen)
+    before = embedding_gather.launches
+    with pytest.raises(ValueError, match="V >= 1"):
+        embedding_gather(torch.zeros(0, 16, device="cuda"), ids)
+    with pytest.raises(ValueError, match="unit stride"):  # -2
+        embedding_gather_many(torch.randn(16, 40, device="cuda", generator=gen).T, [ids, ids])
+    with pytest.raises(ValueError, match="1 to 4 id arrays"):
+        embedding_gather_many(table, [ids] * 5)
+    with pytest.raises(ValueError, match="share their first axis"):
+        embedding_gather_many(table, [ids, ids[:2]], concat=True)
+    assert embedding_gather.launches == before
+    embedding_gather_many(table, [ids])  # binds the entry point
+    fn = embedding_ops._gather_rows
+    # table, its strides, V, width | ids64, segments, device, stream | segments
+    head = (table.data_ptr(), 16, 1, 40, 16)
+    assert fn(struct.pack("14q", table.data_ptr(), 16, 1, 0, 16, 1, 1, 0, 0,
+                          0, 4, 4, 0, 0)) == -1  # V = 0
+    assert fn(struct.pack("9q", *head, 1, 5, 0, 0)) == -3  # 5 segments
+    assert fn(struct.pack("14q", *head, 1, 1, 0, 0, 0, 7, 2, 0, 0)) == -3  # 7 ids, 2 per user
+    assert fn(struct.pack("14q", *head, 1, 1, 0, 0, 0, 2 ** 31, 1, 0, 0)) == -4
+    assert set(embedding_ops._REFUSALS) == {-1, -2, -3, -4}
+    # a card that is not there: the query's cudaError comes back, nothing is guessed
+    out = torch.empty(4, 3, 16, device="cuda")
+    assert fn(struct.pack("14q", *head, 1, 1, 99, 0, ids.data_ptr(), 12, 12,
+                          out.data_ptr(), 0)) > 0
+
+
 # ---------------------------------------------------------------------------
 # the pairwise model on the card
 # ---------------------------------------------------------------------------
@@ -475,7 +643,7 @@ def test_pairwise_step_on_cuda_goes_through_all_kernels(gen, seq_len, kernel):
     counters = (embedding_gather, scoring_head, kernel)
     before = [f.launches for f in counters]
     _, m = step(state, batch, pools, sizes, 5)
-    assert [f.launches - b for f, b in zip(counters, before)] == [4, 6, 2]
+    assert [f.launches - b for f, b in zip(counters, before)] == [2, 6, 2]
     assert torch.isfinite(m["loss"]) and abs(float(m["loss_cls"]) - 0.693) < 0.05
     # the same weights with plain everything and the kernels' bf16 affinity
     plain = build_model(dataclasses.replace(cfg, kernels="torch"), device="cuda")
