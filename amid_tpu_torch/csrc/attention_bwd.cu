@@ -1,279 +1,318 @@
-// Fused multi-head attention backward for Hopper (sm_90a), fp32.
+// Fused multi-head attention backward for Hopper (sm_90a), fp32 in and out,
+// products on the tensor cores in 3xTF32 (attention_common.cuh).
 //
 // Replaces amid_tpu/ops/pallas_attention.py::_bwd_kernel (pallas_call in
-// _vjp_bwd). With P = softmax(Q K^T / sqrt(dh) + bias) per head and
-// Pd = P * keep / (1 - rate) the dropped probabilities of the forward:
-//   dV  = Pd^T dO
-//   dPd = dO V^T ;  dP = dPd * keep / (1 - rate)
-//   dS  = P o (dP - rowsum(dP o P))
-//   dQ  = dS K / sqrt(dh) ;  dK = dS^T Q / sqrt(dh)
-// The residuals are the TPU kernel's (q, k, v, bias, seed): P is recomputed
-// and the dropout mask regenerated from the forward's counter hash of
-// (seed, b, h, i, j) (attention_fwd.cu); no [B, H, T, T] block is stored in
-// device memory.
+// _vjp_bwd). One sweep, FlashAttention-2's arithmetic: with the forward's
+// row statistics m_i and 1/l_i (attention_fwd.cu) and its output O,
+//   P   = exp(S - m) / l,  S = Q K^T / sqrt(dh) + bias
+//   D_i = rowsum(dO o O)_i            (= rowsum(dP o P)_i, dropout or not)
+//   dV  = Pd^T dO,                    Pd = P * keep / (1 - rate)
+//   dP  = (dO V^T) * keep / (1 - rate)
+//   dS  = P o (dP - D)
+//   dK  = dS^T Q / sqrt(dh),  dQ = dS K / sqrt(dh)
+// Five products (S, dP, dV, dK, dQ) and one hash per element. The dropout
+// mask is regenerated from the forward's counter hash of (seed, b, h, i, j).
+// The residuals are (q, k, v, bias, out, row_max, row_inv_sum, seed); no
+// [B, H, T, T] block is stored in device memory.
 //
-// Design. As in the forward, one block owns one (batch row b, head h) and
-// reads the head's dh columns of q, k, v, dO through their strides (the TPU
-// kernel's lane-masked full-width products are not carried over):
-//   * the head's Q, K, V, dO slices [T, dh] sit in dynamic shared memory with
-//     a row pitch of dh + 1 floats, beside one [T, T] tile of P (odd pitch),
-//     the per-row D_i = rowsum(dP o P) and the per-row dropout keys;
-//   * pass A, one warp per QUERY row i, lanes over the keys: scores, warp
-//     max, exp, warp sum -> row i of P into the tile; dP_ij = dO_i . V_j with
-//     the mask applied; D_i by a warp sum; dS_ij into a per-warp row buffer;
-//     dQ_i = scale * sum_j dS_ij K_j with the lanes split into key groups of
-//     dh columns, summed by xor-shuffles;
-//   * pass B, one warp per KEY row j, lanes over the queries: P_ij from the
-//     tile, dP_ij recomputed (dh multiply-adds, cheaper than a second
-//     [T, T] tile, which would not fit at T = 150), the mask regenerated,
-//     dK_j and dV_j accumulated in registers and reduced over the warp. No
-//     two warps add into one output row, so there are no atomics and the
-//     result does not depend on the order in which warps run.
+// Design. One block owns one (batch row b, head h):
+//   * Q, dO and K of the head ([T, dh], padded with zero rows to a multiple
+//     of 16) sit in dynamic shared memory with a row pitch of dh + 4, beside
+//     the dQ accumulator [T, dh], the per-row m, 1/l (0 on padded rows, so
+//     their P is 0), D_i and dropout key, and one 16 x 16 dS tile per warp;
+//   * each warp owns a 16-row KEY tile at a time: its K and V fragments
+//     (hi/lo) stay in registers, and so do dK and dV. At dh=64 the held
+//     halves would need more than 255 registers (ptxas spills): there V is
+//     staged in shared memory too, and K and V are split again at each use.
+//     The warp walks every query tile, computing S^T = K Q^T and
+//     dP^T = V dO^T as m16n8k8 tiles (the key fragment outermost, so a
+//     fragment split at its use dies before the next). The accumulators hold
+//     keys in rows and queries in columns: then P, Pd and dS element by
+//     element, and dV += Pd^T dO, dK += dS^T Q with the accumulators as A
+//     fragments (the reordered reduction);
+//   * dQ of a query tile sums over every key tile, so over warps. No float
+//     atomics: at step s the warp with key tile kt works on query tile
+//     (kt + s) mod NT, so no two warps touch one query tile in one step; the
+//     warp writes its dS tile to its own shared buffer, reads it back
+//     transposed as the A fragment of dS K, and adds the 16 x dh result into
+//     the shared dQ rows; the block syncs between steps. Every sum is taken
+//     in an order fixed by the tile numbers, so two calls give the same bits;
+//   * each step reads its 16 x 16 bias elements before the products, so the
+//     loads (strided: keys run along the lanes, queries along the bias's
+//     rows) overlap the tensor-core work instead of waiting behind it;
+//   * keys and queries past T get P = 0 and write nothing.
 //
-// Bound on the H100 (data sheet): at B=256, T=150, D=128, H=8 one call does
-// five products, 10*B*H*T*T*dh = 7.37 GFLOP (110 us at 67 TFLOP/s fp32
-// without tensor cores) and moves 7 arrays of 19.7 MB (41 us at 3.35 TB/s),
-// so it is bound by operations. This design does six products (dP twice)
-// with one shared-memory load per multiply-add, far below the fp32 rate;
-// tensor-core tiles are later work.
+// Bound on the H100 (data sheet): at B=256, T=150, D=128, H=8 one call reads
+// q, k, v, dO, out and the bias and writes dq, dk, dv: the function's own
+// bytes (q, k, v, bias, dO in; dq, dk, dv out) are 137.7 MB, 41 us at
+// 3.35 TB/s; it does 10*B*H*T*T*dh = 7.37 GFLOP, 15 us at the 495 TFLOP/s
+// TF32 tensor-core peak (3xTF32 issues three products for each), so it is
+// bound by bytes. What holds this design back: mma.sync, not wgmma; the exp,
+// hash and bias read per element on the CUDA cores; causally masked tiles
+// are computed like the others; a block barrier per query step.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include <string.h>
+
+#include "attention_common.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr uint32_t kMixKey0 = 0x9E3779B9u;
+using namespace amid_attention;
 
-__device__ __forceinline__ uint32_t fmix32(uint32_t h) {
-  h ^= h >> 16;
-  h *= 0x85EBCA6Bu;
-  h ^= h >> 13;
-  h *= 0xC2B2AE35u;
-  h ^= h >> 16;
-  return h;
-}
+constexpr int kScratchPitch = 20;  // 16 queries + 4: rows 2t and 2t+1 on distinct banks
 
-__device__ __forceinline__ uint32_t mix(uint32_t x, uint32_t v) {
-  return fmix32(x ^ (v * 0x9E3779B1u + 0x7F4A7C15u));
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-__host__ __device__ inline int tile_pitch(int T) { return T | 1; }
+struct BwdParams {
+  const float *q, *k, *v, *bias, *out, *dout, *row_max, *row_inv_sum;
+  float *dq, *dk, *dv;
+  int T, D, H;
+  long long q_sb, q_st, k_sb, k_st, v_sb, v_st, o_sb, o_st, g_sb, g_st, bias_sb, bias_si;
+  float scale, inv_keep;
+  uint32_t keep_threshold, seed;
+  int dropout;
+};
 
 template <int DH>
-__global__ void __launch_bounds__(kWarps * 32)
-attention_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v,
-                     const float* __restrict__ bias,
-                     const float* __restrict__ dout, float* __restrict__ dq,
-                     float* __restrict__ dk, float* __restrict__ dv, int T,
-                     int D, int H, long long q_sb, long long q_st,
-                     long long k_sb, long long k_st, long long v_sb,
-                     long long v_st, long long g_sb, long long g_st,
-                     long long bias_sb, long long bias_si, float scale,
-                     int dropout, uint32_t keep_threshold, float inv_keep,
-                     uint32_t seed) {
-  constexpr int LD = DH + 1;                      // padded row pitch
-  constexpr int GROUPS = DH >= 32 ? 1 : 32 / DH;  // key groups in dS.K
-  constexpr int COLS = DH >= 32 ? DH / 32 : 1;    // dQ columns per lane
-  const int TP = tile_pitch(T);
+__global__ void __launch_bounds__(kMaxWarps * 32)
+attention_bwd_kernel(const BwdParams p) {
+  constexpr int P = pitch(DH);
+  constexpr int KS = DH / 8;  // k-steps over dh; n-tiles of dV, dK, dQ
+  constexpr int SP = kScratchPitch;
+  constexpr bool kHoldKV = DH < 64;  // K's and V's hi/lo fragments held in registers
+  const int T = p.T;
+  const int NT = tiles16(T);
+  const int TQ = NT * 16;
+  const int warps = blockDim.x >> 5;
 
   extern __shared__ float smem[];
-  float* qs = smem;
-  float* ks = qs + T * LD;
-  float* vs = ks + T * LD;
-  float* gs = vs + T * LD;        // dO slice
-  float* tile = gs + T * LD;      // [T][TP] rows of P
-  float* rowbuf = tile + T * TP;  // [kWarps][T] one dS row per warp
-  float* dsum = rowbuf + kWarps * T;                        // [T] D_i
-  uint32_t* rowkey = reinterpret_cast<uint32_t*>(dsum + T); // [T]
+  float* qs = smem;            // [TQ][P] Q
+  float* gs = qs + TQ * P;     // [TQ][P] dO
+  float* ks = gs + TQ * P;     // [TQ][P] K
+  float* dqs = ks + TQ * P;    // [TQ][P] dQ accumulator
+  float* mrow = dqs + TQ * P;  // [TQ] m_i
+  float* lrow = mrow + TQ;     // [TQ] 1/l_i, 0 on padded rows
+  float* drow = lrow + TQ;     // [TQ] D_i
+  uint32_t* rkey = reinterpret_cast<uint32_t*>(drow + TQ);  // [TQ] dropout key of row i
+  float* scratch = reinterpret_cast<float*>(rkey + TQ);     // [warps][16][SP]
+  float* vs = scratch + warps * 16 * SP;                    // [TQ][P] V, at dh=64 only
 
   const int bh = blockIdx.x;
-  const int b = bh / H;
-  const int h = bh - b * H;
-  const float* qb = q + b * q_sb + h * DH;
-  const float* kb = k + b * k_sb + h * DH;
-  const float* vb = v + b * v_sb + h * DH;
-  const float* gb = dout + b * g_sb + h * DH;
-  for (int idx = threadIdx.x; idx < T * DH; idx += blockDim.x) {
+  const int b = bh / p.H;
+  const int h = bh - b * p.H;
+  const float* qb = p.q + b * p.q_sb + h * DH;
+  const float* kb = p.k + b * p.k_sb + h * DH;
+  const float* vb = p.v + b * p.v_sb + h * DH;
+  const float* gb = p.dout + b * p.g_sb + h * DH;
+  const float* ob = p.out + b * p.o_sb + h * DH;
+  for (int idx = threadIdx.x; idx < TQ * DH; idx += blockDim.x) {
     const int t = idx / DH;
     const int c = idx - t * DH;
-    qs[t * LD + c] = qb[t * q_st + c];
-    ks[t * LD + c] = kb[t * k_st + c];
-    vs[t * LD + c] = vb[t * v_st + c];
-    gs[t * LD + c] = gb[t * g_st + c];
+    const bool in = t < T;
+    qs[t * P + c] = in ? qb[t * p.q_st + c] : 0.f;
+    gs[t * P + c] = in ? gb[t * p.g_st + c] : 0.f;
+    ks[t * P + c] = in ? kb[t * p.k_st + c] : 0.f;
+    dqs[t * P + c] = 0.f;
+    if constexpr (!kHoldKV) vs[t * P + c] = in ? vb[t * p.v_st + c] : 0.f;
   }
-  if (dropout) {
-    const uint32_t bh_key = mix(mix(kMixKey0, seed), (uint32_t)bh);
-    for (int i = threadIdx.x; i < T; i += blockDim.x)
-      rowkey[i] = mix(bh_key, (uint32_t)i);
+  const uint32_t bh_key = p.dropout ? mix(mix(kMixKey0, p.seed), (uint32_t)bh) : 0u;
+  const long long stat = (long long)bh * T;
+  for (int i = threadIdx.x; i < TQ; i += blockDim.x) {
+    const bool in = i < T;
+    mrow[i] = in ? p.row_max[stat + i] : 0.f;
+    lrow[i] = in ? p.row_inv_sum[stat + i] : 0.f;
+    rkey[i] = p.dropout ? mix(bh_key, (uint32_t)i) : 0u;
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < TQ; i += blockDim.x) {
+    float d = 0.f;
+    if (i < T) {
+      const float* orow = ob + i * p.o_st;
+#pragma unroll
+      for (int c = 0; c < DH; ++c) d = fmaf(gs[i * P + c], orow[c], d);
+    }
+    drow[i] = d;
   }
   __syncthreads();
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const float* bias_b = bias + b * bias_sb;
-  const long long out_base = (long long)b * T * D + h * DH;
+  const int g = lane >> 2, t4 = lane & 3;
+  const float* bias_b = p.bias + b * p.bias_sb;
+  const long long out_base = (long long)b * T * p.D + h * DH;
+  float* scr = scratch + warp * 16 * SP;
 
-  // ---- pass A: one warp per query row ----------------------------------
-  {
-    float* drow = rowbuf + warp * T;
-    const int grp = DH >= 32 ? 0 : lane / DH;
-    const int col = DH >= 32 ? lane : lane - grp * DH;
-    for (int i = warp; i < T; i += kWarps) {
-      float qr[DH], gr[DH];
+  // every warp runs the same number of rounds and steps (block barriers); a
+  // warp whose key tile is past the end only keeps the barriers
+  const int rounds_end = (NT + warps - 1) / warps * warps;
+  for (int kt = warp; kt < rounds_end; kt += warps) {
+    const bool active = kt < NT;
+    const int j0 = kt * 16;
+    const int ja = j0 + g, jb = ja + 8;  // this lane's two keys
+    auto frag = [&](const float* x, int kk) {  // rows ja, jb of a staged [TQ][P] tile
+      const int c = kk * 8 + t4;
+      return split_a(x[ja * P + c], x[jb * P + c], x[ja * P + c + 4], x[jb * P + c + 4]);
+    };
+    FragA ka[kHoldKV ? KS : 1], va[kHoldKV ? KS : 1];
+    float dk[KS][4], dv[KS][4];
+    if (active) {
 #pragma unroll
-      for (int c = 0; c < DH; ++c) {
-        qr[c] = qs[i * LD + c];
-        gr[c] = gs[i * LD + c];
-      }
-      float* prow = tile + i * TP;
-      const float* brow = bias_b + i * bias_si;
-
-      float m = -INFINITY;
-      for (int j = lane; j < T; j += 32) {
-        const float* kj = ks + j * LD;
-        float acc = 0.f;
-#pragma unroll
-        for (int c = 0; c < DH; ++c) acc = fmaf(qr[c], kj[c], acc);
-        const float s = acc * scale + brow[j];
-        prow[j] = s;
-        m = fmaxf(m, s);
-      }
-      m = warp_max(m);
-
-      float l = 0.f;
-      for (int j = lane; j < T; j += 32) {
-        const float e = expf(prow[j] - m);
-        prow[j] = e;
-        l += e;
-      }
-      l = warp_sum(l);
-      const float inv_l = 1.f / l;
-
-      const uint32_t row_key = dropout ? rowkey[i] : 0u;
-      float dacc = 0.f;
-      for (int j = lane; j < T; j += 32) {
-        const float p = prow[j] * inv_l;
-        prow[j] = p;
-        const float* vj = vs + j * LD;
-        float dp = 0.f;
-#pragma unroll
-        for (int c = 0; c < DH; ++c) dp = fmaf(gr[c], vj[c], dp);
-        if (dropout) {
-          const uint32_t bits = mix(row_key, (uint32_t)j);
-          dp = (bits >> 8) >= keep_threshold ? dp * inv_keep : 0.f;
+      for (int kk = 0; kk < KS; ++kk) {
+        if constexpr (kHoldKV) {
+          const int c = kk * 8 + t4;
+          const float* v0 = vb + ja * p.v_st + c;
+          const float* v1 = vb + jb * p.v_st + c;
+          const bool in0 = ja < T, in1 = jb < T;
+          ka[kk] = frag(ks, kk);
+          va[kk] = split_a(in0 ? v0[0] : 0.f, in1 ? v1[0] : 0.f, in0 ? v0[4] : 0.f,
+                           in1 ? v1[4] : 0.f);
         }
-        drow[j] = dp;
-        dacc = fmaf(dp, p, dacc);
+        dk[kk][0] = dk[kk][1] = dk[kk][2] = dk[kk][3] = 0.f;
+        dv[kk][0] = dv[kk][1] = dv[kk][2] = dv[kk][3] = 0.f;
       }
-      const float di = warp_sum(dacc);
-      for (int j = lane; j < T; j += 32)
-        drow[j] = prow[j] * (drow[j] - di);
-      if (lane == 0) dsum[i] = di;
-      __syncwarp();
-
-      float acc[COLS];
+    }
+    for (int s = 0; s < NT; ++s) {
+      if (active) {
+        const int qt = kt + s < NT ? kt + s : kt + s - NT;
+        const int i0 = qt * 16;
+        // the bias is read before the products, so its loads overlap them
+        // (indices clamped: elements past T are zeroed below)
+        float bv[2][4];
 #pragma unroll
-      for (int c = 0; c < COLS; ++c) acc[c] = 0.f;
-      for (int j = grp; j < T; j += GROUPS) {
-        const float ds = drow[j];
-        const float* kj = ks + j * LD + col;
+        for (int n = 0; n < 2; ++n) {
 #pragma unroll
-        for (int c = 0; c < COLS; ++c) acc[c] = fmaf(ds, kj[32 * c], acc[c]);
+          for (int e = 0; e < 4; ++e) {
+            const int j = min(e < 2 ? ja : jb, T - 1);
+            const int i = min(i0 + n * 8 + 2 * t4 + (e & 1), T - 1);
+            bv[n][e] = bias_b[i * p.bias_si + j];
+          }
+        }
+        float st[2][4], dp[2][4];  // S^T and dP^T: keys in rows, queries in columns
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+          st[n][0] = st[n][1] = st[n][2] = st[n][3] = 0.f;
+          dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
+        }
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk) {
+          FragA kf, vf;
+          if constexpr (kHoldKV) {
+            kf = ka[kk];
+            vf = va[kk];
+          } else {
+            kf = frag(ks, kk);
+            vf = frag(vs, kk);
+          }
+#pragma unroll
+          for (int n = 0; n < 2; ++n) {
+            const int row = (i0 + n * 8 + g) * P + t4 + kk * 8;
+            mma3(st[n], kf, qs[row], qs[row + 4]);
+            mma3(dp[n], vf, gs[row], gs[row + 4]);
+          }
+        }
+        // element (n, e): key ja (e < 2) or jb, query i0 + 8n + 2*t4 + e % 2
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int j = e < 2 ? ja : jb;
+            const int i = i0 + n * 8 + 2 * t4 + (e & 1);
+            float pv = 0.f, kf = 1.f;
+            if (i < T && j < T) {
+              pv = expf(st[n][e] * p.scale + bv[n][e] - mrow[i]) * lrow[i];
+              if (p.dropout)
+                kf = (mix(rkey[i], (uint32_t)j) >> 8) >= p.keep_threshold ? p.inv_keep : 0.f;
+            }
+            st[n][e] = pv * kf;                      // Pd
+            dp[n][e] = pv * (dp[n][e] * kf - drow[i]);  // dS
+          }
+        }
+        // dV += Pd^T dO and dK += dS^T Q: the reduced axis is the n-tile's
+        // 8 queries, in the accumulators' order (rows 2t, 2t+1 of the B tile)
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+          const FragA pa = split_a(st[n][0], st[n][2], st[n][1], st[n][3]);
+          const FragA sa = split_a(dp[n][0], dp[n][2], dp[n][1], dp[n][3]);
+          const int row = (i0 + n * 8 + 2 * t4) * P + g;
+#pragma unroll
+          for (int c = 0; c < KS; ++c) {
+            mma3(dv[c], pa, gs[row + c * 8], gs[row + P + c * 8]);
+            mma3(dk[c], sa, qs[row + c * 8], qs[row + P + c * 8]);
+          }
+        }
+        // dQ (16 queries x dh) += dS K, dS read back transposed from scratch
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+          *reinterpret_cast<float2*>(scr + g * SP + n * 8 + 2 * t4) =
+              make_float2(dp[n][0], dp[n][1]);
+          *reinterpret_cast<float2*>(scr + (g + 8) * SP + n * 8 + 2 * t4) =
+              make_float2(dp[n][2], dp[n][3]);
+        }
+        __syncwarp();
+        float dq[KS][4];
+#pragma unroll
+        for (int c = 0; c < KS; ++c) dq[c][0] = dq[c][1] = dq[c][2] = dq[c][3] = 0.f;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int kr = half * 8 + 2 * t4;  // local key rows 2t and 2t+1
+          const FragA da = split_a(scr[kr * SP + g], scr[kr * SP + g + 8],
+                                   scr[(kr + 1) * SP + g], scr[(kr + 1) * SP + g + 8]);
+          const float* krow = ks + (j0 + kr) * P + g;
+#pragma unroll
+          for (int c = 0; c < KS; ++c) mma3(dq[c], da, krow[c * 8], krow[P + c * 8]);
+        }
+        __syncwarp();  // scratch is rewritten at the next step
+#pragma unroll
+        for (int c = 0; c < KS; ++c) {
+          float2* d0 = reinterpret_cast<float2*>(dqs + (i0 + g) * P + c * 8 + 2 * t4);
+          float2* d1 = reinterpret_cast<float2*>(dqs + (i0 + g + 8) * P + c * 8 + 2 * t4);
+          const float2 x0 = *d0, x1 = *d1;
+          *d0 = make_float2(x0.x + dq[c][0], x0.y + dq[c][1]);
+          *d1 = make_float2(x1.x + dq[c][2], x1.y + dq[c][3]);
+        }
       }
-      if (DH < 32) {
+      __syncthreads();
+    }
+    if (active) {
 #pragma unroll
-        for (int off = 16; off >= DH; off >>= 1)
-          acc[0] += __shfl_xor_sync(0xffffffffu, acc[0], off);
+      for (int c = 0; c < KS; ++c) {
+        const int col = c * 8 + 2 * t4;
+        if (ja < T) {
+          *reinterpret_cast<float2*>(p.dk + out_base + (long long)ja * p.D + col) =
+              make_float2(dk[c][0] * p.scale, dk[c][1] * p.scale);
+          *reinterpret_cast<float2*>(p.dv + out_base + (long long)ja * p.D + col) =
+              make_float2(dv[c][0], dv[c][1]);
+        }
+        if (jb < T) {
+          *reinterpret_cast<float2*>(p.dk + out_base + (long long)jb * p.D + col) =
+              make_float2(dk[c][2] * p.scale, dk[c][3] * p.scale);
+          *reinterpret_cast<float2*>(p.dv + out_base + (long long)jb * p.D + col) =
+              make_float2(dv[c][2], dv[c][3]);
+        }
       }
-      if (grp == 0) {
-#pragma unroll
-        for (int c = 0; c < COLS; ++c)
-          dq[out_base + (long long)i * D + col + 32 * c] = acc[c] * scale;
-      }
-      __syncwarp();  // drow is rewritten by this warp's next row
     }
   }
-  __syncthreads();
-
-  // ---- pass B: one warp per key row ------------------------------------
-  for (int j = warp; j < T; j += kWarps) {
-    float dkr[DH], dvr[DH];
-#pragma unroll
-    for (int c = 0; c < DH; ++c) {
-      dkr[c] = 0.f;
-      dvr[c] = 0.f;
-    }
-    const float* vj = vs + j * LD;
-    for (int i = lane; i < T; i += 32) {
-      const float p = tile[i * TP + j];
-      const float* gi = gs + i * LD;
-      const float* qi = qs + i * LD;
-      float dp = 0.f;
-#pragma unroll
-      for (int c = 0; c < DH; ++c) dp = fmaf(gi[c], vj[c], dp);
-      float kf = 1.f;
-      if (dropout) {
-        const uint32_t bits = mix(rowkey[i], (uint32_t)j);
-        kf = (bits >> 8) >= keep_threshold ? inv_keep : 0.f;
-      }
-      const float pd = p * kf;
-      const float ds = p * (dp * kf - dsum[i]);
-#pragma unroll
-      for (int c = 0; c < DH; ++c) {
-        dkr[c] = fmaf(ds, qi[c], dkr[c]);
-        dvr[c] = fmaf(pd, gi[c], dvr[c]);
-      }
-    }
-    const long long row = out_base + (long long)j * D;
-#pragma unroll
-    for (int c = 0; c < DH; ++c) {
-      const float sk = warp_sum(dkr[c]);
-      const float sv = warp_sum(dvr[c]);
-      if (lane == (c & 31)) {
-        dk[row + c] = sk * scale;
-        dv[row + c] = sv;
-      }
-    }
+  // the last step ended with a block barrier: dQ is complete
+  for (int idx = threadIdx.x; idx < T * DH; idx += blockDim.x) {
+    const int t = idx / DH;
+    const int c = idx - t * DH;
+    p.dq[out_base + (long long)t * p.D + c] = dqs[t * P + c] * p.scale;
   }
 }
 
+size_t smem_bytes(int T, int dh) {
+  const size_t tq = (size_t)tiles16(T) * 16;
+  const size_t warps = (size_t)warps_for(tiles16(T));
+  const size_t tiles = dh < 64 ? 4 : 5;  // Q, dO, K, dQ (and V at dh=64)
+  return sizeof(float) * (tiles * tq * pitch(dh) + 4 * tq + warps * 16 * kScratchPitch);
+}
+
 template <int DH>
-cudaError_t launch(const float* q, const float* k, const float* v,
-                   const float* bias, const float* dout, float* dq, float* dk,
-                   float* dv, int B, int T, int D, int H, long long q_sb,
-                   long long q_st, long long k_sb, long long k_st,
-                   long long v_sb, long long v_st, long long g_sb,
-                   long long g_st, long long bias_sb, long long bias_si,
-                   float scale, int dropout, uint32_t keep_threshold,
-                   float inv_keep, uint32_t seed, size_t smem,
-                   cudaStream_t stream) {
+cudaError_t launch(const BwdParams& p, int B, size_t smem, cudaStream_t stream) {
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        attention_bwd_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        attention_bwd_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  attention_bwd_kernel<DH><<<B * H, kWarps * 32, smem, stream>>>(
-      q, k, v, bias, dout, dq, dk, dv, T, D, H, q_sb, q_st, k_sb, k_st, v_sb,
-      v_st, g_sb, g_st, bias_sb, bias_si, scale, dropout, keep_threshold,
-      inv_keep, seed);
+  attention_bwd_kernel<DH><<<B * p.H, warps_for(tiles16(p.T)) * 32, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -281,44 +320,43 @@ cudaError_t launch(const float* q, const float* k, const float* v,
 
 extern "C" {
 
-// Shared memory one block needs, in bytes: Q, K, V, dO slices with padded
-// rows, the [T, T] tile of P with an odd pitch, one dS row per warp, D_i and
-// the per-row dropout keys.
-size_t attention_bwd_smem_bytes(int T, int dh) {
-  return sizeof(float) * ((size_t)4 * T * (dh + 1) + (size_t)T * tile_pitch(T) +
-                          (size_t)kWarps * T + (size_t)2 * T);
-}
+// Shared memory one block needs, in bytes: Q, dO, K (and V at dh=64) and the
+// dQ accumulator of one head padded to a multiple of 16 rows (row pitch
+// dh + 4), four per-row values and one 16 x 20 dS tile per warp.
+size_t attention_bwd_smem_bytes(int T, int dh) { return smem_bytes(T, dh); }
 
-// Launches the kernel on `stream`. q/k/v/dout are [B, T, D] fp32 with unit
-// stride along D and the given batch/time strides (in elements); dq, dk, dv
-// are contiguous [B, T, D]. Returns the launch's cudaError_t (0 on success);
-// an unsupported head width returns cudaErrorInvalidValue.
-int attention_bwd(const float* q, const float* k, const float* v,
-                  const float* bias, const float* dout, float* dq, float* dk,
-                  float* dv, int B, int T, int D, int H, long long q_sb,
-                  long long q_st, long long k_sb, long long k_st,
-                  long long v_sb, long long v_st, long long g_sb,
-                  long long g_st, long long bias_sb, long long bias_si,
-                  float scale, int dropout, uint32_t keep_threshold,
-                  float inv_keep, uint32_t seed, void* stream) {
-  const int dh = D / H;
-  const size_t smem = attention_bwd_smem_bytes(T, dh);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define AMID_ATTN_CASE(W)                                                     \
-  case W:                                                                     \
-    return (int)launch<W>(q, k, v, bias, dout, dq, dk, dv, B, T, D, H, q_sb,  \
-                          q_st, k_sb, k_st, v_sb, v_st, g_sb, g_st, bias_sb,  \
-                          bias_si, scale, dropout, keep_threshold, inv_keep,  \
-                          seed, smem, s);
+// Launches the kernel. `raw` is one BwdArgs block (attention_common.cuh):
+// q, k, v, out, dout [B, T, D] fp32 with unit stride along D and the given
+// batch and time strides in elements; bias as in attention_fwd; row_max and
+// row_inv_sum the forward's contiguous [B, H, T]; dq, dk, dv contiguous
+// [B, T, D]; stream a cudaStream_t of the tensors' card. Returns 0, a
+// Refusal, or the launch's cudaError_t.
+int attention_bwd(const void* raw) {
+  BwdArgs a;
+  memcpy(&a, raw, sizeof a);
+  if (a.B < 1 || a.T < 1 || a.H < 1 || a.D % a.H != 0) return kBadShape;
+  const int dh = (int)(a.D / a.H);
+  const size_t smem = smem_bytes((int)a.T, dh);
+  if (smem > 232448) return kTooLong;
+  const BwdParams p = {
+      ptr<const float>(a.q), ptr<const float>(a.k), ptr<const float>(a.v),
+      ptr<const float>(a.bias), ptr<const float>(a.out), ptr<const float>(a.dout),
+      ptr<const float>(a.row_max), ptr<const float>(a.row_inv_sum),
+      ptr<float>(a.dq), ptr<float>(a.dk), ptr<float>(a.dv),
+      (int)a.T, (int)a.D, (int)a.H,
+      a.q_sb, a.q_st, a.k_sb, a.k_st, a.v_sb, a.v_st, a.o_sb, a.o_st, a.g_sb, a.g_st,
+      a.bias_sb, a.bias_si,
+      (float)a.scale, (float)a.inv_keep, (uint32_t)a.keep_threshold, (uint32_t)a.seed,
+      (int)a.dropout};
+  cudaStream_t s = ptr<CUstream_st>(a.stream);
+  const int B = (int)a.B;
   switch (dh) {
-    AMID_ATTN_CASE(8)
-    AMID_ATTN_CASE(16)
-    AMID_ATTN_CASE(32)
-    AMID_ATTN_CASE(64)
-    default:
-      return (int)cudaErrorInvalidValue;
+    case 8: return (int)launch<8>(p, B, smem, s);
+    case 16: return (int)launch<16>(p, B, smem, s);
+    case 32: return (int)launch<32>(p, B, smem, s);
+    case 64: return (int)launch<64>(p, B, smem, s);
+    default: return kBadHeadWidth;
   }
-#undef AMID_ATTN_CASE
 }
 
 }  // extern "C"

@@ -1,0 +1,145 @@
+// Pieces the attention forward (attention_fwd.cu) and backward
+// (attention_bwd.cu) share: the dropout counter hash, the 3xTF32 tensor-core
+// product and the argument block of the C entry points.
+//
+// 3xTF32. One TF32 product keeps 11 significant bits of each operand, about
+// three decimal digits: too few for the fp32 tolerances the kernels are held
+// to. Each fp32 operand x is split into hi = tf32(x) and lo = tf32(x - hi)
+// (cvt.rna: round to nearest, ties away from zero), and a product is summed
+// as lo*hi + hi*lo + hi*hi in fp32 on the tensor cores
+// (mma.sync.m16n8k8.f32.tf32.tf32.f32). Only the lo*lo term, about 2^-22 of
+// the product, is left out.
+//
+// Fragments of mma.m16n8k8 (row.col), with g = lane / 4 and t = lane % 4:
+//   A (16 x 8): a0 = A[g][t], a1 = A[g+8][t], a2 = A[g][t+4], a3 = A[g+8][t+4]
+//   B (8 x 8):  b0 = B[t][g], b1 = B[t+4][g]
+//   C (16 x 8): c0 = C[g][2t], c1 = C[g][2t+1], c2 = C[g+8][2t], c3 = C[g+8][2t+1]
+// A product of two accumulators' worth (P.V, dS.K and the like) reuses the C
+// fragment as the A fragment without a shuffle by numbering the reduced axis
+// in the order the accumulator holds it: reduction index t stands for column
+// 2t and index t+4 for column 2t+1 (a0 = c0, a1 = c2, a2 = c1, a3 = c3). The
+// B operand then reads rows 2t and 2t+1 of its 8-row slice. The sum is the
+// same, taken in another order.
+//
+// Shared-memory tiles have a row pitch of dh + 4 floats. The two patterns
+// the kernels read, row g column t (B of Q.K^T) and row 2t column g (B of
+// P.V), then fall on 32 different banks for the 32 lanes.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace amid_attention {
+
+constexpr uint32_t kMixKey0 = 0x9E3779B9u;
+constexpr int kMaxWarps = 8;  // warps of one block
+
+// Refusals of the entry points (negative; a positive value is a cudaError_t).
+enum Refusal {
+  kBadHeadWidth = -1,  // dh not in {8, 16, 32, 64}
+  kBadShape = -2,      // B, T or H below 1, or D not a multiple of H
+  kTooLong = -3,       // the block's shared memory is above the card's limit
+};
+
+__device__ __forceinline__ uint32_t fmix32(uint32_t h) {
+  h ^= h >> 16;
+  h *= 0x85EBCA6Bu;
+  h ^= h >> 13;
+  h *= 0xC2B2AE35u;
+  h ^= h >> 16;
+  return h;
+}
+
+// mix(x, v) = fmix32(x ^ (v * 0x9E3779B1 + 0x7F4A7C15)): element (b, h, i, j)
+// is kept when mix(mix(mix(mix(K0, seed), b*H + h), i), j) >> 8 >= threshold.
+__device__ __forceinline__ uint32_t mix(uint32_t x, uint32_t v) {
+  return fmix32(x ^ (v * 0x9E3779B1u + 0x7F4A7C15u));
+}
+
+__host__ __device__ constexpr int pitch(int dh) { return dh + 4; }
+
+// Rounds up to a whole number of 16-row tiles.
+__host__ __device__ inline int tiles16(int t) { return (t + 15) / 16; }
+
+struct Split {
+  uint32_t hi, lo;
+};
+
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+__device__ __forceinline__ Split split(float x) {
+  const uint32_t hi = to_tf32(x);
+  return {hi, to_tf32(x - __uint_as_float(hi))};
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// An A fragment kept as its hi and lo halves.
+struct FragA {
+  uint32_t hi[4], lo[4];
+};
+
+__device__ __forceinline__ FragA split_a(float a0, float a1, float a2, float a3) {
+  FragA f;
+  const float a[4] = {a0, a1, a2, a3};
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const Split s = split(a[r]);
+    f.hi[r] = s.hi;
+    f.lo[r] = s.lo;
+  }
+  return f;
+}
+
+// d += A B in 3xTF32, B given by its two fp32 elements.
+__device__ __forceinline__ void mma3(float (&d)[4], const FragA& a, float b0, float b1) {
+  const Split s0 = split(b0), s1 = split(b1);
+  mma_tf32(d, a.lo, s0.hi, s1.hi);
+  mma_tf32(d, a.hi, s0.lo, s1.lo);
+  mma_tf32(d, a.hi, s0.hi, s1.hi);
+}
+
+// The entry points' arguments: one block of 8-byte fields that the Python side
+// packs in one call (pointers as integers; null pointers as 0).
+struct FwdArgs {
+  long long q, k, v, bias, out, row_max, row_inv_sum;
+  long long B, T, D, H;
+  long long q_sb, q_st, k_sb, k_st, v_sb, v_st, bias_sb, bias_si;
+  long long dropout, keep_threshold, seed, stream;
+  double scale, inv_keep;
+};
+
+struct BwdArgs {
+  long long q, k, v, bias, out, dout, row_max, row_inv_sum, dq, dk, dv;
+  long long B, T, D, H;
+  long long q_sb, q_st, k_sb, k_st, v_sb, v_st, o_sb, o_st, g_sb, g_st, bias_sb, bias_si;
+  long long dropout, keep_threshold, seed, stream;
+  double scale, inv_keep;
+};
+
+template <typename T>
+T* ptr(long long value) {
+  return reinterpret_cast<T*>(static_cast<uintptr_t>(value));
+}
+
+// Warps of a block that walks `tiles` 16-row tiles in as few rounds of at
+// most kMaxWarps warps as it can, with the tiles spread evenly over them.
+inline int warps_for(int tiles) {
+  const int rounds = (tiles + kMaxWarps - 1) / kMaxWarps;
+  return (tiles + rounds - 1) / rounds;
+}
+
+}  // namespace amid_attention

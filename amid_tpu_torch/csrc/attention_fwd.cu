@@ -1,194 +1,243 @@
-// Fused multi-head attention forward for Hopper (sm_90a), fp32.
+// Fused multi-head attention forward for Hopper (sm_90a), fp32 in and out,
+// products on the tensor cores in 3xTF32 (attention_common.cuh).
 //
 // Replaces amid_tpu/ops/pallas_attention.py::_fwd_kernel (pallas_call in
 // _fused_fwd_impl): o = dropout(softmax(Q K^T / sqrt(dh) + bias)) V per head,
 // with the h heads packed in D ([B, T, D] in, [B, T, D] out) and an additive
 // bias of shape [1|B, 1, 1|T, T]. No score or probability block leaves the SM.
+// When asked (non-null pointers, i.e. when a gradient will be wanted) it also
+// writes each row's statistics for the backward: row_max m_i (the largest
+// score) and row_inv_sum 1 / l_i, l_i = sum_j exp(s_ij - m_i), each
+// [B, H, T] fp32. The two are kept apart, not as m + log l: SASRec's masked
+// scores are -1e9, where fp32 has a spacing of 64, so a log-sum-exp of a
+// fully masked row would round back to -1e9 and lose the 1/T.
 //
-// Design. The TPU kernel multiplies full-width lane-masked operands because
-// Mosaic cannot split heads; here each block owns one (batch row b, head h)
-// and reads head h's dh columns directly:
-//   * grid = B * H blocks (2048 at B=256, H=8), 4 warps each;
-//   * the head's Q, K and V slices [T, dh] are staged in dynamic shared
-//     memory with a row pitch of dh + 1 floats (odd, so the 32 lanes of a
-//     warp reading 32 different key rows hit 32 different banks);
-//   * one warp per query row: lanes stride over the keys for the scores
-//     (q_i held in registers), a warp max, exp and a warp sum, the row of
-//     probabilities kept in a per-warp shared buffer; then P.V with the
-//     warp's lanes split into 32/dh key groups of dh columns, summed by
-//     xor-shuffles;
-//   * the bias is read through its strides: batch stride 0 when its first
-//     dimension is 1, query stride 0 when its third dimension is 1.
+// Design. One block owns one (batch row b, head h) and reads head h's dh
+// columns through the strides (q, k, v may be column slices of one
+// projection):
+//   * grid = B * H blocks; each block has as many warps as it has 16-row
+//     query tiles, at most 8 (T=150: 10 tiles -> 5 warps of 2 tiles each);
+//   * K and V of the head, [T, dh] padded to a multiple of 8 keys with zero
+//     rows, are staged in dynamic shared memory with a row pitch of dh + 4;
+//   * each warp owns 16 query rows at a time. Its Q fragment (split into
+//     hi/lo once) stays in registers. The keys are walked in chunks of 32
+//     (chunks of 64 held more registers per thread and ran slower):
+//     S = Q K^T as m16n8k8 tiles, the scale and the bias, the chunk's row max
+//     by quad shuffles on the accumulator (row = lane/4 and lane/4 + 8), an
+//     online softmax (rescale of the running sum and output when the max
+//     grows), the dropout hash per element at its real (i, j), then P.V as a
+//     second set of m16n8k8 tiles whose A fragment is the accumulator itself
+//     (the reordered reduction of attention_common.cuh);
+//   * keys past T score -inf (P = 0): a fully masked real row averages over
+//     its T keys, not over the padded ones. Query rows past T write nothing.
 //
 // Dropout (rate > 0) keeps element (b, h, i, j) when
 //   bits >> 8 >= keep_threshold,  bits = mix(mix(mix(mix(K0, seed), b*H+h), i), j)
-// with mix(x, v) = fmix32(x ^ (v * 0x9E3779B1 + 0x7F4A7C15)) (murmur3's
-// finaliser) and keep_threshold = ceil(rate * 2^24), i.e. u = (bits>>8)/2^24
-// >= rate; kept values are scaled by 1/(1 - rate). The mask is a pure
-// function of its indices, so the plain PyTorch version (ops/attention.py)
-// and a later backward kernel regenerate it bit for bit.
+// and scales kept values by 1/(1 - rate): the mask of
+// ops/attention.py::dropout_keep_mask, bit for bit.
 //
 // Bound on the H100 (data sheet): at B=256, T=150, D=128, H=8 one call must
-// read q, k, v and write o, about 78.6 MB (23 us at 3.35 TB/s), and does
-// 4*B*H*T*T*dh = 2.95 GFLOP (44 us at 67 TFLOP/s fp32 without tensor cores),
-// so it is bound by operations. This simple design does one shared-memory
-// load per multiply-add in Q.K and P.V, which caps it well below the fp32
-// rate; tensor-core (mma / wgmma) tiles over several query rows are later
-// work.
+// read q, k, v and the bias and write o, about 78.7 MB (23.5 us at
+// 3.35 TB/s), and does 4*B*H*T*T*dh = 2.95 GFLOP (6 us at the 495 TFLOP/s
+// TF32 tensor-core peak; 3xTF32 issues three products for each), so it is
+// bound by bytes. What holds this design back: mma.sync, not wgmma; the
+// exp and the hash per element on the CUDA cores; every block reads all
+// keys, also the causally masked ones (the kernel does not read the bias's
+// structure).
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include <string.h>
+
+#include "attention_common.cuh"
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr uint32_t kMixKey0 = 0x9E3779B9u;
+using namespace amid_attention;
 
-__device__ __forceinline__ uint32_t fmix32(uint32_t h) {
-  h ^= h >> 16;
-  h *= 0x85EBCA6Bu;
-  h ^= h >> 13;
-  h *= 0xC2B2AE35u;
-  h ^= h >> 16;
-  return h;
+constexpr int kChunk = 32;  // keys per online-softmax step: 4 n-tiles of 8
+
+struct FwdParams {
+  const float *q, *k, *v, *bias;
+  float *out, *row_max, *row_inv_sum;
+  int T, D, H;
+  long long q_sb, q_st, k_sb, k_st, v_sb, v_st, bias_sb, bias_si;
+  float scale, inv_keep;
+  uint32_t keep_threshold, seed;
+  int dropout;
+};
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
 }
 
-__device__ __forceinline__ uint32_t mix(uint32_t x, uint32_t v) {
-  return fmix32(x ^ (v * 0x9E3779B1u + 0x7F4A7C15u));
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
 template <int DH>
-__global__ void __launch_bounds__(kWarps * 32)
-attention_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v,
-                     const float* __restrict__ bias, float* __restrict__ out,
-                     int T, int D, int H, long long q_sb, long long q_st,
-                     long long k_sb, long long k_st, long long v_sb,
-                     long long v_st, long long bias_sb, long long bias_si,
-                     float scale, int dropout, uint32_t keep_threshold,
-                     float inv_keep, uint32_t seed) {
-  constexpr int LD = DH + 1;                      // padded row pitch
-  constexpr int GROUPS = DH >= 32 ? 1 : 32 / DH;  // key groups in P.V
-  constexpr int COLS = DH >= 32 ? DH / 32 : 1;    // output columns per lane
+__global__ void __launch_bounds__(kMaxWarps * 32)
+attention_fwd_kernel(const FwdParams p) {
+  constexpr int P = pitch(DH);
+  constexpr int KS = DH / 8;  // k-steps of Q.K^T, n-tiles of P.V
+  const int T = p.T;
+  const int TK = (T + 7) & ~7;
 
   extern __shared__ float smem[];
-  float* qs = smem;
-  float* ks = qs + T * LD;
-  float* vs = ks + T * LD;
-  float* ps = vs + T * LD;  // [kWarps][T] probability rows
+  float* ks = smem;
+  float* vs = ks + TK * P;
 
   const int bh = blockIdx.x;
-  const int b = bh / H;
-  const int h = bh - b * H;
-  const float* qb = q + b * q_sb + h * DH;
-  const float* kb = k + b * k_sb + h * DH;
-  const float* vb = v + b * v_sb + h * DH;
-  for (int idx = threadIdx.x; idx < T * DH; idx += blockDim.x) {
+  const int b = bh / p.H;
+  const int h = bh - b * p.H;
+  const float* qb = p.q + b * p.q_sb + h * DH;
+  const float* kb = p.k + b * p.k_sb + h * DH;
+  const float* vb = p.v + b * p.v_sb + h * DH;
+  for (int idx = threadIdx.x; idx < TK * DH; idx += blockDim.x) {
     const int t = idx / DH;
     const int c = idx - t * DH;
-    qs[t * LD + c] = qb[t * q_st + c];
-    ks[t * LD + c] = kb[t * k_st + c];
-    vs[t * LD + c] = vb[t * v_st + c];
+    const bool in = t < T;
+    ks[t * P + c] = in ? kb[t * p.k_st + c] : 0.f;
+    vs[t * P + c] = in ? vb[t * p.v_st + c] : 0.f;
   }
   __syncthreads();
 
-  const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  float* prow = ps + warp * T;
-  const float* bias_b = bias + b * bias_sb;
-  const uint32_t bh_key = dropout ? mix(mix(kMixKey0, seed), (uint32_t)bh) : 0u;
-  const int grp = DH >= 32 ? 0 : lane / DH;
-  const int col = DH >= 32 ? lane : lane - grp * DH;
-  float* out_b = out + (long long)b * T * D + h * DH;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int warps = blockDim.x >> 5;
+  const float* bias_b = p.bias + b * p.bias_sb;
+  const uint32_t bh_key = p.dropout ? mix(mix(kMixKey0, p.seed), (uint32_t)bh) : 0u;
+  float* out_b = p.out + (long long)b * T * p.D + h * DH;
 
-  for (int i = warp; i < T; i += kWarps) {
-    float qr[DH];
+  for (int qt = threadIdx.x >> 5; qt < tiles16(T); qt += warps) {
+    const int r0 = qt * 16 + g, r1 = r0 + 8;  // this lane's two query rows
+    const bool in0 = r0 < T, in1 = r1 < T;
+    FragA qa[KS];
 #pragma unroll
-    for (int c = 0; c < DH; ++c) qr[c] = qs[i * LD + c];
-    const float* brow = bias_b + i * bias_si;
-
-    float m = -INFINITY;
-    for (int j = lane; j < T; j += 32) {
-      const float* kj = ks + j * LD;
-      float acc = 0.f;
-#pragma unroll
-      for (int c = 0; c < DH; ++c) acc = fmaf(qr[c], kj[c], acc);
-      const float s = acc * scale + brow[j];
-      prow[j] = s;
-      m = fmaxf(m, s);
+    for (int kk = 0; kk < KS; ++kk) {
+      const int c = kk * 8 + t4;
+      const float* q0 = qb + r0 * p.q_st + c;
+      const float* q1 = qb + r1 * p.q_st + c;
+      qa[kk] = split_a(in0 ? q0[0] : 0.f, in1 ? q1[0] : 0.f, in0 ? q0[4] : 0.f,
+                       in1 ? q1[4] : 0.f);
     }
-    m = warp_max(m);
+    // padded rows read row 0 of the bias; their results are never written
+    const float* brow0 = bias_b + (in0 ? r0 : 0) * p.bias_si;
+    const float* brow1 = bias_b + (in1 ? r1 : 0) * p.bias_si;
+    const uint32_t key0 = p.dropout ? mix(bh_key, (uint32_t)r0) : 0u;
+    const uint32_t key1 = p.dropout ? mix(bh_key, (uint32_t)r1) : 0u;
 
-    float l = 0.f;
-    const uint32_t row_key = dropout ? mix(bh_key, (uint32_t)i) : 0u;
-    for (int j = lane; j < T; j += 32) {
-      float p = expf(prow[j] - m);
-      l += p;
-      if (dropout) {
-        const uint32_t bits = mix(row_key, (uint32_t)j);
-        p = (bits >> 8) >= keep_threshold ? p * inv_keep : 0.f;
+    float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+    float o[KS][4];
+#pragma unroll
+    for (int n = 0; n < KS; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+
+    for (int j0 = 0; j0 < T; j0 += kChunk) {
+      float s[kChunk / 8][4];
+#pragma unroll
+      for (int nt = 0; nt < kChunk / 8; ++nt) {
+        s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+        const int jb = j0 + nt * 8;
+        if (jb < TK) {
+          const float* krow = ks + (jb + g) * P + t4;
+#pragma unroll
+          for (int kk = 0; kk < KS; ++kk) mma3(s[nt], qa[kk], krow[kk * 8], krow[kk * 8 + 4]);
+        }
       }
-      prow[j] = p;
-    }
-    l = warp_sum(l);
-    __syncwarp();
-
-    float acc[COLS];
+      float cm0 = -INFINITY, cm1 = -INFINITY;
 #pragma unroll
-    for (int c = 0; c < COLS; ++c) acc[c] = 0.f;
-    for (int j = grp; j < T; j += GROUPS) {
-      const float p = prow[j];
-      const float* vj = vs + j * LD + col;
+      for (int nt = 0; nt < kChunk / 8; ++nt) {
 #pragma unroll
-      for (int c = 0; c < COLS; ++c) acc[c] = fmaf(p, vj[32 * c], acc[c]);
-    }
-    if (DH < 32) {
+        for (int e = 0; e < 2; ++e) {
+          const int j = j0 + nt * 8 + 2 * t4 + e;
+          if (j < T) {
+            s[nt][e] = s[nt][e] * p.scale + brow0[j];
+            s[nt][2 + e] = s[nt][2 + e] * p.scale + brow1[j];
+          } else {
+            s[nt][e] = s[nt][2 + e] = -INFINITY;
+          }
+          cm0 = fmaxf(cm0, s[nt][e]);
+          cm1 = fmaxf(cm1, s[nt][2 + e]);
+        }
+      }
+      // every chunk holds a real key, so the new maxima are finite
+      const float mn0 = fmaxf(m0, quad_max(cm0)), mn1 = fmaxf(m1, quad_max(cm1));
+      const float al0 = expf(m0 - mn0), al1 = expf(m1 - mn1);
+      m0 = mn0;
+      m1 = mn1;
+      l0 *= al0;
+      l1 *= al1;
 #pragma unroll
-      for (int off = 16; off >= DH; off >>= 1)
-        acc[0] += __shfl_xor_sync(0xffffffffu, acc[0], off);
-    }
-    if (grp == 0) {
-      const float inv_l = 1.f / l;
+      for (int n = 0; n < KS; ++n) {
+        o[n][0] *= al0;
+        o[n][1] *= al0;
+        o[n][2] *= al1;
+        o[n][3] *= al1;
+      }
 #pragma unroll
-      for (int c = 0; c < COLS; ++c)
-        out_b[(long long)i * D + col + 32 * c] = acc[c] * inv_l;
+      for (int nt = 0; nt < kChunk / 8; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float e0 = expf(s[nt][e] - m0), e1 = expf(s[nt][2 + e] - m1);
+          l0 += e0;
+          l1 += e1;
+          if (p.dropout) {
+            const uint32_t j = (uint32_t)(j0 + nt * 8 + 2 * t4 + e);
+            e0 = (mix(key0, j) >> 8) >= p.keep_threshold ? e0 * p.inv_keep : 0.f;
+            e1 = (mix(key1, j) >> 8) >= p.keep_threshold ? e1 * p.inv_keep : 0.f;
+          }
+          s[nt][e] = e0;
+          s[nt][2 + e] = e1;
+        }
+      }
+#pragma unroll
+      for (int nt = 0; nt < kChunk / 8; ++nt) {
+        const int jb = j0 + nt * 8;
+        if (jb < TK) {
+          const FragA pa = split_a(s[nt][0], s[nt][2], s[nt][1], s[nt][3]);
+          const float* vrow = vs + (jb + 2 * t4) * P + g;
+#pragma unroll
+          for (int n = 0; n < KS; ++n) mma3(o[n], pa, vrow[n * 8], vrow[P + n * 8]);
+        }
+      }
     }
-    __syncwarp();  // prow is rewritten by this warp's next row
+    const float inv0 = 1.f / quad_sum(l0), inv1 = 1.f / quad_sum(l1);
+#pragma unroll
+    for (int n = 0; n < KS; ++n) {
+      const int c = n * 8 + 2 * t4;
+      if (in0)
+        *reinterpret_cast<float2*>(out_b + (long long)r0 * p.D + c) =
+            make_float2(o[n][0] * inv0, o[n][1] * inv0);
+      if (in1)
+        *reinterpret_cast<float2*>(out_b + (long long)r1 * p.D + c) =
+            make_float2(o[n][2] * inv1, o[n][3] * inv1);
+    }
+    if (p.row_max != nullptr && t4 == 0) {
+      const long long base = (long long)bh * T;
+      if (in0) {
+        p.row_max[base + r0] = m0;
+        p.row_inv_sum[base + r0] = inv0;
+      }
+      if (in1) {
+        p.row_max[base + r1] = m1;
+        p.row_inv_sum[base + r1] = inv1;
+      }
+    }
   }
 }
 
+size_t smem_bytes(int T, int dh) {
+  return sizeof(float) * 2 * (size_t)((T + 7) & ~7) * pitch(dh);
+}
+
 template <int DH>
-cudaError_t launch(const float* q, const float* k, const float* v,
-                   const float* bias, float* out, int B, int T, int D, int H,
-                   long long q_sb, long long q_st, long long k_sb,
-                   long long k_st, long long v_sb, long long v_st,
-                   long long bias_sb, long long bias_si, float scale,
-                   int dropout, uint32_t keep_threshold, float inv_keep,
-                   uint32_t seed, size_t smem, cudaStream_t stream) {
+cudaError_t launch(const FwdParams& p, int B, size_t smem, cudaStream_t stream) {
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        attention_fwd_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        attention_fwd_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  attention_fwd_kernel<DH><<<B * H, kWarps * 32, smem, stream>>>(
-      q, k, v, bias, out, T, D, H, q_sb, q_st, k_sb, k_st, v_sb, v_st,
-      bias_sb, bias_si, scale, dropout, keep_threshold, inv_keep, seed);
+  attention_fwd_kernel<DH><<<B * p.H, warps_for(tiles16(p.T)) * 32, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -196,40 +245,40 @@ cudaError_t launch(const float* q, const float* k, const float* v,
 
 extern "C" {
 
-// Shared memory one block needs, in bytes: Q, K, V slices with padded rows
-// plus one probability row per warp.
-size_t attention_fwd_smem_bytes(int T, int dh) {
-  return sizeof(float) * ((size_t)3 * T * (dh + 1) + (size_t)kWarps * T);
-}
+// Shared memory one block needs, in bytes: K and V of one head, padded to a
+// multiple of 8 rows, with a row pitch of dh + 4 floats.
+size_t attention_fwd_smem_bytes(int T, int dh) { return smem_bytes(T, dh); }
 
-// Launches the kernel on `stream`. q/k/v are [B, T, D] fp32 with unit stride
-// along D and the given batch/time strides (in elements); out is contiguous
-// [B, T, D]. Returns the launch's cudaError_t (0 on success); an unsupported
-// head width returns cudaErrorInvalidValue.
-int attention_fwd(const float* q, const float* k, const float* v,
-                  const float* bias, float* out, int B, int T, int D, int H,
-                  long long q_sb, long long q_st, long long k_sb,
-                  long long k_st, long long v_sb, long long v_st,
-                  long long bias_sb, long long bias_si, float scale,
-                  int dropout, uint32_t keep_threshold, float inv_keep,
-                  uint32_t seed, void* stream) {
-  const int dh = D / H;
-  const size_t smem = attention_fwd_smem_bytes(T, dh);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define AMID_ATTN_CASE(W)                                                   \
-  case W:                                                                   \
-    return (int)launch<W>(q, k, v, bias, out, B, T, D, H, q_sb, q_st, k_sb, \
-                          k_st, v_sb, v_st, bias_sb, bias_si, scale,        \
-                          dropout, keep_threshold, inv_keep, seed, smem, s);
+// Launches the kernel. `raw` is one FwdArgs block (attention_common.cuh):
+// q, k, v [B, T, D] fp32 with unit stride along D and the given batch and
+// time strides in elements; bias [1|B, 1, 1|T, T] read through its batch and
+// query strides (0 for a broadcast dimension); out contiguous [B, T, D];
+// row_max and row_inv_sum contiguous [B, H, T], or both 0 (not written);
+// stream a cudaStream_t of the tensors' card. Returns 0, a Refusal, or the
+// launch's cudaError_t.
+int attention_fwd(const void* raw) {
+  FwdArgs a;
+  memcpy(&a, raw, sizeof a);
+  if (a.B < 1 || a.T < 1 || a.H < 1 || a.D % a.H != 0) return kBadShape;
+  const int dh = (int)(a.D / a.H);
+  const size_t smem = smem_bytes((int)a.T, dh);
+  if (smem > 232448) return kTooLong;
+  const FwdParams p = {
+      ptr<const float>(a.q), ptr<const float>(a.k), ptr<const float>(a.v),
+      ptr<const float>(a.bias), ptr<float>(a.out), ptr<float>(a.row_max),
+      ptr<float>(a.row_inv_sum), (int)a.T, (int)a.D, (int)a.H,
+      a.q_sb, a.q_st, a.k_sb, a.k_st, a.v_sb, a.v_st, a.bias_sb, a.bias_si,
+      (float)a.scale, (float)a.inv_keep, (uint32_t)a.keep_threshold, (uint32_t)a.seed,
+      (int)a.dropout};
+  cudaStream_t s = ptr<CUstream_st>(a.stream);
+  const int B = (int)a.B;
   switch (dh) {
-    AMID_ATTN_CASE(8)
-    AMID_ATTN_CASE(16)
-    AMID_ATTN_CASE(32)
-    AMID_ATTN_CASE(64)
-    default:
-      return (int)cudaErrorInvalidValue;
+    case 8: return (int)launch<8>(p, B, smem, s);
+    case 16: return (int)launch<16>(p, B, smem, s);
+    case 32: return (int)launch<32>(p, B, smem, s);
+    case 64: return (int)launch<64>(p, B, smem, s);
+    default: return kBadHeadWidth;
   }
-#undef AMID_ATTN_CASE
 }
 
 }  // extern "C"

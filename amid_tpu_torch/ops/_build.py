@@ -2,10 +2,11 @@
 
 Each `csrc/<name>.cu` exposes a plain C entry point and is compiled by `nvcc`
 into its own shared library, loaded with `ctypes` (no PyTorch headers, so a
-build takes seconds). Libraries go to `amid_tpu_torch/_build/` (git-ignored),
-named by a hash of the source and the flags, so an edited source is rebuilt
-on its next use and an unchanged one is loaded as it is. `build()` starts one
-`nvcc` per source at once and waits for all of them.
+build takes seconds); sources may include the shared headers `csrc/*.cuh`.
+Libraries go to `amid_tpu_torch/_build/` (git-ignored), named by a hash of
+the source, the headers and the flags, so an edited source or header is
+rebuilt on its next use and an unchanged one is loaded as it is. `build()`
+starts one `nvcc` per source at once and waits for all of them.
 
 Nothing is built at import: the first kernel call builds what it needs.
 
@@ -54,7 +55,8 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the shared headers are part of every source's key: a header edit rebuilds
+    src = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

@@ -7,28 +7,42 @@ for BERT4Rec); the per-head scale is 1/sqrt(dh); dropout with `rate` drops
 attention probabilities and scales the kept ones by 1/(1 - rate).
 
 * `fused_attention` is the wrapper of the CUDA kernels
-  `csrc/attention_fwd.cu` and `csrc/attention_bwd.cu`, joined by one
-  `torch.autograd.Function`. On CUDA tensors the forward launches the forward
-  kernel (counted in `fused_attention.launches`) and a gradient launches the
-  backward kernel (counted in `fused_attention.backward_launches`), or they
-  raise; on CPU tensors it computes `attention_plain`. `bias` and `seed` get
-  no gradient.
+  `csrc/attention_fwd.cu` and `csrc/attention_bwd.cu`. On CUDA tensors the
+  forward launches the forward kernel (counted in `fused_attention.launches`)
+  and a gradient launches the backward kernel (counted in
+  `fused_attention.backward_launches`), or they raise; on CPU tensors it
+  computes `attention_plain`. The `torch.autograd.Function` that joins the
+  two is entered only when a gradient is wanted (grad mode on and q, k or v
+  requiring one); then the forward also writes the row statistics the
+  backward reads. `bias` and `seed` get no gradient.
 * `attention_plain` is the same function in plain PyTorch (with autograd),
   the version the CPU tests hold against JAX and the kernel is held against
   on the card.
-* `attention_bwd_plain` repeats the backward kernel's arithmetic in plain
-  PyTorch: dq, dk, dv from q, k, v, bias and the output's gradient, with the
-  probabilities recomputed and the dropout mask regenerated.
+* `attention_fwd_stats_plain` is the forward with its row statistics
+  (`row_max` m_i and `row_inv_sum` 1/l_i, each [B, h, T]), the plain version
+  of the forward kernel under autograd.
+* `attention_bwd_plain` repeats the backward kernel's one-sweep arithmetic in
+  plain PyTorch: dq, dk, dv from q, k, v, bias, the forward's output and row
+  statistics and the output's gradient, with P rebuilt from the statistics
+  and the dropout mask regenerated. `attention_backward` is the kernel on
+  CUDA tensors and this on CPU tensors.
 * `dropout_keep_mask` is the counter-based dropout mask both versions use:
   a pure function of (seed, b, h, i, j), so kernel and plain agree bit for
   bit. The TPU's own random bits cannot be reproduced; against JAX only
   rate 0 compares.
+
+The backward's residuals differ from the JAX package's `_vjp_fwd` (q, k, v,
+bias, seed): here they are (q, k, v, bias, out, row_max, row_inv_sum, seed),
+so the backward does not recompute the softmax's normalisation. The result is
+the same function's gradient (tests/test_torch_ops_train.py holds it against
+`jax.vjp` of the Pallas kernel).
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+import struct
 
 import torch
 
@@ -56,7 +70,8 @@ def check_bias(bias: torch.Tensor, bsz: int, t: int) -> None:
         )
 
 
-def _check_inputs(q, k, v, heads: int, rate: float) -> None:
+def _check_inputs(q, k, v, bias, heads: int, rate: float) -> None:
+    """The checks of every route, kernel and plain alike."""
     if q.dim() != 3 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(
             f"q, k, v must share one [B, T, D] shape; got "
@@ -66,6 +81,7 @@ def _check_inputs(q, k, v, heads: int, rate: float) -> None:
         raise ValueError(f"D={q.shape[2]} is not divisible by heads={heads}")
     if not 0.0 <= rate < 1.0:
         raise ValueError(f"dropout rate must be in [0, 1); got {rate}")
+    check_bias(bias, q.shape[0], q.shape[1])
 
 
 # ---------------------------------------------------------------------------
@@ -114,8 +130,32 @@ def dropout_keep_mask(
 
 
 # ---------------------------------------------------------------------------
-# plain PyTorch version
+# plain PyTorch versions
 # ---------------------------------------------------------------------------
+
+def _heads(x, heads: int):
+    """[B, T, D] -> [B, h, T, dh]."""
+    bsz, t, d = x.shape
+    return x.reshape(bsz, t, heads, d // heads).transpose(1, 2)
+
+
+def _merge(x):
+    """[B, h, T, dh] -> [B, T, D]."""
+    bsz, heads, t, dh = x.shape
+    return x.transpose(1, 2).reshape(bsz, t, heads * dh)
+
+
+def _scores(q, k, bias, heads: int):
+    """S = Q K^T / sqrt(dh) + bias per head, [B, h, T, T]."""
+    scale = 1.0 / math.sqrt(q.shape[2] // heads)
+    return torch.matmul(_heads(q, heads), _heads(k, heads).transpose(-1, -2)) * scale + bias
+
+
+def _keep(seed, q, heads: int, rate: float):
+    """keep / (1 - rate) as [B, h, T, T] floats."""
+    bsz, t, _ = q.shape
+    return dropout_keep_mask(seed, bsz, heads, t, rate, q.device) * (1.0 / (1.0 - rate))
+
 
 def attention_plain(
     q: torch.Tensor,
@@ -128,232 +168,227 @@ def attention_plain(
 ) -> torch.Tensor:
     """softmax(Q K^T / sqrt(dh) + bias) [dropout] V per head, in plain
     PyTorch. Same arguments and result as `fused_attention`."""
-    _check_inputs(q, k, v, heads, rate)
-    bsz, t, d = q.shape
-    check_bias(bias, bsz, t)
-    dh = d // heads
-
-    def split(x):  # [B, T, D] -> [B, h, T, dh]
-        return x.reshape(bsz, t, heads, dh).transpose(1, 2)
-
-    s = torch.matmul(split(q), split(k).transpose(-1, -2)) * (1.0 / math.sqrt(dh))
-    p = torch.softmax(s + bias, dim=-1)
+    _check_inputs(q, k, v, bias, heads, rate)
+    p = torch.softmax(_scores(q, k, bias, heads), dim=-1)
     if rate > 0.0:
-        keep = dropout_keep_mask(seed, bsz, heads, t, rate, q.device)
-        p = p * keep * (1.0 / (1.0 - rate))
-    o = torch.matmul(p, split(v))
-    return o.transpose(1, 2).reshape(bsz, t, d)
+        p = p * _keep(seed, q, heads, rate)
+    return _merge(torch.matmul(p, _heads(v, heads)))
 
 
-def attention_bwd_plain(
-    q: torch.Tensor,
-    k: torch.Tensor,
-    v: torch.Tensor,
-    bias: torch.Tensor,
-    dout: torch.Tensor,
-    seed: int,
-    heads: int,
-    rate: float,
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+def attention_fwd_stats_plain(q, k, v, bias, seed: int, heads: int, rate: float):
+    """(out, row_max, row_inv_sum): the forward kernel's results under
+    autograd, in plain PyTorch. out equals `attention_plain`; row_max[b, h, i]
+    is m_i = max_j S_ij and row_inv_sum[b, h, i] is 1 / sum_j exp(S_ij - m_i),
+    so that P = exp(S - m) * row_inv_sum. The two stay apart: a log-sum-exp
+    m + log l of a fully masked row (every S_ij = -1e9) rounds back to -1e9."""
+    _check_inputs(q, k, v, bias, heads, rate)
+    s = _scores(q, k, bias, heads)
+    m = s.amax(dim=-1, keepdim=True)
+    e = torch.exp(s - m)
+    inv_l = 1.0 / e.sum(dim=-1, keepdim=True)
+    p = e * inv_l
+    if rate > 0.0:
+        p = p * _keep(seed, q, heads, rate)
+    return _merge(torch.matmul(p, _heads(v, heads))), m.squeeze(-1), inv_l.squeeze(-1)
+
+
+def attention_bwd_plain(q, k, v, bias, out, row_max, row_inv_sum, dout,
+                        seed: int, heads: int, rate: float):
     """(dq, dk, dv) of `attention_plain` for the output gradient `dout`
-    [B, T, D], by the backward kernel's arithmetic:
+    [B, T, D], by the backward kernel's one-sweep arithmetic from the forward's
+    `out` and row statistics (`attention_fwd_stats_plain`):
 
+        P = exp(S - m) * row_inv_sum;  D_i = rowsum(dO * O)_i
         dV = Pd^T dO;  dP = (dO V^T) * keep / (1 - rate)
-        dS = P * (dP - rowsum(dP * P));  dQ = dS K / sqrt(dh);  dK = dS^T Q / sqrt(dh)
+        dS = P * (dP - D);  dQ = dS K / sqrt(dh);  dK = dS^T Q / sqrt(dh)
 
-    with P = softmax(S) recomputed and Pd = P * keep / (1 - rate)."""
-    _check_inputs(q, k, v, heads, rate)
-    bsz, t, d = q.shape
-    check_bias(bias, bsz, t)
-    dh = d // heads
-    scale = 1.0 / math.sqrt(dh)
-
-    def split(x):  # [B, T, D] -> [B, h, T, dh]
-        return x.reshape(bsz, t, heads, dh).transpose(1, 2)
-
-    def merge(x):  # [B, h, T, dh] -> [B, T, D]
-        return x.transpose(1, 2).reshape(bsz, t, d)
-
+    with Pd = P * keep / (1 - rate)."""
+    _check_inputs(q, k, v, bias, heads, rate)
+    scale = 1.0 / math.sqrt(q.shape[2] // heads)
     with torch.no_grad():
-        qh, kh, vh, gh = split(q), split(k), split(v), split(dout)
-        p = torch.softmax(torch.matmul(qh, kh.transpose(-1, -2)) * scale + bias, dim=-1)
+        qh, kh, vh, gh = (_heads(x, heads) for x in (q, k, v, dout))
+        p = torch.exp(_scores(q, k, bias, heads) - row_max[..., None]) * row_inv_sum[..., None]
+        d_row = (gh * _heads(out, heads)).sum(dim=-1, keepdim=True)
         dp = torch.matmul(gh, vh.transpose(-1, -2))
         pd = p
         if rate > 0.0:
-            keep = dropout_keep_mask(seed, bsz, heads, t, rate, q.device)
-            keep = keep * (1.0 / (1.0 - rate))
+            keep = _keep(seed, q, heads, rate)
             pd, dp = p * keep, dp * keep
         dv = torch.matmul(pd.transpose(-1, -2), gh)
-        ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+        ds = p * (dp - d_row)
         dq = torch.matmul(ds, kh) * scale
         dk = torch.matmul(ds.transpose(-1, -2), qh) * scale
-        return merge(dq), merge(dk), merge(dv)
+        return _merge(dq), _merge(dk), _merge(dv)
 
 
 # ---------------------------------------------------------------------------
-# CUDA kernel wrappers
+# CUDA kernel launch
 # ---------------------------------------------------------------------------
 
-_STRIDES = [ctypes.c_longlong] * 2
-_DROPOUT_ARGS = [ctypes.c_float, ctypes.c_int, ctypes.c_uint32, ctypes.c_float,
-                 ctypes.c_uint32]  # scale, dropout, keep_threshold, inv_keep, seed
+# Each entry point takes one block of 8-byte fields (csrc/attention_common.cuh,
+# FwdArgs and BwdArgs), packed in one call: ctypes converts argument by argument.
+_PACK_FWD = struct.Struct("<23q2d").pack
+_PACK_BWD = struct.Struct("<31q2d").pack
+_BAD_HEAD_WIDTH, _BAD_SHAPE, _TOO_LONG = -1, -2, -3  # the entry points' refusals
+
+_fwd = _bwd = None  # bound entry points, resolved at the first launch
+_fwd_smem = _bwd_smem = None  # their shared-memory functions, (T, dh) -> bytes
+_bwd_fits: dict = {}  # (T, dh) -> whether the backward kernel takes it
 
 
-_fwd = None  # (kernel, its shared-memory function) of each source, bound at first use
-_bwd = None
+def _bind() -> None:
+    global _fwd, _bwd, _fwd_smem, _bwd_smem
+    i = ctypes.c_int
+    fwd, bwd = _build.load("attention_fwd"), _build.load("attention_bwd")
+    _fwd_smem = _build.bind(fwd.attention_fwd_smem_bytes, [i, i], ctypes.c_size_t)
+    _bwd_smem = _build.bind(bwd.attention_bwd_smem_bytes, [i, i], ctypes.c_size_t)
+    _fwd = _build.bind(fwd.attention_fwd, [ctypes.c_char_p])
+    _bwd = _build.bind(bwd.attention_bwd, [ctypes.c_char_p])
 
 
-def _bind(name: str):
-    """The entry point of `csrc/attention_fwd.cu` or `csrc/attention_bwd.cu`
-    and its `_smem_bytes`, typed once."""
-    lib = _build.load(name)
-    p, i = ctypes.c_void_p, ctypes.c_int
-    n_arrays = 3 if name == "attention_fwd" else 4  # strided inputs
-    n_out = 1 if name == "attention_fwd" else 3
-    kernel = _build.bind(getattr(lib, name), (
-        [p] * (n_arrays + 1 + n_out)  # inputs, bias, outputs
-        + [i, i, i, i]  # B T D H
-        + _STRIDES * n_arrays  # batch and time strides of each input
-        + _STRIDES  # bias batch and query strides
-        + _DROPOUT_ARGS
-        + [p]  # stream
-    ))
-    return kernel, _build.bind(getattr(lib, name + "_smem_bytes"), [i, i], ctypes.c_size_t)
+def _too_long(name: str, smem_bytes, t: int, dh: int) -> ValueError:
+    largest = max((n for n in range(1, t) if smem_bytes(n, dh) <= SMEM_LIMIT), default=0)
+    return ValueError(
+        f"{name}: T={t}, dh={dh} needs {smem_bytes(t, dh)} bytes of shared memory per "
+        f"block; the limit is {SMEM_LIMIT} (largest T at this head width: {largest})")
 
 
-def _forward_fns():
-    global _fwd
-    if _fwd is None:
-        _fwd = _bind("attention_fwd")
-    return _fwd
+def _raise(err: int, name: str, smem_bytes, t: int, d: int, heads: int):
+    if err == _BAD_HEAD_WIDTH:
+        raise ValueError(f"the attention kernel takes head widths {KERNEL_HEAD_DIMS}; got "
+                         f"dh={d // heads} (D={d}, heads={heads})")
+    if err == _TOO_LONG:
+        raise _too_long(name, smem_bytes, t, d // heads)
+    if err == _BAD_SHAPE:
+        raise ValueError(f"{name}: B, T and heads must be at least 1")
+    raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
 
 
-def _backward_fns():
-    global _bwd
-    if _bwd is None:
-        _bwd = _bind("attention_bwd")
-    return _bwd
+def _check_backward_fits(t: int, dh: int) -> None:
+    """Raises now if the backward kernel cannot take (T, dh), not in the
+    middle of a backward pass. Asked once per shape."""
+    fits = _bwd_fits.get((t, dh))
+    if fits is None:
+        if _bwd is None:
+            _bind()
+        fits = _bwd_fits[(t, dh)] = _bwd_smem(t, dh) <= SMEM_LIMIT
+    if not fits:
+        raise _too_long("attention_bwd", _bwd_smem, t, dh)
 
 
-def _check_kernel_inputs(named, dev, heads: int, d: int) -> None:
-    for name, x in named:
-        if x.device != dev:
-            raise ValueError(f"{name} is on {x.device}, q on {dev}")
-        if x.dtype != torch.float32:
-            raise TypeError(f"the attention kernel takes float32; {name} is {x.dtype}")
-        if x.stride(-1) != 1:
+def _strides(named, bias, dev, also=()) -> list:
+    """The batch and time strides of each named [B, T, D] input, then the
+    bias's batch and query strides (0 where it broadcasts), once the checks
+    every kernel input needs pass; the tensors of `also` are checked only."""
+    for name, x in (*named, ("bias", bias), *also):
+        if x.dtype is not torch.float32 or x.stride(-1) != 1 or x.device != dev:
+            if x.device != dev:
+                raise ValueError(f"{name} is on {x.device}, q on {dev}")
+            if x.dtype is not torch.float32:
+                raise TypeError(f"the attention kernel takes float32; {name} is {x.dtype}")
             raise ValueError(f"{name} must have unit stride along its last dim")
-    dh = d // heads
-    if dh not in KERNEL_HEAD_DIMS:
-        raise ValueError(
-            f"the attention kernel takes head widths {KERNEL_HEAD_DIMS}; got "
-            f"dh={dh} (D={d}, heads={heads})"
-        )
+    bias_st = bias.stride()
+    return [s for _, x in named for s in x.stride()[:2]] + [
+        bias_st[0] if bias.shape[0] > 1 else 0, bias_st[2] if bias.shape[2] > 1 else 0]
 
 
-def _check_smem(smem_bytes, name: str, t: int, dh: int) -> None:
-    smem = smem_bytes(t, dh)
-    if smem > SMEM_LIMIT:
-        largest = max((n for n in range(1, t) if smem_bytes(n, dh) <= SMEM_LIMIT),
-                      default=0)
-        raise ValueError(
-            f"{name}: T={t}, dh={dh} needs {smem} bytes of shared memory per "
-            f"block; the limit is {SMEM_LIMIT} (largest T at this head width: "
-            f"{largest})"
-        )
-
-
-def _bias_strides(bias):
-    return (bias.stride(0) if bias.shape[0] > 1 else 0,
-            bias.stride(2) if bias.shape[2] > 1 else 0)
-
-
-def _dropout_args(dh: int, seed: int, rate: float):
+def _dropout_fields(seed: int, rate: float, dev):
+    """dropout, keep_threshold, seed, stream."""
     dropout = rate > 0.0
-    return (1.0 / math.sqrt(dh), int(dropout),
-            keep_threshold(rate) if dropout else 0, 1.0 / (1.0 - rate), seed & _M32)
+    return (dropout, keep_threshold(rate) if dropout else 0, seed & _M32,
+            _build.raw_stream(dev.index))
 
 
-def _launch_forward(q, k, v, bias, seed: int, heads: int, rate: float):
+def _launch_forward(q, k, v, bias, seed: int, heads: int, rate: float, stats: bool):
+    """(out, row_max, row_inv_sum) from one forward launch on checked CUDA
+    tensors; the statistics are written (and returned) only with `stats`."""
+    if _fwd is None:
+        _bind()
     bsz, t, d = q.shape
-    dh = d // heads
     dev = q.device
-    _check_kernel_inputs((("q", q), ("k", k), ("v", v), ("bias", bias)), dev, heads, d)
-    kernel, smem_bytes = _fwd or _forward_fns()
-    _check_smem(smem_bytes, "attention_fwd", t, dh)
-    out = torch.empty((bsz, t, d), dtype=torch.float32, device=dev)
-    err = kernel(
+    strides = _strides((("q", q), ("k", k), ("v", v)), bias, dev)
+    out = q.new_empty((bsz, t, d))
+    row_max = row_inv_sum = None
+    if stats:
+        row_max, row_inv_sum = q.new_empty((bsz, heads, t)), q.new_empty((bsz, heads, t))
+    err = _fwd(_PACK_FWD(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(),
-        bsz, t, d, heads,
-        q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-        v.stride(0), v.stride(1), *_bias_strides(bias),
-        *_dropout_args(dh, seed, rate),
-        _build.raw_stream(dev.index),
-    )
-    if err != 0:
-        raise RuntimeError(f"attention_fwd kernel launch failed: cudaError {err}")
+        row_max.data_ptr() if stats else 0, row_inv_sum.data_ptr() if stats else 0,
+        bsz, t, d, heads, *strides, *_dropout_fields(seed, rate, dev),
+        1.0 / math.sqrt(d // heads), 1.0 / (1.0 - rate)))
+    if err:
+        _raise(err, "attention_fwd", _fwd_smem, t, d, heads)
     fused_attention.launches += 1
-    return out
+    return out, row_max, row_inv_sum
 
 
-def _launch_backward(q, k, v, bias, dout, seed: int, heads: int, rate: float):
+def _launch_backward(q, k, v, bias, out, row_max, row_inv_sum, dout,
+                     seed: int, heads: int, rate: float):
+    if _bwd is None:
+        _bind()
     bsz, t, d = q.shape
-    dh = d // heads
     dev = q.device
     if dout.stride(-1) != 1:
         dout = dout.contiguous()
-    _check_kernel_inputs(
-        (("q", q), ("k", k), ("v", v), ("bias", bias), ("dout", dout)), dev, heads, d)
-    if dout.shape != q.shape:
-        raise ValueError(f"dout must be {tuple(q.shape)}; got {tuple(dout.shape)}")
-    kernel, smem_bytes = _bwd or _backward_fns()
-    _check_smem(smem_bytes, "attention_bwd", t, dh)
-    dq, dk, dv = (torch.empty((bsz, t, d), dtype=torch.float32, device=dev)
-                  for _ in range(3))
-    err = kernel(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), dout.data_ptr(),
+    if dout.shape != q.shape or out.shape != q.shape:
+        raise ValueError(f"out and dout must be {tuple(q.shape)}; got "
+                         f"{tuple(out.shape)}, {tuple(dout.shape)}")
+    if row_max.shape != (bsz, heads, t) or row_inv_sum.shape != (bsz, heads, t):
+        raise ValueError(f"row_max and row_inv_sum must be {(bsz, heads, t)}; got "
+                         f"{tuple(row_max.shape)}, {tuple(row_inv_sum.shape)}")
+    row_max, row_inv_sum = row_max.contiguous(), row_inv_sum.contiguous()
+    strides = _strides((("q", q), ("k", k), ("v", v), ("out", out), ("dout", dout)), bias,
+                       dev, (("row_max", row_max), ("row_inv_sum", row_inv_sum)))
+    dq, dk, dv = (q.new_empty((bsz, t, d)) for _ in range(3))
+    err = _bwd(_PACK_BWD(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(),
+        dout.data_ptr(), row_max.data_ptr(), row_inv_sum.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        bsz, t, d, heads,
-        q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-        v.stride(0), v.stride(1), dout.stride(0), dout.stride(1),
-        *_bias_strides(bias), *_dropout_args(dh, seed, rate),
-        _build.raw_stream(dev.index),
-    )
-    if err != 0:
-        raise RuntimeError(f"attention_bwd kernel launch failed: cudaError {err}")
+        bsz, t, d, heads, *strides, *_dropout_fields(seed, rate, dev),
+        1.0 / math.sqrt(d // heads), 1.0 / (1.0 - rate)))
+    if err:
+        _raise(err, "attention_bwd", _bwd_smem, t, d, heads)
     fused_attention.backward_launches += 1
     return dq, dk, dv
 
 
-def attention_backward(q, k, v, bias, dout, seed: int, heads: int, rate: float):
-    """(dq, dk, dv) for the output gradient `dout`: the backward kernel on
-    CUDA tensors (or an error), `attention_bwd_plain` on CPU tensors."""
+def _device_route(q, name: str) -> bool:
+    """True for CUDA tensors (the kernels), False for CPU tensors (plain)."""
+    if q.device.type == "cuda":
+        return True
     if q.device.type == "cpu":
-        return attention_bwd_plain(q, k, v, bias, dout, seed, heads, rate)
-    if q.device.type != "cuda":
-        raise ValueError(f"attention_backward runs on cuda or cpu, not {q.device}")
-    _check_inputs(q, k, v, heads, rate)
-    check_bias(bias, q.shape[0], q.shape[1])
-    return _launch_backward(q, k, v, bias, dout, seed, heads, rate)
+        return False
+    raise ValueError(f"{name} runs on cuda or cpu, not {q.device}")
+
+
+def attention_backward(q, k, v, bias, out, row_max, row_inv_sum, dout,
+                       seed: int, heads: int, rate: float):
+    """(dq, dk, dv) for the output gradient `dout`, from the forward's `out`
+    and row statistics: the backward kernel on CUDA tensors (or an error),
+    `attention_bwd_plain` on CPU tensors."""
+    if not _device_route(q, "attention_backward"):
+        return attention_bwd_plain(q, k, v, bias, out, row_max, row_inv_sum, dout,
+                                   seed, heads, rate)
+    _check_inputs(q, k, v, bias, heads, rate)
+    return _launch_backward(q, k, v, bias, out, row_max, row_inv_sum, dout, seed, heads, rate)
 
 
 class _FusedAttention(torch.autograd.Function):
-    """Forward kernel and backward kernel as one differentiable function.
-    The residuals are the inputs (q, k, v, bias) and the seed: the backward
-    recomputes the probabilities and regenerates the dropout mask."""
+    """Forward kernel (with row statistics) and backward kernel as one
+    differentiable function. The residuals are q, k, v, bias, the output, the
+    row statistics and the seed."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, seed, heads, rate):
-        out = _launch_forward(q, k, v, bias, seed, heads, rate)
-        ctx.save_for_backward(q, k, v, bias)
+        out, row_max, row_inv_sum = _launch_forward(q, k, v, bias, seed, heads, rate, True)
+        ctx.save_for_backward(q, k, v, bias, out, row_max, row_inv_sum)
         ctx.attn_args = (seed, heads, rate)
         return out
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, dout):
-        q, k, v, bias = ctx.saved_tensors
-        dq, dk, dv = _launch_backward(q, k, v, bias, dout, *ctx.attn_args)
+        dq, dk, dv = _launch_backward(*ctx.saved_tensors, dout, *ctx.attn_args)
         return dq, dk, dv, None, None, None, None
 
 
@@ -372,18 +407,13 @@ def fused_attention(
 
     CUDA tensors launch the kernels (or raise); CPU tensors take
     `attention_plain`."""
-    if q.device.type == "cpu":
+    if not _device_route(q, "fused_attention"):
         return attention_plain(q, k, v, bias, seed, heads, rate)
-    if q.device.type != "cuda":
-        raise ValueError(f"fused_attention runs on cuda or cpu, not {q.device}")
-    _check_inputs(q, k, v, heads, rate)
-    check_bias(bias, q.shape[0], q.shape[1])
-    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
-        # a gradient will be asked for: fail now if the backward kernel cannot
-        # take this shape, not in the middle of a backward pass
-        _check_smem((_bwd or _backward_fns())[1], "attention_bwd",
-                    q.shape[1], q.shape[2] // heads)
-    return _FusedAttention.apply(q, k, v, bias, seed, heads, rate)
+    _check_inputs(q, k, v, bias, heads, rate)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        _check_backward_fits(q.shape[1], q.shape[2] // heads)
+        return _FusedAttention.apply(q, k, v, bias, seed, heads, rate)
+    return _launch_forward(q, k, v, bias, seed, heads, rate, False)[0]
 
 
 fused_attention.launches = 0  # forward kernel launches since the last reset

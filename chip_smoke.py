@@ -20,12 +20,17 @@ code and no result line):
    graph of 20 captured calls (the device alone); `host_us` /
    `library_host_us`, wall time per un-synced call (the host alone). The
    host-dependent two are the least of three rounds. Attention forward: causal bias with 8 heads at
-   T=150 and T=20; a key-padding bias with 4 heads of width 32 and a fully
-   masked row; dropout at rate 0.5 with the two masks compared element for
-   element (library: `scaled_dot_product_attention`). Attention backward:
-   dq, dk, dv at the same four cases, rate 0.5 with the forward's seed
-   (library: the backward of `scaled_dot_product_attention` through
-   autograd). Unique-row scatters, fused (three arrays) and single: V=894,820,
+   T=150 and T=20, at rate 0 and at training's rate 0.5 (all timed); a
+   key-padding bias with 4 heads of width 32 and a fully masked row; the
+   row statistics the forward writes under autograd against the plain
+   version's; the dropout mask read out and compared element for element
+   (library: `scaled_dot_product_attention`, with the same dropout rate).
+   Attention backward: dq, dk, dv at the same cases from the plain
+   forward's residuals (out, row max, 1 / row sum), the fully masked row
+   included, each computed twice and required bit-equal (library: the
+   backward of `scaled_dot_product_attention` through autograd). The two
+   attention bounds take the TF32 tensor-core peak (the kernels' products
+   are 3xTF32). Unique-row scatters, fused (three arrays) and single: V=894,820,
    D=128, U=11,264 and 77,824 with a sentinel tail and rows 0 and V-1, bit
    for bit, untouched rows unchanged (library: `index_copy_` on pre-filtered
    ids). Embedding gather from the 894,820-row table:
@@ -94,10 +99,14 @@ import numpy as np
 # Published H100 SXM peaks (NVIDIA data sheet) for the bound of each kernel.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12  # without tensor cores
+TF32_TENSOR_FLOPS = 495e12  # dense TF32 on the tensor cores (the attention kernels' 3xTF32)
 BF16_TENSOR_FLOPS = 989e12  # dense bf16 on the tensor cores
 
 ATOL, RTOL = 1e-5, 1e-4  # forward kernel vs plain, fp32
 BWD_ATOL = 2e-5  # backward: dk, dv sum products over up to 150 queries
+# forward's row max and 1 / row sum vs plain: 1e-6 relative, and 1e-6 absolute
+# for a max near 0 (the scores themselves agree to about 5e-7)
+STATS_ATOL, STATS_RTOL = 1e-6, 1e-6
 FEATURE_TOL = 1e-4  # whole feature pass, kernel model vs plain model
 SCORE_ATOL = 1e-5  # scoring head vs plain: sigmoid outputs in (0, 1), fp32 sums
 # max-affinity vs plain: same bf16 inputs and exact products, fp32 sums over
@@ -229,17 +238,22 @@ def bound(nbytes, flops, peak_flops=FP32_FLOPS):
 
 
 def attention_bound(b, t, d, heads, bias_numel):
-    """Least time (ms) of one attention forward on the card, and its limit."""
+    """Least time (ms) of one attention forward on the card, and its limit:
+    q, k, v, bias read and o written (the row statistics are the kernel's
+    choice, not counted); Q.K^T and P.V at the TF32 tensor-core peak."""
     dh = d // heads
-    nbytes = 4 * (4 * b * t * d + bias_numel)  # q, k, v, bias read; o written
-    return bound(nbytes, 4 * b * heads * t * t * dh)  # Q.K^T and P.V multiply-adds
+    nbytes = 4 * (4 * b * t * d + bias_numel)
+    return bound(nbytes, 4 * b * heads * t * t * dh, TF32_TENSOR_FLOPS)
 
 
 def attention_bwd_bound(b, t, d, heads, bias_numel):
     """Least time (ms) of one attention backward: q, k, v, dO, bias read,
-    dq, dk, dv written; five products of 2*T*T*dh operations per head."""
+    dq, dk, dv written (out and the row statistics, residuals of the kernels'
+    choosing, not counted); five products of 2*T*T*dh operations per head at
+    the TF32 tensor-core peak."""
     dh = d // heads
-    return bound(4 * (7 * b * t * d + bias_numel), 10 * b * heads * t * t * dh)
+    return bound(4 * (7 * b * t * d + bias_numel), 10 * b * heads * t * t * dh,
+                 TF32_TENSOR_FLOPS)
 
 
 def scatter_bound(n_arrays, rows_written, width, n_ids):
@@ -325,8 +339,9 @@ def read_counts() -> dict:
 def kernel_phase(torch, gen):
     import torch.nn.functional as F
 
+    from amid_tpu_torch.ops import attention as attention_ops
     from amid_tpu_torch.ops.attention import (
-        attention_plain, dropout_keep_mask, fused_attention,
+        attention_fwd_stats_plain, attention_plain, dropout_keep_mask, fused_attention,
     )
 
     def qkv(b, t, d):
@@ -344,6 +359,13 @@ def kernel_phase(torch, gen):
             require(torch.isfinite(got).all().item(), f"{name}: non-finite kernel output")
             require(torch.allclose(got, want, atol=ATOL, rtol=RTOL),
                     f"{name}: kernel vs plain max_abs_err {err}")
+            # the forward as training launches it: with the row statistics
+            stats = attention_ops._launch_forward(q, k, v, bias, seed, heads, rate, True)
+            plain_stats = attention_fwd_stats_plain(q, k, v, bias, seed, heads, rate)
+            require(torch.equal(stats[0], got), f"{name}: out differs with statistics")
+            for n, g, w in zip(("row_max", "row_inv_sum"), stats[1:], plain_stats[1:]):
+                require(torch.allclose(g, w, atol=STATS_ATOL, rtol=STATS_RTOL),
+                        f"{name}: kernel vs plain {n} max_abs_err {(g - w).abs().max().item()}")
             rec = {"case": name, "shape": list(q.shape), "bias": list(bias.shape),
                    "heads": heads, "rate": rate, "max_abs_err": err}
             if timed:
@@ -358,12 +380,13 @@ def kernel_phase(torch, gen):
                     return x.view(b, t, heads, dh).transpose(1, 2)
 
                 qh, kh, vh = split(q), split(k), split(v)
-                lib = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=bias)
-                rec["library_max_abs_err"] = (
-                    lib.transpose(1, 2).reshape(b, t, d) - want).abs().max().item()
+                if rate == 0.0:  # with dropout the library draws its own mask
+                    lib = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=bias)
+                    rec["library_max_abs_err"] = (
+                        lib.transpose(1, 2).reshape(b, t, d) - want).abs().max().item()
                 rec.update(timings(
                     torch, lambda: F.scaled_dot_product_attention(
-                        qh, kh, vh, attn_mask=bias), 50, library=True))
+                        qh, kh, vh, attn_mask=bias, dropout_p=rate), 50, library=True))
                 rec["bound_ms"], rec["bound_by"] = attention_bound(
                     b, t, d, heads, bias.numel())
         emit({"kernel_case": rec})
@@ -391,12 +414,13 @@ def kernel_phase(torch, gen):
     require(torch.allclose(got[0], want_row, atol=ATOL, rtol=RTOL),
             "fully masked row is not the uniform average of v")
 
-    # dropout at rate 0.5: the outputs agree at the full causal shape, and
-    # the mask itself, read out through one-hot values, equals the plain
-    # version's element for element
-    q, k, v = qkv(B, 150, D)
-    compare("causal_T150_h8_rate0.5", q, k, v, causal(150), 8, seed=1234,
-            rate=0.5, timed=False)
+    # dropout at rate 0.5 (training's rate): the outputs agree at the full
+    # causal shapes, and the mask itself, read out through one-hot values,
+    # equals the plain version's element for element
+    for t in (150, 20):
+        q, k, v = qkv(B, t, D)
+        cases[f"rate0.5_T{t}"] = compare(f"causal_T{t}_h8_rate0.5", q, k, v, causal(t), 8,
+                                         seed=1234, rate=0.5)
     t, heads, dh, seed = 20, 4, 32, 977
     q, k, _ = qkv(B, t, D)
     v = torch.zeros(B, t, D, device="cuda")
@@ -419,7 +443,9 @@ def kernel_phase(torch, gen):
 def backward_kernel_phase(torch, gen):
     import torch.nn.functional as F
 
-    from amid_tpu_torch.ops.attention import attention_backward, attention_bwd_plain
+    from amid_tpu_torch.ops.attention import (
+        attention_backward, attention_bwd_plain, attention_fwd_stats_plain,
+    )
 
     def causal(t):
         return torch.triu(torch.full((t, t), -1e9, device="cuda"), diagonal=1)[None, None]
@@ -427,8 +453,13 @@ def backward_kernel_phase(torch, gen):
     def compare(name, b, t, d, bias, heads, seed=0, rate=0.0, timed=True):
         q, k, v, dout = (torch.randn(b, t, d, device="cuda", generator=gen)
                          for _ in range(4))
-        got = attention_backward(q, k, v, bias, dout, seed, heads, rate)
-        want = attention_bwd_plain(q, k, v, bias, dout, seed, heads, rate)
+        # the residuals (out and the row statistics) of the plain forward, for both
+        res = attention_fwd_stats_plain(q, k, v, bias, seed, heads, rate)
+        got = attention_backward(q, k, v, bias, *res, dout, seed, heads, rate)
+        want = attention_bwd_plain(q, k, v, bias, *res, dout, seed, heads, rate)
+        again = attention_backward(q, k, v, bias, *res, dout, seed, heads, rate)
+        require(all(torch.equal(x, y) for x, y in zip(got, again)),
+                f"{name}: two backward calls differ")
         torch.cuda.synchronize()
         errs = {n: (g - w).abs().max().item() for n, g, w in zip(("dq", "dk", "dv"), got, want)}
         for n, g, w in zip(errs, got, want):
@@ -439,10 +470,10 @@ def backward_kernel_phase(torch, gen):
                "rate": rate, "max_abs_err": max(errs.values()), "errs": errs}
         if timed:
             dh = d // heads
-            rec.update(timings(
-                torch, lambda: attention_backward(q, k, v, bias, dout, seed, heads, rate), 20))
-            rec["plain_ms"] = cuda_ms(
-                torch, lambda: attention_bwd_plain(q, k, v, bias, dout, seed, heads, rate), 10)
+            rec.update(timings(torch, lambda: attention_backward(
+                q, k, v, bias, *res, dout, seed, heads, rate), 20))
+            rec["plain_ms"] = cuda_ms(torch, lambda: attention_bwd_plain(
+                q, k, v, bias, *res, dout, seed, heads, rate), 10)
 
             def split(x):
                 return x.view(b, t, heads, dh).transpose(1, 2)
@@ -451,12 +482,14 @@ def backward_kernel_phase(torch, gen):
             gh = split(dout)
 
             def sdpa_fwd():
-                return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=bias)
+                return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=bias,
+                                                      dropout_p=rate)
 
-            lib = torch.autograd.grad(sdpa_fwd(), (qh, kh, vh), gh)
-            rec["library_max_abs_err"] = max(
-                (g.transpose(1, 2).reshape(b, t, d) - w).abs().max().item()
-                for g, w in zip(lib, want))
+            if rate == 0.0:  # with dropout the library draws its own mask
+                lib = torch.autograd.grad(sdpa_fwd(), (qh, kh, vh), gh)
+                rec["library_max_abs_err"] = max(
+                    (g.transpose(1, 2).reshape(b, t, d) - w).abs().max().item()
+                    for g, w in zip(lib, want))
             both = timings(torch, lambda: torch.autograd.grad(sdpa_fwd(), (qh, kh, vh), gh),
                          20, library=True)
             with torch.no_grad():
@@ -470,13 +503,17 @@ def backward_kernel_phase(torch, gen):
 
     B, D = 256, 128
     cases = {t: compare(f"bwd_causal_T{t}_h8", B, t, D, causal(t), 8) for t in (150, 20)}
+    # key padding, 4 heads of width 32, batch row 0 with every key masked
+    # (m = -1e9 and P = 1/T on that row)
     t = 150
     lens = torch.randint(1, t + 1, (B,), device="cuda", generator=gen)
     key_ok = torch.arange(t, device="cuda")[None, :] >= (t - lens[:, None])
+    key_ok[0] = False
     bias = torch.where(key_ok, 0.0, -1e9)[:, None, None, :]
     cases["keypad"] = compare("bwd_keypad_T150_h4", B, t, D, bias, 4)
-    cases["rate0.5"] = compare("bwd_causal_T150_h8_rate0.5", B, t, D, causal(t), 8,
-                               seed=1234, rate=0.5, timed=False)
+    for t in (150, 20):  # training's rate
+        cases[f"rate0.5_T{t}"] = compare(f"bwd_causal_T{t}_h8_rate0.5", B, t, D, causal(t), 8,
+                                         seed=1234, rate=0.5)
     return cases
 
 

@@ -23,9 +23,11 @@ from amid_tpu_torch.ops.affinity import (
     max_affinity_smalln,
     smalln_smem_bytes,
 )
+from amid_tpu_torch.ops import attention as attention_ops
 from amid_tpu_torch.ops.attention import (
     attention_backward,
     attention_bwd_plain,
+    attention_fwd_stats_plain,
     attention_plain,
     dropout_keep_mask,
     fused_attention,
@@ -121,15 +123,85 @@ def test_kernel_dropout_mask_equals_plain_mask(gen):
 ])
 @pytest.mark.parametrize("rate", [0.0, 0.5])
 def test_backward_kernel_matches_plain(gen, t, d, heads, kind, rate):
+    """The keypad case masks every key of batch row 0."""
     b = 16
     q, k, v, dout = (torch.randn(b, t, d, device="cuda", generator=gen) for _ in range(4))
     bias = _bias(kind, b, t, gen)
+    res = attention_fwd_stats_plain(q, k, v, bias, 123, heads, rate)
     before = fused_attention.backward_launches
-    got = attention_backward(q, k, v, bias, dout, 123, heads, rate)
+    got = attention_backward(q, k, v, bias, *res, dout, 123, heads, rate)
     assert fused_attention.backward_launches == before + 1
-    want = attention_bwd_plain(q, k, v, bias, dout, 123, heads, rate)
+    want = attention_bwd_plain(q, k, v, bias, *res, dout, 123, heads, rate)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, atol=BWD_ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.5])
+def test_backward_kernel_is_bit_equal_across_calls(gen, rate):
+    """No float atomics: every sum is taken in an order fixed by the tiles."""
+    b, t, d, heads = 32, 150, 128, 8
+    q, k, v, dout = (torch.randn(b, t, d, device="cuda", generator=gen) for _ in range(4))
+    bias = _bias("causal", b, t, gen)
+    res = attention_fwd_stats_plain(q, k, v, bias, 5, heads, rate)
+    first = attention_backward(q, k, v, bias, *res, dout, 5, heads, rate)
+    for _ in range(3):
+        again = attention_backward(q, k, v, bias, *res, dout, 5, heads, rate)
+        for x, y in zip(first, again):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("t,kind", [(150, "causal"), (150, "keypad"), (20, "causal"), (33, "zeros")])
+def test_forward_row_statistics_match_plain(gen, t, kind):
+    """The forward kernel under autograd writes row_max and row_inv_sum equal
+    to the plain version's (fully masked row included)."""
+    b, d, heads = 16, 128, 8
+    q, k, v = (torch.randn(b, t, d, device="cuda", generator=gen) for _ in range(3))
+    bias = _bias(kind, b, t, gen)
+    out, row_max, row_inv_sum = attention_ops._launch_forward(q, k, v, bias, 0, heads, 0.0, True)
+    want = attention_fwd_stats_plain(q, k, v, bias, 0, heads, 0.0)
+    torch.testing.assert_close(out, want[0], atol=ATOL, rtol=RTOL)
+    # 1e-6 relative, and 1e-6 absolute for a max near 0 (scores agree to ~5e-7)
+    torch.testing.assert_close(row_max, want[1], atol=1e-6, rtol=1e-6)
+    torch.testing.assert_close(row_inv_sum, want[2], atol=1e-6, rtol=1e-6)
+
+
+def test_kernels_at_the_largest_supported_t(gen):
+    """The longest sequence each kernel takes at dh=16 (its shared memory),
+    padded to its tiles, against the plain versions."""
+    limit = attention_ops.SMEM_LIMIT
+    fused_attention(*(torch.zeros(1, 8, 16, device="cuda") for _ in range(3)),
+                    _bias("zeros", 1, 8, gen), 0, 1, 0.0)  # binds the entry points
+    t_fwd = max(n for n in range(1, 2000) if attention_ops._fwd_smem(n, 16) <= limit)
+    t_bwd = max(n for n in range(1, 2000) if attention_ops._bwd_smem(n, 16) <= limit)
+    for t, backward in ((t_fwd, False), (t_bwd, True)):
+        b, d, heads = 2, 64, 4
+        q, k, v, dout = (torch.randn(b, t, d, device="cuda", generator=gen) for _ in range(4))
+        bias = _bias("causal", b, t, gen)
+        res = attention_fwd_stats_plain(q, k, v, bias, 11, heads, 0.5)
+        if backward:
+            got = attention_backward(q, k, v, bias, *res, dout, 11, heads, 0.5)
+            want = attention_bwd_plain(q, k, v, bias, *res, dout, 11, heads, 0.5)
+            for g, w in zip(got, want):
+                torch.testing.assert_close(g, w, atol=BWD_ATOL, rtol=RTOL)
+        else:
+            with torch.no_grad():
+                got = fused_attention(q, k, v, bias, 11, heads, 0.5)
+            torch.testing.assert_close(got, res[0], atol=ATOL, rtol=RTOL)
+
+
+def test_no_grad_forward_makes_no_function_and_no_statistics(gen, monkeypatch):
+    b, t, d, heads = 4, 20, 128, 8
+    q, k, v = (torch.randn(b, t, d, device="cuda", generator=gen, requires_grad=True)
+               for _ in range(3))
+    asked = []
+    launch = attention_ops._launch_forward
+    monkeypatch.setattr(attention_ops, "_launch_forward",
+                        lambda *a: asked.append(a[-1]) or launch(*a))
+    with torch.no_grad():
+        out = fused_attention(q, k, v, _bias("causal", b, t, gen), 0, heads, 0.0)
+    assert out.grad_fn is None and asked == [False]
+    out = fused_attention(q, k, v, _bias("causal", b, t, gen), 0, heads, 0.0)
+    assert type(out.grad_fn).__name__ == "_FusedAttentionBackward" and asked == [False, True]
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.5])
@@ -153,11 +225,11 @@ def test_gradient_through_the_autograd_function(gen, rate):
 
 
 def test_backward_rejects_sequences_its_tile_cannot_hold(gen):
-    """T=400 fits the forward's shared memory but not the backward's [T, T]
-    tile: asking for a gradient raises before anything is launched, and names
-    the largest T."""
-    q = torch.randn(1, 400, 64, device="cuda", generator=gen, requires_grad=True)
-    bias = _bias("zeros", 1, 400, gen)
+    """T=800 at dh=16 fits the forward's shared memory (K, V) but not the
+    backward's (Q, dO, K, dQ): asking for a gradient raises before anything is
+    launched, and names the largest T."""
+    q = torch.randn(1, 800, 64, device="cuda", generator=gen, requires_grad=True)
+    bias = _bias("zeros", 1, 800, gen)
     with torch.no_grad():
         fused_attention(q, q, q, bias, 0, 4, 0.0)
     before = fused_attention.launches
@@ -165,7 +237,9 @@ def test_backward_rejects_sequences_its_tile_cannot_hold(gen):
         fused_attention(q, q, q, bias, 0, 4, 0.0)
     assert fused_attention.launches == before
     with pytest.raises(ValueError, match="shared memory"):
-        attention_backward(q.detach(), q.detach(), q.detach(), bias, q.detach(), 0, 4, 0.0)
+        x = q.detach()
+        stats = torch.zeros(1, 4, 800, device="cuda")
+        attention_backward(x, x, x, bias, x, stats, stats, x, 0, 4, 0.0)
 
 
 @pytest.mark.parametrize("u,id_dtype", [(11264, torch.int32), (1000, torch.int64), (5, torch.int32)])

@@ -1,7 +1,7 @@
 """The plain versions of the trainer's kernels against the JAX
-package: the attention backward (`attention_bwd_plain`) against autograd of
-`attention_plain` and against `jax.vjp` of the Pallas `fused_attention` in
-interpret mode; the unique-row scatters against the Pallas scatter kernels in
+package: the attention backward (`attention_bwd_plain`, its residuals from
+`attention_fwd_stats_plain`) against autograd of `attention_plain` and
+against `jax.vjp` of the Pallas `fused_attention` in interpret mode; the unique-row scatters against the Pallas scatter kernels in
 interpret mode, with a sentinel tail. fp32 on both sides."""
 
 import numpy as np
@@ -19,6 +19,7 @@ from amid_tpu.ops.pallas_scatter import (
 from amid_tpu_torch.ops.attention import (
     attention_backward,
     attention_bwd_plain,
+    attention_fwd_stats_plain,
     attention_plain,
     fused_attention,
 )
@@ -56,11 +57,12 @@ def test_bwd_plain_matches_autograd_of_attention_plain(rng, rate, bias_kind, hea
     tb, tg = torch.as_tensor(bias), torch.as_tensor(dout)
     out = attention_plain(tq, tk, tv, tb, 31, heads, rate)
     want = torch.autograd.grad(out, (tq, tk, tv), tg)
-    got = attention_bwd_plain(tq, tk, tv, tb, tg, 31, heads, rate)
+    res = attention_fwd_stats_plain(tq, tk, tv, tb, 31, heads, rate)
+    got = attention_bwd_plain(tq, tk, tv, tb, *res, tg, 31, heads, rate)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, atol=ATOL, rtol=RTOL)
     # on CPU tensors the dispatching wrapper is the plain version
-    for g, w in zip(attention_backward(tq, tk, tv, tb, tg, 31, heads, rate), got):
+    for g, w in zip(attention_backward(tq, tk, tv, tb, *res, tg, 31, heads, rate), got):
         assert torch.equal(g, w)
 
 
@@ -73,7 +75,9 @@ def test_bwd_plain_matches_jax_vjp_of_the_pallas_kernel(rng, bias_kind, heads):
             lambda q, k, v: jax_fused_attention(q, k, v, jnp.asarray(bias), seed, heads, 0.0),
             *map(jnp.asarray, (q, k, v)))
         want = vjp(jnp.asarray(dout))
-    got = attention_bwd_plain(*map(torch.as_tensor, (q, k, v, bias, dout)), 0, heads, 0.0)
+    tq, tk, tv, tb = map(torch.as_tensor, (q, k, v, bias))
+    res = attention_fwd_stats_plain(tq, tk, tv, tb, 0, heads, 0.0)
+    got = attention_bwd_plain(tq, tk, tv, tb, *res, torch.as_tensor(dout), 0, heads, 0.0)
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=ATOL, rtol=RTOL)
 
@@ -87,7 +91,8 @@ def test_dropout_mask_is_the_same_in_forward_and_backward(rng):
     eye_v = torch.zeros(b, t, d)
     eye_v[:, torch.arange(t), torch.arange(t)] = 1.0  # V = I: out[i, j] = Pd[i, j]
     pd_fwd = fused_attention(tq, tk, eye_v, tb, seed, heads, rate)[..., :t]
-    _, _, dv = attention_bwd_plain(tq, tk, eye_v, tb, eye_v, seed, heads, rate)
+    res = attention_fwd_stats_plain(tq, tk, eye_v, tb, seed, heads, rate)
+    _, _, dv = attention_bwd_plain(tq, tk, eye_v, tb, *res, eye_v, seed, heads, rate)
     # dV = Pd^T dO with dO = I  ->  dV[j, i] = Pd[i, j]
     torch.testing.assert_close(dv[..., :t].transpose(1, 2), pd_fwd, atol=1e-7, rtol=0)
     assert (pd_fwd == 0).sum() > (torch.triu(torch.ones(t, t), 1) == 1).sum() * b
