@@ -14,8 +14,11 @@ accept:
   the lazy table Adam's write-back (`ops.scatter`). `torch` uses the plain
   PyTorch versions; `auto` means `cuda` on a CUDA device and `torch` on the
   CPU (resolved by `build_model`).
-* `use_bf16`, `matmul_precision` and `remat` are kept for field parity but
-  the port runs in fp32 only and does not read them.
+* `use_bf16`, `matmul_precision` and `remat` keep the JAX package's fields,
+  but the port computes in full fp32 with TF32 off and keeps every
+  activation: `build_model` (and so `run_seed`) raises `NotImplementedError`
+  naming the field for `use_bf16=True`, a `matmul_precision` other than
+  `""`, `"highest"` or `"float32"`, and `remat=True`.
 * `DataConfig.data_root` defaults to the relative directory `reference`; the
   caller names where the CSVs are.
 * `TrainConfig` keeps the mesh, fast-loop, checkpoint, resume and profile
@@ -34,7 +37,8 @@ parts that are not ported (`--fast_train`, `--fast_eval`, `--checkpoint`,
 `--distributed`, `--isC2DSR`, other `--model`s) parse into their fields and
 meet the `NotImplementedError` of the part they ask for; `--distributed`
 joins no runtime here, it only sets `use_mesh`; `--bf16`, `--remat` and
-`--matmul_precision` fill their fields and are not read.
+`--matmul_precision` fill their fields, and the values the port does not
+compute are refused by `build_model`.
 """
 
 from __future__ import annotations
@@ -262,10 +266,10 @@ def _add_reference_flags(p: argparse.ArgumentParser) -> None:
                    help="torch device; absent: cuda (an error without a card), "
                         "never the CPU unless 'cpu' is given")
     p.add_argument("--remat", type=_parse_bool, default=False,
-                   help="kept for parity; not read by the port")
+                   help="refused when True: the port keeps every activation")
     p.add_argument("--matmul_precision", type=str, default="",
                    choices=["", "bfloat16", "highest", "float32"],
-                   help="kept for parity; the port runs fp32 with TF32 off")
+                   help="the port runs fp32 with TF32 off: 'bfloat16' is refused")
     p.add_argument("--profile_steps", type=int, default=0)
     p.add_argument("--bf16", type=_parse_bool, default=False)
     p.add_argument("--lazy_table_adam", type=_parse_bool, default=False)

@@ -4,63 +4,110 @@
 //
 // a: [B, N, D], bank: [C, M, D] -> out [B, C] fp32. Inputs are rounded to
 // bf16 (round to nearest even), products are exact and sums run in fp32 on
-// the tensor cores (mma.sync m16n8k16). Forward only: the hard gate built
-// from the result passes no gradient.
+// the tensor cores. Forward only: the hard gate built from the result passes
+// no gradient.
 //
 // Two kernels, one function:
 //
-// * affinity_kernel replaces amid_tpu/ops/pallas_affinity.py::_affinity_kernel
-//   (pallas_call in max_affinity_pallas), the blocked kernel for long
-//   sequences.
+// * affinity_wgmma_kernel replaces amid_tpu/ops/pallas_affinity.py::
+//   _affinity_kernel (pallas_call in max_affinity_pallas), the blocked kernel
+//   for long sequences.
 // * affinity_smalln_kernel replaces ::_affinity_smalln_kernel (pallas_call in
 //   max_affinity_pallas_smalln), the schedule for short sequences whose peer
 //   tiles stay resident.
 //
-// Neither writes an [N, M] score block anywhere: a warp holds a 16 x 32 block
-// of scores in its accumulator registers and folds it into one running max.
-//
-// A pre-pass (to_bf16_kernel, same stream) rounds both inputs into a scratch
-// buffer once per call, so the main kernels move half the bytes per tile.
-//
-// Shared-memory rows hold D + 8 bf16 values: the 16-byte pad makes the eight
-// rows a fragment load touches fall into distinct banks. A time axis that is
-// not a multiple of the fragment height (16 rows of a, 8 rows of the bank) is
-// padded with copies of its own last row, which cannot change a maximum; the
-// batch axes B and C are never padded.
-//
-// affinity_kernel. One block per query user b (and per slice of the peers
-// when B alone would not fill the card): the user's [N, D] rows are staged in
-// shared memory once, then the block walks its peers, staging each peer's
-// [M, D] tile in turn. For one peer the work is cut into items of (16 query
-// rows) x (32 peer rows); the 8 warps take items round robin, load the A
-// fragments of the item's rows into registers (32 at D = 128), run D/16
-// mma steps against four B fragments and fold the 16 accumulators into the
-// warp's max. Two barriers per peer: tile staged, tile consumed.
-// Shared memory: (ceil16(N) + ceil8(M)) * (D + 8) * 2 bytes: 85 KB at
-// N = M = 150, so two blocks share an SM and one stages while the other
-// multiplies; the largest N + M at D = 128 is about 850.
-//
-// affinity_smalln_kernel. For short sequences the blocked kernel leaves most
-// warps idle (N = M = 20 gives 2 items per peer) and pays two barriers per
-// peer. Here a block holds 16 peers' tiles resident in shared memory and
-// gives each of its 8 warps one query user. The warp loops over the query's
-// time axis in tiles of 16 rows, keeps that tile's A fragments in registers,
-// and for every resident peer max-accumulates the tile's best score into the
-// block's resident [8, 16] output tile; one barrier in all. It fits while
-// 16 * ceil8(M) * (D + 8) * 2 bytes plus the output tile stay under half an
-// SM's shared memory (M <= 24 at D = 128).
+// Neither writes an [N, M] score block anywhere: the scores live in
+// accumulator registers and are folded into maxima there.
 //
 // Bound on the H100 (data sheet): operations. 2*B*C*N*M*D = 377 GFLOP at
 // B = C = 256, N = M = 150, D = 128: 0.38 ms at the bf16 tensor-core peak of
 // 989 TFLOP/s (the inputs are 39 MB: 0.012 ms). At N = M = 20: 6.7 GFLOP,
 // 0.0068 ms.
+//
+// affinity_wgmma_kernel (the blocked kernel). The bank is one matrix: for a
+// query user b the scores are bank_flat [C*M, D] x a_b^T [D, N], and
+// A[b, c] is the max over the rows of peer c = row / M of each row's max over
+// the query's columns.
+//
+// * A pre-pass (pack_kernel) rounds both inputs to bf16 once per call and
+//   writes them in the operand layout wgmma reads without swizzle: K-major
+//   core matrices of 8 rows x 16 bytes, each 128 contiguous bytes. Rows are
+//   padded with zeros to kKWidth = 128 columns (a zero adds nothing to a
+//   dot product), so the D / 16 products of a tile are always eight and
+//   unrolled: ptxas serialises wgmma issued from a loop it cannot unroll
+//   (it waits for each product before the next). Row group g = r / 8,
+//   16-byte column chunk k and row r % 8 sit at element (g * 128 + k * 8 +
+//   r % 8) * 8, so any run of whole row groups is contiguous: a 64-row bank
+//   tile is one bulk copy of 16 KB (cp.async.bulk, the TMA engine's linear
+//   mode, completing on an mbarrier), with no tensor map.
+// * The query side is cut into slots of W rows (W a multiple of 8, at most
+//   160: wgmma's N), one slot per user when N <= 160, else 2 or 4 chunks of a
+//   user (KC). A slot's rows past the user's last repeat that last row, so a
+//   padding column scores what a real one does and no column is masked; a
+//   zero row would score 0 and beat an all-negative maximum.
+// * A block holds four slots resident in shared memory (two per consumer
+//   warpgroup: two accumulators of W / 2 floats a thread) and streams the
+//   bank's 64-row tiles through a ring of `stages` buffers (full and empty
+//   mbarriers per buffer). Thread 0 issues the copies: the first `stages`
+//   tiles up front, then, at the end of tile i, tile i - 1 + stages into the
+//   buffer both warpgroups released during tile i. No producer warp: a
+//   wgmma kernel's registers are allotted per warpgroup, so a 9th warp
+//   would cut every thread to 168 registers, below the two accumulators of
+//   W = 152 (ptxas then serialises the products and puts them on the
+//   stack). Each bank tile read from L2 serves four query slots.
+// * Per tile a warpgroup issues the eight wgmma m64nWk16 steps of each of
+//   its two slots (one commit group a slot), waits for them, releases the
+//   buffer and folds both accumulators. The two warpgroups take turns
+//   (named barriers 1 and 2): a warpgroup passes the turn once its first
+//   slot is done, so the other one's products queue behind its second slot
+//   and the tensor cores run one warpgroup's products while the other
+//   folds. Two warpgroups that issue at once would finish, and fold, at
+//   once. Nothing is in flight while a thread branches on its own index
+//   (the fold, the copies): ptxas would otherwise wait for every product
+//   before the next.
+// * Epilogue: a thread holds rows r and r + 8 of the tile (16 rows a warp)
+//   and W / 4 columns of each; their max, then across the quad, gives each
+//   row's max over the slot. When a warp's 16 rows belong to one peer (the
+//   common case for M >= 16) the warp reduces further and one thread folds
+//   the value into the block's [users, peers] table in shared memory with an
+//   atomic max; otherwise each row folds its own value. Rows outside the
+//   block's peers (a tile shared with the neighbouring slice, or the padding
+//   past C * M) are skipped. A max is exact, so the order of the folds does
+//   not change the result.
+// * The grid is (query groups of four slots) x (slices of the peers). Slices
+//   split the bank only at peer boundaries, so every out[b, c] is written by
+//   exactly one block, once, with a plain store: no atomics in device
+//   memory, a deterministic result. The wrapper picks the slice count that
+//   minimises waves x tiles per block on 132 SMs (ops/affinity.py).
+// * Shared memory: 4 W * 256 bytes of query slots, stages * 16 KB of ring,
+//   16 bytes per peer of the slice, 8 per barrier: 223,304 bytes at
+//   W = 152 (N = 150), four stages, 128 peers: one block an SM.
+//
+// affinity_smalln_kernel. For short sequences a block holds 16 peers' tiles
+// resident in shared memory and gives each of its 8 warps one query user.
+// The warp loops over the query's time axis in tiles of 16 rows, keeps that
+// tile's A fragments in registers, and for every resident peer
+// max-accumulates the tile's best score (mma.sync m16n8k16, 16 x 32 score
+// blocks) into the block's resident [8, 16] output tile; one barrier in all.
+// Shared-memory rows hold D + 8 bf16 values (the 16-byte pad puts the eight
+// rows a fragment load touches in distinct banks); a peer's time axis is
+// padded to a multiple of 8 with copies of its last row, the query's with
+// copies of its last row too. A pre-pass (to_bf16_kernel) rounds both inputs
+// into a row-major scratch buffer. It fits while 16 * ceil8(M) * (D + 8) * 2
+// bytes plus the output tile stay under half an SM's shared memory (M <= 24
+// at D = 128).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
+
+// ---------------------------------------------------------------------------
+// affinity_smalln_kernel
+// ---------------------------------------------------------------------------
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
@@ -152,56 +199,6 @@ __device__ __forceinline__ float warp_max(float v) {
 
 template <int D>
 __global__ void __launch_bounds__(kThreads, 2)
-affinity_kernel(const __nv_bfloat16* __restrict__ a,
-                const __nv_bfloat16* __restrict__ bank, float* __restrict__ out,
-                int C, int N, int M) {
-  constexpr int KS = D / 16, LD = D + kPad, LDW = LD / 2;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int n_pad = (N + 15) & ~15, m_pad = (M + 7) & ~7;
-  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [n_pad][LD]
-  __nv_bfloat16* Bs = As + n_pad * LD;                             // [m_pad][LD]
-  float* red = reinterpret_cast<float*>(Bs + m_pad * LD);          // [kWarps]
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int b = blockIdx.x;
-
-  stage_rows<D>(As, a + (size_t)b * N * D, N, n_pad, tid);
-  const uint32_t* As32 = reinterpret_cast<const uint32_t*>(As);
-  const uint32_t* Bs32 = reinterpret_cast<const uint32_t*>(Bs);
-  const int rt_n = n_pad / 16, ct_n = m_pad / 8;
-  const int chunk_n = (ct_n + kColTiles - 1) / kColTiles;
-
-  for (int c = blockIdx.y; c < C; c += gridDim.y) {
-    stage_rows<D>(Bs, bank + (size_t)c * M * D, M, m_pad, tid);
-    __syncthreads();  // the peer's tile (and, the first time, As) is staged
-    float mx = -INFINITY;
-    for (int it = warp; it < rt_n * chunk_n; it += kWarps) {
-      const int rt = it / chunk_n, chunk = it - rt * chunk_n;
-      uint32_t afr[KS][4];
-      const uint32_t* r0 = As32 + (rt * 16 + g) * LDW + t;
-      const uint32_t* r1 = r0 + 8 * LDW;
-#pragma unroll
-      for (int ks = 0; ks < KS; ++ks) {
-        afr[ks][0] = r0[ks * 8];
-        afr[ks][1] = r1[ks * 8];
-        afr[ks][2] = r0[ks * 8 + 4];
-        afr[ks][3] = r1[ks * 8 + 4];
-      }
-      mx = fmaxf(mx, item_max<D>(afr, Bs32, chunk * kColTiles, ct_n, g, t));
-    }
-    mx = warp_max(mx);
-    if (lane == 0) red[warp] = mx;
-    __syncthreads();  // the tile is consumed; red[] is complete
-    if (tid == 0) {
-      float m = red[0];
-      for (int w = 1; w < kWarps; ++w) m = fmaxf(m, red[w]);
-      out[(size_t)b * C + c] = m;
-    }
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads, 2)
 affinity_smalln_kernel(const __nv_bfloat16* __restrict__ a,
                        const __nv_bfloat16* __restrict__ bank,
                        float* __restrict__ out, int B, int C, int N, int M) {
@@ -250,11 +247,6 @@ affinity_smalln_kernel(const __nv_bfloat16* __restrict__ a,
   if (lane < peers) out[(size_t)q * C + c0 + lane] = otile[warp * kPeers + lane];
 }
 
-size_t blocked_smem(int N, int M, int D) {
-  return (size_t)(((N + 15) & ~15) + ((M + 7) & ~7)) * (D + kPad) * 2 +
-         kWarps * sizeof(float);
-}
-
 size_t smalln_smem(int M, int D) {
   return (size_t)kPeers * ((M + 7) & ~7) * (D + kPad) * 2 +
          (size_t)kWarps * kPeers * sizeof(float);
@@ -270,18 +262,6 @@ cudaError_t round_inputs(const float* a, long long na, const float* bank,
 }
 
 template <int D>
-cudaError_t launch_blocked(const __nv_bfloat16* a, const __nv_bfloat16* bank,
-                           float* out, int B, int C, int N, int M, int grid_y,
-                           cudaStream_t s) {
-  const size_t smem = blocked_smem(N, M, D);
-  cudaError_t e = cudaFuncSetAttribute(
-      affinity_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  affinity_kernel<D><<<dim3(B, grid_y), kThreads, smem, s>>>(a, bank, out, C, N, M);
-  return cudaGetLastError();
-}
-
-template <int D>
 cudaError_t launch_smalln(const __nv_bfloat16* a, const __nv_bfloat16* bank,
                           float* out, int B, int C, int N, int M, cudaStream_t s) {
   const size_t smem = smalln_smem(M, D);
@@ -293,58 +273,475 @@ cudaError_t launch_smalln(const __nv_bfloat16* a, const __nv_bfloat16* bank,
   return cudaGetLastError();
 }
 
-bool bad_shape(int B, int C, int N, int M, int D) {
-  return B < 1 || C < 1 || N < 1 || M < 1 ||
+// ---------------------------------------------------------------------------
+// affinity_wgmma_kernel
+// ---------------------------------------------------------------------------
+
+constexpr int kTileRows = 64;          // bank rows per tile: wgmma's M
+constexpr int kKWidth = 128;           // operand columns, D padded with zeros
+constexpr int kKSteps = kKWidth / 16;  // wgmma k16 products per tile and slot
+constexpr int kTileBytes = kTileRows * kKWidth * 2;
+constexpr int kSlots = 4;              // query slots resident per block
+constexpr int kWgThreads = 256;        // two warpgroups, two slots each
+constexpr int kMaxWidthSteps = 20;     // slot width W = 8 * K, K <= 20
+constexpr int kMaxStages = 8;
+constexpr int kMaxPeers = 256;         // peers per slice
+
+// Refusals of the entry points (negative; a positive value is a cudaError_t).
+enum Refusal { kBadShape = -1, kBadPlan = -2 };
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count));
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+// `bytes` (a multiple of 16) from global to shared memory, completing on `bar`
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// Shared-memory matrix descriptor of a K-major operand without swizzle:
+// start address, leading byte offset 128 (the two 16-byte column chunks of a
+// k16 step), stride byte offset 16 * 128 (the next 8-row group), all >> 4.
+__device__ __forceinline__ uint64_t operand_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(128 >> 4) << 16) |
+         ((uint64_t)((16 * kKWidth) >> 4) << 32);
+}
+
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keeps the compiler from moving accesses of an accumulator across a
+// wgmma.fence or wgmma.wait_group: the product writes it asynchronously
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&r)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// d[64 x 8K] (+)= A[64 x 16] . B[8K x 16]^T, both bf16 K-major in shared
+// memory; d += when `accumulate`, else d =. The accumulator of m64nNk16 gives
+// a thread rows warp*16 + lane/4 (d[4j], d[4j+1]) and + 8 (d[4j+2],
+// d[4j+3]) of columns 8j + 2*(lane%4) + {0, 1}.
+template <int K>
+__device__ __forceinline__ void wgmma_bf16(float (&d)[4 * K], uint64_t a, uint64_t b,
+                                           int accumulate);
+
+// The operand list of one instruction: descriptors and the scale flag first
+// (%0 %1 %2), then the 4K accumulators (%3 ...), so that the K-th list is
+// the (K-1)-th with four more entries.
+#define AFF_G0 "%3, %4, %5, %6"
+#define AFF_G1 AFF_G0 ", %7, %8, %9, %10"
+#define AFF_G2 AFF_G1 ", %11, %12, %13, %14"
+#define AFF_G3 AFF_G2 ", %15, %16, %17, %18"
+#define AFF_G4 AFF_G3 ", %19, %20, %21, %22"
+#define AFF_G5 AFF_G4 ", %23, %24, %25, %26"
+#define AFF_G6 AFF_G5 ", %27, %28, %29, %30"
+#define AFF_G7 AFF_G6 ", %31, %32, %33, %34"
+#define AFF_G8 AFF_G7 ", %35, %36, %37, %38"
+#define AFF_G9 AFF_G8 ", %39, %40, %41, %42"
+#define AFF_G10 AFF_G9 ", %43, %44, %45, %46"
+#define AFF_G11 AFF_G10 ", %47, %48, %49, %50"
+#define AFF_G12 AFF_G11 ", %51, %52, %53, %54"
+#define AFF_G13 AFF_G12 ", %55, %56, %57, %58"
+#define AFF_G14 AFF_G13 ", %59, %60, %61, %62"
+#define AFF_G15 AFF_G14 ", %63, %64, %65, %66"
+#define AFF_G16 AFF_G15 ", %67, %68, %69, %70"
+#define AFF_G17 AFF_G16 ", %71, %72, %73, %74"
+#define AFF_G18 AFF_G17 ", %75, %76, %77, %78"
+#define AFF_G19 AFF_G18 ", %79, %80, %81, %82"
+#define AFF_R(i) "+f"(d[4 * i]), "+f"(d[4 * i + 1]), "+f"(d[4 * i + 2]), "+f"(d[4 * i + 3])
+#define AFF_C0 AFF_R(0)
+#define AFF_C1 AFF_C0, AFF_R(1)
+#define AFF_C2 AFF_C1, AFF_R(2)
+#define AFF_C3 AFF_C2, AFF_R(3)
+#define AFF_C4 AFF_C3, AFF_R(4)
+#define AFF_C5 AFF_C4, AFF_R(5)
+#define AFF_C6 AFF_C5, AFF_R(6)
+#define AFF_C7 AFF_C6, AFF_R(7)
+#define AFF_C8 AFF_C7, AFF_R(8)
+#define AFF_C9 AFF_C8, AFF_R(9)
+#define AFF_C10 AFF_C9, AFF_R(10)
+#define AFF_C11 AFF_C10, AFF_R(11)
+#define AFF_C12 AFF_C11, AFF_R(12)
+#define AFF_C13 AFF_C12, AFF_R(13)
+#define AFF_C14 AFF_C13, AFF_R(14)
+#define AFF_C15 AFF_C14, AFF_R(15)
+#define AFF_C16 AFF_C15, AFF_R(16)
+#define AFF_C17 AFF_C16, AFF_R(17)
+#define AFF_C18 AFF_C17, AFF_R(18)
+#define AFF_C19 AFF_C18, AFF_R(19)
+#define AFF_WGMMA(K, N, I)                                                              \
+  template <>                                                                         \
+  __device__ __forceinline__ void wgmma_bf16<K>(float (&d)[4 * K], uint64_t a,         \
+                                                uint64_t b, int accumulate) {         \
+    asm volatile(                                                                     \
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %2, 0;\n"                                   \
+        "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 {" AFF_G##I           \
+        "}, %0, %1, p, 1, 1, 0, 0;\n}\n"                                              \
+        : "+l"(a), "+l"(b), "+r"(accumulate), AFF_C##I);                              \
+  }
+AFF_WGMMA(1, 8, 0)
+AFF_WGMMA(2, 16, 1)
+AFF_WGMMA(3, 24, 2)
+AFF_WGMMA(4, 32, 3)
+AFF_WGMMA(5, 40, 4)
+AFF_WGMMA(6, 48, 5)
+AFF_WGMMA(7, 56, 6)
+AFF_WGMMA(8, 64, 7)
+AFF_WGMMA(9, 72, 8)
+AFF_WGMMA(10, 80, 9)
+AFF_WGMMA(11, 88, 10)
+AFF_WGMMA(12, 96, 11)
+AFF_WGMMA(13, 104, 12)
+AFF_WGMMA(14, 112, 13)
+AFF_WGMMA(15, 120, 14)
+AFF_WGMMA(16, 128, 15)
+AFF_WGMMA(17, 136, 16)
+AFF_WGMMA(18, 144, 17)
+AFF_WGMMA(19, 152, 18)
+AFF_WGMMA(20, 160, 19)
+
+__device__ __forceinline__ void atomic_max_float(float* addr, float v) {
+  // sign bit clear: the int order is the float order; set: the reverse of
+  // the unsigned order (the slot starts at -inf, 0xff800000)
+  if (__float_as_int(v) >= 0)
+    atomicMax(reinterpret_cast<int*>(addr), __float_as_int(v));
+  else
+    atomicMin(reinterpret_cast<unsigned int*>(addr), __float_as_uint(v));
+}
+
+// Where a block's rows go: peers [c_lo, c_lo + peers) of slice blockIdx.y,
+// their bank rows [row_lo, row_hi), and the block's [users][peers] maxima.
+struct Fold {
+  float* omax;  // already offset by -c_lo
+  int peers, M, row_lo, row_hi;
+};
+
+// Folds one accumulator (rows of bank tile `tile`, columns of one slot of
+// the block's user `lu`) into the block's maxima.
+template <int K>
+__device__ __forceinline__ void fold_tile(const float (&acc)[4 * K], int tile, int lu,
+                                          const Fold& f, int warp, int lane) {
+  // two chains a row: the fold is bound by the latency of its max chain
+  float m[2][2] = {{-INFINITY, -INFINITY}, {-INFINITY, -INFINITY}};
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    m[0][j & 1] = fmaxf(m[0][j & 1], fmaxf(acc[4 * j], acc[4 * j + 1]));
+    m[1][j & 1] = fmaxf(m[1][j & 1], fmaxf(acc[4 * j + 2], acc[4 * j + 3]));
+  }
+  float m0 = fmaxf(m[0][0], m[0][1]), m1 = fmaxf(m[1][0], m[1][1]);
+  m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, 1));
+  m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, 2));
+  m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, 1));
+  m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, 2));
+  float* row_of_user = f.omax + lu * f.peers;
+  const int first = tile * kTileRows + warp * 16;  // the warp's 16 rows
+  if (first >= f.row_lo && first + 15 < f.row_hi && first / f.M == (first + 15) / f.M) {
+    float m = fmaxf(m0, m1);
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 4));
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 8));
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 16));
+    if (lane == 0) atomic_max_float(row_of_user + first / f.M, m);
+  } else {
+    const int r = first + (lane >> 2) + ((lane & 3) == 1 ? 8 : 0);
+    if ((lane & 3) < 2 && r >= f.row_lo && r < f.row_hi)
+      atomic_max_float(row_of_user + r / f.M, (lane & 3) == 0 ? m0 : m1);
+  }
+}
+
+// pack_kernel: both inputs as bf16 in the operand layout (header), rows of
+// kKWidth columns, those past D zero. Region 0 is the bank, bank_rows rows
+// (a multiple of 64; rows past R = C*M repeat row R - 1); region 1 the query
+// slots, slot s of W rows holding chunk s % KC of user min(s / KC, B - 1),
+// rows past the user's last repeating it. One thread writes one 16-byte
+// chunk; consecutive threads write consecutive chunks.
+__global__ void pack_kernel(const float* __restrict__ a, const float* __restrict__ bank,
+                            __nv_bfloat16* __restrict__ out, long long bank_chunks,
+                            long long total_chunks, int D, long long R, int B, int N,
+                            int W, int KC) {
+  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x; e < total_chunks;
+       e += (long long)gridDim.x * blockDim.x) {
+    const bool in_bank = e < bank_chunks;
+    const long long q = in_bank ? e : e - bank_chunks;
+    const long long group = q / kKWidth;  // 8-row group: 128 chunks of 16 bytes
+    const int rem = (int)(q - group * kKWidth);
+    const long long r = group * 8 + (rem & 7);
+    const int col = (rem >> 3) * 8;
+    if (col >= D) {
+      *reinterpret_cast<uint4*>(out + e * 8) = make_uint4(0u, 0u, 0u, 0u);
+      continue;
+    }
+    const float* src;
+    if (in_bank) {
+      src = bank + (r < R ? r : R - 1) * D;
+    } else {
+      const long long s = r / W;
+      long long user = s / KC;
+      if (user > B - 1) user = B - 1;
+      long long row = (s % KC) * W + (r - s * W);
+      if (row > N - 1) row = N - 1;
+      src = a + (user * N + row) * D;
+    }
+    const float4 x0 = *reinterpret_cast<const float4*>(src + col);
+    const float4 x1 = *reinterpret_cast<const float4*>(src + col + 4);
+    __nv_bfloat162 h[4] = {__floats2bfloat162_rn(x0.x, x0.y), __floats2bfloat162_rn(x0.z, x0.w),
+                           __floats2bfloat162_rn(x1.x, x1.y), __floats2bfloat162_rn(x1.z, x1.w)};
+    *reinterpret_cast<uint4*>(out + e * 8) = *reinterpret_cast<uint4*>(h);
+  }
+}
+
+template <int K>
+__global__ void __launch_bounds__(kWgThreads, 1)
+affinity_wgmma_kernel(const __nv_bfloat16* __restrict__ bank,
+                      const __nv_bfloat16* __restrict__ query, float* __restrict__ out,
+                      int B, int C, int M, int KC, int stages, int peers) {
+  constexpr int W = 8 * K, tile_bytes = kTileBytes, slot_bytes = W * kKWidth * 2;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  unsigned char* ring = smem + kSlots * slot_bytes;
+  float* omax = reinterpret_cast<float*>(ring + stages * tile_bytes);  // [4][peers]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(omax + kSlots * peers);
+  // bars: full[stages], empty[stages], then the query's
+
+  const int tid = threadIdx.x;
+  const int users = kSlots / KC;  // query users of this block
+  const int c_lo = blockIdx.y * peers;
+  const int c_hi = C - c_lo < peers ? C : c_lo + peers;
+  const int row_lo = c_lo * M, row_hi = c_hi * M;
+  const int t_lo = row_lo / kTileRows, n_tiles = (row_hi + kTileRows - 1) / kTileRows - t_lo;
+
+  for (int i = tid; i < kSlots * peers; i += kWgThreads) omax[i] = -INFINITY;
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(smem_u32(bars + s), 1);
+      mbar_init(smem_u32(bars + stages + s), kWgThreads);
+    }
+    mbar_init(smem_u32(bars + 2 * stages), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const uint32_t qbar = smem_u32(bars + 2 * stages);
+  // tile i of this block goes to buffer i % stages (full barrier bars[s],
+  // empty barrier bars[stages + s]); thread 0 issues every copy
+  auto load_tile = [&](int i) {
+    const int s = i % stages;
+    mbar_expect_tx(smem_u32(bars + s), tile_bytes);
+    bulk_copy(smem_u32(ring + s * tile_bytes), bank + (size_t)(t_lo + i) * kTileRows * kKWidth,
+              tile_bytes, smem_u32(bars + s));
+  };
+  if (tid == 0) {
+    mbar_expect_tx(qbar, kSlots * slot_bytes);
+    bulk_copy(smem_u32(smem), query + (size_t)blockIdx.x * kSlots * W * kKWidth,
+              kSlots * slot_bytes, qbar);
+    for (int i = 0; i < stages && i < n_tiles; ++i) load_tile(i);
+  }
+
+  const int wg = tid / 128, warp = (tid / 32) % 4, lane = tid % 32;
+  const Fold fold = {omax - c_lo, peers, M, row_lo, row_hi};
+  const int lu_a = 2 * wg / KC, lu_b = (2 * wg + 1) / KC;
+  const uint64_t q_a = operand_desc(smem_u32(smem + 2 * wg * slot_bytes));
+  const uint64_t q_b = operand_desc(smem_u32(smem + (2 * wg + 1) * slot_bytes));
+  float acc_a[4 * K], acc_b[4 * K];
+#pragma unroll
+  for (int j = 0; j < 4 * K; ++j) acc_a[j] = acc_b[j] = 0.f;
+  mbar_wait(qbar, 0);
+
+  // named barriers 1 and 2 pass the turn to issue products between the two
+  // warpgroups (128 threads arrive, the other 128 wait)
+  const int my_turn = 1 + wg, their_turn = 2 - wg;
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = i % stages;
+    mbar_wait(smem_u32(bars + s), (i / stages) & 1);
+    if (wg == 1 || i > 0) named_sync(my_turn);
+    const uint64_t tile = operand_desc(smem_u32(ring + s * tile_bytes));
+    // both slots of tile i (a k16 step is 256 bytes: 16 in the descriptor)
+    wgmma_fence();
+    fence_regs(acc_a);
+    fence_regs(acc_b);
+#pragma unroll
+    for (int k = 0; k < kKSteps; ++k) wgmma_bf16<K>(acc_a, tile + 16 * k, q_a + 16 * k, k);
+    wgmma_commit();
+#pragma unroll
+    for (int k = 0; k < kKSteps; ++k) wgmma_bf16<K>(acc_b, tile + 16 * k, q_b + 16 * k, k);
+    wgmma_commit();
+    // slot a is done and slot b still runs: the other warpgroup may issue
+    wgmma_wait<1>();
+    if (wg == 0 || i + 1 < n_tiles) named_arrive(their_turn);
+    wgmma_wait<0>();
+    fence_regs(acc_a);
+    fence_regs(acc_b);
+    mbar_arrive(smem_u32(bars + stages + s));  // every thread: the buffer is read
+    fold_tile<K>(acc_a, t_lo + i, lu_a, fold, warp, lane);
+    fold_tile<K>(acc_b, t_lo + i, lu_b, fold, warp, lane);
+    if (tid == 0 && i > 0 && i - 1 + stages < n_tiles) {
+      // the other warpgroup released tile i - 1 one tile ago
+      mbar_wait(smem_u32(bars + stages + (i - 1) % stages), ((i - 1) / stages) & 1);
+      load_tile(i - 1 + stages);
+    }
+  }
+  __syncthreads();
+  const int np = c_hi - c_lo;
+  for (int i = tid; i < users * np; i += kWgThreads) {
+    const int lu = i / np, p = i - lu * np;
+    const int b = blockIdx.x * users + lu;
+    if (b < B) out[(size_t)b * C + c_lo + p] = omax[lu * peers + p];
+  }
+}
+
+size_t wgmma_smem(int W, int stages, int peers) {
+  return (size_t)kSlots * W * kKWidth * 2 + (size_t)stages * kTileBytes +
+         (size_t)kSlots * peers * sizeof(float) + (size_t)(2 * stages + 1) * 8;
+}
+
+template <int K>
+cudaError_t launch_wgmma(const __nv_bfloat16* bank, const __nv_bfloat16* query, float* out,
+                         int groups, int slices, int B, int C, int M, int KC,
+                         int stages, int peers, size_t smem, cudaStream_t s) {
+  cudaError_t e = cudaFuncSetAttribute(
+      affinity_wgmma_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  affinity_wgmma_kernel<K><<<dim3(groups, slices), kWgThreads, smem, s>>>(
+      bank, query, out, B, C, M, KC, stages, peers);
+  return cudaGetLastError();
+}
+
+bool bad_shape(long long B, long long C, long long N, long long M, long long D) {
+  return B < 1 || C < 1 || N < 1 || M < 1 || B > 0x7fffffffLL || C > 0x7fffffffLL ||
+         N > 0x7fffffffLL || M > 0x7fffffffLL ||
          !(D == 16 || D == 32 || D == 64 || D == 128);
+}
+
+template <typename T>
+T* pointer(long long value) {
+  return reinterpret_cast<T*>(static_cast<uintptr_t>(value));
 }
 
 }  // namespace
 
 extern "C" {
 
-// Shared memory per block, in bytes, of the blocked and the small-N kernel.
-size_t affinity_smem_bytes(int N, int M, int D) { return blocked_smem(N, M, D); }
+// Shared memory per block, in bytes, of the blocked kernel (slot width W,
+// `stages` ring buffers, `peers` per slice) and of the small-N kernel.
+size_t affinity_smem_bytes(int W, int stages, int peers) {
+  return wgmma_smem(W, stages, peers);
+}
 size_t affinity_smalln_smem_bytes(int M, int D) { return smalln_smem(M, D); }
 
-// a: contiguous fp32 [B, N, D]; bank: contiguous fp32 [C, M, D]; scratch:
-// room for (B*N + C*M)*D bf16 values, 16-byte aligned; out: contiguous fp32
-// [B, C]. D is 16, 32, 64 or 128. grid_y (blocked kernel only, 1..65535):
-// how many blocks share one query user's peers. Both return the first
-// failing launch's cudaError_t (0 on success).
-int max_affinity_blocked(const float* a, const float* bank, void* scratch,
-                         float* out, int B, int C, int N, int M, int D,
-                         int grid_y, void* stream) {
-  if (bad_shape(B, C, N, M, D) || grid_y < 1 || grid_y > 65535)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  __nv_bfloat16* a16 = static_cast<__nv_bfloat16*>(scratch);
-  const long long na = (long long)B * N * D, nb = (long long)C * M * D;
-  cudaError_t e = round_inputs(a, na, bank, nb, a16, s);
+// The blocked kernel. The arguments come as one array of 64-bit integers
+// (pointers as integers), packed by the Python side in one call:
+// {a, bank, scratch, out, stream, B, C, N, M, D, W, KC, slices, peers, stages}.
+// a: contiguous fp32 [B, N, D]; bank: contiguous fp32 [C, M, D]; out:
+// contiguous fp32 [B, C]; scratch: room for (ceil64(C*M) + 4 *
+// ceil(B*KC/4) * W) * 128 bf16 values, 16-byte aligned. The plan (W, KC,
+// slices, peers, stages) is ops/affinity.py::blocked_plan's: W a multiple of
+// 8 up to 160 with W * KC >= N, KC in {1, 2, 4}, slices * peers >= C,
+// peers <= 256, 2 <= stages <= 8, the shared memory within 232,448 bytes.
+// Returns a Refusal, or the first failing launch's cudaError_t (0 on success).
+int max_affinity_blocked(const long long* a) {
+  const long long B = a[5], C = a[6], N = a[7], M = a[8], D = a[9];
+  const long long W = a[10], KC = a[11], slices = a[12], peers = a[13], stages = a[14];
+  if (bad_shape(B, C, N, M, D) || C * M > 0x7fffffffLL - kTileRows) return kBadShape;
+  if (W < 8 || W > 8 * kMaxWidthSteps || W % 8 || !(KC == 1 || KC == 2 || KC == 4) ||
+      W * KC < N || peers < 1 || peers > kMaxPeers || slices < 1 || slices > 65535 ||
+      slices * peers < C || stages < 2 || stages > kMaxStages)
+    return kBadPlan;
+  const size_t smem = wgmma_smem((int)W, (int)stages, (int)peers);
+  if (smem > 232448) return kBadPlan;
+  const long long groups = (B * KC + kSlots - 1) / kSlots;
+  if (groups > 0x7fffffffLL) return kBadShape;
+  const long long bank_rows = (C * M + kTileRows - 1) / kTileRows * kTileRows;
+  const long long bank_chunks = bank_rows * kKWidth / 8;
+  const long long total_chunks = bank_chunks + groups * kSlots * W * kKWidth / 8;
+  cudaStream_t s = pointer<CUstream_st>(a[4]);
+  __nv_bfloat16* scratch = pointer<__nv_bfloat16>(a[2]);
+  long long blocks = (total_chunks + 255) / 256;
+  if (blocks > 4096) blocks = 4096;
+  pack_kernel<<<(unsigned)blocks, 256, 0, s>>>(
+      pointer<const float>(a[0]), pointer<const float>(a[1]), scratch, bank_chunks,
+      total_chunks, (int)D, C * M, (int)B, (int)N, (int)W, (int)KC);
+  cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  switch (D) {
-    case 16: e = launch_blocked<16>(a16, a16 + na, out, B, C, N, M, grid_y, s); break;
-    case 32: e = launch_blocked<32>(a16, a16 + na, out, B, C, N, M, grid_y, s); break;
-    case 64: e = launch_blocked<64>(a16, a16 + na, out, B, C, N, M, grid_y, s); break;
-    default: e = launch_blocked<128>(a16, a16 + na, out, B, C, N, M, grid_y, s); break;
+  const __nv_bfloat16* query = scratch + bank_chunks * 8;
+  float* out = pointer<float>(a[3]);
+#define AFF_LAUNCH(K)                                                                   \
+  case K:                                                                               \
+    e = launch_wgmma<K>(scratch, query, out, (int)groups, (int)slices, (int)B, (int)C, \
+                        (int)M, (int)KC, (int)stages, (int)peers, smem, s);             \
+    break;
+  switch (W / 8) {
+    AFF_LAUNCH(1) AFF_LAUNCH(2) AFF_LAUNCH(3) AFF_LAUNCH(4) AFF_LAUNCH(5)
+    AFF_LAUNCH(6) AFF_LAUNCH(7) AFF_LAUNCH(8) AFF_LAUNCH(9) AFF_LAUNCH(10)
+    AFF_LAUNCH(11) AFF_LAUNCH(12) AFF_LAUNCH(13) AFF_LAUNCH(14) AFF_LAUNCH(15)
+    AFF_LAUNCH(16) AFF_LAUNCH(17) AFF_LAUNCH(18) AFF_LAUNCH(19) AFF_LAUNCH(20)
+    default: return kBadPlan;
   }
+#undef AFF_LAUNCH
   return (int)e;
 }
 
-int max_affinity_smalln(const float* a, const float* bank, void* scratch,
-                        float* out, int B, int C, int N, int M, int D,
-                        void* stream) {
-  if (bad_shape(B, C, N, M, D) || (C + kPeers - 1) / kPeers > 65535)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  __nv_bfloat16* a16 = static_cast<__nv_bfloat16*>(scratch);
-  const long long na = (long long)B * N * D, nb = (long long)C * M * D;
-  cudaError_t e = round_inputs(a, na, bank, nb, a16, s);
+// The small-N kernel: {a, bank, scratch, out, stream, B, C, N, M, D} as
+// above; scratch: room for (B*N + C*M)*D bf16 values, 16-byte aligned.
+int max_affinity_smalln(const long long* a) {
+  const long long B = a[5], C = a[6], N = a[7], M = a[8], D = a[9];
+  if (bad_shape(B, C, N, M, D) || (C + kPeers - 1) / kPeers > 65535) return kBadShape;
+  cudaStream_t s = pointer<CUstream_st>(a[4]);
+  __nv_bfloat16* a16 = pointer<__nv_bfloat16>(a[2]);
+  const long long na = B * N * D, nb = C * M * D;
+  cudaError_t e = round_inputs(pointer<const float>(a[0]), na, pointer<const float>(a[1]),
+                               nb, a16, s);
   if (e != cudaSuccess) return (int)e;
+  float* out = pointer<float>(a[3]);
+  const int b = (int)B, c = (int)C, n = (int)N, m = (int)M;
   switch (D) {
-    case 16: e = launch_smalln<16>(a16, a16 + na, out, B, C, N, M, s); break;
-    case 32: e = launch_smalln<32>(a16, a16 + na, out, B, C, N, M, s); break;
-    case 64: e = launch_smalln<64>(a16, a16 + na, out, B, C, N, M, s); break;
-    default: e = launch_smalln<128>(a16, a16 + na, out, B, C, N, M, s); break;
+    case 16: e = launch_smalln<16>(a16, a16 + na, out, b, c, n, m, s); break;
+    case 32: e = launch_smalln<32>(a16, a16 + na, out, b, c, n, m, s); break;
+    case 64: e = launch_smalln<64>(a16, a16 + na, out, b, c, n, m, s); break;
+    default: e = launch_smalln<128>(a16, a16 + na, out, b, c, n, m, s); break;
   }
   return (int)e;
 }

@@ -1,6 +1,7 @@
-// Fused scoring head for Hopper (sm_90a):
+// Fused scoring head for Hopper (sm_90a), one or two user representations
+// against the same candidates in one call:
 //
-//     out[b, c] = sigmoid( relu(u[b] Wu^T + items[b, c] Wi^T + b1) . w2 + b2 )
+//     out[u, b, c] = sigmoid( relu(user_u[b] Wu^T + items[b, c] Wi^T + b1) . w2 + b2 )
 //
 // Replaces amid_tpu/ops/pallas_scoring.py::_scoring_kernel (pallas_call in
 // _scoring_fwd_pallas, wrapper scoring_head_pallas). Forward only, as on the
@@ -8,155 +9,356 @@
 // (ops/scoring.py). The [B, C, H] hidden tensor is never written to device
 // memory.
 //
-// Design. The TPU kernel tiles (8 users) x (128 candidates) and runs two MXU
-// products per user. Here a block serves one user: it stages Wi transposed
-// ([D][H + 1] floats, 17 KB at D = 128, H = 32: lanes read consecutive
-// addresses, so no bank conflict) and the user's half of the first layer,
-// upart[h] = u . Wu[h] + b1[h], in shared memory. Each warp then walks the
-// user's candidates four at a time: it copies their rows into its own
-// shared-memory tile (coalesced float4 loads), and lane h accumulates hidden
-// unit h of all four (one conflict-free load of Wi and four broadcast float4
-// loads of the items per four input columns); relu, the product with w2 and
-// a shuffle reduction give the four logits. H above 32 is served in passes of
-// 32 hidden units.
-//
 // Bound on the H100 (data sheet): bytes. At C = 1000 the items are 131 MB
-// (39 us at 3.35 TB/s) against 2.1 GFLOP (31 us at 67 TFLOP/s fp32); at
-// C = 2 the call is launch-sized.
+// (39 us at 3.35 TB/s); the item product is 2.1 GFLOP, done once for both
+// users (31 us at the 67 TFLOP/s fp32 peak). At C = 2 the call is
+// launch-sized.
+//
+// Design. Two kernels on one stream:
+// * user_half_kernel: up[u][b][h] = user_u[b] . Wu[h] + b1[h] for every user
+//   ([U, B, H8], zero past H) into a scratch row after the output. A block
+//   stages Wu transposed ([D][H8 + 1] floats: lanes h read consecutive
+//   addresses) and each warp takes a (u, b) pair, lane h summing over D. At C = 2 this half of the first layer is as large as the item half,
+//   so it runs over the whole card, not inside the blocks that meet the user.
+// * scoring_head_kernel: the candidates are one list of B * C rows (row
+//   r = b * C + c, read through the items' two strides) cut into 64-row
+//   tiles; each block (4 warps) walks a contiguous range of tiles. It issues
+//   the cp.async copy of its first tile and stages Wi transposed ([D8][H8 +
+//   4] fp32, zero-padded to multiples of 8) and w2 while it lands. The copies
+//   walk their rows' (user, candidate) by additions: a division per 16-byte
+//   copy would cost more than the products.
+// * The item product X = tile [64, D] Wi^T in fp32 on the CUDA cores, 32
+//   hidden units a pass. The product is bound by shared-memory wavefronts,
+//   so a thread holds 8 rows x 8 units (lanes: 8 row groups x 4 unit
+//   groups) and each step of four columns takes 8 + 8 16-byte loads for 256
+//   FMAs; the four warps split D (warp w takes the steps 4w, 4w + 16, ...)
+//   and leave their parts of X in shared memory ([4][64][33]: conflict-free
+//   writes and reads), where the epilogue sums them. Item rows have a pitch
+//   of D8 + 4 floats, so the 8 rows a quarter-warp reads lie in 8 distinct
+//   16-byte bank groups; Wi is read as a broadcast. With H <= 32 the parts
+//   of X take the tile's place once it is read, so a block needs 52 KB at
+//   D = 128 and four share an SM: the copy of one block's next tile, issued
+//   after its epilogue, overlaps the other blocks' products. (On an H100
+//   SXM at 700 W, at B = 256, C = 1000: two double-buffered blocks an SM
+//   ran about 15% slower, too few warps to cover the shared-memory latency
+//   of the register tiles; 3xTF32 on mma.sync reached about 50 TFLOP/s,
+//   below the CUDA cores' 67.)
+// * Epilogue: thread t takes row t / 2 and 16 units: for each user it adds
+//   relu(X + up) * w2 over them, a shuffle completes the sum over H and the
+//   even lane writes sigmoid(logit + b2). X is computed once and serves both
+//   users.
+// Shared memory of the main kernel: (D8 * (H8 + 4) + H8 + max(64 * (D8 + 4),
+// 4 * 64 * 33)) * 4 bytes when H <= 32 (the sum of the two past it): 52 KB at
+// D = 128, H = 32.
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kRows = 4;  // candidates a warp scores together
-
-__host__ __device__ inline int tile_offset(int D, int H) {
-  // floats before the warps' item tiles, rounded up to 16 bytes
-  return (D * (H + 1) + 2 * H + 3) & ~3;
+template <typename T>
+T* ptr(long long value) {
+  return reinterpret_cast<T*>(static_cast<uintptr_t>(value));
 }
 
-__global__ void __launch_bounds__(kThreads)
-scoring_head_kernel(const float* __restrict__ user, long long user_stride,
-                    const float* __restrict__ items, long long items_bstride,
-                    long long items_cstride,
-                    const float* __restrict__ wu, long long wu_stride,
-                    const float* __restrict__ wi, long long wi_stride,
-                    const float* __restrict__ b1, const float* __restrict__ w2,
-                    const float* __restrict__ b2, float* __restrict__ out,
-                    int C, int D, int H) {
-  extern __shared__ __align__(16) float sm[];
-  const int HP = H + 1;
-  float* wiT = sm;               // [D][H + 1]
-  float* upart = wiT + D * HP;   // [H]: u . Wu[h] + b1[h]
-  float* w2s = upart + H;        // [H]
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  float* tile = sm + tile_offset(D, H) + warp * kRows * D;  // [kRows][D]
-  const int b = blockIdx.x;
+constexpr int kThreads = 128;  // four warps
+constexpr int kTileRows = 64;
+constexpr int kRedPitch = 33;  // floats per row of a warp's part of X (32 units)
 
-  for (int i = tid; i < H * D; i += kThreads) {
-    const int h = i / D, d = i - h * D;
-    wiT[d * HP + h] = wi[h * wi_stride + d];
-  }
-  const float* u = user + b * user_stride;
-  for (int h = warp; h < H; h += kWarps) {
-    float s = 0.f;
-    for (int d = lane; d < D; d += 32) s = fmaf(u[d], wu[h * wu_stride + d], s);
-    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-    if (lane == 0) upart[h] = s + b1[h];
-  }
-  for (int h = tid; h < H; h += kThreads) w2s[h] = w2[h];
-  __syncthreads();
+// The entry point's argument block (ops/scoring.py packs it): 8-byte fields.
+struct ScoreArgs {
+  long long user0, user1, user_sb0, user_sb1;  // user_u: [B, D], rows user_sb_u apart
+  long long items, items_sb, items_sc;  // [B, C, D], unit stride along D
+  long long wu, wu_s, wi, wi_s, b1, w2, b2;  // [H, D] halves (row strides), [H], [1, H], [1]
+  long long out;  // contiguous [U, B, C]
+  long long U, B, C, D, H, tiles_per_block, up, stream;  // up: scratch, U * B * H8 floats
+};
 
-  const float bias2 = b2[0];
-  const float* my_items = items + b * items_bstride;
-  float* my_out = out + (long long)b * C;
-  for (int c0 = (blockIdx.y * kWarps + warp) * kRows; c0 < C;
-       c0 += gridDim.y * kWarps * kRows) {
-    for (int r = 0; r < kRows; ++r) {
-      float4* dst = reinterpret_cast<float4*>(tile + r * D);
-      if (c0 + r < C) {
-        const float4* src =
-            reinterpret_cast<const float4*>(my_items + (c0 + r) * items_cstride);
-        for (int k = lane; k < D / 4; k += 32) dst[k] = src[k];
-      } else {
-        for (int k = lane; k < D / 4; k += 32) dst[k] = make_float4(0.f, 0.f, 0.f, 0.f);
-      }
+struct Params {
+  const float* user[2];
+  long long user_sb[2];
+  const float* items;
+  long long items_sb, items_sc;
+  const float *wu, *wi, *b1, *w2, *b2;
+  long long wu_s, wi_s;
+  float* out;
+  float* up;  // [U][B][H8]
+  int rows;  // B * C
+  int B, C, D, H, D8, H8, tiles, tiles_per_block;
+};
+
+__host__ __device__ inline int pitch(int d8) { return d8 + 4; }
+
+size_t smem_bytes(int D, int H) {
+  const int d8 = (D + 7) & ~7, h8 = (H + 7) & ~7;
+  const size_t tile = (size_t)kTileRows * pitch(d8), red = (size_t)4 * kTileRows * kRedPitch;
+  return sizeof(float) * ((size_t)d8 * (h8 + 4) + h8 +
+                          (h8 <= 32 ? (tile > red ? tile : red) : tile + red));
+}
+
+size_t user_half_smem_bytes(int D, int H) {
+  return sizeof(float) * (size_t)D * (((H + 7) & ~7) + 1 + kThreads / 32);
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+// Issues the copies of tile `tile` into `buf` ([64][pitch] floats), 16 bytes
+// at a time: thread tid takes chunks tid, tid + 128, ... of the tile's
+// 64 * D / 4, walking their (row, chunk) and the row's (user, candidate)
+// forward by additions (one division a tile). Rows past the last candidate
+// are left as they are.
+__device__ __forceinline__ void load_tile(const Params& p, float* buf, int tile, int tid) {
+  const int chunks = p.D / 4, P = pitch(p.D8);
+  const int step_rows = kThreads / chunks, step_chunks = kThreads - step_rows * chunks;
+  int rr = tid / chunks, ch = tid - rr * chunks;
+  int r = tile * kTileRows + rr;
+  int b = r / p.C, c = r - b * p.C;
+  while (rr < kTileRows && r < p.rows) {
+    cp_async16(buf + rr * P + ch * 4, p.items + b * p.items_sb + c * p.items_sc + ch * 4);
+    int dr = step_rows;
+    ch += step_chunks;
+    if (ch >= chunks) {
+      ch -= chunks;
+      ++dr;
     }
+    rr += dr;
+    r += dr;
+    for (c += dr; c >= p.C; c -= p.C) ++b;
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// up[u][b][h] = user_u[b] . Wu[h] + b1[h] (0 for h >= H): a block stages
+// Wu transposed, each warp takes one (u, b) pair at a time, copies the user
+// row into shared memory and lane h sums over D in four chains.
+__global__ void __launch_bounds__(kThreads)
+user_half_kernel(const Params p, int pairs) {
+  extern __shared__ __align__(16) float wut[];  // [D][H8 + 1], then [4][D] user rows
+  const int hp = p.H8 + 1;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* xs = wut + p.D * hp + warp * p.D;
+#pragma unroll 8
+  for (int i = threadIdx.x; i < p.H8 * p.D; i += kThreads) {
+    const int h = i / p.D, d = i - h * p.D;
+    wut[d * hp + h] = h < p.H ? p.wu[h * p.wu_s + d] : 0.f;
+  }
+  __syncthreads();
+  for (int e = blockIdx.x * (kThreads / 32) + warp; e < pairs;
+       e += gridDim.x * (kThreads / 32)) {
+    const int u = e / p.B, b = e - u * p.B;
+    const float* x = p.user[u] + (long long)b * p.user_sb[u];
+    for (int d = lane; d < p.D; d += 32) xs[d] = x[d];
     __syncwarp();
-    float logit[kRows];
+    for (int h = lane; h < p.H8; h += 32) {
+      float s[4] = {0.f, 0.f, 0.f, 0.f};  // four chains: the sum is latency-bound
+      for (int d = 0; d < p.D; d += 4) {
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) logit[r] = 0.f;
-    for (int h0 = 0; h0 < H; h0 += 32) {
-      const bool live = h0 + lane < H;
-      const int h = live ? h0 + lane : H - 1;
-      float acc[kRows];
+        for (int k = 0; k < 4; ++k) s[k] = fmaf(xs[d + k], wut[(d + k) * hp + h], s[k]);
+      }
+      p.up[(long long)e * p.H8 + h] = h < p.H ? (s[0] + s[1]) + (s[2] + s[3]) + p.b1[h] : 0.f;
+    }
+    __syncwarp();  // the row is read before the next one is copied
+  }
+}
+
+template <int U>
+__global__ void __launch_bounds__(kThreads, 4)  // four blocks an SM: at most 128 registers
+scoring_head_kernel(const Params p) {
+  extern __shared__ __align__(16) float sm[];
+  const int P = pitch(p.D8), WP = p.H8 + 4;
+  float* wit = sm;                          // [D8][WP]: Wi transposed
+  float* w2s = wit + p.D8 * WP;             // [H8]
+  float* buf = w2s + p.H8;                  // [64][P]: one candidate tile
+  // [4][64][kRedPitch]: each warp's part of X; in place of the tile when one
+  // pass covers H (the tile is read by then)
+  float* red = p.H8 <= 32 ? buf : buf + kTileRows * P;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int rg = lane & 7, hg = lane >> 3;  // rows rg + 8m; units 8hg .. 8hg + 7 of a pass
+  const int row = tid >> 1, half = tid & 1;  // the epilogue's row and 16 units of a pass
+  const int t0 = blockIdx.x * p.tiles_per_block;
+  const int t1 = min(p.tiles, t0 + p.tiles_per_block);
+  load_tile(p, buf, t0, tid);
+
+  // padding columns [D, D8) of the tile stay zero; cp.async never writes them
+  for (int i = tid; i < kTileRows * (p.D8 - p.D); i += kThreads) {
+    const int r = i / (p.D8 - p.D);
+    buf[r * P + p.D + (i - r * (p.D8 - p.D))] = 0.f;
+  }
+  // unrolled: the loads are in flight together, not one L2 latency each
+#pragma unroll 8
+  for (int i = tid; i < p.H8 * p.D8; i += kThreads) {
+    const int h = i / p.D8, d = i - h * p.D8;
+    wit[d * WP + h] = h < p.H && d < p.D ? p.wi[h * p.wi_s + d] : 0.f;
+  }
+  for (int h = tid; h < p.H8; h += kThreads) w2s[h] = h < p.H ? p.w2[h] : 0.f;
+  const float bias2 = p.b2[0];
+
+  for (int tile = t0; tile < t1; ++tile) {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();  // the tile has landed (and, the first time, Wi and w2 are staged)
+    const int r = tile * kTileRows + row;  // the epilogue's candidate row
+    const int b = min(r, p.rows - 1) / p.C;
+    float logit[U];
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
-      for (int d = 0; d < D; d += 4) {
-        const float w0 = wiT[d * HP + h], w1 = wiT[(d + 1) * HP + h];
-        const float w2v = wiT[(d + 2) * HP + h], w3 = wiT[(d + 3) * HP + h];
+    for (int u = 0; u < U; ++u) logit[u] = 0.f;
+    for (int h0 = 0; h0 < p.H8; h0 += 32) {
+      // this warp's part of X[64][32 units from h0]: the 4-column steps
+      // k0 = 4 (warp + 4 i), a thread's 8 rows x 8 units in registers
+      const int h = h0 + 8 * hg;
+      float acc[8][8];
 #pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          const float4 x = *reinterpret_cast<const float4*>(tile + r * D + d);
-          acc[r] = fmaf(x.x, w0, acc[r]);
-          acc[r] = fmaf(x.y, w1, acc[r]);
-          acc[r] = fmaf(x.z, w2v, acc[r]);
-          acc[r] = fmaf(x.w, w3, acc[r]);
+      for (int m = 0; m < 8; ++m) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[m][j] = 0.f;
+      }
+      if (h < p.H8) {
+        for (int k0 = 4 * warp; k0 < p.D8; k0 += 16) {
+          float4 x[8];
+#pragma unroll
+          for (int m = 0; m < 8; ++m)
+            x[m] = *reinterpret_cast<const float4*>(buf + (rg + 8 * m) * P + k0);
+#pragma unroll
+          for (int dk = 0; dk < 4; ++dk) {
+            const float4 wl = *reinterpret_cast<const float4*>(wit + (k0 + dk) * WP + h);
+            const float4 wh = *reinterpret_cast<const float4*>(wit + (k0 + dk) * WP + h + 4);
+            const float w[8] = {wl.x, wl.y, wl.z, wl.w, wh.x, wh.y, wh.z, wh.w};
+#pragma unroll
+            for (int m = 0; m < 8; ++m) {
+              const float xv = dk == 0 ? x[m].x : dk == 1 ? x[m].y : dk == 2 ? x[m].z : x[m].w;
+#pragma unroll
+              for (int j = 0; j < 8; ++j) acc[m][j] = fmaf(xv, w[j], acc[m][j]);
+            }
+          }
         }
       }
-      const float up = upart[h], wo = live ? w2s[h] : 0.f;
+      __syncthreads();  // the tile is read (and the previous pass's parts)
+      float* mine = red + warp * kTileRows * kRedPitch;
 #pragma unroll
-      for (int r = 0; r < kRows; ++r)
-        logit[r] = fmaf(fmaxf(acc[r] + up, 0.f), wo, logit[r]);
-    }
+      for (int m = 0; m < 8; ++m) {
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      float s = logit[r];
-      for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-      if (lane == r && c0 + r < C) my_out[c0 + r] = 1.f / (1.f + expf(-(s + bias2)));
+        for (int j = 0; j < 8; ++j) mine[(rg + 8 * m) * kRedPitch + 8 * hg + j] = acc[m][j];
+      }
+      __syncthreads();  // X's parts are written
+      // the epilogue: row `row`, units h0 + 16 half .. + 15
+      for (int j = 0; j < 16; ++j) {
+        const int hh = h0 + 16 * half + j;
+        if (hh < p.H8) {
+          const float* x = red + row * kRedPitch + 16 * half + j;
+          const float xs = (x[0] + x[kTileRows * kRedPitch]) +
+                           (x[2 * kTileRows * kRedPitch] + x[3 * kTileRows * kRedPitch]);
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+            const float up = p.up[((long long)u * p.B + b) * p.H8 + hh];
+            logit[u] = fmaf(fmaxf(xs + up, 0.f), w2s[hh], logit[u]);
+          }
+        }
+      }
     }
-    __syncwarp();  // the tile is rewritten by the next group
+    __syncthreads();  // X's parts are read: the buffer takes the next tile
+    if (tile + 1 < t1) load_tile(p, buf, tile + 1, tid);
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const float s = logit[u] + __shfl_xor_sync(0xffffffffu, logit[u], 1);
+      if (half == 0 && r < p.rows)
+        p.out[(long long)u * p.rows + r] = 1.f / (1.f + expf(-(s + bias2)));
+    }
   }
+}
+
+// Both kernels may take all 227 KB of shared memory a block can have;
+// asked once per kernel (a launch asks for what it needs).
+template <int U>
+cudaError_t launch(const Params& p, unsigned grid, size_t smem, size_t smem_up,
+                   cudaStream_t s) {
+  static const cudaError_t opted_in = cudaFuncSetAttribute(
+      scoring_head_kernel<U>, cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
+  static const cudaError_t opted_in_up = cudaFuncSetAttribute(
+      user_half_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
+  if (opted_in != cudaSuccess) return opted_in;
+  if (opted_in_up != cudaSuccess) return opted_in_up;
+  const int pairs = U * p.B, per_block = kThreads / 32;
+  int up_blocks = (pairs + per_block - 1) / per_block;  // one pair a warp
+  if (up_blocks > 1024) up_blocks = 1024;
+  user_half_kernel<<<up_blocks, kThreads, smem_up, s>>>(p, pairs);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  scoring_head_kernel<U><<<grid, kThreads, smem, s>>>(p);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// Shared memory one block needs, in bytes.
-size_t scoring_head_smem_bytes(int D, int H) {
-  return sizeof(float) * ((size_t)tile_offset(D, H) + (size_t)kWarps * kRows * D);
-}
+// Shared memory one block of the main kernel and of the user-half kernel
+// needs, in bytes.
+size_t scoring_head_smem_bytes(int D, int H) { return smem_bytes(D, H); }
+size_t scoring_user_half_smem_bytes(int D, int H) { return user_half_smem_bytes(D, H); }
 
-// user: fp32 [B, D] (unit stride along D, `user_stride` between rows);
-// items: fp32 [B, C, D] (unit stride along D, 16-byte aligned rows);
-// wu, wi: fp32 [H, D] halves of the first layer's weight (unit stride along
-// D); b1, w2: [H]; b2: [1]; out: contiguous fp32 [B, C]. D must be a multiple
-// of 4. grid_y blocks (at most 65535) share one user's candidates. Returns the launch's
+// One launch for U = 1 or 2 user representations. The arguments come as one
+// array of 8-byte fields in ScoreArgs' order (pointers as integers; user1 is
+// 0 when U = 1), packed by the Python side in one call. user_u: fp32 [B, D], unit
+// stride along D, rows user_sb_u floats apart; items: fp32 [B, C, D], unit
+// stride along D, strides items_sb and items_sc floats, 16-byte aligned rows;
+// wu, wi: fp32 [H, D] (unit stride along D, rows wu_s / wi_s apart); b1,
+// w2: [H]; b2: [1]; out: contiguous fp32 [U, B, C]. D is a multiple of 4.
+// up: scratch for U * B * ceil8(H) floats. tiles_per_block is
+// ops/scoring.py::scoring_plan's: the main kernel's grid is
+// ceil(tiles / tiles_per_block) blocks over ceil(B * C / 64) tiles. Returns
+// -1 for arguments it does not take, else the first failing launch's
 // cudaError_t (0 on success).
-int scoring_head(const float* user, long long user_stride, const float* items,
-                 long long items_bstride, long long items_cstride,
-                 const float* wu, long long wu_stride, const float* wi,
-                 long long wi_stride, const float* b1, const float* w2,
-                 const float* b2, float* out, int B, int C, int D, int H,
-                 int grid_y, void* stream) {
-  if (B < 0 || C < 0 || D < 4 || D % 4 != 0 || H < 1 || grid_y < 1 || grid_y > 65535)
-    return (int)cudaErrorInvalidValue;
-  if (B == 0 || C == 0) return 0;
-  const size_t smem = scoring_head_smem_bytes(D, H);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        scoring_head_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  scoring_head_kernel<<<dim3(B, grid_y), kThreads, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
-      user, user_stride, items, items_bstride, items_cstride, wu, wu_stride, wi,
-      wi_stride, b1, w2, b2, out, C, D, H);
-  return (int)cudaGetLastError();
+int scoring_head(const long long* fields) {
+  ScoreArgs args;
+  memcpy(&args, fields, sizeof(args));
+  const ScoreArgs* a = &args;
+  const long long U = a->U, B = a->B, C = a->C, D = a->D, H = a->H;
+  if (!(U == 1 || U == 2) || B < 0 || C < 0 || D < 4 || D % 4 || D > 0x7fffffffLL ||
+      H < 1 || H > 0x7fffffffLL || C > 0x7fffffffLL || a->tiles_per_block < 1)
+    return -1;
+  const long long rows = B * C;
+  if (rows == 0) return 0;
+  if (rows > 0x7fffffffLL - kTileRows) return -1;
+  const long long tiles = (rows + kTileRows - 1) / kTileRows;
+  const long long grid = (tiles + a->tiles_per_block - 1) / a->tiles_per_block;
+  if (tiles > 0x7fffffffLL || grid > 0x7fffffffLL) return -1;
+  const size_t smem = smem_bytes((int)D, (int)H);
+  const size_t smem_up = user_half_smem_bytes((int)D, (int)H);
+  if (smem > 232448 || smem_up > 232448) return -1;
+  Params p;
+  p.user[0] = ptr<const float>(a->user0);
+  p.user[1] = ptr<const float>(U == 2 ? a->user1 : a->user0);
+  p.user_sb[0] = a->user_sb0;
+  p.user_sb[1] = U == 2 ? a->user_sb1 : a->user_sb0;
+  p.items = ptr<const float>(a->items);
+  p.items_sb = a->items_sb;
+  p.items_sc = a->items_sc;
+  p.wu = ptr<const float>(a->wu);
+  p.wu_s = a->wu_s;
+  p.wi = ptr<const float>(a->wi);
+  p.wi_s = a->wi_s;
+  p.b1 = ptr<const float>(a->b1);
+  p.w2 = ptr<const float>(a->w2);
+  p.b2 = ptr<const float>(a->b2);
+  p.out = ptr<float>(a->out);
+  p.up = ptr<float>(a->up);
+  p.rows = (int)rows;
+  p.B = (int)B;
+  p.C = (int)C;
+  p.D = (int)D;
+  p.H = (int)H;
+  p.D8 = (int)((D + 7) & ~7LL);
+  p.H8 = (int)((H + 7) & ~7LL);
+  p.tiles = (int)tiles;
+  p.tiles_per_block = (int)a->tiles_per_block;
+  cudaStream_t s = ptr<CUstream_st>(a->stream);
+  cudaError_t e = U == 2 ? launch<2>(p, (unsigned)grid, smem, smem_up, s)
+                         : launch<1>(p, (unsigned)grid, smem, smem_up, s);
+  return (int)e;
 }
 
 }  // extern "C"

@@ -47,6 +47,30 @@ from amid_tpu_torch.ops.torch_compat import torch_embedding_init_
 Batch = dict[str, Any]
 
 
+# matmul_precision values that ask for what the port computes: full fp32 with
+# TF32 off ("highest")
+FP32_PRECISIONS = ("", "highest", "float32")
+
+
+def _refuse_precision_flags(cfg: ModelConfig) -> None:
+    """Raises on the three fields that change the JAX package's run and that
+    the port does not read: it computes in fp32 with TF32 off and keeps every
+    activation for the backward. Remat waits for a device-side dropout seed:
+    a recomputed forward would draw new masks from the step's generators."""
+    if cfg.use_bf16:
+        raise NotImplementedError(
+            "ModelConfig.use_bf16=True asks for bf16 matmuls, which are not ported; "
+            "the port computes in fp32 (set it to False)")
+    if cfg.matmul_precision not in FP32_PRECISIONS:
+        raise NotImplementedError(
+            f"ModelConfig.matmul_precision={cfg.matmul_precision!r} is not ported; the "
+            f"port computes in full fp32 with TF32 off: use one of {FP32_PRECISIONS}")
+    if cfg.remat:
+        raise NotImplementedError(
+            "ModelConfig.remat=True asks for rematerialised encoder blocks, which are "
+            "not ported (set it to False)")
+
+
 class AMIDModel(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -56,6 +80,7 @@ class AMIDModel(nn.Module):
             )
         if cfg.is_c2dsr:
             raise NotImplementedError("C2DSR mode is not ported yet")
+        _refuse_precision_flags(cfg)
         if cfg.kernels not in ("torch", "cuda"):
             raise ValueError(
                 f"kernels must be resolved to 'torch' or 'cuda' (build_model "

@@ -8,20 +8,20 @@ is split into its user and item halves,
     h = relu(u W_u^T + i W_i^T + b1)    # [B, C, H]
     logits = sigmoid(h w2^T + b2)       # [B, C]
 
-`kernels='cuda'` scores through the fused kernel (`ops.scoring.scoring_head`,
-one launch per user representation, every candidate count: the TPU package's
+and the item half is computed once for both users. `kernels='cuda'` scores
+through the fused kernel (`ops.scoring.scoring_head_pair`: both user
+representations in one launch, every candidate count: the TPU package's
 `PALLAS_SCORING_MIN_C` is a TPU setting and is not carried over), which never
-builds `[B, C, H]`; `kernels='torch'` is the plain code below, which shares
-the item half between the two users.
+builds `[B, C, H]`; `kernels='torch'` is its plain version,
+`ops.scoring.scoring_head_pair_plain`.
 """
 
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
-from amid_tpu_torch.ops.scoring import scoring_head
+from amid_tpu_torch.ops.scoring import scoring_head_pair, scoring_head_pair_plain
 from amid_tpu_torch.ops.torch_compat import torch_linear_init_
 
 
@@ -44,14 +44,6 @@ class PredictHead(nn.Module):
     def forward(self, user_d1, user_d2, item_feat):
         """user_d*: [B, D]; item_feat: [B, C, D] -> (logits_d1, logits_d2),
         each [B, C]."""
-        w_user, w_item = self.split_fc1()
-        if self.kernels == "cuda":
-            rest = (item_feat, w_user, w_item, self.fc1.bias, self.fc2.weight, self.fc2.bias)
-            return scoring_head(user_d1, *rest), scoring_head(user_d2, *rest)
-        i_part = F.linear(item_feat, w_item)  # [B, C, H]
-
-        def score(u):
-            hidden = torch.relu(F.linear(u, w_user)[:, None, :] + i_part + self.fc1.bias)
-            return torch.sigmoid(self.fc2(hidden)[..., 0])
-
-        return score(user_d1), score(user_d2)
+        score = scoring_head_pair if self.kernels == "cuda" else scoring_head_pair_plain
+        return score(user_d1, user_d2, item_feat, *self.split_fc1(), self.fc1.bias,
+                     self.fc2.weight, self.fc2.bias)

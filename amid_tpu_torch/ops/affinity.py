@@ -26,6 +26,9 @@ launch in `.launches`) or raise; on CPU tensors they take `max_affinity_plain`.
 from __future__ import annotations
 
 import ctypes
+import functools
+import struct
+from typing import NamedTuple
 
 import torch
 
@@ -36,7 +39,6 @@ KERNEL_WIDTHS = (16, 32, 64, 128)  # D values the kernels are compiled for
 _ROW_PAD = 8  # bf16 values of padding per shared-memory row (csrc/affinity.cu)
 _SMALLN_PEERS = 16  # peers resident per block of the small-N kernel
 _WARPS = 8
-_TARGET_BLOCKS = 264  # two resident blocks on each of the card's 132 SMs
 
 
 def diag_max_affinity(seq_a: torch.Tensor, seq_b: torch.Tensor) -> torch.Tensor:
@@ -72,10 +74,86 @@ def _ceil_to(x: int, mult: int) -> int:
     return -(-x // mult) * mult
 
 
-def blocked_smem_bytes(n: int, m: int, d: int) -> int:
-    """Shared memory one block of the blocked kernel needs: the query's rows
-    and one peer's rows as bf16, padded, plus one float per warp."""
-    return (_ceil_to(n, 16) + _ceil_to(m, 8)) * (d + _ROW_PAD) * 2 + _WARPS * 4
+# The blocked kernel (csrc/affinity.cu, affinity_wgmma_kernel): the bank's
+# [C*M, D] rows, as bf16 padded with zeros to 128 columns, stream through in
+# 64-row tiles; four query slots of W rows (W a multiple of 8 up to 160, one
+# slot a user or 2 or 4 chunks of one) stay resident; the grid is (groups of
+# four slots) x (slices of the peers).
+TILE_ROWS = 64
+K_WIDTH = 128  # operand columns
+SLOTS = 4
+MAX_WIDTH = 160
+CHUNKS = (1, 2, 4)  # slots one user's query may take
+MAX_PEERS = 256  # peers per slice: the block's [users, peers] table of maxima
+MAX_STAGES = 8
+SM_COUNT = 132  # the H100 SXM's; one block of the large shapes fills an SM
+
+
+class BlockedPlan(NamedTuple):
+    """How the blocked kernel takes one shape: slot width and chunks per user,
+    the grid (groups x slices), peers per slice, ring buffers, shared memory
+    per block in bytes."""
+    width: int
+    chunks: int
+    groups: int
+    slices: int
+    peers: int
+    stages: int
+    smem: int
+
+
+def blocked_smem_bytes(width: int, stages: int, peers: int) -> int:
+    """Shared memory of one block of the blocked kernel: four query slots of
+    `width` bf16 rows, `stages` 64-row bank tiles (rows of 128 columns), a
+    float per (slot, peer), two mbarriers per tile buffer and one for the
+    query."""
+    return (SLOTS * width * K_WIDTH * 2 + stages * TILE_ROWS * K_WIDTH * 2
+            + SLOTS * peers * 4 + (2 * stages + 1) * 8)
+
+
+def slice_tiles(c: int, m: int, peers: int) -> int:
+    """An upper bound on the bank tiles one block streams: a slice's
+    peers * m rows, plus the tile it shares with the slice before it."""
+    return -(-peers * m // TILE_ROWS) + (peers < c)
+
+
+@functools.lru_cache(maxsize=512)
+def blocked_plan(b: int, c: int, n: int, m: int, d: int) -> BlockedPlan:
+    """The blocked kernel's plan for [B, N, D] against [C, M, D]; raises
+    naming the limit where the kernel cannot take the shape.
+
+    The query takes the fewest chunks (1, 2 or 4 slots a user) whose width
+    ceil8(N / chunks) is at most 160 (N <= 640). The peers are cut into the
+    number of slices that minimises waves x tiles per block (blocks of all
+    slices run on SM_COUNT SMs, one at a time at the large shapes), fewest
+    slices on a tie, at most MAX_PEERS peers a slice. What shared memory
+    is left takes up to MAX_STAGES ring buffers of 64 bank rows (no more
+    than a block streams tiles; at least 3 fit at every width)."""
+    name = "max_affinity_blocked"
+    if d not in KERNEL_WIDTHS:
+        raise ValueError(f"{name}: the affinity kernels take D in {KERNEL_WIDTHS}; got D={d}")
+    for chunks in CHUNKS:
+        width = _ceil_to(-(-n // chunks), 8)
+        if width <= MAX_WIDTH:
+            break
+    else:
+        raise ValueError(
+            f"{name}: N={n} is longer than the blocked kernel takes: at most "
+            f"{CHUNKS[-1]} slots of {MAX_WIDTH} query rows, N <= {CHUNKS[-1] * MAX_WIDTH}")
+    groups = -(-b * chunks // SLOTS)
+    best = None
+    for s in range(-(-c // MAX_PEERS), min(c, 65535) + 1):
+        peers = -(-c // s)
+        slices = -(-c // peers)
+        cost = -(-groups * slices // SM_COUNT) * slice_tiles(c, m, peers)
+        if best is None or cost < best[0]:
+            best = (cost, slices, peers)
+    _, slices, peers = best
+    fixed = blocked_smem_bytes(width, 0, peers)
+    stages = min(MAX_STAGES, max(2, slice_tiles(c, m, peers)),
+                 (SMEM_LIMIT - fixed) // (TILE_ROWS * K_WIDTH * 2 + 16))
+    return BlockedPlan(width, chunks, groups, slices, peers, stages,
+                       blocked_smem_bytes(width, stages, peers))
 
 
 def smalln_smem_bytes(m: int, d: int) -> int:
@@ -105,29 +183,28 @@ def _check(seq_a: torch.Tensor, seq_b: torch.Tensor, name: str) -> None:
         raise ValueError(f"{name}: seq_a on {seq_a.device}, seq_b on {seq_b.device}")
 
 
-_fns = None  # the bound C entry points, resolved at the first launch
+# Each entry point takes one array of 64-bit integers (csrc/affinity.cu has
+# the layout), packed in one call: ctypes converts argument by argument.
+_PACK_BLOCKED = struct.Struct("<15q").pack
+_PACK_SMALLN = struct.Struct("<10q").pack
+_REFUSALS = {-1: "a shape the kernel does not take", -2: "a plan the kernel does not take"}
+_blocked = _smalln = None  # the bound entry points, resolved at the first launch
 
 
-def _kernel_fns():
-    """(max_affinity_blocked, max_affinity_smalln, affinity_smem_bytes,
-    affinity_smalln_smem_bytes) of `csrc/affinity.cu`, typed once."""
-    global _fns
-    if _fns is None:
-        lib = _build.load("affinity")
-        p, i = ctypes.c_void_p, ctypes.c_int
-        _fns = (
-            _build.bind(lib.max_affinity_blocked, [p, p, p, p, i, i, i, i, i, i, p]),
-            _build.bind(lib.max_affinity_smalln, [p, p, p, p, i, i, i, i, i, p]),
-            _build.bind(lib.affinity_smem_bytes, [i, i, i], ctypes.c_size_t),
-            _build.bind(lib.affinity_smalln_smem_bytes, [i, i], ctypes.c_size_t),
-        )
-    return _fns
+def _bind() -> None:
+    global _blocked, _smalln
+    lib = _build.load("affinity")
+    _blocked = _build.bind(lib.max_affinity_blocked, [ctypes.c_char_p])
+    _smalln = _build.bind(lib.max_affinity_smalln, [ctypes.c_char_p])
 
 
-def blocked_grid_y(bsz: int, c: int) -> int:
-    """How many blocks share one query user's peers in the blocked kernel:
-    1 when the batch alone fills the card, more for a small batch."""
-    return max(1, min(c, -(-_TARGET_BLOCKS // bsz), 65535))
+def smem_bytes_of_the_kernels():
+    """(affinity_smem_bytes, affinity_smalln_smem_bytes) of the C library,
+    typed: the kernels' own shared-memory arithmetic, for the tests."""
+    lib = _build.load("affinity")
+    i = ctypes.c_int
+    return (_build.bind(lib.affinity_smem_bytes, [i, i, i], ctypes.c_size_t),
+            _build.bind(lib.affinity_smalln_smem_bytes, [i, i], ctypes.c_size_t))
 
 
 def _launch(seq_a, seq_b, smalln: bool) -> torch.Tensor:
@@ -136,36 +213,38 @@ def _launch(seq_a, seq_b, smalln: bool) -> torch.Tensor:
     (bsz, n, d), (c, m, _) = seq_a.shape, seq_b.shape
     if d not in KERNEL_WIDTHS:
         raise ValueError(f"{name}: the affinity kernels take D in {KERNEL_WIDTHS}; got D={d}")
-    blocked, small, smem_bytes, smalln_bytes = _fns or _kernel_fns()
+    if smalln and not smalln_fits(m, d):
+        largest = max((x for x in range(1, m) if smalln_fits(x, d)), default=0)
+        raise ValueError(
+            f"{name}: M={m}, D={d} needs {smalln_smem_bytes(m, d)} bytes of shared memory "
+            f"per block; the small-N kernel takes at most {SMEM_LIMIT // 2} (largest M at "
+            f"this width: {largest}); use max_affinity_blocked")
+    if _blocked is None:
+        _bind()
+    a = seq_a if seq_a.is_contiguous() else seq_a.contiguous()
+    b = seq_b if seq_b.is_contiguous() else seq_b.contiguous()
+    # one allocation: the [B, C] result, then the kernels' bf16 copies of the
+    # inputs from a 16-byte boundary
     if smalln:
-        need = smalln_bytes(m, d)
-        if need > SMEM_LIMIT // 2:
-            largest = max((x for x in range(1, m) if smalln_fits(x, d)), default=0)
-            raise ValueError(
-                f"{name}: M={m}, D={d} needs {need} bytes of shared memory per block; "
-                f"the small-N kernel takes at most {SMEM_LIMIT // 2} (largest M at this "
-                f"width: {largest}); use max_affinity_blocked")
+        halves = (bsz * n + c * m) * d
     else:
-        need = smem_bytes(n, m, d)
-        if need > SMEM_LIMIT:
-            raise ValueError(
-                f"{name}: N={n}, M={m}, D={d} needs {need} bytes of shared memory per "
-                f"block; the limit is {SMEM_LIMIT} (ceil16(N) + ceil8(M) <= "
-                f"{(SMEM_LIMIT - _WARPS * 4) // ((d + _ROW_PAD) * 2)} at this width)")
-    a, b = seq_a.detach().contiguous(), seq_b.detach().contiguous()
-    dev = a.device
-    scratch = torch.empty((bsz * n + c * m) * d, dtype=torch.bfloat16, device=dev)
-    out = torch.empty((bsz, c), dtype=torch.float32, device=dev)
-    stream = _build.raw_stream(dev.index)
+        plan = blocked_plan(bsz, c, n, m, d)
+        halves = (_ceil_to(c * m, TILE_ROWS) + plan.groups * SLOTS * plan.width) * K_WIDTH
+    at = _ceil_to(bsz * c, 4)
+    buf = a.new_empty(at + -(-halves // 2))
+    ptr = buf.data_ptr()
+    head = (a.data_ptr(), b.data_ptr(), ptr + 4 * at, ptr, _build.raw_stream(a.device.index))
     if smalln:
-        err = small(a.data_ptr(), b.data_ptr(), scratch.data_ptr(), out.data_ptr(),
-                    bsz, c, n, m, d, stream)
+        err = _smalln(_PACK_SMALLN(*head, bsz, c, n, m, d))
     else:
-        err = blocked(a.data_ptr(), b.data_ptr(), scratch.data_ptr(), out.data_ptr(),
-                      bsz, c, n, m, d, blocked_grid_y(bsz, c), stream)
-    if err != 0:
+        err = _blocked(_PACK_BLOCKED(*head, bsz, c, n, m, d, plan.width, plan.chunks,
+                                     plan.slices, plan.peers, plan.stages))
+    if err:
+        if err in _REFUSALS:
+            raise ValueError(f"{name}: {_REFUSALS[err]} ({tuple(seq_a.shape)}, "
+                             f"{tuple(seq_b.shape)})")
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
-    return out
+    return buf.as_strided((bsz, c), (c, 1))
 
 
 def _wrapper(seq_a, seq_b, smalln: bool, fn) -> torch.Tensor:
@@ -182,9 +261,9 @@ def _wrapper(seq_a, seq_b, smalln: bool, fn) -> torch.Tensor:
 def max_affinity_blocked(seq_a: torch.Tensor, seq_b: torch.Tensor) -> torch.Tensor:
     """A[b, c] = max_{i,j} bf16(seq_a[b, i]) . bf16(seq_b[c, j]) by the blocked
     kernel: [B, N, D], [C, M, D] float32 -> [B, C] float32, no gradient. Any
-    B, C, N, M that fit its shared-memory tile (it raises naming the limit),
-    D in `KERNEL_WIDTHS`. CUDA tensors launch the kernel (or raise); CPU
-    tensors take `max_affinity_plain`."""
+    B, C, M, N up to 640 (it raises naming the limit), D in `KERNEL_WIDTHS`;
+    `blocked_plan` says how it takes a shape. CUDA tensors launch the kernel
+    (or raise); CPU tensors take `max_affinity_plain`."""
     return _wrapper(seq_a, seq_b, False, max_affinity_blocked)
 
 

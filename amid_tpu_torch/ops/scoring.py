@@ -2,26 +2,38 @@
 
     scoring_head(user, items, w_user, w_item, b1, w2, b2)[b, c]
         = sigmoid( relu(user[b] W_u^T + items[b, c] W_i^T + b1) . w2 + b2 )
+    scoring_head_pair(user_d1, user_d2, items, w_user, w_item, b1, w2, b2)
+        = (scoring_head(user_d1, items, ...), scoring_head(user_d2, items, ...))
 
-user: [B, D]; items: [B, C, D] (each user's own candidates); w_user, w_item:
-[H, D], the two halves of the first layer's `[H, 2D]` weight (views into it
-are fine: the kernel reads through their row stride, and autograd carries
-both halves' gradients back into the one parameter); b1: [H]; w2: [1, H];
-b2: [1]. All float32. Returns [B, C].
+user, user_d*: [B, D]; items: [B, C, D] (each user's own candidates); w_user,
+w_item: [H, D], the two halves of the first layer's `[H, 2D]` weight (views
+into it are fine: the kernel reads through their row stride, and autograd
+carries both halves' gradients back into the one parameter); b1: [H]; w2:
+[1, H]; b2: [1]. All float32. Returns [B, C] (the pair: two of them).
 
 The forward is the kernel of `csrc/scoring_head.cu`, which never builds the
-`[B, C, H]` hidden tensor. The backward is plain PyTorch that recomputes the
-hidden layer (the TPU package has no backward kernel here either); it is the
-transcription of `pallas_scoring.py::_bwd` to torch's `[out, in]` weights.
+`[B, C, H]` hidden tensor; `scoring_head_pair` scores both user
+representations in one launch and computes the item half `items W_i^T` once
+for both (what `models/heads.py::PredictHead` calls: one launch per head).
+The backward is plain PyTorch that recomputes the hidden layer (the TPU
+package has no backward kernel here either); it is the transcription of
+`pallas_scoring.py::_bwd` to torch's `[out, in]` weights, with the item half
+recomputed once and both users' terms summed before the item-side products.
 
-On CUDA tensors `scoring_head` launches the kernel (counting the launch in
-`.launches`) or raises; on CPU tensors its forward is `scoring_head_plain`
-and its backward the same recomputation, so the CPU tests reach it.
+On CUDA tensors the wrappers launch the kernel (counting each launch in
+`scoring_head.launches`, whichever wrapper made it) or raise; on CPU tensors
+the forward is `scoring_head_plain` / `scoring_head_pair_plain` and the
+backward the same recomputation, so the CPU tests reach it. The
+`autograd.Function` is entered only when a gradient is wanted (grad mode on
+and an input that requires one); otherwise the wrapper launches directly.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+import struct
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -29,8 +41,9 @@ import torch.nn.functional as F
 from amid_tpu_torch.ops import _build
 from amid_tpu_torch.ops._build import SMEM_LIMIT
 
-_ROWS_PER_BLOCK = 32  # 8 warps x 4 candidates (csrc/scoring_head.cu)
-_TARGET_BLOCKS = 1024  # about one wave of 256-thread blocks on 132 SMs
+TILE_ROWS = 64  # candidates a block takes at a time (csrc/scoring_head.cu)
+SM_COUNT = 132  # the H100 SXM's
+_SM_SHARED = 233472  # shared memory of one SM, bytes; 1 KB of it is reserved per block
 
 
 def scoring_head_plain(user, items, w_user, w_item, b1, w2, b2) -> torch.Tensor:
@@ -39,119 +52,250 @@ def scoring_head_plain(user, items, w_user, w_item, b1, w2, b2) -> torch.Tensor:
     return torch.sigmoid(F.linear(hidden, w2, b2)[..., 0])
 
 
-def _check(user, items, w_user, w_item, b1, w2, b2) -> None:
-    if user.dim() != 2 or items.dim() != 3 or items.shape[0] != user.shape[0] \
-            or items.shape[2] != user.shape[1]:
+def scoring_head_pair_plain(user_d1, user_d2, items, w_user, w_item, b1, w2, b2):
+    """`scoring_head_pair` in plain PyTorch, differentiable by autograd: the
+    item half is computed once and serves both users (what a
+    kernels='torch' `PredictHead` computes)."""
+    i_part = F.linear(items, w_item)  # [B, C, H]
+
+    def score(u):
+        hidden = torch.relu(F.linear(u, w_user)[:, None, :] + i_part + b1)
+        return torch.sigmoid(F.linear(hidden, w2, b2)[..., 0])
+
+    return score(user_d1), score(user_d2)
+
+
+def _check(users, items, w_user, w_item, b1, w2, b2) -> None:
+    """Every check that needs the tensors, for the kernel and the plain route
+    alike: compares on the way in, the texts on the failure path only."""
+    dev, f32 = items.get_device(), torch.float32
+    if items.dim() == 3 and b1.dim() == 1:
+        b, _, d = items.shape
+        h = b1.shape[0]
+        ud, hd = (b, d), (h, d)
+        if (all(u.shape == ud and u.dtype is f32 and u.get_device() == dev for u in users)
+                and w_user.shape == hd and w_item.shape == hd and w2.shape == (1, h)
+                and b2.shape == (1,) and items.dtype is f32 and w_user.dtype is f32
+                and w_item.dtype is f32 and b1.dtype is f32 and w2.dtype is f32
+                and b2.dtype is f32 and w_user.get_device() == dev
+                and w_item.get_device() == dev and b1.get_device() == dev
+                and w2.get_device() == dev and b2.get_device() == dev
+                and items.device.type in ("cpu", "cuda")):
+            return
+    _refuse(users, items, w_user, w_item, b1, w2, b2)
+
+
+def _refuse(users, items, w_user, w_item, b1, w2, b2) -> None:
+    """Raises with the text for what `_check` found wrong."""
+    user = users[0]
+    if items.dim() != 3 or any(u.dim() != 2 or u.shape[0] != items.shape[0]
+                               or u.shape[1] != items.shape[2] for u in users):
         raise ValueError(f"scoring_head: want user [B, D] and items [B, C, D]; got "
-                         f"{tuple(user.shape)} and {tuple(items.shape)}")
+                         f"{[tuple(u.shape) for u in users]} and {tuple(items.shape)}")
     d, h = user.shape[1], b1.shape[0]
     want = {"w_user": (h, d), "w_item": (h, d), "b1": (h,), "w2": (1, h), "b2": (1,)}
     for (name, shape), x in zip(want.items(), (w_user, w_item, b1, w2, b2)):
-        if tuple(x.shape) != shape:
+        if x.shape != shape:
             raise ValueError(f"scoring_head: {name} must be {shape}; got {tuple(x.shape)}")
-    for name, x in (("user", user), ("items", items), ("w_user", w_user),
-                    ("w_item", w_item), ("b1", b1), ("w2", w2), ("b2", b2)):
-        if x.dtype != torch.float32:
+    dev = user.device
+    for name, x in (("user", user), *(("user_d2", u) for u in users[1:]), ("items", items),
+                    ("w_user", w_user), ("w_item", w_item), ("b1", b1), ("w2", w2),
+                    ("b2", b2)):
+        if x.dtype is not torch.float32:
             raise TypeError(f"scoring_head takes float32; {name} is {x.dtype}")
-        if x.device != user.device:
-            raise ValueError(f"scoring_head: {name} on {x.device}, user on {user.device}")
+        if x.device != dev:
+            raise ValueError(f"scoring_head: {name} on {x.device}, user on {dev}")
+    raise ValueError(f"scoring_head runs on cuda or cpu, not {dev}")
 
 
-_fns = None  # the bound C entry points, resolved at the first launch
+# ---------------------------------------------------------------------------
+# CUDA kernel launch
+# ---------------------------------------------------------------------------
+
+class ScoringPlan(NamedTuple):
+    """How the main kernel takes one shape: 64-row tiles of the B * C
+    candidates, how many a block walks, the blocks, shared memory per block
+    in bytes."""
+    tiles: int
+    tiles_per_block: int
+    grid: int
+    smem: int
 
 
-def _kernel_fns():
-    """(scoring_head, scoring_head_smem_bytes) of `csrc/scoring_head.cu`, typed once."""
-    global _fns
-    if _fns is None:
-        lib = _build.load("scoring_head")
-        p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        _fns = (
-            _build.bind(lib.scoring_head, [
-                p, ll, p, ll, ll, p, ll, p, ll,  # user, items, w_user, w_item + strides
-                p, p, p, p,  # b1, w2, b2, out
-                i, i, i, i, i, p,  # B, C, D, H, grid_y, stream
-            ]),
-            _build.bind(lib.scoring_head_smem_bytes, [i, i], ctypes.c_size_t),
-        )
-    return _fns
+def scoring_smem_bytes(d: int, h: int) -> int:
+    """Shared memory of one block of the main kernel: Wi transposed
+    ([ceil8(D)][ceil8(H) + 4] floats), w2, a candidate tile at a row pitch of
+    ceil8(D) + 4 floats and the four warps' parts of the item product ([4][64]
+    [33]), the parts in the tile's place when one pass of 32 units covers H."""
+    d8, h8 = -(-d // 8) * 8, -(-h // 8) * 8
+    tile, parts = TILE_ROWS * (d8 + 4), 4 * TILE_ROWS * 33
+    return 4 * (d8 * (h8 + 4) + h8 + (max(tile, parts) if h8 <= 32 else tile + parts))
 
 
-def grid_y(bsz: int, c: int) -> int:
-    """Blocks that share one user's candidates: enough to fill the card at a
-    small batch, never more than the candidates give work to."""
-    return max(1, min(-(-c // _ROWS_PER_BLOCK), -(-_TARGET_BLOCKS // bsz), 65535))
+def user_half_smem_bytes(d: int, h: int) -> int:
+    """Shared memory of one block of the user-half kernel: Wu transposed,
+    [D][ceil8(H) + 1] floats, and a user row for each of its 4 warps."""
+    return 4 * d * (-(-h // 8) * 8 + 1 + 4)
 
 
-def _launch(user, items, w_user, w_item, b1, w2, b2) -> torch.Tensor:
+@functools.lru_cache(maxsize=512)
+def scoring_plan(b: int, c: int, d: int, h: int) -> ScoringPlan:
+    """Blocks of contiguous tile ranges: as many blocks as fit on the card at
+    once (SM_COUNT SMs, each as many as its shared memory holds), the tiles
+    spread evenly over them. Raises naming the limit where a block does not
+    fit."""
+    smem = scoring_smem_bytes(d, h)
+    if max(smem, user_half_smem_bytes(d, h)) > SMEM_LIMIT:
+        raise ValueError(f"scoring_head: D={d}, H={h} needs "
+                         f"{max(smem, user_half_smem_bytes(d, h))} bytes of shared memory "
+                         f"per block; the limit is {SMEM_LIMIT}")
+    tiles = -(-b * c // TILE_ROWS)
+    per_sm = max(1, _SM_SHARED // (smem + 1024))
+    tpb = -(-tiles // min(tiles, SM_COUNT * per_sm)) if tiles else 1
+    return ScoringPlan(tiles, tpb, -(-tiles // tpb), smem)
+
+
+# the entry point's ScoreArgs block (csrc/scoring_head.cu): 23 8-byte fields
+_PACK = struct.Struct("<23q").pack
+_kernel = None  # the bound entry point, resolved at the first launch
+
+
+def _bind() -> None:
+    global _kernel
+    _kernel = _build.bind(_build.load("scoring_head").scoring_head, [ctypes.c_char_p])
+
+
+def smem_bytes_of_the_kernels():
+    """(scoring_head_smem_bytes, scoring_user_half_smem_bytes) of the C
+    library, typed: the kernels' own shared-memory arithmetic, for the tests."""
+    lib, i = _build.load("scoring_head"), ctypes.c_int
+    return (_build.bind(lib.scoring_head_smem_bytes, [i, i], ctypes.c_size_t),
+            _build.bind(lib.scoring_user_half_smem_bytes, [i, i], ctypes.c_size_t))
+
+
+def _unit(x: torch.Tensor):
+    """(x, its strides), x copied if its last axis is not of unit stride."""
+    st = x.stride()
+    if st[-1] != 1:
+        x = x.contiguous()
+        st = x.stride()
+    return x, st
+
+
+def _launch(users, items, w_user, w_item, b1, w2, b2):
+    """One launch for one or two users on checked CUDA tensors: a tuple of
+    [B, C] scores, one a user."""
+    if _kernel is None:
+        _bind()
     bsz, c, d = items.shape
     h = b1.shape[0]
-    if d % 4 != 0:
+    if d & 3:
         raise ValueError(f"scoring_head: the kernel takes D a multiple of 4; got D={d}")
-    kernel, smem_bytes = _fns or _kernel_fns()
-    need = smem_bytes(d, h)
-    if need > SMEM_LIMIT:
-        raise ValueError(f"scoring_head: D={d}, H={h} needs {need} bytes of shared memory "
-                         f"per block; the limit is {SMEM_LIMIT}")
-    if items.stride(2) != 1 or items.stride(1) % 4 or items.stride(0) % 4 \
-            or items.data_ptr() % 16:
-        items = items.contiguous()  # the kernel loads item rows 16 bytes at a time
-    user, w_user, w_item = (x if x.stride(-1) == 1 else x.contiguous()
-                            for x in (user, w_user, w_item))
-    b1, w2, b2 = b1.contiguous(), w2.contiguous(), b2.contiguous()
-    out = torch.empty((bsz, c), dtype=torch.float32, device=user.device)
-    err = kernel(
-        user.data_ptr(), user.stride(0), items.data_ptr(), items.stride(0), items.stride(1),
-        w_user.data_ptr(), w_user.stride(0), w_item.data_ptr(), w_item.stride(0),
-        b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), out.data_ptr(),
-        bsz, c, d, h, grid_y(bsz, c),
-        _build.raw_stream(user.device.index),
-    )
-    if err != 0:
+    n = len(users)
+    plan = scoring_plan(bsz, c, d, h)
+    # copies stay referenced until the launch is in the stream; the item rows
+    # are copied 16 bytes at a time, the rest is read by element
+    ist, iptr = items.stride(), items.data_ptr()
+    if ist[2] != 1 or (ist[0] | ist[1]) & 3 or iptr & 15:
+        items = items.contiguous()
+        ist, iptr = items.stride(), items.data_ptr()
+    user0, st0 = _unit(users[0])
+    user1, st1 = _unit(users[1]) if n == 2 else (user0, st0)
+    (w_user, wu_st), (w_item, wi_st) = _unit(w_user), _unit(w_item)
+    b1, w2 = b1.contiguous(), w2.contiguous()
+    # the scores, then the user half of the first layer ([n, B, ceil8(H)]
+    # floats of scratch), in one allocation
+    rows = bsz * c
+    up_at = -(-n * rows // 4) * 4  # the scratch starts 16-byte aligned
+    out = items.new_empty(up_at + n * bsz * -(-h // 8) * 8)
+    optr = out.data_ptr()
+    err = _kernel(_PACK(
+        user0.data_ptr(), user1.data_ptr(), st0[0], st1[0], iptr, ist[0], ist[1],
+        w_user.data_ptr(), wu_st[0], w_item.data_ptr(), wi_st[0], b1.data_ptr(),
+        w2.data_ptr(), b2.data_ptr(), optr, n, bsz, c, d, h, plan.tiles_per_block,
+        optr + 4 * up_at, _build.raw_stream(items.device.index)))
+    if err:
+        if err == -1:
+            raise ValueError(f"scoring_head: arguments the kernel does not take "
+                             f"(items {tuple(items.shape)}, H={h})")
         raise RuntimeError(f"scoring_head kernel launch failed: cudaError {err}")
     scoring_head.launches += 1
-    return out
+    if n == 2:
+        return out.as_strided((bsz, c), (c, 1)), out.as_strided((bsz, c), (c, 1), rows)
+    return (out.as_strided((bsz, c), (c, 1)),)
 
 
-class _ScoringHead(torch.autograd.Function):
-    """Forward: the kernel (CUDA) or the plain version (CPU). Backward: the
-    hidden layer recomputed in plain PyTorch; residuals are the inputs and
-    the output."""
+def _forward(users, items, w_user, w_item, b1, w2, b2) -> tuple:
+    """The forward of both wrappers on checked tensors, without autograd."""
+    if items.is_cuda:
+        return _launch(users, items, w_user, w_item, b1, w2, b2)
+    with torch.no_grad():
+        if len(users) == 2:
+            return scoring_head_pair_plain(*users, items, w_user, w_item, b1, w2, b2)
+        return (scoring_head_plain(users[0], items, w_user, w_item, b1, w2, b2),)
+
+
+class _Scoring(torch.autograd.Function):
+    """Forward: one kernel launch (CUDA) or the plain version (CPU) for one or
+    two users. Backward: the hidden layer recomputed in plain PyTorch, the
+    item half once; residuals are the inputs and the outputs."""
 
     @staticmethod
-    def forward(ctx, user, items, w_user, w_item, b1, w2, b2):
-        args = tuple(x.detach() for x in (user, items, w_user, w_item, b1, w2, b2))
-        out = _launch(*args) if user.device.type == "cuda" else scoring_head_plain(*args)
-        ctx.save_for_backward(user, items, w_user, w_item, b1, w2, out)
-        return out
+    def forward(ctx, items, w_user, w_item, b1, w2, b2, *users):
+        outs = _forward(users, items, w_user, w_item, b1, w2, b2)
+        ctx.save_for_backward(items, w_user, w_item, b1, w2, *users, *outs)
+        ctx.n_users = len(users)
+        return outs
 
     @staticmethod
     @torch.autograd.function.once_differentiable
-    def backward(ctx, g):
-        user, items, w_user, w_item, b1, w2, out = ctx.saved_tensors
-        pre = F.linear(user, w_user)[:, None, :] + F.linear(items, w_item) + b1  # [B, C, H]
-        hidden = torch.relu(pre)
-        dlogit = g * out * (1.0 - out)  # through the sigmoid, [B, C]
-        dw2 = torch.einsum("bch,bc->h", hidden, dlogit)[None, :]
-        db2 = dlogit.sum()[None]
-        dpre = (dlogit[..., None] * w2[0]) * (pre > 0)  # [B, C, H]
-        db1 = dpre.sum(dim=(0, 1))
-        du_part = dpre.sum(dim=1)  # [B, H]
-        duser = du_part @ w_user
-        dw_user = du_part.T @ user
-        ditems = dpre @ w_item
-        dw_item = torch.einsum("bch,bcd->hd", dpre, items)
-        return duser, ditems, dw_user, dw_item, db1, dw2, db2
+    def backward(ctx, *grads):
+        items, w_user, w_item, b1, w2, *rest = ctx.saved_tensors
+        users, outs = rest[:ctx.n_users], rest[ctx.n_users:]
+        i_part = F.linear(items, w_item) + b1  # [B, C, H], once for both users
+        dw2 = db2 = db1 = dw_user = dpre_sum = None
+        dusers = []
+        for user, out, g in zip(users, outs, grads):
+            pre = F.linear(user, w_user)[:, None, :] + i_part
+            dlogit = g * out * (1.0 - out)  # through the sigmoid, [B, C]
+            dpre = (dlogit[..., None] * w2[0]) * (pre > 0)  # [B, C, H]
+            du_part = dpre.sum(dim=1)  # [B, H]
+            terms = (torch.einsum("bch,bc->h", torch.relu(pre), dlogit)[None, :],
+                     dlogit.sum()[None], dpre.sum(dim=(0, 1)), du_part.T @ user, dpre)
+            if dw2 is None:
+                dw2, db2, db1, dw_user, dpre_sum = terms
+            else:
+                dw2, db2, db1, dw_user, dpre_sum = (a + t for a, t in zip(
+                    (dw2, db2, db1, dw_user, dpre_sum), terms))
+            dusers.append(du_part @ w_user)
+        ditems = dpre_sum @ w_item
+        dw_item = torch.einsum("bch,bcd->hd", dpre_sum, items)
+        return (ditems, dw_user, dw_item, db1, dw2, db2, *dusers)
+
+
+def _score(users, items, w_user, w_item, b1, w2, b2) -> tuple:
+    _check(users, items, w_user, w_item, b1, w2, b2)
+    if torch.is_grad_enabled() and (
+            w_user.requires_grad or w_item.requires_grad or items.requires_grad
+            or b1.requires_grad or w2.requires_grad or b2.requires_grad
+            or any(u.requires_grad for u in users)):
+        return _Scoring.apply(items, w_user, w_item, b1, w2, b2, *users)
+    return _forward(users, items, w_user, w_item, b1, w2, b2)
 
 
 def scoring_head(user, items, w_user, w_item, b1, w2, b2) -> torch.Tensor:
     """See the module docstring. Differentiable in all seven inputs. CUDA
     tensors launch the kernel (or raise); CPU tensors take
     `scoring_head_plain` in the forward."""
-    if user.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"scoring_head runs on cuda or cpu, not {user.device}")
-    _check(user, items, w_user, w_item, b1, w2, b2)
-    return _ScoringHead.apply(user, items, w_user, w_item, b1, w2, b2)
+    return _score((user,), items, w_user, w_item, b1, w2, b2)[0]
 
 
-scoring_head.launches = 0  # kernel launches since the last reset
+def scoring_head_pair(user_d1, user_d2, items, w_user, w_item, b1, w2, b2):
+    """Both user representations against the same candidates in one launch:
+    (scoring_head(user_d1, items, ...), scoring_head(user_d2, items, ...)),
+    differentiable in all eight inputs. CUDA tensors launch the kernel (or
+    raise); CPU tensors take `scoring_head_pair_plain` in the forward."""
+    return _score((user_d1, user_d2), items, w_user, w_item, b1, w2, b2)
+
+
+scoring_head.launches = 0  # kernel launches since the last reset, of both wrappers

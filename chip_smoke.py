@@ -39,12 +39,15 @@ code and no result line):
    [256, 150], 2 x [256, 20]) and target with negatives straight into one
    [256, 1+K, 128] block (K = 999 and 1); bit for bit, with clamped
    out-of-range ids and the gradient of a group (library: `index_select` on
-   the concatenated ids). Scoring head at C=1000 and
-   C=2 (no library call computes it). Max-affinity, bf16 inputs: the blocked
-   kernel at N=M=150 and at N=M=20, the small-N kernel at N=M=20, ragged
-   11 x 13 batches, the two kernels bit-equal to each other (library: the
-   chunked `matmul` + `amax` on bf16 inputs, several calls; the bound is the
-   bf16 tensor-core peak);
+   the concatenated ids). Scoring head at C=1000 and C=2, one user
+   representation a launch and both in one launch (`scoring_head_pair`,
+   what the model calls: against two calls of the plain version, and its
+   eight gradients against autograd through the plain pair; no library call
+   computes it). Max-affinity, bf16 inputs: the blocked kernel at N=M=150
+   (B=C=256 and B=C=64) and at N=M=20, the small-N kernel at N=M=20, ragged
+   11 x 13 batches, N != M, a doubled time axis, the two kernels bit-equal
+   to each other (library: the chunked `matmul` + `amax` on bf16 inputs,
+   several calls; the bound is the bf16 tensor-core peak);
 3. the serving path at the full width of the `run.sh` model (SASRec, InterComp
    ts2=0.4, DR heads, emb 128, hid 32, batch 256, 2 blocks, 8 heads) at the
    amazon shape T=150 with the 894,820-row item table, random weights from
@@ -267,11 +270,13 @@ def gather_bound(n, width):
     return bound(2 * n * width * 4 + 4 * n, 0)
 
 
-def scoring_bound(b, c, d, h):
-    """The scoring head: user, items, both weight halves, b1, w2, b2 read,
-    [B, C] written; three products."""
-    nbytes = 4 * (b * d + b * c * d + 2 * h * d + 2 * h + 1 + b * c)
-    return bound(nbytes, 2 * b * c * d * h + 2 * b * d * h + 2 * b * c * h)
+def scoring_bound(b, c, d, h, users=1):
+    """The scoring head for `users` user representations against the same
+    candidates: the users, the items (once), both weight halves, b1, w2, b2
+    read, [users, B, C] written; the item product once, the user product and
+    the output product per user."""
+    nbytes = 4 * (users * b * d + b * c * d + 2 * h * d + 2 * h + 1 + users * b * c)
+    return bound(nbytes, 2 * b * c * d * h + users * (2 * b * d * h + 2 * b * c * h))
 
 
 def affinity_bound(b, c, n, m, d):
@@ -303,7 +308,8 @@ def expected_launches(t, pairwise, train_steps=0, eval_batches=0, feature_passes
     """Kernel launches of the `run.sh` model (InterComp, DR heads, 2 blocks,
     2 towers) with kernels='cuda': per forward 4 attention launches, 2 gathers
     (both sequences in one launch, target and negatives in another; 1 on a
-    features-only pass), 2 scoring launches per head (3 heads), and
+    features-only pass), 1 scoring launch per head (3 heads: both user
+    representations in one launch), and
     in pairwise mode 2 affinity launches (the small-N kernel when the peers'
     tiles fit, else the blocked one); per train step the backward's 4
     attention launches and, on the lazy path, the table write-back."""
@@ -318,7 +324,7 @@ def expected_launches(t, pairwise, train_steps=0, eval_batches=0, feature_passes
             "scatter_set_unique3": scatters if fused_scatter else 0,
             "scatter_set_unique": 0 if fused_scatter else 3 * scatters,
             "embedding_gather": 2 * forwards + feature_passes,
-            "scoring_head": 6 * forwards,
+            "scoring_head": 3 * forwards,
             "max_affinity_blocked": 0 if smalln else affinity,
             "max_affinity_smalln": affinity if smalln else 0}
 
@@ -665,7 +671,9 @@ def gather_kernel_phase(torch, gen):
 
 
 def scoring_kernel_phase(torch, gen):
-    from amid_tpu_torch.ops.scoring import scoring_head, scoring_head_plain
+    from amid_tpu_torch.ops.scoring import (
+        scoring_head, scoring_head_pair, scoring_head_pair_plain, scoring_head_plain,
+    )
 
     B, D, H = FLAGSHIP["batch_size"], FLAGSHIP["emb_dim"], FLAGSHIP["hid_dim"]
 
@@ -677,36 +685,57 @@ def scoring_kernel_phase(torch, gen):
               rand(1, scale=0.1))
     cases = {}
     for c in (1000, 2):
-        user, items = rand(B, D), rand(B, c, D)
+        user, other, items = rand(B, D), rand(B, D), rand(B, c, D)
         with torch.no_grad():
             got = scoring_head(user, items, *params)
             want = scoring_head_plain(user, items, *params)
+            pair = scoring_head_pair(user, other, items, *params)
+            want_pair = (want, scoring_head_plain(other, items, *params))
             torch.cuda.synchronize()
-            err = (got - want).abs().max().item()
-            require(torch.isfinite(got).all().item(), f"scoring C={c}: non-finite output")
-            require(err <= SCORE_ATOL, f"scoring C={c}: kernel vs plain max_abs_err {err}")
-            rec = {"case": f"scoring_C{c}", "shape": [B, c, D], "H": H, "max_abs_err": err,
-                   **timings(torch, lambda: scoring_head(user, items, *params), 50),
-                   "plain_ms": cuda_ms(
-                       torch, lambda: scoring_head_plain(user, items, *params), 20),
-                   "library_ms": None}
-        rec["bound_ms"], rec["bound_by"] = scoring_bound(B, c, D, H)
-        emit({"kernel_case_scoring": rec})
-        cases[c] = rec
-    # all seven gradients against autograd through the plain version (C=2,
-    # the training shape; sums over B*C in another order)
-    user, items = rand(B, D), rand(B, 2, D)
-    leaves = [x.detach().clone().requires_grad_() for x in (user, items, fc1, *params[2:])]
+            for name, outs, wants, fn, plain, users in (
+                    (f"scoring_C{c}", (got,), (want,),
+                     lambda: scoring_head(user, items, *params),
+                     lambda: scoring_head_plain(user, items, *params), 1),
+                    (f"scoring_pair_C{c}", pair, want_pair,
+                     lambda: scoring_head_pair(user, other, items, *params),
+                     lambda: (scoring_head_plain(user, items, *params),
+                              scoring_head_plain(other, items, *params)), 2)):
+                err = max((g - w).abs().max().item() for g, w in zip(outs, wants))
+                require(all(torch.isfinite(g).all().item() and tuple(g.shape) == (B, c)
+                            for g in outs), f"{name}: non-finite output or wrong shape")
+                require(err <= SCORE_ATOL, f"{name}: kernel vs plain max_abs_err {err}")
+                rec = {"case": name, "shape": [B, c, D], "H": H, "users": users,
+                       "max_abs_err": err, **timings(torch, fn, 50),
+                       "plain_ms": cuda_ms(torch, plain, 20), "library_ms": None}
+                rec["bound_ms"], rec["bound_by"] = scoring_bound(B, c, D, H, users)
+                emit({"kernel_case_scoring": rec})
+                cases[name] = rec
+    # the gradients against autograd through the plain version (C=2, the
+    # training shape; sums over B*C in another order): all seven of one user,
+    # all eight of the pair (both users' terms summed into fc1)
+    user, other, items = rand(B, D), rand(B, D), rand(B, 2, D)
+    leaves = [x.detach().clone().requires_grad_()
+              for x in (user, other, items, fc1, *params[2:])]
 
-    def grads(fn):
-        u, it, w, b1, w2, b2 = leaves
-        out = fn(u, it, w[:, :D], w[:, D:], b1, w2, b2)
-        return torch.autograd.grad((out * out).sum(), leaves)
+    def grads(fn, paired):
+        u, o, it, w, b1, w2, b2 = leaves
+        rest = (w[:, :D], w[:, D:], b1, w2, b2)
+        if paired:
+            o1, o2 = fn(u, o, it, *rest)
+            loss = (o1 * o1).sum() + o2.sum()
+        else:
+            loss = (fn(u, it, *rest) ** 2).sum()
+        return torch.autograd.grad(loss, leaves, allow_unused=True)
 
-    for name, g, w in zip(("user", "items", "fc1", "b1", "w2", "b2"),
-                          grads(scoring_head), grads(scoring_head_plain)):
-        require(torch.allclose(g, w, atol=1e-5, rtol=1e-4),
-                f"scoring backward: d{name} differs by {(g - w).abs().max().item()}")
+    for paired, fn, plain in ((False, scoring_head, scoring_head_plain),
+                              (True, scoring_head_pair, scoring_head_pair_plain)):
+        for name, g, w in zip(("user", "other", "items", "fc1", "b1", "w2", "b2"),
+                              grads(fn, paired), grads(plain, paired)):
+            if w is None:  # the single head does not read `other`
+                continue
+            require(torch.allclose(g, w, atol=1e-5, rtol=1e-4),
+                    f"scoring backward (pair={paired}): d{name} differs by "
+                    f"{(g - w).abs().max().item()}")
     return cases
 
 
@@ -746,6 +775,8 @@ def affinity_kernel_phase(torch, gen):
     a, b = pair(B, B, 150, 150)
     require(not smalln_fits(150, D), "smalln_fits(150, 128) should be False")
     cases["max_affinity_blocked"][150], _ = compare("blocked_T150", max_affinity_blocked, a, b)
+    # a batch smaller than the card: 16 query groups, 8 slices of the peers
+    compare("blocked_T150_B64", max_affinity_blocked, *pair(64, 64, 150, 150))
     a, b = pair(B, B, 20, 20)
     require(smalln_fits(20, D), "smalln_fits(20, 128) should be True")
     cases["max_affinity_blocked"][20], k6 = compare("blocked_T20", max_affinity_blocked, a, b)
@@ -1240,7 +1271,8 @@ def main() -> int:
     # blocked affinity; the lazy path's shape for the scatters (U=11,264) and
     # the small-N affinity (T=20); the evaluation's shape for the gather
     # (target and 999 negatives of 256 users in one launch) and the scoring
-    # head (C=1000)
+    # head (C=1000, both user representations in one launch, as the model
+    # calls it)
     rows = {"attention_fwd": (fwd[150], fwd.values()),
             "attention_bwd": (bwd[150], bwd.values()),
             "scatter_set_unique3": (scatter[11264]["scatter_set_unique3"],
@@ -1248,7 +1280,7 @@ def main() -> int:
             "scatter_set_unique": (scatter[11264]["scatter_set_unique"],
                                    [c["scatter_set_unique"] for c in scatter.values()]),
             "embedding_gather": (gather["cand999"], gather.values()),
-            "scoring_head": (scoring[1000], scoring.values()),
+            "scoring_head": (scoring["scoring_pair_C1000"], scoring.values()),
             "max_affinity_blocked": (affinity["max_affinity_blocked"][150],
                                      affinity["max_affinity_blocked"].values()),
             "max_affinity_smalln": (affinity["max_affinity_smalln"][20],

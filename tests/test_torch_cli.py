@@ -132,6 +132,33 @@ def test_cli_runs_on_the_card_unless_asked_and_refuses_unported_parts(
         train_sr_dr.main(base + ["--device", "cpu", "--kernels", "cuda"])
 
 
+@pytest.mark.parametrize("flag,field,value", [
+    (["--bf16", "True"], "use_bf16", True),
+    (["--matmul_precision", "bfloat16"], "matmul_precision", "bfloat16"),
+    (["--remat", "True"], "remat", True),
+])
+def test_precision_flags_parse_as_in_the_jax_package_and_are_refused(
+        tmp_path, csv_root, flag, field, value):
+    """The three flags fill the JAX package's fields; the port computes in
+    full fp32 with TF32 off and keeps every activation, so the run refuses
+    what it would not compute, naming the field, and `--matmul_precision
+    highest` (what the port computes) trains."""
+    base = TINY + ["--data_root", csv_root, "-md", str(tmp_path), "--device", "cpu",
+                   "--kernels", "torch"]
+    got = config.parse_cli(base[:-4] + flag, is_dr=True).model
+    want = jax_config.parse_cli(base[:-4] + flag, is_dr=True).model
+    assert getattr(got, field) == getattr(want, field) == value
+    with pytest.raises(NotImplementedError, match=f"ModelConfig.{field}"):
+        train_sr_dr.main(base + flag)
+    with pytest.raises(NotImplementedError, match=f"ModelConfig.{field}"):
+        build_model(got, device="cpu")
+    if field == "matmul_precision":
+        cfg = config.parse_cli(base[:-4] + ["--matmul_precision", "highest"], is_dr=True)
+        assert cfg.model.matmul_precision == "highest"
+        cfg.fast_train = cfg.fast_eval = cfg.checkpoint = False
+        assert 0.0 < loop.run(cfg, device="cpu")["mrr_d1"]["mean"] <= 1.0
+
+
 def test_run_serves_a_config_as_it_is(tmp_path, csv_root):
     """`run` turns nothing off: the reference's defaults reach run_seed's
     refusal, and a config with the three parts off trains."""

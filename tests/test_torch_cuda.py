@@ -15,7 +15,7 @@ import torch
 from amid_tpu_torch.config import ModelConfig
 from amid_tpu_torch.models.amid import build_model
 from amid_tpu_torch.ops.affinity import (
-    SMEM_LIMIT,
+    blocked_plan,
     blocked_smem_bytes,
     max_affinity,
     max_affinity_blocked,
@@ -46,7 +46,13 @@ from amid_tpu_torch.ops.scatter import (
     scatter_set_unique3_plain,
     scatter_set_unique_plain,
 )
-from amid_tpu_torch.ops.scoring import scoring_head, scoring_head_plain
+from amid_tpu_torch.ops import scoring as scoring_ops
+from amid_tpu_torch.ops.scoring import (
+    scoring_head,
+    scoring_head_pair,
+    scoring_head_pair_plain,
+    scoring_head_plain,
+)
 from amid_tpu_torch.serve import user_representations
 from amid_tpu_torch.train import lazy, steps
 from amid_tpu_torch.train.optim import Adam
@@ -424,8 +430,10 @@ AFF_ATOL, AFF_RTOL = 1e-4, 1e-5  # same bf16 inputs, fp32 sums in another order
 def test_affinity_kernels_match_plain_and_each_other(gen, shape, d):
     """Both kernels at shapes the small-N kernel takes: ragged batches (no
     padding rows), N != M, time axes that are no multiple of the fragment
-    height, every compiled width. The two run the same mma steps in the same
-    order, so they agree bit for bit."""
+    height, every compiled width. The blocked kernel's wgmma k16 steps and
+    the small-N kernel's mma.sync k16 steps sum the same products in the
+    same order (the blocked kernel's zero padding past D adds exact zeros),
+    so they agree bit for bit."""
     b, c, n, m = shape
     a = torch.randn(b, n, d, device="cuda", generator=gen)
     bank = torch.randn(c, m, d, device="cuda", generator=gen)
@@ -440,8 +448,11 @@ def test_affinity_kernels_match_plain_and_each_other(gen, shape, d):
 
 
 @pytest.mark.parametrize("shape", [(64, 64, 150, 150), (11, 13, 150, 150), (4, 6, 300, 300),
-                                   (7, 3, 150, 20)])
+                                   (7, 3, 150, 20), (256, 256, 150, 150), (3, 5, 450, 450),
+                                   (2, 3, 640, 17), (256, 255, 150, 150)])
 def test_blocked_affinity_kernel_takes_long_sequences(gen, shape):
+    """Up to four query slots a user (N up to 640), and a peer count the
+    slices do not divide (C=255 in two slices of 128 and 127)."""
     b, c, n, m = shape
     a = torch.randn(b, n, 128, device="cuda", generator=gen)
     bank = torch.randn(c, m, 128, device="cuda", generator=gen)
@@ -472,9 +483,8 @@ def test_affinity_dispatch_and_refusals(gen):
     assert (max_affinity_blocked.launches, max_affinity_smalln.launches) == (k6 + 1, k7 + 1)
     with pytest.raises(ValueError, match="largest M"):
         max_affinity_smalln(a150, a150)
-    long = torch.randn(1, 450, 128, device="cuda", generator=gen)
-    assert blocked_smem_bytes(450, 450, 128) > SMEM_LIMIT
-    with pytest.raises(ValueError, match="shared memory"):
+    long = torch.randn(1, 641, 128, device="cuda", generator=gen)
+    with pytest.raises(ValueError, match="N <= 640"):
         max_affinity_blocked(long, long)
     odd = torch.randn(2, 4, 48, device="cuda", generator=gen)
     with pytest.raises(ValueError, match="D in"):
@@ -483,10 +493,12 @@ def test_affinity_dispatch_and_refusals(gen):
         max_affinity_blocked(a20, a20.cpu())
     assert (max_affinity_blocked.launches, max_affinity_smalln.launches) == (k6 + 1, k7 + 1)
     # the wrappers' shared-memory arithmetic is the kernels' own
-    from amid_tpu_torch.ops.affinity import _kernel_fns
-    _, _, smem_bytes, smalln_bytes = _kernel_fns()
+    from amid_tpu_torch.ops.affinity import smem_bytes_of_the_kernels
+    smem_bytes, smalln_bytes = smem_bytes_of_the_kernels()
     for n, m, d in ((150, 150, 128), (20, 20, 128), (33, 9, 32), (300, 300, 64)):
-        assert smem_bytes(n, m, d) == blocked_smem_bytes(n, m, d)
+        plan = blocked_plan(256, 256, n, m, d)
+        assert smem_bytes(plan.width, plan.stages, plan.peers) == plan.smem == \
+            blocked_smem_bytes(plan.width, plan.stages, plan.peers)
         assert smalln_bytes(m, d) == smalln_smem_bytes(m, d)
 
 
@@ -520,6 +532,52 @@ def test_scoring_head_kernel_matches_plain(gen, b, c, d, h):
         torch.testing.assert_close(scoring_head(user, strided, *args[2:]),
                                    scoring_head_plain(user, strided, *args[2:]),
                                    atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("b,c,d,h", [(256, 1000, 128, 32), (256, 2, 128, 32), (256, 1, 128, 32),
+                                     (7, 37, 64, 8), (3, 1, 128, 33), (2, 130, 256, 64)])
+def test_scoring_head_pair_kernel_matches_plain(gen, b, c, d, h):
+    """Both users in one launch against two calls of the plain version, with
+    contiguous and with strided item views (a [B, C, D] slice of a wider
+    tensor, and every other candidate)."""
+    user, items, fc1, b1, w2, b2 = _head(gen, b, c, d, h)
+    other = torch.randn(b, d, device="cuda", generator=gen)
+    params = (fc1[:, :d], fc1[:, d:], b1, w2, b2)
+    wide = torch.randn(b, 2 * c, d + 4, device="cuda", generator=gen)
+    before = scoring_head.launches
+    with torch.no_grad():
+        for cand in (items, wide[:, :c, 4:], wide[:, ::2, :d]):
+            got = scoring_head_pair(user, other, cand, *params)
+            for g, u in zip(got, (user, other)):
+                assert g.dtype == torch.float32 and tuple(g.shape) == (b, c)
+                torch.testing.assert_close(g, scoring_head_plain(u, cand, *params),
+                                           atol=1e-5, rtol=0)
+            assert torch.equal(got[0], scoring_head(user, cand, *params))
+    assert scoring_head.launches == before + 6
+
+
+def test_scoring_head_pair_gradients_match_autograd_through_the_plain_pair(gen):
+    d = 128
+    leaves = [x.requires_grad_() for x in _head(gen, 16, 5, d, 32)]
+    leaves.append(torch.randn(16, d, device="cuda", generator=gen).requires_grad_())
+
+    def grads(fn):
+        user, items, fc1, b1, w2, b2, other = leaves
+        o1, o2 = fn(user, other, items, fc1[:, :d], fc1[:, d:], b1, w2, b2)
+        return torch.autograd.grad((o1 ** 2).sum() + o2.sum(), leaves)
+
+    before = scoring_head.launches
+    got = grads(scoring_head_pair)
+    assert scoring_head.launches == before + 1  # one launch; the backward is plain
+    for g, w in zip(got, grads(scoring_head_pair_plain)):
+        torch.testing.assert_close(g, w, atol=1e-5, rtol=1e-4)
+
+
+def test_scoring_plan_is_the_kernels_shared_memory(gen):
+    smem, smem_up = scoring_ops.smem_bytes_of_the_kernels()
+    for b, c, d, h in ((256, 1000, 128, 32), (256, 2, 128, 33), (2, 130, 256, 64)):
+        assert smem(d, h) == scoring_ops.scoring_plan(b, c, d, h).smem
+        assert smem_up(d, h) == scoring_ops.user_half_smem_bytes(d, h)
 
 
 def test_scoring_head_gradients_reach_fc1_as_one_parameter(gen):
@@ -717,7 +775,7 @@ def test_pairwise_step_on_cuda_goes_through_all_kernels(gen, seq_len, kernel):
     counters = (embedding_gather, scoring_head, kernel)
     before = [f.launches for f in counters]
     _, m = step(state, batch, pools, sizes, 5)
-    assert [f.launches - b for f, b in zip(counters, before)] == [2, 6, 2]
+    assert [f.launches - b for f, b in zip(counters, before)] == [2, 3, 2]
     assert torch.isfinite(m["loss"]) and abs(float(m["loss_cls"]) - 0.693) < 0.05
     # the same weights with plain everything and the kernels' bf16 affinity
     plain = build_model(dataclasses.replace(cfg, kernels="torch"), device="cuda")

@@ -91,17 +91,107 @@ def test_smalln_fits_at_its_edges():
     assert not affinity.smalln_fits(8, 100)  # a width the kernels are not built for
     for m, d in ((24, 128), (25, 128), (48, 64)):
         assert affinity.smalln_fits(m, d) == (affinity.smalln_smem_bytes(m, d) <= half)
-    # the blocked kernel's tile: query rows to 16, peer rows to 8
-    assert affinity.blocked_smem_bytes(150, 150, 128) == (160 + 152) * 136 * 2 + 32
-    assert affinity.blocked_smem_bytes(300, 300, 128) <= affinity.SMEM_LIMIT
-    assert affinity.blocked_smem_bytes(450, 450, 128) > affinity.SMEM_LIMIT
-    assert affinity.blocked_grid_y(256, 256) == 2 and affinity.blocked_grid_y(512, 256) == 1
-    assert affinity.blocked_grid_y(11, 13) == 13 and affinity.blocked_grid_y(1, 7) == 7
+    # the blocked kernel: four query slots of ceil8(N) rows, 64-row bank tiles,
+    # rows of 128 bf16 columns
+    plan = affinity.blocked_plan(256, 256, 150, 150, 128)
+    assert (plan.width, plan.chunks, plan.groups, plan.slices, plan.peers, plan.stages) == (
+        152, 1, 64, 2, 128, 4)
+    assert plan.smem == 4 * 152 * 256 + 4 * 64 * 256 + 4 * 128 * 4 + 9 * 8 == 223304
+    assert affinity.blocked_plan(4, 6, 300, 300, 128)[:2] == (152, 2)  # two slots a user
+    assert affinity.blocked_plan(1, 1, 640, 1, 128)[:2] == (160, 4)
+    with pytest.raises(ValueError, match="N <= 640"):
+        affinity.blocked_plan(1, 1, 641, 1, 128)
+
+
+PLAN_SHAPES = [  # B, C, N, M, D
+    (256, 256, 150, 150, 128), (256, 256, 20, 20, 128), (64, 64, 150, 150, 128),
+    (11, 13, 150, 150, 128), (4, 6, 300, 300, 128), (7, 3, 150, 20, 128),
+    (5, 7, 33, 9, 32), (3, 4, 17, 24, 16), (1, 1, 1, 1, 128), (9, 5, 40, 48, 64),
+    (3, 700, 640, 3, 128), (512, 1000, 161, 7, 64),
+]
+
+
+def _slice_rows(c, m, peers):
+    """Each slice's bank rows and the 64-row tiles a block of it streams."""
+    out = []
+    for lo in range(0, c, peers):
+        row_lo, row_hi = lo * m, min(c, lo + peers) * m
+        out.append((row_lo, row_hi, -(-row_hi // 64) - row_lo // 64))
+    return out
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+def test_blocked_plan_against_a_brute_force_count(shape):
+    """The blocked kernel's plan, counted out: the query slots hold every
+    query row of every user, every peer lies in exactly one slice and every
+    bank row in a tile of its slice, the bound on tiles per block holds, no
+    other slice count gives fewer waves x tiles (nor as few with fewer
+    slices), and the ring takes every buffer that fits."""
+    b, c, n, m, d = shape
+    plan = affinity.blocked_plan(*shape)
+    w, kc = plan.width, plan.chunks
+    assert w % 8 == 0 and w <= affinity.MAX_WIDTH and w == -(-(-(-n // kc)) // 8) * 8
+    assert all(-(-n // k) > affinity.MAX_WIDTH for k in affinity.CHUNKS if k < kc)
+    assert plan.groups * affinity.SLOTS >= b * kc > (plan.groups - 1) * affinity.SLOTS
+    # slot s holds chunk s % kc of user s // kc: every (user, row) once
+    held = {(s // kc, (s % kc) * w + j) for s in range(b * kc) for j in range(w)
+            if (s % kc) * w + j < n}
+    assert len(held) == b * n
+    slices = _slice_rows(c, m, plan.peers)
+    assert len(slices) == plan.slices and plan.peers <= affinity.MAX_PEERS
+    covered = set()
+    for row_lo, row_hi, tiles in slices:
+        assert row_lo % m == 0 and row_hi % m == 0  # peer boundaries only
+        assert tiles <= affinity.slice_tiles(c, m, plan.peers)
+        covered.update(range(row_lo, row_hi))
+    assert covered == set(range(c * m))
+
+    def cost(s):
+        peers = -(-c // s)
+        return (-(-plan.groups * len(_slice_rows(c, m, peers)) // affinity.SM_COUNT)
+                * affinity.slice_tiles(c, m, peers))
+
+    counts = range(-(-c // affinity.MAX_PEERS), c + 1)
+    best = min(cost(s) for s in counts)
+    assert cost(plan.slices) == best
+    assert all(len(_slice_rows(c, m, -(-c // s))) >= plan.slices
+               for s in counts if cost(s) == best)
+    assert plan.smem == affinity.blocked_smem_bytes(w, plan.stages, plan.peers)
+    assert plan.smem <= affinity.SMEM_LIMIT and 2 <= plan.stages <= affinity.MAX_STAGES
+    most = max(t for _, _, t in slices)
+    assert (plan.stages == affinity.MAX_STAGES or plan.stages >= most
+            or affinity.blocked_smem_bytes(w, plan.stages + 1, plan.peers)
+            > affinity.SMEM_LIMIT)
 
 
 # ---------------------------------------------------------------------------
 # scoring head
 # ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape", [(256, 1000, 128, 32), (256, 2, 128, 32), (7, 37, 64, 8),
+                                   (2, 130, 256, 64), (3, 1, 128, 33), (100000, 1, 128, 32),
+                                   (0, 5, 32, 8), (1, 1, 4, 1)])
+def test_scoring_plan_against_a_brute_force_count(shape):
+    """The scoring kernel's plan, counted out: the blocks' contiguous tile
+    ranges cover every candidate row once and no block is empty, the blocks
+    fill the card at most once over, and the shared memory is the kernel's
+    formula within the limit."""
+    b, c, d, h = shape
+    plan = scoring.scoring_plan(*shape)
+    rows = b * c
+    assert plan.tiles == -(-rows // 64)
+    covered = []
+    for block in range(plan.grid):
+        first = block * plan.tiles_per_block
+        tiles = range(first, min(plan.tiles, first + plan.tiles_per_block))
+        assert len(tiles) > 0
+        covered += [r for t in tiles for r in range(t * 64, min(rows, t * 64 + 64))]
+    assert covered == list(range(rows))
+    per_sm = max(1, 233472 // (plan.smem + 1024))
+    assert plan.grid <= scoring.SM_COUNT * per_sm
+    assert plan.smem == scoring.scoring_smem_bytes(d, h) <= scoring.SMEM_LIMIT
+    assert scoring.user_half_smem_bytes(d, h) <= scoring.SMEM_LIMIT
+
 
 def _head_inputs(rng, b, c, d=128, h=32):
     """user, items and the head's parameters in torch's layout ([H, 2D] first
@@ -168,8 +258,12 @@ def test_scoring_head_refuses_wrong_shapes(rng):
         scoring.scoring_head(ok[0], ok[1][:2], *ok[2:])
     with pytest.raises(TypeError, match="float32"):
         scoring.scoring_head(ok[0].double(), *ok[1:])
-    assert scoring.grid_y(256, 1000) == 4 and scoring.grid_y(256, 2) == 1
-    assert scoring.grid_y(4, 1000) == 32
+    # the kernel's plan: 64-row tiles of the B * C candidates in contiguous ranges
+    assert scoring.scoring_plan(256, 1000, 128, 32) == (4000, 8, 500, 52352)
+    assert scoring.scoring_plan(256, 2, 128, 32)[:3] == (8, 1, 8)
+    assert scoring.scoring_plan(4, 1000, 128, 32)[:3] == (63, 1, 63)
+    with pytest.raises(ValueError, match="shared memory"):
+        scoring.scoring_plan(1, 1, 1024, 64)
 
 
 # ---------------------------------------------------------------------------
