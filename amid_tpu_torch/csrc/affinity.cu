@@ -7,14 +7,15 @@
 // the tensor cores. Forward only: the hard gate built from the result passes
 // no gradient.
 //
-// Two kernels, one function:
+// Two entry points, one __global__ template (affinity_wgmma_kernel<K, U>,
+// slot width W = 8 K, U query users a slot):
 //
-// * affinity_wgmma_kernel replaces amid_tpu/ops/pallas_affinity.py::
+// * max_affinity_blocked (K6, U = 1) replaces amid_tpu/ops/pallas_affinity.py::
 //   _affinity_kernel (pallas_call in max_affinity_pallas), the blocked kernel
 //   for long sequences.
-// * affinity_smalln_kernel replaces ::_affinity_smalln_kernel (pallas_call in
-//   max_affinity_pallas_smalln), the schedule for short sequences whose peer
-//   tiles stay resident.
+// * max_affinity_smalln (K7, U = 8, 4 or 2) replaces ::_affinity_smalln_kernel
+//   (pallas_call in max_affinity_pallas_smalln), the kernel for short query
+//   sequences (N <= 80).
 //
 // Neither writes an [N, M] score block anywhere: the scores live in
 // accumulator registers and are folded into maxima there.
@@ -24,10 +25,9 @@
 // 989 TFLOP/s (the inputs are 39 MB: 0.012 ms). At N = M = 20: 6.7 GFLOP,
 // 0.0068 ms.
 //
-// affinity_wgmma_kernel (the blocked kernel). The bank is one matrix: for a
-// query user b the scores are bank_flat [C*M, D] x a_b^T [D, N], and
-// A[b, c] is the max over the rows of peer c = row / M of each row's max over
-// the query's columns.
+// The bank is one matrix: for a query user b the scores are bank_flat
+// [C*M, D] x a_b^T [D, N], and A[b, c] is the max over the rows of peer
+// c = row / M of each row's max over the user's columns.
 //
 // * A pre-pass (pack_kernel) rounds both inputs to bf16 once per call and
 //   writes them in the operand layout wgmma reads without swizzle: K-major
@@ -41,10 +41,21 @@
 //   tile is one bulk copy of 16 KB (cp.async.bulk, the TMA engine's linear
 //   mode, completing on an mbarrier), with no tensor map.
 // * The query side is cut into slots of W rows (W a multiple of 8, at most
-//   160: wgmma's N), one slot per user when N <= 160, else 2 or 4 chunks of a
-//   user (KC). A slot's rows past the user's last repeat that last row, so a
-//   padding column scores what a real one does and no column is masked; a
-//   zero row would score 0 and beat an all-negative maximum.
+//   160: wgmma's N); slot row w is column w of the accumulator. K6 (U = 1):
+//   one slot per user when N <= 160, else 2 or 4 chunks of a user (KC).
+//   K7 (U > 1): U users a slot, interleaved so that a user's columns sit at
+//   fixed places in every group of 8: with S = 8 / U, column 8 j + q holds
+//   row j * S + q % S of the slot's user q / S (U = 8: user q, row j). The
+//   user of a column then depends on U alone, not on N, so the fold needs
+//   no division and no runtime index into registers, and with U >= 4 a
+//   thread's columns belong to one or two users whole (U = 2: a pair of
+//   threads). U = 8 for N <= 20 (W = 8 N: 8 users in 160 columns at N = 20,
+//   no padding), 4 up to N = 40, 2 up to N = 80 (W = 8 ceil(N U / 8)).
+// * Padding never wins a max: a slot's rows past a user's last repeat that
+//   last row, so a padding column scores what a real one of the same user
+//   does and no column is masked (a zero row would score 0 and beat an
+//   all-negative maximum); slots past the last user repeat it and are not
+//   written out; bank rows outside the block's peers are skipped by index.
 // * A block holds four slots resident in shared memory (two per consumer
 //   warpgroup: two accumulators of W / 2 floats a thread) and streams the
 //   bank's 64-row tiles through a ring of `stages` buffers (full and empty
@@ -54,7 +65,9 @@
 //   wgmma kernel's registers are allotted per warpgroup, so a 9th warp
 //   would cut every thread to 168 registers, below the two accumulators of
 //   W = 152 (ptxas then serialises the products and puts them on the
-//   stack). Each bank tile read from L2 serves four query slots.
+//   stack). Each bank tile read from L2 serves four query slots: 4 users
+//   in K6 at N <= 160, 32 in K7 at N <= 20 (four m64n160k16 products a
+//   k-step at N = 20, where K6 issues four m64n24k16).
 // * Per tile a warpgroup issues the eight wgmma m64nWk16 steps of each of
 //   its two slots (one commit group a slot), waits for them, releases the
 //   buffer and folds both accumulators. The two warpgroups take turns
@@ -65,37 +78,35 @@
 //   once. Nothing is in flight while a thread branches on its own index
 //   (the fold, the copies): ptxas would otherwise wait for every product
 //   before the next.
-// * Epilogue: a thread holds rows r and r + 8 of the tile (16 rows a warp)
-//   and W / 4 columns of each; their max, then across the quad, gives each
-//   row's max over the slot. When a warp's 16 rows belong to one peer (the
-//   common case for M >= 16) the warp reduces further and one thread folds
-//   the value into the block's [users, peers] table in shared memory with an
-//   atomic max; otherwise each row folds its own value. Rows outside the
-//   block's peers (a tile shared with the neighbouring slice, or the padding
-//   past C * M) are skipped. A max is exact, so the order of the folds does
-//   not change the result.
+// * The fold (a thread holds rows r and r + 8 of the tile, 16 rows a warp,
+//   and W / 4 columns of each): first over the thread's columns of each
+//   user (K6: then across the quad; K7, U = 2: across a pair), then over
+//   the warp's rows by peer. When the warp's rows lie in one or two peers
+//   (always for M >= 16) each peer's rows are max-reduced across the warp
+//   by shuffles and one thread a (user, peer) folds the value into the
+//   block's [users, peers] table in shared memory with an atomic max;
+//   otherwise each row folds its own value. A max is exact, so the order of
+//   the folds does not change the result.
+// * Bit-equal: every score is the same eight k16 products of the same
+//   zero-padded operands in the same order in K6 and K7, whatever the slot
+//   width, so the two kernels agree bit for bit wherever both take a shape.
 // * The grid is (query groups of four slots) x (slices of the peers). Slices
 //   split the bank only at peer boundaries, so every out[b, c] is written by
 //   exactly one block, once, with a plain store: no atomics in device
 //   memory, a deterministic result. The wrapper picks the slice count that
 //   minimises waves x tiles per block on 132 SMs (ops/affinity.py).
 // * Shared memory: 4 W * 256 bytes of query slots, stages * 16 KB of ring,
-//   16 bytes per peer of the slice, 8 per barrier: 223,304 bytes at
-//   W = 152 (N = 150), four stages, 128 peers: one block an SM.
+//   4 U * 4 bytes per peer of the slice (the [users, peers] table), 8 per
+//   barrier: 223,304 bytes at W = 152 (K6, N = 150), four stages, 128
+//   peers; 231,496 at W = 160 (K7, N = 20), four stages, 16 peers: one
+//   block an SM.
 //
-// affinity_smalln_kernel. For short sequences a block holds 16 peers' tiles
-// resident in shared memory and gives each of its 8 warps one query user.
-// The warp loops over the query's time axis in tiles of 16 rows, keeps that
-// tile's A fragments in registers, and for every resident peer
-// max-accumulates the tile's best score (mma.sync m16n8k16, 16 x 32 score
-// blocks) into the block's resident [8, 16] output tile; one barrier in all.
-// Shared-memory rows hold D + 8 bf16 values (the 16-byte pad puts the eight
-// rows a fragment load touches in distinct banks); a peer's time axis is
-// padded to a multiple of 8 with copies of its last row, the query's with
-// copies of its last row too. A pre-pass (to_bf16_kernel) rounds both inputs
-// into a row-major scratch buffer. It fits while 16 * ceil8(M) * (D + 8) * 2
-// bytes plus the output tile stay under half an SM's shared memory (M <= 24
-// at D = 128).
+// What bounds K7 at N = M = 20: 6.7 GFLOP is 0.0068 ms of tensor cores, and
+// every block also reads its 160 KB of query slots and its slice of the bank
+// from L2 before and while it multiplies; the pre-pass is a second kernel of
+// the call. K7 folds 80 accumulators a slot per tile into 4 values with no
+// shuffle before the row fold, where K6 at W = 24 pays a fold for every thin
+// m64n24 product.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -104,178 +115,6 @@
 #include <string.h>
 
 namespace {
-
-// ---------------------------------------------------------------------------
-// affinity_smalln_kernel
-// ---------------------------------------------------------------------------
-
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kPad = 8;     // bf16 values of padding per shared-memory row
-constexpr int kColTiles = 4;  // 8-column tiles of scores per warp item
-constexpr int kPeers = 16;  // resident peers per block of the small-N kernel
-
-__global__ void to_bf16_kernel(const float* __restrict__ a, long long na,
-                               const float* __restrict__ b, long long nb,
-                               __nv_bfloat16* __restrict__ out) {
-  // na and nb are multiples of 4; out holds a's values, then b's
-  const long long n4 = (na + nb) / 4;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n4;
-       i += (long long)gridDim.x * blockDim.x) {
-    const long long e = i * 4;
-    const float4 x = e < na ? *reinterpret_cast<const float4*>(a + e)
-                            : *reinterpret_cast<const float4*>(b + (e - na));
-    __nv_bfloat162 lo = __floats2bfloat162_rn(x.x, x.y);
-    __nv_bfloat162 hi = __floats2bfloat162_rn(x.z, x.w);
-    uint2 packed;
-    packed.x = *reinterpret_cast<uint32_t*>(&lo);
-    packed.y = *reinterpret_cast<uint32_t*>(&hi);
-    *reinterpret_cast<uint2*>(out + e) = packed;
-  }
-}
-
-// D(16x8, fp32) += A(16x16, bf16, row major) * B(16x8, bf16, column major)
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Copies `rows_pad` rows of D bf16 values from a contiguous [rows, D] array
-// into shared memory rows of D + kPad values, 16 bytes at a time; rows past
-// `rows` repeat the last row.
-template <int D>
-__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst,
-                                           const __nv_bfloat16* __restrict__ src,
-                                           int rows, int rows_pad, int tid) {
-  constexpr int CH = D / 8;  // 16-byte chunks per row
-  const uint4* s = reinterpret_cast<const uint4*>(src);
-  for (int i = tid; i < rows_pad * CH; i += kThreads) {
-    const int r = i / CH, ch = i - r * CH;
-    const int rs = r < rows ? r : rows - 1;
-    *reinterpret_cast<uint4*>(dst + r * (D + kPad) + ch * 8) = s[rs * CH + ch];
-  }
-}
-
-// The largest score of 16 query rows (their A fragments in `afr`) against
-// 8 * kColTiles peer rows starting at column tile `ct0` of a staged tile with
-// `ct_n` column tiles; column tiles past the end repeat the last one.
-template <int D>
-__device__ __forceinline__ float item_max(const uint32_t (&afr)[D / 16][4],
-                                          const uint32_t* tile32,
-                                          int ct0, int ct_n, int g, int t) {
-  constexpr int KS = D / 16, LDW = (D + kPad) / 2;
-  float acc[kColTiles][4];
-  const uint32_t* brow[kColTiles];
-#pragma unroll
-  for (int j = 0; j < kColTiles; ++j) {
-    const int ct = ct0 + j < ct_n ? ct0 + j : ct_n - 1;
-    brow[j] = tile32 + (ct * 8 + g) * LDW + t;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-  }
-#pragma unroll
-  for (int ks = 0; ks < KS; ++ks) {
-#pragma unroll
-    for (int j = 0; j < kColTiles; ++j)
-      mma_bf16(acc[j], afr[ks], brow[j][ks * 8], brow[j][ks * 8 + 4]);
-  }
-  float mx = -INFINITY;
-#pragma unroll
-  for (int j = 0; j < kColTiles; ++j) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) mx = fmaxf(mx, acc[j][e]);
-  }
-  return mx;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads, 2)
-affinity_smalln_kernel(const __nv_bfloat16* __restrict__ a,
-                       const __nv_bfloat16* __restrict__ bank,
-                       float* __restrict__ out, int B, int C, int N, int M) {
-  constexpr int KS = D / 16, LD = D + kPad, LDW = LD / 2;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int m_pad = (M + 7) & ~7;
-  __nv_bfloat16* Bs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [kPeers][m_pad][LD]
-  float* otile = reinterpret_cast<float*>(Bs + kPeers * m_pad * LD);  // [kWarps][kPeers]
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int c0 = blockIdx.y * kPeers;
-  const int peers = C - c0 < kPeers ? C - c0 : kPeers;
-  const int q = blockIdx.x * kWarps + warp;  // this warp's query user
-
-  for (int p = 0; p < peers; ++p)
-    stage_rows<D>(Bs + p * m_pad * LD, bank + (size_t)(c0 + p) * M * D, M, m_pad, tid);
-  if (lane < kPeers) otile[warp * kPeers + lane] = -INFINITY;
-  __syncthreads();
-  if (q >= B) return;
-
-  const uint32_t* a32 = reinterpret_cast<const uint32_t*>(a + (size_t)q * N * D);
-  const uint32_t* Bs32 = reinterpret_cast<const uint32_t*>(Bs);
-  const int ct_n = m_pad / 8;
-  for (int rt = 0; rt < (N + 15) / 16; ++rt) {  // the query's time axis
-    const int row0 = rt * 16 + g < N ? rt * 16 + g : N - 1;
-    const int row1 = rt * 16 + g + 8 < N ? rt * 16 + g + 8 : N - 1;
-    const uint32_t* r0 = a32 + row0 * (D / 2) + t;
-    const uint32_t* r1 = a32 + row1 * (D / 2) + t;
-    uint32_t afr[KS][4];
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-      afr[ks][0] = r0[ks * 8];
-      afr[ks][1] = r1[ks * 8];
-      afr[ks][2] = r0[ks * 8 + 4];
-      afr[ks][3] = r1[ks * 8 + 4];
-    }
-    for (int p = 0; p < peers; ++p) {
-      float mx = -INFINITY;
-      for (int ct0 = 0; ct0 < ct_n; ct0 += kColTiles)
-        mx = fmaxf(mx, item_max<D>(afr, Bs32 + p * m_pad * LDW, ct0, ct_n, g, t));
-      mx = warp_max(mx);
-      if (lane == 0) otile[warp * kPeers + p] = fmaxf(otile[warp * kPeers + p], mx);
-    }
-  }
-  __syncwarp();
-  if (lane < peers) out[(size_t)q * C + c0 + lane] = otile[warp * kPeers + lane];
-}
-
-size_t smalln_smem(int M, int D) {
-  return (size_t)kPeers * ((M + 7) & ~7) * (D + kPad) * 2 +
-         (size_t)kWarps * kPeers * sizeof(float);
-}
-
-cudaError_t round_inputs(const float* a, long long na, const float* bank,
-                         long long nb, __nv_bfloat16* scratch, cudaStream_t s) {
-  const long long n4 = (na + nb) / 4;
-  long long blocks = (n4 + 255) / 256;
-  if (blocks > 4096) blocks = 4096;
-  to_bf16_kernel<<<(unsigned)blocks, 256, 0, s>>>(a, na, bank, nb, scratch);
-  return cudaGetLastError();
-}
-
-template <int D>
-cudaError_t launch_smalln(const __nv_bfloat16* a, const __nv_bfloat16* bank,
-                          float* out, int B, int C, int N, int M, cudaStream_t s) {
-  const size_t smem = smalln_smem(M, D);
-  cudaError_t e = cudaFuncSetAttribute(
-      affinity_smalln_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((B + kWarps - 1) / kWarps, (C + kPeers - 1) / kPeers);
-  affinity_smalln_kernel<D><<<grid, kThreads, smem, s>>>(a, bank, out, B, C, N, M);
-  return cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
-// affinity_wgmma_kernel
-// ---------------------------------------------------------------------------
 
 constexpr int kTileRows = 64;          // bank rows per tile: wgmma's M
 constexpr int kKWidth = 128;           // operand columns, D padded with zeros
@@ -286,9 +125,10 @@ constexpr int kWgThreads = 256;        // two warpgroups, two slots each
 constexpr int kMaxWidthSteps = 20;     // slot width W = 8 * K, K <= 20
 constexpr int kMaxStages = 8;
 constexpr int kMaxPeers = 256;         // peers per slice
+constexpr int kSmallnMaxN = 80;        // K7: at least two users a slot of 160
 
 // Refusals of the entry points (negative; a positive value is a cudaError_t).
-enum Refusal { kBadShape = -1, kBadPlan = -2 };
+enum Refusal { kBadShape = -1, kBadPlan = -2, kLongQuery = -3 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -495,16 +335,103 @@ __device__ __forceinline__ void fold_tile(const float (&acc)[4 * K], int tile, i
   }
 }
 
+// Folds one accumulator of a K7 slot (U > 1 users; rows of bank tile
+// `tile`, the slot's first user `lu0`) into the block's maxima. The thread's
+// column 8 j + 2 t + e (t = lane % 4) belongs to the slot's user
+// (2 t + e) / (8 / U): U = 8 gives the thread users 2 t and 2 t + 1, U = 4
+// user t, U = 2 user t / 2, shared with lane t ^ 1.
+template <int K, int U>
+__device__ __forceinline__ void fold_users(const float (&acc)[4 * K], int tile, int lu0,
+                                           const Fold& f, int warp, int lane) {
+  constexpr int UT = U == 8 ? 2 : 1;  // users of one thread
+  const int t = lane & 3, g = lane >> 2;
+  // v[x][h]: the max of the thread's columns of its user x in row h (rows
+  // g and g + 8); two chains each, as the max chain bounds the fold
+  float v[UT][2];
+  if constexpr (U == 8) {
+    float m[2][2][2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) m[e][h][0] = m[e][h][1] = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < K; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          m[e][h][j & 1] = fmaxf(m[e][h][j & 1], acc[4 * j + 2 * h + e]);
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) v[e][h] = fmaxf(m[e][h][0], m[e][h][1]);
+  } else {
+    float m[2][2] = {{-INFINITY, -INFINITY}, {-INFINITY, -INFINITY}};
+#pragma unroll
+    for (int j = 0; j < K; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        m[h][j & 1] = fmaxf(m[h][j & 1], fmaxf(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]));
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      v[0][h] = fmaxf(m[h][0], m[h][1]);
+      if constexpr (U == 2) v[0][h] = fmaxf(v[0][h], __shfl_xor_sync(0xffffffffu, v[0][h], 1));
+    }
+  }
+  const int user = lu0 + (U == 8 ? 2 * t : U == 4 ? t : t >> 1);  // of v[0]; v[1] is user + 1
+  const bool writer = U != 2 || (t & 1) == 0;  // U = 2: one lane of each pair
+  const int first = tile * kTileRows + warp * 16;  // the warp's 16 rows
+  const int lo = first > f.row_lo ? first : f.row_lo;
+  const int hi = first + 16 < f.row_hi ? first + 16 : f.row_hi;
+  if (lo >= hi) return;  // no row of the block's peers
+  const int p_lo = lo / f.M, p_hi = (hi - 1) / f.M;
+  const int r0 = first + g, r1 = r0 + 8;
+  if (p_hi - p_lo <= 1) {
+    // one or two peers: each peer's rows max-reduced across the warp, then
+    // one lane a user folds the value (U = 8: lanes g = 0 and 1)
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int p = p_lo + k;
+      if (p > p_hi) break;
+      const int a = p * f.M > lo ? p * f.M : lo, b = p * f.M + f.M < hi ? p * f.M + f.M : hi;
+      const bool in0 = r0 >= a && r0 < b, in1 = r1 >= a && r1 < b;
+      float w[UT];
+#pragma unroll
+      for (int x = 0; x < UT; ++x) {
+        w[x] = fmaxf(in0 ? v[x][0] : -INFINITY, in1 ? v[x][1] : -INFINITY);
+        w[x] = fmaxf(w[x], __shfl_xor_sync(0xffffffffu, w[x], 4));
+        w[x] = fmaxf(w[x], __shfl_xor_sync(0xffffffffu, w[x], 8));
+        w[x] = fmaxf(w[x], __shfl_xor_sync(0xffffffffu, w[x], 16));
+      }
+      if (writer && g < UT)
+        atomic_max_float(f.omax + (user + g) * f.peers + p, g == 0 ? w[0] : w[UT - 1]);
+    }
+  } else {
+    // three or more peers in 16 rows (M < 16): each row folds its own value
+    if (writer) {
+#pragma unroll
+      for (int x = 0; x < UT; ++x)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = h ? r1 : r0;
+          if (r >= lo && r < hi) atomic_max_float(f.omax + (user + x) * f.peers + r / f.M, v[x][h]);
+        }
+    }
+  }
+}
+
 // pack_kernel: both inputs as bf16 in the operand layout (header), rows of
 // kKWidth columns, those past D zero. Region 0 is the bank, bank_rows rows
 // (a multiple of 64; rows past R = C*M repeat row R - 1); region 1 the query
-// slots, slot s of W rows holding chunk s % KC of user min(s / KC, B - 1),
-// rows past the user's last repeating it. One thread writes one 16-byte
-// chunk; consecutive threads write consecutive chunks.
+// slots of W rows: slot s, row w holds user min((s / KC) U + (w % 8) / S,
+// B - 1) (S = 8 / U), its row min((s % KC) W + (w / 8) S + w % 8 % S, N - 1)
+// (U = 1: chunk s % KC of user s / KC, row w of the chunk). One thread
+// writes one 16-byte chunk; consecutive threads write consecutive chunks.
 __global__ void pack_kernel(const float* __restrict__ a, const float* __restrict__ bank,
                             __nv_bfloat16* __restrict__ out, long long bank_chunks,
                             long long total_chunks, int D, long long R, int B, int N,
-                            int W, int KC) {
+                            int W, int KC, int U) {
+  const int S = 8 / U;
   for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x; e < total_chunks;
        e += (long long)gridDim.x * blockDim.x) {
     const bool in_bank = e < bank_chunks;
@@ -522,9 +449,10 @@ __global__ void pack_kernel(const float* __restrict__ a, const float* __restrict
       src = bank + (r < R ? r : R - 1) * D;
     } else {
       const long long s = r / W;
-      long long user = s / KC;
+      const int w = (int)(r - s * W);
+      long long user = (s / KC) * U + (w & 7) / S;
       if (user > B - 1) user = B - 1;
-      long long row = (s % KC) * W + (r - s * W);
+      long long row = (s % KC) * W + (w >> 3) * S + (w & 7) % S;
       if (row > N - 1) row = N - 1;
       src = a + (user * N + row) * D;
     }
@@ -536,7 +464,7 @@ __global__ void pack_kernel(const float* __restrict__ a, const float* __restrict
   }
 }
 
-template <int K>
+template <int K, int U>
 __global__ void __launch_bounds__(kWgThreads, 1)
 affinity_wgmma_kernel(const __nv_bfloat16* __restrict__ bank,
                       const __nv_bfloat16* __restrict__ query, float* __restrict__ out,
@@ -544,18 +472,18 @@ affinity_wgmma_kernel(const __nv_bfloat16* __restrict__ bank,
   constexpr int W = 8 * K, tile_bytes = kTileBytes, slot_bytes = W * kKWidth * 2;
   extern __shared__ __align__(1024) unsigned char smem[];
   unsigned char* ring = smem + kSlots * slot_bytes;
-  float* omax = reinterpret_cast<float*>(ring + stages * tile_bytes);  // [4][peers]
-  uint64_t* bars = reinterpret_cast<uint64_t*>(omax + kSlots * peers);
+  float* omax = reinterpret_cast<float*>(ring + stages * tile_bytes);  // [4 U][peers]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(omax + kSlots * U * peers);
   // bars: full[stages], empty[stages], then the query's
 
   const int tid = threadIdx.x;
-  const int users = kSlots / KC;  // query users of this block
+  const int users = kSlots * U / KC;  // query users of this block
   const int c_lo = blockIdx.y * peers;
   const int c_hi = C - c_lo < peers ? C : c_lo + peers;
   const int row_lo = c_lo * M, row_hi = c_hi * M;
   const int t_lo = row_lo / kTileRows, n_tiles = (row_hi + kTileRows - 1) / kTileRows - t_lo;
 
-  for (int i = tid; i < kSlots * peers; i += kWgThreads) omax[i] = -INFINITY;
+  for (int i = tid; i < kSlots * U * peers; i += kWgThreads) omax[i] = -INFINITY;
   if (tid == 0) {
     for (int s = 0; s < stages; ++s) {
       mbar_init(smem_u32(bars + s), 1);
@@ -583,7 +511,9 @@ affinity_wgmma_kernel(const __nv_bfloat16* __restrict__ bank,
 
   const int wg = tid / 128, warp = (tid / 32) % 4, lane = tid % 32;
   const Fold fold = {omax - c_lo, peers, M, row_lo, row_hi};
-  const int lu_a = 2 * wg / KC, lu_b = (2 * wg + 1) / KC;
+  // the block's user of each slot (K6), or of the slot's first column (K7)
+  const int lu_a = U == 1 ? 2 * wg / KC : 2 * wg * U;
+  const int lu_b = U == 1 ? (2 * wg + 1) / KC : (2 * wg + 1) * U;
   const uint64_t q_a = operand_desc(smem_u32(smem + 2 * wg * slot_bytes));
   const uint64_t q_b = operand_desc(smem_u32(smem + (2 * wg + 1) * slot_bytes));
   float acc_a[4 * K], acc_b[4 * K];
@@ -616,8 +546,13 @@ affinity_wgmma_kernel(const __nv_bfloat16* __restrict__ bank,
     fence_regs(acc_a);
     fence_regs(acc_b);
     mbar_arrive(smem_u32(bars + stages + s));  // every thread: the buffer is read
-    fold_tile<K>(acc_a, t_lo + i, lu_a, fold, warp, lane);
-    fold_tile<K>(acc_b, t_lo + i, lu_b, fold, warp, lane);
+    if constexpr (U == 1) {
+      fold_tile<K>(acc_a, t_lo + i, lu_a, fold, warp, lane);
+      fold_tile<K>(acc_b, t_lo + i, lu_b, fold, warp, lane);
+    } else {
+      fold_users<K, U>(acc_a, t_lo + i, lu_a, fold, warp, lane);
+      fold_users<K, U>(acc_b, t_lo + i, lu_b, fold, warp, lane);
+    }
     if (tid == 0 && i > 0 && i - 1 + stages < n_tiles) {
       // the other warpgroup released tile i - 1 one tile ago
       mbar_wait(smem_u32(bars + stages + (i - 1) % stages), ((i - 1) / stages) & 1);
@@ -633,19 +568,20 @@ affinity_wgmma_kernel(const __nv_bfloat16* __restrict__ bank,
   }
 }
 
-size_t wgmma_smem(int W, int stages, int peers) {
+size_t wgmma_smem(int W, int U, int stages, int peers) {
   return (size_t)kSlots * W * kKWidth * 2 + (size_t)stages * kTileBytes +
-         (size_t)kSlots * peers * sizeof(float) + (size_t)(2 * stages + 1) * 8;
+         (size_t)kSlots * U * peers * sizeof(float) + (size_t)(2 * stages + 1) * 8;
 }
 
-template <int K>
+template <int K, int U>
 cudaError_t launch_wgmma(const __nv_bfloat16* bank, const __nv_bfloat16* query, float* out,
                          int groups, int slices, int B, int C, int M, int KC,
                          int stages, int peers, size_t smem, cudaStream_t s) {
-  cudaError_t e = cudaFuncSetAttribute(
-      affinity_wgmma_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  affinity_wgmma_kernel<K><<<dim3(groups, slices), kWgThreads, smem, s>>>(
+  // every instance may take all 227 KB a block can have; asked once
+  static const cudaError_t opted_in = cudaFuncSetAttribute(
+      affinity_wgmma_kernel<K, U>, cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
+  if (opted_in != cudaSuccess) return opted_in;
+  affinity_wgmma_kernel<K, U><<<dim3(groups, slices), kWgThreads, smem, s>>>(
       bank, query, out, B, C, M, KC, stages, peers);
   return cudaGetLastError();
 }
@@ -661,38 +597,18 @@ T* pointer(long long value) {
   return reinterpret_cast<T*>(static_cast<uintptr_t>(value));
 }
 
-}  // namespace
-
-extern "C" {
-
-// Shared memory per block, in bytes, of the blocked kernel (slot width W,
-// `stages` ring buffers, `peers` per slice) and of the small-N kernel.
-size_t affinity_smem_bytes(int W, int stages, int peers) {
-  return wgmma_smem(W, stages, peers);
-}
-size_t affinity_smalln_smem_bytes(int M, int D) { return smalln_smem(M, D); }
-
-// The blocked kernel. The arguments come as one array of 64-bit integers
-// (pointers as integers), packed by the Python side in one call:
-// {a, bank, scratch, out, stream, B, C, N, M, D, W, KC, slices, peers, stages}.
-// a: contiguous fp32 [B, N, D]; bank: contiguous fp32 [C, M, D]; out:
-// contiguous fp32 [B, C]; scratch: room for (ceil64(C*M) + 4 *
-// ceil(B*KC/4) * W) * 128 bf16 values, 16-byte aligned. The plan (W, KC,
-// slices, peers, stages) is ops/affinity.py::blocked_plan's: W a multiple of
-// 8 up to 160 with W * KC >= N, KC in {1, 2, 4}, slices * peers >= C,
-// peers <= 256, 2 <= stages <= 8, the shared memory within 232,448 bytes.
-// Returns a Refusal, or the first failing launch's cudaError_t (0 on success).
-int max_affinity_blocked(const long long* a) {
+// Both entry points: the packed arguments, KC chunks a user, U users a slot.
+int run(const long long* a, long long KC, long long U) {
   const long long B = a[5], C = a[6], N = a[7], M = a[8], D = a[9];
-  const long long W = a[10], KC = a[11], slices = a[12], peers = a[13], stages = a[14];
+  const long long W = a[10], slices = a[12], peers = a[13], stages = a[14];
   if (bad_shape(B, C, N, M, D) || C * M > 0x7fffffffLL - kTileRows) return kBadShape;
-  if (W < 8 || W > 8 * kMaxWidthSteps || W % 8 || !(KC == 1 || KC == 2 || KC == 4) ||
-      W * KC < N || peers < 1 || peers > kMaxPeers || slices < 1 || slices > 65535 ||
-      slices * peers < C || stages < 2 || stages > kMaxStages)
+  if (W < 8 || W > 8 * kMaxWidthSteps || W % 8 || W * KC < N * U || peers < 1 ||
+      peers > kMaxPeers || slices < 1 || slices > 65535 || slices * peers < C ||
+      stages < 2 || stages > kMaxStages)
     return kBadPlan;
-  const size_t smem = wgmma_smem((int)W, (int)stages, (int)peers);
+  const size_t smem = wgmma_smem((int)W, (int)U, (int)stages, (int)peers);
   if (smem > 232448) return kBadPlan;
-  const long long groups = (B * KC + kSlots - 1) / kSlots;
+  const long long groups = (B * KC + kSlots * U - 1) / (kSlots * U);
   if (groups > 0x7fffffffLL) return kBadShape;
   const long long bank_rows = (C * M + kTileRows - 1) / kTileRows * kTileRows;
   const long long bank_chunks = bank_rows * kKWidth / 8;
@@ -703,47 +619,72 @@ int max_affinity_blocked(const long long* a) {
   if (blocks > 4096) blocks = 4096;
   pack_kernel<<<(unsigned)blocks, 256, 0, s>>>(
       pointer<const float>(a[0]), pointer<const float>(a[1]), scratch, bank_chunks,
-      total_chunks, (int)D, C * M, (int)B, (int)N, (int)W, (int)KC);
+      total_chunks, (int)D, C * M, (int)B, (int)N, (int)W, (int)KC, (int)U);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const __nv_bfloat16* query = scratch + bank_chunks * 8;
   float* out = pointer<float>(a[3]);
-#define AFF_LAUNCH(K)                                                                   \
-  case K:                                                                               \
-    e = launch_wgmma<K>(scratch, query, out, (int)groups, (int)slices, (int)B, (int)C, \
-                        (int)M, (int)KC, (int)stages, (int)peers, smem, s);             \
+#define AFF_LAUNCH(K, U)                                                                  \
+  case (U) * 32 + (K):                                                                    \
+    e = launch_wgmma<K, U>(scratch, query, out, (int)groups, (int)slices, (int)B, (int)C, \
+                           (int)M, (int)KC, (int)stages, (int)peers, smem, s);            \
     break;
-  switch (W / 8) {
-    AFF_LAUNCH(1) AFF_LAUNCH(2) AFF_LAUNCH(3) AFF_LAUNCH(4) AFF_LAUNCH(5)
-    AFF_LAUNCH(6) AFF_LAUNCH(7) AFF_LAUNCH(8) AFF_LAUNCH(9) AFF_LAUNCH(10)
-    AFF_LAUNCH(11) AFF_LAUNCH(12) AFF_LAUNCH(13) AFF_LAUNCH(14) AFF_LAUNCH(15)
-    AFF_LAUNCH(16) AFF_LAUNCH(17) AFF_LAUNCH(18) AFF_LAUNCH(19) AFF_LAUNCH(20)
+#define AFF_LOW(U) \
+  AFF_LAUNCH(1, U) AFF_LAUNCH(2, U) AFF_LAUNCH(3, U) AFF_LAUNCH(4, U) AFF_LAUNCH(5, U) \
+  AFF_LAUNCH(6, U) AFF_LAUNCH(7, U) AFF_LAUNCH(8, U) AFF_LAUNCH(9, U) AFF_LAUNCH(10, U)
+#define AFF_HIGH(U) \
+  AFF_LAUNCH(11, U) AFF_LAUNCH(12, U) AFF_LAUNCH(13, U) AFF_LAUNCH(14, U) AFF_LAUNCH(15, U) \
+  AFF_LAUNCH(16, U) AFF_LAUNCH(17, U) AFF_LAUNCH(18, U) AFF_LAUNCH(19, U) AFF_LAUNCH(20, U)
+  // K6 at every width; K7 at the widths its plan gives: W = 8 N with 8
+  // users a slot (N <= 20), 88..160 with 4 (N 21..40) and 2 (N 41..80)
+  switch (U * 32 + W / 8) {
+    AFF_LOW(1) AFF_HIGH(1) AFF_HIGH(2) AFF_HIGH(4) AFF_LOW(8) AFF_HIGH(8)
     default: return kBadPlan;
   }
+#undef AFF_HIGH
+#undef AFF_LOW
 #undef AFF_LAUNCH
   return (int)e;
 }
 
-// The small-N kernel: {a, bank, scratch, out, stream, B, C, N, M, D} as
-// above; scratch: room for (B*N + C*M)*D bf16 values, 16-byte aligned.
+}  // namespace
+
+extern "C" {
+
+// Shared memory per block, in bytes, of either kernel: slot width W, U
+// users a slot (1: the blocked kernel), `stages` ring buffers, `peers` per
+// slice.
+size_t affinity_smem_bytes(int W, int U, int stages, int peers) {
+  return wgmma_smem(W, U, stages, peers);
+}
+
+// The blocked kernel (K6). The arguments come as one array of 64-bit
+// integers (pointers as integers), packed by the Python side in one call:
+// {a, bank, scratch, out, stream, B, C, N, M, D, W, KC, slices, peers, stages}.
+// a: contiguous fp32 [B, N, D]; bank: contiguous fp32 [C, M, D]; out:
+// contiguous fp32 [B, C]; scratch: room for (ceil64(C*M) + 4 * groups * W)
+// * 128 bf16 values, 16-byte aligned (groups = ceil(B * KC / 4)). The plan
+// (W, KC, slices, peers, stages) is ops/affinity.py::blocked_plan's: W a
+// multiple of 8 up to 160 with W * KC >= N, KC in {1, 2, 4}, slices * peers
+// >= C, peers <= 256, 2 <= stages <= 8, the shared memory within 232,448
+// bytes. Returns a Refusal, or the first failing launch's cudaError_t (0 on
+// success).
+int max_affinity_blocked(const long long* a) {
+  const long long KC = a[11];
+  if (!(KC == 1 || KC == 2 || KC == 4)) return kBadPlan;
+  return run(a, KC, 1);
+}
+
+// The small-N kernel (K7): the same array with U, the users a slot, in
+// place of KC: {..., W, U, slices, peers, stages}; groups = ceil(B / (4 U)).
+// N <= 80 (kLongQuery otherwise); the plan is ops/affinity.py::
+// smalln_plan's: U = 8 for N <= 20, 4 for N <= 40, 2 for N <= 80, W = 8 *
+// ceil(N * U / 8).
 int max_affinity_smalln(const long long* a) {
-  const long long B = a[5], C = a[6], N = a[7], M = a[8], D = a[9];
-  if (bad_shape(B, C, N, M, D) || (C + kPeers - 1) / kPeers > 65535) return kBadShape;
-  cudaStream_t s = pointer<CUstream_st>(a[4]);
-  __nv_bfloat16* a16 = pointer<__nv_bfloat16>(a[2]);
-  const long long na = B * N * D, nb = C * M * D;
-  cudaError_t e = round_inputs(pointer<const float>(a[0]), na, pointer<const float>(a[1]),
-                               nb, a16, s);
-  if (e != cudaSuccess) return (int)e;
-  float* out = pointer<float>(a[3]);
-  const int b = (int)B, c = (int)C, n = (int)N, m = (int)M;
-  switch (D) {
-    case 16: e = launch_smalln<16>(a16, a16 + na, out, b, c, n, m, s); break;
-    case 32: e = launch_smalln<32>(a16, a16 + na, out, b, c, n, m, s); break;
-    case 64: e = launch_smalln<64>(a16, a16 + na, out, b, c, n, m, s); break;
-    default: e = launch_smalln<128>(a16, a16 + na, out, b, c, n, m, s); break;
-  }
-  return (int)e;
+  const long long N = a[7], U = a[11];
+  if (N > kSmallnMaxN) return kLongQuery;
+  if (!(U == 2 || U == 4 || U == 8)) return kBadPlan;
+  return run(a, 1, U);
 }
 
 }  // extern "C"

@@ -10,6 +10,12 @@ starts one `nvcc` per source at once and waits for all of them.
 
 Nothing is built at import: the first kernel call builds what it needs.
 
+`python3 -m amid_tpu_torch.ops._build affinity [...]` compiles the named
+sources once more with `-Xptxas -v` into a temporary directory, prints
+ptxas's report and, per kernel instance, its registers and spill bytes, and
+exits non-zero if any instance spills or has its `wgmma` serialised (ptxas's
+C7512/C7518 infos).
+
 The launch path every wrapper shares is kept thin. `bind` types one C entry
 point; a wrapper binds its functions at its first launch and keeps them in
 module-level names, so a later launch looks nothing up. `raw_stream(index)`
@@ -22,8 +28,11 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
+import sys
+import tempfile
 from pathlib import Path
 
 import torch
@@ -121,3 +130,47 @@ def _stream_getter():
 
 
 raw_stream = _stream_getter()  # raw_stream(device_index) -> cudaStream_t as an int
+
+
+def ptxas_report(name: str) -> tuple[str, list[tuple[str, int, int]], bool]:
+    """nvcc's output for `csrc/<name>.cu` with `-Xptxas -v`, then (kernel,
+    registers, spill bytes) for each compiled function and whether ptxas
+    serialised any `wgmma` (C7512/C7518)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        proc = subprocess.run(
+            [nvcc_path(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", os.path.join(tmp, "x.so"),
+             str(CSRC / f"{name}.cu")], capture_output=True, text=True)
+    out = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}.cu:\n{out}")
+    rows, kernel, spill = [], None, 0
+    for line in out.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            kernel = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spill = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and kernel:
+            rows.append((kernel, int(m.group(1)), spill))
+            kernel, spill = None, 0
+    return out, rows, bool(re.search(r"C75(12|18)", out))
+
+
+def _main(names: list[str]) -> int:
+    bad = False
+    for name in names:
+        out, rows, serialised = ptxas_report(name)
+        print(out)
+        for kernel, regs, spill in rows:
+            print(f"{name}.cu {kernel}: {regs} registers, {spill} bytes spilled")
+        spills = sum(s for _, _, s in rows)
+        print(f"{name}.cu: {len(rows)} functions, {spills} bytes spilled, "
+              f"wgmma serialised: {serialised}")
+        bad |= spills > 0 or serialised
+    return 1 if bad else 0
+
+
+if __name__ == "__main__":
+    sys.exit(_main(sys.argv[1:] or ["affinity"]))

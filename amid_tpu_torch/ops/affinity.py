@@ -16,8 +16,8 @@
   gradient). `max_affinity_plain` is that contract in plain PyTorch: it
   differs from the kernels only by the order of the fp32 sums.
 * `max_affinity(seq_a, seq_b, kernels)`: the dispatch point. `'cuda'` takes
-  the small-N kernel when `smalln_fits`, else the blocked kernel; anything
-  else takes `max_affinity_xla`.
+  the small-N kernel where `smalln_faster(N)` (a crossover measured on the
+  H100), else the blocked kernel; anything else takes `max_affinity_xla`.
 
 On CUDA tensors the two kernel wrappers launch their kernel (counting the
 launch in `.launches`) or raise; on CPU tensors they take `max_affinity_plain`.
@@ -36,9 +36,6 @@ from amid_tpu_torch.ops import _build
 from amid_tpu_torch.ops._build import SMEM_LIMIT
 
 KERNEL_WIDTHS = (16, 32, 64, 128)  # D values the kernels are compiled for
-_ROW_PAD = 8  # bf16 values of padding per shared-memory row (csrc/affinity.cu)
-_SMALLN_PEERS = 16  # peers resident per block of the small-N kernel
-_WARPS = 8
 
 
 def diag_max_affinity(seq_a: torch.Tensor, seq_b: torch.Tensor) -> torch.Tensor:
@@ -74,27 +71,33 @@ def _ceil_to(x: int, mult: int) -> int:
     return -(-x // mult) * mult
 
 
-# The blocked kernel (csrc/affinity.cu, affinity_wgmma_kernel): the bank's
-# [C*M, D] rows, as bf16 padded with zeros to 128 columns, stream through in
-# 64-row tiles; four query slots of W rows (W a multiple of 8 up to 160, one
-# slot a user or 2 or 4 chunks of one) stay resident; the grid is (groups of
-# four slots) x (slices of the peers).
+# Both kernels are one __global__ template (csrc/affinity.cu,
+# affinity_wgmma_kernel): the bank's [C*M, D] rows, as bf16 padded with zeros
+# to 128 columns, stream through in 64-row tiles; four query slots of W rows
+# (W a multiple of 8 up to 160) stay resident; the grid is (groups of four
+# slots) x (slices of the peers). The blocked kernel (K6) gives a slot one
+# user or 2 or 4 chunks of one; the small-N kernel (K7) packs U = 8, 4 or 2
+# users into each slot.
 TILE_ROWS = 64
 K_WIDTH = 128  # operand columns
+TILE_BYTES = TILE_ROWS * K_WIDTH * 2
 SLOTS = 4
 MAX_WIDTH = 160
-CHUNKS = (1, 2, 4)  # slots one user's query may take
+CHUNKS = (1, 2, 4)  # slots one user's query may take (K6)
+SMALLN_USERS = (8, 4, 2)  # users a slot may hold (K7), most first
+SMALLN_MAX_N = MAX_WIDTH // SMALLN_USERS[-1]  # 80: two users a slot
 MAX_PEERS = 256  # peers per slice: the block's [users, peers] table of maxima
 MAX_STAGES = 8
 SM_COUNT = 132  # the H100 SXM's; one block of the large shapes fills an SM
 
 
-class BlockedPlan(NamedTuple):
-    """How the blocked kernel takes one shape: slot width and chunks per user,
-    the grid (groups x slices), peers per slice, ring buffers, shared memory
-    per block in bytes."""
+class AffinityPlan(NamedTuple):
+    """How a kernel takes one shape: slot width, chunks per user (K6), users
+    per slot (K7; 1 for K6), the grid (groups x slices), peers per slice,
+    ring buffers, shared memory per block in bytes."""
     width: int
     chunks: int
+    users: int
     groups: int
     slices: int
     peers: int
@@ -102,13 +105,13 @@ class BlockedPlan(NamedTuple):
     smem: int
 
 
-def blocked_smem_bytes(width: int, stages: int, peers: int) -> int:
-    """Shared memory of one block of the blocked kernel: four query slots of
+def affinity_smem_bytes(width: int, stages: int, peers: int, users: int = 1) -> int:
+    """Shared memory of one block of either kernel: four query slots of
     `width` bf16 rows, `stages` 64-row bank tiles (rows of 128 columns), a
-    float per (slot, peer), two mbarriers per tile buffer and one for the
-    query."""
-    return (SLOTS * width * K_WIDTH * 2 + stages * TILE_ROWS * K_WIDTH * 2
-            + SLOTS * peers * 4 + (2 * stages + 1) * 8)
+    float per (user, peer) for the 4 * `users` users of the block's slots,
+    two mbarriers per tile buffer and one for the query."""
+    return (SLOTS * width * K_WIDTH * 2 + stages * TILE_BYTES
+            + SLOTS * users * peers * 4 + (2 * stages + 1) * 8)
 
 
 def slice_tiles(c: int, m: int, peers: int) -> int:
@@ -117,30 +120,19 @@ def slice_tiles(c: int, m: int, peers: int) -> int:
     return -(-peers * m // TILE_ROWS) + (peers < c)
 
 
-@functools.lru_cache(maxsize=512)
-def blocked_plan(b: int, c: int, n: int, m: int, d: int) -> BlockedPlan:
-    """The blocked kernel's plan for [B, N, D] against [C, M, D]; raises
-    naming the limit where the kernel cannot take the shape.
-
-    The query takes the fewest chunks (1, 2 or 4 slots a user) whose width
-    ceil8(N / chunks) is at most 160 (N <= 640). The peers are cut into the
-    number of slices that minimises waves x tiles per block (blocks of all
-    slices run on SM_COUNT SMs, one at a time at the large shapes), fewest
-    slices on a tie, at most MAX_PEERS peers a slice. What shared memory
-    is left takes up to MAX_STAGES ring buffers of 64 bank rows (no more
-    than a block streams tiles; at least 3 fit at every width)."""
-    name = "max_affinity_blocked"
+def _check_width(name: str, d: int) -> None:
     if d not in KERNEL_WIDTHS:
         raise ValueError(f"{name}: the affinity kernels take D in {KERNEL_WIDTHS}; got D={d}")
-    for chunks in CHUNKS:
-        width = _ceil_to(-(-n // chunks), 8)
-        if width <= MAX_WIDTH:
-            break
-    else:
-        raise ValueError(
-            f"{name}: N={n} is longer than the blocked kernel takes: at most "
-            f"{CHUNKS[-1]} slots of {MAX_WIDTH} query rows, N <= {CHUNKS[-1] * MAX_WIDTH}")
-    groups = -(-b * chunks // SLOTS)
+
+
+def _plan(b: int, c: int, m: int, width: int, chunks: int, users: int) -> AffinityPlan:
+    """The grid and the ring for a slot layout. The peers are cut into the
+    number of slices that minimises waves x tiles per block (blocks of all
+    slices run on SM_COUNT SMs, one at a time at the large shapes), fewest
+    slices on a tie, at most MAX_PEERS peers a slice. What shared memory is
+    left takes up to MAX_STAGES ring buffers of 64 bank rows (no more than a
+    block streams tiles; at least 2 fit at every width)."""
+    groups = -(-b * chunks // (SLOTS * users))
     best = None
     for s in range(-(-c // MAX_PEERS), min(c, 65535) + 1):
         peers = -(-c // s)
@@ -149,26 +141,51 @@ def blocked_plan(b: int, c: int, n: int, m: int, d: int) -> BlockedPlan:
         if best is None or cost < best[0]:
             best = (cost, slices, peers)
     _, slices, peers = best
-    fixed = blocked_smem_bytes(width, 0, peers)
+    fixed = affinity_smem_bytes(width, 0, peers, users)
     stages = min(MAX_STAGES, max(2, slice_tiles(c, m, peers)),
-                 (SMEM_LIMIT - fixed) // (TILE_ROWS * K_WIDTH * 2 + 16))
-    return BlockedPlan(width, chunks, groups, slices, peers, stages,
-                       blocked_smem_bytes(width, stages, peers))
+                 (SMEM_LIMIT - fixed) // (TILE_BYTES + 16))
+    return AffinityPlan(width, chunks, users, groups, slices, peers, stages,
+                        affinity_smem_bytes(width, stages, peers, users))
 
 
-def smalln_smem_bytes(m: int, d: int) -> int:
-    """Shared memory one block of the small-N kernel needs: 16 peers' rows
-    resident as bf16, padded, plus the [8, 16] fp32 output tile."""
-    return (_SMALLN_PEERS * _ceil_to(m, 8) * (d + _ROW_PAD) * 2
-            + _WARPS * _SMALLN_PEERS * 4)
+@functools.lru_cache(maxsize=512)
+def blocked_plan(b: int, c: int, n: int, m: int, d: int) -> AffinityPlan:
+    """The blocked kernel's plan for [B, N, D] against [C, M, D]; raises
+    naming the limit where the kernel cannot take the shape. The query takes
+    the fewest chunks (1, 2 or 4 slots a user) whose width ceil8(N / chunks)
+    is at most 160 (N <= 640); the grid and ring are `_plan`'s."""
+    name = "max_affinity_blocked"
+    _check_width(name, d)
+    for chunks in CHUNKS:
+        width = _ceil_to(-(-n // chunks), 8)
+        if width <= MAX_WIDTH:
+            break
+    else:
+        raise ValueError(
+            f"{name}: N={n} is longer than the blocked kernel takes: at most "
+            f"{CHUNKS[-1]} slots of {MAX_WIDTH} query rows, N <= {CHUNKS[-1] * MAX_WIDTH}")
+    return _plan(b, c, m, width, chunks, 1)
 
 
-def smalln_fits(m: int, d: int) -> bool:
-    """Whether the small-N kernel takes peer sequences of length m and width
-    d: its resident set must leave room for a second block on the same SM
-    (half of the 232,448 bytes a block may use). The query length does not
-    enter: query rows live in registers, 16 at a time."""
-    return d in KERNEL_WIDTHS and smalln_smem_bytes(m, d) <= SMEM_LIMIT // 2
+@functools.lru_cache(maxsize=512)
+def smalln_plan(b: int, c: int, n: int, m: int, d: int) -> AffinityPlan:
+    """The small-N kernel's plan; raises naming the limit (N <= 80) where
+    the kernel cannot take the shape. A slot holds the most users U in
+    (8, 4, 2) whose columns, N a user rounded up to a multiple of 8 / U,
+    fit in 160: U = 8 for N <= 20, 4 up to 40, 2 up to 80; the width is
+    8 * ceil(N * U / 8). Any B, C and M; the grid and ring are `_plan`'s."""
+    name = "max_affinity_smalln"
+    _check_width(name, d)
+    for users in SMALLN_USERS:
+        width = _ceil_to(n * users, 8)
+        if width <= MAX_WIDTH:
+            break
+    else:
+        raise ValueError(
+            f"{name}: N={n} is longer than the small-N kernel takes: at least "
+            f"{SMALLN_USERS[-1]} users in a slot of {MAX_WIDTH} query columns, "
+            f"N <= {SMALLN_MAX_N}; use max_affinity_blocked")
+    return _plan(b, c, m, width, 1, users)
 
 
 def _check(seq_a: torch.Tensor, seq_b: torch.Tensor, name: str) -> None:
@@ -185,9 +202,9 @@ def _check(seq_a: torch.Tensor, seq_b: torch.Tensor, name: str) -> None:
 
 # Each entry point takes one array of 64-bit integers (csrc/affinity.cu has
 # the layout), packed in one call: ctypes converts argument by argument.
-_PACK_BLOCKED = struct.Struct("<15q").pack
-_PACK_SMALLN = struct.Struct("<10q").pack
-_REFUSALS = {-1: "a shape the kernel does not take", -2: "a plan the kernel does not take"}
+_PACK = struct.Struct("<15q").pack
+_REFUSALS = {-1: "a shape the kernel does not take", -2: "a plan the kernel does not take",
+             -3: f"a query longer than the small-N kernel takes (N <= {SMALLN_MAX_N})"}
 _blocked = _smalln = None  # the bound entry points, resolved at the first launch
 
 
@@ -199,47 +216,34 @@ def _bind() -> None:
 
 
 def smem_bytes_of_the_kernels():
-    """(affinity_smem_bytes, affinity_smalln_smem_bytes) of the C library,
-    typed: the kernels' own shared-memory arithmetic, for the tests."""
+    """`affinity_smem_bytes(W, U, stages, peers)` of the C library, typed: the
+    kernels' own shared-memory arithmetic, for the tests."""
     lib = _build.load("affinity")
     i = ctypes.c_int
-    return (_build.bind(lib.affinity_smem_bytes, [i, i, i], ctypes.c_size_t),
-            _build.bind(lib.affinity_smalln_smem_bytes, [i, i], ctypes.c_size_t))
+    return _build.bind(lib.affinity_smem_bytes, [i, i, i, i], ctypes.c_size_t)
 
 
 def _launch(seq_a, seq_b, smalln: bool) -> torch.Tensor:
-    name = "max_affinity_smalln" if smalln else "max_affinity_blocked"
-    _check(seq_a, seq_b, name)
+    _check(seq_a, seq_b, "max_affinity_smalln" if smalln else "max_affinity_blocked")
     (bsz, n, d), (c, m, _) = seq_a.shape, seq_b.shape
-    if d not in KERNEL_WIDTHS:
-        raise ValueError(f"{name}: the affinity kernels take D in {KERNEL_WIDTHS}; got D={d}")
-    if smalln and not smalln_fits(m, d):
-        largest = max((x for x in range(1, m) if smalln_fits(x, d)), default=0)
-        raise ValueError(
-            f"{name}: M={m}, D={d} needs {smalln_smem_bytes(m, d)} bytes of shared memory "
-            f"per block; the small-N kernel takes at most {SMEM_LIMIT // 2} (largest M at "
-            f"this width: {largest}); use max_affinity_blocked")
+    # raises naming the limit on a shape the kernel does not take
+    plan = (smalln_plan if smalln else blocked_plan)(bsz, c, n, m, d)
     if _blocked is None:
         _bind()
     a = seq_a if seq_a.is_contiguous() else seq_a.contiguous()
     b = seq_b if seq_b.is_contiguous() else seq_b.contiguous()
-    # one allocation: the [B, C] result, then the kernels' bf16 copies of the
-    # inputs from a 16-byte boundary
-    if smalln:
-        halves = (bsz * n + c * m) * d
-    else:
-        plan = blocked_plan(bsz, c, n, m, d)
-        halves = (_ceil_to(c * m, TILE_ROWS) + plan.groups * SLOTS * plan.width) * K_WIDTH
+    # one allocation: the [B, C] result, then the kernels' bf16 operands (the
+    # bank's tiles, then the query slots) from a 16-byte boundary
+    halves = (_ceil_to(c * m, TILE_ROWS) + plan.groups * SLOTS * plan.width) * K_WIDTH
     at = _ceil_to(bsz * c, 4)
-    buf = a.new_empty(at + -(-halves // 2))
+    buf = a.new_empty(at + halves // 2)
     ptr = buf.data_ptr()
-    head = (a.data_ptr(), b.data_ptr(), ptr + 4 * at, ptr, _build.raw_stream(a.device.index))
-    if smalln:
-        err = _smalln(_PACK_SMALLN(*head, bsz, c, n, m, d))
-    else:
-        err = _blocked(_PACK_BLOCKED(*head, bsz, c, n, m, d, plan.width, plan.chunks,
-                                     plan.slices, plan.peers, plan.stages))
+    args = _PACK(a.data_ptr(), b.data_ptr(), ptr + 4 * at, ptr,
+                 _build.raw_stream(a.device.index), bsz, c, n, m, d, plan.width,
+                 plan.users if smalln else plan.chunks, plan.slices, plan.peers, plan.stages)
+    err = _smalln(args) if smalln else _blocked(args)
     if err:
+        name = "max_affinity_smalln" if smalln else "max_affinity_blocked"
         if err in _REFUSALS:
             raise ValueError(f"{name}: {_REFUSALS[err]} ({tuple(seq_a.shape)}, "
                              f"{tuple(seq_b.shape)})")
@@ -268,8 +272,10 @@ def max_affinity_blocked(seq_a: torch.Tensor, seq_b: torch.Tensor) -> torch.Tens
 
 
 def max_affinity_smalln(seq_a: torch.Tensor, seq_b: torch.Tensor) -> torch.Tensor:
-    """The same function by the small-N kernel, for peer sequences short
-    enough that `smalln_fits(M, D)`; raises otherwise."""
+    """The same function by the small-N kernel: several query users in each
+    slot. Any B, C, M, N up to `SMALLN_MAX_N` = 80 (it raises naming the
+    limit), D in `KERNEL_WIDTHS`; `smalln_plan` says how it takes a shape.
+    Bit-equal to `max_affinity_blocked` wherever both take a shape."""
     return _wrapper(seq_a, seq_b, True, max_affinity_smalln)
 
 
@@ -277,14 +283,27 @@ max_affinity_blocked.launches = 0  # kernel launches since the last reset
 max_affinity_smalln.launches = 0
 
 
+def smalln_faster(n: int) -> bool:
+    """Whether `max_affinity(..., 'cuda')` sends a query of length n to the
+    small-N kernel: where it was faster than the blocked kernel on the card,
+    which is everywhere it takes a shape. `chip_smoke.py`'s crossover sweep
+    (`affinity_crossover` records; NVIDIA H100 80GB HBM3, 700.00 W), device
+    ms of one call at B=C=256, D=128, N=M, small-N / blocked:
+    N=8 0.0088 / 0.0255, 16 0.0144 / 0.0457, 20 0.0188 / 0.0571,
+    24 0.0271 / 0.0659, 32 0.0389 / 0.0895, 40 0.0534 / 0.1142,
+    48 0.0857 / 0.1355, 64 0.1379 / 0.1923, 80 0.1864 / 0.2403. Beyond
+    N=80 only the blocked kernel takes the shape."""
+    return n <= SMALLN_MAX_N
+
+
 def max_affinity(seq_a: torch.Tensor, seq_b: torch.Tensor,
                  kernels: str = "torch") -> torch.Tensor:
     """Dispatch point of the pairwise affinity. `kernels='cuda'`: the small-N
-    kernel when the peers' tiles fit resident, else the blocked kernel (bf16
-    inputs, a numerics change against fp32 that can flip a gate at the
-    threshold); any other value: `max_affinity_xla` in fp32."""
+    kernel where `smalln_faster(N)`, else the blocked kernel (bf16 inputs, a
+    numerics change against fp32 that can flip a gate at the threshold; the
+    two kernels are bit-equal); any other value: `max_affinity_xla` in fp32."""
     if kernels == "cuda":
-        if smalln_fits(seq_b.shape[1], seq_b.shape[2]):
+        if smalln_faster(seq_a.shape[1]):
             return max_affinity_smalln(seq_a, seq_b)
         return max_affinity_blocked(seq_a, seq_b)
     return max_affinity_xla(seq_a, seq_b)

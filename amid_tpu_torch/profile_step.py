@@ -44,7 +44,7 @@ from amid_tpu_torch.train.optim import Adam
 
 
 ROWS = 2560  # synthetic dataset rows: 10 batches to cycle over
-TOP = 12  # kernels listed per step kind
+TOP = 40  # kernels listed per step kind: enough to show each kernel of the port
 
 
 def _wall_ms(fn, n: int) -> float:

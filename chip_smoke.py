@@ -44,10 +44,13 @@ code and no result line):
    what the model calls: against two calls of the plain version, and its
    eight gradients against autograd through the plain pair; no library call
    computes it). Max-affinity, bf16 inputs: the blocked kernel at N=M=150
-   (B=C=256 and B=C=64) and at N=M=20, the small-N kernel at N=M=20, ragged
-   11 x 13 batches, N != M, a doubled time axis, the two kernels bit-equal
-   to each other (library: the chunked `matmul` + `amax` on bf16 inputs,
-   several calls; the bound is the bf16 tensor-core peak);
+   (B=C=256 and B=C=64) and at N=M=20, the small-N kernel at N=M=20 (all
+   timed; library: the chunked `matmul` + `amax` on bf16 inputs, several
+   calls; the bound is the bf16 tensor-core peak), a doubled time axis, then
+   both kernels at ragged batches, N != M, peers straddling bank tiles and
+   slices and every compiled width, bit-equal to each other; last the
+   crossover of the dispatch: both kernels' `device_ms` at B=C=256, D=128,
+   N=M from 8 to 80, bit-equal, one `affinity_crossover` record a shape;
 3. the serving path at the full width of the `run.sh` model (SASRec, InterComp
    ts2=0.4, DR heads, emb 128, hid 32, batch 256, 2 blocks, 8 heads) at the
    amazon shape T=150 with the 894,820-row item table, random weights from
@@ -115,6 +118,7 @@ SCORE_ATOL = 1e-5  # scoring head vs plain: sigmoid outputs in (0, 1), fp32 sums
 # max-affinity vs plain: same bf16 inputs and exact products, fp32 sums over
 # D=128 in another order, |A| up to about 60 for unit-normal inputs
 AFF_ATOL, AFF_RTOL = 1e-4, 1e-5
+SMALLN_SWEEP = (8, 16, 20, 24, 32, 40, 48, 64, 80)  # N=M of the K6/K7 crossover
 OPEN_SHARE = (0.05, 0.95)  # share of open gates the opened-threshold check needs
 TOPK_RTOL, TOPK_ATOL = 1e-5, 1e-6  # catalog top-k vs dense oracle
 FLAGSHIP = dict(
@@ -310,13 +314,13 @@ def expected_launches(t, pairwise, train_steps=0, eval_batches=0, feature_passes
     (both sequences in one launch, target and negatives in another; 1 on a
     features-only pass), 1 scoring launch per head (3 heads: both user
     representations in one launch), and
-    in pairwise mode 2 affinity launches (the small-N kernel when the peers'
-    tiles fit, else the blocked one); per train step the backward's 4
-    attention launches and, on the lazy path, the table write-back."""
-    from amid_tpu_torch.ops.affinity import smalln_fits
+    in pairwise mode 2 affinity launches (the small-N kernel where
+    `smalln_faster(T)`, else the blocked one); per train step the backward's
+    4 attention launches and, on the lazy path, the table write-back."""
+    from amid_tpu_torch.ops.affinity import smalln_faster
 
     forwards = train_steps + eval_batches
-    smalln = smalln_fits(t, FLAGSHIP["emb_dim"])
+    smalln = smalln_faster(t)
     affinity = 2 * (forwards + feature_passes) if pairwise else 0
     scatters = train_steps if lazy_adam else 0
     return {"attention_fwd": 4 * (forwards + feature_passes),
@@ -742,7 +746,7 @@ def scoring_kernel_phase(torch, gen):
 def affinity_kernel_phase(torch, gen):
     from amid_tpu_torch.ops.affinity import (
         max_affinity_blocked, max_affinity_plain, max_affinity_smalln, max_affinity_xla,
-        smalln_fits,
+        smalln_faster,
     )
 
     D = FLAGSHIP["emb_dim"]
@@ -762,33 +766,52 @@ def affinity_kernel_phase(torch, gen):
             # several library calls: 32 chunked matmuls and amax reductions
             rec.update(timings(torch, lambda: max_affinity_xla(a16, b16), 5, library=True))
             rec["bound_ms"], rec["bound_by"] = affinity_bound(
-                a.shape[0], b.shape[0], a.shape[1], b.shape[1], D)
+                a.shape[0], b.shape[0], a.shape[1], b.shape[1], a.shape[2])
         emit({"kernel_case_affinity": rec})
         return rec, got
 
-    def pair(bsz, c, n, m):
-        return (torch.randn(bsz, n, D, device="cuda", generator=gen),
-                torch.randn(c, m, D, device="cuda", generator=gen))
+    def pair(bsz, c, n, m, d=D):
+        return (torch.randn(bsz, n, d, device="cuda", generator=gen),
+                torch.randn(c, m, d, device="cuda", generator=gen))
 
     cases = {"max_affinity_blocked": {}, "max_affinity_smalln": {}}
     B = FLAGSHIP["batch_size"]
     a, b = pair(B, B, 150, 150)
-    require(not smalln_fits(150, D), "smalln_fits(150, 128) should be False")
+    require(not smalln_faster(150), "smalln_faster(150) should be False")
     cases["max_affinity_blocked"][150], _ = compare("blocked_T150", max_affinity_blocked, a, b)
     # a batch smaller than the card: 16 query groups, 8 slices of the peers
     compare("blocked_T150_B64", max_affinity_blocked, *pair(64, 64, 150, 150))
     a, b = pair(B, B, 20, 20)
-    require(smalln_fits(20, D), "smalln_fits(20, 128) should be True")
+    require(smalln_faster(20), "smalln_faster(20) should be True")
     cases["max_affinity_blocked"][20], k6 = compare("blocked_T20", max_affinity_blocked, a, b)
     cases["max_affinity_smalln"][20], k7 = compare("smalln_T20", max_affinity_smalln, a, b)
     require(torch.equal(k6, k7), "blocked and small-N kernels differ at T=20")
-    # ragged batches (no padding rows), N != M, a doubled time axis
-    for name, fn, shape in (("blocked_11x13", max_affinity_blocked, (11, 13, 150, 150)),
-                            ("smalln_11x13", max_affinity_smalln, (11, 13, 20, 20)),
-                            ("blocked_N33_M9", max_affinity_blocked, (5, 7, 33, 9)),
-                            ("smalln_N33_M9", max_affinity_smalln, (5, 7, 33, 9)),
-                            ("blocked_T300", max_affinity_blocked, (4, 6, 300, 300))):
-        compare(name, fn, *pair(*shape), timed=False)
+    compare("blocked_T300", max_affinity_blocked, *pair(4, 6, 300, 300), timed=False)
+    compare("blocked_11x13_T150", max_affinity_blocked, *pair(11, 13, 150, 150), timed=False)
+    # both kernels, bit-equal: ragged batches (no padding rows), N != M, peers
+    # that straddle bank tiles and slices, 8, 4 and 2 users a slot of K7,
+    # one user against one long peer, every compiled width
+    for name, shape, d in (("11x13", (11, 13, 20, 20), D), ("N33_M9", (5, 7, 33, 9), D),
+                           ("37x300_N20_M9", (37, 300, 20, 9), D),
+                           ("N80_M20", (256, 256, 80, 20), D), ("N7_M64", (3, 5, 7, 64), D),
+                           ("N1_M150", (1, 1, 1, 150), D), ("N17_M24_D16", (3, 4, 17, 24), 16),
+                           ("N40_M48_D64", (9, 5, 40, 48), 64)):
+        a, b = pair(*shape, d=d)
+        _, k6 = compare(f"blocked_{name}", max_affinity_blocked, a, b, timed=False)
+        _, k7 = compare(f"smalln_{name}", max_affinity_smalln, a, b, timed=False)
+        require(torch.equal(k6, k7), f"blocked and small-N kernels differ at {name}")
+    # the dispatch's crossover: both kernels' device time at B=C=256, D=128
+    for n in SMALLN_SWEEP:
+        a, b = pair(B, B, n, n)
+        k6, k7 = max_affinity_blocked(a, b), max_affinity_smalln(a, b)
+        torch.cuda.synchronize()
+        require(torch.equal(k6, k7), f"blocked and small-N kernels differ at N=M={n}")
+        rec = {"n": n, "m": n,
+               "blocked_device_ms": graph_ms(torch, lambda: max_affinity_blocked(a, b)),
+               "smalln_device_ms": graph_ms(torch, lambda: max_affinity_smalln(a, b)),
+               "smalln_faster": smalln_faster(n)}
+        rec["smalln_was_faster"] = rec["smalln_device_ms"] < rec["blocked_device_ms"]
+        emit({"affinity_crossover": rec})
     return cases
 
 

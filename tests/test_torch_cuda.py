@@ -14,14 +14,15 @@ import torch
 
 from amid_tpu_torch.config import ModelConfig
 from amid_tpu_torch.models.amid import build_model
+from amid_tpu_torch.ops import affinity as affinity_ops
 from amid_tpu_torch.ops.affinity import (
+    affinity_smem_bytes,
     blocked_plan,
-    blocked_smem_bytes,
     max_affinity,
     max_affinity_blocked,
     max_affinity_plain,
     max_affinity_smalln,
-    smalln_smem_bytes,
+    smalln_plan,
 )
 from amid_tpu_torch.ops import attention as attention_ops
 from amid_tpu_torch.ops.attention import (
@@ -426,14 +427,16 @@ AFF_ATOL, AFF_RTOL = 1e-4, 1e-5  # same bf16 inputs, fp32 sums in another order
 @pytest.mark.parametrize("shape,d", [
     ((256, 256, 20, 20), 128), ((11, 13, 20, 20), 128), ((5, 7, 33, 9), 32),
     ((3, 4, 17, 24), 16), ((9, 5, 40, 48), 64), ((1, 1, 1, 1), 128),
+    ((37, 300, 20, 9), 128), ((256, 256, 80, 20), 128), ((3, 5, 7, 64), 128),
+    ((1, 1, 1, 150), 128),
 ])
 def test_affinity_kernels_match_plain_and_each_other(gen, shape, d):
     """Both kernels at shapes the small-N kernel takes: ragged batches (no
-    padding rows), N != M, time axes that are no multiple of the fragment
-    height, every compiled width. The blocked kernel's wgmma k16 steps and
-    the small-N kernel's mma.sync k16 steps sum the same products in the
-    same order (the blocked kernel's zero padding past D adds exact zeros),
-    so they agree bit for bit."""
+    padding rows), N != M, time axes that are no multiple of 8, 8, 4 and 2
+    users a slot, peers that straddle bank tiles and slices (M=9 over 300
+    peers), one user against one long peer, every compiled width. Both
+    kernels issue the same eight wgmma k16 steps for every score, whatever
+    the slot width, so they agree bit for bit."""
     b, c, n, m = shape
     a = torch.randn(b, n, d, device="cuda", generator=gen)
     bank = torch.randn(c, m, d, device="cuda", generator=gen)
@@ -475,31 +478,43 @@ def test_affinity_dispatch_and_refusals(gen):
     a20 = torch.randn(4, 20, 128, device="cuda", generator=gen)
     a150 = torch.randn(4, 150, 128, device="cuda", generator=gen)
     k6, k7 = max_affinity_blocked.launches, max_affinity_smalln.launches
-    max_affinity(a20, a20, "cuda")
+    max_affinity(a20, a20, "cuda")  # the predicate: the small-N kernel at T=20
     assert (max_affinity_blocked.launches, max_affinity_smalln.launches) == (k6, k7 + 1)
-    max_affinity(a150, a150, "cuda")
+    max_affinity(a150, a150, "cuda")  # and the blocked one at T=150
     assert (max_affinity_blocked.launches, max_affinity_smalln.launches) == (k6 + 1, k7 + 1)
     max_affinity(a150, a150, "torch")  # fp32, no kernel
     assert (max_affinity_blocked.launches, max_affinity_smalln.launches) == (k6 + 1, k7 + 1)
-    with pytest.raises(ValueError, match="largest M"):
-        max_affinity_smalln(a150, a150)
+    a81 = torch.randn(2, 81, 128, device="cuda", generator=gen)
+    with pytest.raises(ValueError, match="N <= 80"):
+        max_affinity_smalln(a81, a20)
     long = torch.randn(1, 641, 128, device="cuda", generator=gen)
     with pytest.raises(ValueError, match="N <= 640"):
         max_affinity_blocked(long, long)
     odd = torch.randn(2, 4, 48, device="cuda", generator=gen)
-    with pytest.raises(ValueError, match="D in"):
-        max_affinity_blocked(odd, odd)
-    with pytest.raises(ValueError, match="seq_b on cpu"):
-        max_affinity_blocked(a20, a20.cpu())
+    for fn in (max_affinity_blocked, max_affinity_smalln):
+        with pytest.raises(ValueError, match="D in"):
+            fn(odd, odd)
+        with pytest.raises(ValueError, match="seq_b on cpu"):
+            fn(a20, a20.cpu())
     assert (max_affinity_blocked.launches, max_affinity_smalln.launches) == (k6 + 1, k7 + 1)
+    # the C side refuses a query longer than its limit, and a plan it has no
+    # instance for, on its own
+    out = torch.empty(2, 4, device="cuda")
+    head = (a81.data_ptr(), a20.data_ptr(), 0, out.data_ptr(), 0, 2, 4, 81, 20, 128)
+    assert affinity_ops._smalln(struct.pack("<15q", *head, 160, 2, 1, 4, 2)) == -3
+    head = head[:7] + (20,) + head[8:]
+    assert affinity_ops._smalln(struct.pack("<15q", *head, 160, 3, 1, 4, 2)) == -2  # U = 3
+    assert affinity_ops._smalln(struct.pack("<15q", *head, 32, 2, 1, 4, 2)) == -2  # W < N U
     # the wrappers' shared-memory arithmetic is the kernels' own
     from amid_tpu_torch.ops.affinity import smem_bytes_of_the_kernels
-    smem_bytes, smalln_bytes = smem_bytes_of_the_kernels()
-    for n, m, d in ((150, 150, 128), (20, 20, 128), (33, 9, 32), (300, 300, 64)):
-        plan = blocked_plan(256, 256, n, m, d)
-        assert smem_bytes(plan.width, plan.stages, plan.peers) == plan.smem == \
-            blocked_smem_bytes(plan.width, plan.stages, plan.peers)
-        assert smalln_bytes(m, d) == smalln_smem_bytes(m, d)
+    smem_bytes = smem_bytes_of_the_kernels()
+    for n, m, d in ((150, 150, 128), (20, 20, 128), (33, 9, 32), (300, 300, 64), (80, 80, 128),
+                    (1, 150, 16), (41, 7, 64)):
+        plans = [blocked_plan(256, 256, n, m, d)] + ([smalln_plan(256, 256, n, m, d)]
+                                                     if n <= 80 else [])
+        for plan in plans:
+            assert smem_bytes(plan.width, plan.users, plan.stages, plan.peers) == plan.smem == \
+                affinity_smem_bytes(plan.width, plan.stages, plan.peers, plan.users)
 
 
 # ---------------------------------------------------------------------------
@@ -755,7 +770,7 @@ def test_gather_refusals_of_the_c_entry_point(gen):
 
 @pytest.mark.parametrize("seq_len,kernel", [(12, max_affinity_smalln), (96, max_affinity_blocked)])
 def test_pairwise_step_on_cuda_goes_through_all_kernels(gen, seq_len, kernel):
-    """At D=32 the small-N kernel takes peer sequences up to 88 long."""
+    """The dispatch sends queries up to 80 long to the small-N kernel."""
     cfg = ModelConfig(emb_dim=32, hid_dim=8, seq_len=seq_len, batch_size=8, is_itc=True,
                       ts2=0.1, is_dr=True, item_length=50, user_length=50, sasrec_heads=2,
                       comp_broadcast_quirk=False)

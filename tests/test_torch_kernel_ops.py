@@ -77,25 +77,34 @@ def test_max_affinity_wrappers_and_dispatch_on_the_cpu(rng):
         affinity.max_affinity_smalln(a.double(), b.double())
 
 
-def test_smalln_fits_at_its_edges():
-    """The small-N kernel keeps 16 peers' [ceil8(M), D + 8] bf16 tiles and an
-    [8, 16] fp32 output tile resident in at most half of the 232,448 bytes a
-    block may use, so that a second block shares the SM."""
-    half = affinity.SMEM_LIMIT // 2
-    assert half == 116224
-    assert affinity.smalln_smem_bytes(20, 128) == 16 * 24 * 136 * 2 + 512 == 104960
-    assert affinity.smalln_fits(20, 128)  # the mybank shape
-    assert affinity.smalln_fits(24, 128) and not affinity.smalln_fits(25, 128)
-    assert not affinity.smalln_fits(150, 128)  # the amazon shape: blocked kernel
-    assert affinity.smalln_fits(48, 64) and not affinity.smalln_fits(49, 64)
-    assert not affinity.smalln_fits(8, 100)  # a width the kernels are not built for
-    for m, d in ((24, 128), (25, 128), (48, 64)):
-        assert affinity.smalln_fits(m, d) == (affinity.smalln_smem_bytes(m, d) <= half)
+def test_smalln_plan_at_its_edges():
+    """The small-N kernel packs U = 8, 4 or 2 users into a slot of at most
+    160 query columns, W = ceil8(N * U): 8 users of 20 rows fill a slot
+    exactly, two users of 80 are the last that fit, N = 81 is refused naming
+    the limit; the plan does not depend on D. The dispatch sends every N the
+    small-N kernel takes to it."""
+    assert affinity.SMALLN_MAX_N == 80
+    for d in affinity.KERNEL_WIDTHS:
+        plan = affinity.smalln_plan(256, 256, 20, 20, d)  # the mybank shape
+        assert (plan.width, plan.users, plan.chunks, plan.groups, plan.slices, plan.peers,
+                plan.stages) == (160, 8, 1, 8, 16, 16, 4)
+        assert plan.smem == 4 * 160 * 256 + 4 * 64 * 256 + 4 * 8 * 16 * 4 + 9 * 8 == 231496
+        assert affinity.smalln_plan(256, 256, 80, 20, d)[:3] == (160, 1, 2)
+        assert affinity.smalln_plan(256, 256, 1, 150, d)[:3] == (8, 1, 8)
+        assert affinity.smalln_plan(3, 5, 21, 7, d)[:3] == (88, 1, 4)  # 4 users of 22 columns
+        assert affinity.smalln_plan(3, 5, 41, 7, d)[:3] == (88, 1, 2)  # 2 users of 44 columns
+        with pytest.raises(ValueError, match="N <= 80"):
+            affinity.smalln_plan(256, 256, 81, 20, d)
+    with pytest.raises(ValueError, match="D in"):
+        affinity.smalln_plan(4, 4, 20, 20, 100)  # a width the kernels are not built for
+    assert affinity.smalln_faster(1) and affinity.smalln_faster(20)
+    assert affinity.smalln_faster(80) and not affinity.smalln_faster(81)
+    assert not affinity.smalln_faster(150)  # the amazon shape: blocked kernel
     # the blocked kernel: four query slots of ceil8(N) rows, 64-row bank tiles,
     # rows of 128 bf16 columns
     plan = affinity.blocked_plan(256, 256, 150, 150, 128)
-    assert (plan.width, plan.chunks, plan.groups, plan.slices, plan.peers, plan.stages) == (
-        152, 1, 64, 2, 128, 4)
+    assert (plan.width, plan.chunks, plan.users, plan.groups, plan.slices, plan.peers,
+            plan.stages) == (152, 1, 1, 64, 2, 128, 4)
     assert plan.smem == 4 * 152 * 256 + 4 * 64 * 256 + 4 * 128 * 4 + 9 * 8 == 223304
     assert affinity.blocked_plan(4, 6, 300, 300, 128)[:2] == (152, 2)  # two slots a user
     assert affinity.blocked_plan(1, 1, 640, 1, 128)[:2] == (160, 4)
@@ -109,6 +118,11 @@ PLAN_SHAPES = [  # B, C, N, M, D
     (5, 7, 33, 9, 32), (3, 4, 17, 24, 16), (1, 1, 1, 1, 128), (9, 5, 40, 48, 64),
     (3, 700, 640, 3, 128), (512, 1000, 161, 7, 64),
 ]
+SMALLN_PLAN_SHAPES = [  # B, C, N, M, D
+    (256, 256, 20, 20, 128), (11, 13, 20, 20, 128), (5, 7, 33, 9, 32), (3, 4, 17, 24, 16),
+    (9, 5, 40, 48, 64), (1, 1, 1, 1, 128), (37, 300, 20, 9, 128), (256, 256, 80, 20, 128),
+    (3, 5, 7, 64, 128), (1, 1, 1, 150, 128), (512, 1000, 80, 80, 64), (256, 256, 41, 41, 128),
+]
 
 
 def _slice_rows(c, m, peers):
@@ -120,23 +134,12 @@ def _slice_rows(c, m, peers):
     return out
 
 
-@pytest.mark.parametrize("shape", PLAN_SHAPES)
-def test_blocked_plan_against_a_brute_force_count(shape):
-    """The blocked kernel's plan, counted out: the query slots hold every
-    query row of every user, every peer lies in exactly one slice and every
-    bank row in a tile of its slice, the bound on tiles per block holds, no
-    other slice count gives fewer waves x tiles (nor as few with fewer
-    slices), and the ring takes every buffer that fits."""
-    b, c, n, m, d = shape
-    plan = affinity.blocked_plan(*shape)
-    w, kc = plan.width, plan.chunks
-    assert w % 8 == 0 and w <= affinity.MAX_WIDTH and w == -(-(-(-n // kc)) // 8) * 8
-    assert all(-(-n // k) > affinity.MAX_WIDTH for k in affinity.CHUNKS if k < kc)
-    assert plan.groups * affinity.SLOTS >= b * kc > (plan.groups - 1) * affinity.SLOTS
-    # slot s holds chunk s % kc of user s // kc: every (user, row) once
-    held = {(s // kc, (s % kc) * w + j) for s in range(b * kc) for j in range(w)
-            if (s % kc) * w + j < n}
-    assert len(held) == b * n
+def _check_grid(plan, c, m):
+    """The grid and ring of either plan, counted out: every peer lies in
+    exactly one slice and every bank row in a tile of its slice, the bound on
+    tiles per block holds, no other slice count gives fewer waves x tiles
+    (nor as few with fewer slices), and the ring takes every buffer that
+    fits."""
     slices = _slice_rows(c, m, plan.peers)
     assert len(slices) == plan.slices and plan.peers <= affinity.MAX_PEERS
     covered = set()
@@ -156,12 +159,143 @@ def test_blocked_plan_against_a_brute_force_count(shape):
     assert cost(plan.slices) == best
     assert all(len(_slice_rows(c, m, -(-c // s))) >= plan.slices
                for s in counts if cost(s) == best)
-    assert plan.smem == affinity.blocked_smem_bytes(w, plan.stages, plan.peers)
+    w = plan.width
+    assert plan.smem == affinity.affinity_smem_bytes(w, plan.stages, plan.peers, plan.users)
     assert plan.smem <= affinity.SMEM_LIMIT and 2 <= plan.stages <= affinity.MAX_STAGES
     most = max(t for _, _, t in slices)
     assert (plan.stages == affinity.MAX_STAGES or plan.stages >= most
-            or affinity.blocked_smem_bytes(w, plan.stages + 1, plan.peers)
+            or affinity.affinity_smem_bytes(w, plan.stages + 1, plan.peers, plan.users)
             > affinity.SMEM_LIMIT)
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+def test_blocked_plan_against_a_brute_force_count(shape):
+    """The blocked kernel's plan, counted out: the query slots hold every
+    query row of every user, and `_check_grid`."""
+    b, c, n, m, d = shape
+    plan = affinity.blocked_plan(*shape)
+    w, kc = plan.width, plan.chunks
+    assert plan.users == 1
+    assert w % 8 == 0 and w <= affinity.MAX_WIDTH and w == -(-(-(-n // kc)) // 8) * 8
+    assert all(-(-n // k) > affinity.MAX_WIDTH for k in affinity.CHUNKS if k < kc)
+    assert plan.groups * affinity.SLOTS >= b * kc > (plan.groups - 1) * affinity.SLOTS
+    # slot s holds chunk s % kc of user s // kc: every (user, row) once
+    held = {(s // kc, (s % kc) * w + j) for s in range(b * kc) for j in range(w)
+            if (s % kc) * w + j < n}
+    assert len(held) == b * n
+    _check_grid(plan, c, m)
+
+
+@pytest.mark.parametrize("shape", SMALLN_PLAN_SHAPES)
+def test_smalln_plan_against_a_brute_force_count(shape):
+    """The small-N kernel's plan, counted out: the most users a slot whose
+    columns fit in 160, a slot wide enough for all of each user's rows, just
+    enough groups for every user, and `_check_grid`."""
+    b, c, n, m, d = shape
+    plan = affinity.smalln_plan(*shape)
+    w, u = plan.width, plan.users
+    assert plan.chunks == 1 and u in affinity.SMALLN_USERS
+    assert w % 8 == 0 and w <= affinity.MAX_WIDTH and w == -(-n * u // 8) * 8
+    assert w // u >= n  # 8 / U column places in each group of 8, w / 8 groups
+    assert all(-(-n * k // 8) * 8 > affinity.MAX_WIDTH for k in affinity.SMALLN_USERS if k > u)
+    assert plan.groups * affinity.SLOTS * u >= b > (plan.groups - 1) * affinity.SLOTS * u
+    _check_grid(plan, c, m)
+
+
+def _slot_columns(plan, b, n, group):
+    """What pack_kernel writes into a block's four slots and whose maximum
+    each column feeds in the fold (csrc/affinity.cu): for every column of the
+    block, (the block's user the fold gives it, the user and the row whose
+    values the pack puts there)."""
+    u, kc, w = plan.users, plan.chunks, plan.width
+    places = 8 // u  # column places of one user in each group of 8 (K7)
+    out = []
+    for k in range(affinity.SLOTS):
+        s = group * affinity.SLOTS + k
+        for col in range(w):
+            q = col % 8
+            user = (s // kc) * u + q // places
+            row = (s % kc) * w + (col // 8) * places + q % places
+            fold_user = k // kc if u == 1 else k * u + q // places
+            out.append((fold_user, min(user, b - 1), min(row, n - 1), user, row))
+    return out
+
+
+def _fold_rows(plan, c, m, row_lo, row_hi):
+    """(bank row, peer) pairs a block folds: tile by tile, 16 rows a warp,
+    a peer at a time where the warp's rows lie in one or two peers, else row
+    by row; rows outside the slice skipped."""
+    pairs = []
+    t_lo = row_lo // 64
+    for tile in range(t_lo, -(-row_hi // 64)):
+        for warp in range(4):
+            first = tile * 64 + warp * 16
+            lo, hi = max(first, row_lo), min(first + 16, row_hi)
+            if lo >= hi:
+                continue
+            p_lo, p_hi = lo // m, (hi - 1) // m
+            if p_hi - p_lo <= 1:
+                pairs += [(r, p) for p in (p_lo, p_hi)[:p_hi - p_lo + 1]
+                          for r in range(max(p * m, lo), min(p * m + m, hi))]
+            else:
+                pairs += [(r, r // m) for r in range(lo, hi)]
+    return pairs
+
+
+WALK_SHAPES = [  # kernel, (B, C, N, M)
+    ("smalln", (37, 300, 20, 9)), ("smalln", (5, 7, 33, 9)), ("smalln", (3, 5, 7, 64)),
+    ("smalln", (1, 1, 1, 150)), ("smalln", (11, 13, 20, 20)), ("smalln", (9, 70, 50, 3)),
+    ("blocked", (5, 7, 33, 9)), ("blocked", (4, 6, 300, 300)), ("blocked", (3, 40, 170, 5)),
+]
+
+
+@pytest.mark.parametrize("kernel,shape", WALK_SHAPES)
+def test_the_plan_s_schedule_walked_on_the_cpu(rng, kernel, shape):
+    """Both kernels' schedule emulated block by block from the plan: query
+    slots (K7: several users a slot, interleaved), 64-row bank tiles,
+    slices of the peers, the fold's row windows. Every out[b, c] is written
+    by exactly one block, every bank row of a slice is folded once by each
+    block of the slice, every padding column holds a real row of the user
+    whose maximum it feeds, and the emulated result is the exact maximum of
+    the same scores."""
+    b, c, n, m = shape
+    plan = (affinity.smalln_plan if kernel == "smalln" else affinity.blocked_plan)(
+        b, c, n, m, 128)
+    scores = rng.normal(size=(b * n, c * m))
+    want = scores.reshape(b, n, c, m).max(axis=(1, 3))
+    out = np.full((b, c), np.nan)
+    written = np.zeros((b, c), int)
+    per_block = affinity.SLOTS * plan.users // plan.chunks
+    for group in range(plan.groups):
+        cols = _slot_columns(plan, b, n, group)
+        held = set()
+        for fold_user, user, row, packed_user, packed_row in cols:
+            # the fold's user is the pack's; padding past the last user or
+            # row repeats a real row of that same user
+            assert group * per_block + fold_user == packed_user
+            assert user == min(packed_user, b - 1) and row == min(packed_row, n - 1)
+            held.add((packed_user, row))
+        assert {(u, r) for u in range(group * per_block, min(b, (group + 1) * per_block))
+                for r in range(n)} <= held
+        fold_users = np.array([f for f, *_ in cols])
+        sources = np.array([u * n + r for _, u, r, _, _ in cols])
+        for c_lo in range(0, c, plan.peers):
+            c_hi = min(c, c_lo + plan.peers)
+            pairs = _fold_rows(plan, c, m, c_lo * m, c_hi * m)
+            rows = np.array([r for r, _ in pairs])
+            assert sorted(rows.tolist()) == list(range(c_lo * m, c_hi * m))
+            assert all(p == r // m for r, p in pairs)
+            table = np.full((affinity.SLOTS * plan.users, plan.peers), -np.inf)
+            peers = np.array([p for _, p in pairs]) - c_lo
+            np.maximum.at(table, (fold_users[:, None], peers[None, :]),
+                          scores[sources][:, rows])
+            for lu in range(per_block):
+                user = group * per_block + lu
+                if user < b:
+                    out[user, c_lo:c_hi] = table[lu, :c_hi - c_lo]
+                    written[user, c_lo:c_hi] += 1
+    assert (written == 1).all()
+    np.testing.assert_array_equal(out, want)
 
 
 # ---------------------------------------------------------------------------
