@@ -21,20 +21,21 @@ accept:
   `""`, `"highest"` or `"float32"`, and `remat=True`.
 * `DataConfig.data_root` defaults to the relative directory `reference`; the
   caller names where the CSVs are.
-* `TrainConfig` keeps the mesh, fast-loop, checkpoint, resume and profile
-  fields so configs read the same; `train.loop.run_seed` raises
-  `NotImplementedError` naming the field when one asks for a part that is not
-  ported yet (`use_mesh`, `fast_train`, `fast_eval`, `checkpoint`, `resume`,
-  `profile_steps`).
+* `TrainConfig` keeps the mesh, checkpoint, resume and profile fields so
+  configs read the same; `train.loop.run_seed` raises `NotImplementedError`
+  naming the field when one asks for a part that is not ported yet
+  (`use_mesh`, `checkpoint`, `resume`, `profile_steps`). The fast loops
+  (`fast_train`, `fast_eval`) are ported, on by default as in the JAX
+  package.
 
 `parse_cli` takes the reference-style flags of the JAX package's `parse_cli`
 with the same defaults and builds the same `TrainConfig`, field by field.
 What differs: `--kernels` is checked against `auto|torch|cuda`;
 `--data_root` defaults to `reference`; `--device` (not a config field: see
 `parse_cli_with_device`) names the device, the card when absent; the flags of
-parts that are not ported (`--fast_train`, `--fast_eval`, `--checkpoint`,
-`--resume`, `--profile_steps`, `--mesh`, `--data_axis`, `--model_axis`,
-`--distributed`, `--isC2DSR`, other `--model`s) parse into their fields and
+parts that are not ported (`--checkpoint`, `--resume`, `--profile_steps`,
+`--mesh`, `--data_axis`, `--model_axis`, `--distributed`, `--isC2DSR`,
+other `--model`s) parse into their fields and
 meet the `NotImplementedError` of the part they ask for; `--distributed`
 joins no runtime here, it only sets `use_mesh`; `--bf16`, `--remat` and
 `--matmul_precision` fill their fields, and the values the port does not
@@ -200,8 +201,8 @@ class TrainConfig:
     lazy_table_adam: bool = False
     cl_w: float = 0.1  # C2DSR contrastive weight (C2DSR is not ported yet)
     eval_batch_drop_last: bool = True  # reference val loader drop_last=True (train_sr.py:455)
-    fast_eval: bool = True  # not ported yet: run_seed raises when set
-    fast_train: bool = True  # not ported yet: run_seed raises when set
+    fast_eval: bool = True  # the stacked evaluation pass (a CUDA graph on the card)
+    fast_train: bool = True  # the device-resident chunked train loop (CUDA graphs)
     model: ModelConfig = field(default_factory=ModelConfig)
     data: DataConfig = field(default_factory=DataConfig)
     mesh: MeshConfig = field(default_factory=MeshConfig)
@@ -274,9 +275,9 @@ def _add_reference_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--bf16", type=_parse_bool, default=False)
     p.add_argument("--lazy_table_adam", type=_parse_bool, default=False)
     p.add_argument("--fast_eval", type=_parse_bool, default=True,
-                   help="device-resident eval pass (not ported yet)")
+                   help="device-resident eval pass (a CUDA graph a batch)")
     p.add_argument("--fast_train", type=_parse_bool, default=True,
-                   help="device-resident chunked train loop (not ported yet)")
+                   help="device-resident chunked train loop (a CUDA graph a step)")
     p.add_argument("--checkpoint", type=_parse_bool, default=True)
     p.add_argument("--checkpoint_async", type=_parse_bool, default=True)
     p.add_argument("--checkpoint_payload", type=str, default="full",

@@ -143,7 +143,12 @@ def adam_state_from_optax(count, mu: Mapping[str, Any], nu: Mapping[str, Any],
     nu_t = params_from_flax(nu, with_table)
     if set(mu_t) != set(nu_t):
         raise ValueError(f"mu and nu name different leaves: {sorted(set(mu_t) ^ set(nu_t))}")
-    return AdamState(int(np.asarray(count)), mu_t, nu_t)
+    return AdamState(_count(count), mu_t, nu_t)
+
+
+def _count(count) -> torch.Tensor:
+    """optax's int32 step count as the port's count tensor."""
+    return torch.tensor(int(np.asarray(count)), dtype=torch.int32)
 
 
 def lazy_state_from_numpy(dense_count, dense_mu, dense_nu, mu, nu, count):
@@ -160,5 +165,5 @@ def lazy_state_from_numpy(dense_count, dense_mu, dense_nu, mu, nu, count):
         dense_opt=adam_state_from_optax(dense_count, dense_mu, dense_nu, with_table=False),
         mu=torch.tensor(mu),
         nu=torch.tensor(nu),
-        count=int(np.asarray(count)),
+        count=_count(count),
     )

@@ -67,7 +67,8 @@ struct BwdParams {
   int T, D, H;
   long long q_sb, q_st, k_sb, k_st, v_sb, v_st, o_sb, o_st, g_sb, g_st, bias_sb, bias_si;
   float scale, inv_keep;
-  uint32_t keep_threshold, seed;
+  uint32_t keep_threshold;
+  const long long* seed;  // one int64 on the device, read when dropout is on
   int dropout;
 };
 
@@ -113,7 +114,8 @@ attention_bwd_kernel(const BwdParams p) {
     dqs[t * P + c] = 0.f;
     if constexpr (!kHoldKV) vs[t * P + c] = in ? vb[t * p.v_st + c] : 0.f;
   }
-  const uint32_t bh_key = p.dropout ? mix(mix(kMixKey0, p.seed), (uint32_t)bh) : 0u;
+  const uint32_t bh_key =
+      p.dropout ? mix(mix(kMixKey0, (uint32_t)*p.seed), (uint32_t)bh) : 0u;
   const long long stat = (long long)bh * T;
   for (int i = threadIdx.x; i < TQ; i += blockDim.x) {
     const bool in = i < T;
@@ -307,11 +309,11 @@ size_t smem_bytes(int T, int dh) {
 
 template <int DH>
 cudaError_t launch(const BwdParams& p, int B, size_t smem, cudaStream_t stream) {
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        attention_bwd_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
+  // every width may take all 227 KB a block can have; asked once, at the first
+  // launch (not a stream operation: it stays out of a CUDA graph's capture)
+  static const cudaError_t opted_in = cudaFuncSetAttribute(
+      attention_bwd_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
+  if (opted_in != cudaSuccess) return opted_in;
   attention_bwd_kernel<DH><<<B * p.H, warps_for(tiles16(p.T)) * 32, smem, stream>>>(p);
   return cudaGetLastError();
 }
@@ -346,7 +348,8 @@ int attention_bwd(const void* raw) {
       (int)a.T, (int)a.D, (int)a.H,
       a.q_sb, a.q_st, a.k_sb, a.k_st, a.v_sb, a.v_st, a.o_sb, a.o_st, a.g_sb, a.g_st,
       a.bias_sb, a.bias_si,
-      (float)a.scale, (float)a.inv_keep, (uint32_t)a.keep_threshold, (uint32_t)a.seed,
+      (float)a.scale, (float)a.inv_keep, (uint32_t)a.keep_threshold,
+      ptr<const long long>(a.seed),
       (int)a.dropout};
   cudaStream_t s = ptr<CUstream_st>(a.stream);
   const int B = (int)a.B;

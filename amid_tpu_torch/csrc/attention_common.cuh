@@ -113,7 +113,10 @@ __device__ __forceinline__ void mma3(float (&d)[4], const FragA& a, float b0, fl
 }
 
 // The entry points' arguments: one block of 8-byte fields that the Python side
-// packs in one call (pointers as integers; null pointers as 0).
+// packs in one call (pointers as integers; null pointers as 0). `seed` points
+// to one int64 on the device (its low 32 bits key the dropout hash), read by
+// the kernel only when `dropout` is set, so that a CUDA graph replays a launch
+// with the seed its step drew on the device.
 struct FwdArgs {
   long long q, k, v, bias, out, row_max, row_inv_sum;
   long long B, T, D, H;

@@ -61,7 +61,8 @@ struct FwdParams {
   int T, D, H;
   long long q_sb, q_st, k_sb, k_st, v_sb, v_st, bias_sb, bias_si;
   float scale, inv_keep;
-  uint32_t keep_threshold, seed;
+  uint32_t keep_threshold;
+  const long long* seed;  // one int64 on the device, read when dropout is on
   int dropout;
 };
 
@@ -106,7 +107,8 @@ attention_fwd_kernel(const FwdParams p) {
   const int g = lane >> 2, t4 = lane & 3;
   const int warps = blockDim.x >> 5;
   const float* bias_b = p.bias + b * p.bias_sb;
-  const uint32_t bh_key = p.dropout ? mix(mix(kMixKey0, p.seed), (uint32_t)bh) : 0u;
+  const uint32_t bh_key =
+      p.dropout ? mix(mix(kMixKey0, (uint32_t)*p.seed), (uint32_t)bh) : 0u;
   float* out_b = p.out + (long long)b * T * p.D + h * DH;
 
   for (int qt = threadIdx.x >> 5; qt < tiles16(T); qt += warps) {
@@ -232,11 +234,11 @@ size_t smem_bytes(int T, int dh) {
 
 template <int DH>
 cudaError_t launch(const FwdParams& p, int B, size_t smem, cudaStream_t stream) {
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        attention_fwd_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
+  // every width may take all 227 KB a block can have; asked once, at the first
+  // launch (not a stream operation: it stays out of a CUDA graph's capture)
+  static const cudaError_t opted_in = cudaFuncSetAttribute(
+      attention_fwd_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
+  if (opted_in != cudaSuccess) return opted_in;
   attention_fwd_kernel<DH><<<B * p.H, warps_for(tiles16(p.T)) * 32, smem, stream>>>(p);
   return cudaGetLastError();
 }
@@ -268,7 +270,8 @@ int attention_fwd(const void* raw) {
       ptr<const float>(a.bias), ptr<float>(a.out), ptr<float>(a.row_max),
       ptr<float>(a.row_inv_sum), (int)a.T, (int)a.D, (int)a.H,
       a.q_sb, a.q_st, a.k_sb, a.k_st, a.v_sb, a.v_st, a.bias_sb, a.bias_si,
-      (float)a.scale, (float)a.inv_keep, (uint32_t)a.keep_threshold, (uint32_t)a.seed,
+      (float)a.scale, (float)a.inv_keep, (uint32_t)a.keep_threshold,
+      ptr<const long long>(a.seed),
       (int)a.dropout};
   cudaStream_t s = ptr<CUstream_st>(a.stream);
   const int B = (int)a.B;

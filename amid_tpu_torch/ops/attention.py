@@ -31,6 +31,13 @@ attention probabilities and scales the kept ones by 1/(1 - rate).
   bit. The TPU's own random bits cannot be reproduced; against JAX only
   rate 0 compares.
 
+The dropout `seed` is a Python int or a one-element int64 tensor on the
+inputs' device (what a training step draws, `ops.rng.StepRandom.
+attention_seed`); only its low 32 bits key the mask. The kernels read it from
+device memory through a pointer, so a CUDA graph of a step replays each
+launch with the seed that replay drew; an int seed is first written into a
+device tensor (a fill, no copy from the host).
+
 The backward's residuals differ from the JAX package's `_vjp_fwd` (q, k, v,
 bias, seed): here they are (q, k, v, bias, out, row_max, row_inv_sum, seed),
 so the backward does not recompute the softmax's normalisation. The result is
@@ -114,12 +121,15 @@ def keep_threshold(rate: float) -> int:
 
 
 def dropout_keep_mask(
-    seed: int, bsz: int, heads: int, t: int, rate: float, device=None
+    seed, bsz: int, heads: int, t: int, rate: float, device=None
 ) -> torch.Tensor:
-    """Boolean keep mask [B, heads, T, T] of the kernel's dropout.
+    """Boolean keep mask [B, heads, T, T] of the kernel's dropout; `seed` an
+    int or a one-element int64 tensor on `device`.
 
     bits(b, h, i, j) = mix(mix(mix(mix(K0, seed), b*heads + h), i), j) and the
     element is kept iff bits >> 8 >= ceil(rate * 2^24)."""
+    if isinstance(seed, torch.Tensor):
+        seed = seed.reshape(()).to(torch.int64)
     stream = _mix(_MIX_KEY0, seed & _M32)
     bh = torch.arange(bsz * heads, dtype=torch.int64, device=device)
     idx = torch.arange(t, dtype=torch.int64, device=device)
@@ -162,7 +172,7 @@ def attention_plain(
     k: torch.Tensor,
     v: torch.Tensor,
     bias: torch.Tensor,
-    seed: int,
+    seed,
     heads: int,
     rate: float,
 ) -> torch.Tensor:
@@ -175,7 +185,7 @@ def attention_plain(
     return _merge(torch.matmul(p, _heads(v, heads)))
 
 
-def attention_fwd_stats_plain(q, k, v, bias, seed: int, heads: int, rate: float):
+def attention_fwd_stats_plain(q, k, v, bias, seed, heads: int, rate: float):
     """(out, row_max, row_inv_sum): the forward kernel's results under
     autograd, in plain PyTorch. out equals `attention_plain`; row_max[b, h, i]
     is m_i = max_j S_ij and row_inv_sum[b, h, i] is 1 / sum_j exp(S_ij - m_i),
@@ -193,7 +203,7 @@ def attention_fwd_stats_plain(q, k, v, bias, seed: int, heads: int, rate: float)
 
 
 def attention_bwd_plain(q, k, v, bias, out, row_max, row_inv_sum, dout,
-                        seed: int, heads: int, rate: float):
+                        seed, heads: int, rate: float):
     """(dq, dk, dv) of `attention_plain` for the output gradient `dout`
     [B, T, D], by the backward kernel's one-sweep arithmetic from the forward's
     `out` and row statistics (`attention_fwd_stats_plain`):
@@ -292,14 +302,26 @@ def _strides(named, bias, dev, also=()) -> list:
         bias_st[0] if bias.shape[0] > 1 else 0, bias_st[2] if bias.shape[2] > 1 else 0]
 
 
-def _dropout_fields(seed: int, rate: float, dev):
-    """dropout, keep_threshold, seed, stream."""
+def _seed_tensor(seed, dev) -> torch.Tensor:
+    """The seed as the one-element int64 device tensor the kernels read."""
+    if not isinstance(seed, torch.Tensor):
+        return torch.full((1,), seed & _M32, dtype=torch.int64, device=dev)
+    if seed.device != dev or seed.dtype is not torch.int64 or seed.numel() != 1:
+        raise ValueError(f"the dropout seed must be an int or one int64 on {dev}; got "
+                         f"{seed.dtype} {tuple(seed.shape)} on {seed.device}")
+    return seed
+
+
+def _dropout_fields(seed, rate: float, dev):
+    """dropout, keep_threshold, the seed's address (0 without dropout), stream;
+    and the seed tensor, which the caller keeps alive until the launch."""
     dropout = rate > 0.0
-    return (dropout, keep_threshold(rate) if dropout else 0, seed & _M32,
-            _build.raw_stream(dev.index))
+    seed_t = _seed_tensor(seed, dev) if dropout else None
+    return (dropout, keep_threshold(rate) if dropout else 0,
+            seed_t.data_ptr() if dropout else 0, _build.raw_stream(dev.index)), seed_t
 
 
-def _launch_forward(q, k, v, bias, seed: int, heads: int, rate: float, stats: bool):
+def _launch_forward(q, k, v, bias, seed, heads: int, rate: float, stats: bool):
     """(out, row_max, row_inv_sum) from one forward launch on checked CUDA
     tensors; the statistics are written (and returned) only with `stats`."""
     if _fwd is None:
@@ -311,10 +333,11 @@ def _launch_forward(q, k, v, bias, seed: int, heads: int, rate: float, stats: bo
     row_max = row_inv_sum = None
     if stats:
         row_max, row_inv_sum = q.new_empty((bsz, heads, t)), q.new_empty((bsz, heads, t))
+    fields, _seed_alive = _dropout_fields(seed, rate, dev)
     err = _fwd(_PACK_FWD(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(),
         row_max.data_ptr() if stats else 0, row_inv_sum.data_ptr() if stats else 0,
-        bsz, t, d, heads, *strides, *_dropout_fields(seed, rate, dev),
+        bsz, t, d, heads, *strides, *fields,
         1.0 / math.sqrt(d // heads), 1.0 / (1.0 - rate)))
     if err:
         _raise(err, "attention_fwd", _fwd_smem, t, d, heads)
@@ -323,7 +346,7 @@ def _launch_forward(q, k, v, bias, seed: int, heads: int, rate: float, stats: bo
 
 
 def _launch_backward(q, k, v, bias, out, row_max, row_inv_sum, dout,
-                     seed: int, heads: int, rate: float):
+                     seed, heads: int, rate: float):
     if _bwd is None:
         _bind()
     bsz, t, d = q.shape
@@ -340,11 +363,12 @@ def _launch_backward(q, k, v, bias, out, row_max, row_inv_sum, dout,
     strides = _strides((("q", q), ("k", k), ("v", v), ("out", out), ("dout", dout)), bias,
                        dev, (("row_max", row_max), ("row_inv_sum", row_inv_sum)))
     dq, dk, dv = (q.new_empty((bsz, t, d)) for _ in range(3))
+    fields, _seed_alive = _dropout_fields(seed, rate, dev)
     err = _bwd(_PACK_BWD(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(),
         dout.data_ptr(), row_max.data_ptr(), row_inv_sum.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        bsz, t, d, heads, *strides, *_dropout_fields(seed, rate, dev),
+        bsz, t, d, heads, *strides, *fields,
         1.0 / math.sqrt(d // heads), 1.0 / (1.0 - rate)))
     if err:
         _raise(err, "attention_bwd", _bwd_smem, t, d, heads)
@@ -362,7 +386,7 @@ def _device_route(q, name: str) -> bool:
 
 
 def attention_backward(q, k, v, bias, out, row_max, row_inv_sum, dout,
-                       seed: int, heads: int, rate: float):
+                       seed, heads: int, rate: float):
     """(dq, dk, dv) for the output gradient `dout`, from the forward's `out`
     and row statistics: the backward kernel on CUDA tensors (or an error),
     `attention_bwd_plain` on CPU tensors."""
@@ -376,10 +400,11 @@ def attention_backward(q, k, v, bias, out, row_max, row_inv_sum, dout,
 class _FusedAttention(torch.autograd.Function):
     """Forward kernel (with row statistics) and backward kernel as one
     differentiable function. The residuals are q, k, v, bias, the output, the
-    row statistics and the seed."""
+    row statistics and the seed (the device tensor both launches read)."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, seed, heads, rate):
+        seed = _seed_tensor(seed, q.device) if rate > 0.0 else 0
         out, row_max, row_inv_sum = _launch_forward(q, k, v, bias, seed, heads, rate, True)
         ctx.save_for_backward(q, k, v, bias, out, row_max, row_inv_sum)
         ctx.attn_args = (seed, heads, rate)
@@ -397,13 +422,14 @@ def fused_attention(
     k: torch.Tensor,
     v: torch.Tensor,
     bias: torch.Tensor,
-    seed: int,
+    seed,
     heads: int,
     rate: float,
 ) -> torch.Tensor:
-    """q, k, v: [B, T, D] float32; bias: additive [1|B, 1, 1|T, T]; seed: int
-    keying the dropout mask (read only when rate > 0); heads, rate: Python
-    numbers. Returns [B, T, D], differentiable in q, k and v.
+    """q, k, v: [B, T, D] float32; bias: additive [1|B, 1, 1|T, T]; seed: an
+    int or a one-element int64 tensor on q's device, keying the dropout mask
+    (read only when rate > 0); heads, rate: Python numbers. Returns
+    [B, T, D], differentiable in q, k and v.
 
     CUDA tensors launch the kernels (or raise); CPU tensors take
     `attention_plain`."""

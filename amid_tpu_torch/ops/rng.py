@@ -6,12 +6,16 @@ the step index into a root key. The port keeps that shape with integer keys:
 
 * `fold_in(key, data)` derives a new 63-bit key from a key and an integer (a
   splitmix64 mix; the numbers are not JAX's);
-* `StepRandom(key, device)` owns one step's generators: `sampler` and
-  `dropout` on the model's device, and `host`, a CPU generator from which the
-  attention kernels' dropout seeds are drawn as Python ints, so the same int
-  reaches the forward and the backward launch and no device tensor is read
-  back. Nothing here touches the process-wide generators: two `StepRandom`s
-  built from one key give the same draws.
+* `StepRandom(key, device)` owns the generators of a step, both on the
+  model's device: `sampler` (negatives) and `dropout_gen` (dropout masks, and
+  the attention kernels' dropout seeds, drawn as one-element int64 tensors
+  that the kernels read from device memory). `reseed(key)` seeds both from a
+  step's key on the host, without touching the device, so one `StepRandom`
+  serves every step of a step function: a step function owns one, reseeds it
+  from each step's key, and a CUDA graph of the step registers its two
+  generators (`StepRandom.generators`), whose seed and offset a replay then
+  reads from device memory. Nothing here touches the process-wide
+  generators: two `StepRandom`s seeded from one key give the same draws.
 """
 
 from __future__ import annotations
@@ -30,17 +34,32 @@ def fold_in(key: int, data: int) -> int:
 
 
 class StepRandom:
-    """The generators of one training or evaluation step."""
+    """The generators of a training or evaluation step, seeded from its key."""
 
-    def __init__(self, key: int, device) -> None:
+    def __init__(self, key, device) -> None:
+        self.device = torch.device(device)
+        self.sampler = torch.Generator(device=self.device)
+        self.dropout_gen = torch.Generator(device=self.device)
+        self.key = None
+        if key is not None:
+            self.reseed(key)
+
+    def reseed(self, key: int) -> "StepRandom":
+        """Seeds both generators from `key`, on the host."""
         self.key = int(key)
-        self.sampler = torch.Generator(device=device).manual_seed(fold_in(self.key, 0))
-        self.dropout_gen = torch.Generator(device=device).manual_seed(fold_in(self.key, 1))
-        self.host = torch.Generator().manual_seed(fold_in(self.key, 2))
+        self.sampler.manual_seed(fold_in(self.key, 0))
+        self.dropout_gen.manual_seed(fold_in(self.key, 1))
+        return self
 
-    def attention_seed(self) -> int:
-        """A fresh 31-bit seed for one attention call's dropout mask."""
-        return int(torch.randint(0, 2**31 - 1, (), generator=self.host))
+    def generators(self) -> tuple[torch.Generator, torch.Generator]:
+        return self.sampler, self.dropout_gen
+
+    def attention_seed(self) -> torch.Tensor:
+        """A fresh 31-bit seed for one attention call's dropout mask, drawn on
+        the device: a one-element int64 tensor, read by the forward and the
+        backward kernel alike, never by the host."""
+        return torch.randint(0, 2**31 - 1, (1,), generator=self.dropout_gen,
+                             device=self.device, dtype=torch.int64)
 
     def dropout(self, x: torch.Tensor, rate: float) -> torch.Tensor:
         """Inverted dropout of `x` with the mask drawn from `dropout_gen`."""

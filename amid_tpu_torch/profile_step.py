@@ -4,6 +4,7 @@ the DR trainer's steps at the full width of the `run.sh` model.
     python -m amid_tpu_torch.profile_step --seq_len 20 --lazy
     python -m amid_tpu_torch.profile_step --seq_len 150
     python -m amid_tpu_torch.profile_step --seq_len 150 --pairwise
+    python -m amid_tpu_torch.profile_step --seq_len 20 --lazy --fast
 
 Builds the model (SASRec, InterComp ts2=0.4, DR heads, emb 128, hid 32, batch
 256, 2 blocks, 8 heads, the 894,820-row table, random weights from a seed; with
@@ -18,8 +19,16 @@ the phase-B step and the evaluation batch (999 negatives):
   device's idle share (1 - device time / wall time) and the kernels that take
   most of the device time.
 
+Without `--fast` each step is the eager step function, as the per-step loop
+calls it. With `--fast` the steps are those of the fast loops: the dataset
+resident on the device, each step kind a CUDA graph replayed by
+`steps.make_resident_chunk_runner` (a chunk of 10 steps a call) and
+`steps.make_scanned_eval` (a pass of 10 batches a call), after the eager step
+and the capture that the first calls make.
+
 Prints one JSON object per step kind and, first, the card's name and power
 limit. Needs one CUDA card; exits non-zero if the trace holds no device time.
+`step_kinds` and `measure` serve `chip_smoke.py` too.
 """
 
 from __future__ import annotations
@@ -39,7 +48,7 @@ from amid_tpu_torch.data.loader import BatchIterator
 from amid_tpu_torch.data.synthetic import synth_packed
 from amid_tpu_torch.models.amid import build_model
 from amid_tpu_torch.train import lazy, steps
-from amid_tpu_torch.train.loop import _device_pools, _to_device
+from amid_tpu_torch.train.loop import STEP_KEYS, _device_pools, _resident, _to_device
 from amid_tpu_torch.train.optim import Adam
 
 
@@ -80,12 +89,77 @@ def _trace(fn, n: int, top: int):
         for name, (us, cnt) in ranked]
 
 
+def step_kinds(cfg: ModelConfig, tcfg: TrainConfig, ds, fast: bool, pool=None) -> dict:
+    """name -> (fn, steps a call) for phase A, phase B and the evaluation
+    batch of a fresh model on `ds`: eager steps cycling over the batches, or
+    with `fast` the fast loops' replays over the resident dataset (graphs in
+    `pool`, which the caller closes)."""
+    model = build_model(cfg, seed=0)
+    tx, tx2 = Adam(tcfg.lr), Adam(tcfg.lr * tcfg.lr2)
+    if tcfg.lazy_table_adam:
+        state = lazy.init_lazy_state(dict(model.named_parameters()), tx, tx2)
+        step_a = lazy.make_lazy_train_step(model, tx, dr_e_w=tcfg.dr_e_w)
+        step_b = lazy.make_lazy_dr_r_step(model, tx2)
+    else:
+        state = steps.init_state(model, tx, tx2)
+        step_a = steps.make_train_step(model, tx, dr_e_w=tcfg.dr_e_w)
+        step_b = steps.make_dr_r_step(model, tx2)
+    pools = _device_pools(ds, "cuda")
+    bs = cfg.batch_size
+    counter = iter(range(10**9))
+    if not fast:
+        eval_step = steps.make_eval_step(model, tcfg.data.neg_nums)
+        batches = [_to_device(b, "cuda") for b in BatchIterator(ds, bs, False)]
+
+        def next_batch():
+            return batches[next(counter) % len(batches)]
+
+        return {
+            "phase_a": (lambda: step_a(state, next_batch(), *pools, next(counter)), 1),
+            "phase_b": (lambda: step_b(state, next_batch(), *pools, next(counter)), 1),
+            "eval_batch": (lambda: eval_step(next_batch(), *pools, next(counter)), 1),
+        }
+    nb = len(ds) // bs
+    arrays = _resident(ds.batch_arrays(), "cuda")
+    perm = torch.arange(nb * bs, dtype=torch.int32, device="cuda")
+    run_a = steps.make_resident_chunk_runner(step_a, bs, pool)
+    run_b = steps.make_resident_chunk_runner(step_b, bs, pool)
+    eval_all = steps.make_scanned_eval(model, tcfg.data.neg_nums, pool)
+    stacked = {k: v.view(nb, bs, *v.shape[1:]) for k, v in arrays.items() if k in STEP_KEYS}
+
+    def chunk(run):
+        def call():
+            k = next(counter) * nb
+            run(state, arrays, perm, *pools, 0, range(k, k + nb), range(nb))
+        return call
+
+    return {"phase_a": (chunk(run_a), nb), "phase_b": (chunk(run_b), nb),
+            "eval_batch": (lambda: eval_all(stacked, *pools, next(counter)), nb)}
+
+
+def measure(fn, per_call: int, calls: int, top: int = TOP) -> dict:
+    """Wall ms, device ms, launches and top kernels per step of `fn`, which
+    takes `per_call` steps a call: 3 calls of warm-up, then `calls` calls timed
+    by the host clock and `calls` traced."""
+    for _ in range(3):
+        fn()
+    wall = _wall_ms(fn, calls) / per_call
+    device, launches, ranked = _trace(fn, calls, top)
+    return {"wall_ms_per_step": wall, "device_ms_per_step": device / per_call,
+            "device_idle_share": max(0.0, 1.0 - device / per_call / wall),
+            "kernel_launches_per_step": launches / per_call,
+            "top_kernels": [{**r, "ms_per_step": r["ms_per_step"] / per_call,
+                             "per_step": r["per_step"] / per_call} for r in ranked]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seq_len", type=int, default=20)
     ap.add_argument("--lazy", action="store_true", help="lazy table Adam (default: dense)")
     ap.add_argument("--pairwise", action="store_true",
                     help="comp_broadcast_quirk=False (default: the broadcast-quirk mode)")
+    ap.add_argument("--fast", action="store_true",
+                    help="trace the fast loops' replayed steps (default: eager steps)")
     ap.add_argument("--steps", type=int, default=10)
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -102,44 +176,28 @@ def main(argv=None) -> int:
                       sasrec_blocks=2, sasrec_heads=8, comp_broadcast_quirk=not a.pairwise)
     tcfg = TrainConfig(model=cfg, data=DataConfig(neg_nums=999), lazy_table_adam=a.lazy)
     ds = synth_packed(cfg, np.random.default_rng(0), ROWS)
-    model = build_model(cfg, seed=0)
-    tx, tx2 = Adam(tcfg.lr), Adam(tcfg.lr * tcfg.lr2)
-    if a.lazy:
-        state = lazy.init_lazy_state(dict(model.named_parameters()), tx, tx2)
-        step_a = lazy.make_lazy_train_step(model, tx, dr_e_w=tcfg.dr_e_w)
-        step_b = lazy.make_lazy_dr_r_step(model, tx2)
-    else:
-        state = steps.init_state(model, tx, tx2)
-        step_a = steps.make_train_step(model, tx, dr_e_w=tcfg.dr_e_w)
-        step_b = steps.make_dr_r_step(model, tx2)
-    eval_step = steps.make_eval_step(model, tcfg.data.neg_nums)
-    batches = [_to_device(b, "cuda") for b in BatchIterator(ds, cfg.batch_size, False)]
-    pools = _device_pools(ds, "cuda")
-    counter = iter(range(10**9))
+    pool = None
+    if a.fast:
+        from amid_tpu_torch.train.graphs import GraphPool
 
-    def next_batch():
-        return batches[next(counter) % len(batches)]
-
-    kinds = {
-        "phase_a": lambda: step_a(state, next_batch(), *pools, next(counter)),
-        "phase_b": lambda: step_b(state, next_batch(), *pools, next(counter)),
-        "eval_batch": lambda: eval_step(next_batch(), *pools, next(counter)),
-    }
-    for name, fn in kinds.items():
-        for _ in range(3):
-            fn()
-        wall = _wall_ms(fn, a.steps)
-        device, launches, ranked = _trace(fn, a.steps, TOP)
-        if device <= 0.0:
-            print(f"profile_step: the trace of {name} holds no device time", file=sys.stderr)
-            return 1
-        print(json.dumps({
-            "step": name, "seq_len": a.seq_len, "optimizer": "lazy" if a.lazy else "dense",
-            "pairwise": a.pairwise,
-            "wall_ms_per_step": wall, "device_ms_per_step": device,
-            "device_idle_share": max(0.0, 1.0 - device / wall),
-            "kernel_launches_per_step": launches, "top_kernels": ranked,
-            "device": torch.cuda.get_device_name(0)}), flush=True)
+        pool = GraphPool("cuda")
+    try:
+        for name, (fn, per_call) in step_kinds(cfg, tcfg, ds, a.fast, pool).items():
+            calls = -(-a.steps // per_call)
+            rec = measure(fn, per_call, calls)
+            if rec["device_ms_per_step"] <= 0.0:
+                print(f"profile_step: the trace of {name} holds no device time",
+                      file=sys.stderr)
+                return 1
+            print(json.dumps({
+                "step": name, "seq_len": a.seq_len,
+                "optimizer": "lazy" if a.lazy else "dense", "pairwise": a.pairwise,
+                "loop": "fast (CUDA graph replays)" if a.fast else "per step (eager)",
+                "steps": calls * per_call, **rec,
+                "device": torch.cuda.get_device_name(0)}), flush=True)
+    finally:
+        if pool is not None:
+            pool.close()
     return 0
 
 

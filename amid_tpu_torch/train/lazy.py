@@ -7,20 +7,21 @@ same, so dense is the parity default; this opt-in path (`lazy_table_adam`)
 restructures the step so the table's gradient is never materialised and only
 touched rows' parameters/moments move:
 
-1. negatives are sampled first, then the step's unique ids are computed
-   (`torch.unique`, padded to the static `_unique_budget` with the
-   out-of-range sentinel V, so every later shape is static);
+1. negatives are sampled first, then the step's unique ids are computed on
+   the device at the static size `_unique_budget`, sorted, with the
+   out-of-range sentinel V in the tail (`unique_padded`, the counterpart of
+   `jnp.unique(size=, fill_value=)`), so every later shape is static;
 2. the touched rows are gathered ONCE and become the differentiated leaf —
    the model's lookups are redirected to positions within them
    (`AMIDModel.lookup(ids_list, lazy_rows=(uids, rows))`); the table parameter
    takes no gradient;
 3. the [U, D] row gradient drives a per-row Adam update (bias correction by
-   the GLOBAL step count) written back in place by the unique-row scatter
-   kernel (`ops/scatter.py`), which drops the sentinel rows; dense
-   parameters use Adam as usual.
+   the GLOBAL step count, a device tensor, in float64) written back in place
+   by the unique-row scatter kernel (`ops/scatter.py`), which drops the
+   sentinel rows; dense parameters use Adam as usual.
 
-`torch.unique` sizes its result on the host, so the step synchronises once
-there; the pad to the static budget is what a later CUDA graph needs.
+Nothing in the step reads a device value on the host, so it can be captured
+as a CUDA graph (`train/graphs.py`).
 
 Both DR phases are covered: `make_lazy_train_step` is phase A on optimizer 1,
 `make_lazy_dr_r_step` phase B on optimizer 2 with a second, independent set
@@ -38,17 +39,16 @@ from typing import Callable, Optional
 
 import torch
 
-from amid_tpu_torch.ops.rng import StepRandom
 from amid_tpu_torch.ops.scatter import (
     scatter_set_unique,
     scatter_set_unique3,
     scatter_set_unique3_plain,
     scatter_set_unique_plain,
 )
-from amid_tpu_torch.train.optim import Adam, AdamState
+from amid_tpu_torch.train.optim import Adam, AdamState, bias_correction, new_count
 from amid_tpu_torch.train.steps import (
     TrainState, _draw_negatives, _finish_metrics, _make_labels, _model_batch,
-    phase_a_loss, phase_b_loss,
+    _seeded, _step_random, phase_a_loss, phase_b_loss,
 )
 
 TABLE_KEY = "item_embedding"
@@ -59,7 +59,7 @@ class LazyTableState:
     dense_opt: AdamState  # Adam state over the non-table params
     mu: torch.Tensor  # [V, D]
     nu: torch.Tensor  # [V, D]
-    count: int  # global step, for bias correction
+    count: torch.Tensor  # global step (int32 on the device), for bias correction
 
 
 def _init_slot(table, dense, tx: Adam) -> LazyTableState:
@@ -67,7 +67,7 @@ def _init_slot(table, dense, tx: Adam) -> LazyTableState:
         dense_opt=tx.init(dense),
         mu=torch.zeros_like(table),
         nu=torch.zeros_like(table),
-        count=0,
+        count=new_count(table.device),
     )
 
 
@@ -83,6 +83,23 @@ def init_lazy_state(params, tx_dense: Adam,
 def _unique_budget(batch_size: int, seq_len: int, num_neg: int) -> int:
     total = batch_size * (1 + num_neg + 2 * seq_len)
     return -(-total // 1024) * 1024
+
+
+def unique_padded(ids: torch.Tensor, size: int, fill_value: int) -> torch.Tensor:
+    """`jnp.unique(ids, size=size, fill_value=fill_value)` on the device: the
+    sorted distinct values of `ids`, the first `size` of them, then
+    `fill_value` up to `size`; no result size is read on the host.
+
+    Sort, mark each value that differs from its left neighbour, number the
+    marks by a cumulative sum, and scatter every value to its number: the
+    copies of one value carry one number and one value, so the order of the
+    writes does not matter. Numbers past `size` land in one spare slot."""
+    s = torch.sort(ids.reshape(-1)).values
+    new = torch.ones_like(s, dtype=torch.bool)
+    new[1:] = s[1:] != s[:-1]
+    pos = (torch.cumsum(new, 0) - 1).clamp_(max=size)
+    out = torch.full((size + 1,), fill_value, dtype=ids.dtype, device=ids.device)
+    return out.scatter_(0, pos, s)[:size]
 
 
 def _make_lazy_step(
@@ -105,14 +122,15 @@ def _make_lazy_step(
     set3 = scatter_set_unique3 if on_kernels else scatter_set_unique3_plain
     set1 = scatter_set_unique if on_kernels else scatter_set_unique_plain
 
-    def step(state: TrainState, batch, pools, pool_sizes, key: int, neg=None):
+    rng = _step_random(model)
+
+    def step(state: TrainState, batch, pools, pool_sizes, key, neg=None):
         device = pools.device
         table = state.params[TABLE_KEY]
         v = table.shape[0]
         opt: LazyTableState = state.opt_state if slot == 1 else state.opt_state2
 
-        rng = StepRandom(key, device)
-        neg = _draw_negatives(rng, batch, pools, pool_sizes, 1, neg)
+        neg = _draw_negatives(_seeded(rng, key), batch, pools, pool_sizes, 1, neg)
         labels = _make_labels(batch["target"].shape[0], 1, device)
 
         all_ids = torch.cat([
@@ -122,9 +140,7 @@ def _make_lazy_step(
         u_budget = _unique_budget(
             batch["target"].shape[0], batch["seq_d1"].shape[1], neg.shape[1]
         )
-        found = torch.unique(all_ids)  # sorted; sizes its result on the host
-        uids = torch.full((u_budget,), v, dtype=all_ids.dtype, device=device)
-        uids[: found.shape[0]] = found  # sentinel tail
+        uids = unique_padded(all_ids, u_budget, v)  # sorted; sentinel tail
         safe = uids.clamp(max=v - 1)
         rows = table.detach().index_select(0, safe).requires_grad_()  # [U, D] — the diff leaf
 
@@ -143,13 +159,13 @@ def _make_lazy_step(
             tx_dense.update_(dense, dict(zip(names, g_dense)), opt.dense_opt)
 
             # touched table rows: per-row Adam with global-step bias correction
-            opt.count += 1
+            opt.count.add_(1)
             if g_rows is None:
                 g_rows = torch.zeros_like(rows)
             mu_new = b1 * opt.mu.index_select(0, safe) + (1.0 - b1) * g_rows
             nu_new = b2 * opt.nu.index_select(0, safe) + (1.0 - b2) * g_rows**2
-            mhat = mu_new / (1.0 - b1**opt.count)
-            vhat = nu_new / (1.0 - b2**opt.count)
+            mhat = mu_new / bias_correction(b1, opt.count)
+            vhat = nu_new / bias_correction(b2, opt.count)
             new_rows = rows.detach() - lr * mhat / (torch.sqrt(vhat) + eps)
             if fused_scatter:
                 set3(table, opt.mu, opt.nu, uids, new_rows, mu_new, nu_new)
@@ -159,6 +175,7 @@ def _make_lazy_step(
                 set1(opt.nu, uids, nu_new)
         return state, metrics
 
+    step.rng = rng
     return step
 
 

@@ -1,6 +1,6 @@
-"""The trainer: `run` (CSVs in, seeds aggregated), the per-step path of
-`run_seed`, and `cli_main`, the body of the two CLIs — the counterpart of
-`amid_tpu/train/loop.py`.
+"""The trainer: `run` (CSVs in, seeds aggregated), `run_seed` with its
+per-step path and its fast loops, and `cli_main`, the body of the two CLIs —
+the counterpart of `amid_tpu/train/loop.py`.
 
 Protocol reproduced from the reference:
 * per-epoch: full pass over the train loader, then eval (train_sr.py:187-223);
@@ -18,12 +18,23 @@ folded into its key.
 No host sync inside the step loop: every step's `nonfinite` flag is folded
 into a device-side latch that the host reads at log cadence and epoch end.
 
+The fast loops (on by default, as in the JAX package): with `fast_train` the
+train and DR datasets stay on the device for the seed, each epoch uploads
+only its permutation, and the steps run in log-cadence chunks
+(`_run_chunked`, `steps.make_resident_chunk_runner`); with `fast_eval` (and
+`eval_batch_drop_last`) the val batches are stacked on the device once and a
+pass reads its losses and ranks back once (`evaluate_scanned`,
+`steps.make_scanned_eval`). On `cuda` each step kind (phase A, phase B, the
+evaluation batch) is a CUDA graph, captured once per seed after one eager
+step and replayed from then on (`train/graphs.py`); on the CPU the same
+runners run eagerly. Batch order, keys and logged metrics are the per-step
+path's.
+
 Not ported yet (run_seed raises `NotImplementedError` naming the field):
-mesh training, the fast train/eval loops, checkpoints and resume, the
-profiler. The JAX package's defaults ask for three of them (`fast_train`,
-`fast_eval`, `checkpoint`), so `cli_main` turns those three off and says so
-in one log line; a config handed to `run` or `run_seed` directly is served as
-it is, or refused.
+mesh training, checkpoints and resume, the profiler. The JAX package's
+defaults ask for `checkpoint`, so `cli_main` turns it off and says so in one
+log line; a config handed to `run` or `run_seed` directly is served as it
+is, or refused.
 """
 
 from __future__ import annotations
@@ -39,20 +50,21 @@ from amid_tpu_torch.data.loader import BatchIterator
 from amid_tpu_torch.data.packed import PackedDualDomainDataset, load_dual_domain_csv
 from amid_tpu_torch.models.amid import build_model, resolve_device
 from amid_tpu_torch.ops.rng import fold_in
+from amid_tpu_torch.train.graphs import GraphPool
 from amid_tpu_torch.train.metrics import RankAccumulator
 from amid_tpu_torch.train.optim import Adam
 from amid_tpu_torch.train.steps import (
     init_state,
     make_dr_r_step,
     make_eval_step,
+    make_resident_chunk_runner,
+    make_scanned_eval,
     make_train_step,
 )
 from amid_tpu_torch.utils.logging import AverageMeter, init_logger
 
 _NOT_PORTED = {  # TrainConfig field -> the part of the JAX trainer it asks for
     "use_mesh": "mesh training (the parallel layer)",
-    "fast_train": "the device-resident chunked train loop",
-    "fast_eval": "the device-resident eval pass",
     "checkpoint": "the checkpoint manager",
     "resume": "the checkpoint manager",
     "profile_steps": "the profiler",
@@ -66,6 +78,15 @@ def _device_pools(ds: PackedDualDomainDataset, device):
 
 def _to_device(batch: dict[str, np.ndarray], device) -> dict[str, torch.Tensor]:
     return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+
+
+# the per-row arrays a step reads: what the fast loops keep on the device
+STEP_KEYS = ("target", "seq_d1", "seq_d2", "domain_id", "reject", "reject_counts",
+             "ob_label")
+
+
+def _resident(arrays: dict[str, np.ndarray], device) -> dict[str, torch.Tensor]:
+    return {k: torch.as_tensor(arrays[k], device=device) for k in STEP_KEYS}
 
 
 def evaluate(
@@ -90,6 +111,42 @@ def evaluate(
         float(torch.stack(val_losses).mean()) if val_losses else 0.0
     )
     return metrics
+
+
+def evaluate_scanned(eval_all, batches_dev, dom: np.ndarray, ov: np.ndarray,
+                     pools, pool_sizes, key: int, overlap_eval: bool) -> dict[str, float]:
+    """Fast-eval path: the whole pass over the device-resident val batches
+    (`steps.make_scanned_eval`), read back once — the same metrics as
+    `evaluate` (the same per-batch fold_in(key, i) negative draws)."""
+    out = eval_all(batches_dev, pools, pool_sizes, key)
+    acc = RankAccumulator(overlap_eval)
+    acc.add(out["ranks_fixed"].reshape(-1), out["ranks_raw"].reshape(-1),
+            dom.reshape(-1), ov.reshape(-1))
+    metrics = acc.finalize()
+    metrics["val_loss"] = float(out["loss_cls"].mean())
+    return metrics
+
+
+def _run_chunked(runner, state, arrays_dev, perm_dev, nb: int, pools, pool_sizes,
+                 base_key: int, idx_offset: int, log_every: int, on_metrics, nan_cb):
+    """The fast-train epoch: one `runner` call per log-cadence chunk of
+    steps (`steps.make_resident_chunk_runner`). The chunk boundary is the
+    per-step loop's log boundary (i % log_every == 0), so the host reads the
+    device at the same cadence: the latch once a chunk, and the chunk's
+    first-step metrics, which it logs. Batch order and keys are the per-step
+    loop's."""
+    start = 0
+    while start < nb:
+        end = min(start + log_every, nb)
+        state, m0, nf = runner(state, arrays_dev, perm_dev, pools, pool_sizes, base_key,
+                               range(idx_offset + start, idx_offset + end),
+                               range(start, end))
+        if float(nf) > 0.0:
+            nan_cb(start)
+        else:
+            on_metrics(m0)
+        start = end
+    return state
 
 
 class NonFiniteLossError(RuntimeError):
@@ -130,13 +187,16 @@ def _run_phase(step, state, batches, pools, pool_sizes, ekey, key_offset,
                 _handle_nan(cfg, log, epoch, i)
                 latch = torch.zeros((), device=device)
                 continue
-            shown = {k: float(v) for k, v in m.items() if keys is None or k in keys}
-            meter.update(**shown)
-            log.info("train " + ", ".join(
-                f"{k}:{meter.mean(k):.5f}" for k in sorted(shown)))
+            _log_train(log, meter, m, keys)
     if float(latch) > 0.0:
         _handle_nan(cfg, log, epoch, "end")
     return n
+
+
+def _log_train(log, meter, m: dict, keys=None) -> None:
+    shown = {k: float(v) for k, v in m.items() if keys is None or k in keys}
+    meter.update(**shown)
+    log.info("train " + ", ".join(f"{k}:{meter.mean(k):.5f}" for k in sorted(shown)))
 
 
 def run_seed(
@@ -146,10 +206,16 @@ def run_seed(
     val_ds: PackedDualDomainDataset,
     dr_ds: Optional[PackedDualDomainDataset] = None,
     device=None,
+    epoch_hook=None,
 ) -> dict[str, float]:
     """Train one seed; returns the best-metric dict (reference train()
     return contract, train_sr.py:352-355). Logs to the console and to
     `cfg.model_dir/log{seed}.txt`.
+
+    epoch_hook(epoch, state, ev, phase): called after the main evaluation of
+    each epoch (phase="main") and, on the DR schedule, after the post-phase-B
+    one (phase="post_dr"), as in the JAX package; `state.params` holds the
+    model's parameters as they are then.
 
     Runs on `cuda` unless the caller passes a device (e.g. "cpu"), and
     raises without a card."""
@@ -203,6 +269,46 @@ def run_seed(
         if dr_ds is not None else None
     )
 
+    # the fast loops: step kinds as CUDA graphs in one pool on the card,
+    # released when the seed ends; the same runners run eagerly on the CPU
+    fast_eval = cfg.fast_eval and cfg.eval_batch_drop_last and len(val_iter) > 0
+    graphs = (GraphPool(device) if device.type == "cuda" and (cfg.fast_train or fast_eval)
+              else None)
+    phases = [(train_step, train_iter, pools, pool_sizes, 0, None)]
+    if is_dr and dr_iter is not None:
+        phases.append((dr_step, dr_iter, dpools, dpool_sizes, 20_000, ("loss_dr_r",)))
+    resident = {}  # step -> (runner, resident arrays, permutation buffer)
+    if cfg.fast_train:
+        for step, it, *_ in phases:
+            resident[step] = (make_resident_chunk_runner(step, bs, graphs),
+                              _resident(it.arrays(), device),
+                              torch.zeros(len(it) * bs, dtype=torch.int32, device=device))
+    if fast_eval:
+        # the val loader is deterministic: its batches are stacked once
+        vidx = np.arange(len(val_iter) * bs).reshape(len(val_iter), bs)
+        varrays = val_ds.batch_arrays()
+        val_dom, val_ov = varrays["domain_id"][vidx], varrays["overlap"][vidx]
+        val_batches_dev = {k: torch.as_tensor(varrays[k][vidx], device=device)
+                           for k in STEP_KEYS}
+        eval_all = make_scanned_eval(model, cfg.data.neg_nums, graphs)
+
+    def run_phase(step, it, ppools, psizes, offset, keys, ekey, meter, epoch) -> int:
+        if step not in resident:
+            return _run_phase(step, state, it, ppools, psizes, ekey, offset, cfg, log,
+                              meter, epoch, keys)
+        runner, arrays_dev, perm_dev = resident[step]
+        perm_dev.copy_(torch.from_numpy(it.epoch_perm()))
+        _run_chunked(runner, state, arrays_dev, perm_dev, len(it), ppools, psizes, ekey,
+                     offset, cfg.log_every, lambda m0: _log_train(log, meter, m0, keys),
+                     lambda i: _handle_nan(cfg, log, epoch, i))
+        return len(it)
+
+    def run_eval(key):
+        if fast_eval:
+            return evaluate_scanned(eval_all, val_batches_dev, val_dom, val_ov, vpools,
+                                    vpool_sizes, key, cfg.overlap_eval)
+        return evaluate(eval_step, val_iter, vpools, vpool_sizes, key, cfg.overlap_eval)
+
     root_key = fold_in(seed, 0)
     best: dict[str, float] = {}
     train_seconds, train_examples = 0.0, 0
@@ -211,38 +317,42 @@ def run_seed(
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
-    for epoch in range(cfg.epochs):
-        meter = AverageMeter()
-        ekey = fold_in(root_key, epoch)
-        sync()
-        t0 = time.perf_counter()
-        n = _run_phase(train_step, state, train_iter, pools, pool_sizes, ekey, 0,
-                       cfg, log, meter, epoch)
-        sync()
-        train_seconds += time.perf_counter() - t0
-        train_examples += n * bs
+    try:
+        for epoch in range(cfg.epochs):
+            meter = AverageMeter()
+            ekey = fold_in(root_key, epoch)
+            sync()
+            t0 = time.perf_counter()
+            n = run_phase(*phases[0], ekey, meter, epoch)
+            sync()
+            train_seconds += time.perf_counter() - t0
+            train_examples += n * bs
 
-        ev = evaluate(eval_step, val_iter, vpools, vpool_sizes,
-                      fold_in(ekey, 10_000), cfg.overlap_eval)
-        _track_best(best, ev)
-        log.info(
-            f"epoch {epoch}/{cfg.epochs} val_loss={ev['val_loss']:.4f} "
-            f"HR@10 d1={ev['hit_10_d1']:.4f} d2={ev['hit_10_d2']:.4f} "
-            f"NDCG@10 d1={ev['ndcg_10_d1']:.4f} d2={ev['ndcg_10_d2']:.4f} "
-            f"MRR d1={ev['mrr_d1']:.4f} d2={ev['mrr_d2']:.4f}"
-        )
-
-        if is_dr and dr_iter is not None:
-            _run_phase(dr_step, state, dr_iter, dpools, dpool_sizes, ekey, 20_000,
-                       cfg, log, meter, epoch, keys=("loss_dr_r",))
-            ev = evaluate(eval_step, val_iter, vpools, vpool_sizes,
-                          fold_in(ekey, 30_000), cfg.overlap_eval)
+            ev = run_eval(fold_in(ekey, 10_000))
             _track_best(best, ev)
             log.info(
-                f"epoch {epoch} (post-DR) HR@10 d1={ev['hit_10_d1']:.4f} "
-                f"d2={ev['hit_10_d2']:.4f} MRR d1={ev['mrr_d1']:.4f} "
-                f"d2={ev['mrr_d2']:.4f}"
+                f"epoch {epoch}/{cfg.epochs} val_loss={ev['val_loss']:.4f} "
+                f"HR@10 d1={ev['hit_10_d1']:.4f} d2={ev['hit_10_d2']:.4f} "
+                f"NDCG@10 d1={ev['ndcg_10_d1']:.4f} d2={ev['ndcg_10_d2']:.4f} "
+                f"MRR d1={ev['mrr_d1']:.4f} d2={ev['mrr_d2']:.4f}"
             )
+            if epoch_hook is not None:
+                epoch_hook(epoch, state, ev, phase="main")
+
+            if len(phases) > 1:
+                run_phase(*phases[1], ekey, meter, epoch)
+                ev = run_eval(fold_in(ekey, 30_000))
+                _track_best(best, ev)
+                log.info(
+                    f"epoch {epoch} (post-DR) HR@10 d1={ev['hit_10_d1']:.4f} "
+                    f"d2={ev['hit_10_d2']:.4f} MRR d1={ev['mrr_d1']:.4f} "
+                    f"d2={ev['mrr_d2']:.4f}"
+                )
+                if epoch_hook is not None:
+                    epoch_hook(epoch, state, ev, phase="post_dr")
+    finally:
+        if graphs is not None:
+            graphs.close()
 
     # phase-A examples over phase-A wall time (synchronised at both ends)
     best["examples_per_s"] = train_examples / train_seconds if train_seconds else 0.0
@@ -298,17 +408,18 @@ def run(cfg: TrainConfig, device=None) -> dict[str, dict]:
     return aggregate_seeds(per_seed, log)
 
 
-_CLI_TURNS_OFF = ("fast_train", "fast_eval", "checkpoint")
+_CLI_TURNS_OFF = ("checkpoint",)
 
 
 def cli_main(argv: Optional[list[str]] = None, is_dr: bool = False) -> dict[str, dict]:
     """The body of `python3 -m amid_tpu_torch.train_sr_dr` (is_dr=True) and
     `train_sr` (is_dr=False): flags -> TrainConfig -> `run`.
 
-    The fast loops and the checkpoint manager are not ported yet and the
-    reference's defaults ask for them, so they are turned off here, with one
-    log line naming them; every other flag that asks for an unported part
-    reaches `run_seed`'s NotImplementedError."""
+    The checkpoint manager is not ported yet and the reference's defaults ask
+    for it, so it is turned off here, with one log line naming it; every
+    other flag that asks for an unported part reaches `run_seed`'s
+    NotImplementedError. The fast loops run as the flags ask (on by
+    default)."""
     cfg, device = parse_cli_with_device(argv, is_dr=is_dr)
     cfg.model.is_dr = is_dr
     turned_off = [name for name in _CLI_TURNS_OFF if getattr(cfg, name)]
@@ -317,5 +428,5 @@ def cli_main(argv: Optional[list[str]] = None, is_dr: bool = False) -> dict[str,
     if turned_off:
         init_logger(cfg.model_dir, "log_all.txt").info(
             f"not ported yet, turned off for this run: {', '.join(turned_off)} "
-            f"(per-step train loop, per-batch evaluation, no checkpoints)")
+            f"(no checkpoints)")
     return run(cfg, device=device)

@@ -11,9 +11,13 @@ leaf the loss did not reach takes a zero gradient, so its moments still decay
 and it still moves by its decayed `mu`. The two DR phases alternate over the
 same parameters with separate moments, which makes that difference visible.
 
-The state is explicit (`AdamState`), as optax's is: `count` is a host
-integer, `mu` and `nu` are dictionaries of tensors keyed like the parameters.
-Updates are in place, over tensor lists (`torch._foreach_*`).
+The state is explicit (`AdamState`), as optax's is: `count` is an int32
+tensor on the parameters' device that the step increments in place, `mu` and
+`nu` are dictionaries of tensors keyed like the parameters. The bias
+corrections 1 - b^t are computed on the device in float64 from the count and
+then rounded to float32, so no host number enters a step and a CUDA graph of
+the step replays with the count it finds. Updates are in place, over tensor
+lists (`torch._foreach_*`).
 """
 
 from __future__ import annotations
@@ -26,9 +30,19 @@ import torch
 
 @dataclass
 class AdamState:
-    count: int
+    count: torch.Tensor  # int32 scalar on the parameters' device
     mu: dict[str, torch.Tensor]
     nu: dict[str, torch.Tensor]
+
+
+def new_count(device) -> torch.Tensor:
+    """A step count of 0, as the device tensor a step increments."""
+    return torch.zeros((), dtype=torch.int32, device=device)
+
+
+def bias_correction(b: float, count: torch.Tensor) -> torch.Tensor:
+    """1 - b^count, computed in float64 on the count's device, as float32."""
+    return (1.0 - b ** count.to(torch.float64)).to(torch.float32)
 
 
 class Adam:
@@ -37,8 +51,9 @@ class Adam:
         self.lr, self.b1, self.b2, self.eps = lr, b1, b2, eps
 
     def init(self, params: Mapping[str, torch.Tensor]) -> AdamState:
+        device = next(iter(params.values())).device if params else "cpu"
         return AdamState(
-            count=0,
+            count=new_count(device),
             mu={k: torch.zeros_like(p) for k, p in params.items()},
             nu={k: torch.zeros_like(p) for k, p in params.items()},
         )
@@ -58,9 +73,10 @@ class Adam:
               for k in names]
         mu = [state.mu[k] for k in names]
         nu = [state.nu[k] for k in names]
-        state.count += 1
-        bc1 = 1.0 - self.b1 ** state.count
-        bc2 = 1.0 - self.b2 ** state.count
+        state.count.add_(1)
+        bc2 = bias_correction(self.b2, state.count)
+        # -lr / (1 - b1^t), in float64 and then float32, as the host's was
+        step = (-self.lr / (1.0 - self.b1 ** state.count.to(torch.float64))).to(torch.float32)
         torch._foreach_mul_(mu, self.b1)
         torch._foreach_add_(mu, gs, alpha=1.0 - self.b1)
         torch._foreach_mul_(nu, self.b2)
@@ -68,4 +84,7 @@ class Adam:
         denom = torch._foreach_div(nu, bc2)
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, self.eps)
-        torch._foreach_addcdiv_(ps, mu, denom, value=-self.lr / bc1)
+        # p += step * mu / denom as p += mu / (denom / step): one pass more
+        # than an addcdiv with a host value, none over a new list
+        torch._foreach_div_(denom, step)
+        torch._foreach_addcdiv_(ps, mu, denom)

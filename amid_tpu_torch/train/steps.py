@@ -10,14 +10,21 @@ What differs from the JAX package, by PyTorch's idiom:
 * parameters live in the `nn.Module` and are updated in place; `TrainState`
   holds the parameter dictionary and the explicit Adam states
   (`train/optim.py`), and a step returns the same state object it was given;
-* a step's `key` is an integer: the step builds its own generators from it
-  (`ops.rng.StepRandom`), so two steps from one key and one state draw the
-  same negatives and dropout masks;
+* a step's `key` is an integer: a step function owns one `ops.rng.
+  StepRandom` (`step.rng`) and reseeds it from each step's key, so two steps
+  from one key and one state draw the same negatives and dropout masks;
+  `key=None` runs with the generators as the caller seeded them (what a
+  CUDA graph of the step does: `train/graphs.py`);
 * `neg=None` lets a caller hand a step its negatives instead of the
   sampler's draw (the parity tests feed both packages the same ones);
 * the eval step takes no `params` argument: the model holds them.
 
-`make_resident_chunk_runner` and `make_scanned_eval` are not ported yet.
+A step reads no device value on the host: the step count, the bias
+corrections, the lazy step's unique ids and the attention kernels' dropout
+seeds stay on the device. So a step can be captured as a CUDA graph and
+replayed: `make_resident_chunk_runner` and `make_scanned_eval`, the fast
+loops (`TrainConfig.fast_train`, `fast_eval`), run the steps over a dataset
+resident on the device, as graphs on `cuda` and eagerly on the CPU.
 """
 
 from __future__ import annotations
@@ -28,8 +35,9 @@ from typing import Any, Callable, Optional
 import torch
 
 from amid_tpu_torch.data.sampler import sample_negatives
-from amid_tpu_torch.ops.rng import StepRandom
+from amid_tpu_torch.ops.rng import StepRandom, fold_in
 from amid_tpu_torch.train import losses
+from amid_tpu_torch.train.graphs import GraphPool, StepGraph
 from amid_tpu_torch.train.metrics import positive_ranks
 from amid_tpu_torch.train.optim import Adam
 
@@ -52,6 +60,20 @@ def _make_labels(bsz: int, num_neg: int, device) -> torch.Tensor:
     labels = torch.zeros((bsz, 1 + num_neg), dtype=torch.float32, device=device)
     labels[:, 0] = 1.0
     return labels
+
+
+def _step_random(model) -> StepRandom:
+    """The generators of a step function, on the model's device, unseeded."""
+    return StepRandom(None, model.item_embedding.device)
+
+
+def _seeded(rng: StepRandom, key) -> StepRandom:
+    if key is not None:
+        return rng.reseed(key)
+    if rng.key is None:
+        raise ValueError("a step without a key needs its generators seeded first "
+                         "(step.rng.reseed(key))")
+    return rng
 
 
 def _model_batch(batch: dict, neg: torch.Tensor) -> dict:
@@ -115,9 +137,11 @@ def _make_dense_step(model, tx: Adam, loss_fn: Callable, slot: int) -> Callable:
     """A dense step: Adam over ALL parameters with the moments of optimizer
     `slot` (1 = opt_state, 2 = opt_state2); the other state is untouched."""
 
-    def step(state: TrainState, batch, pools, pool_sizes, key: int, neg=None):
+    rng = _step_random(model)
+
+    def step(state: TrainState, batch, pools, pool_sizes, key, neg=None):
         device = pools.device
-        rng = StepRandom(key, device)
+        _seeded(rng, key)
         neg = _draw_negatives(rng, batch, pools, pool_sizes, 1, neg)
         labels = _make_labels(batch["target"].shape[0], 1, device)
         model.train()
@@ -130,6 +154,7 @@ def _make_dense_step(model, tx: Adam, loss_fn: Callable, slot: int) -> Callable:
                    state.opt_state if slot == 1 else state.opt_state2)
         return state, _finish_metrics(metrics)
 
+    step.rng = rng
     return step
 
 
@@ -157,12 +182,12 @@ def make_eval_step(model, num_neg: int) -> Callable:
     tie-break variants).
 
     Returns step(batch, pools, pool_sizes, key, neg=None) -> dict."""
+    rng = _step_random(model)
 
     @torch.no_grad()
-    def step(batch, pools, pool_sizes, key: int, neg=None):
+    def step(batch, pools, pool_sizes, key, neg=None):
         device = pools.device
-        neg = _draw_negatives(StepRandom(key, device), batch, pools, pool_sizes,
-                              num_neg, neg)
+        neg = _draw_negatives(_seeded(rng, key), batch, pools, pool_sizes, num_neg, neg)
         labels = _make_labels(batch["target"].shape[0], num_neg, device)
         model.eval()
         out = model(_model_batch(batch, neg))
@@ -178,4 +203,121 @@ def make_eval_step(model, num_neg: int) -> Callable:
             "ranks_raw": positive_ranks(pred, fix=False),
         }
 
+    step.rng = rng
     return step
+
+
+def _bind_once(bound: list, args: tuple, make: Callable) -> tuple:
+    """`make(*args)` at the first call; later calls must pass the same
+    objects, since a captured graph reads them where they lie."""
+    if not bound:
+        bound.append((args, make(*args)))
+    held, made = bound[0]
+    if any(a is not b for a, b in zip(args, held)):
+        raise ValueError("a fast-loop runner is bound to the state, arrays and pools of "
+                         "its first call; make a new runner for others")
+    return made
+
+
+def make_resident_chunk_runner(step, batch_size: int,
+                               pool: Optional[GraphPool] = None) -> Callable:
+    """A chunk of train steps over the DEVICE-RESIDENT dataset (the fast
+    train loop, `TrainConfig.fast_train`) — the counterpart of the JAX
+    package's `make_resident_chunk_runner`, where `lax.scan` runs the chunk.
+
+    run_chunk(state, arrays, perm, pools, pool_sizes, base_key, kidxs, bidxs)
+    -> (state, first-step metrics, nonfinite latch): `arrays` = {k: [n, ...]}
+    on the device (put there once per seed), `perm` [nb * bs] the epoch's row
+    order in a device buffer the caller refills each epoch, `kidxs` the
+    key-fold indices of the chunk's steps (phase B offsets them by 20_000),
+    `bidxs` their batch positions 0..nb-1. Step j gathers its batch on the
+    device, rows perm[bidxs[j]*bs : (bidxs[j]+1)*bs] of every array, and runs
+    with the key fold_in(base_key, kidxs[j]), as the per-step loop does. The
+    first step's metrics come back cloned (the loop logs at chunk starts),
+    the latch as the largest `nonfinite` flag of the chunk, a device scalar.
+
+    On `cuda` the step is a `StepGraph` in `pool` (a pool of its own if none
+    is given): the runner's first step runs eagerly, the second captures,
+    every later one is a replay; on the CPU every step runs eagerly. The
+    runner is bound to the state, arrays, permutation and pools of its
+    first call."""
+    bound: list = []
+
+    def bind(state, arrays, perm, pools, pool_sizes):
+        device = perm.device
+        idx = torch.zeros(1, dtype=torch.int64, device=device)  # the step's batch
+        latch = torch.zeros((), dtype=torch.float32, device=device)
+        perm2d = perm.view(-1, batch_size)
+
+        def body():
+            rows = perm2d.index_select(0, idx).reshape(-1)
+            batch = {k: v.index_select(0, rows) for k, v in arrays.items()}
+            _, m = step(state, batch, pools, pool_sizes, None)
+            torch.maximum(latch, m["nonfinite"], out=latch)
+            return m
+
+        run = body
+        if device.type == "cuda":
+            run = StepGraph(body, step.rng.generators(), pool or GraphPool(device))
+        return idx, latch, run
+
+    def run_chunk(state, arrays, perm, pools, pool_sizes, base_key, kidxs, bidxs):
+        idx, latch, run = _bind_once(bound, (state, arrays, perm, pools, pool_sizes), bind)
+        latch.zero_()
+        m0 = None
+        for ki, bi in zip(kidxs, bidxs):
+            step.rng.reseed(fold_in(base_key, ki))
+            idx.fill_(bi)
+            m = run()
+            if m0 is None:
+                m0 = {k: v.clone() for k, v in m.items() if k != "nonfinite"}
+        return state, m0, latch
+
+    return run_chunk
+
+
+def make_scanned_eval(model, num_neg: int, pool: Optional[GraphPool] = None) -> Callable:
+    """The whole evaluation pass over the val batches stacked on the device
+    (the fast evaluation, `TrainConfig.fast_eval`) — the counterpart of the
+    JAX package's `make_scanned_eval`, where `lax.scan` runs the pass.
+
+    eval_all(batches, pools, pool_sizes, key) -> {loss_cls [nb],
+    ranks_fixed [nb, B], ranks_raw [nb, B]}: `batches` = {k: [nb, B, ...]}
+    stacked once per seed (the val loader is deterministic); batch i draws
+    its negatives with fold_in(key, i), as the per-batch loop does, and
+    writes row i of the results, device buffers that the next pass
+    overwrites (the caller reads them once a pass). On `cuda` the step is a
+    `StepGraph` in `pool`; on the CPU it runs eagerly. Bound to the batches
+    and pools of its first call."""
+    eval_step = make_eval_step(model, num_neg)
+    bound: list = []
+
+    def bind(batches, pools, pool_sizes):
+        nb, bsz = next(iter(batches.values())).shape[:2]
+        device = pools.device
+        idx = torch.zeros(1, dtype=torch.int64, device=device)
+        res = {"loss_cls": torch.zeros(nb, device=device),
+               "ranks_fixed": torch.zeros((nb, bsz), dtype=torch.int32, device=device),
+               "ranks_raw": torch.zeros((nb, bsz), dtype=torch.int32, device=device)}
+
+        def body():
+            batch = {k: v.index_select(0, idx)[0] for k, v in batches.items()}
+            out = eval_step(batch, pools, pool_sizes, None)
+            for k, buf in res.items():
+                buf.index_copy_(0, idx, out[k].reshape(1, *buf.shape[1:]))
+            return out
+
+        run = body
+        if device.type == "cuda":
+            run = StepGraph(body, eval_step.rng.generators(), pool or GraphPool(device))
+        return nb, idx, res, run
+
+    def eval_all(batches, pools, pool_sizes, key):
+        nb, idx, res, run = _bind_once(bound, (batches, pools, pool_sizes), bind)
+        for i in range(nb):
+            eval_step.rng.reseed(fold_in(key, i))
+            idx.fill_(i)
+            run()
+        return res
+
+    return eval_all

@@ -67,9 +67,14 @@ code and no result line):
    the bf16 affinity flips against the fp32 one is printed as information;
 4. the training path at the same width on synthetic packed data made from a
    numpy seed (`amid_tpu_torch/data/synthetic.py`: item ids over the whole
-   894,820-row table, pools of the real size): `train.loop.run_seed` for one epoch of the DR schedule (phase A,
-   evaluation with 999 negatives, phase B, evaluation) with (a) T=20 and the
-   lazy table Adam, (b) T=150 and dense Adam, counting every kernel launch;
+   894,820-row table, pools of the real size; 16 batches of 256 a phase, 4
+   evaluation batches): `train.loop.run_seed` for one epoch of the DR
+   schedule (phase A, evaluation with 999 negatives, phase B, evaluation)
+   with (a) T=20 and the lazy table Adam, (b) T=150 and dense Adam, on the
+   fast loops (the default: each step kind a CUDA graph, captured after one
+   eager step and replayed), counting every kernel launch on the device
+   (the graphs add their captured launches at each replay), and beside it
+   the per-step loop from the same seed, whose metrics are reported;
    then, step by step, one phase-A step, one phase-B step and one evaluation
    batch of a `kernels='cuda'` model against the same step of a
    `kernels='torch'` model from the same state, batch and key (4 forward and
@@ -77,14 +82,25 @@ code and no result line):
    scatter launch per lazy
    step, three single launches with `fused_scatter=False`, first `loss_cls`
    near ln 2, no table gradient on the lazy path), and the ms per step;
+   then four replayed steps of each phase and a replayed evaluation pass
+   against the same steps taken eagerly from the same state, batches and
+   keys (`graph_steps`); then wall ms, device ms (a `torch.profiler` trace)
+   and the device's idle share per step kind, eager and replayed
+   (`step_timing`, `amid_tpu_torch/profile_step.py`'s functions);
 5. the pairwise-mode trainer from its CLI: `amid_tpu_torch.train_sr_dr.main`
    with `--comp_broadcast_quirk False --kernels cuda` on synthetic CSV files
    written to a temporary directory in the reference's format, (a) T=20 with
    the lazy table Adam (small-N affinity kernel), (b) T=150 with dense Adam
    (blocked affinity kernel): CSV -> packed datasets -> phase A, evaluation
-   with 999 negatives, phase B, evaluation, counting every kernel launch;
-   then the step-level checks of phase 4 in pairwise mode against a
-   `kernels='torch'` model whose affinity is `max_affinity_plain`.
+   with 999 negatives, phase B, evaluation, on the fast loops (it turns off
+   only `checkpoint`, and says so) and again with `--fast_train False
+   --fast_eval False`, counting every kernel launch; then the checks of
+   phase 4 in pairwise mode, the step-level ones against a
+   `kernels='torch'` model whose affinity is `max_affinity_plain`;
+6. gate flips at trained weights: `run_seed` in pairwise mode for 3 epochs
+   (fast loops) at T=20 and T=150, then the InterComp gates of the trained
+   model from the kernels' bf16 affinity against those of the fp32
+   affinity, counted at ts2=0.4 and at an opened threshold (information).
 
 It prints a JSON line of per-kernel numbers, the `nvidia-smi` name and power
 line, and last `{"ok": true, "device": {...}}`.
@@ -154,7 +170,11 @@ MOMENT_TOL = 2e-4  # max |difference| of a moment array over its max |value|
 # the elements may differ by more.
 UPDATE_ATOL, UPDATE_SHARE = 1e-6, 1e-3
 LN2_TOL = 0.05  # first loss_cls vs ln 2
-TRAIN_ROWS, VAL_ROWS, DR_ROWS = 768, 256, 768  # 3 + 3 steps, 1 eval batch, twice
+TRAIN_ROWS, VAL_ROWS, DR_ROWS = 4096, 1024, 4096  # 16 + 16 steps, 4 eval batches, twice
+GRAPH_STEPS = 4  # graph_steps: the eager step, the captured one and two replays
+RANKS_EQUAL_SHARE = 0.999  # replayed vs eager evaluation batch, same weights and key
+TIMED_STEPS = 10  # step_timing: steps timed and traced per step kind (a replay chunk: 16)
+FLIP_EPOCHS = 3  # phase 6: epochs of training before the gates are counted
 
 
 class SmokeFailure(RuntimeError):
@@ -290,21 +310,6 @@ def affinity_bound(b, c, n, m, d):
                  BF16_TENSOR_FLOPS)
 
 
-def counters():
-    from amid_tpu_torch.ops.affinity import max_affinity_blocked, max_affinity_smalln
-    from amid_tpu_torch.ops.attention import fused_attention
-    from amid_tpu_torch.ops.embedding import embedding_gather
-    from amid_tpu_torch.ops.scatter import scatter_set_unique, scatter_set_unique3
-    from amid_tpu_torch.ops.scoring import scoring_head
-
-    return {"attention_fwd": (fused_attention, "launches"),
-            "attention_bwd": (fused_attention, "backward_launches"),
-            "scatter_set_unique3": (scatter_set_unique3, "launches"),
-            "scatter_set_unique": (scatter_set_unique, "launches"),
-            "embedding_gather": (embedding_gather, "launches"),
-            "scoring_head": (scoring_head, "launches"),
-            "max_affinity_blocked": (max_affinity_blocked, "launches"),
-            "max_affinity_smalln": (max_affinity_smalln, "launches")}
 
 
 def expected_launches(t, pairwise, train_steps=0, eval_batches=0, feature_passes=0,
@@ -334,12 +339,18 @@ def expected_launches(t, pairwise, train_steps=0, eval_batches=0, feature_passes
 
 
 def reset_counts() -> None:
-    for fn, attr in counters().values():
-        setattr(fn, attr, 0)
+    """Every kernel's launch count to 0 (`amid_tpu_torch/ops/launches.py`)."""
+    from amid_tpu_torch.ops import launches
+
+    launches.reset()
 
 
 def read_counts() -> dict:
-    return {name: getattr(fn, attr) for name, (fn, attr) in counters().items()}
+    """Launches on the device by kernel: a CUDA graph adds what its capture
+    counted at each replay."""
+    from amid_tpu_torch.ops import launches
+
+    return launches.read()
 
 
 # ---------------------------------------------------------------------------
@@ -424,13 +435,16 @@ def kernel_phase(torch, gen):
     require(torch.allclose(got[0], want_row, atol=ATOL, rtol=RTOL),
             "fully masked row is not the uniform average of v")
 
-    # dropout at rate 0.5 (training's rate): the outputs agree at the full
-    # causal shapes, and the mask itself, read out through one-hot values,
-    # equals the plain version's element for element
+    # dropout at rate 0.5 (training's rate), with the seed as training passes
+    # it (a one-element int64 tensor on the card, read by the kernel through
+    # a pointer): the outputs agree at the full causal shapes, and the mask
+    # itself, read out through one-hot values (an int seed there), equals
+    # the plain version's element for element
+    step_seed = torch.tensor([1234], dtype=torch.int64, device="cuda")
     for t in (150, 20):
         q, k, v = qkv(B, t, D)
         cases[f"rate0.5_T{t}"] = compare(f"causal_T{t}_h8_rate0.5", q, k, v, causal(t), 8,
-                                         seed=1234, rate=0.5)
+                                         seed=step_seed, rate=0.5)
     t, heads, dh, seed = 20, 4, 32, 977
     q, k, _ = qkv(B, t, D)
     v = torch.zeros(B, t, D, device="cuda")
@@ -521,9 +535,10 @@ def backward_kernel_phase(torch, gen):
     key_ok[0] = False
     bias = torch.where(key_ok, 0.0, -1e9)[:, None, None, :]
     cases["keypad"] = compare("bwd_keypad_T150_h4", B, t, D, bias, 4)
-    for t in (150, 20):  # training's rate
+    step_seed = torch.tensor([1234], dtype=torch.int64, device="cuda")
+    for t in (150, 20):  # training's rate and seed
         cases[f"rate0.5_T{t}"] = compare(f"bwd_causal_T{t}_h8_rate0.5", B, t, D, causal(t), 8,
-                                         seed=1234, rate=0.5)
+                                         seed=step_seed, rate=0.5)
     return cases
 
 
@@ -1008,39 +1023,59 @@ def rel_to_max(a, b) -> float:
     return ((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
 
 
+def make_steps(cfg, tcfg, kernels, fused_scatter=True):
+    """A fresh model (seed 0) of `kernels` with its state and its phase-A,
+    phase-B and evaluation steps, as `run_seed` builds them (in pairwise
+    mode a kernels='torch' model takes its affinity from
+    `max_affinity_plain`)."""
+    from amid_tpu_torch.models.amid import build_model
+    from amid_tpu_torch.train import lazy, steps
+    from amid_tpu_torch.train.optim import Adam
+
+    model = build_model(dataclasses.replace(cfg, kernels=kernels), device="cuda", seed=0)
+    if not cfg.comp_broadcast_quirk and kernels == "torch":
+        as_plain_reference(model)
+    tx, tx2 = Adam(tcfg.lr), Adam(tcfg.lr * tcfg.lr2)
+    if tcfg.lazy_table_adam:
+        state = lazy.init_lazy_state(dict(model.named_parameters()), tx, tx2)
+        step_a = lazy.make_lazy_train_step(model, tx, dr_e_w=tcfg.dr_e_w,
+                                           fused_scatter=fused_scatter)
+        step_b = lazy.make_lazy_dr_r_step(model, tx2, fused_scatter=fused_scatter)
+    else:
+        state = steps.init_state(model, tx, tx2)
+        step_a = steps.make_train_step(model, tx, dr_e_w=tcfg.dr_e_w)
+        step_b = steps.make_dr_r_step(model, tx2)
+    return model, state, step_a, step_b, steps.make_eval_step(model, tcfg.data.neg_nums)
+
+
+def moments_of(state, slot, lazy_adam, dense_name="enc_d1.attn.0.in_proj_weight"):
+    """The table's moments and one dense parameter's of optimizer `slot`."""
+    opt = state.opt_state if slot == 1 else state.opt_state2
+    if lazy_adam:
+        return {"table_mu": opt.mu, "table_nu": opt.nu,
+                "dense_mu": opt.dense_opt.mu[dense_name],
+                "dense_nu": opt.dense_opt.nu[dense_name]}
+    return {"table_mu": opt.mu["item_embedding"], "table_nu": opt.nu["item_embedding"],
+            "dense_mu": opt.mu[dense_name], "dense_nu": opt.nu[dense_name]}
+
+
 def step_checks(torch, cfg, tcfg, train_ds, val_ds, dr_ds, label):
     """One phase-A step, one phase-B step and one evaluation batch of a
     kernels='cuda' model against a kernels='torch' model from the same state,
     batch and key (in pairwise mode the plain model takes its affinity from
     `max_affinity_plain`); launch counts per step; ms per step."""
     from amid_tpu_torch.data.loader import BatchIterator
-    from amid_tpu_torch.models.amid import build_model
-    from amid_tpu_torch.train import lazy, steps
+    from amid_tpu_torch.train import lazy
     from amid_tpu_torch.train.loop import _device_pools, _to_device
-    from amid_tpu_torch.train.optim import Adam
 
     is_lazy = tcfg.lazy_table_adam
     pairwise = not cfg.comp_broadcast_quirk
-    lr, lr2 = tcfg.lr, tcfg.lr * tcfg.lr2
 
     def launches(**kw):
         return expected_launches(cfg.seq_len, pairwise, lazy_adam=is_lazy, **kw)
 
     def make(kernels, fused_scatter=True):
-        model = build_model(dataclasses.replace(cfg, kernels=kernels), device="cuda", seed=0)
-        if pairwise and kernels == "torch":
-            as_plain_reference(model)
-        tx, tx2 = Adam(lr), Adam(lr2)
-        if is_lazy:
-            state = lazy.init_lazy_state(dict(model.named_parameters()), tx, tx2)
-            step_a = lazy.make_lazy_train_step(model, tx, dr_e_w=tcfg.dr_e_w,
-                                               fused_scatter=fused_scatter)
-            step_b = lazy.make_lazy_dr_r_step(model, tx2, fused_scatter=fused_scatter)
-        else:
-            state = steps.init_state(model, tx, tx2)
-            step_a = steps.make_train_step(model, tx, dr_e_w=tcfg.dr_e_w)
-            step_b = steps.make_dr_r_step(model, tx2)
-        return model, state, step_a, step_b, steps.make_eval_step(model, tcfg.data.neg_nums)
+        return make_steps(cfg, tcfg, kernels, fused_scatter)
 
     model, state, step_a, step_b, eval_step = make("cuda")
     ref, rstate, rstep_a, rstep_b, reval_step = make("torch")
@@ -1052,17 +1087,11 @@ def step_checks(torch, cfg, tcfg, train_ds, val_ds, dr_ds, label):
                for name, ds in (("train", train_ds), ("val", val_ds), ("dr", dr_ds))}
     pools = {name: _device_pools(ds, "cuda")
              for name, ds in (("train", train_ds), ("val", val_ds), ("dr", dr_ds))}
-    table_name, dense_name = "item_embedding", "enc_d1.attn.0.in_proj_weight"
+    dense_name = "enc_d1.attn.0.in_proj_weight"
     rec = {"config": label}
 
     def moments(st, slot):
-        opt = st.opt_state if slot == 1 else st.opt_state2
-        if is_lazy:
-            return {"table_mu": opt.mu, "table_nu": opt.nu,
-                    "dense_mu": opt.dense_opt.mu[dense_name],
-                    "dense_nu": opt.dense_opt.nu[dense_name]}
-        return {"table_mu": opt.mu[table_name], "table_nu": opt.nu[table_name],
-                "dense_mu": opt.mu[dense_name], "dense_nu": opt.nu[dense_name]}
+        return moments_of(st, slot, is_lazy, dense_name)
 
     for phase, slot, split, fn, rfn, key in (("A", 1, "train", step_a, rstep_a, 1234),
                                             ("B", 2, "dr", step_b, rstep_b, 4321)):
@@ -1150,6 +1179,108 @@ def step_checks(torch, cfg, tcfg, train_ds, val_ds, dr_ds, label):
     return rec
 
 
+def graph_checks(torch, cfg, tcfg, train_ds, val_ds, dr_ds, label):
+    """The fast loops' graphs against eager steps: GRAPH_STEPS steps of phase
+    A, then of phase B, through a resident chunk runner (the first eager, the
+    second captured and replayed, then replays) against the same steps of a
+    second kernels='cuda' model taken eagerly from the same state, batches
+    and keys; then two evaluation passes over the val batches (graph
+    replays) against the eval step batch by batch, on one model. Losses
+    within LOSS_TOL, moments within MOMENT_TOL of their largest value: the
+    gather's backward and torch's scatters add with atomics in no fixed
+    order, so replayed and eager steps agree within rounding, not bit for
+    bit."""
+    from amid_tpu_torch.ops.rng import fold_in
+    from amid_tpu_torch.train import steps
+    from amid_tpu_torch.train.graphs import GraphPool
+    from amid_tpu_torch.train.loop import STEP_KEYS, _device_pools, _resident
+
+    bs = cfg.batch_size
+    is_lazy = tcfg.lazy_table_adam
+    _, est, ea, eb, _ = make_steps(cfg, tcfg, "cuda")
+    gmodel, gst, ga, gb, geval = make_steps(cfg, tcfg, "cuda")
+    pool = GraphPool("cuda")
+    rec = {"config": label}
+    try:
+        for phase, slot, ds, estep, gstep in (("A", 1, train_ds, ea, ga),
+                                              ("B", 2, dr_ds, eb, gb)):
+            arrays = _resident(ds.batch_arrays(), "cuda")
+            pools = _device_pools(ds, "cuda")
+            order = np.random.default_rng(slot).permutation(len(ds))[:GRAPH_STEPS * bs]
+            perm = torch.as_tensor(order.astype(np.int32), device="cuda")
+            runner = steps.make_resident_chunk_runner(gstep, bs, pool)
+            diffs = []
+            for i in range(GRAPH_STEPS):
+                _, m0, nf = runner(gst, arrays, perm, *pools, 77, range(i, i + 1),
+                                   range(i, i + 1))
+                batch = {k: v.index_select(0, perm[i * bs:(i + 1) * bs])
+                         for k, v in arrays.items()}
+                _, m = estep(est, batch, *pools, fold_in(77, i))
+                require(float(nf) == 0.0, f"{label} graph phase {phase}: non-finite flag")
+                diffs.append(max(abs(float(v) - float(m[k])) for k, v in m0.items()))
+                require(diffs[-1] <= LOSS_TOL,
+                        f"{label} graph phase {phase} step {i}: replayed vs eager {m0} {m}")
+            rels = {k: rel_to_max(v, moments_of(est, slot, is_lazy)[k])
+                    for k, v in moments_of(gst, slot, is_lazy).items()}
+            require(max(rels.values()) <= MOMENT_TOL,
+                    f"{label} graph phase {phase}: moments differ from eager: {rels}")
+            graph = pool.graphs[-1]
+            require(graph.replays == GRAPH_STEPS - 1,
+                    f"{label} graph phase {phase}: {graph.replays} replays")
+            rec[f"phase_{phase}"] = {"loss_diff": diffs, "moment_rel_err": rels,
+                                     "replays": graph.replays,
+                                     "launches_per_replay": graph.captured}
+        vpools = _device_pools(val_ds, "cuda")
+        nb = len(val_ds) // bs
+        idx = np.arange(nb * bs).reshape(nb, bs)
+        stacked = {k: torch.as_tensor(v[idx], device="cuda")
+                   for k, v in val_ds.batch_arrays().items() if k in STEP_KEYS}
+        eval_all = steps.make_scanned_eval(gmodel, tcfg.data.neg_nums, pool)
+        diffs, same = [], []
+        for key in (10_000, 30_000):
+            got = {k: v.clone() for k, v in eval_all(stacked, *vpools, key).items()}
+            for i in range(nb):
+                want = geval({k: v[i] for k, v in stacked.items()}, *vpools, fold_in(key, i))
+                diffs.append(abs(float(got["loss_cls"][i]) - float(want["loss_cls"])))
+                same.append((got["ranks_fixed"][i] == want["ranks_fixed"]).float().mean().item())
+        require(max(diffs) <= LOSS_TOL, f"{label} graph eval: loss differs by {max(diffs)}")
+        require(min(same) >= RANKS_EQUAL_SHARE, f"{label} graph eval: ranks equal {min(same)}")
+        rec["eval"] = {"loss_diff": max(diffs), "ranks_equal_share": min(same),
+                       "replays": pool.graphs[-1].replays}
+    finally:
+        pool.close()
+    emit({"graph_steps": rec})
+    return rec
+
+
+def step_timing(torch, cfg, tcfg, ds, label):
+    """Wall ms, device ms and the device's idle share per step kind, eager
+    (the per-step loop's steps) and replayed (the fast loops' graphs), from
+    `profile_step.py`'s `step_kinds` and `measure` on a fresh model each."""
+    from amid_tpu_torch.profile_step import measure, step_kinds
+    from amid_tpu_torch.train.graphs import GraphPool
+
+    out = {}
+    for fast in (False, True):
+        pool = GraphPool("cuda") if fast else None
+        loop_name = "replayed" if fast else "eager"
+        try:
+            for kind, (fn, per_call) in step_kinds(cfg, tcfg, ds, fast, pool).items():
+                rec = measure(fn, per_call, -(-TIMED_STEPS // per_call), top=6)
+                if rec["device_ms_per_step"] <= 0.0:  # the trace saw no kernel
+                    rec.update(device_ms_per_step=None, device_idle_share=None,
+                               note="device time not measured: the trace holds none")
+                    require(not fast, f"{label} {kind}: the trace of eager steps is empty")
+                emit({"step_timing": {"config": label, "step": kind, "loop": loop_name,
+                                      **rec}})
+                out[f"{kind}_{loop_name}"] = rec
+        finally:
+            if pool is not None:
+                pool.close()
+        torch.cuda.empty_cache()
+    return out
+
+
 def check_run(label, t, pairwise, lazy_adam, counts, metrics, extra):
     """Launch counts and metrics of one whole run of the DR schedule (phase
     A, evaluation, phase B, evaluation)."""
@@ -1157,17 +1288,18 @@ def check_run(label, t, pairwise, lazy_adam, counts, metrics, extra):
     want = expected_launches(t, pairwise, train_steps=n_a + n_b, eval_batches=2 * n_ev,
                              lazy_adam=lazy_adam)
     require(counts == want, f"{label}: launches {counts}, want {want}")
-    for k in ("hit_10_d1", "hit_10_d2", "ndcg_10_d1", "ndcg_10_d2", "mrr_d1", "mrr_d2"):
+    shown = ("hit_10_d1", "hit_10_d2", "ndcg_10_d1", "ndcg_10_d2", "mrr_d1", "mrr_d2")
+    for k in shown:
         require(k in metrics and math.isfinite(metrics[k]) and 0.0 <= metrics[k] <= 1.0,
                 f"{label}: metric {k} = {metrics.get(k)}")
     emit({"trainer_run": {"config": label, "steps": [n_a, n_b], "eval_batches": 2 * n_ev,
-                          "launches": counts, "mrr_d1": metrics["mrr_d1"],
-                          "mrr_d2": metrics["mrr_d2"], **extra}})
+                          "launches": counts, **{k: metrics[k] for k in shown}, **extra}})
 
 
 def training_phase(torch, rng):
     """Phase 4 (quirk mode, `run_seed` on packed data) and phase 5 (pairwise
-    mode, the CLI on CSV files), each at T=20 lazy and T=150 dense."""
+    mode, the CLI on CSV files), each at T=20 lazy and T=150 dense, each run
+    on the fast loops and then per step from the same seed."""
     import shutil
     import tempfile
 
@@ -1177,6 +1309,7 @@ def training_phase(torch, rng):
     from amid_tpu_torch.data.synthetic import synth_packed, write_synthetic_csvs
     from amid_tpu_torch.train.loop import run_seed
 
+    loops = (("fast", True), ("per_step", False))
     results = {}
     for pairwise in (False, True):
         for t, lazy_adam in ((20, True), (150, False)):
@@ -1185,10 +1318,10 @@ def training_phase(torch, rng):
             work = tempfile.mkdtemp(prefix="chip_smoke_")
             data = DataConfig(dataset_type="synthetic", domain_type="d1_d2",
                               data_root=f"{work}/data", overlap_ratio=0.25, neg_nums=999)
-            tcfg = TrainConfig(
+            tcfg = TrainConfig(  # the fast loops are the defaults
                 epochs=1, seeds=1, model_dir=f"{work}/model", lazy_table_adam=lazy_adam,
-                nan_policy="halt", checkpoint=False, fast_train=False, fast_eval=False,
-                model=cfg, data=data)
+                nan_policy="halt", checkpoint=False, model=cfg, data=data)
+            counts = {}
             try:
                 if pairwise:
                     # the CLI as a user calls it, on CSV files in the reference's format
@@ -1197,20 +1330,24 @@ def training_phase(torch, rng):
                             "--model", "sasrec", "--isItC", "True", "--ts2", "0.4",
                             "--seq_len", str(t), "--neg_nums", "999", "--overlap_ratio", "0.25",
                             "-ds", data.dataset_type, "-dm", data.domain_type,
-                            "--data_root", data.data_root, "-md", tcfg.model_dir,
-                            "--epoch", "1", "--seeds", "1",
+                            "--data_root", data.data_root, "--epoch", "1", "--seeds", "1",
                             "--lazy_table_adam", str(lazy_adam)]
-                    reset_counts()
-                    t0 = time.perf_counter()
-                    agg = train_sr_dr.main(argv)  # default device: cuda
-                    torch.cuda.synchronize()
-                    seconds = time.perf_counter() - t0
-                    counts = read_counts()
-                    log_all = Path(tcfg.model_dir, "log_all.txt").read_text()
-                    require("turned off for this run: fast_train, fast_eval, checkpoint" in log_all,
-                            f"{label}: the CLI did not log what it turned off")
-                    check_run(f"{label} CLI", t, True, lazy_adam, counts,
-                              {k: v["mean"] for k, v in agg.items()}, {"seconds": seconds})
+                    for name, fast in loops:
+                        model_dir = f"{work}/model_{name}"
+                        reset_counts()
+                        t0 = time.perf_counter()
+                        agg = train_sr_dr.main(  # default device: cuda
+                            argv + ["-md", model_dir, "--fast_train", str(fast),
+                                    "--fast_eval", str(fast)])
+                        torch.cuda.synchronize()
+                        seconds = time.perf_counter() - t0
+                        counts[name] = read_counts()
+                        log_all = Path(model_dir, "log_all.txt").read_text()
+                        require("turned off for this run: checkpoint (no checkpoints)" in log_all,
+                                f"{label}: the CLI did not log what it turned off")
+                        check_run(f"{label} CLI {name}", t, True, lazy_adam, counts[name],
+                                  {k: v["mean"] for k, v in agg.items()},
+                                  {"loop": name, "seconds": seconds})
                     train_ds, val_ds, dr_ds = (
                         load_dual_domain_csv(path, t, cfg.pad_id, with_ob_label=ob)
                         for path, ob in ((data.train_csv(), False), (data.test_csv(), False),
@@ -1218,20 +1355,101 @@ def training_phase(torch, rng):
                 else:
                     train_ds, val_ds, dr_ds = (synth_packed(cfg, rng, n)
                                                for n in (TRAIN_ROWS, VAL_ROWS, DR_ROWS))
-                    reset_counts()
-                    t0 = time.perf_counter()
-                    best = run_seed(tcfg, 0, train_ds, val_ds, dr_ds)  # default device: cuda
-                    torch.cuda.synchronize()
-                    seconds = time.perf_counter() - t0
-                    counts = read_counts()
-                    check_run(f"{label} run_seed", t, False, lazy_adam, counts, best,
-                              {"seconds": seconds, "examples_per_s": best["examples_per_s"]})
+                    for name, fast in loops:
+                        run_cfg = dataclasses.replace(tcfg, fast_train=fast, fast_eval=fast,
+                                                      model_dir=f"{work}/model_{name}")
+                        reset_counts()
+                        t0 = time.perf_counter()
+                        best = run_seed(run_cfg, 0, train_ds, val_ds, dr_ds)  # on cuda
+                        torch.cuda.synchronize()
+                        seconds = time.perf_counter() - t0
+                        counts[name] = read_counts()
+                        check_run(f"{label} run_seed {name}", t, False, lazy_adam, counts[name],
+                                  best, {"loop": name, "seconds": seconds,
+                                         "examples_per_s": best["examples_per_s"]})
             finally:
                 shutil.rmtree(work, ignore_errors=True)
             rec = step_checks(torch, cfg, tcfg, train_ds, val_ds, dr_ds, label)
-            results[label] = {"launches": counts, **rec}
+            torch.cuda.empty_cache()
+            rec["graph_steps"] = graph_checks(torch, cfg, tcfg, train_ds, val_ds, dr_ds, label)
+            torch.cuda.empty_cache()
+            rec["step_timing"] = step_timing(torch, cfg, tcfg, train_ds, label)
+            launches = {k: sum(c[k] for c in counts.values()) for k in counts["fast"]}
+            results[label] = {"launches": launches, **rec}
             torch.cuda.empty_cache()
     return results
+
+
+# ---------------------------------------------------------------------------
+# phase 6: gate flips at trained weights
+# ---------------------------------------------------------------------------
+
+def gate_flip_phase(torch, rng):
+    """`run_seed` in pairwise mode for FLIP_EPOCHS epochs of the DR schedule
+    on the fast loops, at T=20 (lazy Adam, K7) and T=150 (dense, K6); then a
+    feature pass of the trained model over 256 validation users and, per
+    InterComp module, the gates of the kernels' bf16 affinity against those
+    of the fp32 affinity (`max_affinity_xla`), at ts2=0.4 and at an opened
+    threshold chosen from the fp32 probabilities. Information: a flip is a
+    numerics change of the bf16 inputs, not a fault."""
+    import shutil
+    import tempfile
+
+    from amid_tpu_torch.config import DataConfig, ModelConfig, TrainConfig
+    from amid_tpu_torch.data.synthetic import synth_packed
+    from amid_tpu_torch.models.amid import build_model
+    from amid_tpu_torch.ops.affinity import max_affinity_xla
+    from amid_tpu_torch.serve import user_representations
+    from amid_tpu_torch.train.loop import run_seed
+
+    out = {}
+    for t, lazy_adam in ((20, True), (150, False)):
+        cfg = ModelConfig(**{**FLAGSHIP, "seq_len": t, "comp_broadcast_quirk": False})
+        train_ds, val_ds, dr_ds = (synth_packed(cfg, rng, n)
+                                   for n in (TRAIN_ROWS, VAL_ROWS, DR_ROWS))
+        work = tempfile.mkdtemp(prefix="chip_smoke_")
+        tcfg = TrainConfig(epochs=FLIP_EPOCHS, seeds=1, model_dir=work, nan_policy="halt",
+                           lazy_table_adam=lazy_adam, checkpoint=False, model=cfg,
+                           data=DataConfig(neg_nums=999))
+        trained = {}
+
+        def keep(epoch, state, ev, phase):
+            if epoch == FLIP_EPOCHS - 1 and phase == "post_dr":
+                trained.update({k: v.detach().clone() for k, v in state.params.items()})
+                trained["mrr"] = (ev["mrr_d1"], ev["mrr_d2"])
+
+        try:
+            run_seed(tcfg, 0, train_ds, val_ds, dr_ds, epoch_hook=keep)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        model = build_model(cfg, seed=1)
+        with torch.no_grad():
+            for name, param in model.named_parameters():
+                param.copy_(trained[name])
+        batch = {k: torch.as_tensor(val_ds.batch_arrays()[k][:cfg.batch_size], device="cuda")
+                 for k in ("seq_d1", "seq_d2")}
+        inputs = {}
+        hooks = [getattr(model, n).register_forward_hook(
+            lambda mod, args, res, n=n: inputs.__setitem__(n, args)) for n in GATED]
+        user_representations(model, batch)
+        for h in hooks:
+            h.remove()
+        rec = {"T": t, "epochs": FLIP_EPOCHS, "mrr_after": trained["mrr"]}
+        with torch.no_grad():
+            for n in GATED:
+                msg = getattr(model, n).message
+                bf16 = msg.gate_probabilities(*inputs[n])  # through K6 / K7
+                fp32 = torch.softmax(max_affinity_xla(*inputs[n]), dim=1)
+                for tag, thr in (("ts2", msg.threshold), ("opened", opened_threshold(fp32))):
+                    rec[f"{n}_{tag}"] = {
+                        "threshold": thr, "gates": fp32.numel(),
+                        "open_fp32": int((fp32 > thr).sum().item()),
+                        "differing": int(((bf16 > thr) != (fp32 > thr)).sum().item())}
+        emit({"gate_flips_trained": rec})
+        out[t] = rec
+        del model, trained
+        torch.cuda.empty_cache()
+    return out
 
 
 def main() -> int:
@@ -1278,10 +1496,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     serving = main_path_phase(torch, np.random.default_rng(0))
     training = training_phase(torch, np.random.default_rng(1))
+    gate_flip_phase(torch, np.random.default_rng(2))
 
-    # launches on the main paths: the serving passes, the two run_seed runs
-    # and the two CLI runs, each driven with the counts at 0 just before it
-    # and read just after
+    # launches on the main paths: the serving passes, the run_seed runs and
+    # the CLI runs (each on the fast loops and per step), each driven with
+    # the counts at 0 just before it and read just after
     launches = {name: sum(r["launches"][name] for r in (*training.values(), *serving.values()))
                 for name in KERNELS}
     # run_seed scatters fused; the single-array kernel's path is the lazy step

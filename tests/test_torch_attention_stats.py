@@ -6,6 +6,7 @@ the kernels' 3xTF32 tensor-core products; the argument blocks the wrappers
 pack, against the C header that reads them and field by field with the entry
 points replaced by a recorder."""
 
+import ctypes
 import math
 import re
 import struct
@@ -220,7 +221,13 @@ def _fake_entry(monkeypatch, code=0):
 
     def entry(raw):
         seen.append(raw)
+        seed_at = struct.unpack_from("<q", raw, 8 * (21 if len(raw) == 200 else 29))[0]
+        # the dropout seed lives on the device: read it while the launch holds it
+        entry.seeds.append(ctypes.c_longlong.from_address(seed_at).value if seed_at else None)
         return code
+
+    entry.seeds = []
+    _fake_entry.seeds = entry.seeds
 
     monkeypatch.setattr(attention_ops, "_fwd", entry)
     monkeypatch.setattr(attention_ops, "_bwd", entry)
@@ -247,11 +254,18 @@ def test_launch_packs_strided_views_broadcast_bias_and_dropout(monkeypatch):
     assert f[7:11] == (b, t, d, heads)
     assert f[11:17] == (3 * d * t, 3 * d) * 3  # batch and time strides of q, k, v
     assert f[17:19] == (t, 0)  # the bias broadcasts over queries
-    assert f[19:23] == (1, keep_threshold(0.5), 9, 77)  # dropout, threshold, seed, stream
+    # dropout, threshold, the seed's address, stream; an int seed is written
+    # into a one-element int64 tensor, its low 32 bits
+    assert (f[19], f[20], f[22]) == (1, keep_threshold(0.5), 77) and f[21] != 0
+    assert _fake_entry.seeds[-1] == 9
     assert f[23:] == (1.0 / math.sqrt(d // heads), 2.0)
+    seed_t = torch.tensor([12345], dtype=torch.int64)  # a step's seed: read where it lies
+    attention_ops._launch_forward(q, k, v, bias, seed_t, heads, 0.5, False)
+    f = struct.unpack("<23q2d", seen[-1])
+    assert f[21] == seed_t.data_ptr() and _fake_entry.seeds[-1] == 12345
     attention_ops._launch_forward(q, k, v, bias[:1, :, :1], 0, heads, 0.0, False)
     f = struct.unpack("<23q2d", seen[-1])
-    assert f[5:7] == (0, 0) and f[17:19] == (0, 0) and f[19:21] == (0, 0)
+    assert f[5:7] == (0, 0) and f[17:19] == (0, 0) and f[19:22] == (0, 0, 0)
     dout = torch.randn(b, t, d)
     dq, dk, dv = attention_ops._launch_backward(q, k, v, bias, out, row_max, row_inv_sum,
                                                 dout, 9, heads, 0.5)
@@ -259,7 +273,8 @@ def test_launch_packs_strided_views_broadcast_bias_and_dropout(monkeypatch):
     assert g[:11] == tuple(x.data_ptr() for x in (q, k, v, bias, out, dout, row_max,
                                                   row_inv_sum, dq, dk, dv))
     assert g[15:25] == (3 * d * t, 3 * d) * 3 + (d * t, d) * 2
-    assert g[25:27] == (t, 0) and g[27:] == (1, keep_threshold(0.5), 9, 77, 1.0 / math.sqrt(8), 2.0)
+    assert g[25:27] == (t, 0) and (g[27], g[28], g[30]) == (1, keep_threshold(0.5), 77)
+    assert _fake_entry.seeds[-1] == 9 and g[31:] == (1.0 / math.sqrt(8), 2.0)
 
 
 def test_launch_refusals_become_exceptions(monkeypatch):

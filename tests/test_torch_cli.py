@@ -106,7 +106,7 @@ def test_cli_trains_one_epoch_from_a_csv_on_the_cpu(tmp_path, csv_root, cli, pai
     assert {"hit_10_d1", "ndcg_10_d2", "mrr_d1", "mrr_d2", "examples_per_s"} <= agg.keys()
     assert all(np.isfinite(v["mean"]) and v["std"] == 0.0 for v in agg.values())
     log_all = (tmp_path / "log_all.txt").read_text()
-    assert "turned off for this run: fast_train, fast_eval, checkpoint" in log_all
+    assert "turned off for this run: checkpoint (no checkpoints)" in log_all
     assert '"comp_broadcast_quirk": %s' % str(not pairwise).lower() in log_all
     assert "mrr_d1:" in log_all
     log0 = (tmp_path / "log0.txt").read_text()
@@ -161,12 +161,14 @@ def test_precision_flags_parse_as_in_the_jax_package_and_are_refused(
 
 def test_run_serves_a_config_as_it_is(tmp_path, csv_root):
     """`run` turns nothing off: the reference's defaults reach run_seed's
-    refusal, and a config with the three parts off trains."""
+    refusal of the checkpoint manager, and the same config with `checkpoint`
+    off trains, on the fast loops the defaults ask for."""
     cfg = config.parse_cli(TINY + ["--data_root", csv_root, "-md", str(tmp_path),
                                    "--kernels", "torch"], is_dr=True)
-    with pytest.raises(NotImplementedError, match="TrainConfig.fast_train"):
+    assert cfg.fast_train and cfg.fast_eval
+    with pytest.raises(NotImplementedError, match="TrainConfig.checkpoint"):
         loop.run(cfg, device="cpu")
-    cfg.fast_train = cfg.fast_eval = cfg.checkpoint = False
+    cfg.checkpoint = False
     agg = loop.run(cfg, device="cpu")
     assert 0.0 < agg["mrr_d1"]["mean"] <= 1.0
 

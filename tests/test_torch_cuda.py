@@ -9,11 +9,15 @@ no JAX, so it runs on a machine without it; from the repository root:
 import dataclasses
 import struct
 
+import numpy as np
 import pytest
 import torch
 
-from amid_tpu_torch.config import ModelConfig
+from amid_tpu_torch.config import DataConfig, ModelConfig, TrainConfig
+from amid_tpu_torch.data.sampler import sample_negatives
+from amid_tpu_torch.data.synthetic import synth_packed
 from amid_tpu_torch.models.amid import build_model
+from amid_tpu_torch.ops import launches
 from amid_tpu_torch.ops import affinity as affinity_ops
 from amid_tpu_torch.ops.affinity import (
     affinity_smem_bytes,
@@ -54,8 +58,10 @@ from amid_tpu_torch.ops.scoring import (
     scoring_head_pair_plain,
     scoring_head_plain,
 )
+from amid_tpu_torch.ops.rng import StepRandom, fold_in
 from amid_tpu_torch.serve import user_representations
-from amid_tpu_torch.train import lazy, steps
+from amid_tpu_torch.train import lazy, loop, steps
+from amid_tpu_torch.train.graphs import GraphPool, StepGraph
 from amid_tpu_torch.train.optim import Adam
 
 pytestmark = pytest.mark.cuda
@@ -800,3 +806,268 @@ def test_pairwise_step_on_cuda_goes_through_all_kernels(gen, seq_len, kernel):
     feats = {k: batch[k] for k in ("seq_d1", "seq_d2")}
     for g, w in zip(user_representations(model, feats), user_representations(plain, feats)):
         torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the fast loops: steps captured as CUDA graphs and replayed
+# ---------------------------------------------------------------------------
+
+LOSS_TOL = 1e-5  # a replayed step against the eager step (chip_smoke.py's phase 4)
+MOMENT_TOL = 2e-4  # max |difference| of a moment array over its max |value|
+FAST_BS, FAST_T = 64, 20
+
+
+def _rel_to_max(a, b) -> float:
+    return ((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
+
+
+def _fast_cfg(**kw):
+    return ModelConfig(emb_dim=64, hid_dim=16, seq_len=FAST_T, batch_size=FAST_BS,
+                       is_itc=True, ts2=0.4, is_dr=True, item_length=3000,
+                       user_length=3000, sasrec_heads=4, **kw)
+
+
+def _fast_pair(kind, phase, cfg):
+    """Two models from one seed with their states and steps of one kind:
+    the first steps eagerly, the second through a runner's graph."""
+    made = []
+    for _ in range(2):
+        model = build_model(cfg, seed=0)
+        tx, tx2 = Adam(1e-3), Adam(2e-3)
+        if kind == "lazy":
+            state = lazy.init_lazy_state(dict(model.named_parameters()), tx, tx2)
+            step = (lazy.make_lazy_train_step(model, tx, dr_e_w=0.1) if phase == "A"
+                    else lazy.make_lazy_dr_r_step(model, tx2))
+        else:
+            state = steps.init_state(model, tx, tx2)
+            step = (steps.make_train_step(model, tx, dr_e_w=0.1) if phase == "A"
+                    else steps.make_dr_r_step(model, tx2))
+        made.append((model, state, step))
+    return made
+
+
+def _moments(state, phase, kind):
+    opt = state.opt_state if phase == "A" else state.opt_state2
+    if kind == "lazy":
+        return {"table_mu": opt.mu, "table_nu": opt.nu, "dense": opt.dense_opt.mu,
+                "count": opt.count}
+    return {"table_mu": opt.mu["item_embedding"], "table_nu": opt.nu["item_embedding"],
+            "dense": {k: v for k, v in opt.mu.items() if k != "item_embedding"},
+            "count": opt.count}
+
+
+@pytest.mark.parametrize("pairwise", [False, True], ids=["quirk", "pairwise"])
+@pytest.mark.parametrize("phase", ["A", "B"])
+@pytest.mark.parametrize("kind", ["lazy", "dense"])
+def test_replayed_train_steps_equal_eager_steps(gen, kind, phase, pairwise):
+    """Four steps through a resident chunk runner (the first eager, the
+    second captured and replayed, then two replays) against the same four
+    steps taken eagerly from the same state, batches and keys. Dropout 0.5
+    and the sampler on: a replay draws what the eager step draws. The two
+    agree within rounding, not bit for bit: the gather's backward and
+    torch's scatters add with atomics in no fixed order. A replay that read
+    a number frozen at capture (the step count, a seed, the batch index)
+    would leave the eager trajectory at its second step."""
+    cfg = _fast_cfg(comp_broadcast_quirk=not pairwise)
+    ds = synth_packed(cfg, np.random.default_rng(0), 4 * FAST_BS)
+    (_, est, estep), (_, gst, gstep) = _fast_pair(kind, phase, cfg)
+    arrays = loop._resident(ds.batch_arrays(), "cuda")
+    pools = loop._device_pools(ds, "cuda")
+    perm = torch.as_tensor(np.random.default_rng(1).permutation(4 * FAST_BS).astype(np.int32),
+                           device="cuda")
+    pool = GraphPool("cuda")
+    try:
+        runner = steps.make_resident_chunk_runner(gstep, FAST_BS, pool)
+        before = launches.read()
+        for i in range(4):
+            _, m0, nf = runner(gst, arrays, perm, *pools, 9, range(i, i + 1), range(i, i + 1))
+            rows = perm[i * FAST_BS:(i + 1) * FAST_BS]
+            batch = {k: v.index_select(0, rows) for k, v in arrays.items()}
+            _, m = estep(est, batch, *pools, fold_in(9, i))
+            assert float(nf) == 0.0
+            for k, v in m0.items():
+                assert abs(float(v) - float(m[k])) <= LOSS_TOL, (i, k, float(v), float(m[k]))
+        graph = pool.graphs[0]
+        assert graph.replays == 3 and graph.graph is not None
+        # the counts are launches on the device: the runner's eager step and 3
+        # replays, and the eager model's 4 steps
+        per_step = graph.captured
+        assert per_step["attention_fwd"] == per_step["attention_bwd"] == 4
+        assert per_step["scatter_set_unique3"] == int(kind == "lazy")
+        assert launches.since(before) == {k: 8 * n for k, n in per_step.items()}
+        got, want = _moments(gst, phase, kind), _moments(est, phase, kind)
+        assert int(got["count"]) == int(want["count"]) == 4
+        for k in ("table_mu", "table_nu"):
+            assert _rel_to_max(got[k], want[k]) <= MOMENT_TOL, k
+        for k, v in got["dense"].items():
+            assert _rel_to_max(v, want["dense"][k]) <= MOMENT_TOL, k
+    finally:
+        pool.close()
+
+
+def test_replayed_evaluation_equals_the_eager_batches(gen):
+    """Two stacked evaluation passes (the first batch eager, the second
+    captured, then replays) against the per-batch eval step: each batch's
+    loss within 1e-5 and its ranks equal, for two keys (negatives drawn by a
+    replay are the eager step's)."""
+    cfg = _fast_cfg()
+    ds = synth_packed(cfg, np.random.default_rng(2), 4 * FAST_BS)
+    model = build_model(cfg, seed=0)
+    pools = loop._device_pools(ds, "cuda")
+    idx = np.arange(4 * FAST_BS).reshape(4, FAST_BS)
+    stacked = {k: torch.as_tensor(v[idx], device="cuda") for k, v in ds.batch_arrays().items()
+               if k in loop.STEP_KEYS}
+    pool = GraphPool("cuda")
+    try:
+        eval_all = steps.make_scanned_eval(model, 99, pool)
+        eval_step = steps.make_eval_step(model, 99)
+        for key in (10_000, 30_000):
+            got = {k: v.clone() for k, v in eval_all(stacked, *pools, key).items()}
+            for i in range(4):
+                batch = {k: v[i] for k, v in stacked.items()}
+                want = eval_step(batch, *pools, fold_in(key, i))
+                assert abs(float(got["loss_cls"][i]) - float(want["loss_cls"])) <= LOSS_TOL
+                for k in ("ranks_fixed", "ranks_raw"):
+                    assert torch.equal(got[k][i], want[k]), (key, i, k)
+        assert pool.graphs[0].replays == 7
+    finally:
+        pool.close()
+
+
+def test_a_replay_draws_what_the_eager_step_draws_with_its_key(gen):
+    """The step's generators registered with the graph: reseeding between
+    replays changes the draws (negatives, a dropout mask, a K1 seed), and a
+    replay after reseed(k) draws bit for bit what a fresh StepRandom(k) draws
+    eagerly."""
+    v, bsz = 1000, 64
+    pools = torch.arange(v, device="cuda", dtype=torch.int32).repeat(2, 1)
+    sizes = torch.tensor([v, v], device="cuda", dtype=torch.int32)
+    dom = torch.randint(0, 2, (bsz,), device="cuda", generator=gen)
+    reject = torch.sort(torch.randint(0, v, (bsz, 3), device="cuda", generator=gen)).values
+    counts = torch.full((bsz,), 3, device="cuda")
+
+    def draws(rng):
+        neg = sample_negatives(rng.sampler, pools, sizes, dom, reject, 9, counts)
+        mask = rng.dropout(torch.ones(bsz, 32, device="cuda"), 0.5)
+        return neg, mask, rng.attention_seed()
+
+    rng = StepRandom(None, "cuda")
+    pool = GraphPool("cuda")
+    try:
+        graph = StepGraph(lambda: draws(rng), rng.generators(), pool)
+        got = {}
+        for key in (1, 2, 1, 3):  # eager, capture + replay, replay, replay
+            rng.reseed(key)
+            out = [x.clone() for x in graph()]
+            assert key not in got or all(torch.equal(a, b) for a, b in zip(out, got[key]))
+            got[key] = out
+        assert graph.replays == 3
+        for key, out in got.items():
+            want = draws(StepRandom(key, "cuda"))
+            assert all(torch.equal(a, b) for a, b in zip(out, want)), key
+        for a, b in zip(got[2], got[3]):
+            assert not torch.equal(a, b)
+    finally:
+        pool.close()
+
+
+def test_no_launch_of_a_replay_reads_a_frozen_host_number(gen):
+    """Each number a step takes from outside its inputs is read on the
+    device at the replay: K1's dropout seed (a tensor refilled between
+    replays), Adam's step count and bias corrections (five replays equal
+    five eager updates), the lazy step's unique ids (new ids, new uniques)."""
+    q, k, v = (torch.randn(8, 20, 64, device="cuda", generator=gen) for _ in range(3))
+    bias = _bias("causal", 8, 20, gen)
+    seed = torch.zeros(1, dtype=torch.int64, device="cuda")
+    p = {"w": torch.randn(300, 7, device="cuda", generator=gen)}
+    g = {"w": torch.randn(300, 7, device="cuda", generator=gen)}
+    ids = torch.randint(0, 50, (200,), device="cuda", generator=gen, dtype=torch.int32)
+    p_eager = {"w": p["w"].clone()}
+    tx = Adam(1e-2)
+    st, st_eager = tx.init(p), tx.init(p_eager)
+
+    def body():
+        tx.update_(p, g, st)
+        return (fused_attention(q, k, v, bias, seed, 4, 0.5),
+                lazy.unique_padded(ids, 256, 50))
+
+    pool = GraphPool("cuda")
+    try:
+        graph = StepGraph(body, (), pool)
+        for i in range(5):
+            seed.fill_(1000 + i)
+            ids.random_(0, 50, generator=gen)
+            out, uniq = graph()
+            tx.update_(p_eager, g, st_eager)
+            torch.testing.assert_close(out, attention_plain(q, k, v, bias, 1000 + i, 4, 0.5),
+                                       atol=ATOL, rtol=RTOL)
+            want = torch.unique(ids)
+            assert torch.equal(uniq[:want.numel()], want)
+            assert bool((uniq[want.numel():] == 50).all())
+        assert graph.replays == 4 and int(st.count) == 5
+        torch.testing.assert_close(p["w"], p_eager["w"], atol=1e-6, rtol=1e-5)
+        torch.testing.assert_close(st.nu["w"], st_eager.nu["w"], atol=1e-7, rtol=1e-5)
+    finally:
+        pool.close()
+
+
+@pytest.mark.parametrize("t", [20, 150])
+def test_kernel_with_a_tensor_seed_equals_plain_with_dropout(gen, t):
+    """K1 forward and backward with the seed a training step draws (a
+    one-element int64 tensor on the card) against the plain version with
+    the same tensor, and against the kernel with the seed as an int."""
+    q, k, v = (torch.randn(16, t, 128, device="cuda", generator=gen).requires_grad_()
+               for _ in range(3))
+    bias = _bias("causal", 16, t, gen)
+    seed = torch.tensor([987654], dtype=torch.int64, device="cuda")
+    dout = torch.randn(16, t, 128, device="cuda", generator=gen)
+    got = fused_attention(q, k, v, bias, seed, 8, 0.5)
+    grads = torch.autograd.grad(got, (q, k, v), dout)
+    want = attention_plain(q, k, v, bias, seed, 8, 0.5)
+    want_grads = torch.autograd.grad(want, (q, k, v), dout)
+    torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL)
+    for a, b in zip(grads, want_grads):
+        torch.testing.assert_close(a, b, atol=BWD_ATOL, rtol=RTOL)
+    with torch.no_grad():
+        assert torch.equal(fused_attention(q, k, v, bias, seed, 8, 0.5),
+                           fused_attention(q, k, v, bias, 987654, 8, 0.5))
+
+
+@pytest.mark.parametrize("lazy_adam", [True, False], ids=["lazy", "dense"])
+def test_run_seed_runs_the_fast_loops_as_graphs(tmp_path, gen, lazy_adam):
+    """`run_seed` on the card with the fast loops (the defaults): two epochs
+    of the DR schedule, each step kind captured once and replayed, the
+    counts launches on the device; the graphs are released at the end."""
+    cfg = _fast_cfg()
+    train, val, dr = (synth_packed(cfg, np.random.default_rng(i), n)
+                      for i, n in ((3, 5 * FAST_BS), (4, 2 * FAST_BS), (5, 3 * FAST_BS)))
+    tcfg = TrainConfig(epochs=2, seeds=1, checkpoint=False, model_dir=str(tmp_path),
+                       lazy_table_adam=lazy_adam, model=cfg, data=DataConfig(neg_nums=99),
+                       nan_policy="halt", log_every=2)
+    assert tcfg.fast_train and tcfg.fast_eval
+    captures = []
+    capture = StepGraph._capture
+
+    def counted(self):
+        captures.append(self)
+        capture(self)
+
+    before = launches.read()
+    try:
+        StepGraph._capture = counted
+        best = loop.run_seed(tcfg, 0, train, val, dr)
+    finally:
+        StepGraph._capture = capture
+    torch.cuda.synchronize()
+    got = launches.since(before)
+    assert len(captures) == 3 and all(c.graph is None for c in captures)  # released
+    # 2 epochs: 5 phase-A steps, 3 phase-B steps, 2 evaluations of 2 batches
+    steps_, evals = 2 * (5 + 3), 2 * 2 * 2
+    assert got["attention_fwd"] == 4 * (steps_ + evals)
+    assert got["attention_bwd"] == 4 * steps_
+    assert got["scatter_set_unique3"] == (steps_ if lazy_adam else 0)
+    assert got["embedding_gather"] == 2 * (steps_ + evals)
+    assert got["scoring_head"] == 3 * (steps_ + evals)
+    assert 0.0 <= best["mrr_d1"] <= 1.0 and np.isfinite(best["mrr_d2"])
+    log = (tmp_path / "log0.txt").read_text()
+    assert log.count("train loss:") == 2 * 3 and log.count("(post-DR)") == 2

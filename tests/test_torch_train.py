@@ -482,8 +482,7 @@ def test_run_seed_one_epoch_on_cpu(tmp_path, lazy_adam):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("use_mesh", True), ("fast_train", True), ("fast_eval", True), ("checkpoint", True),
-    ("resume", True), ("profile_steps", 3)])
+    ("use_mesh", True), ("checkpoint", True), ("resume", True), ("profile_steps", 3)])
 def test_run_seed_names_the_field_that_asks_for_an_unported_part(tmp_path, field, value):
     with pytest.raises(NotImplementedError, match=f"TrainConfig.{field}"):
         loop.run_seed(_train_cfg(tmp_path, **{field: value}), 0, None, None, device="cpu")
