@@ -34,9 +34,11 @@ What differs: `--kernels` is checked against `auto|torch|cuda`;
 `--data_root` defaults to `reference`; `--device` (not a config field: see
 `parse_cli_with_device`) names the device, the card when absent; the flags of
 parts that are not ported (`--checkpoint`, `--resume`, `--profile_steps`,
-`--mesh`, `--data_axis`, `--model_axis`, `--distributed`, `--isC2DSR`,
-other `--model`s) parse into their fields and
-meet the `NotImplementedError` of the part they ask for; `--distributed`
+`--mesh`, `--data_axis`, `--model_axis`, `--distributed`, `--isC2DSR`)
+parse into their fields and meet the `NotImplementedError` of the part they
+ask for; `--model` takes the three backbones of `BACKBONES` in any case and
+raises `ValueError` on another name (the JAX package raises it when the model
+is built); `--distributed`
 joins no runtime here, it only sets `use_mesh`; `--bf16`, `--remat` and
 `--matmul_precision` fill their fields, and the values the port does not
 compute are refused by `build_model`.
@@ -56,13 +58,14 @@ REF_USER_LENGTH = 895510
 REF_ITEM_LENGTH = 447410
 
 KERNEL_CHOICES = ("auto", "torch", "cuda")
+BACKBONES = ("sasrec", "bert4rec", "gru4rec")  # --model, lowercased
 
 
 @dataclass
 class ModelConfig:
     """Model hyper-parameters (reference model_seq.py:56-58 etc.)."""
 
-    backbone: str = "sasrec"  # this slice ports "sasrec"
+    backbone: str = "sasrec"  # one of BACKBONES
     emb_dim: int = 128
     hid_dim: int = 32
     seq_len: int = 20  # 20 for mybank, 150 for amazon (train_sr.py:366)
@@ -308,6 +311,9 @@ def parse_cli_with_device(
     p = argparse.ArgumentParser(description="amid_tpu_torch trainer")
     _add_reference_flags(p)
     a = p.parse_args(argv)
+    if a.model.lower() not in BACKBONES:
+        raise ValueError(f"unknown backbone {a.model.lower()!r} (--model {a.model}); "
+                         f"one of {BACKBONES}")
     model = ModelConfig(
         backbone=a.model.lower(),
         emb_dim=a.emb_dim,

@@ -1,16 +1,20 @@
-"""Moves a flax parameter tree of the JAX package's AMIDModel (SASRec
-backbone, optional InnerComp/InterComp, DR heads) into this package's
+"""Moves a flax parameter tree of the JAX package's AMIDModel (any of its
+three backbones, optional InnerComp/InterComp, DR heads) into this package's
 `state_dict`, and the JAX trainer's optimizer state (optax Adam's `count`,
 `mu`, `nu`; the lazy table Adam's `LazyTableState`) into the port's
 `AdamState` / `LazyTableState`, all from numpy arrays.
 
 Leaves are found by their flax paths, e.g. `enc_d1/attn_0/in_proj_kernel`,
-`itc_d1/PeerMessage_0/trans_bs_kernel`, `predict_ips/fc1_kernel`. Flax
-kernels are [in, out] and torch weights [out, in], so kernels are
-transposed; trans_bs's [bs] kernel becomes Linear(bs, 1)'s [1, bs] weight.
-A leaf no rule knows, or a leaf missing from the structure the tree
-implies (both towers with the same number of blocks, both directions of a
-comp module, both DR heads), raises.
+`itc_d1/PeerMessage_0/trans_bs_kernel`, `predict_ips/fc1_kernel`,
+`enc_d1/block_0/ff1/kernel`, `enc_d2/gru/w_hh`. Flax kernels are [in, out]
+and torch weights [out, in], so kernels are transposed; trans_bs's [bs]
+kernel becomes Linear(bs, 1)'s [1, bs] weight. The GRU's four tensors keep
+the JAX package's layout (`TorchGRU` holds `w_ih` [D, 3H] and `w_hh`
+[H, 3H] as they are) and are copied untransposed. A leaf no rule knows, a
+tree whose encoders are of more than one backbone, or a leaf missing from the
+structure the tree implies (that backbone's full set, both towers with the
+same number of blocks, both directions of a comp module, both DR heads),
+raises.
 """
 
 from __future__ import annotations
@@ -48,6 +52,11 @@ _RULES = [
     (_ENC + r"/ffn_(\d+)/(conv[12])/bias", r"\1.ffn.\2.\3.bias", None),
     (_ENC + r"/last_ln/scale", r"\1.last_ln.weight", None),
     (_ENC + r"/last_ln/bias", r"\1.last_ln.bias", None),
+    (_ENC + r"/block_(\d+)/(ln[12])/scale", r"\1.block.\2.\3.weight", None),
+    (_ENC + r"/block_(\d+)/(ln[12])/bias", r"\1.block.\2.\3.bias", None),
+    (_ENC + r"/block_(\d+)/(q|k|v|out|ff1|ff2)/kernel", r"\1.block.\2.\3.weight", _t),
+    (_ENC + r"/block_(\d+)/(q|k|v|out|ff1|ff2)/bias", r"\1.block.\2.\3.bias", None),
+    (_ENC + r"/gru/(w_ih|w_hh|b_ih|b_hh)", r"\1.gru.\2", None),
     (_COMP + r"/trans_nn_kernel", r"\1.message.trans_nn.weight", _t),
     (_COMP + r"/trans_nn_bias", r"\1.message.trans_nn.bias", None),
     (_COMP + r"/trans_bs_kernel", r"\1.message.trans_bs.weight", _row),
@@ -76,22 +85,53 @@ def _map_leaf(path: str) -> tuple[str, Any]:
     raise ValueError(f"flax leaf {path!r} has no counterpart in amid_tpu_torch")
 
 
+# each backbone's encoder leaves, by the torch name's form
+_BACKBONE_NAMES = {
+    "sasrec": r"enc_d[12]\.(pos_emb|last_ln\..*|(attn|attn_ln|ffn_ln|ffn)\.\d+\..*)",
+    "bert4rec": r"enc_d[12]\.block\.\d+\..*",
+    "gru4rec": r"enc_d[12]\.gru\..*",
+}
+
+
+def _backbone(names: set[str]) -> str:
+    """The backbone whose encoder leaves `names` holds; raises on a mix."""
+    found = {b for b, pat in _BACKBONE_NAMES.items()
+             for n in names if re.fullmatch(pat, n)}
+    if len(found) > 1:
+        raise ValueError(f"the tree's encoders mix backbones: {sorted(found)}")
+    return found.pop() if found else "sasrec"
+
+
+def _encoder_names(backbone: str, blocks: int) -> set[str]:
+    """Every torch name of the two towers of `backbone` with `blocks` blocks."""
+    want = set()
+    for enc in ("enc_d1", "enc_d2"):
+        if backbone == "gru4rec":
+            want |= {f"{enc}.gru.{w}" for w in ("w_ih", "w_hh", "b_ih", "b_hh")}
+        elif backbone == "bert4rec":
+            want |= {f"{enc}.block.{i}.{m}.{w}" for i in range(blocks)
+                     for m in ("ln1", "ln2", "q", "k", "v", "out", "ff1", "ff2")
+                     for w in ("weight", "bias")}
+        else:
+            want |= {f"{enc}.pos_emb", f"{enc}.last_ln.weight", f"{enc}.last_ln.bias"}
+            for i in range(blocks):
+                want |= {
+                    f"{enc}.attn.{i}.in_proj_weight", f"{enc}.attn.{i}.in_proj_bias",
+                    f"{enc}.attn.{i}.out_proj.weight", f"{enc}.attn.{i}.out_proj.bias",
+                    f"{enc}.attn_ln.{i}.weight", f"{enc}.attn_ln.{i}.bias",
+                    f"{enc}.ffn_ln.{i}.weight", f"{enc}.ffn_ln.{i}.bias",
+                    f"{enc}.ffn.{i}.conv1.weight", f"{enc}.ffn.{i}.conv1.bias",
+                    f"{enc}.ffn.{i}.conv2.weight", f"{enc}.ffn.{i}.conv2.bias",
+                }
+    return want
+
+
 def _expected_names(names: set[str], with_table: bool = True) -> set[str]:
     """Every torch name the structure implied by `names` must have."""
     blocks = {int(m.group(1)) for n in names
-              if (m := re.fullmatch(r"enc_d[12]\.attn\.(\d+)\..*", n))}
+              if (m := re.fullmatch(r"enc_d[12]\.(?:attn|attn_ln|ffn_ln|ffn|block)\.(\d+)\..*", n))}
     want = {"item_embedding"} if with_table else set()
-    for enc in ("enc_d1", "enc_d2"):
-        want |= {f"{enc}.pos_emb", f"{enc}.last_ln.weight", f"{enc}.last_ln.bias"}
-        for i in range(max(blocks, default=-1) + 1):
-            want |= {
-                f"{enc}.attn.{i}.in_proj_weight", f"{enc}.attn.{i}.in_proj_bias",
-                f"{enc}.attn.{i}.out_proj.weight", f"{enc}.attn.{i}.out_proj.bias",
-                f"{enc}.attn_ln.{i}.weight", f"{enc}.attn_ln.{i}.bias",
-                f"{enc}.ffn_ln.{i}.weight", f"{enc}.ffn_ln.{i}.bias",
-                f"{enc}.ffn.{i}.conv1.weight", f"{enc}.ffn.{i}.conv1.bias",
-                f"{enc}.ffn.{i}.conv2.weight", f"{enc}.ffn.{i}.conv2.bias",
-            }
+    want |= _encoder_names(_backbone(names), max(blocks, default=-1) + 1)
     for kind in ("inc", "itc"):
         if any(n.startswith(kind + "_") for n in names):
             for dom in ("d1", "d2"):

@@ -61,17 +61,6 @@ using namespace amid_attention;
 
 constexpr int kScratchPitch = 20;  // 16 queries + 4: rows 2t and 2t+1 on distinct banks
 
-struct BwdParams {
-  const float *q, *k, *v, *bias, *out, *dout, *row_max, *row_inv_sum;
-  float *dq, *dk, *dv;
-  int T, D, H;
-  long long q_sb, q_st, k_sb, k_st, v_sb, v_st, o_sb, o_st, g_sb, g_st, bias_sb, bias_si;
-  float scale, inv_keep;
-  uint32_t keep_threshold;
-  const long long* seed;  // one int64 on the device, read when dropout is on
-  int dropout;
-};
-
 template <int DH>
 __global__ void __launch_bounds__(kMaxWarps * 32)
 attention_bwd_kernel(const BwdParams p) {
@@ -340,17 +329,7 @@ int attention_bwd(const void* raw) {
   const int dh = (int)(a.D / a.H);
   const size_t smem = smem_bytes((int)a.T, dh);
   if (smem > 232448) return kTooLong;
-  const BwdParams p = {
-      ptr<const float>(a.q), ptr<const float>(a.k), ptr<const float>(a.v),
-      ptr<const float>(a.bias), ptr<const float>(a.out), ptr<const float>(a.dout),
-      ptr<const float>(a.row_max), ptr<const float>(a.row_inv_sum),
-      ptr<float>(a.dq), ptr<float>(a.dk), ptr<float>(a.dv),
-      (int)a.T, (int)a.D, (int)a.H,
-      a.q_sb, a.q_st, a.k_sb, a.k_st, a.v_sb, a.v_st, a.o_sb, a.o_st, a.g_sb, a.g_st,
-      a.bias_sb, a.bias_si,
-      (float)a.scale, (float)a.inv_keep, (uint32_t)a.keep_threshold,
-      ptr<const long long>(a.seed),
-      (int)a.dropout};
+  const BwdParams p = bwd_params(a);
   cudaStream_t s = ptr<CUstream_st>(a.stream);
   const int B = (int)a.B;
   switch (dh) {

@@ -138,6 +138,32 @@ T* ptr(long long value) {
   return reinterpret_cast<T*>(static_cast<uintptr_t>(value));
 }
 
+// The backward kernels' parameters (attention_bwd.cu, attention_bwd_long.cu),
+// from one BwdArgs block.
+struct BwdParams {
+  const float *q, *k, *v, *bias, *out, *dout, *row_max, *row_inv_sum;
+  float *dq, *dk, *dv;
+  int T, D, H;
+  long long q_sb, q_st, k_sb, k_st, v_sb, v_st, o_sb, o_st, g_sb, g_st, bias_sb, bias_si;
+  float scale, inv_keep;
+  uint32_t keep_threshold;
+  const long long* seed;  // one int64 on the device, read when dropout is on
+  int dropout;
+};
+
+inline BwdParams bwd_params(const BwdArgs& a) {
+  return {ptr<const float>(a.q), ptr<const float>(a.k), ptr<const float>(a.v),
+          ptr<const float>(a.bias), ptr<const float>(a.out), ptr<const float>(a.dout),
+          ptr<const float>(a.row_max), ptr<const float>(a.row_inv_sum),
+          ptr<float>(a.dq), ptr<float>(a.dk), ptr<float>(a.dv),
+          (int)a.T, (int)a.D, (int)a.H,
+          a.q_sb, a.q_st, a.k_sb, a.k_st, a.v_sb, a.v_st, a.o_sb, a.o_st, a.g_sb, a.g_st,
+          a.bias_sb, a.bias_si,
+          (float)a.scale, (float)a.inv_keep, (uint32_t)a.keep_threshold,
+          ptr<const long long>(a.seed),
+          (int)a.dropout};
+}
+
 // Warps of a block that walks `tiles` 16-row tiles in as few rounds of at
 // most kMaxWarps warps as it can, with the tiles spread evenly over them.
 inline int warps_for(int tiles) {

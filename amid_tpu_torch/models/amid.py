@@ -1,9 +1,16 @@
-"""AMID model assembly, SASRec branch — the counterpart of
-`amid_tpu/models/amid.py` (model_seq.py:416-443):
+"""AMID model assembly — the counterpart of `amid_tpu/models/amid.py`, with
+each backbone's placement of the peer message passing as the reference has it:
 
-    shared item table -> [InnerComp] -> SASRec towers -> [InterComp]
-    -> plain mean over time (pad positions included, model_seq.py:432-434)
-    -> PredictHead(s)
+    GRU4Rec  (model_seq.py:83-113):  table -> [InnerComp] -> GRU towers -> [InterComp]
+    SASRec   (model_seq.py:416-443): table -> [InnerComp] -> SASRec towers -> [InterComp]
+    BERT4Rec (model_seq.py:277-309): table -> [InnerComp] -> [InterComp] -> BERT towers
+
+then a plain mean over time (pad positions included, model_seq.py:432-434)
+and the PredictHead(s). BERT4Rec's key mask is `ids > 0` of the raw
+sequence, from `seq_d2` for BOTH towers while `bert_d2_mask_quirk` is on (the
+reference's quirk, model_seq.py:286-294), from `seq_d1` for tower 1 when it
+is off; it is tiled along time (the whole row repeated) to the length that
+InnerComp and InterComp give the encoder's input.
 
 `forward(batch, features_only=True)` returns the pooled user representations
 (u_d1, u_d2), the serving entry point; the normal forward scores
@@ -37,9 +44,9 @@ from typing import Any
 import torch
 from torch import nn
 
-from amid_tpu_torch.config import KERNEL_CHOICES, ModelConfig
+from amid_tpu_torch.config import BACKBONES, KERNEL_CHOICES, ModelConfig
 from amid_tpu_torch.models.comp import InnerComp, InterComp
-from amid_tpu_torch.models.encoders import SasrecEncoder
+from amid_tpu_torch.models.encoders import Bert4RecEncoder, GruEncoder, SasrecEncoder
 from amid_tpu_torch.models.heads import PredictHead
 from amid_tpu_torch.ops.embedding import embedding_gather_many, embedding_gather_many_plain
 from amid_tpu_torch.ops.torch_compat import torch_embedding_init_
@@ -74,10 +81,8 @@ def _refuse_precision_flags(cfg: ModelConfig) -> None:
 class AMIDModel(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        if cfg.backbone != "sasrec":
-            raise NotImplementedError(
-                f"backbone {cfg.backbone!r} is not ported yet; this slice has sasrec"
-            )
+        if cfg.backbone not in BACKBONES:
+            raise ValueError(f"unknown backbone {cfg.backbone!r}; one of {BACKBONES}")
         if cfg.is_c2dsr:
             raise NotImplementedError("C2DSR mode is not ported yet")
         _refuse_precision_flags(cfg)
@@ -93,10 +98,7 @@ class AMIDModel(nn.Module):
             self.inc_d1 = InnerComp(d, cfg.batch_size, cfg.ts1, quirk, cfg.kernels)
             self.inc_d2 = InnerComp(d, cfg.batch_size, cfg.ts1, quirk, cfg.kernels)
         for name in ("enc_d1", "enc_d2"):
-            self.add_module(name, SasrecEncoder(
-                d, cfg.enc_seq_len, cfg.sasrec_blocks, cfg.sasrec_heads,
-                cfg.sasrec_dropout, cfg.kernels,
-            ))
+            self.add_module(name, _encoder(cfg))
         if cfg.is_itc:
             self.itc_d1 = InterComp(d, cfg.batch_size, cfg.ts2, quirk, cfg.kernels)
             self.itc_d2 = InterComp(d, cfg.batch_size, cfg.ts2, quirk, cfg.kernels)
@@ -137,13 +139,33 @@ class AMIDModel(nn.Module):
     def features(self, batch: Batch, rng=None,
                  lazy_rows=None) -> tuple[torch.Tensor, torch.Tensor]:
         """Pooled per-domain user representations (u_feat_enhance_d1/d2)."""
+        cfg = self.cfg
         seq_d1, seq_d2 = self.lookup((batch["seq_d1"], batch["seq_d2"]), lazy_rows)  # [B, L, D]
-        if self.cfg.is_inc:
+        if cfg.is_inc:
             seq_d1, seq_d2 = self.inc_d1(seq_d1), self.inc_d2(seq_d2)
-        seq_d1, seq_d2 = self.enc_d1(seq_d1, rng), self.enc_d2(seq_d2, rng)
-        if self.cfg.is_itc:
-            seq_d1, seq_d2 = self.itc_d1(seq_d1, seq_d2), self.itc_d2(seq_d2, seq_d1)
+        if cfg.backbone == "bert4rec":
+            seq_d1, seq_d2 = self._apply_itc(seq_d1, seq_d2)
+            mask_d1, mask_d2 = self._bert_key_masks(batch, seq_d1.shape[1], seq_d1.device)
+            seq_d1, seq_d2 = self.enc_d1(seq_d1, mask_d1, rng), self.enc_d2(seq_d2, mask_d2, rng)
+        else:
+            seq_d1, seq_d2 = self.enc_d1(seq_d1, rng), self.enc_d2(seq_d2, rng)
+            seq_d1, seq_d2 = self._apply_itc(seq_d1, seq_d2)
         return seq_d1.mean(dim=1), seq_d2.mean(dim=1)
+
+    def _apply_itc(self, seq_d1, seq_d2):
+        if not self.cfg.is_itc:
+            return seq_d1, seq_d2
+        return self.itc_d1(seq_d1, seq_d2), self.itc_d2(seq_d2, seq_d1)
+
+    def _bert_key_masks(self, batch: Batch, t_enc: int, device):
+        """The key masks [B, t_enc] of both BERT towers: `ids > 0` of the raw
+        sequences (seq_d2 for both under the d2-mask quirk), each row repeated
+        whole along time to the encoder's length (jnp.tile, not interleaved)."""
+        src_d2 = torch.as_tensor(batch["seq_d2"], device=device)
+        src_d1 = (src_d2 if self.cfg.bert_d2_mask_quirk
+                  else torch.as_tensor(batch["seq_d1"], device=device))
+        reps = t_enc // src_d2.shape[1]  # 2 with InnerComp, doubled again with InterComp
+        return (src_d1 > 0).repeat(1, reps), (src_d2 > 0).repeat(1, reps)
 
     def forward(self, batch: Batch, features_only: bool = False, rng=None,
                 lazy_rows=None):
@@ -158,6 +180,17 @@ class AMIDModel(nn.Module):
             out["ips_d1"], out["ips_d2"] = self.predict_ips(u_d1, u_d2, cand)
             out["gfunc_d1"], out["gfunc_d2"] = self.predict_gfunc(u_d1, u_d2, cand)
         return out
+
+
+def _encoder(cfg: ModelConfig) -> nn.Module:
+    """One tower of the configured backbone."""
+    if cfg.backbone == "gru4rec":
+        return GruEncoder(cfg.emb_dim, cfg.emb_dim)
+    if cfg.backbone == "bert4rec":
+        return Bert4RecEncoder(cfg.emb_dim, cfg.bert_blocks, cfg.bert_heads, cfg.bert_ff_dim,
+                               cfg.bert_dropout, cfg.kernels)
+    return SasrecEncoder(cfg.emb_dim, cfg.enc_seq_len, cfg.sasrec_blocks, cfg.sasrec_heads,
+                         cfg.sasrec_dropout, cfg.kernels)
 
 
 def resolve_device(device=None) -> torch.device:

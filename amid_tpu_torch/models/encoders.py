@@ -1,21 +1,33 @@
-"""SASRec encoder — the counterpart of the SASRec part of
-`amid_tpu/models/encoders.py` (Log2feats, model_seq.py:331-387).
+"""Sequence encoders — the counterpart of `amid_tpu/models/encoders.py`:
+SASRec (Log2feats, model_seq.py:331-387), BERT4Rec (model_seq.py:221-267) and
+GRU4Rec (model_seq.py:72-73,92-95). Each maps an embedded sequence [B, T, D]
+to [B, T, D].
 
-Reference quirks kept deliberately, as the JAX package keeps them:
+SASRec quirks kept deliberately, as the JAX package keeps them:
 * pre-LN on the attention query only; K and V take the un-normalised input,
   and the residual adds onto the normalised Q (model_seq.py:373-378);
 * the causal mask is an additive -1e9 above the diagonal, not -inf (:369);
 * a learned position embedding, sliced to the input length;
 * the out_proj bias is trainable and zero at init (nn.MultiheadAttention).
 
-With `kernels="cuda"` the attention core goes through the CUDA kernels
-(`ops.attention.fused_attention`, forward and backward) at every sequence
-length; with `kernels="torch"` through its plain PyTorch version. BERT4Rec
-and GRU4Rec are not ported yet.
+BERT4Rec: pre-norm sublayers with the hand-rolled LayerNorm, separate q, k,
+v and out projections, a tanh-GELU FFN, no positional embedding, and a
+key-padding mask that the model builds (from `seq_d2 > 0` for both towers
+under `bert_d2_mask_quirk`). The mask enters the attention as the additive
+bias `where(key_mask, 0, -1e9)` [B, 1, 1, T], the JAX package's Pallas route
+(`encoders.py:214-222`); its XLA route replaces masked scores by -1e9
+instead, which agrees only while |score| < 32 (ROADMAP.md, "Deliberate
+differences"). GRU4Rec: one `TorchGRU` a tower (the reference's dropout on a
+one-layer GRU is a no-op and is left out, as in JAX).
 
-Train-mode dropout (on the embedded input, on the attention probabilities
-and twice in the FFN) draws from the step's `ops.rng.StepRandom`, passed as
-`rng`; in eval mode `rng` is not read.
+With `kernels="cuda"` every attention core goes through the CUDA kernels
+(`ops.attention.fused_attention`, forward and backward) at every sequence
+length; with `kernels="torch"` through its plain PyTorch version.
+
+Train-mode dropout draws from the step's `ops.rng.StepRandom`, passed as
+`rng` (SASRec: on the embedded input, on the attention probabilities and
+twice in the FFN; BERT4Rec: on the probabilities, after each sublayer, in the
+FFN and after the block); in eval mode `rng` is not read.
 """
 
 from __future__ import annotations
@@ -29,7 +41,10 @@ from torch import nn
 from amid_tpu_torch.ops.attention import attention_plain, fused_attention
 from amid_tpu_torch.ops.rng import apply_dropout
 from amid_tpu_torch.ops.torch_compat import (
+    RefLayerNorm,
+    TorchGRU,
     TorchLayerNorm,
+    tanh_gelu,
     torch_embedding_init_,
     torch_linear_init_,
     uniform_,
@@ -37,6 +52,17 @@ from amid_tpu_torch.ops.torch_compat import (
 )
 
 NEG_INF = -1e9  # reference mask fill value (model_seq.py:155)
+
+
+def _attention_dropout(training: bool, rate: float, rng):
+    """(seed, rate) of an attention call: a seed drawn from the step's
+    generators in train mode with dropout, else (0, 0.0)."""
+    if not training or rate <= 0.0:
+        return 0, 0.0
+    if rng is None:
+        raise ValueError("train-mode attention dropout needs the step's "
+                         "StepRandom (pass rng=...)")
+    return rng.attention_seed(), rate
 
 
 class TorchMultiheadAttention(nn.Module):
@@ -66,13 +92,7 @@ class TorchMultiheadAttention(nn.Module):
         qp = F.linear(q, w[:d], b[:d])
         kp = F.linear(k, w[d : 2 * d], b[d : 2 * d])
         vp = F.linear(v, w[2 * d :], b[2 * d :])
-        if self.training and self.dropout > 0.0:
-            if rng is None:
-                raise ValueError("train-mode attention dropout needs the step's "
-                                 "StepRandom (pass rng=...)")
-            seed, rate = rng.attention_seed(), self.dropout
-        else:
-            seed, rate = 0, 0.0
+        seed, rate = _attention_dropout(self.training, self.dropout, rng)
         out = self.attend(qp, kp, vp, attn_bias, seed, self.num_heads, rate)
         return self.out_proj(out)
 
@@ -136,3 +156,83 @@ class SasrecEncoder(nn.Module):
             x = q + attn(q, x, x, causal, rng)  # residual onto the normalised Q
             x = ffn(ffn_ln(x), rng)
         return self.last_ln(x)
+
+
+class BertBlock(nn.Module):
+    """TransformerBlock (model_seq.py:221-245): x + drop(MHA(norm(x))), then
+    x + drop(FFN(norm(x))), then a trailing dropout. `bias` is the additive
+    key-padding bias [B, 1, 1, T]."""
+
+    def __init__(self, d: int, num_heads: int, ff_dim: int, dropout: float,
+                 kernels: str):
+        super().__init__()
+        self.num_heads = num_heads
+        self.dropout = dropout
+        self.attend = fused_attention if kernels == "cuda" else attention_plain
+        self.ln1 = RefLayerNorm(d)
+        self.q, self.k, self.v, self.out = (nn.Linear(d, d) for _ in range(4))
+        self.ln2 = RefLayerNorm(d)
+        self.ff1 = nn.Linear(d, ff_dim)
+        self.ff2 = nn.Linear(ff_dim, d)
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        for m in (self.q, self.k, self.v, self.out, self.ff1, self.ff2):
+            torch_linear_init_(m, gen)
+        for m in (self.ln1, self.ln2):
+            nn.init.ones_(m.weight)
+            nn.init.zeros_(m.bias)
+
+    def forward(self, x: torch.Tensor, bias: torch.Tensor, rng=None) -> torch.Tensor:
+        def drop(y):
+            return apply_dropout(y, self.dropout, self.training, rng)
+
+        q_in = self.ln1(x)
+        seed, rate = _attention_dropout(self.training, self.dropout, rng)
+        att = self.attend(self.q(q_in), self.k(q_in), self.v(q_in), bias, seed,
+                          self.num_heads, rate)
+        x = x + drop(self.out(att))
+        f = self.ff2(drop(tanh_gelu(self.ff1(self.ln2(x)))))
+        return drop(x + drop(f))
+
+
+def key_padding_bias(key_mask: torch.Tensor) -> torch.Tensor:
+    """The additive fp32 bias [B, 1, 1, T] of a boolean key mask [B, T]: 0
+    where a key is kept, -1e9 where it is masked (masked_fill(mask == 0,
+    -1e9), model_seq.py:155, added to the scores as the Pallas route adds it)."""
+    return torch.where(key_mask, 0.0, NEG_INF)[:, None, None, :]
+
+
+class Bert4RecEncoder(nn.Module):
+    """One tower of the BERT4Rec stack (model_seq.py:264-267): `num_blocks`
+    BertBlocks, no positional embedding; `key_mask` [B, T] bool."""
+
+    def __init__(self, d: int, num_blocks: int = 2, num_heads: int = 4,
+                 ff_dim: int = 512, dropout: float = 0.1, kernels: str = "torch"):
+        super().__init__()
+        self.block = nn.ModuleList(
+            BertBlock(d, num_heads, ff_dim, dropout, kernels) for _ in range(num_blocks))
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        for m in self.block:
+            m.reset_parameters(gen)
+
+    def forward(self, x: torch.Tensor, key_mask: torch.Tensor, rng=None) -> torch.Tensor:
+        bias = key_padding_bias(key_mask)
+        for blk in self.block:
+            x = blk(x, bias, rng)
+        return x
+
+
+class GruEncoder(nn.Module):
+    """GRU4Rec tower (model_seq.py:72-73,92-95): one `TorchGRU`, zero initial
+    state; `rng` is not read (no dropout)."""
+
+    def __init__(self, d: int, hidden: int):
+        super().__init__()
+        self.gru = TorchGRU(d, hidden)
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        self.gru.reset_parameters(gen)
+
+    def forward(self, x: torch.Tensor, rng=None) -> torch.Tensor:
+        return self.gru(x)

@@ -7,10 +7,10 @@ for BERT4Rec); the per-head scale is 1/sqrt(dh); dropout with `rate` drops
 attention probabilities and scales the kept ones by 1/(1 - rate).
 
 * `fused_attention` is the wrapper of the CUDA kernels
-  `csrc/attention_fwd.cu` and `csrc/attention_bwd.cu`. On CUDA tensors the
-  forward launches the forward kernel (counted in `fused_attention.launches`)
-  and a gradient launches the backward kernel (counted in
-  `fused_attention.backward_launches`), or they raise; on CPU tensors it
+  `csrc/attention_fwd.cu`, `csrc/attention_bwd.cu` and
+  `csrc/attention_bwd_long.cu`. On CUDA tensors the forward launches the
+  forward kernel (counted in `fused_attention.launches`) and a gradient
+  launches a backward path (see below), or they raise; on CPU tensors it
   computes `attention_plain`. The `torch.autograd.Function` that joins the
   two is entered only when a gradient is wanted (grad mode on and q, k or v
   requiring one); then the forward also writes the row statistics the
@@ -26,6 +26,17 @@ attention probabilities and scales the kept ones by 1/(1 - rate).
   statistics and the output's gradient, with P rebuilt from the statistics
   and the dropout mask regenerated. `attention_backward` is the kernel on
   CUDA tensors and this on CPU tensors.
+* The backward has two CUDA paths (`backward_route`): the one-sweep kernel
+  `csrc/attention_bwd.cu`, which keeps a whole head in one block's shared
+  memory (at dh=32 up to T=368), and the long-sequence path
+  `csrc/attention_bwd_long.cu` (a dQ kernel, then a dK/dV kernel, each
+  streaming the other side), which takes any T up to `long_backward_max_t()`
+  at every kernel head width. A shape goes to the long path only where the
+  one-sweep kernel does not fit it: at every shape both take, the one-sweep
+  kernel was the faster on the H100 (`chip_smoke.py`'s `bwd_crossover`
+  records). A call of the long path counts in
+  `fused_attention.long_backward_launches` (one per call: it launches its two
+  kernels together), one of the one-sweep kernel in `backward_launches`.
 * `dropout_keep_mask` is the counter-based dropout mask both versions use:
   a pure function of (seed, b, h, i, j), so kernel and plain agree bit for
   bit. The TPU's own random bits cannot be reproduced; against JAX only
@@ -239,21 +250,27 @@ def attention_bwd_plain(q, k, v, bias, out, row_max, row_inv_sum, dout,
 # FwdArgs and BwdArgs), packed in one call: ctypes converts argument by argument.
 _PACK_FWD = struct.Struct("<23q2d").pack
 _PACK_BWD = struct.Struct("<31q2d").pack
+_PACK_BWD_LONG = struct.Struct("<31q2dq").pack  # BwdLongArgs: BwdArgs, then the D_i scratch
 _BAD_HEAD_WIDTH, _BAD_SHAPE, _TOO_LONG = -1, -2, -3  # the entry points' refusals
+_SOURCES = ["attention_fwd", "attention_bwd", "attention_bwd_long"]
 
-_fwd = _bwd = None  # bound entry points, resolved at the first launch
+_fwd = _bwd = _bwd_long = None  # bound entry points, resolved at the first launch
 _fwd_smem = _bwd_smem = None  # their shared-memory functions, (T, dh) -> bytes
-_bwd_fits: dict = {}  # (T, dh) -> whether the backward kernel takes it
+_long_max_t = None  # the longest T of the long path
+_bwd_fits: dict = {}  # (T, dh) -> whether the one-sweep backward kernel takes it
 
 
 def _bind() -> None:
-    global _fwd, _bwd, _fwd_smem, _bwd_smem
+    global _fwd, _bwd, _bwd_long, _fwd_smem, _bwd_smem, _long_max_t
     i = ctypes.c_int
-    fwd, bwd = _build.load("attention_fwd"), _build.load("attention_bwd")
+    _build.build(_SOURCES)  # one nvcc each, all at once
+    fwd, bwd, long = (_build.load(n) for n in _SOURCES)
     _fwd_smem = _build.bind(fwd.attention_fwd_smem_bytes, [i, i], ctypes.c_size_t)
     _bwd_smem = _build.bind(bwd.attention_bwd_smem_bytes, [i, i], ctypes.c_size_t)
+    _long_max_t = _build.bind(long.attention_bwd_long_max_t, [])()
     _fwd = _build.bind(fwd.attention_fwd, [ctypes.c_char_p])
     _bwd = _build.bind(bwd.attention_bwd, [ctypes.c_char_p])
+    _bwd_long = _build.bind(long.attention_bwd_long, [ctypes.c_char_p])
 
 
 def _too_long(name: str, smem_bytes, t: int, dh: int) -> ValueError:
@@ -274,16 +291,35 @@ def _raise(err: int, name: str, smem_bytes, t: int, d: int, heads: int):
     raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
 
 
-def _check_backward_fits(t: int, dh: int) -> None:
-    """Raises now if the backward kernel cannot take (T, dh), not in the
-    middle of a backward pass. Asked once per shape."""
+def long_backward_max_t() -> int:
+    """The longest T the long-sequence backward takes (binds the kernels)."""
+    if _bwd_long is None:
+        _bind()
+    return _long_max_t
+
+
+def backward_route(t: int, dh: int) -> str:
+    """'sweep' (the one-sweep kernel) where its shared memory holds a head of
+    length `t` at head width `dh`, else 'long' (the long-sequence path).
+    Asks the one-sweep kernel once per shape."""
     fits = _bwd_fits.get((t, dh))
     if fits is None:
         if _bwd is None:
             _bind()
         fits = _bwd_fits[(t, dh)] = _bwd_smem(t, dh) <= SMEM_LIMIT
-    if not fits:
-        raise _too_long("attention_bwd", _bwd_smem, t, dh)
+    return "sweep" if fits else "long"
+
+
+def _check_backward_fits(t: int, dh: int) -> None:
+    """Raises now if no backward path takes (T, dh), not in the middle of a
+    backward pass: a head width the kernels do not have, or a T beyond the
+    long path's."""
+    if dh not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"the attention kernels take head widths {KERNEL_HEAD_DIMS}; "
+                         f"got dh={dh}")
+    if t > long_backward_max_t():
+        raise ValueError(f"attention backward: T={t} is beyond the long-sequence path's "
+                         f"limit of T={_long_max_t}")
 
 
 def _strides(named, bias, dev, also=()) -> list:
@@ -346,7 +382,9 @@ def _launch_forward(q, k, v, bias, seed, heads: int, rate: float, stats: bool):
 
 
 def _launch_backward(q, k, v, bias, out, row_max, row_inv_sum, dout,
-                     seed, heads: int, rate: float):
+                     seed, heads: int, rate: float, path=None):
+    """(dq, dk, dv) from one launch of the backward path `path` ('sweep' or
+    'long'; None: `backward_route`'s) on checked CUDA tensors."""
     if _bwd is None:
         _bind()
     bsz, t, d = q.shape
@@ -364,12 +402,26 @@ def _launch_backward(q, k, v, bias, out, row_max, row_inv_sum, dout,
                        dev, (("row_max", row_max), ("row_inv_sum", row_inv_sum)))
     dq, dk, dv = (q.new_empty((bsz, t, d)) for _ in range(3))
     fields, _seed_alive = _dropout_fields(seed, rate, dev)
-    err = _bwd(_PACK_BWD(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(),
-        dout.data_ptr(), row_max.data_ptr(), row_inv_sum.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        bsz, t, d, heads, *strides, *fields,
-        1.0 / math.sqrt(d // heads), 1.0 / (1.0 - rate)))
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), row_max.data_ptr(), row_inv_sum.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            bsz, t, d, heads, *strides, *fields,
+            1.0 / math.sqrt(d // heads), 1.0 / (1.0 - rate))
+    if path is None:
+        path = backward_route(t, d // heads)
+    if path == "long":
+        dsum = q.new_empty((bsz, heads, t))  # D_i, from the dQ kernel to the dK/dV kernel
+        err = _bwd_long(_PACK_BWD_LONG(*args, dsum.data_ptr()))
+        if err == _TOO_LONG:
+            raise ValueError(f"attention_bwd_long: T={t} is beyond its limit of "
+                             f"T={_long_max_t} (or B*heads beyond 2^31 - 1)")
+        if err:
+            _raise(err, "attention_bwd_long", _bwd_smem, t, d, heads)
+        fused_attention.long_backward_launches += 1
+        return dq, dk, dv
+    if path != "sweep":
+        raise ValueError(f"the backward path is 'sweep' or 'long'; got {path!r}")
+    err = _bwd(_PACK_BWD(*args))
     if err:
         _raise(err, "attention_bwd", _bwd_smem, t, d, heads)
     fused_attention.backward_launches += 1
@@ -386,15 +438,17 @@ def _device_route(q, name: str) -> bool:
 
 
 def attention_backward(q, k, v, bias, out, row_max, row_inv_sum, dout,
-                       seed, heads: int, rate: float):
+                       seed, heads: int, rate: float, path=None):
     """(dq, dk, dv) for the output gradient `dout`, from the forward's `out`
-    and row statistics: the backward kernel on CUDA tensors (or an error),
-    `attention_bwd_plain` on CPU tensors."""
+    and row statistics: a backward kernel on CUDA tensors (or an error),
+    `attention_bwd_plain` on CPU tensors. `path` ('sweep' or 'long') asks
+    for one CUDA path; None takes `backward_route`'s."""
     if not _device_route(q, "attention_backward"):
         return attention_bwd_plain(q, k, v, bias, out, row_max, row_inv_sum, dout,
                                    seed, heads, rate)
     _check_inputs(q, k, v, bias, heads, rate)
-    return _launch_backward(q, k, v, bias, out, row_max, row_inv_sum, dout, seed, heads, rate)
+    return _launch_backward(q, k, v, bias, out, row_max, row_inv_sum, dout, seed, heads,
+                            rate, path)
 
 
 class _FusedAttention(torch.autograd.Function):
@@ -443,4 +497,5 @@ def fused_attention(
 
 
 fused_attention.launches = 0  # forward kernel launches since the last reset
-fused_attention.backward_launches = 0  # backward kernel launches
+fused_attention.backward_launches = 0  # one-sweep backward kernel launches
+fused_attention.long_backward_launches = 0  # long-sequence backward calls (two kernels each)

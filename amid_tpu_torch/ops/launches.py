@@ -20,6 +20,7 @@ def counters() -> dict:
 
     return {"attention_fwd": (fused_attention, "launches"),
             "attention_bwd": (fused_attention, "backward_launches"),
+            "attention_bwd_long": (fused_attention, "long_backward_launches"),
             "scatter_set_unique3": (scatter_set_unique3, "launches"),
             "scatter_set_unique": (scatter_set_unique, "launches"),
             "embedding_gather": (embedding_gather, "launches"),

@@ -7,10 +7,10 @@ them in `amid_tpu/ops/torch_compat.py`.
 * Hand-rolled LayerNorm (model_seq.py:115-127): unbiased std, eps on the std.
 * torch nn.LayerNorm (model_seq.py:342): biased variance, eps inside the rsqrt.
 * tanh-approx GELU (model_seq.py:198-204).
+* torch nn.GRU's gate order (r, z, n) and init, one layer (model_seq.py:72-73).
 
 Every init takes an explicit `torch.Generator` on the parameter's device, so
-a model built from a seed is the same on every run. `TorchGRU` waits for the
-GRU4Rec backbone.
+a model built from a seed is the same on every run.
 """
 
 from __future__ import annotations
@@ -71,3 +71,53 @@ class RefLayerNorm(nn.Module):
 def tanh_gelu(x: torch.Tensor) -> torch.Tensor:
     """tanh-approx GELU (model_seq.py:198-204)."""
     return F.gelu(x, approximate="tanh")
+
+
+class TorchGRU(nn.Module):
+    """Single-layer GRU with torch's gate convention and init, zero initial
+    state — the counterpart of `amid_tpu/ops/torch_compat.py::TorchGRU` (a
+    `lax.scan` there, a loop over time here; no kernel on either side):
+
+        r = sig(x W_ir + b_ir + h W_hr + b_hr)
+        z = sig(x W_iz + b_iz + h W_hz + b_hz)
+        n = tanh(x W_in + b_in + r * (h W_hn + b_hn))
+        h' = (1 - z) * n + z * h
+
+    The weights keep the JAX package's layout, `w_ih` [D, 3H] and `w_hh`
+    [H, 3H] with the gates side by side in (r, z, n) order (torch's nn.GRU
+    stores the transpose), so the converter copies them as they are. The
+    input projection of every step is one product before the loop; a step is
+    one product and four fused elementwise kernels (a CUDA graph of a
+    training step holds them all). The steps' inputs come from one `unbind`
+    and the gates from `split`/`chunk`, whose backwards each write one
+    tensor: indexing `x_proj[:, t]` would give every step's backward a
+    zero-filled [B, T, 3H] gradient to add up, T^2 work. All four tensors
+    start from U(+-1/sqrt(H))."""
+
+    def __init__(self, d: int, hidden: int):
+        super().__init__()
+        self.hidden = hidden
+        self.w_ih = nn.Parameter(torch.empty(d, 3 * hidden))
+        self.w_hh = nn.Parameter(torch.empty(hidden, 3 * hidden))
+        self.b_ih = nn.Parameter(torch.empty(3 * hidden))
+        self.b_hh = nn.Parameter(torch.empty(3 * hidden))
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        bound = 1.0 / math.sqrt(self.hidden)
+        for w in (self.w_ih, self.w_hh, self.b_ih, self.b_hh):
+            uniform_(w, bound, gen)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:  # [B, T, D] -> [B, T, H]
+        hd = self.hidden
+        x_proj = torch.matmul(x, self.w_ih) + self.b_ih  # [B, T, 3H]
+        h = x.new_zeros((x.shape[0], hd))
+        out = []
+        for xp in x_proj.unbind(1):
+            hp = torch.addmm(self.b_hh, h, self.w_hh)  # [B, 3H]
+            x_rz, x_n = xp.split([2 * hd, hd], dim=1)
+            h_rz, h_n = hp.split([2 * hd, hd], dim=1)
+            r, z = torch.sigmoid(x_rz + h_rz).chunk(2, dim=1)
+            n = torch.tanh(torch.addcmul(x_n, r, h_n))
+            h = torch.lerp(n, h, z)  # (1 - z) * n + z * h
+            out.append(h)
+        return torch.stack(out, dim=1)

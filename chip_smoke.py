@@ -8,8 +8,8 @@ JAX package. Phases, in order (any failure ends the run with a non-zero exit
 code and no result line):
 
 1. the card's name and power limit; build every CUDA kernel of the serving
-   and training paths from `amid_tpu_torch/csrc/` (six sources, one `nvcc`
-   each, all started together), timing the build;
+   and training paths from `amid_tpu_torch/csrc/` (seven sources, one
+   `nvcc` each, all started together), timing the build;
 2. kernels: each kernel against its plain PyTorch version on the card, at
    the main paths' shapes, with its time beside the plain version's, one
    PyTorch library call's (a yardstick the port never calls) and the card's
@@ -25,10 +25,16 @@ code and no result line):
    row statistics the forward writes under autograd against the plain
    version's; the dropout mask read out and compared element for element
    (library: `scaled_dot_product_attention`, with the same dropout rate).
+   BERT4Rec's key-padding shapes at T=300 and T=600 (4 heads of 32).
    Attention backward: dq, dk, dv at the same cases from the plain
    forward's residuals (out, row max, 1 / row sum), the fully masked row
    included, each computed twice and required bit-equal (library: the
-   backward of `scaled_dot_product_attention` through autograd). The two
+   backward of `scaled_dot_product_attention` through autograd); the
+   long-sequence path at BERT4Rec's B=256, h=4, dh=32, T=600 with a fully
+   masked row, at rate 0 and 0.1; both paths at T=300 (dh=32) and T=150
+   (dh=16), where both take the shape (`bwd_crossover` records: the
+   numbers behind `backward_route`, which sends a shape to the long path
+   only where the one-sweep kernel cannot hold it). The two
    attention bounds take the TF32 tensor-core peak (the kernels' products
    are 3xTF32). Unique-row scatters, fused (three arrays) and single: V=894,820,
    D=128, U=11,264 and 77,824 with a sentinel tail and rows 0 and V-1, bit
@@ -100,7 +106,20 @@ code and no result line):
 6. gate flips at trained weights: `run_seed` in pairwise mode for 3 epochs
    (fast loops) at T=20 and T=150, then the InterComp gates of the trained
    model from the kernels' bf16 affinity against those of the fp32
-   affinity, counted at ts2=0.4 and at an opened threshold (information).
+   affinity, counted at ts2=0.4 and at an opened threshold (information);
+7. the BERT4Rec and GRU4Rec backbones: the run.sh model with `--model`
+   swapped (BERT4Rec: 2 blocks of 4 heads, FFN 512, dropout 0.1, the d2-mask
+   quirk; GRU4Rec: hidden width 128). Serving at T=150 (top-100 against the
+   dense oracle) and T=20 against a `kernels='torch'` model, user 0's
+   domain-2 history all id 0 (BERT4Rec masks every key of its rows), and
+   BERT4Rec in pairwise mode at T=150 (gates from K6); `run_seed` for one
+   epoch of the DR schedule on the fast loops at T=20 (lazy Adam) and T=150
+   (dense), with its launches against `expected_launches`, then phase 4's
+   step-level checks, replayed steps against eager ones and step timings;
+   BERT4Rec's pairwise step checks at T=150; BERT4Rec with InnerComp and
+   InterComp at T=150, whose encoder sees T=600: one epoch of `run_seed`
+   (its backward on the long path) and one phase-A step and one evaluation
+   batch against the `kernels='torch'` model.
 
 It prints a JSON line of per-kernel numbers, the `nvidia-smi` name and power
 line, and last `{"ok": true, "device": {...}}`.
@@ -125,7 +144,11 @@ TF32_TENSOR_FLOPS = 495e12  # dense TF32 on the tensor cores (the attention kern
 BF16_TENSOR_FLOPS = 989e12  # dense bf16 on the tensor cores
 
 ATOL, RTOL = 1e-5, 1e-4  # forward kernel vs plain, fp32
-BWD_ATOL = 2e-5  # backward: dk, dv sum products over up to 150 queries
+# backward: dk and dv of a key sum one term a query; in a row with few kept
+# keys each term carries the cancellation of dP - D (3xTF32 products against
+# an fp32 row sum), so the error grows with the queries summed: 2e-5 up to
+# T=150, BWD_ATOL * T / 150 beyond (bwd_atol)
+BWD_ATOL = 2e-5
 # forward's row max and 1 / row sum vs plain: 1e-6 relative, and 1e-6 absolute
 # for a max near 0 (the scores themselves agree to about 5e-7)
 STATS_ATOL, STATS_RTOL = 1e-6, 1e-6
@@ -147,6 +170,8 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
                       "amid_tpu/ops/pallas_attention.py:99"),
     "attention_bwd": ("amid_tpu_torch/csrc/attention_bwd.cu",
                       "amid_tpu/ops/pallas_attention.py:118"),
+    "attention_bwd_long": ("amid_tpu_torch/csrc/attention_bwd_long.cu",
+                           "amid_tpu/ops/pallas_attention.py:118"),
     "scatter_set_unique3": ("amid_tpu_torch/csrc/scatter_rows.cu",
                             "amid_tpu/ops/pallas_scatter.py:68"),
     "scatter_set_unique": ("amid_tpu_torch/csrc/scatter_rows.cu",
@@ -179,6 +204,11 @@ FLIP_EPOCHS = 3  # phase 6: epochs of training before the gates are counted
 
 class SmokeFailure(RuntimeError):
     pass
+
+
+def bwd_atol(t: int) -> float:
+    """The backward's absolute tolerance at sequence length t (BWD_ATOL)."""
+    return BWD_ATOL * max(1.0, t / 150)
 
 
 def require(cond: bool, msg: str) -> None:
@@ -312,30 +342,47 @@ def affinity_bound(b, c, n, m, d):
 
 
 
-def expected_launches(t, pairwise, train_steps=0, eval_batches=0, feature_passes=0,
+def expected_launches(cfg, train_steps=0, eval_batches=0, feature_passes=0,
                       lazy_adam=False, fused_scatter=True):
-    """Kernel launches of the `run.sh` model (InterComp, DR heads, 2 blocks,
-    2 towers) with kernels='cuda': per forward 4 attention launches, 2 gathers
-    (both sequences in one launch, target and negatives in another; 1 on a
-    features-only pass), 1 scoring launch per head (3 heads: both user
-    representations in one launch), and
-    in pairwise mode 2 affinity launches (the small-N kernel where
-    `smalln_faster(T)`, else the blocked one); per train step the backward's
-    4 attention launches and, on the lazy path, the table write-back."""
+    """Kernel launches of a kernels='cuda' model of `cfg` (two towers): per
+    forward the attention forward once a block and tower (SASRec and
+    BERT4Rec: 4; GRU4Rec: none), 2 gathers (both sequences in one launch,
+    target and negatives in another; 1 on a features-only pass), 1 scoring
+    launch per head (both user representations in one launch; 3 heads with
+    DR), and in pairwise mode 2 affinity launches per comp module pair
+    (InnerComp at T, InterComp at the length it sees; the small-N kernel
+    where `smalln_faster(N)`, else the blocked one); per train step the
+    backward once a block and tower, on the path `backward_route` takes at
+    the encoder's length and head width (the one-sweep kernel or the long
+    path), and on the lazy path the table write-back."""
     from amid_tpu_torch.ops.affinity import smalln_faster
+    from amid_tpu_torch.ops.attention import backward_route
 
+    t = cfg.seq_len
+    if cfg.backbone == "gru4rec":
+        blocks = 0
+    elif cfg.backbone == "bert4rec":  # InterComp runs before the encoder
+        blocks, dh = cfg.bert_blocks, cfg.emb_dim // cfg.bert_heads
+        enc_t = t * (2 if cfg.is_inc else 1) * (2 if cfg.is_itc else 1)
+    else:
+        blocks, dh, enc_t = cfg.sasrec_blocks, cfg.emb_dim // cfg.sasrec_heads, cfg.enc_seq_len
+    long = blocks > 0 and backward_route(enc_t, dh) == "long"
+    comp_lengths = [t] * cfg.is_inc + [t * (2 if cfg.is_inc else 1)] * cfg.is_itc
+    pairwise = not cfg.comp_broadcast_quirk
+    passes = train_steps + eval_batches + feature_passes
+    smalln = 2 * sum(smalln_faster(n) for n in comp_lengths) if pairwise else 0
+    blocked = 2 * len(comp_lengths) - smalln if pairwise else 0
     forwards = train_steps + eval_batches
-    smalln = smalln_faster(t)
-    affinity = 2 * (forwards + feature_passes) if pairwise else 0
     scatters = train_steps if lazy_adam else 0
-    return {"attention_fwd": 4 * (forwards + feature_passes),
-            "attention_bwd": 4 * train_steps,
+    return {"attention_fwd": 2 * blocks * passes,
+            "attention_bwd": 0 if long else 2 * blocks * train_steps,
+            "attention_bwd_long": 2 * blocks * train_steps if long else 0,
             "scatter_set_unique3": scatters if fused_scatter else 0,
             "scatter_set_unique": 0 if fused_scatter else 3 * scatters,
             "embedding_gather": 2 * forwards + feature_passes,
-            "scoring_head": 3 * forwards,
-            "max_affinity_blocked": 0 if smalln else affinity,
-            "max_affinity_smalln": affinity if smalln else 0}
+            "scoring_head": (3 if cfg.is_dr else 1) * forwards,
+            "max_affinity_blocked": blocked * passes,
+            "max_affinity_smalln": smalln * passes}
 
 
 def reset_counts() -> None:
@@ -434,6 +481,12 @@ def kernel_phase(torch, gen):
     want_row = v[0].mean(dim=0, keepdim=True).expand(t, D)
     require(torch.allclose(got[0], want_row, atol=ATOL, rtol=RTOL),
             "fully masked row is not the uniform average of v")
+    # BERT4Rec's encoder lengths at amazon's T=150: 300 (InterComp), 600
+    # (InnerComp and InterComp); the same key padding, row 0 fully masked
+    for t in (300, 600):
+        q, k, v = qkv(B, t, D)
+        cases[f"keypad_T{t}"] = compare(f"keypad_T{t}_h4", q, k, v, keypad_bias(torch, gen, B, t),
+                                        4)
 
     # dropout at rate 0.5 (training's rate), with the seed as training passes
     # it (a one-element int64 tensor on the card, read by the kernel through
@@ -464,40 +517,55 @@ def kernel_phase(torch, gen):
     return cases
 
 
+def keypad_bias(torch, gen, b, t):
+    """A key-padding bias [B, 1, 1, T] of random lengths 1..T, left padded,
+    with batch row 0's every key masked (m = -1e9 and P = 1/T there)."""
+    lens = torch.randint(1, t + 1, (b,), device="cuda", generator=gen)
+    key_ok = torch.arange(t, device="cuda")[None, :] >= (t - lens[:, None])
+    key_ok[0] = False
+    return torch.where(key_ok, 0.0, -1e9)[:, None, None, :]
+
+
 def backward_kernel_phase(torch, gen):
+    """The backward paths against the plain version: the one-sweep kernel at
+    SASRec's shapes and a key-padding case; the long-sequence path at
+    BERT4Rec's T=600 (h=4, dh=32; rate 0 and training's 0.1); then both paths
+    at shapes both take (`bwd_crossover`), the numbers behind
+    `backward_route`."""
     import torch.nn.functional as F
 
     from amid_tpu_torch.ops.attention import (
-        attention_backward, attention_bwd_plain, attention_fwd_stats_plain,
+        attention_backward, attention_bwd_plain, attention_fwd_stats_plain, backward_route,
     )
 
     def causal(t):
         return torch.triu(torch.full((t, t), -1e9, device="cuda"), diagonal=1)[None, None]
 
-    def compare(name, b, t, d, bias, heads, seed=0, rate=0.0, timed=True):
+    def compare(name, b, t, d, bias, heads, seed=0, rate=0.0, timed=True, path=None):
         q, k, v, dout = (torch.randn(b, t, d, device="cuda", generator=gen)
                          for _ in range(4))
         # the residuals (out and the row statistics) of the plain forward, for both
         res = attention_fwd_stats_plain(q, k, v, bias, seed, heads, rate)
-        got = attention_backward(q, k, v, bias, *res, dout, seed, heads, rate)
+        got = attention_backward(q, k, v, bias, *res, dout, seed, heads, rate, path)
         want = attention_bwd_plain(q, k, v, bias, *res, dout, seed, heads, rate)
-        again = attention_backward(q, k, v, bias, *res, dout, seed, heads, rate)
+        again = attention_backward(q, k, v, bias, *res, dout, seed, heads, rate, path)
         require(all(torch.equal(x, y) for x, y in zip(got, again)),
                 f"{name}: two backward calls differ")
         torch.cuda.synchronize()
         errs = {n: (g - w).abs().max().item() for n, g, w in zip(("dq", "dk", "dv"), got, want)}
         for n, g, w in zip(errs, got, want):
             require(torch.isfinite(g).all().item(), f"{name}: non-finite {n}")
-            require(torch.allclose(g, w, atol=BWD_ATOL, rtol=RTOL),
+            require(torch.allclose(g, w, atol=bwd_atol(t), rtol=RTOL),
                     f"{name}: kernel vs plain {n} max_abs_err {errs[n]}")
         rec = {"case": name, "shape": [b, t, d], "bias": list(bias.shape), "heads": heads,
-               "rate": rate, "max_abs_err": max(errs.values()), "errs": errs}
+               "rate": rate, "path": path or backward_route(t, d // heads),
+               "max_abs_err": max(errs.values()), "errs": errs}
         if timed:
             dh = d // heads
             rec.update(timings(torch, lambda: attention_backward(
-                q, k, v, bias, *res, dout, seed, heads, rate), 20))
+                q, k, v, bias, *res, dout, seed, heads, rate, path), 20))
             rec["plain_ms"] = cuda_ms(torch, lambda: attention_bwd_plain(
-                q, k, v, bias, *res, dout, seed, heads, rate), 10)
+                q, k, v, bias, *res, dout, seed, heads, rate), *((10, 3) if t <= 300 else (3, 1)))
 
             def split(x):
                 return x.view(b, t, heads, dh).transpose(1, 2)
@@ -529,16 +597,28 @@ def backward_kernel_phase(torch, gen):
     cases = {t: compare(f"bwd_causal_T{t}_h8", B, t, D, causal(t), 8) for t in (150, 20)}
     # key padding, 4 heads of width 32, batch row 0 with every key masked
     # (m = -1e9 and P = 1/T on that row)
-    t = 150
-    lens = torch.randint(1, t + 1, (B,), device="cuda", generator=gen)
-    key_ok = torch.arange(t, device="cuda")[None, :] >= (t - lens[:, None])
-    key_ok[0] = False
-    bias = torch.where(key_ok, 0.0, -1e9)[:, None, None, :]
-    cases["keypad"] = compare("bwd_keypad_T150_h4", B, t, D, bias, 4)
+    cases["keypad"] = compare("bwd_keypad_T150_h4", B, 150, D, keypad_bias(torch, gen, B, 150), 4)
     step_seed = torch.tensor([1234], dtype=torch.int64, device="cuda")
     for t in (150, 20):  # training's rate and seed
         cases[f"rate0.5_T{t}"] = compare(f"bwd_causal_T{t}_h8_rate0.5", B, t, D, causal(t), 8,
                                          seed=step_seed, rate=0.5)
+    # the long path at BERT4Rec's T=600, which no other path takes
+    bias = keypad_bias(torch, gen, B, 600)
+    require(backward_route(600, 32) == "long", "T=600, dh=32 does not take the long path")
+    cases["long_T600"] = compare("bwd_long_keypad_T600_h4", B, 600, D, bias, 4)
+    cases["long_T600_rate0.1"] = compare("bwd_long_keypad_T600_h4_rate0.1", B, 600, D, bias, 4,
+                                         seed=step_seed, rate=0.1)
+    # both paths where both take the shape: BERT4Rec's T=300 (dh=32) and
+    # SASRec's T=150 (dh=16)
+    for t, heads in ((300, 4), (150, 8)):
+        bias = keypad_bias(torch, gen, B, t)
+        both = {p: compare(f"bwd_{p}_keypad_T{t}_h{heads}", B, t, D, bias, heads, path=p)
+                for p in ("sweep", "long")}
+        for p, c in both.items():
+            cases[f"{p}_T{t}_h{heads}"] = c
+        emit({"bwd_crossover": {
+            "T": t, "dh": D // heads, "route": backward_route(t, D // heads),
+            **{f"{p}_{k}": c[k] for p, c in both.items() for k in ("device_ms", "kernel_ms")}}})
     return cases
 
 
@@ -854,15 +934,37 @@ GATED = ("itc_d1", "itc_d2")  # the InterComp modules of the run.sh model
 
 
 def opened_threshold(probs):
-    """A gate threshold at which between 5% and 95% of `probs` (softmax
-    values over 256 peers) are open: the uniform share 1/256, divided by 4
-    until enough gates open."""
+    """(threshold, reachable): a gate threshold at which between 5% and 95%
+    of `probs` (softmax values over 256 peers) are open, and whether one
+    exists. First the uniform share 1/256, divided by 4 until enough gates
+    open; failing that, the midpoint between neighbouring distinct values
+    whose share of open gates is inside, the widest relative gap first, so
+    that no probability lies near the threshold. Where ties leave no share
+    inside (BERT4Rec's InterComp sees the raw embeddings, where every
+    left-padded user's affinity is the pad row's own product, |e_pad|^2),
+    the midpoint whose share lies nearest 1/2."""
     thr = 1.0 / probs.shape[-1]
     for _ in range(16):
         if OPEN_SHARE[0] <= (probs > thr).float().mean().item() <= OPEN_SHARE[1]:
-            break
+            return thr, True
         thr /= 4.0
-    return thr
+    flat = probs.flatten().double().sort().values
+    s = flat.unique()
+    require(s.numel() > 1, "every gate probability is the same: no threshold opens some")
+    mids = (s[:-1] + s[1:]) / 2
+    share = 1.0 - torch_searchsorted_share(flat, mids)
+    gap = (s[1:] - s[:-1]) / s[1:]
+    inside = (share >= OPEN_SHARE[0]) & (share <= OPEN_SHARE[1])
+    if bool(inside.any()):
+        return float(mids[int(gap.where(inside, -1.0).argmax())]), True
+    return float(mids[int((share - 0.5).abs().argmin())]), False
+
+
+def torch_searchsorted_share(sorted_flat, values):
+    """The share of `sorted_flat` at or below each of `values`."""
+    import torch
+
+    return torch.searchsorted(sorted_flat, values, right=True).double() / sorted_flat.numel()
 
 
 def as_plain_reference(ref):
@@ -927,18 +1029,23 @@ def feature_check(torch, model, ref, batch, label):
 
     feats, counts, ref_inputs, _ = compare(label)
 
-    # InterComp is the last stage before the pooling, so its inputs do not
-    # depend on its threshold: choose the opened threshold from the plain
-    # model's probabilities, set it on both models, and compare again.
+    # InterComp's inputs do not depend on its threshold: choose the opened
+    # threshold from the plain model's probabilities, set it on both models,
+    # and compare again. Where ties leave no share between 5% and 95%, some
+    # gates must still be open and some closed.
     configured = {n: getattr(ref, n).message.threshold for n in GATED}
     probs = {n: getattr(ref, n).message.gate_probabilities(*ref_inputs[n]) for n in GATED}
     try:
+        reachable = {}
         for n in GATED:
-            thr = opened_threshold(probs[n])
+            thr, reachable[n] = opened_threshold(probs[n])
             getattr(model, n).message.threshold = getattr(ref, n).message.threshold = thr
         _, _, _, shares = compare(f"{label}_opened")
         for n, share in shares.items():
-            require(OPEN_SHARE[0] <= share <= OPEN_SHARE[1],
+            if not reachable[n]:
+                emit({"opened_threshold_tied": {"pass": f"{label}_opened", "module": n,
+                                                "open_share": share}})
+            require(OPEN_SHARE[0] <= share <= OPEN_SHARE[1] if reachable[n] else 0 < share < 1,
                     f"{label}: open share {share} of {n} at the opened threshold")
         if not model.cfg.comp_broadcast_quirk:
             # information only: the numerics change of bf16 inputs, seen as
@@ -965,53 +1072,66 @@ def dense_topk(torch, u, table, head, k):
     return scores, torch.topk(scores, k, dim=1).values
 
 
-def main_path_phase(torch, rng):
-    from amid_tpu_torch.config import ModelConfig
+def serve_check(torch, cfg, batch, label, topk=False):
+    """One serving configuration on the card: `serve.user_representations`
+    of a kernels='cuda' model against a kernels='torch' model from the same
+    weights (`feature_check`; in pairwise mode the plain model's affinity is
+    `max_affinity_plain`), its launches, and with `topk`
+    `serve.full_catalog_topk` at k=100 for both domains over the whole
+    table against a dense oracle for 8 users."""
     from amid_tpu_torch.models.amid import build_model
     from amid_tpu_torch.serve import full_catalog_topk, user_representations
+
+    model = build_model(cfg, seed=0)  # default device: cuda
+    require(model.cfg.kernels == "cuda", f"kernels resolved to {model.cfg.kernels}")
+    ref = build_model(dataclasses.replace(cfg, kernels="torch"), device="cuda")
+    ref.load_state_dict(model.state_dict())
+    if not cfg.comp_broadcast_quirk:
+        as_plain_reference(ref)
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
+    (u_d1, u_d2), counts = feature_check(torch, model, ref, batch, label)
+    want = expected_launches(model.cfg, feature_passes=1)
+    require(counts == want, f"{label}: feature pass launches {counts}, want {want}")
+    rec = {"backbone": cfg.backbone, "T": cfg.seq_len, "pairwise": not cfg.comp_broadcast_quirk,
+           "launches": counts,
+           "feature_ms": cuda_ms(torch, lambda: user_representations(model, batch), 10)}
+    if topk:
+        table = model.item_embedding.detach()
+        head = model.predict.state_dict()
+        k = 100
+        for dom, u in (("d1", u_d1), ("d2", u_d2)):
+            scores, ids = full_catalog_topk(u, table, head, k=k)
+            require(tuple(scores.shape) == (cfg.batch_size, k), f"{label} {dom}: top-k shape")
+            require(torch.isfinite(scores).all().item(), f"{label} {dom}: non-finite top-k")
+            require(bool((ids >= 0).all() and (ids < table.shape[0]).all()),
+                    f"{label} {dom}: item id out of range")
+            dense, want_k = dense_topk(torch, u[:8], table, head, k)
+            require(torch.allclose(scores[:8], want_k, rtol=TOPK_RTOL, atol=TOPK_ATOL),
+                    f"{label} {dom}: top-k scores differ from the dense oracle")
+            # ids may differ from the oracle's only where scores tie
+            require(torch.allclose(torch.gather(dense, 1, ids[:8]), want_k,
+                                   rtol=TOPK_RTOL, atol=TOPK_ATOL),
+                    f"{label} {dom}: top-k ids are not the dense oracle's")
+        rec["catalog_rows"] = table.shape[0]
+        rec["catalog_ms_per_domain"] = cuda_ms(
+            torch, lambda: full_catalog_topk(u_d1, table, head, k=k), 5)
+        rec["topk_vs_dense_oracle"] = "match (8 users, both domains)"
+    emit({"main_path": {"config": label, **rec}})
+    del model, ref
+    torch.cuda.empty_cache()
+    return rec
+
+
+def main_path_phase(torch, rng):
+    from amid_tpu_torch.config import ModelConfig
 
     results = {}
     cfg = ModelConfig(**FLAGSHIP)
     for t, pairwise in ((150, False), (20, False), (20, True), (150, True)):
         label = f"T{t}_pairwise" if pairwise else f"T{t}"
         cfg_t = dataclasses.replace(cfg, seq_len=t, comp_broadcast_quirk=not pairwise)
-        model = build_model(cfg_t, seed=0)  # default device: cuda
-        require(model.cfg.kernels == "cuda", f"kernels resolved to {model.cfg.kernels}")
-        ref = build_model(dataclasses.replace(cfg_t, kernels="torch"), device="cuda")
-        ref.load_state_dict(model.state_dict())
-        if pairwise:
-            as_plain_reference(ref)
-        batch = {k: torch.as_tensor(v, device="cuda") for k, v in make_batch(cfg_t, rng).items()}
-        (u_d1, u_d2), counts = feature_check(torch, model, ref, batch, label)
-        want = expected_launches(t, pairwise, feature_passes=1)
-        require(counts == want, f"{label}: feature pass launches {counts}, want {want}")
-        rec = {"T": t, "pairwise": pairwise, "launches": counts,
-               "feature_ms": cuda_ms(torch, lambda: user_representations(model, batch), 10)}
-        if t == 150 and not pairwise:
-            table = model.item_embedding.detach()
-            head = model.predict.state_dict()
-            k = 100
-            for dom, u in (("d1", u_d1), ("d2", u_d2)):
-                scores, ids = full_catalog_topk(u, table, head, k=k)
-                require(tuple(scores.shape) == (cfg.batch_size, k), f"{dom}: top-k shape")
-                require(torch.isfinite(scores).all().item(), f"{dom}: non-finite top-k")
-                require(bool((ids >= 0).all() and (ids < table.shape[0]).all()),
-                        f"{dom}: item id out of range")
-                dense, want_k = dense_topk(torch, u[:8], table, head, k)
-                require(torch.allclose(scores[:8], want_k, rtol=TOPK_RTOL, atol=TOPK_ATOL),
-                        f"{dom}: top-k scores differ from the dense oracle")
-                # ids may differ from the oracle's only where scores tie
-                require(torch.allclose(torch.gather(dense, 1, ids[:8]), want_k,
-                                       rtol=TOPK_RTOL, atol=TOPK_ATOL),
-                        f"{dom}: top-k ids are not the dense oracle's")
-            rec["catalog_rows"] = table.shape[0]
-            rec["catalog_ms_per_domain"] = cuda_ms(
-                torch, lambda: full_catalog_topk(u_d1, table, head, k=k), 5)
-            rec["topk_vs_dense_oracle"] = "match (8 users, both domains)"
-        emit({"main_path": rec})
-        results[label] = rec
-        del model, ref
-        torch.cuda.empty_cache()
+        results[label] = serve_check(torch, cfg_t, make_batch(cfg_t, rng), label,
+                                     topk=t == 150 and not pairwise)
     return results
 
 
@@ -1048,7 +1168,11 @@ def make_steps(cfg, tcfg, kernels, fused_scatter=True):
     return model, state, step_a, step_b, steps.make_eval_step(model, tcfg.data.neg_nums)
 
 
-def moments_of(state, slot, lazy_adam, dense_name="enc_d1.attn.0.in_proj_weight"):
+DENSE_PARAM = {"sasrec": "enc_d1.attn.0.in_proj_weight",  # one encoder weight a backbone
+               "bert4rec": "enc_d1.block.0.q.weight", "gru4rec": "enc_d1.gru.w_hh"}
+
+
+def moments_of(state, slot, lazy_adam, dense_name):
     """The table's moments and one dense parameter's of optimizer `slot`."""
     opt = state.opt_state if slot == 1 else state.opt_state2
     if lazy_adam:
@@ -1072,7 +1196,7 @@ def step_checks(torch, cfg, tcfg, train_ds, val_ds, dr_ds, label):
     pairwise = not cfg.comp_broadcast_quirk
 
     def launches(**kw):
-        return expected_launches(cfg.seq_len, pairwise, lazy_adam=is_lazy, **kw)
+        return expected_launches(cfg, lazy_adam=is_lazy, **kw)
 
     def make(kernels, fused_scatter=True):
         return make_steps(cfg, tcfg, kernels, fused_scatter)
@@ -1087,7 +1211,7 @@ def step_checks(torch, cfg, tcfg, train_ds, val_ds, dr_ds, label):
                for name, ds in (("train", train_ds), ("val", val_ds), ("dr", dr_ds))}
     pools = {name: _device_pools(ds, "cuda")
              for name, ds in (("train", train_ds), ("val", val_ds), ("dr", dr_ds))}
-    dense_name = "enc_d1.attn.0.in_proj_weight"
+    dense_name = DENSE_PARAM[cfg.backbone]
     rec = {"config": label}
 
     def moments(st, slot):
@@ -1220,8 +1344,9 @@ def graph_checks(torch, cfg, tcfg, train_ds, val_ds, dr_ds, label):
                 diffs.append(max(abs(float(v) - float(m[k])) for k, v in m0.items()))
                 require(diffs[-1] <= LOSS_TOL,
                         f"{label} graph phase {phase} step {i}: replayed vs eager {m0} {m}")
-            rels = {k: rel_to_max(v, moments_of(est, slot, is_lazy)[k])
-                    for k, v in moments_of(gst, slot, is_lazy).items()}
+            dense_name = DENSE_PARAM[cfg.backbone]
+            rels = {k: rel_to_max(v, moments_of(est, slot, is_lazy, dense_name)[k])
+                    for k, v in moments_of(gst, slot, is_lazy, dense_name).items()}
             require(max(rels.values()) <= MOMENT_TOL,
                     f"{label} graph phase {phase}: moments differ from eager: {rels}")
             graph = pool.graphs[-1]
@@ -1253,10 +1378,11 @@ def graph_checks(torch, cfg, tcfg, train_ds, val_ds, dr_ds, label):
     return rec
 
 
-def step_timing(torch, cfg, tcfg, ds, label):
+def step_timing(torch, cfg, tcfg, ds, label, timed_steps=TIMED_STEPS):
     """Wall ms, device ms and the device's idle share per step kind, eager
     (the per-step loop's steps) and replayed (the fast loops' graphs), from
-    `profile_step.py`'s `step_kinds` and `measure` on a fresh model each."""
+    `profile_step.py`'s `step_kinds` and `measure` on a fresh model each,
+    over `timed_steps` steps (a replay chunk: 16)."""
     from amid_tpu_torch.profile_step import measure, step_kinds
     from amid_tpu_torch.train.graphs import GraphPool
 
@@ -1266,7 +1392,7 @@ def step_timing(torch, cfg, tcfg, ds, label):
         loop_name = "replayed" if fast else "eager"
         try:
             for kind, (fn, per_call) in step_kinds(cfg, tcfg, ds, fast, pool).items():
-                rec = measure(fn, per_call, -(-TIMED_STEPS // per_call), top=6)
+                rec = measure(fn, per_call, -(-timed_steps // per_call), top=6)
                 if rec["device_ms_per_step"] <= 0.0:  # the trace saw no kernel
                     rec.update(device_ms_per_step=None, device_idle_share=None,
                                note="device time not measured: the trace holds none")
@@ -1281,11 +1407,11 @@ def step_timing(torch, cfg, tcfg, ds, label):
     return out
 
 
-def check_run(label, t, pairwise, lazy_adam, counts, metrics, extra):
+def check_run(label, cfg, lazy_adam, counts, metrics, extra):
     """Launch counts and metrics of one whole run of the DR schedule (phase
     A, evaluation, phase B, evaluation)."""
     n_a, n_b, n_ev = (n // FLAGSHIP["batch_size"] for n in (TRAIN_ROWS, DR_ROWS, VAL_ROWS))
-    want = expected_launches(t, pairwise, train_steps=n_a + n_b, eval_batches=2 * n_ev,
+    want = expected_launches(cfg, train_steps=n_a + n_b, eval_batches=2 * n_ev,
                              lazy_adam=lazy_adam)
     require(counts == want, f"{label}: launches {counts}, want {want}")
     shown = ("hit_10_d1", "hit_10_d2", "ndcg_10_d1", "ndcg_10_d2", "mrr_d1", "mrr_d2")
@@ -1345,7 +1471,7 @@ def training_phase(torch, rng):
                         log_all = Path(model_dir, "log_all.txt").read_text()
                         require("turned off for this run: checkpoint (no checkpoints)" in log_all,
                                 f"{label}: the CLI did not log what it turned off")
-                        check_run(f"{label} CLI {name}", t, True, lazy_adam, counts[name],
+                        check_run(f"{label} CLI {name}", cfg, lazy_adam, counts[name],
                                   {k: v["mean"] for k, v in agg.items()},
                                   {"loop": name, "seconds": seconds})
                     train_ds, val_ds, dr_ds = (
@@ -1364,7 +1490,7 @@ def training_phase(torch, rng):
                         torch.cuda.synchronize()
                         seconds = time.perf_counter() - t0
                         counts[name] = read_counts()
-                        check_run(f"{label} run_seed {name}", t, False, lazy_adam, counts[name],
+                        check_run(f"{label} run_seed {name}", cfg, lazy_adam, counts[name],
                                   best, {"loop": name, "seconds": seconds,
                                          "examples_per_s": best["examples_per_s"]})
             finally:
@@ -1440,7 +1566,7 @@ def gate_flip_phase(torch, rng):
                 msg = getattr(model, n).message
                 bf16 = msg.gate_probabilities(*inputs[n])  # through K6 / K7
                 fp32 = torch.softmax(max_affinity_xla(*inputs[n]), dim=1)
-                for tag, thr in (("ts2", msg.threshold), ("opened", opened_threshold(fp32))):
+                for tag, thr in (("ts2", msg.threshold), ("opened", opened_threshold(fp32)[0])):
                     rec[f"{n}_{tag}"] = {
                         "threshold": thr, "gates": fp32.numel(),
                         "open_fp32": int((fp32 > thr).sum().item()),
@@ -1448,6 +1574,155 @@ def gate_flip_phase(torch, rng):
         emit({"gate_flips_trained": rec})
         out[t] = rec
         del model, trained
+        torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the BERT4Rec and GRU4Rec backbones at full width
+# ---------------------------------------------------------------------------
+
+BACKBONES = {  # the run.sh model with --model swapped (the JAX package's defaults)
+    "bert4rec": dict(backbone="bert4rec", bert_blocks=2, bert_heads=4, bert_ff_dim=512,
+                     bert_dropout=0.1, bert_d2_mask_quirk=True),
+    "gru4rec": dict(backbone="gru4rec"),
+}
+
+
+def backbone_batch(cfg, rng):
+    """`make_batch`'s users; user 0's domain-2 history is all id 0, so that
+    BERT4Rec's key mask (`seq_d2 > 0`, both towers under the d2-mask quirk)
+    masks every key of its rows."""
+    batch = make_batch(cfg, rng)
+    batch["seq_d2"][0] = 0
+    return batch
+
+
+def long_step_check(torch, cfg, tcfg, train_ds, val_ds, label):
+    """BERT4Rec with InnerComp and InterComp at T=150, whose encoder sees
+    T=600: one phase-A step and one evaluation batch of a kernels='cuda'
+    model (the backward on the long path) against a kernels='torch' model
+    from the same state, batch and key, with their launches."""
+    from amid_tpu_torch.data.loader import BatchIterator
+    from amid_tpu_torch.train.loop import _device_pools, _to_device
+
+    model, state, step_a, _, eval_step = make_steps(cfg, tcfg, "cuda")
+    ref, rstate, rstep_a, _, reval_step = make_steps(cfg, tcfg, "torch")
+    ref.load_state_dict(model.state_dict())
+    batch = _to_device(next(iter(BatchIterator(train_ds, cfg.batch_size, False))), "cuda")
+    vbatch = _to_device(next(iter(BatchIterator(val_ds, cfg.batch_size, False))), "cuda")
+    pools, vpools = _device_pools(train_ds, "cuda"), _device_pools(val_ds, "cuda")
+    reset_counts()
+    _, m = step_a(state, batch, *pools, 1234)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    _, rm = rstep_a(rstate, batch, *pools, 1234)
+    want = expected_launches(cfg, train_steps=1)
+    require(counts == want and counts["attention_bwd_long"] == 4,
+            f"{label} phase A: launches {counts}, want {want}")
+    for k, v in m.items():
+        require(math.isfinite(float(v)) and abs(float(v) - float(rm[k])) <= LOSS_TOL,
+                f"{label} phase A: {k} {float(v)} vs plain {float(rm[k])}")
+    dense_name = DENSE_PARAM[cfg.backbone]
+    rels = {k: rel_to_max(v, moments_of(rstate, 1, False, dense_name)[k])
+            for k, v in moments_of(state, 1, False, dense_name).items()}
+    require(max(rels.values()) <= MOMENT_TOL, f"{label} phase A: moments differ: {rels}")
+    reset_counts()
+    ev = eval_step(vbatch, *vpools, 99)
+    torch.cuda.synchronize()
+    ecounts = read_counts()
+    rev = reval_step(vbatch, *vpools, 99)
+    require(ecounts == expected_launches(cfg, eval_batches=1), f"{label} eval: {ecounts}")
+    require(abs(float(ev["loss_cls"]) - float(rev["loss_cls"])) <= LOSS_TOL,
+            f"{label} eval: loss {float(ev['loss_cls'])} vs plain {float(rev['loss_cls'])}")
+    rec = {"config": label, "encoder_T": 4 * cfg.seq_len, "phase_A": {
+        "launches": counts, "losses": {k: float(v) for k, v in m.items()},
+        "moment_rel_err": rels}, "eval": {
+        "launches": ecounts, "loss_cls": float(ev["loss_cls"]),
+        "ranks_equal_share": (ev["ranks_fixed"] == rev["ranks_fixed"]).float().mean().item()},
+        "phase_a_ms": cuda_ms(torch, lambda: step_a(state, batch, *pools, 7), 4, 1),
+        "eval_batch_ms": cuda_ms(torch, lambda: eval_step(vbatch, *vpools, 7), 4, 1)}
+    emit({"train_steps": rec})
+    del model, ref, state, rstate
+    torch.cuda.empty_cache()
+    return rec
+
+
+def backbone_phase(torch, rng):
+    """Phase 7. For BERT4Rec and GRU4Rec at the run.sh width: serving at
+    T=150 (with the catalog top-k) and T=20; `run_seed` for one epoch of the
+    DR schedule on the fast loops at T=20 (lazy Adam) and T=150 (dense), with
+    its launches, then the step-level checks against a kernels='torch'
+    model, replayed steps against eager ones and the step timings; BERT4Rec
+    in pairwise mode at T=150 (gates from K6), served and stepped; and
+    BERT4Rec with InnerComp and InterComp at T=150 (encoder T=600: the long
+    backward path), one epoch of `run_seed` and the step-level check."""
+    import shutil
+    import tempfile
+
+    from amid_tpu_torch.config import DataConfig, ModelConfig, TrainConfig
+    from amid_tpu_torch.data.synthetic import synth_packed
+    from amid_tpu_torch.train.loop import run_seed
+
+    out = {}
+
+    def config(name, t, **kw):
+        return ModelConfig(**{**FLAGSHIP, **BACKBONES[name], "seq_len": t, **kw})
+
+    for name in BACKBONES:
+        for t in (150, 20):
+            cfg = config(name, t)
+            out[f"serve_{name}_T{t}"] = serve_check(
+                torch, cfg, backbone_batch(cfg, rng), f"{name}_T{t}", topk=t == 150)
+    cfg = config("bert4rec", 150, comp_broadcast_quirk=False)
+    out["serve_bert4rec_T150_pairwise"] = serve_check(
+        torch, cfg, backbone_batch(cfg, rng), "bert4rec_T150_pairwise")
+
+    runs = [(name, t, lazy_adam, {}) for name in BACKBONES
+            for t, lazy_adam in ((20, True), (150, False))]
+    runs += [("bert4rec", 150, False, {"comp_broadcast_quirk": False}),
+             ("bert4rec", 150, False, {"is_inc": True})]
+    for name, t, lazy_adam, kw in runs:
+        cfg = config(name, t, **kw)
+        label = (f"{name}_T{t}_{'lazy' if lazy_adam else 'dense'}"
+                 + ("_pairwise" if not cfg.comp_broadcast_quirk else "")
+                 + ("_inc_itc" if cfg.is_inc else ""))
+        train_ds, val_ds, dr_ds = (synth_packed(cfg, rng, n)
+                                   for n in (TRAIN_ROWS, VAL_ROWS, DR_ROWS))
+        work = tempfile.mkdtemp(prefix="chip_smoke_")
+        tcfg = TrainConfig(epochs=1, seeds=1, model_dir=work, lazy_table_adam=lazy_adam,
+                           nan_policy="halt", checkpoint=False, model=cfg,
+                           data=DataConfig(neg_nums=999))  # the fast loops: the defaults
+        rec = {}
+        if kw.get("comp_broadcast_quirk", True):  # run_seed, on the fast loops
+            try:
+                reset_counts()
+                t0 = time.perf_counter()
+                best = run_seed(tcfg, 0, train_ds, val_ds, dr_ds)  # on cuda
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+                rec["launches"] = read_counts()
+                check_run(f"{label} run_seed fast", cfg, lazy_adam, rec["launches"], best,
+                          {"loop": "fast", "seconds": seconds,
+                           "examples_per_s": best["examples_per_s"]})
+            finally:
+                shutil.rmtree(work, ignore_errors=True)
+            torch.cuda.empty_cache()
+        if cfg.is_inc:
+            rec["train_steps"] = long_step_check(torch, cfg, tcfg, train_ds, val_ds, label)
+        else:
+            rec["train_steps"] = step_checks(torch, cfg, tcfg, train_ds, val_ds, dr_ds, label)
+            torch.cuda.empty_cache()
+            if cfg.comp_broadcast_quirk:
+                rec["graph_steps"] = graph_checks(torch, cfg, tcfg, train_ds, val_ds, dr_ds,
+                                                  label)
+                torch.cuda.empty_cache()
+                # GRU4Rec's eager T=150 step is ~3,000 host launches (~0.3 s):
+                # fewer steps keep the trace's processing short
+                slow = cfg.backbone == "gru4rec" and t == 150
+                rec["step_timing"] = step_timing(torch, cfg, tcfg, train_ds, label,
+                                                 4 if slow else TIMED_STEPS)
+        out[label] = rec
         torch.cuda.empty_cache()
     return out
 
@@ -1497,12 +1772,15 @@ def main() -> int:
     serving = main_path_phase(torch, np.random.default_rng(0))
     training = training_phase(torch, np.random.default_rng(1))
     gate_flip_phase(torch, np.random.default_rng(2))
+    backbones = backbone_phase(torch, np.random.default_rng(3))
 
     # launches on the main paths: the serving passes, the run_seed runs and
-    # the CLI runs (each on the fast loops and per step), each driven with
-    # the counts at 0 just before it and read just after
-    launches = {name: sum(r["launches"][name] for r in (*training.values(), *serving.values()))
-                for name in KERNELS}
+    # the CLI runs (each on the fast loops and per step), the backbones'
+    # serving passes and run_seed runs, each driven with the counts at 0 just
+    # before it and read just after
+    main_runs = [*training.values(), *serving.values(),
+                 *(r for r in backbones.values() if "launches" in r)]
+    launches = {name: sum(r["launches"][name] for r in main_runs) for name in KERNELS}
     # run_seed scatters fused; the single-array kernel's path is the lazy step
     # built with fused_scatter=False, driven once in step_checks
     launches["scatter_set_unique"] += training["T20_lazy"]["unfused_launches"][
@@ -1515,8 +1793,10 @@ def main() -> int:
     # (target and 999 negatives of 256 users in one launch) and the scoring
     # head (C=1000, both user representations in one launch, as the model
     # calls it)
+    long_cases = [c for c in bwd.values() if c["path"] == "long"]
     rows = {"attention_fwd": (fwd[150], fwd.values()),
-            "attention_bwd": (bwd[150], bwd.values()),
+            "attention_bwd": (bwd[150], [c for c in bwd.values() if c["path"] == "sweep"]),
+            "attention_bwd_long": (bwd["long_T600"], long_cases),
             "scatter_set_unique3": (scatter[11264]["scatter_set_unique3"],
                                     [c["scatter_set_unique3"] for c in scatter.values()]),
             "scatter_set_unique": (scatter[11264]["scatter_set_unique"],

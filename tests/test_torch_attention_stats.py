@@ -231,6 +231,8 @@ def _fake_entry(monkeypatch, code=0):
 
     monkeypatch.setattr(attention_ops, "_fwd", entry)
     monkeypatch.setattr(attention_ops, "_bwd", entry)
+    monkeypatch.setattr(attention_ops, "_bwd_long", entry)
+    monkeypatch.setattr(attention_ops, "_long_max_t", 65535 * 64)
     monkeypatch.setattr(attention_ops, "_fwd_smem", lambda t, dh: 1000 * t)
     monkeypatch.setattr(attention_ops, "_bwd_smem", lambda t, dh: 2000 * t)
     monkeypatch.setattr(attention_ops._build, "raw_stream", lambda index: 77)
@@ -283,8 +285,20 @@ def test_launch_refusals_become_exceptions(monkeypatch):
     seen = _fake_entry(monkeypatch, code=-3)  # too long: the message names the largest T
     with pytest.raises(ValueError, match=r"largest T at this head width: 232\)"):
         attention_ops._launch_forward(q, q, q, bias, 0, 2, 0.0, False)
+    # the one-sweep kernel refuses what its shared memory cannot hold; the
+    # long path takes it, so only a head width or a T beyond the long
+    # path's limit is refused before a backward
     with pytest.raises(ValueError, match=r"largest T at this head width: 116\)"):
-        attention_ops._check_backward_fits(300, 8)
+        attention_ops._launch_backward(q, q, q, bias, q, *[torch.zeros(1, 2, 300)] * 2, q,
+                                       0, 2, 0.0, path="sweep")
+    attention_ops._check_backward_fits(300, 8)
+    with pytest.raises(ValueError, match="limit of T=4194240"):
+        attention_ops._check_backward_fits(65535 * 64 + 1, 8)
+    with pytest.raises(ValueError, match="head widths"):
+        attention_ops._check_backward_fits(300, 12)
+    with pytest.raises(ValueError, match="beyond its limit of T=4194240"):
+        attention_ops._launch_backward(q, q, q, bias, q, *[torch.zeros(1, 2, 300)] * 2, q,
+                                       0, 2, 0.0, path="long")
     seen = _fake_entry(monkeypatch, code=-1)
     with pytest.raises(ValueError, match="head widths"):
         attention_ops._launch_forward(q, q, q, bias, 0, 2, 0.0, False)
@@ -296,3 +310,34 @@ def test_launch_refusals_become_exceptions(monkeypatch):
     with pytest.raises(ValueError, match="unit stride"):
         attention_ops._launch_forward(q, q, q, bias.transpose(2, 3), 0, 2, 0.0, False)
     assert len(seen) == 1  # the checks refuse before the entry point is called
+
+
+def test_backward_route_takes_the_long_path_where_the_sweep_does_not_fit(monkeypatch):
+    """The one-sweep kernel keeps every shape it fits; the long path takes
+    the rest, packs the one-sweep block plus the D_i scratch and counts in
+    its own counter."""
+    seen = _fake_entry(monkeypatch)  # one-sweep shared memory: 2000 * T bytes
+    fits = attention_ops.SMEM_LIMIT // 2000  # 116
+    assert attention_ops.backward_route(fits, 8) == "sweep"
+    assert attention_ops.backward_route(fits + 1, 8) == "long"
+    b, t, d, heads = 2, fits + 1, 16, 2
+    q, k, v, g = (torch.randn(b, t, d) for _ in range(4))
+    bias = torch.zeros(b, 1, 1, t)
+    stats = torch.zeros(b, heads, t)
+    sweeps = attention_ops.fused_attention.backward_launches
+    longs = attention_ops.fused_attention.long_backward_launches
+    dq, dk, dv = attention_ops._launch_backward(q, k, v, bias, q, stats, stats, g, 0, heads, 0.0)
+    assert len(seen[-1]) == struct.calcsize("<31q2dq")
+    f = struct.unpack("<31q2dq", seen[-1])
+    assert f[8:15] == (dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, t, d, heads)
+    assert f[-1] != 0  # the D_i scratch
+    assert attention_ops.fused_attention.long_backward_launches == longs + 1
+    assert attention_ops.fused_attention.backward_launches == sweeps
+    attention_ops._launch_backward(q[:, :fits], k[:, :fits], v[:, :fits], bias[..., :fits],
+                                   q[:, :fits], stats[..., :fits], stats[..., :fits],
+                                   g[:, :fits], 0, heads, 0.0)
+    assert len(seen[-1]) == struct.calcsize("<31q2d")
+    assert attention_ops.fused_attention.backward_launches == sweeps + 1
+    with pytest.raises(ValueError, match="'sweep' or 'long'"):
+        attention_ops._launch_backward(q, k, v, bias, q, stats, stats, g, 0, heads, 0.0,
+                                       path="other")

@@ -100,8 +100,21 @@ def csv_root(tmp_path_factory):
 @pytest.mark.parametrize("cli,pairwise", [(train_sr_dr, True), (train_sr_dr, False),
                                           (train_sr, False)])
 def test_cli_trains_one_epoch_from_a_csv_on_the_cpu(tmp_path, csv_root, cli, pairwise):
+    _train_one_epoch(tmp_path, csv_root, cli, pairwise)
+
+
+@pytest.mark.parametrize("model", ["bert4rec", "GRU4Rec"])
+@pytest.mark.parametrize("cli,pairwise", [(train_sr_dr, True), (train_sr, False)])
+def test_cli_trains_each_backbone_one_epoch_on_the_cpu(tmp_path, csv_root, cli, pairwise,
+                                                       model):
+    """`--model` in any case, as the reference's scripts spell it."""
+    _train_one_epoch(tmp_path, csv_root, cli, pairwise, model)
+
+
+def _train_one_epoch(tmp_path, csv_root, cli, pairwise, model="sasrec"):
     argv = TINY + ["--device", "cpu", "--kernels", "torch", "--data_root", csv_root,
-                   "-md", str(tmp_path), "--comp_broadcast_quirk", str(not pairwise)]
+                   "-md", str(tmp_path), "--comp_broadcast_quirk", str(not pairwise),
+                   "--model", model]
     agg = cli.main(argv)
     assert {"hit_10_d1", "ndcg_10_d2", "mrr_d1", "mrr_d2", "examples_per_s"} <= agg.keys()
     assert all(np.isfinite(v["mean"]) and v["std"] == 0.0 for v in agg.values())
@@ -114,6 +127,7 @@ def test_cli_trains_one_epoch_from_a_csv_on_the_cpu(tmp_path, csv_root, cli, pai
     is_dr = cli is train_sr_dr
     assert ("epoch 0 (post-DR)" in log0) == is_dr
     assert ('"is_dr": true' in log_all) == is_dr
+    assert f'"backbone": "{model.lower()}"' in log_all
 
 
 def test_cli_runs_on_the_card_unless_asked_and_refuses_unported_parts(
@@ -126,8 +140,10 @@ def test_cli_runs_on_the_card_unless_asked_and_refuses_unported_parts(
                         "profile_steps"), (["--mesh", "True"], "use_mesh")):
         with pytest.raises(NotImplementedError, match=f"TrainConfig.{field}"):
             train_sr_dr.main(base + ["--device", "cpu", "--kernels", "torch", *flag])
-    with pytest.raises(NotImplementedError, match="gru4rec"):
-        train_sr_dr.main(base + ["--device", "cpu", "--model", "GRU4Rec"])
+    with pytest.raises(NotImplementedError, match="C2DSR"):
+        train_sr_dr.main(base + ["--device", "cpu", "--kernels", "torch", "--isC2DSR", "True"])
+    with pytest.raises(ValueError, match="unknown backbone 'caser'"):
+        train_sr_dr.main(base + ["--device", "cpu", "--model", "Caser"])
     with pytest.raises(ValueError, match="kernels='cuda' needs a CUDA device"):
         train_sr_dr.main(base + ["--device", "cpu", "--kernels", "cuda"])
 

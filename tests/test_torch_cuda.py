@@ -69,6 +69,13 @@ ATOL, RTOL = 1e-5, 1e-4  # fp32 kernel vs fp32 plain, sums in another order
 BWD_ATOL = 2e-5  # backward: dk, dv sum products over up to T queries
 
 
+def _bwd_atol(t):
+    """chip_smoke.py's `bwd_atol`: dk and dv sum one term a query, each with
+    the cancellation error of dP - D in rows with few kept keys; 2e-5 up to
+    T=150, growing with T beyond."""
+    return BWD_ATOL * max(1.0, t / 150)
+
+
 @pytest.fixture
 def gen():
     if not torch.cuda.is_available():
@@ -178,6 +185,62 @@ def test_forward_row_statistics_match_plain(gen, t, kind):
     torch.testing.assert_close(row_inv_sum, want[2], atol=1e-6, rtol=1e-6)
 
 
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_long_backward_matches_plain_at_bert4rec_s_t600(gen, rate):
+    """The long-sequence path at dh=32, T=600 (BERT4Rec's encoder with
+    InnerComp and InterComp at T=150), batch row 0 fully masked: against the
+    plain one-sweep arithmetic, and bit-equal over two calls."""
+    b, t, d, heads = 8, 600, 128, 4
+    assert attention_ops.backward_route(t, d // heads) == "long"
+    q, k, v, dout = (torch.randn(b, t, d, device="cuda", generator=gen) for _ in range(4))
+    bias = _bias("keypad", b, t, gen)
+    seed = torch.tensor([31], dtype=torch.int64, device="cuda")
+    res = attention_fwd_stats_plain(q, k, v, bias, seed, heads, rate)
+    before = (fused_attention.backward_launches, fused_attention.long_backward_launches)
+    got = attention_backward(q, k, v, bias, *res, dout, seed, heads, rate)
+    again = attention_backward(q, k, v, bias, *res, dout, seed, heads, rate)
+    assert (fused_attention.backward_launches,
+            fused_attention.long_backward_launches) == (before[0], before[1] + 2)
+    want = attention_bwd_plain(q, k, v, bias, *res, dout, seed, heads, rate)
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, a)
+        torch.testing.assert_close(g, w, atol=_bwd_atol(t), rtol=RTOL)
+
+
+@pytest.mark.parametrize("t,d,heads,kind", [(300, 128, 4, "keypad"), (150, 128, 8, "causal"),
+                                            (37, 64, 8, "per_query"), (70, 128, 2, "keypad")])
+def test_both_backward_paths_match_plain_where_both_take_the_shape(gen, t, d, heads, kind):
+    """At T=300 (dh=32) and T=150 (dh=16) both paths run: each against the
+    plain version, the long path bit-equal over two calls; every head width."""
+    b = 8
+    q, k, v, dout = (torch.randn(b, t, d, device="cuda", generator=gen) for _ in range(4))
+    bias = _bias(kind, b, t, gen)
+    res = attention_fwd_stats_plain(q, k, v, bias, 5, heads, 0.5)
+    want = attention_bwd_plain(q, k, v, bias, *res, dout, 5, heads, 0.5)
+    for path in ("sweep", "long"):
+        got = attention_backward(q, k, v, bias, *res, dout, 5, heads, 0.5, path=path)
+        again = attention_backward(q, k, v, bias, *res, dout, 5, heads, 0.5, path=path)
+        for g, a, w in zip(got, again, want):
+            assert torch.equal(g, a), path
+            torch.testing.assert_close(g, w, atol=_bwd_atol(t), rtol=RTOL)
+
+
+def test_gradient_through_the_long_path_of_the_autograd_function(gen):
+    """A forward under autograd at T=600 (dh=32) launches the forward kernel
+    and, for the gradient, the long path; gradients equal autograd of the
+    plain version."""
+    b, t, d, heads = 2, 600, 128, 4
+    qkv = torch.randn(b, t, 3 * d, device="cuda", generator=gen, requires_grad=True)
+    bias = _bias("keypad", b, t, gen)
+    longs = fused_attention.long_backward_launches
+    out = fused_attention(*qkv.split(d, dim=-1), bias, 3, heads, 0.1)
+    (got,) = torch.autograd.grad((out ** 2).sum(), qkv)
+    assert fused_attention.long_backward_launches == longs + 1
+    ref = attention_plain(*qkv.split(d, dim=-1), bias, 3, heads, 0.1)
+    (want,) = torch.autograd.grad((ref ** 2).sum(), qkv)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
 def test_kernels_at_the_largest_supported_t(gen):
     """The longest sequence each kernel takes at dh=16 (its shared memory),
     padded to its tiles, against the plain versions."""
@@ -192,7 +255,7 @@ def test_kernels_at_the_largest_supported_t(gen):
         bias = _bias("causal", b, t, gen)
         res = attention_fwd_stats_plain(q, k, v, bias, 11, heads, 0.5)
         if backward:
-            got = attention_backward(q, k, v, bias, *res, dout, 11, heads, 0.5)
+            got = attention_backward(q, k, v, bias, *res, dout, 11, heads, 0.5, path="sweep")
             want = attention_bwd_plain(q, k, v, bias, *res, dout, 11, heads, 0.5)
             for g, w in zip(got, want):
                 torch.testing.assert_close(g, w, atol=BWD_ATOL, rtol=RTOL)
@@ -239,20 +302,23 @@ def test_gradient_through_the_autograd_function(gen, rate):
 
 def test_backward_rejects_sequences_its_tile_cannot_hold(gen):
     """T=800 at dh=16 fits the forward's shared memory (K, V) but not the
-    backward's (Q, dO, K, dQ): asking for a gradient raises before anything is
-    launched, and names the largest T."""
+    one-sweep backward's (Q, dO, K, dQ): that kernel refuses it and names the
+    largest T, and a gradient takes the long path instead."""
     q = torch.randn(1, 800, 64, device="cuda", generator=gen, requires_grad=True)
     bias = _bias("zeros", 1, 800, gen)
-    with torch.no_grad():
-        fused_attention(q, q, q, bias, 0, 4, 0.0)
-    before = fused_attention.launches
-    with pytest.raises(ValueError, match="largest T"):
-        fused_attention(q, q, q, bias, 0, 4, 0.0)
-    assert fused_attention.launches == before
-    with pytest.raises(ValueError, match="shared memory"):
-        x = q.detach()
-        stats = torch.zeros(1, 4, 800, device="cuda")
-        attention_backward(x, x, x, bias, x, stats, stats, x, 0, 4, 0.0)
+    x = q.detach()
+    stats = torch.zeros(1, 4, 800, device="cuda")
+    before = fused_attention.backward_launches
+    with pytest.raises(ValueError, match="shared memory.*largest T"):
+        attention_backward(x, x, x, bias, x, stats, stats, x, 0, 4, 0.0, path="sweep")
+    assert fused_attention.backward_launches == before
+    assert attention_ops.backward_route(800, 16) == "long"
+    longs = fused_attention.long_backward_launches
+    out = fused_attention(q, q, q, bias, 0, 4, 0.0)
+    torch.autograd.grad(out.sum(), q)
+    assert fused_attention.long_backward_launches == longs + 1
+    with pytest.raises(ValueError, match="limit of T="):
+        attention_ops._check_backward_fits(attention_ops.long_backward_max_t() + 1, 16)
 
 
 @pytest.mark.parametrize("u,id_dtype", [(11264, torch.int32), (1000, torch.int64), (5, torch.int32)])
@@ -390,6 +456,131 @@ def test_train_step_on_cuda_goes_through_the_kernels(gen, kind):
     assert tuple(a - b for a, b in zip(after, before)) == (4, 4, int(kind == "lazy"))
     assert torch.isfinite(m["loss"]) and abs(float(m["loss_cls"]) - 0.693) < 0.05
     assert model.item_embedding.grad is None
+
+
+def _backbone_cfg(backbone, **kw):
+    """A small model of `backbone` whose attention takes a kernel head width:
+    BERT4Rec with 2 heads of 32, GRU4Rec with hidden width 64."""
+    return ModelConfig(**{**dict(backbone=backbone, emb_dim=64, hid_dim=16, seq_len=12,
+                                 batch_size=8, is_itc=True, is_dr=True, item_length=50,
+                                 user_length=50, bert_heads=2, bert_ff_dim=128), **kw})
+
+
+def _step_batch(v, gen, bsz=8, t=12):
+    return {"target": torch.randint(0, v, (bsz,), device="cuda", generator=gen),
+            "seq_d1": torch.randint(0, v, (bsz, t), device="cuda", generator=gen),
+            "seq_d2": torch.randint(0, v, (bsz, t), device="cuda", generator=gen),
+            "domain_id": torch.randint(0, 2, (bsz,), device="cuda", generator=gen),
+            "reject": torch.full((bsz, 1), v, device="cuda"),
+            "reject_counts": torch.zeros(bsz, dtype=torch.long, device="cuda"),
+            "ob_label": torch.ones(bsz, dtype=torch.long, device="cuda")}
+
+
+@pytest.mark.parametrize("is_inc", [False, True], ids=["itc", "inc_itc"])
+@pytest.mark.parametrize("backbone", ["bert4rec", "gru4rec"])
+def test_backbone_phase_a_step_on_cuda_equals_the_plain_model_s(gen, backbone, is_inc):
+    """One dense phase-A step of a kernels='cuda' model against the same step
+    of a kernels='torch' model from the same weights, batch and key, dropout
+    on (BERT4Rec's five sites draw from the step's generators on both); the
+    BERT model's attention launches 4 forwards and 4 backwards, the GRU's
+    none. User 0's domain-2 history is id 0 throughout: every key of its
+    BERT rows is masked."""
+    cfg = _backbone_cfg(backbone, is_inc=is_inc)
+    model = build_model(cfg)
+    plain = build_model(dataclasses.replace(cfg, kernels="torch"), device="cuda")
+    plain.load_state_dict(model.state_dict())
+    v = cfg.item_table_size
+    batch = _step_batch(v, gen)
+    batch["seq_d2"][0] = 0
+    pools = torch.arange(v, device="cuda").repeat(2, 1)
+    sizes = torch.tensor([v, v], device="cuda")
+    metrics = []
+    for m, want_attn in ((model, 4 * (backbone == "bert4rec")), (plain, 0)):
+        state = steps.init_state(m, Adam(1e-3))
+        step = steps.make_train_step(m, Adam(1e-3), dr_e_w=0.1)
+        before = launches.read()
+        _, out = step(state, batch, pools, sizes, 5)
+        got = launches.since(before)
+        assert got["attention_fwd"] == got["attention_bwd"] == want_attn
+        metrics.append(out)
+    for k, val in metrics[0].items():
+        assert torch.isfinite(val) and abs(float(val) - float(metrics[1][k])) <= LOSS_TOL, k
+    for (name, p), q in zip(model.named_parameters(), plain.parameters()):
+        if name.endswith(".k.bias"):
+            # its gradient is zero up to rounding (a constant added to every
+            # key's score): Adam moves it by lr * sign(noise), not comparable
+            continue
+        torch.testing.assert_close(p, q, atol=1e-5, rtol=1e-4, msg=name)
+
+
+def test_replayed_bert_steps_draw_new_dropout_masks_with_new_keys(gen):
+    """BERT4Rec's dropout (the probabilities inside K1 and four sites around
+    it) under a CUDA graph of the step: replays with different keys give
+    different losses, and a replay with an eager step's key gives that
+    step's loss (a mask drawn from the process-wide generator, or a seed
+    frozen at capture, would repeat one mask on every replay)."""
+    cfg = _backbone_cfg("bert4rec", bert_dropout=0.5)
+    v = cfg.item_table_size
+    batch = _step_batch(v, gen)
+    pools = torch.arange(v, device="cuda").repeat(2, 1)
+    sizes = torch.tensor([v, v], device="cuda")
+    eager_model, graph_model = build_model(cfg, seed=0), build_model(cfg, seed=0)
+    # a train-mode forward without the update, so each key starts from one state
+    eval_loss = {}
+    for name, m in (("eager", eager_model), ("graph", graph_model)):
+        m.train()
+        rng = StepRandom(None, "cuda")
+
+        def body(m=m, rng=rng):
+            with torch.no_grad():
+                out = m({**batch, "neg_samples": batch["target"][:, None]}, rng=rng)
+            return out["logits_d1"].sum() + out["logits_d2"].sum()
+
+        eval_loss[name] = (body, rng)
+    body, rng = eval_loss["graph"]
+    pool = GraphPool("cuda")
+    try:
+        graph = StepGraph(body, rng.generators(), pool)
+        got = {}
+        for key in (1, 2, 3, 4):  # eager, capture + replay, replays
+            rng.reseed(key)
+            got[key] = float(graph())
+        assert graph.replays == 3
+        assert len(set(got.values())) == 4, got
+        ebody, erng = eval_loss["eager"]
+        for key in (2, 4):
+            erng.reseed(key)
+            assert abs(float(ebody()) - got[key]) <= 1e-4 * max(1.0, abs(got[key])), key
+    finally:
+        pool.close()
+
+
+def test_gru_step_replays_equal_eager_steps(gen):
+    """GRU4Rec's time loop inside a CUDA graph, with autograd through it:
+    four dense phase-A steps through a resident chunk runner against the same
+    steps taken eagerly."""
+    cfg = _fast_cfg(backbone="gru4rec")
+    ds = synth_packed(cfg, np.random.default_rng(0), 4 * FAST_BS)
+    (_, est, estep), (_, gst, gstep) = _fast_pair("dense", "A", cfg)
+    arrays = loop._resident(ds.batch_arrays(), "cuda")
+    pools = loop._device_pools(ds, "cuda")
+    perm = torch.as_tensor(np.random.default_rng(1).permutation(4 * FAST_BS).astype(np.int32),
+                           device="cuda")
+    pool = GraphPool("cuda")
+    try:
+        runner = steps.make_resident_chunk_runner(gstep, FAST_BS, pool)
+        for i in range(4):
+            _, m0, nf = runner(gst, arrays, perm, *pools, 9, range(i, i + 1), range(i, i + 1))
+            rows = perm[i * FAST_BS:(i + 1) * FAST_BS]
+            _, m = estep(est, {k: x.index_select(0, rows) for k, x in arrays.items()},
+                         *pools, fold_in(9, i))
+            assert float(nf) == 0.0
+            for k, x in m0.items():
+                assert abs(float(x) - float(m[k])) <= LOSS_TOL, (i, k)
+        assert pool.graphs[0].replays == 3
+        assert pool.graphs[0].captured["attention_fwd"] == 0
+    finally:
+        pool.close()
 
 
 @pytest.mark.parametrize("d,heads", [(48, 4), (256, 2)])

@@ -52,10 +52,11 @@ def data():
     return tuple(_synth_packed(rng, n, 40, 6) for n in (72, 40, 56))
 
 
-def _cfg(path, fast: bool, is_dr=True, **kw):
-    mcfg = ModelConfig(backbone="sasrec", emb_dim=16, hid_dim=8, seq_len=6, batch_size=BS,
-                       item_length=90, user_length=90, sasrec_heads=2, is_dr=is_dr,
-                       is_itc=True, ts2=0.4)
+def _cfg(path, fast: bool, is_dr=True, model_kw=None, **kw):
+    mcfg = ModelConfig(**{**dict(backbone="sasrec", emb_dim=16, hid_dim=8, seq_len=6,
+                                 batch_size=BS, item_length=90, user_length=90,
+                                 sasrec_heads=2, is_dr=is_dr, is_itc=True, ts2=0.4),
+                          **(model_kw or {})})
     base = dict(epochs=2, lr=1e-3, seeds=1, checkpoint=False, fast_train=fast,
                 fast_eval=fast, model_dir=str(path), model=mcfg,
                 data=DataConfig(neg_nums=5), log_every=2)
@@ -113,6 +114,24 @@ def test_fast_loops_match_the_per_step_path(tmp_path, monkeypatch, data, log_eve
                                 lazy_table_adam=lazy_adam, log_every=log_every)
     phases = 2 if is_dr else 1  # an epoch: phase A (and B), an evaluation after each
     assert ran == {"chunks": 2 * phases, "scanned_evals": 2 * phases}
+    keys = _metric_keys(slow)
+    assert keys and set(keys) == set(_metric_keys(fast))
+    for k in keys:
+        assert fast[k] == pytest.approx(slow[k], abs=TOL), k
+    assert _train_lines(tmp_path / "fast") == _train_lines(tmp_path / "slow")
+
+
+@pytest.mark.parametrize("lazy_adam", [False, True], ids=["dense", "lazy"])
+@pytest.mark.parametrize("backbone", ["bert4rec", "gru4rec"])
+def test_fast_loops_match_the_per_step_path_for_each_backbone(tmp_path, monkeypatch, data,
+                                                              backbone, lazy_adam):
+    """BERT4Rec (dropout on: its five sites draw from the step's generators)
+    and GRU4Rec, both fast loops on, one epoch of the DR schedule: every
+    metric at 1e-6 and the logged running means line for line."""
+    slow, fast, ran = _run_both(tmp_path, monkeypatch, data, epochs=1,
+                                lazy_table_adam=lazy_adam,
+                                model_kw=dict(backbone=backbone, bert_heads=2, bert_ff_dim=32))
+    assert ran == {"chunks": 2, "scanned_evals": 2}
     keys = _metric_keys(slow)
     assert keys and set(keys) == set(_metric_keys(fast))
     for k in keys:

@@ -7,6 +7,7 @@ streams cannot match. fp32 on both sides; tolerance atol 1e-5 / rtol 1e-4
 error)."""
 
 import dataclasses
+import re
 
 import numpy as np
 import pytest
@@ -89,14 +90,31 @@ def rng():
     return np.random.default_rng(0)
 
 
-@pytest.fixture
-def jax_model(rng):
-    jcfg = JaxModelConfig(**MODEL_KW, kernels="xla")
+# the other backbones at the same width: BERT4Rec with 2 heads and a narrow
+# FFN (its encoder sees 2T with InterComp), GRU4Rec with hidden width D
+BACKBONE_KW = {"bert4rec": dict(backbone="bert4rec", bert_heads=HEADS, bert_ff_dim=32,
+                                bert_dropout=0.0),
+               "gru4rec": dict(backbone="gru4rec")}
+
+
+def _jax_model(rng, **overrides):
+    jcfg = JaxModelConfig(**{**MODEL_KW, **overrides}, kernels="xla")
     jmodel = jax_build_model(jcfg)
     sample = {**_jb(_batch(rng)), "neg_samples": jnp.zeros((B, 1), jnp.int32)}
     key = jax.random.PRNGKey(0)
     params = jmodel.init({"params": key, "dropout": key}, sample, train=False)["params"]
-    return jmodel, params
+    return jmodel, params, overrides
+
+
+@pytest.fixture
+def jax_model(rng):
+    return _jax_model(rng)[:2]
+
+
+@pytest.fixture(params=sorted(BACKBONE_KW))
+def backbone_model(rng, request):
+    """A JAX model of another backbone, its params and the port's overrides."""
+    return _jax_model(rng, **BACKBONE_KW[request.param])
 
 
 def _port_model(params, **overrides):
@@ -115,6 +133,8 @@ def _assert_tree_close(got: dict, want_flax_tree, what, with_table=True):
     assert got.keys() == want.keys()
     for k, w in want.items():
         g, w = got[k].detach().numpy(), w.numpy()
+        if re.fullmatch(r"enc_d[12]\.block\.\d+\.k\.bias", k):
+            continue  # BERT4Rec's key bias: the same zero gradient as below
         if k.endswith("in_proj_bias"):
             # The K third of the bias has an analytically zero gradient (a
             # constant added to every key's score leaves the softmax
@@ -176,7 +196,16 @@ def test_dense_steps_match_jax_over_three_rounds(rng, jax_model):
     """One JAX round (phase A, phase B) makes non-zero moments; the state is
     converted; three more rounds run in both packages with the same batches
     and negatives. Parameters and both optimizers' moments must agree."""
-    jmodel, params = jax_model
+    _check_dense_rounds(rng, *jax_model, rounds=3)
+
+
+def test_dense_steps_match_jax_for_each_backbone(rng, backbone_model):
+    """BERT4Rec and GRU4Rec: one dense phase-A step and one phase-B step
+    from the converted state of a JAX round, as above."""
+    _check_dense_rounds(rng, *backbone_model)
+
+
+def _check_dense_rounds(rng, jmodel, params, overrides=None, rounds=1):
     tx, tx2 = optax.adam(LR), optax.adam(LR2)
     jstate = jax_steps.TrainState(params, tx.init(params), tx2.init(params))
     jstep_a = jax_steps.make_train_step(jmodel, tx, dr_e_w=DR_E_W)
@@ -185,7 +214,7 @@ def test_dense_steps_match_jax_over_three_rounds(rng, jax_model):
     for i, jstep in enumerate((jstep_a, jstep_b)):
         jstate, _ = jstep(jstate, _jb(_batch(rng)), jp, jps, jax.random.PRNGKey(100 + i))
 
-    model = _port_model(jstate.params)
+    model = _port_model(jstate.params, **(overrides or {}))
     ptx, ptx2 = Adam(LR), Adam(LR2)
     state = steps.TrainState(
         dict(model.named_parameters()),
@@ -194,7 +223,7 @@ def test_dense_steps_match_jax_over_three_rounds(rng, jax_model):
     step_a = steps.make_train_step(model, ptx, dr_e_w=DR_E_W)
     step_b = steps.make_dr_r_step(model, ptx2)
     tp, tps = torch.as_tensor(POOLS), torch.as_tensor(POOL_SIZES)
-    for r in range(3):
+    for r in range(rounds):
         for phase, (jstep, step, n_split) in enumerate(
                 ((jstep_a, step_a, 4), (jstep_b, step_b, 2))):
             batch, key = _batch(rng), jax.random.PRNGKey(10 * r + phase)
@@ -210,7 +239,7 @@ def test_dense_steps_match_jax_over_three_rounds(rng, jax_model):
     for got, want in ((state.opt_state, jstate.opt_state),
                       (state.opt_state2, jstate.opt_state2)):
         count, mu, nu = _optax_parts(want)
-        assert got.count == int(count) == 4
+        assert got.count == int(count) == rounds + 1
         _assert_tree_close(got.mu, mu, "mu")
         _assert_tree_close(got.nu, nu, "nu")
 
@@ -233,7 +262,15 @@ def _lazy_parts(s):
 def test_lazy_steps_match_jax(rng, jax_model):
     """One lazy step of each phase from a converted, non-zero LazyTableState;
     the JAX side writes back through its Pallas scatter (interpret mode)."""
-    jmodel, params = jax_model
+    _check_lazy_steps(rng, *jax_model)
+
+
+def test_lazy_steps_match_jax_for_each_backbone(rng, backbone_model):
+    """BERT4Rec and GRU4Rec: a lazy phase-A and a lazy phase-B step, as above."""
+    _check_lazy_steps(rng, *backbone_model)
+
+
+def _check_lazy_steps(rng, jmodel, params, overrides=None):
     jp, jps = jnp.asarray(POOLS), jnp.asarray(POOL_SIZES)
     jstate = jax_lazy.init_lazy_state(params, optax.adam(LR), optax.adam(LR2))
     warm_a = jax_lazy.make_lazy_train_step(jmodel, optax.adam(LR), LR, dr_e_w=DR_E_W)
@@ -241,7 +278,7 @@ def test_lazy_steps_match_jax(rng, jax_model):
     for i, jstep in enumerate((warm_a, warm_b)):
         jstate, _ = jstep(jstate, _jb(_batch(rng)), jp, jps, jax.random.PRNGKey(50 + i))
 
-    model = _port_model(jstate.params)
+    model = _port_model(jstate.params, **(overrides or {}))
     state = steps.TrainState(
         dict(model.named_parameters()),
         lazy_state_from_numpy(*_lazy_parts(jstate.opt_state)),
@@ -326,12 +363,19 @@ def test_unique_budget_is_the_jax_package_s():
 # ---------------------------------------------------------------------------
 
 def test_eval_step_matches_jax(rng, jax_model):
-    jmodel, params = jax_model
+    _check_eval_step(rng, *jax_model)
+
+
+def test_eval_step_matches_jax_for_each_backbone(rng, backbone_model):
+    _check_eval_step(rng, *backbone_model)
+
+
+def _check_eval_step(rng, jmodel, params, overrides=None):
     num_neg = 19
     batch, key = _batch(rng), jax.random.PRNGKey(3)
     want = jax_steps.make_eval_step(jmodel, num_neg)(
         params, _jb(batch), jnp.asarray(POOLS), jnp.asarray(POOL_SIZES), key)
-    model = _port_model(params).train()  # the eval step must switch to eval mode
+    model = _port_model(params, **(overrides or {})).train()  # the step switches to eval
     got = steps.make_eval_step(model, num_neg)(
         _tb(batch), torch.as_tensor(POOLS), torch.as_tensor(POOL_SIZES), 0,
         neg=_jax_negatives(key, batch, num_neg, 0))
