@@ -114,7 +114,11 @@
 #include <stdint.h>
 #include <string.h>
 
+#include "hopper.cuh"
+
 namespace {
+
+using namespace amid_hopper;
 
 constexpr int kTileRows = 64;          // bank rows per tile: wgmma's M
 constexpr int kKWidth = 128;           // operand columns, D padded with zeros
@@ -130,53 +134,11 @@ constexpr int kSmallnMaxN = 80;        // K7: at least two users a slot of 160
 // Refusals of the entry points (negative; a positive value is a cudaError_t).
 enum Refusal { kBadShape = -1, kBadPlan = -2, kLongQuery = -3 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count));
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
-
-// `bytes` (a multiple of 16) from global to shared memory, completing on `bar`
-__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, uint32_t bytes,
-                                          uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
-      "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
-
 // Shared-memory matrix descriptor of a K-major operand without swizzle:
 // start address, leading byte offset 128 (the two 16-byte column chunks of a
 // k16 step), stride byte offset 16 * 128 (the next 8-row group), all >> 4.
 __device__ __forceinline__ uint64_t operand_desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(128 >> 4) << 16) |
-         ((uint64_t)((16 * kKWidth) >> 4) << 32);
+  return matrix_desc(addr, 128, 16 * kKWidth);
 }
 
 __device__ __forceinline__ void named_sync(int id) {
@@ -184,24 +146,6 @@ __device__ __forceinline__ void named_sync(int id) {
 }
 __device__ __forceinline__ void named_arrive(int id) {
   asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// keeps the compiler from moving accesses of an accumulator across a
-// wgmma.fence or wgmma.wait_group: the product writes it asynchronously
-template <int R>
-__device__ __forceinline__ void fence_regs(float (&r)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
 // d[64 x 8K] (+)= A[64 x 16] . B[8K x 16]^T, both bf16 K-major in shared
@@ -490,7 +434,7 @@ affinity_wgmma_kernel(const __nv_bfloat16* __restrict__ bank,
       mbar_init(smem_u32(bars + stages + s), kWgThreads);
     }
     mbar_init(smem_u32(bars + 2 * stages), 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
   const uint32_t qbar = smem_u32(bars + 2 * stages);

@@ -1,7 +1,8 @@
 // Fused multi-head attention backward for long sequences, for Hopper
-// (sm_90a): fp32 in and out, products on the tensor cores in 3xTF32
-// (attention_common.cuh). The same function as attention_bwd.cu, for the
-// lengths whose head does not fit one block's shared memory there.
+// (sm_90a): fp32 in and out, products on the tensor cores as wgmma in
+// 3xTF32. The same function as attention_bwd.cu (the one-sweep kernel), for
+// any T up to attention_bwd_long_max_t() and at the lengths where it is the
+// faster (ops/attention.py::backward_route).
 //
 // Replaces amid_tpu/ops/pallas_attention.py::_bwd_kernel (pallas_call in
 // _vjp_bwd) beyond the one-sweep kernel's reach. The Pallas kernel blocks the
@@ -22,423 +23,798 @@
 // float atomics are used, and every sum is taken in an order fixed by the
 // tile numbers, so two calls give the same bits.
 //
-// Design: FlashAttention-2's split into two kernels, launched one after the
-// other on the caller's stream. Each owns one side and streams the other
-// from device memory (mostly L2) in stages of 64 rows.
-//   * dQ kernel, first. One block of 4 warps per (b, h, 64 queries). The
-//     block stages its queries' Q and dO in shared memory, computes their
-//     D_i and writes them to a [B, H, T] scratch for the second kernel. Each
-//     warp owns 16 queries: its Q and dO fragments (hi/lo) stay in registers
-//     (at dh=64 they are split again at each use from shared memory: held,
-//     they would need more than the 255 registers a thread has), and so does
-//     its dQ accumulator. It walks every key in stages of 64 staged keys (K
-//     and V in shared memory), 8 keys at a time: S = Q K^T and dP = dO V^T as
-//     m16n8k8 tiles, P, dS element by element, then dQ += dS K with the
-//     accumulator as the A fragment (the reordered reduction of
-//     attention_common.cuh).
-//   * dK/dV kernel, second. One block of 4 warps per (b, h, 64 keys). Each
-//     warp owns 16 keys: the one-sweep kernel's warp body, keys in rows and
-//     queries in columns, K and V fragments and the dK, dV accumulators in
-//     registers (K and V staged in shared memory at dh=64). It walks every
-//     query in stages of 64 staged queries (Q, dO, m, 1/l, D_i and the
-//     dropout keys of the rows in shared memory).
-//   * D_i is computed once, by the dQ kernel, which owns the queries: the
-//     dK/dV blocks read it from the scratch instead of reading O again.
-//   * Padded rows (past T) have 1/l = 0 and P = 0 and write nothing; a fully
-//     masked row (m = -1e9, 1/l = 1/T) gives P = 1/T on every key, as in the
-//     one-sweep kernel.
+// Design: two kernels on the caller's stream, as FlashAttention-2 splits the
+// backward. Each block owns 128 rows of one (b, h) and streams the other
+// side through shared memory.
+//   * dQ kernel, first: owns 128 queries, writes their D_i to a [B, H, T]
+//     scratch, streams K and V. dK/dV kernel, second: owns 128 keys, streams
+//     Q, dO, m, 1/l and D_i. S and dP are computed in both (seven products,
+//     where the one-sweep kernel has five).
+//   * Two warpgroups of 128 threads, 64 owned rows each, share every
+//     streamed stage (32 rows at dh=64, else 64): each stage read from L2
+//     serves 128 rows. No producer warp: registers are allotted per
+//     warpgroup, so a 9th warp would cut every thread's share.
+//   * An asynchronous ring of two raw stages. Every thread issues its part
+//     of a stage's copies (cp.async, 16 bytes of a row, 4 bytes of a row
+//     value, zeros past T) and then one cp.async.mbarrier.arrive on the
+//     stage's mbarrier; stage s + 2 is issued as soon as stage s has been
+//     split, so it lands while stages s and s + 1 are computed. Raw rows are
+//     stored with their 16-byte chunks XOR-swizzled by row, so that the
+//     split pass reads them without bank conflicts.
+//   * Split once. When a stage lands, all 256 threads write its TF32 halves
+//     (hi = tf32(x), lo = tf32(x - hi)) once, in one pass, in the layouts
+//     the products read as wgmma's K-major shared-memory B operands (core
+//     matrices of 8 rows x 16 bytes, no swizzle): [rows][dh] for S = Q K^T
+//     and dP = dO V^T, and [dh][rows] for the products fed from the
+//     accumulators (dQ += dS K; dV += Pd^T dO and dK += dS^T Q), whose
+//     4-column chunks are strided by 16 dh + 16 bytes so that the transposing
+//     stores fall on 32 banks. The owned side is split once a block: into
+//     registers as A fragments at dh <= 32, into [128][dh] shared-memory
+//     tiles at dh = 64 (registers would not hold them).
+//   * Products: wgmma.mma_async m64nNk8 .f32.tf32.tf32, three a k-step (lo
+//     hi, hi lo, hi hi into one fp32 accumulator, as attention_common.cuh's
+//     mma3). dS and Pd are re-laid from their accumulator into A fragments
+//     in registers with the reduced axis numbered in the accumulator's order
+//     (index t is column 2t, t + 4 is 2t + 1: no shuffle), so the [dh][rows]
+//     tiles store each group of 8 streamed rows in that order. Those
+//     products are issued one k-step (8 streamed rows) at a time, so that
+//     the products of one column group run while the next is computed.
+//   * Elementwise work per element on the CUDA cores: the exp (ex2 of the
+//     pre-scaled exponent, __expf), the bias and the dropout hash, each
+//     kernel instantiated for a bias that broadcasts over queries or not and
+//     for dropout on or off, so that no element pays for a branch. A
+//     broadcast bias (BERT4Rec's key padding [B,1,1,T]) is one row: staged
+//     with the keys in the dQ kernel, two values a thread in the dK/dV
+//     kernel.
+//   * Padded rows (past T) are zeros in the tiles, have m = +inf (P = 0) and
+//     write nothing; a staged key past T has bias -inf; a fully masked row
+//     (m = -1e9, 1/l = 1/T) gives P = 1/T on every key, as in the one-sweep
+//     kernel.
 //
 // Bound on the H100 (data sheet) at BERT4Rec's shape B=256, H=4, dh=32,
 // T=600: 10*B*H*T*T*dh = 118 GFLOP, 0.238 ms at the 495 TFLOP/s TF32
-// tensor-core peak (3xTF32 issues three products for each), against 550 MB
-// of q, k, v, dO read and dq, dk, dv written, 0.164 ms at 3.35 TB/s: bound
-// by operations. This design computes S and dP twice (seven products where
-// the one-sweep kernel has five) and re-reads the streamed side from L2 once
-// per block of the other side. What else holds it back: mma.sync, not wgmma;
-// the exp, the hash and the bias read per element on the CUDA cores; a block
-// barrier per stage with no copy in flight across it.
+// tensor-core peak, against 550 MB of q, k, v, dO read and dq, dk, dv
+// written, 0.164 ms at 3.35 TB/s: bound by operations. This design issues
+// 7 products x 3 (3xTF32) = 2.1 times the function's count of TF32 products
+// and pads T to the 128-row blocks (640 of 600 rows), about 1.1 ms at the
+// peak. What is left (PERF.md section 6): the two warpgroups run the
+// split, the products and the elementwise pass of a stage in step, so the
+// tensor cores idle while the CUDA cores split and exponentiate (one block
+// an SM: the tiles take 100-230 KB); splitting while products run slowed
+// those products (both read shared memory); S and dP are computed twice.
 
 #include <string.h>
 
 #include "attention_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 using namespace amid_attention;
+using namespace amid_hopper;
 
-constexpr int kWarps = 4;           // warps a block
-constexpr int kRows = kWarps * 16;  // rows a block owns, and rows a stage holds
+constexpr int kThreads = 256;  // two warpgroups
+constexpr int kOwn = 128;      // rows a block owns, 64 a warpgroup
 
-// Shared memory of either kernel: two [kRows][dh + 4] tiles of the streamed
-// side, two of the owned side where the kernel stages it (dQ: always; dK/dV:
-// at dh=64), and four per-row values.
-size_t smem_bytes(int dh, int tiles) {
-  return sizeof(float) * ((size_t)tiles * kRows * pitch(dh) + 4 * kRows);
+// ---------------------------------------------------------------------------
+// wgmma, tf32 inputs, fp32 accumulator
+// ---------------------------------------------------------------------------
+// mma_ss: d[64 x N] += A[64 x 8] B[N x 8]^T, A and B K-major in shared
+// memory (descriptors; the N = 32 stages of dh = 64). mma_rs: the same with
+// A in registers: a = A[g][t], A[g+8][t], A[g][t+4], A[g+8][t+4] of the
+// warp's 16 rows (g = lane / 4, t = lane % 4). The accumulator gives a
+// thread rows 16 warp + g (d[4j], d[4j+1]) and + 8 (d[4j+2], d[4j+3]) of
+// columns 8j + 2t + {0, 1}.
+#define BWL_L4 "%0, %1, %2, %3"
+#define BWL_L8 BWL_L4 ", %4, %5, %6, %7"
+#define BWL_L16 BWL_L8 ", %8, %9, %10, %11, %12, %13, %14, %15"
+#define BWL_L32                                                                        \
+  BWL_L16 ", %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, " \
+          "%31"
+#define BWL_R(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define BWL_O4 BWL_R(0)
+#define BWL_O8 BWL_O4, BWL_R(4)
+#define BWL_O16 BWL_O8, BWL_R(8), BWL_R(12)
+#define BWL_O32 BWL_O16, BWL_R(16), BWL_R(20), BWL_R(24), BWL_R(28)
+
+template <int N>
+__device__ __forceinline__ void mma_ss(float (&d)[N / 2], uint64_t a, uint64_t b);
+template <int N>
+__device__ __forceinline__ void mma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b);
+
+template <>
+__device__ __forceinline__ void mma_ss<32>(float (&d)[16], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {" BWL_L16
+      "}, %16, %17, p, 1, 1;\n}\n"
+      : BWL_O16
+      : "l"(a), "l"(b), "r"(1));
+}
+template <>
+__device__ __forceinline__ void mma_rs<64>(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {" BWL_L32
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : BWL_O32
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+template <>
+__device__ __forceinline__ void mma_rs<32>(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {" BWL_L16
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : BWL_O16
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+template <>
+__device__ __forceinline__ void mma_rs<16>(float (&d)[8], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {" BWL_L8
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : BWL_O8
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+template <>
+__device__ __forceinline__ void mma_rs<8>(float (&d)[4], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 {" BWL_L4
+      "}, {%4, %5, %6, %7}, %8, p, 1, 1;\n}\n"
+      : BWL_O4
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// ---------------------------------------------------------------------------
+// tiles in shared memory
+// ---------------------------------------------------------------------------
+template <int DH>
+struct Plan {
+  // the owned side's A operands of S and dP: split once into registers
+  // (dh <= 32), or into [128][dh] shared-memory tiles (dh = 64: registers
+  // would not hold them)
+  static constexpr bool REG_A = DH <= 32;
+  static constexpr int C = DH / 4;                  // 16-byte chunks of a row
+  static constexpr int NS = DH == 64 ? 32 : 64;     // rows a stage streams
+  static constexpr int L = DH >= 32 ? 1 : 32 / DH;  // raw rows in one 128-byte line
+  static constexpr int TILE = NS * DH;              // floats of a [NS][dh] tile
+  static constexpr int TR = NS * DH + NS;           // of a [dh][NS] tile (chunk padding)
+  static constexpr int OWN = REG_A ? 0 : kOwn * DH;  // of an owned [128][dh] tile
+  static constexpr int TR_LBO = 16 * DH + 16;       // bytes between a [dh][NS] tile's chunks
+};
+
+// raw [NS][dh] tile: row r's chunk c at chunk c ^ swizzle(r)
+template <int DH>
+__device__ __forceinline__ int raw_at(int r, int c) {
+  using P = Plan<DH>;
+  return r * DH + ((c ^ ((r / P::L) & (P::C - 1))) << 2);
+}
+
+// split [rows][dh] tile: core matrix (r / 8, c) at (r / 8 * C + c) * 128
+// bytes, row r % 8 of it 16 bytes further each: LBO 128, SBO 32 dh bytes
+template <int DH>
+__device__ __forceinline__ int tile_at(int r, int c) {
+  return ((r >> 3) * Plan<DH>::C + c) * 32 + ((r & 7) << 2);
+}
+template <int DH>
+__device__ __forceinline__ uint64_t tile_desc(const float* t) {
+  return matrix_desc(smem_u32(t), 128, 32 * DH);
+}
+
+// split [dh][NS] tile, row d, column p: core matrix (d / 8, p / 4) at
+// (p / 4) * TR_LBO + (d / 8) * 128 bytes: LBO TR_LBO, SBO 128
+template <int DH>
+__device__ __forceinline__ int tr_at(int d, int p) {
+  return (p >> 2) * (4 * DH + 4) + (d >> 3) * 32 + ((d & 7) << 2) + (p & 3);
+}
+template <int DH>
+__device__ __forceinline__ uint64_t tr_desc(const float* t) {
+  return matrix_desc(smem_u32(t), Plan<DH>::TR_LBO, 128);
+}
+
+// the column of streamed row r in a [dh][NS] tile: in each group of 8, the
+// accumulator's order (reduced index t is row 2t, t + 4 is row 2t + 1)
+__device__ __forceinline__ int perm8(int r) {
+  return (r & ~7) | ((r & 7) >> 1) | ((r & 1) << 2);
+}
+
+__device__ __forceinline__ void split4(const float4 x, float4& hi, float4& lo) {
+  const Split a = split(x.x), b = split(x.y), c = split(x.z), d = split(x.w);
+  hi = make_float4(__uint_as_float(a.hi), __uint_as_float(b.hi), __uint_as_float(c.hi),
+                   __uint_as_float(d.hi));
+  lo = make_float4(__uint_as_float(a.lo), __uint_as_float(b.lo), __uint_as_float(c.lo),
+                   __uint_as_float(d.lo));
+}
+
+// cp.async of rows [row0, row0 + NS) of a head (row stride st, 16-byte
+// aligned rows) into a raw tile; rows past T are zeros
+template <int DH>
+__device__ __forceinline__ void copy_rows(float* raw, const float* head, long long st,
+                                          int row0, int T, int tid) {
+  using P = Plan<DH>;
+  for (int item = tid; item < P::NS * P::C; item += kThreads) {
+    const int r = item / P::C, c = item - r * P::C;
+    const int i = row0 + r;
+    const bool in = i < T;
+    cp_async16(smem_u32(raw + raw_at<DH>(r, c)), head + (long long)(in ? i : 0) * st + 4 * c,
+               in);
+  }
+}
+
+// cp.async of values [row0, row0 + NS) of a contiguous vector; zeros past T
+template <int NS>
+__device__ __forceinline__ void copy_vals(float* dst, const float* src, int row0, int T,
+                                          int tid) {
+  for (int r = tid; r < NS; r += kThreads) {
+    const int i = row0 + r;
+    const bool in = i < T;
+    cp_async4(smem_u32(dst + r), src + (in ? i : 0), in);
+  }
+}
+
+// A landed raw tile as TF32 halves, in one pass: [NS][dh] hi and lo, and
+// with Tr also [dh][NS] hi and lo, each group of 8 rows in the order perm8
+// gives
+template <int DH, bool Tr>
+__device__ __forceinline__ void split_stage(const float* raw, float* hi, float* lo, float* thi,
+                                            float* tlo, int tid) {
+  using P = Plan<DH>;
+  for (int item = tid; item < P::NS * P::C; item += kThreads) {
+    const int c = item / P::NS, r = item - c * P::NS;
+    float4 h, l;
+    split4(*reinterpret_cast<const float4*>(raw + raw_at<DH>(r, c)), h, l);
+    *reinterpret_cast<float4*>(hi + tile_at<DH>(r, c)) = h;
+    *reinterpret_cast<float4*>(lo + tile_at<DH>(r, c)) = l;
+    if constexpr (Tr) {
+      const int p = perm8(r);
+      const float hv[4] = {h.x, h.y, h.z, h.w}, lv[4] = {l.x, l.y, l.z, l.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        thi[tr_at<DH>(4 * c + e, p)] = hv[e];
+        tlo[tr_at<DH>(4 * c + e, p)] = lv[e];
+      }
+    }
+  }
+}
+
+// rows [row0, row0 + 128) of a head as TF32 halves in [128][dh] tiles
+// (plain loads, once a block); rows past T are zeros
+template <int DH>
+__device__ __forceinline__ void load_owned(const float* head, long long st, int row0, int T,
+                                           float* hi, float* lo, int tid) {
+  for (int item = tid; item < kOwn * Plan<DH>::C; item += kThreads) {
+    const int c = item / kOwn, r = item - c * kOwn;
+    const int i = row0 + r;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (i < T) x = __ldg(reinterpret_cast<const float4*>(head + (long long)i * st) + c);
+    float4 h, l;
+    split4(x, h, l);
+    *reinterpret_cast<float4*>(hi + tile_at<DH>(r, c)) = h;
+    *reinterpret_cast<float4*>(lo + tile_at<DH>(r, c)) = l;
+  }
+}
+
+// The warp's 16 owned rows of a head as the A fragments (hi, lo) of its
+// k-steps over dh: rows r0, r0 + 8, columns 8 k + t and 8 k + t + 4 (plain
+// loads, once a block); rows past T are zeros
+template <int DH>
+__device__ __forceinline__ void owned_frags(const float* head, long long st, int r0, int T,
+                                            int t4, uint32_t (&hi)[DH / 8][4],
+                                            uint32_t (&lo)[DH / 8][4]) {
+  const bool in0 = r0 < T, in1 = r0 + 8 < T;
+  const float* a = head + (long long)(in0 ? r0 : 0) * st;
+  const float* b = head + (long long)(in1 ? r0 + 8 : 0) * st;
+#pragma unroll
+  for (int k = 0; k < DH / 8; ++k) {
+    const int c = 8 * k + t4;
+    const float v[4] = {in0 ? a[c] : 0.f, in1 ? b[c] : 0.f, in0 ? a[c + 4] : 0.f,
+                        in1 ? b[c + 4] : 0.f};
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      const Split sp = split(v[x]);
+      hi[k][x] = sp.hi;
+      lo[k][x] = sp.lo;
+    }
+  }
+}
+
+// dS or Pd of 8 streamed rows (one k-step) as the hi and lo A fragments
+__device__ __forceinline__ void frag(const float (&v)[4], uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  const float a[4] = {v[0], v[2], v[1], v[3]};
+#pragma unroll
+  for (int x = 0; x < 4; ++x) {
+    const Split s = split(a[x]);
+    hi[x] = s.hi;
+    lo[x] = s.lo;
+  }
 }
 
 template <int DH>
-__global__ void __launch_bounds__(kWarps * 32)
+constexpr size_t dq_smem() {
+  using P = Plan<DH>;
+  return sizeof(float) * (4 * P::OWN + 2 * (2 * P::TILE + P::NS) + 4 * P::TILE + 2 * P::TR +
+                          P::NS + kOwn) + 2 * sizeof(uint64_t);
+}
+
+template <int DH>
+constexpr size_t dkdv_smem() {
+  using P = Plan<DH>;
+  return sizeof(float) * (4 * P::OWN + 2 * (2 * P::TILE + 3 * P::NS) + 4 * P::TILE +
+                          4 * P::TR + 4 * P::NS) + 2 * sizeof(uint64_t);
+}
+
+// BCAST: the bias broadcasts over queries (bias_si == 0); DROP: dropout on
+template <int DH, bool BCAST, bool DROP>
+__global__ void __launch_bounds__(kThreads, 1)
 attention_bwd_dq_kernel(const BwdParams p, float* dsum) {
-  constexpr int P = pitch(DH);
-  constexpr int KS = DH / 8;        // k-steps over dh; n-tiles of dQ
-  constexpr bool kHold = DH < 64;   // the warp's Q and dO fragments held in registers
+  using P = Plan<DH>;
+  constexpr int NS = P::NS, KS = DH / 8, JS = NS / 8;
+  constexpr int RAW = 2 * P::TILE + NS;  // a raw stage: K, V, the bias row
   const int T = p.T;
 
-  extern __shared__ float smem[];
-  float* qs = smem;                 // [kRows][P] the block's Q
-  float* gs = qs + kRows * P;       // [kRows][P] the block's dO
-  float* ks = gs + kRows * P;       // [kRows][P] a stage's K
-  float* vs = ks + kRows * P;       // [kRows][P] a stage's V
-  float* mrow = vs + kRows * P;     // [kRows] m_i
-  float* lrow = mrow + kRows;       // [kRows] 1/l_i, 0 past T
-  float* drow = lrow + kRows;       // [kRows] D_i
-  uint32_t* rkey = reinterpret_cast<uint32_t*>(drow + kRows);  // [kRows] dropout key of row i
+  extern __shared__ __align__(128) float smem[];
+  float* qhi = smem;             // [128][dh] the block's Q, hi and lo
+  float* qlo = qhi + P::OWN;
+  float* ghi = qlo + P::OWN;     // [128][dh] the block's dO
+  float* glo = ghi + P::OWN;
+  float* raw = glo + P::OWN;     // two raw stages
+  float* khi = raw + 2 * RAW;    // [NS][dh] a stage's K and V
+  float* klo = khi + P::TILE;
+  float* vhi = klo + P::TILE;
+  float* vlo = vhi + P::TILE;
+  float* kthi = vlo + P::TILE;   // [dh][NS] a stage's K, transposed
+  float* ktlo = kthi + P::TR;
+  float* bias_s = ktlo + P::TR;  // [NS] the stage's bias row (a bias broadcast over queries)
+  float* drow = bias_s + NS;     // [128] D_i
+  uint64_t* full = reinterpret_cast<uint64_t*>(drow + kOwn);  // [2] a raw stage landed
 
+  const int tid = threadIdx.x;
   const int bh = blockIdx.x;
   const int b = bh / p.H;
   const int h = bh - b * p.H;
-  const int q0 = blockIdx.y * kRows;
+  const int q0 = blockIdx.y * kOwn;
   const float* qb = p.q + b * p.q_sb + h * DH;
   const float* kb = p.k + b * p.k_sb + h * DH;
   const float* vb = p.v + b * p.v_sb + h * DH;
   const float* gb = p.dout + b * p.g_sb + h * DH;
   const float* ob = p.out + b * p.o_sb + h * DH;
-  for (int idx = threadIdx.x; idx < kRows * DH; idx += blockDim.x) {
-    const int r = idx / DH;
-    const int c = idx - r * DH;
-    const int i = q0 + r;
-    const bool in = i < T;
-    qs[r * P + c] = in ? qb[i * p.q_st + c] : 0.f;
-    gs[r * P + c] = in ? gb[i * p.g_st + c] : 0.f;
-  }
-  const uint32_t bh_key =
-      p.dropout ? mix(mix(kMixKey0, (uint32_t)*p.seed), (uint32_t)bh) : 0u;
+  const float* bias_b = p.bias + b * p.bias_sb;
   const long long stat = (long long)bh * T;
-  for (int r = threadIdx.x; r < kRows; r += blockDim.x) {
-    const int i = q0 + r;
-    const bool in = i < T;
-    mrow[r] = in ? p.row_max[stat + i] : 0.f;
-    lrow[r] = in ? p.row_inv_sum[stat + i] : 0.f;
-    rkey[r] = p.dropout ? mix(bh_key, (uint32_t)i) : 0u;
+  const int ns = (T + NS - 1) / NS;
+
+  if (tid == 0) {
+    mbar_init(smem_u32(full), kThreads);
+    mbar_init(smem_u32(full + 1), kThreads);
+    mbar_init_fence();
   }
   __syncthreads();
+  auto issue = [&](int s) {  // stage s into raw stage s % 2
+    float* r = raw + (s & 1) * RAW;
+    copy_rows<DH>(r, kb, p.k_st, s * NS, T, tid);
+    copy_rows<DH>(r + P::TILE, vb, p.v_st, s * NS, T, tid);
+    if constexpr (BCAST) copy_vals<NS>(r + 2 * P::TILE, bias_b, s * NS, T, tid);
+    cp_async_arrive(smem_u32(full + (s & 1)));
+  };
+  issue(0);
+  if (ns > 1) issue(1);
+  if constexpr (!P::REG_A) {
+    load_owned<DH>(qb, p.q_st, q0, T, qhi, qlo, tid);
+    load_owned<DH>(gb, p.g_st, q0, T, ghi, glo, tid);
+  }
   // D_i of the block's queries, summed as the one-sweep kernel sums it
-  for (int r = threadIdx.x; r < kRows; r += blockDim.x) {
-    const int i = q0 + r;
+  if (tid < kOwn) {
+    const int i = q0 + tid;
     float d = 0.f;
     if (i < T) {
+      const float* grow = gb + i * p.g_st;
       const float* orow = ob + i * p.o_st;
 #pragma unroll
-      for (int c = 0; c < DH; ++c) d = fmaf(gs[r * P + c], orow[c], d);
+      for (int c = 0; c < DH; ++c) d = fmaf(grow[c], orow[c], d);
       dsum[stat + i] = d;
     }
-    drow[r] = d;
+    drow[tid] = d;
   }
+  fence_proxy_async();
   __syncthreads();
 
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
+  const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
-  const int ra = warp * 16 + g, rb = ra + 8;  // this lane's two query rows in the block
-  const int ia = q0 + ra, ib = q0 + rb;
-  const bool active = q0 + warp * 16 < T;
-  auto frag = [&](const float* x, int kk) {  // rows ra, rb of a staged [kRows][P] tile
-    const int c = kk * 8 + t4;
-    return split_a(x[ra * P + c], x[rb * P + c], x[ra * P + c + 4], x[rb * P + c + 4]);
-  };
-  FragA qa[kHold ? KS : 1], ga[kHold ? KS : 1];
-  float dq[KS][4];
+  const int rl = wg * 64 + warp * 16 + g;  // this thread's rows rl, rl + 8 of the block
+  int i2[2];
+  float m2[2], l2[2], d2[2];
+  uint32_t key2[2];
+  const uint32_t bh_key = DROP ? mix(mix(kMixKey0, (uint32_t)*p.seed), (uint32_t)bh) : 0u;
 #pragma unroll
-  for (int kk = 0; kk < KS; ++kk) {
-    if constexpr (kHold) {
-      qa[kk] = frag(qs, kk);
-      ga[kk] = frag(gs, kk);
-    }
-    dq[kk][0] = dq[kk][1] = dq[kk][2] = dq[kk][3] = 0.f;
+  for (int x = 0; x < 2; ++x) {  // a row past T has m = inf: P = 0
+    const int i = q0 + rl + 8 * x;
+    const bool in = i < T;
+    i2[x] = in ? i : T - 1;
+    m2[x] = in ? p.row_max[stat + i] : INFINITY;
+    l2[x] = in ? p.row_inv_sum[stat + i] : 0.f;
+    d2[x] = drow[rl + 8 * x];
+    key2[x] = DROP ? mix(bh_key, (uint32_t)i) : 0u;
   }
-  const float m2[2] = {mrow[ra], mrow[rb]}, l2[2] = {lrow[ra], lrow[rb]};
-  const float d2[2] = {drow[ra], drow[rb]};
-  const uint32_t key2[2] = {rkey[ra], rkey[rb]};
-  const float* bias_b = p.bias + b * p.bias_sb;
+  constexpr int KA = P::REG_A ? KS : 1;
+  uint32_t qf_hi[KA][4], qf_lo[KA][4], gf_hi[KA][4], gf_lo[KA][4];
+  if constexpr (P::REG_A) {
+    owned_frags<DH>(qb, p.q_st, q0 + rl, T, t4, qf_hi, qf_lo);
+    owned_frags<DH>(gb, p.g_st, q0 + rl, T, t4, gf_hi, gf_lo);
+  }
+  const uint64_t qa_hi = tile_desc<DH>(qhi + wg * 64 * DH);
+  const uint64_t qa_lo = tile_desc<DH>(qlo + wg * 64 * DH);
+  const uint64_t ga_hi = tile_desc<DH>(ghi + wg * 64 * DH);
+  const uint64_t ga_lo = tile_desc<DH>(glo + wg * 64 * DH);
+  const uint64_t kb_hi = tile_desc<DH>(khi), kb_lo = tile_desc<DH>(klo);
+  const uint64_t vb_hi = tile_desc<DH>(vhi), vb_lo = tile_desc<DH>(vlo);
+  const uint64_t kt_hi = tr_desc<DH>(kthi), kt_lo = tr_desc<DH>(ktlo);
+  constexpr int kTrStep = 2 * P::TR_LBO / 16;  // a k-step of a [dh][NS] tile, in descriptor units
 
-  for (int j0 = 0; j0 < T; j0 += kRows) {
-    __syncthreads();  // the last stage's K and V are no longer read
-    for (int idx = threadIdx.x; idx < kRows * DH; idx += blockDim.x) {
-      const int r = idx / DH;
-      const int c = idx - r * DH;
-      const int j = j0 + r;
-      const bool in = j < T;
-      ks[r * P + c] = in ? kb[j * p.k_st + c] : 0.f;
-      vs[r * P + c] = in ? vb[j * p.v_st + c] : 0.f;
+  float dq[DH / 2];
+#pragma unroll
+  for (int x = 0; x < DH / 2; ++x) dq[x] = 0.f;
+
+  for (int s = 0; s < ns; ++s) {
+    const float* r = raw + (s & 1) * RAW;
+    const int j0 = s * NS;
+    mbar_wait(smem_u32(full + (s & 1)), (s >> 1) & 1);
+    split_stage<DH, true>(r, khi, klo, kthi, ktlo, tid);
+    split_stage<DH, false>(r + P::TILE, vhi, vlo, nullptr, nullptr, tid);
+    if constexpr (BCAST)  // a key past T gets bias -inf: P = 0
+      for (int c = tid; c < NS; c += kThreads)
+        bias_s[c] = j0 + c < T ? r[2 * P::TILE + c] : -INFINITY;
+    fence_proxy_async();
+    __syncthreads();  // the split tiles are written and raw stage s % 2 is free
+    if (s + 2 < ns) issue(s + 2);
+
+    // S = Q K^T and dP = dO V^T, 3xTF32 (lo hi, hi lo, hi hi a k-step)
+    float sa[NS / 2], pa[NS / 2];
+#pragma unroll
+    for (int x = 0; x < NS / 2; ++x) sa[x] = pa[x] = 0.f;
+    fence_regs(sa);
+    fence_regs(pa);
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < KS; ++k) {
+      if constexpr (P::REG_A) {
+        mma_rs<NS>(sa, qf_lo[k], kb_hi + 16 * k);
+        mma_rs<NS>(sa, qf_hi[k], kb_lo + 16 * k);
+        mma_rs<NS>(sa, qf_hi[k], kb_hi + 16 * k);
+        mma_rs<NS>(pa, gf_lo[k], vb_hi + 16 * k);
+        mma_rs<NS>(pa, gf_hi[k], vb_lo + 16 * k);
+        mma_rs<NS>(pa, gf_hi[k], vb_hi + 16 * k);
+      } else {
+        mma_ss<NS>(sa, qa_lo + 16 * k, kb_hi + 16 * k);
+        mma_ss<NS>(sa, qa_hi + 16 * k, kb_lo + 16 * k);
+        mma_ss<NS>(sa, qa_hi + 16 * k, kb_hi + 16 * k);
+        mma_ss<NS>(pa, ga_lo + 16 * k, vb_hi + 16 * k);
+        mma_ss<NS>(pa, ga_hi + 16 * k, vb_lo + 16 * k);
+        mma_ss<NS>(pa, ga_hi + 16 * k, vb_hi + 16 * k);
+      }
     }
-    __syncthreads();
-    if (!active) continue;
-    const int ntiles = (min(kRows, T - j0) + 7) / 8;  // 8-key tiles holding a key < T
-    for (int n = 0; n < ntiles; ++n) {
-      const int jl = n * 8;
-      // element e: query ia (e < 2) or ib, key j0 + jl + 2*t4 + e % 2; the bias
-      // is read before the products so that its loads overlap them (indices
-      // clamped: elements past T get P = 0 below)
-      float bv[4];
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sa);
+    fence_regs(pa);
+
+    // dS element by element, then dQ += dS K (B: the stage's K as [dh][NS]),
+    // one k-step a column group j: element e of group j is query rl + 8 (e / 2),
+    // key 8 j + 2 t + e % 2 of the stage. Group j's products run while group
+    // j + 1 is computed; its A fragments take turns in two buffers.
+    uint32_t ahi[2][4], alo[2][4];
+    fence_regs(dq);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = min(e < 2 ? ia : ib, T - 1);
-        const int j = min(j0 + jl + 2 * t4 + (e & 1), T - 1);
-        bv[e] = bias_b[i * p.bias_si + j];
-      }
-      float s[4] = {0.f, 0.f, 0.f, 0.f}, dp[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-      for (int kk = 0; kk < KS; ++kk) {
-        FragA qf, gf;
-        if constexpr (kHold) {
-          qf = qa[kk];
-          gf = ga[kk];
-        } else {
-          qf = frag(qs, kk);
-          gf = frag(gs, kk);
-        }
-        const int kr = (jl + g) * P + kk * 8 + t4;  // B = K^T, V^T: key g, dims t and t+4
-        mma3(s, qf, ks[kr], ks[kr + 4]);
-        mma3(dp, gf, vs[kr], vs[kr + 4]);
-      }
+    for (int j = 0; j < JS; ++j) {
       float ds[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        const int i = r ? ib : ia;
-        const int j = j0 + jl + 2 * t4 + (e & 1);
-        float pv = 0.f, kf = 1.f;
-        if (i < T && j < T) {
-          pv = expf(s[e] * p.scale + bv[e] - m2[r]) * l2[r];
-          if (p.dropout)
-            kf = (mix(key2[r], (uint32_t)j) >> 8) >= p.keep_threshold ? p.inv_keep : 0.f;
+        const int x = e >> 1;
+        const int c = 8 * j + 2 * t4 + (e & 1);
+        const int key = j0 + c;
+        float pv;
+        if constexpr (BCAST) {
+          pv = __expf(fmaf(sa[4 * j + e], p.scale, bias_s[c]) - m2[x]) * l2[x];
+        } else {
+          const float bv = bias_b[i2[x] * p.bias_si + min(key, T - 1)];
+          pv = key < T ? __expf(fmaf(sa[4 * j + e], p.scale, bv) - m2[x]) * l2[x] : 0.f;
         }
-        ds[e] = pv * (dp[e] * kf - d2[r]);
+        float dpv = pa[4 * j + e];
+        if constexpr (DROP)
+          dpv *= (mix(key2[x], (uint32_t)key) >> 8) >= p.keep_threshold ? p.inv_keep : 0.f;
+        ds[e] = pv * (dpv - d2[x]);
       }
-      // dQ += dS K: the reduced axis is the tile's 8 keys, in the
-      // accumulator's order (rows 2t, 2t+1 of the B tile)
-      const FragA sa = split_a(ds[0], ds[2], ds[1], ds[3]);
-      const int row = (jl + 2 * t4) * P + g;
-#pragma unroll
-      for (int c = 0; c < KS; ++c) mma3(dq[c], sa, ks[row + c * 8], ks[row + P + c * 8]);
+      if (j >= 2) wgmma_wait<1>();  // group j - 2 is done: its buffer is free
+      fence_regs(ahi[j & 1]);
+      fence_regs(alo[j & 1]);
+      frag(ds, ahi[j & 1], alo[j & 1]);
+      fence_regs(ahi[j & 1]);
+      fence_regs(alo[j & 1]);
+      wgmma_fence();
+      mma_rs<DH>(dq, alo[j & 1], kt_hi + j * kTrStep);
+      mma_rs<DH>(dq, ahi[j & 1], kt_lo + j * kTrStep);
+      mma_rs<DH>(dq, ahi[j & 1], kt_hi + j * kTrStep);
+      wgmma_commit();
     }
+    wgmma_wait<0>();
+    fence_regs(dq);
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      fence_regs(ahi[x]);
+      fence_regs(alo[x]);
+    }
+    __syncthreads();  // the split tiles are read
   }
-  if (!active) return;
+
   const long long out_base = (long long)b * T * p.D + h * DH;
 #pragma unroll
-  for (int c = 0; c < KS; ++c) {
+  for (int c = 0; c < DH / 8; ++c) {
     const int col = c * 8 + 2 * t4;
-    if (ia < T)
-      *reinterpret_cast<float2*>(p.dq + out_base + (long long)ia * p.D + col) =
-          make_float2(dq[c][0] * p.scale, dq[c][1] * p.scale);
-    if (ib < T)
-      *reinterpret_cast<float2*>(p.dq + out_base + (long long)ib * p.D + col) =
-          make_float2(dq[c][2] * p.scale, dq[c][3] * p.scale);
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      const int i = q0 + rl + 8 * x;
+      if (i < T)
+        *reinterpret_cast<float2*>(p.dq + out_base + (long long)i * p.D + col) =
+            make_float2(dq[4 * c + 2 * x] * p.scale, dq[4 * c + 2 * x + 1] * p.scale);
+    }
   }
 }
 
-template <int DH>
-__global__ void __launch_bounds__(kWarps * 32)
+template <int DH, bool BCAST, bool DROP>
+__global__ void __launch_bounds__(kThreads, 1)
 attention_bwd_dkdv_kernel(const BwdParams p, const float* dsum) {
-  constexpr int P = pitch(DH);
-  constexpr int KS = DH / 8;          // k-steps over dh; n-tiles of dV, dK
-  constexpr bool kHoldKV = DH < 64;   // K's and V's hi/lo fragments held in registers
+  using P = Plan<DH>;
+  constexpr int NS = P::NS, KS = DH / 8, JS = NS / 8;
+  constexpr int RAW = 2 * P::TILE + 3 * NS;  // a raw stage: Q, dO, m, 1/l, D
   const int T = p.T;
 
-  extern __shared__ float smem[];
-  float* qs = smem;                 // [kRows][P] a stage's Q
-  float* gs = qs + kRows * P;       // [kRows][P] a stage's dO
-  float* mrow = gs + kRows * P;     // [kRows] m_i
-  float* lrow = mrow + kRows;       // [kRows] 1/l_i, 0 past T
-  float* drow = lrow + kRows;       // [kRows] D_i
-  uint32_t* rkey = reinterpret_cast<uint32_t*>(drow + kRows);  // [kRows] dropout key of row i
-  float* ks = reinterpret_cast<float*>(rkey + kRows);  // [kRows][P] the block's K, at dh=64
-  float* vs = ks + kRows * P;                          // [kRows][P] the block's V, at dh=64
+  extern __shared__ __align__(128) float smem[];
+  float* khi = smem;            // [128][dh] the block's K, hi and lo
+  float* klo = khi + P::OWN;
+  float* vhi = klo + P::OWN;    // [128][dh] the block's V
+  float* vlo = vhi + P::OWN;
+  float* raw = vlo + P::OWN;    // two raw stages
+  float* qhi = raw + 2 * RAW;   // [NS][dh] a stage's Q and dO
+  float* qlo = qhi + P::TILE;
+  float* ghi = qlo + P::TILE;
+  float* glo = ghi + P::TILE;
+  float* qthi = glo + P::TILE;  // [dh][NS] a stage's Q and dO, transposed
+  float* qtlo = qthi + P::TR;
+  float* gthi = qtlo + P::TR;
+  float* gtlo = gthi + P::TR;
+  // [NS] m_i, 1/l_i, D_i and the dropout key (its bits) of the stage's rows
+  float4* rows_s = reinterpret_cast<float4*>(gtlo + P::TR);
+  uint64_t* full = reinterpret_cast<uint64_t*>(rows_s + NS);  // [2] a raw stage landed
 
+  const int tid = threadIdx.x;
   const int bh = blockIdx.x;
   const int b = bh / p.H;
   const int h = bh - b * p.H;
-  const int k0 = blockIdx.y * kRows;
+  const int k0 = blockIdx.y * kOwn;
   const float* qb = p.q + b * p.q_sb + h * DH;
   const float* kb = p.k + b * p.k_sb + h * DH;
   const float* vb = p.v + b * p.v_sb + h * DH;
   const float* gb = p.dout + b * p.g_sb + h * DH;
-  if constexpr (!kHoldKV) {
-    for (int idx = threadIdx.x; idx < kRows * DH; idx += blockDim.x) {
-      const int r = idx / DH;
-      const int c = idx - r * DH;
-      const int j = k0 + r;
-      const bool in = j < T;
-      ks[r * P + c] = in ? kb[j * p.k_st + c] : 0.f;
-      vs[r * P + c] = in ? vb[j * p.v_st + c] : 0.f;
-    }
-  }
-  const uint32_t bh_key =
-      p.dropout ? mix(mix(kMixKey0, (uint32_t)*p.seed), (uint32_t)bh) : 0u;
-  const long long stat = (long long)bh * T;
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int la = warp * 16 + g;  // this lane's first key row in the block
-  const int ja = k0 + la, jb = ja + 8;  // this lane's two keys
-  const bool active = k0 + warp * 16 < T;
-  __syncthreads();  // K and V staged (dh=64)
-  auto frag = [&](const float* x, int kk) {  // key rows la, la + 8 of a staged tile
-    const int c = kk * 8 + t4;
-    return split_a(x[la * P + c], x[(la + 8) * P + c], x[la * P + c + 4],
-                   x[(la + 8) * P + c + 4]);
-  };
-  FragA ka[kHoldKV ? KS : 1], va[kHoldKV ? KS : 1];
-  float dk[KS][4], dv[KS][4];
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk) {
-    if constexpr (kHoldKV) {
-      const int c = kk * 8 + t4;
-      const bool in0 = ja < T, in1 = jb < T;
-      const float* k0p = kb + ja * p.k_st + c;
-      const float* k1p = kb + jb * p.k_st + c;
-      const float* v0p = vb + ja * p.v_st + c;
-      const float* v1p = vb + jb * p.v_st + c;
-      ka[kk] = split_a(in0 ? k0p[0] : 0.f, in1 ? k1p[0] : 0.f, in0 ? k0p[4] : 0.f,
-                       in1 ? k1p[4] : 0.f);
-      va[kk] = split_a(in0 ? v0p[0] : 0.f, in1 ? v1p[0] : 0.f, in0 ? v0p[4] : 0.f,
-                       in1 ? v1p[4] : 0.f);
-    }
-    dk[kk][0] = dk[kk][1] = dk[kk][2] = dk[kk][3] = 0.f;
-    dv[kk][0] = dv[kk][1] = dv[kk][2] = dv[kk][3] = 0.f;
-  }
   const float* bias_b = p.bias + b * p.bias_sb;
+  const long long stat = (long long)bh * T;
+  const int ns = (T + NS - 1) / NS;
+  const uint32_t bh_key = DROP ? mix(mix(kMixKey0, (uint32_t)*p.seed), (uint32_t)bh) : 0u;
 
-  for (int s0 = 0; s0 < T; s0 += kRows) {
-    __syncthreads();  // the last stage's rows are no longer read
-    for (int idx = threadIdx.x; idx < kRows * DH; idx += blockDim.x) {
-      const int r = idx / DH;
-      const int c = idx - r * DH;
-      const int i = s0 + r;
-      const bool in = i < T;
-      qs[r * P + c] = in ? qb[i * p.q_st + c] : 0.f;
-      gs[r * P + c] = in ? gb[i * p.g_st + c] : 0.f;
-    }
-    for (int r = threadIdx.x; r < kRows; r += blockDim.x) {
-      const int i = s0 + r;
-      const bool in = i < T;
-      mrow[r] = in ? p.row_max[stat + i] : 0.f;
-      lrow[r] = in ? p.row_inv_sum[stat + i] : 0.f;
-      drow[r] = in ? dsum[stat + i] : 0.f;
-      rkey[r] = p.dropout ? mix(bh_key, (uint32_t)i) : 0u;
-    }
-    __syncthreads();
-    if (!active) continue;
-    const int qtiles = (min(kRows, T - s0) + 15) / 16;  // 16-query tiles holding a query < T
-    for (int qt = 0; qt < qtiles; ++qt) {
-      const int il = qt * 16;  // the tile's first row in the stage
-      // element (n, e): key ja (e < 2) or jb, query s0 + il + 8n + 2*t4 + e % 2
-      float bv[2][4];
-#pragma unroll
-      for (int n = 0; n < 2; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int j = min(e < 2 ? ja : jb, T - 1);
-          const int i = min(s0 + il + n * 8 + 2 * t4 + (e & 1), T - 1);
-          bv[n][e] = bias_b[i * p.bias_si + j];
-        }
-      }
-      float st[2][4], dp[2][4];  // S^T and dP^T: keys in rows, queries in columns
-#pragma unroll
-      for (int n = 0; n < 2; ++n) {
-        st[n][0] = st[n][1] = st[n][2] = st[n][3] = 0.f;
-        dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
-      }
-#pragma unroll
-      for (int kk = 0; kk < KS; ++kk) {
-        FragA kf, vf;
-        if constexpr (kHoldKV) {
-          kf = ka[kk];
-          vf = va[kk];
-        } else {
-          kf = frag(ks, kk);
-          vf = frag(vs, kk);
-        }
-#pragma unroll
-        for (int n = 0; n < 2; ++n) {
-          const int row = (il + n * 8 + g) * P + t4 + kk * 8;
-          mma3(st[n], kf, qs[row], qs[row + 4]);
-          mma3(dp[n], vf, gs[row], gs[row + 4]);
-        }
-      }
-#pragma unroll
-      for (int n = 0; n < 2; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int j = e < 2 ? ja : jb;
-          const int r = il + n * 8 + 2 * t4 + (e & 1);  // the query's row in the stage
-          float pv = 0.f, kf = 1.f;
-          if (s0 + r < T && j < T) {
-            pv = expf(st[n][e] * p.scale + bv[n][e] - mrow[r]) * lrow[r];
-            if (p.dropout)
-              kf = (mix(rkey[r], (uint32_t)j) >> 8) >= p.keep_threshold ? p.inv_keep : 0.f;
-          }
-          st[n][e] = pv * kf;                         // Pd
-          dp[n][e] = pv * (dp[n][e] * kf - drow[r]);  // dS
-        }
-      }
-      // dV += Pd^T dO and dK += dS^T Q: the reduced axis is the n-tile's 8
-      // queries, in the accumulators' order (rows 2t, 2t+1 of the B tile)
-#pragma unroll
-      for (int n = 0; n < 2; ++n) {
-        const FragA pa = split_a(st[n][0], st[n][2], st[n][1], st[n][3]);
-        const FragA sa = split_a(dp[n][0], dp[n][2], dp[n][1], dp[n][3]);
-        const int row = (il + n * 8 + 2 * t4) * P + g;
-#pragma unroll
-        for (int c = 0; c < KS; ++c) {
-          mma3(dv[c], pa, gs[row + c * 8], gs[row + P + c * 8]);
-          mma3(dk[c], sa, qs[row + c * 8], qs[row + P + c * 8]);
-        }
-      }
-    }
+  if (tid == 0) {
+    mbar_init(smem_u32(full), kThreads);
+    mbar_init(smem_u32(full + 1), kThreads);
+    mbar_init_fence();
   }
-  if (!active) return;
+  __syncthreads();
+  auto issue = [&](int s) {  // stage s into raw stage s % 2
+    float* r = raw + (s & 1) * RAW;
+    copy_rows<DH>(r, qb, p.q_st, s * NS, T, tid);
+    copy_rows<DH>(r + P::TILE, gb, p.g_st, s * NS, T, tid);
+    copy_vals<NS>(r + 2 * P::TILE, p.row_max + stat, s * NS, T, tid);
+    copy_vals<NS>(r + 2 * P::TILE + NS, p.row_inv_sum + stat, s * NS, T, tid);
+    copy_vals<NS>(r + 2 * P::TILE + 2 * NS, dsum + stat, s * NS, T, tid);
+    cp_async_arrive(smem_u32(full + (s & 1)));
+  };
+  issue(0);
+  if (ns > 1) issue(1);
+  if constexpr (!P::REG_A) {
+    load_owned<DH>(kb, p.k_st, k0, T, khi, klo, tid);
+    load_owned<DH>(vb, p.v_st, k0, T, vhi, vlo, tid);
+  }
+  fence_proxy_async();
+  __syncthreads();
+
+  const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int rl = wg * 64 + warp * 16 + g;  // this thread's key rows rl, rl + 8 of the block
+  int j2[2];
+  float bk[2];
+#pragma unroll
+  for (int x = 0; x < 2; ++x) {
+    const int j = k0 + rl + 8 * x;
+    j2[x] = j;
+    bk[x] = BCAST ? bias_b[min(j, T - 1)] : 0.f;
+  }
+  constexpr int KA = P::REG_A ? KS : 1;
+  uint32_t kf_hi[KA][4], kf_lo[KA][4], vf_hi[KA][4], vf_lo[KA][4];
+  if constexpr (P::REG_A) {
+    owned_frags<DH>(kb, p.k_st, k0 + rl, T, t4, kf_hi, kf_lo);
+    owned_frags<DH>(vb, p.v_st, k0 + rl, T, t4, vf_hi, vf_lo);
+  }
+  const uint64_t ka_hi = tile_desc<DH>(khi + wg * 64 * DH);
+  const uint64_t ka_lo = tile_desc<DH>(klo + wg * 64 * DH);
+  const uint64_t va_hi = tile_desc<DH>(vhi + wg * 64 * DH);
+  const uint64_t va_lo = tile_desc<DH>(vlo + wg * 64 * DH);
+  const uint64_t qb_hi = tile_desc<DH>(qhi), qb_lo = tile_desc<DH>(qlo);
+  const uint64_t gb_hi = tile_desc<DH>(ghi), gb_lo = tile_desc<DH>(glo);
+  const uint64_t qt_hi = tr_desc<DH>(qthi), qt_lo = tr_desc<DH>(qtlo);
+  const uint64_t gt_hi = tr_desc<DH>(gthi), gt_lo = tr_desc<DH>(gtlo);
+  constexpr int kTrStep = 2 * P::TR_LBO / 16;
+
+  float dk[DH / 2], dv[DH / 2];
+#pragma unroll
+  for (int x = 0; x < DH / 2; ++x) dk[x] = dv[x] = 0.f;
+
+  for (int s = 0; s < ns; ++s) {
+    const float* r = raw + (s & 1) * RAW;
+    const int s0 = s * NS;
+    mbar_wait(smem_u32(full + (s & 1)), (s >> 1) & 1);
+    split_stage<DH, true>(r, qhi, qlo, qthi, qtlo, tid);
+    split_stage<DH, true>(r + P::TILE, ghi, glo, gthi, gtlo, tid);
+    for (int c = tid; c < NS; c += kThreads)  // a query past T has m = inf: P = 0
+      rows_s[c] = make_float4(s0 + c < T ? r[2 * P::TILE + c] : INFINITY,
+                              r[2 * P::TILE + NS + c], r[2 * P::TILE + 2 * NS + c],
+                              __uint_as_float(DROP ? mix(bh_key, (uint32_t)(s0 + c)) : 0u));
+    fence_proxy_async();
+    __syncthreads();  // the split tiles are written and raw stage s % 2 is free
+    if (s + 2 < ns) issue(s + 2);
+
+    // S^T = K Q^T and dP^T = V dO^T: keys in rows, the stage's queries in columns
+    float st[NS / 2], dp[NS / 2];
+#pragma unroll
+    for (int x = 0; x < NS / 2; ++x) st[x] = dp[x] = 0.f;
+    fence_regs(st);
+    fence_regs(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < KS; ++k) {
+      if constexpr (P::REG_A) {
+        mma_rs<NS>(st, kf_lo[k], qb_hi + 16 * k);
+        mma_rs<NS>(st, kf_hi[k], qb_lo + 16 * k);
+        mma_rs<NS>(st, kf_hi[k], qb_hi + 16 * k);
+        mma_rs<NS>(dp, vf_lo[k], gb_hi + 16 * k);
+        mma_rs<NS>(dp, vf_hi[k], gb_lo + 16 * k);
+        mma_rs<NS>(dp, vf_hi[k], gb_hi + 16 * k);
+      } else {
+        mma_ss<NS>(st, ka_lo + 16 * k, qb_hi + 16 * k);
+        mma_ss<NS>(st, ka_hi + 16 * k, qb_lo + 16 * k);
+        mma_ss<NS>(st, ka_hi + 16 * k, qb_hi + 16 * k);
+        mma_ss<NS>(dp, va_lo + 16 * k, gb_hi + 16 * k);
+        mma_ss<NS>(dp, va_hi + 16 * k, gb_lo + 16 * k);
+        mma_ss<NS>(dp, va_hi + 16 * k, gb_hi + 16 * k);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(st);
+    fence_regs(dp);
+
+    // Pd and dS element by element, then dV += Pd^T dO and dK += dS^T Q (B:
+    // the stage's dO and Q as [dh][NS]), one k-step a column group j:
+    // element e of group j is key rl + 8 (e / 2), query 8 j + 2 t + e % 2 of
+    // the stage. Group j's products run while group j + 1 is computed.
+    uint32_t phi[2][4], plo[2][4], shi[2][4], slo[2][4];
+    fence_regs(dk);
+    fence_regs(dv);
+#pragma unroll
+    for (int j = 0; j < JS; ++j) {
+      float pd[4], ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int x = e >> 1;
+        const int c = 8 * j + 2 * t4 + (e & 1);
+        const int i = s0 + c;
+        const int key = j2[x];
+        const float4 rv = rows_s[c];  // m, 1/l, D, the row's dropout key
+        const float bv = BCAST ? bk[x] : bias_b[min(i, T - 1) * p.bias_si + min(key, T - 1)];
+        const float pv = __expf(fmaf(st[4 * j + e], p.scale, bv) - rv.x) * rv.y;
+        float kf = 1.f;
+        if constexpr (DROP)
+          kf = (mix(__float_as_uint(rv.w), (uint32_t)key) >> 8) >= p.keep_threshold ? p.inv_keep
+                                                                                    : 0.f;
+        pd[e] = DROP ? pv * kf : pv;
+        ds[e] = pv * ((DROP ? dp[4 * j + e] * kf : dp[4 * j + e]) - rv.z);
+      }
+      const int u = j & 1;
+      if (j >= 2) wgmma_wait<1>();  // group j - 2 is done: its buffers are free
+      fence_regs(phi[u]);
+      fence_regs(plo[u]);
+      fence_regs(shi[u]);
+      fence_regs(slo[u]);
+      frag(pd, phi[u], plo[u]);
+      frag(ds, shi[u], slo[u]);
+      fence_regs(phi[u]);
+      fence_regs(plo[u]);
+      fence_regs(shi[u]);
+      fence_regs(slo[u]);
+      wgmma_fence();
+      mma_rs<DH>(dv, plo[u], gt_hi + j * kTrStep);
+      mma_rs<DH>(dv, phi[u], gt_lo + j * kTrStep);
+      mma_rs<DH>(dv, phi[u], gt_hi + j * kTrStep);
+      mma_rs<DH>(dk, slo[u], qt_hi + j * kTrStep);
+      mma_rs<DH>(dk, shi[u], qt_lo + j * kTrStep);
+      mma_rs<DH>(dk, shi[u], qt_hi + j * kTrStep);
+      wgmma_commit();
+    }
+    wgmma_wait<0>();
+    fence_regs(dk);
+    fence_regs(dv);
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      fence_regs(phi[x]);
+      fence_regs(plo[x]);
+      fence_regs(shi[x]);
+      fence_regs(slo[x]);
+    }
+    __syncthreads();  // the split tiles are read
+  }
+
   const long long out_base = (long long)b * T * p.D + h * DH;
 #pragma unroll
-  for (int c = 0; c < KS; ++c) {
+  for (int c = 0; c < DH / 8; ++c) {
     const int col = c * 8 + 2 * t4;
-    if (ja < T) {
-      *reinterpret_cast<float2*>(p.dk + out_base + (long long)ja * p.D + col) =
-          make_float2(dk[c][0] * p.scale, dk[c][1] * p.scale);
-      *reinterpret_cast<float2*>(p.dv + out_base + (long long)ja * p.D + col) =
-          make_float2(dv[c][0], dv[c][1]);
-    }
-    if (jb < T) {
-      *reinterpret_cast<float2*>(p.dk + out_base + (long long)jb * p.D + col) =
-          make_float2(dk[c][2] * p.scale, dk[c][3] * p.scale);
-      *reinterpret_cast<float2*>(p.dv + out_base + (long long)jb * p.D + col) =
-          make_float2(dv[c][2], dv[c][3]);
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      const int j = j2[x];
+      if (j < T) {
+        *reinterpret_cast<float2*>(p.dk + out_base + (long long)j * p.D + col) =
+            make_float2(dk[4 * c + 2 * x] * p.scale, dk[4 * c + 2 * x + 1] * p.scale);
+        *reinterpret_cast<float2*>(p.dv + out_base + (long long)j * p.D + col) =
+            make_float2(dv[4 * c + 2 * x], dv[4 * c + 2 * x + 1]);
+      }
     }
   }
 }
 
-template <int DH>
-cudaError_t launch(const BwdParams& p, float* dsum, int B, cudaStream_t stream) {
-  const size_t dq_smem = smem_bytes(DH, 4);
-  const size_t kv_smem = smem_bytes(DH, DH < 64 ? 2 : 4);
-  // asked once, at the first launch (not a stream operation: it stays out of
-  // a CUDA graph's capture)
-  static const cudaError_t opted_in = [&] {
-    cudaError_t e = cudaFuncSetAttribute(attention_bwd_dq_kernel<DH>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)dq_smem);
-    if (e != cudaSuccess) return e;
-    return cudaFuncSetAttribute(attention_bwd_dkdv_kernel<DH>,
-                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kv_smem);
-  }();
-  if (opted_in != cudaSuccess) return opted_in;
-  const dim3 grid(B * p.H, (p.T + kRows - 1) / kRows);
-  attention_bwd_dq_kernel<DH><<<grid, kWarps * 32, dq_smem, stream>>>(p, dsum);
+template <int DH, bool BCAST, bool DROP>
+cudaError_t opt_in() {
+  cudaError_t e = cudaFuncSetAttribute(attention_bwd_dq_kernel<DH, BCAST, DROP>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)dq_smem<DH>());
+  if (e != cudaSuccess) return e;
+  return cudaFuncSetAttribute(attention_bwd_dkdv_kernel<DH, BCAST, DROP>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dkdv_smem<DH>());
+}
+
+template <int DH, bool BCAST, bool DROP>
+cudaError_t launch_pair(const BwdParams& p, float* dsum, dim3 grid, cudaStream_t stream) {
+  attention_bwd_dq_kernel<DH, BCAST, DROP><<<grid, kThreads, dq_smem<DH>(), stream>>>(p, dsum);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  attention_bwd_dkdv_kernel<DH><<<grid, kWarps * 32, kv_smem, stream>>>(p, dsum);
+  attention_bwd_dkdv_kernel<DH, BCAST, DROP><<<grid, kThreads, dkdv_smem<DH>(), stream>>>(p, dsum);
   return cudaGetLastError();
+}
+
+template <int DH>
+cudaError_t launch(const BwdParams& p, float* dsum, int B, cudaStream_t stream) {
+  static_assert(dq_smem<DH>() <= 232448 && dkdv_smem<DH>() <= 232448, "a block's shared memory");
+  // asked once for the four instances, at the first launch at this head
+  // width (not a stream operation: it stays out of a CUDA graph's capture)
+  static const cudaError_t opted_in = [] {
+    cudaError_t e = opt_in<DH, true, false>();
+    if (e == cudaSuccess) e = opt_in<DH, true, true>();
+    if (e == cudaSuccess) e = opt_in<DH, false, false>();
+    if (e == cudaSuccess) e = opt_in<DH, false, true>();
+    return e;
+  }();
+  if (opted_in != cudaSuccess) return opted_in;
+  const dim3 grid(B * p.H, (p.T + kOwn - 1) / kOwn);
+  if (p.bias_si == 0)
+    return p.dropout ? launch_pair<DH, true, true>(p, dsum, grid, stream)
+                     : launch_pair<DH, true, false>(p, dsum, grid, stream);
+  return p.dropout ? launch_pair<DH, false, true>(p, dsum, grid, stream)
+                   : launch_pair<DH, false, false>(p, dsum, grid, stream);
 }
 
 // The entry point's argument block: the one-sweep kernel's BwdArgs, then the
@@ -448,23 +824,32 @@ struct BwdLongArgs {
   long long dsum;
 };
 
+// whether every row of a [B, T, D] input starts on 16 bytes (cp.async)
+bool rows_aligned(long long base, long long sb, long long st) {
+  return base % 16 == 0 && sb % 4 == 0 && st % 4 == 0;
+}
+
 }  // namespace
 
 extern "C" {
 
-// Longest T the path takes: the grid's second dimension counts 64-row blocks.
-int attention_bwd_long_max_t() { return 65535 * kRows; }
+// Longest T the path takes: the grid's second dimension counts 128-row blocks.
+int attention_bwd_long_max_t() { return 65535 * kOwn; }
 
 // Launches the dQ kernel, then the dK/dV kernel. `raw` is one BwdLongArgs
 // block: the tensors as for attention_bwd (attention_bwd.cu), and dsum a
-// contiguous [B, H, T] fp32 scratch the wrapper allocates. Returns 0, a
-// Refusal, or the first failing launch's cudaError_t.
+// contiguous [B, H, T] fp32 scratch the wrapper allocates. q, k, v and dout
+// rows must start on 16 bytes (kMisaligned otherwise). Returns 0, a Refusal,
+// or the first failing launch's cudaError_t.
 int attention_bwd_long(const void* raw) {
   BwdLongArgs la;
   memcpy(&la, raw, sizeof la);
   const BwdArgs& a = la.a;
   if (a.B < 1 || a.T < 1 || a.H < 1 || a.D % a.H != 0) return kBadShape;
   if (a.T > attention_bwd_long_max_t() || a.B * a.H > 2147483647LL) return kTooLong;
+  if (!rows_aligned(a.q, a.q_sb, a.q_st) || !rows_aligned(a.k, a.k_sb, a.k_st) ||
+      !rows_aligned(a.v, a.v_sb, a.v_st) || !rows_aligned(a.dout, a.g_sb, a.g_st))
+    return kMisaligned;
   const BwdParams p = bwd_params(a);
   float* dsum = ptr<float>(la.dsum);
   cudaStream_t s = ptr<CUstream_st>(a.stream);

@@ -41,6 +41,7 @@ enum Refusal {
   kBadHeadWidth = -1,  // dh not in {8, 16, 32, 64}
   kBadShape = -2,      // B, T or H below 1, or D not a multiple of H
   kTooLong = -3,       // the block's shared memory is above the card's limit
+  kMisaligned = -4,    // a row of q, k, v or dout not on 16 bytes (the long path)
 };
 
 __device__ __forceinline__ uint32_t fmix32(uint32_t h) {

@@ -27,16 +27,22 @@ attention probabilities and scales the kept ones by 1/(1 - rate).
   and the dropout mask regenerated. `attention_backward` is the kernel on
   CUDA tensors and this on CPU tensors.
 * The backward has two CUDA paths (`backward_route`): the one-sweep kernel
-  `csrc/attention_bwd.cu`, which keeps a whole head in one block's shared
-  memory (at dh=32 up to T=368), and the long-sequence path
-  `csrc/attention_bwd_long.cu` (a dQ kernel, then a dK/dV kernel, each
-  streaming the other side), which takes any T up to `long_backward_max_t()`
-  at every kernel head width. A shape goes to the long path only where the
-  one-sweep kernel does not fit it: at every shape both take, the one-sweep
-  kernel was the faster on the H100 (`chip_smoke.py`'s `bwd_crossover`
-  records). A call of the long path counts in
-  `fused_attention.long_backward_launches` (one per call: it launches its two
-  kernels together), one of the one-sweep kernel in `backward_launches`.
+  `csrc/attention_bwd.cu` (`mma.sync` in 3xTF32), which keeps a whole head
+  in one block's shared memory (at dh=32 up to T=368), and the long-sequence
+  path `csrc/attention_bwd_long.cu`, which takes any T up to
+  `long_backward_max_t()` at every kernel head width: a dQ kernel, then a
+  dK/dV kernel, each block owning 128 rows and streaming the other side
+  through a two-stage ring of asynchronous copies, each stage split into
+  TF32 halves once, the products on `wgmma` in 3xTF32. Its bound and what
+  still holds it back are in its header. `backward_route` sends a shape to
+  the long path where it was the faster on the H100 (`long_faster`, a table
+  of the crossovers `chip_smoke.py`'s `bwd_crossover` records measured,
+  `LONG_FASTER_FROM`) or where the one-sweep kernel cannot hold it
+  (`sweep_fits`). The long path's copies read 16-byte chunks of q, k, v and
+  dout rows: a view whose rows do not start on 16 bytes is copied first. A
+  call of the long path counts in `fused_attention.long_backward_launches`
+  (one per call: it launches its two kernels together), one of the
+  one-sweep kernel in `backward_launches`.
 * `dropout_keep_mask` is the counter-based dropout mask both versions use:
   a pure function of (seed, b, h, i, j), so kernel and plain agree bit for
   bit. The TPU's own random bits cannot be reproduced; against JAX only
@@ -251,7 +257,7 @@ def attention_bwd_plain(q, k, v, bias, out, row_max, row_inv_sum, dout,
 _PACK_FWD = struct.Struct("<23q2d").pack
 _PACK_BWD = struct.Struct("<31q2d").pack
 _PACK_BWD_LONG = struct.Struct("<31q2dq").pack  # BwdLongArgs: BwdArgs, then the D_i scratch
-_BAD_HEAD_WIDTH, _BAD_SHAPE, _TOO_LONG = -1, -2, -3  # the entry points' refusals
+_BAD_HEAD_WIDTH, _BAD_SHAPE, _TOO_LONG, _MISALIGNED = -1, -2, -3, -4  # the refusals
 _SOURCES = ["attention_fwd", "attention_bwd", "attention_bwd_long"]
 
 _fwd = _bwd = _bwd_long = None  # bound entry points, resolved at the first launch
@@ -288,6 +294,8 @@ def _raise(err: int, name: str, smem_bytes, t: int, d: int, heads: int):
         raise _too_long(name, smem_bytes, t, d // heads)
     if err == _BAD_SHAPE:
         raise ValueError(f"{name}: B, T and heads must be at least 1")
+    if err == _MISALIGNED:
+        raise ValueError(f"{name}: q, k, v and dout rows must start on 16 bytes")
     raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
 
 
@@ -298,16 +306,38 @@ def long_backward_max_t() -> int:
     return _long_max_t
 
 
-def backward_route(t: int, dh: int) -> str:
-    """'sweep' (the one-sweep kernel) where its shared memory holds a head of
-    length `t` at head width `dh`, else 'long' (the long-sequence path).
-    Asks the one-sweep kernel once per shape."""
+# For each head width, the shortest T from which the long path's device time
+# was below the one-sweep kernel's on the card, among the T that
+# `chip_smoke.py`'s crossover sweep measures (150, 200, 256, 300, 368 and 512,
+# at B=256, D=128, key padding, rate 0, where both paths take the shape;
+# `bwd_crossover` records; NVIDIA H100 80GB HBM3, 700.00 W). Below it, and
+# wherever the one-sweep kernel was the faster, shapes stay on that kernel.
+LONG_FASTER_FROM = {8: 512, 16: 368, 32: 150, 64: 150}
+
+
+def long_faster(t: int, dh: int) -> bool:
+    """Whether the long path was the faster backward at (T, dh) where both
+    paths take the shape: from `LONG_FASTER_FROM[dh]` on. A plain rule of the
+    shape; binds nothing."""
+    start = LONG_FASTER_FROM.get(dh)
+    return start is not None and t >= start
+
+
+def sweep_fits(t: int, dh: int) -> bool:
+    """Whether the one-sweep kernel's shared memory holds a head of length
+    `t` at head width `dh`. Asks the kernel once per shape (binds them)."""
     fits = _bwd_fits.get((t, dh))
     if fits is None:
         if _bwd is None:
             _bind()
         fits = _bwd_fits[(t, dh)] = _bwd_smem(t, dh) <= SMEM_LIMIT
-    return "sweep" if fits else "long"
+    return fits
+
+
+def backward_route(t: int, dh: int) -> str:
+    """'long' (the long-sequence path) where `long_faster(t, dh)` or where the
+    one-sweep kernel cannot hold the shape (`sweep_fits`), else 'sweep'."""
+    return "long" if long_faster(t, dh) or not sweep_fits(t, dh) else "sweep"
 
 
 def _check_backward_fits(t: int, dh: int) -> None:
@@ -398,6 +428,10 @@ def _launch_backward(q, k, v, bias, out, row_max, row_inv_sum, dout,
         raise ValueError(f"row_max and row_inv_sum must be {(bsz, heads, t)}; got "
                          f"{tuple(row_max.shape)}, {tuple(row_inv_sum.shape)}")
     row_max, row_inv_sum = row_max.contiguous(), row_inv_sum.contiguous()
+    if path is None:
+        path = backward_route(t, d // heads)
+    if path == "long":  # its copies read 16-byte chunks of q, k, v and dout rows
+        q, k, v, dout = (x if _rows_aligned(x) else x.contiguous() for x in (q, k, v, dout))
     strides = _strides((("q", q), ("k", k), ("v", v), ("out", out), ("dout", dout)), bias,
                        dev, (("row_max", row_max), ("row_inv_sum", row_inv_sum)))
     dq, dk, dv = (q.new_empty((bsz, t, d)) for _ in range(3))
@@ -407,8 +441,6 @@ def _launch_backward(q, k, v, bias, out, row_max, row_inv_sum, dout,
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             bsz, t, d, heads, *strides, *fields,
             1.0 / math.sqrt(d // heads), 1.0 / (1.0 - rate))
-    if path is None:
-        path = backward_route(t, d // heads)
     if path == "long":
         dsum = q.new_empty((bsz, heads, t))  # D_i, from the dQ kernel to the dK/dV kernel
         err = _bwd_long(_PACK_BWD_LONG(*args, dsum.data_ptr()))
@@ -426,6 +458,11 @@ def _launch_backward(q, k, v, bias, out, row_max, row_inv_sum, dout,
         _raise(err, "attention_bwd", _bwd_smem, t, d, heads)
     fused_attention.backward_launches += 1
     return dq, dk, dv
+
+
+def _rows_aligned(x: torch.Tensor) -> bool:
+    """Whether every [dh] row of a [B, T, D] tensor starts on 16 bytes."""
+    return x.data_ptr() % 16 == 0 and x.stride(0) % 4 == 0 and x.stride(1) % 4 == 0
 
 
 def _device_route(q, name: str) -> bool:

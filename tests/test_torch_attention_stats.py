@@ -15,6 +15,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+import jax
 import jax.numpy as jnp
 from jax.experimental.pallas import tpu as pltpu
 
@@ -193,25 +194,46 @@ def test_tf32_rounding_is_round_to_nearest_ties_away():
 # the packed argument blocks
 # ---------------------------------------------------------------------------
 
-def _fields(struct_name):
-    """(long long fields, double fields) of a struct in the C header, in order."""
-    body = re.search(r"struct %s \{(.*?)\};" % struct_name, HEADER.read_text(), re.S).group(1)
+def _fields(struct_name, source=HEADER):
+    """The fields of a struct in a C source, in order: 'q' for a long long,
+    'd' for a double; a field of the header's struct types is expanded."""
+    body = re.search(r"struct %s \{(.*?)\};" % struct_name, source.read_text(), re.S).group(1)
     kinds = []
     for line in body.split(";"):
         line = line.strip()
-        if line:
-            kind = "q" if line.startswith("long long") else "d"
-            assert line.startswith(("long long", "double")), line
-            kinds += [kind] * len(line.split(","))
+        if not line:
+            continue
+        if line.startswith(("FwdArgs ", "BwdArgs ")):
+            kinds.append(_fields(line.split()[0]))
+            continue
+        kind = "q" if line.startswith("long long") else "d"
+        assert line.startswith(("long long", "double")), line
+        kinds += [kind] * len(line.split(","))
     return "".join(kinds)
 
 
-@pytest.mark.parametrize("name,pack", [("FwdArgs", "_PACK_FWD"), ("BwdArgs", "_PACK_BWD")])
-def test_packed_arguments_match_the_c_struct(name, pack):
-    kinds = _fields(name)
+def _struct_format(kinds):
+    """The struct module's format of a run of 'q' and 'd' fields."""
+    runs = re.findall(r"q+|d+", kinds)
+    return "<" + "".join(f"{len(r)}{r[0]}" if len(r) > 1 else r[0] for r in runs)
+
+
+@pytest.mark.parametrize("name,pack,source", [
+    ("FwdArgs", "_PACK_FWD", "attention_common.cuh"),
+    ("BwdArgs", "_PACK_BWD", "attention_common.cuh"),
+    ("BwdLongArgs", "_PACK_BWD_LONG", "attention_bwd_long.cu"),
+])
+def test_packed_arguments_match_the_c_struct(name, pack, source):
+    """Each block the wrappers pack has the field types, in the order, of the
+    struct its entry point copies it into (the long path's: the one-sweep
+    block, then the D_i scratch's address)."""
+    kinds = _fields(name, HEADER.parent / source)
     fmt = getattr(attention_ops, pack).__self__.format
-    assert fmt == f"<{kinds.count('q')}q{kinds.count('d')}d"
-    assert kinds == "q" * kinds.count("q") + "d" * kinds.count("d")  # doubles last
+    assert fmt == _struct_format(kinds)
+    if name != "BwdLongArgs":
+        assert kinds == "q" * kinds.count("q") + "d" * kinds.count("d")  # doubles last
+    else:
+        assert kinds == _fields("BwdArgs") + "q"
 
 
 def _fake_entry(monkeypatch, code=0):
@@ -341,3 +363,88 @@ def test_backward_route_takes_the_long_path_where_the_sweep_does_not_fit(monkeyp
     with pytest.raises(ValueError, match="'sweep' or 'long'"):
         attention_ops._launch_backward(q, k, v, bias, q, stats, stats, g, 0, heads, 0.0,
                                        path="other")
+
+
+# ---------------------------------------------------------------------------
+# the backward's route, and the long path's regime on the CPU
+# ---------------------------------------------------------------------------
+
+def _no_binding(monkeypatch):
+    def refuse():
+        raise AssertionError("the route rule bound the kernels")
+    monkeypatch.setattr(attention_ops, "_bind", refuse)
+
+
+@pytest.mark.parametrize("dh", attention_ops.KERNEL_HEAD_DIMS)
+def test_long_faster_is_the_measured_crossover_and_binds_nothing(monkeypatch, dh):
+    """`long_faster` is a rule of (T, dh) alone: false below the head width's
+    measured crossover, true from it on (never where none was measured)."""
+    _no_binding(monkeypatch)
+    start = attention_ops.LONG_FASTER_FROM[dh]
+    for t in (1, 20, 150, 200, 256, 300, 368, 600, 4096):
+        assert attention_ops.long_faster(t, dh) == (start is not None and t >= start), t
+    if start is not None:
+        assert not attention_ops.long_faster(start - 1, dh)
+        assert attention_ops.long_faster(start, dh)
+
+
+@pytest.mark.parametrize("dh", attention_ops.KERNEL_HEAD_DIMS)
+def test_backward_route_sends_each_shape_to_the_faster_path(monkeypatch, dh):
+    """The one-sweep kernel where it is the faster and holds the shape; the
+    long path from the measured crossover on and, whatever the table says,
+    at every T beyond the one-sweep kernel's shared memory."""
+    _fake_entry(monkeypatch)
+    fits = 900  # the recorder's one-sweep kernel holds T <= 900 at every head width
+    monkeypatch.setattr(attention_ops, "_bwd_smem",
+                        lambda t, dh: attention_ops.SMEM_LIMIT * t // fits)
+    start = attention_ops.LONG_FASTER_FROM[dh]
+    for t in (1, 37, 150, 200, 256, 300, 368, 400, 600, fits):
+        want = "long" if start is not None and t >= start else "sweep"
+        assert attention_ops.backward_route(t, dh) == want, t
+    for t in (fits + 1, 1000, 65535):
+        assert attention_ops.backward_route(t, dh) == "long", t
+    monkeypatch.setattr(attention_ops, "LONG_FASTER_FROM", {dh: None})
+    attention_ops._bwd_fits.clear()
+    assert attention_ops.backward_route(fits, dh) == "sweep"
+    assert attention_ops.backward_route(fits + 1, dh) == "long"
+
+
+def test_long_path_packs_rows_that_start_on_16_bytes(monkeypatch):
+    """The long path's copies read q, k, v and dout rows in 16-byte chunks:
+    a view whose rows do not start on 16 bytes is copied first; aligned
+    column slices of one projection are passed as they are."""
+    seen = _fake_entry(monkeypatch)
+    b, t, d, heads = 2, 9, 16, 2
+    qkv = torch.randn(b, t, 3 * d)
+    q, k, v = qkv.split(d, dim=-1)
+    misaligned = torch.randn(b, t, d + 1)[..., 1:]
+    stats = torch.zeros(b, heads, t)
+    bias = torch.zeros(b, 1, 1, t)
+    for q_in, copied in ((q, False), (misaligned, True)):
+        attention_ops._launch_backward(q_in, k, v, bias, q, stats, stats, q, 0, heads, 0.0,
+                                       path="long")
+        f = struct.unpack("<31q2dq", seen[-1])
+        assert (f[0] != q_in.data_ptr()) == copied
+        assert f[0] % 16 == 0 and f[15] % 4 == 0 and f[16] % 4 == 0  # q: base, batch, time
+        assert f[1:3] == (k.data_ptr(), v.data_ptr()) and f[17:21] == (3 * d * t, 3 * d) * 2
+
+
+def test_bwd_plain_matches_jax_vjp_in_the_long_path_s_regime(rng):
+    """T=400 at dh=32 (beyond the one-sweep kernel's 368): `attention_bwd_plain`,
+    the version the long path is held to on the card, against `jax.vjp` of the
+    JAX package's Pallas attention in interpret mode, with key padding and
+    batch row 0 fully masked."""
+    b, t, d, heads = 2, 400, 128, 4
+    q, k, v, dout = (rng.normal(size=(b, t, d)).astype(np.float32) for _ in range(4))
+    bias = _keypad_row0_masked(rng, b, t)
+    seed = jnp.zeros((1,), jnp.int32)
+    with pltpu.force_tpu_interpret_mode():
+        _, vjp = jax.vjp(
+            lambda q, k, v: jax_fused_attention(q, k, v, jnp.asarray(bias), seed, heads, 0.0),
+            *map(jnp.asarray, (q, k, v)))
+        want = vjp(jnp.asarray(dout))
+    tq, tk, tv, tb = map(torch.as_tensor, (q, k, v, bias))
+    res = attention_fwd_stats_plain(tq, tk, tv, tb, 0, heads, 0.0)
+    got = attention_bwd_plain(tq, tk, tv, tb, *res, torch.as_tensor(dout), 0, heads, 0.0)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=ATOL, rtol=RTOL)

@@ -143,13 +143,15 @@ def test_kernel_dropout_mask_equals_plain_mask(gen):
 ])
 @pytest.mark.parametrize("rate", [0.0, 0.5])
 def test_backward_kernel_matches_plain(gen, t, d, heads, kind, rate):
-    """The keypad case masks every key of batch row 0."""
+    """The one-sweep kernel (asked for by name: `backward_route` sends
+    T=150 at dh=32 to the long path); the keypad case masks every key of
+    batch row 0."""
     b = 16
     q, k, v, dout = (torch.randn(b, t, d, device="cuda", generator=gen) for _ in range(4))
     bias = _bias(kind, b, t, gen)
     res = attention_fwd_stats_plain(q, k, v, bias, 123, heads, rate)
     before = fused_attention.backward_launches
-    got = attention_backward(q, k, v, bias, *res, dout, 123, heads, rate)
+    got = attention_backward(q, k, v, bias, *res, dout, 123, heads, rate, path="sweep")
     assert fused_attention.backward_launches == before + 1
     want = attention_bwd_plain(q, k, v, bias, *res, dout, 123, heads, rate)
     for g, w in zip(got, want):
@@ -319,6 +321,60 @@ def test_backward_rejects_sequences_its_tile_cannot_hold(gen):
     assert fused_attention.long_backward_launches == longs + 1
     with pytest.raises(ValueError, match="limit of T="):
         attention_ops._check_backward_fits(attention_ops.long_backward_max_t() + 1, 16)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1, 0.5])
+@pytest.mark.parametrize("t,kind", [(369, "causal"), (601, "keypad"), (1000, "per_query")])
+@pytest.mark.parametrize("heads", [16, 8, 4, 2])  # dh 8, 16, 32, 64
+def test_long_path_at_every_head_width_and_ragged_t(gen, heads, t, kind, rate):
+    """The long path against the plain version at each head width, at T that
+    are no multiple of its 64- or 128-row tiles, every bias form (key padding
+    with batch row 0 fully masked), with q, k, v column slices of one
+    projection: bit-equal over two calls, one launch counted per call."""
+    b, d = 2, 128
+    qkv = torch.randn(b, t, 3 * d, device="cuda", generator=gen)
+    q, k, v = qkv.split(d, dim=-1)
+    dout = torch.randn(b, t, d, device="cuda", generator=gen)
+    bias = _bias(kind, b, t, gen)
+    seed = torch.tensor([77], dtype=torch.int64, device="cuda")
+    res = attention_fwd_stats_plain(q, k, v, bias, seed, heads, rate)
+    before = (fused_attention.backward_launches, fused_attention.long_backward_launches)
+    got = attention_backward(q, k, v, bias, *res, dout, seed, heads, rate, path="long")
+    again = attention_backward(q, k, v, bias, *res, dout, seed, heads, rate, path="long")
+    assert (fused_attention.backward_launches,
+            fused_attention.long_backward_launches) == (before[0], before[1] + 2)
+    want = attention_bwd_plain(q, k, v, bias, *res, dout, seed, heads, rate)
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, a)
+        torch.testing.assert_close(g, w, atol=_bwd_atol(t), rtol=RTOL)
+
+
+@pytest.mark.parametrize("heads", [4, 2])  # dh 32, 64
+def test_long_path_replayed_in_a_cuda_graph_equals_the_eager_call(gen, heads):
+    """One long-path call captured in a CUDA graph (after an eager call at the
+    same shape) and replayed gives the eager call's bits; a new seed written
+    into the seed tensor between replays changes the mask, as the eager call
+    with that seed does."""
+    b, t, d = 4, 601, 128
+    q, k, v, dout = (torch.randn(b, t, d, device="cuda", generator=gen) for _ in range(4))
+    bias = _bias("keypad", b, t, gen)
+    seed = torch.tensor([5], dtype=torch.int64, device="cuda")
+    res = attention_fwd_stats_plain(q, k, v, bias, seed, heads, 0.1)
+    eager = attention_backward(q, k, v, bias, *res, dout, seed, heads, 0.1, path="long")
+    longs = fused_attention.long_backward_launches
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = attention_backward(q, k, v, bias, *res, dout, seed, heads, 0.1, path="long")
+    assert fused_attention.long_backward_launches == longs + 1  # counted at the capture
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(captured, eager))
+    seed.fill_(6)
+    graph.replay()
+    other = attention_backward(q, k, v, bias, *res, dout, 6, heads, 0.1, path="long")
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(captured, other))
+    assert not torch.equal(captured[2], eager[2])
 
 
 @pytest.mark.parametrize("u,id_dtype", [(11264, torch.int32), (1000, torch.int64), (5, torch.int32)])

@@ -16,6 +16,7 @@ backwards are what the route adds. fp32 on both sides, dropout off; tolerance
 atol 1e-5 / rtol 1e-4, as tests/test_torch_train.py."""
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -85,9 +86,12 @@ def _models(rng, jax_kernels, port_kernels, fp32_affinity=False):
     jcfg = JaxModelConfig(**MODEL_KW, kernels=jax_kernels)
     jmodel = jax_build_model(jcfg)
     key = jax.random.PRNGKey(0)
+    # under one jit each: the interpreter's callbacks then run inside one
+    # dispatch, never beside an eager one (eagerly, one run in about a dozen
+    # hung with several processes at once)
     with pltpu.force_tpu_interpret_mode():
-        params = jmodel.init({"params": key, "dropout": key}, _jb(_batch(rng, 1)),
-                             train=False)["params"]
+        params = jax.jit(functools.partial(jmodel.init, train=False))(
+            {"params": key, "dropout": key}, _jb(_batch(rng, 1)))["params"]
     port = AMIDModel(ModelConfig(**MODEL_KW, kernels=port_kernels))
     port.load_state_dict(params_from_flax(_np_tree(params)), strict=True)
     if fp32_affinity:
@@ -114,7 +118,8 @@ def test_pairwise_forward_matches_jax(rng, jax_kernels, port_kernels):
     batch = _batch(rng, 255)
     before = _kernel_launches()
     with pltpu.force_tpu_interpret_mode():
-        want = jmodel.apply({"params": params}, _jb(batch), train=False)
+        want = jax.jit(functools.partial(jmodel.apply, train=False))(
+            {"params": params}, _jb(batch))
     captured = {}
     hooks = [getattr(port, n).register_forward_hook(
         lambda mod, args, out, n=n: captured.__setitem__(n, args)) for n in ("itc_d1", "itc_d2")]
