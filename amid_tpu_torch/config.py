@@ -34,7 +34,7 @@ What differs: `--kernels` is checked against `auto|torch|cuda`;
 `--data_root` defaults to `reference`; `--device` (not a config field: see
 `parse_cli_with_device`) names the device, the card when absent; the flags of
 parts that are not ported (`--checkpoint`, `--resume`, `--profile_steps`,
-`--mesh`, `--data_axis`, `--model_axis`, `--distributed`, `--isC2DSR`)
+`--mesh`, `--data_axis`, `--model_axis`, `--distributed`)
 parse into their fields and meet the `NotImplementedError` of the part they
 ask for; `--model` takes the three backbones of `BACKBONES` in any case and
 raises `ValueError` on another name (the JAX package raises it when the model
@@ -109,10 +109,17 @@ class ModelConfig:
 
     @property
     def enc_seq_len(self) -> int:
-        """Encoder input length: doubled by InnerComp's concat along time
-        (model_seq.py:66,471) and by the C2DSR interleaved views."""
-        mult = (2 if self.is_inc else 1) * (2 if self.is_c2dsr else 1)
-        return self.seq_len * mult
+        """The longest encoder input: `encoder_length` at L, or at 2L on the
+        C2DSR interleaved views."""
+        return encoder_length(self, self.seq_len * (2 if self.is_c2dsr else 1))
+
+
+def encoder_length(cfg: ModelConfig, seq_len: int) -> int:
+    """The length of the sequence an encoder of `cfg` sees for inputs of
+    `seq_len`: doubled by InnerComp's concat along time (model_seq.py:66,471)
+    and, before BERT4Rec's encoder, by InterComp's."""
+    return seq_len * (2 if cfg.is_inc else 1) * (
+        2 if cfg.backbone == "bert4rec" and cfg.is_itc else 1)
 
 
 @dataclass
@@ -202,7 +209,7 @@ class TrainConfig:
     # params/moments move; lazy-Adam semantics (untouched rows' moments don't
     # decay). Covers both DR phases (optimizer2 gets its own per-row moments).
     lazy_table_adam: bool = False
-    cl_w: float = 0.1  # C2DSR contrastive weight (C2DSR is not ported yet)
+    cl_w: float = 0.1  # C2DSR contrastive weight (train/c2dsr.py; active when model.is_c2dsr)
     eval_batch_drop_last: bool = True  # reference val loader drop_last=True (train_sr.py:455)
     fast_eval: bool = True  # the stacked evaluation pass (a CUDA graph on the card)
     fast_train: bool = True  # the device-resident chunked train loop (CUDA graphs)
@@ -255,7 +262,8 @@ def _add_reference_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--isDR", type=_parse_bool, default=False)
     p.add_argument("--dr_e_w", type=float, default=0.1)
     p.add_argument("--isC2DSR", type=_parse_bool, default=False,
-                   help="corrupted-sequence contrastive mode (not ported yet)")
+                   help="corrupted-sequence contrastive mode "
+                        "(dataset_seq.py:283-441 semantics, train/c2dsr.py)")
     p.add_argument("--cl_w", type=float, default=0.1,
                    help="C2DSR contrastive loss weight")
     p.add_argument("--data_root", type=str, default="reference")

@@ -23,7 +23,8 @@ which is one `searchsorted` per row over g_k = h_k - k. The sentinel tail
 literal loop never counts a sentinel either (idx < P always). Draws within a
 row are i.i.d. (with replacement), as in the JAX package.
 
-`interleave_corr_seq` waits for C2DSR.
+`interleave_corr_seq` builds C2DSR's interleaved views from two sequences
+(`train/c2dsr.py`).
 """
 
 from __future__ import annotations
@@ -59,3 +60,11 @@ def sample_negatives(
     g = torch.where(k[None, :] < reject_counts[:, None], reject.long() - k, _NEVER)
     idx = j + torch.searchsorted(g, j, right=True)
     return pools[dom[:, None], idx].to(torch.int32)
+
+
+def interleave_corr_seq(real_seq: torch.Tensor, fake_seq: torch.Tensor) -> torch.Tensor:
+    """C2DSR corrupted-sequence interleave (dataset_seq.py:276-281):
+    [r0, f0, r1, f1, ...] -> [B, 2L]. Used with `sample_negatives(...,
+    num_neg=L)` as the fake sequence for the C2DSR contrastive objective."""
+    b, l = real_seq.shape
+    return torch.stack([real_seq, fake_seq], dim=-1).reshape(b, 2 * l)

@@ -13,7 +13,9 @@ is off; it is tiled along time (the whole row repeated) to the length that
 InnerComp and InterComp give the encoder's input.
 
 `forward(batch, features_only=True)` returns the pooled user representations
-(u_d1, u_d2), the serving entry point; the normal forward scores
+(u_d1, u_d2), the serving entry point and C2DSR's view passes (sequences of
+2L; SASRec's position table holds `cfg.enc_seq_len` rows, which C2DSR
+doubles, and is sliced to the input's length); the normal forward scores
 [target ; negatives] and returns logits_d1/d2 (and, with is_dr, the IPS and
 imputation heads' outputs, model_seq.py:436-440) beside u_d1/u_d2.
 
@@ -83,8 +85,6 @@ class AMIDModel(nn.Module):
         super().__init__()
         if cfg.backbone not in BACKBONES:
             raise ValueError(f"unknown backbone {cfg.backbone!r}; one of {BACKBONES}")
-        if cfg.is_c2dsr:
-            raise NotImplementedError("C2DSR mode is not ported yet")
         _refuse_precision_flags(cfg)
         if cfg.kernels not in ("torch", "cuda"):
             raise ValueError(
@@ -193,6 +193,36 @@ def _encoder(cfg: ModelConfig) -> nn.Module:
                          cfg.sasrec_dropout, cfg.kernels)
 
 
+def head_width(cfg: ModelConfig):
+    """The attention head width dh of `cfg`'s encoders; None for GRU4Rec."""
+    if cfg.backbone == "gru4rec":
+        return None
+    heads = cfg.bert_heads if cfg.backbone == "bert4rec" else cfg.sasrec_heads
+    return cfg.emb_dim // heads
+
+
+def check_attention_fits(cfg: ModelConfig) -> None:
+    """Raises if the longest attention call of a kernels='cuda' model of
+    `cfg` (the encoder at L, or at 2L on C2DSR's views) is beyond what the
+    attention forward kernel holds: K and V of one head in one block's
+    shared memory (`ops.attention.forward_max_t`). Binds the kernels."""
+    from amid_tpu_torch.ops.attention import forward_max_t
+
+    dh = head_width(cfg)
+    if dh is None:
+        return
+    t = cfg.enc_seq_len
+    limit = forward_max_t(dh)
+    if t > limit:
+        parts = [name for name, on in (("InnerComp", cfg.is_inc), ("InterComp", cfg.is_itc),
+                                       ("C2DSR", cfg.is_c2dsr)) if on]
+        raise ValueError(
+            f"{cfg.backbone} at seq_len={cfg.seq_len} with {', '.join(parts) or 'no comp'} "
+            f"attends over T={t} at head width dh={dh}; the attention forward kernel "
+            f"holds T<={limit} at that width (one head's K and V in a block's shared "
+            f"memory), so kernels='cuda' cannot run it (kernels='torch' can)")
+
+
 def resolve_device(device=None) -> torch.device:
     """`device`, or `cuda` when none is given; never the CPU unless asked."""
     if device is not None:
@@ -210,7 +240,8 @@ def build_model(cfg: ModelConfig, device=None, seed: int = 0) -> AMIDModel:
     `torch.Generator` on that device seeded with `seed`, in eval mode.
 
     kernels='auto' resolves to 'cuda' on a CUDA device and 'torch' on the
-    CPU; 'cuda' on a CPU device is refused."""
+    CPU; 'cuda' on a CPU device is refused, and so is a configuration whose
+    attention the kernels cannot hold (`check_attention_fits`)."""
     device = resolve_device(device)
     if cfg.kernels not in KERNEL_CHOICES:
         raise ValueError(f"kernels must be one of {KERNEL_CHOICES}; got {cfg.kernels!r}")
@@ -220,6 +251,8 @@ def build_model(cfg: ModelConfig, device=None, seed: int = 0) -> AMIDModel:
     if kernels == "cuda" and device.type != "cuda":
         raise ValueError(f"kernels='cuda' needs a CUDA device; got {device}")
     cfg = dataclasses.replace(cfg, kernels=kernels)
+    if kernels == "cuda":
+        check_attention_fits(cfg)
     with torch.device("meta"):
         model = AMIDModel(cfg)
     model.to_empty(device=device)

@@ -279,8 +279,20 @@ def _bind() -> None:
     _bwd_long = _build.bind(long.attention_bwd_long, [ctypes.c_char_p])
 
 
+def _largest_t(smem_bytes, dh: int) -> int:
+    """The longest T whose `smem_bytes(T, dh)`, which grows with T, fits in
+    one block's shared memory (SMEM_LIMIT); 0 if none does."""
+    lo, hi = 0, 1  # lo fits (T=0 trivially); hi is not known to
+    while smem_bytes(hi, dh) <= SMEM_LIMIT:
+        lo, hi = hi, 2 * hi
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if smem_bytes(mid, dh) <= SMEM_LIMIT else (lo, mid)
+    return lo
+
+
 def _too_long(name: str, smem_bytes, t: int, dh: int) -> ValueError:
-    largest = max((n for n in range(1, t) if smem_bytes(n, dh) <= SMEM_LIMIT), default=0)
+    largest = _largest_t(smem_bytes, dh)
     return ValueError(
         f"{name}: T={t}, dh={dh} needs {smem_bytes(t, dh)} bytes of shared memory per "
         f"block; the limit is {SMEM_LIMIT} (largest T at this head width: {largest})")
@@ -299,6 +311,15 @@ def _raise(err: int, name: str, smem_bytes, t: int, d: int, heads: int):
     raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
 
 
+def forward_max_t(dh: int) -> int:
+    """The longest T the forward kernel takes at head width `dh`: one head's
+    K and V in one block's shared memory (`attention_fwd_smem_bytes`, a
+    function that grows with T, against SMEM_LIMIT). Binds the kernels."""
+    if _fwd is None:
+        _bind()
+    return _largest_t(_fwd_smem, dh)
+
+
 def long_backward_max_t() -> int:
     """The longest T the long-sequence backward takes (binds the kernels)."""
     if _bwd_long is None:
@@ -310,8 +331,9 @@ def long_backward_max_t() -> int:
 # was below the one-sweep kernel's on the card, among the T that
 # `chip_smoke.py`'s crossover sweep measures (150, 200, 256, 300, 368 and 512,
 # at B=256, D=128, key padding, rate 0, where both paths take the shape;
-# `bwd_crossover` records; NVIDIA H100 80GB HBM3, 700.00 W). Below it, and
-# wherever the one-sweep kernel was the faster, shapes stay on that kernel.
+# `bwd_crossover` records; NVIDIA H100 80GB HBM3, 700.00 W). SASRec's causal
+# bias at dh=16 (150 to 600: C2DSR's views) crosses at the same T. Below it,
+# and wherever the one-sweep kernel was the faster, shapes stay on that kernel.
 LONG_FASTER_FROM = {8: 512, 16: 368, 32: 150, 64: 150}
 
 

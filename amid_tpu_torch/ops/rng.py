@@ -1,21 +1,32 @@
 """Train-mode randomness from explicit generators.
 
 The JAX package threads `jax.random` keys: a step splits its key into one for
-the negative sampler and one for dropout, and the trainer folds the epoch and
-the step index into a root key. The port keeps that shape with integer keys:
+the negative sampler, one for dropout and, in phase A, one for C2DSR's
+corrupted items and one for its views' dropout; the trainer folds the epoch
+and the step index into a root key. The port keeps that shape with integer keys:
 
 * `fold_in(key, data)` derives a new 63-bit key from a key and an integer (a
   splitmix64 mix; the numbers are not JAX's);
-* `StepRandom(key, device)` owns the generators of a step, both on the
-  model's device: `sampler` (negatives) and `dropout_gen` (dropout masks, and
-  the attention kernels' dropout seeds, drawn as one-element int64 tensors
-  that the kernels read from device memory). `reseed(key)` seeds both from a
-  step's key on the host, without touching the device, so one `StepRandom`
-  serves every step of a step function: a step function owns one, reseeds it
-  from each step's key, and a CUDA graph of the step registers its two
-  generators (`StepRandom.generators`), whose seed and offset a replay then
-  reads from device memory. Nothing here touches the process-wide
-  generators: two `StepRandom`s seeded from one key give the same draws.
+* `DropoutRandom(device)` is what a model's train-mode forward reads as its
+  `rng`: one generator, `dropout_gen`, for the dropout masks and the
+  attention kernels' dropout seeds (drawn as one-element int64 tensors that
+  the kernels read from device memory);
+* `StepRandom(key, device)` owns the generators of a step, all on the
+  model's device: it is the main forward's `DropoutRandom`, with `sampler`
+  (negatives) beside it, and with `c2dsr=True` also `corr` (C2DSR's
+  corrupted items) and `views`, the two view passes' `DropoutRandom`s.
+  `reseed(key)` seeds every generator from a step's key on the host,
+  without touching the device: `sampler` from fold_in(key, 0), `dropout_gen`
+  from fold_in(key, 1), `corr` from fold_in(key, 2), and both views' from
+  fold_in(key, 3), so the two view passes, which run the same modules at the
+  same shapes, draw the same masks and seeds, as the JAX package's passes do
+  from their one key. So one `StepRandom` serves every step of a step
+  function: a step function owns one, reseeds it from each step's key, and a
+  CUDA graph of the step registers its generators (`StepRandom.generators`),
+  whose seed and offset a replay then reads from device memory (a reseed
+  inside a capture would not be replayed). Nothing here touches the
+  process-wide generators: two `StepRandom`s seeded from one key give the
+  same draws.
 """
 
 from __future__ import annotations
@@ -33,26 +44,12 @@ def fold_in(key: int, data: int) -> int:
     return (z ^ (z >> 31)) >> 1
 
 
-class StepRandom:
-    """The generators of a training or evaluation step, seeded from its key."""
+class DropoutRandom:
+    """Train-mode dropout's draws from one generator on `device`."""
 
-    def __init__(self, key, device) -> None:
+    def __init__(self, device) -> None:
         self.device = torch.device(device)
-        self.sampler = torch.Generator(device=self.device)
         self.dropout_gen = torch.Generator(device=self.device)
-        self.key = None
-        if key is not None:
-            self.reseed(key)
-
-    def reseed(self, key: int) -> "StepRandom":
-        """Seeds both generators from `key`, on the host."""
-        self.key = int(key)
-        self.sampler.manual_seed(fold_in(self.key, 0))
-        self.dropout_gen.manual_seed(fold_in(self.key, 1))
-        return self
-
-    def generators(self) -> tuple[torch.Generator, torch.Generator]:
-        return self.sampler, self.dropout_gen
 
     def attention_seed(self) -> torch.Tensor:
         """A fresh 31-bit seed for one attention call's dropout mask, drawn on
@@ -69,9 +66,38 @@ class StepRandom:
         return x * keep * (1.0 / (1.0 - rate))
 
 
+class StepRandom(DropoutRandom):
+    """The generators of a training or evaluation step, seeded from its key."""
+
+    def __init__(self, key, device, c2dsr: bool = False) -> None:
+        super().__init__(device)
+        self.sampler = torch.Generator(device=self.device)
+        self.corr = torch.Generator(device=self.device) if c2dsr else None
+        self.views = (DropoutRandom(device), DropoutRandom(device)) if c2dsr else ()
+        self.key = None
+        if key is not None:
+            self.reseed(key)
+
+    def reseed(self, key: int) -> "StepRandom":
+        """Seeds every generator from `key`, on the host."""
+        self.key = int(key)
+        self.sampler.manual_seed(fold_in(self.key, 0))
+        self.dropout_gen.manual_seed(fold_in(self.key, 1))
+        if self.corr is not None:
+            self.corr.manual_seed(fold_in(self.key, 2))
+        for view in self.views:
+            view.dropout_gen.manual_seed(fold_in(self.key, 3))
+        return self
+
+    def generators(self) -> tuple[torch.Generator, ...]:
+        extra = (self.corr, *(v.dropout_gen for v in self.views)) if self.views else ()
+        return (self.sampler, self.dropout_gen, *extra)
+
+
 def apply_dropout(x: torch.Tensor, rate: float, training: bool, rng) -> torch.Tensor:
     """Dropout as a module applies it: the identity in eval mode or at rate
-    0; in train mode the step's `StepRandom` is required."""
+    0; in train mode the step's `StepRandom` (or a view pass's
+    `DropoutRandom`) is required."""
     if not training or rate <= 0.0:
         return x
     if rng is None:

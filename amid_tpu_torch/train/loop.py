@@ -217,6 +217,12 @@ def run_seed(
     one (phase="post_dr"), as in the JAX package; `state.params` holds the
     model's parameters as they are then.
 
+    With `model.is_c2dsr`, phase A adds `cl_w` * the C2DSR infomax loss
+    (`train/c2dsr.py`); it is dense Adam only (ValueError with
+    `lazy_table_adam`, as in the JAX package). On `cuda`, `build_model`
+    refuses a configuration whose attention the kernels cannot hold before
+    the first step (`models.amid.check_attention_fits`).
+
     Runs on `cuda` unless the caller passes a device (e.g. "cpu"), and
     raises without a card."""
     for name, what in _NOT_PORTED.items():
@@ -225,8 +231,10 @@ def run_seed(
                 f"TrainConfig.{name}={getattr(cfg, name)!r} asks for {what}, "
                 f"which is not ported yet; set it to {type(getattr(cfg, name))()!r}"
             )
-    if cfg.model.is_c2dsr:
-        raise NotImplementedError("model.is_c2dsr: the C2DSR objective is not ported yet")
+    c2dsr_w = cfg.cl_w if cfg.model.is_c2dsr else None
+    if cfg.lazy_table_adam and c2dsr_w is not None:
+        # the lazy unique-id budget doesn't cover the corrupted-view lookups
+        raise ValueError("--isC2DSR is not supported with --lazy_table_adam")
     device = resolve_device(device)
     log = init_logger(cfg.model_dir, f"log{seed}.txt")
     model = build_model(cfg.model, device=device, seed=seed)
@@ -245,7 +253,7 @@ def run_seed(
         dr_step = make_lazy_dr_r_step(model, tx2) if is_dr else None
     else:
         state = init_state(model, tx, tx2)
-        train_step = make_train_step(model, tx, dr_e_w=dr_e_w)
+        train_step = make_train_step(model, tx, dr_e_w=dr_e_w, c2dsr_w=c2dsr_w)
         dr_step = make_dr_r_step(model, tx2) if is_dr else None
     n_params = sum(p.numel() for p in state.params.values())
     log.info(f"seed {seed}: params={n_params:,} device={device} "

@@ -16,7 +16,8 @@ What differs from the JAX package, by PyTorch's idiom:
   `key=None` runs with the generators as the caller seeded them (what a
   CUDA graph of the step does: `train/graphs.py`);
 * `neg=None` lets a caller hand a step its negatives instead of the
-  sampler's draw (the parity tests feed both packages the same ones);
+  sampler's draw, and `corr=None` a C2DSR step its corrupted items (the
+  parity tests feed both packages the same ones);
 * the eval step takes no `params` argument: the model holds them.
 
 A step reads no device value on the host: the step count, the bias
@@ -37,6 +38,7 @@ import torch
 from amid_tpu_torch.data.sampler import sample_negatives
 from amid_tpu_torch.ops.rng import StepRandom, fold_in
 from amid_tpu_torch.train import losses
+from amid_tpu_torch.train.c2dsr import c2dsr_loss, c2dsr_views, sample_corr
 from amid_tpu_torch.train.graphs import GraphPool, StepGraph
 from amid_tpu_torch.train.metrics import positive_ranks
 from amid_tpu_torch.train.optim import Adam
@@ -62,9 +64,9 @@ def _make_labels(bsz: int, num_neg: int, device) -> torch.Tensor:
     return labels
 
 
-def _step_random(model) -> StepRandom:
+def _step_random(model, c2dsr: bool = False) -> StepRandom:
     """The generators of a step function, on the model's device, unseeded."""
-    return StepRandom(None, model.item_embedding.device)
+    return StepRandom(None, model.item_embedding.device, c2dsr)
 
 
 def _seeded(rng: StepRandom, key) -> StepRandom:
@@ -133,20 +135,41 @@ def _finish_metrics(metrics: dict) -> dict:
     return metrics
 
 
-def _make_dense_step(model, tx: Adam, loss_fn: Callable, slot: int) -> Callable:
+def _make_dense_step(model, tx: Adam, loss_fn: Callable, slot: int,
+                     c2dsr_w: Optional[float] = None) -> Callable:
     """A dense step: Adam over ALL parameters with the moments of optimizer
-    `slot` (1 = opt_state, 2 = opt_state2); the other state is untouched."""
+    `slot` (1 = opt_state, 2 = opt_state2); the other state is untouched.
+    With `c2dsr_w`, + c2dsr_w * the C2DSR infomax loss of the views, whose
+    gradient flows through the main forward's u_d1, u_d2 and both view
+    passes (`train/c2dsr.py`). `step.losses` is the step's forward alone:
+    the same draws from `key`, (loss, metrics), without the gradient and
+    the update."""
 
-    rng = _step_random(model)
+    is_c2dsr = c2dsr_w is not None
+    rng = _step_random(model, is_c2dsr)
 
-    def step(state: TrainState, batch, pools, pool_sizes, key, neg=None):
+    def losses_of(batch, pools, pool_sizes, key, neg=None, corr=None):
         device = pools.device
         _seeded(rng, key)
         neg = _draw_negatives(rng, batch, pools, pool_sizes, 1, neg)
         labels = _make_labels(batch["target"].shape[0], 1, device)
+        model_batch = _model_batch(batch, neg)
+        if is_c2dsr:
+            if corr is None:
+                corr = sample_corr(rng.corr, pools, pool_sizes, batch)
+            views = c2dsr_views(batch, torch.as_tensor(corr, device=device))
         model.train()
-        out = model(_model_batch(batch, neg), rng=rng)
+        out = model(model_batch, rng=rng)
         loss, metrics = loss_fn(out, labels, batch)
+        if is_c2dsr:
+            cl = c2dsr_loss(model, model_batch, views, out["u_d1"], out["u_d2"], rng.views)
+            loss = loss + cl * c2dsr_w
+            metrics["loss_cl"] = cl
+            metrics["loss"] = loss
+        return loss, metrics
+
+    def step(state: TrainState, batch, pools, pool_sizes, key, neg=None, corr=None):
+        loss, metrics = losses_of(batch, pools, pool_sizes, key, neg, corr)
         names = list(state.params)
         grads = torch.autograd.grad(loss, [state.params[k] for k in names],
                                     allow_unused=True)
@@ -155,18 +178,20 @@ def _make_dense_step(model, tx: Adam, loss_fn: Callable, slot: int) -> Callable:
         return state, _finish_metrics(metrics)
 
     step.rng = rng
+    step.losses = losses_of
     return step
 
 
 def make_train_step(model, tx: Adam, dr_e_w: Optional[float] = None,
                     c2dsr_w: Optional[float] = None) -> Callable:
-    """Phase-A step: masked BCE (+ dr_e_w * loss_dr_e when DR).
+    """Phase-A step: masked BCE (+ dr_e_w * loss_dr_e when DR,
+    + c2dsr_w * contrastive infomax when C2DSR — train/c2dsr.py, with a
+    `loss_cl` metric).
 
-    Returns step(state, batch, pools, pool_sizes, key, neg=None) ->
-    (state, metrics)."""
-    if c2dsr_w is not None:
-        raise NotImplementedError("the C2DSR contrastive objective is not ported yet")
-    return _make_dense_step(model, tx, phase_a_loss(dr_e_w), 1)
+    Returns step(state, batch, pools, pool_sizes, key, neg=None, corr=None)
+    -> (state, metrics); `corr` [B, L] hands a C2DSR step its corrupted
+    items in place of its draw (`rng.corr`)."""
+    return _make_dense_step(model, tx, phase_a_loss(dr_e_w), 1, c2dsr_w)
 
 
 def make_dr_r_step(model, tx2: Adam) -> Callable:

@@ -25,7 +25,8 @@ code and no result line):
    row statistics the forward writes under autograd against the plain
    version's; the dropout mask read out and compared element for element
    (library: `scaled_dot_product_attention`, with the same dropout rate).
-   BERT4Rec's key-padding shapes at T=300 and T=600 (4 heads of 32).
+   BERT4Rec's key-padding shapes at T=300 and T=600 (4 heads of 32), and
+   T=600 at training's rate 0.1 (library: SDPA at `dropout_p=0.1`).
    Attention backward: dq, dk, dv at the same cases from the plain
    forward's residuals (out, row max, 1 / row sum), the fully masked row
    included, each computed twice and required bit-equal (library: the
@@ -34,10 +35,13 @@ code and no result line):
    masked row, at rate 0 and 0.1; both paths, timed in full, at T=300
    (dh=32) and T=150 (dh=16); then both paths' `device_ms` at T=150, 200,
    256, 300, 368 and 512 for head widths 32, 16, 64 and 8, wherever the
-   one-sweep kernel holds the shape (`bwd_crossover` records: the numbers
-   behind `backward_route`'s table of crossovers, which sends a shape to the
-   long path where it was the faster or where the one-sweep kernel cannot
-   hold it). The two
+   one-sweep kernel holds the shape, and with SASRec's causal bias at dh=16
+   from T=150 to 600, where C2DSR's views put its encoder (`bwd_crossover`
+   records: the numbers behind `backward_route`'s table of crossovers, which
+   sends a shape to the long path where it was the faster or where the
+   one-sweep kernel cannot hold it); at T=150, and over four more draws at
+   dh=64, both paths and the plain fp32 version against the plain version in
+   fp64 (`BWD_ATOL_DH64`). The two
    attention bounds take the TF32 tensor-core peak (the kernels' products
    are 3xTF32). Unique-row scatters, fused (three arrays) and single: V=894,820,
    D=128, U=11,264 and 77,824 with a sentinel tail and rows 0 and V-1, bit
@@ -122,10 +126,21 @@ code and no result line):
    BERT4Rec's pairwise step checks at T=150; BERT4Rec with InnerComp and
    InterComp at T=150, whose encoder sees T=600: one epoch of `run_seed`
    (its backward on the long path) and one phase-A step and one evaluation
-   batch against the `kernels='torch'` model, then its step timings.
+   batch against the `kernels='torch'` model, then its step timings;
+8. C2DSR (`--isC2DSR True`, cl_w 0.1, dense Adam): the run.sh model at
+   T=150 (views at 300), pairwise SASRec at T=20 (views at 40: K7 with 4
+   users a slot), BERT4Rec with InterComp at T=150 (encoder 300, views 600
+   on the long backward) and GRU4Rec at T=20: one epoch of `run_seed` on the
+   fast loops with its launches against `expected_launches` (three feature
+   passes a phase-A step, the views' at their own length and backward
+   route), phase 4's step-level checks against the `kernels='torch'` model
+   and the step timings (and for the run.sh model replayed steps against
+   eager ones); then BERT4Rec with InnerComp and InterComp at T=150, whose
+   views reach T=1,200 at dh=32, beyond the forward kernel: `build_model`
+   must refuse it before any launch.
 
-It prints a JSON line of per-kernel numbers, the `nvidia-smi` name and power
-line, and last `{"ok": true, "device": {...}}`.
+It prints a JSON line of per-kernel numbers, the total wall time, the
+`nvidia-smi` name and power line, and last `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -150,8 +165,15 @@ ATOL, RTOL = 1e-5, 1e-4  # forward kernel vs plain, fp32
 # backward: dk and dv of a key sum one term a query; in a row with few kept
 # keys each term carries the cancellation of dP - D (3xTF32 products against
 # an fp32 row sum), so the error grows with the queries summed: 2e-5 up to
-# T=150, BWD_ATOL * T / 150 beyond (bwd_atol)
+# T=150, BWD_ATOL * T / 150 beyond (bwd_atol). At dh=64 the start is
+# BWD_ATOL_DH64, from five draws at B=256, T=150, key padding, held against
+# the plain version in fp64 (NVIDIA H100 80GB HBM3): both paths' errors
+# against fp64 are those of dh=8 and 32 (dv 2.6e-5 to 4.3e-5: 3xTF32
+# products; the plain fp32 version's 0.5e-5 to 1.3e-5), but the largest
+# |kernel - plain| - RTOL |plain| reached 2.3e-5; twice that, rounded up
 BWD_ATOL = 2e-5
+BWD_ATOL_DH64 = 5e-5
+DH64_DRAWS = 4  # more dh=64 draws held against fp64 (`kernel_case_bwd` `*_draw*` records)
 # forward's row max and 1 / row sum vs plain: 1e-6 relative, and 1e-6 absolute
 # for a max near 0 (the scores themselves agree to about 5e-7)
 STATS_ATOL, STATS_RTOL = 1e-6, 1e-6
@@ -194,7 +216,12 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
 }
 # training phase: one step of a kernels='cuda' model against the same step of
 # a kernels='torch' model (same state, batch and key, dropout 0.5 on)
-LOSS_TOL = 1e-5  # |loss difference|
+# |loss difference|; for C2DSR's loss_cl, and the loss that holds it, relative
+# to the value where it exceeds 1: loss_cl sums dot products of pooled
+# features and reaches about 30 on BERT4Rec, where it is also held against an
+# fp64 step (`loss_cl_fp64`); every other metric keeps the absolute 1e-5
+# (`losses_agree`)
+LOSS_TOL = 1e-5
 MOMENT_TOL = 2e-4  # max |difference| of a moment array over its max |value|
 # Adam's first update is lr * g / (|g| + eps): nearly lr * sign(g), so an
 # element whose gradient is at rounding level may move the other way. Updated
@@ -213,9 +240,19 @@ class SmokeFailure(RuntimeError):
     pass
 
 
-def bwd_atol(t: int) -> float:
-    """The backward's absolute tolerance at sequence length t (BWD_ATOL)."""
-    return BWD_ATOL * max(1.0, t / 150)
+def bwd_atol(t: int, dh: int) -> float:
+    """The backward's absolute tolerance at sequence length t and head width
+    dh (BWD_ATOL, BWD_ATOL_DH64)."""
+    return (BWD_ATOL_DH64 if dh == 64 else BWD_ATOL) * max(1.0, t / 150)
+
+
+def losses_agree(key: str, a: float, ref: dict) -> bool:
+    """Metric `key`, of value a, within LOSS_TOL of ref[key]: relative to
+    |ref[key]| where it exceeds 1 for C2DSR's loss_cl and for the loss that
+    holds it (metrics with a loss_cl), absolute for every other metric."""
+    b = float(ref[key])
+    relative = key == "loss_cl" or (key == "loss" and "loss_cl" in ref)
+    return abs(a - b) <= LOSS_TOL * (max(1.0, abs(b)) if relative else 1.0)
 
 
 def require(cond: bool, msg: str) -> None:
@@ -350,7 +387,7 @@ def affinity_bound(b, c, n, m, d):
 
 
 def expected_launches(cfg, train_steps=0, eval_batches=0, feature_passes=0,
-                      lazy_adam=False, fused_scatter=True):
+                      lazy_adam=False, fused_scatter=True, c2dsr_steps=0):
     """Kernel launches of a kernels='cuda' model of `cfg` (two towers): per
     forward the attention forward once a block and tower (SASRec and
     BERT4Rec: 4; GRU4Rec: none), 2 gathers (both sequences in one launch,
@@ -361,35 +398,41 @@ def expected_launches(cfg, train_steps=0, eval_batches=0, feature_passes=0,
     where `smalln_faster(N)`, else the blocked one); per train step the
     backward once a block and tower, on the path `backward_route` takes at
     the encoder's length and head width (the one-sweep kernel or the long
-    path), and on the lazy path the table write-back."""
+    path), and on the lazy path the table write-back. `c2dsr_steps` of the
+    train steps are C2DSR phase-A steps: each adds two features-only passes
+    over the views (2L), forward and backward, whose encoder length (and so
+    backward route) and affinity lengths are those of 2L, not of L."""
+    from amid_tpu_torch.config import encoder_length
+    from amid_tpu_torch.models.amid import head_width
     from amid_tpu_torch.ops.affinity import smalln_faster
     from amid_tpu_torch.ops.attention import backward_route
 
+    blocks = {"gru4rec": 0, "bert4rec": cfg.bert_blocks}.get(cfg.backbone, cfg.sasrec_blocks)
+    counts = dict.fromkeys(KERNELS, 0)
+
+    def feature_passes_at(t, n, backward):
+        """n passes over sequences of length t through both towers."""
+        if blocks:
+            counts["attention_fwd"] += 2 * blocks * n
+            if backward:
+                long = backward_route(encoder_length(cfg, t), head_width(cfg)) == "long"
+                counts["attention_bwd_long" if long else "attention_bwd"] += 2 * blocks * n
+        if not cfg.comp_broadcast_quirk:
+            for m in [t] * cfg.is_inc + [t * (2 if cfg.is_inc else 1)] * cfg.is_itc:
+                counts["max_affinity_smalln" if smalln_faster(m) else "max_affinity_blocked"] += (
+                    2 * n)
+
     t = cfg.seq_len
-    if cfg.backbone == "gru4rec":
-        blocks = 0
-    elif cfg.backbone == "bert4rec":  # InterComp runs before the encoder
-        blocks, dh = cfg.bert_blocks, cfg.emb_dim // cfg.bert_heads
-        enc_t = t * (2 if cfg.is_inc else 1) * (2 if cfg.is_itc else 1)
-    else:
-        blocks, dh, enc_t = cfg.sasrec_blocks, cfg.emb_dim // cfg.sasrec_heads, cfg.enc_seq_len
-    long = blocks > 0 and backward_route(enc_t, dh) == "long"
-    comp_lengths = [t] * cfg.is_inc + [t * (2 if cfg.is_inc else 1)] * cfg.is_itc
-    pairwise = not cfg.comp_broadcast_quirk
-    passes = train_steps + eval_batches + feature_passes
-    smalln = 2 * sum(smalln_faster(n) for n in comp_lengths) if pairwise else 0
-    blocked = 2 * len(comp_lengths) - smalln if pairwise else 0
+    feature_passes_at(t, train_steps, True)
+    feature_passes_at(t, eval_batches + feature_passes, False)
+    feature_passes_at(2 * t, 2 * c2dsr_steps, True)
     forwards = train_steps + eval_batches
     scatters = train_steps if lazy_adam else 0
-    return {"attention_fwd": 2 * blocks * passes,
-            "attention_bwd": 0 if long else 2 * blocks * train_steps,
-            "attention_bwd_long": 2 * blocks * train_steps if long else 0,
-            "scatter_set_unique3": scatters if fused_scatter else 0,
-            "scatter_set_unique": 0 if fused_scatter else 3 * scatters,
-            "embedding_gather": 2 * forwards + feature_passes,
-            "scoring_head": (3 if cfg.is_dr else 1) * forwards,
-            "max_affinity_blocked": blocked * passes,
-            "max_affinity_smalln": smalln * passes}
+    counts["scatter_set_unique3"] = scatters if fused_scatter else 0
+    counts["scatter_set_unique"] = 0 if fused_scatter else 3 * scatters
+    counts["embedding_gather"] = 2 * forwards + feature_passes + 2 * c2dsr_steps
+    counts["scoring_head"] = (3 if cfg.is_dr else 1) * forwards
+    return counts
 
 
 def reset_counts() -> None:
@@ -505,6 +548,12 @@ def kernel_phase(torch, gen):
         q, k, v = qkv(B, t, D)
         cases[f"rate0.5_T{t}"] = compare(f"causal_T{t}_h8_rate0.5", q, k, v, causal(t), 8,
                                          seed=step_seed, rate=0.5)
+    # BERT4Rec's T=600 encoder trains at rate 0.1 (library: SDPA at
+    # dropout_p=0.1, which draws its own mask)
+    q, k, v = qkv(B, 600, D)
+    cases["keypad_T600_rate0.1"] = compare("keypad_T600_h4_rate0.1", q, k, v,
+                                           keypad_bias(torch, gen, B, 600), 4, seed=step_seed,
+                                           rate=0.1)
     t, heads, dh, seed = 20, 4, 32, 977
     q, k, _ = qkv(B, t, D)
     v = torch.zeros(B, t, D, device="cuda")
@@ -539,8 +588,10 @@ def backward_kernel_phase(torch, gen):
     BERT4Rec's T=600 (h=4, dh=32; rate 0 and training's 0.1); both paths,
     timed in full, at BERT4Rec's T=300 (dh=32) and SASRec's T=150 (dh=16);
     then both paths' `device_ms` at every T of BWD_SWEEP_T and head width of
-    BWD_SWEEP_HEADS where both take the shape (`bwd_crossover`), the numbers
-    behind `backward_route`'s table (`ops/attention.py::LONG_FASTER_FROM`)."""
+    BWD_SWEEP_HEADS where both take the shape, and with the causal bias at
+    dh=16 up to T=600 (`bwd_crossover`), the numbers behind
+    `backward_route`'s table (`ops/attention.py::LONG_FASTER_FROM`); at
+    T=150 and over DH64_DRAWS more draws at dh=64, errors against fp64."""
     import torch.nn.functional as F
 
     from amid_tpu_torch.ops.attention import (
@@ -552,7 +603,7 @@ def backward_kernel_phase(torch, gen):
         return torch.triu(torch.full((t, t), -1e9, device="cuda"), diagonal=1)[None, None]
 
     def compare(name, b, t, d, bias, heads, seed=0, rate=0.0, timed=True, path=None,
-                gate=True):
+                fp64=False):
         q, k, v, dout = (torch.randn(b, t, d, device="cuda", generator=gen)
                          for _ in range(4))
         # the residuals (out and the row statistics) of the plain forward, for both
@@ -563,14 +614,30 @@ def backward_kernel_phase(torch, gen):
         require(all(torch.equal(x, y) for x, y in zip(got, again)),
                 f"{name}: two backward calls differ")
         torch.cuda.synchronize()
-        errs = {n: (g - w).abs().max().item() for n, g, w in zip(("dq", "dk", "dv"), got, want)}
-        within = all(torch.allclose(g, w, atol=bwd_atol(t), rtol=RTOL) for g, w in zip(got, want))
+        names = ("dq", "dk", "dv")
+        errs = {n: (g - w).abs().max().item() for n, g, w in zip(names, got, want)}
+        atol = bwd_atol(t, d // heads)
         for n, g, w in zip(errs, got, want):
             require(torch.isfinite(g).all().item(), f"{name}: non-finite {n}")
-            require(within or not gate, f"{name}: kernel vs plain {n} max_abs_err {errs[n]}")
+            require(torch.allclose(g, w, atol=atol, rtol=RTOL),
+                    f"{name}: kernel vs plain {n} max_abs_err {errs[n]} (atol {atol})")
         rec = {"case": name, "shape": [b, t, d], "bias": list(bias.shape), "heads": heads,
                "rate": rate, "path": path or backward_route(t, d // heads),
-               "max_abs_err": max(errs.values()), "errs": errs, "within_bwd_atol": within}
+               "max_abs_err": max(errs.values()), "errs": errs, "bwd_atol": atol,
+               # max over elements of |kernel - plain| - RTOL |plain|: the atol it passes at
+               "atol_needed": max(((g - w).abs() - RTOL * w.abs()).max().item()
+                                  for g, w in zip(got, want))}
+        if fp64:  # the plain fp32 version and the kernel against the plain one in fp64
+            wide = [x.double() for x in (q, k, v, bias)]
+            exact = attention_bwd_plain(*wide, *attention_fwd_stats_plain(*wide, seed, heads, rate),
+                                        dout.double(), seed, heads, rate)
+            # a fully masked batch row (every key at -1e9) is another function in
+            # fp64: fp32 spaces numbers near 1e9 by 64 and loses its scores
+            rows = ~(bias <= -1e8).reshape(bias.shape[0], -1).all(dim=1)
+            rows = rows.expand(b) if rows.numel() == 1 else rows
+            for which, grads in (("plain", want), ("kernel", got)):
+                rec[f"{which}_vs_fp64"] = {n: (g[rows].double() - w[rows]).abs().max().item()
+                                           for n, g, w in zip(names, grads, exact)}
         if timed == "device":  # the crossover sweep: the device alone
             rec["device_ms"] = graph_ms(torch, lambda: attention_backward(
                 q, k, v, bias, *res, dout, seed, heads, rate, path))
@@ -630,9 +697,7 @@ def backward_kernel_phase(torch, gen):
             cases[f"{p}_T{t}_h{heads}"] = compare(f"bwd_{p}_keypad_T{t}_h{heads}", B, t, D, bias,
                                                   heads, path=p)
     # the crossover sweep: both paths' device time wherever both take the
-    # shape. bwd_atol was set on the models' head widths (16 and 32; dh=8
-    # within it too); at dh=64 both paths' errors are recorded, not required
-    # (the one-sweep kernel's dk at T=150 exceeds it: ROADMAP.md queue 3)
+    # shape; at T=150 both paths and the plain version against fp64
     for heads in BWD_SWEEP_HEADS:
         dh = D // heads
         for t in BWD_SWEEP_T:
@@ -644,15 +709,38 @@ def backward_kernel_phase(torch, gen):
                 for p in both:
                     both[p] = cases[f"{p}_T{t}_h{heads}"] = compare(
                         f"bwd_{p}_keypad_T{t}_h{heads}", B, t, D, bias, heads, path=p,
-                        timed="device", gate=dh <= 32)
+                        timed="device", fp64=t == 150)
             ms = {p: c["device_ms"] for p, c in both.items()}
             emit({"bwd_crossover": {
-                "T": t, "dh": dh, "route": backward_route(t, dh),
+                "T": t, "dh": dh, "bias": "keypad", "route": backward_route(t, dh),
                 "long_faster": long_faster(t, dh),
                 "measured_faster": min(ms, key=ms.get),
                 **{f"{p}_device_ms": v for p, v in ms.items()},
                 **{f"{p}_max_abs_err": c["max_abs_err"] for p, c in both.items()},
-                **{f"{p}_within_bwd_atol": c["within_bwd_atol"] for p, c in both.items()}}})
+                **{f"{p}_atol_needed": c["atol_needed"] for p, c in both.items()},
+                **{f"{p}_{w}_vs_fp64": c[f"{w}_vs_fp64"] for p, c in both.items()
+                   for w in ("plain", "kernel") if f"{w}_vs_fp64" in c}}})
+    # dh=64 (no model of the repo uses it) over more draws, both paths and the
+    # plain version against fp64: the measurement behind BWD_ATOL_DH64
+    for draw in range(DH64_DRAWS):
+        bias = keypad_bias(torch, gen, B, 150)
+        for p in ("sweep", "long"):
+            cases[f"{p}_T150_h2_draw{draw}"] = compare(
+                f"bwd_{p}_keypad_T150_h2_draw{draw}", B, 150, D, bias, 2, path=p, timed=False,
+                fp64=True)
+    # SASRec's causal bias at dh=16, where C2DSR's views put its encoder
+    # (T=300; T=600 with InnerComp): both paths' device time wherever the
+    # one-sweep kernel holds the shape, the long path's alone beyond
+    for t in (*BWD_SWEEP_T, 600):
+        paths = ("sweep", "long") if sweep_fits(t, 16) else ("long",)
+        got = {p: compare(f"bwd_{p}_causal_T{t}_h8", B, t, D, causal(t), 8, path=p,
+                          timed="device") for p in paths}
+        ms = {p: c["device_ms"] for p, c in got.items()}
+        emit({"bwd_crossover": {
+            "T": t, "dh": 16, "bias": "causal", "route": backward_route(t, 16),
+            "long_faster": long_faster(t, 16), "measured_faster": min(ms, key=ms.get),
+            **{f"{p}_device_ms": v for p, v in ms.items()},
+            **{f"{p}_max_abs_err": c["max_abs_err"] for p, c in got.items()}}})
     return cases
 
 
@@ -1179,9 +1267,9 @@ def rel_to_max(a, b) -> float:
 
 def make_steps(cfg, tcfg, kernels, fused_scatter=True):
     """A fresh model (seed 0) of `kernels` with its state and its phase-A,
-    phase-B and evaluation steps, as `run_seed` builds them (in pairwise
-    mode a kernels='torch' model takes its affinity from
-    `max_affinity_plain`)."""
+    phase-B and evaluation steps, as `run_seed` builds them (C2DSR's phase A
+    with `cl_w`; in pairwise mode a kernels='torch' model takes its affinity
+    from `max_affinity_plain`)."""
     from amid_tpu_torch.models.amid import build_model
     from amid_tpu_torch.train import lazy, steps
     from amid_tpu_torch.train.optim import Adam
@@ -1197,7 +1285,8 @@ def make_steps(cfg, tcfg, kernels, fused_scatter=True):
         step_b = lazy.make_lazy_dr_r_step(model, tx2, fused_scatter=fused_scatter)
     else:
         state = steps.init_state(model, tx, tx2)
-        step_a = steps.make_train_step(model, tx, dr_e_w=tcfg.dr_e_w)
+        step_a = steps.make_train_step(model, tx, dr_e_w=tcfg.dr_e_w,
+                                       c2dsr_w=tcfg.cl_w if cfg.is_c2dsr else None)
         step_b = steps.make_dr_r_step(model, tx2)
     return model, state, step_a, step_b, steps.make_eval_step(model, tcfg.data.neg_nums)
 
@@ -1262,11 +1351,11 @@ def step_checks(torch, cfg, tcfg, train_ds, val_ds, dr_ds, label):
         _, rm = rfn(rstate, batch, *pools[split], key)
         torch.cuda.synchronize()
         require(read_counts() == counts, f"{label} phase {phase}: the plain model launched a kernel")
-        want = launches(train_steps=1)
+        want = launches(train_steps=1, c2dsr_steps=int(phase == "A" and cfg.is_c2dsr))
         require(counts == want, f"{label} phase {phase}: launches {counts}, want {want}")
         for k, v in m.items():
             require(math.isfinite(float(v)), f"{label} phase {phase}: {k} = {float(v)}")
-            require(abs(float(v) - float(rm[k])) <= LOSS_TOL,
+            require(losses_agree(k, float(v), rm),
                     f"{label} phase {phase}: {k} {float(v)} vs plain {float(rm[k])}")
         require(float(m["nonfinite"]) == 0.0, f"{label} phase {phase}: non-finite flag")
         if phase == "A":
@@ -1277,8 +1366,10 @@ def step_checks(torch, cfg, tcfg, train_ds, val_ds, dr_ds, label):
             require(model.item_embedding.grad is None, f"{label}: the table took a gradient")
         moved = (model.item_embedding.detach() != before).any(dim=1)
         n_moved = int(moved.sum())
-        require(0 < n_moved <= lazy._unique_budget(bs, cfg.seq_len, 1),
-                f"{label} phase {phase}: {n_moved} table rows moved")
+        # the rows a step touches: the lazy budget's, and C2DSR's corrupted items
+        touched = lazy._unique_budget(bs, cfg.seq_len, 1) + bs * cfg.seq_len * (
+            phase == "A" and cfg.is_c2dsr)
+        require(0 < n_moved <= touched, f"{label} phase {phase}: {n_moved} table rows moved")
         shares = {}
         for name, got_p, want_p in (
                 ("touched_table_rows", model.item_embedding.detach()[moved],
@@ -1295,6 +1386,7 @@ def step_checks(torch, cfg, tcfg, train_ds, val_ds, dr_ds, label):
                 f"{label} phase {phase}: moments differ from plain: {rels}")
         rec[f"phase_{phase}"] = {"launches": counts, "rows_moved": n_moved,
                                  "losses": {k: float(v) for k, v in m.items()},
+                                 "plain_losses": {k: float(v) for k, v in rm.items()},
                                  "update_mismatch_share": shares, "moment_rel_err": rels}
 
     # one evaluation batch
@@ -1344,9 +1436,10 @@ def graph_checks(torch, cfg, tcfg, train_ds, val_ds, dr_ds, label):
     second kernels='cuda' model taken eagerly from the same state, batches
     and keys; then two evaluation passes over the val batches (graph
     replays) against the eval step batch by batch, on one model. Losses
-    within LOSS_TOL, moments within MOMENT_TOL of their largest value: the
-    gather's backward and torch's scatters add with atomics in no fixed
-    order, so replayed and eager steps agree within rounding, not bit for
+    within LOSS_TOL (`losses_agree`), moments within MOMENT_TOL of their
+    largest value: the gather's backward and torch's scatters add with
+    atomics in no fixed order, so replayed and eager steps agree within
+    rounding, not bit for
     bit."""
     from amid_tpu_torch.ops.rng import fold_in
     from amid_tpu_torch.train import steps
@@ -1376,7 +1469,7 @@ def graph_checks(torch, cfg, tcfg, train_ds, val_ds, dr_ds, label):
                 _, m = estep(est, batch, *pools, fold_in(77, i))
                 require(float(nf) == 0.0, f"{label} graph phase {phase}: non-finite flag")
                 diffs.append(max(abs(float(v) - float(m[k])) for k, v in m0.items()))
-                require(diffs[-1] <= LOSS_TOL,
+                require(all(losses_agree(k, float(v), m) for k, v in m0.items()),
                         f"{label} graph phase {phase} step {i}: replayed vs eager {m0} {m}")
             dense_name = DENSE_PARAM[cfg.backbone]
             rels = {k: rel_to_max(v, moments_of(est, slot, is_lazy, dense_name)[k])
@@ -1446,7 +1539,7 @@ def check_run(label, cfg, lazy_adam, counts, metrics, extra):
     A, evaluation, phase B, evaluation)."""
     n_a, n_b, n_ev = (n // FLAGSHIP["batch_size"] for n in (TRAIN_ROWS, DR_ROWS, VAL_ROWS))
     want = expected_launches(cfg, train_steps=n_a + n_b, eval_batches=2 * n_ev,
-                             lazy_adam=lazy_adam)
+                             lazy_adam=lazy_adam, c2dsr_steps=n_a if cfg.is_c2dsr else 0)
     require(counts == want, f"{label}: launches {counts}, want {want}")
     shown = ("hit_10_d1", "hit_10_d2", "ndcg_10_d1", "ndcg_10_d2", "mrr_d1", "mrr_d2")
     for k in shown:
@@ -1764,7 +1857,144 @@ def backbone_phase(torch, rng):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 8: C2DSR
+# ---------------------------------------------------------------------------
+
+C2DSR_RUNS = (  # label, the run.sh model's overrides, whether its replays are checked
+    ("sasrec_T150", dict(seq_len=150), True),  # views at 300: the one-sweep backward
+    ("sasrec_T20_pairwise", dict(seq_len=20, comp_broadcast_quirk=False), False),  # K7 at 40
+    ("bert4rec_T150", dict(BACKBONES["bert4rec"], seq_len=150), False),  # views at 600: long
+    ("gru4rec_T20", dict(BACKBONES["gru4rec"], seq_len=20), False),
+)
+
+
+def loss_cl_fp64(torch, cfg, tcfg, train_ds, phase_a):
+    """The forward of `step_checks`' phase-A step (seed-0 weights, the first
+    train batch, key 1234; `step.losses`, no gradient: the fp64 backward
+    does not fit the card) on a kernels='torch' model in fp64, against the
+    fp32 steps' metrics `phase_a`. Masks, seeds and items are drawn apart
+    from the weights' dtype, so the draws are the same and only the rounding
+    differs. The plain routes' float32 checks state the kernels' contract
+    and are lifted for this model alone."""
+    from unittest import mock
+
+    from amid_tpu_torch.data.loader import BatchIterator
+    from amid_tpu_torch.models.amid import build_model
+    from amid_tpu_torch.ops import embedding, scoring
+    from amid_tpu_torch.train import steps
+    from amid_tpu_torch.train.loop import _device_pools, _to_device
+    from amid_tpu_torch.train.optim import Adam
+
+    model = build_model(dataclasses.replace(cfg, kernels="torch"), device="cuda",
+                        seed=0).double()
+    step = steps.make_train_step(model, Adam(tcfg.lr), dr_e_w=tcfg.dr_e_w, c2dsr_w=tcfg.cl_w)
+    batch = _to_device(next(iter(BatchIterator(train_ds, cfg.batch_size, False))), "cuda")
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad(), mock.patch.object(embedding, "_check", lambda *a: None), \
+            mock.patch.object(scoring, "_check", lambda *a: None):
+        _, m = step.losses(batch, *_device_pools(train_ds, "cuda"), 1234)
+    m = {k: float(v) for k, v in m.items()}
+    cuda, plain = phase_a["losses"], phase_a["plain_losses"]
+    rec = {"fp64": m, "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           **{f"{name}_{k}_err": abs(got[k] - m[k]) for name, got in (("cuda", cuda),
+                                                                     ("plain", plain))
+              for k in ("loss_cl", "loss_cls")}}
+    require(losses_agree("loss_cls", plain["loss_cls"], m),
+            f"fp64 step: loss_cls {m['loss_cls']} vs plain {plain['loss_cls']}: not the "
+            f"same weights and draws")
+    for name, got in (("cuda", cuda), ("plain", plain)):
+        require(losses_agree("loss_cl", got["loss_cl"], m),
+                f"{name} loss_cl {got['loss_cl']} vs fp64 {m['loss_cl']}")
+    del model, step
+    return rec
+
+
+def c2dsr_phase(torch, rng):
+    """Phase 8. C2DSR with dense Adam (cl_w 0.1), the run.sh model at T=150,
+    pairwise SASRec at T=20, BERT4Rec with InterComp at T=150 and GRU4Rec at
+    T=20: one epoch of `run_seed` on the fast loops with its launches against
+    `expected_launches` (the views at 2L: each phase-A step runs three
+    feature passes), phase 4's step-level checks against a kernels='torch'
+    model, the step timings (and for the run.sh model replayed steps against
+    eager ones); then BERT4Rec with InnerComp and InterComp at T=150, whose
+    views reach T=1,200 at dh=32: `build_model` must refuse it before any
+    launch."""
+    import shutil
+    import tempfile
+
+    from amid_tpu_torch.config import DataConfig, ModelConfig, TrainConfig, encoder_length
+    from amid_tpu_torch.data.synthetic import synth_packed
+    from amid_tpu_torch.models.amid import build_model
+    from amid_tpu_torch.ops.affinity import smalln_plan
+    from amid_tpu_torch.train.loop import run_seed
+
+    out = {}
+    for label, kw, replays in C2DSR_RUNS:
+        label = f"c2dsr_{label}"
+        cfg = ModelConfig(**{**FLAGSHIP, **kw, "is_c2dsr": True})
+        train_ds, val_ds, dr_ds = (synth_packed(cfg, rng, n)
+                                   for n in (TRAIN_ROWS, VAL_ROWS, DR_ROWS))
+        work = tempfile.mkdtemp(prefix="chip_smoke_")
+        tcfg = TrainConfig(epochs=1, seeds=1, model_dir=work, nan_policy="halt",
+                           checkpoint=False, model=cfg, data=DataConfig(neg_nums=999))
+        rec = {"encoder_T": [encoder_length(cfg, cfg.seq_len),
+                             encoder_length(cfg, 2 * cfg.seq_len)]}
+        if not cfg.comp_broadcast_quirk:  # the views' gates: K7's users a slot at 2L
+            rec["views_smalln_users"] = smalln_plan(256, 256, 2 * cfg.seq_len,
+                                                    2 * cfg.seq_len, 128).users
+            require(rec["views_smalln_users"] == 4, f"{label}: {rec['views_smalln_users']}")
+        try:
+            reset_counts()
+            t0 = time.perf_counter()
+            best = run_seed(tcfg, 0, train_ds, val_ds, dr_ds)  # on cuda, the fast loops
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            rec["launches"] = read_counts()
+            require("loss_cl:" in Path(work, "log0.txt").read_text(),
+                    f"{label}: run_seed did not log loss_cl")
+            check_run(f"{label} run_seed fast", cfg, False, rec["launches"], best,
+                      {"loop": "fast", "seconds": seconds,
+                       "examples_per_s": best["examples_per_s"]})
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        torch.cuda.empty_cache()
+        rec["train_steps"] = step_checks(torch, cfg, tcfg, train_ds, val_ds, dr_ds, label)
+        torch.cuda.empty_cache()
+        if cfg.backbone == "bert4rec":  # the largest loss_cl, about 31: read in fp64
+            rec["loss_cl_fp64"] = loss_cl_fp64(torch, cfg, tcfg, train_ds,
+                                               rec["train_steps"]["phase_A"])
+            emit({"loss_cl_fp64": {"config": label, **rec["loss_cl_fp64"]}})
+            torch.cuda.empty_cache()
+        if replays:
+            rec["graph_steps"] = graph_checks(torch, cfg, tcfg, train_ds, val_ds, dr_ds, label)
+            torch.cuda.empty_cache()
+        rec["step_timing"] = step_timing(torch, cfg, tcfg, train_ds, label,
+                                         4 if cfg.backbone != "sasrec" else TIMED_STEPS)
+        out[label] = rec
+        torch.cuda.empty_cache()
+
+    # the configuration the forward kernel cannot hold: refused before a launch
+    cfg = ModelConfig(**{**FLAGSHIP, **BACKBONES["bert4rec"], "seq_len": 150, "is_inc": True,
+                         "is_c2dsr": True})
+    reset_counts()
+    try:
+        build_model(cfg)
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    counts = read_counts()
+    require(refused is not None and "T=1200" in refused and "dh=32" in refused,
+            f"BERT4Rec + InnerComp + InterComp + C2DSR at T=150 was not refused: {refused}")
+    require(not any(counts.values()), f"the refused configuration launched {counts}")
+    emit({"c2dsr_refused": {"config": "bert4rec_T150_inc_itc_c2dsr",
+                            "encoder_T": encoder_length(cfg, 2 * cfg.seq_len),
+                            "error": refused, "launches": counts}})
+    return out
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -1798,25 +2028,32 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    fwd = kernel_phase(torch, gen)
-    bwd = backward_kernel_phase(torch, gen)
-    scatter = scatter_kernel_phase(torch, gen)
-    torch.cuda.empty_cache()
-    gather = gather_kernel_phase(torch, gen)
-    scoring = scoring_kernel_phase(torch, gen)
-    affinity = affinity_kernel_phase(torch, gen)
-    torch.cuda.empty_cache()
-    serving = main_path_phase(torch, np.random.default_rng(0))
-    training = training_phase(torch, np.random.default_rng(1))
-    gate_flip_phase(torch, np.random.default_rng(2))
-    backbones = backbone_phase(torch, np.random.default_rng(3))
+    def phase(fn, arg):
+        """fn(torch, arg), its wall time printed (the run's budget is 1200 s)."""
+        t = time.perf_counter()
+        out = fn(torch, arg)
+        torch.cuda.empty_cache()
+        print(f"{fn.__name__}: {time.perf_counter() - t:.1f} s", flush=True)
+        return out
+
+    fwd = phase(kernel_phase, gen)
+    bwd = phase(backward_kernel_phase, gen)
+    scatter = phase(scatter_kernel_phase, gen)
+    gather = phase(gather_kernel_phase, gen)
+    scoring = phase(scoring_kernel_phase, gen)
+    affinity = phase(affinity_kernel_phase, gen)
+    serving = phase(main_path_phase, np.random.default_rng(0))
+    training = phase(training_phase, np.random.default_rng(1))
+    phase(gate_flip_phase, np.random.default_rng(2))
+    backbones = phase(backbone_phase, np.random.default_rng(3))
+    c2dsr_runs = phase(c2dsr_phase, np.random.default_rng(4))
 
     # launches on the main paths: the serving passes, the run_seed runs and
     # the CLI runs (each on the fast loops and per step), the backbones'
-    # serving passes and run_seed runs, each driven with the counts at 0 just
-    # before it and read just after
+    # serving passes and run_seed runs, phase 8's C2DSR run_seed runs, each
+    # driven with the counts at 0 just before it and read just after
     main_runs = [*training.values(), *serving.values(),
-                 *(r for r in backbones.values() if "launches" in r)]
+                 *(r for r in backbones.values() if "launches" in r), *c2dsr_runs.values()]
     launches = {name: sum(r["launches"][name] for r in main_runs) for name in KERNELS}
     # run_seed scatters fused; the single-array kernel's path is the lazy step
     # built with fused_scatter=False, driven once in step_checks
@@ -1853,6 +2090,7 @@ def main() -> int:
         "library_ms": c["library_ms"], "case": c["case"],
         "device_ms": c["device_ms"], "host_us": c["host_us"],
     } for name, (c, every) in rows.items()]})
+    print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -140,8 +140,14 @@ def test_cli_runs_on_the_card_unless_asked_and_refuses_unported_parts(
                         "profile_steps"), (["--mesh", "True"], "use_mesh")):
         with pytest.raises(NotImplementedError, match=f"TrainConfig.{field}"):
             train_sr_dr.main(base + ["--device", "cpu", "--kernels", "torch", *flag])
-    with pytest.raises(NotImplementedError, match="C2DSR"):
-        train_sr_dr.main(base + ["--device", "cpu", "--kernels", "torch", "--isC2DSR", "True"])
+    # C2DSR trains on the CPU with dense Adam and logs loss_cl; with the lazy
+    # table Adam it raises the JAX trainer's ValueError
+    c2dsr = base + ["--device", "cpu", "--kernels", "torch", "--isC2DSR", "True"]
+    with pytest.raises(ValueError, match="^--isC2DSR is not supported with --lazy_table_adam$"):
+        train_sr_dr.main(c2dsr)
+    agg = train_sr_dr.main(c2dsr + ["--lazy_table_adam", "False"])
+    assert all(np.isfinite(v["mean"]) for v in agg.values())
+    assert "loss_cl:" in (tmp_path / "log0.txt").read_text()
     with pytest.raises(ValueError, match="unknown backbone 'caser'"):
         train_sr_dr.main(base + ["--device", "cpu", "--model", "Caser"])
     with pytest.raises(ValueError, match="kernels='cuda' needs a CUDA device"):

@@ -70,9 +70,10 @@ BWD_ATOL = 2e-5  # backward: dk, dv sum products over up to T queries
 
 
 def _bwd_atol(t):
-    """chip_smoke.py's `bwd_atol`: dk and dv sum one term a query, each with
-    the cancellation error of dP - D in rows with few kept keys; 2e-5 up to
-    T=150, growing with T beyond."""
+    """chip_smoke.py's `bwd_atol` below dh=64 (where it starts from 5e-5):
+    dk and dv sum one term a query, each with the cancellation error of
+    dP - D in rows with few kept keys; 2e-5 up to T=150, growing with T
+    beyond. Held here at every head width."""
     return BWD_ATOL * max(1.0, t / 150)
 
 
@@ -1318,3 +1319,107 @@ def test_run_seed_runs_the_fast_loops_as_graphs(tmp_path, gen, lazy_adam):
     assert 0.0 <= best["mrr_d1"] <= 1.0 and np.isfinite(best["mrr_d2"])
     log = (tmp_path / "log0.txt").read_text()
     assert log.count("train loss:") == 2 * 3 and log.count("(post-DR)") == 2
+
+
+# ---------------------------------------------------------------------------
+# C2DSR: the view passes through the kernels
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("backbone", ["sasrec", "bert4rec", "gru4rec"])
+def test_c2dsr_step_on_cuda_equals_the_plain_model_s(gen, backbone):
+    """One dense C2DSR phase-A step of a kernels='cuda' model against the
+    same step of a kernels='torch' model from the same weights, batch and
+    key, dropout on (both view passes draw one set of masks on both): the
+    views (2L) go through the kernels, so the attention launches 12 forwards
+    and 12 backwards (4 a pass: main, all_seq, corrupted), the gather 4 (2
+    for the main forward, 1 a view pass), the scoring head 3."""
+    cfg = _backbone_cfg(backbone, is_c2dsr=True, sasrec_heads=2)
+    model = build_model(cfg)
+    plain = build_model(dataclasses.replace(cfg, kernels="torch"), device="cuda")
+    plain.load_state_dict(model.state_dict())
+    v = cfg.item_table_size
+    batch = _step_batch(v, gen)
+    pools = torch.arange(v, device="cuda").repeat(2, 1)
+    sizes = torch.tensor([v, v], device="cuda")
+    metrics = []
+    for m, attn, gathers in ((model, 12 * (backbone != "gru4rec"), 4), (plain, 0, 0)):
+        state = steps.init_state(m, Adam(1e-3))
+        step = steps.make_train_step(m, Adam(1e-3), dr_e_w=0.1, c2dsr_w=0.1)
+        before = launches.read()
+        _, out = step(state, batch, pools, sizes, 5)
+        got = launches.since(before)
+        assert got["attention_fwd"] == got["attention_bwd"] == attn, got
+        assert got["embedding_gather"] == gathers and got["scoring_head"] == 3 * bool(gathers)
+        metrics.append(out)
+    assert "loss_cl" in metrics[0]
+    for k, val in metrics[0].items():
+        assert torch.isfinite(val) and abs(float(val) - float(metrics[1][k])) <= LOSS_TOL, k
+    for (name, p), q in zip(model.named_parameters(), plain.parameters()):
+        if name.endswith(".k.bias") or name.endswith("in_proj_bias"):
+            continue  # a zero gradient up to rounding (see above)
+        torch.testing.assert_close(p, q, atol=1e-5, rtol=1e-4, msg=name)
+
+
+def test_replayed_c2dsr_steps_equal_eager_steps(gen):
+    """Four C2DSR phase-A steps through a resident chunk runner against the
+    same steps taken eagerly, dropout 0.5 and the samplers on: the graph
+    registers the corrupted items' and both views' generators, so a replay
+    draws what the eager step draws (12 attention forwards and backwards a
+    replay)."""
+    cfg = _fast_cfg(is_c2dsr=True)
+    ds = synth_packed(cfg, np.random.default_rng(0), 4 * FAST_BS)
+    made = []
+    for _ in range(2):
+        model = build_model(cfg, seed=0)
+        state = steps.init_state(model, Adam(1e-3))
+        made.append((state, steps.make_train_step(model, Adam(1e-3), dr_e_w=0.1,
+                                                  c2dsr_w=0.1)))
+    (est, estep), (gst, gstep) = made
+    assert len(gstep.rng.generators()) == 5
+    arrays = loop._resident(ds.batch_arrays(), "cuda")
+    pools = loop._device_pools(ds, "cuda")
+    perm = torch.as_tensor(np.random.default_rng(1).permutation(4 * FAST_BS).astype(np.int32),
+                           device="cuda")
+    pool = GraphPool("cuda")
+    try:
+        runner = steps.make_resident_chunk_runner(gstep, FAST_BS, pool)
+        for i in range(4):
+            _, m0, nf = runner(gst, arrays, perm, *pools, 9, range(i, i + 1), range(i, i + 1))
+            rows = perm[i * FAST_BS:(i + 1) * FAST_BS]
+            _, m = estep(est, {k: x.index_select(0, rows) for k, x in arrays.items()},
+                         *pools, fold_in(9, i))
+            assert float(nf) == 0.0 and "loss_cl" in m0
+            for k, x in m0.items():
+                assert abs(float(x) - float(m[k])) <= LOSS_TOL, (i, k, float(x), float(m[k]))
+        graph = pool.graphs[0]
+        assert graph.replays == 3
+        assert graph.captured["attention_fwd"] == graph.captured["attention_bwd"] == 12
+        got, want = _moments(gst, "A", "dense"), _moments(est, "A", "dense")
+        for k in ("table_mu", "table_nu"):
+            assert _rel_to_max(got[k], want[k]) <= MOMENT_TOL, k
+        for k, x in got["dense"].items():
+            assert _rel_to_max(x, want["dense"][k]) <= MOMENT_TOL, k
+    finally:
+        pool.close()
+
+
+def test_c2dsr_attention_beyond_the_forward_kernel_is_refused_before_any_launch(tmp_path):
+    """BERT4Rec with InnerComp, InterComp and C2DSR at L=150 attends over
+    T=1,200 on its views at dh=32, beyond the forward kernel's T<=800:
+    `build_model` and `run_seed` refuse it on the card before any launch,
+    naming the backbone, the length, the head width and the limit. Without
+    InnerComp (T=600) it builds."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (torch.cuda.is_available() is False)")
+    assert attention_ops.forward_max_t(32) == 800 and attention_ops.forward_max_t(16) == 1448
+    cfg = ModelConfig(backbone="bert4rec", emb_dim=128, bert_heads=4, seq_len=150,
+                      batch_size=8, is_inc=True, is_itc=True, is_dr=True, is_c2dsr=True,
+                      item_length=50, user_length=50)
+    before = launches.read()
+    with pytest.raises(ValueError, match=r"bert4rec .*T=1200 at head width dh=32.*T<=800"):
+        build_model(cfg)
+    tcfg = TrainConfig(epochs=1, seeds=1, checkpoint=False, model_dir=str(tmp_path), model=cfg)
+    with pytest.raises(ValueError, match="T=1200"):
+        loop.run_seed(tcfg, 0, None, None)
+    assert launches.read() == before
+    build_model(dataclasses.replace(cfg, is_inc=False))

@@ -244,10 +244,17 @@ def _check_dense_rounds(rng, jmodel, params, overrides=None, rounds=1):
         _assert_tree_close(got.nu, nu, "nu")
 
 
-def test_c2dsr_branch_is_not_ported(jax_model):
-    model = _port_model(jax_model[1])
-    with pytest.raises(NotImplementedError, match="C2DSR"):
-        steps.make_train_step(model, Adam(LR), c2dsr_w=0.1)
+def test_c2dsr_branch_is_not_ported(rng):
+    """The C2DSR phase-A step is built and runs (it was refused until C2DSR
+    was ported; its parity with the JAX step is in tests/test_torch_c2dsr.py):
+    its metrics add `loss_cl`, all finite."""
+    _, params, _ = _jax_model(rng, is_c2dsr=True)
+    model = _port_model(params, is_c2dsr=True)
+    step = steps.make_train_step(model, Adam(LR), dr_e_w=DR_E_W, c2dsr_w=0.1)
+    _, m = step(steps.init_state(model, Adam(LR)), _tb(_batch(rng)), torch.as_tensor(POOLS),
+                torch.as_tensor(POOL_SIZES), 0)
+    assert set(m) == {"loss", "loss_cls", "loss_dr_e", "loss_cl", "nonfinite"}
+    assert float(m["nonfinite"]) == 0.0 and float(m["loss_cl"]) > 0.0
 
 
 # ---------------------------------------------------------------------------
