@@ -1,6 +1,7 @@
-// Pieces the attention forward (attention_fwd.cu) and backward
-// (attention_bwd.cu) share: the dropout counter hash, the 3xTF32 tensor-core
-// product and the argument block of the C entry points.
+// Pieces the attention forwards (attention_fwd.cu, attention_fwd_long.cu)
+// and backwards (attention_bwd.cu, attention_bwd_long.cu) share: the dropout
+// counter hash, the 3xTF32 tensor-core product, the quad reductions of an
+// accumulator row and the argument blocks of the C entry points.
 //
 // 3xTF32. One TF32 product keeps 11 significant bits of each operand, about
 // three decimal digits: too few for the fp32 tolerances the kernels are held
@@ -57,6 +58,18 @@ __device__ __forceinline__ uint32_t fmix32(uint32_t h) {
 // is kept when mix(mix(mix(mix(K0, seed), b*H + h), i), j) >> 8 >= threshold.
 __device__ __forceinline__ uint32_t mix(uint32_t x, uint32_t v) {
   return fmix32(x ^ (v * 0x9E3779B1u + 0x7F4A7C15u));
+}
+
+// The largest and the sum of a value over the 4 lanes of a quad: one row of
+// an mma or wgmma accumulator (lanes 4g to 4g + 3 hold row g's columns).
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
 __host__ __device__ constexpr int pitch(int dh) { return dh + 4; }
@@ -137,6 +150,29 @@ struct BwdArgs {
 template <typename T>
 T* ptr(long long value) {
   return reinterpret_cast<T*>(static_cast<uintptr_t>(value));
+}
+
+// The forward kernels' parameters (attention_fwd.cu, attention_fwd_long.cu),
+// from one FwdArgs block.
+struct FwdParams {
+  const float *q, *k, *v, *bias;
+  float *out, *row_max, *row_inv_sum;
+  int T, D, H;
+  long long q_sb, q_st, k_sb, k_st, v_sb, v_st, bias_sb, bias_si;
+  float scale, inv_keep;
+  uint32_t keep_threshold;
+  const long long* seed;  // one int64 on the device, read when dropout is on
+  int dropout;
+};
+
+inline FwdParams fwd_params(const FwdArgs& a) {
+  return {ptr<const float>(a.q), ptr<const float>(a.k), ptr<const float>(a.v),
+          ptr<const float>(a.bias), ptr<float>(a.out), ptr<float>(a.row_max),
+          ptr<float>(a.row_inv_sum), (int)a.T, (int)a.D, (int)a.H,
+          a.q_sb, a.q_st, a.k_sb, a.k_st, a.v_sb, a.v_st, a.bias_sb, a.bias_si,
+          (float)a.scale, (float)a.inv_keep, (uint32_t)a.keep_threshold,
+          ptr<const long long>(a.seed),
+          (int)a.dropout};
 }
 
 // The backward kernels' parameters (attention_bwd.cu, attention_bwd_long.cu),

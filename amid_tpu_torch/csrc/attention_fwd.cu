@@ -55,27 +55,6 @@ using namespace amid_attention;
 
 constexpr int kChunk = 32;  // keys per online-softmax step: 4 n-tiles of 8
 
-struct FwdParams {
-  const float *q, *k, *v, *bias;
-  float *out, *row_max, *row_inv_sum;
-  int T, D, H;
-  long long q_sb, q_st, k_sb, k_st, v_sb, v_st, bias_sb, bias_si;
-  float scale, inv_keep;
-  uint32_t keep_threshold;
-  const long long* seed;  // one int64 on the device, read when dropout is on
-  int dropout;
-};
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
 template <int DH>
 __global__ void __launch_bounds__(kMaxWarps * 32)
 attention_fwd_kernel(const FwdParams p) {
@@ -265,14 +244,7 @@ int attention_fwd(const void* raw) {
   const int dh = (int)(a.D / a.H);
   const size_t smem = smem_bytes((int)a.T, dh);
   if (smem > 232448) return kTooLong;
-  const FwdParams p = {
-      ptr<const float>(a.q), ptr<const float>(a.k), ptr<const float>(a.v),
-      ptr<const float>(a.bias), ptr<float>(a.out), ptr<float>(a.row_max),
-      ptr<float>(a.row_inv_sum), (int)a.T, (int)a.D, (int)a.H,
-      a.q_sb, a.q_st, a.k_sb, a.k_st, a.v_sb, a.v_st, a.bias_sb, a.bias_si,
-      (float)a.scale, (float)a.inv_keep, (uint32_t)a.keep_threshold,
-      ptr<const long long>(a.seed),
-      (int)a.dropout};
+  const FwdParams p = fwd_params(a);
   cudaStream_t s = ptr<CUstream_st>(a.stream);
   const int B = (int)a.B;
   switch (dh) {

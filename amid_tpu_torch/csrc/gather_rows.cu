@@ -2,8 +2,9 @@
 //
 // Replaces amid_tpu/ops/pallas_embedding.py::_gather_kernel (pallas_call in
 // _gather_pallas, wrapper embedding_gather_pallas). The backward of the
-// gather is a scatter-add into a zero [V, D] table, which the TPU package
-// leaves to plain XLA and the port to `index_add_` (ops/embedding.py).
+// gather, a scatter-add into a zero [V, D] table, which the TPU package
+// leaves to plain XLA (`_bwd`, `.at[ids].add`), is the second entry point,
+// gather_rows_grad, at the end of this file.
 //
 // Contract. ids are int32 or int64; an id outside [0, V) is clamped to the
 // nearest valid row (what a JAX gather does with an out-of-bounds index), so
@@ -183,6 +184,131 @@ T* pointer(long long value) {
   return reinterpret_cast<T*>(static_cast<uintptr_t>(value));
 }
 
+// ---------------------------------------------------------------------------
+// The gather's backward: out[keys[i], :] += g[order[i], :] for every i, into
+// a zero [V, width] table, in a fixed order.
+//
+// Why not atomics. An atomic add per element (`index_add_`) sums each row's
+// gradients in the order the adds arrive, so two calls differ in the last
+// bits; Adam turns last-bit noise in a gradient that is zero but for
+// rounding into updates of full size, and a replayed training step then parts
+// from the eager one. Why not one thread per row of the table. Left-padded
+// histories send the padding row tens of thousands of gradients a step: a
+// serial sum over them (what a sorted `index_put_` does) takes milliseconds.
+//
+// Design. The caller sorts the ids (stable) and passes them as `keys` with
+// the permutation `order`. Pass 1: a block sums kGradChunk consecutive sorted
+// rows, one thread a column, in row order, closing a run at each change of
+// key; a run that starts and ends inside the chunk is written to its row of
+// the table, and each chunk keeps its first run's sum (head) and its last
+// run's (tail). Pass 2: the block of the chunk where a longer run starts adds
+// the following chunks' heads to its tail in chunk order (a binary search
+// over the sorted keys finds the run's last chunk) and writes the row. Every
+// row's sum thus has one order, fixed by the keys alone: two calls are
+// bit-equal. A run is written once, by one block: no atomics, no races.
+//
+// Bound on the H100 (data sheet): the gradient rows read once (n * width * 4
+// bytes), the keys and order (16 bytes a row) and each distinct row written
+// once: 39 MB at n = 76,800, width = 128 (12 us at 3.35 TB/s). The zero
+// table itself is the caller's (a memset of V * width * 4 bytes).
+
+constexpr int kGradChunk = 256;   // sorted rows one block of pass 1 sums
+constexpr int kGradThreads = 128; // threads a block: one column each, looping past 128
+constexpr int kGradUnroll = 8;    // rows whose loads are issued before they are added
+
+__device__ __forceinline__ void store_row(float* out, long long key, long long V, int width,
+                                          int col, float value) {
+  if (key >= 0 && key < V) out[key * width + col] = value;
+}
+
+__global__ void __launch_bounds__(kGradThreads)
+grad_chunks_kernel(const long long* __restrict__ keys, const long long* __restrict__ order,
+                   const float* __restrict__ g, long long g_stride, float* __restrict__ out,
+                   float* __restrict__ head, float* __restrict__ tail, int n, long long V,
+                   int width) {
+  __shared__ long long sk[kGradChunk];
+  __shared__ long long so[kGradChunk];
+  const int c = blockIdx.x;
+  const int c0 = c * kGradChunk;
+  const int len = min(kGradChunk, n - c0);
+  for (int i = threadIdx.x; i < len; i += blockDim.x) {
+    sk[i] = keys[c0 + i];
+    so[i] = order[c0 + i];
+  }
+  __syncthreads();
+  // the first run continues one from the chunk before; the last, into the next
+  const bool cont_in = c0 > 0 && keys[c0 - 1] == sk[0];
+  const bool cont_out = c0 + len < n && keys[c0 + len] == sk[len - 1];
+  for (int col = threadIdx.x; col < width; col += blockDim.x) {
+    float acc = 0.f;
+    int start = 0;  // first row of the open run
+    for (int i0 = 0; i0 < len; i0 += kGradUnroll) {
+      float v[kGradUnroll];
+#pragma unroll
+      for (int u = 0; u < kGradUnroll; ++u)
+        v[u] = i0 + u < len ? __ldg(g + so[i0 + u] * g_stride + col) : 0.f;
+#pragma unroll
+      for (int u = 0; u < kGradUnroll; ++u) {
+        const int i = i0 + u;
+        if (i >= len) break;
+        if (i > start && sk[i] != sk[i - 1]) {  // the run [start, i) closes
+          if (start == 0) head[(long long)c * width + col] = acc;
+          if (!(start == 0 && cont_in)) store_row(out, sk[start], V, width, col, acc);
+          acc = 0.f;
+          start = i;
+        }
+        acc += v[u];
+      }
+    }
+    // the last run [start, len)
+    if (start == 0) head[(long long)c * width + col] = acc;
+    tail[(long long)c * width + col] = acc;
+    if (!(start == 0 && cont_in) && !cont_out) store_row(out, sk[start], V, width, col, acc);
+  }
+}
+
+__global__ void __launch_bounds__(kGradThreads)
+grad_spans_kernel(const long long* __restrict__ keys, float* __restrict__ out,
+                  const float* __restrict__ head, const float* __restrict__ tail, int n,
+                  long long V, int width) {
+  const int c = blockIdx.x;
+  const int c0 = c * kGradChunk;
+  const int len = min(kGradChunk, n - c0);
+  const long long key = keys[c0 + len - 1];
+  if (!(c0 + len < n && keys[c0 + len] == key)) return;  // the last run ends here
+  if (keys[c0] == key && c0 > 0 && keys[c0 - 1] == key) return;  // it started earlier
+  int lo = c0 + len, hi = n;  // keys[lo] == key; the run's last row is in [lo, hi)
+  while (hi - lo > 1) {
+    const int mid = lo + (hi - lo) / 2;
+    if (keys[mid] == key) lo = mid; else hi = mid;
+  }
+  const int last = lo / kGradChunk;
+  for (int col = threadIdx.x; col < width; col += blockDim.x) {
+    float acc = tail[(long long)c * width + col];
+    for (int cc = c + 1; cc <= last; ++cc) acc += head[(long long)cc * width + col];
+    store_row(out, key, V, width, col, acc);
+  }
+}
+
+int run_grad(const long long* keys, const long long* order, const float* g, long long g_stride,
+             float* out, float* scratch, long long n, long long V, long long width,
+             void* stream) {
+  if (V < 1 || width < 1 || width > 0x7fffffffLL) return kBadTable;
+  if (n < 0 || n > 0x7fffffffLL) return kTooManyRows;
+  if (n == 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int chunks = (int)((n + kGradChunk - 1) / kGradChunk);
+  float* head = scratch;
+  float* tail = scratch + (long long)chunks * width;
+  grad_chunks_kernel<<<chunks, kGradThreads, 0, st>>>(keys, order, g, g_stride, out, head,
+                                                      tail, (int)n, V, (int)width);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  grad_spans_kernel<<<chunks, kGradThreads, 0, st>>>(keys, out, head, tail, (int)n, V,
+                                                     (int)width);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -215,5 +341,20 @@ int gather_rows(const long long* a) {
   return run(pointer<const float>(a[0]), a[1], a[2], a[3], a[4], (int)a[5], s, counts,
              (int)a[7], pointer<void>(a[8]));
 }
+
+// The gather's backward into a zero table, in a fixed order (see above).
+// a = {keys, order, g, g_stride, out, scratch, n, V, width, stream}. keys:
+// int64 [n], the ids sorted ascending (stable), each in [0, V) (a key outside
+// is skipped); order: int64 [n], for each sorted position the row of g it
+// takes; g: fp32 rows of `width` unit-stride floats, g_stride floats apart;
+// out: fp32 [V, width] contiguous, zero; scratch: fp32 [2 * ceil(n / 256),
+// width]. Returns 0, a refusal (kBadTable, kTooManyRows) or a cudaError_t.
+int gather_rows_grad(const long long* a) {
+  return run_grad(pointer<const long long>(a[0]), pointer<const long long>(a[1]),
+                  pointer<const float>(a[2]), a[3], pointer<float>(a[4]),
+                  pointer<float>(a[5]), a[6], a[7], a[8], pointer<void>(a[9]));
+}
+
+int gather_rows_grad_chunk() { return kGradChunk; }
 
 }  // extern "C"

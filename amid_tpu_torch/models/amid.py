@@ -202,25 +202,29 @@ def head_width(cfg: ModelConfig):
 
 
 def check_attention_fits(cfg: ModelConfig) -> None:
-    """Raises if the longest attention call of a kernels='cuda' model of
-    `cfg` (the encoder at L, or at 2L on C2DSR's views) is beyond what the
-    attention forward kernel holds: K and V of one head in one block's
-    shared memory (`ops.attention.forward_max_t`). Binds the kernels."""
-    from amid_tpu_torch.ops.attention import forward_max_t
+    """Raises if no attention kernel of a kernels='cuda' model of `cfg` takes
+    its longest attention call (the encoder at L, or at 2L on C2DSR's views):
+    a head width the kernels do not have, or a T beyond the long-sequence
+    forward's or backward's limit (`ops.attention.long_forward_max_t`,
+    `long_backward_max_t`; the one-head forward hands longer shapes to the
+    long forward). Binds the kernels."""
+    from amid_tpu_torch.ops.attention import (
+        KERNEL_HEAD_DIMS, long_backward_max_t, long_forward_max_t,
+    )
 
     dh = head_width(cfg)
     if dh is None:
         return
     t = cfg.enc_seq_len
-    limit = forward_max_t(dh)
-    if t > limit:
+    limit = min(long_forward_max_t(), long_backward_max_t())
+    if dh not in KERNEL_HEAD_DIMS or t > limit:
         parts = [name for name, on in (("InnerComp", cfg.is_inc), ("InterComp", cfg.is_itc),
                                        ("C2DSR", cfg.is_c2dsr)) if on]
         raise ValueError(
             f"{cfg.backbone} at seq_len={cfg.seq_len} with {', '.join(parts) or 'no comp'} "
-            f"attends over T={t} at head width dh={dh}; the attention forward kernel "
-            f"holds T<={limit} at that width (one head's K and V in a block's shared "
-            f"memory), so kernels='cuda' cannot run it (kernels='torch' can)")
+            f"attends over T={t} at head width dh={dh}; the attention kernels take head "
+            f"widths {KERNEL_HEAD_DIMS} and T<={limit}, so kernels='cuda' cannot run it "
+            f"(kernels='torch' can)")
 
 
 def resolve_device(device=None) -> torch.device:

@@ -7,10 +7,10 @@ for BERT4Rec); the per-head scale is 1/sqrt(dh); dropout with `rate` drops
 attention probabilities and scales the kept ones by 1/(1 - rate).
 
 * `fused_attention` is the wrapper of the CUDA kernels
-  `csrc/attention_fwd.cu`, `csrc/attention_bwd.cu` and
-  `csrc/attention_bwd_long.cu`. On CUDA tensors the forward launches the
-  forward kernel (counted in `fused_attention.launches`) and a gradient
-  launches a backward path (see below), or they raise; on CPU tensors it
+  `csrc/attention_fwd.cu`, `csrc/attention_fwd_long.cu`,
+  `csrc/attention_bwd.cu` and `csrc/attention_bwd_long.cu`. On CUDA tensors
+  the forward launches a forward path and a gradient launches a backward
+  path (see below), or they raise; on CPU tensors it
   computes `attention_plain`. The `torch.autograd.Function` that joins the
   two is entered only when a gradient is wanted (grad mode on and q, k or v
   requiring one); then the forward also writes the row statistics the
@@ -20,7 +20,22 @@ attention probabilities and scales the kept ones by 1/(1 - rate).
   on the card.
 * `attention_fwd_stats_plain` is the forward with its row statistics
   (`row_max` m_i and `row_inv_sum` 1/l_i, each [B, h, T]), the plain version
-  of the forward kernel under autograd.
+  of the forward kernels under autograd; `attention_fwd_stats_streamed_plain`
+  computes the same in the long forward's order (an online softmax over key
+  tiles), holding [B, h, T, block_k] at a time.
+* The forward has two CUDA paths (`forward_route`): the one-head kernel
+  `csrc/attention_fwd.cu` (`mma.sync` in 3xTF32), one block a (b, h) with
+  the head's whole K and V in shared memory (at dh=32 up to T=800,
+  `forward_max_t`), counted in `fused_attention.launches`; and the
+  long-sequence kernel `csrc/attention_fwd_long.cu`, which takes any T up
+  to `long_forward_max_t()` at every kernel head width: a block owns 128
+  queries of a (b, h) and streams K, V and the bias row through the same
+  ring of staged, split tiles as the long backward's, the products on
+  `wgmma` in 3xTF32, counted in `fused_attention.long_forward_launches`.
+  `forward_route` sends a shape to the long kernel where the one-head kernel
+  cannot hold it, or from `LONG_FWD_FASTER_FROM`'s T on, the crossovers
+  `chip_smoke.py`'s `fwd_crossover` records measured. Both write the same
+  row statistics, which either backward path reads.
 * `attention_bwd_plain` repeats the backward kernel's one-sweep arithmetic in
   plain PyTorch: dq, dk, dv from q, k, v, bias, the forward's output and row
   statistics and the output's gradient, with P rebuilt from the statistics
@@ -138,22 +153,25 @@ def keep_threshold(rate: float) -> int:
 
 
 def dropout_keep_mask(
-    seed, bsz: int, heads: int, t: int, rate: float, device=None
+    seed, bsz: int, heads: int, t: int, rate: float, device=None, keys=None
 ) -> torch.Tensor:
     """Boolean keep mask [B, heads, T, T] of the kernel's dropout; `seed` an
-    int or a one-element int64 tensor on `device`.
+    int or a one-element int64 tensor on `device`. With `keys`, a range of
+    key indices, only those columns: [B, heads, T, len(keys)].
 
     bits(b, h, i, j) = mix(mix(mix(mix(K0, seed), b*heads + h), i), j) and the
     element is kept iff bits >> 8 >= ceil(rate * 2^24)."""
     if isinstance(seed, torch.Tensor):
         seed = seed.reshape(()).to(torch.int64)
+    keys = range(t) if keys is None else keys
     stream = _mix(_MIX_KEY0, seed & _M32)
     bh = torch.arange(bsz * heads, dtype=torch.int64, device=device)
     idx = torch.arange(t, dtype=torch.int64, device=device)
+    jdx = torch.arange(keys.start, keys.stop, dtype=torch.int64, device=device)
     key_bh = _mix(stream, bh)  # [BH]
     key_i = _mix(key_bh[:, None], idx[None, :])  # [BH, T]
-    bits = _mix(key_i[:, :, None], idx[None, None, :])  # [BH, T, T]
-    return ((bits >> 8) >= keep_threshold(rate)).view(bsz, heads, t, t)
+    bits = _mix(key_i[:, :, None], jdx[None, None, :])  # [BH, T, keys]
+    return ((bits >> 8) >= keep_threshold(rate)).view(bsz, heads, t, len(jdx))
 
 
 # ---------------------------------------------------------------------------
@@ -219,6 +237,40 @@ def attention_fwd_stats_plain(q, k, v, bias, seed, heads: int, rate: float):
     return _merge(torch.matmul(p, _heads(v, heads))), m.squeeze(-1), inv_l.squeeze(-1)
 
 
+def attention_fwd_stats_streamed_plain(q, k, v, bias, seed, heads: int, rate: float,
+                                       block_k: int = 64):
+    """(out, row_max, row_inv_sum) of `attention_fwd_stats_plain`, computed
+    in the long forward kernel's order (`csrc/attention_fwd_long.cu`): an
+    online softmax over tiles of `block_k` keys (the kernel's stage: 64, 32
+    at dh=64), the last tile partial. Per tile, S = Q K^T / sqrt(dh) + bias,
+    m grows to the tile's row max, l and O are rescaled by exp(m_old - m),
+    l += rowsum(exp(S - m)), O += dropout(exp(S - m)) V; then O / l. Holds
+    [B, h, T, block_k] at a time, the dropout mask included, so it also runs
+    where a [B, h, T, T] block would not fit."""
+    _check_inputs(q, k, v, bias, heads, rate)
+    bsz, t, d = q.shape
+    scale = 1.0 / math.sqrt(d // heads)
+    qh, kh, vh = (_heads(x, heads) for x in (q, k, v))
+    m = q.new_full((bsz, heads, t, 1), -math.inf)
+    l = q.new_zeros((bsz, heads, t, 1))
+    o = torch.zeros_like(qh)
+    for j0 in range(0, t, block_k):
+        keys = range(j0, min(j0 + block_k, t))
+        s = torch.matmul(qh, kh[:, :, j0:keys.stop].transpose(-1, -2)) * scale + \
+            bias[..., j0:keys.stop]
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        e = torch.exp(s - m_new)
+        l = l * alpha + e.sum(dim=-1, keepdim=True)
+        if rate > 0.0:
+            e = e * dropout_keep_mask(seed, bsz, heads, t, rate, q.device, keys) * (
+                1.0 / (1.0 - rate))
+        o = o * alpha + torch.matmul(e, vh[:, :, j0:keys.stop])
+        m = m_new
+    inv_l = 1.0 / l
+    return _merge(o * inv_l), m.squeeze(-1), inv_l.squeeze(-1)
+
+
 def attention_bwd_plain(q, k, v, bias, out, row_max, row_inv_sum, dout,
                         seed, heads: int, rate: float):
     """(dq, dk, dv) of `attention_plain` for the output gradient `dout`
@@ -258,25 +310,30 @@ _PACK_FWD = struct.Struct("<23q2d").pack
 _PACK_BWD = struct.Struct("<31q2d").pack
 _PACK_BWD_LONG = struct.Struct("<31q2dq").pack  # BwdLongArgs: BwdArgs, then the D_i scratch
 _BAD_HEAD_WIDTH, _BAD_SHAPE, _TOO_LONG, _MISALIGNED = -1, -2, -3, -4  # the refusals
-_SOURCES = ["attention_fwd", "attention_bwd", "attention_bwd_long"]
+_SOURCES = ["attention_fwd", "attention_fwd_long", "attention_bwd", "attention_bwd_long"]
 
-_fwd = _bwd = _bwd_long = None  # bound entry points, resolved at the first launch
+_fwd = _fwd_long = _bwd = _bwd_long = None  # bound entry points, resolved at the first launch
 _fwd_smem = _bwd_smem = None  # their shared-memory functions, (T, dh) -> bytes
-_long_max_t = None  # the longest T of the long path
+_long_max_t = _fwd_long_max_t = None  # the longest T of the long backward and forward
+_fwd_max_t = None  # dh -> the longest T of the one-head forward kernel
 _bwd_fits: dict = {}  # (T, dh) -> whether the one-sweep backward kernel takes it
 
 
 def _bind() -> None:
-    global _fwd, _bwd, _bwd_long, _fwd_smem, _bwd_smem, _long_max_t
+    global _fwd, _fwd_long, _bwd, _bwd_long, _fwd_smem, _bwd_smem, _long_max_t, _fwd_long_max_t
+    global _fwd_max_t
     i = ctypes.c_int
     _build.build(_SOURCES)  # one nvcc each, all at once
-    fwd, bwd, long = (_build.load(n) for n in _SOURCES)
+    fwd, fwd_long, bwd, bwd_long = (_build.load(n) for n in _SOURCES)
     _fwd_smem = _build.bind(fwd.attention_fwd_smem_bytes, [i, i], ctypes.c_size_t)
     _bwd_smem = _build.bind(bwd.attention_bwd_smem_bytes, [i, i], ctypes.c_size_t)
-    _long_max_t = _build.bind(long.attention_bwd_long_max_t, [])()
+    _long_max_t = _build.bind(bwd_long.attention_bwd_long_max_t, [])()
+    _fwd_long_max_t = _build.bind(fwd_long.attention_fwd_long_max_t, [])()
+    _fwd_max_t = {dh: _largest_t(_fwd_smem, dh) for dh in KERNEL_HEAD_DIMS}
     _fwd = _build.bind(fwd.attention_fwd, [ctypes.c_char_p])
+    _fwd_long = _build.bind(fwd_long.attention_fwd_long, [ctypes.c_char_p])
     _bwd = _build.bind(bwd.attention_bwd, [ctypes.c_char_p])
-    _bwd_long = _build.bind(long.attention_bwd_long, [ctypes.c_char_p])
+    _bwd_long = _build.bind(bwd_long.attention_bwd_long, [ctypes.c_char_p])
 
 
 def _largest_t(smem_bytes, dh: int) -> int:
@@ -312,12 +369,14 @@ def _raise(err: int, name: str, smem_bytes, t: int, d: int, heads: int):
 
 
 def forward_max_t(dh: int) -> int:
-    """The longest T the forward kernel takes at head width `dh`: one head's
-    K and V in one block's shared memory (`attention_fwd_smem_bytes`, a
-    function that grows with T, against SMEM_LIMIT). Binds the kernels."""
+    """The longest T the one-head forward kernel takes at head width `dh`
+    (0 at a width it does not take): one head's K and V in one block's
+    shared memory (`attention_fwd_smem_bytes`, a function that grows with T,
+    against SMEM_LIMIT), found once per head width when the kernels are
+    bound, since every forward launch routes by it."""
     if _fwd is None:
         _bind()
-    return _largest_t(_fwd_smem, dh)
+    return _fwd_max_t.get(dh, 0)
 
 
 def long_backward_max_t() -> int:
@@ -325,6 +384,34 @@ def long_backward_max_t() -> int:
     if _bwd_long is None:
         _bind()
     return _long_max_t
+
+
+def long_forward_max_t() -> int:
+    """The longest T the long-sequence forward takes (binds the kernels)."""
+    if _fwd_long is None:
+        _bind()
+    return _fwd_long_max_t
+
+
+# For each head width, the shortest T from which the long forward's device
+# time was below the one-head kernel's on the card for both biases, among
+# the T that `chip_smoke.py`'s forward crossover sweep measures (150, 300,
+# 368, 512, 600 and 800, at B=256, D=128, key padding and causal, rate 0;
+# `fwd_crossover` records; NVIDIA H100 80GB HBM3, 700.00 W). dh=32: the
+# one-head kernel faster at 150, the long forward from 300 (0.384 against
+# 0.521 ms, key padding). dh=16: key padding crosses at 368, the causal bias
+# at 512. Below it, and at the head widths not swept (8, 64), shapes stay on
+# the one-head kernel as long as it holds them (`forward_max_t`).
+LONG_FWD_FASTER_FROM = {16: 512, 32: 300}
+
+
+def forward_route(t: int, dh: int) -> str:
+    """'long' (the long-sequence forward) where the one-head kernel cannot
+    hold the shape (`forward_max_t(dh) < t`) or from
+    `LONG_FWD_FASTER_FROM[dh]` on, else 'sweep' (the one-head kernel).
+    Binds the kernels."""
+    start = LONG_FWD_FASTER_FROM.get(dh)
+    return "long" if (start is not None and t >= start) or forward_max_t(dh) < t else "sweep"
 
 
 # For each head width, the shortest T from which the long path's device time
@@ -409,11 +496,11 @@ def _dropout_fields(seed, rate: float, dev):
             seed_t.data_ptr() if dropout else 0, _build.raw_stream(dev.index)), seed_t
 
 
-def _launch_forward(q, k, v, bias, seed, heads: int, rate: float, stats: bool):
-    """(out, row_max, row_inv_sum) from one forward launch on checked CUDA
-    tensors; the statistics are written (and returned) only with `stats`."""
-    if _fwd is None:
-        _bind()
+def _pack_forward(q, k, v, bias, seed, heads: int, rate: float, stats: bool):
+    """The FwdArgs block of one forward launch on checked CUDA tensors, the
+    tensors it writes (out, row_max, row_inv_sum; the statistics only with
+    `stats`) and the seed tensor, which the caller keeps alive until the
+    launch."""
     bsz, t, d = q.shape
     dev = q.device
     strides = _strides((("q", q), ("k", k), ("v", v)), bias, dev)
@@ -421,16 +508,54 @@ def _launch_forward(q, k, v, bias, seed, heads: int, rate: float, stats: bool):
     row_max = row_inv_sum = None
     if stats:
         row_max, row_inv_sum = q.new_empty((bsz, heads, t)), q.new_empty((bsz, heads, t))
-    fields, _seed_alive = _dropout_fields(seed, rate, dev)
-    err = _fwd(_PACK_FWD(
+    fields, seed_t = _dropout_fields(seed, rate, dev)
+    block = _PACK_FWD(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(),
         row_max.data_ptr() if stats else 0, row_inv_sum.data_ptr() if stats else 0,
         bsz, t, d, heads, *strides, *fields,
-        1.0 / math.sqrt(d // heads), 1.0 / (1.0 - rate)))
+        1.0 / math.sqrt(d // heads), 1.0 / (1.0 - rate))
+    return block, (out, row_max, row_inv_sum), seed_t
+
+
+def _launch_forward(q, k, v, bias, seed, heads: int, rate: float, stats: bool, path=None):
+    """(out, row_max, row_inv_sum) from one forward launch of the path `path`
+    ('sweep', the one-head kernel, or 'long'; None: `forward_route`'s) on
+    checked CUDA tensors; the statistics are written (and returned) only with
+    `stats`."""
+    if _fwd is None:
+        _bind()
+    bsz, t, d = q.shape
+    if path is None:
+        path = forward_route(t, d // heads)
+    if path == "long":
+        return _launch_forward_long(q, k, v, bias, seed, heads, rate, stats)
+    if path != "sweep":
+        raise ValueError(f"the forward path is 'sweep' or 'long'; got {path!r}")
+    block, outs, _seed_alive = _pack_forward(q, k, v, bias, seed, heads, rate, stats)
+    err = _fwd(block)
     if err:
         _raise(err, "attention_fwd", _fwd_smem, t, d, heads)
     fused_attention.launches += 1
-    return out, row_max, row_inv_sum
+    return outs
+
+
+def _launch_forward_long(q, k, v, bias, seed, heads: int, rate: float, stats: bool):
+    """`_launch_forward` on the long-sequence path: its copies read 16-byte
+    chunks of q, k and v rows, so a view whose rows do not start on 16 bytes
+    is copied first."""
+    if _fwd_long is None:
+        _bind()
+    bsz, t, d = q.shape
+    q, k, v = (x if _rows_aligned(x) else x.contiguous() for x in (q, k, v))
+    block, outs, _seed_alive = _pack_forward(q, k, v, bias, seed, heads, rate, stats)
+    err = _fwd_long(block)
+    if err == _TOO_LONG:
+        raise ValueError(f"attention_fwd_long: T={t} is beyond its limit of "
+                         f"T={_fwd_long_max_t} (or B*heads beyond 2^31 - 1)")
+    if err:
+        _raise(err, "attention_fwd_long", _fwd_smem, t, d, heads)
+    fused_attention.long_forward_launches += 1
+    return outs
 
 
 def _launch_backward(q, k, v, bias, out, row_max, row_inv_sum, dout,
@@ -555,6 +680,7 @@ def fused_attention(
     return _launch_forward(q, k, v, bias, seed, heads, rate, False)[0]
 
 
-fused_attention.launches = 0  # forward kernel launches since the last reset
+fused_attention.launches = 0  # one-head forward kernel launches since the last reset
+fused_attention.long_forward_launches = 0  # long-sequence forward kernel launches
 fused_attention.backward_launches = 0  # one-sweep backward kernel launches
 fused_attention.long_backward_launches = 0  # long-sequence backward calls (two kernels each)

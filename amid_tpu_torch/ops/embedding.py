@@ -26,15 +26,22 @@ sentinel V, which no batch holds).
 
 The forward is the kernel of `csrc/gather_rows.cu`. The backward is the
 gather's transpose, a scatter-add into a zero `[V, D]` table (duplicated ids
-add up, across lookups too), done with one `index_add_` as the TPU package
-leaves it to XLA. The `autograd.Function` is entered only when a gradient is
+add up, across lookups too), which the TPU package leaves to XLA: here
+`embedding_gather_grad`, the second kernel of that file. It sorts the ids
+and sums each row's gradients in an order the ids alone fix, so two calls
+give bit-equal tables, and a replayed training step equals the eager one.
+`index_add_`'s atomics add in no fixed order; Adam's normalised first
+update turns the last-bit differences of a gradient that is zero but for
+rounding (an attention key bias) into updates of full size, and the two
+steps then part by far more than rounding. The
+`autograd.Function` is entered only when a gradient is
 wanted (grad mode on and a table that requires it); otherwise the wrapper
 launches directly.
 
 On CUDA tensors the wrappers launch the kernel (counting each launch in
 `embedding_gather.launches`, whichever wrapper made it) or raise; on CPU
-tensors the forward is `embedding_gather_many_plain` and the backward the same
-`index_add_`, so the CPU tests reach it. Types, devices and the grouping are
+tensors the forward is `embedding_gather_many_plain` and the backward
+`embedding_gather_grad_plain` (`index_add_`), so the CPU tests reach them. Types, devices and the grouping are
 checked here, once for both routes (`_check`); strides and counts by the C
 entry point, whose refusals come back as the exceptions of `_REFUSALS`.
 """
@@ -60,6 +67,15 @@ def embedding_gather_plain(table: torch.Tensor, ids: torch.Tensor) -> torch.Tens
     """The same function in plain PyTorch, differentiable by autograd."""
     flat = ids.reshape(-1).clamp(0, table.shape[0] - 1)
     return torch.index_select(table, 0, flat).view(*ids.shape, table.shape[1])
+
+
+def embedding_gather_grad_plain(ids: torch.Tensor, grad: torch.Tensor,
+                                rows: int) -> torch.Tensor:
+    """The gather's backward in plain PyTorch: a zero [rows, D] table with
+    grad[i] added at row ids[i] (clamped to [0, rows)) for every i; ids [N],
+    grad [N, D]."""
+    dtable = torch.zeros((rows, grad.shape[1]), dtype=grad.dtype, device=grad.device)
+    return dtable.index_add_(0, ids.clamp(0, rows - 1), grad)
 
 
 def _side_by_side(ids_list) -> torch.Tensor:
@@ -123,15 +139,27 @@ _REFUSALS = {  # the C entry point's codes (csrc/gather_rows.cu)
     -4: (ValueError, "embedding_gather: more than 2**31 - 1 rows in one launch"),
 }
 
-_gather_rows = None  # the bound C entry point, resolved at the first launch
-# it takes one array of 64-bit integers (csrc/gather_rows.cu has the layout);
+_gather_rows = _gather_rows_grad = None  # the bound C entry points, at the first launch
+_grad_chunk = None  # sorted rows a block of the backward's first pass sums
+# each takes one array of 64-bit integers (csrc/gather_rows.cu has the layouts);
 # packing it is one call, where ctypes converts argument by argument
 _PACK = [None] + [struct.Struct(f"{9 + 5 * k}q").pack for k in range(1, MAX_SEGMENTS + 1)]
+_PACK_GRAD = struct.Struct("10q").pack
 
 
 def _bind() -> None:
-    global _gather_rows
-    _gather_rows = _build.bind(_build.load("gather_rows").gather_rows, [ctypes.c_char_p])
+    global _gather_rows, _gather_rows_grad, _grad_chunk
+    lib = _build.load("gather_rows")
+    _gather_rows = _build.bind(lib.gather_rows, [ctypes.c_char_p])
+    _gather_rows_grad = _build.bind(lib.gather_rows_grad, [ctypes.c_char_p])
+    _grad_chunk = _build.bind(lib.gather_rows_grad_chunk, [])()
+
+
+def _raise(err: int, name: str):
+    if err in _REFUSALS:
+        exc, text = _REFUSALS[err]
+        raise exc(text)
+    raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
 
 
 def _launch(table, ids_list, concat):
@@ -173,12 +201,36 @@ def _launch(table, ids_list, concat):
         table.data_ptr(), stride0, stride1, rows, width, kind is torch.int64, len(ids_list),
         index, _build.raw_stream(index), *segments))
     if err:
-        if err in _REFUSALS:
-            exc, text = _REFUSALS[err]
-            raise exc(text)
-        raise RuntimeError(f"gather_rows kernel launch failed: cudaError {err}")
+        _raise(err, "gather_rows")
     embedding_gather.launches += 1
     return out
+
+
+def embedding_gather_grad(ids: torch.Tensor, grad: torch.Tensor, rows: int) -> torch.Tensor:
+    """The gather's backward, `embedding_gather_grad_plain`'s function: on
+    CUDA tensors one launch of `csrc/gather_rows.cu`'s `gather_rows_grad`
+    (counted in `embedding_gather_grad.launches`) after a stable sort of the
+    clamped ids, summing each row's gradients in an order the ids fix (two
+    calls are bit-equal); on CPU tensors the plain version. ids [N] int32 or
+    int64, grad [N, D] fp32 with unit stride along D."""
+    if grad.device.type != "cuda":
+        return embedding_gather_grad_plain(ids, grad, rows)
+    if _gather_rows_grad is None:
+        _bind()
+    if grad.stride(1) != 1:
+        grad = grad.contiguous()
+    n, width = grad.shape
+    keys, order = torch.sort(ids.clamp(0, rows - 1).long(), stable=True)
+    dtable = torch.zeros((rows, width), dtype=grad.dtype, device=grad.device)
+    scratch = grad.new_empty((2 * -(-n // _grad_chunk), width))
+    index = grad.device.index
+    err = _gather_rows_grad(_PACK_GRAD(
+        keys.data_ptr(), order.data_ptr(), grad.data_ptr(), grad.stride(0), dtable.data_ptr(),
+        scratch.data_ptr(), n, rows, width, _build.raw_stream(index)))
+    if err:
+        _raise(err, "gather_rows_grad")
+    embedding_gather_grad.launches += 1
+    return dtable
 
 
 def _forward(table, ids_list, concat):
@@ -191,8 +243,8 @@ def _forward(table, ids_list, concat):
 
 class _GatherMany(torch.autograd.Function):
     """Forward: one kernel launch (CUDA) or the plain version (CPU) for all
-    lookups. Backward: one scatter-add of the output gradients into a zero
-    [V, D], over the concatenated ids."""
+    lookups. Backward: `embedding_gather_grad` of the output gradients over
+    the concatenated ids."""
 
     @staticmethod
     def forward(ctx, table, concat, *ids_list):
@@ -214,8 +266,7 @@ class _GatherMany(torch.autograd.Function):
         width = grads[0].shape[-1]
         g = (grads[0].reshape(-1, width) if len(grads) == 1
              else torch.cat([x.reshape(-1, width) for x in grads]))
-        dtable = torch.zeros((ctx.table_rows, width), dtype=g.dtype, device=g.device)
-        dtable.index_add_(0, flat.clamp(0, ctx.table_rows - 1), g)
+        dtable = embedding_gather_grad(flat, g, ctx.table_rows)
         return (dtable, None) + (None,) * (len(ctx.needs_input_grad) - 2)
 
 
@@ -240,3 +291,4 @@ def embedding_gather(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
 
 
 embedding_gather.launches = 0  # kernel launches since the last reset, of both wrappers
+embedding_gather_grad.launches = 0  # backward calls (two kernels each) since the last reset

@@ -14,16 +14,18 @@ def counters() -> dict:
     """kernel name -> (wrapper, attribute holding its count)."""
     from amid_tpu_torch.ops.affinity import max_affinity_blocked, max_affinity_smalln
     from amid_tpu_torch.ops.attention import fused_attention
-    from amid_tpu_torch.ops.embedding import embedding_gather
+    from amid_tpu_torch.ops.embedding import embedding_gather, embedding_gather_grad
     from amid_tpu_torch.ops.scatter import scatter_set_unique, scatter_set_unique3
     from amid_tpu_torch.ops.scoring import scoring_head
 
     return {"attention_fwd": (fused_attention, "launches"),
+            "attention_fwd_long": (fused_attention, "long_forward_launches"),
             "attention_bwd": (fused_attention, "backward_launches"),
             "attention_bwd_long": (fused_attention, "long_backward_launches"),
             "scatter_set_unique3": (scatter_set_unique3, "launches"),
             "scatter_set_unique": (scatter_set_unique, "launches"),
             "embedding_gather": (embedding_gather, "launches"),
+            "embedding_gather_grad": (embedding_gather_grad, "launches"),
             "scoring_head": (scoring_head, "launches"),
             "max_affinity_blocked": (max_affinity_blocked, "launches"),
             "max_affinity_smalln": (max_affinity_smalln, "launches")}

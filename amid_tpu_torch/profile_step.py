@@ -69,9 +69,13 @@ def _wall_ms(fn, n: int) -> float:
 
 
 def _trace(fn, n: int, top: int):
+    """Device ms, kernel launches and the `top` kernels per call of `fn`
+    over `n` traced calls. Only the device's activity is recorded: nothing
+    here reads the host's operator events, whose processing dominated the
+    trace of a step with thousands of launches."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
@@ -96,7 +100,9 @@ def step_kinds(cfg: ModelConfig, tcfg: TrainConfig, ds, fast: bool, pool=None) -
     """name -> (fn, steps a call) for phase A, phase B and the evaluation
     batch of a fresh model on `ds`: eager steps cycling over the batches, or
     with `fast` the fast loops' replays over the resident dataset (graphs in
-    `pool`, which the caller closes)."""
+    `pool`, which the caller closes). Phase A is `run_seed`'s: with C2DSR
+    (`cfg.is_c2dsr`, dense Adam) it adds `tcfg.cl_w` times the infomax loss
+    of the views."""
     model = build_model(cfg, seed=0)
     tx, tx2 = Adam(tcfg.lr), Adam(tcfg.lr * tcfg.lr2)
     if tcfg.lazy_table_adam:
@@ -105,7 +111,8 @@ def step_kinds(cfg: ModelConfig, tcfg: TrainConfig, ds, fast: bool, pool=None) -
         step_b = lazy.make_lazy_dr_r_step(model, tx2)
     else:
         state = steps.init_state(model, tx, tx2)
-        step_a = steps.make_train_step(model, tx, dr_e_w=tcfg.dr_e_w)
+        step_a = steps.make_train_step(model, tx, dr_e_w=tcfg.dr_e_w,
+                                       c2dsr_w=tcfg.cl_w if cfg.is_c2dsr else None)
         step_b = steps.make_dr_r_step(model, tx2)
     pools = _device_pools(ds, "cuda")
     bs = cfg.batch_size
@@ -142,9 +149,10 @@ def step_kinds(cfg: ModelConfig, tcfg: TrainConfig, ds, fast: bool, pool=None) -
 
 def measure(fn, per_call: int, calls: int, top: int = TOP) -> dict:
     """Wall ms, device ms, launches and top kernels per step of `fn`, which
-    takes `per_call` steps a call: 3 calls of warm-up, then `calls` calls timed
-    by the host clock and `calls` traced."""
-    for _ in range(3):
+    takes `per_call` steps a call: at least 3 steps of warm-up (one call of a
+    replay chunk: its eager step, the capture and the replays), then `calls`
+    calls timed by the host clock and `calls` traced."""
+    for _ in range(-(-3 // per_call)):
         fn()
     wall = _wall_ms(fn, calls) / per_call
     device, launches, ranked = _trace(fn, calls, top)

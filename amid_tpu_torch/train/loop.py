@@ -220,8 +220,9 @@ def run_seed(
     With `model.is_c2dsr`, phase A adds `cl_w` * the C2DSR infomax loss
     (`train/c2dsr.py`); it is dense Adam only (ValueError with
     `lazy_table_adam`, as in the JAX package). On `cuda`, `build_model`
-    refuses a configuration whose attention the kernels cannot hold before
-    the first step (`models.amid.check_attention_fits`).
+    refuses, before the first step, a configuration whose attention no
+    kernel takes (`models.amid.check_attention_fits`: a head width outside
+    the kernels' or a T beyond the long-sequence paths').
 
     Runs on `cuda` unless the caller passes a device (e.g. "cpu"), and
     raises without a card."""

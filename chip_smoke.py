@@ -8,7 +8,7 @@ JAX package. Phases, in order (any failure ends the run with a non-zero exit
 code and no result line):
 
 1. the card's name and power limit; build every CUDA kernel of the serving
-   and training paths from `amid_tpu_torch/csrc/` (seven sources, one
+   and training paths from `amid_tpu_torch/csrc/` (eight sources, one
    `nvcc` each, all started together), timing the build;
 2. kernels: each kernel against its plain PyTorch version on the card, at
    the main paths' shapes, with its time beside the plain version's, one
@@ -26,13 +26,21 @@ code and no result line):
    version's; the dropout mask read out and compared element for element
    (library: `scaled_dot_product_attention`, with the same dropout rate).
    BERT4Rec's key-padding shapes at T=300 and T=600 (4 heads of 32), and
-   T=600 at training's rate 0.1 (library: SDPA at `dropout_p=0.1`).
+   T=600 at training's rate 0.1 (library: SDPA at `dropout_p=0.1`). The
+   long forward (`csrc/attention_fwd_long.cu`) against its plain version
+   in key tiles (`attention_fwd_stats_streamed_plain`), out and row
+   statistics, two calls bit-equal: key padding with a fully masked row at
+   dh=32, T=1,200 and T=600, rates 0 and 0.1; causal at dh=16, T=1,600;
+   dh=64 at T=600; then both forward paths' `device_ms` at B=256, rate 0,
+   key padding and causal, T=150 to 800 at dh 32 and 16 (`fwd_crossover`
+   records: the numbers behind `forward_route`'s table of crossovers).
    Attention backward: dq, dk, dv at the same cases from the plain
    forward's residuals (out, row max, 1 / row sum), the fully masked row
    included, each computed twice and required bit-equal (library: the
    backward of `scaled_dot_product_attention` through autograd); the
    long-sequence path at BERT4Rec's B=256, h=4, dh=32, T=600 with a fully
-   masked row, at rate 0 and 0.1; both paths, timed in full, at T=300
+   masked row, at rate 0 and 0.1, and at T=1,200 fed the long forward's
+   row statistics; both paths, timed in full, at T=300
    (dh=32) and T=150 (dh=16); then both paths' `device_ms` at T=150, 200,
    256, 300, 368 and 512 for head widths 32, 16, 64 and 8, wherever the
    one-sweep kernel holds the shape, and with SASRec's causal bias at dh=16
@@ -52,7 +60,11 @@ code and no result line):
    [256, 150], 2 x [256, 20]) and target with negatives straight into one
    [256, 1+K, 128] block (K = 999 and 1); bit for bit, with clamped
    out-of-range ids and the gradient of a group (library: `index_select` on
-   the concatenated ids). Scoring head at C=1000 and C=2, one user
+   the concatenated ids). The gather's backward (`embedding_gather_grad`)
+   at a training step's shapes, left-padded T=150 and T=20 histories and
+   target with a negative, against the plain version in fp64 (no further
+   than `index_add_` in fp32, GRAD_SLACK), two calls bit-equal (library:
+   `index_put_(accumulate=True)`). Scoring head at C=1000 and C=2, one user
    representation a launch and both in one launch (`scoring_head_pair`,
    what the model calls: against two calls of the plain version, and its
    eight gradients against autograd through the plain pair; no library call
@@ -118,26 +130,34 @@ code and no result line):
    swapped (BERT4Rec: 2 blocks of 4 heads, FFN 512, dropout 0.1, the d2-mask
    quirk; GRU4Rec: hidden width 128). Serving at T=150 (top-100 against the
    dense oracle) and T=20 against a `kernels='torch'` model, user 0's
-   domain-2 history all id 0 (BERT4Rec masks every key of its rows), and
-   BERT4Rec in pairwise mode at T=150 (gates from K6); `run_seed` for one
-   epoch of the DR schedule on the fast loops at T=20 (lazy Adam) and T=150
-   (dense), with its launches against `expected_launches`, then phase 4's
-   step-level checks, replayed steps against eager ones and step timings;
-   BERT4Rec's pairwise step checks at T=150; BERT4Rec with InnerComp and
-   InterComp at T=150, whose encoder sees T=600: one epoch of `run_seed`
-   (its backward on the long path) and one phase-A step and one evaluation
-   batch against the `kernels='torch'` model, then its step timings;
+   domain-2 history all id 0 (BERT4Rec masks every key of its rows),
+   BERT4Rec in pairwise mode at T=150 (gates from K6) and BERT4Rec with
+   InnerComp and InterComp at T=300 (encoder T=1,200, the long forward);
+   `run_seed` for one epoch of the DR schedule on the fast loops at T=20
+   (lazy Adam) and T=150 (dense), with its launches against
+   `expected_launches`, then phase 4's step-level checks, replayed steps
+   against eager ones and step timings; for BERT4Rec at T=150 also
+   replayed steps bit-equal to eager ones on three more data draws, with
+   the forward on each of its two kernels; BERT4Rec's pairwise step checks
+   at T=150; BERT4Rec with InnerComp and InterComp at T=150, whose encoder
+   sees T=600: one epoch of `run_seed` (its backward on the long path) and
+   one phase-A step and one evaluation batch against the `kernels='torch'`
+   model, then its step timings;
 8. C2DSR (`--isC2DSR True`, cl_w 0.1, dense Adam): the run.sh model at
    T=150 (views at 300), pairwise SASRec at T=20 (views at 40: K7 with 4
-   users a slot), BERT4Rec with InterComp at T=150 (encoder 300, views 600
-   on the long backward) and GRU4Rec at T=20: one epoch of `run_seed` on the
+   users a slot), BERT4Rec with InterComp at T=150 (encoder 300, views
+   600 on the long paths) and GRU4Rec at T=20: one epoch
+   of `run_seed` on the
    fast loops with its launches against `expected_launches` (three feature
    passes a phase-A step, the views' at their own length and backward
    route), phase 4's step-level checks against the `kernels='torch'` model
    and the step timings (and for the run.sh model replayed steps against
    eager ones); then BERT4Rec with InnerComp and InterComp at T=150, whose
-   views reach T=1,200 at dh=32, beyond the forward kernel: `build_model`
-   must refuse it before any launch.
+   views reach T=1,200 at dh=32, beyond the one-head forward kernel, on the
+   long forward and backward: one epoch of `run_seed` at B=256 with its
+   launches and peak memory, the step-level checks against the
+   `kernels='torch'` model at B=32 (where the plain step fits) and the step
+   timings at B=256.
 
 It prints a JSON line of per-kernel numbers, the total wall time, the
 `nvidia-smi` name and power line, and last `{"ok": true, "device": {...}}`.
@@ -177,6 +197,11 @@ DH64_DRAWS = 4  # more dh=64 draws held against fp64 (`kernel_case_bwd` `*_draw*
 # forward's row max and 1 / row sum vs plain: 1e-6 relative, and 1e-6 absolute
 # for a max near 0 (the scores themselves agree to about 5e-7)
 STATS_ATOL, STATS_RTOL = 1e-6, 1e-6
+# the long forward's row max and 1 / row sum vs plain, absolute: its scores
+# are wgmma's fp32 sums of 3xTF32 products; the row max came within 5.7e-6
+# of plain at dh=64, T=600 (3.8e-6 at dh=32, T=600 and 1,200), 1 / row sum
+# within 9.2e-7 (B=256, NVIDIA H100 80GB HBM3); twice that, rounded up
+LONG_STATS_ATOL = {"row_max": 1.2e-5, "row_inv_sum": 2e-6}
 FEATURE_TOL = 1e-4  # whole feature pass, kernel model vs plain model
 SCORE_ATOL = 1e-5  # scoring head vs plain: sigmoid outputs in (0, 1), fp32 sums
 # max-affinity vs plain: same bf16 inputs and exact products, fp32 sums over
@@ -187,6 +212,7 @@ SMALLN_SWEEP = (8, 16, 20, 24, 32, 40, 48, 64, 80)  # N=M of the K6/K7 crossover
 # wherever the one-sweep kernel holds the shape
 BWD_SWEEP_T = (150, 200, 256, 300, 368, 512)
 BWD_SWEEP_HEADS = (4, 8, 2, 16)  # dh 32, 16, 64, 8
+FWD_SWEEP_T = (150, 300, 368, 512, 600, 800)  # the forward route's crossover, dh 32 and 16
 OPEN_SHARE = (0.05, 0.95)  # share of open gates the opened-threshold check needs
 TOPK_RTOL, TOPK_ATOL = 1e-5, 1e-6  # catalog top-k vs dense oracle
 FLAGSHIP = dict(
@@ -197,6 +223,8 @@ FLAGSHIP = dict(
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "attention_fwd": ("amid_tpu_torch/csrc/attention_fwd.cu",
                       "amid_tpu/ops/pallas_attention.py:99"),
+    "attention_fwd_long": ("amid_tpu_torch/csrc/attention_fwd_long.cu",
+                           "amid_tpu/ops/pallas_attention.py:99"),
     "attention_bwd": ("amid_tpu_torch/csrc/attention_bwd.cu",
                       "amid_tpu/ops/pallas_attention.py:118"),
     "attention_bwd_long": ("amid_tpu_torch/csrc/attention_bwd_long.cu",
@@ -207,6 +235,9 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
                            "amid_tpu/ops/pallas_scatter.py:49"),
     "embedding_gather": ("amid_tpu_torch/csrc/gather_rows.cu",
                          "amid_tpu/ops/pallas_embedding.py:30"),
+    # the gather's backward, which the JAX package leaves to XLA's scatter-add
+    "embedding_gather_grad": ("amid_tpu_torch/csrc/gather_rows.cu",
+                              "amid_tpu/ops/pallas_embedding.py:75"),
     "scoring_head": ("amid_tpu_torch/csrc/scoring_head.cu",
                      "amid_tpu/ops/pallas_scoring.py:69"),
     "max_affinity_blocked": ("amid_tpu_torch/csrc/affinity.cu",
@@ -368,6 +399,12 @@ def gather_bound(n, width):
     return bound(2 * n * width * 4 + 4 * n, 0)
 
 
+def gather_grad_bound(n, rows, width):
+    """The gather's backward: n gradient rows and their ids (int32) read
+    once, the [rows, width] table (zeros and sums) written once."""
+    return bound(n * width * 4 + 4 * n + rows * width * 4, 0)
+
+
 def scoring_bound(b, c, d, h, users=1):
     """The scoring head for `users` user representations against the same
     candidates: the users, the items (once), both weight halves, b1, w2, b2
@@ -390,7 +427,9 @@ def expected_launches(cfg, train_steps=0, eval_batches=0, feature_passes=0,
                       lazy_adam=False, fused_scatter=True, c2dsr_steps=0):
     """Kernel launches of a kernels='cuda' model of `cfg` (two towers): per
     forward the attention forward once a block and tower (SASRec and
-    BERT4Rec: 4; GRU4Rec: none), 2 gathers (both sequences in one launch,
+    BERT4Rec: 4; GRU4Rec: none), on the path `forward_route` takes at the
+    encoder's length and head width (the one-head kernel or the long
+    forward), 2 gathers (both sequences in one launch,
     target and negatives in another; 1 on a features-only pass), 1 scoring
     launch per head (both user representations in one launch; 3 heads with
     DR), and in pairwise mode 2 affinity launches per comp module pair
@@ -401,11 +440,12 @@ def expected_launches(cfg, train_steps=0, eval_batches=0, feature_passes=0,
     path), and on the lazy path the table write-back. `c2dsr_steps` of the
     train steps are C2DSR phase-A steps: each adds two features-only passes
     over the views (2L), forward and backward, whose encoder length (and so
-    backward route) and affinity lengths are those of 2L, not of L."""
+    forward and backward routes) and affinity lengths are those of 2L, not
+    of L."""
     from amid_tpu_torch.config import encoder_length
     from amid_tpu_torch.models.amid import head_width
     from amid_tpu_torch.ops.affinity import smalln_faster
-    from amid_tpu_torch.ops.attention import backward_route
+    from amid_tpu_torch.ops.attention import backward_route, forward_route
 
     blocks = {"gru4rec": 0, "bert4rec": cfg.bert_blocks}.get(cfg.backbone, cfg.sasrec_blocks)
     counts = dict.fromkeys(KERNELS, 0)
@@ -413,9 +453,11 @@ def expected_launches(cfg, train_steps=0, eval_batches=0, feature_passes=0,
     def feature_passes_at(t, n, backward):
         """n passes over sequences of length t through both towers."""
         if blocks:
-            counts["attention_fwd"] += 2 * blocks * n
+            t_enc, dh = encoder_length(cfg, t), head_width(cfg)
+            long = forward_route(t_enc, dh) == "long"
+            counts["attention_fwd_long" if long else "attention_fwd"] += 2 * blocks * n
             if backward:
-                long = backward_route(encoder_length(cfg, t), head_width(cfg)) == "long"
+                long = backward_route(t_enc, dh) == "long"
                 counts["attention_bwd_long" if long else "attention_bwd"] += 2 * blocks * n
         if not cfg.comp_broadcast_quirk:
             for m in [t] * cfg.is_inc + [t * (2 if cfg.is_inc else 1)] * cfg.is_itc:
@@ -431,6 +473,7 @@ def expected_launches(cfg, train_steps=0, eval_batches=0, feature_passes=0,
     counts["scatter_set_unique3"] = scatters if fused_scatter else 0
     counts["scatter_set_unique"] = 0 if fused_scatter else 3 * scatters
     counts["embedding_gather"] = 2 * forwards + feature_passes + 2 * c2dsr_steps
+    counts["embedding_gather_grad"] = 2 * train_steps + 2 * c2dsr_steps
     counts["scoring_head"] = (3 if cfg.is_dr else 1) * forwards
     return counts
 
@@ -459,7 +502,8 @@ def kernel_phase(torch, gen):
 
     from amid_tpu_torch.ops import attention as attention_ops
     from amid_tpu_torch.ops.attention import (
-        attention_fwd_stats_plain, attention_plain, dropout_keep_mask, fused_attention,
+        attention_fwd_stats_plain, attention_fwd_stats_streamed_plain, attention_plain,
+        dropout_keep_mask, forward_route, fused_attention,
     )
 
     def qkv(b, t, d):
@@ -468,31 +512,64 @@ def kernel_phase(torch, gen):
     def causal(t):
         return torch.triu(torch.full((t, t), -1e9, device="cuda"), diagonal=1)[None, None]
 
-    def compare(name, q, k, v, bias, heads, seed=0, rate=0.0, timed=True):
+    def compare(name, q, k, v, bias, heads, seed=0, rate=0.0, timed=True, path=None):
+        """The forward against its plain version: `fused_attention` (the path
+        `forward_route` takes), or with `path` that path through
+        `_launch_forward`. The long path's plain version is
+        `attention_fwd_stats_streamed_plain` in its key tiles (a tile at a
+        time: it holds T=1,600 where a [B, h, T, T] block at rate 0.1 would
+        not fit), the one-head kernel's `attention_plain` and
+        `attention_fwd_stats_plain`."""
+        b, t, d = q.shape
+        dh = d // heads
+        route = path or forward_route(t, dh)
+        if path is None:
+            def fwd():
+                return fused_attention(q, k, v, bias, seed, heads, rate)
+        else:
+            def fwd():
+                return attention_ops._launch_forward(q, k, v, bias, seed, heads, rate, False,
+                                                     path)[0]
+        if route == "long":
+            def plain_stats():
+                return attention_fwd_stats_streamed_plain(q, k, v, bias, seed, heads, rate,
+                                                          32 if dh == 64 else 64)
+
+            def plain():
+                return plain_stats()[0]
+        else:
+            def plain_stats():
+                return attention_fwd_stats_plain(q, k, v, bias, seed, heads, rate)
+
+            def plain():
+                return attention_plain(q, k, v, bias, seed, heads, rate)
         with torch.no_grad():
-            got = fused_attention(q, k, v, bias, seed, heads, rate)
-            want = attention_plain(q, k, v, bias, seed, heads, rate)
+            got = fwd()
+            want = plain()
             torch.cuda.synchronize()
             err = (got - want).abs().max().item()
             require(torch.isfinite(got).all().item(), f"{name}: non-finite kernel output")
             require(torch.allclose(got, want, atol=ATOL, rtol=RTOL),
                     f"{name}: kernel vs plain max_abs_err {err}")
+            require(torch.equal(fwd(), got), f"{name}: two forward calls differ")
             # the forward as training launches it: with the row statistics
-            stats = attention_ops._launch_forward(q, k, v, bias, seed, heads, rate, True)
-            plain_stats = attention_fwd_stats_plain(q, k, v, bias, seed, heads, rate)
+            stats = attention_ops._launch_forward(q, k, v, bias, seed, heads, rate, True, route)
+            want_stats = plain_stats()
             require(torch.equal(stats[0], got), f"{name}: out differs with statistics")
-            for n, g, w in zip(("row_max", "row_inv_sum"), stats[1:], plain_stats[1:]):
-                require(torch.allclose(g, w, atol=STATS_ATOL, rtol=STATS_RTOL),
-                        f"{name}: kernel vs plain {n} max_abs_err {(g - w).abs().max().item()}")
+            stats_errs = {}
+            for n, g, w in zip(("row_max", "row_inv_sum"), stats[1:], want_stats[1:]):
+                stats_errs[n] = (g - w).abs().max().item()
+                atol = LONG_STATS_ATOL[n] if route == "long" else STATS_ATOL
+                require(torch.allclose(g, w, atol=atol, rtol=STATS_RTOL),
+                        f"{name}: kernel vs plain {n} max_abs_err {stats_errs[n]}")
             rec = {"case": name, "shape": list(q.shape), "bias": list(bias.shape),
-                   "heads": heads, "rate": rate, "max_abs_err": err}
+                   "heads": heads, "rate": rate, "path": route, "max_abs_err": err,
+                   "stats_max_abs_err": stats_errs}
+            del stats, want_stats
             if timed:
-                b, t, d = q.shape
-                dh = d // heads
-                rec.update(timings(
-                    torch, lambda: fused_attention(q, k, v, bias, seed, heads, rate), 50))
-                rec["plain_ms"] = cuda_ms(
-                    torch, lambda: attention_plain(q, k, v, bias, seed, heads, rate), 20)
+                iters = 50 if t <= 600 else 20
+                rec.update(timings(torch, fwd, iters))
+                rec["plain_ms"] = cuda_ms(torch, plain, *((20, 3) if t <= 600 else (5, 1)))
 
                 def split(x):
                     return x.view(b, t, heads, dh).transpose(1, 2)
@@ -504,7 +581,7 @@ def kernel_phase(torch, gen):
                         lib.transpose(1, 2).reshape(b, t, d) - want).abs().max().item()
                 rec.update(timings(
                     torch, lambda: F.scaled_dot_product_attention(
-                        qh, kh, vh, attn_mask=bias, dropout_p=rate), 50, library=True))
+                        qh, kh, vh, attn_mask=bias, dropout_p=rate), iters, library=True))
                 rec["bound_ms"], rec["bound_by"] = attention_bound(
                     b, t, d, heads, bias.numel())
         emit({"kernel_case": rec})
@@ -554,6 +631,54 @@ def kernel_phase(torch, gen):
     cases["keypad_T600_rate0.1"] = compare("keypad_T600_h4_rate0.1", q, k, v,
                                            keypad_bias(torch, gen, B, 600), 4, seed=step_seed,
                                            rate=0.1)
+    # the long forward (csrc/attention_fwd_long.cu): BERT4Rec's key padding at
+    # dh=32 with row 0 fully masked, at T=1,200 (C2DSR's views with both
+    # comps) and T=600 (the main pass), at rate 0 and training's 0.1;
+    # SASRec's causal bias at dh=16 and T=1,600 (past the one-head kernel's
+    # 1,448); dh=64 at T=600 (past its 424)
+    for t in (1200, 600):
+        q, k, v = qkv(B, t, D)
+        bias = keypad_bias(torch, gen, B, t)
+        for rate in (0.0, 0.1):
+            tag = f"_rate{rate}" if rate else ""
+            cases[f"long_T{t}{tag}"] = compare(f"long_keypad_T{t}_h4{tag}", q, k, v, bias, 4,
+                                               seed=step_seed, rate=rate, path="long")
+        with torch.no_grad():
+            got = attention_ops._launch_forward(q, k, v, bias, 0, 4, 0.0, False, "long")[0]
+        require(torch.allclose(got[0], v[0].mean(dim=0, keepdim=True).expand(t, D), atol=ATOL,
+                               rtol=RTOL),
+                f"long forward T={t}: the fully masked row is not the uniform average of v")
+    q, k, v = qkv(B, 1600, D)
+    cases["long_causal_T1600"] = compare("long_causal_T1600_h8", q, k, v, causal(1600), 8,
+                                         path="long")
+    q, k, v = qkv(B, 600, D)
+    cases["long_T600_h2"] = compare("long_keypad_T600_h2", q, k, v,
+                                    keypad_bias(torch, gen, B, 600), 2, path="long")
+    # the forward route's crossover: both paths' device time at B=256, D=128,
+    # rate 0, key padding and causal, at dh 32 and 16 (`fwd_crossover`
+    # records: the numbers behind `ops/attention.py::LONG_FWD_FASTER_FROM`);
+    # the two kernels' outputs agree
+    for heads in (4, 8):
+        dh = D // heads
+        for kind in ("keypad", "causal"):
+            for t in FWD_SWEEP_T:
+                q, k, v = qkv(B, t, D)
+                bias = keypad_bias(torch, gen, B, t) if kind == "keypad" else causal(t)
+                outs, ms = {}, {}
+                for p in ("sweep", "long"):
+                    def fwd(p=p):
+                        return attention_ops._launch_forward(q, k, v, bias, 0, heads, 0.0, False,
+                                                             p)[0]
+                    with torch.no_grad():
+                        outs[p] = fwd()
+                    ms[p] = graph_ms(torch, fwd)
+                diff = (outs["long"] - outs["sweep"]).abs().max().item()
+                require(torch.allclose(outs["long"], outs["sweep"], atol=ATOL, rtol=RTOL),
+                        f"fwd_crossover T={t} dh={dh} {kind}: the paths differ by {diff}")
+                emit({"fwd_crossover": {
+                    "T": t, "dh": dh, "bias": kind, "route": forward_route(t, dh),
+                    "measured_faster": min(ms, key=ms.get),
+                    **{f"{p}_device_ms": v for p, v in ms.items()}, "max_abs_diff": diff}})
     t, heads, dh, seed = 20, 4, 32, 977
     q, k, _ = qkv(B, t, D)
     v = torch.zeros(B, t, D, device="cuda")
@@ -585,7 +710,8 @@ def keypad_bias(torch, gen, b, t):
 def backward_kernel_phase(torch, gen):
     """The backward paths against the plain version: the one-sweep kernel at
     SASRec's shapes and a key-padding case; the long-sequence path at
-    BERT4Rec's T=600 (h=4, dh=32; rate 0 and training's 0.1); both paths,
+    BERT4Rec's T=600 (h=4, dh=32; rate 0 and training's 0.1) and at T=1,200
+    fed the long forward's statistics; both paths,
     timed in full, at BERT4Rec's T=300 (dh=32) and SASRec's T=150 (dh=16);
     then both paths' `device_ms` at every T of BWD_SWEEP_T and head width of
     BWD_SWEEP_HEADS where both take the shape, and with the causal bias at
@@ -594,6 +720,7 @@ def backward_kernel_phase(torch, gen):
     T=150 and over DH64_DRAWS more draws at dh=64, errors against fp64."""
     import torch.nn.functional as F
 
+    from amid_tpu_torch.ops import attention as attention_ops
     from amid_tpu_torch.ops.attention import (
         attention_backward, attention_bwd_plain, attention_fwd_stats_plain, backward_route,
         long_faster, sweep_fits,
@@ -603,11 +730,15 @@ def backward_kernel_phase(torch, gen):
         return torch.triu(torch.full((t, t), -1e9, device="cuda"), diagonal=1)[None, None]
 
     def compare(name, b, t, d, bias, heads, seed=0, rate=0.0, timed=True, path=None,
-                fp64=False):
+                fp64=False, long_forward=False):
         q, k, v, dout = (torch.randn(b, t, d, device="cuda", generator=gen)
                          for _ in range(4))
-        # the residuals (out and the row statistics) of the plain forward, for both
-        res = attention_fwd_stats_plain(q, k, v, bias, seed, heads, rate)
+        # the residuals (out and the row statistics) of the plain forward, for
+        # both; with `long_forward` those of the long forward kernel
+        if long_forward:
+            res = attention_ops._launch_forward(q, k, v, bias, seed, heads, rate, True, "long")
+        else:
+            res = attention_fwd_stats_plain(q, k, v, bias, seed, heads, rate)
         got = attention_backward(q, k, v, bias, *res, dout, seed, heads, rate, path)
         want = attention_bwd_plain(q, k, v, bias, *res, dout, seed, heads, rate)
         again = attention_backward(q, k, v, bias, *res, dout, seed, heads, rate, path)
@@ -689,6 +820,10 @@ def backward_kernel_phase(torch, gen):
     cases["long_T600"] = compare("bwd_long_keypad_T600_h4", B, 600, D, bias, 4)
     cases["long_T600_rate0.1"] = compare("bwd_long_keypad_T600_h4_rate0.1", B, 600, D, bias, 4,
                                          seed=step_seed, rate=0.1)
+    # and at T=1,200, C2DSR's views of BERT4Rec with both comps, fed the long
+    # forward's row statistics
+    cases["long_T1200"] = compare("bwd_long_keypad_T1200_h4", B, 1200, D,
+                                  keypad_bias(torch, gen, B, 1200), 4, long_forward=True)
     # both paths where both take the shape, timed in full: BERT4Rec's T=300
     # (dh=32) and SASRec's T=150 (dh=16)
     for t, heads in ((300, 4), (150, 8)):
@@ -888,6 +1023,64 @@ def gather_kernel_phase(torch, gen):
     require(torch.allclose(grads[0], want_g, atol=1e-5, rtol=1e-5)
             and torch.allclose(grads[1], want_g, atol=1e-5, rtol=1e-5),
             "gather: a group's backward != plain")
+    return cases
+
+
+# the gather's backward against its plain version in fp64: no further from it
+# than the plain fp32 version (`index_add_`), give or take GRAD_SLACK. The
+# padding row of left-padded histories sums tens of thousands of gradient
+# rows, so either fp32 order parts from fp64 by up to about 1e-3 there
+GRAD_SLACK = 1e-5
+
+
+def gather_grad_kernel_phase(torch, gen):
+    """The gather's backward (`embedding_gather_grad`) against its plain
+    version at a training step's shapes, the 894,820-row table: both
+    sequences of a T=150 and a T=20 step, left-padded histories (the padding
+    row takes most of the rows), and target with one negative; two calls
+    bit-equal (library: `index_put_(accumulate=True)`, deterministic too)."""
+    from amid_tpu_torch.ops.embedding import embedding_gather_grad, embedding_gather_grad_plain
+
+    V, D = 2 * FLAGSHIP["item_length"], FLAGSHIP["emb_dim"]
+    B = FLAGSHIP["batch_size"]
+
+    def padded(t):
+        """[B, t] histories of lengths 1..t, left-padded with row 0."""
+        ids = torch.randint(1, V, (B, t), device="cuda", generator=gen)
+        lens = torch.randint(1, t + 1, (B, 1), device="cuda", generator=gen)
+        pad = torch.arange(t, device="cuda")[None, :] < t - lens
+        return torch.where(pad, 0, ids)
+
+    cases = {}
+    for name, ids in (("pair150", torch.cat([padded(150), padded(150)], 1)),
+                      ("pair20", torch.cat([padded(20), padded(20)], 1)),
+                      ("cand2", torch.randint(0, V, (B, 2), device="cuda", generator=gen))):
+        flat = ids.reshape(-1).to(torch.int32)
+        g = torch.randn(flat.numel(), D, device="cuda", generator=gen)
+        got, again = (embedding_gather_grad(flat, g, V) for _ in range(2))
+        exact = embedding_gather_grad_plain(flat, g.double(), V)
+        err = (got - exact).abs().max().item()
+        plain_err = (embedding_gather_grad_plain(flat, g, V) - exact).abs().max().item()
+        require(torch.equal(got, again), f"gather grad {name}: two calls differ")
+        require(err <= plain_err + GRAD_SLACK,
+                f"gather grad {name}: {err} from fp64, the plain fp32 version {plain_err}")
+        longest = int(torch.unique(flat, return_counts=True)[1].max())
+        rec = {"case": f"gather_grad_{name}", "V": V, "D": D, "rows": flat.numel(),
+               "longest_run": longest, "max_abs_err": err, "plain_max_abs_err": plain_err,
+               **timings(torch, lambda: embedding_gather_grad(flat, g, V), 20),
+               "plain_ms": cuda_ms(torch, lambda: embedding_gather_grad_plain(flat, g, V), 20),
+               **timings(torch, lambda: torch.zeros(V, D, device="cuda").index_put_(
+                   (flat.long(),), g, accumulate=True), 5, library=True)}
+        rec["bound_ms"], rec["bound_by"] = gather_grad_bound(flat.numel(), V, D)
+        emit({"kernel_case_gather_grad": rec})
+        cases[name] = rec
+    # a narrow table, ids out of range (clamped), a run across many blocks
+    ids = torch.cat([torch.full((1000,), 3, device="cuda"),
+                     torch.tensor([-4, 0, 9, 12], device="cuda")])
+    g = torch.randn(ids.numel(), 7, device="cuda", generator=gen)
+    got = embedding_gather_grad(ids, g, 10)
+    require(torch.allclose(got, embedding_gather_grad_plain(ids, g, 10), atol=1e-4),
+            "gather grad: narrow table")  # row 3 sums 1,001 terms near 1
     return cases
 
 
@@ -1324,6 +1517,7 @@ def step_checks(torch, cfg, tcfg, train_ds, val_ds, dr_ds, label):
     def make(kernels, fused_scatter=True):
         return make_steps(cfg, tcfg, kernels, fused_scatter)
 
+    t0 = time.perf_counter()
     model, state, step_a, step_b, eval_step = make("cuda")
     ref, rstate, rstep_a, rstep_b, reval_step = make("torch")
     ref.load_state_dict(model.state_dict())
@@ -1425,22 +1619,23 @@ def step_checks(torch, cfg, tcfg, train_ds, val_ds, dr_ds, label):
     rec["phase_b_ms"] = cuda_ms(torch, cycle(step_b, state, "dr", len(batches["dr"])), 6, 2)
     rec["eval_batch_ms"] = cuda_ms(
         torch, lambda: eval_step(batches["val"][0], *pools["val"], 7), 6, 2)
+    rec["seconds"] = time.perf_counter() - t0
     emit({"train_steps": rec})
     return rec
 
 
-def graph_checks(torch, cfg, tcfg, train_ds, val_ds, dr_ds, label):
+def graph_checks(torch, cfg, tcfg, train_ds, val_ds, dr_ds, label, exact=False,
+                 evaluate=True):
     """The fast loops' graphs against eager steps: GRAPH_STEPS steps of phase
     A, then of phase B, through a resident chunk runner (the first eager, the
     second captured and replayed, then replays) against the same steps of a
     second kernels='cuda' model taken eagerly from the same state, batches
-    and keys; then two evaluation passes over the val batches (graph
-    replays) against the eval step batch by batch, on one model. Losses
-    within LOSS_TOL (`losses_agree`), moments within MOMENT_TOL of their
-    largest value: the gather's backward and torch's scatters add with
-    atomics in no fixed order, so replayed and eager steps agree within
-    rounding, not bit for
-    bit."""
+    and keys; then (with `evaluate`) two evaluation passes over the val
+    batches (graph replays) against the eval step batch by batch, on one
+    model. Losses within LOSS_TOL (`losses_agree`), moments within
+    MOMENT_TOL of their largest value; with `exact`, losses and moments
+    bit-equal (every sum of a dense step runs in a fixed order, the gather's
+    backward included)."""
     from amid_tpu_torch.ops.rng import fold_in
     from amid_tpu_torch.train import steps
     from amid_tpu_torch.train.graphs import GraphPool
@@ -1448,6 +1643,7 @@ def graph_checks(torch, cfg, tcfg, train_ds, val_ds, dr_ds, label):
 
     bs = cfg.batch_size
     is_lazy = tcfg.lazy_table_adam
+    t0 = time.perf_counter()
     _, est, ea, eb, _ = make_steps(cfg, tcfg, "cuda")
     gmodel, gst, ga, gb, geval = make_steps(cfg, tcfg, "cuda")
     pool = GraphPool("cuda")
@@ -1469,12 +1665,13 @@ def graph_checks(torch, cfg, tcfg, train_ds, val_ds, dr_ds, label):
                 _, m = estep(est, batch, *pools, fold_in(77, i))
                 require(float(nf) == 0.0, f"{label} graph phase {phase}: non-finite flag")
                 diffs.append(max(abs(float(v) - float(m[k])) for k, v in m0.items()))
-                require(all(losses_agree(k, float(v), m) for k, v in m0.items()),
+                require(all(losses_agree(k, float(v), m) for k, v in m0.items())
+                        and not (exact and diffs[-1] > 0.0),
                         f"{label} graph phase {phase} step {i}: replayed vs eager {m0} {m}")
             dense_name = DENSE_PARAM[cfg.backbone]
             rels = {k: rel_to_max(v, moments_of(est, slot, is_lazy, dense_name)[k])
                     for k, v in moments_of(gst, slot, is_lazy, dense_name).items()}
-            require(max(rels.values()) <= MOMENT_TOL,
+            require(max(rels.values()) <= (0.0 if exact else MOMENT_TOL),
                     f"{label} graph phase {phase}: moments differ from eager: {rels}")
             graph = pool.graphs[-1]
             require(graph.replays == GRAPH_STEPS - 1,
@@ -1482,27 +1679,64 @@ def graph_checks(torch, cfg, tcfg, train_ds, val_ds, dr_ds, label):
             rec[f"phase_{phase}"] = {"loss_diff": diffs, "moment_rel_err": rels,
                                      "replays": graph.replays,
                                      "launches_per_replay": graph.captured}
-        vpools = _device_pools(val_ds, "cuda")
-        nb = len(val_ds) // bs
-        idx = np.arange(nb * bs).reshape(nb, bs)
-        stacked = {k: torch.as_tensor(v[idx], device="cuda")
-                   for k, v in val_ds.batch_arrays().items() if k in STEP_KEYS}
-        eval_all = steps.make_scanned_eval(gmodel, tcfg.data.neg_nums, pool)
-        diffs, same = [], []
-        for key in (10_000, 30_000):
-            got = {k: v.clone() for k, v in eval_all(stacked, *vpools, key).items()}
-            for i in range(nb):
-                want = geval({k: v[i] for k, v in stacked.items()}, *vpools, fold_in(key, i))
-                diffs.append(abs(float(got["loss_cls"][i]) - float(want["loss_cls"])))
-                same.append((got["ranks_fixed"][i] == want["ranks_fixed"]).float().mean().item())
-        require(max(diffs) <= LOSS_TOL, f"{label} graph eval: loss differs by {max(diffs)}")
-        require(min(same) >= RANKS_EQUAL_SHARE, f"{label} graph eval: ranks equal {min(same)}")
-        rec["eval"] = {"loss_diff": max(diffs), "ranks_equal_share": min(same),
-                       "replays": pool.graphs[-1].replays}
+        if evaluate:
+            vpools = _device_pools(val_ds, "cuda")
+            nb = len(val_ds) // bs
+            idx = np.arange(nb * bs).reshape(nb, bs)
+            stacked = {k: torch.as_tensor(v[idx], device="cuda")
+                       for k, v in val_ds.batch_arrays().items() if k in STEP_KEYS}
+            eval_all = steps.make_scanned_eval(gmodel, tcfg.data.neg_nums, pool)
+            diffs, same = [], []
+            for key in (10_000, 30_000):
+                got = {k: v.clone() for k, v in eval_all(stacked, *vpools, key).items()}
+                for i in range(nb):
+                    want = geval({k: v[i] for k, v in stacked.items()}, *vpools,
+                                 fold_in(key, i))
+                    diffs.append(abs(float(got["loss_cls"][i]) - float(want["loss_cls"])))
+                    same.append(
+                        (got["ranks_fixed"][i] == want["ranks_fixed"]).float().mean().item())
+            require(max(diffs) <= LOSS_TOL, f"{label} graph eval: loss differs by {max(diffs)}")
+            require(min(same) >= RANKS_EQUAL_SHARE, f"{label} graph eval: ranks equal {min(same)}")
+            rec["eval"] = {"loss_diff": max(diffs), "ranks_equal_share": min(same),
+                           "replays": pool.graphs[-1].replays}
     finally:
         pool.close()
+    rec["seconds"] = time.perf_counter() - t0
     emit({"graph_steps": rec})
     return rec
+
+
+GRAPH_DRAWS = 3  # graph_draws: data draws of BERT4Rec T=150 per forward path
+
+
+def graph_draws(torch, cfg, tcfg, label):
+    """`graph_checks`' steps (no evaluation) of BERT4Rec at T=150 (encoder
+    T=300, dh=32) on GRAPH_DRAWS more data draws, each with the forward on
+    the long kernel (`forward_route`'s choice at this length) and on the
+    one-head kernel (the route's table cleared for the call): replayed and
+    eager steps bit-equal, whatever the data."""
+    from amid_tpu_torch.data.synthetic import synth_packed
+    from amid_tpu_torch.models.amid import head_width
+    from amid_tpu_torch.ops import attention
+
+    table = attention.LONG_FWD_FASTER_FROM
+    out = {}
+    for draw in range(GRAPH_DRAWS):
+        rng = np.random.default_rng((3, draw))
+        train_ds, val_ds, dr_ds = (synth_packed(cfg, rng, n)
+                                   for n in (TRAIN_ROWS, VAL_ROWS, DR_ROWS))
+        for path in ("long", "sweep"):
+            attention.LONG_FWD_FASTER_FROM = table if path == "long" else {}
+            try:
+                require(attention.forward_route(cfg.enc_seq_len, head_width(cfg)) == path,
+                        f"{label}: the forward route is not {path}")
+                out[f"draw{draw}_{path}"] = graph_checks(
+                    torch, cfg, tcfg, train_ds, val_ds, dr_ds, f"{label}_draw{draw}_{path}",
+                    exact=True, evaluate=False)
+            finally:
+                attention.LONG_FWD_FASTER_FROM = table
+            torch.cuda.empty_cache()
+    return out
 
 
 def step_timing(torch, cfg, tcfg, ds, label, timed_steps=TIMED_STEPS):
@@ -1514,6 +1748,7 @@ def step_timing(torch, cfg, tcfg, ds, label, timed_steps=TIMED_STEPS):
     from amid_tpu_torch.train.graphs import GraphPool
 
     out = {}
+    t0 = time.perf_counter()
     for fast in (False, True):
         pool = GraphPool("cuda") if fast else None
         loop_name = "replayed" if fast else "eager"
@@ -1531,6 +1766,8 @@ def step_timing(torch, cfg, tcfg, ds, label, timed_steps=TIMED_STEPS):
             if pool is not None:
                 pool.close()
         torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    emit({"step_timing_seconds": {"config": label, "seconds": out["seconds"]}})
     return out
 
 
@@ -1745,7 +1982,7 @@ def long_step_check(torch, cfg, tcfg, train_ds, val_ds, label):
     counts = read_counts()
     _, rm = rstep_a(rstate, batch, *pools, 1234)
     want = expected_launches(cfg, train_steps=1)
-    require(counts == want and counts["attention_bwd_long"] == 4,
+    require(counts == want and counts["attention_bwd_long"] == 2 * cfg.bert_blocks,
             f"{label} phase A: launches {counts}, want {want}")
     for k, v in m.items():
         require(math.isfinite(float(v)) and abs(float(v) - float(rm[k])) <= LOSS_TOL,
@@ -1780,11 +2017,13 @@ def backbone_phase(torch, rng):
     T=150 (with the catalog top-k) and T=20; `run_seed` for one epoch of the
     DR schedule on the fast loops at T=20 (lazy Adam) and T=150 (dense), with
     its launches, then the step-level checks against a kernels='torch'
-    model, replayed steps against eager ones and the step timings; BERT4Rec
-    in pairwise mode at T=150 (gates from K6), served and stepped; and
+    model, replayed steps against eager ones (at T=150 dense also
+    `graph_draws`) and the step timings; BERT4Rec in pairwise mode at T=150
+    (gates from K6), served and stepped; BERT4Rec with InnerComp and
+    InterComp served at T=300 (encoder T=1,200: the long forward); and
     BERT4Rec with InnerComp and InterComp at T=150 (encoder T=600: the long
-    backward path), one epoch of `run_seed`, the step-level check and the
-    step timings."""
+    paths), one epoch of `run_seed`, the step-level check and the step
+    timings."""
     import shutil
     import tempfile
 
@@ -1805,9 +2044,15 @@ def backbone_phase(torch, rng):
     cfg = config("bert4rec", 150, comp_broadcast_quirk=False)
     out["serve_bert4rec_T150_pairwise"] = serve_check(
         torch, cfg, backbone_batch(cfg, rng), "bert4rec_T150_pairwise")
+    # BERT4Rec with InnerComp and InterComp at seq_len=300: the encoder
+    # attends over T=1,200, on the long forward
+    cfg = config("bert4rec", 300, is_inc=True)
+    out["serve_bert4rec_T300_inc_itc"] = serve_check(
+        torch, cfg, backbone_batch(cfg, rng), "bert4rec_T300_inc_itc")
 
     runs = [(name, t, lazy_adam, {}) for name in BACKBONES
             for t, lazy_adam in ((20, True), (150, False))]
+    # BERT4Rec with InnerComp and InterComp: the encoder at T=600
     runs += [("bert4rec", 150, False, {"comp_broadcast_quirk": False}),
              ("bert4rec", 150, False, {"is_inc": True})]
     for name, t, lazy_adam, kw in runs:
@@ -1852,6 +2097,8 @@ def backbone_phase(torch, rng):
                 slow = cfg.backbone == "gru4rec" and t == 150
                 rec["step_timing"] = step_timing(torch, cfg, tcfg, train_ds, label,
                                                  4 if slow else TIMED_STEPS)
+        if label == "bert4rec_T150_dense":
+            rec["graph_draws"] = graph_draws(torch, cfg, tcfg, label)
         out[label] = rec
         torch.cuda.empty_cache()
     return out
@@ -1912,20 +2159,18 @@ def loss_cl_fp64(torch, cfg, tcfg, train_ds, phase_a):
 
 def c2dsr_phase(torch, rng):
     """Phase 8. C2DSR with dense Adam (cl_w 0.1), the run.sh model at T=150,
-    pairwise SASRec at T=20, BERT4Rec with InterComp at T=150 and GRU4Rec at
-    T=20: one epoch of `run_seed` on the fast loops with its launches against
+    pairwise SASRec at T=20, BERT4Rec with InterComp at T=150 (one block)
+    and GRU4Rec at T=20: one epoch of `run_seed` on the fast loops with its launches against
     `expected_launches` (the views at 2L: each phase-A step runs three
     feature passes), phase 4's step-level checks against a kernels='torch'
     model, the step timings (and for the run.sh model replayed steps against
     eager ones); then BERT4Rec with InnerComp and InterComp at T=150, whose
-    views reach T=1,200 at dh=32: `build_model` must refuse it before any
-    launch."""
+    views reach T=1,200 at dh=32 (`c2dsr_long_run`)."""
     import shutil
     import tempfile
 
     from amid_tpu_torch.config import DataConfig, ModelConfig, TrainConfig, encoder_length
     from amid_tpu_torch.data.synthetic import synth_packed
-    from amid_tpu_torch.models.amid import build_model
     from amid_tpu_torch.ops.affinity import smalln_plan
     from amid_tpu_torch.train.loop import run_seed
 
@@ -1974,23 +2219,86 @@ def c2dsr_phase(torch, rng):
         out[label] = rec
         torch.cuda.empty_cache()
 
-    # the configuration the forward kernel cannot hold: refused before a launch
+    out["c2dsr_bert4rec_T150_inc_itc"] = c2dsr_long_run(torch, rng)
+    return out
+
+
+C2DSR_CHECK_BATCH = 32  # the plain step keeps [B, h, T, T] blocks at T=1,200: 24 GB at 32
+
+
+def c2dsr_long_run(torch, rng):
+    """BERT4Rec with InnerComp, InterComp and C2DSR at T=150: the main pass
+    attends over T=600, the views over T=1,200 at dh=32, past the one-head
+    forward kernel's 800, on the long forward and the long backward. One
+    epoch of `run_seed` at B=256 on the fast loops, its launches against
+    `expected_launches` and its peak device memory, and that of one eager
+    phase-A step (the model, its state and the step's); phase 4's step-level
+    checks against a kernels='torch' model at B=C2DSR_CHECK_BATCH, where the
+    plain step fits; then the step timings at B=256 (replayed phase A)."""
+    import shutil
+    import tempfile
+
+    from amid_tpu_torch.config import DataConfig, ModelConfig, TrainConfig, encoder_length
+    from amid_tpu_torch.data.synthetic import synth_packed
+    from amid_tpu_torch.models.amid import head_width
+    from amid_tpu_torch.ops.attention import backward_route, forward_route
+    from amid_tpu_torch.train.loop import run_seed
+
+    label = "c2dsr_bert4rec_T150_inc_itc"
     cfg = ModelConfig(**{**FLAGSHIP, **BACKBONES["bert4rec"], "seq_len": 150, "is_inc": True,
                          "is_c2dsr": True})
-    reset_counts()
+    views_t, dh = encoder_length(cfg, 2 * cfg.seq_len), head_width(cfg)
+    require(views_t == 1200 and forward_route(views_t, dh) == "long"
+            and backward_route(views_t, dh) == "long",
+            f"{label}: the views' T={views_t} at dh={dh} is not on both long paths")
+    rec = {"encoder_T": [encoder_length(cfg, cfg.seq_len), views_t]}
+    train_ds, val_ds, dr_ds = (synth_packed(cfg, rng, n) for n in (TRAIN_ROWS, VAL_ROWS, DR_ROWS))
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    tcfg = TrainConfig(epochs=1, seeds=1, model_dir=work, nan_policy="halt", checkpoint=False,
+                       model=cfg, data=DataConfig(neg_nums=999))
     try:
-        build_model(cfg)
-        refused = None
-    except ValueError as e:
-        refused = str(e)
-    counts = read_counts()
-    require(refused is not None and "T=1200" in refused and "dh=32" in refused,
-            f"BERT4Rec + InnerComp + InterComp + C2DSR at T=150 was not refused: {refused}")
-    require(not any(counts.values()), f"the refused configuration launched {counts}")
-    emit({"c2dsr_refused": {"config": "bert4rec_T150_inc_itc_c2dsr",
-                            "encoder_T": encoder_length(cfg, 2 * cfg.seq_len),
-                            "error": refused, "launches": counts}})
-    return out
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        best = run_seed(tcfg, 0, train_ds, val_ds, dr_ds)  # on cuda, the fast loops
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        rec["run_seed_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        rec["launches"] = read_counts()
+        require("loss_cl:" in Path(work, "log0.txt").read_text(),
+                f"{label}: run_seed did not log loss_cl")
+        check_run(f"{label} run_seed fast", cfg, False, rec["launches"], best,
+                  {"loop": "fast", "seconds": seconds, "examples_per_s": best["examples_per_s"],
+                   "peak_gib": rec["run_seed_peak_gib"]})
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    # one eager phase-A step at B=256 on a fresh model: its peak device memory
+    from amid_tpu_torch.data.loader import BatchIterator
+    from amid_tpu_torch.train.loop import _device_pools, _to_device
+
+    model, state, step_a, _, _ = make_steps(cfg, tcfg, "cuda")
+    batch = _to_device(next(iter(BatchIterator(train_ds, cfg.batch_size, False))), "cuda")
+    pools = _device_pools(train_ds, "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_a(state, batch, *pools, 1234)
+    torch.cuda.synchronize()
+    rec["phase_a_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del model, state, step_a, batch, pools
+    torch.cuda.empty_cache()
+    small = dataclasses.replace(cfg, batch_size=C2DSR_CHECK_BATCH)
+    rows = (2 * C2DSR_CHECK_BATCH, C2DSR_CHECK_BATCH, 2 * C2DSR_CHECK_BATCH)
+    small_ds = [synth_packed(small, rng, n) for n in rows]
+    torch.cuda.reset_peak_memory_stats()
+    rec["train_steps"] = step_checks(torch, small, dataclasses.replace(tcfg, model=small),
+                                     *small_ds, f"{label}_B{C2DSR_CHECK_BATCH}")
+    rec["train_steps_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.empty_cache()
+    rec["step_timing"] = step_timing(torch, cfg, tcfg, train_ds, label, 4)
+    emit({"c2dsr_long": {"config": label, **{k: v for k, v in rec.items()
+                                             if k not in ("train_steps", "step_timing")}}})
+    return rec
 
 
 def main() -> int:
@@ -2040,6 +2348,7 @@ def main() -> int:
     bwd = phase(backward_kernel_phase, gen)
     scatter = phase(scatter_kernel_phase, gen)
     gather = phase(gather_kernel_phase, gen)
+    gather_grad = phase(gather_grad_kernel_phase, gen)
     scoring = phase(scoring_kernel_phase, gen)
     affinity = phase(affinity_kernel_phase, gen)
     serving = phase(main_path_phase, np.random.default_rng(0))
@@ -2062,13 +2371,16 @@ def main() -> int:
     for name, n in launches.items():
         require(n > 0, f"kernel {name} was launched no time on the main paths")
     # the numbers of the row: the amazon shape (T=150) for attention and the
-    # blocked affinity; the lazy path's shape for the scatters (U=11,264) and
+    # blocked affinity; C2DSR's views of BERT4Rec with both comps (T=1,200,
+    # dh=32) for the long forward; the lazy path's shape for the scatters (U=11,264) and
     # the small-N affinity (T=20); the evaluation's shape for the gather
-    # (target and 999 negatives of 256 users in one launch) and the scoring
-    # head (C=1000, both user representations in one launch, as the model
-    # calls it)
+    # (target and 999 negatives of 256 users in one launch), a T=150 training
+    # step's two sequences for its backward, and the scoring head (C=1000,
+    # both user representations in one launch, as the model calls it)
     long_cases = [c for c in bwd.values() if c["path"] == "long"]
-    rows = {"attention_fwd": (fwd[150], fwd.values()),
+    rows = {"attention_fwd": (fwd[150], [c for c in fwd.values() if c["path"] == "sweep"]),
+            "attention_fwd_long": (fwd["long_T1200"],
+                                   [c for c in fwd.values() if c["path"] == "long"]),
             "attention_bwd": (bwd[150], [c for c in bwd.values() if c["path"] == "sweep"]),
             "attention_bwd_long": (bwd["long_T600"], long_cases),
             "scatter_set_unique3": (scatter[11264]["scatter_set_unique3"],
@@ -2076,6 +2388,7 @@ def main() -> int:
             "scatter_set_unique": (scatter[11264]["scatter_set_unique"],
                                    [c["scatter_set_unique"] for c in scatter.values()]),
             "embedding_gather": (gather["cand999"], gather.values()),
+            "embedding_gather_grad": (gather_grad["pair150"], gather_grad.values()),
             "scoring_head": (scoring["scoring_pair_C1000"], scoring.values()),
             "max_affinity_blocked": (affinity["max_affinity_blocked"][150],
                                      affinity["max_affinity_blocked"].values()),

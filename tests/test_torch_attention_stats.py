@@ -64,12 +64,26 @@ def _probs(q, k, bias, heads):
 @pytest.mark.parametrize("bias_kind,t,heads,rate", [
     ("causal", 16, 4, 0.0), ("keypad", 12, 2, 0.0), ("causal", 10, 2, 0.5),
 ])
-def test_fwd_stats_out_matches_plain_and_jax_and_rebuilds_p(rng, bias_kind, t, heads, rate):
+def test_fwd_stats_out_matches_plain_and_jax_and_rebuilds_p(rng, monkeypatch, bias_kind, t,
+                                                             heads, rate):
+    """out against `attention_plain` and JAX; row_max and row_inv_sum against
+    the scores the call itself computed (recorded from its `_scores`): the
+    exact max and the softmax rebuilt from them. A second matmul of the same
+    inputs need not agree with the first bit for bit. The inputs are
+    torch-owned copies, not views of the numpy arrays JAX reads."""
     b, d = 3, 32
     q, k, v = (rng.normal(size=(b, t, d)).astype(np.float32) for _ in range(3))
     bias = _causal(t) if bias_kind == "causal" else _keypad_row0_masked(rng, b, t)
-    tq, tk, tv, tb = map(torch.as_tensor, (q, k, v, bias))
+    tq, tk, tv, tb = map(torch.tensor, (q, k, v, bias))
+    scores, real = [], attention_ops._scores
+
+    def recorded(*args):
+        scores.append(real(*args))
+        return scores[-1]
+
+    monkeypatch.setattr(attention_ops, "_scores", recorded)
     out, row_max, row_inv_sum = attention_fwd_stats_plain(tq, tk, tv, tb, 7, heads, rate)
+    (s,) = scores
     assert row_max.shape == row_inv_sum.shape == (b, heads, t)
     torch.testing.assert_close(out, attention_plain(tq, tk, tv, tb, 7, heads, rate),
                                atol=ATOL, rtol=RTOL)
@@ -78,10 +92,11 @@ def test_fwd_stats_out_matches_plain_and_jax_and_rebuilds_p(rng, bias_kind, t, h
             want = jax_fused_attention(*map(jnp.asarray, (q, k, v, bias)),
                                        jnp.zeros((1,), jnp.int32), heads, 0.0)
         np.testing.assert_allclose(out.numpy(), np.asarray(want), atol=ATOL, rtol=RTOL)
-    s, p = _probs(tq, tk, tb, heads)
     rebuilt = torch.exp(s - row_max[..., None]) * row_inv_sum[..., None]
-    torch.testing.assert_close(rebuilt, p, atol=1e-6, rtol=1e-5)
+    torch.testing.assert_close(rebuilt, torch.softmax(s, dim=-1), atol=1e-6, rtol=1e-5)
     torch.testing.assert_close(row_max, s.amax(dim=-1), atol=0, rtol=0)
+    # and the scores are the function's: S = Q K^T / sqrt(dh) + bias per head
+    torch.testing.assert_close(s, _probs(tq, tk, tb, heads)[0], atol=ATOL, rtol=RTOL)
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.5])
@@ -252,10 +267,14 @@ def _fake_entry(monkeypatch, code=0):
     _fake_entry.seeds = entry.seeds
 
     monkeypatch.setattr(attention_ops, "_fwd", entry)
+    monkeypatch.setattr(attention_ops, "_fwd_long", entry)
     monkeypatch.setattr(attention_ops, "_bwd", entry)
     monkeypatch.setattr(attention_ops, "_bwd_long", entry)
     monkeypatch.setattr(attention_ops, "_long_max_t", 65535 * 64)
+    monkeypatch.setattr(attention_ops, "_fwd_long_max_t", 65535 * 128)
     monkeypatch.setattr(attention_ops, "_fwd_smem", lambda t, dh: 1000 * t)
+    monkeypatch.setattr(attention_ops, "_fwd_max_t", {
+        dh: attention_ops.SMEM_LIMIT // 1000 for dh in attention_ops.KERNEL_HEAD_DIMS})
     monkeypatch.setattr(attention_ops, "_bwd_smem", lambda t, dh: 2000 * t)
     monkeypatch.setattr(attention_ops._build, "raw_stream", lambda index: 77)
     monkeypatch.setattr(attention_ops, "_bwd_fits", {})
@@ -306,6 +325,10 @@ def test_launch_refusals_become_exceptions(monkeypatch):
     bias = torch.zeros(1, 1, 1, 300)
     seen = _fake_entry(monkeypatch, code=-3)  # too long: the message names the largest T
     with pytest.raises(ValueError, match=r"largest T at this head width: 232\)"):
+        attention_ops._launch_forward(q, q, q, bias, 0, 2, 0.0, False, path="sweep")
+    # the route hands that shape to the long forward, whose refusal names its limit
+    with pytest.raises(ValueError, match="attention_fwd_long: T=300 is beyond its limit of "
+                                         "T=8388480"):
         attention_ops._launch_forward(q, q, q, bias, 0, 2, 0.0, False)
     # the one-sweep kernel refuses what its shared memory cannot hold; the
     # long path takes it, so only a head width or a T beyond the long

@@ -375,9 +375,17 @@ def _fwd_smem(t, dh):
 
 @pytest.fixture
 def kernel_limits(monkeypatch):
-    """The forward kernel's shared-memory function without the card."""
+    """The kernels' limits without the card: the one-head forward's
+    shared-memory function and the long paths' longest T (the grid's
+    65,535 blocks of 128 rows)."""
     monkeypatch.setattr(attention_ops, "_fwd", object())
     monkeypatch.setattr(attention_ops, "_fwd_smem", _fwd_smem)
+    monkeypatch.setattr(attention_ops, "_fwd_max_t", {
+        dh: attention_ops._largest_t(_fwd_smem, dh) for dh in attention_ops.KERNEL_HEAD_DIMS})
+    monkeypatch.setattr(attention_ops, "_fwd_long", object())
+    monkeypatch.setattr(attention_ops, "_fwd_long_max_t", 65535 * 128)
+    monkeypatch.setattr(attention_ops, "_bwd_long", object())
+    monkeypatch.setattr(attention_ops, "_long_max_t", 65535 * 128)
 
 
 def test_forward_max_t_is_the_longest_t_in_shared_memory(kernel_limits):
@@ -398,29 +406,40 @@ BERT_FULL = dict(backbone="bert4rec", emb_dim=128, bert_heads=4, seq_len=150, is
     (dict(backbone="gru4rec", seq_len=150, is_inc=True, is_itc=True), None, None),
 ])
 def test_only_bert4rec_with_both_comps_and_c2dsr_is_refused_at_l150(kernel_limits, kw, t, dh):
-    """The C2DSR encoder lengths at amazon's L=150; only T=1,200 at dh=32 is
-    beyond the forward kernel (T<=800), and its refusal names the backbone,
-    the length, the head width and the limit."""
+    """The C2DSR encoder lengths at amazon's L=150. Only T=1,200 at dh=32 is
+    refused by the one-head forward kernel (T<=800): `forward_route` hands it
+    to the long forward, and all five configurations pass
+    `check_attention_fits`, with and without C2DSR."""
     cfg = ModelConfig(**kw, is_c2dsr=True)
     assert head_width(cfg) == dh
+    check_attention_fits(cfg)
+    check_attention_fits(ModelConfig(**kw))  # without C2DSR: the encoder at L
     if dh is None:
-        check_attention_fits(cfg)
         return
     assert encoder_length(cfg, 2 * cfg.seq_len) == cfg.enc_seq_len == t
-    if t <= attention_ops.forward_max_t(dh):
-        check_attention_fits(cfg)
-        return
+    beyond = t > attention_ops.forward_max_t(dh)
+    assert beyond == (t == 1200)
+    if beyond:
+        assert attention_ops.forward_route(t, dh) == "long"
+
+
+def test_check_attention_fits_refuses_what_no_kernel_takes(kernel_limits):
+    """A head width the kernels do not have, or a T beyond the long paths'
+    limit, is refused before any launch, naming the backbone, the length,
+    the head width and the limits."""
     with pytest.raises(ValueError) as err:
-        check_attention_fits(cfg)
-    for part in ("bert4rec", "T=1200", "dh=32", "T<=800"):
+        check_attention_fits(ModelConfig(**{**BERT_FULL, "bert_heads": 1}))
+    for part in ("bert4rec", "T=300", "dh=128", "(8, 16, 32, 64)"):
         assert part in str(err.value), part
-    check_attention_fits(ModelConfig(**kw))  # without C2DSR: T=600
+    with pytest.raises(ValueError, match=r"T=8388608 at head width dh=32.*T<=8388480"):
+        check_attention_fits(ModelConfig(**{**BERT_FULL, "is_itc": False,
+                                            "seq_len": 65536 * 128}))
 
 
 def test_the_refused_configuration_runs_on_the_cpu_with_plain_kernels(rng):
     """BERT4Rec with InnerComp, InterComp and C2DSR at L=150 (encoder 1,200 on
-    the views) trains one phase-A step on the CPU with kernels='torch' (no
-    limit there), at the full head width dh=32 and a small batch."""
+    the views) trains one phase-A step on the CPU with kernels='torch', at
+    the full head width dh=32 and a small batch."""
     cfg = ModelConfig(**BERT_FULL, is_inc=True, is_c2dsr=True, hid_dim=8, batch_size=2,
                       item_length=VOCAB, user_length=VOCAB, bert_ff_dim=64, is_dr=True,
                       kernels="torch")

@@ -33,14 +33,18 @@ from amid_tpu_torch.ops.attention import (
     attention_backward,
     attention_bwd_plain,
     attention_fwd_stats_plain,
+    attention_fwd_stats_streamed_plain,
     attention_plain,
     dropout_keep_mask,
+    forward_route,
     fused_attention,
 )
 from amid_tpu_torch.ops import embedding as embedding_ops
 from amid_tpu_torch.ops import scatter as scatter_ops
 from amid_tpu_torch.ops.embedding import (
     embedding_gather,
+    embedding_gather_grad,
+    embedding_gather_grad_plain,
     embedding_gather_many,
     embedding_gather_many_plain,
     embedding_gather_plain,
@@ -67,6 +71,9 @@ from amid_tpu_torch.train.optim import Adam
 pytestmark = pytest.mark.cuda
 ATOL, RTOL = 1e-5, 1e-4  # fp32 kernel vs fp32 plain, sums in another order
 BWD_ATOL = 2e-5  # backward: dk, dv sum products over up to T queries
+# the long forward's row statistics vs plain (chip_smoke.py's LONG_STATS_ATOL):
+# its scores are wgmma's fp32 sums of 3xTF32 products
+LONG_MAX_ATOL, LONG_INV_SUM_ATOL = 1.2e-5, 2e-6
 
 
 def _bwd_atol(t):
@@ -262,9 +269,10 @@ def test_kernels_at_the_largest_supported_t(gen):
             want = attention_bwd_plain(q, k, v, bias, *res, dout, 11, heads, 0.5)
             for g, w in zip(got, want):
                 torch.testing.assert_close(g, w, atol=BWD_ATOL, rtol=RTOL)
-        else:
+        else:  # the one-head kernel by name: the route sends this T to the long forward
             with torch.no_grad():
-                got = fused_attention(q, k, v, bias, 11, heads, 0.5)
+                got = attention_ops._launch_forward(q, k, v, bias, 11, heads, 0.5, False,
+                                                    "sweep")[0]
             torch.testing.assert_close(got, res[0], atol=ATOL, rtol=RTOL)
 
 
@@ -348,6 +356,81 @@ def test_long_path_at_every_head_width_and_ragged_t(gen, heads, t, kind, rate):
     for g, a, w in zip(got, again, want):
         assert torch.equal(g, a)
         torch.testing.assert_close(g, w, atol=_bwd_atol(t), rtol=RTOL)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+@pytest.mark.parametrize("t,kind", [(37, "keypad"), (130, "causal"), (601, "keypad"),
+                                    (1000, "per_query")])
+@pytest.mark.parametrize("heads", [16, 8, 4, 2])  # dh 8, 16, 32, 64
+def test_long_forward_at_every_head_width_and_ragged_t(gen, heads, t, kind, rate):
+    """The long forward against its plain version in key tiles at each head
+    width, at T that are no multiple of its 128-row blocks or key stages,
+    every bias form (key padding with batch row 0 fully masked), with q, k,
+    v column slices of one projection: out and the row statistics,
+    bit-equal over two calls, one launch counted per call."""
+    b, d = 2, 128
+    q, k, v = torch.randn(b, t, 3 * d, device="cuda", generator=gen).split(d, dim=-1)
+    bias = _bias(kind, b, t, gen)
+    seed = torch.tensor([77], dtype=torch.int64, device="cuda")
+    before = (fused_attention.launches, fused_attention.long_forward_launches)
+    got = attention_ops._launch_forward(q, k, v, bias, seed, heads, rate, True, "long")
+    again = attention_ops._launch_forward(q, k, v, bias, seed, heads, rate, True, "long")
+    assert (fused_attention.launches,
+            fused_attention.long_forward_launches) == (before[0], before[1] + 2)
+    want = attention_fwd_stats_streamed_plain(q, k, v, bias, seed, heads, rate,
+                                              32 if heads == 2 else 64)
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+    torch.testing.assert_close(got[0], want[0], atol=ATOL, rtol=RTOL)
+    torch.testing.assert_close(got[1], want[1], atol=LONG_MAX_ATOL, rtol=1e-6)
+    torch.testing.assert_close(got[2], want[2], atol=LONG_INV_SUM_ATOL, rtol=1e-6)
+
+
+@pytest.mark.parametrize("heads", [4, 2])  # dh 32, 64
+def test_long_forward_replayed_in_a_cuda_graph_equals_the_eager_call(gen, heads):
+    """One long forward captured in a CUDA graph (after an eager call at the
+    same shape: the shared-memory opt-in is not a stream operation) and
+    replayed gives the eager call's bits; a new seed written into the seed
+    tensor between replays changes the mask as the eager call does."""
+    b, t, d = 4, 1200, 128
+    q, k, v = (torch.randn(b, t, d, device="cuda", generator=gen) for _ in range(3))
+    bias = _bias("keypad", b, t, gen)
+    seed = torch.tensor([5], dtype=torch.int64, device="cuda")
+    eager = attention_ops._launch_forward(q, k, v, bias, seed, heads, 0.1, True, "long")
+    longs = fused_attention.long_forward_launches
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = attention_ops._launch_forward(q, k, v, bias, seed, heads, 0.1, True, "long")
+    assert fused_attention.long_forward_launches == longs + 1  # counted at the capture
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(captured, eager))
+    seed.fill_(6)
+    graph.replay()
+    other = attention_ops._launch_forward(q, k, v, bias, 6, heads, 0.1, True, "long")
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(captured, other))
+    assert not torch.equal(captured[0], eager[0])
+
+
+def test_gradient_through_the_long_forward_of_the_autograd_function(gen):
+    """Past the one-head kernel's limit (dh=64: T=424) the autograd function
+    launches the long forward and, with its statistics, the long backward:
+    gradients equal autograd of the plain version, dropout on."""
+    b, t, d, heads = 2, 500, 128, 2
+    qkv = torch.randn(b, t, 3 * d, device="cuda", generator=gen, requires_grad=True)
+    bias = _bias("keypad", b, t, gen)
+    assert forward_route(t, d // heads) == "long"
+    before = (fused_attention.launches, fused_attention.long_forward_launches,
+              fused_attention.long_backward_launches)
+    out = fused_attention(*qkv.split(d, dim=-1), bias, 3, heads, 0.1)
+    (got,) = torch.autograd.grad((out ** 2).sum(), qkv)
+    assert (fused_attention.launches, fused_attention.long_forward_launches,
+            fused_attention.long_backward_launches) == (before[0], before[1] + 1, before[2] + 1)
+    ref = attention_plain(*qkv.split(d, dim=-1), bias, 3, heads, 0.1)
+    (want,) = torch.autograd.grad((ref ** 2).sum(), qkv)
+    torch.testing.assert_close(out, ref, atol=ATOL, rtol=RTOL)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
 
 
 @pytest.mark.parametrize("heads", [4, 2])  # dh 32, 64
@@ -648,9 +731,16 @@ def test_kernel_rejects_unsupported_head_width(gen, d, heads):
 
 
 def test_kernel_rejects_too_long_sequences(gen):
+    """The one-head kernel refuses a head its shared memory cannot hold;
+    `fused_attention` routes that shape to the long forward."""
     q = torch.randn(1, 2000, 64, device="cuda", generator=gen)
+    bias = _bias("zeros", 1, 2000, gen)
     with pytest.raises(ValueError, match="shared memory"):
-        fused_attention(q, q, q, _bias("zeros", 1, 2000, gen), 0, 1, 0.0)
+        attention_ops._launch_forward(q, q, q, bias, 0, 1, 0.0, False, "sweep")
+    longs = fused_attention.long_forward_launches
+    torch.testing.assert_close(fused_attention(q, q, q, bias, 0, 1, 0.0),
+                               attention_plain(q, q, q, bias, 0, 1, 0.0), atol=ATOL, rtol=RTOL)
+    assert fused_attention.long_forward_launches == longs + 1
 
 
 def test_model_on_cuda_goes_through_the_kernel(gen):
@@ -919,6 +1009,58 @@ def test_gather_gradient_adds_duplicated_ids(gen):
     (want,) = torch.autograd.grad(embedding_gather_plain(table, ids), table, upstream)
     torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
 
+
+def _runs(kind, gen):
+    """Ids whose sorted runs meet the backward's blocks of 256 rows in every
+    way: one run over many blocks, runs ending on and next to a block edge,
+    left-padded histories, a single row, a last block of one row."""
+    cuda = dict(device="cuda")
+    if kind == "one_key":
+        return torch.full((1000,), 7, **cuda)
+    if kind == "edges":
+        return torch.repeat_interleave(torch.arange(6, **cuda),
+                                       torch.tensor([256, 255, 2, 256, 511, 1], **cuda))
+    if kind == "padded":
+        ids = torch.randint(1, 2_000, (256, 300), **cuda, generator=gen)
+        lens = torch.randint(1, 301, (256, 1), **cuda, generator=gen)
+        return torch.where(torch.arange(300, **cuda)[None] < 300 - lens, 0, ids).reshape(-1)
+    if kind == "single":
+        return torch.tensor([5], **cuda)
+    return torch.randint(0, 2_000, (257,), **cuda, generator=gen)  # "ragged"
+
+
+@pytest.mark.parametrize("kind", ["one_key", "edges", "padded", "single", "ragged"])
+@pytest.mark.parametrize("width", [128, 7])
+def test_gather_grad_kernel_matches_plain_and_repeats_bit_for_bit(gen, kind, width):
+    """`embedding_gather_grad` against the plain version in fp64, no further
+    from it than the plain fp32 version (`index_add_`) give or take 1e-5
+    (the padding row sums about 38k terms near 1: either fp32 order parts
+    from fp64 by up to about 1e-3), and against itself: two calls on the
+    same inputs are bit-equal; each call counts one launch."""
+    ids = _runs(kind, gen)
+    ids = ids[torch.randperm(ids.numel(), device="cuda", generator=gen)]
+    g = torch.randn(ids.numel(), width, device="cuda", generator=gen)
+    before = embedding_gather_grad.launches
+    first, second = (embedding_gather_grad(ids, g, 2_000) for _ in range(2))
+    assert embedding_gather_grad.launches == before + 2
+    exact = embedding_gather_grad_plain(ids, g.double(), 2_000)
+    plain_err = (embedding_gather_grad_plain(ids, g, 2_000) - exact).abs().max().item()
+    assert (first - exact).abs().max().item() <= plain_err + 1e-5
+    assert torch.equal(first, second)
+
+
+def test_gather_grad_kernel_in_a_cuda_graph_equals_the_eager_call(gen):
+    """Sort, scratch and both kernels replay from a graph, bit-equal to the
+    eager call, and a replay reads the gradient's new values."""
+    ids = _runs("padded", gen)
+    g = torch.randn(ids.numel(), 128, device="cuda", generator=gen)
+    embedding_gather_grad(ids, g, 2_000)  # binds the kernels outside the capture
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = embedding_gather_grad(ids, g, 2_000)
+    g.copy_(torch.randn(ids.numel(), 128, device="cuda", generator=gen))
+    graph.replay()
+    assert torch.equal(got, embedding_gather_grad(ids, g, 2_000))
 
 @pytest.mark.parametrize("n_segments", [1, 2, 3, 4])
 @pytest.mark.parametrize("id_dtype", [torch.int32, torch.int64])
@@ -1315,6 +1457,7 @@ def test_run_seed_runs_the_fast_loops_as_graphs(tmp_path, gen, lazy_adam):
     assert got["attention_bwd"] == 4 * steps_
     assert got["scatter_set_unique3"] == (steps_ if lazy_adam else 0)
     assert got["embedding_gather"] == 2 * (steps_ + evals)
+    assert got["embedding_gather_grad"] == 2 * steps_
     assert got["scoring_head"] == 3 * (steps_ + evals)
     assert 0.0 <= best["mrr_d1"] <= 1.0 and np.isfinite(best["mrr_d2"])
     log = (tmp_path / "log0.txt").read_text()
@@ -1403,23 +1546,67 @@ def test_replayed_c2dsr_steps_equal_eager_steps(gen):
         pool.close()
 
 
-def test_c2dsr_attention_beyond_the_forward_kernel_is_refused_before_any_launch(tmp_path):
+def test_profiled_phase_a_is_the_c2dsr_step_run_seed_trains(gen):
+    """`profile_step.step_kinds` (what `chip_smoke.py` times) builds phase A
+    as `run_seed` does: with C2DSR its step runs the two view passes, 12
+    attention forwards and 12 backwards where the plain phase A has 4."""
+    from amid_tpu_torch.profile_step import step_kinds
+
+    cfg = _backbone_cfg("bert4rec", is_c2dsr=True)
+    ds = synth_packed(cfg, np.random.default_rng(0), 2 * cfg.batch_size)
+    for c2dsr, attn in ((True, 12), (False, 4)):
+        c = dataclasses.replace(cfg, is_c2dsr=c2dsr)
+        fn, per_call = step_kinds(c, TrainConfig(model=c, data=DataConfig(neg_nums=9)), ds,
+                                  False)["phase_a"]
+        before = launches.read()
+        fn()
+        got = launches.since(before)
+        assert per_call == 1
+        assert got["attention_fwd"] + got["attention_fwd_long"] == attn, got
+        assert got["attention_bwd"] + got["attention_bwd_long"] == attn, got
+
+
+def test_c2dsr_bert4rec_with_both_comps_trains_on_the_long_forward(gen):
     """BERT4Rec with InnerComp, InterComp and C2DSR at L=150 attends over
-    T=1,200 on its views at dh=32, beyond the forward kernel's T<=800:
-    `build_model` and `run_seed` refuse it on the card before any launch,
-    naming the backbone, the length, the head width and the limit. Without
-    InnerComp (T=600) it builds."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (torch.cuda.is_available() is False)")
-    assert attention_ops.forward_max_t(32) == 800 and attention_ops.forward_max_t(16) == 1448
+    T=600 on its main pass and T=1,200 on its views at dh=32, past the
+    one-head forward's T<=800: `build_model` builds it on the card, and one
+    dense phase-A step at B=2 equals the kernels='torch' step from the same
+    weights, batch and key (dropout on): its 12 forward launches on the
+    paths `forward_route` takes (the views' 8 on the long forward), its 12
+    backward on the long backward. `loss_cl` (about 30) and the loss that
+    holds it at LOSS_TOL relative, as chip_smoke.py's `losses_agree`; the
+    updated parameters element-wise at 1e-6 with at most 1e-3 of them apart
+    (Adam's first update is about lr * sign(g))."""
     cfg = ModelConfig(backbone="bert4rec", emb_dim=128, bert_heads=4, seq_len=150,
-                      batch_size=8, is_inc=True, is_itc=True, is_dr=True, is_c2dsr=True,
-                      item_length=50, user_length=50)
-    before = launches.read()
-    with pytest.raises(ValueError, match=r"bert4rec .*T=1200 at head width dh=32.*T<=800"):
-        build_model(cfg)
-    tcfg = TrainConfig(epochs=1, seeds=1, checkpoint=False, model_dir=str(tmp_path), model=cfg)
-    with pytest.raises(ValueError, match="T=1200"):
-        loop.run_seed(tcfg, 0, None, None)
-    assert launches.read() == before
-    build_model(dataclasses.replace(cfg, is_inc=False))
+                      batch_size=2, hid_dim=8, is_inc=True, is_itc=True, is_dr=True,
+                      is_c2dsr=True, item_length=50, user_length=50)
+    assert cfg.enc_seq_len == 1200 and forward_route(1200, 32) == "long"
+    model = build_model(cfg)
+    plain = build_model(dataclasses.replace(cfg, kernels="torch"), device="cuda")
+    plain.load_state_dict(model.state_dict())
+    v = cfg.item_table_size
+    batch = _step_batch(v, gen, bsz=2, t=150)
+    pools = torch.arange(v, device="cuda").repeat(2, 1)
+    sizes = torch.tensor([v, v], device="cuda")
+    main_long = forward_route(600, 32) == "long"
+    metrics = []
+    for m, kernels in ((model, True), (plain, False)):
+        state = steps.init_state(m, Adam(1e-3))
+        step = steps.make_train_step(m, Adam(1e-3), dr_e_w=0.1, c2dsr_w=0.1)
+        before = launches.read()
+        _, out = step(state, batch, pools, sizes, 5)
+        got = launches.since(before)
+        assert got["attention_fwd_long"] == kernels * (8 + 4 * main_long), got
+        assert got["attention_fwd"] == kernels * 4 * (not main_long), got
+        assert got["attention_bwd_long"] == 12 * kernels and got["attention_bwd"] == 0, got
+        metrics.append(out)
+    assert "loss_cl" in metrics[0]
+    for k, val in metrics[0].items():
+        ref = float(metrics[1][k])
+        scale = max(1.0, abs(ref)) if k in ("loss_cl", "loss") else 1.0
+        assert torch.isfinite(val) and abs(float(val) - ref) <= LOSS_TOL * scale, k
+    for (name, p), q in zip(model.named_parameters(), plain.parameters()):
+        if name.endswith(".k.bias"):
+            continue  # a zero gradient up to rounding (see above)
+        share = ((p - q).abs() > 1e-6).float().mean().item()
+        assert share <= 1e-3, (name, share)

@@ -67,7 +67,7 @@ def test_gather_many_equals_the_jax_lookups(rng, fn, dtype, n):
 def test_gather_many_gradient_equals_jax_grad(rng, fn, concat):
     """The gradient of a weighted sum over every output: ids repeated within a
     lookup and across lookups add up in one table gradient, in the Function's
-    single `index_add_` and in autograd's through the plain version alike."""
+    single `index_put_` and in autograd's through the plain version alike."""
     table = rng.normal(size=(V, D)).astype(np.float32)
     ids = [np.array([3, 0, 3, 7, 39, 3], np.int32),
            np.array([[3, 3], [0, 5], [7, 7], [5, 39], [1, 3], [0, 0]], np.int64)]
@@ -89,6 +89,28 @@ def test_gather_many_gradient_equals_jax_grad(rng, fn, concat):
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6)
     touched = sorted(set(np.concatenate([i.reshape(-1) for i in ids]).tolist()))
     assert np.flatnonzero(got.numpy().any(axis=1)).tolist() == touched
+
+
+def test_gather_grad_equals_the_jax_backward(rng):
+    """`embedding_gather_grad` (on CPU its plain version) against the JAX
+    package's backward of the gather (`pallas_embedding._bwd`, XLA's
+    scatter-add), on ids that repeat row 0 as left padding does, across
+    several of the kernel's blocks of 256 sorted rows (atol 1e-4: row 0 sums
+    700 fp32 terms near 1, in an order either side may choose); an id
+    outside [0, V) is clamped; a CPU call launches nothing."""
+    from amid_tpu.ops.pallas_embedding import _bwd
+
+    ids = np.concatenate([np.zeros(700, np.int32), rng.integers(0, V, 300).astype(np.int32)])
+    rng.shuffle(ids)
+    g = rng.normal(size=(ids.size, D)).astype(np.float32)
+    want, _ = _bwd(((V, D), jnp.asarray(ids)), jnp.asarray(g))
+    before = embedding.embedding_gather_grad.launches
+    got = embedding.embedding_gather_grad(torch.tensor(ids), torch.tensor(g), V)
+    assert embedding.embedding_gather_grad.launches == before
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-4)
+    wild = torch.tensor([-3, V + 5])
+    got = embedding.embedding_gather_grad(wild, torch.ones(2, D), V)
+    assert got[0].eq(1).all() and got[V - 1].eq(1).all() and got[1:V - 1].eq(0).all()
 
 
 @pytest.mark.parametrize("concat", [False, True])

@@ -105,6 +105,7 @@ def test_cpu_lazy_step_launches_no_kernel():
     kernels='cuda' model would call them: plain attention through autograd,
     plain scatters, and not one launch counted."""
     counts = lambda: (fused_attention.launches, fused_attention.backward_launches,  # noqa: E731
+                      fused_attention.long_forward_launches,
                       fused_attention.long_backward_launches,
                       scatter_set_unique.launches, scatter_set_unique3.launches,
                       embedding_gather.launches, scoring_head.launches,
@@ -136,18 +137,19 @@ def test_cpu_attention_keeps_autograd():
 
 
 def test_the_port_ships_every_kernel_source():
-    """Seven CUDA sources under csrc/, each named by a wrapper's `_build.load`
-    (the attention wrapper's three through its `_SOURCES`), and the packaging
+    """Eight CUDA sources under csrc/, each named by a wrapper's `_build.load`
+    (the attention wrapper's four through its `_SOURCES`), and the packaging
     glob that ships them."""
     from amid_tpu_torch.ops import attention as attention_ops
 
     sources = sorted(p.stem for p in (REPO / "amid_tpu_torch" / "csrc").glob("*.cu"))
     assert sources == ["affinity", "attention_bwd", "attention_bwd_long", "attention_fwd",
-                       "gather_rows", "scatter_rows", "scoring_head"]
+                       "attention_fwd_long", "gather_rows", "scatter_rows", "scoring_head"]
     ops = "".join(p.read_text() for p in (REPO / "amid_tpu_torch" / "ops").glob("*.py"))
     for name in ("affinity", "gather_rows", "scatter_rows", "scoring_head"):
         assert f'_build.load("{name}")' in ops, name
-    assert attention_ops._SOURCES == ["attention_fwd", "attention_bwd", "attention_bwd_long"]
+    assert attention_ops._SOURCES == ["attention_fwd", "attention_fwd_long", "attention_bwd",
+                                      "attention_bwd_long"]
     assert 'amid_tpu_torch = ["csrc/*.cu"]' in (REPO / "pyproject.toml").read_text()
     for name in sources:  # a __global__ kernel in each
         assert "__global__" in (REPO / "amid_tpu_torch" / "csrc" / f"{name}.cu").read_text()
