@@ -21,22 +21,22 @@ accept:
   `""`, `"highest"` or `"float32"`, and `remat=True`.
 * `DataConfig.data_root` defaults to the relative directory `reference`; the
   caller names where the CSVs are.
-* `TrainConfig` keeps the mesh, checkpoint, resume and profile fields so
-  configs read the same; `train.loop.run_seed` raises `NotImplementedError`
-  naming the field when one asks for a part that is not ported yet
-  (`use_mesh`, `checkpoint`, `resume`, `profile_steps`). The fast loops
-  (`fast_train`, `fast_eval`) are ported, on by default as in the JAX
-  package.
+* `TrainConfig`'s checkpoint fields (`checkpoint`, `checkpoint_keep`,
+  `checkpoint_every`, `checkpoint_async`, `checkpoint_payload`, `resume`),
+  `nan_policy`, `profile_steps` and the fast loops (`fast_train`,
+  `fast_eval`) act as in the JAX package, with its defaults. It keeps the
+  mesh fields so configs read the same; `train.loop.run_seed` raises
+  `NotImplementedError` naming `use_mesh` when it is set (the parallel
+  layer is not ported yet).
 
 `parse_cli` takes the reference-style flags of the JAX package's `parse_cli`
 with the same defaults and builds the same `TrainConfig`, field by field.
 What differs: `--kernels` is checked against `auto|torch|cuda`;
 `--data_root` defaults to `reference`; `--device` (not a config field: see
 `parse_cli_with_device`) names the device, the card when absent; the flags of
-parts that are not ported (`--checkpoint`, `--resume`, `--profile_steps`,
-`--mesh`, `--data_axis`, `--model_axis`, `--distributed`)
-parse into their fields and meet the `NotImplementedError` of the part they
-ask for; `--model` takes the three backbones of `BACKBONES` in any case and
+the parallel layer, which is not ported (`--mesh`, `--data_axis`,
+`--model_axis`, `--distributed`), parse into their fields and `--mesh`
+meets the `NotImplementedError` of `use_mesh`; `--model` takes the three backbones of `BACKBONES` in any case and
 raises `ValueError` on another name (the JAX package raises it when the model
 is built); `--distributed`
 joins no runtime here, it only sets `use_mesh`; `--bf16`, `--remat` and
@@ -191,17 +191,17 @@ class TrainConfig:
     overlap_eval: bool = False  # bucket metrics by overlap users (train_sr.py:75)
     model_dir: str = "model/"
     log_every: int = 20  # log train loss every N steps (train_sr.py:218)
-    checkpoint: bool = True  # not ported yet: run_seed raises when set
+    checkpoint: bool = True  # save under model_dir/checkpoint/seed{seed} (train/checkpoint.py)
     checkpoint_keep: int = 1
     checkpoint_every: int = 10
     checkpoint_async: bool = True
     checkpoint_payload: str = "full"
-    profile_steps: int = 0  # not ported yet: run_seed raises when > 0
-    resume: bool = False  # not ported yet: run_seed raises when set
+    profile_steps: int = 0  # >0: trace steps 1..N of epoch 0 into model_dir/profile
+    resume: bool = False  # restore the latest checkpoint and continue after it
     subdomain: int = -1  # >=0: single-domain training (dataset_seq.py:24-28)
-    # Failure detection: on a non-finite train loss "halt" raises, "ignore"
-    # and "restore" log and continue (the checkpoint roll-back of "restore"
-    # arrives with the checkpoint manager).
+    # Failure detection: on a non-finite train loss "halt" raises, "restore"
+    # rolls back to the last checkpoint (in place), "ignore" logs and
+    # continues (as "restore" does with no checkpoint).
     nan_policy: str = "restore"
     use_mesh: bool = False  # not ported yet: run_seed raises when set
     mesh_impl: str = "gspmd"

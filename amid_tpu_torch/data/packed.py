@@ -1,7 +1,8 @@
 """Packed dual-domain dataset: CSV -> dense int32 arrays, parsed once — the
-port's own copy of `amid_tpu/data/packed.py` (numpy only; the C++ parser of
-`data/native.py` is not ported yet, so the CSV readers are the pure-Python
-ones).
+port's own copy of `amid_tpu/data/packed.py` (numpy only). The CSV is read
+and packed in C++ (`data/native.py`, the repository's `native/` library)
+where that library loads, as in the JAX package, and in Python otherwise
+(`read_csv_python` and `pack_rows`), with the same arrays.
 
 The reference re-parses each row's JSON sequences in `__getitem__` every epoch
 across 8 DataLoader workers (dataset_seq.py:177-250). Here the CSV is parsed a
@@ -203,7 +204,18 @@ def pack_rows(
 
 
 def read_dual_domain_csv(csv_path: str, with_ob_label: bool = False):
-    """Parse an AMID-style dual-domain CSV into python lists."""
+    """Parse an AMID-style dual-domain CSV into python lists: the native
+    parser where it loads, else `read_csv_python`."""
+    from amid_tpu_torch.data.native import parse_csv_native
+
+    parsed = parse_csv_native(csv_path, with_ob_label)
+    if parsed is not None:
+        return parsed
+    return read_csv_python(csv_path, with_ob_label)
+
+
+def read_csv_python(csv_path: str, with_ob_label: bool = False):
+    """The pure-Python reader: (users, seq_d1, seq_d2, domains, ob_labels)."""
     import csv
 
     users: list[int] = []
@@ -237,7 +249,17 @@ def load_dual_domain_csv(
     subdomain: when set, keep only rows of that domain — the
     SingleDomainSeqDataset semantics (dataset_seq.py:24-28: rows filtered by
     `domain_id == subdomain`; targets/negatives then come only from that
-    domain's sequences and pool)."""
+    domain's sequences and pool).
+
+    Without a subdomain the CSV is parsed and packed in C++ where the native
+    library loads (`data/native.py::pack_csv_native`, `pack_rows`'s arrays
+    bit for bit)."""
+    if subdomain is None:
+        from amid_tpu_torch.data.native import pack_csv_native
+
+        ds = pack_csv_native(csv_path, with_ob_label, seq_len, pad_id, long_length)
+        if ds is not None:
+            return ds
     users, s1, s2, dom, ob = read_dual_domain_csv(csv_path, with_ob_label)
     if subdomain is not None:
         keep = [i for i, d in enumerate(dom) if d == subdomain]

@@ -30,16 +30,29 @@ step and replayed from then on (`train/graphs.py`); on the CPU the same
 runners run eagerly. Batch order, keys and logged metrics are the per-step
 path's.
 
-Not ported yet (run_seed raises `NotImplementedError` naming the field):
-mesh training, checkpoints and resume, the profiler. The JAX package's
-defaults ask for `checkpoint`, so `cli_main` turns it off and says so in one
-log line; a config handed to `run` or `run_seed` directly is served as it
-is, or refused.
+Checkpoints (`train/checkpoint.py`, as in the JAX package): with
+`checkpoint` a manager under `model_dir/checkpoint/seed{seed}` saves the
+state after an epoch's last evaluation when its score (mrr_d1 + mrr_d2)
+beats the best and `checkpoint_every` epochs have passed, or at the last
+epoch; `resume` restores the latest and starts at the epoch after it; a
+non-finite loss under `nan_policy="restore"` rolls back to it. A restore
+writes into the state's own tensors, which the fast loops' graphs read, so
+the chunks go on replaying the same graphs after a roll-back.
+
+`best["examples_per_s"]` is the JAX trainer's `StepTimer`
+(`utils/profiler.py`): stepped once a phase-A step, the first step skipped,
+the clock started after the second and read when the seed ends.
+`profile_steps` > 0 traces steps 1..profile_steps of epoch 0 into
+`model_dir/profile` on the per-step path (it turns `fast_train` off for the
+seed, as in the JAX package).
+
+Not ported yet: mesh training (`use_mesh`: run_seed raises
+`NotImplementedError` naming the field).
 """
 
 from __future__ import annotations
 
-import time
+import contextlib
 from typing import Optional
 
 import numpy as np
@@ -50,6 +63,7 @@ from amid_tpu_torch.data.loader import BatchIterator
 from amid_tpu_torch.data.packed import PackedDualDomainDataset, load_dual_domain_csv
 from amid_tpu_torch.models.amid import build_model, resolve_device
 from amid_tpu_torch.ops.rng import fold_in
+from amid_tpu_torch.train.checkpoint import CheckpointManager
 from amid_tpu_torch.train.graphs import GraphPool
 from amid_tpu_torch.train.metrics import RankAccumulator
 from amid_tpu_torch.train.optim import Adam
@@ -62,12 +76,10 @@ from amid_tpu_torch.train.steps import (
     make_train_step,
 )
 from amid_tpu_torch.utils.logging import AverageMeter, init_logger
+from amid_tpu_torch.utils.profiler import StepTimer, trace
 
 _NOT_PORTED = {  # TrainConfig field -> the part of the JAX trainer it asks for
     "use_mesh": "mesh training (the parallel layer)",
-    "checkpoint": "the checkpoint manager",
-    "resume": "the checkpoint manager",
-    "profile_steps": "the profiler",
 }
 
 
@@ -128,21 +140,26 @@ def evaluate_scanned(eval_all, batches_dev, dom: np.ndarray, ov: np.ndarray,
 
 
 def _run_chunked(runner, state, arrays_dev, perm_dev, nb: int, pools, pool_sizes,
-                 base_key: int, idx_offset: int, log_every: int, on_metrics, nan_cb):
+                 base_key: int, idx_offset: int, log_every: int, timer, batch_size: int,
+                 on_metrics, nan_cb):
     """The fast-train epoch: one `runner` call per log-cadence chunk of
     steps (`steps.make_resident_chunk_runner`). The chunk boundary is the
     per-step loop's log boundary (i % log_every == 0), so the host reads the
     device at the same cadence: the latch once a chunk, and the chunk's
     first-step metrics, which it logs. Batch order and keys are the per-step
-    loop's."""
+    loop's. `timer` (phase A's; None in phase B) is stepped once a step,
+    `nan_cb(state, start)` returns the state to go on with."""
     start = 0
     while start < nb:
         end = min(start + log_every, nb)
         state, m0, nf = runner(state, arrays_dev, perm_dev, pools, pool_sizes, base_key,
                                range(idx_offset + start, idx_offset + end),
                                range(start, end))
+        if timer is not None:
+            for _ in range(end - start):
+                timer.step(batch_size)
         if float(nf) > 0.0:
-            nan_cb(start)
+            state = nan_cb(state, start)
         else:
             on_metrics(m0)
         start = end
@@ -153,14 +170,22 @@ class NonFiniteLossError(RuntimeError):
     pass
 
 
-def _handle_nan(cfg, log, epoch, step) -> None:
-    """Failure detection: act on a non-finite train loss per cfg.nan_policy
-    ("halt" raises; "restore" has no checkpoint to roll back to yet and, like
-    "ignore", logs and continues)."""
+def _handle_nan(cfg, log, ckpt, state, epoch, step):
+    """Failure detection: act on a non-finite train loss per cfg.nan_policy:
+    "halt" raises; "restore" rolls back to the latest checkpoint where there
+    is one (in place: the state returned is `state`, its tensors rewritten);
+    otherwise, and under "ignore", it logs and continues."""
     msg = f"non-finite train loss at epoch {epoch} step {step}"
     if cfg.nan_policy == "halt":
         raise NonFiniteLossError(msg)
+    if cfg.nan_policy == "restore" and ckpt is not None:
+        restored = ckpt.restore(state)
+        if restored is not None:
+            log.error(f"{msg}; rolled back to checkpoint "
+                      f"{ckpt.latest_step()}")
+            return restored
     log.error(f"{msg}; continuing (policy={cfg.nan_policy})")
+    return state
 
 
 def _track_best(best: dict[str, float], cur: dict[str, float]) -> None:
@@ -170,27 +195,36 @@ def _track_best(best: dict[str, float], cur: dict[str, float]) -> None:
 
 
 def _run_phase(step, state, batches, pools, pool_sizes, ekey, key_offset,
-               cfg, log, meter, epoch, keys=None):
+               cfg, log, meter, epoch, keys=None, ckpt=None, timer=None, profile_dir=None):
     """One pass over `batches` with `step`; logs the running means of `keys`
     (default: every metric) every cfg.log_every steps and checks the
-    non-finite latch there and at the end. Returns the number of steps."""
+    non-finite latch there and at the end (`_handle_nan`). `timer` is
+    stepped once a step; with `profile_dir`, steps 1..cfg.profile_steps are
+    traced into it. Returns the state."""
     device = pools.device
     latch = torch.zeros((), device=device)
-    n = 0
-    for i, batch in enumerate(batches):
-        state, m = step(state, _to_device(batch, device), pools, pool_sizes,
-                        fold_in(ekey, key_offset + i))
-        latch = torch.maximum(latch, m.pop("nonfinite"))
-        n += 1
-        if i % cfg.log_every == 0:
-            if float(latch) > 0.0:
-                _handle_nan(cfg, log, epoch, i)
-                latch = torch.zeros((), device=device)
-                continue
-            _log_train(log, meter, m, keys)
+    with contextlib.ExitStack() as tracing:
+        for i, batch in enumerate(batches):
+            if profile_dir is not None and i == 1:
+                tracing.enter_context(trace(profile_dir))
+            state, m = step(state, _to_device(batch, device), pools, pool_sizes,
+                            fold_in(ekey, key_offset + i))
+            latch = torch.maximum(latch, m.pop("nonfinite"))
+            if profile_dir is not None and i == cfg.profile_steps:
+                float(m["loss"])  # the traced steps have run on the device
+                tracing.close()
+                log.info(f"profile trace written to {profile_dir}")
+            if timer is not None:
+                timer.step(cfg.model.batch_size)
+            if i % cfg.log_every == 0:
+                if float(latch) > 0.0:
+                    state = _handle_nan(cfg, log, ckpt, state, epoch, i)
+                    latch = torch.zeros((), device=device)
+                    continue
+                _log_train(log, meter, m, keys)
     if float(latch) > 0.0:
-        _handle_nan(cfg, log, epoch, "end")
-    return n
+        state = _handle_nan(cfg, log, ckpt, state, epoch, "end")
+    return state
 
 
 def _log_train(log, meter, m: dict, keys=None) -> None:
@@ -281,13 +315,14 @@ def run_seed(
     # the fast loops: step kinds as CUDA graphs in one pool on the card,
     # released when the seed ends; the same runners run eagerly on the CPU
     fast_eval = cfg.fast_eval and cfg.eval_batch_drop_last and len(val_iter) > 0
-    graphs = (GraphPool(device) if device.type == "cuda" and (cfg.fast_train or fast_eval)
+    fast_train = cfg.fast_train and not cfg.profile_steps  # profiling traces per step
+    graphs = (GraphPool(device) if device.type == "cuda" and (fast_train or fast_eval)
               else None)
     phases = [(train_step, train_iter, pools, pool_sizes, 0, None)]
     if is_dr and dr_iter is not None:
         phases.append((dr_step, dr_iter, dpools, dpool_sizes, 20_000, ("loss_dr_r",)))
     resident = {}  # step -> (runner, resident arrays, permutation buffer)
-    if cfg.fast_train:
+    if fast_train:
         for step, it, *_ in phases:
             resident[step] = (make_resident_chunk_runner(step, bs, graphs),
                               _resident(it.arrays(), device),
@@ -301,16 +336,20 @@ def run_seed(
                            for k in STEP_KEYS}
         eval_all = make_scanned_eval(model, cfg.data.neg_nums, graphs)
 
-    def run_phase(step, it, ppools, psizes, offset, keys, ekey, meter, epoch) -> int:
+    def run_phase(step, it, ppools, psizes, offset, keys, ekey, meter, epoch):
+        """One pass of a phase; phase A (offset 0) steps the timer."""
+        phase_timer = timer if offset == 0 else None
         if step not in resident:
+            profile_dir = (f"{cfg.model_dir}/profile"
+                           if cfg.profile_steps and epoch == 0 and offset == 0 else None)
             return _run_phase(step, state, it, ppools, psizes, ekey, offset, cfg, log,
-                              meter, epoch, keys)
+                              meter, epoch, keys, ckpt, phase_timer, profile_dir)
         runner, arrays_dev, perm_dev = resident[step]
         perm_dev.copy_(torch.from_numpy(it.epoch_perm()))
-        _run_chunked(runner, state, arrays_dev, perm_dev, len(it), ppools, psizes, ekey,
-                     offset, cfg.log_every, lambda m0: _log_train(log, meter, m0, keys),
-                     lambda i: _handle_nan(cfg, log, epoch, i))
-        return len(it)
+        return _run_chunked(runner, state, arrays_dev, perm_dev, len(it), ppools, psizes,
+                            ekey, offset, cfg.log_every, phase_timer, bs,
+                            lambda m0: _log_train(log, meter, m0, keys),
+                            lambda s, i: _handle_nan(cfg, log, ckpt, s, epoch, i))
 
     def run_eval(key):
         if fast_eval:
@@ -320,22 +359,27 @@ def run_seed(
 
     root_key = fold_in(seed, 0)
     best: dict[str, float] = {}
-    train_seconds, train_examples = 0.0, 0
-
-    def sync():
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-
+    best_score = -1.0
+    timer = StepTimer()
+    ckpt = last_saved = None
+    start_epoch = 0
     try:
-        for epoch in range(cfg.epochs):
+        if cfg.checkpoint:
+            ckpt = CheckpointManager(
+                f"{cfg.model_dir}/checkpoint/seed{seed}", keep=cfg.checkpoint_keep,
+                async_save=cfg.checkpoint_async, payload=cfg.checkpoint_payload)
+            if cfg.resume and ckpt.restore(state) is not None:
+                # latest_step() can be 0: no `or`-default
+                start_epoch = ckpt.latest_step() + 1
+                log.info(f"resumed from checkpoint at epoch {start_epoch - 1}")
+            # the newest step, one in flight included (latest_step() reports
+            # complete steps only)
+            last_saved = ckpt.latest_step()
+
+        for epoch in range(start_epoch, cfg.epochs):
             meter = AverageMeter()
             ekey = fold_in(root_key, epoch)
-            sync()
-            t0 = time.perf_counter()
-            n = run_phase(*phases[0], ekey, meter, epoch)
-            sync()
-            train_seconds += time.perf_counter() - t0
-            train_examples += n * bs
+            state = run_phase(*phases[0], ekey, meter, epoch)
 
             ev = run_eval(fold_in(ekey, 10_000))
             _track_best(best, ev)
@@ -349,7 +393,7 @@ def run_seed(
                 epoch_hook(epoch, state, ev, phase="main")
 
             if len(phases) > 1:
-                run_phase(*phases[1], ekey, meter, epoch)
+                state = run_phase(*phases[1], ekey, meter, epoch)
                 ev = run_eval(fold_in(ekey, 30_000))
                 _track_best(best, ev)
                 log.info(
@@ -359,13 +403,26 @@ def run_seed(
                 )
                 if epoch_hook is not None:
                     epoch_hook(epoch, state, ev, phase="post_dr")
-    finally:
-        if graphs is not None:
-            graphs.close()
 
-    # phase-A examples over phase-A wall time (synchronised at both ends)
-    best["examples_per_s"] = train_examples / train_seconds if train_seconds else 0.0
-    best["start_epoch"] = 0.0
+            score = ev["mrr_d1"] + ev["mrr_d2"]
+            if score > best_score:
+                if ckpt is not None and (
+                        last_saved is None or epoch - last_saved >= cfg.checkpoint_every
+                        or epoch == cfg.epochs - 1):
+                    ckpt.save(epoch, state)
+                    last_saved = epoch
+                best_score = score
+        # read before close() waits for a save in flight, as in the JAX package
+        best["examples_per_s"] = timer.examples_per_s
+    finally:
+        try:
+            if ckpt is not None:
+                ckpt.close()
+        finally:
+            if graphs is not None:
+                graphs.close()
+
+    best["start_epoch"] = float(start_epoch)
     return best
 
 
@@ -417,25 +474,13 @@ def run(cfg: TrainConfig, device=None) -> dict[str, dict]:
     return aggregate_seeds(per_seed, log)
 
 
-_CLI_TURNS_OFF = ("checkpoint",)
-
-
 def cli_main(argv: Optional[list[str]] = None, is_dr: bool = False) -> dict[str, dict]:
     """The body of `python3 -m amid_tpu_torch.train_sr_dr` (is_dr=True) and
     `train_sr` (is_dr=False): flags -> TrainConfig -> `run`.
 
-    The checkpoint manager is not ported yet and the reference's defaults ask
-    for it, so it is turned off here, with one log line naming it; every
-    other flag that asks for an unported part reaches `run_seed`'s
-    NotImplementedError. The fast loops run as the flags ask (on by
-    default)."""
+    The flags' defaults are the JAX CLI's: checkpoints on (async, under
+    `model_dir/checkpoint/seed{seed}`), the fast loops on; `--mesh` reaches
+    `run_seed`'s NotImplementedError."""
     cfg, device = parse_cli_with_device(argv, is_dr=is_dr)
     cfg.model.is_dr = is_dr
-    turned_off = [name for name in _CLI_TURNS_OFF if getattr(cfg, name)]
-    for name in turned_off:
-        setattr(cfg, name, False)
-    if turned_off:
-        init_logger(cfg.model_dir, "log_all.txt").info(
-            f"not ported yet, turned off for this run: {', '.join(turned_off)} "
-            f"(no checkpoints)")
     return run(cfg, device=device)

@@ -117,8 +117,9 @@ code and no result line):
    written to a temporary directory in the reference's format, (a) T=20 with
    the lazy table Adam (small-N affinity kernel), (b) T=150 with dense Adam
    (blocked affinity kernel): CSV -> packed datasets -> phase A, evaluation
-   with 999 negatives, phase B, evaluation, on the fast loops (it turns off
-   only `checkpoint`, and says so) and again with `--fast_train False
+   with 999 negatives, phase B, evaluation, on the fast loops (the JAX CLI's
+   defaults: it checkpoints, async, and the run must leave
+   `checkpoint/seed0/0.pt`) and again with `--fast_train False
    --fast_eval False`, counting every kernel launch; then the checks of
    phase 4 in pairwise mode, the step-level ones against a
    `kernels='torch'` model whose affinity is `max_affinity_plain`;
@@ -157,7 +158,26 @@ code and no result line):
    long forward and backward: one epoch of `run_seed` at B=256 with its
    launches and peak memory, the step-level checks against the
    `kernels='torch'` model at B=32 (where the plain step fits) and the step
-   timings at B=256.
+   timings at B=256;
+9. checkpoints (`train/checkpoint.py`), the profiler (`utils/profiler.py`)
+   and the native CSV reader (`data/native.py`), the run.sh model at T=20
+   with the lazy table Adam (a 2.29 GB state: the 894,820-row table and two
+   slots of its `mu`/`nu`): each payload (full, bf16_moments, params_only)
+   saved async twice and restored into the moved state (bytes on disk, the
+   seconds `save()` blocks and the wait, the restore's seconds; the values
+   as saved); `run_seed` with checkpoints for 1 epoch, resumed to 2, resumed
+   to 3 (start epochs 1 and 2), the first run's `examples_per_s` (the
+   StepTimer) beside the phase-A-only rate the port reported before it;
+   the roll-back under replay: a NaN written into a DR head's weight after
+   epoch 1's main evaluation, phase B's replayed steps trip the latch, the
+   run rolls back to checkpoint 0 and its later losses are finite; a
+   restore into the tensors captured graphs read (lazy T=20 and dense
+   pairwise T=150 phase A): replays after the restore bit-equal to replays
+   after the save, params_only zeroing moments and counts; `run_seed` with
+   `profile_steps=3`, whose trace must name the kernels of the path; a
+   27,000-row synthetic CSV packed by the native reader (the repository's
+   library, or one built into `_build/`) and by the Python reader, the
+   arrays equal, both times.
 
 It prints a JSON line of per-kernel numbers, the total wall time, the
 `nvidia-smi` name and power line, and last `{"ok": true, "device": {...}}`.
@@ -1832,9 +1852,8 @@ def training_phase(torch, rng):
                         torch.cuda.synchronize()
                         seconds = time.perf_counter() - t0
                         counts[name] = read_counts()
-                        log_all = Path(model_dir, "log_all.txt").read_text()
-                        require("turned off for this run: checkpoint (no checkpoints)" in log_all,
-                                f"{label}: the CLI did not log what it turned off")
+                        require(Path(model_dir, "checkpoint", "seed0", "0.pt").exists(),
+                                f"{label}: the CLI wrote no checkpoint (its default)")
                         check_run(f"{label} CLI {name}", cfg, lazy_adam, counts[name],
                                   {k: v["mean"] for k, v in agg.items()},
                                   {"loop": name, "seconds": seconds})
@@ -2301,6 +2320,281 @@ def c2dsr_long_run(torch, rng):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 9: checkpoints, resume, the roll-back, the trace, the timer, the reader
+# ---------------------------------------------------------------------------
+
+RESTORE_STEPS = 4  # restore_replay: replays after the save, and again after the restore
+NATIVE_ROWS = 27_000  # the CSV size the native reader's docstring times
+# kernel names the trace of a lazy T=20 run must hold: attention forward and
+# backward, the gather, its backward, the scoring head and the fused scatter
+TRACE_KERNELS = ("attention_fwd_kernel", "attention_bwd_kernel", "gather_rows_kernel",
+                 "grad_chunks_kernel", "scoring_head_kernel", "scatter_rows_kernel")
+NAN_PARAM = "predict_gfunc.fc1.weight"  # read by phase B's loss (the imputation head)
+
+
+def payload_checks(torch, cfg, tcfg, train_ds, dr_ds, work):
+    """Each payload of `CheckpointManager` (async) on the lazy T=20 state
+    with both slots moved by two phase-A and two phase-B steps: bytes on
+    disk, the seconds `save()` blocks (the first save allocates the pinned
+    buffers, the second reuses them), the seconds to `wait_until_finished`,
+    the seconds of a `restore` into the state after every leaf was moved;
+    the restored leaves as saved (bf16_moments: the moments through
+    bfloat16; params_only: zero moments and counts)."""
+    from amid_tpu_torch.data.loader import BatchIterator
+    from amid_tpu_torch.train.checkpoint import PAYLOADS, CheckpointManager, state_leaves
+    from amid_tpu_torch.train.loop import _device_pools, _to_device
+
+    _, state, step_a, step_b, _ = make_steps(cfg, tcfg, "cuda")
+    for ds, step in ((train_ds, step_a), (dr_ds, step_b)):
+        pools = _device_pools(ds, "cuda")
+        for i, batch in zip(range(2), BatchIterator(ds, cfg.batch_size, False)):
+            step(state, _to_device(batch, "cuda"), *pools, 300 + i)
+    torch.cuda.synchronize()
+    leaves = state_leaves(state)
+    saved = {k: v.clone() for k, v in leaves.items()}
+    out = {}
+    for payload in PAYLOADS:
+        mgr = CheckpointManager(str(work / f"payload_{payload}"), async_save=True,
+                                payload=payload)
+        rec = {"payload": payload, "save_block_s": [], "wait_s": []}
+        try:
+            for i in range(2):
+                t0 = time.perf_counter()
+                mgr.save(i, state)
+                rec["save_block_s"].append(time.perf_counter() - t0)
+                t0 = time.perf_counter()
+                mgr.wait_until_finished()
+                rec["wait_s"].append(time.perf_counter() - t0)
+            rec["bytes_on_disk"] = (work / f"payload_{payload}" / "1.pt").stat().st_size
+            with torch.no_grad():
+                for t in leaves.values():
+                    t.add_(1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            require(mgr.restore(state) is state, f"{payload}: restore made a new state")
+            torch.cuda.synchronize()
+            rec["restore_s"] = time.perf_counter() - t0
+        finally:
+            mgr.close()
+        for k, v in leaves.items():
+            want = saved[k]
+            if not k.startswith("params/"):
+                if payload == "params_only":
+                    want = torch.zeros_like(want)
+                elif payload == "bf16_moments" and want.dtype == torch.float32:
+                    want = want.bfloat16().float()
+            require(torch.equal(v, want), f"{payload}: {k} restored wrong")
+            with torch.no_grad():
+                v.copy_(saved[k])
+        rec["state_bytes"] = sum(t.numel() * t.element_size() for t in leaves.values())
+        emit({"checkpoint_payload": rec})
+        out[payload] = rec
+    return out
+
+
+def restore_replay(torch, cfg, tcfg, ds, work, label):
+    """A restore into the tensors a captured phase-A graph reads: two steps
+    through a resident chunk runner (eager, then captured and replayed), a
+    full save, RESTORE_STEPS replays with keys k1..kn (state S1); restore,
+    the same replays (state S2): S1 and S2 equal bit for bit, every leaf.
+    Then a params_only checkpoint restores the parameters and zero moments
+    and counts."""
+    from amid_tpu_torch.train import steps
+    from amid_tpu_torch.train.checkpoint import CheckpointManager, state_leaves
+    from amid_tpu_torch.train.graphs import GraphPool
+    from amid_tpu_torch.train.loop import _device_pools, _resident
+
+    bs, n = cfg.batch_size, RESTORE_STEPS
+    t0 = time.perf_counter()
+    _, state, step_a, _, _ = make_steps(cfg, tcfg, "cuda")
+    arrays = _resident(ds.batch_arrays(), "cuda")
+    pools = _device_pools(ds, "cuda")
+    perm = torch.arange((2 + n) * bs, dtype=torch.int32, device="cuda")
+    pool = GraphPool("cuda")
+    full = CheckpointManager(str(work / f"{label}_full"), async_save=True)
+    params_only = CheckpointManager(str(work / f"{label}_params_only"), payload="params_only")
+    try:
+        runner = steps.make_resident_chunk_runner(step_a, bs, pool)
+
+        def run(i):
+            _, _, nf = runner(state, arrays, perm, *pools, 17, range(i, i + 1), range(i, i + 1))
+            require(float(nf) == 0.0, f"{label}: non-finite step {i}")
+
+        def replays():
+            for i in range(2, 2 + n):
+                run(i)
+            return {k: v.clone() for k, v in state_leaves(state).items()}
+
+        run(0)
+        run(1)
+        full.save(1, state)
+        s1 = replays()
+        ptrs = {k: v.data_ptr() for k, v in state_leaves(state).items()}
+        require(full.restore(state) is state, f"{label}: restore made a new state")
+        require({k: v.data_ptr() for k, v in state_leaves(state).items()} == ptrs,
+                f"{label}: restore moved a tensor")
+        s2 = replays()
+        replayed = pool.graphs[0].replays
+        require(replayed == 1 + 2 * n, f"{label}: {replayed} replays")
+        differ = [k for k, v in s1.items() if not torch.equal(v, s2[k])]
+        require(not differ, f"{label}: replays after the restore differ: {differ[:5]}")
+        params_only.save(2 + n, state)
+        run(2)
+        params_only.restore(state)
+        for k, v in state_leaves(state).items():
+            want = s2[k] if k.startswith("params/") else torch.zeros_like(v)
+            require(torch.equal(v, want), f"{label}: params_only restored {k} wrong")
+    finally:
+        full.close()
+        params_only.close()
+        pool.close()
+    rec = {"config": label, "replays": replayed, "leaves": len(s1), "bit_equal": True,
+           "seconds": time.perf_counter() - t0}
+    emit({"restore_replay": rec})
+    return rec
+
+
+def checkpoint_phase(torch, rng):
+    """Phase 9: the checkpoint manager, resume, the roll-back on a
+    non-finite loss, the trace and the step timer through `run_seed`, and
+    the native CSV reader, at the run.sh model's width."""
+    import shutil
+    import tempfile
+
+    from amid_tpu_torch.config import DataConfig, ModelConfig, TrainConfig
+    from amid_tpu_torch.data import native
+    from amid_tpu_torch.data.packed import pack_rows, read_csv_python
+    from amid_tpu_torch.data.synthetic import synth_packed, write_synthetic_csvs
+    from amid_tpu_torch.train import loop
+
+    cfg = ModelConfig(**{**FLAGSHIP, "seq_len": 20})
+    train_ds, val_ds, dr_ds = (synth_packed(cfg, rng, n) for n in (TRAIN_ROWS, VAL_ROWS, DR_ROWS))
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
+
+    def tcfg(name, **kw):
+        return TrainConfig(**{**dict(
+            epochs=1, seeds=1, model_dir=str(work / name), lazy_table_adam=True,
+            nan_policy="halt", checkpoint=True, checkpoint_every=1, checkpoint_async=True,
+            model=cfg, data=DataConfig(neg_nums=999)), **kw})
+
+    runs = {}
+
+    def drive(label, run_cfg, epoch_hook=None):
+        """run_seed on the main path, its launches counted from 0."""
+        reset_counts()
+        t0 = time.perf_counter()
+        best = loop.run_seed(run_cfg, 0, train_ds, val_ds, dr_ds, epoch_hook=epoch_hook)
+        torch.cuda.synchronize()
+        runs[label] = {"launches": read_counts(), "seconds": time.perf_counter() - t0}
+        for k in ("mrr_d1", "mrr_d2", "hit_10_d1", "hit_10_d2"):
+            require(math.isfinite(best.get(k, math.nan)), f"{label}: metric {k}")
+        return best
+
+    try:
+        # 1. payloads, then save and resume through run_seed
+        payload_checks(torch, cfg, tcfg("payload"), train_ds, dr_ds, work)
+        torch.cuda.empty_cache()
+        # the phase-A-only number the port reported before the StepTimer:
+        # phase A's chunks timed between synchronisations
+        chunked, phase_a = loop._run_chunked, []
+
+        def timed(runner, state, *a):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = chunked(runner, state, *a)
+            torch.cuda.synchronize()
+            if a[6] == 0:  # idx_offset: phase A
+                phase_a.append((a[2] * FLAGSHIP["batch_size"], time.perf_counter() - t0))
+            return out
+
+        loop._run_chunked = timed
+        try:
+            best = drive("resume_epoch0", tcfg("resume"))
+        finally:
+            loop._run_chunked = chunked
+        examples, seconds = map(sum, zip(*phase_a))
+        emit({"step_timer": {"examples_per_s": best["examples_per_s"],
+                             "phase_a_only_examples_per_s": examples / seconds,
+                             "phase_a_steps": examples // FLAGSHIP["batch_size"],
+                             "run_seconds": runs["resume_epoch0"]["seconds"]}})
+        ckpt_dir = work / "resume" / "checkpoint" / "seed0"
+        for epochs in (2, 3):
+            best = drive(f"resume_epoch{epochs - 1}", tcfg("resume", epochs=epochs, resume=True))
+            require(best["start_epoch"] == epochs - 1,
+                    f"resume to {epochs} epochs started at {best['start_epoch']}")
+            require((ckpt_dir / f"{epochs - 1}.pt").exists(), f"epoch {epochs - 1} not saved")
+        emit({"checkpoint_resume": {"start_epochs": [0, 1, 2], "files": sorted(
+            p.name for p in ckpt_dir.iterdir())}})
+
+        # 2. the roll-back under replay: NaN weights before epoch 1's phase B
+        trained = {}
+
+        def poison(epoch, state, ev, phase):
+            if epoch == 1 and phase == "main":
+                with torch.no_grad():
+                    state.params[NAN_PARAM].fill_(float("nan"))
+            if epoch == 1 and phase == "post_dr":
+                trained["finite"] = all(bool(torch.isfinite(v).all())
+                                        for v in state.params.values())
+
+        drive("rollback", tcfg("rollback", epochs=2, nan_policy="restore", log_every=4),
+              epoch_hook=poison)
+        log = (work / "rollback" / "log0.txt").read_text()
+        line = "non-finite train loss at epoch 1 step 0; rolled back to checkpoint 0"
+        require(line in log, "the roll-back was not logged")
+        after = log.split(line, 1)[1]
+        losses = [float(x.split()[0].rstrip(",")) for x in after.split("loss_dr_r:")[1:]]
+        require(losses and all(math.isfinite(x) for x in losses),
+                f"losses after the roll-back: {losses}")
+        require(trained.get("finite"), "weights after the roll-back are not finite")
+        emit({"checkpoint_rollback": {"logged": line, "losses_after": losses}})
+
+        # 3. restore into captured graphs, bit for bit
+        restore_replay(torch, cfg, tcfg("r20"), synth_packed(
+            cfg, rng, (2 + RESTORE_STEPS) * cfg.batch_size), work, "T20_lazy")
+        torch.cuda.empty_cache()
+        pair = ModelConfig(**{**FLAGSHIP, "comp_broadcast_quirk": False})
+        restore_replay(
+            torch, pair, tcfg("r150", lazy_table_adam=False, model=pair),
+            synth_packed(pair, rng, (2 + RESTORE_STEPS) * pair.batch_size), work,
+            "T150_dense_pairwise")
+        torch.cuda.empty_cache()
+
+        # 4. the trace of profile_steps
+        drive("trace", tcfg("trace", profile_steps=3, checkpoint=False))
+        traces = list((work / "trace" / "profile").glob("*.pt.trace.json"))
+        require(len(traces) == 1, f"traces written: {traces}")
+        text = traces[0].read_text()
+        missing = [k for k in TRACE_KERNELS if k not in text]
+        require(not missing, f"the trace names no {missing}")
+        emit({"profile_trace": {"bytes": len(text), "kernels": list(TRACE_KERNELS)}})
+
+        # 6. the native CSV reader against the Python one
+        data = DataConfig(dataset_type="synthetic", domain_type="d1_d2",
+                          data_root=str(work / "csv"), overlap_ratio=0.25)
+        write_synthetic_csvs(data, cfg, rng, NATIVE_ROWS, 16)
+        lib = native.library_path()
+        require(lib is not None, "the native CSV reader does not load")
+        t0 = time.perf_counter()
+        fast = native.pack_csv_native(data.train_csv(), False, cfg.seq_len, cfg.pad_id,
+                                      data.long_length)
+        native_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        users, s1, s2, dom, _ = read_csv_python(data.train_csv(), False)
+        slow = pack_rows(users, s1, s2, dom, None, cfg.seq_len, cfg.pad_id, data.long_length)
+        python_s = time.perf_counter() - t0
+        for k, v in slow.batch_arrays().items():
+            require(np.array_equal(fast.batch_arrays()[k], v), f"native reader: {k} differs")
+        require(np.array_equal(fast.pools, slow.pools)
+                and np.array_equal(fast.pool_sizes, slow.pool_sizes), "native reader: pools")
+        emit({"native_reader": {"rows": len(fast), "library": str(lib),
+                                "native_s": native_s, "python_s": python_s}})
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return runs
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2356,13 +2650,16 @@ def main() -> int:
     phase(gate_flip_phase, np.random.default_rng(2))
     backbones = phase(backbone_phase, np.random.default_rng(3))
     c2dsr_runs = phase(c2dsr_phase, np.random.default_rng(4))
+    checkpoint_runs = phase(checkpoint_phase, np.random.default_rng(5))
 
     # launches on the main paths: the serving passes, the run_seed runs and
     # the CLI runs (each on the fast loops and per step), the backbones'
-    # serving passes and run_seed runs, phase 8's C2DSR run_seed runs, each
-    # driven with the counts at 0 just before it and read just after
+    # serving passes and run_seed runs, phase 8's C2DSR run_seed runs, phase
+    # 9's run_seed runs (resume, roll-back, trace), each driven with the
+    # counts at 0 just before it and read just after
     main_runs = [*training.values(), *serving.values(),
-                 *(r for r in backbones.values() if "launches" in r), *c2dsr_runs.values()]
+                 *(r for r in backbones.values() if "launches" in r), *c2dsr_runs.values(),
+                 *checkpoint_runs.values()]
     launches = {name: sum(r["launches"][name] for r in main_runs) for name in KERNELS}
     # run_seed scatters fused; the single-array kernel's path is the lazy step
     # built with fused_scatter=False, driven once in step_checks

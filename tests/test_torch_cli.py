@@ -119,7 +119,7 @@ def _train_one_epoch(tmp_path, csv_root, cli, pairwise, model="sasrec"):
     assert {"hit_10_d1", "ndcg_10_d2", "mrr_d1", "mrr_d2", "examples_per_s"} <= agg.keys()
     assert all(np.isfinite(v["mean"]) and v["std"] == 0.0 for v in agg.values())
     log_all = (tmp_path / "log_all.txt").read_text()
-    assert "turned off for this run: checkpoint (no checkpoints)" in log_all
+    _assert_default_checkpoint(tmp_path, log_all)
     assert '"comp_broadcast_quirk": %s' % str(not pairwise).lower() in log_all
     assert "mrr_d1:" in log_all
     log0 = (tmp_path / "log0.txt").read_text()
@@ -130,16 +130,34 @@ def _train_one_epoch(tmp_path, csv_root, cli, pairwise, model="sasrec"):
     assert f'"backbone": "{model.lower()}"' in log_all
 
 
+def _assert_default_checkpoint(model_dir, log_all):
+    """The JAX CLI's defaults: a checkpoint of the last epoch (0) under
+    model_dir/checkpoint/seed0, full payload; nothing turned off."""
+    ckpt = model_dir / "checkpoint" / "seed0"
+    assert sorted(p.name for p in ckpt.iterdir()) == ["0.pt", "payload_mode.txt"]
+    assert (ckpt / "payload_mode.txt").read_text() == "full"
+    assert "turned off" not in log_all
+
+
 def test_cli_runs_on_the_card_unless_asked_and_refuses_unported_parts(
         tmp_path, csv_root, monkeypatch):
+    """Without --device the card (and there is none); --mesh refused, naming
+    the field; --resume True starts after the saved epoch, --profile_steps 2
+    writes a trace (both ported: they run on the CPU); C2DSR as below."""
     base = TINY + ["--data_root", csv_root, "-md", str(tmp_path)]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train_sr_dr.main(base)  # no --device: the card, and there is none
-    for flag, field in ((["--resume", "True"], "resume"), (["--profile_steps", "2"],
-                        "profile_steps"), (["--mesh", "True"], "use_mesh")):
-        with pytest.raises(NotImplementedError, match=f"TrainConfig.{field}"):
-            train_sr_dr.main(base + ["--device", "cpu", "--kernels", "torch", *flag])
+    with pytest.raises(NotImplementedError, match="TrainConfig.use_mesh"):
+        train_sr_dr.main(base + ["--device", "cpu", "--kernels", "torch", "--mesh", "True"])
+    cpu = ["--device", "cpu", "--kernels", "torch"]
+    train_sr_dr.main(base + cpu + ["-md", str(tmp_path / "resume")])
+    agg = train_sr_dr.main(base + cpu + ["-md", str(tmp_path / "resume"), "--resume", "True",
+                                         "--epoch", "2"])
+    assert agg["start_epoch"]["mean"] == 1.0 and 0.0 < agg["mrr_d1"]["mean"] <= 1.0
+    assert "resumed from checkpoint at epoch 0" in (tmp_path / "resume/log0.txt").read_text()
+    train_sr_dr.main(base + cpu + ["-md", str(tmp_path / "profile"), "--profile_steps", "2"])
+    assert len(list((tmp_path / "profile/profile").glob("*.pt.trace.json"))) == 1
     # C2DSR trains on the CPU with dense Adam and logs loss_cl; with the lazy
     # table Adam it raises the JAX trainer's ValueError
     c2dsr = base + ["--device", "cpu", "--kernels", "torch", "--isC2DSR", "True"]
@@ -182,17 +200,18 @@ def test_precision_flags_parse_as_in_the_jax_package_and_are_refused(
 
 
 def test_run_serves_a_config_as_it_is(tmp_path, csv_root):
-    """`run` turns nothing off: the reference's defaults reach run_seed's
-    refusal of the checkpoint manager, and the same config with `checkpoint`
-    off trains, on the fast loops the defaults ask for."""
+    """`run` takes the reference's defaults as they are: it trains on the
+    fast loops and checkpoints (async, full payload) as the JAX package's
+    `run` does; with `checkpoint` off it writes none."""
     cfg = config.parse_cli(TINY + ["--data_root", csv_root, "-md", str(tmp_path),
                                    "--kernels", "torch"], is_dr=True)
-    assert cfg.fast_train and cfg.fast_eval
-    with pytest.raises(NotImplementedError, match="TrainConfig.checkpoint"):
-        loop.run(cfg, device="cpu")
-    cfg.checkpoint = False
+    assert cfg.fast_train and cfg.fast_eval and cfg.checkpoint and cfg.checkpoint_async
     agg = loop.run(cfg, device="cpu")
     assert 0.0 < agg["mrr_d1"]["mean"] <= 1.0
+    _assert_default_checkpoint(tmp_path, (tmp_path / "log_all.txt").read_text())
+    cfg.checkpoint, cfg.model_dir = False, str(tmp_path / "off")
+    assert loop.run(cfg, device="cpu")["mrr_d1"] == agg["mrr_d1"]
+    assert not (tmp_path / "off" / "checkpoint").exists()
 
 
 def test_evaluation_pass_over_the_csv_equals_the_jax_package_s(csv_root):

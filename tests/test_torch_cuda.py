@@ -65,6 +65,7 @@ from amid_tpu_torch.ops.scoring import (
 from amid_tpu_torch.ops.rng import StepRandom, fold_in
 from amid_tpu_torch.serve import user_representations
 from amid_tpu_torch.train import lazy, loop, steps
+from amid_tpu_torch.train.checkpoint import CheckpointManager, state_leaves
 from amid_tpu_torch.train.graphs import GraphPool, StepGraph
 from amid_tpu_torch.train.optim import Adam
 
@@ -1462,6 +1463,63 @@ def test_run_seed_runs_the_fast_loops_as_graphs(tmp_path, gen, lazy_adam):
     assert 0.0 <= best["mrr_d1"] <= 1.0 and np.isfinite(best["mrr_d2"])
     log = (tmp_path / "log0.txt").read_text()
     assert log.count("train loss:") == 2 * 3 and log.count("(post-DR)") == 2
+
+
+@pytest.mark.parametrize("kind,pairwise", [("lazy", False), ("dense", True)],
+                         ids=["lazy_quirk", "dense_pairwise"])
+def test_restore_into_captured_graphs_replays_bit_for_bit(tmp_path, gen, kind, pairwise):
+    """`chip_smoke.py`'s checkpoint phase, step 3, at a small size: two
+    phase-A steps through a runner (eager, then captured and replayed), an
+    async full save, three replays (state S1); restore, the same three keys
+    (state S2): S1 == S2 bit for bit, every leaf. The restore wrote into the
+    tensors the graph reads; one that rebound a tensor would leave the
+    replays on S1's continuation. A params_only checkpoint then restores the
+    parameters and zero moments and counts."""
+    cfg = _fast_cfg(comp_broadcast_quirk=not pairwise)
+    n = 3
+    ds = synth_packed(cfg, np.random.default_rng(0), (2 + n) * FAST_BS)
+    _, state, step = _fast_pair(kind, "A", cfg)[0]
+    arrays = loop._resident(ds.batch_arrays(), "cuda")
+    pools = loop._device_pools(ds, "cuda")
+    perm = torch.arange((2 + n) * FAST_BS, dtype=torch.int32, device="cuda")
+    pool = GraphPool("cuda")
+    full = CheckpointManager(str(tmp_path / "full"), async_save=True)
+    try:
+        runner = steps.make_resident_chunk_runner(step, FAST_BS, pool)
+
+        def run(i):
+            _, _, nf = runner(state, arrays, perm, *pools, 11, range(i, i + 1), range(i, i + 1))
+            assert float(nf) == 0.0
+
+        def replays():
+            for i in range(2, 2 + n):
+                run(i)
+            return {k: v.clone() for k, v in state_leaves(state).items()}
+
+        run(0)
+        run(1)
+        full.save(1, state)
+        s1 = replays()
+        ptrs = {k: v.data_ptr() for k, v in state_leaves(state).items()}
+        assert full.restore(state) is state
+        assert {k: v.data_ptr() for k, v in state_leaves(state).items()} == ptrs
+        s2 = replays()
+        assert pool.graphs[0].replays == 1 + 2 * n
+        for k, v in s1.items():
+            assert torch.equal(v, s2[k]), k
+        params_only = CheckpointManager(str(tmp_path / "params_only"), payload="params_only")
+        params_only.save(2 + n, state)
+        run(2)  # moves every leaf
+        params_only.restore(state)
+        for k, v in state_leaves(state).items():
+            if k.startswith("params/"):
+                assert torch.equal(v, s2[k]), k
+            else:
+                assert not v.any(), k
+        params_only.close()
+    finally:
+        full.close()
+        pool.close()
 
 
 # ---------------------------------------------------------------------------

@@ -1,18 +1,20 @@
 """The port's data layer against the JAX package's: `pack_rows`, the CSV
-reader and `BatchIterator` bit-equal on synthetic input; the negative sampler
-exact (never a hole, never outside the pool, equal to the literal
-skip-sorted-holes loop) and uniform within 3 sigma."""
+readers (native and Python) and `BatchIterator` bit-equal on synthetic
+input; the negative sampler exact (never a hole, never outside the pool,
+equal to the literal skip-sorted-holes loop) and uniform within 3 sigma."""
 
 import csv
 import json
+import logging
 
 import numpy as np
 import pytest
 import torch
 
 from amid_tpu.data import loader as jax_loader
+from amid_tpu.data import native as jax_native
 from amid_tpu.data import packed as jax_packed
-from amid_tpu_torch.data import loader, packed
+from amid_tpu_torch.data import loader, native, packed
 from amid_tpu_torch.data.sampler import sample_negatives
 
 
@@ -73,6 +75,70 @@ def test_csv_reader_bit_equal_and_save_load(tmp_path, rows, subdomain):
     _assert_same_dataset(got, want)
     got.save(str(tmp_path / "ds.npz"))
     _assert_same_dataset(packed.PackedDualDomainDataset.load(str(tmp_path / "ds.npz")), want)
+
+
+def _write_csv(path, rows):
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["user_id", "seq_d1", "seq_d2", "domain_id", "ob_label"])
+        for r in zip(*rows):
+            w.writerow([r[0], json.dumps(r[1]), json.dumps(r[2]), r[3], r[4]])
+
+
+@pytest.mark.parametrize("with_ob", [True, False])
+def test_native_reader_equals_the_jax_package_s_and_pack_rows(tmp_path, rows, with_ob):
+    """`pack_csv_native` and `parse_csv_native` of the port against the JAX
+    package's bindings of the same library, and against the Python reader
+    and `pack_rows`, array by array (`amid_tpu/data/native.py:73,130`)."""
+    path = str(tmp_path / "d.csv")
+    _write_csv(path, rows)
+    assert native.library_path() is not None
+    got = native.pack_csv_native(path, with_ob, 6, 61, 4)
+    _assert_same_dataset(got, jax_native.pack_csv_native(path, with_ob, 6, 61, 4))
+    python = packed.read_csv_python(path, with_ob)
+    assert native.parse_csv_native(path, with_ob) == jax_native.parse_csv_native(
+        path, with_ob) == python
+    _assert_same_dataset(got, packed.pack_rows(*python[:4], python[4] if with_ob else None,
+                                               6, 61, 4))
+    _assert_same_dataset(packed.load_dual_domain_csv(path, 6, 61, 4, with_ob), got)
+
+
+@pytest.mark.parametrize("builds", [True, False], ids=["built", "python"])
+def test_native_reader_builds_into_build_or_falls_back_to_python(tmp_path, rows, monkeypatch,
+                                                                 builds):
+    """Where the tracked library does not load, csv_parser.cpp is built with
+    the Makefile's flags into the port's build directory (never native/);
+    where that fails too, the warning names the library once and the
+    Python reader gives the same dataset."""
+    makefile = (native._NATIVE_DIR / "Makefile").read_text()
+    assert f"CXXFLAGS ?= {' '.join(native.CXXFLAGS)}" in makefile
+    path = str(tmp_path / "d.csv")
+    _write_csv(path, rows)
+    want = packed.load_dual_domain_csv(path, 6, 61, 4, True)
+    monkeypatch.setattr(native, "_SO", tmp_path / "missing.so")
+    monkeypatch.setattr(native, "_BUILD_DIR", tmp_path / "_build")
+    if not builds:
+        monkeypatch.setenv("CXX", str(tmp_path / "no-compiler"))
+    said = []  # the module's own logger: init_logger may stop propagation above it
+    handler = logging.Handler()
+    handler.emit = lambda record: said.append(record.getMessage())
+    native.log.addHandler(handler)
+    native._load.cache_clear()
+    try:
+        lib = native.library_path()
+        if builds:
+            assert lib == tmp_path / "_build" / "libamid_native.so"
+            assert [p.name for p in (tmp_path / "_build").iterdir()] == [lib.name]
+        else:
+            assert lib is None
+            assert native.pack_csv_native(path, True, 6, 61, 4) is None
+            assert sum("missing.so" in m for m in said) == 1
+        native.library_path()
+        _assert_same_dataset(packed.load_dual_domain_csv(path, 6, 61, 4, True), want)
+        assert sum("missing.so" in m for m in said) == (0 if builds else 1)
+    finally:
+        native.log.removeHandler(handler)
+        native._load.cache_clear()
 
 
 @pytest.mark.parametrize("shuffle,drop_last", [(True, True), (False, False)])

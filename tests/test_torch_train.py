@@ -532,11 +532,39 @@ def test_run_seed_one_epoch_on_cpu(tmp_path, lazy_adam):
     assert agg["mrr_d1"] == {"mean": best["mrr_d1"], "std": 0.0}
 
 
-@pytest.mark.parametrize("field,value", [
-    ("use_mesh", True), ("checkpoint", True), ("resume", True), ("profile_steps", 3)])
+@pytest.mark.parametrize("field,value", [("use_mesh", True)])
 def test_run_seed_names_the_field_that_asks_for_an_unported_part(tmp_path, field, value):
     with pytest.raises(NotImplementedError, match=f"TrainConfig.{field}"):
         loop.run_seed(_train_cfg(tmp_path, **{field: value}), 0, None, None, device="cpu")
+
+
+@pytest.mark.parametrize("field", ["checkpoint", "resume", "profile_steps"])
+def test_run_seed_runs_the_checkpoint_resume_and_profile_fields(tmp_path, field):
+    """Each field that asked for an unported part until the checkpoint
+    manager and the profiler came, run on the CPU (a DR run, the fast
+    loops): `checkpoint` writes step 0 and the payload mode under
+    model_dir/checkpoint/seed0; `resume` starts after it; `profile_steps`
+    writes a Chrome trace to model_dir/profile."""
+    rng = np.random.default_rng(0)
+    train, val, dr = (_synth_packed(rng, n, 40, 6) for n in (64, 32, 48))
+    kw = dict(fast_train=True, fast_eval=True)
+    if field == "profile_steps":
+        best = loop.run_seed(_train_cfg(tmp_path, profile_steps=2, **kw), 0, train, val, dr,
+                             device="cpu")
+        assert len(list((tmp_path / "profile").glob("*.pt.trace.json"))) == 1
+        assert "profile trace written to" in (tmp_path / "log0.txt").read_text()
+    else:
+        best = loop.run_seed(_train_cfg(tmp_path, checkpoint=True, **kw), 0, train, val, dr,
+                             device="cpu")
+        ckpt = tmp_path / "checkpoint" / "seed0"
+        assert sorted(p.name for p in ckpt.iterdir()) == ["0.pt", "payload_mode.txt"]
+        assert (ckpt / "payload_mode.txt").read_text() == "full"
+    assert best["start_epoch"] == 0.0
+    if field == "resume":
+        best = loop.run_seed(_train_cfg(tmp_path, checkpoint=True, resume=True, epochs=2, **kw),
+                             0, train, val, dr, device="cpu")
+        assert best["start_epoch"] == 1.0 and 0.0 < best["mrr_d1"] <= 1.0
+        assert (tmp_path / "checkpoint" / "seed0" / "1.pt").exists()
 
 
 def test_run_seed_without_a_device_raises_without_cuda(tmp_path, monkeypatch):
@@ -548,8 +576,10 @@ def test_run_seed_without_a_device_raises_without_cuda(tmp_path, monkeypatch):
 def test_nan_policy_halt_raises(tmp_path):
     log = loop.init_logger(str(tmp_path), "log.txt")
     with pytest.raises(loop.NonFiniteLossError, match="epoch 2 step 7"):
-        loop._handle_nan(_train_cfg(tmp_path, nan_policy="halt"), log, 2, 7)
-    loop._handle_nan(_train_cfg(tmp_path, nan_policy="ignore"), log, 2, 7)  # logs only
+        loop._handle_nan(_train_cfg(tmp_path, nan_policy="halt"), log, None, "state", 2, 7)
+    # logs only
+    assert loop._handle_nan(_train_cfg(tmp_path, nan_policy="ignore"), log, None, "state",
+                            2, 7) == "state"
 
 
 def test_train_config_defaults_are_the_jax_package_s():
