@@ -14,11 +14,13 @@ accept:
   the lazy table Adam's write-back (`ops.scatter`). `torch` uses the plain
   PyTorch versions; `auto` means `cuda` on a CUDA device and `torch` on the
   CPU (resolved by `build_model`).
-* `use_bf16`, `matmul_precision` and `remat` keep the JAX package's fields,
-  but the port computes in full fp32 with TF32 off and keeps every
-  activation: `build_model` (and so `run_seed`) raises `NotImplementedError`
-  naming the field for `use_bf16=True`, a `matmul_precision` other than
-  `""`, `"highest"` or `"float32"`, and `remat=True`.
+* `use_bf16` and `matmul_precision` give the model's matmul precision as
+  in the JAX package (`ops.precision.resolve_precision`): `"bfloat16"`
+  (or `use_bf16=True` with no `matmul_precision`) runs every product inside
+  the model on bf16 operands with fp32 sums, the kernels' bf16-operand
+  builds included; `""`, `"highest"` and `"float32"` run full fp32 with
+  TF32 off. `remat=True` rematerialises SASRec's blocks in the backward
+  (the other backbones ignore it, as in the JAX package).
 * `DataConfig.data_root` defaults to the relative directory `reference`; the
   caller names where the CSVs are.
 * `TrainConfig`'s checkpoint fields (`checkpoint`, `checkpoint_keep`,
@@ -40,8 +42,7 @@ meets the `NotImplementedError` of `use_mesh`; `--model` takes the three backbon
 raises `ValueError` on another name (the JAX package raises it when the model
 is built); `--distributed`
 joins no runtime here, it only sets `use_mesh`; `--bf16`, `--remat` and
-`--matmul_precision` fill their fields, and the values the port does not
-compute are refused by `build_model`.
+`--matmul_precision` fill their fields, which the model reads.
 """
 
 from __future__ import annotations
@@ -278,12 +279,16 @@ def _add_reference_flags(p: argparse.ArgumentParser) -> None:
                    help="torch device; absent: cuda (an error without a card), "
                         "never the CPU unless 'cpu' is given")
     p.add_argument("--remat", type=_parse_bool, default=False,
-                   help="refused when True: the port keeps every activation")
+                   help="rematerialize SASRec's blocks in the backward "
+                        "(activation memory <-> recompute)")
     p.add_argument("--matmul_precision", type=str, default="",
                    choices=["", "bfloat16", "highest", "float32"],
-                   help="the port runs fp32 with TF32 off: 'bfloat16' is refused")
+                   help="matmul precision inside the model: 'bfloat16' takes bf16 "
+                        "operands with fp32 sums; the others full fp32 with TF32 off")
     p.add_argument("--profile_steps", type=int, default=0)
-    p.add_argument("--bf16", type=_parse_bool, default=False)
+    p.add_argument("--bf16", type=_parse_bool, default=False,
+                   help="bf16-operand products inside the model where "
+                        "--matmul_precision is not given")
     p.add_argument("--lazy_table_adam", type=_parse_bool, default=False)
     p.add_argument("--fast_eval", type=_parse_bool, default=True,
                    help="device-resident eval pass (a CUDA graph a batch)")

@@ -238,19 +238,11 @@ attention_bwd_dq_kernel(const BwdParams p, float* dsum) {
 #pragma unroll
     for (int k = 0; k < KS; ++k) {
       if constexpr (P::REG_A) {
-        mma_rs<NS>(sa, qf_lo[k], kb_hi + 16 * k);
-        mma_rs<NS>(sa, qf_hi[k], kb_lo + 16 * k);
-        mma_rs<NS>(sa, qf_hi[k], kb_hi + 16 * k);
-        mma_rs<NS>(pa, gf_lo[k], vb_hi + 16 * k);
-        mma_rs<NS>(pa, gf_hi[k], vb_lo + 16 * k);
-        mma_rs<NS>(pa, gf_hi[k], vb_hi + 16 * k);
+        mma3_rs<NS>(sa, qf_hi[k], qf_lo[k], kb_hi + 16 * k, kb_lo + 16 * k);
+        mma3_rs<NS>(pa, gf_hi[k], gf_lo[k], vb_hi + 16 * k, vb_lo + 16 * k);
       } else {
-        mma_ss<NS>(sa, qa_lo + 16 * k, kb_hi + 16 * k);
-        mma_ss<NS>(sa, qa_hi + 16 * k, kb_lo + 16 * k);
-        mma_ss<NS>(sa, qa_hi + 16 * k, kb_hi + 16 * k);
-        mma_ss<NS>(pa, ga_lo + 16 * k, vb_hi + 16 * k);
-        mma_ss<NS>(pa, ga_hi + 16 * k, vb_lo + 16 * k);
-        mma_ss<NS>(pa, ga_hi + 16 * k, vb_hi + 16 * k);
+        mma3_ss<NS>(sa, qa_hi + 16 * k, qa_lo + 16 * k, kb_hi + 16 * k, kb_lo + 16 * k);
+        mma3_ss<NS>(pa, ga_hi + 16 * k, ga_lo + 16 * k, vb_hi + 16 * k, vb_lo + 16 * k);
       }
     }
     wgmma_commit();
@@ -291,9 +283,7 @@ attention_bwd_dq_kernel(const BwdParams p, float* dsum) {
       fence_regs(ahi[j & 1]);
       fence_regs(alo[j & 1]);
       wgmma_fence();
-      mma_rs<DH>(dq, alo[j & 1], kt_hi + j * kTrStep);
-      mma_rs<DH>(dq, ahi[j & 1], kt_lo + j * kTrStep);
-      mma_rs<DH>(dq, ahi[j & 1], kt_hi + j * kTrStep);
+      mma3_rs<DH>(dq, ahi[j & 1], alo[j & 1], kt_hi + j * kTrStep, kt_lo + j * kTrStep);
       wgmma_commit();
     }
     wgmma_wait<0>();
@@ -439,19 +429,11 @@ attention_bwd_dkdv_kernel(const BwdParams p, const float* dsum) {
 #pragma unroll
     for (int k = 0; k < KS; ++k) {
       if constexpr (P::REG_A) {
-        mma_rs<NS>(st, kf_lo[k], qb_hi + 16 * k);
-        mma_rs<NS>(st, kf_hi[k], qb_lo + 16 * k);
-        mma_rs<NS>(st, kf_hi[k], qb_hi + 16 * k);
-        mma_rs<NS>(dp, vf_lo[k], gb_hi + 16 * k);
-        mma_rs<NS>(dp, vf_hi[k], gb_lo + 16 * k);
-        mma_rs<NS>(dp, vf_hi[k], gb_hi + 16 * k);
+        mma3_rs<NS>(st, kf_hi[k], kf_lo[k], qb_hi + 16 * k, qb_lo + 16 * k);
+        mma3_rs<NS>(dp, vf_hi[k], vf_lo[k], gb_hi + 16 * k, gb_lo + 16 * k);
       } else {
-        mma_ss<NS>(st, ka_lo + 16 * k, qb_hi + 16 * k);
-        mma_ss<NS>(st, ka_hi + 16 * k, qb_lo + 16 * k);
-        mma_ss<NS>(st, ka_hi + 16 * k, qb_hi + 16 * k);
-        mma_ss<NS>(dp, va_lo + 16 * k, gb_hi + 16 * k);
-        mma_ss<NS>(dp, va_hi + 16 * k, gb_lo + 16 * k);
-        mma_ss<NS>(dp, va_hi + 16 * k, gb_hi + 16 * k);
+        mma3_ss<NS>(st, ka_hi + 16 * k, ka_lo + 16 * k, qb_hi + 16 * k, qb_lo + 16 * k);
+        mma3_ss<NS>(dp, va_hi + 16 * k, va_lo + 16 * k, gb_hi + 16 * k, gb_lo + 16 * k);
       }
     }
     wgmma_commit();
@@ -498,12 +480,8 @@ attention_bwd_dkdv_kernel(const BwdParams p, const float* dsum) {
       fence_regs(shi[u]);
       fence_regs(slo[u]);
       wgmma_fence();
-      mma_rs<DH>(dv, plo[u], gt_hi + j * kTrStep);
-      mma_rs<DH>(dv, phi[u], gt_lo + j * kTrStep);
-      mma_rs<DH>(dv, phi[u], gt_hi + j * kTrStep);
-      mma_rs<DH>(dk, slo[u], qt_hi + j * kTrStep);
-      mma_rs<DH>(dk, shi[u], qt_lo + j * kTrStep);
-      mma_rs<DH>(dk, shi[u], qt_hi + j * kTrStep);
+      mma3_rs<DH>(dv, phi[u], plo[u], gt_hi + j * kTrStep, gt_lo + j * kTrStep);
+      mma3_rs<DH>(dk, shi[u], slo[u], qt_hi + j * kTrStep, qt_lo + j * kTrStep);
       wgmma_commit();
     }
     wgmma_wait<0>();

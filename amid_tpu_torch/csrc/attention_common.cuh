@@ -22,6 +22,16 @@
 // B operand then reads rows 2t and 2t+1 of its 8-row slice. The sum is the
 // same, taken in another order.
 //
+// bf16-operand mode (the JAX kernel's mxu_bf16: every product's operands
+// rounded to bf16, fp32 sums). Each source is compiled twice: as it is, and
+// with AMID_ATTN_BF16=1 into a library of its own (ops/_build.py's
+// variants), where kBf16 is set. A bf16 value is exact in TF32 (10
+// mantissa bits against bf16's 7), so the mode keeps every fragment layout,
+// tile and route: `split` rounds the operand to bf16 (cvt.rn.bf16.f32,
+// nearest even) as its hi half and leaves lo at 0, and a product issues the
+// hi*hi term alone, one mma.sync (or one wgmma k-step) where 3xTF32 issues
+// three: bf16 operands, fp32 accumulation, exactly.
+//
 // Shared-memory tiles have a row pitch of dh + 4 floats. The two patterns
 // the kernels read, row g column t (B of Q.K^T) and row 2t column g (B of
 // P.V), then fall on 32 different banks for the 32 lanes.
@@ -32,8 +42,13 @@
 #include <math.h>
 #include <stdint.h>
 
+#ifndef AMID_ATTN_BF16
+#define AMID_ATTN_BF16 0
+#endif
+
 namespace amid_attention {
 
+constexpr bool kBf16 = AMID_ATTN_BF16 != 0;  // the bf16-operand build
 constexpr uint32_t kMixKey0 = 0x9E3779B9u;
 constexpr int kMaxWarps = 8;  // warps of one block
 
@@ -87,7 +102,16 @@ __device__ __forceinline__ uint32_t to_tf32(float x) {
   return r;
 }
 
+// x rounded to bf16 (nearest even), as fp32 bits: a valid TF32 operand
+__device__ __forceinline__ uint32_t to_bf16_bits(float x) {
+  unsigned short h;
+  asm("cvt.rn.bf16.f32 %0, %1;" : "=h"(h) : "f"(x));
+  return (uint32_t)h << 16;
+}
+
+// x as the hi and lo halves of 3xTF32; in the bf16 build, bf16(x) and 0
 __device__ __forceinline__ Split split(float x) {
+  if constexpr (kBf16) return {to_bf16_bits(x), 0u};
   const uint32_t hi = to_tf32(x);
   return {hi, to_tf32(x - __uint_as_float(hi))};
 }
@@ -118,11 +142,14 @@ __device__ __forceinline__ FragA split_a(float a0, float a1, float a2, float a3)
   return f;
 }
 
-// d += A B in 3xTF32, B given by its two fp32 elements.
+// d += A B in 3xTF32, B given by its two fp32 elements; in the bf16 build
+// the hi*hi product alone
 __device__ __forceinline__ void mma3(float (&d)[4], const FragA& a, float b0, float b1) {
   const Split s0 = split(b0), s1 = split(b1);
-  mma_tf32(d, a.lo, s0.hi, s1.hi);
-  mma_tf32(d, a.hi, s0.lo, s1.lo);
+  if constexpr (!kBf16) {
+    mma_tf32(d, a.lo, s0.hi, s1.hi);
+    mma_tf32(d, a.hi, s0.lo, s1.lo);
+  }
   mma_tf32(d, a.hi, s0.hi, s1.hi);
 }
 

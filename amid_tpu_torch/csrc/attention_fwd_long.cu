@@ -177,13 +177,9 @@ attention_fwd_long_kernel(const FwdParams p) {
 #pragma unroll
     for (int k = 0; k < KS; ++k) {
       if constexpr (P::REG_A) {
-        mma_rs<NS>(sa, qf_lo[k], kb_hi + 16 * k);
-        mma_rs<NS>(sa, qf_hi[k], kb_lo + 16 * k);
-        mma_rs<NS>(sa, qf_hi[k], kb_hi + 16 * k);
+        mma3_rs<NS>(sa, qf_hi[k], qf_lo[k], kb_hi + 16 * k, kb_lo + 16 * k);
       } else {
-        mma_ss<NS>(sa, qa_lo + 16 * k, kb_hi + 16 * k);
-        mma_ss<NS>(sa, qa_hi + 16 * k, kb_lo + 16 * k);
-        mma_ss<NS>(sa, qa_hi + 16 * k, kb_hi + 16 * k);
+        mma3_ss<NS>(sa, qa_hi + 16 * k, qa_lo + 16 * k, kb_hi + 16 * k, kb_lo + 16 * k);
       }
     }
     wgmma_commit();
@@ -254,9 +250,7 @@ attention_fwd_long_kernel(const FwdParams p) {
       fence_regs(ahi[j & 1]);
       fence_regs(alo[j & 1]);
       wgmma_fence();
-      mma_rs<DH>(o, alo[j & 1], vt_hi + j * kTrStep);
-      mma_rs<DH>(o, ahi[j & 1], vt_lo + j * kTrStep);
-      mma_rs<DH>(o, ahi[j & 1], vt_hi + j * kTrStep);
+      mma3_rs<DH>(o, ahi[j & 1], alo[j & 1], vt_hi + j * kTrStep, vt_lo + j * kTrStep);
       wgmma_commit();
     }
     wgmma_wait<0>();

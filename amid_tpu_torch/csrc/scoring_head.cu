@@ -50,6 +50,16 @@
 // Shared memory of the main kernel: (D8 * (H8 + 4) + H8 + max(64 * (D8 + 4),
 // 4 * 64 * 33)) * 4 bytes when H <= 32 (the sum of the two past it): 52 KB at
 // D = 128, H = 32.
+//
+// bf16-operand mode (`bf16` set; the JAX head's dots under the bfloat16
+// context, ops/scoring.py): the operands of both products are rounded to
+// bf16 (round to nearest even) where they are loaded: Wu and the user rows
+// as the user-half kernel stages them, Wi and w2 as the main kernel stages
+// them, each candidate tile in one pass once it has landed, and the hidden
+// unit relu(X + up) in the epilogue. The products of bf16 values are exact
+// in fp32, so the arithmetic after the rounding is the fp32 mode's. Both
+// kernels are compiled for each mode (template argument BF), so the fp32
+// instances are the code they were before the mode existed.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -74,6 +84,7 @@ struct ScoreArgs {
   long long wu, wu_s, wi, wi_s, b1, w2, b2;  // [H, D] halves (row strides), [H], [1, H], [1]
   long long out;  // contiguous [U, B, C]
   long long U, B, C, D, H, tiles_per_block, up, stream;  // up: scratch, U * B * H8 floats
+  long long bf16;  // 1: round the products' operands to bf16
 };
 
 struct Params {
@@ -88,6 +99,20 @@ struct Params {
   int rows;  // B * C
   int B, C, D, H, D8, H8, tiles, tiles_per_block;
 };
+
+// x rounded to bf16 (nearest even) and back to fp32
+__device__ __forceinline__ float bf16_round(float x) {
+  unsigned short h;
+  asm("cvt.rn.bf16.f32 %0, %1;" : "=h"(h) : "f"(x));
+  return __uint_as_float((uint32_t)h << 16);
+}
+
+// an operand as the mode wants it
+template <bool BF>
+__device__ __forceinline__ float operand(float x) {
+  if constexpr (BF) return bf16_round(x);
+  return x;
+}
 
 __host__ __device__ inline int pitch(int d8) { return d8 + 4; }
 
@@ -136,6 +161,7 @@ __device__ __forceinline__ void load_tile(const Params& p, float* buf, int tile,
 // up[u][b][h] = user_u[b] . Wu[h] + b1[h] (0 for h >= H): a block stages
 // Wu transposed, each warp takes one (u, b) pair at a time, copies the user
 // row into shared memory and lane h sums over D in four chains.
+template <bool BF>
 __global__ void __launch_bounds__(kThreads)
 user_half_kernel(const Params p, int pairs) {
   extern __shared__ __align__(16) float wut[];  // [D][H8 + 1], then [4][D] user rows
@@ -145,14 +171,14 @@ user_half_kernel(const Params p, int pairs) {
 #pragma unroll 8
   for (int i = threadIdx.x; i < p.H8 * p.D; i += kThreads) {
     const int h = i / p.D, d = i - h * p.D;
-    wut[d * hp + h] = h < p.H ? p.wu[h * p.wu_s + d] : 0.f;
+    wut[d * hp + h] = h < p.H ? operand<BF>(p.wu[h * p.wu_s + d]) : 0.f;
   }
   __syncthreads();
   for (int e = blockIdx.x * (kThreads / 32) + warp; e < pairs;
        e += gridDim.x * (kThreads / 32)) {
     const int u = e / p.B, b = e - u * p.B;
     const float* x = p.user[u] + (long long)b * p.user_sb[u];
-    for (int d = lane; d < p.D; d += 32) xs[d] = x[d];
+    for (int d = lane; d < p.D; d += 32) xs[d] = operand<BF>(x[d]);
     __syncwarp();
     for (int h = lane; h < p.H8; h += 32) {
       float s[4] = {0.f, 0.f, 0.f, 0.f};  // four chains: the sum is latency-bound
@@ -166,7 +192,7 @@ user_half_kernel(const Params p, int pairs) {
   }
 }
 
-template <int U>
+template <int U, bool BF>
 __global__ void __launch_bounds__(kThreads, 4)  // four blocks an SM: at most 128 registers
 scoring_head_kernel(const Params p) {
   extern __shared__ __align__(16) float sm[];
@@ -193,14 +219,18 @@ scoring_head_kernel(const Params p) {
 #pragma unroll 8
   for (int i = tid; i < p.H8 * p.D8; i += kThreads) {
     const int h = i / p.D8, d = i - h * p.D8;
-    wit[d * WP + h] = h < p.H && d < p.D ? p.wi[h * p.wi_s + d] : 0.f;
+    wit[d * WP + h] = h < p.H && d < p.D ? operand<BF>(p.wi[h * p.wi_s + d]) : 0.f;
   }
-  for (int h = tid; h < p.H8; h += kThreads) w2s[h] = h < p.H ? p.w2[h] : 0.f;
+  for (int h = tid; h < p.H8; h += kThreads) w2s[h] = h < p.H ? operand<BF>(p.w2[h]) : 0.f;
   const float bias2 = p.b2[0];
 
   for (int tile = t0; tile < t1; ++tile) {
     asm volatile("cp.async.wait_group 0;\n" ::: "memory");
     __syncthreads();  // the tile has landed (and, the first time, Wi and w2 are staged)
+    if constexpr (BF) {  // the tile's values as bf16 operands, in place
+      for (int i = tid; i < kTileRows * P; i += kThreads) buf[i] = bf16_round(buf[i]);
+      __syncthreads();
+    }
     const int r = tile * kTileRows + row;  // the epilogue's candidate row
     const int b = min(r, p.rows - 1) / p.C;
     float logit[U];
@@ -254,7 +284,7 @@ scoring_head_kernel(const Params p) {
 #pragma unroll
           for (int u = 0; u < U; ++u) {
             const float up = p.up[((long long)u * p.B + b) * p.H8 + hh];
-            logit[u] = fmaf(fmaxf(xs + up, 0.f), w2s[hh], logit[u]);
+            logit[u] = fmaf(operand<BF>(fmaxf(xs + up, 0.f)), w2s[hh], logit[u]);
           }
         }
       }
@@ -272,22 +302,22 @@ scoring_head_kernel(const Params p) {
 
 // Both kernels may take all 227 KB of shared memory a block can have;
 // asked once per kernel (a launch asks for what it needs).
-template <int U>
+template <int U, bool BF>
 cudaError_t launch(const Params& p, unsigned grid, size_t smem, size_t smem_up,
                    cudaStream_t s) {
   static const cudaError_t opted_in = cudaFuncSetAttribute(
-      scoring_head_kernel<U>, cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
+      scoring_head_kernel<U, BF>, cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
   static const cudaError_t opted_in_up = cudaFuncSetAttribute(
-      user_half_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
+      user_half_kernel<BF>, cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
   if (opted_in != cudaSuccess) return opted_in;
   if (opted_in_up != cudaSuccess) return opted_in_up;
   const int pairs = U * p.B, per_block = kThreads / 32;
   int up_blocks = (pairs + per_block - 1) / per_block;  // one pair a warp
   if (up_blocks > 1024) up_blocks = 1024;
-  user_half_kernel<<<up_blocks, kThreads, smem_up, s>>>(p, pairs);
+  user_half_kernel<BF><<<up_blocks, kThreads, smem_up, s>>>(p, pairs);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  scoring_head_kernel<U><<<grid, kThreads, smem, s>>>(p);
+  scoring_head_kernel<U, BF><<<grid, kThreads, smem, s>>>(p);
   return cudaGetLastError();
 }
 
@@ -311,7 +341,7 @@ size_t scoring_user_half_smem_bytes(int D, int H) { return user_half_smem_bytes(
 // ops/scoring.py::scoring_plan's: the main kernel's grid is
 // ceil(tiles / tiles_per_block) blocks over ceil(B * C / 64) tiles. Returns
 // -1 for arguments it does not take, else the first failing launch's
-// cudaError_t (0 on success).
+// cudaError_t (0 on success). bf16 = 1 asks for the bf16-operand mode.
 int scoring_head(const long long* fields) {
   ScoreArgs args;
   memcpy(&args, fields, sizeof(args));
@@ -356,8 +386,11 @@ int scoring_head(const long long* fields) {
   p.tiles = (int)tiles;
   p.tiles_per_block = (int)a->tiles_per_block;
   cudaStream_t s = ptr<CUstream_st>(a->stream);
-  cudaError_t e = U == 2 ? launch<2>(p, (unsigned)grid, smem, smem_up, s)
-                         : launch<1>(p, (unsigned)grid, smem, smem_up, s);
+  const unsigned g = (unsigned)grid;
+  cudaError_t e = a->bf16 ? (U == 2 ? launch<2, true>(p, g, smem, smem_up, s)
+                                    : launch<1, true>(p, g, smem, smem_up, s))
+                          : (U == 2 ? launch<2, false>(p, g, smem, smem_up, s)
+                                    : launch<1, false>(p, g, smem, smem_up, s));
   return (int)e;
 }
 

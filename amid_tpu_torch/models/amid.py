@@ -28,6 +28,16 @@ through the hand-written kernel (`ops.embedding.embedding_gather_many`),
 also reaches the attention core, the pairwise affinity and the prediction
 heads.
 
+The model's matmul precision (`ops.precision.resolve_precision`: the JAX
+model's `jax.default_matmul_precision` context, from `matmul_precision` and
+`use_bf16`) is handed to every module as its `precision` attribute: in
+`"bf16"` every product inside the model takes bf16 operands with fp32 sums,
+the attention core and the heads included, forward and backward. The losses,
+C2DSR's infomax dot and `serve.full_catalog_topk` are outside the model and
+stay fp32, as in JAX. `remat` rematerialises SASRec's blocks
+(`SasrecEncoder`); the other backbones ignore it, as the JAX package passes
+it to SASRec only.
+
 Two optional arguments serve the trainer. `rng` is the step's
 `ops.rng.StepRandom`, the source of train-mode dropout. `lazy_rows=(uids,
 rows)` redirects every lookup to `rows[searchsorted(uids, ids)]` (the
@@ -51,33 +61,10 @@ from amid_tpu_torch.models.comp import InnerComp, InterComp
 from amid_tpu_torch.models.encoders import Bert4RecEncoder, GruEncoder, SasrecEncoder
 from amid_tpu_torch.models.heads import PredictHead
 from amid_tpu_torch.ops.embedding import embedding_gather_many, embedding_gather_many_plain
+from amid_tpu_torch.ops.precision import resolve_precision
 from amid_tpu_torch.ops.torch_compat import torch_embedding_init_
 
 Batch = dict[str, Any]
-
-
-# matmul_precision values that ask for what the port computes: full fp32 with
-# TF32 off ("highest")
-FP32_PRECISIONS = ("", "highest", "float32")
-
-
-def _refuse_precision_flags(cfg: ModelConfig) -> None:
-    """Raises on the three fields that change the JAX package's run and that
-    the port does not read: it computes in fp32 with TF32 off and keeps every
-    activation for the backward. Remat waits for a device-side dropout seed:
-    a recomputed forward would draw new masks from the step's generators."""
-    if cfg.use_bf16:
-        raise NotImplementedError(
-            "ModelConfig.use_bf16=True asks for bf16 matmuls, which are not ported; "
-            "the port computes in fp32 (set it to False)")
-    if cfg.matmul_precision not in FP32_PRECISIONS:
-        raise NotImplementedError(
-            f"ModelConfig.matmul_precision={cfg.matmul_precision!r} is not ported; the "
-            f"port computes in full fp32 with TF32 off: use one of {FP32_PRECISIONS}")
-    if cfg.remat:
-        raise NotImplementedError(
-            "ModelConfig.remat=True asks for rematerialised encoder blocks, which are "
-            "not ported (set it to False)")
 
 
 class AMIDModel(nn.Module):
@@ -85,27 +72,27 @@ class AMIDModel(nn.Module):
         super().__init__()
         if cfg.backbone not in BACKBONES:
             raise ValueError(f"unknown backbone {cfg.backbone!r}; one of {BACKBONES}")
-        _refuse_precision_flags(cfg)
         if cfg.kernels not in ("torch", "cuda"):
             raise ValueError(
                 f"kernels must be resolved to 'torch' or 'cuda' (build_model "
                 f"resolves 'auto'); got {cfg.kernels!r}"
             )
         self.cfg = cfg
-        d, quirk = cfg.emb_dim, cfg.comp_broadcast_quirk
+        self.precision = mode = resolve_precision(cfg)
+        d, quirk, kernels = cfg.emb_dim, cfg.comp_broadcast_quirk, cfg.kernels
         self.item_embedding = nn.Parameter(torch.empty(cfg.item_table_size, d))
         if cfg.is_inc:
-            self.inc_d1 = InnerComp(d, cfg.batch_size, cfg.ts1, quirk, cfg.kernels)
-            self.inc_d2 = InnerComp(d, cfg.batch_size, cfg.ts1, quirk, cfg.kernels)
+            self.inc_d1 = InnerComp(d, cfg.batch_size, cfg.ts1, quirk, kernels, mode)
+            self.inc_d2 = InnerComp(d, cfg.batch_size, cfg.ts1, quirk, kernels, mode)
         for name in ("enc_d1", "enc_d2"):
-            self.add_module(name, _encoder(cfg))
+            self.add_module(name, _encoder(cfg, mode))
         if cfg.is_itc:
-            self.itc_d1 = InterComp(d, cfg.batch_size, cfg.ts2, quirk, cfg.kernels)
-            self.itc_d2 = InterComp(d, cfg.batch_size, cfg.ts2, quirk, cfg.kernels)
-        self.predict = PredictHead(d, cfg.hid_dim, cfg.kernels)
+            self.itc_d1 = InterComp(d, cfg.batch_size, cfg.ts2, quirk, kernels, mode)
+            self.itc_d2 = InterComp(d, cfg.batch_size, cfg.ts2, quirk, kernels, mode)
+        self.predict = PredictHead(d, cfg.hid_dim, kernels, mode)
         if cfg.is_dr:
-            self.predict_ips = PredictHead(d, cfg.hid_dim, cfg.kernels)
-            self.predict_gfunc = PredictHead(d, cfg.hid_dim, cfg.kernels)
+            self.predict_ips = PredictHead(d, cfg.hid_dim, kernels, mode)
+            self.predict_gfunc = PredictHead(d, cfg.hid_dim, kernels, mode)
 
     def reset_parameters(self, gen: torch.Generator) -> None:
         torch_embedding_init_(self.item_embedding, gen)
@@ -182,15 +169,15 @@ class AMIDModel(nn.Module):
         return out
 
 
-def _encoder(cfg: ModelConfig) -> nn.Module:
-    """One tower of the configured backbone."""
+def _encoder(cfg: ModelConfig, mode: str) -> nn.Module:
+    """One tower of the configured backbone, in precision `mode`."""
     if cfg.backbone == "gru4rec":
-        return GruEncoder(cfg.emb_dim, cfg.emb_dim)
+        return GruEncoder(cfg.emb_dim, cfg.emb_dim, mode)
     if cfg.backbone == "bert4rec":
         return Bert4RecEncoder(cfg.emb_dim, cfg.bert_blocks, cfg.bert_heads, cfg.bert_ff_dim,
-                               cfg.bert_dropout, cfg.kernels)
+                               cfg.bert_dropout, cfg.kernels, mode)
     return SasrecEncoder(cfg.emb_dim, cfg.enc_seq_len, cfg.sasrec_blocks, cfg.sasrec_heads,
-                         cfg.sasrec_dropout, cfg.kernels)
+                         cfg.sasrec_dropout, cfg.kernels, mode, cfg.remat)
 
 
 def head_width(cfg: ModelConfig):

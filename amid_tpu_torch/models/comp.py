@@ -18,6 +18,11 @@ affinity comes from `ops.affinity.max_affinity` by the model's `kernels`:
 it in fp32. `PeerMessage.affinity` holds that function and may be replaced,
 e.g. by `max_affinity_plain` to build a reference for the kernels' gates.
 
+`precision` is the model's mode (`ops.precision`): in `"bf16"` the quirk
+gate's affinity, the pairwise affinity of `kernels='torch'`
+(`max_affinity_plain`), trans_nn's product and the message sums take bf16
+operands, as the JAX package's einsums do under the bfloat16 context.
+
 In both modes trans_nn's bias leaks through masked-out peers (the reference
 applies trans_nn after masking, so trans_nn(0) = b_nn still reaches trans_bs),
 and the hard gate passes no gradient to the affinity (getBinaryTensor,
@@ -34,6 +39,7 @@ import torch
 from torch import nn
 
 from amid_tpu_torch.ops.affinity import diag_max_affinity, max_affinity
+from amid_tpu_torch.ops.precision import einsum, matmul
 from amid_tpu_torch.ops.torch_compat import torch_linear_init_
 
 
@@ -42,13 +48,15 @@ class PeerMessage(nn.Module):
 
     def __init__(self, d: int, batch_size: int, threshold: float,
                  broadcast_quirk: bool = True, kernels: str = "torch",
-                 affinity: Optional[Callable] = None):
+                 affinity: Optional[Callable] = None, precision: str = "fp32"):
         super().__init__()
         self.batch_size = batch_size
         self.threshold = threshold
         self.broadcast_quirk = broadcast_quirk
+        self.precision = precision
         # pairwise mode's A[b, c]: (seq_self, seq_peer) -> [B, C]
-        self.affinity = affinity or functools.partial(max_affinity, kernels=kernels)
+        self.affinity = affinity or functools.partial(
+            max_affinity, kernels=kernels, bf16=precision == "bf16")
         self.trans_nn = nn.Linear(d, d)
         self.trans_bs = nn.Linear(batch_size, 1)
 
@@ -63,7 +71,8 @@ class PeerMessage(nn.Module):
         pairwise mode."""
         with torch.no_grad():
             if self.broadcast_quirk:
-                return torch.softmax(diag_max_affinity(seq_self, seq_peer), dim=0)
+                return torch.softmax(diag_max_affinity(
+                    seq_self, seq_peer, self.precision == "bf16"), dim=0)
             return torch.softmax(self.affinity(seq_self, seq_peer), dim=1)
 
     def gate(self, seq_self: torch.Tensor, seq_peer: torch.Tensor) -> torch.Tensor:
@@ -78,13 +87,13 @@ class PeerMessage(nn.Module):
                 f"(trans_bs is Linear(batch_size, 1)); got {seq_peer.shape[0]}"
             )
         adj = self.gate(seq_self, seq_peer)
-        w_bs = self.trans_bs.weight[0]  # [C]
-        peer_proj = torch.matmul(seq_peer, self.trans_nn.weight.T)  # [C, M, D]
+        w_bs, mode = self.trans_bs.weight[0], self.precision  # [C]
+        peer_proj = matmul(seq_peer, self.trans_nn.weight.T, mode)  # [C, M, D]
         leak = w_bs.sum() * self.trans_nn.bias + self.trans_bs.bias
         if self.broadcast_quirk:
-            msg = torch.einsum("c,cme->me", adj * w_bs, peer_proj) + leak
+            msg = einsum("c,cme->me", adj * w_bs, peer_proj, mode=mode) + leak
             return msg.expand((seq_self.shape[0],) + msg.shape)
-        msg = torch.einsum("bc,cme->bme", adj * w_bs[None, :], peer_proj)
+        msg = einsum("bc,cme->bme", adj * w_bs[None, :], peer_proj, mode=mode)
         return msg + leak
 
 
@@ -92,9 +101,11 @@ class InnerComp(nn.Module):
     """Intra-domain message passing; doubles the time axis (model_seq.py:471)."""
 
     def __init__(self, d: int, batch_size: int, threshold: float,
-                 broadcast_quirk: bool = True, kernels: str = "torch"):
+                 broadcast_quirk: bool = True, kernels: str = "torch",
+                 precision: str = "fp32"):
         super().__init__()
-        self.message = PeerMessage(d, batch_size, threshold, broadcast_quirk, kernels)
+        self.message = PeerMessage(d, batch_size, threshold, broadcast_quirk, kernels,
+                                   precision=precision)
 
     def forward(self, seq: torch.Tensor) -> torch.Tensor:
         return torch.cat([seq, self.message(seq, seq)], dim=1)
@@ -105,9 +116,11 @@ class InterComp(nn.Module):
     the model applies it once in each direction."""
 
     def __init__(self, d: int, batch_size: int, threshold: float,
-                 broadcast_quirk: bool = True, kernels: str = "torch"):
+                 broadcast_quirk: bool = True, kernels: str = "torch",
+                 precision: str = "fp32"):
         super().__init__()
-        self.message = PeerMessage(d, batch_size, threshold, broadcast_quirk, kernels)
+        self.message = PeerMessage(d, batch_size, threshold, broadcast_quirk, kernels,
+                                   precision=precision)
 
     def forward(self, seq_self: torch.Tensor, seq_peer: torch.Tensor) -> torch.Tensor:
         return torch.cat([seq_self, self.message(seq_self, seq_peer)], dim=1)

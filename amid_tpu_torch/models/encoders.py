@@ -24,6 +24,15 @@ With `kernels="cuda"` every attention core goes through the CUDA kernels
 (`ops.attention.fused_attention`, forward and backward) at every sequence
 length; with `kernels="torch"` through its plain PyTorch version.
 
+`precision` is the model's mode (`ops.precision`): every projection, FFN
+and GRU product goes through its `linear` / `matmul`, and in `"bf16"` the
+attention core runs with bf16 operands (`mxu_bf16=True`). `remat=True`
+(SASRec only, as in the JAX package) recomputes each block's attention and
+FFN in the backward (`torch.utils.checkpoint`, non-reentrant) instead of
+keeping their activations; each region keeps its dropout draws
+(`ops.rng.RegionRandom`), so the recompute sees the forward's masks and the
+gradients are the ones without remat. The parameter names do not change.
+
 Train-mode dropout draws from the step's `ops.rng.StepRandom`, passed as
 `rng` (SASRec: on the embedded input, on the attention probabilities and
 twice in the FFN; BERT4Rec: on the probabilities, after each sublayer, in the
@@ -35,11 +44,12 @@ from __future__ import annotations
 import math
 
 import torch
-import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from amid_tpu_torch.ops.attention import attention_plain, fused_attention
-from amid_tpu_torch.ops.rng import apply_dropout
+from amid_tpu_torch.ops.precision import linear
+from amid_tpu_torch.ops.rng import RegionRandom, apply_dropout
 from amid_tpu_torch.ops.torch_compat import (
     RefLayerNorm,
     TorchGRU,
@@ -65,15 +75,32 @@ def _attention_dropout(training: bool, rate: float, rng):
     return rng.attention_seed(), rate
 
 
+def _remat(fn, rng, *args):
+    """fn(*args, rng) with its activations recomputed in the backward: the
+    region draws through a `RegionRandom`, replayed by the recompute."""
+    region = None if rng is None else RegionRandom(rng)
+    calls = []
+
+    def run(*a):
+        if calls and region is not None:
+            region.replay()
+        calls.append(1)
+        return fn(*a, region)
+
+    return checkpoint(run, *args, use_reentrant=False, preserve_rng_state=False)
+
+
 class TorchMultiheadAttention(nn.Module):
     """nn.MultiheadAttention's parameters and math (model_seq.py:348-351):
     a fused in_proj [3D, D] with xavier-uniform init and zero bias, an
     out_proj Linear with a zero-init bias, dropout on the probabilities."""
 
-    def __init__(self, d: int, num_heads: int, dropout: float, kernels: str):
+    def __init__(self, d: int, num_heads: int, dropout: float, kernels: str,
+                 precision: str = "fp32"):
         super().__init__()
         self.num_heads = num_heads
         self.dropout = dropout
+        self.precision = precision
         self.attend = fused_attention if kernels == "cuda" else attention_plain
         self.in_proj_weight = nn.Parameter(torch.empty(3 * d, d))
         self.in_proj_bias = nn.Parameter(torch.empty(3 * d))
@@ -87,33 +114,38 @@ class TorchMultiheadAttention(nn.Module):
         nn.init.zeros_(self.out_proj.bias)
 
     def forward(self, q, k, v, attn_bias, rng=None):
-        d = q.shape[-1]
+        d, mode = q.shape[-1], self.precision
         w, b = self.in_proj_weight, self.in_proj_bias
-        qp = F.linear(q, w[:d], b[:d])
-        kp = F.linear(k, w[d : 2 * d], b[d : 2 * d])
-        vp = F.linear(v, w[2 * d :], b[2 * d :])
+        qp = linear(q, w[:d], b[:d], mode)
+        kp = linear(k, w[d : 2 * d], b[d : 2 * d], mode)
+        vp = linear(v, w[2 * d :], b[2 * d :], mode)
         seed, rate = _attention_dropout(self.training, self.dropout, rng)
-        out = self.attend(qp, kp, vp, attn_bias, seed, self.num_heads, rate)
-        return self.out_proj(out)
+        out = self.attend(qp, kp, vp, attn_bias, seed, self.num_heads, rate,
+                          mxu_bf16=mode == "bf16")
+        return linear(out, self.out_proj.weight, self.out_proj.bias, mode)
 
 
 class PointWiseFeedForward(nn.Module):
     """SASRec FFN (model_seq.py:311-326): two k=1 convs (dense layers), ReLU,
     dropouts, residual."""
 
-    def __init__(self, d: int, dropout: float):
+    def __init__(self, d: int, dropout: float, precision: str = "fp32"):
         super().__init__()
         self.conv1 = nn.Linear(d, d)
         self.conv2 = nn.Linear(d, d)
         self.dropout = dropout
+        self.precision = precision
 
     def reset_parameters(self, gen: torch.Generator) -> None:
         torch_linear_init_(self.conv1, gen)
         torch_linear_init_(self.conv2, gen)
 
     def forward(self, x, rng=None):
-        y = torch.relu(apply_dropout(self.conv1(x), self.dropout, self.training, rng))
-        return apply_dropout(self.conv2(y), self.dropout, self.training, rng) + x
+        mode, c1, c2 = self.precision, self.conv1, self.conv2
+        y = torch.relu(apply_dropout(linear(x, c1.weight, c1.bias, mode), self.dropout,
+                                     self.training, rng))
+        return apply_dropout(linear(y, c2.weight, c2.bias, mode), self.dropout,
+                             self.training, rng) + x
 
 
 class SasrecEncoder(nn.Module):
@@ -121,18 +153,19 @@ class SasrecEncoder(nn.Module):
 
     def __init__(self, d: int, seq_len: int, num_blocks: int = 2,
                  num_heads: int = 8, dropout: float = 0.5,
-                 kernels: str = "torch"):
+                 kernels: str = "torch", precision: str = "fp32", remat: bool = False):
         super().__init__()
         self.pos_emb = nn.Parameter(torch.empty(seq_len, d))
         self.dropout = dropout
+        self.remat = remat
         self.attn_ln = nn.ModuleList(TorchLayerNorm(d) for _ in range(num_blocks))
         self.attn = nn.ModuleList(
-            TorchMultiheadAttention(d, num_heads, dropout, kernels)
+            TorchMultiheadAttention(d, num_heads, dropout, kernels, precision)
             for _ in range(num_blocks)
         )
         self.ffn_ln = nn.ModuleList(TorchLayerNorm(d) for _ in range(num_blocks))
         self.ffn = nn.ModuleList(
-            PointWiseFeedForward(d, dropout) for _ in range(num_blocks)
+            PointWiseFeedForward(d, dropout, precision) for _ in range(num_blocks)
         )
         self.last_ln = TorchLayerNorm(d)
 
@@ -149,12 +182,17 @@ class SasrecEncoder(nn.Module):
         causal = torch.triu(
             torch.full((t, t), NEG_INF, dtype=x.dtype, device=x.device), diagonal=1
         )[None, None]
+        remat = self.remat and torch.is_grad_enabled()
         for attn_ln, attn, ffn_ln, ffn in zip(
             self.attn_ln, self.attn, self.ffn_ln, self.ffn
         ):
             q = attn_ln(x)
-            x = q + attn(q, x, x, causal, rng)  # residual onto the normalised Q
-            x = ffn(ffn_ln(x), rng)
+            if remat:
+                x = q + _remat(attn, rng, q, x, x, causal)
+                x = _remat(ffn, rng, ffn_ln(x))
+            else:
+                x = q + attn(q, x, x, causal, rng)  # residual onto the normalised Q
+                x = ffn(ffn_ln(x), rng)
         return self.last_ln(x)
 
 
@@ -164,10 +202,11 @@ class BertBlock(nn.Module):
     key-padding bias [B, 1, 1, T]."""
 
     def __init__(self, d: int, num_heads: int, ff_dim: int, dropout: float,
-                 kernels: str):
+                 kernels: str, precision: str = "fp32"):
         super().__init__()
         self.num_heads = num_heads
         self.dropout = dropout
+        self.precision = precision
         self.attend = fused_attention if kernels == "cuda" else attention_plain
         self.ln1 = RefLayerNorm(d)
         self.q, self.k, self.v, self.out = (nn.Linear(d, d) for _ in range(4))
@@ -186,12 +225,15 @@ class BertBlock(nn.Module):
         def drop(y):
             return apply_dropout(y, self.dropout, self.training, rng)
 
+        def lin(layer, y):
+            return linear(y, layer.weight, layer.bias, self.precision)
+
         q_in = self.ln1(x)
         seed, rate = _attention_dropout(self.training, self.dropout, rng)
-        att = self.attend(self.q(q_in), self.k(q_in), self.v(q_in), bias, seed,
-                          self.num_heads, rate)
-        x = x + drop(self.out(att))
-        f = self.ff2(drop(tanh_gelu(self.ff1(self.ln2(x)))))
+        att = self.attend(lin(self.q, q_in), lin(self.k, q_in), lin(self.v, q_in), bias,
+                          seed, self.num_heads, rate, mxu_bf16=self.precision == "bf16")
+        x = x + drop(lin(self.out, att))
+        f = lin(self.ff2, drop(tanh_gelu(lin(self.ff1, self.ln2(x)))))
         return drop(x + drop(f))
 
 
@@ -207,10 +249,12 @@ class Bert4RecEncoder(nn.Module):
     BertBlocks, no positional embedding; `key_mask` [B, T] bool."""
 
     def __init__(self, d: int, num_blocks: int = 2, num_heads: int = 4,
-                 ff_dim: int = 512, dropout: float = 0.1, kernels: str = "torch"):
+                 ff_dim: int = 512, dropout: float = 0.1, kernels: str = "torch",
+                 precision: str = "fp32"):
         super().__init__()
         self.block = nn.ModuleList(
-            BertBlock(d, num_heads, ff_dim, dropout, kernels) for _ in range(num_blocks))
+            BertBlock(d, num_heads, ff_dim, dropout, kernels, precision)
+            for _ in range(num_blocks))
 
     def reset_parameters(self, gen: torch.Generator) -> None:
         for m in self.block:
@@ -227,9 +271,9 @@ class GruEncoder(nn.Module):
     """GRU4Rec tower (model_seq.py:72-73,92-95): one `TorchGRU`, zero initial
     state; `rng` is not read (no dropout)."""
 
-    def __init__(self, d: int, hidden: int):
+    def __init__(self, d: int, hidden: int, precision: str = "fp32"):
         super().__init__()
-        self.gru = TorchGRU(d, hidden)
+        self.gru = TorchGRU(d, hidden, precision)
 
     def reset_parameters(self, gen: torch.Generator) -> None:
         self.gru.reset_parameters(gen)

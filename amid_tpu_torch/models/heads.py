@@ -13,7 +13,9 @@ through the fused kernel (`ops.scoring.scoring_head_pair`: both user
 representations in one launch, every candidate count: the TPU package's
 `PALLAS_SCORING_MIN_C` is a TPU setting and is not carried over), which never
 builds `[B, C, H]`; `kernels='torch'` is its plain version,
-`ops.scoring.scoring_head_pair_plain`.
+`ops.scoring.scoring_head_pair_plain`. In the model's bf16 mode
+(`precision="bf16"`) both routes take bf16 operands in all three products
+(`bf16=True`), as the JAX head's dots do under the bfloat16 context.
 """
 
 from __future__ import annotations
@@ -26,9 +28,11 @@ from amid_tpu_torch.ops.torch_compat import torch_linear_init_
 
 
 class PredictHead(nn.Module):
-    def __init__(self, d: int, hid_dim: int, kernels: str = "torch"):
+    def __init__(self, d: int, hid_dim: int, kernels: str = "torch",
+                 precision: str = "fp32"):
         super().__init__()
         self.kernels = kernels
+        self.precision = precision
         self.fc1 = nn.Linear(2 * d, hid_dim)  # torch init with fan_in = 2D
         self.fc2 = nn.Linear(hid_dim, 1)
 
@@ -46,4 +50,4 @@ class PredictHead(nn.Module):
         each [B, C]."""
         score = scoring_head_pair if self.kernels == "cuda" else scoring_head_pair_plain
         return score(user_d1, user_d2, item_feat, *self.split_fc1(), self.fc1.bias,
-                     self.fc2.weight, self.fc2.bias)
+                     self.fc2.weight, self.fc2.bias, bf16=self.precision == "bf16")

@@ -6,7 +6,11 @@ build takes seconds); sources may include the shared headers `csrc/*.cuh`.
 Libraries go to `amid_tpu_torch/_build/` (git-ignored), named by a hash of
 the source, the headers and the flags, so an edited source or header is
 rebuilt on its next use and an unchanged one is loaded as it is. `build()`
-starts one `nvcc` per source at once and waits for all of them.
+starts one `nvcc` per library at once and waits for all of them. A
+variant (`VARIANTS`) is a source compiled once more with a define, into a
+library of its own: the attention kernels' bf16-operand builds
+(`attention_*_bf16`, `-DAMID_ATTN_BF16=1`), so that the second set of
+instances compiles beside the first instead of after it.
 
 Nothing is built at import: the first kernel call builds what it needs.
 
@@ -14,7 +18,10 @@ Nothing is built at import: the first kernel call builds what it needs.
 sources once more with `-Xptxas -v` into a temporary directory, prints
 ptxas's report and, per kernel instance, its registers and spill bytes, and
 exits non-zero if any instance spills or has its `wgmma` serialised (ptxas's
-C7512/C7518 infos).
+C7512/C7518 infos). `python3 -m amid_tpu_torch.ops._build --seconds [...]`
+compiles each named library (all of them if none is named) alone, one after
+another, into a temporary directory and prints each one's seconds: what
+one `nvcc` of the parallel build takes with the machine to itself.
 
 The launch path every wrapper shares is kept thin. `bind` types one C entry
 point; a wrapper binds its functions at its first launch and keeps them in
@@ -33,6 +40,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import time
 from pathlib import Path
 
 import torch
@@ -46,7 +54,17 @@ NVCC_FLAGS = (
 
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on sm_90 (227 KB)
 
+# library name -> (the source it compiles, extra nvcc flags)
+VARIANTS = {f"{n}_bf16": (n, ("-DAMID_ATTN_BF16=1",)) for n in (
+    "attention_fwd", "attention_fwd_long", "attention_bwd", "attention_bwd_long")}
+
 _loaded: dict[str, ctypes.CDLL] = {}
+
+
+def _source(name: str) -> tuple[Path, tuple[str, ...]]:
+    """The source file of library `name` and the flags it adds."""
+    stem, flags = VARIANTS.get(name, (name, ()))
+    return CSRC / f"{stem}.cu", flags
 
 
 def nvcc_path() -> str:
@@ -65,8 +83,9 @@ def nvcc_path() -> str:
 
 def _lib_path(name: str) -> Path:
     # the shared headers are part of every source's key: a header edit rebuilds
-    src = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    source, flags = _source(name)
+    src = b"".join(p.read_bytes() for p in [source, *sorted(CSRC.glob("*.cuh"))])
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS + flags).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
@@ -85,7 +104,8 @@ def build(names: list[str]) -> dict[str, Path]:
     for n, p in todo.items():
         # unique temp name per process, renamed into place when complete
         tmp = p.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
+        source, flags = _source(n)
+        cmd = [nvcc, *NVCC_FLAGS, *flags, "-o", str(tmp), str(source)]
         procs[n] = (subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         ), tmp)
@@ -93,7 +113,7 @@ def build(names: list[str]) -> dict[str, Path]:
     for n, (proc, tmp) in procs.items():
         out, _ = proc.communicate()
         if proc.returncode != 0:
-            errors.append(f"nvcc failed for {n}.cu (exit {proc.returncode}):\n{out}")
+            errors.append(f"nvcc failed for {n} (exit {proc.returncode}):\n{out}")
         else:
             os.replace(tmp, paths[n])
     if errors:
@@ -102,7 +122,8 @@ def build(names: list[str]) -> dict[str, Path]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of `csrc/<name>.cu`, built first if needed."""
+    """The loaded library `name` (`csrc/<name>.cu` or a variant), built
+    first if needed."""
     lib = _loaded.get(name)
     if lib is None:
         lib = ctypes.CDLL(str(build([name])[name]))
@@ -133,13 +154,14 @@ raw_stream = _stream_getter()  # raw_stream(device_index) -> cudaStream_t as an 
 
 
 def ptxas_report(name: str) -> tuple[str, list[tuple[str, int, int]], bool]:
-    """nvcc's output for `csrc/<name>.cu` with `-Xptxas -v`, then (kernel,
-    registers, spill bytes) for each compiled function and whether ptxas
-    serialised any `wgmma` (C7512/C7518)."""
+    """nvcc's output for library `name` (`csrc/<name>.cu` or a variant) with
+    `-Xptxas -v`, then (kernel, registers, spill bytes) for each compiled
+    function and whether ptxas serialised any `wgmma` (C7512/C7518)."""
+    source, flags = _source(name)
     with tempfile.TemporaryDirectory() as tmp:
         proc = subprocess.run(
-            [nvcc_path(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", os.path.join(tmp, "x.so"),
-             str(CSRC / f"{name}.cu")], capture_output=True, text=True)
+            [nvcc_path(), *NVCC_FLAGS, *flags, "-Xptxas", "-v", "-o",
+             os.path.join(tmp, "x.so"), str(source)], capture_output=True, text=True)
     out = proc.stdout + proc.stderr
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{out}")
@@ -158,7 +180,26 @@ def ptxas_report(name: str) -> tuple[str, list[tuple[str, int, int]], bool]:
     return out, rows, bool(re.search(r"C75(12|18)", out))
 
 
+def build_seconds(names: list[str]) -> dict[str, float]:
+    """Each named library compiled alone into a temporary directory, one
+    after another: name -> seconds of its `nvcc`."""
+    seconds = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in names:
+            source, flags = _source(name)
+            t0 = time.perf_counter()
+            subprocess.run([nvcc_path(), *NVCC_FLAGS, *flags, "-o",
+                            os.path.join(tmp, f"{name}.so"), str(source)], check=True)
+            seconds[name] = time.perf_counter() - t0
+    return seconds
+
+
 def _main(names: list[str]) -> int:
+    if names[:1] == ["--seconds"]:
+        every = sorted({p.stem for p in CSRC.glob("*.cu")} | set(VARIANTS))
+        for name, s in build_seconds(names[1:] or every).items():
+            print(f"{name}: {s:.1f} s", flush=True)
+        return 0
     bad = False
     for name in names:
         out, rows, serialised = ptxas_report(name)

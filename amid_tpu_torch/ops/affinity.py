@@ -34,12 +34,17 @@ import torch
 
 from amid_tpu_torch.ops import _build
 from amid_tpu_torch.ops._build import SMEM_LIMIT
+from amid_tpu_torch.ops.precision import bf16_round
 
 KERNEL_WIDTHS = (16, 32, 64, 128)  # D values the kernels are compiled for
 
 
-def diag_max_affinity(seq_a: torch.Tensor, seq_b: torch.Tensor) -> torch.Tensor:
-    """seq_a: [B, N, D], seq_b: [B, M, D] -> [B]."""
+def diag_max_affinity(seq_a: torch.Tensor, seq_b: torch.Tensor,
+                      bf16: bool = False) -> torch.Tensor:
+    """seq_a: [B, N, D], seq_b: [B, M, D] -> [B]; with `bf16` both inputs
+    rounded to bf16 first (the JAX einsum under the bfloat16 context)."""
+    if bf16:
+        seq_a, seq_b = bf16_round(seq_a), bf16_round(seq_b)
     s = torch.bmm(seq_a, seq_b.transpose(1, 2))  # [B, N, M]
     return s.amax(dim=(1, 2))
 
@@ -63,8 +68,7 @@ def max_affinity_plain(
 ) -> torch.Tensor:
     """The kernels' arithmetic in plain PyTorch: inputs rounded to bf16,
     products and sums in fp32. [B, N, D], [C, M, D] -> [B, C] float32."""
-    return max_affinity_xla(seq_a.to(torch.bfloat16).float(),
-                            seq_b.to(torch.bfloat16).float(), chunk)
+    return max_affinity_xla(bf16_round(seq_a), bf16_round(seq_b), chunk)
 
 
 def _ceil_to(x: int, mult: int) -> int:
@@ -297,13 +301,15 @@ def smalln_faster(n: int) -> bool:
 
 
 def max_affinity(seq_a: torch.Tensor, seq_b: torch.Tensor,
-                 kernels: str = "torch") -> torch.Tensor:
+                 kernels: str = "torch", bf16: bool = False) -> torch.Tensor:
     """Dispatch point of the pairwise affinity. `kernels='cuda'`: the small-N
     kernel where `smalln_faster(N)`, else the blocked kernel (bf16 inputs, a
     numerics change against fp32 that can flip a gate at the threshold; the
-    two kernels are bit-equal); any other value: `max_affinity_xla` in fp32."""
+    two kernels are bit-equal); any other value: `max_affinity_xla` in fp32,
+    or with `bf16` (the model's bf16 mode) `max_affinity_plain`, the kernels'
+    bf16 inputs, so that both routes compute the same gates."""
     if kernels == "cuda":
         if smalln_faster(seq_a.shape[1]):
             return max_affinity_smalln(seq_a, seq_b)
         return max_affinity_blocked(seq_a, seq_b)
-    return max_affinity_xla(seq_a, seq_b)
+    return max_affinity_plain(seq_a, seq_b) if bf16 else max_affinity_xla(seq_a, seq_b)

@@ -75,6 +75,25 @@ bias, seed): here they are (q, k, v, bias, out, row_max, row_inv_sum, seed),
 so the backward does not recompute the softmax's normalisation. The result is
 the same function's gradient (tests/test_torch_ops_train.py holds it against
 `jax.vjp` of the Pallas kernel).
+
+`mxu_bf16=True` is the JAX kernel's bf16-operand mode (the model's bf16
+mode, `ops.precision`): every product's operands rounded to bf16, fp32
+sums. The plain versions round where the JAX kernel rounds: Q.K^T, and
+P.V with P normalised and the dropout applied; in the backward dO.V^T,
+Pd^T.dO, dS.K and dS^T.Q. D_i stays rowsum(dO o O) in fp32, as in the fp32
+mode (JAX sums dP o P instead, a difference of bf16 rounding). The row
+statistics come from the bf16-operand scores. The kernels are the same
+sources built with `AMID_ATTN_BF16=1` (`ops._build.VARIANTS`): each operand
+rounded to bf16 where the fp32 build splits it into TF32 halves, one product
+where it issues three. The one-head and long forwards run an online softmax
+and so round the unnormalised exp(S - m) (dropout applied) where JAX rounds
+the normalised P: kernel and plain agree to bf16 rounding, not to fp32's
+(`chip_smoke.py`'s BF16_LIMITS hold each kernel to an fp64 oracle of its
+own rounding points instead). In bf16 mode `attention_plain`'s
+gradient is `attention_bwd_plain`'s arithmetic, as the kernels' is. Each
+bf16 launch counts in a count of its own (`bf16_launches`,
+`long_forward_bf16_launches`, `backward_bf16_launches`,
+`long_backward_bf16_launches`).
 """
 
 from __future__ import annotations
@@ -87,6 +106,7 @@ import torch
 
 from amid_tpu_torch.ops import _build
 from amid_tpu_torch.ops._build import SMEM_LIMIT
+from amid_tpu_torch.ops.precision import matmul
 
 _BIAS_SHAPES = "[1|B, 1, 1|T, T]"
 _M32 = 0xFFFFFFFF
@@ -190,10 +210,15 @@ def _merge(x):
     return x.transpose(1, 2).reshape(bsz, t, heads * dh)
 
 
-def _scores(q, k, bias, heads: int):
+def _mm(a, b, bf16: bool):
+    """a @ b; with `bf16` on bf16-rounded operands with fp32 sums."""
+    return matmul(a, b, "bf16" if bf16 else "fp32")
+
+
+def _scores(q, k, bias, heads: int, bf16: bool = False):
     """S = Q K^T / sqrt(dh) + bias per head, [B, h, T, T]."""
     scale = 1.0 / math.sqrt(q.shape[2] // heads)
-    return torch.matmul(_heads(q, heads), _heads(k, heads).transpose(-1, -2)) * scale + bias
+    return _mm(_heads(q, heads), _heads(k, heads).transpose(-1, -2), bf16) * scale + bias
 
 
 def _keep(seed, q, heads: int, rate: float):
@@ -210,35 +235,42 @@ def attention_plain(
     seed,
     heads: int,
     rate: float,
+    mxu_bf16: bool = False,
 ) -> torch.Tensor:
     """softmax(Q K^T / sqrt(dh) + bias) [dropout] V per head, in plain
     PyTorch. Same arguments and result as `fused_attention`."""
     _check_inputs(q, k, v, bias, heads, rate)
+    if mxu_bf16:
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad):
+            return _PlainAttentionBf16.apply(q, k, v, bias, seed, heads, rate)
+        return attention_fwd_stats_plain(q, k, v, bias, seed, heads, rate, True)[0]
     p = torch.softmax(_scores(q, k, bias, heads), dim=-1)
     if rate > 0.0:
         p = p * _keep(seed, q, heads, rate)
     return _merge(torch.matmul(p, _heads(v, heads)))
 
 
-def attention_fwd_stats_plain(q, k, v, bias, seed, heads: int, rate: float):
+def attention_fwd_stats_plain(q, k, v, bias, seed, heads: int, rate: float,
+                              mxu_bf16: bool = False):
     """(out, row_max, row_inv_sum): the forward kernel's results under
     autograd, in plain PyTorch. out equals `attention_plain`; row_max[b, h, i]
     is m_i = max_j S_ij and row_inv_sum[b, h, i] is 1 / sum_j exp(S_ij - m_i),
     so that P = exp(S - m) * row_inv_sum. The two stay apart: a log-sum-exp
     m + log l of a fully masked row (every S_ij = -1e9) rounds back to -1e9."""
     _check_inputs(q, k, v, bias, heads, rate)
-    s = _scores(q, k, bias, heads)
+    s = _scores(q, k, bias, heads, mxu_bf16)
     m = s.amax(dim=-1, keepdim=True)
     e = torch.exp(s - m)
     inv_l = 1.0 / e.sum(dim=-1, keepdim=True)
     p = e * inv_l
     if rate > 0.0:
         p = p * _keep(seed, q, heads, rate)
-    return _merge(torch.matmul(p, _heads(v, heads))), m.squeeze(-1), inv_l.squeeze(-1)
+    return _merge(_mm(p, _heads(v, heads), mxu_bf16)), m.squeeze(-1), inv_l.squeeze(-1)
 
 
 def attention_fwd_stats_streamed_plain(q, k, v, bias, seed, heads: int, rate: float,
-                                       block_k: int = 64):
+                                       block_k: int = 64, mxu_bf16: bool = False):
     """(out, row_max, row_inv_sum) of `attention_fwd_stats_plain`, computed
     in the long forward kernel's order (`csrc/attention_fwd_long.cu`): an
     online softmax over tiles of `block_k` keys (the kernel's stage: 64, 32
@@ -246,7 +278,11 @@ def attention_fwd_stats_streamed_plain(q, k, v, bias, seed, heads: int, rate: fl
     m grows to the tile's row max, l and O are rescaled by exp(m_old - m),
     l += rowsum(exp(S - m)), O += dropout(exp(S - m)) V; then O / l. Holds
     [B, h, T, block_k] at a time, the dropout mask included, so it also runs
-    where a [B, h, T, T] block would not fit."""
+    where a [B, h, T, T] block would not fit.
+
+    With `mxu_bf16` it rounds where the JAX kernel does, the normalised P:
+    a first sweep over the tiles finds m and l, a second adds
+    bf16(dropout(exp(S - m) / l)) . bf16(V) tile by tile."""
     _check_inputs(q, k, v, bias, heads, rate)
     bsz, t, d = q.shape
     scale = 1.0 / math.sqrt(d // heads)
@@ -254,25 +290,38 @@ def attention_fwd_stats_streamed_plain(q, k, v, bias, seed, heads: int, rate: fl
     m = q.new_full((bsz, heads, t, 1), -math.inf)
     l = q.new_zeros((bsz, heads, t, 1))
     o = torch.zeros_like(qh)
-    for j0 in range(0, t, block_k):
-        keys = range(j0, min(j0 + block_k, t))
-        s = torch.matmul(qh, kh[:, :, j0:keys.stop].transpose(-1, -2)) * scale + \
-            bias[..., j0:keys.stop]
+    tiles = [range(j0, min(j0 + block_k, t)) for j0 in range(0, t, block_k)]
+
+    def scores(keys):
+        return _mm(qh, kh[:, :, keys.start:keys.stop].transpose(-1, -2), mxu_bf16) * scale + \
+            bias[..., keys.start:keys.stop]
+
+    def dropped(e, keys):
+        if rate > 0.0:
+            e = e * dropout_keep_mask(seed, bsz, heads, t, rate, q.device, keys) * (
+                1.0 / (1.0 - rate))
+        return e
+
+    for keys in tiles:
+        s = scores(keys)
         m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
         alpha = torch.exp(m - m_new)
         e = torch.exp(s - m_new)
         l = l * alpha + e.sum(dim=-1, keepdim=True)
-        if rate > 0.0:
-            e = e * dropout_keep_mask(seed, bsz, heads, t, rate, q.device, keys) * (
-                1.0 / (1.0 - rate))
-        o = o * alpha + torch.matmul(e, vh[:, :, j0:keys.stop])
+        if not mxu_bf16:
+            o = o * alpha + torch.matmul(dropped(e, keys), vh[:, :, keys.start:keys.stop])
         m = m_new
     inv_l = 1.0 / l
-    return _merge(o * inv_l), m.squeeze(-1), inv_l.squeeze(-1)
+    if not mxu_bf16:
+        return _merge(o * inv_l), m.squeeze(-1), inv_l.squeeze(-1)
+    for keys in tiles:
+        p = dropped(torch.exp(scores(keys) - m) * inv_l, keys)
+        o = o + _mm(p, vh[:, :, keys.start:keys.stop], True)
+    return _merge(o), m.squeeze(-1), inv_l.squeeze(-1)
 
 
 def attention_bwd_plain(q, k, v, bias, out, row_max, row_inv_sum, dout,
-                        seed, heads: int, rate: float):
+                        seed, heads: int, rate: float, mxu_bf16: bool = False):
     """(dq, dk, dv) of `attention_plain` for the output gradient `dout`
     [B, T, D], by the backward kernel's one-sweep arithmetic from the forward's
     `out` and row statistics (`attention_fwd_stats_plain`):
@@ -281,23 +330,47 @@ def attention_bwd_plain(q, k, v, bias, out, row_max, row_inv_sum, dout,
         dV = Pd^T dO;  dP = (dO V^T) * keep / (1 - rate)
         dS = P * (dP - D);  dQ = dS K / sqrt(dh);  dK = dS^T Q / sqrt(dh)
 
-    with Pd = P * keep / (1 - rate)."""
+    with Pd = P * keep / (1 - rate); with `mxu_bf16` the five products on
+    bf16-rounded operands."""
     _check_inputs(q, k, v, bias, heads, rate)
     scale = 1.0 / math.sqrt(q.shape[2] // heads)
+    bf = mxu_bf16
     with torch.no_grad():
         qh, kh, vh, gh = (_heads(x, heads) for x in (q, k, v, dout))
-        p = torch.exp(_scores(q, k, bias, heads) - row_max[..., None]) * row_inv_sum[..., None]
+        p = torch.exp(_scores(q, k, bias, heads, bf) - row_max[..., None]) * \
+            row_inv_sum[..., None]
         d_row = (gh * _heads(out, heads)).sum(dim=-1, keepdim=True)
-        dp = torch.matmul(gh, vh.transpose(-1, -2))
+        dp = _mm(gh, vh.transpose(-1, -2), bf)
         pd = p
         if rate > 0.0:
             keep = _keep(seed, q, heads, rate)
             pd, dp = p * keep, dp * keep
-        dv = torch.matmul(pd.transpose(-1, -2), gh)
+        dv = _mm(pd.transpose(-1, -2), gh, bf)
         ds = p * (dp - d_row)
-        dq = torch.matmul(ds, kh) * scale
-        dk = torch.matmul(ds.transpose(-1, -2), qh) * scale
+        dq = _mm(ds, kh, bf) * scale
+        dk = _mm(ds.transpose(-1, -2), qh, bf) * scale
         return _merge(dq), _merge(dk), _merge(dv)
+
+
+class _PlainAttentionBf16(torch.autograd.Function):
+    """`attention_plain`'s bf16 mode under autograd: the forward and its row
+    statistics by `attention_fwd_stats_plain`, the gradient by
+    `attention_bwd_plain`, the arithmetic of the kernels' bf16 builds."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, seed, heads, rate):
+        out, row_max, row_inv_sum = attention_fwd_stats_plain(q, k, v, bias, seed, heads,
+                                                              rate, True)
+        ctx.save_for_backward(q, k, v, bias, out, row_max, row_inv_sum)
+        ctx.attn_args = (seed, heads, rate)
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dout):
+        dq, dk, dv = attention_bwd_plain(*ctx.saved_tensors, dout, *ctx.attn_args,
+                                         mxu_bf16=True)
+        return dq, dk, dv, None, None, None, None
 
 
 # ---------------------------------------------------------------------------
@@ -311,8 +384,10 @@ _PACK_BWD = struct.Struct("<31q2d").pack
 _PACK_BWD_LONG = struct.Struct("<31q2dq").pack  # BwdLongArgs: BwdArgs, then the D_i scratch
 _BAD_HEAD_WIDTH, _BAD_SHAPE, _TOO_LONG, _MISALIGNED = -1, -2, -3, -4  # the refusals
 _SOURCES = ["attention_fwd", "attention_fwd_long", "attention_bwd", "attention_bwd_long"]
+_LIBRARIES = _SOURCES + [f"{n}_bf16" for n in _SOURCES]  # and their bf16 builds
 
 _fwd = _fwd_long = _bwd = _bwd_long = None  # bound entry points, resolved at the first launch
+_bf16_entry: dict = {}  # entry point name -> the bf16 build's, bound with the others
 _fwd_smem = _bwd_smem = None  # their shared-memory functions, (T, dh) -> bytes
 _long_max_t = _fwd_long_max_t = None  # the longest T of the long backward and forward
 _fwd_max_t = None  # dh -> the longest T of the one-head forward kernel
@@ -323,7 +398,7 @@ def _bind() -> None:
     global _fwd, _fwd_long, _bwd, _bwd_long, _fwd_smem, _bwd_smem, _long_max_t, _fwd_long_max_t
     global _fwd_max_t
     i = ctypes.c_int
-    _build.build(_SOURCES)  # one nvcc each, all at once
+    _build.build(_LIBRARIES)  # one nvcc each, all at once
     fwd, fwd_long, bwd, bwd_long = (_build.load(n) for n in _SOURCES)
     _fwd_smem = _build.bind(fwd.attention_fwd_smem_bytes, [i, i], ctypes.c_size_t)
     _bwd_smem = _build.bind(bwd.attention_bwd_smem_bytes, [i, i], ctypes.c_size_t)
@@ -334,6 +409,9 @@ def _bind() -> None:
     _fwd_long = _build.bind(fwd_long.attention_fwd_long, [ctypes.c_char_p])
     _bwd = _build.bind(bwd.attention_bwd, [ctypes.c_char_p])
     _bwd_long = _build.bind(bwd_long.attention_bwd_long, [ctypes.c_char_p])
+    for name in _SOURCES:
+        _bf16_entry[name] = _build.bind(getattr(_build.load(f"{name}_bf16"), name),
+                                        [ctypes.c_char_p])
 
 
 def _largest_t(smem_bytes, dh: int) -> int:
@@ -517,29 +595,34 @@ def _pack_forward(q, k, v, bias, seed, heads: int, rate: float, stats: bool):
     return block, (out, row_max, row_inv_sum), seed_t
 
 
-def _launch_forward(q, k, v, bias, seed, heads: int, rate: float, stats: bool, path=None):
+def _launch_forward(q, k, v, bias, seed, heads: int, rate: float, stats: bool, path=None,
+                    bf16: bool = False):
     """(out, row_max, row_inv_sum) from one forward launch of the path `path`
     ('sweep', the one-head kernel, or 'long'; None: `forward_route`'s) on
     checked CUDA tensors; the statistics are written (and returned) only with
-    `stats`."""
+    `stats`; `bf16`: the bf16-operand build."""
     if _fwd is None:
         _bind()
     bsz, t, d = q.shape
     if path is None:
         path = forward_route(t, d // heads)
     if path == "long":
-        return _launch_forward_long(q, k, v, bias, seed, heads, rate, stats)
+        return _launch_forward_long(q, k, v, bias, seed, heads, rate, stats, bf16)
     if path != "sweep":
         raise ValueError(f"the forward path is 'sweep' or 'long'; got {path!r}")
     block, outs, _seed_alive = _pack_forward(q, k, v, bias, seed, heads, rate, stats)
-    err = _fwd(block)
+    err = (_bf16_entry["attention_fwd"] if bf16 else _fwd)(block)
     if err:
         _raise(err, "attention_fwd", _fwd_smem, t, d, heads)
-    fused_attention.launches += 1
+    if bf16:
+        fused_attention.bf16_launches += 1
+    else:
+        fused_attention.launches += 1
     return outs
 
 
-def _launch_forward_long(q, k, v, bias, seed, heads: int, rate: float, stats: bool):
+def _launch_forward_long(q, k, v, bias, seed, heads: int, rate: float, stats: bool,
+                         bf16: bool = False):
     """`_launch_forward` on the long-sequence path: its copies read 16-byte
     chunks of q, k and v rows, so a view whose rows do not start on 16 bytes
     is copied first."""
@@ -548,20 +631,24 @@ def _launch_forward_long(q, k, v, bias, seed, heads: int, rate: float, stats: bo
     bsz, t, d = q.shape
     q, k, v = (x if _rows_aligned(x) else x.contiguous() for x in (q, k, v))
     block, outs, _seed_alive = _pack_forward(q, k, v, bias, seed, heads, rate, stats)
-    err = _fwd_long(block)
+    err = (_bf16_entry["attention_fwd_long"] if bf16 else _fwd_long)(block)
     if err == _TOO_LONG:
         raise ValueError(f"attention_fwd_long: T={t} is beyond its limit of "
                          f"T={_fwd_long_max_t} (or B*heads beyond 2^31 - 1)")
     if err:
         _raise(err, "attention_fwd_long", _fwd_smem, t, d, heads)
-    fused_attention.long_forward_launches += 1
+    if bf16:
+        fused_attention.long_forward_bf16_launches += 1
+    else:
+        fused_attention.long_forward_launches += 1
     return outs
 
 
 def _launch_backward(q, k, v, bias, out, row_max, row_inv_sum, dout,
-                     seed, heads: int, rate: float, path=None):
+                     seed, heads: int, rate: float, path=None, bf16: bool = False):
     """(dq, dk, dv) from one launch of the backward path `path` ('sweep' or
-    'long'; None: `backward_route`'s) on checked CUDA tensors."""
+    'long'; None: `backward_route`'s) on checked CUDA tensors; `bf16`: the
+    bf16-operand build."""
     if _bwd is None:
         _bind()
     bsz, t, d = q.shape
@@ -590,20 +677,27 @@ def _launch_backward(q, k, v, bias, out, row_max, row_inv_sum, dout,
             1.0 / math.sqrt(d // heads), 1.0 / (1.0 - rate))
     if path == "long":
         dsum = q.new_empty((bsz, heads, t))  # D_i, from the dQ kernel to the dK/dV kernel
-        err = _bwd_long(_PACK_BWD_LONG(*args, dsum.data_ptr()))
+        err = (_bf16_entry["attention_bwd_long"] if bf16 else _bwd_long)(
+            _PACK_BWD_LONG(*args, dsum.data_ptr()))
         if err == _TOO_LONG:
             raise ValueError(f"attention_bwd_long: T={t} is beyond its limit of "
                              f"T={_long_max_t} (or B*heads beyond 2^31 - 1)")
         if err:
             _raise(err, "attention_bwd_long", _bwd_smem, t, d, heads)
-        fused_attention.long_backward_launches += 1
+        if bf16:
+            fused_attention.long_backward_bf16_launches += 1
+        else:
+            fused_attention.long_backward_launches += 1
         return dq, dk, dv
     if path != "sweep":
         raise ValueError(f"the backward path is 'sweep' or 'long'; got {path!r}")
-    err = _bwd(_PACK_BWD(*args))
+    err = (_bf16_entry["attention_bwd"] if bf16 else _bwd)(_PACK_BWD(*args))
     if err:
         _raise(err, "attention_bwd", _bwd_smem, t, d, heads)
-    fused_attention.backward_launches += 1
+    if bf16:
+        fused_attention.backward_bf16_launches += 1
+    else:
+        fused_attention.backward_launches += 1
     return dq, dk, dv
 
 
@@ -622,17 +716,17 @@ def _device_route(q, name: str) -> bool:
 
 
 def attention_backward(q, k, v, bias, out, row_max, row_inv_sum, dout,
-                       seed, heads: int, rate: float, path=None):
+                       seed, heads: int, rate: float, path=None, mxu_bf16: bool = False):
     """(dq, dk, dv) for the output gradient `dout`, from the forward's `out`
     and row statistics: a backward kernel on CUDA tensors (or an error),
     `attention_bwd_plain` on CPU tensors. `path` ('sweep' or 'long') asks
     for one CUDA path; None takes `backward_route`'s."""
     if not _device_route(q, "attention_backward"):
         return attention_bwd_plain(q, k, v, bias, out, row_max, row_inv_sum, dout,
-                                   seed, heads, rate)
+                                   seed, heads, rate, mxu_bf16)
     _check_inputs(q, k, v, bias, heads, rate)
     return _launch_backward(q, k, v, bias, out, row_max, row_inv_sum, dout, seed, heads,
-                            rate, path)
+                            rate, path, mxu_bf16)
 
 
 class _FusedAttention(torch.autograd.Function):
@@ -641,18 +735,21 @@ class _FusedAttention(torch.autograd.Function):
     row statistics and the seed (the device tensor both launches read)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bias, seed, heads, rate):
+    def forward(ctx, q, k, v, bias, seed, heads, rate, bf16):
         seed = _seed_tensor(seed, q.device) if rate > 0.0 else 0
-        out, row_max, row_inv_sum = _launch_forward(q, k, v, bias, seed, heads, rate, True)
+        out, row_max, row_inv_sum = _launch_forward(q, k, v, bias, seed, heads, rate, True,
+                                                    bf16=bf16)
         ctx.save_for_backward(q, k, v, bias, out, row_max, row_inv_sum)
         ctx.attn_args = (seed, heads, rate)
+        ctx.bf16 = bf16
         return out
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, dout):
-        dq, dk, dv = _launch_backward(*ctx.saved_tensors, dout, *ctx.attn_args)
-        return dq, dk, dv, None, None, None, None
+        dq, dk, dv = _launch_backward(*ctx.saved_tensors, dout, *ctx.attn_args,
+                                      bf16=ctx.bf16)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def fused_attention(
@@ -663,24 +760,29 @@ def fused_attention(
     seed,
     heads: int,
     rate: float,
+    mxu_bf16: bool = False,
 ) -> torch.Tensor:
     """q, k, v: [B, T, D] float32; bias: additive [1|B, 1, 1|T, T]; seed: an
     int or a one-element int64 tensor on q's device, keying the dropout mask
-    (read only when rate > 0); heads, rate: Python numbers. Returns
-    [B, T, D], differentiable in q, k and v.
+    (read only when rate > 0); heads, rate: Python numbers; mxu_bf16: the
+    bf16-operand mode. Returns [B, T, D], differentiable in q, k and v.
 
     CUDA tensors launch the kernels (or raise); CPU tensors take
     `attention_plain`."""
     if not _device_route(q, "fused_attention"):
-        return attention_plain(q, k, v, bias, seed, heads, rate)
+        return attention_plain(q, k, v, bias, seed, heads, rate, mxu_bf16)
     _check_inputs(q, k, v, bias, heads, rate)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         _check_backward_fits(q.shape[1], q.shape[2] // heads)
-        return _FusedAttention.apply(q, k, v, bias, seed, heads, rate)
-    return _launch_forward(q, k, v, bias, seed, heads, rate, False)[0]
+        return _FusedAttention.apply(q, k, v, bias, seed, heads, rate, mxu_bf16)
+    return _launch_forward(q, k, v, bias, seed, heads, rate, False, bf16=mxu_bf16)[0]
 
 
 fused_attention.launches = 0  # one-head forward kernel launches since the last reset
 fused_attention.long_forward_launches = 0  # long-sequence forward kernel launches
 fused_attention.backward_launches = 0  # one-sweep backward kernel launches
 fused_attention.long_backward_launches = 0  # long-sequence backward calls (two kernels each)
+fused_attention.bf16_launches = 0  # the same four of the bf16-operand builds
+fused_attention.long_forward_bf16_launches = 0
+fused_attention.backward_bf16_launches = 0
+fused_attention.long_backward_bf16_launches = 0

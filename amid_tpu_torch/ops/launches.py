@@ -27,6 +27,11 @@ def counters() -> dict:
             "embedding_gather": (embedding_gather, "launches"),
             "embedding_gather_grad": (embedding_gather_grad, "launches"),
             "scoring_head": (scoring_head, "launches"),
+            "attention_fwd_bf16": (fused_attention, "bf16_launches"),
+            "attention_fwd_long_bf16": (fused_attention, "long_forward_bf16_launches"),
+            "attention_bwd_bf16": (fused_attention, "backward_bf16_launches"),
+            "attention_bwd_long_bf16": (fused_attention, "long_backward_bf16_launches"),
+            "scoring_head_bf16": (scoring_head, "bf16_launches"),
             "max_affinity_blocked": (max_affinity_blocked, "launches"),
             "max_affinity_smalln": (max_affinity_smalln, "launches")}
 

@@ -58,12 +58,15 @@ class DropoutRandom:
         return torch.randint(0, 2**31 - 1, (1,), generator=self.dropout_gen,
                              device=self.device, dtype=torch.int64)
 
+    def keep_mask(self, x: torch.Tensor, rate: float) -> torch.Tensor:
+        """A boolean keep mask of x's shape, drawn from `dropout_gen`."""
+        return torch.rand(x.shape, generator=self.dropout_gen, device=x.device) >= rate
+
     def dropout(self, x: torch.Tensor, rate: float) -> torch.Tensor:
         """Inverted dropout of `x` with the mask drawn from `dropout_gen`."""
         if rate <= 0.0:
             return x
-        keep = torch.rand(x.shape, generator=self.dropout_gen, device=x.device) >= rate
-        return x * keep * (1.0 / (1.0 - rate))
+        return x * self.keep_mask(x, rate) * (1.0 / (1.0 - rate))
 
 
 class StepRandom(DropoutRandom):
@@ -92,6 +95,42 @@ class StepRandom(DropoutRandom):
     def generators(self) -> tuple[torch.Generator, ...]:
         extra = (self.corr, *(v.dropout_gen for v in self.views)) if self.views else ()
         return (self.sampler, self.dropout_gen, *extra)
+
+
+class RegionRandom:
+    """The draws of one rematerialised region (`models.encoders`, remat): the
+    first pass draws from the step's `DropoutRandom` and keeps each draw (an
+    attention seed, a boolean keep mask); after `replay()` the recompute
+    reads them back in the same order and draws nothing. So the recompute
+    sees the forward's masks and seeds, the step's generator ends where a
+    step without remat leaves it, and a CUDA graph of the step needs no
+    generator state of its own: inside a capture a generator cannot be
+    rewound (`clone_state`'s copy is not registered with the capturing
+    graph), while kept tensors are replayed like any other. The masks cost
+    one byte an element, what autograd keeps of them without remat."""
+
+    def __init__(self, rng: DropoutRandom) -> None:
+        self.rng = rng
+        self.draws: list = []
+        self.at = None  # the next draw to read back; None while drawing
+
+    def replay(self) -> None:
+        self.at = 0
+
+    def _draw(self, make):
+        if self.at is None:
+            self.draws.append(make())
+            return self.draws[-1]
+        self.at += 1
+        return self.draws[self.at - 1]
+
+    def attention_seed(self) -> torch.Tensor:
+        return self._draw(self.rng.attention_seed)
+
+    def dropout(self, x: torch.Tensor, rate: float) -> torch.Tensor:
+        if rate <= 0.0:
+            return x
+        return x * self._draw(lambda: self.rng.keep_mask(x, rate)) * (1.0 / (1.0 - rate))
 
 
 def apply_dropout(x: torch.Tensor, rate: float, training: bool, rng) -> torch.Tensor:

@@ -26,6 +26,14 @@ the forward is `scoring_head_plain` / `scoring_head_pair_plain` and the
 backward the same recomputation, so the CPU tests reach it. The
 `autograd.Function` is entered only when a gradient is wanted (grad mode on
 and an input that requires one); otherwise the wrapper launches directly.
+
+`bf16=True` is the model's bf16 mode (`ops.precision`), what the JAX head's
+dots compute under the bfloat16 context: both products' operands rounded to
+bf16 (user, W_u, items, W_i; the hidden unit and w2), sums in fp32. The
+kernel rounds them as it loads them (the products are then exact on the
+CUDA cores, as in fp32) and counts its launches in
+`scoring_head.bf16_launches`; the plain versions and the backward round
+through `ops.precision`'s products.
 """
 
 from __future__ import annotations
@@ -36,31 +44,40 @@ import struct
 from typing import NamedTuple
 
 import torch
-import torch.nn.functional as F
 
 from amid_tpu_torch.ops import _build
 from amid_tpu_torch.ops._build import SMEM_LIMIT
+from amid_tpu_torch.ops.precision import bf16_round, einsum, linear, matmul
 
 TILE_ROWS = 64  # candidates a block takes at a time (csrc/scoring_head.cu)
 SM_COUNT = 132  # the H100 SXM's
 _SM_SHARED = 233472  # shared memory of one SM, bytes; 1 KB of it is reserved per block
 
 
-def scoring_head_plain(user, items, w_user, w_item, b1, w2, b2) -> torch.Tensor:
+def _mode(bf16: bool) -> str:
+    return "bf16" if bf16 else "fp32"
+
+
+def scoring_head_plain(user, items, w_user, w_item, b1, w2, b2,
+                       bf16: bool = False) -> torch.Tensor:
     """The same function in plain PyTorch, differentiable by autograd."""
-    hidden = torch.relu(F.linear(user, w_user)[:, None, :] + F.linear(items, w_item) + b1)
-    return torch.sigmoid(F.linear(hidden, w2, b2)[..., 0])
+    mode = _mode(bf16)
+    hidden = torch.relu(linear(user, w_user, None, mode)[:, None, :]
+                        + linear(items, w_item, None, mode) + b1)
+    return torch.sigmoid(linear(hidden, w2, b2, mode)[..., 0])
 
 
-def scoring_head_pair_plain(user_d1, user_d2, items, w_user, w_item, b1, w2, b2):
+def scoring_head_pair_plain(user_d1, user_d2, items, w_user, w_item, b1, w2, b2,
+                            bf16: bool = False):
     """`scoring_head_pair` in plain PyTorch, differentiable by autograd: the
     item half is computed once and serves both users (what a
     kernels='torch' `PredictHead` computes)."""
-    i_part = F.linear(items, w_item)  # [B, C, H]
+    mode = _mode(bf16)
+    i_part = linear(items, w_item, None, mode)  # [B, C, H]
 
     def score(u):
-        hidden = torch.relu(F.linear(u, w_user)[:, None, :] + i_part + b1)
-        return torch.sigmoid(F.linear(hidden, w2, b2)[..., 0])
+        hidden = torch.relu(linear(u, w_user, None, mode)[:, None, :] + i_part + b1)
+        return torch.sigmoid(linear(hidden, w2, b2, mode)[..., 0])
 
     return score(user_d1), score(user_d2)
 
@@ -155,8 +172,8 @@ def scoring_plan(b: int, c: int, d: int, h: int) -> ScoringPlan:
     return ScoringPlan(tiles, tpb, -(-tiles // tpb), smem)
 
 
-# the entry point's ScoreArgs block (csrc/scoring_head.cu): 23 8-byte fields
-_PACK = struct.Struct("<23q").pack
+# the entry point's ScoreArgs block (csrc/scoring_head.cu): 24 8-byte fields
+_PACK = struct.Struct("<24q").pack
 _kernel = None  # the bound entry point, resolved at the first launch
 
 
@@ -182,9 +199,9 @@ def _unit(x: torch.Tensor):
     return x, st
 
 
-def _launch(users, items, w_user, w_item, b1, w2, b2):
+def _launch(users, items, w_user, w_item, b1, w2, b2, bf16=False):
     """One launch for one or two users on checked CUDA tensors: a tuple of
-    [B, C] scores, one a user."""
+    [B, C] scores, one a user; `bf16`: the bf16-operand mode."""
     if _kernel is None:
         _bind()
     bsz, c, d = items.shape
@@ -213,38 +230,44 @@ def _launch(users, items, w_user, w_item, b1, w2, b2):
         user0.data_ptr(), user1.data_ptr(), st0[0], st1[0], iptr, ist[0], ist[1],
         w_user.data_ptr(), wu_st[0], w_item.data_ptr(), wi_st[0], b1.data_ptr(),
         w2.data_ptr(), b2.data_ptr(), optr, n, bsz, c, d, h, plan.tiles_per_block,
-        optr + 4 * up_at, _build.raw_stream(items.device.index)))
+        optr + 4 * up_at, _build.raw_stream(items.device.index), int(bf16)))
     if err:
         if err == -1:
             raise ValueError(f"scoring_head: arguments the kernel does not take "
                              f"(items {tuple(items.shape)}, H={h})")
         raise RuntimeError(f"scoring_head kernel launch failed: cudaError {err}")
-    scoring_head.launches += 1
+    if bf16:
+        scoring_head.bf16_launches += 1
+    else:
+        scoring_head.launches += 1
     if n == 2:
         return out.as_strided((bsz, c), (c, 1)), out.as_strided((bsz, c), (c, 1), rows)
     return (out.as_strided((bsz, c), (c, 1)),)
 
 
-def _forward(users, items, w_user, w_item, b1, w2, b2) -> tuple:
+def _forward(users, items, w_user, w_item, b1, w2, b2, bf16) -> tuple:
     """The forward of both wrappers on checked tensors, without autograd."""
     if items.is_cuda:
-        return _launch(users, items, w_user, w_item, b1, w2, b2)
+        return _launch(users, items, w_user, w_item, b1, w2, b2, bf16)
     with torch.no_grad():
         if len(users) == 2:
-            return scoring_head_pair_plain(*users, items, w_user, w_item, b1, w2, b2)
-        return (scoring_head_plain(users[0], items, w_user, w_item, b1, w2, b2),)
+            return scoring_head_pair_plain(*users, items, w_user, w_item, b1, w2, b2,
+                                           bf16=bf16)
+        return (scoring_head_plain(users[0], items, w_user, w_item, b1, w2, b2, bf16=bf16),)
 
 
 class _Scoring(torch.autograd.Function):
     """Forward: one kernel launch (CUDA) or the plain version (CPU) for one or
     two users. Backward: the hidden layer recomputed in plain PyTorch, the
-    item half once; residuals are the inputs and the outputs."""
+    item half once; residuals are the inputs and the outputs. In bf16 mode
+    every product of the backward rounds its operands, as the transposed
+    dots of the JAX head do under the bfloat16 context."""
 
     @staticmethod
-    def forward(ctx, items, w_user, w_item, b1, w2, b2, *users):
-        outs = _forward(users, items, w_user, w_item, b1, w2, b2)
+    def forward(ctx, bf16, items, w_user, w_item, b1, w2, b2, *users):
+        outs = _forward(users, items, w_user, w_item, b1, w2, b2, bf16)
         ctx.save_for_backward(items, w_user, w_item, b1, w2, *users, *outs)
-        ctx.n_users = len(users)
+        ctx.n_users, ctx.bf16 = len(users), bf16
         return outs
 
     @staticmethod
@@ -252,50 +275,55 @@ class _Scoring(torch.autograd.Function):
     def backward(ctx, *grads):
         items, w_user, w_item, b1, w2, *rest = ctx.saved_tensors
         users, outs = rest[:ctx.n_users], rest[ctx.n_users:]
-        i_part = F.linear(items, w_item) + b1  # [B, C, H], once for both users
+        mode = _mode(ctx.bf16)
+        rnd = bf16_round if ctx.bf16 else (lambda x: x)
+        i_part = linear(items, w_item, None, mode) + b1  # [B, C, H], once for both users
         dw2 = db2 = db1 = dw_user = dpre_sum = None
         dusers = []
         for user, out, g in zip(users, outs, grads):
-            pre = F.linear(user, w_user)[:, None, :] + i_part
+            pre = linear(user, w_user, None, mode)[:, None, :] + i_part
             dlogit = g * out * (1.0 - out)  # through the sigmoid, [B, C]
-            dpre = (dlogit[..., None] * w2[0]) * (pre > 0)  # [B, C, H]
+            dpre = (rnd(dlogit)[..., None] * rnd(w2[0])) * (pre > 0)  # [B, C, H]
             du_part = dpre.sum(dim=1)  # [B, H]
-            terms = (torch.einsum("bch,bc->h", torch.relu(pre), dlogit)[None, :],
-                     dlogit.sum()[None], dpre.sum(dim=(0, 1)), du_part.T @ user, dpre)
+            terms = (einsum("bch,bc->h", torch.relu(pre), dlogit, mode=mode)[None, :],
+                     dlogit.sum()[None], dpre.sum(dim=(0, 1)),
+                     matmul(du_part.T, user, mode), dpre)
             if dw2 is None:
                 dw2, db2, db1, dw_user, dpre_sum = terms
             else:
                 dw2, db2, db1, dw_user, dpre_sum = (a + t for a, t in zip(
                     (dw2, db2, db1, dw_user, dpre_sum), terms))
-            dusers.append(du_part @ w_user)
-        ditems = dpre_sum @ w_item
-        dw_item = torch.einsum("bch,bcd->hd", dpre_sum, items)
-        return (ditems, dw_user, dw_item, db1, dw2, db2, *dusers)
+            dusers.append(matmul(du_part, w_user, mode))
+        ditems = matmul(dpre_sum, w_item, mode)
+        dw_item = einsum("bch,bcd->hd", dpre_sum, items, mode=mode)
+        return (None, ditems, dw_user, dw_item, db1, dw2, db2, *dusers)
 
 
-def _score(users, items, w_user, w_item, b1, w2, b2) -> tuple:
+def _score(users, items, w_user, w_item, b1, w2, b2, bf16) -> tuple:
     _check(users, items, w_user, w_item, b1, w2, b2)
     if torch.is_grad_enabled() and (
             w_user.requires_grad or w_item.requires_grad or items.requires_grad
             or b1.requires_grad or w2.requires_grad or b2.requires_grad
             or any(u.requires_grad for u in users)):
-        return _Scoring.apply(items, w_user, w_item, b1, w2, b2, *users)
-    return _forward(users, items, w_user, w_item, b1, w2, b2)
+        return _Scoring.apply(bf16, items, w_user, w_item, b1, w2, b2, *users)
+    return _forward(users, items, w_user, w_item, b1, w2, b2, bf16)
 
 
-def scoring_head(user, items, w_user, w_item, b1, w2, b2) -> torch.Tensor:
+def scoring_head(user, items, w_user, w_item, b1, w2, b2, bf16: bool = False) -> torch.Tensor:
     """See the module docstring. Differentiable in all seven inputs. CUDA
     tensors launch the kernel (or raise); CPU tensors take
     `scoring_head_plain` in the forward."""
-    return _score((user,), items, w_user, w_item, b1, w2, b2)[0]
+    return _score((user,), items, w_user, w_item, b1, w2, b2, bf16)[0]
 
 
-def scoring_head_pair(user_d1, user_d2, items, w_user, w_item, b1, w2, b2):
+def scoring_head_pair(user_d1, user_d2, items, w_user, w_item, b1, w2, b2,
+                      bf16: bool = False):
     """Both user representations against the same candidates in one launch:
     (scoring_head(user_d1, items, ...), scoring_head(user_d2, items, ...)),
     differentiable in all eight inputs. CUDA tensors launch the kernel (or
     raise); CPU tensors take `scoring_head_pair_plain` in the forward."""
-    return _score((user_d1, user_d2), items, w_user, w_item, b1, w2, b2)
+    return _score((user_d1, user_d2), items, w_user, w_item, b1, w2, b2, bf16)
 
 
-scoring_head.launches = 0  # kernel launches since the last reset, of both wrappers
+scoring_head.launches = 0  # fp32 kernel launches since the last reset, of both wrappers
+scoring_head.bf16_launches = 0  # bf16-operand kernel launches

@@ -21,6 +21,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from amid_tpu_torch.ops.precision import matmul
+
 
 def uniform_(w: torch.Tensor, bound: float, gen: torch.Generator) -> None:
     nn.init.uniform_(w, -bound, bound, generator=gen)
@@ -92,11 +94,14 @@ class TorchGRU(nn.Module):
     and the gates from `split`/`chunk`, whose backwards each write one
     tensor: indexing `x_proj[:, t]` would give every step's backward a
     zero-filled [B, T, 3H] gradient to add up, T^2 work. All four tensors
-    start from U(+-1/sqrt(H))."""
+    start from U(+-1/sqrt(H)). `precision` is the model's mode
+    (`ops.precision`): in `"bf16"` both products take bf16 operands and the
+    biases are added after them, as `x @ w + b` in the JAX package."""
 
-    def __init__(self, d: int, hidden: int):
+    def __init__(self, d: int, hidden: int, precision: str = "fp32"):
         super().__init__()
         self.hidden = hidden
+        self.precision = precision
         self.w_ih = nn.Parameter(torch.empty(d, 3 * hidden))
         self.w_hh = nn.Parameter(torch.empty(hidden, 3 * hidden))
         self.b_ih = nn.Parameter(torch.empty(3 * hidden))
@@ -108,12 +113,15 @@ class TorchGRU(nn.Module):
             uniform_(w, bound, gen)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # [B, T, D] -> [B, T, H]
-        hd = self.hidden
-        x_proj = torch.matmul(x, self.w_ih) + self.b_ih  # [B, T, 3H]
+        hd, mode = self.hidden, self.precision
+        x_proj = matmul(x, self.w_ih, mode) + self.b_ih  # [B, T, 3H]
         h = x.new_zeros((x.shape[0], hd))
         out = []
         for xp in x_proj.unbind(1):
-            hp = torch.addmm(self.b_hh, h, self.w_hh)  # [B, 3H]
+            if mode == "fp32":
+                hp = torch.addmm(self.b_hh, h, self.w_hh)  # [B, 3H]
+            else:
+                hp = matmul(h, self.w_hh, mode) + self.b_hh
             x_rz, x_n = xp.split([2 * hd, hd], dim=1)
             h_rz, h_n = hp.split([2 * hd, hd], dim=1)
             r, z = torch.sigmoid(x_rz + h_rz).chunk(2, dim=1)

@@ -8,8 +8,9 @@ JAX package. Phases, in order (any failure ends the run with a non-zero exit
 code and no result line):
 
 1. the card's name and power limit; build every CUDA kernel of the serving
-   and training paths from `amid_tpu_torch/csrc/` (eight sources, one
-   `nvcc` each, all started together), timing the build;
+   and training paths from `amid_tpu_torch/csrc/` (eight sources and the
+   attention sources' bf16 builds, one `nvcc` each, all started together),
+   timing the build;
 2. kernels: each kernel against its plain PyTorch version on the card, at
    the main paths' shapes, with its time beside the plain version's, one
    PyTorch library call's (a yardstick the port never calls) and the card's
@@ -177,7 +178,24 @@ code and no result line):
    `profile_steps=3`, whose trace must name the kernels of the path; a
    27,000-row synthetic CSV packed by the native reader (the repository's
    library, or one built into `_build/`) and by the Python reader, the
-   arrays equal, both times.
+   arrays equal, both times;
+10. the precision flags: each bf16-operand mode (K1's four paths built with
+   `AMID_ATTN_BF16=1`, K5's bf16 flag), on 3 draws a case, against an fp64
+   oracle of its own rounding points, its plain bf16 version and (that
+   version) an fp64 oracle of the JAX kernel's rounding, each within the
+   case's limit (BF16_LIMITS), with the fp32 build at the same inputs
+   outside the oracle's limit; timed beside the fp32 mode at the same shape
+   (library: SDPA on bf16 q, k, v; bound at the bf16 peak);
+   `--bf16 True` on the run.sh model at T=20 (lazy, quirk) and T=150
+   (dense, pairwise) and on BERT4Rec at T=150 (both long paths): `run_seed`
+   with its launches on the bf16 builds, an eager phase-A and phase-B step
+   against the kernels='torch' bf16 model (losses, updates, moments),
+   replayed steps bit-equal to eager ones, the
+   feature pass against the fp32 model's and the replayed phase A beside
+   fp32's; `--remat True` at T=150: a step bit-equal to the step without
+   remat (8 attention forwards: the recompute), replayed remat steps
+   bit-equal to eager ones, and the replayed phase A's time and peak memory
+   with and without remat at batch 256 and 1,024.
 
 It prints a JSON line of per-kernel numbers, the total wall time, the
 `nvidia-smi` name and power line, and last `{"ok": true, "device": {...}}`.
@@ -264,6 +282,18 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
                              "amid_tpu/ops/pallas_affinity.py:39"),
     "max_affinity_smalln": ("amid_tpu_torch/csrc/affinity.cu",
                             "amid_tpu/ops/pallas_affinity.py:127"),
+    # the bf16-operand modes (the model's --bf16): the same sources built with
+    # AMID_ATTN_BF16=1 (K1), the kernel's bf16 flag (K5)
+    "attention_fwd_bf16": ("amid_tpu_torch/csrc/attention_fwd.cu",
+                           "amid_tpu/ops/pallas_attention.py:99"),
+    "attention_fwd_long_bf16": ("amid_tpu_torch/csrc/attention_fwd_long.cu",
+                                "amid_tpu/ops/pallas_attention.py:99"),
+    "attention_bwd_bf16": ("amid_tpu_torch/csrc/attention_bwd.cu",
+                           "amid_tpu/ops/pallas_attention.py:118"),
+    "attention_bwd_long_bf16": ("amid_tpu_torch/csrc/attention_bwd_long.cu",
+                                "amid_tpu/ops/pallas_attention.py:118"),
+    "scoring_head_bf16": ("amid_tpu_torch/csrc/scoring_head.cu",
+                          "amid_tpu/ops/pallas_scoring.py:69"),
 }
 # training phase: one step of a kernels='cuda' model against the same step of
 # a kernels='torch' model (same state, batch and key, dropout 0.5 on)
@@ -285,6 +315,55 @@ GRAPH_STEPS = 4  # graph_steps: the eager step, the captured one and two replays
 RANKS_EQUAL_SHARE = 0.999  # replayed vs eager evaluation batch, same weights and key
 TIMED_STEPS = 10  # step_timing: steps timed and traced per step kind (a replay chunk: 16)
 FLIP_EPOCHS = 3  # phase 6: epochs of training before the gates are counted
+# phase 10, the bf16-operand modes. Each case is read as norms over its
+# outputs, ||x - y|| / ||y|| in fp64 (the largest over BF16_DRAWS draws and,
+# for a backward or the scoring pair, over its outputs):
+#   kernel_oracle: the bf16 build against an fp64 oracle of its own rounding
+#     points (the forwards round each key chunk's unnormalised exp(S - m),
+#     `bf16_attention_kernel_oracle`; the backwards and K5 round where the
+#     JAX kernel and the plain version round);
+#   kernel_plain: the bf16 build against the plain bf16 version;
+#   plain_oracle: the plain bf16 version against an fp64 oracle of the JAX
+#     kernel's rounding.
+# The fp32 build, read at the same inputs (`fp32_oracle`, the least over the
+# draws), is the control: it must fail the case's kernel_oracle limit, so a
+# case shows that the bf16 build ran. The forwards' kernel_plain limits
+# cannot show it (the fp32 build reads 2.7e-3 to 3.4e-3 there, the bf16
+# build 1.7e-3 to 2.3e-3: one rounding point apart); the backwards' and
+# K5's do (fp32 5.0e-3 and 1.2e-3). Limits per case, (kernel_oracle,
+# kernel_plain, plain_oracle): four times the case's largest reading over
+# 16 draws (two runs of 3 and one of 10; B=256, oracles on 32 rows; NVIDIA
+# H100 80GB HBM3, 700.00 W), rounded up. The readings were 6e-8 to 9.1e-5
+# against the kernels' own oracle; the fp32 build's 6.0e-4 to 5.2e-3, 11x
+# to 40x each case's limit
+BF16_LIMITS = {
+    "bf16_causal_T150_h8_rate0.0": (9e-5, 8e-3, 2e-4),
+    "bf16_causal_T150_h8_rate0.5": (8e-5, 8e-3, 2e-4),
+    "bf16_causal_T20_h8_rate0.0": (6e-5, 7e-3, 1e-4),
+    "bf16_causal_T20_h8_rate0.5": (2e-4, 7e-3, 9e-5),
+    "bf16_long_keypad_T600_h4_rate0.1": (2e-4, 1e-2, 3e-4),
+    "bf16_long_keypad_T1200_h4_rate0.1": (2e-4, 1e-2, 2e-4),
+    "bf16_bwd_causal_T150_h8_rate0.5": (4e-4, 8e-5, 4e-4),
+    "bf16_bwd_causal_T20_h8_rate0.0": (4e-4, 3e-4, 4e-4),
+    "bf16_bwd_long_keypad_T600_h4_rate0.1": (2e-4, 2e-4, 2e-4),
+    "bf16_scoring_pair_C1000": (3e-5, 4e-5, 4e-5),
+    "bf16_scoring_pair_C2": (4e-5, 1e-4, 1e-4),
+}
+# a bf16 step, kernels='cuda' against kernels='torch' (`bf16_step_check`):
+# losses 2.0e-5 apart at most (T=150 pairwise), held at 5x. The forward
+# kernels round P where the plain version does not, a bf16 rounding's
+# difference that every later bf16 product carries on, so the gradients
+# differ far more than in fp32 (MOMENT_TOL): in phase A and B of T=20 lazy,
+# T=150 pairwise and BERT4Rec T=150, updated elements more than UPDATE_ATOL
+# apart up to 12.5% (BERT4Rec's touched table rows, phase A), moments up to
+# 6.3e-2 of their largest value (BERT4Rec's dense nu, phase B). The step is
+# deterministic; twice the largest reading, rounded up
+BF16_LOSS_TOL = 1e-4
+BF16_UPDATE_SHARE = 0.25
+BF16_MOMENT_TOL = 0.13
+# the bf16 feature pass against the fp32 model's, of its largest value:
+# 1.6e-3 measured (T=20 and T=150), held at about 3x
+BF16_FEATURE_TOL = 5e-3
 
 
 class SmokeFailure(RuntimeError):
@@ -389,23 +468,23 @@ def bound(nbytes, flops, peak_flops=FP32_FLOPS):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def attention_bound(b, t, d, heads, bias_numel):
+def attention_bound(b, t, d, heads, bias_numel, peak=TF32_TENSOR_FLOPS):
     """Least time (ms) of one attention forward on the card, and its limit:
     q, k, v, bias read and o written (the row statistics are the kernel's
-    choice, not counted); Q.K^T and P.V at the TF32 tensor-core peak."""
+    choice, not counted); Q.K^T and P.V at `peak`, the TF32 tensor-core
+    peak for fp32 operands."""
     dh = d // heads
     nbytes = 4 * (4 * b * t * d + bias_numel)
-    return bound(nbytes, 4 * b * heads * t * t * dh, TF32_TENSOR_FLOPS)
+    return bound(nbytes, 4 * b * heads * t * t * dh, peak)
 
 
-def attention_bwd_bound(b, t, d, heads, bias_numel):
+def attention_bwd_bound(b, t, d, heads, bias_numel, peak=TF32_TENSOR_FLOPS):
     """Least time (ms) of one attention backward: q, k, v, dO, bias read,
     dq, dk, dv written (out and the row statistics, residuals of the kernels'
     choosing, not counted); five products of 2*T*T*dh operations per head at
-    the TF32 tensor-core peak."""
+    `peak`, the TF32 tensor-core peak for fp32 operands."""
     dh = d // heads
-    return bound(4 * (7 * b * t * d + bias_numel), 10 * b * heads * t * t * dh,
-                 TF32_TENSOR_FLOPS)
+    return bound(4 * (7 * b * t * d + bias_numel), 10 * b * heads * t * t * dh, peak)
 
 
 def scatter_bound(n_arrays, rows_written, width, n_ids):
@@ -425,13 +504,13 @@ def gather_grad_bound(n, rows, width):
     return bound(n * width * 4 + 4 * n + rows * width * 4, 0)
 
 
-def scoring_bound(b, c, d, h, users=1):
+def scoring_bound(b, c, d, h, users=1, peak=FP32_FLOPS):
     """The scoring head for `users` user representations against the same
     candidates: the users, the items (once), both weight halves, b1, w2, b2
     read, [users, B, C] written; the item product once, the user product and
-    the output product per user."""
+    the output product per user, at `peak`."""
     nbytes = 4 * (users * b * d + b * c * d + 2 * h * d + 2 * h + 1 + users * b * c)
-    return bound(nbytes, 2 * b * c * d * h + users * (2 * b * d * h + 2 * b * c * h))
+    return bound(nbytes, 2 * b * c * d * h + users * (2 * b * d * h + 2 * b * c * h), peak)
 
 
 def affinity_bound(b, c, n, m, d):
@@ -466,19 +545,25 @@ def expected_launches(cfg, train_steps=0, eval_batches=0, feature_passes=0,
     from amid_tpu_torch.models.amid import head_width
     from amid_tpu_torch.ops.affinity import smalln_faster
     from amid_tpu_torch.ops.attention import backward_route, forward_route
+    from amid_tpu_torch.ops.precision import resolve_precision
 
     blocks = {"gru4rec": 0, "bert4rec": cfg.bert_blocks}.get(cfg.backbone, cfg.sasrec_blocks)
     counts = dict.fromkeys(KERNELS, 0)
+    mode = "_bf16" if resolve_precision(cfg) == "bf16" else ""  # the bf16 builds' counts
+    # SASRec's remat runs each block's attention forward again in the backward
+    remat = 2 if cfg.remat and cfg.backbone == "sasrec" else 1
 
     def feature_passes_at(t, n, backward):
         """n passes over sequences of length t through both towers."""
         if blocks:
             t_enc, dh = encoder_length(cfg, t), head_width(cfg)
             long = forward_route(t_enc, dh) == "long"
-            counts["attention_fwd_long" if long else "attention_fwd"] += 2 * blocks * n
+            counts[("attention_fwd_long" if long else "attention_fwd") + mode] += (
+                2 * blocks * n * (remat if backward else 1))
             if backward:
                 long = backward_route(t_enc, dh) == "long"
-                counts["attention_bwd_long" if long else "attention_bwd"] += 2 * blocks * n
+                counts[("attention_bwd_long" if long else "attention_bwd") + mode] += (
+                    2 * blocks * n)
         if not cfg.comp_broadcast_quirk:
             for m in [t] * cfg.is_inc + [t * (2 if cfg.is_inc else 1)] * cfg.is_itc:
                 counts["max_affinity_smalln" if smalln_faster(m) else "max_affinity_blocked"] += (
@@ -494,7 +579,7 @@ def expected_launches(cfg, train_steps=0, eval_batches=0, feature_passes=0,
     counts["scatter_set_unique"] = 0 if fused_scatter else 3 * scatters
     counts["embedding_gather"] = 2 * forwards + feature_passes + 2 * c2dsr_steps
     counts["embedding_gather_grad"] = 2 * train_steps + 2 * c2dsr_steps
-    counts["scoring_head"] = (3 if cfg.is_dr else 1) * forwards
+    counts["scoring_head" + mode] = (3 if cfg.is_dr else 1) * forwards
     return counts
 
 
@@ -2112,10 +2197,11 @@ def backbone_phase(torch, rng):
                                                   label)
                 torch.cuda.empty_cache()
                 # GRU4Rec's eager T=150 step is ~3,000 host launches (~0.3 s):
-                # fewer steps keep the trace's processing short
+                # fewer steps keep the trace's processing short (2 since the
+                # precision phase joined the run's time limit)
                 slow = cfg.backbone == "gru4rec" and t == 150
                 rec["step_timing"] = step_timing(torch, cfg, tcfg, train_ds, label,
-                                                 4 if slow else TIMED_STEPS)
+                                                 2 if slow else TIMED_STEPS)
         if label == "bert4rec_T150_dense":
             rec["graph_draws"] = graph_draws(torch, cfg, tcfg, label)
         out[label] = rec
@@ -2595,6 +2681,586 @@ def checkpoint_phase(torch, rng):
     return runs
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the precision flags (--bf16 / --matmul_precision bfloat16, --remat)
+# ---------------------------------------------------------------------------
+
+BF16_DRAWS = 3  # draws of each bf16 kernel case held against the fp64 oracle
+ORACLE_ROWS = 32  # batch rows the fp64 oracle computes (rows are independent)
+REMAT_BATCHES = (256, 1024)  # remat's memory and time: the run.sh batch, and one
+# where the activations outweigh the table, its gradient and Adam's moments
+
+
+def bf16_attention_oracle(torch, q, k, v, bias, seed, heads, rate):
+    """The attention forward in fp64 with the JAX kernel's `mxu_bf16`
+    rounding: bf16(Q) . bf16(K) summed in fp64, the bias added in fp32 (as
+    both packages add it), softmax and dropout in fp64, then bf16(P dropped,
+    as fp32) . bf16(V) in fp64."""
+    from amid_tpu_torch.ops.attention import dropout_keep_mask
+
+    b, t, d = q.shape
+    dh = d // heads
+
+    def r(x):
+        return x.to(torch.bfloat16).double()
+
+    def split(x):
+        return x.reshape(b, t, heads, dh).transpose(1, 2)
+
+    s = torch.matmul(r(split(q)), r(split(k)).transpose(-1, -2)) / math.sqrt(dh)
+    p = torch.softmax((s.float() + bias).double(), dim=-1)
+    if rate > 0.0:
+        p = p * dropout_keep_mask(seed, b, heads, t, rate, q.device).double() / (1.0 - rate)
+    return torch.matmul(r(p.float()), r(split(v))).transpose(1, 2).reshape(b, t, d)
+
+
+def key_chunk(path: str, dh: int) -> int:
+    """Keys a bf16 forward kernel takes per online-softmax step: kChunk = 32
+    in `attention_fwd.cu`, a stage of NS = 64 (32 at dh=64) in
+    `attention_fwd_long.cu`."""
+    return 32 if path == "sweep" or dh == 64 else 64
+
+
+def bf16_attention_kernel_oracle(torch, q, k, v, bias, seed, heads, rate, chunk):
+    """The bf16 forward kernels' own arithmetic in fp64: scores of bf16(Q) .
+    bf16(K), scaled and biased in fp32; an online softmax over `chunk` keys a
+    step, where each key's exp(S - m), m the running maximum after its
+    chunk, is dropped (times the fp32 1 / (1 - rate)) and rounded to bf16
+    unnormalised, times bf16(V), carried to the row's final maximum and
+    divided by the sum of the exps before rounding and dropout."""
+    import torch.nn.functional as F
+
+    from amid_tpu_torch.ops.attention import dropout_keep_mask
+
+    b, t, d = q.shape
+    dh = d // heads
+    n = -(-t // chunk)
+
+    def r(x):
+        return x.float().to(torch.bfloat16).double()
+
+    def split(x):
+        return x.reshape(b, t, heads, dh).transpose(1, 2)
+
+    s = torch.matmul(r(split(q)), r(split(k)).transpose(-1, -2)) / math.sqrt(dh)
+    s = F.pad((s + bias.double()).float().double(), (0, n * chunk - t), value=-math.inf)
+    s = s.view(b, heads, t, n, chunk)
+    m = s.amax(-1).cummax(-1).values  # the running maximum after each chunk
+    e = torch.exp(s - m[..., None])
+    carry = torch.exp(m - m[..., -1:])[..., None]  # to the row's final maximum
+    total = (e * carry).sum((-1, -2))
+    carry = carry.expand(-1, -1, -1, -1, chunk).reshape(b, heads, t, n * chunk)[..., :t]
+    e = e.reshape(b, heads, t, n * chunk)[..., :t]
+    if rate > 0.0:
+        keep = dropout_keep_mask(seed, b, heads, t, rate, q.device).double()
+        e = e * keep * float(np.float32(1.0 / (1.0 - rate)))
+    o = torch.matmul(r(e) * carry, r(split(v))) / total[..., None]
+    return o.transpose(1, 2).reshape(b, t, d)
+
+
+def bf16_attention_bwd_oracle(torch, q, k, v, bias, out, dout, seed, heads, rate):
+    """dq, dk, dv in fp64 with the bf16 mode's rounding points (the plain
+    version's and the kernels': the scores and the four gradient products on
+    bf16 operands, D_i = rowsum(dO o O) of the forward's output)."""
+    from amid_tpu_torch.ops.attention import dropout_keep_mask
+
+    b, t, d = q.shape
+    dh = d // heads
+
+    def r(x):
+        return x.float().to(torch.bfloat16).double()
+
+    def split(x):
+        return x.reshape(b, t, heads, dh).transpose(1, 2)
+
+    def merge(x):
+        return x.transpose(1, 2).reshape(b, t, d)
+
+    qh, kh, vh, gh = (split(x) for x in (q, k, v, dout))
+    s = torch.matmul(r(qh), r(kh).transpose(-1, -2)) / math.sqrt(dh)
+    p = torch.softmax((s.float() + bias).double(), dim=-1)
+    d_row = (gh.double() * split(out).double()).sum(-1, keepdim=True)
+    dp = torch.matmul(r(gh), r(vh).transpose(-1, -2))
+    pd = p
+    if rate > 0.0:
+        keep = dropout_keep_mask(seed, b, heads, t, rate, q.device).double() / (1.0 - rate)
+        pd, dp = p * keep, dp * keep
+    dv = torch.matmul(r(pd).transpose(-1, -2), r(gh))
+    ds = p * (dp - d_row)
+    dq = torch.matmul(r(ds), r(kh)) / math.sqrt(dh)
+    dk = torch.matmul(r(ds).transpose(-1, -2), r(qh)) / math.sqrt(dh)
+    return merge(dq), merge(dk), merge(dv)
+
+
+def bf16_scoring_oracle(torch, u, items, wu, wi, b1, w2, b2):
+    """The scoring head in fp64 with the bf16 mode's rounding points (the
+    kernel's and the plain version's): u, Wu, the items, Wi, the hidden unit
+    and w2 rounded to bf16."""
+    def r(x):
+        return x.float().to(torch.bfloat16).double()
+
+    hid = torch.relu((r(u) @ r(wu).T)[:, None, :] + r(items) @ r(wi).T + b1.double())
+    return torch.sigmoid((r(hid) @ r(w2).T)[..., 0] + b2.double())
+
+
+def rel_norm(x, y) -> float:
+    """||x - y|| / ||y|| in fp64, over the whole tensor."""
+    y = y.double()
+    return ((x.double() - y).norm() / y.norm()).item()
+
+
+class Bf16Readings:
+    """One bf16 case's readings over its draws and outputs (BF16_LIMITS):
+    the largest kernel_oracle, kernel_plain, plain_oracle and fp32_plain,
+    the least fp32_oracle (the control), and the bf16 build's largest
+    |kernel - plain|."""
+
+    def __init__(self):
+        self.r = {"kernel_oracle": 0.0, "kernel_plain": 0.0, "plain_oracle": 0.0,
+                  "fp32_oracle": math.inf, "fp32_plain": 0.0}
+        self.max_abs_err = 0.0
+
+    def draw(self, outputs):
+        """outputs: (bf16 build, fp32 build, plain bf16, oracle of the kernel's
+        rounding, oracle of JAX's rounding) per output of one draw; the
+        oracles cover the first rows only."""
+        ctl = 0.0
+        for got, fp32, want, k_oracle, j_oracle in outputs:
+            rows = k_oracle.shape[0]
+            self.r["kernel_oracle"] = max(self.r["kernel_oracle"], rel_norm(got[:rows], k_oracle))
+            self.r["kernel_plain"] = max(self.r["kernel_plain"], rel_norm(got, want))
+            self.r["plain_oracle"] = max(self.r["plain_oracle"], rel_norm(want[:rows], j_oracle))
+            self.r["fp32_plain"] = max(self.r["fp32_plain"], rel_norm(fp32, want))
+            ctl = max(ctl, rel_norm(fp32[:rows], k_oracle))
+            self.max_abs_err = max(self.max_abs_err, (got - want).abs().max().item())
+        self.r["fp32_oracle"] = min(self.r["fp32_oracle"], ctl)
+
+    def verdict(self, name):
+        """Requires every reading within the case's limit and the fp32 build
+        outside the kernel_oracle one; the readings and limits, for the record."""
+        limits = dict(zip(("kernel_oracle", "kernel_plain", "plain_oracle"), BF16_LIMITS[name]))
+        out = {"readings": dict(self.r), "limits": limits, "max_abs_err": self.max_abs_err}
+        emit({"bf16_readings": {"case": name, **out}})
+        for key, limit in limits.items():
+            require(self.r[key] <= limit, f"{name}: {key} {self.r[key]} above {limit}")
+        require(self.r["fp32_oracle"] > limits["kernel_oracle"],
+                f"{name}: the fp32 build is within the bf16 limit "
+                f"({self.r['fp32_oracle']} <= {limits['kernel_oracle']})")
+        return out
+
+
+def bf16_kernel_phase(torch, gen):
+    """Phase 10(a): each bf16-operand mode against its plain bf16 version and
+    fp64 oracles (BF16_LIMITS), BF16_DRAWS draws a case, the fp32 build at
+    the same inputs as the control: K1's one-head forward (SASRec T=150 and
+    T=20, h=8, causal, rates 0 and 0.5), its long forward (BERT4Rec T=600 and
+    T=1,200, h=4, key padding, rate 0.1), the one-sweep backward (T=150,
+    h=8, causal, rate 0.5; T=20, rate 0) and the long backward (T=600, h=4,
+    key padding, rate 0.1), fed the plain forward's residuals; K5's pair at
+    C=1000 and C=2. The first draw is timed (the fp32 build's `device_ms` at
+    the same shape beside it; library: SDPA on bf16 q, k, v); `bound_ms` at
+    the bf16 tensor-core peak (the function: bf16 operands, fp32 sums), the
+    TF32 peak's, which the kernels' instructions run at, as `bound_tf32_ms`."""
+    import torch.nn.functional as F
+
+    from amid_tpu_torch.ops import attention as attention_ops
+    from amid_tpu_torch.ops.attention import (
+        attention_bwd_plain, attention_fwd_stats_plain, attention_fwd_stats_streamed_plain,
+    )
+    from amid_tpu_torch.ops.scoring import scoring_head_pair, scoring_head_pair_plain
+
+    B, D, OB = 256, 128, ORACLE_ROWS
+    cases = {}
+
+    def causal(t):
+        return torch.triu(torch.full((t, t), -1e9, device="cuda"), diagonal=1)[None, None]
+
+    def keypad(t):
+        return keypad_bias(torch, gen, B, t)
+
+    def fwd_case(name, t, heads, bias_fn, rate, path):
+        dh = D // heads
+        readings = Bf16Readings()
+        for draw in range(BF16_DRAWS):
+            q, k, v = (torch.randn(B, t, D, device="cuda", generator=gen) for _ in range(3))
+            bias = bias_fn(t)
+            seed = 1000 + draw
+
+            def fwd(bf16=True):
+                return attention_ops._launch_forward(q, k, v, bias, seed, heads, rate, False,
+                                                     path, bf16=bf16)[0]
+
+            def plain():
+                if path == "long":
+                    return attention_fwd_stats_streamed_plain(
+                        q, k, v, bias, seed, heads, rate, key_chunk(path, dh), True)[0]
+                return attention_fwd_stats_plain(q, k, v, bias, seed, heads, rate, True)[0]
+
+            with torch.no_grad():
+                got, fp32, want = fwd(), fwd(False), plain()
+                require(torch.equal(fwd(), got), f"{name}: two bf16 calls differ")
+                require(torch.isfinite(got).all().item(), f"{name}: non-finite output")
+                rows = (q[:OB], k[:OB], v[:OB], bias[:OB], seed, heads, rate)
+                readings.draw([(got, fp32, want,
+                                bf16_attention_kernel_oracle(torch, *rows, key_chunk(path, dh)),
+                                bf16_attention_oracle(torch, *rows))])
+                stats = attention_ops._launch_forward(q, k, v, bias, seed, heads, rate, True,
+                                                      path, bf16=True)
+                want_stats = attention_fwd_stats_plain(q[:OB], k[:OB], v[:OB], bias[:OB],
+                                                       seed, heads, rate, True)
+                for n, g, w in zip(("row_max", "row_inv_sum"), stats[1:], want_stats[1:]):
+                    atol = LONG_STATS_ATOL[n] if path == "long" else STATS_ATOL
+                    require(torch.allclose(g[:OB], w, atol=atol, rtol=STATS_RTOL),
+                            f"{name}: bf16 {n} differs by {(g[:OB] - w).abs().max().item()}")
+                del stats, want_stats, fp32
+                if draw == 0:
+                    iters = 50 if t <= 600 else 20
+                    rec = {"case": name, "shape": [B, t, D], "heads": heads, "rate": rate,
+                           "path": path, **timings(torch, fwd, iters)}
+                    rec["fp32_device_ms"] = graph_ms(torch, lambda: fwd(False))
+                    rec["plain_ms"] = cuda_ms(torch, plain, *((10, 2) if t <= 600 else (3, 1)))
+                    qh, kh, vh = (x.view(B, t, heads, dh).transpose(1, 2).to(torch.bfloat16)
+                                  for x in (q, k, v))
+                    mask = bias.to(torch.bfloat16)
+                    rec.update(timings(torch, lambda: F.scaled_dot_product_attention(
+                        qh, kh, vh, attn_mask=mask, dropout_p=rate), iters, library=True))
+                    rec["bound_ms"], rec["bound_by"] = attention_bound(
+                        B, t, D, heads, bias.numel(), BF16_TENSOR_FLOPS)
+                    rec["bound_tf32_ms"] = attention_bound(B, t, D, heads, bias.numel())[0]
+                    del qh, kh, vh, mask
+        rec.update(readings.verdict(name), draws=BF16_DRAWS)
+        emit({"kernel_case_bf16": rec})
+        cases[name] = rec
+
+    def bwd_case(name, t, heads, bias_fn, rate, path):
+        dh = D // heads
+        readings = Bf16Readings()
+        for draw in range(BF16_DRAWS):
+            q, k, v, dout = (torch.randn(B, t, D, device="cuda", generator=gen)
+                             for _ in range(4))
+            bias = bias_fn(t)
+            seed = 2000 + draw
+            with torch.no_grad():
+                out, m, inv = attention_fwd_stats_plain(q, k, v, bias, seed, heads, rate, True)
+
+                def bwd(bf16=True):
+                    return attention_ops._launch_backward(q, k, v, bias, out, m, inv, dout,
+                                                          seed, heads, rate, path, bf16=bf16)
+
+                def plain():
+                    return attention_bwd_plain(q, k, v, bias, out, m, inv, dout, seed, heads,
+                                               rate, True)
+
+                got, fp32, want = bwd(), bwd(False), plain()
+                require(all(torch.equal(a, b) for a, b in zip(bwd(), got)),
+                        f"{name}: two bf16 backward calls differ")
+                require(all(torch.isfinite(g).all().item() for g in got),
+                        f"{name}: non-finite gradient")
+                oracle = bf16_attention_bwd_oracle(torch, q[:OB], k[:OB], v[:OB], bias[:OB],
+                                                   out[:OB], dout[:OB], seed, heads, rate)
+                readings.draw(list(zip(got, fp32, want, oracle, oracle)))
+                del oracle, fp32
+                if draw == 0:
+                    rec = {"case": name, "shape": [B, t, D], "heads": heads, "rate": rate,
+                           "path": path, **timings(torch, bwd, 20)}
+                    rec["fp32_device_ms"] = graph_ms(torch, lambda: bwd(False))
+                    rec["plain_ms"] = cuda_ms(torch, plain, 3, 1)
+            if draw == 0:  # the library's backward: forward + backward less the forward
+                leaves = [x.view(B, t, heads, dh).transpose(1, 2).to(torch.bfloat16)
+                          .detach().requires_grad_() for x in (q, k, v)]
+                mask = bias.to(torch.bfloat16)
+                g16 = dout.view(B, t, heads, dh).transpose(1, 2).to(torch.bfloat16)
+
+                def sdpa_fwd():
+                    return F.scaled_dot_product_attention(*leaves, attn_mask=mask,
+                                                          dropout_p=rate)
+
+                both = timings(torch, lambda: torch.autograd.grad(sdpa_fwd(), leaves, g16),
+                               20, library=True)
+                with torch.no_grad():
+                    fwd_only = timings(torch, sdpa_fwd, 20, library=True)
+                rec.update({key: both[key] - fwd_only[key] for key in both})
+                rec["bound_ms"], rec["bound_by"] = attention_bwd_bound(
+                    B, t, D, heads, bias.numel(), BF16_TENSOR_FLOPS)
+                rec["bound_tf32_ms"] = attention_bwd_bound(B, t, D, heads, bias.numel())[0]
+                del leaves, g16, mask
+        rec.update(readings.verdict(name), draws=BF16_DRAWS)
+        emit({"kernel_case_bf16": rec})
+        cases[name] = rec
+
+    for t in (150, 20):
+        for rate in (0.0, 0.5):
+            fwd_case(f"bf16_causal_T{t}_h8_rate{rate}", t, 8, causal, rate, "sweep")
+    for t in (600, 1200):
+        fwd_case(f"bf16_long_keypad_T{t}_h4_rate0.1", t, 4, keypad, 0.1, "long")
+    torch.cuda.empty_cache()
+    bwd_case("bf16_bwd_causal_T150_h8_rate0.5", 150, 8, causal, 0.5, "sweep")
+    bwd_case("bf16_bwd_causal_T20_h8_rate0.0", 20, 8, causal, 0.0, "sweep")
+    bwd_case("bf16_bwd_long_keypad_T600_h4_rate0.1", 600, 4, keypad, 0.1, "long")
+    torch.cuda.empty_cache()
+
+    H = FLAGSHIP["hid_dim"]
+    for c in (1000, 2):
+        name = f"bf16_scoring_pair_C{c}"
+        readings = Bf16Readings()
+        for draw in range(BF16_DRAWS):
+            fc1 = torch.randn(H, 2 * D, device="cuda", generator=gen) * (2 * D) ** -0.5
+            params = (fc1[:, :D], fc1[:, D:], torch.randn(H, device="cuda", generator=gen) * 0.1,
+                      torch.randn(1, H, device="cuda", generator=gen) * H ** -0.5,
+                      torch.randn(1, device="cuda", generator=gen) * 0.1)
+            user, other = (torch.randn(B, D, device="cuda", generator=gen) for _ in range(2))
+            items = torch.randn(B, c, D, device="cuda", generator=gen)
+
+            def fn(bf16=True):
+                return scoring_head_pair(user, other, items, *params, bf16=bf16)
+
+            def plain():
+                return scoring_head_pair_plain(user, other, items, *params, bf16=True)
+
+            with torch.no_grad():
+                got, fp32, want = fn(), fn(False), plain()
+                require(all(torch.equal(a, b) for a, b in zip(fn(), got)),
+                        f"{name}: two calls differ")
+                oracles = [bf16_scoring_oracle(torch, u, items, *params) for u in (user, other)]
+                readings.draw(list(zip(got, fp32, want, oracles, oracles)))
+                if draw == 0:
+                    rec = {"case": name, "shape": [B, c, D], "H": H, "users": 2,
+                           **timings(torch, fn, 50),
+                           "fp32_device_ms": graph_ms(torch, lambda: fn(False)),
+                           "plain_ms": cuda_ms(torch, plain, 20), "library_ms": None}
+                    # the bf16 function at the bf16 peak; at the fp32 mode's
+                    # peak (the CUDA cores') beside it
+                    rec["bound_ms"], rec["bound_by"] = scoring_bound(B, c, D, H, 2,
+                                                                     BF16_TENSOR_FLOPS)
+                    rec["bound_fp32_ms"] = scoring_bound(B, c, D, H, 2)[0]
+        rec.update(readings.verdict(name), draws=BF16_DRAWS)
+        emit({"kernel_case_bf16": rec})
+        cases[name] = rec
+    return cases
+
+
+def bf16_step_check(torch, cfg, tcfg, train_ds, dr_ds, label):
+    """One phase-A and one phase-B step of a kernels='cuda' bf16 model
+    against the kernels='torch' bf16 model from the same state, batch and
+    key, as `step_checks` holds the fp32 steps, at the bf16 limits: the
+    launches of the bf16 builds, every loss within BF16_LOSS_TOL, at most
+    BF16_UPDATE_SHARE of the touched table rows' and of an encoder weight's
+    updated elements more than UPDATE_ATOL apart, and the table's and that
+    weight's Adam moments within BF16_MOMENT_TOL of their largest value."""
+    from amid_tpu_torch.data.loader import BatchIterator
+    from amid_tpu_torch.train.loop import _device_pools, _to_device
+
+    is_lazy = tcfg.lazy_table_adam
+    model, state, step_a, step_b, _ = make_steps(cfg, tcfg, "cuda")
+    ref, rstate, rstep_a, rstep_b, _ = make_steps(cfg, tcfg, "torch")
+    ref.load_state_dict(model.state_dict())
+    dense_name = DENSE_PARAM[cfg.backbone]
+    rec = {"config": label}
+    for phase, slot, ds, fn, rfn, key in (("A", 1, train_ds, step_a, rstep_a, 1234),
+                                          ("B", 2, dr_ds, step_b, rstep_b, 4321)):
+        batch = _to_device(next(iter(BatchIterator(ds, cfg.batch_size, False))), "cuda")
+        pools = _device_pools(ds, "cuda")
+        before = model.item_embedding.detach().clone()
+        reset_counts()
+        _, m = fn(state, batch, *pools, key)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        _, rm = rfn(rstate, batch, *pools, key)
+        torch.cuda.synchronize()
+        want = expected_launches(cfg, train_steps=1, lazy_adam=is_lazy)
+        require(counts == want, f"{label} phase {phase}: launches {counts}, want {want}")
+        require(all(math.isfinite(float(v)) for v in m.values()),
+                f"{label} phase {phase}: losses {m}")
+        diffs = {k: abs(float(v) - float(rm[k])) for k, v in m.items()}
+        moved = (model.item_embedding.detach() != before).any(dim=1)
+        shares = {}
+        for name, got_p, want_p in (
+                ("touched_table_rows", model.item_embedding.detach()[moved],
+                 ref.item_embedding.detach()[moved]),
+                (dense_name, dict(model.named_parameters())[dense_name].detach(),
+                 dict(ref.named_parameters())[dense_name].detach())):
+            shares[name] = ((got_p - want_p).abs() > UPDATE_ATOL).float().mean().item()
+        rels = {k: rel_to_max(v, moments_of(rstate, slot, is_lazy, dense_name)[k])
+                for k, v in moments_of(state, slot, is_lazy, dense_name).items()}
+        rec[f"phase_{phase}"] = {"launches": counts, "loss_diff": diffs,
+                                 "losses": {k: float(v) for k, v in m.items()},
+                                 "rows_moved": int(moved.sum()),
+                                 "update_mismatch_share": shares, "moment_rel_err": rels}
+        emit({"train_steps_bf16": {"config": label, "phase": phase, **rec[f"phase_{phase}"]}})
+        require(int(moved.sum()) > 0, f"{label} phase {phase}: no table row moved")
+        require(max(diffs.values()) <= BF16_LOSS_TOL,
+                f"{label} phase {phase}: kernel vs plain losses {diffs}")
+        require(max(shares.values()) <= BF16_UPDATE_SHARE,
+                f"{label} phase {phase}: updates differ from plain: {shares}")
+        require(max(rels.values()) <= BF16_MOMENT_TOL,
+                f"{label} phase {phase}: moments differ from plain: {rels}")
+    return rec
+
+
+def replayed_phase_a(torch, cfg, tcfg, ds):
+    """Wall ms, device ms (a trace) and peak device memory of the fast
+    loops' replayed phase-A steps over `ds` (`profile_step.py`'s
+    `step_kinds` and `measure`; a chunk is one pass over the batches, and
+    at least 16 steps are timed); the memory allocated before, which the
+    peak includes."""
+    from amid_tpu_torch.profile_step import measure, step_kinds
+    from amid_tpu_torch.train.graphs import GraphPool
+
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    pool = GraphPool("cuda")
+    try:
+        fn, per_call = step_kinds(cfg, tcfg, ds, True, pool)["phase_a"]
+        rec = measure(fn, per_call, max(1, -(-16 // per_call)), top=3)
+        rec["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+        rec["allocated_before_bytes"] = before
+    finally:
+        pool.close()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def remat_step_check(torch, cfg, tcfg, ds, label):
+    """One phase-A step from one key (dropout 0.5) with and without remat,
+    from the same weights, batch and key: every loss, every updated
+    parameter and both Adam moments of every leaf equal bit for bit (the
+    moments carry every gradient); the remat step launches each attention
+    forward twice (its recompute in the backward)."""
+    from amid_tpu_torch.data.loader import BatchIterator
+    from amid_tpu_torch.train.loop import _device_pools, _to_device
+
+    batch = _to_device(next(iter(BatchIterator(ds, cfg.batch_size, False))), "cuda")
+    pools = _device_pools(ds, "cuda")
+    out = []
+    for remat in (False, True):
+        c = dataclasses.replace(cfg, remat=remat)
+        _, state, step_a, _, _ = make_steps(c, tcfg, "cuda")
+        reset_counts()
+        _, m = step_a(state, batch, *pools, 4321)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        want = expected_launches(c, train_steps=1, lazy_adam=tcfg.lazy_table_adam)
+        require(counts == want, f"{label} remat={remat}: launches {counts}, want {want}")
+        out.append((m, state, counts))
+    (m0, s0, _), (m1, s1, counts) = out
+    differ = [k for k, v in m0.items() if not torch.equal(v, m1[k])]
+    for name in s0.params:
+        for what, a, b in (("param", s0.params[name], s1.params[name]),
+                           ("mu", s0.opt_state.mu[name], s1.opt_state.mu[name]),
+                           ("nu", s0.opt_state.nu[name], s1.opt_state.nu[name])):
+            if not torch.equal(a, b):
+                differ.append(f"{what} {name}")
+    require(not differ, f"{label}: remat and no remat differ: {differ[:6]}")
+    rec = {"config": label, "bit_equal": True, "leaves": len(s0.params),
+           "launches_remat": counts, "loss": float(m1["loss"])}
+    emit({"remat_step": rec})
+    return rec
+
+
+def precision_phase(torch, rng):
+    """Phase 10: the precision flags at the run.sh width. (b) `--bf16 True`
+    on the run.sh model at T=20 (lazy, quirk) and T=150 (dense, pairwise):
+    `run_seed` on the fast loops (finite losses, metrics in [0, 1], the bf16
+    builds' launches), one eager phase-A and phase-B step against the
+    kernels='torch' bf16 model (`bf16_step_check`), replayed steps bit-equal
+    to eager ones, the feature pass against the fp32 model's, and the
+    replayed phase A beside fp32's. (c) BERT4Rec at T=150 under `--bf16
+    True` (encoder T=300, dh=32: both long paths' bf16 builds): `run_seed`,
+    the step check, replayed steps bit-equal to eager ones. (d) `--remat
+    True` on the run.sh model at T=150, dense: one phase-A step with and
+    without remat bit-equal, replayed remat steps bit-equal to eager ones,
+    and the replayed phase A's time and peak memory with and without remat
+    at the batches of REMAT_BATCHES."""
+    import shutil
+    import tempfile
+
+    from amid_tpu_torch.config import DataConfig, ModelConfig, TrainConfig
+    from amid_tpu_torch.data.synthetic import synth_packed
+    from amid_tpu_torch.models.amid import build_model
+    from amid_tpu_torch.serve import user_representations
+    from amid_tpu_torch.train.loop import run_seed
+
+    runs = {}
+
+    def tcfg_of(cfg, lazy_adam, work):
+        return TrainConfig(epochs=1, seeds=1, model_dir=work, lazy_table_adam=lazy_adam,
+                           nan_policy="halt", checkpoint=False, model=cfg,
+                           data=DataConfig(neg_nums=999))
+
+    configs = [("T20_lazy", dict(seq_len=20), True),
+               ("T150_dense_pairwise", dict(seq_len=150, comp_broadcast_quirk=False), False),
+               ("bert4rec_T150_dense", dict(seq_len=150, **BACKBONES["bert4rec"]), False)]
+    for name, kw, lazy_adam in configs:
+        label = f"bf16_{name}"
+        cfg = ModelConfig(**{**FLAGSHIP, **kw, "use_bf16": True})
+        train_ds, val_ds, dr_ds = (synth_packed(cfg, rng, n)
+                                   for n in (TRAIN_ROWS, VAL_ROWS, DR_ROWS))
+        work = tempfile.mkdtemp(prefix="chip_smoke_")
+        tcfg = tcfg_of(cfg, lazy_adam, work)
+        rec = {}
+        try:
+            reset_counts()
+            t0 = time.perf_counter()
+            best = run_seed(tcfg, 0, train_ds, val_ds, dr_ds)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            rec["launches"] = read_counts()
+            check_run(f"{label} run_seed fast", cfg, lazy_adam, rec["launches"], best,
+                      {"loop": "fast", "seconds": seconds})
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        torch.cuda.empty_cache()
+        rec["train_steps"] = bf16_step_check(torch, cfg, tcfg, train_ds, dr_ds, label)
+        rec["graph_steps"] = graph_checks(torch, cfg, tcfg, train_ds, val_ds, dr_ds, label,
+                                          exact=True, evaluate=False)
+        torch.cuda.empty_cache()
+        if cfg.backbone == "sasrec":
+            batch = make_batch(cfg, rng)
+            feats = []
+            for c in (cfg, dataclasses.replace(cfg, use_bf16=False)):
+                model = build_model(c, seed=0)
+                feats.append(user_representations(model, batch))
+                del model
+            gap = max((a - b).abs().max().item() for a, b in zip(*feats))
+            scale = max(b.abs().max().item() for b in feats[1])
+            require(gap <= BF16_FEATURE_TOL * scale,
+                    f"{label}: bf16 features {gap} from fp32's (largest {scale})")
+            timing = {}
+            for mode, c in (("bf16", cfg), ("fp32", dataclasses.replace(cfg, use_bf16=False))):
+                timing[mode] = replayed_phase_a(torch, c, tcfg, train_ds)
+            rec["feature_gap"], rec["feature_scale"] = gap, scale
+            rec["replayed_phase_a"] = timing
+            emit({"bf16_model": {"config": label, "feature_gap": gap, "feature_scale": scale,
+                                 **{f"{m}_{k}": v[k] for m, v in timing.items()
+                                    for k in ("wall_ms_per_step", "device_ms_per_step",
+                                              "device_idle_share")}}})
+        runs[label] = rec
+        torch.cuda.empty_cache()
+
+    # (d) remat on the run.sh model at T=150, dense Adam
+    cfg = ModelConfig(**{**FLAGSHIP, "remat": True})
+    train_ds, val_ds, dr_ds = (synth_packed(cfg, rng, n) for n in (TRAIN_ROWS, VAL_ROWS,
+                                                                  DR_ROWS))
+    tcfg = tcfg_of(cfg, False, "")
+    rec = {"step": remat_step_check(torch, cfg, tcfg, train_ds, "remat_T150_dense")}
+    rec["graph_steps"] = graph_checks(torch, cfg, tcfg, train_ds, val_ds, dr_ds,
+                                      "remat_T150_dense", exact=True, evaluate=False)
+    for bs in REMAT_BATCHES:
+        for remat in (False, True):
+            c = dataclasses.replace(cfg, batch_size=bs, remat=remat)
+            ds = synth_packed(c, rng, max(TRAIN_ROWS, 4 * bs))
+            t = replayed_phase_a(torch, c, tcfg_of(c, False, ""), ds)
+            emit({"remat_timing": {"batch": bs, "remat": remat,
+                                   **{k: t[k] for k in ("wall_ms_per_step", "device_ms_per_step",
+                                                        "device_idle_share",
+                                                        "max_memory_allocated_bytes",
+                                                        "allocated_before_bytes")}}})
+            rec[f"B{bs}_remat{remat}"] = t
+    runs["remat_T150_dense"] = rec
+    return runs
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2624,7 +3290,8 @@ def main() -> int:
     print(f"torch {torch.__version__}, cuda {torch.version.cuda}, "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
     t0 = time.perf_counter()
-    sources = sorted({Path(src).stem for src, _ in KERNELS.values()})
+    # every source, and the attention kernels' bf16 builds (ops/_build.py's VARIANTS)
+    sources = sorted({Path(src).stem for src, _ in KERNELS.values()} | set(_build.VARIANTS))
     _build.build(sources)
     print(f"build: {', '.join(sources)} in {time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -2651,6 +3318,8 @@ def main() -> int:
     backbones = phase(backbone_phase, np.random.default_rng(3))
     c2dsr_runs = phase(c2dsr_phase, np.random.default_rng(4))
     checkpoint_runs = phase(checkpoint_phase, np.random.default_rng(5))
+    bf16 = phase(bf16_kernel_phase, gen)
+    precision_runs = phase(precision_phase, np.random.default_rng(6))
 
     # launches on the main paths: the serving passes, the run_seed runs and
     # the CLI runs (each on the fast loops and per step), the backbones'
@@ -2659,7 +3328,8 @@ def main() -> int:
     # counts at 0 just before it and read just after
     main_runs = [*training.values(), *serving.values(),
                  *(r for r in backbones.values() if "launches" in r), *c2dsr_runs.values(),
-                 *checkpoint_runs.values()]
+                 *checkpoint_runs.values(),
+                 *(r for r in precision_runs.values() if "launches" in r)]
     launches = {name: sum(r["launches"][name] for r in main_runs) for name in KERNELS}
     # run_seed scatters fused; the single-array kernel's path is the lazy step
     # built with fused_scatter=False, driven once in step_checks
@@ -2691,6 +3361,20 @@ def main() -> int:
                                      affinity["max_affinity_blocked"].values()),
             "max_affinity_smalln": (affinity["max_affinity_smalln"][20],
                                     affinity["max_affinity_smalln"].values())}
+    # the bf16 modes: K1 at the shapes above, K5's pair at C=1000
+    bf16_rows = {"attention_fwd_bf16": "bf16_causal_T150_h8_rate0.0",
+                 "attention_fwd_long_bf16": "bf16_long_keypad_T1200_h4_rate0.1",
+                 "attention_bwd_bf16": "bf16_bwd_causal_T150_h8_rate0.5",
+                 "attention_bwd_long_bf16": "bf16_bwd_long_keypad_T600_h4_rate0.1",
+                 "scoring_head_bf16": "bf16_scoring_pair_C1000"}
+    for name, case in bf16_rows.items():
+        kind = name.rsplit("_bf16", 1)[0]
+        rows[name] = (bf16[case], [c for c in bf16.values()
+                                   if c["case"].startswith("bf16_scoring") == (
+                                       kind == "scoring_head")
+                                   and c.get("path", "sweep") == ("long" if "long" in kind
+                                                                  else "sweep")
+                                   and ("bwd" in c["case"]) == ("bwd" in kind)])
     emit({"kernels": [{
         "name": name, "route": "cuda", "source": KERNELS[name][0],
         "replaces": KERNELS[name][1], "launches": launches[name],
@@ -2699,6 +3383,7 @@ def main() -> int:
         "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
         "library_ms": c["library_ms"], "case": c["case"],
         "device_ms": c["device_ms"], "host_us": c["host_us"],
+        **{k: c[k] for k in ("bound_tf32_ms", "bound_fp32_ms") if k in c},
     } for name, (c, every) in rows.items()]})
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(smi, flush=True)

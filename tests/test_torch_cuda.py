@@ -7,7 +7,9 @@ no JAX, so it runs on a machine without it; from the repository root:
 """
 
 import dataclasses
+import importlib.util
 import struct
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -284,7 +286,7 @@ def test_no_grad_forward_makes_no_function_and_no_statistics(gen, monkeypatch):
     asked = []
     launch = attention_ops._launch_forward
     monkeypatch.setattr(attention_ops, "_launch_forward",
-                        lambda *a: asked.append(a[-1]) or launch(*a))
+                        lambda *a, **kw: asked.append(a[-1]) or launch(*a, **kw))
     with torch.no_grad():
         out = fused_attention(q, k, v, _bias("causal", b, t, gen), 0, heads, 0.0)
     assert out.grad_fn is None and asked == [False]
@@ -1668,3 +1670,155 @@ def test_c2dsr_bert4rec_with_both_comps_trains_on_the_long_forward(gen):
             continue  # a zero gradient up to rounding (see above)
         share = ((p - q).abs() > 1e-6).float().mean().item()
         assert share <= 1e-3, (name, share)
+
+
+# ---------------------------------------------------------------------------
+# the precision flags: the bf16-operand modes and remat
+# ---------------------------------------------------------------------------
+
+def _chip_smoke():
+    """The repository root's `chip_smoke.py`, whose fp64 oracles, readings and
+    per-case limits (BF16_LIMITS) the bf16 cases share."""
+    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("b,t,heads,kind,rate,path,case", [
+    (64, 150, 8, "causal", 0.5, "sweep", "causal_T150_h8_rate0.5"),
+    (256, 20, 8, "causal", 0.0, "sweep", "causal_T20_h8_rate0.0"),
+    (32, 600, 4, "keypad", 0.1, "long", "long_keypad_T600_h4_rate0.1")])
+def test_bf16_attention_modes_match_their_plain_versions(gen, b, t, heads, kind, rate, path,
+                                                         case):
+    """The forward's and the backward's bf16 builds on one path within
+    chip_smoke.py's limits for the case: against the fp64 oracle of their
+    own rounding points, the plain versions with `mxu_bf16=True` and the
+    oracle of the JAX kernel's, with the fp32 builds at the same inputs
+    outside the oracle limit (so the bf16 builds ran); two calls bit-equal;
+    the launches count in the bf16 builds' counts only."""
+    cs = _chip_smoke()
+    d = 128
+    dh = d // heads
+    q, k, v, dout = (torch.randn(b, t, d, device="cuda", generator=gen) for _ in range(4))
+    bias = _bias(kind, b, t, gen)
+    before = launches.read()
+    out, m, inv = attention_ops._launch_forward(q, k, v, bias, 7, heads, rate, True, path,
+                                                bf16=True)
+    want, wm, winv = attention_fwd_stats_plain(q, k, v, bias, 7, heads, rate, True)
+    torch.testing.assert_close(m, wm, atol=LONG_MAX_ATOL, rtol=1e-6)
+    torch.testing.assert_close(inv, winv, atol=LONG_INV_SUM_ATOL, rtol=1e-6)
+    assert torch.equal(attention_ops._launch_forward(q, k, v, bias, 7, heads, rate, True,
+                                                     path, bf16=True)[0], out)
+    got = attention_ops._launch_backward(q, k, v, bias, want, wm, winv, dout, 7, heads, rate,
+                                         path, bf16=True)
+    again = attention_ops._launch_backward(q, k, v, bias, want, wm, winv, dout, 7, heads, rate,
+                                           path, bf16=True)
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
+    counted = {n: c for n, c in launches.since(before).items() if c}
+    suffix = "_long" if path == "long" else ""
+    assert counted == {f"attention_fwd{suffix}_bf16": 2, f"attention_bwd{suffix}_bf16": 2}
+
+    args = (q, k, v, bias, 7, heads, rate)
+    fwd = cs.Bf16Readings()
+    fwd.draw([(out, attention_ops._launch_forward(*args, False, path)[0], want,
+               cs.bf16_attention_kernel_oracle(torch, *args, cs.key_chunk(path, dh)),
+               cs.bf16_attention_oracle(torch, *args))])
+    fwd.verdict(f"bf16_{case}")
+    plain = attention_bwd_plain(q, k, v, bias, want, wm, winv, dout, 7, heads, rate, True)
+    fp32 = attention_ops._launch_backward(q, k, v, bias, want, wm, winv, dout, 7, heads, rate,
+                                          path)
+    oracle = cs.bf16_attention_bwd_oracle(torch, q, k, v, bias, want, dout, 7, heads, rate)
+    bwd = cs.Bf16Readings()
+    bwd.draw(list(zip(got, fp32, plain, oracle, oracle)))
+    bwd.verdict(f"bf16_bwd_{case}")
+
+
+def test_bf16_scoring_pair_matches_its_plain_version(gen):
+    """K5's bf16 build within chip_smoke.py's limits for C=1000, the fp32
+    build at the same inputs outside the oracle limit; one bf16 launch; two
+    calls bit-equal."""
+    cs = _chip_smoke()
+    b, c, d, h = 64, 1000, 128, 32
+    fc1 = torch.randn(h, 2 * d, device="cuda", generator=gen) * (2 * d) ** -0.5
+    params = (fc1[:, :d], fc1[:, d:], torch.randn(h, device="cuda", generator=gen) * 0.1,
+              torch.randn(1, h, device="cuda", generator=gen) * h ** -0.5,
+              torch.randn(1, device="cuda", generator=gen))
+    u1, u2 = (torch.randn(b, d, device="cuda", generator=gen) for _ in range(2))
+    items = torch.randn(b, c, d, device="cuda", generator=gen)
+    before = scoring_head.bf16_launches
+    got = scoring_head_pair(u1, u2, items, *params, bf16=True)
+    assert scoring_head.bf16_launches == before + 1
+    assert all(torch.equal(a, g) for a, g in zip(scoring_head_pair(u1, u2, items, *params,
+                                                                   bf16=True), got))
+    want = scoring_head_pair_plain(u1, u2, items, *params, bf16=True)
+    fp32 = scoring_head_pair(u1, u2, items, *params)
+    oracles = [cs.bf16_scoring_oracle(torch, u, items, *params) for u in (u1, u2)]
+    readings = cs.Bf16Readings()
+    readings.draw(list(zip(got, fp32, want, oracles, oracles)))
+    readings.verdict("bf16_scoring_pair_C1000")
+
+
+def test_bf16_gemm_form_matches_the_cpu_form(gen):
+    """`ops.precision`'s bf16 products on the card (a GEMM of bf16 operands
+    with an fp32 output) against the CPU form (rounded operands, an exact
+    fp32 product), forward and both gradients: the same products, summed in
+    another order."""
+    from amid_tpu_torch.ops import precision
+
+    cases = [((300, 128), (96, 128), "linear"), ((4, 8, 150, 16), (4, 8, 16, 150), "matmul")]
+    for sa, sb, kind in cases:
+        a, w = (torch.randn(*s, device="cuda", generator=gen) for s in (sa, sb))
+        outs = []
+        for dev in ("cuda", "cpu"):
+            x, y = (t.to(dev).requires_grad_() for t in (a, w))
+            out = (precision.linear(x, y, None, "bf16") if kind == "linear"
+                   else precision.matmul(x, y, "bf16"))
+            g = torch.ones_like(out)
+            outs.append((out, *torch.autograd.grad(out, (x, y), g)))
+        for got, want in zip(*outs):
+            torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-5)
+
+
+def _bit_equal_replays(cfg, expect):
+    """Four dense phase-A steps through a resident chunk runner against the
+    same steps taken eagerly: losses and every moment bit-equal; the launches
+    a replay captured."""
+    ds = synth_packed(cfg, np.random.default_rng(0), 4 * FAST_BS)
+    (_, est, estep), (_, gst, gstep) = _fast_pair("dense", "A", cfg)
+    arrays = loop._resident(ds.batch_arrays(), "cuda")
+    pools = loop._device_pools(ds, "cuda")
+    perm = torch.as_tensor(np.random.default_rng(1).permutation(4 * FAST_BS).astype(np.int32),
+                           device="cuda")
+    pool = GraphPool("cuda")
+    try:
+        runner = steps.make_resident_chunk_runner(gstep, FAST_BS, pool)
+        for i in range(4):
+            _, m0, nf = runner(gst, arrays, perm, *pools, 9, range(i, i + 1), range(i, i + 1))
+            rows = perm[i * FAST_BS:(i + 1) * FAST_BS]
+            _, m = estep(est, {k: x.index_select(0, rows) for k, x in arrays.items()},
+                         *pools, fold_in(9, i))
+            assert float(nf) == 0.0
+            for k, x in m0.items():
+                assert torch.equal(x, m[k]), (i, k, float(x), float(m[k]))
+        graph = pool.graphs[0]
+        assert graph.replays == 3
+        assert {n: c for n, c in graph.captured.items() if c and "attention" in n} == expect
+        for name, mu in gst.opt_state.mu.items():
+            assert torch.equal(mu, est.opt_state.mu[name]), name
+            assert torch.equal(gst.opt_state.nu[name], est.opt_state.nu[name]), name
+    finally:
+        pool.close()
+
+
+def test_replayed_remat_steps_equal_eager_steps(gen):
+    """Dropout 0.5: each remat region keeps its draws, so the recompute inside
+    the captured backward replays the forward's masks; 8 attention forwards a
+    step (4 and their recompute), 4 backwards."""
+    _bit_equal_replays(_fast_cfg(remat=True), {"attention_fwd": 8, "attention_bwd": 4})
+
+
+def test_replayed_bf16_steps_equal_eager_steps(gen):
+    _bit_equal_replays(_fast_cfg(use_bf16=True),
+                       {"attention_fwd_bf16": 4, "attention_bwd_bf16": 4})

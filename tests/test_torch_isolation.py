@@ -37,7 +37,8 @@ def _banned(module: str) -> bool:
 
 NEW_MODULES = {"ops/embedding.py", "ops/scoring.py", "ops/affinity.py", "train_sr.py",
                "train/checkpoint.py", "utils/profiler.py", "data/native.py",
-               "train_sr_dr.py", "train/loop.py", "config.py", "data/synthetic.py"}
+               "train_sr_dr.py", "train/loop.py", "config.py", "data/synthetic.py",
+               "ops/precision.py"}
 
 
 def test_no_import_line_names_jax_or_the_jax_package():
