@@ -23,14 +23,16 @@
 // same, taken in another order.
 //
 // bf16-operand mode (the JAX kernel's mxu_bf16: every product's operands
-// rounded to bf16, fp32 sums). Each source is compiled twice: as it is, and
-// with AMID_ATTN_BF16=1 into a library of its own (ops/_build.py's
-// variants), where kBf16 is set. A bf16 value is exact in TF32 (10
+// rounded to bf16, fp32 sums). The one-head sources (attention_fwd.cu,
+// attention_bwd.cu) are compiled twice: as they are, and with
+// AMID_ATTN_BF16=1 into libraries of their own (ops/_build.py's variants),
+// where kBf16 is set; the long paths' bf16 mode has native bf16 kernels
+// (attention_long_bf16.cuh). A bf16 value is exact in TF32 (10
 // mantissa bits against bf16's 7), so the mode keeps every fragment layout,
 // tile and route: `split` rounds the operand to bf16 (cvt.rn.bf16.f32,
 // nearest even) as its hi half and leaves lo at 0, and a product issues the
-// hi*hi term alone, one mma.sync (or one wgmma k-step) where 3xTF32 issues
-// three: bf16 operands, fp32 accumulation, exactly.
+// hi*hi term alone, one mma.sync where 3xTF32 issues three: bf16 operands,
+// fp32 accumulation, exactly.
 //
 // Shared-memory tiles have a row pitch of dh + 4 floats. The two patterns
 // the kernels read, row g column t (B of Q.K^T) and row 2t column g (B of

@@ -5,9 +5,8 @@
 // landed stage split once into TF32 halves in the layouts that wgmma reads
 // as K-major shared-memory operands; the products are
 // wgmma.mma_async m64nNk8 .f32.tf32.tf32, three a k-step (3xTF32, as
-// attention_common.cuh's mma3). In the bf16 build (kBf16) a stage is
-// rounded to bf16 as its hi half, no lo tile is written, and a k-step is
-// the hi*hi wgmma alone (`mma3_rs`, `mma3_ss`).
+// attention_common.cuh's mma3). The bf16 mode of the long paths has
+// kernels of its own (attention_long_bf16.cuh).
 
 #pragma once
 
@@ -94,25 +93,21 @@ __device__ __forceinline__ void mma_rs<8>(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
-// d += A B as three TF32 products (lo hi, hi lo, hi hi) in the fp32 build,
-// hi hi alone in the bf16 build: A from registers or shared memory
+// d += A B as three TF32 products (lo hi, hi lo, hi hi): A from registers
+// or shared memory
 template <int N>
 __device__ __forceinline__ void mma3_rs(float (&d)[N / 2], const uint32_t (&a_hi)[4],
                                         const uint32_t (&a_lo)[4], uint64_t b_hi,
                                         uint64_t b_lo) {
-  if constexpr (!kBf16) {
-    mma_rs<N>(d, a_lo, b_hi);
-    mma_rs<N>(d, a_hi, b_lo);
-  }
+  mma_rs<N>(d, a_lo, b_hi);
+  mma_rs<N>(d, a_hi, b_lo);
   mma_rs<N>(d, a_hi, b_hi);
 }
 template <int N>
 __device__ __forceinline__ void mma3_ss(float (&d)[N / 2], uint64_t a_hi, uint64_t a_lo,
                                         uint64_t b_hi, uint64_t b_lo) {
-  if constexpr (!kBf16) {
-    mma_ss<N>(d, a_lo, b_hi);
-    mma_ss<N>(d, a_hi, b_lo);
-  }
+  mma_ss<N>(d, a_lo, b_hi);
+  mma_ss<N>(d, a_hi, b_lo);
   mma_ss<N>(d, a_hi, b_hi);
 }
 
@@ -216,7 +211,7 @@ __device__ __forceinline__ void split_stage(const float* raw, float* hi, float* 
     split4(*reinterpret_cast<const float4*>(raw + raw_at<DH>(r, c)), h, l);
     if constexpr (Rows) {
       *reinterpret_cast<float4*>(hi + tile_at<DH>(r, c)) = h;
-      if constexpr (!kBf16) *reinterpret_cast<float4*>(lo + tile_at<DH>(r, c)) = l;
+      *reinterpret_cast<float4*>(lo + tile_at<DH>(r, c)) = l;
     }
     if constexpr (Tr) {
       const int p = perm8(r);
@@ -224,7 +219,7 @@ __device__ __forceinline__ void split_stage(const float* raw, float* hi, float* 
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         thi[tr_at<DH>(4 * c + e, p)] = hv[e];
-        if constexpr (!kBf16) tlo[tr_at<DH>(4 * c + e, p)] = lv[e];
+        tlo[tr_at<DH>(4 * c + e, p)] = lv[e];
       }
     }
   }
@@ -243,7 +238,7 @@ __device__ __forceinline__ void load_owned(const float* head, long long st, int 
     float4 h, l;
     split4(x, h, l);
     *reinterpret_cast<float4*>(hi + tile_at<DH>(r, c)) = h;
-    if constexpr (!kBf16) *reinterpret_cast<float4*>(lo + tile_at<DH>(r, c)) = l;
+    *reinterpret_cast<float4*>(lo + tile_at<DH>(r, c)) = l;
   }
 }
 

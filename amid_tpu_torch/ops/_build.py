@@ -8,9 +8,12 @@ the source, the headers and the flags, so an edited source or header is
 rebuilt on its next use and an unchanged one is loaded as it is. `build()`
 starts one `nvcc` per library at once and waits for all of them. A
 variant (`VARIANTS`) is a source compiled once more with a define, into a
-library of its own: the attention kernels' bf16-operand builds
-(`attention_*_bf16`, `-DAMID_ATTN_BF16=1`), so that the second set of
-instances compiles beside the first instead of after it.
+library of its own: the one-head attention kernels' bf16-operand builds
+(`attention_fwd_bf16`, `attention_bwd_bf16`, `-DAMID_ATTN_BF16=1`), so that
+the second set of instances compiles beside the first instead of after it.
+The long paths' bf16 mode has sources of its own
+(`csrc/attention_fwd_long_bf16.cu`, `csrc/attention_bwd_long_bf16.cu`:
+native bf16 products), built as any other source.
 
 Nothing is built at import: the first kernel call builds what it needs.
 
@@ -56,7 +59,7 @@ SMEM_LIMIT = 232448  # bytes of shared memory one block may use on sm_90 (227 KB
 
 # library name -> (the source it compiles, extra nvcc flags)
 VARIANTS = {f"{n}_bf16": (n, ("-DAMID_ATTN_BF16=1",)) for n in (
-    "attention_fwd", "attention_fwd_long", "attention_bwd", "attention_bwd_long")}
+    "attention_fwd", "attention_bwd")}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 

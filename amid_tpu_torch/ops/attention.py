@@ -82,18 +82,26 @@ sums. The plain versions round where the JAX kernel rounds: Q.K^T, and
 P.V with P normalised and the dropout applied; in the backward dO.V^T,
 Pd^T.dO, dS.K and dS^T.Q. D_i stays rowsum(dO o O) in fp32, as in the fp32
 mode (JAX sums dP o P instead, a difference of bf16 rounding). The row
-statistics come from the bf16-operand scores. The kernels are the same
-sources built with `AMID_ATTN_BF16=1` (`ops._build.VARIANTS`): each operand
-rounded to bf16 where the fp32 build splits it into TF32 halves, one product
-where it issues three. The one-head and long forwards run an online softmax
-and so round the unnormalised exp(S - m) (dropout applied) where JAX rounds
-the normalised P: kernel and plain agree to bf16 rounding, not to fp32's
-(`chip_smoke.py`'s BF16_LIMITS hold each kernel to an fp64 oracle of its
-own rounding points instead). In bf16 mode `attention_plain`'s
+statistics come from the bf16-operand scores. The one-head kernels are
+their sources built with `AMID_ATTN_BF16=1` (`ops._build.VARIANTS`): each
+operand rounded to bf16 where the fp32 build splits it into TF32 halves, one
+product where it issues three. The long paths have native bf16 kernels
+(`csrc/attention_fwd_long_bf16.cu`, `csrc/attention_bwd_long_bf16.cu`,
+bound under the same library names): a pre-pass rounds q, k, v (and dout)
+to bf16 once a call into a packed scratch from the caching allocator
+(`pack_bf16_plain` is its plain version), and the products are `wgmma`
+k16 steps on 16-bit tiles. The one-head and long forwards run an online
+softmax and so round the unnormalised exp(S - m) (dropout applied) where
+JAX rounds the normalised P, once a key chunk (32 keys; the long forward's
+stage, `LONG_BF16_STAGE_KEYS`): kernel and plain agree to bf16 rounding, not
+to fp32's (`chip_smoke.py`'s BF16_LIMITS hold each kernel to an fp64 oracle
+of its own rounding points instead). In bf16 mode `attention_plain`'s
 gradient is `attention_bwd_plain`'s arithmetic, as the kernels' is. Each
 bf16 launch counts in a count of its own (`bf16_launches`,
 `long_forward_bf16_launches`, `backward_bf16_launches`,
-`long_backward_bf16_launches`).
+`long_backward_bf16_launches`; a long call counts once, its pre-pass
+inside it), and each mode routes by its own tables (`LONG_FWD_FASTER_FROM`,
+`LONG_FASTER_FROM`, keyed by mode).
 """
 
 from __future__ import annotations
@@ -381,7 +389,9 @@ class _PlainAttentionBf16(torch.autograd.Function):
 # FwdArgs and BwdArgs), packed in one call: ctypes converts argument by argument.
 _PACK_FWD = struct.Struct("<23q2d").pack
 _PACK_BWD = struct.Struct("<31q2d").pack
-_PACK_BWD_LONG = struct.Struct("<31q2dq").pack  # BwdLongArgs: BwdArgs, then the D_i scratch
+# BwdLongArgs: BwdArgs, then the D_i scratch (fp32) or the packed operands' (bf16)
+_PACK_BWD_LONG = struct.Struct("<31q2dq").pack
+_PACK_PTR = struct.Struct("<q").pack  # the bf16 long forward's scratch, after FwdArgs
 _BAD_HEAD_WIDTH, _BAD_SHAPE, _TOO_LONG, _MISALIGNED = -1, -2, -3, -4  # the refusals
 _SOURCES = ["attention_fwd", "attention_fwd_long", "attention_bwd", "attention_bwd_long"]
 _LIBRARIES = _SOURCES + [f"{n}_bf16" for n in _SOURCES]  # and their bf16 builds
@@ -471,42 +481,58 @@ def long_forward_max_t() -> int:
     return _fwd_long_max_t
 
 
-# For each head width, the shortest T from which the long forward's device
-# time was below the one-head kernel's on the card for both biases, among
-# the T that `chip_smoke.py`'s forward crossover sweep measures (150, 300,
-# 368, 512, 600 and 800, at B=256, D=128, key padding and causal, rate 0;
-# `fwd_crossover` records; NVIDIA H100 80GB HBM3, 700.00 W). dh=32: the
-# one-head kernel faster at 150, the long forward from 300 (0.384 against
-# 0.521 ms, key padding). dh=16: key padding crosses at 368, the causal bias
-# at 512. Below it, and at the head widths not swept (8, 64), shapes stay on
-# the one-head kernel as long as it holds them (`forward_max_t`).
-LONG_FWD_FASTER_FROM = {16: 512, 32: 300}
+MODES = ("fp32", "bf16")  # the kernels' modes: fp32 (3xTF32), bf16 operands (`mxu_bf16`)
+
+# For each mode and head width, the shortest T from which the long forward's
+# device time was below the one-head kernel's on the card for both biases,
+# among the T that `chip_smoke.py`'s forward crossover sweeps measure (150,
+# 300, 368, 512, 600 and 800, at B=256, D=128, key padding and causal, rate
+# 0; `fwd_crossover` and `fwd_crossover_bf16` records; NVIDIA H100 80GB
+# HBM3, 700.00 W). fp32, dh=32: the one-head kernel faster at 150, the long
+# forward from 300 (0.384 against 0.521 ms, key padding); dh=16: key padding
+# crosses at 368, the causal bias at 512. bf16 (the native long forward
+# against the one-head kernel's bf16 build), taken where the long forward
+# was at least 10% faster in each of two sweeps: from 150 at dh=32 (key
+# padding 0.079 against 0.130 ms, causal 0.102 against 0.141); from 300 at
+# dh=16, where SASRec's causal bias reads 0.138 against 0.142 at 150, a 3%
+# margin, and 0.328 against 0.548 at 300. Below it, and at the head widths
+# not swept (8, 64), shapes stay on the one-head kernel as long as it holds
+# them (`forward_max_t`).
+LONG_FWD_FASTER_FROM = {"fp32": {16: 512, 32: 300}, "bf16": {16: 300, 32: 150}}
 
 
-def forward_route(t: int, dh: int) -> str:
+def forward_route(t: int, dh: int, mode: str = "fp32") -> str:
     """'long' (the long-sequence forward) where the one-head kernel cannot
     hold the shape (`forward_max_t(dh) < t`) or from
-    `LONG_FWD_FASTER_FROM[dh]` on, else 'sweep' (the one-head kernel).
+    `LONG_FWD_FASTER_FROM[mode][dh]` on, else 'sweep' (the one-head kernel).
     Binds the kernels."""
-    start = LONG_FWD_FASTER_FROM.get(dh)
+    start = LONG_FWD_FASTER_FROM[mode].get(dh)
     return "long" if (start is not None and t >= start) or forward_max_t(dh) < t else "sweep"
 
 
-# For each head width, the shortest T from which the long path's device time
-# was below the one-sweep kernel's on the card, among the T that
-# `chip_smoke.py`'s crossover sweep measures (150, 200, 256, 300, 368 and 512,
-# at B=256, D=128, key padding, rate 0, where both paths take the shape;
-# `bwd_crossover` records; NVIDIA H100 80GB HBM3, 700.00 W). SASRec's causal
-# bias at dh=16 (150 to 600: C2DSR's views) crosses at the same T. Below it,
-# and wherever the one-sweep kernel was the faster, shapes stay on that kernel.
-LONG_FASTER_FROM = {8: 512, 16: 368, 32: 150, 64: 150}
+# For each mode and head width, the shortest T from which the long path's
+# device time was below the one-sweep kernel's on the card, among the T that
+# `chip_smoke.py`'s crossover sweeps measure (150, 200, 256, 300, 368 and
+# 512, at B=256, D=128, key padding, rate 0, where both paths take the shape;
+# `bwd_crossover` and `bwd_crossover_bf16` records; NVIDIA H100 80GB HBM3,
+# 700.00 W). SASRec's causal bias at dh=16 (150 to 600: C2DSR's views)
+# crosses at the same T in fp32. bf16 (the native long backward against
+# the one-sweep kernel's bf16 build), taken where the long path was at least
+# 10% faster in each of two sweeps: from 150 at dh=32 and 64 (0.180 against
+# 0.289 ms at dh=32); at dh=8 from 200 (a tie at 150, 0.384 against 0.384;
+# 0.482 against 0.700 at 200); at dh=16 from 200, where SASRec's causal
+# bias crosses (0.357 against 0.324 ms at 150, 0.465 against 0.568 at 200;
+# key padding from 150). Below it, and wherever the one-sweep kernel was the
+# faster, shapes stay on that kernel.
+LONG_FASTER_FROM = {"fp32": {8: 512, 16: 368, 32: 150, 64: 150},
+                    "bf16": {8: 200, 16: 200, 32: 150, 64: 150}}
 
 
-def long_faster(t: int, dh: int) -> bool:
-    """Whether the long path was the faster backward at (T, dh) where both
-    paths take the shape: from `LONG_FASTER_FROM[dh]` on. A plain rule of the
-    shape; binds nothing."""
-    start = LONG_FASTER_FROM.get(dh)
+def long_faster(t: int, dh: int, mode: str = "fp32") -> bool:
+    """Whether the long path was the faster backward at (T, dh) in `mode`
+    where both paths take the shape: from `LONG_FASTER_FROM[mode][dh]` on. A
+    plain rule of the shape; binds nothing."""
+    start = LONG_FASTER_FROM[mode].get(dh)
     return start is not None and t >= start
 
 
@@ -521,10 +547,11 @@ def sweep_fits(t: int, dh: int) -> bool:
     return fits
 
 
-def backward_route(t: int, dh: int) -> str:
-    """'long' (the long-sequence path) where `long_faster(t, dh)` or where the
-    one-sweep kernel cannot hold the shape (`sweep_fits`), else 'sweep'."""
-    return "long" if long_faster(t, dh) or not sweep_fits(t, dh) else "sweep"
+def backward_route(t: int, dh: int, mode: str = "fp32") -> str:
+    """'long' (the long-sequence path) where `long_faster(t, dh, mode)` or
+    where the one-sweep kernel cannot hold the shape (`sweep_fits`), else
+    'sweep'."""
+    return "long" if long_faster(t, dh, mode) or not sweep_fits(t, dh) else "sweep"
 
 
 def _check_backward_fits(t: int, dh: int) -> None:
@@ -605,7 +632,7 @@ def _launch_forward(q, k, v, bias, seed, heads: int, rate: float, stats: bool, p
         _bind()
     bsz, t, d = q.shape
     if path is None:
-        path = forward_route(t, d // heads)
+        path = forward_route(t, d // heads, "bf16" if bf16 else "fp32")
     if path == "long":
         return _launch_forward_long(q, k, v, bias, seed, heads, rate, stats, bf16)
     if path != "sweep":
@@ -631,7 +658,11 @@ def _launch_forward_long(q, k, v, bias, seed, heads: int, rate: float, stats: bo
     bsz, t, d = q.shape
     q, k, v = (x if _rows_aligned(x) else x.contiguous() for x in (q, k, v))
     block, outs, _seed_alive = _pack_forward(q, k, v, bias, seed, heads, rate, stats)
-    err = (_bf16_entry["attention_fwd_long"] if bf16 else _fwd_long)(block)
+    if bf16:  # the native bf16 path: the packed operands' scratch after the block
+        scratch = _long_bf16_scratch(q, bias, heads, 3, 0)
+        err = _bf16_entry["attention_fwd_long"](block + _PACK_PTR(scratch.data_ptr()))
+    else:
+        err = _fwd_long(block)
     if err == _TOO_LONG:
         raise ValueError(f"attention_fwd_long: T={t} is beyond its limit of "
                          f"T={_fwd_long_max_t} (or B*heads beyond 2^31 - 1)")
@@ -663,9 +694,11 @@ def _launch_backward(q, k, v, bias, out, row_max, row_inv_sum, dout,
                          f"{tuple(row_max.shape)}, {tuple(row_inv_sum.shape)}")
     row_max, row_inv_sum = row_max.contiguous(), row_inv_sum.contiguous()
     if path is None:
-        path = backward_route(t, d // heads)
+        path = backward_route(t, d // heads, "bf16" if bf16 else "fp32")
     if path == "long":  # its copies read 16-byte chunks of q, k, v and dout rows
         q, k, v, dout = (x if _rows_aligned(x) else x.contiguous() for x in (q, k, v, dout))
+        if bf16 and not _rows_aligned(out):  # and its pre-pass of out's
+            out = out.contiguous()
     strides = _strides((("q", q), ("k", k), ("v", v), ("out", out), ("dout", dout)), bias,
                        dev, (("row_max", row_max), ("row_inv_sum", row_inv_sum)))
     dq, dk, dv = (q.new_empty((bsz, t, d)) for _ in range(3))
@@ -676,9 +709,12 @@ def _launch_backward(q, k, v, bias, out, row_max, row_inv_sum, dout,
             bsz, t, d, heads, *strides, *fields,
             1.0 / math.sqrt(d // heads), 1.0 / (1.0 - rate))
     if path == "long":
-        dsum = q.new_empty((bsz, heads, t))  # D_i, from the dQ kernel to the dK/dV kernel
-        err = (_bf16_entry["attention_bwd_long"] if bf16 else _bwd_long)(
-            _PACK_BWD_LONG(*args, dsum.data_ptr()))
+        if bf16:  # the native bf16 path: packed q, k, v, dout, the rows' float4s
+            scratch = _long_bf16_scratch(q, bias, heads, 4, 16)
+            err = _bf16_entry["attention_bwd_long"](_PACK_BWD_LONG(*args, scratch.data_ptr()))
+        else:  # D_i, from the dQ kernel to the dK/dV kernel
+            dsum = q.new_empty((bsz, heads, t))
+            err = _bwd_long(_PACK_BWD_LONG(*args, dsum.data_ptr()))
         if err == _TOO_LONG:
             raise ValueError(f"attention_bwd_long: T={t} is beyond its limit of "
                              f"T={_long_max_t} (or B*heads beyond 2^31 - 1)")
@@ -704,6 +740,62 @@ def _launch_backward(q, k, v, bias, out, row_max, row_inv_sum, dout,
 def _rows_aligned(x: torch.Tensor) -> bool:
     """Whether every [dh] row of a [B, T, D] tensor starts on 16 bytes."""
     return x.data_ptr() % 16 == 0 and x.stride(0) % 4 == 0 and x.stride(1) % 4 == 0
+
+
+# ---------------------------------------------------------------------------
+# the native bf16 long paths' packed operands (csrc/attention_long_bf16.cuh)
+# ---------------------------------------------------------------------------
+
+# keys a stage of the bf16 long forward (kStageKeys of
+# csrc/attention_fwd_long_bf16.cu): its online softmax rounds the
+# unnormalised exp(S - m) once a stage, so this is part of its function
+LONG_BF16_STAGE_KEYS = 64
+LONG_BF16_PAD_ROWS = 128  # kPadRows: a packed head's T_pad is T rounded up to it
+
+
+def bf16_packed_shape(t: int, dh: int) -> tuple[int, int]:
+    """(T_pad, dh_pad) of a packed head: T rounded up to LONG_BF16_PAD_ROWS,
+    dh or 16 at dh=8 (a k16 step reads 16 columns)."""
+    return -(-t // LONG_BF16_PAD_ROWS) * LONG_BF16_PAD_ROWS, max(dh, 16)
+
+
+def pack_bf16_plain(x: torch.Tensor, heads: int) -> torch.Tensor:
+    """The bf16 long paths' pack pre-pass in plain PyTorch: [B, T, D] fp32
+    rounded to bf16 (nearest even) into [B, h, T_pad / 8, dh_pad / 8, 8, 8]:
+    each head padded with zero rows to T_pad and zero columns to dh_pad, cut
+    into core matrices of 8 rows x 8 columns, core matrix (r / 8, c / 8)
+    after the ones before it in row-block-major order. Its memory order is
+    the kernel's packed head."""
+    bsz, t, d = x.shape
+    dh = d // heads
+    tp, dhp = bf16_packed_shape(t, dh)
+    padded = x.new_zeros((bsz, heads, tp, dhp))
+    padded[:, :, :t, :dh] = _heads(x, heads)
+    blocks = padded.to(torch.bfloat16).view(bsz, heads, tp // 8, 8, dhp // 8, 8)
+    return blocks.permute(0, 1, 2, 4, 3, 5).contiguous()
+
+
+def unpack_bf16_plain(packed: torch.Tensor, t: int, dh: int) -> torch.Tensor:
+    """The inverse of `pack_bf16_plain`: a packed [B, h, T_pad / 8, dh_pad / 8,
+    8, 8] tensor of heads of width `dh` as [B, T, h * dh] fp32, the padding
+    dropped."""
+    bsz, heads, rb, cb, _, _ = packed.shape
+    rows = packed.permute(0, 1, 2, 4, 3, 5).reshape(bsz, heads, rb * 8, cb * 8)
+    return _merge(rows[:, :, :t, :dh].float())
+
+
+def _long_bf16_scratch(q, bias, heads: int, operands: int, row_bytes: int) -> torch.Tensor:
+    """The scratch of one native bf16 long launch, from the caching allocator
+    (so a CUDA graph's capture keeps it): `operands` packed bf16 inputs of
+    [B, h, T_pad, dh_pad], `row_bytes` more a packed row (the backward's
+    float4 of m, 1/l, D and the dropout key), and a bias that broadcasts over
+    queries padded to T_pad (fp32), as the entry point carves it."""
+    bsz, t, d = q.shape
+    tp, dhp = bf16_packed_shape(t, d // heads)
+    nbytes = bsz * heads * tp * (operands * dhp * 2 + row_bytes)
+    if (bias.stride(2) if bias.shape[2] > 1 else 0) == 0:
+        nbytes += (bsz if bias.shape[0] > 1 else 1) * tp * 4
+    return torch.empty(nbytes, dtype=torch.uint8, device=q.device)
 
 
 def _device_route(q, name: str) -> bool:

@@ -8,9 +8,10 @@ JAX package. Phases, in order (any failure ends the run with a non-zero exit
 code and no result line):
 
 1. the card's name and power limit; build every CUDA kernel of the serving
-   and training paths from `amid_tpu_torch/csrc/` (eight sources and the
-   attention sources' bf16 builds, one `nvcc` each, all started together),
-   timing the build;
+   and training paths from `amid_tpu_torch/csrc/` (eight sources, the long
+   attention paths' two native bf16 sources and the one-head attention
+   sources' bf16 builds, one `nvcc` each, all started together), timing
+   the build;
 2. kernels: each kernel against its plain PyTorch version on the card, at
    the main paths' shapes, with its time beside the plain version's, one
    PyTorch library call's (a yardstick the port never calls) and the card's
@@ -179,13 +180,15 @@ code and no result line):
    27,000-row synthetic CSV packed by the native reader (the repository's
    library, or one built into `_build/`) and by the Python reader, the
    arrays equal, both times;
-10. the precision flags: each bf16-operand mode (K1's four paths built with
-   `AMID_ATTN_BF16=1`, K5's bf16 flag), on 3 draws a case, against an fp64
-   oracle of its own rounding points, its plain bf16 version and (that
-   version) an fp64 oracle of the JAX kernel's rounding, each within the
-   case's limit (BF16_LIMITS), with the fp32 build at the same inputs
-   outside the oracle's limit; timed beside the fp32 mode at the same shape
-   (library: SDPA on bf16 q, k, v; bound at the bf16 peak);
+10. the precision flags: each bf16-operand mode (K1's one-head paths built
+   with `AMID_ATTN_BF16=1`, its long paths' native bf16 kernels, K5's bf16
+   flag), on 3 draws a case, against an fp64 oracle of its own rounding
+   points, its plain bf16 version and (that version) an fp64 oracle of the
+   JAX kernel's rounding, each within the case's limit (BF16_LIMITS), with
+   the fp32 build at the same inputs outside the oracle's limit; timed
+   beside the fp32 mode at the same shape (library: SDPA on bf16 q, k, v;
+   bound at the bf16 peak); both bf16 crossover sweeps (`fwd_crossover_bf16`,
+   `bwd_crossover_bf16`: the numbers behind the routes' bf16 tables);
    `--bf16 True` on the run.sh model at T=20 (lazy, quirk) and T=150
    (dense, pairwise) and on BERT4Rec at T=150 (both long paths): `run_seed`
    with its launches on the bf16 builds, an eager phase-A and phase-B step
@@ -195,7 +198,13 @@ code and no result line):
    fp32's; `--remat True` at T=150: a step bit-equal to the step without
    remat (8 attention forwards: the recompute), replayed remat steps
    bit-equal to eager ones, and the replayed phase A's time and peak memory
-   with and without remat at batch 256 and 1,024.
+   with and without remat at batch 256 and 1,024; the owed many-step check
+   (`bf16_drift`): 100 phase-A steps of `--bf16` BERT4Rec at T=150 with
+   the kernels and with the plain versions from one seed, the fp32 pair
+   beside them, the loss gap every 10 steps and HIT/NDCG@10 of one
+   evaluation, the bf16 pair's final losses within 1% of each other, and
+   every 10 steps the bf16 kernels on that step's own attention inputs
+   against their fp64 oracles.
 
 It prints a JSON line of per-kernel numbers, the total wall time, the
 `nvidia-smi` name and power line, and last `{"ok": true, "device": {...}}`.
@@ -282,15 +291,16 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
                              "amid_tpu/ops/pallas_affinity.py:39"),
     "max_affinity_smalln": ("amid_tpu_torch/csrc/affinity.cu",
                             "amid_tpu/ops/pallas_affinity.py:127"),
-    # the bf16-operand modes (the model's --bf16): the same sources built with
-    # AMID_ATTN_BF16=1 (K1), the kernel's bf16 flag (K5)
+    # the bf16-operand modes (the model's --bf16): K1's one-head sources built
+    # with AMID_ATTN_BF16=1, its long paths' native bf16 sources, the
+    # kernel's bf16 flag (K5)
     "attention_fwd_bf16": ("amid_tpu_torch/csrc/attention_fwd.cu",
                            "amid_tpu/ops/pallas_attention.py:99"),
-    "attention_fwd_long_bf16": ("amid_tpu_torch/csrc/attention_fwd_long.cu",
+    "attention_fwd_long_bf16": ("amid_tpu_torch/csrc/attention_fwd_long_bf16.cu",
                                 "amid_tpu/ops/pallas_attention.py:99"),
     "attention_bwd_bf16": ("amid_tpu_torch/csrc/attention_bwd.cu",
                            "amid_tpu/ops/pallas_attention.py:118"),
-    "attention_bwd_long_bf16": ("amid_tpu_torch/csrc/attention_bwd_long.cu",
+    "attention_bwd_long_bf16": ("amid_tpu_torch/csrc/attention_bwd_long_bf16.cu",
                                 "amid_tpu/ops/pallas_attention.py:118"),
     "scoring_head_bf16": ("amid_tpu_torch/csrc/scoring_head.cu",
                           "amid_tpu/ops/pallas_scoring.py:69"),
@@ -348,6 +358,14 @@ BF16_LIMITS = {
     "bf16_bwd_long_keypad_T600_h4_rate0.1": (2e-4, 2e-4, 2e-4),
     "bf16_scoring_pair_C1000": (3e-5, 4e-5, 4e-5),
     "bf16_scoring_pair_C2": (4e-5, 1e-4, 1e-4),
+    # the card tests' native long cases (tests/test_torch_cuda.py: every head
+    # width, key padding and causal, rates 0 and 0.1, T of 300, 600 and
+    # 1,000 at B=8): 4x the largest reading of 9 such cases over 3 draws
+    # (2.8e-5 / 2.4e-3 / 4.0e-5 forward, 9.6e-5 / 5.0e-5 / 9.6e-5 backward;
+    # the fp32 build 2.9e-3 and 4.3e-3 at the least; NVIDIA H100 80GB HBM3,
+    # 700.00 W), rounded up
+    "bf16_long_native": (1.2e-4, 1e-2, 2e-4),
+    "bf16_bwd_long_native": (4e-4, 3e-4, 4e-4),
 }
 # a bf16 step, kernels='cuda' against kernels='torch' (`bf16_step_check`):
 # losses 2.0e-5 apart at most (T=150 pairwise), held at 5x. The forward
@@ -549,7 +567,8 @@ def expected_launches(cfg, train_steps=0, eval_batches=0, feature_passes=0,
 
     blocks = {"gru4rec": 0, "bert4rec": cfg.bert_blocks}.get(cfg.backbone, cfg.sasrec_blocks)
     counts = dict.fromkeys(KERNELS, 0)
-    mode = "_bf16" if resolve_precision(cfg) == "bf16" else ""  # the bf16 builds' counts
+    precision = resolve_precision(cfg)  # the routes' tables and the bf16 builds' counts
+    mode = "_bf16" if precision == "bf16" else ""
     # SASRec's remat runs each block's attention forward again in the backward
     remat = 2 if cfg.remat and cfg.backbone == "sasrec" else 1
 
@@ -557,11 +576,11 @@ def expected_launches(cfg, train_steps=0, eval_batches=0, feature_passes=0,
         """n passes over sequences of length t through both towers."""
         if blocks:
             t_enc, dh = encoder_length(cfg, t), head_width(cfg)
-            long = forward_route(t_enc, dh) == "long"
+            long = forward_route(t_enc, dh, precision) == "long"
             counts[("attention_fwd_long" if long else "attention_fwd") + mode] += (
                 2 * blocks * n * (remat if backward else 1))
             if backward:
-                long = backward_route(t_enc, dh) == "long"
+                long = backward_route(t_enc, dh, precision) == "long"
                 counts[("attention_bwd_long" if long else "attention_bwd") + mode] += (
                     2 * blocks * n)
         if not cfg.comp_broadcast_quirk:
@@ -1831,7 +1850,8 @@ def graph_draws(torch, cfg, tcfg, label):
         train_ds, val_ds, dr_ds = (synth_packed(cfg, rng, n)
                                    for n in (TRAIN_ROWS, VAL_ROWS, DR_ROWS))
         for path in ("long", "sweep"):
-            attention.LONG_FWD_FASTER_FROM = table if path == "long" else {}
+            attention.LONG_FWD_FASTER_FROM = table if path == "long" else {
+                mode: {} for mode in table}
             try:
                 require(attention.forward_route(cfg.enc_seq_len, head_width(cfg)) == path,
                         f"{label}: the forward route is not {path}")
@@ -2715,10 +2735,12 @@ def bf16_attention_oracle(torch, q, k, v, bias, seed, heads, rate):
 
 
 def key_chunk(path: str, dh: int) -> int:
-    """Keys a bf16 forward kernel takes per online-softmax step: kChunk = 32
-    in `attention_fwd.cu`, a stage of NS = 64 (32 at dh=64) in
-    `attention_fwd_long.cu`."""
-    return 32 if path == "sweep" or dh == 64 else 64
+    """Keys a bf16 forward kernel takes per online-softmax step, at every
+    head width: kChunk = 32 in `attention_fwd.cu`, a stage of kStageKeys in
+    `attention_fwd_long_bf16.cu` (`ops/attention.py::LONG_BF16_STAGE_KEYS`)."""
+    from amid_tpu_torch.ops.attention import LONG_BF16_STAGE_KEYS
+
+    return 32 if path == "sweep" else LONG_BF16_STAGE_KEYS
 
 
 def bf16_attention_kernel_oracle(torch, q, k, v, bias, seed, heads, rate, chunk):
@@ -3158,6 +3180,235 @@ def remat_step_check(torch, cfg, tcfg, ds, label):
     return rec
 
 
+BF16_CROSS_REL = 1e-2  # the two bf16 forward paths' outputs, ||a - b|| / ||b||
+BF16_CROSS_BWD_REL = 1e-3  # the two bf16 backward paths' gradients
+
+
+def bf16_crossover_sweeps(torch, gen):
+    """Phase 10(b): the bf16 routes' crossovers, the sweeps of phase 2 with
+    the bf16 builds: both forward paths' `device_ms` at B=256, D=128, rate
+    0, key padding and causal, T in FWD_SWEEP_T at dh 32 and 16
+    (`fwd_crossover_bf16`), both backward paths' at T in BWD_SWEEP_T for
+    the head widths of BWD_SWEEP_HEADS wherever the one-sweep kernel holds
+    the shape, key padding, and causal at dh=16 up to T=600
+    (`bwd_crossover_bf16`): the numbers behind the "bf16" tables of
+    `ops/attention.py`'s LONG_FWD_FASTER_FROM and LONG_FASTER_FROM. The two
+    forwards round exp(S - m) at their own stages (32 and 64 keys), so their
+    outputs agree to bf16 rounding (BF16_CROSS_REL); the two backwards
+    round at the same points (BF16_CROSS_BWD_REL)."""
+    from amid_tpu_torch.ops import attention as attention_ops
+    from amid_tpu_torch.ops.attention import (
+        attention_fwd_stats_plain, backward_route, forward_route, long_faster, sweep_fits,
+    )
+
+    B, D = 256, 128
+    recs = []
+
+    def causal(t):
+        return torch.triu(torch.full((t, t), -1e9, device="cuda"), diagonal=1)[None, None]
+
+    for heads in (4, 8):
+        dh = D // heads
+        for kind in ("keypad", "causal"):
+            for t in FWD_SWEEP_T:
+                q, k, v = (torch.randn(B, t, D, device="cuda", generator=gen) for _ in range(3))
+                bias = keypad_bias(torch, gen, B, t) if kind == "keypad" else causal(t)
+                outs, ms = {}, {}
+                for p in ("sweep", "long"):
+                    def fwd(p=p):
+                        return attention_ops._launch_forward(q, k, v, bias, 0, heads, 0.0, False,
+                                                             p, bf16=True)[0]
+                    with torch.no_grad():
+                        outs[p] = fwd()
+                    ms[p] = graph_ms(torch, fwd)
+                rel = rel_norm(outs["long"], outs["sweep"])
+                require(rel <= BF16_CROSS_REL,
+                        f"fwd_crossover_bf16 T={t} dh={dh} {kind}: the paths differ by {rel}")
+                rec = {"T": t, "dh": dh, "bias": kind, "route": forward_route(t, dh, "bf16"),
+                       "measured_faster": min(ms, key=ms.get),
+                       **{f"{p}_device_ms": x for p, x in ms.items()}, "rel_diff": rel}
+                emit({"fwd_crossover_bf16": rec})
+                recs.append(("fwd", rec))
+                del q, k, v, bias, outs
+
+    def bwd_pair(t, heads, bias, paths):
+        q, k, v, dout = (torch.randn(B, t, D, device="cuda", generator=gen) for _ in range(4))
+        with torch.no_grad():
+            out, m, inv = attention_fwd_stats_plain(q, k, v, bias, 0, heads, 0.0, True)
+        grads, ms = {}, {}
+        for p in paths:
+            def bwd(p=p):
+                return attention_ops._launch_backward(q, k, v, bias, out, m, inv, dout, 0,
+                                                      heads, 0.0, p, bf16=True)
+            grads[p] = bwd()
+            ms[p] = graph_ms(torch, bwd)
+        rel = 0.0
+        if len(paths) == 2:
+            rel = max(rel_norm(a, b) for a, b in zip(grads["long"], grads["sweep"]))
+            require(rel <= BF16_CROSS_BWD_REL,
+                    f"bwd_crossover_bf16 T={t} heads={heads}: the paths differ by {rel}")
+        return ms, rel
+
+    for heads in BWD_SWEEP_HEADS:
+        dh = D // heads
+        for t in BWD_SWEEP_T:
+            if not sweep_fits(t, dh):
+                continue
+            ms, rel = bwd_pair(t, heads, keypad_bias(torch, gen, B, t), ("sweep", "long"))
+            rec = {"T": t, "dh": dh, "bias": "keypad", "route": backward_route(t, dh, "bf16"),
+                   "long_faster": long_faster(t, dh, "bf16"),
+                   "measured_faster": min(ms, key=ms.get),
+                   **{f"{p}_device_ms": x for p, x in ms.items()}, "rel_diff": rel}
+            emit({"bwd_crossover_bf16": rec})
+            recs.append(("bwd", rec))
+            torch.cuda.empty_cache()
+    for t in (*BWD_SWEEP_T, 600):
+        paths = ("sweep", "long") if sweep_fits(t, 16) else ("long",)
+        ms, rel = bwd_pair(t, 8, causal(t), paths)
+        rec = {"T": t, "dh": 16, "bias": "causal", "route": backward_route(t, 16, "bf16"),
+               "long_faster": long_faster(t, 16, "bf16"), "measured_faster": min(ms, key=ms.get),
+               **{f"{p}_device_ms": x for p, x in ms.items()}, "rel_diff": rel}
+        emit({"bwd_crossover_bf16": rec})
+        recs.append(("bwd", rec))
+        torch.cuda.empty_cache()
+    return recs
+
+
+DRIFT_STEPS, DRIFT_EVERY = 100, 10  # bf16_drift: phase-A steps, and the loss gap's cadence
+DRIFT_LOSS_REL = 0.01  # the bf16 pair's final losses within 1% of each other
+# the bf16 long kernels on the drift run's own attention inputs, against the
+# fp64 oracles of their rounding: the long cases' kernel_oracle limits
+DRIFT_KERNEL_LIMITS = {"fwd": BF16_LIMITS["bf16_long_keypad_T600_h4_rate0.1"][0],
+                       "bwd": BF16_LIMITS["bf16_bwd_long_keypad_T600_h4_rate0.1"][0]}
+
+
+def trajectory_attention(torch, probe, model, batch, pools, key, gen):
+    """`probe` (a kernels='cuda' model, its state and its phase-A step),
+    handed `model`'s weights, takes a step on `batch` with `key`, and its
+    first attention block's inputs are kept. On them, the bf16 forward
+    kernel against the fp64 oracle of its own rounding, and the bf16
+    backward kernel (fed the plain residuals and a drawn dO) against its
+    oracle, on the first ORACLE_ROWS rows: the norm ratios, by direction."""
+    from amid_tpu_torch.ops import attention as attention_ops
+    from amid_tpu_torch.ops.attention import (
+        attention_fwd_stats_plain, backward_route, forward_route,
+    )
+
+    net, state, step = probe
+    net.load_state_dict(model.state_dict())
+    block = next(m for m in net.modules() if hasattr(m, "attend"))
+    attend, seen = block.attend, []
+    block.attend = lambda *a, **kw: seen.append(a) or attend(*a, **kw)
+    try:
+        step(state, batch, *pools, key)
+    finally:
+        block.attend = attend
+    require(len(seen) > 0, "bf16_drift: the step called no attention block")
+    q, k, v, bias, seed, heads, rate = (x.detach() if isinstance(x, torch.Tensor) else x
+                                        for x in seen[0])
+    b, t, d = q.shape
+    OB = ORACLE_ROWS
+    rows = (q[:OB], k[:OB], v[:OB], bias[:OB], seed, heads, rate)
+    paths = {"fwd": forward_route(t, d // heads, "bf16"),
+             "bwd": backward_route(t, d // heads, "bf16")}
+    with torch.no_grad():
+        out = attention_ops._launch_forward(q, k, v, bias, seed, heads, rate, False,
+                                            paths["fwd"], bf16=True)[0]
+        own = bf16_attention_kernel_oracle(torch, *rows, key_chunk(paths["fwd"], d // heads))
+        res = attention_fwd_stats_plain(q, k, v, bias, seed, heads, rate, True)
+        dout = torch.randn(b, t, d, device="cuda", generator=gen)
+        grads = attention_ops._launch_backward(q, k, v, bias, *res, dout, seed, heads, rate,
+                                               paths["bwd"], bf16=True)
+        oracle = bf16_attention_bwd_oracle(torch, *rows[:4], res[0][:OB], dout[:OB], seed,
+                                           heads, rate)
+    return {"T": t, "rate": rate, "paths": paths, "fwd": rel_norm(out[:OB], own),
+            "bwd": max(rel_norm(g[:OB], o) for g, o in zip(grads, oracle))}
+
+
+def bf16_drift_check(torch, rng):
+    """Phase 10(e): how far bf16 training with the kernels parts from bf16
+    training with the plain versions over many steps. BERT4Rec at T=150,
+    dense Adam (encoder T=300, dh=32: both bf16 long paths where the bf16
+    routes take them), DRIFT_STEPS eager phase-A steps from one seed and one
+    key a step over the same synthetic batches, with kernels='cuda' and
+    kernels='torch', in bf16 and, as the control, in fp32; the loss gap of
+    each pair every DRIFT_EVERY steps, and HIT/NDCG@10 of one evaluation
+    of the validation rows at the end. The bf16 pair's final losses must lie
+    within DRIFT_LOSS_REL of each other (a gap that grows step on step is a
+    fault of the kernels). Neither that gap nor a loss or gradient of
+    one step from shared weights tells a faulty kernel from a sound one at
+    these weights: the loss sits near ln 2, and bf16 rounding moves the
+    encoders' gradients as much as a dropout mask one key off does. So
+    every DRIFT_EVERY steps of the bf16 kernel run, the bf16 kernels are
+    also held to their fp64 oracles on that step's own attention inputs
+    (`trajectory_attention`, DRIFT_KERNEL_LIMITS)."""
+    from amid_tpu_torch.config import DataConfig, ModelConfig, TrainConfig
+    from amid_tpu_torch.data.loader import BatchIterator
+    from amid_tpu_torch.data.synthetic import synth_packed
+    from amid_tpu_torch.train.loop import _device_pools, _to_device
+    from amid_tpu_torch.train.metrics import rank_metrics
+
+    base = ModelConfig(**{**FLAGSHIP, "seq_len": 150, **BACKBONES["bert4rec"]})
+    train_ds, val_ds = (synth_packed(base, rng, n) for n in (TRAIN_ROWS, VAL_ROWS))
+    batches = [_to_device(b, "cuda") for b in BatchIterator(train_ds, base.batch_size, False)]
+    val_batches = [_to_device(b, "cuda") for b in BatchIterator(val_ds, base.batch_size, False)]
+    pools = _device_pools(train_ds, "cuda")
+    val_pools = _device_pools(val_ds, "cuda")
+    rec = {"config": "bert4rec_T150_dense", "steps": DRIFT_STEPS}
+    kernel_readings = {}
+    gen = torch.Generator(device="cuda")  # the trajectory checks' dO
+    gen.manual_seed(int(rng.integers(2**31)))
+    t0 = time.perf_counter()
+    for mode in ("bf16", "fp32"):
+        cfg = dataclasses.replace(base, use_bf16=mode == "bf16")
+        tcfg = TrainConfig(epochs=1, seeds=1, model_dir="", lazy_table_adam=False,
+                           nan_policy="halt", checkpoint=False, model=cfg,
+                           data=DataConfig(neg_nums=999))
+        losses, evals = {}, {}
+        for kernels in ("cuda", "torch"):
+            model, state, step_a, _, eval_step = make_steps(cfg, tcfg, kernels)
+            # the kernel model that takes the bf16 kernel run's attention inputs
+            probe = make_steps(cfg, tcfg, "cuda")[:3] if (
+                mode, kernels) == ("bf16", "cuda") else None
+            got = []
+            for i in range(DRIFT_STEPS):
+                batch = batches[i % len(batches)]
+                if probe is not None and (i + 1) % DRIFT_EVERY == 0:
+                    kernel_readings[str(i + 1)] = trajectory_attention(
+                        torch, probe, model, batch, pools, 7000 + i, gen)
+                _, m = step_a(state, batch, *pools, 7000 + i)
+                got.append(m["loss"])
+            del probe
+            losses[kernels] = [float(x) for x in torch.stack(got).cpu()]
+            ranks = [eval_step(b, *val_pools, 9000 + i)["ranks_fixed"]
+                     for i, b in enumerate(val_batches)]
+            metrics = rank_metrics(torch.cat(ranks).cpu().numpy())
+            evals[kernels] = {k: metrics[k] for k in ("hit_10", "ndcg_10")}
+            del model, state, step_a, eval_step
+            torch.cuda.empty_cache()
+        require(all(math.isfinite(x) for run in losses.values() for x in run),
+                f"bf16_drift {mode}: a non-finite loss")
+        gaps = [abs(a - b) for a, b in zip(losses["cuda"], losses["torch"])]
+        rec[mode] = {
+            "loss_gap_every": {str(i + 1): gaps[i]
+                               for i in range(DRIFT_EVERY - 1, DRIFT_STEPS, DRIFT_EVERY)},
+            "final_loss": {k: run[-1] for k, run in losses.items()},
+            "final_rel_gap": gaps[-1] / abs(losses["torch"][-1]),
+            "eval": evals}
+    rec["bf16"]["kernel_oracle_every"] = kernel_readings
+    rec["bf16"]["kernel_oracle_limits"] = DRIFT_KERNEL_LIMITS
+    rec["seconds"] = time.perf_counter() - t0
+    emit({"bf16_drift": rec})
+    for what, limit in DRIFT_KERNEL_LIMITS.items():
+        worst = max(x[what] for x in kernel_readings.values())
+        require(worst <= limit, f"bf16_drift: the bf16 {what} kernel reads {worst} from its "
+                                f"fp64 oracle on the run's own inputs, above {limit}")
+    require(rec["bf16"]["final_rel_gap"] <= DRIFT_LOSS_REL,
+            f"bf16_drift: the bf16 pair's final losses are {rec['bf16']['final_rel_gap']} "
+            f"apart (relative), above {DRIFT_LOSS_REL}")
+    return rec
+
+
 def precision_phase(torch, rng):
     """Phase 10: the precision flags at the run.sh width. (b) `--bf16 True`
     on the run.sh model at T=20 (lazy, quirk) and T=150 (dense, pairwise):
@@ -3166,8 +3417,9 @@ def precision_phase(torch, rng):
     kernels='torch' bf16 model (`bf16_step_check`), replayed steps bit-equal
     to eager ones, the feature pass against the fp32 model's, and the
     replayed phase A beside fp32's. (c) BERT4Rec at T=150 under `--bf16
-    True` (encoder T=300, dh=32: both long paths' bf16 builds): `run_seed`,
-    the step check, replayed steps bit-equal to eager ones. (d) `--remat
+    True` (encoder T=300, dh=32: both native bf16 long paths): `run_seed`,
+    the step check, replayed steps bit-equal to eager ones, the replayed
+    phase A beside fp32's. (d) `--remat
     True` on the run.sh model at T=150, dense: one phase-A step with and
     without remat bit-equal, replayed remat steps bit-equal to eager ones,
     and the replayed phase A's time and peak memory with and without remat
@@ -3215,6 +3467,7 @@ def precision_phase(torch, rng):
         rec["graph_steps"] = graph_checks(torch, cfg, tcfg, train_ds, val_ds, dr_ds, label,
                                           exact=True, evaluate=False)
         torch.cuda.empty_cache()
+        gaps = {}
         if cfg.backbone == "sasrec":
             batch = make_batch(cfg, rng)
             feats = []
@@ -3226,15 +3479,16 @@ def precision_phase(torch, rng):
             scale = max(b.abs().max().item() for b in feats[1])
             require(gap <= BF16_FEATURE_TOL * scale,
                     f"{label}: bf16 features {gap} from fp32's (largest {scale})")
-            timing = {}
-            for mode, c in (("bf16", cfg), ("fp32", dataclasses.replace(cfg, use_bf16=False))):
-                timing[mode] = replayed_phase_a(torch, c, tcfg, train_ds)
-            rec["feature_gap"], rec["feature_scale"] = gap, scale
-            rec["replayed_phase_a"] = timing
-            emit({"bf16_model": {"config": label, "feature_gap": gap, "feature_scale": scale,
-                                 **{f"{m}_{k}": v[k] for m, v in timing.items()
-                                    for k in ("wall_ms_per_step", "device_ms_per_step",
-                                              "device_idle_share")}}})
+            gaps = {"feature_gap": gap, "feature_scale": scale}
+            rec.update(gaps)
+        timing = {}
+        for mode, c in (("bf16", cfg), ("fp32", dataclasses.replace(cfg, use_bf16=False))):
+            timing[mode] = replayed_phase_a(torch, c, tcfg, train_ds)
+        rec["replayed_phase_a"] = timing
+        emit({"bf16_model": {"config": label, **gaps,
+                             **{f"{m}_{k}": v[k] for m, v in timing.items()
+                                for k in ("wall_ms_per_step", "device_ms_per_step",
+                                          "device_idle_share")}}})
         runs[label] = rec
         torch.cuda.empty_cache()
 
@@ -3319,7 +3573,9 @@ def main() -> int:
     c2dsr_runs = phase(c2dsr_phase, np.random.default_rng(4))
     checkpoint_runs = phase(checkpoint_phase, np.random.default_rng(5))
     bf16 = phase(bf16_kernel_phase, gen)
+    phase(bf16_crossover_sweeps, gen)
     precision_runs = phase(precision_phase, np.random.default_rng(6))
+    phase(bf16_drift_check, np.random.default_rng(7))
 
     # launches on the main paths: the serving passes, the run_seed runs and
     # the CLI runs (each on the fast loops and per step), the backbones'

@@ -102,23 +102,27 @@ def test_forward_route_takes_the_long_path_beyond_the_one_head_kernel(kernel_lim
                                                                       monkeypatch):
     """'long' where the one-head kernel's shared memory cannot hold the head
     (`forward_max_t`: 800 at dh=32, 1,448 at dh=16) or from
-    `LONG_FWD_FASTER_FROM[dh]` on; 'sweep' otherwise."""
-    monkeypatch.setattr(attention_ops, "LONG_FWD_FASTER_FROM", {})
+    `LONG_FWD_FASTER_FROM[mode][dh]` on; 'sweep' otherwise."""
+    monkeypatch.setattr(attention_ops, "LONG_FWD_FASTER_FROM", {"fp32": {}, "bf16": {}})
     for dh, limit in ((8, 2416), (16, 1448), (32, 800), (64, 424)):
-        assert attention_ops.forward_route(limit, dh) == "sweep"
-        assert attention_ops.forward_route(limit + 1, dh) == "long"
-    monkeypatch.setattr(attention_ops, "LONG_FWD_FASTER_FROM", {32: 300})
+        for mode in attention_ops.MODES:
+            assert attention_ops.forward_route(limit, dh, mode) == "sweep"
+            assert attention_ops.forward_route(limit + 1, dh, mode) == "long"
+    monkeypatch.setattr(attention_ops, "LONG_FWD_FASTER_FROM", {"fp32": {32: 300}, "bf16": {}})
     assert attention_ops.forward_route(299, 32) == "sweep"
     assert attention_ops.forward_route(300, 32) == attention_ops.forward_route(1200, 32) == "long"
     assert attention_ops.forward_route(300, 16) == "sweep"  # another width keeps its own rule
+    assert attention_ops.forward_route(300, 32, "bf16") == "sweep"  # another mode its own table
 
 
 def test_every_measured_crossover_is_within_the_one_head_kernel(kernel_limits):
     """The table holds only shapes both paths take: a T past the one-head
     kernel's limit is long by the limit alone."""
-    for dh, start in attention_ops.LONG_FWD_FASTER_FROM.items():
-        assert dh in attention_ops.KERNEL_HEAD_DIMS
-        assert start <= attention_ops.forward_max_t(dh)
+    assert set(attention_ops.LONG_FWD_FASTER_FROM) == set(attention_ops.MODES)
+    for table in attention_ops.LONG_FWD_FASTER_FROM.values():
+        for dh, start in table.items():
+            assert dh in attention_ops.KERNEL_HEAD_DIMS
+            assert start <= attention_ops.forward_max_t(dh)
 
 
 def test_long_launch_packs_the_forward_block_and_counts_apart(monkeypatch):

@@ -401,14 +401,17 @@ def _no_binding(monkeypatch):
 @pytest.mark.parametrize("dh", attention_ops.KERNEL_HEAD_DIMS)
 def test_long_faster_is_the_measured_crossover_and_binds_nothing(monkeypatch, dh):
     """`long_faster` is a rule of (T, dh) alone: false below the head width's
-    measured crossover, true from it on (never where none was measured)."""
+    measured crossover, true from it on (never where none was measured),
+    in each mode by that mode's table."""
     _no_binding(monkeypatch)
-    start = attention_ops.LONG_FASTER_FROM[dh]
-    for t in (1, 20, 150, 200, 256, 300, 368, 600, 4096):
-        assert attention_ops.long_faster(t, dh) == (start is not None and t >= start), t
-    if start is not None:
-        assert not attention_ops.long_faster(start - 1, dh)
-        assert attention_ops.long_faster(start, dh)
+    for mode in attention_ops.MODES:
+        start = attention_ops.LONG_FASTER_FROM[mode][dh]
+        for t in (1, 20, 150, 200, 256, 300, 368, 600, 4096):
+            assert attention_ops.long_faster(t, dh, mode) == (start is not None
+                                                              and t >= start), (mode, t)
+        if start is not None:
+            assert not attention_ops.long_faster(start - 1, dh, mode)
+            assert attention_ops.long_faster(start, dh, mode)
 
 
 @pytest.mark.parametrize("dh", attention_ops.KERNEL_HEAD_DIMS)
@@ -420,16 +423,18 @@ def test_backward_route_sends_each_shape_to_the_faster_path(monkeypatch, dh):
     fits = 900  # the recorder's one-sweep kernel holds T <= 900 at every head width
     monkeypatch.setattr(attention_ops, "_bwd_smem",
                         lambda t, dh: attention_ops.SMEM_LIMIT * t // fits)
-    start = attention_ops.LONG_FASTER_FROM[dh]
-    for t in (1, 37, 150, 200, 256, 300, 368, 400, 600, fits):
-        want = "long" if start is not None and t >= start else "sweep"
-        assert attention_ops.backward_route(t, dh) == want, t
-    for t in (fits + 1, 1000, 65535):
-        assert attention_ops.backward_route(t, dh) == "long", t
-    monkeypatch.setattr(attention_ops, "LONG_FASTER_FROM", {dh: None})
+    for mode in attention_ops.MODES:
+        start = attention_ops.LONG_FASTER_FROM[mode][dh]
+        for t in (1, 37, 150, 200, 256, 300, 368, 400, 600, fits):
+            want = "long" if start is not None and t >= start else "sweep"
+            assert attention_ops.backward_route(t, dh, mode) == want, (mode, t)
+        for t in (fits + 1, 1000, 65535):
+            assert attention_ops.backward_route(t, dh, mode) == "long", (mode, t)
+    monkeypatch.setattr(attention_ops, "LONG_FASTER_FROM", {"fp32": {dh: None}, "bf16": {}})
     attention_ops._bwd_fits.clear()
-    assert attention_ops.backward_route(fits, dh) == "sweep"
-    assert attention_ops.backward_route(fits + 1, dh) == "long"
+    for mode in attention_ops.MODES:
+        assert attention_ops.backward_route(fits, dh, mode) == "sweep"
+        assert attention_ops.backward_route(fits + 1, dh, mode) == "long"
 
 
 def test_long_path_packs_rows_that_start_on_16_bytes(monkeypatch):

@@ -1689,7 +1689,18 @@ def _chip_smoke():
 @pytest.mark.parametrize("b,t,heads,kind,rate,path,case", [
     (64, 150, 8, "causal", 0.5, "sweep", "causal_T150_h8_rate0.5"),
     (256, 20, 8, "causal", 0.0, "sweep", "causal_T20_h8_rate0.0"),
-    (32, 600, 4, "keypad", 0.1, "long", "long_keypad_T600_h4_rate0.1")])
+    (32, 600, 4, "keypad", 0.1, "long", "long_keypad_T600_h4_rate0.1"),
+    # the native bf16 long paths at every head width, both biases, both
+    # rates, T of 300, 600 and 1,000 (none a multiple of a stage), held to
+    # one pair of limits (chip_smoke.py's "bf16_long_native" cases)
+    (8, 300, 16, "keypad", 0.0, "long", "long_native"),
+    (8, 600, 16, "causal", 0.1, "long", "long_native"),
+    (8, 1000, 8, "causal", 0.1, "long", "long_native"),
+    (8, 1000, 8, "keypad", 0.0, "long", "long_native"),
+    (8, 300, 4, "causal", 0.0, "long", "long_native"),
+    (8, 1000, 4, "keypad", 0.1, "long", "long_native"),
+    (8, 1000, 2, "keypad", 0.1, "long", "long_native"),
+    (8, 600, 2, "causal", 0.0, "long", "long_native")])
 def test_bf16_attention_modes_match_their_plain_versions(gen, b, t, heads, kind, rate, path,
                                                          case):
     """The forward's and the backward's bf16 builds on one path within
@@ -1697,7 +1708,8 @@ def test_bf16_attention_modes_match_their_plain_versions(gen, b, t, heads, kind,
     own rounding points, the plain versions with `mxu_bf16=True` and the
     oracle of the JAX kernel's, with the fp32 builds at the same inputs
     outside the oracle limit (so the bf16 builds ran); two calls bit-equal;
-    the launches count in the bf16 builds' counts only."""
+    the launches count in the bf16 builds' counts only (on the long path
+    the pre-pass runs inside each call)."""
     cs = _chip_smoke()
     d = 128
     dh = d // heads
@@ -1822,3 +1834,17 @@ def test_replayed_remat_steps_equal_eager_steps(gen):
 def test_replayed_bf16_steps_equal_eager_steps(gen):
     _bit_equal_replays(_fast_cfg(use_bf16=True),
                        {"attention_fwd_bf16": 4, "attention_bwd_bf16": 4})
+
+
+def test_replayed_bf16_bert4rec_steps_equal_eager_steps(gen):
+    """`--bf16` BERT4Rec at T=150 (encoder T=300, dh=32): the paths the bf16
+    routes take there (both native long paths), their packed scratch from
+    the caching allocator inside the capture, replays bit-equal to eager
+    steps."""
+    cfg = dataclasses.replace(_fast_cfg(use_bf16=True, backbone="bert4rec"), emb_dim=128,
+                              seq_len=150)
+    fwd = "attention_fwd_long_bf16" if forward_route(300, 32, "bf16") == "long" else (
+        "attention_fwd_bf16")
+    bwd = "attention_bwd_long_bf16" if attention_ops.backward_route(300, 32, "bf16") == (
+        "long") else "attention_bwd_bf16"
+    _bit_equal_replays(cfg, {fwd: 4, bwd: 4})
