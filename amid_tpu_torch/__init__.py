@@ -15,10 +15,13 @@ core of SASRec and BERT4Rec, forward and backward, with a second backward
 path for sequences too long for the first (`ops/attention.py`), the lazy Adam's
 unique-row scatters (`ops/scatter.py`), the embedding gather
 (`ops/embedding.py`), the fused scoring head (`ops/scoring.py`) and the
-pairwise max-affinity (`ops/affinity.py`). Entry points run on `cuda` unless
-the caller passes `device="cpu"`.
+pairwise max-affinity (`ops/affinity.py`). The trainer also runs on a
+`data x model` mesh of `torch.distributed` ranks, across nodes
+(`parallel/`: the item table row-sharded over `model`, the peer banks
+all-gathered over `data`, the gspmd and shard_map steps). Entry points run
+on `cuda` unless the caller passes `device="cpu"`.
 """
 
-from amid_tpu_torch.config import ModelConfig
+from amid_tpu_torch.config import DataConfig, MeshConfig, ModelConfig, TrainConfig
 
-__all__ = ["ModelConfig"]
+__all__ = ["DataConfig", "MeshConfig", "ModelConfig", "TrainConfig"]

@@ -26,22 +26,22 @@ accept:
 * `TrainConfig`'s checkpoint fields (`checkpoint`, `checkpoint_keep`,
   `checkpoint_every`, `checkpoint_async`, `checkpoint_payload`, `resume`),
   `nan_policy`, `profile_steps` and the fast loops (`fast_train`,
-  `fast_eval`) act as in the JAX package, with its defaults. It keeps the
-  mesh fields so configs read the same; `train.loop.run_seed` raises
-  `NotImplementedError` naming `use_mesh` when it is set (the parallel
-  layer is not ported yet).
+  `fast_eval`) act as in the JAX package, with its defaults, and so do the
+  mesh fields (`use_mesh`, `mesh_impl`, `mesh`: `parallel/`, a rank of the
+  `torch.distributed` world where the JAX package has a device).
 
 `parse_cli` takes the reference-style flags of the JAX package's `parse_cli`
 with the same defaults and builds the same `TrainConfig`, field by field.
 What differs: `--kernels` is checked against `auto|torch|cuda`;
 `--data_root` defaults to `reference`; `--device` (not a config field: see
-`parse_cli_with_device`) names the device, the card when absent; the flags of
-the parallel layer, which is not ported (`--mesh`, `--data_axis`,
-`--model_axis`, `--distributed`), parse into their fields and `--mesh`
-meets the `NotImplementedError` of `use_mesh`; `--model` takes the three backbones of `BACKBONES` in any case and
-raises `ValueError` on another name (the JAX package raises it when the model
-is built); `--distributed`
-joins no runtime here, it only sets `use_mesh`; `--bf16`, `--remat` and
+`parse_cli_with_device`) names the device, the card when absent; `--model`
+takes the three backbones of `BACKBONES` in any case and raises
+`ValueError` on another name (the JAX package raises it when the model is
+built); `--distributed True` joins the `torch.distributed` world before
+anything else (`parallel.distributed.initialize_distributed`: torchrun's
+environment, or `--coordinator host:port --num_processes N --process_id I`;
+NCCL on the card, gloo with `--device cpu`) and sets `use_mesh`, as
+`--mesh True`, `--data_axis` and `--model_axis` do; `--bf16`, `--remat` and
 `--matmul_precision` fill their fields, which the model reads.
 """
 
@@ -162,9 +162,8 @@ class DataConfig:
 
 @dataclass
 class MeshConfig:
-    """Device mesh layout of the JAX package (`data` axis for batch
-    parallelism, `model` axis for row-sharded tables); read by nothing in the
-    port until the parallel layer is ported."""
+    """Mesh layout (`data` axis for batch parallelism, `model` axis for
+    row-sharded tables) over the ranks of the world (`parallel/mesh.py`)."""
 
     data_axis: int = -1  # -1: all remaining devices
     model_axis: int = 1
@@ -204,7 +203,7 @@ class TrainConfig:
     # rolls back to the last checkpoint (in place), "ignore" logs and
     # continues (as "restore" does with no checkpoint).
     nan_policy: str = "restore"
-    use_mesh: bool = False  # not ported yet: run_seed raises when set
+    use_mesh: bool = False  # train on the data x model mesh (parallel/)
     mesh_impl: str = "gspmd"
     # Sparse embedding updates (train/lazy.py): only touched table rows'
     # params/moments move; lazy-Adam semantics (untouched rows' moments don't
@@ -303,15 +302,22 @@ def _add_reference_flags(p: argparse.ArgumentParser) -> None:
                    help=">=0: single-domain mode — keep only rows of this "
                         "domain (reference SingleDomainSeqDataset)")
     p.add_argument("--data_axis", type=int, default=-1,
-                   help="data-parallel axis size (mesh training: not ported yet)")
+                   help="data-parallel axis size (-1: the ranks left); sets --mesh")
     p.add_argument("--model_axis", type=int, default=1,
-                   help="model axis size (mesh training: not ported yet)")
-    p.add_argument("--mesh", type=_parse_bool, default=False)
+                   help="model axis size: the item table's rows sharded over it")
+    p.add_argument("--mesh", type=_parse_bool, default=False,
+                   help="train on the data x model mesh of the world's ranks")
     p.add_argument("--mesh_impl", type=str, default="gspmd",
-                   choices=("gspmd", "shard_map"))
+                   choices=("gspmd", "shard_map"),
+                   help="gspmd: the single-process function of the global batch; "
+                        "shard_map: per-shard random streams, dense Adam, per step")
+    # Multi-node launch (parallel/distributed.py): every rank runs this same
+    # CLI (torchrun, or one process a rank with the three flags below).
     p.add_argument("--distributed", type=_parse_bool, default=False,
-                   help="multi-process training (not ported yet; sets use_mesh)")
-    p.add_argument("--coordinator", type=str, default="")
+                   help="join the torch.distributed world before training "
+                        "(implies --mesh True)")
+    p.add_argument("--coordinator", type=str, default="",
+                   help="rank 0's address host:port (empty: torchrun's environment)")
     p.add_argument("--num_processes", type=int, default=-1)
     p.add_argument("--process_id", type=int, default=-1)
 
@@ -324,6 +330,15 @@ def parse_cli_with_device(
     p = argparse.ArgumentParser(description="amid_tpu_torch trainer")
     _add_reference_flags(p)
     a = p.parse_args(argv)
+    if a.distributed:
+        from amid_tpu_torch.parallel.distributed import initialize_distributed
+
+        initialize_distributed(
+            coordinator_address=a.coordinator or None,
+            num_processes=a.num_processes if a.num_processes > 0 else None,
+            process_id=a.process_id if a.process_id >= 0 else None,
+            device=a.device,
+        )
     if a.model.lower() not in BACKBONES:
         raise ValueError(f"unknown backbone {a.model.lower()!r} (--model {a.model}); "
                          f"one of {BACKBONES}")

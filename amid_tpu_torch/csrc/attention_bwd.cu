@@ -104,7 +104,7 @@ attention_bwd_kernel(const BwdParams p) {
     if constexpr (!kHoldKV) vs[t * P + c] = in ? vb[t * p.v_st + c] : 0.f;
   }
   const uint32_t bh_key =
-      p.dropout ? mix(mix(kMixKey0, (uint32_t)*p.seed), (uint32_t)bh) : 0u;
+      p.dropout ? mix(mix(kMixKey0, (uint32_t)*p.seed), (uint32_t)bh + p.bh_offset) : 0u;
   const long long stat = (long long)bh * T;
   for (int i = threadIdx.x; i < TQ; i += blockDim.x) {
     const bool in = i < T;

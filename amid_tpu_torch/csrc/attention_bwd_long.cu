@@ -185,7 +185,8 @@ attention_bwd_dq_kernel(const BwdParams p, float* dsum) {
   int i2[2];
   float m2[2], l2[2], d2[2];
   uint32_t key2[2];
-  const uint32_t bh_key = DROP ? mix(mix(kMixKey0, (uint32_t)*p.seed), (uint32_t)bh) : 0u;
+  const uint32_t bh_key =
+      DROP ? mix(mix(kMixKey0, (uint32_t)*p.seed), (uint32_t)bh + p.bh_offset) : 0u;
 #pragma unroll
   for (int x = 0; x < 2; ++x) {  // a row past T has m = inf: P = 0
     const int i = q0 + rl + 8 * x;
@@ -348,7 +349,8 @@ attention_bwd_dkdv_kernel(const BwdParams p, const float* dsum) {
   const float* bias_b = p.bias + b * p.bias_sb;
   const long long stat = (long long)bh * T;
   const int ns = (T + NS - 1) / NS;
-  const uint32_t bh_key = DROP ? mix(mix(kMixKey0, (uint32_t)*p.seed), (uint32_t)bh) : 0u;
+  const uint32_t bh_key =
+      DROP ? mix(mix(kMixKey0, (uint32_t)*p.seed), (uint32_t)bh + p.bh_offset) : 0u;
 
   if (tid == 0) {
     mbar_init(smem_u32(full), kThreads);

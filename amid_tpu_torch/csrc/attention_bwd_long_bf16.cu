@@ -104,7 +104,7 @@ struct Packed {
 };
 
 // Each query row's float4 (m_i, 1/l_i, D_i, the row's dropout key
-// mix(mix(mix(K0, seed), bh), i)) for rows i < T_pad of every (b, h); +inf,
+// mix(mix(mix(K0, seed), bh + row_offset * H), i)) for rows i < T_pad of every (b, h); +inf,
 // 0, 0 past T. One thread a 16-byte chunk of the row's dO and O: dh / 4
 // threads a row, consecutive along it, so a warp reads whole rows. D_i is
 // each chunk's four products summed in order, then the chunks' sums added
@@ -136,7 +136,8 @@ __global__ void rows_kernel(const BwdParams p, float4* __restrict__ rows, int Tp
     if (e < total && c == 0) {
       float4 out = make_float4(INFINITY, 0.f, 0.f, 0.f);
       if (real) out = make_float4(p.row_max[bh * p.T + i], p.row_inv_sum[bh * p.T + i], d, 0.f);
-      if (p.dropout) out.w = __uint_as_float(mix(mix(seed_key, (uint32_t)bh), (uint32_t)i));
+      if (p.dropout)
+        out.w = __uint_as_float(mix(mix(seed_key, (uint32_t)bh + p.bh_offset), (uint32_t)i));
       rows[r] = out;
     }
   }

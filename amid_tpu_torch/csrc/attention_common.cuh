@@ -159,12 +159,15 @@ __device__ __forceinline__ void mma3(float (&d)[4], const FragA& a, float b0, fl
 // packs in one call (pointers as integers; null pointers as 0). `seed` points
 // to one int64 on the device (its low 32 bits key the dropout hash), read by
 // the kernel only when `dropout` is set, so that a CUDA graph replays a launch
-// with the seed its step drew on the device.
+// with the seed its step drew on the device. `row_offset` is the global row of
+// the call's batch row 0: the hash keys row b as (row_offset + b) * H + h, so
+// that a data-parallel rank holding rows [b0, b0 + B) of a global batch draws
+// the masks a call on the whole batch draws for them (0 off a mesh).
 struct FwdArgs {
   long long q, k, v, bias, out, row_max, row_inv_sum;
   long long B, T, D, H;
   long long q_sb, q_st, k_sb, k_st, v_sb, v_st, bias_sb, bias_si;
-  long long dropout, keep_threshold, seed, stream;
+  long long dropout, keep_threshold, seed, stream, row_offset;
   double scale, inv_keep;
 };
 
@@ -172,7 +175,7 @@ struct BwdArgs {
   long long q, k, v, bias, out, dout, row_max, row_inv_sum, dq, dk, dv;
   long long B, T, D, H;
   long long q_sb, q_st, k_sb, k_st, v_sb, v_st, o_sb, o_st, g_sb, g_st, bias_sb, bias_si;
-  long long dropout, keep_threshold, seed, stream;
+  long long dropout, keep_threshold, seed, stream, row_offset;
   double scale, inv_keep;
 };
 
@@ -191,6 +194,7 @@ struct FwdParams {
   float scale, inv_keep;
   uint32_t keep_threshold;
   const long long* seed;  // one int64 on the device, read when dropout is on
+  uint32_t bh_offset;     // row_offset * H: added to b * H + h in the hash
   int dropout;
 };
 
@@ -200,7 +204,7 @@ inline FwdParams fwd_params(const FwdArgs& a) {
           ptr<float>(a.row_inv_sum), (int)a.T, (int)a.D, (int)a.H,
           a.q_sb, a.q_st, a.k_sb, a.k_st, a.v_sb, a.v_st, a.bias_sb, a.bias_si,
           (float)a.scale, (float)a.inv_keep, (uint32_t)a.keep_threshold,
-          ptr<const long long>(a.seed),
+          ptr<const long long>(a.seed), (uint32_t)(a.row_offset * a.H),
           (int)a.dropout};
 }
 
@@ -214,6 +218,7 @@ struct BwdParams {
   float scale, inv_keep;
   uint32_t keep_threshold;
   const long long* seed;  // one int64 on the device, read when dropout is on
+  uint32_t bh_offset;     // row_offset * H: added to b * H + h in the hash
   int dropout;
 };
 
@@ -226,7 +231,7 @@ inline BwdParams bwd_params(const BwdArgs& a) {
           a.q_sb, a.q_st, a.k_sb, a.k_st, a.v_sb, a.v_st, a.o_sb, a.o_st, a.g_sb, a.g_st,
           a.bias_sb, a.bias_si,
           (float)a.scale, (float)a.inv_keep, (uint32_t)a.keep_threshold,
-          ptr<const long long>(a.seed),
+          ptr<const long long>(a.seed), (uint32_t)(a.row_offset * a.H),
           (int)a.dropout};
 }
 

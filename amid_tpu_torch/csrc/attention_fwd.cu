@@ -87,7 +87,7 @@ attention_fwd_kernel(const FwdParams p) {
   const int warps = blockDim.x >> 5;
   const float* bias_b = p.bias + b * p.bias_sb;
   const uint32_t bh_key =
-      p.dropout ? mix(mix(kMixKey0, (uint32_t)*p.seed), (uint32_t)bh) : 0u;
+      p.dropout ? mix(mix(kMixKey0, (uint32_t)*p.seed), (uint32_t)bh + p.bh_offset) : 0u;
   float* out_b = p.out + (long long)b * T * p.D + h * DH;
 
   for (int qt = threadIdx.x >> 5; qt < tiles16(T); qt += warps) {

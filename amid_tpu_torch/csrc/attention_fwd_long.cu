@@ -133,7 +133,8 @@ attention_fwd_long_kernel(const FwdParams p) {
   const int rl = wg * 64 + warp * 16 + g;  // this thread's rows rl, rl + 8 of the block
   const float* brow[2];
   uint32_t key2[2];
-  const uint32_t bh_key = DROP ? mix(mix(kMixKey0, (uint32_t)*p.seed), (uint32_t)bh) : 0u;
+  const uint32_t bh_key =
+      DROP ? mix(mix(kMixKey0, (uint32_t)*p.seed), (uint32_t)bh + p.bh_offset) : 0u;
 #pragma unroll
   for (int x = 0; x < 2; ++x) {  // a row past T reads row T - 1's bias and writes nothing
     const int i = q0 + rl + 8 * x;

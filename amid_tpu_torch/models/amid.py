@@ -46,6 +46,15 @@ counterpart of `amid_tpu/parallel/context.py::lazy_rows` and the redirect in
 unique ids and `rows` the gathered table rows, the differentiated leaf of the
 lazy table Adam, so the table itself takes no gradient. A group of lookups
 shares one `searchsorted`.
+
+On a mesh (inside `parallel.context.spmd`), as the JAX package's hooks
+(`amid_tpu/models/amid.py::_item_table`, `_features`): the table parameter
+holds this rank's `item_table_size // model_shards` rows (the trainer cuts
+them, `parallel/distributed.py::shard_global`; a table the model axis does
+not divide is refused there, where the JAX package's shard_map floors it
+and loses the last rows), and every lookup goes through
+`parallel.embedding.embedding_lookup`: the sharded lookup, unless the step
+hands the model lazy rows, which are whole on every rank.
 """
 
 from __future__ import annotations
@@ -63,6 +72,7 @@ from amid_tpu_torch.models.heads import PredictHead
 from amid_tpu_torch.ops.embedding import embedding_gather_many, embedding_gather_many_plain
 from amid_tpu_torch.ops.precision import resolve_precision
 from amid_tpu_torch.ops.torch_compat import torch_embedding_init_
+from amid_tpu_torch.parallel.embedding import embedding_lookup
 
 Batch = dict[str, Any]
 
@@ -121,7 +131,7 @@ class AMIDModel(nn.Module):
                             zip(pos.split([ids.numel() for ids in ids_list]), ids_list)]
         gather = (embedding_gather_many if self.cfg.kernels == "cuda"
                   else embedding_gather_many_plain)
-        return gather(table, ids_list, concat=concat)
+        return embedding_lookup(table, ids_list, gather, concat, lazy=lazy_rows is not None)
 
     def features(self, batch: Batch, rng=None,
                  lazy_rows=None) -> tuple[torch.Tensor, torch.Tensor]:

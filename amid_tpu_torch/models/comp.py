@@ -28,6 +28,15 @@ applies trans_nn after masking, so trans_nn(0) = b_nn still reaches trans_bs),
 and the hard gate passes no gradient to the affinity (getBinaryTensor,
 model_seq.py:445-448). `trans_bs` is Linear(batch_size, 1), so the batch must
 be exactly `batch_size` (model_seq.py:457).
+
+On a mesh (inside `parallel.context.spmd`) a rank holds its rows of the
+global batch, and the contraction is over the global batch, as in the JAX
+package's shard_map hook: in quirk mode the diagonal affinity [b_local] is
+computed locally and all-gathered over `data` with the peer bank, in the
+same data-rank order (the order `trans_bs`'s weight indexes); in pairwise
+mode the peer bank alone is gathered and the gate's rows stay local. The
+gather's backward hands each rank's rows the gradient of every rank's loss
+(`parallel.collectives.all_gather_data`).
 """
 
 from __future__ import annotations
@@ -40,6 +49,8 @@ from torch import nn
 
 from amid_tpu_torch.ops.affinity import diag_max_affinity, max_affinity
 from amid_tpu_torch.ops.precision import einsum, matmul
+from amid_tpu_torch.parallel import context
+from amid_tpu_torch.parallel.collectives import all_gather_data
 from amid_tpu_torch.ops.torch_compat import torch_linear_init_
 
 
@@ -80,13 +91,28 @@ class PeerMessage(nn.Module):
         probs = self.gate_probabilities(seq_self, seq_peer)
         return (probs > self.threshold).to(seq_self.dtype)
 
+    def _mesh_gate(self, axes, seq_self: torch.Tensor, seq_peer: torch.Tensor):
+        """(the hard gate, the global peer bank) of this rank's rows."""
+        if self.broadcast_quirk:
+            with torch.no_grad():
+                aff = all_gather_data(diag_max_affinity(
+                    seq_self, seq_peer, self.precision == "bf16"), axes)  # [B]
+            seq_peer = all_gather_data(seq_peer, axes)
+            return (torch.softmax(aff, dim=0) > self.threshold).to(seq_self.dtype), seq_peer
+        seq_peer = all_gather_data(seq_peer, axes)
+        return self.gate(seq_self, seq_peer), seq_peer
+
     def forward(self, seq_self: torch.Tensor, seq_peer: torch.Tensor) -> torch.Tensor:
+        axes = context.current()
+        if axes is not None:
+            adj, seq_peer = self._mesh_gate(axes, seq_self, seq_peer)
         if seq_peer.shape[0] != self.batch_size:
             raise ValueError(
                 f"the peer batch must be exactly batch_size={self.batch_size} "
                 f"(trans_bs is Linear(batch_size, 1)); got {seq_peer.shape[0]}"
             )
-        adj = self.gate(seq_self, seq_peer)
+        if axes is None:
+            adj = self.gate(seq_self, seq_peer)
         w_bs, mode = self.trans_bs.weight[0], self.precision  # [C]
         peer_proj = matmul(seq_peer, self.trans_nn.weight.T, mode)  # [C, M, D]
         leak = w_bs.sum() * self.trans_nn.bias + self.trans_bs.bias

@@ -65,14 +65,16 @@ NEG_INF = -1e9  # reference mask fill value (model_seq.py:155)
 
 
 def _attention_dropout(training: bool, rate: float, rng):
-    """(seed, rate) of an attention call: a seed drawn from the step's
-    generators in train mode with dropout, else (0, 0.0)."""
+    """(seed, rate, row_offset) of an attention call: a seed drawn from the
+    step's generators in train mode with dropout and the global row of the
+    batch's row 0 (`ops.rng.DropoutRandom.row_offset`: nonzero on a gspmd
+    mesh rank), else (0, 0.0, 0)."""
     if not training or rate <= 0.0:
-        return 0, 0.0
+        return 0, 0.0, 0
     if rng is None:
         raise ValueError("train-mode attention dropout needs the step's "
                          "StepRandom (pass rng=...)")
-    return rng.attention_seed(), rate
+    return rng.attention_seed(), rate, rng.row_offset
 
 
 def _remat(fn, rng, *args):
@@ -119,9 +121,9 @@ class TorchMultiheadAttention(nn.Module):
         qp = linear(q, w[:d], b[:d], mode)
         kp = linear(k, w[d : 2 * d], b[d : 2 * d], mode)
         vp = linear(v, w[2 * d :], b[2 * d :], mode)
-        seed, rate = _attention_dropout(self.training, self.dropout, rng)
+        seed, rate, row_offset = _attention_dropout(self.training, self.dropout, rng)
         out = self.attend(qp, kp, vp, attn_bias, seed, self.num_heads, rate,
-                          mxu_bf16=mode == "bf16")
+                          mxu_bf16=mode == "bf16", row_offset=row_offset)
         return linear(out, self.out_proj.weight, self.out_proj.bias, mode)
 
 
@@ -229,9 +231,10 @@ class BertBlock(nn.Module):
             return linear(y, layer.weight, layer.bias, self.precision)
 
         q_in = self.ln1(x)
-        seed, rate = _attention_dropout(self.training, self.dropout, rng)
+        seed, rate, row_offset = _attention_dropout(self.training, self.dropout, rng)
         att = self.attend(lin(self.q, q_in), lin(self.k, q_in), lin(self.v, q_in), bias,
-                          seed, self.num_heads, rate, mxu_bf16=self.precision == "bf16")
+                          seed, self.num_heads, rate, mxu_bf16=self.precision == "bf16",
+                          row_offset=row_offset)
         x = x + drop(lin(self.out, att))
         f = lin(self.ff2, drop(tanh_gelu(lin(self.ff1, self.ln2(x)))))
         return drop(x + drop(f))

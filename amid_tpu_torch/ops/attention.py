@@ -61,7 +61,11 @@ attention probabilities and scales the kept ones by 1/(1 - rate).
 * `dropout_keep_mask` is the counter-based dropout mask both versions use:
   a pure function of (seed, b, h, i, j), so kernel and plain agree bit for
   bit. The TPU's own random bits cannot be reproduced; against JAX only
-  rate 0 compares.
+  rate 0 compares. `row_offset` (every version and wrapper takes it, 0 by
+  default) is the global row of the call's row 0: the mask keys row b as
+  row_offset + b, so a data-parallel rank holding rows [b0, b0 + B) of a
+  global batch (`parallel/`, gspmd) draws, with row_offset=b0, the rows a
+  call on the whole batch at offset 0 draws for them.
 
 The dropout `seed` is a Python int or a one-element int64 tensor on the
 inputs' device (what a training step draws, `ops.rng.StepRandom.
@@ -181,19 +185,20 @@ def keep_threshold(rate: float) -> int:
 
 
 def dropout_keep_mask(
-    seed, bsz: int, heads: int, t: int, rate: float, device=None, keys=None
+    seed, bsz: int, heads: int, t: int, rate: float, device=None, keys=None,
+    row_offset: int = 0,
 ) -> torch.Tensor:
     """Boolean keep mask [B, heads, T, T] of the kernel's dropout; `seed` an
     int or a one-element int64 tensor on `device`. With `keys`, a range of
     key indices, only those columns: [B, heads, T, len(keys)].
 
-    bits(b, h, i, j) = mix(mix(mix(mix(K0, seed), b*heads + h), i), j) and the
-    element is kept iff bits >> 8 >= ceil(rate * 2^24)."""
+    bits(b, h, i, j) = mix(mix(mix(mix(K0, seed), (row_offset + b)*heads + h),
+    i), j) and the element is kept iff bits >> 8 >= ceil(rate * 2^24)."""
     if isinstance(seed, torch.Tensor):
         seed = seed.reshape(()).to(torch.int64)
     keys = range(t) if keys is None else keys
     stream = _mix(_MIX_KEY0, seed & _M32)
-    bh = torch.arange(bsz * heads, dtype=torch.int64, device=device)
+    bh = torch.arange(bsz * heads, dtype=torch.int64, device=device) + row_offset * heads
     idx = torch.arange(t, dtype=torch.int64, device=device)
     jdx = torch.arange(keys.start, keys.stop, dtype=torch.int64, device=device)
     key_bh = _mix(stream, bh)  # [BH]
@@ -229,10 +234,11 @@ def _scores(q, k, bias, heads: int, bf16: bool = False):
     return _mm(_heads(q, heads), _heads(k, heads).transpose(-1, -2), bf16) * scale + bias
 
 
-def _keep(seed, q, heads: int, rate: float):
+def _keep(seed, q, heads: int, rate: float, row_offset: int = 0):
     """keep / (1 - rate) as [B, h, T, T] floats."""
     bsz, t, _ = q.shape
-    return dropout_keep_mask(seed, bsz, heads, t, rate, q.device) * (1.0 / (1.0 - rate))
+    return dropout_keep_mask(seed, bsz, heads, t, rate, q.device,
+                             row_offset=row_offset) * (1.0 / (1.0 - rate))
 
 
 def attention_plain(
@@ -244,6 +250,7 @@ def attention_plain(
     heads: int,
     rate: float,
     mxu_bf16: bool = False,
+    row_offset: int = 0,
 ) -> torch.Tensor:
     """softmax(Q K^T / sqrt(dh) + bias) [dropout] V per head, in plain
     PyTorch. Same arguments and result as `fused_attention`."""
@@ -251,16 +258,17 @@ def attention_plain(
     if mxu_bf16:
         if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                         or v.requires_grad):
-            return _PlainAttentionBf16.apply(q, k, v, bias, seed, heads, rate)
-        return attention_fwd_stats_plain(q, k, v, bias, seed, heads, rate, True)[0]
+            return _PlainAttentionBf16.apply(q, k, v, bias, seed, heads, rate, row_offset)
+        return attention_fwd_stats_plain(q, k, v, bias, seed, heads, rate, True,
+                                         row_offset)[0]
     p = torch.softmax(_scores(q, k, bias, heads), dim=-1)
     if rate > 0.0:
-        p = p * _keep(seed, q, heads, rate)
+        p = p * _keep(seed, q, heads, rate, row_offset)
     return _merge(torch.matmul(p, _heads(v, heads)))
 
 
 def attention_fwd_stats_plain(q, k, v, bias, seed, heads: int, rate: float,
-                              mxu_bf16: bool = False):
+                              mxu_bf16: bool = False, row_offset: int = 0):
     """(out, row_max, row_inv_sum): the forward kernel's results under
     autograd, in plain PyTorch. out equals `attention_plain`; row_max[b, h, i]
     is m_i = max_j S_ij and row_inv_sum[b, h, i] is 1 / sum_j exp(S_ij - m_i),
@@ -273,12 +281,13 @@ def attention_fwd_stats_plain(q, k, v, bias, seed, heads: int, rate: float,
     inv_l = 1.0 / e.sum(dim=-1, keepdim=True)
     p = e * inv_l
     if rate > 0.0:
-        p = p * _keep(seed, q, heads, rate)
+        p = p * _keep(seed, q, heads, rate, row_offset)
     return _merge(_mm(p, _heads(v, heads), mxu_bf16)), m.squeeze(-1), inv_l.squeeze(-1)
 
 
 def attention_fwd_stats_streamed_plain(q, k, v, bias, seed, heads: int, rate: float,
-                                       block_k: int = 64, mxu_bf16: bool = False):
+                                       block_k: int = 64, mxu_bf16: bool = False,
+                                       row_offset: int = 0):
     """(out, row_max, row_inv_sum) of `attention_fwd_stats_plain`, computed
     in the long forward kernel's order (`csrc/attention_fwd_long.cu`): an
     online softmax over tiles of `block_k` keys (the kernel's stage: 64, 32
@@ -306,8 +315,8 @@ def attention_fwd_stats_streamed_plain(q, k, v, bias, seed, heads: int, rate: fl
 
     def dropped(e, keys):
         if rate > 0.0:
-            e = e * dropout_keep_mask(seed, bsz, heads, t, rate, q.device, keys) * (
-                1.0 / (1.0 - rate))
+            e = e * dropout_keep_mask(seed, bsz, heads, t, rate, q.device, keys,
+                                      row_offset) * (1.0 / (1.0 - rate))
         return e
 
     for keys in tiles:
@@ -329,7 +338,8 @@ def attention_fwd_stats_streamed_plain(q, k, v, bias, seed, heads: int, rate: fl
 
 
 def attention_bwd_plain(q, k, v, bias, out, row_max, row_inv_sum, dout,
-                        seed, heads: int, rate: float, mxu_bf16: bool = False):
+                        seed, heads: int, rate: float, mxu_bf16: bool = False,
+                        row_offset: int = 0):
     """(dq, dk, dv) of `attention_plain` for the output gradient `dout`
     [B, T, D], by the backward kernel's one-sweep arithmetic from the forward's
     `out` and row statistics (`attention_fwd_stats_plain`):
@@ -351,7 +361,7 @@ def attention_bwd_plain(q, k, v, bias, out, row_max, row_inv_sum, dout,
         dp = _mm(gh, vh.transpose(-1, -2), bf)
         pd = p
         if rate > 0.0:
-            keep = _keep(seed, q, heads, rate)
+            keep = _keep(seed, q, heads, rate, row_offset)
             pd, dp = p * keep, dp * keep
         dv = _mm(pd.transpose(-1, -2), gh, bf)
         ds = p * (dp - d_row)
@@ -366,19 +376,20 @@ class _PlainAttentionBf16(torch.autograd.Function):
     `attention_bwd_plain`, the arithmetic of the kernels' bf16 builds."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bias, seed, heads, rate):
+    def forward(ctx, q, k, v, bias, seed, heads, rate, row_offset):
         out, row_max, row_inv_sum = attention_fwd_stats_plain(q, k, v, bias, seed, heads,
-                                                              rate, True)
+                                                              rate, True, row_offset)
         ctx.save_for_backward(q, k, v, bias, out, row_max, row_inv_sum)
         ctx.attn_args = (seed, heads, rate)
+        ctx.row_offset = row_offset
         return out
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, dout):
         dq, dk, dv = attention_bwd_plain(*ctx.saved_tensors, dout, *ctx.attn_args,
-                                         mxu_bf16=True)
-        return dq, dk, dv, None, None, None, None
+                                         mxu_bf16=True, row_offset=ctx.row_offset)
+        return dq, dk, dv, None, None, None, None, None
 
 
 # ---------------------------------------------------------------------------
@@ -387,10 +398,10 @@ class _PlainAttentionBf16(torch.autograd.Function):
 
 # Each entry point takes one block of 8-byte fields (csrc/attention_common.cuh,
 # FwdArgs and BwdArgs), packed in one call: ctypes converts argument by argument.
-_PACK_FWD = struct.Struct("<23q2d").pack
-_PACK_BWD = struct.Struct("<31q2d").pack
+_PACK_FWD = struct.Struct("<24q2d").pack
+_PACK_BWD = struct.Struct("<32q2d").pack
 # BwdLongArgs: BwdArgs, then the D_i scratch (fp32) or the packed operands' (bf16)
-_PACK_BWD_LONG = struct.Struct("<31q2dq").pack
+_PACK_BWD_LONG = struct.Struct("<32q2dq").pack
 _PACK_PTR = struct.Struct("<q").pack  # the bf16 long forward's scratch, after FwdArgs
 _BAD_HEAD_WIDTH, _BAD_SHAPE, _TOO_LONG, _MISALIGNED = -1, -2, -3, -4  # the refusals
 _SOURCES = ["attention_fwd", "attention_fwd_long", "attention_bwd", "attention_bwd_long"]
@@ -592,16 +603,19 @@ def _seed_tensor(seed, dev) -> torch.Tensor:
     return seed
 
 
-def _dropout_fields(seed, rate: float, dev):
-    """dropout, keep_threshold, the seed's address (0 without dropout), stream;
-    and the seed tensor, which the caller keeps alive until the launch."""
+def _dropout_fields(seed, rate: float, dev, row_offset: int):
+    """dropout, keep_threshold, the seed's address (0 without dropout), stream,
+    row_offset; and the seed tensor, which the caller keeps alive until the
+    launch."""
     dropout = rate > 0.0
     seed_t = _seed_tensor(seed, dev) if dropout else None
     return (dropout, keep_threshold(rate) if dropout else 0,
-            seed_t.data_ptr() if dropout else 0, _build.raw_stream(dev.index)), seed_t
+            seed_t.data_ptr() if dropout else 0, _build.raw_stream(dev.index),
+            row_offset), seed_t
 
 
-def _pack_forward(q, k, v, bias, seed, heads: int, rate: float, stats: bool):
+def _pack_forward(q, k, v, bias, seed, heads: int, rate: float, stats: bool,
+                  row_offset: int = 0):
     """The FwdArgs block of one forward launch on checked CUDA tensors, the
     tensors it writes (out, row_max, row_inv_sum; the statistics only with
     `stats`) and the seed tensor, which the caller keeps alive until the
@@ -613,7 +627,7 @@ def _pack_forward(q, k, v, bias, seed, heads: int, rate: float, stats: bool):
     row_max = row_inv_sum = None
     if stats:
         row_max, row_inv_sum = q.new_empty((bsz, heads, t)), q.new_empty((bsz, heads, t))
-    fields, seed_t = _dropout_fields(seed, rate, dev)
+    fields, seed_t = _dropout_fields(seed, rate, dev, row_offset)
     block = _PACK_FWD(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(),
         row_max.data_ptr() if stats else 0, row_inv_sum.data_ptr() if stats else 0,
@@ -623,21 +637,24 @@ def _pack_forward(q, k, v, bias, seed, heads: int, rate: float, stats: bool):
 
 
 def _launch_forward(q, k, v, bias, seed, heads: int, rate: float, stats: bool, path=None,
-                    bf16: bool = False):
+                    bf16: bool = False, row_offset: int = 0):
     """(out, row_max, row_inv_sum) from one forward launch of the path `path`
     ('sweep', the one-head kernel, or 'long'; None: `forward_route`'s) on
     checked CUDA tensors; the statistics are written (and returned) only with
-    `stats`; `bf16`: the bf16-operand build."""
+    `stats`; `bf16`: the bf16-operand build; `row_offset`: the dropout mask's
+    global row of row 0."""
     if _fwd is None:
         _bind()
     bsz, t, d = q.shape
     if path is None:
         path = forward_route(t, d // heads, "bf16" if bf16 else "fp32")
     if path == "long":
-        return _launch_forward_long(q, k, v, bias, seed, heads, rate, stats, bf16)
+        return _launch_forward_long(q, k, v, bias, seed, heads, rate, stats, bf16,
+                                    row_offset)
     if path != "sweep":
         raise ValueError(f"the forward path is 'sweep' or 'long'; got {path!r}")
-    block, outs, _seed_alive = _pack_forward(q, k, v, bias, seed, heads, rate, stats)
+    block, outs, _seed_alive = _pack_forward(q, k, v, bias, seed, heads, rate, stats,
+                                             row_offset)
     err = (_bf16_entry["attention_fwd"] if bf16 else _fwd)(block)
     if err:
         _raise(err, "attention_fwd", _fwd_smem, t, d, heads)
@@ -649,7 +666,7 @@ def _launch_forward(q, k, v, bias, seed, heads: int, rate: float, stats: bool, p
 
 
 def _launch_forward_long(q, k, v, bias, seed, heads: int, rate: float, stats: bool,
-                         bf16: bool = False):
+                         bf16: bool = False, row_offset: int = 0):
     """`_launch_forward` on the long-sequence path: its copies read 16-byte
     chunks of q, k and v rows, so a view whose rows do not start on 16 bytes
     is copied first."""
@@ -657,7 +674,8 @@ def _launch_forward_long(q, k, v, bias, seed, heads: int, rate: float, stats: bo
         _bind()
     bsz, t, d = q.shape
     q, k, v = (x if _rows_aligned(x) else x.contiguous() for x in (q, k, v))
-    block, outs, _seed_alive = _pack_forward(q, k, v, bias, seed, heads, rate, stats)
+    block, outs, _seed_alive = _pack_forward(q, k, v, bias, seed, heads, rate, stats,
+                                             row_offset)
     if bf16:  # the native bf16 path: the packed operands' scratch after the block
         scratch = _long_bf16_scratch(q, bias, heads, 3, 0)
         err = _bf16_entry["attention_fwd_long"](block + _PACK_PTR(scratch.data_ptr()))
@@ -676,10 +694,11 @@ def _launch_forward_long(q, k, v, bias, seed, heads: int, rate: float, stats: bo
 
 
 def _launch_backward(q, k, v, bias, out, row_max, row_inv_sum, dout,
-                     seed, heads: int, rate: float, path=None, bf16: bool = False):
+                     seed, heads: int, rate: float, path=None, bf16: bool = False,
+                     row_offset: int = 0):
     """(dq, dk, dv) from one launch of the backward path `path` ('sweep' or
     'long'; None: `backward_route`'s) on checked CUDA tensors; `bf16`: the
-    bf16-operand build."""
+    bf16-operand build; `row_offset` as in `_launch_forward`."""
     if _bwd is None:
         _bind()
     bsz, t, d = q.shape
@@ -702,7 +721,7 @@ def _launch_backward(q, k, v, bias, out, row_max, row_inv_sum, dout,
     strides = _strides((("q", q), ("k", k), ("v", v), ("out", out), ("dout", dout)), bias,
                        dev, (("row_max", row_max), ("row_inv_sum", row_inv_sum)))
     dq, dk, dv = (q.new_empty((bsz, t, d)) for _ in range(3))
-    fields, _seed_alive = _dropout_fields(seed, rate, dev)
+    fields, _seed_alive = _dropout_fields(seed, rate, dev, row_offset)
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(),
             dout.data_ptr(), row_max.data_ptr(), row_inv_sum.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
@@ -808,17 +827,18 @@ def _device_route(q, name: str) -> bool:
 
 
 def attention_backward(q, k, v, bias, out, row_max, row_inv_sum, dout,
-                       seed, heads: int, rate: float, path=None, mxu_bf16: bool = False):
+                       seed, heads: int, rate: float, path=None, mxu_bf16: bool = False,
+                       row_offset: int = 0):
     """(dq, dk, dv) for the output gradient `dout`, from the forward's `out`
     and row statistics: a backward kernel on CUDA tensors (or an error),
     `attention_bwd_plain` on CPU tensors. `path` ('sweep' or 'long') asks
     for one CUDA path; None takes `backward_route`'s."""
     if not _device_route(q, "attention_backward"):
         return attention_bwd_plain(q, k, v, bias, out, row_max, row_inv_sum, dout,
-                                   seed, heads, rate, mxu_bf16)
+                                   seed, heads, rate, mxu_bf16, row_offset)
     _check_inputs(q, k, v, bias, heads, rate)
     return _launch_backward(q, k, v, bias, out, row_max, row_inv_sum, dout, seed, heads,
-                            rate, path, mxu_bf16)
+                            rate, path, mxu_bf16, row_offset)
 
 
 class _FusedAttention(torch.autograd.Function):
@@ -827,21 +847,21 @@ class _FusedAttention(torch.autograd.Function):
     row statistics and the seed (the device tensor both launches read)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bias, seed, heads, rate, bf16):
+    def forward(ctx, q, k, v, bias, seed, heads, rate, bf16, row_offset):
         seed = _seed_tensor(seed, q.device) if rate > 0.0 else 0
         out, row_max, row_inv_sum = _launch_forward(q, k, v, bias, seed, heads, rate, True,
-                                                    bf16=bf16)
+                                                    bf16=bf16, row_offset=row_offset)
         ctx.save_for_backward(q, k, v, bias, out, row_max, row_inv_sum)
         ctx.attn_args = (seed, heads, rate)
-        ctx.bf16 = bf16
+        ctx.bf16, ctx.row_offset = bf16, row_offset
         return out
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, dout):
         dq, dk, dv = _launch_backward(*ctx.saved_tensors, dout, *ctx.attn_args,
-                                      bf16=ctx.bf16)
-        return dq, dk, dv, None, None, None, None, None
+                                      bf16=ctx.bf16, row_offset=ctx.row_offset)
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def fused_attention(
@@ -853,21 +873,24 @@ def fused_attention(
     heads: int,
     rate: float,
     mxu_bf16: bool = False,
+    row_offset: int = 0,
 ) -> torch.Tensor:
     """q, k, v: [B, T, D] float32; bias: additive [1|B, 1, 1|T, T]; seed: an
     int or a one-element int64 tensor on q's device, keying the dropout mask
     (read only when rate > 0); heads, rate: Python numbers; mxu_bf16: the
-    bf16-operand mode. Returns [B, T, D], differentiable in q, k and v.
+    bf16-operand mode; row_offset: the global row of row 0 in the mask's key.
+    Returns [B, T, D], differentiable in q, k and v.
 
     CUDA tensors launch the kernels (or raise); CPU tensors take
     `attention_plain`."""
     if not _device_route(q, "fused_attention"):
-        return attention_plain(q, k, v, bias, seed, heads, rate, mxu_bf16)
+        return attention_plain(q, k, v, bias, seed, heads, rate, mxu_bf16, row_offset)
     _check_inputs(q, k, v, bias, heads, rate)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         _check_backward_fits(q.shape[1], q.shape[2] // heads)
-        return _FusedAttention.apply(q, k, v, bias, seed, heads, rate, mxu_bf16)
-    return _launch_forward(q, k, v, bias, seed, heads, rate, False, bf16=mxu_bf16)[0]
+        return _FusedAttention.apply(q, k, v, bias, seed, heads, rate, mxu_bf16, row_offset)
+    return _launch_forward(q, k, v, bias, seed, heads, rate, False, bf16=mxu_bf16,
+                           row_offset=row_offset)[0]
 
 
 fused_attention.launches = 0  # one-head forward kernel launches since the last reset

@@ -27,6 +27,13 @@ and the step index into a root key. The port keeps that shape with integer keys:
   inside a capture would not be replayed). Nothing here touches the
   process-wide generators: two `StepRandom`s seeded from one key give the
   same draws.
+
+On a mesh under gspmd (`parallel/`), a rank holds rows [b0, b0 + b) of a
+global batch of B rows: `set_rows((b0, B))` makes every keep mask a draw at
+the global shape [B, ...] from which the rank keeps its rows, and gives the
+attention kernels' masks the row offset b0 (`row_offset`, read by the
+encoders), so each rank draws what a single process draws for its rows.
+`set_rows(None)` (the default) draws at the tensor's own shape.
 """
 
 from __future__ import annotations
@@ -50,6 +57,12 @@ class DropoutRandom:
     def __init__(self, device) -> None:
         self.device = torch.device(device)
         self.dropout_gen = torch.Generator(device=self.device)
+        self.rows = None  # (b0, B): this rank's first row of a global batch of B rows
+
+    @property
+    def row_offset(self) -> int:
+        """The global row of the batch's row 0 (the attention masks' key)."""
+        return 0 if self.rows is None else self.rows[0]
 
     def attention_seed(self) -> torch.Tensor:
         """A fresh 31-bit seed for one attention call's dropout mask, drawn on
@@ -59,8 +72,13 @@ class DropoutRandom:
                              device=self.device, dtype=torch.int64)
 
     def keep_mask(self, x: torch.Tensor, rate: float) -> torch.Tensor:
-        """A boolean keep mask of x's shape, drawn from `dropout_gen`."""
-        return torch.rand(x.shape, generator=self.dropout_gen, device=x.device) >= rate
+        """A boolean keep mask of x's shape, drawn from `dropout_gen` (with
+        `rows`, this rank's rows of a draw at the global batch's shape)."""
+        if self.rows is None:
+            return torch.rand(x.shape, generator=self.dropout_gen, device=x.device) >= rate
+        b0, total = self.rows
+        u = torch.rand((total, *x.shape[1:]), generator=self.dropout_gen, device=x.device)
+        return u[b0:b0 + x.shape[0]] >= rate
 
     def dropout(self, x: torch.Tensor, rate: float) -> torch.Tensor:
         """Inverted dropout of `x` with the mask drawn from `dropout_gen`."""
@@ -92,6 +110,12 @@ class StepRandom(DropoutRandom):
             view.dropout_gen.manual_seed(fold_in(self.key, 3))
         return self
 
+    def set_rows(self, rows) -> "StepRandom":
+        """`rows` = (b0, B) for the main forward and the view passes alike."""
+        for r in (self, *self.views):
+            r.rows = rows
+        return self
+
     def generators(self) -> tuple[torch.Generator, ...]:
         extra = (self.corr, *(v.dropout_gen for v in self.views)) if self.views else ()
         return (self.sampler, self.dropout_gen, *extra)
@@ -116,6 +140,10 @@ class RegionRandom:
 
     def replay(self) -> None:
         self.at = 0
+
+    @property
+    def row_offset(self) -> int:
+        return self.rng.row_offset
 
     def _draw(self, make):
         if self.at is None:

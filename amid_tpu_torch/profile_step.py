@@ -96,14 +96,36 @@ def _trace(fn, n: int, top: int):
         for name, (us, cnt) in ranked]
 
 
-def step_kinds(cfg: ModelConfig, tcfg: TrainConfig, ds, fast: bool, pool=None) -> dict:
+def step_kinds(cfg: ModelConfig, tcfg: TrainConfig, ds, fast: bool, pool=None,
+               mesh=None) -> dict:
     """name -> (fn, steps a call) for phase A, phase B and the evaluation
     batch of a fresh model on `ds`: eager steps cycling over the batches, or
     with `fast` the fast loops' replays over the resident dataset (graphs in
     `pool`, which the caller closes). Phase A is `run_seed`'s: with C2DSR
     (`cfg.is_c2dsr`, dense Adam) it adds `tcfg.cl_w` times the infomax loss
-    of the views."""
+    of the views. With `mesh` (`parallel/mesh.py`) the table is cut to this
+    rank's rows and every call runs the gspmd steps on it, collectives
+    included (and captured, with `fast`)."""
+    kinds = _step_kinds(cfg, tcfg, ds, fast, pool, mesh)
+    if mesh is None:
+        return kinds
+    from amid_tpu_torch.parallel.context import spmd
+
+    def on_mesh(fn):
+        def call():
+            with spmd(mesh.axes("gspmd")):
+                return fn()
+        return call
+
+    return {k: (on_mesh(fn), n) for k, (fn, n) in kinds.items()}
+
+
+def _step_kinds(cfg, tcfg, ds, fast, pool, mesh):
     model = build_model(cfg, seed=0)
+    if mesh is not None:
+        from amid_tpu_torch.parallel.distributed import shard_params_
+
+        shard_params_(model, mesh)
     tx, tx2 = Adam(tcfg.lr), Adam(tcfg.lr * tcfg.lr2)
     if tcfg.lazy_table_adam:
         state = lazy.init_lazy_state(dict(model.named_parameters()), tx, tx2)

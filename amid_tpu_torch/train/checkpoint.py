@@ -31,6 +31,15 @@ parameters, Adam's `mu`/`nu` and the int32 step counts, `train/graphs.py`):
   device tensors at once. A second `save` waits for the first, as orbax's
   does, and `restore`, `wait_until_finished` and `close` wait for a save in
   flight and raise what it raised.
+
+On a mesh (`mesh=`, `parallel/mesh.py`) the file is the one a
+single-process run writes, leaf for leaf: every rank takes part in
+gathering the row-sharded leaves (`parallel.mesh.state_layout`: the table
+and its moments) over its `model` group, and rank 0 alone writes (the
+directory, the payload mode and the steps). A restore waits for rank 0's
+write in flight and meets the other ranks at a barrier; then each rank
+reads the file and writes its own rows of each sharded leaf, and the whole
+of every other, into its tensors in place.
 """
 
 from __future__ import annotations
@@ -43,6 +52,7 @@ from pathlib import Path
 from typing import Any, Mapping, Optional
 
 import torch
+import torch.distributed as dist
 
 PAYLOADS = ("full", "bf16_moments", "params_only")
 _STEP_FILE = re.compile(r"^(\d+)\.pt$")
@@ -76,17 +86,24 @@ def state_leaves(state: Any) -> dict[str, torch.Tensor]:
 
 class CheckpointManager:
     def __init__(self, directory: str, keep: int = 1, async_save: bool = False,
-                 payload: str = "full") -> None:
+                 payload: str = "full", mesh=None) -> None:
         if payload not in PAYLOADS:
             raise ValueError(f"payload must be one of {PAYLOADS}: {payload}")
         if keep < 1:
             raise ValueError(f"keep must be at least 1: {keep}")
         self._payload = payload
         self._keep = keep
+        self._mesh = mesh
+        self._writes = mesh is None or mesh.rank == 0
         self._dir = Path(directory).absolute()
-        self._dir.mkdir(parents=True, exist_ok=True)
-        # a resume with another payload fails here, not with a missing leaf
         mode_file = self._dir / "payload_mode.txt"
+        if self._writes:
+            self._dir.mkdir(parents=True, exist_ok=True)
+            if not mode_file.exists():
+                mode_file.write_text(payload)
+        if mesh is not None:
+            dist.barrier()  # the directory and its mode exist for every rank
+        # a resume with another payload fails here, not with a missing leaf
         if mode_file.exists():
             saved = mode_file.read_text().strip()
             if saved != payload:
@@ -95,18 +112,24 @@ class CheckpointManager:
                     f"payload={saved}; resume with --checkpoint_payload "
                     f"{saved} (got {payload})"
                 )
-        else:
-            mode_file.write_text(payload)
         self._writer = (ThreadPoolExecutor(1, thread_name_prefix="checkpoint")
                         if async_save else None)
         self._pending: Optional[Future] = None
         self._host: dict[str, torch.Tensor] = {}  # pinned snapshot buffers, by leaf
 
-    def _saved_leaves(self, state: Any) -> dict[str, torch.Tensor]:
-        """The leaves this payload saves, by name (also what `restore` expects)."""
+    def _saved_leaves(self, state: Any, whole: bool = False) -> dict[str, torch.Tensor]:
+        """The leaves this payload saves, by name (also what `restore`
+        expects); with `whole` on a mesh, the row-sharded ones gathered."""
         leaves = state_leaves(state)
         if self._payload == "params_only":
-            return {k: v for k, v in leaves.items() if k.startswith("params/")}
+            leaves = {k: v for k, v in leaves.items() if k.startswith("params/")}
+        if whole and self._mesh is not None:
+            from amid_tpu_torch.parallel.collectives import gather_rows
+            from amid_tpu_torch.parallel.mesh import ROWS, state_layout
+
+            m, layout = self._mesh, state_layout(state)
+            leaves = {k: gather_rows(t, m.model_group, m.model_shards) if layout[k] == ROWS
+                      else t for k, t in leaves.items()}
         return leaves
 
     def _saved_dtype(self, name: str, t: torch.Tensor) -> torch.dtype:
@@ -155,7 +178,10 @@ class CheckpointManager:
 
     def save(self, step: int, state: Any) -> None:
         self.wait_until_finished()
-        snap = self._snapshot(self._saved_leaves(state))
+        leaves = self._saved_leaves(state, whole=True)
+        if not self._writes:
+            return
+        snap = self._snapshot(leaves)
         if self._writer is None:
             self._write(step, snap)
         else:
@@ -167,10 +193,17 @@ class CheckpointManager:
         saved. Moments saved as bfloat16 are widened back to float32; a
         params_only checkpoint ZEROES every moment and count of `state`."""
         self.wait_until_finished()
+        if self._mesh is not None:
+            dist.barrier()  # rank 0's write in flight has landed
         step = step if step is not None else self.latest_step()
         if step is None:
             return None
         saved = torch.load(self._path(step), map_location="cpu", weights_only=True)["leaves"]
+        if self._mesh is not None:
+            from amid_tpu_torch.parallel.distributed import shard_global
+            from amid_tpu_torch.parallel.mesh import state_layout
+
+            saved = shard_global(saved, state_layout(state), self._mesh)
         want = self._saved_leaves(state)
         if saved.keys() != want.keys():
             raise ValueError(f"checkpoint {self._path(step)} holds other leaves than the state: "

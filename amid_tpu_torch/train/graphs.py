@@ -31,7 +31,12 @@ what the capture counted.
 `GraphPool` holds what the step kinds of one trainer run share: one memory
 pool (the graphs never run at once, and every graph's outputs stay alive as
 long as the graph), one side stream, and the graphs, which `close()`
-releases. Capture or replay failing raises: there is no eager fallback.
+releases. Capture or replay failing raises: there is no eager fallback. A
+failed capture names the fast loops' flags (`fast_train`, `fast_eval`):
+on a mesh the capture holds the steps' NCCL collectives
+(`parallel/distributed.py` prepares the process group for it), and a torch
+that refuses to capture them must not leave a mesh run on the per-step loop
+unnoticed.
 """
 
 from __future__ import annotations
@@ -103,8 +108,14 @@ class StepGraph:
         for gen in self.generators:
             graph.register_generator_state(gen)
         before = launches.read()
-        with torch.cuda.graph(graph, pool=self.pool.handle, stream=self.pool.stream):
-            out = self.body()
+        try:
+            with torch.cuda.graph(graph, pool=self.pool.handle, stream=self.pool.stream):
+                out = self.body()
+        except RuntimeError as e:
+            raise RuntimeError(
+                f"capturing a step of the fast loops as a CUDA graph failed ({e}); "
+                "train with fast_train=False and fast_eval=False (--fast_train False "
+                "--fast_eval False) to take the per-step loop") from e
         self.captured = launches.since(before)
         # the capture launched nothing on the device
         launches.add({k: -n for k, n in self.captured.items()})

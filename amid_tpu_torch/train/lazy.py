@@ -30,6 +30,14 @@ of table moments.
 Semantics: identical to dense Adam on the first touch of each row; diverges
 only in that an untouched row's moments do not decay that step (standard
 lazy-Adam behaviour, cf. torch.optim.SparseAdam).
+
+On a gspmd mesh (`parallel/`; shard_map does not cover it, as in the JAX
+package) the unique ids come from the global batch and its negatives,
+which every rank holds; their rows are one sharded lookup
+(`parallel.embedding.sharded_lookup`), whole on every rank; the row
+gradient is summed over `data` with the dense ones; and the scatter writes
+each rank's table, mu and nu shard at `ids - lo`, dropping the ids outside
+[0, V_local) (the kernel's contract).
 """
 
 from __future__ import annotations
@@ -39,16 +47,18 @@ from typing import Callable, Optional
 
 import torch
 
+from amid_tpu_torch.ops.embedding import embedding_gather_many_plain
 from amid_tpu_torch.ops.scatter import (
     scatter_set_unique,
     scatter_set_unique3,
     scatter_set_unique3_plain,
     scatter_set_unique_plain,
 )
+from amid_tpu_torch.parallel.embedding import sharded_lookup
 from amid_tpu_torch.train.optim import Adam, AdamState, bias_correction, new_count
 from amid_tpu_torch.train.steps import (
-    TrainState, _draw_negatives, _finish_metrics, _make_labels, _model_batch,
-    _seeded, _step_random, phase_a_loss, phase_b_loss,
+    TrainState, _draw_negatives, _finish_metrics, _make_labels, _mesh_loss, _mesh_rows,
+    _mesh_start, _model_batch, _step_random, _sum_grads, phase_a_loss, phase_b_loss,
 )
 
 TABLE_KEY = "item_embedding"
@@ -127,11 +137,16 @@ def _make_lazy_step(
     def step(state: TrainState, batch, pools, pool_sizes, key, neg=None):
         device = pools.device
         table = state.params[TABLE_KEY]
-        v = table.shape[0]
         opt: LazyTableState = state.opt_state if slot == 1 else state.opt_state2
 
-        neg = _draw_negatives(_seeded(rng, key), batch, pools, pool_sizes, 1, neg)
-        labels = _make_labels(batch["target"].shape[0], 1, device)
+        axes, batch, (neg,) = _mesh_start(rng, key, batch, (neg,))
+        if axes is not None and axes.impl != "gspmd":
+            raise ValueError("mesh_impl=shard_map does not cover --lazy_table_adam; use gspmd")
+        neg = _draw_negatives(rng, batch, pools, pool_sizes, 1, neg)
+        # the table's rows on this rank: [lo, lo + v_local) of v
+        v_local = table.shape[0]
+        v = v_local * (axes.model_shards if axes is not None else 1)
+        lo = v_local * (axes.model_rank if axes is not None else 0)
 
         all_ids = torch.cat([
             batch["target"].reshape(-1), neg.reshape(-1),
@@ -141,38 +156,49 @@ def _make_lazy_step(
             batch["target"].shape[0], batch["seq_d1"].shape[1], neg.shape[1]
         )
         uids = unique_padded(all_ids, u_budget, v)  # sorted; sentinel tail
-        safe = uids.clamp(max=v - 1)
-        rows = table.detach().index_select(0, safe).requires_grad_()  # [U, D] — the diff leaf
+        with torch.no_grad():
+            if axes is None:
+                rows = table.index_select(0, uids.clamp(max=v - 1))
+            else:  # whole on every rank, from the shards that own them
+                rows = sharded_lookup(table, [uids], axes, embedding_gather_many_plain)[0]
+        rows.requires_grad_()  # [U, D] — the diff leaf
+        batch, (neg,) = _mesh_rows(rng, axes, batch, (neg,))
+        labels = _make_labels(batch["target"].shape[0], 1, device)
 
         dense = {k: p for k, p in state.params.items() if k != TABLE_KEY}
         model.train()
         out = model(_model_batch(batch, neg), rng=rng, lazy_rows=(uids, rows))
-        loss, metrics = loss_fn(out, labels, batch)
+        loss, metrics = _mesh_loss(axes, *loss_fn(out, labels, batch))
         names = list(dense)
         *g_dense, g_rows = torch.autograd.grad(
             loss, [*(dense[k] for k in names), rows], allow_unused=True
         )
+        grads = _sum_grads(axes, {**dict(zip(names, g_dense)), TABLE_KEY: g_rows},
+                           {**dense, TABLE_KEY: rows})
+        g_rows = grads.pop(TABLE_KEY)
         metrics = _finish_metrics(metrics)
 
         with torch.no_grad():
             # dense params: plain Adam
-            tx_dense.update_(dense, dict(zip(names, g_dense)), opt.dense_opt)
+            tx_dense.update_(dense, grads, opt.dense_opt)
 
             # touched table rows: per-row Adam with global-step bias correction
             opt.count.add_(1)
             if g_rows is None:
                 g_rows = torch.zeros_like(rows)
+            ids = uids - lo  # this shard's rows; the others fall outside [0, v_local)
+            safe = ids.clamp(0, v_local - 1)
             mu_new = b1 * opt.mu.index_select(0, safe) + (1.0 - b1) * g_rows
             nu_new = b2 * opt.nu.index_select(0, safe) + (1.0 - b2) * g_rows**2
             mhat = mu_new / bias_correction(b1, opt.count)
             vhat = nu_new / bias_correction(b2, opt.count)
             new_rows = rows.detach() - lr * mhat / (torch.sqrt(vhat) + eps)
             if fused_scatter:
-                set3(table, opt.mu, opt.nu, uids, new_rows, mu_new, nu_new)
+                set3(table, opt.mu, opt.nu, ids, new_rows, mu_new, nu_new)
             else:
-                set1(table, uids, new_rows)
-                set1(opt.mu, uids, mu_new)
-                set1(opt.nu, uids, nu_new)
+                set1(table, ids, new_rows)
+                set1(opt.mu, ids, mu_new)
+                set1(opt.nu, ids, nu_new)
         return state, metrics
 
     step.rng = rng

@@ -46,8 +46,16 @@ the clock started after the second and read when the seed ends.
 `model_dir/profile` on the per-step path (it turns `fast_train` off for the
 seed, as in the JAX package).
 
-Not ported yet: mesh training (`use_mesh`: run_seed raises
-`NotImplementedError` naming the field).
+Mesh training (`use_mesh`, `parallel/`, as `amid_tpu/train/loop.py`): the
+ranks of the `torch.distributed` world (a world of one on a free local port
+when there is none: NCCL on `cuda`, gloo on the CPU) form a `data x model`
+mesh (`cfg.mesh`); the table parameter and its moments are cut to this
+rank's rows; every rank holds the global batches and runs the steps on its
+rows of them. `mesh_impl="gspmd"` (the default) runs the plain steps inside
+`parallel.context.spmd`, with the fast loops (their CUDA graphs capture the
+collectives); "shard_map" the steps of `parallel/spmd.py`, dense Adam only,
+per step, one node only (the JAX trainer's refusals and messages). Rank 0
+writes the logs and the checkpoints; every rank returns the same `best`.
 """
 
 from __future__ import annotations
@@ -63,6 +71,7 @@ from amid_tpu_torch.data.loader import BatchIterator
 from amid_tpu_torch.data.packed import PackedDualDomainDataset, load_dual_domain_csv
 from amid_tpu_torch.models.amid import build_model, resolve_device
 from amid_tpu_torch.ops.rng import fold_in
+from amid_tpu_torch.parallel.context import spmd
 from amid_tpu_torch.train.checkpoint import CheckpointManager
 from amid_tpu_torch.train.graphs import GraphPool
 from amid_tpu_torch.train.metrics import RankAccumulator
@@ -77,10 +86,6 @@ from amid_tpu_torch.train.steps import (
 )
 from amid_tpu_torch.utils.logging import AverageMeter, init_logger
 from amid_tpu_torch.utils.profiler import StepTimer, trace
-
-_NOT_PORTED = {  # TrainConfig field -> the part of the JAX trainer it asks for
-    "use_mesh": "mesh training (the parallel layer)",
-}
 
 
 def _device_pools(ds: PackedDualDomainDataset, device):
@@ -258,25 +263,64 @@ def run_seed(
     kernel takes (`models.amid.check_attention_fits`: a head width outside
     the kernels' or a T beyond the long-sequence paths').
 
+    With `use_mesh`, every rank of the world calls it with the same
+    arguments (`parallel/`; the module docstring).
+
     Runs on `cuda` unless the caller passes a device (e.g. "cpu"), and
     raises without a card."""
-    for name, what in _NOT_PORTED.items():
-        if getattr(cfg, name):
-            raise NotImplementedError(
-                f"TrainConfig.{name}={getattr(cfg, name)!r} asks for {what}, "
-                f"which is not ported yet; set it to {type(getattr(cfg, name))()!r}"
-            )
     c2dsr_w = cfg.cl_w if cfg.model.is_c2dsr else None
     if cfg.lazy_table_adam and c2dsr_w is not None:
         # the lazy unique-id budget doesn't cover the corrupted-view lookups
         raise ValueError("--isC2DSR is not supported with --lazy_table_adam")
     device = resolve_device(device)
+    from amid_tpu_torch.parallel.distributed import destroy_world, ensure_world
+
+    made_world = cfg.use_mesh and ensure_world(device)
+    try:
+        mesh = _make_mesh(cfg) if cfg.use_mesh else None
+        return _run_seed(cfg, seed, train_ds, val_ds, dr_ds, device, epoch_hook, mesh, c2dsr_w)
+    finally:
+        if made_world:
+            destroy_world()
+
+
+def _make_mesh(cfg: TrainConfig):
+    """The mesh of a mesh run, after the JAX trainer's checks
+    (amid_tpu/train/loop.py:308-344)."""
+    from amid_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(cfg.mesh)
+    if cfg.model.batch_size % mesh.data_shards:
+        raise ValueError(f"batch_size {cfg.model.batch_size} not divisible by "
+                         f"data axis {mesh.data_shards}")
+    if cfg.model.item_table_size % mesh.model_shards:
+        # the JAX package's shard_map floors the rows a shard holds and so
+        # loses the table's last rows; the port refuses the layout
+        raise ValueError(f"the item table's {cfg.model.item_table_size} rows do not "
+                         f"split evenly over model axis {mesh.model_shards}")
+    if cfg.mesh_impl == "shard_map":
+        if cfg.lazy_table_adam:
+            raise ValueError("mesh_impl=shard_map does not cover --lazy_table_adam; "
+                             "use gspmd")
+        if cfg.model.is_c2dsr:
+            raise ValueError("mesh_impl=shard_map does not cover --isC2DSR; use gspmd")
+    if mesh.nodes > 1 and cfg.mesh_impl != "gspmd":
+        raise ValueError("multi-process runs require mesh_impl=gspmd")
+    return mesh
+
+
+def _run_seed(cfg, seed, train_ds, val_ds, dr_ds, device, epoch_hook, mesh, c2dsr_w):
     log = init_logger(cfg.model_dir, f"log{seed}.txt")
     model = build_model(cfg.model, device=device, seed=seed)
     is_dr = cfg.model.is_dr
     tx = Adam(cfg.lr)
     tx2 = Adam(cfg.lr * cfg.lr2) if is_dr else None
     dr_e_w = cfg.dr_e_w if is_dr else None
+    shard_map = mesh is not None and cfg.mesh_impl == "shard_map"
+    if mesh is not None:  # every rank built the same weights: keep this rank's rows
+        from amid_tpu_torch.parallel.distributed import shard_params_
+
+        shard_params_(model, mesh)
 
     if cfg.lazy_table_adam:
         from amid_tpu_torch.train.lazy import (
@@ -294,6 +338,16 @@ def run_seed(
     log.info(f"seed {seed}: params={n_params:,} device={device} "
              f"kernels={model.cfg.kernels}")
     eval_step = make_eval_step(model, cfg.data.neg_nums)
+    if shard_map:
+        from amid_tpu_torch.parallel.spmd import (
+            make_spmd_dr_r_step, make_spmd_eval_step, make_spmd_train_step,
+        )
+
+        train_step = make_spmd_train_step(model, tx, mesh, dr_e_w=dr_e_w)
+        dr_step = make_spmd_dr_r_step(model, tx2, mesh) if is_dr else None
+        eval_step = make_spmd_eval_step(model, cfg.data.neg_nums, mesh)
+    if mesh is not None:
+        log.info(f"mesh: {mesh.shape} impl={cfg.mesh_impl} processes={mesh.nodes}")
 
     pools, pool_sizes = _device_pools(train_ds, device)
     # eval negatives come from the *val* split's pools (dataset_seq.py:141-142
@@ -314,8 +368,10 @@ def run_seed(
 
     # the fast loops: step kinds as CUDA graphs in one pool on the card,
     # released when the seed ends; the same runners run eagerly on the CPU
-    fast_eval = cfg.fast_eval and cfg.eval_batch_drop_last and len(val_iter) > 0
-    fast_train = cfg.fast_train and not cfg.profile_steps  # profiling traces per step
+    # shard_map keeps the per-step loops, as in the JAX package
+    fast_eval = (cfg.fast_eval and cfg.eval_batch_drop_last and len(val_iter) > 0
+                 and not shard_map)
+    fast_train = cfg.fast_train and not cfg.profile_steps and not shard_map
     graphs = (GraphPool(device) if device.type == "cuda" and (fast_train or fast_eval)
               else None)
     phases = [(train_step, train_iter, pools, pool_sizes, 0, None)]
@@ -363,11 +419,14 @@ def run_seed(
     timer = StepTimer()
     ckpt = last_saved = None
     start_epoch = 0
+    region = contextlib.ExitStack()
     try:
+        if mesh is not None and not shard_map:  # the plain steps, on the mesh
+            region.enter_context(spmd(mesh.axes("gspmd")))
         if cfg.checkpoint:
             ckpt = CheckpointManager(
                 f"{cfg.model_dir}/checkpoint/seed{seed}", keep=cfg.checkpoint_keep,
-                async_save=cfg.checkpoint_async, payload=cfg.checkpoint_payload)
+                async_save=cfg.checkpoint_async, payload=cfg.checkpoint_payload, mesh=mesh)
             if cfg.resume and ckpt.restore(state) is not None:
                 # latest_step() can be 0: no `or`-default
                 start_epoch = ckpt.latest_step() + 1
@@ -414,16 +473,27 @@ def run_seed(
                 best_score = score
         # read before close() waits for a save in flight, as in the JAX package
         best["examples_per_s"] = timer.examples_per_s
+        if mesh is not None:  # every rank returns rank 0's clock
+            best["examples_per_s"] = _rank0_value(best["examples_per_s"], device)
     finally:
         try:
             if ckpt is not None:
                 ckpt.close()
         finally:
+            region.close()
             if graphs is not None:
                 graphs.close()
 
     best["start_epoch"] = float(start_epoch)
     return best
+
+
+def _rank0_value(x: float, device) -> float:
+    import torch.distributed as dist
+
+    t = torch.tensor([x], dtype=torch.float64, device=device)
+    dist.broadcast(t, src=0)
+    return float(t)
 
 
 def aggregate_seeds(per_seed: list[dict[str, float]], log) -> dict[str, dict]:
@@ -479,8 +549,9 @@ def cli_main(argv: Optional[list[str]] = None, is_dr: bool = False) -> dict[str,
     `train_sr` (is_dr=False): flags -> TrainConfig -> `run`.
 
     The flags' defaults are the JAX CLI's: checkpoints on (async, under
-    `model_dir/checkpoint/seed{seed}`), the fast loops on; `--mesh` reaches
-    `run_seed`'s NotImplementedError."""
+    `model_dir/checkpoint/seed{seed}`), the fast loops on; `--mesh` trains
+    on the mesh, `--distributed` joins the world first
+    (`config.parse_cli_with_device`)."""
     cfg, device = parse_cli_with_device(argv, is_dr=is_dr)
     cfg.model.is_dr = is_dr
     return run(cfg, device=device)

@@ -26,6 +26,23 @@ seeds stay on the device. So a step can be captured as a CUDA graph and
 replayed: `make_resident_chunk_runner` and `make_scanned_eval`, the fast
 loops (`TrainConfig.fast_train`, `fast_eval`), run the steps over a dataset
 resident on the device, as graphs on `cuda` and eagerly on the CPU.
+
+On a mesh (inside `parallel.context.spmd`, `parallel/`) every step takes the
+GLOBAL batch, which every rank holds, and runs on this rank's rows of it:
+the table parameter is this rank's row shard and the model's lookups and
+peer banks issue their collectives (`models/amid.py`, `models/comp.py`);
+the loss and the logged metrics are averaged over the `data` group, the
+gradients summed over it (the table shard's too), and the update is the
+plain one, so every rank of a `model` group holds the same replicated
+parameters. Under `impl="gspmd"` the negatives, C2DSR's corrupted items
+and every dropout mask are drawn at the global batch's shape and cut to the
+rank's rows (`ops.rng.StepRandom.set_rows`; the attention kernels' masks by
+their row offset), so a mesh step computes the single-process step of the
+global batch; under `impl="shard_map"` (`parallel/spmd.py`) the batch is cut
+first and each shard draws its own, from the key folded with its data rank
+when there is more than one. A `neg` (or `corr`) handed to a mesh step is
+the global batch's. The evaluation step all-gathers the ranks over `data`,
+so every rank reads the global batch's.
 """
 
 from __future__ import annotations
@@ -37,6 +54,10 @@ import torch
 
 from amid_tpu_torch.data.sampler import sample_negatives
 from amid_tpu_torch.ops.rng import StepRandom, fold_in
+from amid_tpu_torch.parallel import context
+from amid_tpu_torch.parallel.collectives import (
+    all_gather_data, mean_data, pmean_data, sum_data_,
+)
 from amid_tpu_torch.train import losses
 from amid_tpu_torch.train.c2dsr import c2dsr_loss, c2dsr_views, sample_corr
 from amid_tpu_torch.train.graphs import GraphPool, StepGraph
@@ -76,6 +97,63 @@ def _seeded(rng: StepRandom, key) -> StepRandom:
         raise ValueError("a step without a key needs its generators seeded first "
                          "(step.rng.reseed(key))")
     return rng
+
+
+def _rows_of(axes, x):
+    """This rank's rows of a global batch array."""
+    lo, hi = axes.rows(x.shape[0])
+    return x[lo:hi]
+
+
+def _local(axes, batch: dict) -> dict:
+    return {k: _rows_of(axes, torch.as_tensor(v)) for k, v in batch.items()}
+
+
+def _mesh_start(rng: StepRandom, key, batch: dict, given: tuple):
+    """The mesh's part before a step's draws: (axes, batch, given) with the
+    generators seeded. Off the mesh and under gspmd the batch stays global;
+    under shard_map it is cut to this rank's rows (with the arrays `given`
+    in place of draws) and the key is folded with the data rank when there
+    are several data shards (`amid_tpu/parallel/spmd.py`)."""
+    axes = context.current()
+    if axes is None or axes.impl == "gspmd":
+        _seeded(rng, key)
+        return axes, batch, given
+    if key is not None and axes.data_shards > 1:
+        key = fold_in(key, axes.data_rank)
+    _seeded(rng, key)
+    given = tuple(None if g is None else _rows_of(axes, torch.as_tensor(g)) for g in given)
+    return axes, _local(axes, batch), given
+
+
+def _mesh_rows(rng: StepRandom, axes, batch: dict, drawn: tuple):
+    """The mesh's part after the draws: under gspmd this rank's rows of the
+    batch and of the draws, and the dropout masks set to the global rows."""
+    if axes is None or axes.impl != "gspmd":
+        rng.set_rows(None)
+        return batch, drawn
+    n = batch["target"].shape[0]
+    rng.set_rows((axes.rows(n)[0], n))
+    return _local(axes, batch), tuple(None if d is None else _rows_of(axes, d) for d in drawn)
+
+
+def _mesh_loss(axes, loss, metrics: dict):
+    """The loss and metrics averaged over `data` on a mesh."""
+    if axes is None:
+        return loss, metrics
+    return pmean_data(loss, axes), mean_data(metrics, axes)
+
+
+def _sum_grads(axes, grads: dict, params: dict, table_key: str = "item_embedding") -> dict:
+    """Every gradient summed over the `data` group on a mesh (a missing one
+    as zeros): the table's alone, in place, the others in one buffer."""
+    if axes is None:
+        return grads
+    grads = {k: g if g is not None else torch.zeros_like(params[k]) for k, g in grads.items()}
+    sum_data_([g for k, g in grads.items() if k != table_key], axes)
+    if table_key in grads:
+        sum_data_([grads[table_key]], axes)
+    return grads
 
 
 def _model_batch(batch: dict, neg: torch.Tensor) -> dict:
@@ -150,14 +228,17 @@ def _make_dense_step(model, tx: Adam, loss_fn: Callable, slot: int,
 
     def losses_of(batch, pools, pool_sizes, key, neg=None, corr=None):
         device = pools.device
-        _seeded(rng, key)
+        axes, batch, (neg, corr) = _mesh_start(rng, key, batch, (neg, corr))
         neg = _draw_negatives(rng, batch, pools, pool_sizes, 1, neg)
+        if is_c2dsr and corr is None:
+            corr = sample_corr(rng.corr, pools, pool_sizes, batch)
+        if corr is not None:
+            corr = torch.as_tensor(corr, device=device)
+        batch, (neg, corr) = _mesh_rows(rng, axes, batch, (neg, corr))
         labels = _make_labels(batch["target"].shape[0], 1, device)
         model_batch = _model_batch(batch, neg)
         if is_c2dsr:
-            if corr is None:
-                corr = sample_corr(rng.corr, pools, pool_sizes, batch)
-            views = c2dsr_views(batch, torch.as_tensor(corr, device=device))
+            views = c2dsr_views(batch, corr)
         model.train()
         out = model(model_batch, rng=rng)
         loss, metrics = loss_fn(out, labels, batch)
@@ -166,15 +247,15 @@ def _make_dense_step(model, tx: Adam, loss_fn: Callable, slot: int,
             loss = loss + cl * c2dsr_w
             metrics["loss_cl"] = cl
             metrics["loss"] = loss
-        return loss, metrics
+        return _mesh_loss(axes, loss, metrics)
 
     def step(state: TrainState, batch, pools, pool_sizes, key, neg=None, corr=None):
         loss, metrics = losses_of(batch, pools, pool_sizes, key, neg, corr)
         names = list(state.params)
         grads = torch.autograd.grad(loss, [state.params[k] for k in names],
                                     allow_unused=True)
-        tx.update_(state.params, dict(zip(names, grads)),
-                   state.opt_state if slot == 1 else state.opt_state2)
+        grads = _sum_grads(context.current(), dict(zip(names, grads)), state.params)
+        tx.update_(state.params, grads, state.opt_state if slot == 1 else state.opt_state2)
         return state, _finish_metrics(metrics)
 
     step.rng = rng
@@ -212,7 +293,9 @@ def make_eval_step(model, num_neg: int) -> Callable:
     @torch.no_grad()
     def step(batch, pools, pool_sizes, key, neg=None):
         device = pools.device
-        neg = _draw_negatives(_seeded(rng, key), batch, pools, pool_sizes, num_neg, neg)
+        axes, batch, (neg,) = _mesh_start(rng, key, batch, (neg,))
+        neg = _draw_negatives(rng, batch, pools, pool_sizes, num_neg, neg)
+        batch, (neg,) = _mesh_rows(rng, axes, batch, (neg,))
         labels = _make_labels(batch["target"].shape[0], num_neg, device)
         model.eval()
         out = model(_model_batch(batch, neg))
@@ -222,11 +305,16 @@ def make_eval_step(model, num_neg: int) -> Callable:
         # choose_predict (utils.py:21-32): the active domain's scores
         dom = batch["domain_id"][:, None]
         pred = torch.where(dom == 0, out["logits_d1"], out["logits_d2"])
-        return {
+        got = {
             "loss_cls": loss_cls,
             "ranks_fixed": positive_ranks(pred, fix=True),
             "ranks_raw": positive_ranks(pred, fix=False),
         }
+        if axes is not None:  # every rank reads the global batch's ranks
+            got["loss_cls"] = mean_data({"loss_cls": loss_cls}, axes)["loss_cls"]
+            for k in ("ranks_fixed", "ranks_raw"):
+                got[k] = all_gather_data(got[k], axes)
+        return got
 
     step.rng = rng
     return step

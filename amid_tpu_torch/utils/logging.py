@@ -6,6 +6,8 @@ from __future__ import annotations
 import logging
 from pathlib import Path
 
+import torch.distributed as dist
+
 
 class AverageMeter:
     """Running means keyed by metric name (utils.py:262-280)."""
@@ -33,7 +35,11 @@ class AverageMeter:
 
 
 def init_logger(log_dir: str, log_file: str) -> logging.Logger:
-    """Console + file logger (utils.py:282-294: model_dir/log{seed}.txt)."""
+    """Console + file logger (utils.py:282-294: model_dir/log{seed}.txt).
+
+    In a `torch.distributed` world only rank 0 gets the file handler: every
+    rank runs the same trainer, and N ranks appending to one model_dir file
+    would interleave; the others keep the console."""
     logger = logging.getLogger("amid_tpu_torch")
     logger.setLevel(logging.INFO)
     fmt = logging.Formatter(
@@ -46,10 +52,12 @@ def init_logger(log_dir: str, log_file: str) -> logging.Logger:
     sh = logging.StreamHandler()
     sh.setFormatter(fmt)
     logger.addHandler(sh)
+    logger.propagate = False
+    if dist.is_available() and dist.is_initialized() and dist.get_rank() != 0:
+        return logger
     d = Path(log_dir)
     d.mkdir(parents=True, exist_ok=True)
     fh = logging.FileHandler(str(d / log_file))
     fh.setFormatter(fmt)
     logger.addHandler(fh)
-    logger.propagate = False
     return logger

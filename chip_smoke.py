@@ -204,7 +204,21 @@ code and no result line):
    beside them, the loss gap every 10 steps and HIT/NDCG@10 of one
    evaluation, the bf16 pair's final losses within 1% of each other, and
    every 10 steps the bf16 kernels on that step's own attention inputs
-   against their fp64 oracles.
+   against their fp64 oracles;
+11. the parallel layer (`amid_tpu_torch/parallel/`, `mesh_phase`) on a
+   world of one NCCL rank (the card is one H100): K1's dropout row offset on
+   every path, fp32 and bf16, forward and backward (a launch on rows [b0:]
+   at `row_offset=b0` bit-equal to those rows of the whole launch, and
+   within the plain version's tolerance at that offset), K2/K3 at a row
+   shard's local ids (negative ones and the sentinel dropped) against their
+   plain versions; `run_seed` for one epoch of the DR schedule off the mesh
+   and on a 1x1 mesh at full width (gspmd T=20 lazy, gspmd T=150 pairwise,
+   shard_map T=150 per step, BERT4Rec T=150 gspmd on both long K1 paths),
+   metrics within 1e-5 (bit equality printed), launches against
+   `expected_launches`, the gspmd runs' fast loops replaying graphs that
+   captured the collectives; the replayed phase-A step off and on the mesh
+   at T=20 and T=150 (wall and device ms, NCCL kernels and copies a step
+   from the trace, peak memory).
 
 It prints a JSON line of per-kernel numbers, the total wall time, the
 `nvidia-smi` name and power line, and last `{"ok": true, "device": {...}}`.
@@ -3515,6 +3529,257 @@ def precision_phase(torch, rng):
     return runs
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the parallel layer on the card (a world of one NCCL rank)
+# ---------------------------------------------------------------------------
+
+MESH_ROWS = (1024, 512, 1024)  # train, val, DR rows: 4 + 4 steps, 2 evaluation batches
+MESH_METRIC_TOL = 1e-5  # a mesh run's metrics against the same run off the mesh
+OFFSET_ROWS, OFFSET_B0 = 64, 40  # K1's row-offset check: the batch, and its rows [b0:]
+# K1's bf16 builds against their plain bf16 versions: the kernel_plain limits
+# of BF16_LIMITS' cases at these paths and shapes
+OFFSET_BF16_LIMITS = {("fwd", "sweep"): BF16_LIMITS["bf16_causal_T150_h8_rate0.5"][1],
+                      ("fwd", "long"): BF16_LIMITS["bf16_long_native"][1],
+                      ("bwd", "sweep"): BF16_LIMITS["bf16_bwd_causal_T150_h8_rate0.5"][1],
+                      ("bwd", "long"): BF16_LIMITS["bf16_bwd_long_native"][1]}
+
+
+def row_offset_checks(torch, gen):
+    """K1's dropout row offset on every path (one-head and long, forward and
+    backward, fp32 and bf16 builds), dropout 0.1: a launch on rows [b0:] with
+    row_offset=b0 must equal, bit for bit, rows [b0:] of a launch on the
+    whole batch at offset 0 (out and row statistics; dq, dk, dv), and the
+    kernel at that offset its plain version at that offset (fp32: ATOL/RTOL,
+    bwd_atol; bf16: the case's kernel_plain limit). The same rows at offset
+    0 must differ: the offset keys the masks."""
+    from amid_tpu_torch.ops import attention as attention_ops
+    from amid_tpu_torch.ops.attention import (
+        attention_bwd_plain, attention_fwd_stats_plain, attention_fwd_stats_streamed_plain,
+    )
+
+    B, D, b0, rate, seed = OFFSET_ROWS, 128, OFFSET_B0, 0.1, 4321
+    rows = slice(b0, None)
+    out = {}
+    for path, t, heads in (("sweep", 150, 8), ("long", 600, 4)):
+        dh = D // heads
+        q, k, v, g = (torch.randn(B, t, D, device="cuda", generator=gen) for _ in range(4))
+        if path == "sweep":
+            bias = torch.triu(torch.full((t, t), -1e9, device="cuda"), diagonal=1)[None, None]
+            part_bias = bias
+        else:
+            bias = keypad_bias(torch, gen, B, t)
+            part_bias = bias[rows]
+        for bf16 in (False, True):
+            label = f"{path}_T{t}_h{heads}" + ("_bf16" if bf16 else "")
+            with torch.no_grad():
+                whole = attention_ops._launch_forward(q, k, v, bias, seed, heads, rate, True,
+                                                      path, bf16=bf16)
+                part = attention_ops._launch_forward(q[rows], k[rows], v[rows], part_bias,
+                                                     seed, heads, rate, True, path, bf16=bf16,
+                                                     row_offset=b0)
+                unshifted = attention_ops._launch_forward(q[rows], k[rows], v[rows], part_bias,
+                                                          seed, heads, rate, False, path,
+                                                          bf16=bf16)[0]
+                fwd_equal = all(torch.equal(p, w[rows]) for p, w in zip(part, whole))
+                require(fwd_equal, f"row offset {label}: the forward on rows [{b0}:] at "
+                                   f"row_offset={b0} is not the whole launch's rows")
+                require(not torch.equal(unshifted, whole[0][rows]),
+                        f"row offset {label}: offset 0 drew the same masks")
+                args = (q[rows], k[rows], v[rows], part_bias, seed, heads, rate)
+                if path == "long":
+                    plain = attention_fwd_stats_streamed_plain(
+                        *args, key_chunk(path, dh) if bf16 else 64, bf16, row_offset=b0)
+                else:
+                    plain = attention_fwd_stats_plain(*args, bf16, row_offset=b0)
+                if bf16:
+                    fwd_err = rel_norm(part[0], plain[0])
+                    require(fwd_err <= OFFSET_BF16_LIMITS[("fwd", path)],
+                            f"row offset {label}: forward vs plain {fwd_err}")
+                else:
+                    fwd_err = (part[0] - plain[0]).abs().max().item()
+                    require(torch.allclose(part[0], plain[0], atol=ATOL, rtol=RTOL),
+                            f"row offset {label}: forward vs plain {fwd_err}")
+                # the backward from the plain forward's residuals of the whole batch
+                res = attention_fwd_stats_plain(q, k, v, bias, seed, heads, rate, bf16)
+                grads = attention_ops._launch_backward(q, k, v, bias, *res, g, seed, heads, rate,
+                                                       path, bf16=bf16)
+                part_res = [x[rows] for x in res]
+                part_grads = attention_ops._launch_backward(
+                    q[rows], k[rows], v[rows], part_bias, *part_res, g[rows], seed, heads, rate,
+                    path, bf16=bf16, row_offset=b0)
+                bwd_equal = all(torch.equal(p, w[rows]) for p, w in zip(part_grads, grads))
+                require(bwd_equal, f"row offset {label}: the backward on rows [{b0}:] at "
+                                   f"row_offset={b0} is not the whole launch's rows")
+                plain_grads = attention_bwd_plain(q[rows], k[rows], v[rows], part_bias,
+                                                  *part_res, g[rows], seed, heads, rate, bf16,
+                                                  row_offset=b0)
+                if bf16:
+                    bwd_err = max(rel_norm(p, w) for p, w in zip(part_grads, plain_grads))
+                    require(bwd_err <= OFFSET_BF16_LIMITS[("bwd", path)],
+                            f"row offset {label}: backward vs plain {bwd_err}")
+                else:
+                    bwd_err = max((p - w).abs().max().item()
+                                  for p, w in zip(part_grads, plain_grads))
+                    require(all(torch.allclose(p, w, atol=bwd_atol(t, dh), rtol=RTOL)
+                                for p, w in zip(part_grads, plain_grads)),
+                            f"row offset {label}: backward vs plain {bwd_err}")
+            rec = {"case": label, "rows": B, "row_offset": b0, "rate": rate,
+                   "forward_bit_equal": fwd_equal, "backward_bit_equal": bwd_equal,
+                   ("fwd_rel_err" if bf16 else "fwd_max_abs_err"): fwd_err,
+                   ("bwd_rel_err" if bf16 else "bwd_max_abs_err"): bwd_err}
+            emit({"row_offset": rec})
+            out[label] = rec
+    return out
+
+
+def shard_scatter_check(torch, gen):
+    """K2 and K3 on the lazy Adam's shard-local ids: the second of two row
+    shards of the 894,820-row table (V_local = 447,410, lo = V_local), the
+    step's sorted unique ids minus lo (the first shard's negative, the
+    sentinel past V_local), against the plain versions, bit for bit."""
+    from amid_tpu_torch.ops.scatter import (
+        scatter_set_unique, scatter_set_unique3, scatter_set_unique3_plain,
+        scatter_set_unique_plain,
+    )
+
+    v_local, width, n = FLAGSHIP["item_length"], FLAGSHIP["emb_dim"], 11264
+    lo = v_local
+    uids = torch.randperm(2 * v_local, device="cuda", generator=gen)[:n - 64].sort().values
+    uids = torch.cat([uids, torch.full((64,), 2 * v_local, device="cuda", dtype=uids.dtype)])
+    ids = uids - lo
+    rows = [torch.randn(n, width, device="cuda", generator=gen) for _ in range(3)]
+    base = [torch.randn(v_local, width, device="cuda", generator=gen) for _ in range(3)]
+    got, want = [b.clone() for b in base], [b.clone() for b in base]
+    scatter_set_unique3(*got, ids, *rows)
+    scatter_set_unique3_plain(*want, ids, *rows)
+    got1, want1 = base[0].clone(), base[0].clone()
+    scatter_set_unique(got1, ids, rows[0])
+    scatter_set_unique_plain(want1, ids, rows[0])
+    equal = all(torch.equal(a, b) for a, b in zip(got + [got1], want + [want1]))
+    mine = int(((ids >= 0) & (ids < v_local)).sum())
+    require(equal, "shard-local scatter: the kernels differ from the plain versions")
+    require(0 < mine < n - 64 and bool((ids < 0).any()), "shard-local scatter: ids not mixed")
+    rec = {"ids": n, "written_here": mine, "negative": int((ids < 0).sum()), "bit_equal": equal}
+    emit({"shard_scatter": rec})
+    return rec
+
+
+def mesh_step_timing(torch, cfg, tcfg, ds, label, mesh):
+    """The replayed phase-A step off and on the mesh
+    (`amid_tpu_torch/mesh_check.py::phase_a_timing`, a chunk of 10 steps):
+    wall ms, device ms, the NCCL kernels' and the copies' count and device
+    ms a step from the trace, peak memory."""
+    from amid_tpu_torch.mesh_check import phase_a_timing
+
+    out = {}
+    for where, m in (("off_mesh", None), ("mesh", mesh)):
+        rec = phase_a_timing(cfg, tcfg, ds, m)
+        require(rec["device_ms_per_step"] > 0.0, f"mesh timing {label} {where}: empty trace")
+        emit({"mesh_step_timing": {"config": label, "where": where, **rec}})
+        out[where] = rec
+    return out
+
+
+def mesh_phase(torch, rng):
+    """Phase 11: the parallel layer (`amid_tpu_torch/parallel/`) at the
+    run.sh width on a world of one NCCL rank. K1's row offset on every path
+    and K2/K3 at shard-local ids; then `run_seed` for one epoch of the DR
+    schedule (MESH_ROWS) off the mesh and on a 1x1 mesh, in four cases:
+    gspmd T=20 lazy (quirk), gspmd T=150 dense pairwise (K6), shard_map
+    T=150 dense (per step, both runs), BERT4Rec with InterComp T=150 gspmd
+    (encoder T=300: both long K1 paths). Each mesh run's metrics must equal
+    the off-mesh run's at MESH_METRIC_TOL (bit equality printed), and its
+    launches `expected_launches`; the gspmd runs replay the fast loops'
+    graphs with the collectives captured. Then the replayed phase-A step off
+    and on the mesh at T=20 and T=150 (`mesh_step_timing`)."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from amid_tpu_torch.config import DataConfig, MeshConfig, ModelConfig, TrainConfig
+    from amid_tpu_torch.data.synthetic import synth_packed
+    from amid_tpu_torch.parallel.distributed import (
+        destroy_world, free_port, initialize_distributed,
+    )
+    from amid_tpu_torch.parallel.mesh import make_mesh
+    from amid_tpu_torch.train.loop import run_seed
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    out = {"row_offset": row_offset_checks(torch, gen),
+           "shard_scatter": shard_scatter_check(torch, gen)}
+    require(not dist.is_initialized(), "mesh phase: a process group exists already")
+    initialize_distributed(f"localhost:{free_port()}", 1, 0)  # the card: NCCL
+    require(dist.get_backend() == "nccl", f"mesh phase: backend {dist.get_backend()}")
+    cases = {  # label -> (model fields, lazy Adam, mesh_impl)
+        "T20_lazy_gspmd": ({"seq_len": 20}, True, "gspmd"),
+        "T150_dense_pairwise_gspmd": ({"seq_len": 150, "comp_broadcast_quirk": False}, False,
+                                      "gspmd"),
+        "T150_dense_shard_map": ({"seq_len": 150}, False, "shard_map"),
+        "bert4rec_T150_gspmd": ({**BACKBONES["bert4rec"], "seq_len": 150}, False, "gspmd"),
+    }
+    n_a, n_ev, n_b = (n // FLAGSHIP["batch_size"] for n in MESH_ROWS)
+    try:
+        for label, (fields, lazy_adam, impl) in cases.items():
+            cfg = ModelConfig(**{**FLAGSHIP, **fields})
+            data = [synth_packed(cfg, rng, n) for n in MESH_ROWS]
+            work = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+            per_step = impl == "shard_map"  # shard_map keeps the per-step loops
+            base = TrainConfig(epochs=1, seeds=1, model_dir=work, lazy_table_adam=lazy_adam,
+                               nan_policy="halt", checkpoint=False, model=cfg,
+                               data=DataConfig(neg_nums=999), fast_train=not per_step,
+                               fast_eval=not per_step)
+            runs = {}
+            try:
+                for where, tcfg in (("off_mesh", base), ("mesh", dataclasses.replace(
+                        base, use_mesh=True, mesh_impl=impl, mesh=MeshConfig(1, 1)))):
+                    torch.cuda.reset_peak_memory_stats()
+                    reset_counts()
+                    t0 = time.perf_counter()
+                    best = run_seed(tcfg, 0, *data)  # on cuda
+                    torch.cuda.synchronize()
+                    runs[where] = {"best": best, "seconds": time.perf_counter() - t0,
+                                   "launches": read_counts(),
+                                   "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+            finally:
+                shutil.rmtree(work, ignore_errors=True)
+            want = expected_launches(cfg, train_steps=n_a + n_b, eval_batches=2 * n_ev,
+                                     lazy_adam=lazy_adam)
+            for where, r in runs.items():
+                require(r["launches"] == want,
+                        f"mesh {label} {where}: launches {r['launches']}, want {want}")
+            keys = [k for k in runs["off_mesh"]["best"] if k.startswith(("hit_", "ndcg_", "mrr"))]
+            diff = max(abs(runs["mesh"]["best"][k] - runs["off_mesh"]["best"][k]) for k in keys)
+            require(diff <= MESH_METRIC_TOL, f"mesh {label}: metrics {diff} from off the mesh")
+            rec = {"config": label, "impl": impl, "mesh": [1, 1], "lazy_adam": lazy_adam,
+                   "loop": "per_step" if per_step else "fast", "steps": [n_a, n_b],
+                   "eval_batches": 2 * n_ev, "max_metric_diff": diff,
+                   "bit_equal": diff == 0.0,
+                   **{f"{k}_mrr_d1": r["best"]["mrr_d1"] for k, r in runs.items()},
+                   **{f"{k}_seconds": r["seconds"] for k, r in runs.items()},
+                   **{f"{k}_peak_memory_gb": r["peak_memory_gb"] for k, r in runs.items()},
+                   "launches": runs["mesh"]["launches"]}
+            emit({"mesh_run": rec})
+            out[label] = {**rec, "launches": {name: sum(r["launches"][name]
+                                                        for r in runs.values())
+                                              for name in KERNELS}}
+            torch.cuda.empty_cache()
+        mesh = make_mesh(MeshConfig(1, 1))
+        for label, fields, lazy_adam in (("T20_lazy", {"seq_len": 20}, True),
+                                         ("T150_dense_pairwise",
+                                          {"seq_len": 150, "comp_broadcast_quirk": False},
+                                          False)):
+            cfg = ModelConfig(**{**FLAGSHIP, **fields})
+            tcfg = TrainConfig(model=cfg, data=DataConfig(neg_nums=999),
+                               lazy_table_adam=lazy_adam)
+            ds = synth_packed(cfg, rng, 2560)
+            out[f"timing_{label}"] = mesh_step_timing(torch, cfg, tcfg, ds, label, mesh)
+    finally:
+        destroy_world()
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -3576,16 +3841,19 @@ def main() -> int:
     phase(bf16_crossover_sweeps, gen)
     precision_runs = phase(precision_phase, np.random.default_rng(6))
     phase(bf16_drift_check, np.random.default_rng(7))
+    mesh_runs = phase(mesh_phase, np.random.default_rng(8))
 
     # launches on the main paths: the serving passes, the run_seed runs and
     # the CLI runs (each on the fast loops and per step), the backbones'
     # serving passes and run_seed runs, phase 8's C2DSR run_seed runs, phase
-    # 9's run_seed runs (resume, roll-back, trace), each driven with the
-    # counts at 0 just before it and read just after
+    # 9's run_seed runs (resume, roll-back, trace), phase 11's run_seed runs
+    # off and on the mesh, each driven with the counts at 0 just before it and
+    # read just after
     main_runs = [*training.values(), *serving.values(),
                  *(r for r in backbones.values() if "launches" in r), *c2dsr_runs.values(),
                  *checkpoint_runs.values(),
-                 *(r for r in precision_runs.values() if "launches" in r)]
+                 *(r for r in precision_runs.values() if "launches" in r),
+                 *(r for r in mesh_runs.values() if "launches" in r)]
     launches = {name: sum(r["launches"][name] for r in main_runs) for name in KERNELS}
     # run_seed scatters fused; the single-array kernel's path is the lazy step
     # built with fused_scatter=False, driven once in step_checks

@@ -137,7 +137,7 @@ def test_long_launch_packs_the_forward_block_and_counts_apart(monkeypatch):
     longs = attention_ops.fused_attention.long_forward_launches
     out, row_max, row_inv_sum = attention_ops._launch_forward(q, k, v, bias, 9, heads, 0.5,
                                                               True, path="long")
-    f = struct.unpack("<23q2d", seen[-1])
+    f = struct.unpack("<24q2d", seen[-1])
     assert f[:7] == (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
                      out.data_ptr(), row_max.data_ptr(), row_inv_sum.data_ptr())
     assert f[7:17] == (b, t, d, heads) + (3 * d * t, 3 * d) * 3
@@ -145,7 +145,7 @@ def test_long_launch_packs_the_forward_block_and_counts_apart(monkeypatch):
     assert attention_ops.fused_attention.launches == sweeps
     odd = torch.randn(b, t, d + 1)[..., 1:]  # rows start 4 bytes past a 16-byte boundary
     attention_ops._launch_forward(odd, k, v, bias, 0, heads, 0.0, False, path="long")
-    f = struct.unpack("<23q2d", seen[-1])
+    f = struct.unpack("<24q2d", seen[-1])
     assert f[0] != odd.data_ptr() and f[11:13] == (t * d, d)  # a contiguous copy
     with pytest.raises(ValueError, match="'sweep' or 'long'"):
         attention_ops._launch_forward(q, k, v, bias, 0, heads, 0.0, False, path="short")

@@ -258,7 +258,7 @@ def _fake_entry(monkeypatch, code=0):
 
     def entry(raw):
         seen.append(raw)
-        seed_at = struct.unpack_from("<q", raw, 8 * (21 if len(raw) == 200 else 29))[0]
+        seed_at = struct.unpack_from("<q", raw, 8 * (21 if len(raw) in (208, 216) else 29))[0]
         # the dropout seed lives on the device: read it while the launch holds it
         entry.seeds.append(ctypes.c_longlong.from_address(seed_at).value if seed_at else None)
         return code
@@ -291,7 +291,7 @@ def test_launch_packs_strided_views_broadcast_bias_and_dropout(monkeypatch):
     out, row_max, row_inv_sum = attention_ops._launch_forward(q, k, v, bias, 2**32 + 9,
                                                               heads, 0.5, True)
     assert row_max.shape == row_inv_sum.shape == (b, heads, t)
-    f = struct.unpack("<23q2d", seen[-1])
+    f = struct.unpack("<24q2d", seen[-1])
     assert f[:7] == (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
                      out.data_ptr(), row_max.data_ptr(), row_inv_sum.data_ptr())
     assert f[7:11] == (b, t, d, heads)
@@ -301,23 +301,24 @@ def test_launch_packs_strided_views_broadcast_bias_and_dropout(monkeypatch):
     # into a one-element int64 tensor, its low 32 bits
     assert (f[19], f[20], f[22]) == (1, keep_threshold(0.5), 77) and f[21] != 0
     assert _fake_entry.seeds[-1] == 9
-    assert f[23:] == (1.0 / math.sqrt(d // heads), 2.0)
+    assert f[23] == 0  # row_offset: the call's rows are the batch's
+    assert f[24:] == (1.0 / math.sqrt(d // heads), 2.0)
     seed_t = torch.tensor([12345], dtype=torch.int64)  # a step's seed: read where it lies
-    attention_ops._launch_forward(q, k, v, bias, seed_t, heads, 0.5, False)
-    f = struct.unpack("<23q2d", seen[-1])
-    assert f[21] == seed_t.data_ptr() and _fake_entry.seeds[-1] == 12345
+    attention_ops._launch_forward(q, k, v, bias, seed_t, heads, 0.5, False, row_offset=6)
+    f = struct.unpack("<24q2d", seen[-1])
+    assert f[21] == seed_t.data_ptr() and _fake_entry.seeds[-1] == 12345 and f[23] == 6
     attention_ops._launch_forward(q, k, v, bias[:1, :, :1], 0, heads, 0.0, False)
-    f = struct.unpack("<23q2d", seen[-1])
+    f = struct.unpack("<24q2d", seen[-1])
     assert f[5:7] == (0, 0) and f[17:19] == (0, 0) and f[19:22] == (0, 0, 0)
     dout = torch.randn(b, t, d)
     dq, dk, dv = attention_ops._launch_backward(q, k, v, bias, out, row_max, row_inv_sum,
                                                 dout, 9, heads, 0.5)
-    g = struct.unpack("<31q2d", seen[-1])
+    g = struct.unpack("<32q2d", seen[-1])
     assert g[:11] == tuple(x.data_ptr() for x in (q, k, v, bias, out, dout, row_max,
                                                   row_inv_sum, dq, dk, dv))
     assert g[15:25] == (3 * d * t, 3 * d) * 3 + (d * t, d) * 2
     assert g[25:27] == (t, 0) and (g[27], g[28], g[30]) == (1, keep_threshold(0.5), 77)
-    assert _fake_entry.seeds[-1] == 9 and g[31:] == (1.0 / math.sqrt(8), 2.0)
+    assert _fake_entry.seeds[-1] == 9 and g[31] == 0 and g[32:] == (1.0 / math.sqrt(8), 2.0)
 
 
 def test_launch_refusals_become_exceptions(monkeypatch):
@@ -372,8 +373,8 @@ def test_backward_route_takes_the_long_path_where_the_sweep_does_not_fit(monkeyp
     sweeps = attention_ops.fused_attention.backward_launches
     longs = attention_ops.fused_attention.long_backward_launches
     dq, dk, dv = attention_ops._launch_backward(q, k, v, bias, q, stats, stats, g, 0, heads, 0.0)
-    assert len(seen[-1]) == struct.calcsize("<31q2dq")
-    f = struct.unpack("<31q2dq", seen[-1])
+    assert len(seen[-1]) == struct.calcsize("<32q2dq")
+    f = struct.unpack("<32q2dq", seen[-1])
     assert f[8:15] == (dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, t, d, heads)
     assert f[-1] != 0  # the D_i scratch
     assert attention_ops.fused_attention.long_backward_launches == longs + 1
@@ -381,7 +382,7 @@ def test_backward_route_takes_the_long_path_where_the_sweep_does_not_fit(monkeyp
     attention_ops._launch_backward(q[:, :fits], k[:, :fits], v[:, :fits], bias[..., :fits],
                                    q[:, :fits], stats[..., :fits], stats[..., :fits],
                                    g[:, :fits], 0, heads, 0.0)
-    assert len(seen[-1]) == struct.calcsize("<31q2d")
+    assert len(seen[-1]) == struct.calcsize("<32q2d")
     assert attention_ops.fused_attention.backward_launches == sweeps + 1
     with pytest.raises(ValueError, match="'sweep' or 'long'"):
         attention_ops._launch_backward(q, k, v, bias, q, stats, stats, g, 0, heads, 0.0,
@@ -451,7 +452,7 @@ def test_long_path_packs_rows_that_start_on_16_bytes(monkeypatch):
     for q_in, copied in ((q, False), (misaligned, True)):
         attention_ops._launch_backward(q_in, k, v, bias, q, stats, stats, q, 0, heads, 0.0,
                                        path="long")
-        f = struct.unpack("<31q2dq", seen[-1])
+        f = struct.unpack("<32q2dq", seen[-1])
         assert (f[0] != q_in.data_ptr()) == copied
         assert f[0] % 16 == 0 and f[15] % 4 == 0 and f[16] % 4 == 0  # q: base, batch, time
         assert f[1:3] == (k.data_ptr(), v.data_ptr()) and f[17:21] == (3 * d * t, 3 * d) * 2

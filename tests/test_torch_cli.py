@@ -74,8 +74,10 @@ def test_parse_cli_documented_differences():
         with pytest.raises(SystemExit):
             config.parse_cli(["--kernels", bad])
     assert "device" not in _flat(cfg)
-    # --distributed joins no runtime here: it only asks for the mesh
+    # --distributed with no world to join (no torchrun environment, no
+    # --coordinator) joins none, as the JAX CLI's; it asks for the mesh
     assert config.parse_cli(["--distributed", "True"]).use_mesh
+    assert not torch.distributed.is_initialized()
 
 
 TINY = ["--seq_len", "6", "--bs", "16", "--emb_dim", "16", "--hid_dim", "8", "--neg_nums", "9",
@@ -141,16 +143,21 @@ def _assert_default_checkpoint(model_dir, log_all):
 
 def test_cli_runs_on_the_card_unless_asked_and_refuses_unported_parts(
         tmp_path, csv_root, monkeypatch):
-    """Without --device the card (and there is none); --mesh refused, naming
-    the field; --resume True starts after the saved epoch, --profile_steps 2
-    writes a trace (both ported: they run on the CPU); C2DSR as below."""
+    """Without --device the card (and there is none); --mesh True (refused
+    until the parallel layer was ported) trains on a world of one gloo rank
+    that the run makes and destroys; --resume True starts after the saved
+    epoch, --profile_steps 2 writes a trace (both ported: they run on the
+    CPU); C2DSR as below."""
     base = TINY + ["--data_root", csv_root, "-md", str(tmp_path)]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train_sr_dr.main(base)  # no --device: the card, and there is none
-    with pytest.raises(NotImplementedError, match="TrainConfig.use_mesh"):
-        train_sr_dr.main(base + ["--device", "cpu", "--kernels", "torch", "--mesh", "True"])
     cpu = ["--device", "cpu", "--kernels", "torch"]
+    agg = train_sr_dr.main(base + cpu + ["--mesh", "True", "-md", str(tmp_path / "mesh")])
+    assert 0.0 < agg["mrr_d1"]["mean"] <= 1.0
+    assert "mesh: {'data': 1, 'model': 1} impl=gspmd processes=1" in (
+        tmp_path / "mesh/log0.txt").read_text()
+    assert not torch.distributed.is_initialized()
     train_sr_dr.main(base + cpu + ["-md", str(tmp_path / "resume")])
     agg = train_sr_dr.main(base + cpu + ["-md", str(tmp_path / "resume"), "--resume", "True",
                                          "--epoch", "2"])

@@ -532,12 +532,6 @@ def test_run_seed_one_epoch_on_cpu(tmp_path, lazy_adam):
     assert agg["mrr_d1"] == {"mean": best["mrr_d1"], "std": 0.0}
 
 
-@pytest.mark.parametrize("field,value", [("use_mesh", True)])
-def test_run_seed_names_the_field_that_asks_for_an_unported_part(tmp_path, field, value):
-    with pytest.raises(NotImplementedError, match=f"TrainConfig.{field}"):
-        loop.run_seed(_train_cfg(tmp_path, **{field: value}), 0, None, None, device="cpu")
-
-
 @pytest.mark.parametrize("field", ["checkpoint", "resume", "profile_steps"])
 def test_run_seed_runs_the_checkpoint_resume_and_profile_fields(tmp_path, field):
     """Each field that asked for an unported part until the checkpoint
