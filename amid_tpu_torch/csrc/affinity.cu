@@ -533,7 +533,7 @@ cudaError_t launch_wgmma(const __nv_bfloat16* bank, const __nv_bfloat16* query, 
 bool bad_shape(long long B, long long C, long long N, long long M, long long D) {
   return B < 1 || C < 1 || N < 1 || M < 1 || B > 0x7fffffffLL || C > 0x7fffffffLL ||
          N > 0x7fffffffLL || M > 0x7fffffffLL ||
-         !(D == 16 || D == 32 || D == 64 || D == 128);
+         D < 8 || D > kKWidth || D % 8 != 0;  // rows padded to kKWidth by the pack
 }
 
 template <typename T>

@@ -21,7 +21,7 @@
 //     the dQ accumulator [T, dh], the per-row m, 1/l (0 on padded rows, so
 //     their P is 0), D_i and dropout key, and one 16 x 16 dS tile per warp;
 //   * each warp owns a 16-row KEY tile at a time: its K and V fragments
-//     (hi/lo) stay in registers, and so do dK and dV. At dh=64 the held
+//     (hi/lo) stay in registers, and so do dK and dV. From dh=64 on the held
 //     halves would need more than 255 registers (ptxas spills): there V is
 //     staged in shared memory too, and K and V are split again at each use.
 //     The warp walks every query tile, computing S^T = K Q^T and
@@ -40,7 +40,13 @@
 //   * each step reads its 16 x 16 bias elements before the products, so the
 //     loads (strided: keys run along the lanes, queries along the bias's
 //     rows) overlap the tensor-core work instead of waiting behind it;
-//   * keys and queries past T get P = 0 and write nothing.
+//   * keys and queries past T get P = 0 and write nothing;
+//   * a head of width dh runs at its template width DH (attention_common.cuh),
+//     in the instance with PAD set unless dh = DH: the staged tiles and the
+//     held fragments are zero at columns dh to DH, and no column from dh on
+//     is written. dK and dV stay in registers at every width (128 at DH =
+//     128); there a warp's 16 x DH part of dQ is summed 8 columns at a time
+//     and added to the shared rows at once, in the same order.
 //
 // Bound on the H100 (data sheet): at B=256, T=150, D=128, H=8 one call reads
 // q, k, v, dO, out and the bias and writes dq, dk, dv: the function's own
@@ -51,6 +57,7 @@
 // hash and bias read per element on the CUDA cores; causally masked tiles
 // are computed like the others; a block barrier per query step.
 
+#include <stdint.h>
 #include <string.h>
 
 #include "attention_common.cuh"
@@ -61,14 +68,15 @@ using namespace amid_attention;
 
 constexpr int kScratchPitch = 20;  // 16 queries + 4: rows 2t and 2t+1 on distinct banks
 
-template <int DH>
+// PAD: dh = p.dh, below DH; else dh = DH
+template <int DH, bool PAD>
 __global__ void __launch_bounds__(kMaxWarps * 32)
 attention_bwd_kernel(const BwdParams p) {
   constexpr int P = pitch(DH);
   constexpr int KS = DH / 8;  // k-steps over dh; n-tiles of dV, dK, dQ
   constexpr int SP = kScratchPitch;
   constexpr bool kHoldKV = DH < 64;  // K's and V's hi/lo fragments held in registers
-  const int T = p.T;
+  const int T = p.T, dh = PAD ? p.dh : DH;
   const int NT = tiles16(T);
   const int TQ = NT * 16;
   const int warps = blockDim.x >> 5;
@@ -88,15 +96,15 @@ attention_bwd_kernel(const BwdParams p) {
   const int bh = blockIdx.x;
   const int b = bh / p.H;
   const int h = bh - b * p.H;
-  const float* qb = p.q + b * p.q_sb + h * DH;
-  const float* kb = p.k + b * p.k_sb + h * DH;
-  const float* vb = p.v + b * p.v_sb + h * DH;
-  const float* gb = p.dout + b * p.g_sb + h * DH;
-  const float* ob = p.out + b * p.o_sb + h * DH;
+  const float* qb = p.q + b * p.q_sb + h * dh;
+  const float* kb = p.k + b * p.k_sb + h * dh;
+  const float* vb = p.v + b * p.v_sb + h * dh;
+  const float* gb = p.dout + b * p.g_sb + h * dh;
+  const float* ob = p.out + b * p.o_sb + h * dh;
   for (int idx = threadIdx.x; idx < TQ * DH; idx += blockDim.x) {
     const int t = idx / DH;
     const int c = idx - t * DH;
-    const bool in = t < T;
+    const bool in = t < T && (!PAD || c < dh);
     qs[t * P + c] = in ? qb[t * p.q_st + c] : 0.f;
     gs[t * P + c] = in ? gb[t * p.g_st + c] : 0.f;
     ks[t * P + c] = in ? kb[t * p.k_st + c] : 0.f;
@@ -118,7 +126,8 @@ attention_bwd_kernel(const BwdParams p) {
     if (i < T) {
       const float* orow = ob + i * p.o_st;
 #pragma unroll
-      for (int c = 0; c < DH; ++c) d = fmaf(gs[i * P + c], orow[c], d);
+      for (int c = 0; c < DH; ++c)
+        if (!PAD || c < dh) d = fmaf(gs[i * P + c], orow[c], d);
     }
     drow[i] = d;
   }
@@ -128,7 +137,7 @@ attention_bwd_kernel(const BwdParams p) {
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2, t4 = lane & 3;
   const float* bias_b = p.bias + b * p.bias_sb;
-  const long long out_base = (long long)b * T * p.D + h * DH;
+  const long long out_base = (long long)b * T * p.D + h * dh;
   float* scr = scratch + warp * 16 * SP;
 
   // every warp runs the same number of rounds and steps (block barriers); a
@@ -151,10 +160,11 @@ attention_bwd_kernel(const BwdParams p) {
           const int c = kk * 8 + t4;
           const float* v0 = vb + ja * p.v_st + c;
           const float* v1 = vb + jb * p.v_st + c;
+          const bool lo = !PAD || c < dh, hi = !PAD || c + 4 < dh;
           const bool in0 = ja < T, in1 = jb < T;
           ka[kk] = frag(ks, kk);
-          va[kk] = split_a(in0 ? v0[0] : 0.f, in1 ? v1[0] : 0.f, in0 ? v0[4] : 0.f,
-                           in1 ? v1[4] : 0.f);
+          va[kk] = split_a(in0 && lo ? v0[0] : 0.f, in1 && lo ? v1[0] : 0.f,
+                           in0 && hi ? v0[4] : 0.f, in1 && hi ? v1[4] : 0.f);
         }
         dk[kk][0] = dk[kk][1] = dk[kk][2] = dk[kk][3] = 0.f;
         dv[kk][0] = dv[kk][1] = dv[kk][2] = dv[kk][3] = 0.f;
@@ -238,26 +248,51 @@ attention_bwd_kernel(const BwdParams p) {
               make_float2(dp[n][2], dp[n][3]);
         }
         __syncwarp();
-        float dq[KS][4];
+        if constexpr (DH < 128) {
+          float dq[KS][4];
 #pragma unroll
-        for (int c = 0; c < KS; ++c) dq[c][0] = dq[c][1] = dq[c][2] = dq[c][3] = 0.f;
+          for (int c = 0; c < KS; ++c) dq[c][0] = dq[c][1] = dq[c][2] = dq[c][3] = 0.f;
 #pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int kr = half * 8 + 2 * t4;  // local key rows 2t and 2t+1
-          const FragA da = split_a(scr[kr * SP + g], scr[kr * SP + g + 8],
-                                   scr[(kr + 1) * SP + g], scr[(kr + 1) * SP + g + 8]);
-          const float* krow = ks + (j0 + kr) * P + g;
+          for (int half = 0; half < 2; ++half) {
+            const int kr = half * 8 + 2 * t4;  // local key rows 2t and 2t+1
+            const FragA da = split_a(scr[kr * SP + g], scr[kr * SP + g + 8],
+                                     scr[(kr + 1) * SP + g], scr[(kr + 1) * SP + g + 8]);
+            const float* krow = ks + (j0 + kr) * P + g;
 #pragma unroll
-          for (int c = 0; c < KS; ++c) mma3(dq[c], da, krow[c * 8], krow[P + c * 8]);
-        }
-        __syncwarp();  // scratch is rewritten at the next step
+            for (int c = 0; c < KS; ++c) mma3(dq[c], da, krow[c * 8], krow[P + c * 8]);
+          }
+          __syncwarp();  // scratch is rewritten at the next step
 #pragma unroll
-        for (int c = 0; c < KS; ++c) {
-          float2* d0 = reinterpret_cast<float2*>(dqs + (i0 + g) * P + c * 8 + 2 * t4);
-          float2* d1 = reinterpret_cast<float2*>(dqs + (i0 + g + 8) * P + c * 8 + 2 * t4);
-          const float2 x0 = *d0, x1 = *d1;
-          *d0 = make_float2(x0.x + dq[c][0], x0.y + dq[c][1]);
-          *d1 = make_float2(x1.x + dq[c][2], x1.y + dq[c][3]);
+          for (int c = 0; c < KS; ++c) {
+            float2* d0 = reinterpret_cast<float2*>(dqs + (i0 + g) * P + c * 8 + 2 * t4);
+            float2* d1 = reinterpret_cast<float2*>(dqs + (i0 + g + 8) * P + c * 8 + 2 * t4);
+            const float2 x0 = *d0, x1 = *d1;
+            *d0 = make_float2(x0.x + dq[c][0], x0.y + dq[c][1]);
+            *d1 = make_float2(x1.x + dq[c][2], x1.y + dq[c][3]);
+          }
+        } else {  // 8 columns at a time: dq[KS][4] beside dK and dV would spill
+          FragA da[2];
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int kr = half * 8 + 2 * t4;
+            da[half] = split_a(scr[kr * SP + g], scr[kr * SP + g + 8],
+                               scr[(kr + 1) * SP + g], scr[(kr + 1) * SP + g + 8]);
+          }
+          __syncwarp();  // scratch is rewritten at the next step
+#pragma unroll
+          for (int c = 0; c < KS; ++c) {
+            float dq[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+            for (int half = 0; half < 2; ++half) {
+              const float* krow = ks + (j0 + half * 8 + 2 * t4) * P + g + c * 8;
+              mma3(dq, da[half], krow[0], krow[P]);
+            }
+            float2* d0 = reinterpret_cast<float2*>(dqs + (i0 + g) * P + c * 8 + 2 * t4);
+            float2* d1 = reinterpret_cast<float2*>(dqs + (i0 + g + 8) * P + c * 8 + 2 * t4);
+            const float2 x0 = *d0, x1 = *d1;
+            *d0 = make_float2(x0.x + dq[0], x0.y + dq[1]);
+            *d1 = make_float2(x1.x + dq[2], x1.y + dq[3]);
+          }
         }
       }
       __syncthreads();
@@ -267,16 +302,14 @@ attention_bwd_kernel(const BwdParams p) {
       for (int c = 0; c < KS; ++c) {
         const int col = c * 8 + 2 * t4;
         if (ja < T) {
-          *reinterpret_cast<float2*>(p.dk + out_base + (long long)ja * p.D + col) =
-              make_float2(dk[c][0] * p.scale, dk[c][1] * p.scale);
-          *reinterpret_cast<float2*>(p.dv + out_base + (long long)ja * p.D + col) =
-              make_float2(dv[c][0], dv[c][1]);
+          const long long row = out_base + (long long)ja * p.D;
+          store2<DH>(p.dk + row, col, dh, dk[c][0] * p.scale, dk[c][1] * p.scale);
+          store2<DH>(p.dv + row, col, dh, dv[c][0], dv[c][1]);
         }
         if (jb < T) {
-          *reinterpret_cast<float2*>(p.dk + out_base + (long long)jb * p.D + col) =
-              make_float2(dk[c][2] * p.scale, dk[c][3] * p.scale);
-          *reinterpret_cast<float2*>(p.dv + out_base + (long long)jb * p.D + col) =
-              make_float2(dv[c][2], dv[c][3]);
+          const long long row = out_base + (long long)jb * p.D;
+          store2<DH>(p.dk + row, col, dh, dk[c][2] * p.scale, dk[c][3] * p.scale);
+          store2<DH>(p.dv + row, col, dh, dv[c][2], dv[c][3]);
         }
       }
     }
@@ -285,35 +318,51 @@ attention_bwd_kernel(const BwdParams p) {
   for (int idx = threadIdx.x; idx < T * DH; idx += blockDim.x) {
     const int t = idx / DH;
     const int c = idx - t * DH;
-    p.dq[out_base + (long long)t * p.D + c] = dqs[t * P + c] * p.scale;
+    if (!PAD || c < dh) p.dq[out_base + (long long)t * p.D + c] = dqs[t * P + c] * p.scale;
   }
 }
 
+// at the template width of dh; SIZE_MAX at a width no instance takes
 size_t smem_bytes(int T, int dh) {
+  const int dt = template_dh(dh);
+  if (dt == 0) return SIZE_MAX;
   const size_t tq = (size_t)tiles16(T) * 16;
   const size_t warps = (size_t)warps_for(tiles16(T));
-  const size_t tiles = dh < 64 ? 4 : 5;  // Q, dO, K, dQ (and V at dh=64)
-  return sizeof(float) * (tiles * tq * pitch(dh) + 4 * tq + warps * 16 * kScratchPitch);
+  const size_t tiles = dt < 64 ? 4 : 5;  // Q, dO, K, dQ (and V from DH = 64 on)
+  return sizeof(float) * (tiles * tq * pitch(dt) + 4 * tq + warps * 16 * kScratchPitch);
 }
 
-template <int DH>
-cudaError_t launch(const BwdParams& p, int B, size_t smem, cudaStream_t stream) {
+template <int DH, bool PAD>
+cudaError_t launch_one(const BwdParams& p, int B, size_t smem, cudaStream_t stream) {
   // every width may take all 227 KB a block can have; asked once, at the first
   // launch (not a stream operation: it stays out of a CUDA graph's capture)
   static const cudaError_t opted_in = cudaFuncSetAttribute(
-      attention_bwd_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
+      attention_bwd_kernel<DH, PAD>, cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
   if (opted_in != cudaSuccess) return opted_in;
-  attention_bwd_kernel<DH><<<B * p.H, warps_for(tiles16(p.T)) * 32, smem, stream>>>(p);
+  attention_bwd_kernel<DH, PAD><<<B * p.H, warps_for(tiles16(p.T)) * 32, smem, stream>>>(p);
   return cudaGetLastError();
+}
+
+// dh = DH: the instance with dh a compile-time constant, below 128 (no
+// old width's code moves); at DH = 128 one instance, dh read at run time
+template <int DH>
+cudaError_t launch(const BwdParams& p, int B, size_t smem, cudaStream_t stream) {
+  if constexpr (DH == 128) {
+    return launch_one<DH, true>(p, B, smem, stream);
+  } else {
+    return p.dh == DH ? launch_one<DH, false>(p, B, smem, stream)
+                      : launch_one<DH, true>(p, B, smem, stream);
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// Shared memory one block needs, in bytes: Q, dO, K (and V at dh=64) and the
-// dQ accumulator of one head padded to a multiple of 16 rows (row pitch
-// dh + 4), four per-row values and one 16 x 20 dS tile per warp.
+// Shared memory one block needs, in bytes: Q, dO, K (and V from DH = 64 on)
+// and the dQ accumulator of one head padded to a multiple of 16 rows (row
+// pitch DH + 4, DH = dh's template width), four per-row values and one
+// 16 x 20 dS tile per warp; SIZE_MAX for dh above 128.
 size_t attention_bwd_smem_bytes(int T, int dh) { return smem_bytes(T, dh); }
 
 // Launches the kernel. `raw` is one BwdArgs block (attention_common.cuh):
@@ -327,17 +376,18 @@ int attention_bwd(const void* raw) {
   memcpy(&a, raw, sizeof a);
   if (a.B < 1 || a.T < 1 || a.H < 1 || a.D % a.H != 0) return kBadShape;
   const int dh = (int)(a.D / a.H);
+  if (template_dh(dh) == 0) return kBadHeadWidth;
   const size_t smem = smem_bytes((int)a.T, dh);
   if (smem > 232448) return kTooLong;
   const BwdParams p = bwd_params(a);
   cudaStream_t s = ptr<CUstream_st>(a.stream);
   const int B = (int)a.B;
-  switch (dh) {
+  switch (template_dh(dh)) {
     case 8: return (int)launch<8>(p, B, smem, s);
     case 16: return (int)launch<16>(p, B, smem, s);
     case 32: return (int)launch<32>(p, B, smem, s);
     case 64: return (int)launch<64>(p, B, smem, s);
-    default: return kBadHeadWidth;
+    default: return (int)launch<128>(p, B, smem, s);
   }
 }
 

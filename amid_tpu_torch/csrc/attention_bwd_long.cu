@@ -50,7 +50,18 @@
 //     4-column chunks are strided by 16 dh + 16 bytes so that the transposing
 //     stores fall on 32 banks. The owned side is split once a block: into
 //     registers as A fragments at dh <= 32, into [128][dh] shared-memory
-//     tiles at dh = 64 (registers would not hold them).
+//     tiles at dh = 64 (registers would not hold them). At dh = 128 the two
+//     owned inputs' hi and lo tiles (256 KB) would not fit: there each owned
+//     input is one raw fp32 [128][dh] tile (chunks swizzled by row, so that
+//     a warp's fragment reads fall on 32 banks), and its A fragments are
+//     split again at each k-step of each stage (raw_owned), in two buffers
+//     so that one k-step's products run while the next is split; a stage
+//     streams 16 rows.
+//   * A head of width dh runs at its template width DH (attention_common.cuh):
+//     its copies zero the columns from dh on, which then add nothing to S,
+//     dP and D_i and leave the gradients zero there; no column from dh on
+//     is written. Such a head takes the build with AMID_ATTN_PAD=1 (its own
+//     library, dh read at run time); this build takes dh = DH only.
 //   * Products: wgmma.mma_async m64nNk8 .f32.tf32.tf32, three a k-step (lo
 //     hi, hi lo, hi hi into one fp32 accumulator, as attention_common.cuh's
 //     mma3). dS and Pd are re-laid from their accumulator into A fragments
@@ -91,18 +102,71 @@ namespace {
 
 using namespace amid_long;
 
+// Whether the owned side is kept as raw fp32 tiles, split at each use
+// (dh = 128), rather than split once
+template <int DH>
+__host__ __device__ constexpr bool raw_owned() {
+  return DH == 128;
+}
+
+// floats of one owned input: its hi and lo tiles, or its raw tile (none
+// where its fragments are held in registers)
+template <int DH>
+__host__ __device__ constexpr int owned_floats() {
+  return raw_owned<DH>() ? kOwn * DH : 2 * Plan<DH>::OWN;
+}
+
 template <int DH>
 constexpr size_t dq_smem() {
   using P = Plan<DH>;
-  return sizeof(float) * (4 * P::OWN + 2 * (2 * P::TILE + P::NS) + 4 * P::TILE + 2 * P::TR +
-                          P::NS + kOwn) + 2 * sizeof(uint64_t);
+  return sizeof(float) * (2 * owned_floats<DH>() + 2 * (2 * P::TILE + P::NS) + 4 * P::TILE +
+                          2 * P::TR + P::NS + kOwn) + 2 * sizeof(uint64_t);
 }
 
 template <int DH>
 constexpr size_t dkdv_smem() {
   using P = Plan<DH>;
-  return sizeof(float) * (4 * P::OWN + 2 * (2 * P::TILE + 3 * P::NS) + 4 * P::TILE +
-                          4 * P::TR + 4 * P::NS) + 2 * sizeof(uint64_t);
+  return sizeof(float) * (2 * owned_floats<DH>() + 2 * (2 * P::TILE + 3 * P::NS) +
+                          4 * P::TILE + 4 * P::TR + 4 * P::NS) + 2 * sizeof(uint64_t);
+}
+
+// S = Q K^T and dP = dO V^T of one stage (or S^T = K Q^T and dP^T = V dO^T),
+// 3xTF32, with the owned A operands of a raw tile: each k-step's fragments
+// split into one of two buffers, its products committed as a group, so
+// that the split of k-step k + 1 runs beside them
+template <int DH, int NS>
+__device__ __forceinline__ void products_raw(float (&sa)[NS / 2], float (&pa)[NS / 2],
+                                             const float* a_raw, const float* b_raw, int rl,
+                                             int t4, uint64_t sb_hi, uint64_t sb_lo,
+                                             uint64_t pb_hi, uint64_t pb_lo) {
+  uint32_t ah[2][4], al[2][4], bh[2][4], bl[2][4];
+#pragma unroll
+  for (int k = 0; k < DH / 8; ++k) {
+    const int u = k & 1;
+    if (k >= 2) wgmma_wait<1>();  // k-step k - 2 is done: its buffers are free
+    fence_regs(ah[u]);
+    fence_regs(al[u]);
+    fence_regs(bh[u]);
+    fence_regs(bl[u]);
+    raw_frag<DH>(a_raw, rl, k, t4, ah[u], al[u]);
+    raw_frag<DH>(b_raw, rl, k, t4, bh[u], bl[u]);
+    fence_regs(ah[u]);
+    fence_regs(al[u]);
+    fence_regs(bh[u]);
+    fence_regs(bl[u]);
+    wgmma_fence();
+    mma3_rs<NS>(sa, ah[u], al[u], sb_hi + 16 * k, sb_lo + 16 * k);
+    mma3_rs<NS>(pa, bh[u], bl[u], pb_hi + 16 * k, pb_lo + 16 * k);
+    wgmma_commit();
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    fence_regs(ah[u]);
+    fence_regs(al[u]);
+    fence_regs(bh[u]);
+    fence_regs(bl[u]);
+  }
 }
 
 // BCAST: the bias broadcasts over queries (bias_si == 0); DROP: dropout on
@@ -112,14 +176,15 @@ attention_bwd_dq_kernel(const BwdParams p, float* dsum) {
   using P = Plan<DH>;
   constexpr int NS = P::NS, KS = DH / 8, JS = NS / 8;
   constexpr int RAW = 2 * P::TILE + NS;  // a raw stage: K, V, the bias row
-  const int T = p.T;
+  constexpr bool OWN_RAW = raw_owned<DH>();
+  const int T = p.T, dh = kPadBuild ? p.dh : DH;
 
   extern __shared__ __align__(128) float smem[];
-  float* qhi = smem;             // [128][dh] the block's Q, hi and lo
+  float* qhi = smem;             // [128][dh] the block's Q, hi and lo (or raw: qhi)
   float* qlo = qhi + P::OWN;
-  float* ghi = qlo + P::OWN;     // [128][dh] the block's dO
+  float* ghi = qhi + owned_floats<DH>();  // [128][dh] the block's dO
   float* glo = ghi + P::OWN;
-  float* raw = glo + P::OWN;     // two raw stages
+  float* raw = ghi + owned_floats<DH>();  // two raw stages
   float* khi = raw + 2 * RAW;    // [NS][dh] a stage's K and V
   float* klo = khi + P::TILE;
   float* vhi = klo + P::TILE;
@@ -135,11 +200,11 @@ attention_bwd_dq_kernel(const BwdParams p, float* dsum) {
   const int b = bh / p.H;
   const int h = bh - b * p.H;
   const int q0 = blockIdx.y * kOwn;
-  const float* qb = p.q + b * p.q_sb + h * DH;
-  const float* kb = p.k + b * p.k_sb + h * DH;
-  const float* vb = p.v + b * p.v_sb + h * DH;
-  const float* gb = p.dout + b * p.g_sb + h * DH;
-  const float* ob = p.out + b * p.o_sb + h * DH;
+  const float* qb = p.q + b * p.q_sb + h * dh;
+  const float* kb = p.k + b * p.k_sb + h * dh;
+  const float* vb = p.v + b * p.v_sb + h * dh;
+  const float* gb = p.dout + b * p.g_sb + h * dh;
+  const float* ob = p.out + b * p.o_sb + h * dh;
   const float* bias_b = p.bias + b * p.bias_sb;
   const long long stat = (long long)bh * T;
   const int ns = (T + NS - 1) / NS;
@@ -152,16 +217,19 @@ attention_bwd_dq_kernel(const BwdParams p, float* dsum) {
   __syncthreads();
   auto issue = [&](int s) {  // stage s into raw stage s % 2
     float* r = raw + (s & 1) * RAW;
-    copy_rows<DH>(r, kb, p.k_st, s * NS, T, tid);
-    copy_rows<DH>(r + P::TILE, vb, p.v_st, s * NS, T, tid);
+    copy_rows<DH>(r, kb, p.k_st, s * NS, T, dh, tid);
+    copy_rows<DH>(r + P::TILE, vb, p.v_st, s * NS, T, dh, tid);
     if constexpr (BCAST) copy_vals<NS>(r + 2 * P::TILE, bias_b, s * NS, T, tid);
     cp_async_arrive(smem_u32(full + (s & 1)));
   };
   issue(0);
   if (ns > 1) issue(1);
-  if constexpr (!P::REG_A) {
-    load_owned<DH>(qb, p.q_st, q0, T, qhi, qlo, tid);
-    load_owned<DH>(gb, p.g_st, q0, T, ghi, glo, tid);
+  if constexpr (OWN_RAW) {
+    load_owned_raw<DH>(qb, p.q_st, q0, T, dh, qhi, tid);
+    load_owned_raw<DH>(gb, p.g_st, q0, T, dh, ghi, tid);
+  } else if constexpr (!P::REG_A) {
+    load_owned<DH>(qb, p.q_st, q0, T, dh, qhi, qlo, tid);
+    load_owned<DH>(gb, p.g_st, q0, T, dh, ghi, glo, tid);
   }
   // D_i of the block's queries, summed as the one-sweep kernel sums it
   if (tid < kOwn) {
@@ -171,7 +239,8 @@ attention_bwd_dq_kernel(const BwdParams p, float* dsum) {
       const float* grow = gb + i * p.g_st;
       const float* orow = ob + i * p.o_st;
 #pragma unroll
-      for (int c = 0; c < DH; ++c) d = fmaf(grow[c], orow[c], d);
+      for (int c = 0; c < DH; ++c)
+        if (c < dh) d = fmaf(grow[c], orow[c], d);
       dsum[stat + i] = d;
     }
     drow[tid] = d;
@@ -200,8 +269,8 @@ attention_bwd_dq_kernel(const BwdParams p, float* dsum) {
   constexpr int KA = P::REG_A ? KS : 1;
   uint32_t qf_hi[KA][4], qf_lo[KA][4], gf_hi[KA][4], gf_lo[KA][4];
   if constexpr (P::REG_A) {
-    owned_frags<DH>(qb, p.q_st, q0 + rl, T, t4, qf_hi, qf_lo);
-    owned_frags<DH>(gb, p.g_st, q0 + rl, T, t4, gf_hi, gf_lo);
+    owned_frags<DH>(qb, p.q_st, q0 + rl, T, dh, t4, qf_hi, qf_lo);
+    owned_frags<DH>(gb, p.g_st, q0 + rl, T, dh, t4, gf_hi, gf_lo);
   }
   const uint64_t qa_hi = tile_desc<DH>(qhi + wg * 64 * DH);
   const uint64_t qa_lo = tile_desc<DH>(qlo + wg * 64 * DH);
@@ -235,19 +304,23 @@ attention_bwd_dq_kernel(const BwdParams p, float* dsum) {
     for (int x = 0; x < NS / 2; ++x) sa[x] = pa[x] = 0.f;
     fence_regs(sa);
     fence_regs(pa);
-    wgmma_fence();
+    if constexpr (OWN_RAW) {
+      products_raw<DH, NS>(sa, pa, qhi, ghi, rl, t4, kb_hi, kb_lo, vb_hi, vb_lo);
+    } else {
+      wgmma_fence();
 #pragma unroll
-    for (int k = 0; k < KS; ++k) {
-      if constexpr (P::REG_A) {
-        mma3_rs<NS>(sa, qf_hi[k], qf_lo[k], kb_hi + 16 * k, kb_lo + 16 * k);
-        mma3_rs<NS>(pa, gf_hi[k], gf_lo[k], vb_hi + 16 * k, vb_lo + 16 * k);
-      } else {
-        mma3_ss<NS>(sa, qa_hi + 16 * k, qa_lo + 16 * k, kb_hi + 16 * k, kb_lo + 16 * k);
-        mma3_ss<NS>(pa, ga_hi + 16 * k, ga_lo + 16 * k, vb_hi + 16 * k, vb_lo + 16 * k);
+      for (int k = 0; k < KS; ++k) {
+        if constexpr (P::REG_A) {
+          mma3_rs<NS>(sa, qf_hi[k], qf_lo[k], kb_hi + 16 * k, kb_lo + 16 * k);
+          mma3_rs<NS>(pa, gf_hi[k], gf_lo[k], vb_hi + 16 * k, vb_lo + 16 * k);
+        } else {
+          mma3_ss<NS>(sa, qa_hi + 16 * k, qa_lo + 16 * k, kb_hi + 16 * k, kb_lo + 16 * k);
+          mma3_ss<NS>(pa, ga_hi + 16 * k, ga_lo + 16 * k, vb_hi + 16 * k, vb_lo + 16 * k);
+        }
       }
+      wgmma_commit();
+      wgmma_wait<0>();
     }
-    wgmma_commit();
-    wgmma_wait<0>();
     fence_regs(sa);
     fence_regs(pa);
 
@@ -297,7 +370,7 @@ attention_bwd_dq_kernel(const BwdParams p, float* dsum) {
     __syncthreads();  // the split tiles are read
   }
 
-  const long long out_base = (long long)b * T * p.D + h * DH;
+  const long long out_base = (long long)b * T * p.D + h * dh;
 #pragma unroll
   for (int c = 0; c < DH / 8; ++c) {
     const int col = c * 8 + 2 * t4;
@@ -305,8 +378,8 @@ attention_bwd_dq_kernel(const BwdParams p, float* dsum) {
     for (int x = 0; x < 2; ++x) {
       const int i = q0 + rl + 8 * x;
       if (i < T)
-        *reinterpret_cast<float2*>(p.dq + out_base + (long long)i * p.D + col) =
-            make_float2(dq[4 * c + 2 * x] * p.scale, dq[4 * c + 2 * x + 1] * p.scale);
+        store2<DH>(p.dq + out_base + (long long)i * p.D, col, dh, dq[4 * c + 2 * x] * p.scale,
+                   dq[4 * c + 2 * x + 1] * p.scale);
     }
   }
 }
@@ -317,14 +390,15 @@ attention_bwd_dkdv_kernel(const BwdParams p, const float* dsum) {
   using P = Plan<DH>;
   constexpr int NS = P::NS, KS = DH / 8, JS = NS / 8;
   constexpr int RAW = 2 * P::TILE + 3 * NS;  // a raw stage: Q, dO, m, 1/l, D
-  const int T = p.T;
+  constexpr bool OWN_RAW = raw_owned<DH>();
+  const int T = p.T, dh = kPadBuild ? p.dh : DH;
 
   extern __shared__ __align__(128) float smem[];
-  float* khi = smem;            // [128][dh] the block's K, hi and lo
+  float* khi = smem;            // [128][dh] the block's K, hi and lo (or raw: khi)
   float* klo = khi + P::OWN;
-  float* vhi = klo + P::OWN;    // [128][dh] the block's V
+  float* vhi = khi + owned_floats<DH>();  // [128][dh] the block's V
   float* vlo = vhi + P::OWN;
-  float* raw = vlo + P::OWN;    // two raw stages
+  float* raw = vhi + owned_floats<DH>();  // two raw stages
   float* qhi = raw + 2 * RAW;   // [NS][dh] a stage's Q and dO
   float* qlo = qhi + P::TILE;
   float* ghi = qlo + P::TILE;
@@ -342,10 +416,10 @@ attention_bwd_dkdv_kernel(const BwdParams p, const float* dsum) {
   const int b = bh / p.H;
   const int h = bh - b * p.H;
   const int k0 = blockIdx.y * kOwn;
-  const float* qb = p.q + b * p.q_sb + h * DH;
-  const float* kb = p.k + b * p.k_sb + h * DH;
-  const float* vb = p.v + b * p.v_sb + h * DH;
-  const float* gb = p.dout + b * p.g_sb + h * DH;
+  const float* qb = p.q + b * p.q_sb + h * dh;
+  const float* kb = p.k + b * p.k_sb + h * dh;
+  const float* vb = p.v + b * p.v_sb + h * dh;
+  const float* gb = p.dout + b * p.g_sb + h * dh;
   const float* bias_b = p.bias + b * p.bias_sb;
   const long long stat = (long long)bh * T;
   const int ns = (T + NS - 1) / NS;
@@ -360,8 +434,8 @@ attention_bwd_dkdv_kernel(const BwdParams p, const float* dsum) {
   __syncthreads();
   auto issue = [&](int s) {  // stage s into raw stage s % 2
     float* r = raw + (s & 1) * RAW;
-    copy_rows<DH>(r, qb, p.q_st, s * NS, T, tid);
-    copy_rows<DH>(r + P::TILE, gb, p.g_st, s * NS, T, tid);
+    copy_rows<DH>(r, qb, p.q_st, s * NS, T, dh, tid);
+    copy_rows<DH>(r + P::TILE, gb, p.g_st, s * NS, T, dh, tid);
     copy_vals<NS>(r + 2 * P::TILE, p.row_max + stat, s * NS, T, tid);
     copy_vals<NS>(r + 2 * P::TILE + NS, p.row_inv_sum + stat, s * NS, T, tid);
     copy_vals<NS>(r + 2 * P::TILE + 2 * NS, dsum + stat, s * NS, T, tid);
@@ -369,9 +443,12 @@ attention_bwd_dkdv_kernel(const BwdParams p, const float* dsum) {
   };
   issue(0);
   if (ns > 1) issue(1);
-  if constexpr (!P::REG_A) {
-    load_owned<DH>(kb, p.k_st, k0, T, khi, klo, tid);
-    load_owned<DH>(vb, p.v_st, k0, T, vhi, vlo, tid);
+  if constexpr (OWN_RAW) {
+    load_owned_raw<DH>(kb, p.k_st, k0, T, dh, khi, tid);
+    load_owned_raw<DH>(vb, p.v_st, k0, T, dh, vhi, tid);
+  } else if constexpr (!P::REG_A) {
+    load_owned<DH>(kb, p.k_st, k0, T, dh, khi, klo, tid);
+    load_owned<DH>(vb, p.v_st, k0, T, dh, vhi, vlo, tid);
   }
   fence_proxy_async();
   __syncthreads();
@@ -390,8 +467,8 @@ attention_bwd_dkdv_kernel(const BwdParams p, const float* dsum) {
   constexpr int KA = P::REG_A ? KS : 1;
   uint32_t kf_hi[KA][4], kf_lo[KA][4], vf_hi[KA][4], vf_lo[KA][4];
   if constexpr (P::REG_A) {
-    owned_frags<DH>(kb, p.k_st, k0 + rl, T, t4, kf_hi, kf_lo);
-    owned_frags<DH>(vb, p.v_st, k0 + rl, T, t4, vf_hi, vf_lo);
+    owned_frags<DH>(kb, p.k_st, k0 + rl, T, dh, t4, kf_hi, kf_lo);
+    owned_frags<DH>(vb, p.v_st, k0 + rl, T, dh, t4, vf_hi, vf_lo);
   }
   const uint64_t ka_hi = tile_desc<DH>(khi + wg * 64 * DH);
   const uint64_t ka_lo = tile_desc<DH>(klo + wg * 64 * DH);
@@ -427,19 +504,23 @@ attention_bwd_dkdv_kernel(const BwdParams p, const float* dsum) {
     for (int x = 0; x < NS / 2; ++x) st[x] = dp[x] = 0.f;
     fence_regs(st);
     fence_regs(dp);
-    wgmma_fence();
+    if constexpr (OWN_RAW) {
+      products_raw<DH, NS>(st, dp, khi, vhi, rl, t4, qb_hi, qb_lo, gb_hi, gb_lo);
+    } else {
+      wgmma_fence();
 #pragma unroll
-    for (int k = 0; k < KS; ++k) {
-      if constexpr (P::REG_A) {
-        mma3_rs<NS>(st, kf_hi[k], kf_lo[k], qb_hi + 16 * k, qb_lo + 16 * k);
-        mma3_rs<NS>(dp, vf_hi[k], vf_lo[k], gb_hi + 16 * k, gb_lo + 16 * k);
-      } else {
-        mma3_ss<NS>(st, ka_hi + 16 * k, ka_lo + 16 * k, qb_hi + 16 * k, qb_lo + 16 * k);
-        mma3_ss<NS>(dp, va_hi + 16 * k, va_lo + 16 * k, gb_hi + 16 * k, gb_lo + 16 * k);
+      for (int k = 0; k < KS; ++k) {
+        if constexpr (P::REG_A) {
+          mma3_rs<NS>(st, kf_hi[k], kf_lo[k], qb_hi + 16 * k, qb_lo + 16 * k);
+          mma3_rs<NS>(dp, vf_hi[k], vf_lo[k], gb_hi + 16 * k, gb_lo + 16 * k);
+        } else {
+          mma3_ss<NS>(st, ka_hi + 16 * k, ka_lo + 16 * k, qb_hi + 16 * k, qb_lo + 16 * k);
+          mma3_ss<NS>(dp, va_hi + 16 * k, va_lo + 16 * k, gb_hi + 16 * k, gb_lo + 16 * k);
+        }
       }
+      wgmma_commit();
+      wgmma_wait<0>();
     }
-    wgmma_commit();
-    wgmma_wait<0>();
     fence_regs(st);
     fence_regs(dp);
 
@@ -499,7 +580,7 @@ attention_bwd_dkdv_kernel(const BwdParams p, const float* dsum) {
     __syncthreads();  // the split tiles are read
   }
 
-  const long long out_base = (long long)b * T * p.D + h * DH;
+  const long long out_base = (long long)b * T * p.D + h * dh;
 #pragma unroll
   for (int c = 0; c < DH / 8; ++c) {
     const int col = c * 8 + 2 * t4;
@@ -507,10 +588,10 @@ attention_bwd_dkdv_kernel(const BwdParams p, const float* dsum) {
     for (int x = 0; x < 2; ++x) {
       const int j = j2[x];
       if (j < T) {
-        *reinterpret_cast<float2*>(p.dk + out_base + (long long)j * p.D + col) =
-            make_float2(dk[4 * c + 2 * x] * p.scale, dk[4 * c + 2 * x + 1] * p.scale);
-        *reinterpret_cast<float2*>(p.dv + out_base + (long long)j * p.D + col) =
-            make_float2(dv[4 * c + 2 * x], dv[4 * c + 2 * x + 1]);
+        const long long row = out_base + (long long)j * p.D;
+        store2<DH>(p.dk + row, col, dh, dk[4 * c + 2 * x] * p.scale,
+                   dk[4 * c + 2 * x + 1] * p.scale);
+        store2<DH>(p.dv + row, col, dh, dv[4 * c + 2 * x], dv[4 * c + 2 * x + 1]);
       }
     }
   }
@@ -572,28 +653,32 @@ int attention_bwd_long_max_t() { return 65535 * kOwn; }
 
 // Launches the dQ kernel, then the dK/dV kernel. `raw` is one BwdLongArgs
 // block: the tensors as for attention_bwd (attention_bwd.cu), and dsum a
-// contiguous [B, H, T] fp32 scratch the wrapper allocates. q, k, v and dout
-// rows must start on 16 bytes (kMisaligned otherwise). Returns 0, a Refusal,
-// or the first failing launch's cudaError_t.
+// contiguous [B, H, T] fp32 scratch the wrapper allocates. Where dh is a
+// multiple of 4, q, k, v and dout rows must start on 16 bytes (kMisaligned
+// otherwise). Returns 0, a Refusal, or the first failing launch's
+// cudaError_t.
 int attention_bwd_long(const void* raw) {
   BwdLongArgs la;
   memcpy(&la, raw, sizeof la);
   const BwdArgs& a = la.a;
   if (a.B < 1 || a.T < 1 || a.H < 1 || a.D % a.H != 0) return kBadShape;
+  const long long dh = a.D / a.H;
+  if (template_dh((int)dh) == 0) return kBadHeadWidth;
+  if (!kPadBuild && dh != template_dh((int)dh)) return kBadHeadWidth;  // the padded build's
   if (a.T > attention_bwd_long_max_t() || a.B * a.H > 2147483647LL) return kTooLong;
-  if (!rows_aligned(a.q, a.q_sb, a.q_st) || !rows_aligned(a.k, a.k_sb, a.k_st) ||
-      !rows_aligned(a.v, a.v_sb, a.v_st) || !rows_aligned(a.dout, a.g_sb, a.g_st))
+  if (!rows_aligned(a.q, a.q_sb, a.q_st, dh) || !rows_aligned(a.k, a.k_sb, a.k_st, dh) ||
+      !rows_aligned(a.v, a.v_sb, a.v_st, dh) || !rows_aligned(a.dout, a.g_sb, a.g_st, dh))
     return kMisaligned;
   const BwdParams p = bwd_params(a);
   float* dsum = ptr<float>(la.dsum);
   cudaStream_t s = ptr<CUstream_st>(a.stream);
   const int B = (int)a.B;
-  switch (a.D / a.H) {
+  switch (template_dh((int)dh)) {
     case 8: return (int)launch<8>(p, dsum, B, s);
     case 16: return (int)launch<16>(p, dsum, B, s);
     case 32: return (int)launch<32>(p, dsum, B, s);
     case 64: return (int)launch<64>(p, dsum, B, s);
-    default: return kBadHeadWidth;
+    default: return (int)launch<128>(p, dsum, B, s);
   }
 }
 

@@ -44,6 +44,9 @@
 //     done.
 //   * Each instance is compiled for a bias that broadcasts over queries or
 //     not and for dropout on or off.
+//   * A head of width dh runs at its template width (attention_common.cuh):
+//     the pre-pass packs it to that width with zero columns, D_i sums its dh
+//     columns, and no gradient column from dh on is written.
 //
 // Bound on the H100 (data sheet) at BERT4Rec's shape B=256, H=4, dh=32,
 // T=600: 10*B*H*T*T*dh = 118 GFLOP, 0.119 ms at the 989 TFLOP/s bf16
@@ -105,10 +108,12 @@ struct Packed {
 
 // Each query row's float4 (m_i, 1/l_i, D_i, the row's dropout key
 // mix(mix(mix(K0, seed), bh + row_offset * H), i)) for rows i < T_pad of every (b, h); +inf,
-// 0, 0 past T. One thread a 16-byte chunk of the row's dO and O: dh / 4
-// threads a row, consecutive along it, so a warp reads whole rows. D_i is
-// each chunk's four products summed in order, then the chunks' sums added
-// by a butterfly of shuffles: a fixed order, the same bits in every lane.
+// 0, 0 past T. One thread a 16-byte chunk of the row's dO and O: DH / 4
+// threads a row, consecutive along it, so a warp reads whole rows (a chunk
+// from column dh on reads zeros; at a dh not a multiple of 4 a chunk is read
+// value by value). D_i is each chunk's four products summed in order, then
+// the chunks' sums added by a butterfly of shuffles: a fixed order, the same
+// bits in every lane.
 template <int DH>
 __global__ void rows_kernel(const BwdParams p, float4* __restrict__ rows, int Tp, long long n) {
   constexpr int C = DH / 4;  // threads a row
@@ -124,11 +129,24 @@ __global__ void rows_kernel(const BwdParams p, float4* __restrict__ rows, int Tp
     const long long b = bh / p.H, h = bh - b * p.H;
     const bool real = e < total && i < p.T;
     float d = 0.f;
-    if (real) {
-      const float4 g = __ldg(
-          reinterpret_cast<const float4*>(p.dout + b * p.g_sb + i * p.g_st + h * DH) + c);
-      const float4 o = __ldg(
-          reinterpret_cast<const float4*>(p.out + b * p.o_sb + i * p.o_st + h * DH) + c);
+    if (real && 4 * c < p.dh) {
+      const float* gp = p.dout + b * p.g_sb + i * p.g_st + h * p.dh + 4 * c;
+      const float* op = p.out + b * p.o_sb + i * p.o_st + h * p.dh + 4 * c;
+      float4 g, o;
+      if ((p.dh & 3) == 0) {
+        g = __ldg(reinterpret_cast<const float4*>(gp));
+        o = __ldg(reinterpret_cast<const float4*>(op));
+      } else {
+        float gv[4], ov[4];
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          const bool in = 4 * c + x < p.dh;
+          gv[x] = in ? __ldg(gp + x) : 0.f;
+          ov[x] = in ? __ldg(op + x) : 0.f;
+        }
+        g = make_float4(gv[0], gv[1], gv[2], gv[3]);
+        o = make_float4(ov[0], ov[1], ov[2], ov[3]);
+      }
       d = fmaf(g.w, o.w, fmaf(g.z, o.z, fmaf(g.y, o.y, g.x * o.x)));
     }
 #pragma unroll
@@ -150,7 +168,7 @@ attention_bwd_dq_bf16_kernel(const BwdParams p, const Packed pk) {
   using L = Tiles<DH, kDqRows>;
   constexpr int NS = kDqRows, DHP = L::DHP;
   constexpr int STAGE = dq_stage_bytes<DH, BCAST>();
-  const int T = p.T;
+  const int T = p.T, dh = p.dh;
 
   extern __shared__ __align__(128) unsigned char smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);  // [kStages] a stage landed
@@ -296,7 +314,7 @@ attention_bwd_dq_bf16_kernel(const BwdParams p, const Packed pk) {
     mbar_arrive(smem_u32(empty + slot));
   }
 
-  const long long out_base = (long long)b * T * p.D + h * DH;
+  const long long out_base = (long long)b * T * p.D + h * dh;
 #pragma unroll
   for (int c = 0; c < DH / 8; ++c) {
     const int col = c * 8 + 2 * t4;
@@ -304,8 +322,8 @@ attention_bwd_dq_bf16_kernel(const BwdParams p, const Packed pk) {
     for (int x = 0; x < 2; ++x) {
       const int i = q0 + rl + 8 * x;
       if (i < T)
-        *reinterpret_cast<float2*>(p.dq + out_base + (long long)i * p.D + col) =
-            make_float2(dq[4 * c + 2 * x] * p.scale, dq[4 * c + 2 * x + 1] * p.scale);
+        store2<DH>(p.dq + out_base + (long long)i * p.D, col, dh, dq[4 * c + 2 * x] * p.scale,
+                   dq[4 * c + 2 * x + 1] * p.scale);
     }
   }
 }
@@ -316,7 +334,7 @@ attention_bwd_dkdv_bf16_kernel(const BwdParams p, const Packed pk) {
   using L = Tiles<DH, kDkdvRows>;
   constexpr int NS = kDkdvRows, DHP = L::DHP;
   constexpr int STAGE = dkdv_stage_bytes<DH>();
-  const int T = p.T;
+  const int T = p.T, dh = p.dh;
 
   extern __shared__ __align__(128) unsigned char smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);
@@ -469,7 +487,7 @@ attention_bwd_dkdv_bf16_kernel(const BwdParams p, const Packed pk) {
     mbar_arrive(smem_u32(empty + slot));
   }
 
-  const long long out_base = (long long)b * T * p.D + h * DH;
+  const long long out_base = (long long)b * T * p.D + h * dh;
 #pragma unroll
   for (int c = 0; c < DH / 8; ++c) {
     const int col = c * 8 + 2 * t4;
@@ -477,10 +495,10 @@ attention_bwd_dkdv_bf16_kernel(const BwdParams p, const Packed pk) {
     for (int x = 0; x < 2; ++x) {
       const int j = j2[x];
       if (j < T) {
-        *reinterpret_cast<float2*>(p.dk + out_base + (long long)j * p.D + col) =
-            make_float2(dk[4 * c + 2 * x] * p.scale, dk[4 * c + 2 * x + 1] * p.scale);
-        *reinterpret_cast<float2*>(p.dv + out_base + (long long)j * p.D + col) =
-            make_float2(dv[4 * c + 2 * x], dv[4 * c + 2 * x + 1]);
+        const long long row = out_base + (long long)j * p.D;
+        store2<DH>(p.dk + row, col, dh, dk[4 * c + 2 * x] * p.scale,
+                   dk[4 * c + 2 * x + 1] * p.scale);
+        store2<DH>(p.dv + row, col, dh, dv[4 * c + 2 * x], dv[4 * c + 2 * x + 1]);
       }
     }
   }
@@ -549,26 +567,27 @@ extern "C" {
 // dK/dV kernel. `raw` is one BwdLongArgs block: the tensors as for
 // attention_bwd (attention_bwd.cu), then the scratch: 4 * B * H * T_pad *
 // dh_pad bf16 values (q, k, v, dout; T_pad = T rounded up to 128, dh_pad =
-// max(dh, 16)), B * H * T_pad float4s, and, when bias_si == 0, rows * T_pad
-// floats (rows = B where bias_sb != 0, else 1), 16-byte aligned. q, k, v,
-// out and dout rows must start on 16 bytes (kMisaligned otherwise). Returns 0, a
-// Refusal, or the first failing launch's cudaError_t.
+// dh's template width, at least 16), B * H * T_pad float4s, and, when
+// bias_si == 0, rows * T_pad floats (rows = B where bias_sb != 0, else 1),
+// 16-byte aligned. Where dh is a multiple of 4, q, k, v, out and dout rows
+// must start on 16 bytes (kMisaligned otherwise). Returns 0, a Refusal, or
+// the first failing launch's cudaError_t.
 int attention_bwd_long(const void* raw) {
   BwdLongArgs la;
   memcpy(&la, raw, sizeof la);
   const BwdArgs& a = la.a;
   if (a.B < 1 || a.T < 1 || a.H < 1 || a.D % a.H != 0) return kBadShape;
-  if (a.T > 65535LL * kOwn || a.B * a.H > 2147483647LL) return kTooLong;
-  if (!rows_aligned(a.q, a.q_sb, a.q_st) || !rows_aligned(a.k, a.k_sb, a.k_st) ||
-      !rows_aligned(a.v, a.v_sb, a.v_st) || !rows_aligned(a.dout, a.g_sb, a.g_st) ||
-      !rows_aligned(a.out, a.o_sb, a.o_st) || la.scratch % 16 != 0)
-    return kMisaligned;
   const long long dh = a.D / a.H;
-  if (dh != 8 && dh != 16 && dh != 32 && dh != 64) return kBadHeadWidth;
+  if (template_dh((int)dh) == 0) return kBadHeadWidth;
+  if (a.T > 65535LL * kOwn || a.B * a.H > 2147483647LL) return kTooLong;
+  if (!rows_aligned(a.q, a.q_sb, a.q_st, dh) || !rows_aligned(a.k, a.k_sb, a.k_st, dh) ||
+      !rows_aligned(a.v, a.v_sb, a.v_st, dh) || !rows_aligned(a.dout, a.g_sb, a.g_st, dh) ||
+      !rows_aligned(a.out, a.o_sb, a.o_st, dh) || la.scratch % 16 != 0)
+    return kMisaligned;
   const BwdParams p = bwd_params(a);
   cudaStream_t s = ptr<CUstream_st>(a.stream);
   const int Tp = (int)padded_t(a.T);
-  const long long region = a.B * a.H * Tp * padded_dh((int)dh);
+  const long long region = a.B * a.H * Tp * padded_dh(template_dh((int)dh));
   __nv_bfloat16* packed = ptr<__nv_bfloat16>(la.scratch);
   const float* src[4] = {p.q, p.k, p.v, p.dout};
   const long long sb[4] = {a.q_sb, a.k_sb, a.v_sb, a.g_sb};
@@ -588,11 +607,12 @@ int attention_bwd_long(const void* raw) {
   const Packed pk = {packed, packed + region, packed + 2 * region, packed + 3 * region, rows,
                      a.bias_si == 0 ? bias_rows : nullptr, Tp};
   const int B = (int)a.B;
-  switch (dh) {
+  switch (template_dh((int)dh)) {
     case 8: return (int)launch<8>(p, pk, B, s);
     case 16: return (int)launch<16>(p, pk, B, s);
     case 32: return (int)launch<32>(p, pk, B, s);
-    default: return (int)launch<64>(p, pk, B, s);
+    case 64: return (int)launch<64>(p, pk, B, s);
+    default: return (int)launch<128>(p, pk, B, s);
   }
 }
 

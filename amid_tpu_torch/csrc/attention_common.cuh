@@ -37,6 +37,20 @@
 // Shared-memory tiles have a row pitch of dh + 4 floats. The two patterns
 // the kernels read, row g column t (B of Q.K^T) and row 2t column g (B of
 // P.V), then fall on 32 different banks for the 32 lanes.
+//
+// Head widths. Every kernel is instantiated at the template widths 8, 16,
+// 32, 64 and 128 and takes any dh from 1 to 128 at the smallest template
+// width DH that holds it (template_dh): lanes at or past dh read as zero
+// (so they add nothing to Q.K^T, and P.V and the gradients leave zeros
+// there) and are never written; the scale is the caller's 1/sqrt(dh) of
+// the real width; the dropout hash does not see the width. Head h starts at
+// column h * dh of a row, so a head whose rows do not start on 16 bytes
+// (dh not a multiple of 4) is read element by element where 16-byte copies
+// read the others. A head as wide as its template width takes instances in
+// which dh is that compile-time constant, so its code is that of a kernel
+// with no padding: the one-head kernels' PAD template flag, the fp32 long
+// paths' second build with AMID_ATTN_PAD=1 (ops/_build.py's VARIANTS), whose
+// instances alone take a padded width.
 
 #pragma once
 
@@ -47,16 +61,20 @@
 #ifndef AMID_ATTN_BF16
 #define AMID_ATTN_BF16 0
 #endif
+#ifndef AMID_ATTN_PAD
+#define AMID_ATTN_PAD 0
+#endif
 
 namespace amid_attention {
 
 constexpr bool kBf16 = AMID_ATTN_BF16 != 0;  // the bf16-operand build
+constexpr bool kPadBuild = AMID_ATTN_PAD != 0;  // the fp32 long paths' padded-width build
 constexpr uint32_t kMixKey0 = 0x9E3779B9u;
 constexpr int kMaxWarps = 8;  // warps of one block
 
 // Refusals of the entry points (negative; a positive value is a cudaError_t).
 enum Refusal {
-  kBadHeadWidth = -1,  // dh not in {8, 16, 32, 64}
+  kBadHeadWidth = -1,  // dh above kMaxHeadDim
   kBadShape = -2,      // B, T or H below 1, or D not a multiple of H
   kTooLong = -3,       // the block's shared memory is above the card's limit
   kMisaligned = -4,    // a row of q, k, v or dout not on 16 bytes (the long path)
@@ -90,6 +108,31 @@ __device__ __forceinline__ float quad_sum(float x) {
 }
 
 __host__ __device__ constexpr int pitch(int dh) { return dh + 4; }
+
+constexpr int kMaxHeadDim = 128;
+
+// The template width a head of width dh runs at (0: none, dh above 128)
+__host__ __device__ constexpr int template_dh(int dh) {
+  return dh < 1 || dh > kMaxHeadDim ? 0
+         : dh <= 8                  ? 8
+         : dh <= 16                 ? 16
+         : dh <= 32                 ? 32
+         : dh <= 64                 ? 64
+                                    : 128;
+}
+
+// Columns col and col + 1 of one head's row of a [B, T, D] output, those
+// below dh: a float2 where the head is as wide as its template (dh = DH, a
+// multiple of 8, so the pair is 8-byte aligned), else one by one
+template <int DH>
+__device__ __forceinline__ void store2(float* row, int col, int dh, float a, float b) {
+  if (dh == DH) {
+    *reinterpret_cast<float2*>(row + col) = make_float2(a, b);
+    return;
+  }
+  if (col < dh) row[col] = a;
+  if (col + 1 < dh) row[col + 1] = b;
+}
 
 // Rounds up to a whole number of 16-row tiles.
 __host__ __device__ inline int tiles16(int t) { return (t + 15) / 16; }
@@ -189,7 +232,7 @@ T* ptr(long long value) {
 struct FwdParams {
   const float *q, *k, *v, *bias;
   float *out, *row_max, *row_inv_sum;
-  int T, D, H;
+  int T, D, H, dh;  // dh = D / H, at most the instance's template width
   long long q_sb, q_st, k_sb, k_st, v_sb, v_st, bias_sb, bias_si;
   float scale, inv_keep;
   uint32_t keep_threshold;
@@ -201,7 +244,7 @@ struct FwdParams {
 inline FwdParams fwd_params(const FwdArgs& a) {
   return {ptr<const float>(a.q), ptr<const float>(a.k), ptr<const float>(a.v),
           ptr<const float>(a.bias), ptr<float>(a.out), ptr<float>(a.row_max),
-          ptr<float>(a.row_inv_sum), (int)a.T, (int)a.D, (int)a.H,
+          ptr<float>(a.row_inv_sum), (int)a.T, (int)a.D, (int)a.H, (int)(a.D / a.H),
           a.q_sb, a.q_st, a.k_sb, a.k_st, a.v_sb, a.v_st, a.bias_sb, a.bias_si,
           (float)a.scale, (float)a.inv_keep, (uint32_t)a.keep_threshold,
           ptr<const long long>(a.seed), (uint32_t)(a.row_offset * a.H),
@@ -213,7 +256,7 @@ inline FwdParams fwd_params(const FwdArgs& a) {
 struct BwdParams {
   const float *q, *k, *v, *bias, *out, *dout, *row_max, *row_inv_sum;
   float *dq, *dk, *dv;
-  int T, D, H;
+  int T, D, H, dh;  // dh = D / H, at most the instance's template width
   long long q_sb, q_st, k_sb, k_st, v_sb, v_st, o_sb, o_st, g_sb, g_st, bias_sb, bias_si;
   float scale, inv_keep;
   uint32_t keep_threshold;
@@ -227,7 +270,7 @@ inline BwdParams bwd_params(const BwdArgs& a) {
           ptr<const float>(a.bias), ptr<const float>(a.out), ptr<const float>(a.dout),
           ptr<const float>(a.row_max), ptr<const float>(a.row_inv_sum),
           ptr<float>(a.dq), ptr<float>(a.dk), ptr<float>(a.dv),
-          (int)a.T, (int)a.D, (int)a.H,
+          (int)a.T, (int)a.D, (int)a.H, (int)(a.D / a.H),
           a.q_sb, a.q_st, a.k_sb, a.k_st, a.v_sb, a.v_st, a.o_sb, a.o_st, a.g_sb, a.g_st,
           a.bias_sb, a.bias_si,
           (float)a.scale, (float)a.inv_keep, (uint32_t)a.keep_threshold,

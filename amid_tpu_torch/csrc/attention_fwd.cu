@@ -29,7 +29,13 @@
 //     second set of m16n8k8 tiles whose A fragment is the accumulator itself
 //     (the reordered reduction of attention_common.cuh);
 //   * keys past T score -inf (P = 0): a fully masked real row averages over
-//     its T keys, not over the padded ones. Query rows past T write nothing.
+//     its T keys, not over the padded ones. Query rows past T write nothing;
+//   * a head of width dh runs at its template width DH (attention_common.cuh),
+//     in the instance with PAD set unless dh = DH: the staged K and V and
+//     the Q fragments are zero at columns dh to DH, output columns from dh
+//     on are not written. At DH = 128 the Q fragments
+//     (128 registers) and the output (64) would not fit beside the rest:
+//     there Q is read and split again at each chunk, from L1 and L2.
 //
 // Dropout (rate > 0) keeps element (b, h, i, j) when
 //   bits >> 8 >= keep_threshold,  bits = mix(mix(mix(mix(K0, seed), b*H+h), i), j)
@@ -45,6 +51,7 @@
 // keys, also the causally masked ones (the kernel does not read the bias's
 // structure).
 
+#include <stdint.h>
 #include <string.h>
 
 #include "attention_common.cuh"
@@ -55,12 +62,14 @@ using namespace amid_attention;
 
 constexpr int kChunk = 32;  // keys per online-softmax step: 4 n-tiles of 8
 
-template <int DH>
+// PAD: dh = p.dh, below DH; else dh = DH
+template <int DH, bool PAD>
 __global__ void __launch_bounds__(kMaxWarps * 32)
 attention_fwd_kernel(const FwdParams p) {
   constexpr int P = pitch(DH);
   constexpr int KS = DH / 8;  // k-steps of Q.K^T, n-tiles of P.V
-  const int T = p.T;
+  constexpr bool kHoldQ = DH <= 64;  // Q's fragments held in registers
+  const int T = p.T, dh = PAD ? p.dh : DH;
   const int TK = (T + 7) & ~7;
 
   extern __shared__ float smem[];
@@ -70,13 +79,13 @@ attention_fwd_kernel(const FwdParams p) {
   const int bh = blockIdx.x;
   const int b = bh / p.H;
   const int h = bh - b * p.H;
-  const float* qb = p.q + b * p.q_sb + h * DH;
-  const float* kb = p.k + b * p.k_sb + h * DH;
-  const float* vb = p.v + b * p.v_sb + h * DH;
+  const float* qb = p.q + b * p.q_sb + h * dh;
+  const float* kb = p.k + b * p.k_sb + h * dh;
+  const float* vb = p.v + b * p.v_sb + h * dh;
   for (int idx = threadIdx.x; idx < TK * DH; idx += blockDim.x) {
     const int t = idx / DH;
     const int c = idx - t * DH;
-    const bool in = t < T;
+    const bool in = t < T && (!PAD || c < dh);
     ks[t * P + c] = in ? kb[t * p.k_st + c] : 0.f;
     vs[t * P + c] = in ? vb[t * p.v_st + c] : 0.f;
   }
@@ -88,19 +97,22 @@ attention_fwd_kernel(const FwdParams p) {
   const float* bias_b = p.bias + b * p.bias_sb;
   const uint32_t bh_key =
       p.dropout ? mix(mix(kMixKey0, (uint32_t)*p.seed), (uint32_t)bh + p.bh_offset) : 0u;
-  float* out_b = p.out + (long long)b * T * p.D + h * DH;
+  float* out_b = p.out + (long long)b * T * p.D + h * dh;
 
   for (int qt = threadIdx.x >> 5; qt < tiles16(T); qt += warps) {
     const int r0 = qt * 16 + g, r1 = r0 + 8;  // this lane's two query rows
     const bool in0 = r0 < T, in1 = r1 < T;
-    FragA qa[KS];
+    FragA qa[kHoldQ ? KS : 1];
+    if constexpr (kHoldQ) {
 #pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-      const int c = kk * 8 + t4;
-      const float* q0 = qb + r0 * p.q_st + c;
-      const float* q1 = qb + r1 * p.q_st + c;
-      qa[kk] = split_a(in0 ? q0[0] : 0.f, in1 ? q1[0] : 0.f, in0 ? q0[4] : 0.f,
-                       in1 ? q1[4] : 0.f);
+      for (int kk = 0; kk < KS; ++kk) {
+        const int c = kk * 8 + t4;
+        const float* q0 = qb + r0 * p.q_st + c;
+        const float* q1 = qb + r1 * p.q_st + c;
+        const bool lo = !PAD || c < dh, hi = !PAD || c + 4 < dh;
+        qa[kk] = split_a(in0 && lo ? q0[0] : 0.f, in1 && lo ? q1[0] : 0.f,
+                         in0 && hi ? q0[4] : 0.f, in1 && hi ? q1[4] : 0.f);
+      }
     }
     // padded rows read row 0 of the bias; their results are never written
     const float* brow0 = bias_b + (in0 ? r0 : 0) * p.bias_si;
@@ -115,14 +127,37 @@ attention_fwd_kernel(const FwdParams p) {
 
     for (int j0 = 0; j0 < T; j0 += kChunk) {
       float s[kChunk / 8][4];
+      if constexpr (kHoldQ) {
 #pragma unroll
-      for (int nt = 0; nt < kChunk / 8; ++nt) {
-        s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-        const int jb = j0 + nt * 8;
-        if (jb < TK) {
-          const float* krow = ks + (jb + g) * P + t4;
+        for (int nt = 0; nt < kChunk / 8; ++nt) {
+          s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+          const int jb = j0 + nt * 8;
+          if (jb < TK) {
+            const float* krow = ks + (jb + g) * P + t4;
 #pragma unroll
-          for (int kk = 0; kk < KS; ++kk) mma3(s[nt], qa[kk], krow[kk * 8], krow[kk * 8 + 4]);
+            for (int kk = 0; kk < KS; ++kk)
+              mma3(s[nt], qa[kk], krow[kk * 8], krow[kk * 8 + 4]);
+          }
+        }
+      } else {  // the same sums, k-step by k-step, each fragment split at its use
+#pragma unroll
+        for (int nt = 0; nt < kChunk / 8; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk) {
+          const int c = kk * 8 + t4;
+          const float* q0 = qb + r0 * p.q_st + c;
+          const float* q1 = qb + r1 * p.q_st + c;
+          const bool lo = !PAD || c < dh, hi = !PAD || c + 4 < dh;
+          const FragA qf = split_a(in0 && lo ? q0[0] : 0.f, in1 && lo ? q1[0] : 0.f,
+                                   in0 && hi ? q0[4] : 0.f, in1 && hi ? q1[4] : 0.f);
+#pragma unroll
+          for (int nt = 0; nt < kChunk / 8; ++nt) {
+            const int jb = j0 + nt * 8;
+            if (jb < TK) {
+              const float* krow = ks + (jb + g) * P + t4 + kk * 8;
+              mma3(s[nt], qf, krow[0], krow[4]);
+            }
+          }
         }
       }
       float cm0 = -INFINITY, cm1 = -INFINITY;
@@ -186,12 +221,8 @@ attention_fwd_kernel(const FwdParams p) {
 #pragma unroll
     for (int n = 0; n < KS; ++n) {
       const int c = n * 8 + 2 * t4;
-      if (in0)
-        *reinterpret_cast<float2*>(out_b + (long long)r0 * p.D + c) =
-            make_float2(o[n][0] * inv0, o[n][1] * inv0);
-      if (in1)
-        *reinterpret_cast<float2*>(out_b + (long long)r1 * p.D + c) =
-            make_float2(o[n][2] * inv1, o[n][3] * inv1);
+      if (in0) store2<DH>(out_b + (long long)r0 * p.D, c, dh, o[n][0] * inv0, o[n][1] * inv0);
+      if (in1) store2<DH>(out_b + (long long)r1 * p.D, c, dh, o[n][2] * inv1, o[n][3] * inv1);
     }
     if (p.row_max != nullptr && t4 == 0) {
       const long long base = (long long)bh * T;
@@ -207,19 +238,34 @@ attention_fwd_kernel(const FwdParams p) {
   }
 }
 
+// at the template width of dh; SIZE_MAX at a width no instance takes
 size_t smem_bytes(int T, int dh) {
-  return sizeof(float) * 2 * (size_t)((T + 7) & ~7) * pitch(dh);
+  const int dt = template_dh(dh);
+  if (dt == 0) return SIZE_MAX;
+  return sizeof(float) * 2 * (size_t)((T + 7) & ~7) * pitch(dt);
 }
 
-template <int DH>
-cudaError_t launch(const FwdParams& p, int B, size_t smem, cudaStream_t stream) {
+template <int DH, bool PAD>
+cudaError_t launch_one(const FwdParams& p, int B, size_t smem, cudaStream_t stream) {
   // every width may take all 227 KB a block can have; asked once, at the first
   // launch (not a stream operation: it stays out of a CUDA graph's capture)
   static const cudaError_t opted_in = cudaFuncSetAttribute(
-      attention_fwd_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
+      attention_fwd_kernel<DH, PAD>, cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
   if (opted_in != cudaSuccess) return opted_in;
-  attention_fwd_kernel<DH><<<B * p.H, warps_for(tiles16(p.T)) * 32, smem, stream>>>(p);
+  attention_fwd_kernel<DH, PAD><<<B * p.H, warps_for(tiles16(p.T)) * 32, smem, stream>>>(p);
   return cudaGetLastError();
+}
+
+// dh = DH: the instance with dh a compile-time constant, below 128 (no
+// old width's code moves); at DH = 128 one instance, dh read at run time
+template <int DH>
+cudaError_t launch(const FwdParams& p, int B, size_t smem, cudaStream_t stream) {
+  if constexpr (DH == 128) {
+    return launch_one<DH, true>(p, B, smem, stream);
+  } else {
+    return p.dh == DH ? launch_one<DH, false>(p, B, smem, stream)
+                      : launch_one<DH, true>(p, B, smem, stream);
+  }
 }
 
 }  // namespace
@@ -227,7 +273,8 @@ cudaError_t launch(const FwdParams& p, int B, size_t smem, cudaStream_t stream) 
 extern "C" {
 
 // Shared memory one block needs, in bytes: K and V of one head, padded to a
-// multiple of 8 rows, with a row pitch of dh + 4 floats.
+// multiple of 8 rows, with a row pitch of DH + 4 floats (DH = dh's template
+// width); SIZE_MAX for dh above 128.
 size_t attention_fwd_smem_bytes(int T, int dh) { return smem_bytes(T, dh); }
 
 // Launches the kernel. `raw` is one FwdArgs block (attention_common.cuh):
@@ -242,17 +289,18 @@ int attention_fwd(const void* raw) {
   memcpy(&a, raw, sizeof a);
   if (a.B < 1 || a.T < 1 || a.H < 1 || a.D % a.H != 0) return kBadShape;
   const int dh = (int)(a.D / a.H);
+  if (template_dh(dh) == 0) return kBadHeadWidth;
   const size_t smem = smem_bytes((int)a.T, dh);
   if (smem > 232448) return kTooLong;
   const FwdParams p = fwd_params(a);
   cudaStream_t s = ptr<CUstream_st>(a.stream);
   const int B = (int)a.B;
-  switch (dh) {
+  switch (template_dh(dh)) {
     case 8: return (int)launch<8>(p, B, smem, s);
     case 16: return (int)launch<16>(p, B, smem, s);
     case 32: return (int)launch<32>(p, B, smem, s);
     case 64: return (int)launch<64>(p, B, smem, s);
-    default: return kBadHeadWidth;
+    default: return (int)launch<128>(p, B, smem, s);
   }
 }
 

@@ -32,15 +32,21 @@
 // 64, so that a grid of B * H * ceil(T / 128) blocks fills the card (5,120
 // at BERT4Rec's B=256, H=4, T=600, where the one-head kernel has 1,024).
 //   * Q is split into TF32 halves once a block: into registers as A
-//     fragments at dh <= 32, into [128][dh] shared-memory tiles at dh = 64.
+//     fragments at dh <= 32, into [128][dh] shared-memory tiles from dh = 64.
 //   * K, V and (for a bias broadcast over queries, BERT4Rec's key padding)
 //     the bias row stream through a ring of two raw stages of NS keys (64,
-//     32 at dh = 64): every thread issues its cp.async part of a stage and
+//     32 at dh = 64, 16 at dh = 128): every thread issues its cp.async part of a stage and
 //     one cp.async.mbarrier.arrive; stage s + 2 is issued once stage s is
 //     split. A landed stage is split once into hi and lo: K as [NS][dh] (the
 //     B operand of S = Q K^T), V as [dh][NS] in the accumulator's order of
 //     each 8 keys (the B operand of O += P V). Shared memory does not grow
-//     with T: 34 KB at dh = 16, 67 KB at dh = 32, 132 KB at dh = 64.
+//     with T: 34 KB at dh = 16, 67 KB at dh = 32, 132 KB at dh = 64, 197 KB
+//     at dh = 128.
+//   * A head of width dh runs at its template width DH (attention_common.cuh):
+//     its copies zero the columns from dh on, which then add nothing to S and
+//     leave O zero there, and no output column from dh on is written. Such
+//     a head takes the build with AMID_ATTN_PAD=1 (its own library, dh read
+//     at run time); this build takes dh = DH only, a compile-time constant.
 //   * S = Q K^T: wgmma m64nNSk8, three a k-step (lo hi, hi lo, hi hi). The
 //     softmax runs on the accumulator's registers (a row is one quad's);
 //     P is re-laid from the accumulator into A fragments without a shuffle
@@ -85,10 +91,10 @@ attention_fwd_long_kernel(const FwdParams p) {
   using P = Plan<DH>;
   constexpr int NS = P::NS, KS = DH / 8, JS = NS / 8;
   constexpr int RAW = 2 * P::TILE + NS;  // a raw stage: K, V, the bias row
-  const int T = p.T;
+  const int T = p.T, dh = kPadBuild ? p.dh : DH;
 
   extern __shared__ __align__(128) float smem[];
-  float* qhi = smem;             // [128][dh] the block's Q, hi and lo (dh = 64)
+  float* qhi = smem;             // [128][dh] the block's Q, hi and lo (dh >= 64)
   float* qlo = qhi + P::OWN;
   float* raw = qlo + P::OWN;     // two raw stages
   float* khi = raw + 2 * RAW;    // [NS][dh] a stage's K
@@ -103,9 +109,9 @@ attention_fwd_long_kernel(const FwdParams p) {
   const int b = bh / p.H;
   const int h = bh - b * p.H;
   const int q0 = blockIdx.y * kOwn;
-  const float* qb = p.q + b * p.q_sb + h * DH;
-  const float* kb = p.k + b * p.k_sb + h * DH;
-  const float* vb = p.v + b * p.v_sb + h * DH;
+  const float* qb = p.q + b * p.q_sb + h * dh;
+  const float* kb = p.k + b * p.k_sb + h * dh;
+  const float* vb = p.v + b * p.v_sb + h * dh;
   const float* bias_b = p.bias + b * p.bias_sb;
   const int ns = (T + NS - 1) / NS;
 
@@ -117,14 +123,14 @@ attention_fwd_long_kernel(const FwdParams p) {
   __syncthreads();
   auto issue = [&](int s) {  // stage s into raw stage s % 2
     float* r = raw + (s & 1) * RAW;
-    copy_rows<DH>(r, kb, p.k_st, s * NS, T, tid);
-    copy_rows<DH>(r + P::TILE, vb, p.v_st, s * NS, T, tid);
+    copy_rows<DH>(r, kb, p.k_st, s * NS, T, dh, tid);
+    copy_rows<DH>(r + P::TILE, vb, p.v_st, s * NS, T, dh, tid);
     if constexpr (BCAST) copy_vals<NS>(r + 2 * P::TILE, bias_b, s * NS, T, tid);
     cp_async_arrive(smem_u32(full + (s & 1)));
   };
   issue(0);
   if (ns > 1) issue(1);
-  if constexpr (!P::REG_A) load_owned<DH>(qb, p.q_st, q0, T, qhi, qlo, tid);
+  if constexpr (!P::REG_A) load_owned<DH>(qb, p.q_st, q0, T, dh, qhi, qlo, tid);
   fence_proxy_async();
   __syncthreads();
 
@@ -143,7 +149,7 @@ attention_fwd_long_kernel(const FwdParams p) {
   }
   constexpr int KA = P::REG_A ? KS : 1;
   uint32_t qf_hi[KA][4], qf_lo[KA][4];
-  if constexpr (P::REG_A) owned_frags<DH>(qb, p.q_st, q0 + rl, T, t4, qf_hi, qf_lo);
+  if constexpr (P::REG_A) owned_frags<DH>(qb, p.q_st, q0 + rl, T, dh, t4, qf_hi, qf_lo);
   const uint64_t qa_hi = tile_desc<DH>(qhi + wg * 64 * DH);
   const uint64_t qa_lo = tile_desc<DH>(qlo + wg * 64 * DH);
   const uint64_t kb_hi = tile_desc<DH>(khi), kb_lo = tile_desc<DH>(klo);
@@ -267,7 +273,7 @@ attention_fwd_long_kernel(const FwdParams p) {
   float inv[2];
 #pragma unroll
   for (int x = 0; x < 2; ++x) inv[x] = 1.f / quad_sum(l[x]);
-  const long long out_base = (long long)b * T * p.D + h * DH;
+  const long long out_base = (long long)b * T * p.D + h * dh;
 #pragma unroll
   for (int c = 0; c < DH / 8; ++c) {
     const int col = c * 8 + 2 * t4;
@@ -275,8 +281,8 @@ attention_fwd_long_kernel(const FwdParams p) {
     for (int x = 0; x < 2; ++x) {
       const int i = q0 + rl + 8 * x;
       if (i < T)
-        *reinterpret_cast<float2*>(p.out + out_base + (long long)i * p.D + col) =
-            make_float2(o[4 * c + 2 * x] * inv[x], o[4 * c + 2 * x + 1] * inv[x]);
+        store2<DH>(p.out + out_base + (long long)i * p.D, col, dh, o[4 * c + 2 * x] * inv[x],
+                   o[4 * c + 2 * x + 1] * inv[x]);
     }
   }
   if (p.row_max != nullptr && t4 == 0) {
@@ -333,26 +339,29 @@ extern "C" {
 int attention_fwd_long_max_t() { return 65535 * kOwn; }
 
 // Launches the kernel. `raw` is one FwdArgs block (attention_common.cuh),
-// the tensors as for attention_fwd (attention_fwd.cu); q, k and v rows must
-// start on 16 bytes (kMisaligned otherwise). Returns 0, a Refusal, or the
-// launch's cudaError_t.
+// the tensors as for attention_fwd (attention_fwd.cu); where dh is a multiple
+// of 4, q, k and v rows must start on 16 bytes (kMisaligned otherwise).
+// Returns 0, a Refusal, or the launch's cudaError_t.
 int attention_fwd_long(const void* raw) {
   FwdArgs a;
   memcpy(&a, raw, sizeof a);
   if (a.B < 1 || a.T < 1 || a.H < 1 || a.D % a.H != 0) return kBadShape;
+  const long long dh = a.D / a.H;
+  if (template_dh((int)dh) == 0) return kBadHeadWidth;
+  if (!kPadBuild && dh != template_dh((int)dh)) return kBadHeadWidth;  // the padded build's
   if (a.T > attention_fwd_long_max_t() || a.B * a.H > 2147483647LL) return kTooLong;
-  if (!rows_aligned(a.q, a.q_sb, a.q_st) || !rows_aligned(a.k, a.k_sb, a.k_st) ||
-      !rows_aligned(a.v, a.v_sb, a.v_st))
+  if (!rows_aligned(a.q, a.q_sb, a.q_st, dh) || !rows_aligned(a.k, a.k_sb, a.k_st, dh) ||
+      !rows_aligned(a.v, a.v_sb, a.v_st, dh))
     return kMisaligned;
   const FwdParams p = fwd_params(a);
   cudaStream_t s = ptr<CUstream_st>(a.stream);
   const int B = (int)a.B;
-  switch (a.D / a.H) {
+  switch (template_dh((int)dh)) {
     case 8: return (int)launch<8>(p, B, s);
     case 16: return (int)launch<16>(p, B, s);
     case 32: return (int)launch<32>(p, B, s);
     case 64: return (int)launch<64>(p, B, s);
-    default: return kBadHeadWidth;
+    default: return (int)launch<128>(p, B, s);
   }
 }
 

@@ -43,8 +43,12 @@
 //     exponentials and dropout hash are taken.
 //   * Two blocks an SM (46-82 KB of shared memory a block; at most 128
 //     registers a thread): one block's products overlap the other's
-//     exponentials. The warpgroups of a block pass no turn between them;
+//     exponentials; one at dh = 128 (161 KB; the output alone takes 64
+//     registers). The warpgroups of a block pass no turn between them;
 //     each releases a stage on its own.
+//   * A head of width dh runs at its template width (attention_common.cuh):
+//     the pre-pass packs it to that width with zero columns, and no output
+//     column from dh on is written.
 //   * Each instance is compiled for a bias that broadcasts over queries or
 //     not and for dropout on or off. A causal [1, 1, T, T] bias is read
 //     from device memory (L2) element by element, as in the fp32 build.
@@ -67,7 +71,13 @@ using namespace amid_bf16;
 
 constexpr int kStageKeys = 64;  // keys a stage: the online softmax's rounding point
 constexpr int kStages = 4;      // the ring
-constexpr int kMinBlocks = 2;   // blocks an SM
+
+// blocks an SM: two, for one block's products to overlap the other's
+// exponentials, where 128 registers a thread hold the output and the scores
+template <int DH>
+__host__ __device__ constexpr int min_blocks() {
+  return DH <= 64 ? 2 : 1;
+}
 
 template <int DH, bool BCAST>
 __host__ __device__ constexpr int stage_bytes() {
@@ -89,12 +99,12 @@ struct Packed {
 
 // BCAST: the bias broadcasts over queries (bias_si == 0); DROP: dropout on
 template <int DH, bool BCAST, bool DROP>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
+__global__ void __launch_bounds__(kThreads, min_blocks<DH>())
 attention_fwd_long_bf16_kernel(const FwdParams p, const Packed pk) {
   using L = Tiles<DH, kStageKeys>;
   constexpr int NS = kStageKeys, DHP = L::DHP, JS = NS / 8;
   constexpr int STAGE = stage_bytes<DH, BCAST>();
-  const int T = p.T;
+  const int T = p.T, dh = p.dh;
 
   extern __shared__ __align__(128) unsigned char smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);  // [kStages] a stage landed
@@ -266,7 +276,7 @@ attention_fwd_long_bf16_kernel(const FwdParams p, const Packed pk) {
   float inv[2];
 #pragma unroll
   for (int x = 0; x < 2; ++x) inv[x] = 1.f / quad_sum(l[x]);
-  const long long out_base = (long long)b * T * p.D + h * DH;
+  const long long out_base = (long long)b * T * p.D + h * dh;
 #pragma unroll
   for (int c = 0; c < DH / 8; ++c) {
     const int col = c * 8 + 2 * t4;
@@ -274,8 +284,8 @@ attention_fwd_long_bf16_kernel(const FwdParams p, const Packed pk) {
     for (int x = 0; x < 2; ++x) {
       const int i = q0 + rl + 8 * x;
       if (i < T)
-        *reinterpret_cast<float2*>(p.out + out_base + (long long)i * p.D + col) =
-            make_float2(o[4 * c + 2 * x] * inv[x], o[4 * c + 2 * x + 1] * inv[x]);
+        store2<DH>(p.out + out_base + (long long)i * p.D, col, dh, o[4 * c + 2 * x] * inv[x],
+                   o[4 * c + 2 * x + 1] * inv[x]);
     }
   }
   if (p.row_max != nullptr && t4 == 0) {
@@ -306,7 +316,8 @@ cudaError_t launch_one(const FwdParams& p, const Packed& pk, dim3 grid, cudaStre
 
 template <int DH>
 cudaError_t launch(const FwdParams& p, const Packed& pk, int B, cudaStream_t stream) {
-  static_assert(kMinBlocks * fwd_smem<DH, true>() <= 232448, "shared memory of the blocks an SM");
+  static_assert(min_blocks<DH>() * fwd_smem<DH, true>() <= 232448,
+                "shared memory of the blocks an SM");
   // asked once for the four instances, at the first launch at this head
   // width (not a stream operation: it stays out of a CUDA graph's capture)
   static const cudaError_t opted_in = [] {
@@ -335,7 +346,7 @@ struct FwdLongArgs {
 // The scratch: packed q, k, v ([B, H, T_pad, dh_pad] bf16 each), then, for a
 // bias that broadcasts over queries, its rows padded to T_pad (fp32).
 long long region_elems(long long B, long long T, long long H, long long dh) {
-  return B * H * padded_t(T) * padded_dh((int)dh);
+  return B * H * padded_t(T) * padded_dh(template_dh((int)dh));
 }
 
 }  // namespace
@@ -346,21 +357,22 @@ extern "C" {
 // broadcasts over queries) and the kernel. `raw` is one FwdLongArgs block:
 // the tensors as for attention_fwd_long (attention_fwd_long.cu), then the
 // scratch, 3 * B * H * T_pad * dh_pad bf16 values (T_pad = T rounded up to
-// 128, dh_pad = max(dh, 16)) and, when bias_si == 0, rows * T_pad floats
-// (rows = B where bias_sb != 0, else 1), 16-byte aligned. q, k and v rows
-// must start on 16 bytes (kMisaligned otherwise). Returns 0, a Refusal, or
-// the first failing launch's cudaError_t.
+// 128, dh_pad = dh's template width, at least 16) and, when bias_si == 0,
+// rows * T_pad floats (rows = B where bias_sb != 0, else 1), 16-byte
+// aligned. Where dh is a multiple of 4, q, k and v rows must start on 16
+// bytes (kMisaligned otherwise). Returns 0, a Refusal, or the first failing
+// launch's cudaError_t.
 int attention_fwd_long(const void* raw) {
   FwdLongArgs la;
   memcpy(&la, raw, sizeof la);
   const FwdArgs& a = la.a;
   if (a.B < 1 || a.T < 1 || a.H < 1 || a.D % a.H != 0) return kBadShape;
-  if (a.T > 65535LL * kOwn || a.B * a.H > 2147483647LL) return kTooLong;
-  if (!rows_aligned(a.q, a.q_sb, a.q_st) || !rows_aligned(a.k, a.k_sb, a.k_st) ||
-      !rows_aligned(a.v, a.v_sb, a.v_st) || la.scratch % 16 != 0)
-    return kMisaligned;
   const long long dh = a.D / a.H;
-  if (dh != 8 && dh != 16 && dh != 32 && dh != 64) return kBadHeadWidth;
+  if (template_dh((int)dh) == 0) return kBadHeadWidth;
+  if (a.T > 65535LL * kOwn || a.B * a.H > 2147483647LL) return kTooLong;
+  if (!rows_aligned(a.q, a.q_sb, a.q_st, dh) || !rows_aligned(a.k, a.k_sb, a.k_st, dh) ||
+      !rows_aligned(a.v, a.v_sb, a.v_st, dh) || la.scratch % 16 != 0)
+    return kMisaligned;
   const FwdParams p = fwd_params(a);
   cudaStream_t s = ptr<CUstream_st>(a.stream);
   const long long region = region_elems(a.B, a.T, a.H, dh);
@@ -382,11 +394,12 @@ int attention_fwd_long(const void* raw) {
   const Packed pk = {packed, packed + region, packed + 2 * region,
                      a.bias_si == 0 ? bias_rows : nullptr, Tp};
   const int B = (int)a.B;
-  switch (dh) {
+  switch (template_dh((int)dh)) {
     case 8: return (int)launch<8>(p, pk, B, s);
     case 16: return (int)launch<16>(p, pk, B, s);
     case 32: return (int)launch<32>(p, pk, B, s);
-    default: return (int)launch<64>(p, pk, B, s);
+    case 64: return (int)launch<64>(p, pk, B, s);
+    default: return (int)launch<128>(p, pk, B, s);
   }
 }
 

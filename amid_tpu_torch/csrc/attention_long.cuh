@@ -25,7 +25,7 @@ constexpr int kOwn = 128;      // rows a block owns, 64 a warpgroup
 // wgmma, tf32 inputs, fp32 accumulator
 // ---------------------------------------------------------------------------
 // mma_ss: d[64 x N] += A[64 x 8] B[N x 8]^T, A and B K-major in shared
-// memory (descriptors; the N = 32 stages of dh = 64). mma_rs: the same with
+// memory (descriptors; the N = 32 stages of dh = 64, 16 of dh = 128). mma_rs: the same with
 // A in registers: a = A[g][t], A[g+8][t], A[g][t+4], A[g+8][t+4] of the
 // warp's 16 rows (g = lane / 4, t = lane % 4). The accumulator gives a
 // thread rows 16 warp + g (d[4j], d[4j+1]) and + 8 (d[4j+2], d[4j+3]) of
@@ -36,11 +36,17 @@ constexpr int kOwn = 128;      // rows a block owns, 64 a warpgroup
 #define BWL_L32                                                                        \
   BWL_L16 ", %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, " \
           "%31"
+#define BWL_L64                                                                      \
+  BWL_L32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, " \
+          "%47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "   \
+          "%62, %63"
 #define BWL_R(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
 #define BWL_O4 BWL_R(0)
 #define BWL_O8 BWL_O4, BWL_R(4)
 #define BWL_O16 BWL_O8, BWL_R(8), BWL_R(12)
 #define BWL_O32 BWL_O16, BWL_R(16), BWL_R(20), BWL_R(24), BWL_R(28)
+#define BWL_O64 BWL_O32, BWL_R(32), BWL_R(36), BWL_R(40), BWL_R(44), BWL_R(48), BWL_R(52), \
+                BWL_R(56), BWL_R(60)
 
 template <int N>
 __device__ __forceinline__ void mma_ss(float (&d)[N / 2], uint64_t a, uint64_t b);
@@ -55,6 +61,25 @@ __device__ __forceinline__ void mma_ss<32>(float (&d)[16], uint64_t a, uint64_t 
       "}, %16, %17, p, 1, 1;\n}\n"
       : BWL_O16
       : "l"(a), "l"(b), "r"(1));
+}
+template <>
+__device__ __forceinline__ void mma_ss<16>(float (&d)[8], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {" BWL_L8
+      "}, %8, %9, p, 1, 1;\n}\n"
+      : BWL_O8
+      : "l"(a), "l"(b), "r"(1));
+}
+template <>
+__device__ __forceinline__ void mma_rs<128>(float (&d)[64], const uint32_t (&a)[4],
+                                            uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {" BWL_L64
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : BWL_O64
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 template <>
 __device__ __forceinline__ void mma_rs<64>(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
@@ -117,11 +142,14 @@ __device__ __forceinline__ void mma3_ss(float (&d)[N / 2], uint64_t a_hi, uint64
 template <int DH>
 struct Plan {
   // the owned side's A operands of S and dP: split once into registers
-  // (dh <= 32), or into [128][dh] shared-memory tiles (dh = 64: registers
-  // would not hold them)
+  // (dh <= 32), or into [128][dh] shared-memory tiles (dh >= 64: registers
+  // would not hold them; the long backward keeps them raw at dh = 128,
+  // raw_owned in attention_bwd_long.cu)
   static constexpr bool REG_A = DH <= 32;
-  static constexpr int C = DH / 4;                  // 16-byte chunks of a row
-  static constexpr int NS = DH == 64 ? 32 : 64;     // rows a stage streams
+  static constexpr int C = DH / 4;  // 16-byte chunks of a row
+  // rows a stage streams: the tiles of a stage grow with dh, the block's
+  // shared memory (227 KB) does not
+  static constexpr int NS = DH == 128 ? 16 : DH == 64 ? 32 : 64;
   static constexpr int L = DH >= 32 ? 1 : 32 / DH;  // raw rows in one 128-byte line
   static constexpr int TILE = NS * DH;              // floats of a [NS][dh] tile
   static constexpr int TR = NS * DH + NS;           // of a [dh][NS] tile (chunk padding)
@@ -172,18 +200,31 @@ __device__ __forceinline__ void split4(const float4 x, float4& hi, float4& lo) {
                    __uint_as_float(d.lo));
 }
 
-// cp.async of rows [row0, row0 + NS) of a head (row stride st, 16-byte
-// aligned rows) into a raw tile; rows past T are zeros
+// cp.async of rows [row0, row0 + NS) of a head of width dh (row stride st)
+// into a raw tile; rows past T and columns from dh on are zeros. 16 bytes a
+// copy where dh is a multiple of 4 (the rows then start on 16 bytes), else
+// 4 bytes a copy. Outside the padded build dh is DH (kPadBuild,
+// attention_common.cuh): no column test.
 template <int DH>
 __device__ __forceinline__ void copy_rows(float* raw, const float* head, long long st,
-                                          int row0, int T, int tid) {
+                                          int row0, int T, int dh, int tid) {
   using P = Plan<DH>;
-  for (int item = tid; item < P::NS * P::C; item += kThreads) {
-    const int r = item / P::C, c = item - r * P::C;
-    const int i = row0 + r;
-    const bool in = i < T;
-    cp_async16(smem_u32(raw + raw_at<DH>(r, c)), head + (long long)(in ? i : 0) * st + 4 * c,
-               in);
+  if (!kPadBuild || (dh & 3) == 0) {
+    for (int item = tid; item < P::NS * P::C; item += kThreads) {
+      const int r = item / P::C, c = item - r * P::C;
+      const int i = row0 + r;
+      const bool in = i < T && (!kPadBuild || 4 * c < dh);
+      cp_async16(smem_u32(raw + raw_at<DH>(r, c)), head + (long long)(in ? i : 0) * st + 4 * c,
+                 in);
+    }
+  } else {
+    for (int item = tid; item < P::NS * DH; item += kThreads) {
+      const int r = item / DH, col = item - r * DH;
+      const int i = row0 + r;
+      const bool in = i < T && col < dh;
+      cp_async4(smem_u32(raw + raw_at<DH>(r, col >> 2) + (col & 3)),
+                head + (long long)(in ? i : 0) * st + (in ? col : 0), in);
+    }
   }
 }
 
@@ -225,20 +266,69 @@ __device__ __forceinline__ void split_stage(const float* raw, float* hi, float* 
   }
 }
 
+// Chunk c (columns 4c to 4c + 3) of row i of a head of width dh: zeros past
+// T and from column dh on; one 16-byte load where dh is a multiple of 4
+__device__ __forceinline__ float4 load_chunk(const float* head, long long st, int i, int c,
+                                             int T, int dh) {
+  float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (i >= T || (kPadBuild && 4 * c >= dh)) return x;
+  const float* row = head + (long long)i * st + 4 * c;
+  if (!kPadBuild || (dh & 3) == 0) return __ldg(reinterpret_cast<const float4*>(row));
+  x.x = __ldg(row);
+  if (4 * c + 1 < dh) x.y = __ldg(row + 1);
+  if (4 * c + 2 < dh) x.z = __ldg(row + 2);
+  if (4 * c + 3 < dh) x.w = __ldg(row + 3);
+  return x;
+}
+
 // rows [row0, row0 + 128) of a head as TF32 halves in [128][dh] tiles
 // (plain loads, once a block); rows past T are zeros
 template <int DH>
 __device__ __forceinline__ void load_owned(const float* head, long long st, int row0, int T,
-                                           float* hi, float* lo, int tid) {
+                                           int dh, float* hi, float* lo, int tid) {
   for (int item = tid; item < kOwn * Plan<DH>::C; item += kThreads) {
     const int c = item / kOwn, r = item - c * kOwn;
-    const int i = row0 + r;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (i < T) x = __ldg(reinterpret_cast<const float4*>(head + (long long)i * st) + c);
     float4 h, l;
-    split4(x, h, l);
+    split4(load_chunk(head, st, row0 + r, c, T, dh), h, l);
     *reinterpret_cast<float4*>(hi + tile_at<DH>(r, c)) = h;
     *reinterpret_cast<float4*>(lo + tile_at<DH>(r, c)) = l;
+  }
+}
+
+// raw owned [128][dh] tile: row r's chunk c at chunk c ^ (r % 8), so that a
+// warp's A fragment reads (rows g and g + 8, columns 8k + t and + 4) fall on
+// 32 banks
+template <int DH>
+__device__ __forceinline__ int own_at(int r, int col) {
+  return r * DH + (col ^ ((r & 7) << 2));
+}
+
+// rows [row0, row0 + 128) of a head in a raw owned tile (fp32, plain loads,
+// once a block); rows past T are zeros
+template <int DH>
+__device__ __forceinline__ void load_owned_raw(const float* head, long long st, int row0,
+                                               int T, int dh, float* raw, int tid) {
+  static_assert(DH >= 32, "the swizzle permutes 8 chunks of a row");
+  for (int item = tid; item < kOwn * Plan<DH>::C; item += kThreads) {
+    const int c = item / kOwn, r = item - c * kOwn;
+    *reinterpret_cast<float4*>(raw + own_at<DH>(r, 4 * c)) =
+        load_chunk(head, st, row0 + r, c, T, dh);
+  }
+}
+
+// The hi and lo A fragments of k-step k from a raw owned tile: block rows
+// rl and rl + 8 (rl % 8 = g), columns 8k + t and 8k + t + 4
+template <int DH>
+__device__ __forceinline__ void raw_frag(const float* raw, int rl, int k, int t4,
+                                         uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  const int c = 8 * k + t4;
+  const float v[4] = {raw[own_at<DH>(rl, c)], raw[own_at<DH>(rl + 8, c)],
+                      raw[own_at<DH>(rl, c + 4)], raw[own_at<DH>(rl + 8, c + 4)]};
+#pragma unroll
+  for (int x = 0; x < 4; ++x) {
+    const Split sp = split(v[x]);
+    hi[x] = sp.hi;
+    lo[x] = sp.lo;
   }
 }
 
@@ -247,7 +337,7 @@ __device__ __forceinline__ void load_owned(const float* head, long long st, int 
 // loads, once a block); rows past T are zeros
 template <int DH>
 __device__ __forceinline__ void owned_frags(const float* head, long long st, int r0, int T,
-                                            int t4, uint32_t (&hi)[DH / 8][4],
+                                            int dh, int t4, uint32_t (&hi)[DH / 8][4],
                                             uint32_t (&lo)[DH / 8][4]) {
   const bool in0 = r0 < T, in1 = r0 + 8 < T;
   const float* a = head + (long long)(in0 ? r0 : 0) * st;
@@ -255,8 +345,9 @@ __device__ __forceinline__ void owned_frags(const float* head, long long st, int
 #pragma unroll
   for (int k = 0; k < DH / 8; ++k) {
     const int c = 8 * k + t4;
-    const float v[4] = {in0 ? a[c] : 0.f, in1 ? b[c] : 0.f, in0 ? a[c + 4] : 0.f,
-                        in1 ? b[c + 4] : 0.f};
+    const bool lo_in = !kPadBuild || c < dh, hi_in = !kPadBuild || c + 4 < dh;
+    const float v[4] = {in0 && lo_in ? a[c] : 0.f, in1 && lo_in ? b[c] : 0.f,
+                        in0 && hi_in ? a[c + 4] : 0.f, in1 && hi_in ? b[c + 4] : 0.f};
 #pragma unroll
     for (int x = 0; x < 4; ++x) {
       const Split sp = split(v[x]);
@@ -277,9 +368,11 @@ __device__ __forceinline__ void frag(const float (&v)[4], uint32_t (&hi)[4], uin
   }
 }
 
-// whether every row of a [B, T, D] input starts on 16 bytes (cp.async)
-inline bool rows_aligned(long long base, long long sb, long long st) {
-  return base % 16 == 0 && sb % 4 == 0 && st % 4 == 0;
+// whether every row of a [B, T, D] input starts on 16 bytes (cp.async), at a
+// head width dh that is a multiple of 4; other widths are copied 4 bytes at a
+// time and need nothing more
+inline bool rows_aligned(long long base, long long sb, long long st, long long dh) {
+  return dh % 4 != 0 || (base % 16 == 0 && sb % 4 == 0 && st % 4 == 0);
 }
 
 }  // namespace amid_long

@@ -9,10 +9,10 @@
 // swizzle: core matrices of 8 rows x 8 columns (16 bytes a row, 128 bytes
 // contiguous), core matrix (r / 8, c / 8) at byte ((r / 8) * CB + c / 8) * 128
 // of its head, CB = dh_pad / 8. T_pad is T rounded up to kPadRows (rows past T
-// zero), dh_pad is dh, or 16 at dh = 8 (a k16 step reads 16 columns; the
-// padding columns are zero). So any run of rows of one head, a streamed stage
-// or a block's owned rows, is one contiguous block, landed by one
-// cp.async.bulk.
+// zero), dh_pad is dh's template width (attention_common.cuh), or 16 at
+// dh <= 8 (a k16 step reads 16 columns); the padding columns are zero. So
+// any run of rows of one head, a streamed stage or a block's owned rows, is
+// one contiguous block, landed by one cp.async.bulk.
 //
 // One tile, two readings (no transposed copies):
 //   * K-major (the B of S = Q K^T, or an owned A): the reduced axis is dh.
@@ -101,10 +101,16 @@ __device__ __forceinline__ void a_frag(const float (&v)[8], uint32_t (&a)[4]) {
 #define BFL_L32                                                                        \
   BFL_L16 ", %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, " \
           "%31"
+#define BFL_L64                                                                      \
+  BFL_L32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, " \
+          "%47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "   \
+          "%62, %63"
 #define BFL_R(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
 #define BFL_O8 BFL_R(0), BFL_R(4)
 #define BFL_O16 BFL_O8, BFL_R(8), BFL_R(12)
 #define BFL_O32 BFL_O16, BFL_R(16), BFL_R(20), BFL_R(24), BFL_R(28)
+#define BFL_O64 BFL_O32, BFL_R(32), BFL_R(36), BFL_R(40), BFL_R(44), BFL_R(48), BFL_R(52), \
+                BFL_R(56), BFL_R(60)
 
 template <int N>
 __device__ __forceinline__ void mma_ss(float (&d)[N / 2], uint64_t a, uint64_t b);
@@ -128,6 +134,16 @@ __device__ __forceinline__ void mma_ss<32>(float (&d)[16], uint64_t a, uint64_t 
       "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
       : BFL_O16
       : "l"(a), "l"(b), "r"(1));
+}
+template <>
+__device__ __forceinline__ void mma_rs_t<128>(float (&d)[64], const uint32_t (&a)[4],
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" BFL_L64
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : BFL_O64
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 template <>
 __device__ __forceinline__ void mma_rs_t<64>(float (&d)[32], const uint32_t (&a)[4],
@@ -163,11 +179,12 @@ __device__ __forceinline__ void mma_rs_t<16>(float (&d)[8], const uint32_t (&a)[
 // ---------------------------------------------------------------------------
 // the pack pre-pass
 // ---------------------------------------------------------------------------
-// Up to four [B, T, H * dh] fp32 inputs (rows on 16 bytes), each into its
-// packed [B, H, T_pad, dh_pad] bf16 region of the scratch (region z at
-// out + z * region). One thread writes one 16-byte chunk (8 columns of one
-// row); consecutive threads write consecutive chunks, so a warp writes 512
-// contiguous bytes.
+// Up to four [B, T, H * dh] fp32 inputs, each into its packed [B, H, T_pad,
+// dh_pad] bf16 region of the scratch (region z at out + z * region). One
+// thread writes one 16-byte chunk (8 columns of one row); consecutive
+// threads write consecutive chunks, so a warp writes 512 contiguous bytes.
+// Where dh is a multiple of 8 (rows on 16 bytes) a chunk is read as two
+// float4s, else value by value, the columns from dh on as zeros.
 struct PackArgs {
   const float* src[4];
   long long sb[4], st[4];
@@ -195,11 +212,19 @@ __global__ void pack_kernel(const PackArgs a) {
     uint4 v = make_uint4(0u, 0u, 0u, 0u);
     if (row < a.T && col < a.dh) {
       const long long b = bh / a.H, h = bh - b * a.H;
-      const float4* x =
-          reinterpret_cast<const float4*>(src + b * sb + row * st + h * a.dh + col);
-      const float4 x0 = __ldg(x), x1 = __ldg(x + 1);
-      v = make_uint4(pack_bf16x2(x0.x, x0.y), pack_bf16x2(x0.z, x0.w),
-                     pack_bf16x2(x1.x, x1.y), pack_bf16x2(x1.z, x1.w));
+      const float* x = src + b * sb + row * st + h * a.dh + col;
+      float f[8];
+      if ((a.dh & 7) == 0) {
+        const float4 x0 = __ldg(reinterpret_cast<const float4*>(x)),
+                     x1 = __ldg(reinterpret_cast<const float4*>(x) + 1);
+        f[0] = x0.x, f[1] = x0.y, f[2] = x0.z, f[3] = x0.w;
+        f[4] = x1.x, f[5] = x1.y, f[6] = x1.z, f[7] = x1.w;
+      } else {
+#pragma unroll
+        for (int c = 0; c < 8; ++c) f[c] = col + c < a.dh ? __ldg(x + c) : 0.f;
+      }
+      v = make_uint4(pack_bf16x2(f[0], f[1]), pack_bf16x2(f[2], f[3]),
+                     pack_bf16x2(f[4], f[5]), pack_bf16x2(f[6], f[7]));
     }
     out[e] = v;
   }
@@ -240,16 +265,18 @@ inline void launch_pack(const float* const* src, const long long* sb, const long
   a.Tp = (int)padded_t(T);
   a.H = H;
   a.dh = dh;
-  a.dhp = padded_dh(dh);
+  a.dhp = padded_dh(template_dh(dh));
   a.region = B * H * a.Tp * (long long)a.dhp;
   dim3 grid = blocks_for(a.region / 8);
   grid.y = nsrc;
   pack_kernel<<<grid, 256, 0, stream>>>(a);
 }
 
-// whether every row of a [B, T, D] input starts on 16 bytes (the pack's float4 loads)
-inline bool rows_aligned(long long base, long long sb, long long st) {
-  return base % 16 == 0 && sb % 4 == 0 && st % 4 == 0;
+// whether every row of a [B, T, D] input starts on 16 bytes (the float4
+// loads of the pre-pass), at a head width dh that is a multiple of 4; other
+// widths are read value by value and need nothing more
+inline bool rows_aligned(long long base, long long sb, long long st, long long dh) {
+  return dh % 4 != 0 || (base % 16 == 0 && sb % 4 == 0 && st % 4 == 0);
 }
 
 }  // namespace amid_bf16

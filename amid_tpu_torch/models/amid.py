@@ -201,12 +201,13 @@ def head_width(cfg: ModelConfig):
 def check_attention_fits(cfg: ModelConfig) -> None:
     """Raises if no attention kernel of a kernels='cuda' model of `cfg` takes
     its longest attention call (the encoder at L, or at 2L on C2DSR's views):
-    a head width the kernels do not have, or a T beyond the long-sequence
-    forward's or backward's limit (`ops.attention.long_forward_max_t`,
-    `long_backward_max_t`; the one-head forward hands longer shapes to the
-    long forward). Binds the kernels."""
+    a head width above the kernels' largest (`ops.attention.MAX_HEAD_DIM`;
+    every width up to it runs at a template width, `kernel_head_dim`), or a
+    T beyond the long-sequence forward's or backward's limit
+    (`ops.attention.long_forward_max_t`, `long_backward_max_t`; the one-head
+    forward hands longer shapes to the long forward). Binds the kernels."""
     from amid_tpu_torch.ops.attention import (
-        KERNEL_HEAD_DIMS, long_backward_max_t, long_forward_max_t,
+        MAX_HEAD_DIM, kernel_head_dim, long_backward_max_t, long_forward_max_t,
     )
 
     dh = head_width(cfg)
@@ -214,14 +215,14 @@ def check_attention_fits(cfg: ModelConfig) -> None:
         return
     t = cfg.enc_seq_len
     limit = min(long_forward_max_t(), long_backward_max_t())
-    if dh not in KERNEL_HEAD_DIMS or t > limit:
+    if kernel_head_dim(dh) is None or t > limit:
         parts = [name for name, on in (("InnerComp", cfg.is_inc), ("InterComp", cfg.is_itc),
                                        ("C2DSR", cfg.is_c2dsr)) if on]
         raise ValueError(
             f"{cfg.backbone} at seq_len={cfg.seq_len} with {', '.join(parts) or 'no comp'} "
             f"attends over T={t} at head width dh={dh}; the attention kernels take head "
-            f"widths {KERNEL_HEAD_DIMS} and T<={limit}, so kernels='cuda' cannot run it "
-            f"(kernels='torch' can)")
+            f"widths 1 to {MAX_HEAD_DIM} and T<={limit}, so kernels='cuda' cannot run it "
+            f"(--kernels torch, kernels='torch', can)")
 
 
 def resolve_device(device=None) -> torch.device:

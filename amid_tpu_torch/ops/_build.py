@@ -10,7 +10,11 @@ starts one `nvcc` per library at once and waits for all of them. A
 variant (`VARIANTS`) is a source compiled once more with a define, into a
 library of its own: the one-head attention kernels' bf16-operand builds
 (`attention_fwd_bf16`, `attention_bwd_bf16`, `-DAMID_ATTN_BF16=1`), so that
-the second set of instances compiles beside the first instead of after it.
+the second set of instances compiles beside the first instead of after it;
+and the fp32 long attention paths' builds for padded head widths
+(`attention_fwd_long_pad`, `attention_bwd_long_pad`, `-DAMID_ATTN_PAD=1`),
+whose instances read dh at run time, so that the other build keeps each
+template width's own code.
 The long paths' bf16 mode has sources of its own
 (`csrc/attention_fwd_long_bf16.cu`, `csrc/attention_bwd_long_bf16.cu`:
 native bf16 products), built as any other source.
@@ -57,9 +61,12 @@ NVCC_FLAGS = (
 
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on sm_90 (227 KB)
 
-# library name -> (the source it compiles, extra nvcc flags)
-VARIANTS = {f"{n}_bf16": (n, ("-DAMID_ATTN_BF16=1",)) for n in (
-    "attention_fwd", "attention_bwd")}
+# library name -> (the source it compiles, extra nvcc flags): the one-head
+# attention sources' bf16 builds, and the fp32 long attention paths' builds
+# for head widths below their template width (csrc/attention_common.cuh)
+VARIANTS = {**{f"{n}_bf16": (n, ("-DAMID_ATTN_BF16=1",)) for n in (
+    "attention_fwd", "attention_bwd")}, **{f"{n}_pad": (n, ("-DAMID_ATTN_PAD=1",)) for n in (
+        "attention_fwd_long", "attention_bwd_long")}}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 

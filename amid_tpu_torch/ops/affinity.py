@@ -36,7 +36,9 @@ from amid_tpu_torch.ops import _build
 from amid_tpu_torch.ops._build import SMEM_LIMIT
 from amid_tpu_torch.ops.precision import bf16_round
 
-KERNEL_WIDTHS = (16, 32, 64, 128)  # D values the kernels are compiled for
+# D values the kernels take: the pre-pass pads every row to 128 columns with
+# zeros in 16-byte chunks of 8 values, so any multiple of 8 up to 128
+KERNEL_WIDTHS = tuple(range(8, 129, 8))
 
 
 def diag_max_affinity(seq_a: torch.Tensor, seq_b: torch.Tensor,

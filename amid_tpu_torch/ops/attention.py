@@ -66,6 +66,20 @@ attention probabilities and scales the kept ones by 1/(1 - rate).
   row_offset + b, so a data-parallel rank holding rows [b0, b0 + B) of a
   global batch (`parallel/`, gspmd) draws, with row_offset=b0, the rows a
   call on the whole batch at offset 0 draws for them.
+* Head widths: the kernels take any dh = D / heads from 1 to MAX_HEAD_DIM
+  (128), each at the smallest of KERNEL_HEAD_DIMS that holds it
+  (`kernel_head_dim`; csrc/attention_common.cuh): columns from dh on are
+  zero inside the kernel and never written, so a padded width computes the
+  function of its own width, the scale 1/sqrt(dh) included. A wider head is
+  refused (`head_width_refusal`, naming `--kernels torch`). The routes read
+  a padded width's entries under its template width, and the long paths
+  copy q, k, v (and dout) 16 bytes at a time only at widths that are a
+  multiple of 4 (`_rows_aligned`), 4 bytes at a time at the others. A
+  template width runs instances with dh a compile-time constant (the
+  one-head kernels' exact instances; the fp32 long paths' libraries as
+  they are), a padded width instances that read it at run time (the
+  one-head kernels' PAD instances; the fp32 long paths' `_pad` builds,
+  `_pad_entry`), so that the template widths keep their code.
 
 The dropout `seed` is a Python int or a one-element int64 tensor on the
 inputs' device (what a training step draws, `ops.rng.StepRandom.
@@ -123,7 +137,23 @@ from amid_tpu_torch.ops.precision import matmul
 _BIAS_SHAPES = "[1|B, 1, 1|T, T]"
 _M32 = 0xFFFFFFFF
 _MIX_KEY0 = 0x9E3779B9
-KERNEL_HEAD_DIMS = (8, 16, 32, 64)
+# The kernels' template head widths (csrc/attention_common.cuh): a head of
+# any width dh from 1 to MAX_HEAD_DIM runs at the smallest of them that holds
+# it, its columns from dh on zero in the kernel and never written
+KERNEL_HEAD_DIMS = (8, 16, 32, 64, 128)
+MAX_HEAD_DIM = KERNEL_HEAD_DIMS[-1]
+
+
+def kernel_head_dim(dh: int):
+    """The template width a head of width `dh` runs at in the kernels; None
+    where no kernel takes it (dh above MAX_HEAD_DIM)."""
+    return next((w for w in KERNEL_HEAD_DIMS if dh <= w), None) if dh >= 1 else None
+
+
+def head_width_refusal(dh: int) -> str:
+    """Why the kernels refuse heads of width `dh`, naming the way out."""
+    return (f"the attention kernels take head widths 1 to {MAX_HEAD_DIM}; got dh={dh} "
+            f"(--kernels torch, kernels='torch', computes any width)")
 
 
 def check_bias(bias: torch.Tensor, bsz: int, t: int) -> None:
@@ -405,10 +435,13 @@ _PACK_BWD_LONG = struct.Struct("<32q2dq").pack
 _PACK_PTR = struct.Struct("<q").pack  # the bf16 long forward's scratch, after FwdArgs
 _BAD_HEAD_WIDTH, _BAD_SHAPE, _TOO_LONG, _MISALIGNED = -1, -2, -3, -4  # the refusals
 _SOURCES = ["attention_fwd", "attention_fwd_long", "attention_bwd", "attention_bwd_long"]
-_LIBRARIES = _SOURCES + [f"{n}_bf16" for n in _SOURCES]  # and their bf16 builds
+_PADDED = ["attention_fwd_long", "attention_bwd_long"]  # fp32 builds of their own for padded dh
+# and their bf16 builds, and the padded-width builds
+_LIBRARIES = _SOURCES + [f"{n}_bf16" for n in _SOURCES] + [f"{n}_pad" for n in _PADDED]
 
 _fwd = _fwd_long = _bwd = _bwd_long = None  # bound entry points, resolved at the first launch
 _bf16_entry: dict = {}  # entry point name -> the bf16 build's, bound with the others
+_pad_entry: dict = {}  # entry point name -> the padded-width build's (fp32 long paths)
 _fwd_smem = _bwd_smem = None  # their shared-memory functions, (T, dh) -> bytes
 _long_max_t = _fwd_long_max_t = None  # the longest T of the long backward and forward
 _fwd_max_t = None  # dh -> the longest T of the one-head forward kernel
@@ -433,6 +466,9 @@ def _bind() -> None:
     for name in _SOURCES:
         _bf16_entry[name] = _build.bind(getattr(_build.load(f"{name}_bf16"), name),
                                         [ctypes.c_char_p])
+    for name in _PADDED:
+        _pad_entry[name] = _build.bind(getattr(_build.load(f"{name}_pad"), name),
+                                       [ctypes.c_char_p])
 
 
 def _largest_t(smem_bytes, dh: int) -> int:
@@ -456,8 +492,7 @@ def _too_long(name: str, smem_bytes, t: int, dh: int) -> ValueError:
 
 def _raise(err: int, name: str, smem_bytes, t: int, d: int, heads: int):
     if err == _BAD_HEAD_WIDTH:
-        raise ValueError(f"the attention kernel takes head widths {KERNEL_HEAD_DIMS}; got "
-                         f"dh={d // heads} (D={d}, heads={heads})")
+        raise ValueError(f"{name}: {head_width_refusal(d // heads)} (D={d}, heads={heads})")
     if err == _TOO_LONG:
         raise _too_long(name, smem_bytes, t, d // heads)
     if err == _BAD_SHAPE:
@@ -469,13 +504,14 @@ def _raise(err: int, name: str, smem_bytes, t: int, d: int, heads: int):
 
 def forward_max_t(dh: int) -> int:
     """The longest T the one-head forward kernel takes at head width `dh`
-    (0 at a width it does not take): one head's K and V in one block's
-    shared memory (`attention_fwd_smem_bytes`, a function that grows with T,
-    against SMEM_LIMIT), found once per head width when the kernels are
-    bound, since every forward launch routes by it."""
+    (0 at a width it does not take): one head's K and V at dh's template
+    width in one block's shared memory (`attention_fwd_smem_bytes`, a
+    function that grows with T, against SMEM_LIMIT), found once per template
+    width when the kernels are bound, since every forward launch routes by
+    it."""
     if _fwd is None:
         _bind()
-    return _fwd_max_t.get(dh, 0)
+    return _fwd_max_t.get(kernel_head_dim(dh), 0)
 
 
 def long_backward_max_t() -> int:
@@ -499,17 +535,24 @@ MODES = ("fp32", "bf16")  # the kernels' modes: fp32 (3xTF32), bf16 operands (`m
 # among the T that `chip_smoke.py`'s forward crossover sweeps measure (150,
 # 300, 368, 512, 600 and 800, at B=256, D=128, key padding and causal, rate
 # 0; `fwd_crossover` and `fwd_crossover_bf16` records; NVIDIA H100 80GB
-# HBM3, 700.00 W). fp32, dh=32: the one-head kernel faster at 150, the long
+# HBM3, 700.00 W). A head width between template widths routes as its
+# template width (`kernel_head_dim`): the kernels run it at that width. fp32,
+# dh=32: the one-head kernel faster at 150, the long
 # forward from 300 (0.384 against 0.521 ms, key padding); dh=16: key padding
 # crosses at 368, the causal bias at 512. bf16 (the native long forward
 # against the one-head kernel's bf16 build), taken where the long forward
 # was at least 10% faster in each of two sweeps: from 150 at dh=32 (key
 # padding 0.079 against 0.130 ms, causal 0.102 against 0.141); from 300 at
 # dh=16, where SASRec's causal bias reads 0.138 against 0.142 at 150, a 3%
-# margin, and 0.328 against 0.548 at 300. Below it, and at the head widths
-# not swept (8, 64), shapes stay on the one-head kernel as long as it holds
-# them (`forward_max_t`).
-LONG_FWD_FASTER_FROM = {"fp32": {16: 512, 32: 300}, "bf16": {16: 300, 32: 150}}
+# margin, and 0.328 against 0.548 at 300. dh=128 (B=256, D=512, T=20, 40,
+# 80, 150 and 200, `chip_smoke.py`'s `width_crossover_sweeps`; the one-head
+# kernel holds T <= 216 there): the long forward the faster from 40 in both
+# modes and both biases (fp32 0.160 against 0.183 ms, key padding; bf16
+# 0.100 against 0.161), the one-head kernel at 20 (0.067 against 0.133).
+# Below it, and at the head widths not swept (8, 64), shapes stay on the
+# one-head kernel as long as it holds them (`forward_max_t`).
+LONG_FWD_FASTER_FROM = {"fp32": {16: 512, 32: 300, 128: 40},
+                        "bf16": {16: 300, 32: 150, 128: 40}}
 
 
 def forward_route(t: int, dh: int, mode: str = "fp32") -> str:
@@ -517,7 +560,7 @@ def forward_route(t: int, dh: int, mode: str = "fp32") -> str:
     hold the shape (`forward_max_t(dh) < t`) or from
     `LONG_FWD_FASTER_FROM[mode][dh]` on, else 'sweep' (the one-head kernel).
     Binds the kernels."""
-    start = LONG_FWD_FASTER_FROM[mode].get(dh)
+    start = LONG_FWD_FASTER_FROM[mode].get(kernel_head_dim(dh))
     return "long" if (start is not None and t >= start) or forward_max_t(dh) < t else "sweep"
 
 
@@ -526,24 +569,30 @@ def forward_route(t: int, dh: int, mode: str = "fp32") -> str:
 # `chip_smoke.py`'s crossover sweeps measure (150, 200, 256, 300, 368 and
 # 512, at B=256, D=128, key padding, rate 0, where both paths take the shape;
 # `bwd_crossover` and `bwd_crossover_bf16` records; NVIDIA H100 80GB HBM3,
-# 700.00 W). SASRec's causal bias at dh=16 (150 to 600: C2DSR's views)
+# 700.00 W); a head width between template widths routes as its template
+# width (`kernel_head_dim`). SASRec's causal bias at dh=16 (150 to 600: C2DSR's views)
 # crosses at the same T in fp32. bf16 (the native long backward against
 # the one-sweep kernel's bf16 build), taken where the long path was at least
 # 10% faster in each of two sweeps: from 150 at dh=32 and 64 (0.180 against
 # 0.289 ms at dh=32); at dh=8 from 200 (a tie at 150, 0.384 against 0.384;
 # 0.482 against 0.700 at 200); at dh=16 from 200, where SASRec's causal
 # bias crosses (0.357 against 0.324 ms at 150, 0.465 against 0.568 at 200;
-# key padding from 150). Below it, and wherever the one-sweep kernel was the
-# faster, shapes stay on that kernel.
-LONG_FASTER_FROM = {"fp32": {8: 512, 16: 368, 32: 150, 64: 150},
-                    "bf16": {8: 200, 16: 200, 32: 150, 64: 150}}
+# key padding from 150). dh=128 (T=20, 48, 64 and 80, where the one-sweep
+# kernel holds the shape; `width_crossover_sweeps`, two sweeps): the long
+# path from 48 in both modes and both biases, fp32 0.455 against 0.582 ms (key padding;
+# causal 0.481 against 0.595), bf16 0.220 against 0.520 (at 20 0.182
+# against 0.191, a 5% margin, and in fp32 0.327 against 0.215). Below it,
+# and wherever the one-sweep kernel was the faster, shapes stay on that
+# kernel.
+LONG_FASTER_FROM = {"fp32": {8: 512, 16: 368, 32: 150, 64: 150, 128: 48},
+                    "bf16": {8: 200, 16: 200, 32: 150, 64: 150, 128: 48}}
 
 
 def long_faster(t: int, dh: int, mode: str = "fp32") -> bool:
     """Whether the long path was the faster backward at (T, dh) in `mode`
     where both paths take the shape: from `LONG_FASTER_FROM[mode][dh]` on. A
     plain rule of the shape; binds nothing."""
-    start = LONG_FASTER_FROM[mode].get(dh)
+    start = LONG_FASTER_FROM[mode].get(kernel_head_dim(dh))
     return start is not None and t >= start
 
 
@@ -567,11 +616,10 @@ def backward_route(t: int, dh: int, mode: str = "fp32") -> str:
 
 def _check_backward_fits(t: int, dh: int) -> None:
     """Raises now if no backward path takes (T, dh), not in the middle of a
-    backward pass: a head width the kernels do not have, or a T beyond the
-    long path's."""
-    if dh not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"the attention kernels take head widths {KERNEL_HEAD_DIMS}; "
-                         f"got dh={dh}")
+    backward pass: a head width above MAX_HEAD_DIM, or a T beyond the long
+    path's."""
+    if kernel_head_dim(dh) is None:
+        raise ValueError(head_width_refusal(dh))
     if t > long_backward_max_t():
         raise ValueError(f"attention backward: T={t} is beyond the long-sequence path's "
                          f"limit of T={_long_max_t}")
@@ -669,16 +717,19 @@ def _launch_forward_long(q, k, v, bias, seed, heads: int, rate: float, stats: bo
                          bf16: bool = False, row_offset: int = 0):
     """`_launch_forward` on the long-sequence path: its copies read 16-byte
     chunks of q, k and v rows, so a view whose rows do not start on 16 bytes
-    is copied first."""
+    is copied first (at a head width that is a multiple of 4; others are
+    read 4 bytes at a time)."""
     if _fwd_long is None:
         _bind()
     bsz, t, d = q.shape
-    q, k, v = (x if _rows_aligned(x) else x.contiguous() for x in (q, k, v))
+    q, k, v = (x if _rows_aligned(x, d // heads) else x.contiguous() for x in (q, k, v))
     block, outs, _seed_alive = _pack_forward(q, k, v, bias, seed, heads, rate, stats,
                                              row_offset)
     if bf16:  # the native bf16 path: the packed operands' scratch after the block
         scratch = _long_bf16_scratch(q, bias, heads, 3, 0)
         err = _bf16_entry["attention_fwd_long"](block + _PACK_PTR(scratch.data_ptr()))
+    elif kernel_head_dim(d // heads) != d // heads:  # a padded width: its own build
+        err = _pad_entry["attention_fwd_long"](block)
     else:
         err = _fwd_long(block)
     if err == _TOO_LONG:
@@ -715,8 +766,10 @@ def _launch_backward(q, k, v, bias, out, row_max, row_inv_sum, dout,
     if path is None:
         path = backward_route(t, d // heads, "bf16" if bf16 else "fp32")
     if path == "long":  # its copies read 16-byte chunks of q, k, v and dout rows
-        q, k, v, dout = (x if _rows_aligned(x) else x.contiguous() for x in (q, k, v, dout))
-        if bf16 and not _rows_aligned(out):  # and its pre-pass of out's
+        dh = d // heads
+        q, k, v, dout = (x if _rows_aligned(x, dh) else x.contiguous()
+                         for x in (q, k, v, dout))
+        if bf16 and not _rows_aligned(out, dh):  # and its pre-pass of out's
             out = out.contiguous()
     strides = _strides((("q", q), ("k", k), ("v", v), ("out", out), ("dout", dout)), bias,
                        dev, (("row_max", row_max), ("row_inv_sum", row_inv_sum)))
@@ -731,9 +784,11 @@ def _launch_backward(q, k, v, bias, out, row_max, row_inv_sum, dout,
         if bf16:  # the native bf16 path: packed q, k, v, dout, the rows' float4s
             scratch = _long_bf16_scratch(q, bias, heads, 4, 16)
             err = _bf16_entry["attention_bwd_long"](_PACK_BWD_LONG(*args, scratch.data_ptr()))
-        else:  # D_i, from the dQ kernel to the dK/dV kernel
+        else:  # D_i, from the dQ kernel to the dK/dV kernel; a padded width's own build
             dsum = q.new_empty((bsz, heads, t))
-            err = _bwd_long(_PACK_BWD_LONG(*args, dsum.data_ptr()))
+            entry = _bwd_long if kernel_head_dim(d // heads) == d // heads else _pad_entry[
+                "attention_bwd_long"]
+            err = entry(_PACK_BWD_LONG(*args, dsum.data_ptr()))
         if err == _TOO_LONG:
             raise ValueError(f"attention_bwd_long: T={t} is beyond its limit of "
                              f"T={_long_max_t} (or B*heads beyond 2^31 - 1)")
@@ -756,9 +811,12 @@ def _launch_backward(q, k, v, bias, out, row_max, row_inv_sum, dout,
     return dq, dk, dv
 
 
-def _rows_aligned(x: torch.Tensor) -> bool:
-    """Whether every [dh] row of a [B, T, D] tensor starts on 16 bytes."""
-    return x.data_ptr() % 16 == 0 and x.stride(0) % 4 == 0 and x.stride(1) % 4 == 0
+def _rows_aligned(x: torch.Tensor, dh: int) -> bool:
+    """Whether every [dh] row of a [B, T, D] tensor starts on 16 bytes, as
+    the long paths' 16-byte copies need at a head width that is a multiple
+    of 4; at any other width they copy 4 bytes at a time (True)."""
+    return dh % 4 != 0 or (x.data_ptr() % 16 == 0 and x.stride(0) % 4 == 0
+                           and x.stride(1) % 4 == 0)
 
 
 # ---------------------------------------------------------------------------
@@ -774,8 +832,9 @@ LONG_BF16_PAD_ROWS = 128  # kPadRows: a packed head's T_pad is T rounded up to i
 
 def bf16_packed_shape(t: int, dh: int) -> tuple[int, int]:
     """(T_pad, dh_pad) of a packed head: T rounded up to LONG_BF16_PAD_ROWS,
-    dh or 16 at dh=8 (a k16 step reads 16 columns)."""
-    return -(-t // LONG_BF16_PAD_ROWS) * LONG_BF16_PAD_ROWS, max(dh, 16)
+    dh's template width (`kernel_head_dim`), at least 16 (a k16 step reads
+    16 columns): a whole number of k16 steps at every width."""
+    return -(-t // LONG_BF16_PAD_ROWS) * LONG_BF16_PAD_ROWS, max(kernel_head_dim(dh), 16)
 
 
 def pack_bf16_plain(x: torch.Tensor, heads: int) -> torch.Tensor:

@@ -260,8 +260,8 @@ def run_seed(
     (`train/c2dsr.py`); it is dense Adam only (ValueError with
     `lazy_table_adam`, as in the JAX package). On `cuda`, `build_model`
     refuses, before the first step, a configuration whose attention no
-    kernel takes (`models.amid.check_attention_fits`: a head width outside
-    the kernels' or a T beyond the long-sequence paths').
+    kernel takes (`models.amid.check_attention_fits`: a head width above
+    the kernels' 128 or a T beyond the long-sequence paths').
 
     With `use_mesh`, every rank of the world calls it with the same
     arguments (`parallel/`; the module docstring).

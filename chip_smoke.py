@@ -9,9 +9,9 @@ code and no result line):
 
 1. the card's name and power limit; build every CUDA kernel of the serving
    and training paths from `amid_tpu_torch/csrc/` (eight sources, the long
-   attention paths' two native bf16 sources and the one-head attention
-   sources' bf16 builds, one `nvcc` each, all started together), timing
-   the build;
+   attention paths' two native bf16 sources, the one-head attention
+   sources' bf16 builds and the fp32 long paths' builds for padded head
+   widths, one `nvcc` each, all started together), timing the build;
 2. kernels: each kernel against its plain PyTorch version on the card, at
    the main paths' shapes, with its time beside the plain version's, one
    PyTorch library call's (a yardstick the port never calls) and the card's
@@ -218,7 +218,28 @@ code and no result line):
    `expected_launches`, the gspmd runs' fast loops replaying graphs that
    captured the collectives; the replayed phase-A step off and on the mesh
    at T=20 and T=150 (wall and device ms, NCCL kernels and copies a step
-   from the trace, peak memory).
+   from the trace, peak memory);
+12. K1 at every head width up to 128 (`width_kernel_phase`,
+   `width_crossover_sweeps`, `width_config_phase`): all six attention paths
+   (the one-head forward and one-sweep backward, the fp32 long forward and
+   backward, the bf16 builds and native bf16 long kernels) at dh 12, 24, 48
+   (padded to the template widths 16, 32, 64) and 128, causal and key
+   padding, rates 0 and 0.1, B=256, against their plain versions (fp32:
+   `kernel_plain`'s tolerances, the row statistics at LONG_STATS_ATOL, the
+   backward at `bwd_atol`; bf16: BF16_LIMITS of the path's existing case,
+   the fp32 build outside it), each timed (device_ms, host_us, SDPA, the
+   bound); both paths' device time at dh=128 (forward T=150 and 200,
+   backward T=20 to 80, where the one-head kernels hold the shape, fp32 and
+   bf16: the routes' dh=128 entries); then configuration (a), BERT4Rec at
+   `--emb_dim 512` (4 heads of 128) and `--seq_len 150` (encoder T=300: both
+   long paths at dh=128), dense Adam: serving (feature pass and top-100),
+   `run_seed` on the fast loops, the step-level checks against
+   `kernels='torch'`, replayed steps (phase A, phase B, evaluation)
+   bit-equal to eager ones and the replayed phase A's time, fp32 and
+   `--bf16`; and configuration (b), the run.sh SASRec at `--emb_dim 96` (8
+   heads of 12: the one-head pair at a padded width) at T=20 lazy and T=150
+   dense, quirk and pairwise: the CLI for a few steps with `--kernels auto`,
+   the step-level checks and replayed steps bit-equal to eager ones.
 
 It prints a JSON line of per-kernel numbers, the total wall time, the
 `nvidia-smi` name and power line, and last `{"ok": true, "device": {...}}`.
@@ -251,7 +272,12 @@ ATOL, RTOL = 1e-5, 1e-4  # forward kernel vs plain, fp32
 # the plain version in fp64 (NVIDIA H100 80GB HBM3): both paths' errors
 # against fp64 are those of dh=8 and 32 (dv 2.6e-5 to 4.3e-5: 3xTF32
 # products; the plain fp32 version's 0.5e-5 to 1.3e-5), but the largest
-# |kernel - plain| - RTOL |plain| reached 2.3e-5; twice that, rounded up
+# |kernel - plain| - RTOL |plain| reached 2.3e-5; twice that, rounded up.
+# It holds every head width above 32 (templates 64 and 128): at dh=128
+# (B=256, T=64 and 300, causal, rates 0 and 0.1; NVIDIA H100 80GB HBM3,
+# 700.00 W) the kernels' errors against fp64 were 1.1e-5 to 3.8e-5, as at
+# dh=64 (the plain version's 2.3e-6 to 8.1e-6), and |kernel - plain| - RTOL
+# |plain| reached 1.9e-5, the largest error 3.0e-5 (dk, T=64, key padding)
 BWD_ATOL = 2e-5
 BWD_ATOL_DH64 = 5e-5
 DH64_DRAWS = 4  # more dh=64 draws held against fp64 (`kernel_case_bwd` `*_draw*` records)
@@ -404,8 +430,9 @@ class SmokeFailure(RuntimeError):
 
 def bwd_atol(t: int, dh: int) -> float:
     """The backward's absolute tolerance at sequence length t and head width
-    dh (BWD_ATOL, BWD_ATOL_DH64)."""
-    return (BWD_ATOL_DH64 if dh == 64 else BWD_ATOL) * max(1.0, t / 150)
+    dh (BWD_ATOL, BWD_ATOL_DH64 from dh=33 on: the template widths 64 and
+    128)."""
+    return (BWD_ATOL_DH64 if dh > 32 else BWD_ATOL) * max(1.0, t / 150)
 
 
 def losses_agree(key: str, a: float, ref: dict) -> bool:
@@ -480,14 +507,14 @@ def host_us(torch, fn, iters: int) -> float:
 ROUNDS = 3  # the host is shared and swings: kernel_ms and host_us are the least of 3 rounds
 
 
-def timings(torch, fn, iters: int, library: bool = False) -> dict:
+def timings(torch, fn, iters: int, library: bool = False, rounds: int = ROUNDS) -> dict:
     """The three times of one call: back-to-back public calls between events
     (`kernel_ms`: the larger of what the host and the device need per call),
     the device alone (`device_ms`, a graph replay) and the host alone
-    (`host_us`). The two that depend on the host are the least of ROUNDS
+    (`host_us`). The two that depend on the host are the least of `rounds`
     rounds of `iters` calls. A library call's keys carry the prefix `library_`."""
-    ms = min(cuda_ms(torch, fn, iters) for _ in range(ROUNDS))
-    host = min(host_us(torch, fn, iters) for _ in range(ROUNDS))
+    ms = min(cuda_ms(torch, fn, iters) for _ in range(rounds))
+    host = min(host_us(torch, fn, iters) for _ in range(rounds))
     if library:
         return {"library_ms": ms, "library_device_ms": graph_ms(torch, fn),
                 "library_host_us": host}
@@ -1175,9 +1202,15 @@ def gather_grad_kernel_phase(torch, gen):
     """The gather's backward (`embedding_gather_grad`) against its plain
     version at a training step's shapes, the 894,820-row table: both
     sequences of a T=150 and a T=20 step, left-padded histories (the padding
-    row takes most of the rows), and target with one negative; two calls
-    bit-equal (library: `index_put_(accumulate=True)`, deterministic too)."""
+    row takes most of the rows), and target with one negative; then the lazy
+    step's own shape, where the gradient goes to the [U, D] leaf of the
+    step's unique rows (`train/lazy.py`, U = `_unique_budget`: 11,264 at
+    T=20), both sequences of a T=20 step and target with a negative at their
+    positions among those rows (`lazy_*` cases; the plain version is
+    `index_add_` on a [U, D] table); two calls bit-equal (library:
+    `index_put_(accumulate=True)`, deterministic too)."""
     from amid_tpu_torch.ops.embedding import embedding_gather_grad, embedding_gather_grad_plain
+    from amid_tpu_torch.train.lazy import _unique_budget
 
     V, D = 2 * FLAGSHIP["item_length"], FLAGSHIP["emb_dim"]
     B = FLAGSHIP["batch_size"]
@@ -1190,28 +1223,40 @@ def gather_grad_kernel_phase(torch, gen):
         return torch.where(pad, 0, ids)
 
     cases = {}
-    for name, ids in (("pair150", torch.cat([padded(150), padded(150)], 1)),
-                      ("pair20", torch.cat([padded(20), padded(20)], 1)),
-                      ("cand2", torch.randint(0, V, (B, 2), device="cuda", generator=gen))):
+
+    def case(name, ids, v):
         flat = ids.reshape(-1).to(torch.int32)
         g = torch.randn(flat.numel(), D, device="cuda", generator=gen)
-        got, again = (embedding_gather_grad(flat, g, V) for _ in range(2))
-        exact = embedding_gather_grad_plain(flat, g.double(), V)
+        got, again = (embedding_gather_grad(flat, g, v) for _ in range(2))
+        exact = embedding_gather_grad_plain(flat, g.double(), v)
         err = (got - exact).abs().max().item()
-        plain_err = (embedding_gather_grad_plain(flat, g, V) - exact).abs().max().item()
+        plain_err = (embedding_gather_grad_plain(flat, g, v) - exact).abs().max().item()
         require(torch.equal(got, again), f"gather grad {name}: two calls differ")
         require(err <= plain_err + GRAD_SLACK,
                 f"gather grad {name}: {err} from fp64, the plain fp32 version {plain_err}")
         longest = int(torch.unique(flat, return_counts=True)[1].max())
-        rec = {"case": f"gather_grad_{name}", "V": V, "D": D, "rows": flat.numel(),
+        rec = {"case": f"gather_grad_{name}", "V": v, "D": D, "rows": flat.numel(),
                "longest_run": longest, "max_abs_err": err, "plain_max_abs_err": plain_err,
-               **timings(torch, lambda: embedding_gather_grad(flat, g, V), 20),
-               "plain_ms": cuda_ms(torch, lambda: embedding_gather_grad_plain(flat, g, V), 20),
-               **timings(torch, lambda: torch.zeros(V, D, device="cuda").index_put_(
+               **timings(torch, lambda: embedding_gather_grad(flat, g, v), 20),
+               "plain_ms": cuda_ms(torch, lambda: embedding_gather_grad_plain(flat, g, v), 20),
+               **timings(torch, lambda: torch.zeros(v, D, device="cuda").index_put_(
                    (flat.long(),), g, accumulate=True), 5, library=True)}
-        rec["bound_ms"], rec["bound_by"] = gather_grad_bound(flat.numel(), V, D)
+        rec["bound_ms"], rec["bound_by"] = gather_grad_bound(flat.numel(), v, D)
         emit({"kernel_case_gather_grad": rec})
         cases[name] = rec
+
+    for name, ids in (("pair150", torch.cat([padded(150), padded(150)], 1)),
+                      ("pair20", torch.cat([padded(20), padded(20)], 1)),
+                      ("cand2", torch.randint(0, V, (B, 2), device="cuda", generator=gen))):
+        case(name, ids, V)
+    # the lazy step: positions among the step's unique rows, a [U, D] leaf
+    u = _unique_budget(B, 20, 1)
+    seqs = torch.cat([padded(20), padded(20)], 1).reshape(-1)
+    cand = torch.randint(0, V, (2 * B,), device="cuda", generator=gen)
+    _, pos = torch.unique(torch.cat([cand, seqs]), return_inverse=True)
+    require(int(pos.max()) < u, f"gather grad lazy: {int(pos.max()) + 1} rows, budget {u}")
+    case("lazy_pair20", pos[cand.numel():], u)
+    case("lazy_cand2", pos[:cand.numel()], u)
     # a narrow table, ids out of range (clamped), a run across many blocks
     ids = torch.cat([torch.full((1000,), 3, device="cuda"),
                      torch.tensor([-4, 0, 9, 12], device="cuda")])
@@ -1910,10 +1955,11 @@ def step_timing(torch, cfg, tcfg, ds, label, timed_steps=TIMED_STEPS):
     return out
 
 
-def check_run(label, cfg, lazy_adam, counts, metrics, extra):
+def check_run(label, cfg, lazy_adam, counts, metrics, extra,
+              rows=(TRAIN_ROWS, DR_ROWS, VAL_ROWS)):
     """Launch counts and metrics of one whole run of the DR schedule (phase
-    A, evaluation, phase B, evaluation)."""
-    n_a, n_b, n_ev = (n // FLAGSHIP["batch_size"] for n in (TRAIN_ROWS, DR_ROWS, VAL_ROWS))
+    A, evaluation, phase B, evaluation) over `rows` (train, DR, val)."""
+    n_a, n_b, n_ev = (n // FLAGSHIP["batch_size"] for n in rows)
     want = expected_launches(cfg, train_steps=n_a + n_b, eval_batches=2 * n_ev,
                              lazy_adam=lazy_adam, c2dsr_steps=n_a if cfg.is_c2dsr else 0)
     require(counts == want, f"{label}: launches {counts}, want {want}")
@@ -2871,10 +2917,12 @@ class Bf16Readings:
             self.max_abs_err = max(self.max_abs_err, (got - want).abs().max().item())
         self.r["fp32_oracle"] = min(self.r["fp32_oracle"], ctl)
 
-    def verdict(self, name):
-        """Requires every reading within the case's limit and the fp32 build
-        outside the kernel_oracle one; the readings and limits, for the record."""
-        limits = dict(zip(("kernel_oracle", "kernel_plain", "plain_oracle"), BF16_LIMITS[name]))
+    def verdict(self, name, limits_of=None):
+        """Requires every reading within the limits of case `limits_of` (the
+        case `name` itself by default) and the fp32 build outside the
+        kernel_oracle one; the readings and limits, for the record."""
+        limits = dict(zip(("kernel_oracle", "kernel_plain", "plain_oracle"),
+                          BF16_LIMITS[limits_of or name]))
         out = {"readings": dict(self.r), "limits": limits, "max_abs_err": self.max_abs_err}
         emit({"bf16_readings": {"case": name, **out}})
         for key, limit in limits.items():
@@ -3075,14 +3123,18 @@ def bf16_kernel_phase(torch, gen):
     return cases
 
 
-def bf16_step_check(torch, cfg, tcfg, train_ds, dr_ds, label):
+def bf16_step_check(torch, cfg, tcfg, train_ds, dr_ds, label, fresh=False):
     """One phase-A and one phase-B step of a kernels='cuda' bf16 model
     against the kernels='torch' bf16 model from the same state, batch and
     key, as `step_checks` holds the fp32 steps, at the bf16 limits: the
     launches of the bf16 builds, every loss within BF16_LOSS_TOL, at most
     BF16_UPDATE_SHARE of the touched table rows' and of an encoder weight's
     updated elements more than UPDATE_ATOL apart, and the table's and that
-    weight's Adam moments within BF16_MOMENT_TOL of their largest value."""
+    weight's Adam moments within BF16_MOMENT_TOL of their largest value.
+    The phase-B step follows the phase-A step on each model's own state or,
+    with `fresh`, starts from the initial state again, so that it holds
+    that step's arithmetic alone and not the bf16 rounding the two phase-A
+    updates already differ by."""
     from amid_tpu_torch.data.loader import BatchIterator
     from amid_tpu_torch.train.loop import _device_pools, _to_device
 
@@ -3091,9 +3143,15 @@ def bf16_step_check(torch, cfg, tcfg, train_ds, dr_ds, label):
     ref, rstate, rstep_a, rstep_b, _ = make_steps(cfg, tcfg, "torch")
     ref.load_state_dict(model.state_dict())
     dense_name = DENSE_PARAM[cfg.backbone]
-    rec = {"config": label}
+    rec = {"config": label, "fresh_phase_b": fresh}
     for phase, slot, ds, fn, rfn, key in (("A", 1, train_ds, step_a, rstep_a, 1234),
                                           ("B", 2, dr_ds, step_b, rstep_b, 4321)):
+        if phase == "B" and fresh:
+            del model, state, ref, rstate
+            torch.cuda.empty_cache()
+            model, state, _, fn, _ = make_steps(cfg, tcfg, "cuda")
+            ref, rstate, _, rfn, _ = make_steps(cfg, tcfg, "torch")
+            ref.load_state_dict(model.state_dict())
         batch = _to_device(next(iter(BatchIterator(ds, cfg.batch_size, False))), "cuda")
         pools = _device_pools(ds, "cuda")
         before = model.item_embedding.detach().clone()
@@ -3780,6 +3838,458 @@ def mesh_phase(torch, rng):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 12: K1 at every head width up to 128
+# ---------------------------------------------------------------------------
+
+# head widths of the width phase and their heads: dh 12 is SASRec's 8 heads
+# at --emb_dim 96 (template 16), dh 24 and 48 BERT4Rec's 4 at 96 and 192
+# (templates 32 and 64), dh 128 BERT4Rec's 4 at 512 (configuration (a))
+WIDTH_HEADS = {12: 8, 24: 4, 48: 4, 128: 4}
+WIDTH_T = {"sweep": 150, "long": 300}  # the main paths' lengths: the encoder at L and at 2L
+# batch rows of a case: 256 at the two configurations' own shapes (dh=128 on
+# the long paths with key padding, (a); dh=12 on the one-head pair, causal,
+# (b)), 64 elsewhere (the phase's time)
+WIDTH_MAIN = {(128, "long", "keypad"), (12, "sweep", "causal")}
+WIDTH_B = {True: 256, False: 64}
+# the one-sweep backward at dh=128 holds T <= 80 (`sweep_fits`): its cases take 64
+WIDTH_BWD_SWEEP_T128 = 64
+# each bf16 case is held to BF16_LIMITS of the existing case of its path and
+# dropout (the one-head cases were measured at T=150 and T=20, the native
+# long ones at every head width of the card tests)
+WIDTH_BF16_LIMITS = {
+    ("fwd", "sweep", False): "bf16_causal_T150_h8_rate0.0",
+    ("fwd", "sweep", True): "bf16_causal_T150_h8_rate0.5",
+    ("fwd", "long", False): "bf16_long_native",
+    ("fwd", "long", True): "bf16_long_native",
+    ("bwd", "sweep", False): "bf16_bwd_causal_T20_h8_rate0.0",
+    ("bwd", "sweep", True): "bf16_bwd_causal_T150_h8_rate0.5",
+    ("bwd", "long", False): "bf16_bwd_long_native",
+    ("bwd", "long", True): "bf16_bwd_long_native",
+}
+WIDTH_FWD_SWEEP_T = (20, 40, 80, 150, 200)  # dh=128: the one-head forward holds T <= 216
+WIDTH_BWD_SWEEP_T = (20, 48, 64, 80)  # dh=128: the one-sweep backward holds T <= 80
+# configuration (b)'s CLI runs: 4 phase-A and 4 phase-B steps, 2 evaluation batches
+WIDTH_CLI_ROWS = (1024, 1024, 512)  # train, DR, val
+
+
+def width_kernel_phase(torch, gen):
+    """Phase 12(a): the six attention paths at each head width of
+    WIDTH_HEADS (D = dh * heads, B=256), causal and key padding (batch row
+    0 fully masked), rates 0 and 0.1, fp32 and bf16, at B=256 on the
+    configurations' shapes (WIDTH_MAIN) and B=64 elsewhere, against their
+    plain versions: the forwards at T=150 (one-head) and T=300 (long), out and the
+    row statistics; the backwards from the plain forward's residuals at
+    T=150 (one-sweep; T=64 at dh=128) and T=300 (long), two calls
+    bit-equal, and in fp32 at dh=128 both the kernel and the plain version
+    against the plain version in fp64. fp32: ATOL / RTOL, the statistics at
+    LONG_STATS_ATOL, the gradients at `bwd_atol`; bf16: one draw a case held
+    to WIDTH_BF16_LIMITS (`Bf16Readings`), the fp32 build at the same inputs
+    outside the kernel_oracle limit. Every case is timed: `kernel_ms`,
+    `device_ms`, `host_us` (one round of 10 calls), the plain version's ms,
+    SDPA's (on bf16 q, k, v in bf16; its backward as forward + backward
+    less the forward) and the bound (the TF32 peak in fp32, the bf16 peak
+    in bf16, `bound_tf32_ms` beside it)."""
+    import torch.nn.functional as F
+
+    from amid_tpu_torch.ops import attention as attention_ops
+    from amid_tpu_torch.ops.attention import (
+        attention_bwd_plain, attention_fwd_stats_plain, attention_fwd_stats_streamed_plain,
+        kernel_head_dim,
+    )
+
+    OB = ORACLE_ROWS
+    cases = {}
+
+    def causal(t):
+        return torch.triu(torch.full((t, t), -1e9, device="cuda"), diagonal=1)[None, None]
+
+    def library(rec, q, k, v, dout, bias, heads, rate, bf16):
+        """SDPA's times at the case's inputs: the forward, or (with dout)
+        the backward as forward + backward less the forward."""
+        b, t, d = q.shape
+        dt = torch.bfloat16 if bf16 else torch.float32
+        split = [x.view(b, t, heads, d // heads).transpose(1, 2).to(dt) for x in (q, k, v)]
+        mask = bias.to(dt)
+        if dout is None:
+            with torch.no_grad():
+                rec.update(timings(torch, lambda: F.scaled_dot_product_attention(
+                    *split, attn_mask=mask, dropout_p=rate), 10, library=True, rounds=1))
+            return
+        leaves = [x.detach().requires_grad_() for x in split]
+        g = dout.view(b, t, heads, d // heads).transpose(1, 2).to(dt)
+
+        def sdpa_fwd():
+            return F.scaled_dot_product_attention(*leaves, attn_mask=mask, dropout_p=rate)
+
+        both = timings(torch, lambda: torch.autograd.grad(sdpa_fwd(), leaves, g), 10,
+                       library=True, rounds=1)
+        with torch.no_grad():
+            fwd_only = timings(torch, sdpa_fwd, 10, library=True, rounds=1)
+        rec.update({key: both[key] - fwd_only[key] for key in both})
+
+    def fwd_case(dh, path, kind, rate, bf16):
+        heads = WIDTH_HEADS[dh]
+        d, t = dh * heads, WIDTH_T[path]
+        B = WIDTH_B[(dh, path, kind) in WIDTH_MAIN]
+        mode = "bf16" if bf16 else "fp32"
+        name = f"width_{mode}_fwd_{path}_{kind}_T{t}_dh{dh}_rate{rate}"
+        q, k, v = (torch.randn(B, t, d, device="cuda", generator=gen) for _ in range(3))
+        bias = causal(t) if kind == "causal" else keypad_bias(torch, gen, B, t)
+        seed = torch.tensor([4242], dtype=torch.int64, device="cuda")
+
+        def fwd(b16=bf16):
+            return attention_ops._launch_forward(q, k, v, bias, seed, heads, rate, False, path,
+                                                 bf16=b16)[0]
+
+        def plain():
+            if path == "long":
+                return attention_fwd_stats_streamed_plain(
+                    q, k, v, bias, seed, heads, rate,
+                    key_chunk(path, dh) if bf16 else 64, bf16)[0]
+            return attention_fwd_stats_plain(q, k, v, bias, seed, heads, rate, bf16)[0]
+
+        rec = {"case": name, "mode": mode, "path": path, "dh": dh,
+               "template_dh": kernel_head_dim(dh), "heads": heads, "shape": [B, t, d],
+               "bias": kind, "rate": rate}
+        with torch.no_grad():
+            got, want = fwd(), plain()
+            require(torch.equal(fwd(), got), f"{name}: two calls differ")
+            require(torch.isfinite(got).all().item(), f"{name}: non-finite output")
+            stats = attention_ops._launch_forward(q, k, v, bias, seed, heads, rate, True, path,
+                                                  bf16=bf16)
+            require(torch.equal(stats[0], got), f"{name}: out differs with statistics")
+            want_stats = attention_fwd_stats_plain(q[:OB], k[:OB], v[:OB], bias[:OB], seed,
+                                                   heads, rate, bf16)
+            errs = {}
+            for n, g, w in zip(("row_max", "row_inv_sum"), stats[1:], want_stats[1:]):
+                errs[n] = (g[:OB] - w).abs().max().item()
+                require(torch.allclose(g[:OB], w, atol=LONG_STATS_ATOL[n], rtol=STATS_RTOL),
+                        f"{name}: kernel vs plain {n} max_abs_err {errs[n]}")
+            rec["stats_max_abs_err"] = errs
+            del stats, want_stats
+            if bf16:
+                readings = Bf16Readings()
+                rows = (q[:OB], k[:OB], v[:OB], bias[:OB], seed, heads, rate)
+                readings.draw([(got, fwd(False), want,
+                                bf16_attention_kernel_oracle(torch, *rows, key_chunk(path, dh)),
+                                bf16_attention_oracle(torch, *rows))])
+                rec.update(readings.verdict(name, WIDTH_BF16_LIMITS[("fwd", path, rate > 0)]))
+            else:
+                rec["max_abs_err"] = (got - want).abs().max().item()
+                require(torch.allclose(got, want, atol=ATOL, rtol=RTOL),
+                        f"{name}: kernel vs plain max_abs_err {rec['max_abs_err']}")
+            del got, want
+            rec.update(timings(torch, fwd, 10, rounds=1))
+            rec["plain_ms"] = cuda_ms(torch, plain, 3, 1)
+        library(rec, q, k, v, None, bias, heads, rate, bf16)
+        peak = BF16_TENSOR_FLOPS if bf16 else TF32_TENSOR_FLOPS
+        rec["bound_ms"], rec["bound_by"] = attention_bound(B, t, d, heads, bias.numel(), peak)
+        if bf16:
+            rec["bound_tf32_ms"] = attention_bound(B, t, d, heads, bias.numel())[0]
+        emit({"kernel_case_width": rec})
+        cases[name] = rec
+
+    def bwd_case(dh, path, kind, rate, bf16):
+        heads = WIDTH_HEADS[dh]
+        d = dh * heads
+        t = WIDTH_BWD_SWEEP_T128 if path == "sweep" and dh == 128 else WIDTH_T[path]
+        B = WIDTH_B[(dh, path, kind) in WIDTH_MAIN]
+        mode = "bf16" if bf16 else "fp32"
+        name = f"width_{mode}_bwd_{path}_{kind}_T{t}_dh{dh}_rate{rate}"
+        q, k, v, dout = (torch.randn(B, t, d, device="cuda", generator=gen) for _ in range(4))
+        bias = causal(t) if kind == "causal" else keypad_bias(torch, gen, B, t)
+        seed = torch.tensor([2424], dtype=torch.int64, device="cuda")
+        rec = {"case": name, "mode": mode, "path": path, "dh": dh,
+               "template_dh": kernel_head_dim(dh), "heads": heads, "shape": [B, t, d],
+               "bias": kind, "rate": rate}
+        with torch.no_grad():
+            res = attention_fwd_stats_plain(q, k, v, bias, seed, heads, rate, bf16)
+
+            def bwd(b16=bf16):
+                return attention_ops._launch_backward(q, k, v, bias, *res, dout, seed, heads,
+                                                      rate, path, bf16=b16)
+
+            def plain():
+                return attention_bwd_plain(q, k, v, bias, *res, dout, seed, heads, rate, bf16)
+
+            got, want = bwd(), plain()
+            require(all(torch.equal(a, b) for a, b in zip(bwd(), got)),
+                    f"{name}: two backward calls differ")
+            require(all(torch.isfinite(g).all().item() for g in got),
+                    f"{name}: non-finite gradient")
+            names = ("dq", "dk", "dv")
+            if bf16:
+                readings = Bf16Readings()
+                oracle = bf16_attention_bwd_oracle(torch, q[:OB], k[:OB], v[:OB], bias[:OB],
+                                                   res[0][:OB], dout[:OB], seed, heads, rate)
+                readings.draw(list(zip(got, bwd(False), want, oracle, oracle)))
+                rec.update(readings.verdict(name, WIDTH_BF16_LIMITS[("bwd", path, rate > 0)]))
+                del oracle
+            else:
+                atol = bwd_atol(t, dh)
+                rec["errs"] = {n: (g - w).abs().max().item() for n, g, w in zip(names, got, want)}
+                rec["max_abs_err"] = max(rec["errs"].values())
+                rec["bwd_atol"] = atol
+                rec["atol_needed"] = max(((g - w).abs() - RTOL * w.abs()).max().item()
+                                         for g, w in zip(got, want))
+                if dh == 128:  # the kernel and the plain version against fp64
+                    wide = [x[:OB].double() for x in (q, k, v, bias)]
+                    exact = attention_bwd_plain(
+                        *wide, *attention_fwd_stats_plain(*wide, seed, heads, rate),
+                        dout[:OB].double(), seed, heads, rate)
+                    live = ~(bias[:OB] <= -1e8).reshape(bias[:OB].shape[0], -1).all(dim=1)
+                    live = live.expand(OB) if live.numel() == 1 else live
+                    for which, grads in (("plain", want), ("kernel", got)):
+                        rec[f"{which}_vs_fp64"] = {
+                            n: (g[:OB][live].double() - w[live]).abs().max().item()
+                            for n, g, w in zip(names, grads, exact)}
+                    del exact, wide
+                for n, g, w in zip(names, got, want):
+                    require(torch.allclose(g, w, atol=atol, rtol=RTOL),
+                            f"{name}: kernel vs plain {n} max_abs_err {rec['errs'][n]} "
+                            f"(atol {atol})")
+            del got, want
+            rec.update(timings(torch, bwd, 10, rounds=1))
+            rec["plain_ms"] = cuda_ms(torch, plain, 3, 1)
+        library(rec, q, k, v, dout, bias, heads, rate, bf16)
+        peak = BF16_TENSOR_FLOPS if bf16 else TF32_TENSOR_FLOPS
+        rec["bound_ms"], rec["bound_by"] = attention_bwd_bound(B, t, d, heads, bias.numel(),
+                                                               peak)
+        if bf16:
+            rec["bound_tf32_ms"] = attention_bwd_bound(B, t, d, heads, bias.numel())[0]
+        emit({"kernel_case_width": rec})
+        cases[name] = rec
+
+    for dh in WIDTH_HEADS:
+        for kind in ("causal", "keypad"):
+            for rate in (0.0, 0.1):
+                for bf16 in (False, True):
+                    for path in ("sweep", "long"):
+                        fwd_case(dh, path, kind, rate, bf16)
+                        bwd_case(dh, path, kind, rate, bf16)
+                    torch.cuda.empty_cache()
+    return cases
+
+
+def width_crossover_sweeps(torch, gen):
+    """Phase 12(b): both forward paths' `device_ms` at dh=128 (B=256, D=512,
+    rate 0) at the T of WIDTH_FWD_SWEEP_T, where the one-head kernel holds
+    the shape, and both backward paths' at WIDTH_BWD_SWEEP_T, where the
+    one-sweep kernel does, key padding and causal, fp32 and bf16; the two
+    paths' outputs agree (`fwd_crossover` / `bwd_crossover` records with
+    "dh": 128, and their `_bf16` twins: the numbers behind the dh=128
+    entries of `ops/attention.py`'s LONG_FWD_FASTER_FROM and
+    LONG_FASTER_FROM). Beyond those T the kernels' shared memory alone
+    sends a shape to the long paths."""
+    from amid_tpu_torch.ops import attention as attention_ops
+    from amid_tpu_torch.ops.attention import (
+        attention_fwd_stats_plain, backward_route, forward_route, forward_max_t, sweep_fits,
+    )
+
+    B, D, heads, dh = 256, 512, 4, 128
+    require(max(WIDTH_FWD_SWEEP_T) <= forward_max_t(dh) < 300,
+            f"the one-head forward at dh=128 holds T<={forward_max_t(dh)}")
+    require(sweep_fits(max(WIDTH_BWD_SWEEP_T), dh) and not sweep_fits(96, dh),
+            "the one-sweep backward at dh=128 holds T<=80")
+
+    def causal(t):
+        return torch.triu(torch.full((t, t), -1e9, device="cuda"), diagonal=1)[None, None]
+
+    for bf16 in (False, True):
+        mode = "bf16" if bf16 else "fp32"
+        tag = "_bf16" if bf16 else ""
+        for kind in ("keypad", "causal"):
+            for t in WIDTH_FWD_SWEEP_T:
+                q, k, v = (torch.randn(B, t, D, device="cuda", generator=gen) for _ in range(3))
+                bias = keypad_bias(torch, gen, B, t) if kind == "keypad" else causal(t)
+                outs, ms = {}, {}
+                for p in ("sweep", "long"):
+                    def fwd(p=p):
+                        return attention_ops._launch_forward(q, k, v, bias, 0, heads, 0.0, False,
+                                                             p, bf16=bf16)[0]
+                    with torch.no_grad():
+                        outs[p] = fwd()
+                    ms[p] = graph_ms(torch, fwd)
+                diff = (outs["long"] - outs["sweep"]).abs().max().item()
+                # in bf16 the paths round exp(S - m) at chunks of 32 and stages
+                # of 64 keys: each is within its kernel_plain limit of the plain
+                # version, so the two within the sum of the limits
+                apart = rel_norm(outs["long"], outs["sweep"])
+                require(apart <= BF16_LIMITS["bf16_long_native"][1] + BF16_LIMITS[
+                    "bf16_causal_T150_h8_rate0.0"][1] if bf16 else
+                        torch.allclose(outs["long"], outs["sweep"], atol=ATOL, rtol=RTOL),
+                        f"fwd_crossover{tag} T={t} dh=128 {kind}: the paths differ by {diff} "
+                        f"(relative norm {apart})")
+                emit({f"fwd_crossover{tag}": {
+                    "T": t, "dh": dh, "bias": kind, "route": forward_route(t, dh, mode),
+                    "measured_faster": min(ms, key=ms.get),
+                    **{f"{p}_device_ms": x for p, x in ms.items()}, "max_abs_diff": diff}})
+            for t in WIDTH_BWD_SWEEP_T:
+                q, k, v, dout = (torch.randn(B, t, D, device="cuda", generator=gen)
+                                 for _ in range(4))
+                bias = keypad_bias(torch, gen, B, t) if kind == "keypad" else causal(t)
+                res = attention_fwd_stats_plain(q, k, v, bias, 0, heads, 0.0, bf16)
+                outs, ms = {}, {}
+                for p in ("sweep", "long"):
+                    def bwd(p=p):
+                        return attention_ops._launch_backward(q, k, v, bias, *res, dout, 0,
+                                                              heads, 0.0, p, bf16=bf16)
+                    outs[p] = bwd()
+                    ms[p] = graph_ms(torch, bwd)
+                pairs = list(zip(outs["long"], outs["sweep"]))
+                diff = max((a - b).abs().max().item() for a, b in pairs)
+                apart = max(rel_norm(a, b) for a, b in pairs)
+                require(apart <= BF16_LIMITS["bf16_bwd_long_native"][1] + BF16_LIMITS[
+                    "bf16_bwd_causal_T20_h8_rate0.0"][1] if bf16 else
+                        all(torch.allclose(a, b, atol=bwd_atol(t, dh), rtol=RTOL)
+                            for a, b in pairs),
+                        f"bwd_crossover{tag} T={t} dh=128 {kind}: the paths differ by {diff} "
+                        f"(relative norm {apart})")
+                emit({f"bwd_crossover{tag}": {
+                    "T": t, "dh": dh, "bias": kind, "route": backward_route(t, dh, mode),
+                    "measured_faster": min(ms, key=ms.get),
+                    **{f"{p}_device_ms": x for p, x in ms.items()}, "max_abs_diff": diff}})
+            torch.cuda.empty_cache()
+
+
+def width_config_phase(torch, rng):
+    """Phase 12(c): the widths' configurations through the entry points a
+    user calls, with kernels='auto' (cuda on the card) and no refusal.
+    (a) BERT4Rec at `--emb_dim 512` (4 heads of 128, FFN 512) and
+    `--seq_len 150` with InterComp (encoder T=300: both long paths at
+    dh=128), dense Adam, fp32 and `--bf16`: serving (the feature pass
+    against kernels='torch', top-100 over the 894,820-row table, fp32),
+    `run_seed` for one epoch on the fast loops with its launches, one eager
+    phase-A and phase-B step and one evaluation batch against the
+    kernels='torch' model (`step_checks`, `bf16_step_check`), replayed
+    steps of phase A, phase B and the evaluation pass against eager ones,
+    the training steps bit-equal, and the replayed phase A's wall and device
+    ms. (b) the run.sh SASRec at `--emb_dim 96` (8 heads of 12: the
+    one-head kernels at template width 16), T=20 with the lazy table Adam
+    and T=150 dense, quirk and pairwise: `train_sr_dr.main` on CSV files
+    for a few steps (WIDTH_CLI_ROWS) with `--kernels auto`, its launches,
+    then the step-level checks against kernels='torch', replayed steps
+    bit-equal to eager ones, serving (the feature pass against
+    kernels='torch') and the replayed phase A's wall and device ms. Returns
+    the records of the runs (with their launches) and of the checks."""
+    import shutil
+    import tempfile
+
+    from amid_tpu_torch import train_sr_dr
+    from amid_tpu_torch.config import DataConfig, ModelConfig, TrainConfig
+    from amid_tpu_torch.data.packed import load_dual_domain_csv
+    from amid_tpu_torch.data.synthetic import synth_packed, write_synthetic_csvs
+    from amid_tpu_torch.models.amid import head_width
+    from amid_tpu_torch.train.loop import run_seed
+
+    out = {}
+    # (a) BERT4Rec at --emb_dim 512
+    for bf16 in (False, True):
+        label = "bert4rec_D512_T150_dense" + ("_bf16" if bf16 else "")
+        cfg = ModelConfig(**{**FLAGSHIP, **BACKBONES["bert4rec"], "emb_dim": 512,
+                             "seq_len": 150, "use_bf16": bf16})
+        require(head_width(cfg) == 128 and cfg.enc_seq_len == 300,
+                f"{label}: dh={head_width(cfg)}, encoder T={cfg.enc_seq_len}")
+        rec = {}
+        if not bf16:
+            rec["serve"] = serve_check(torch, cfg, backbone_batch(cfg, rng), label, topk=True)
+        train_ds, val_ds, dr_ds = (synth_packed(cfg, rng, n)
+                                   for n in (TRAIN_ROWS, VAL_ROWS, DR_ROWS))
+        work = tempfile.mkdtemp(prefix="chip_smoke_")
+        tcfg = TrainConfig(epochs=1, seeds=1, model_dir=work, lazy_table_adam=False,
+                           nan_policy="halt", checkpoint=False, model=cfg,
+                           data=DataConfig(neg_nums=999))
+        try:
+            reset_counts()
+            t0 = time.perf_counter()
+            best = run_seed(tcfg, 0, train_ds, val_ds, dr_ds)  # on cuda, kernels='auto'
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            rec["launches"] = read_counts()
+            check_run(f"{label} run_seed fast", cfg, False, rec["launches"], best,
+                      {"loop": "fast", "seconds": seconds,
+                       "examples_per_s": best["examples_per_s"]})
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        torch.cuda.empty_cache()
+        if bf16:  # phase B from the initial state: see bf16_step_check
+            rec["train_steps"] = bf16_step_check(torch, cfg, tcfg, train_ds, dr_ds, label,
+                                                 fresh=True)
+        else:
+            rec["train_steps"] = step_checks(torch, cfg, tcfg, train_ds, val_ds, dr_ds, label)
+        torch.cuda.empty_cache()
+        rec["graph_steps"] = graph_checks(torch, cfg, tcfg, train_ds, val_ds, dr_ds, label,
+                                          exact=True)
+        torch.cuda.empty_cache()
+        rec["replayed_phase_a"] = replayed_phase_a(torch, cfg, tcfg, train_ds)
+        emit({"width_config": {"config": label, **{
+            k: rec["replayed_phase_a"][k] for k in ("wall_ms_per_step", "device_ms_per_step",
+                                                    "device_idle_share",
+                                                    "max_memory_allocated_bytes")},
+            **({"feature_ms": rec["serve"]["feature_ms"],
+                "catalog_ms_per_domain": rec["serve"]["catalog_ms_per_domain"]}
+               if "serve" in rec else {})}})
+        out[label] = rec
+        del train_ds, val_ds, dr_ds
+        torch.cuda.empty_cache()
+
+    # (b) the run.sh SASRec at --emb_dim 96, through the CLI
+    for pairwise in (False, True):
+        for t, lazy_adam in ((20, True), (150, False)):
+            label = (f"sasrec_D96_T{t}_{'lazy' if lazy_adam else 'dense'}"
+                     + ("_pairwise" if pairwise else ""))
+            cfg = ModelConfig(**{**FLAGSHIP, "emb_dim": 96, "seq_len": t,
+                                 "comp_broadcast_quirk": not pairwise})
+            require(head_width(cfg) == 12, f"{label}: dh={head_width(cfg)}")
+            work = tempfile.mkdtemp(prefix="chip_smoke_")
+            data = DataConfig(dataset_type="synthetic", domain_type="d1_d2",
+                              data_root=f"{work}/data", overlap_ratio=0.25, neg_nums=999)
+            tcfg = TrainConfig(epochs=1, seeds=1, model_dir=f"{work}/model",
+                               lazy_table_adam=lazy_adam, nan_policy="halt", checkpoint=False,
+                               model=cfg, data=data)
+            rec = {}
+            try:
+                n_train, n_dr, n_val = WIDTH_CLI_ROWS
+                write_synthetic_csvs(data, cfg, rng, n_train, n_val, n_dr)
+                argv = ["--kernels", "auto", "--model", "sasrec", "--emb_dim", "96",
+                        "--comp_broadcast_quirk", str(not pairwise), "--isItC", "True",
+                        "--ts2", "0.4", "--seq_len", str(t), "--neg_nums", "999",
+                        "--overlap_ratio", "0.25", "-ds", data.dataset_type,
+                        "-dm", data.domain_type, "--data_root", data.data_root,
+                        "--epoch", "1", "--seeds", "1", "--lazy_table_adam", str(lazy_adam),
+                        "-md", f"{work}/model_cli"]
+                reset_counts()
+                t0 = time.perf_counter()
+                agg = train_sr_dr.main(argv)  # default device: cuda
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+                rec["launches"] = read_counts()
+                check_run(f"{label} CLI", cfg, lazy_adam, rec["launches"],
+                          {k: v["mean"] for k, v in agg.items()},
+                          {"loop": "fast", "seconds": seconds}, WIDTH_CLI_ROWS)
+                train_ds, val_ds, dr_ds = (
+                    load_dual_domain_csv(path, t, cfg.pad_id, with_ob_label=ob)
+                    for path, ob in ((data.train_csv(), False), (data.test_csv(), False),
+                                     (data.train_dr_csv(), True)))
+            finally:
+                shutil.rmtree(work, ignore_errors=True)
+            rec["train_steps"] = step_checks(torch, cfg, tcfg, train_ds, val_ds, dr_ds, label)
+            torch.cuda.empty_cache()
+            rec["graph_steps"] = graph_checks(torch, cfg, tcfg, train_ds, val_ds, dr_ds, label,
+                                              exact=True)
+            torch.cuda.empty_cache()
+            rec["serve"] = serve_check(torch, cfg, make_batch(cfg, rng), label)
+            rec["replayed_phase_a"] = replayed_phase_a(torch, cfg, tcfg, train_ds)
+            emit({"width_config": {"config": label, "feature_ms": rec["serve"]["feature_ms"], **{
+                k: rec["replayed_phase_a"][k] for k in ("wall_ms_per_step", "device_ms_per_step",
+                                                        "device_idle_share",
+                                                        "max_memory_allocated_bytes")}}})
+            out[label] = rec
+            torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -3842,18 +4352,24 @@ def main() -> int:
     precision_runs = phase(precision_phase, np.random.default_rng(6))
     phase(bf16_drift_check, np.random.default_rng(7))
     mesh_runs = phase(mesh_phase, np.random.default_rng(8))
+    widths = phase(width_kernel_phase, gen)
+    phase(width_crossover_sweeps, gen)
+    width_runs = phase(width_config_phase, np.random.default_rng(9))
 
     # launches on the main paths: the serving passes, the run_seed runs and
     # the CLI runs (each on the fast loops and per step), the backbones'
     # serving passes and run_seed runs, phase 8's C2DSR run_seed runs, phase
     # 9's run_seed runs (resume, roll-back, trace), phase 11's run_seed runs
-    # off and on the mesh, each driven with the counts at 0 just before it and
-    # read just after
+    # off and on the mesh, phase 12's serving pass, run_seed runs and CLI runs
+    # at dh=128 and dh=12, each driven with the counts at 0 just before it
+    # and read just after
     main_runs = [*training.values(), *serving.values(),
                  *(r for r in backbones.values() if "launches" in r), *c2dsr_runs.values(),
                  *checkpoint_runs.values(),
                  *(r for r in precision_runs.values() if "launches" in r),
-                 *(r for r in mesh_runs.values() if "launches" in r)]
+                 *(r for r in mesh_runs.values() if "launches" in r),
+                 *width_runs.values(),
+                 *(r["serve"] for r in width_runs.values() if "serve" in r)]
     launches = {name: sum(r["launches"][name] for r in main_runs) for name in KERNELS}
     # run_seed scatters fused; the single-array kernel's path is the lazy step
     # built with fused_scatter=False, driven once in step_checks
@@ -3899,6 +4415,17 @@ def main() -> int:
                                    and c.get("path", "sweep") == ("long" if "long" in kind
                                                                   else "sweep")
                                    and ("bwd" in c["case"]) == ("bwd" in kind)])
+    # phase 12's cases at the other head widths join their path's row
+    for name, (c, every) in rows.items():
+        kind = name.rsplit("_bf16", 1)[0]
+        if not kind.startswith("attention"):
+            continue
+        direction = "bwd" if "bwd" in kind else "fwd"
+        path = "long" if "long" in kind else "sweep"
+        mode = "bf16" if name.endswith("_bf16") else "fp32"
+        extra = [w for w in widths.values() if w["case"].startswith(
+            f"width_{mode}_{direction}_{path}_")]
+        rows[name] = (c, [*every, *extra])
     emit({"kernels": [{
         "name": name, "route": "cuda", "source": KERNELS[name][0],
         "replaces": KERNELS[name][1], "launches": launches[name],

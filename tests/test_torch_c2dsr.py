@@ -424,12 +424,13 @@ def test_only_bert4rec_with_both_comps_and_c2dsr_is_refused_at_l150(kernel_limit
 
 
 def test_check_attention_fits_refuses_what_no_kernel_takes(kernel_limits):
-    """A head width the kernels do not have, or a T beyond the long paths'
+    """A head width above the kernels' 128, or a T beyond the long paths'
     limit, is refused before any launch, naming the backbone, the length,
-    the head width and the limits."""
+    the head width, the limits and the way out."""
+    check_attention_fits(ModelConfig(**{**BERT_FULL, "bert_heads": 1}))  # dh=128 runs
     with pytest.raises(ValueError) as err:
-        check_attention_fits(ModelConfig(**{**BERT_FULL, "bert_heads": 1}))
-    for part in ("bert4rec", "T=300", "dh=128", "(8, 16, 32, 64)"):
+        check_attention_fits(ModelConfig(**{**BERT_FULL, "emb_dim": 544}))
+    for part in ("bert4rec", "T=300", "dh=136", "widths 1 to 128", "--kernels torch"):
         assert part in str(err.value), part
     with pytest.raises(ValueError, match=r"T=8388608 at head width dh=32.*T<=8388480"):
         check_attention_fits(ModelConfig(**{**BERT_FULL, "is_itc": False,
