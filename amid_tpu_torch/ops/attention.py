@@ -433,7 +433,10 @@ _PACK_BWD = struct.Struct("<32q2d").pack
 # BwdLongArgs: BwdArgs, then the D_i scratch (fp32) or the packed operands' (bf16)
 _PACK_BWD_LONG = struct.Struct("<32q2dq").pack
 _PACK_PTR = struct.Struct("<q").pack  # the bf16 long forward's scratch, after FwdArgs
+# the fp32 long forward's scratch and its bytes, after FwdArgs
+_PACK_SCRATCH = struct.Struct("<2q").pack
 _BAD_HEAD_WIDTH, _BAD_SHAPE, _TOO_LONG, _MISALIGNED = -1, -2, -3, -4  # the refusals
+_SMALL_SCRATCH = -5  # the fp32 long forward's scratch below its bytes
 _SOURCES = ["attention_fwd", "attention_fwd_long", "attention_bwd", "attention_bwd_long"]
 _PADDED = ["attention_fwd_long", "attention_bwd_long"]  # fp32 builds of their own for padded dh
 # and their bf16 builds, and the padded-width builds
@@ -442,6 +445,8 @@ _LIBRARIES = _SOURCES + [f"{n}_bf16" for n in _SOURCES] + [f"{n}_pad" for n in _
 _fwd = _fwd_long = _bwd = _bwd_long = None  # bound entry points, resolved at the first launch
 _bf16_entry: dict = {}  # entry point name -> the bf16 build's, bound with the others
 _pad_entry: dict = {}  # entry point name -> the padded-width build's (fp32 long paths)
+# the fp32 long forward's scratch bytes, of each build: True the padded-width one's
+_fwd_long_scratch: dict = {}
 _fwd_smem = _bwd_smem = None  # their shared-memory functions, (T, dh) -> bytes
 _long_max_t = _fwd_long_max_t = None  # the longest T of the long backward and forward
 _fwd_max_t = None  # dh -> the longest T of the one-head forward kernel
@@ -469,6 +474,9 @@ def _bind() -> None:
     for name in _PADDED:
         _pad_entry[name] = _build.bind(getattr(_build.load(f"{name}_pad"), name),
                                        [ctypes.c_char_p])
+    for padded, lib in ((False, fwd_long), (True, _build.load("attention_fwd_long_pad"))):
+        _fwd_long_scratch[padded] = _build.bind(lib.attention_fwd_long_scratch,
+                                                [ctypes.c_char_p], ctypes.c_longlong)
 
 
 def _largest_t(smem_bytes, dh: int) -> int:
@@ -499,6 +507,8 @@ def _raise(err: int, name: str, smem_bytes, t: int, d: int, heads: int):
         raise ValueError(f"{name}: B, T and heads must be at least 1")
     if err == _MISALIGNED:
         raise ValueError(f"{name}: q, k, v and dout rows must start on 16 bytes")
+    if err == _SMALL_SCRATCH:
+        raise RuntimeError(f"{name}: the scratch is smaller than the kernel's layout")
     raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
 
 
@@ -536,10 +546,14 @@ MODES = ("fp32", "bf16")  # the kernels' modes: fp32 (3xTF32), bf16 operands (`m
 # 300, 368, 512, 600 and 800, at B=256, D=128, key padding and causal, rate
 # 0; `fwd_crossover` and `fwd_crossover_bf16` records; NVIDIA H100 80GB
 # HBM3, 700.00 W). A head width between template widths routes as its
-# template width (`kernel_head_dim`): the kernels run it at that width. fp32,
-# dh=32: the one-head kernel faster at 150, the long
-# forward from 300 (0.384 against 0.521 ms, key padding); dh=16: key padding
-# crosses at 368, the causal bias at 512. bf16 (the native long forward
+# template width (`kernel_head_dim`): the kernels run it at that width. fp32
+# (the long forward with its split pre-pass; two sweeps): dh=32, the
+# one-head kernel faster at 150 (key padding 0.160 against 0.163 and 0.165
+# ms, causal 0.176 against 0.211), the long forward from 300 (0.332 and 0.327
+# against 0.510, key padding; causal 0.401 against 0.581); dh=16, the long
+# forward from 300 in both biases (key padding 0.400 and 0.407 against
+# 0.563, causal 0.417 and 0.415 against 0.642), the one-head kernel at 150
+# (0.169 against 0.193). bf16 (the native long forward
 # against the one-head kernel's bf16 build), taken where the long forward
 # was at least 10% faster in each of two sweeps: from 150 at dh=32 (key
 # padding 0.079 against 0.130 ms, causal 0.102 against 0.141); from 300 at
@@ -551,7 +565,7 @@ MODES = ("fp32", "bf16")  # the kernels' modes: fp32 (3xTF32), bf16 operands (`m
 # 0.100 against 0.161), the one-head kernel at 20 (0.067 against 0.133).
 # Below it, and at the head widths not swept (8, 64), shapes stay on the
 # one-head kernel as long as it holds them (`forward_max_t`).
-LONG_FWD_FASTER_FROM = {"fp32": {16: 512, 32: 300, 128: 40},
+LONG_FWD_FASTER_FROM = {"fp32": {16: 300, 32: 300, 128: 40},
                         "bf16": {16: 300, 32: 150, 128: 40}}
 
 
@@ -718,7 +732,10 @@ def _launch_forward_long(q, k, v, bias, seed, heads: int, rate: float, stats: bo
     """`_launch_forward` on the long-sequence path: its copies read 16-byte
     chunks of q, k and v rows, so a view whose rows do not start on 16 bytes
     is copied first (at a head width that is a multiple of 4; others are
-    read 4 bytes at a time)."""
+    read 4 bytes at a time). Both modes pack their operands into a scratch
+    from the caching allocator first (so a CUDA graph's capture keeps it):
+    the fp32 kernel K and V split into TF32 halves and the bias, as many
+    bytes as its `attention_fwd_long_scratch` asks."""
     if _fwd_long is None:
         _bind()
     bsz, t, d = q.shape
@@ -728,13 +745,18 @@ def _launch_forward_long(q, k, v, bias, seed, heads: int, rate: float, stats: bo
     if bf16:  # the native bf16 path: the packed operands' scratch after the block
         scratch = _long_bf16_scratch(q, bias, heads, 3, 0)
         err = _bf16_entry["attention_fwd_long"](block + _PACK_PTR(scratch.data_ptr()))
-    elif kernel_head_dim(d // heads) != d // heads:  # a padded width: its own build
-        err = _pad_entry["attention_fwd_long"](block)
-    else:
-        err = _fwd_long(block)
+    else:  # a padded width: its own build
+        padded = kernel_head_dim(d // heads) != d // heads
+        nbytes = _fwd_long_scratch[padded](block)
+        if nbytes < 0:
+            err = nbytes
+        else:
+            scratch = torch.empty(nbytes, dtype=torch.uint8, device=q.device)
+            entry = _pad_entry["attention_fwd_long"] if padded else _fwd_long
+            err = entry(block + _PACK_SCRATCH(scratch.data_ptr(), nbytes))
     if err == _TOO_LONG:
         raise ValueError(f"attention_fwd_long: T={t} is beyond its limit of "
-                         f"T={_fwd_long_max_t} (or B*heads beyond 2^31 - 1)")
+                         f"T={_fwd_long_max_t} (or B*heads*ceil(T / 128) beyond 2^31 - 1)")
     if err:
         _raise(err, "attention_fwd_long", _fwd_smem, t, d, heads)
     if bf16:

@@ -27,16 +27,19 @@ sentinel V, which no batch holds).
 The forward is the kernel of `csrc/gather_rows.cu`. The backward is the
 gather's transpose, a scatter-add into a zero `[V, D]` table (duplicated ids
 add up, across lookups too), which the TPU package leaves to XLA: here
-`embedding_gather_grad`, the second kernel of that file. It sorts the ids
-and sums each row's gradients in an order the ids alone fix, so two calls
-give bit-equal tables, and a replayed training step equals the eager one.
+`embedding_gather_grad`, the second entry point of that file (one launch up
+to 1,024 gradient rows, two beyond; no sort, no memset). It sums each row's
+gradients in an order the ids alone fix (`embedding_gather_grad_ordered`
+computes the same sums in plain PyTorch, bit for bit), so two calls give
+bit-equal tables, and a replayed training step equals the eager one.
 `index_add_`'s atomics add in no fixed order; Adam's normalised first
 update turns the last-bit differences of a gradient that is zero but for
 rounding (an attention key bias) into updates of full size, and the two
-steps then part by far more than rounding. The
-`autograd.Function` is entered only when a gradient is
-wanted (grad mode on and a table that requires it); otherwise the wrapper
-launches directly.
+steps then part by far more than rounding. The `autograd.Function` is
+entered only when a gradient is wanted (grad mode on and a table that
+requires it); otherwise the wrapper launches directly. Its backward hands
+the kernel each lookup's ids and output gradient as they are: no
+concatenation.
 
 On CUDA tensors the wrappers launch the kernel (counting each launch in
 `embedding_gather.launches`, whichever wrapper made it) or raise; on CPU
@@ -76,6 +79,40 @@ def embedding_gather_grad_plain(ids: torch.Tensor, grad: torch.Tensor,
     grad [N, D]."""
     dtable = torch.zeros((rows, grad.shape[1]), dtype=grad.dtype, device=grad.device)
     return dtable.index_add_(0, ids.clamp(0, rows - 1), grad)
+
+
+GRAD_TILE = 128  # positions a tile: the first level of the kernel's order (csrc/gather_rows.cu)
+
+
+def _fold_runs(x: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
+    """Each run of `counts` consecutive rows of x summed from 0 in row order,
+    one add after another: [len(counts), D]."""
+    starts = torch.cumsum(counts, 0) - counts
+    acc = x.new_zeros((counts.numel(), x.shape[1]))
+    for k in range(int(counts.max()) if counts.numel() else 0):
+        live = counts > k
+        acc[live] = acc[live] + x[starts[live] + k]
+    return acc
+
+
+def embedding_gather_grad_ordered(ids: torch.Tensor, grad: torch.Tensor, rows: int,
+                                  tile: int = GRAD_TILE) -> torch.Tensor:
+    """`embedding_gather_grad_plain`'s table, summed in the kernel's order:
+    positions are cut into tiles of `tile`; a row's gradients in one tile
+    are added in position order from 0, then the row's tile sums in tile
+    order from 0. The CUDA kernel gives these bits exactly; for the tests
+    (and `chip_smoke.py`), not for the model. ids [N], grad [N, D]."""
+    keys = ids.reshape(-1).clamp(0, rows - 1).long()
+    n, width = grad.shape
+    n_tiles = max(1, -(-n // tile))
+    group = keys * n_tiles + torch.arange(n, device=keys.device) // tile
+    order = torch.sort(group, stable=True).indices
+    groups, per_group = torch.unique_consecutive(group[order], return_counts=True)
+    partial = _fold_runs(grad[order], per_group)  # a row's sum in one tile
+    keys_of, per_key = torch.unique_consecutive(groups // n_tiles, return_counts=True)
+    table = grad.new_zeros((rows, width))
+    table[keys_of] = _fold_runs(partial, per_key)
+    return table
 
 
 def _side_by_side(ids_list) -> torch.Tensor:
@@ -137,22 +174,27 @@ _REFUSALS = {  # the C entry point's codes (csrc/gather_rows.cu)
     -3: (ValueError, "embedding_gather_many: 1 to 4 id arrays, each a whole number of "
                      "ids per user"),
     -4: (ValueError, "embedding_gather: more than 2**31 - 1 rows in one launch"),
+    -5: (RuntimeError, "embedding_gather_grad: the scratch is smaller than the kernel's plan"),
 }
 
-_gather_rows = _gather_rows_grad = None  # the bound C entry points, at the first launch
-_grad_chunk = None  # sorted rows a block of the backward's first pass sums
+_gather_rows = _gather_rows_grad = _grad_scratch = None  # the bound C entry points
 # each takes one array of 64-bit integers (csrc/gather_rows.cu has the layouts);
 # packing it is one call, where ctypes converts argument by argument
 _PACK = [None] + [struct.Struct(f"{9 + 5 * k}q").pack for k in range(1, MAX_SEGMENTS + 1)]
-_PACK_GRAD = struct.Struct("10q").pack
+_PACK_GRAD = [None] + [struct.Struct(f"{9 + 4 * k}q").pack for k in range(1, MAX_SEGMENTS + 1)]
+_scratch_bytes: dict = {}  # (n, V, D, device) -> the backward's scratch in bytes
 
 
 def _bind() -> None:
-    global _gather_rows, _gather_rows_grad, _grad_chunk
+    global _gather_rows, _gather_rows_grad, _grad_scratch
     lib = _build.load("gather_rows")
     _gather_rows = _build.bind(lib.gather_rows, [ctypes.c_char_p])
     _gather_rows_grad = _build.bind(lib.gather_rows_grad, [ctypes.c_char_p])
-    _grad_chunk = _build.bind(lib.gather_rows_grad_chunk, [])()
+    _grad_scratch = _build.bind(lib.gather_rows_grad_scratch, [ctypes.c_longlong] * 3 + [
+        ctypes.c_int], ctypes.c_longlong)
+    tile = _build.bind(lib.gather_rows_grad_chunk, [])()
+    if tile != GRAD_TILE:
+        raise RuntimeError(f"gather_rows.cu's tile is {tile} positions, GRAD_TILE {GRAD_TILE}")
 
 
 def _raise(err: int, name: str):
@@ -208,25 +250,42 @@ def _launch(table, ids_list, concat):
 
 def embedding_gather_grad(ids: torch.Tensor, grad: torch.Tensor, rows: int) -> torch.Tensor:
     """The gather's backward, `embedding_gather_grad_plain`'s function: on
-    CUDA tensors one launch of `csrc/gather_rows.cu`'s `gather_rows_grad`
-    (counted in `embedding_gather_grad.launches`) after a stable sort of the
-    clamped ids, summing each row's gradients in an order the ids fix (two
-    calls are bit-equal); on CPU tensors the plain version. ids [N] int32 or
-    int64, grad [N, D] fp32 with unit stride along D."""
+    CUDA tensors `csrc/gather_rows.cu`'s `gather_rows_grad` (counted in
+    `embedding_gather_grad.launches`), summing each row's gradients in the
+    order of `embedding_gather_grad_ordered` (two calls are bit-equal); on
+    CPU tensors the plain version. ids [N] int32 or int64, grad [N, D] fp32
+    with unit stride along D."""
     if grad.device.type != "cuda":
         return embedding_gather_grad_plain(ids, grad, rows)
+    return _launch_grad(((ids, grad),), rows)
+
+
+def _launch_grad(pairs, rows: int) -> torch.Tensor:
+    """One backward for up to four (ids [n_k], grad [n_k, D]) pairs taken one
+    after another, on CUDA tensors: a [rows, D] table, every row written."""
     if _gather_rows_grad is None:
         _bind()
-    if grad.stride(1) != 1:
-        grad = grad.contiguous()
-    n, width = grad.shape
-    keys, order = torch.sort(ids.clamp(0, rows - 1).long(), stable=True)
-    dtable = torch.zeros((rows, width), dtype=grad.dtype, device=grad.device)
-    scratch = grad.new_empty((2 * -(-n // _grad_chunk), width))
-    index = grad.device.index
-    err = _gather_rows_grad(_PACK_GRAD(
-        keys.data_ptr(), order.data_ptr(), grad.data_ptr(), grad.stride(0), dtable.data_ptr(),
-        scratch.data_ptr(), n, rows, width, _build.raw_stream(index)))
+    pairs = [(i.reshape(-1), g if g.stride(-1) == 1 else g.contiguous()) for i, g in pairs]
+    if len({i.dtype for i, _ in pairs}) > 1:  # one integer type per launch
+        pairs = [(i.long(), g) for i, g in pairs]
+    pairs = [(i if i.is_contiguous() else i.contiguous(), g) for i, g in pairs]
+    width = pairs[0][1].shape[1]
+    n = sum(i.numel() for i, _ in pairs)
+    index = pairs[0][1].device.index
+    key = (n, rows, width, index)
+    nbytes = _scratch_bytes.get(key)
+    if nbytes is None:
+        nbytes = _scratch_bytes[key] = _grad_scratch(n, rows, width, index)
+        if nbytes < 0:
+            _raise(-nbytes, "gather_rows_grad")
+    dtable = pairs[0][1].new_empty((rows, width))
+    scratch = torch.empty(max(nbytes, 16), dtype=torch.uint8, device=dtable.device)
+    segments = []
+    for i, g in pairs:
+        segments += (i.data_ptr(), i.numel(), g.data_ptr(), g.stride(0))
+    err = _gather_rows_grad(_PACK_GRAD[len(pairs)](
+        len(pairs), rows, width, pairs[0][0].dtype is torch.int64, dtable.data_ptr(),
+        scratch.data_ptr(), nbytes, index, _build.raw_stream(index), *segments))
     if err:
         _raise(err, "gather_rows_grad")
     embedding_gather_grad.launches += 1
@@ -243,30 +302,35 @@ def _forward(table, ids_list, concat):
 
 class _GatherMany(torch.autograd.Function):
     """Forward: one kernel launch (CUDA) or the plain version (CPU) for all
-    lookups. Backward: `embedding_gather_grad` of the output gradients over
-    the concatenated ids."""
+    lookups. Backward: the gather's backward of the output gradients, each
+    lookup's ids and gradient handed to the kernel as they are (CUDA), or
+    `embedding_gather_grad_plain` over the concatenated ids (CPU)."""
 
     @staticmethod
     def forward(ctx, table, concat, *ids_list):
         got = _forward(table, ids_list, concat)
-        if concat:
-            flat, got = _side_by_side(ids_list).reshape(-1), (got,)
-        elif len(ids_list) == 1:
-            flat = ids_list[0].reshape(-1)
+        if concat:  # one [B, P, D] gradient: its rows are the ids side by side
+            ctx.save_for_backward(_side_by_side(ids_list))
+            got = (got,)
         else:
-            flat = torch.cat([i.reshape(-1) for i in ids_list])
-        ctx.save_for_backward(flat)
+            ctx.save_for_backward(*ids_list)
         ctx.table_rows = table.shape[0]
         return got
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, *grads):
-        (flat,) = ctx.saved_tensors
+        ids = ctx.saved_tensors
         width = grads[0].shape[-1]
-        g = (grads[0].reshape(-1, width) if len(grads) == 1
-             else torch.cat([x.reshape(-1, width) for x in grads]))
-        dtable = embedding_gather_grad(flat, g, ctx.table_rows)
+        pairs = [(i.reshape(-1), g.reshape(-1, width)) for i, g in zip(ids, grads)]
+        if grads[0].device.type == "cuda":
+            dtable = _launch_grad(pairs, ctx.table_rows)
+        elif len(pairs) == 1:
+            dtable = embedding_gather_grad_plain(*pairs[0], ctx.table_rows)
+        else:
+            dtable = embedding_gather_grad_plain(torch.cat([i for i, _ in pairs]),
+                                                 torch.cat([g for _, g in pairs]),
+                                                 ctx.table_rows)
         return (dtable, None) + (None,) * (len(ctx.needs_input_grad) - 2)
 
 
@@ -291,4 +355,4 @@ def embedding_gather(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
 
 
 embedding_gather.launches = 0  # kernel launches since the last reset, of both wrappers
-embedding_gather_grad.launches = 0  # backward calls (two kernels each) since the last reset
+embedding_gather_grad.launches = 0  # backward calls (one or two kernels each) since the last reset

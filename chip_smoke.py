@@ -64,9 +64,12 @@ code and no result line):
    out-of-range ids and the gradient of a group (library: `index_select` on
    the concatenated ids). The gather's backward (`embedding_gather_grad`)
    at a training step's shapes, left-padded T=150 and T=20 histories and
-   target with a negative, against the plain version in fp64 (no further
-   than `index_add_` in fp32, GRAD_SLACK), two calls bit-equal (library:
-   `index_put_(accumulate=True)`). Scoring head at C=1000 and C=2, one user
+   target with a negative into the 894,820-row table, and the lazy step's
+   two shapes into its 11,264-row leaf, against the plain version in fp64
+   (no further than `index_add_` in fp32, GRAD_SLACK), two calls bit-equal
+   and bit-equal to `embedding_gather_grad_ordered` (library:
+   `index_put_(accumulate=True)`, and `index_add_` beside it; each kernel
+   of a call timed apart from a `torch.profiler` trace). Scoring head at C=1000 and C=2, one user
    representation a launch and both in one launch (`scoring_head_pair`,
    what the model calls: against two calls of the plain version, and its
    eight gradients against autograd through the plain pair; no library call
@@ -250,6 +253,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -1198,6 +1202,29 @@ def gather_kernel_phase(torch, gen):
 GRAD_SLACK = 1e-5
 
 
+def kernel_parts_us(torch, fn, calls: int = 20) -> dict:
+    """Device microseconds per call of each kernel `fn` launches, by name,
+    from a `torch.profiler` trace of `calls` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    parts = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None)
+        if us is None:
+            us = ev.cuda_time_total
+        if us > 0:  # a kernel's name without its namespace, template and parameters
+            m = re.search(r"(\w+)[<(]", ev.key)
+            name = m.group(1) if m else ev.key
+            parts[name] = parts.get(name, 0.0) + us / calls
+    return parts
+
+
 def gather_grad_kernel_phase(torch, gen):
     """The gather's backward (`embedding_gather_grad`) against its plain
     version at a training step's shapes, the 894,820-row table: both
@@ -1207,9 +1234,15 @@ def gather_grad_kernel_phase(torch, gen):
     step's unique rows (`train/lazy.py`, U = `_unique_budget`: 11,264 at
     T=20), both sequences of a T=20 step and target with a negative at their
     positions among those rows (`lazy_*` cases; the plain version is
-    `index_add_` on a [U, D] table); two calls bit-equal (library:
-    `index_put_(accumulate=True)`, deterministic too)."""
-    from amid_tpu_torch.ops.embedding import embedding_gather_grad, embedding_gather_grad_plain
+    `index_add_` on a [U, D] table); two calls bit-equal, and equal bit for
+    bit to `embedding_gather_grad_ordered` (the kernel's order in plain
+    PyTorch). Library: `index_put_(accumulate=True)` (deterministic too),
+    and beside it `index_add_` (atomics; `index_add_*` keys). Each case's
+    `parts_us` is the device time of each kernel a call launches, from a
+    `torch.profiler` trace (the tile pass and the row pass)."""
+    from amid_tpu_torch.ops.embedding import (
+        embedding_gather_grad, embedding_gather_grad_ordered, embedding_gather_grad_plain,
+    )
     from amid_tpu_torch.train.lazy import _unique_budget
 
     V, D = 2 * FLAGSHIP["item_length"], FLAGSHIP["emb_dim"]
@@ -1232,15 +1265,23 @@ def gather_grad_kernel_phase(torch, gen):
         err = (got - exact).abs().max().item()
         plain_err = (embedding_gather_grad_plain(flat, g, v) - exact).abs().max().item()
         require(torch.equal(got, again), f"gather grad {name}: two calls differ")
+        require(torch.equal(got, embedding_gather_grad_ordered(flat, g, v)),
+                f"gather grad {name}: not the sums of embedding_gather_grad_ordered")
         require(err <= plain_err + GRAD_SLACK,
                 f"gather grad {name}: {err} from fp64, the plain fp32 version {plain_err}")
         longest = int(torch.unique(flat, return_counts=True)[1].max())
+        keys = flat.long()
+        index_add = timings(torch, lambda: torch.zeros(v, D, device="cuda").index_add_(
+            0, keys, g), 20, library=True)
         rec = {"case": f"gather_grad_{name}", "V": v, "D": D, "rows": flat.numel(),
                "longest_run": longest, "max_abs_err": err, "plain_max_abs_err": plain_err,
+               "ordered_bit_equal": True,
                **timings(torch, lambda: embedding_gather_grad(flat, g, v), 20),
                "plain_ms": cuda_ms(torch, lambda: embedding_gather_grad_plain(flat, g, v), 20),
                **timings(torch, lambda: torch.zeros(v, D, device="cuda").index_put_(
-                   (flat.long(),), g, accumulate=True), 5, library=True)}
+                   (keys,), g, accumulate=True), 5, library=True),
+               **{k.replace("library", "index_add"): x for k, x in index_add.items()},
+               "parts_us": kernel_parts_us(torch, lambda: embedding_gather_grad(flat, g, v))}
         rec["bound_ms"], rec["bound_by"] = gather_grad_bound(flat.numel(), v, D)
         emit({"kernel_case_gather_grad": rec})
         cases[name] = rec
@@ -1262,7 +1303,8 @@ def gather_grad_kernel_phase(torch, gen):
                      torch.tensor([-4, 0, 9, 12], device="cuda")])
     g = torch.randn(ids.numel(), 7, device="cuda", generator=gen)
     got = embedding_gather_grad(ids, g, 10)
-    require(torch.allclose(got, embedding_gather_grad_plain(ids, g, 10), atol=1e-4),
+    require(torch.allclose(got, embedding_gather_grad_plain(ids, g, 10), atol=1e-4)
+            and torch.equal(got, embedding_gather_grad_ordered(ids, g, 10)),
             "gather grad: narrow table")  # row 3 sums 1,001 terms near 1
     return cases
 
@@ -2493,9 +2535,12 @@ def c2dsr_long_run(torch, rng):
 RESTORE_STEPS = 4  # restore_replay: replays after the save, and again after the restore
 NATIVE_ROWS = 27_000  # the CSV size the native reader's docstring times
 # kernel names the trace of a lazy T=20 run must hold: attention forward and
-# backward, the gather, its backward, the scoring head and the fused scatter
+# backward, the gather, its backward (both sequences' 10,240 rows: the tile
+# and row passes; target and negative, 512 rows: the one-launch kernel), the
+# scoring head and the fused scatter
 TRACE_KERNELS = ("attention_fwd_kernel", "attention_bwd_kernel", "gather_rows_kernel",
-                 "grad_chunks_kernel", "scoring_head_kernel", "scatter_rows_kernel")
+                 "grad_tiles_kernel", "grad_rows_kernel", "grad_direct_kernel",
+                 "scoring_head_kernel", "scatter_rows_kernel")
 NAN_PARAM = "predict_gfunc.fc1.weight"  # read by phase B's loss (the imputation head)
 
 
@@ -3854,6 +3899,11 @@ WIDTH_MAIN = {(128, "long", "keypad"), (12, "sweep", "causal")}
 WIDTH_B = {True: 256, False: 64}
 # the one-sweep backward at dh=128 holds T <= 80 (`sweep_fits`): its cases take 64
 WIDTH_BWD_SWEEP_T128 = 64
+# the fp32 long forward at dh=128 takes its in-block kernel at one query
+# block a head (T <= 128) and at two (T <= 256: BERT4Rec at --emb_dim 512
+# below encoder T=300) with key padding, its pre-pass kernel beyond (T=300
+# above) and at two with a causal bias: each side of the cut at both biases
+WIDTH_INBLOCK_T = (100, 200)
 # each bf16 case is held to BF16_LIMITS of the existing case of its path and
 # dropout (the one-head cases were measured at T=150 and T=20, the native
 # long ones at every head width of the card tests)
@@ -3879,8 +3929,10 @@ def width_kernel_phase(torch, gen):
     0 fully masked), rates 0 and 0.1, fp32 and bf16, at B=256 on the
     configurations' shapes (WIDTH_MAIN) and B=64 elsewhere, against their
     plain versions: the forwards at T=150 (one-head) and T=300 (long), out and the
-    row statistics; the backwards from the plain forward's residuals at
-    T=150 (one-sweep; T=64 at dh=128) and T=300 (long), two calls
+    row statistics, and the fp32 long forward at dh=128 also at each T of
+    WIDTH_INBLOCK_T (either side of its in-block cut); the backwards from
+    the plain forward's residuals at T=150 (one-sweep; T=64 at dh=128) and
+    T=300 (long), two calls
     bit-equal, and in fp32 at dh=128 both the kernel and the plain version
     against the plain version in fp64. fp32: ATOL / RTOL, the statistics at
     LONG_STATS_ATOL, the gradients at `bwd_atol`; bf16: one draw a case held
@@ -3928,9 +3980,9 @@ def width_kernel_phase(torch, gen):
             fwd_only = timings(torch, sdpa_fwd, 10, library=True, rounds=1)
         rec.update({key: both[key] - fwd_only[key] for key in both})
 
-    def fwd_case(dh, path, kind, rate, bf16):
+    def fwd_case(dh, path, kind, rate, bf16, t=None):
         heads = WIDTH_HEADS[dh]
-        d, t = dh * heads, WIDTH_T[path]
+        d, t = dh * heads, t or WIDTH_T[path]
         B = WIDTH_B[(dh, path, kind) in WIDTH_MAIN]
         mode = "bf16" if bf16 else "fp32"
         name = f"width_{mode}_fwd_{path}_{kind}_T{t}_dh{dh}_rate{rate}"
@@ -4069,6 +4121,8 @@ def width_kernel_phase(torch, gen):
                         fwd_case(dh, path, kind, rate, bf16)
                         bwd_case(dh, path, kind, rate, bf16)
                     torch.cuda.empty_cache()
+                for t in WIDTH_INBLOCK_T if dh == 128 else ():
+                    fwd_case(dh, "long", kind, rate, False, t)
     return cases
 
 

@@ -83,7 +83,7 @@ def test_route_tables_are_kept_per_mode_and_bf16_calls_read_theirs(monkeypatch):
     """The fp32 tables are the fp32 sweeps' values; each mode's route reads
     its own table (a bf16 crossover moved without moving fp32's), and the
     launches route a bf16 call by the bf16 table."""
-    assert attention_ops.LONG_FWD_FASTER_FROM["fp32"] == {16: 512, 32: 300, 128: 40}
+    assert attention_ops.LONG_FWD_FASTER_FROM["fp32"] == {16: 300, 32: 300, 128: 40}
     assert attention_ops.LONG_FASTER_FROM["fp32"] == {8: 512, 16: 368, 32: 150, 64: 150,
                                                       128: 48}
     assert set(attention_ops.LONG_FASTER_FROM) == set(attention_ops.MODES)

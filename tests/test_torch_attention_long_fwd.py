@@ -126,9 +126,11 @@ def test_every_measured_crossover_is_within_the_one_head_kernel(kernel_limits):
 
 
 def test_long_launch_packs_the_forward_block_and_counts_apart(monkeypatch):
-    """The long path packs the one-head kernel's FwdArgs block, counts in
-    `long_forward_launches` (not `launches`) and copies a view whose rows do
-    not start on 16 bytes (its copies read 16-byte chunks)."""
+    """The long path packs the one-head kernel's FwdArgs block, then its
+    scratch (as many bytes as `attention_fwd_long_scratch` asks, 16-byte
+    aligned), counts in `long_forward_launches` (not `launches`) and copies
+    a view whose rows do not start on 16 bytes (its copies read 16-byte
+    chunks)."""
     seen = _fake_entry(monkeypatch)
     b, t, d, heads = 2, 5, 16, 2
     q, k, v = torch.randn(b, t, 3 * d).split(d, dim=-1)
@@ -137,15 +139,16 @@ def test_long_launch_packs_the_forward_block_and_counts_apart(monkeypatch):
     longs = attention_ops.fused_attention.long_forward_launches
     out, row_max, row_inv_sum = attention_ops._launch_forward(q, k, v, bias, 9, heads, 0.5,
                                                               True, path="long")
-    f = struct.unpack("<24q2d", seen[-1])
+    f = struct.unpack("<24q2d2q", seen[-1])
     assert f[:7] == (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
                      out.data_ptr(), row_max.data_ptr(), row_inv_sum.data_ptr())
     assert f[7:17] == (b, t, d, heads) + (3 * d * t, 3 * d) * 3
+    assert f[26] % 16 == 0 and f[27] == 64
     assert attention_ops.fused_attention.long_forward_launches == longs + 1
     assert attention_ops.fused_attention.launches == sweeps
     odd = torch.randn(b, t, d + 1)[..., 1:]  # rows start 4 bytes past a 16-byte boundary
     attention_ops._launch_forward(odd, k, v, bias, 0, heads, 0.0, False, path="long")
-    f = struct.unpack("<24q2d", seen[-1])
+    f = struct.unpack("<24q2d2q", seen[-1])
     assert f[0] != odd.data_ptr() and f[11:13] == (t * d, d)  # a contiguous copy
     with pytest.raises(ValueError, match="'sweep' or 'long'"):
         attention_ops._launch_forward(q, k, v, bias, 0, heads, 0.0, False, path="short")

@@ -258,7 +258,7 @@ def _fake_entry(monkeypatch, code=0):
 
     def entry(raw):
         seen.append(raw)
-        seed_at = struct.unpack_from("<q", raw, 8 * (21 if len(raw) in (208, 216) else 29))[0]
+        seed_at = struct.unpack_from("<q", raw, 8 * (21 if len(raw) in (208, 216, 224) else 29))[0]
         # the dropout seed lives on the device: read it while the launch holds it
         entry.seeds.append(ctypes.c_longlong.from_address(seed_at).value if seed_at else None)
         return code
@@ -268,6 +268,9 @@ def _fake_entry(monkeypatch, code=0):
 
     monkeypatch.setattr(attention_ops, "_fwd", entry)
     monkeypatch.setattr(attention_ops, "_fwd_long", entry)
+    # the fp32 long forward's scratch: 64 bytes, whatever the shape
+    monkeypatch.setattr(attention_ops, "_fwd_long_scratch", {False: lambda raw: 64,
+                                                             True: lambda raw: 64})
     monkeypatch.setattr(attention_ops, "_bwd", entry)
     monkeypatch.setattr(attention_ops, "_bwd_long", entry)
     monkeypatch.setattr(attention_ops, "_long_max_t", 65535 * 64)

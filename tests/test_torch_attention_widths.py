@@ -327,6 +327,8 @@ def test_a_padded_width_takes_the_padded_build_of_the_fp32_long_paths(monkeypatc
     monkeypatch.setattr(attention_ops, "_bwd_long", entry("bwd"))
     monkeypatch.setattr(attention_ops, "_pad_entry", {"attention_fwd_long": entry("fwd_pad"),
                                                       "attention_bwd_long": entry("bwd_pad")})
+    monkeypatch.setattr(attention_ops, "_fwd_long_scratch", {False: lambda raw: 16,
+                                                             True: lambda raw: 16})
     monkeypatch.setattr(attention_ops._build, "raw_stream", lambda index: 0)
     heads, t = 2, 9
     for dh in (12, 16):

@@ -46,6 +46,7 @@ from amid_tpu_torch.ops import scatter as scatter_ops
 from amid_tpu_torch.ops.embedding import (
     embedding_gather,
     embedding_gather_grad,
+    embedding_gather_grad_ordered,
     embedding_gather_grad_plain,
     embedding_gather_many,
     embedding_gather_many_plain,
@@ -372,14 +373,16 @@ def test_long_path_at_every_head_width_and_ragged_t(gen, heads, d, t, kind, rate
 
 @pytest.mark.parametrize("rate", [0.0, 0.3])
 @pytest.mark.parametrize("t,kind", [(37, "keypad"), (130, "causal"), (601, "keypad"),
-                                    (1000, "per_query")])
+                                    (1000, "per_query"), (200, "keypad"), (100, "per_query")])
 @pytest.mark.parametrize("heads,d", LONG_WIDTHS)
 def test_long_forward_at_every_head_width_and_ragged_t(gen, heads, d, t, kind, rate):
     """The long forward against its plain version in key tiles at each head
     width, at T that are no multiple of its 128-row blocks or key stages,
     every bias form (key padding with batch row 0 fully masked), with q, k,
-    v column slices of one projection: out and the row statistics,
-    bit-equal over two calls, one launch counted per call."""
+    v column slices of one projection (at dh=128 both sides of the in-block
+    cut: one query block a head, two with key padding, two with a
+    per-query bias, more): out and the row statistics, bit-equal over two
+    calls, one launch counted per call."""
     b = 2
     q, k, v = torch.randn(b, t, 3 * d, device="cuda", generator=gen).split(d, dim=-1)
     bias = _bias(kind, b, t, gen)
@@ -396,6 +399,40 @@ def test_long_forward_at_every_head_width_and_ragged_t(gen, heads, d, t, kind, r
     torch.testing.assert_close(got[0], want[0], atol=ATOL, rtol=RTOL)
     torch.testing.assert_close(got[1], want[1], atol=LONG_MAX_ATOL, rtol=1e-6)
     torch.testing.assert_close(got[2], want[2], atol=LONG_INV_SUM_ATOL, rtol=1e-6)
+
+
+@pytest.mark.parametrize("t", [601, 200])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("kind", ["causal", "keypad"])
+@pytest.mark.parametrize("heads,d", LONG_WIDTHS)
+def test_long_forward_with_a_row_offset_feeds_the_long_backward(gen, heads, d, kind, rate, t):
+    """At every template width and two padded ones (dh 12 and 6), both
+    biases, rates 0 and 0.1, T of 601 and 200 (at dh=128 the in-block kernel
+    with key padding), and a batch that starts at global row 3 (a
+    data-parallel rank's dropout rows): the long forward against its plain
+    version in key tiles with the same row offset, and its statistics fed
+    to the long backward give the gradients of the plain forward's."""
+    b, offset = 2, 3
+    q, k, v = torch.randn(b, t, 3 * d, device="cuda", generator=gen).split(d, dim=-1)
+    dout = torch.randn(b, t, d, device="cuda", generator=gen)
+    bias = _bias(kind, b, t, gen)
+    seed = torch.tensor([91], dtype=torch.int64, device="cuda")
+    dh = d // heads
+    got = attention_ops._launch_forward(q, k, v, bias, seed, heads, rate, True, "long",
+                                        row_offset=offset)
+    want = attention_fwd_stats_streamed_plain(q, k, v, bias, seed, heads, rate,
+                                              32 if dh > 32 else 64, row_offset=offset)
+    torch.testing.assert_close(got[0], want[0], atol=ATOL, rtol=RTOL)
+    torch.testing.assert_close(got[1], want[1], atol=LONG_MAX_ATOL, rtol=1e-6)
+    torch.testing.assert_close(got[2], want[2], atol=LONG_INV_SUM_ATOL, rtol=1e-6)
+    grads = attention_backward(q, k, v, bias, *got, dout, seed, heads, rate, path="long",
+                               row_offset=offset)
+    plain = attention_bwd_plain(q, k, v, bias, *attention_fwd_stats_plain(
+        q, k, v, bias, seed, heads, rate, row_offset=offset), dout, seed, heads, rate,
+        row_offset=offset)
+    atol = _chip_smoke().bwd_atol(t, dh) if dh > 64 else _bwd_atol(t)
+    for g, w in zip(grads, plain):
+        torch.testing.assert_close(g, w, atol=atol, rtol=RTOL)
 
 
 @pytest.mark.parametrize("heads,d", [(4, 128), (2, 128), (1, 128), (8, 96)])  # dh 32 64 128 12
@@ -1027,9 +1064,10 @@ def test_gather_gradient_adds_duplicated_ids(gen):
 
 
 def _runs(kind, gen):
-    """Ids whose sorted runs meet the backward's blocks of 256 rows in every
-    way: one run over many blocks, runs ending on and next to a block edge,
-    left-padded histories, a single row, a last block of one row."""
+    """Ids whose runs meet the backward's work units in every way: one key
+    over many tiles of 128 positions, runs of 256, 255, 511 positions and
+    one, left-padded histories (row 0 in every tile), a single position, a
+    last tile of one position."""
     cuda = dict(device="cuda")
     if kind == "one_key":
         return torch.full((1000,), 7, **cuda)
@@ -1077,6 +1115,74 @@ def test_gather_grad_kernel_in_a_cuda_graph_equals_the_eager_call(gen):
     g.copy_(torch.randn(ids.numel(), 128, device="cuda", generator=gen))
     graph.replay()
     assert torch.equal(got, embedding_gather_grad(ids, g, 2_000))
+
+def _lazy_positions(gen):
+    """A lazy T=20 step's two backward id arrays: both sequences (10,240
+    left-padded positions) and target with a negative (512), as positions
+    among the step's unique rows (11,264 at most)."""
+    v, b = 894_820, 256
+
+    def padded(t):
+        ids = torch.randint(1, v, (b, t), device="cuda", generator=gen)
+        lens = torch.randint(1, t + 1, (b, 1), device="cuda", generator=gen)
+        return torch.where(torch.arange(t, device="cuda")[None] < t - lens, 0, ids)
+
+    seqs = torch.cat([padded(20), padded(20)], 1).reshape(-1)
+    cand = torch.randint(0, v, (2 * b,), device="cuda", generator=gen)
+    _, pos = torch.unique(torch.cat([cand, seqs]), return_inverse=True)
+    return pos[cand.numel():].int(), pos[:cand.numel()].int(), padded
+
+
+@pytest.mark.parametrize("case", ["lazy_pair20", "lazy_cand2", "pair150"])
+def test_gather_grad_kernel_at_the_training_step_s_shapes(gen, case):
+    """The lazy step's two shapes (into its 11,264-row leaf: two launches at
+    10,240 positions, one at 512) and a T=150 step's two sequences into the
+    894,820-row table: bit-equal to `embedding_gather_grad_ordered` (the
+    kernel's order in plain PyTorch), as close to the fp64 sums as
+    `index_add_` give or take 1e-5, bit-equal over two calls and when
+    replayed from a CUDA graph with new gradients."""
+    pair20, cand2, padded = _lazy_positions(gen)
+    ids, rows = {"lazy_pair20": (pair20, 11_264), "lazy_cand2": (cand2, 11_264),
+                 "pair150": (torch.cat([padded(150), padded(150)], 1).reshape(-1).int(),
+                             894_820)}[case]
+    g = torch.randn(ids.numel(), 128, device="cuda", generator=gen)
+    first, second = (embedding_gather_grad(ids, g, rows) for _ in range(2))
+    assert torch.equal(first, second)
+    assert torch.equal(first, embedding_gather_grad_ordered(ids, g, rows))
+    exact = embedding_gather_grad_plain(ids, g.double(), rows)
+    plain_err = (embedding_gather_grad_plain(ids, g, rows) - exact).abs().max().item()
+    assert (first - exact).abs().max().item() <= plain_err + 1e-5
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = embedding_gather_grad(ids, g, rows)
+    g.copy_(torch.randn(ids.numel(), 128, device="cuda", generator=gen))
+    graph.replay()
+    assert torch.equal(got, embedding_gather_grad_ordered(ids, g, rows))
+
+
+@pytest.mark.parametrize("concat", [False, True])
+def test_gather_many_gradient_is_the_ordered_sum_of_its_lookups(gen, concat):
+    """A group of two lookups hands each lookup's ids and gradient to one
+    backward launch (no concatenation): the table's gradient is
+    `embedding_gather_grad_ordered` of the ids and gradients one lookup
+    after the other (side by side per user with concat=True), bit for bit."""
+    table = torch.randn(3_000, 128, device="cuda", generator=gen, requires_grad=True)
+    ids = [torch.randint(0, 3_000, (256, 20), device="cuda", generator=gen),
+           torch.randint(0, 3_000, (256, 30), device="cuda", generator=gen)]
+    out = embedding_gather_many(table, ids, concat=concat)
+    outs = (out,) if concat else out
+    grads = [torch.randn_like(o) for o in outs]
+    before = embedding_gather_grad.launches
+    got = torch.autograd.grad(outs, table, grads)[0]
+    assert embedding_gather_grad.launches == before + 1
+    if concat:
+        flat = torch.cat(ids, dim=1).reshape(-1)
+        g = grads[0].reshape(-1, 128)
+    else:
+        flat = torch.cat([i.reshape(-1) for i in ids])
+        g = torch.cat([x.reshape(-1, 128) for x in grads])
+    assert torch.equal(got, embedding_gather_grad_ordered(flat, g, 3_000))
+
 
 @pytest.mark.parametrize("n_segments", [1, 2, 3, 4])
 @pytest.mark.parametrize("id_dtype", [torch.int32, torch.int64])
@@ -1169,7 +1275,22 @@ def test_gather_refusals_of_the_c_entry_point(gen):
     assert fn(struct.pack("9q", *head, 1, 5, 0, 0)) == -3  # 5 segments
     assert fn(struct.pack("14q", *head, 1, 1, 0, 0, 0, 7, 2, 0, 0)) == -3  # 7 ids, 2 per user
     assert fn(struct.pack("14q", *head, 1, 1, 0, 0, 0, 2 ** 31, 1, 0, 0)) == -4
-    assert set(embedding_ops._REFUSALS) == {-1, -2, -3, -4}
+    assert set(embedding_ops._REFUSALS) == {-1, -2, -3, -4, -5}
+    # the backward's entry: segments, V, width, ids64, out, scratch, its bytes,
+    # device, stream | ids, n, gradient, its row stride
+    grad_fn = embedding_ops._gather_rows_grad
+    g = torch.randn(2_000, 16, device="cuda", generator=gen)
+    many = torch.randint(0, 40, (2_000,), device="cuda", generator=gen)
+    dtable = torch.empty(40, 16, device="cuda")
+    seg = (many.data_ptr(), 2_000, g.data_ptr(), 16)
+    assert grad_fn(struct.pack("13q", 1, 0, 16, 1, dtable.data_ptr(), 0, 0, 0, 0, *seg)) == -1
+    assert grad_fn(struct.pack("9q", 5, 40, 16, 1, dtable.data_ptr(), 0, 0, 0, 0)) == -3
+    assert grad_fn(struct.pack("13q", 1, 40, 16, 1, dtable.data_ptr(), 0, 0, 0, 0,
+                               many.data_ptr(), -1, g.data_ptr(), 16)) == -3
+    # 2,000 rows take the two passes, whose scratch the call must bring
+    assert grad_fn(struct.pack("13q", 1, 40, 16, 1, dtable.data_ptr(), 0, 0, 0, 0, *seg)) == -5
+    with pytest.raises(RuntimeError, match="scratch"):
+        embedding_ops._raise(-5, "gather_rows_grad")
     # a card that is not there: the query's cudaError comes back, nothing is guessed
     out = torch.empty(4, 3, 16, device="cuda")
     assert fn(struct.pack("14q", *head, 1, 1, 99, 0, ids.data_ptr(), 12, 12,
