@@ -1,7 +1,8 @@
-// Pieces the attention forwards (attention_fwd.cu, attention_fwd_long.cu)
-// and backwards (attention_bwd.cu, attention_bwd_long.cu) share: the dropout
-// counter hash, the 3xTF32 tensor-core product, the quad reductions of an
-// accumulator row and the argument blocks of the C entry points.
+// Pieces the attention forwards (attention_fwd*.cu) and backwards
+// (attention_bwd*.cu) share: the dropout counter hash, the 3xTF32
+// tensor-core product, the bf16 mma.sync product and its fragment loads,
+// the quad reductions of an accumulator row and the argument blocks of the
+// C entry points.
 //
 // 3xTF32. One TF32 product keeps 11 significant bits of each operand, about
 // three decimal digits: too few for the fp32 tolerances the kernels are held
@@ -23,20 +24,15 @@
 // same, taken in another order.
 //
 // bf16-operand mode (the JAX kernel's mxu_bf16: every product's operands
-// rounded to bf16, fp32 sums). The one-head sources (attention_fwd.cu,
-// attention_bwd.cu) are compiled twice: as they are, and with
-// AMID_ATTN_BF16=1 into libraries of their own (ops/_build.py's variants),
-// where kBf16 is set; the long paths' bf16 mode has native bf16 kernels
-// (attention_long_bf16.cuh). A bf16 value is exact in TF32 (10
-// mantissa bits against bf16's 7), so the mode keeps every fragment layout,
-// tile and route: `split` rounds the operand to bf16 (cvt.rn.bf16.f32,
-// nearest even) as its hi half and leaves lo at 0, and a product issues the
-// hi*hi term alone, one mma.sync where 3xTF32 issues three: bf16 operands,
-// fp32 accumulation, exactly.
+// rounded to bf16, fp32 sums) has kernels of its own: the one-head pair
+// (attention_fwd_bf16.cu, attention_bwd_bf16.cu) on mma.sync.m16n8k16 bf16
+// with the pieces at the end of this header, the long paths
+// (attention_long_bf16.cuh) on wgmma k16 bf16.
 //
-// Shared-memory tiles have a row pitch of dh + 4 floats. The two patterns
-// the kernels read, row g column t (B of Q.K^T) and row 2t column g (B of
-// P.V), then fall on 32 different banks for the 32 lanes.
+// Shared-memory tiles of the fp32 kernels have a row pitch of dh + 4
+// floats. The two patterns the kernels read, row g column t (B of Q.K^T)
+// and row 2t column g (B of P.V), then fall on 32 different banks for the
+// 32 lanes.
 //
 // Head widths. Every kernel is instantiated at the template widths 8, 16,
 // 32, 64 and 128 and takes any dh from 1 to 128 at the smallest template
@@ -58,16 +54,12 @@
 #include <math.h>
 #include <stdint.h>
 
-#ifndef AMID_ATTN_BF16
-#define AMID_ATTN_BF16 0
-#endif
 #ifndef AMID_ATTN_PAD
 #define AMID_ATTN_PAD 0
 #endif
 
 namespace amid_attention {
 
-constexpr bool kBf16 = AMID_ATTN_BF16 != 0;  // the bf16-operand build
 constexpr bool kPadBuild = AMID_ATTN_PAD != 0;  // the fp32 long paths' padded-width build
 constexpr uint32_t kMixKey0 = 0x9E3779B9u;
 constexpr int kMaxWarps = 8;  // warps of one block
@@ -147,16 +139,8 @@ __device__ __forceinline__ uint32_t to_tf32(float x) {
   return r;
 }
 
-// x rounded to bf16 (nearest even), as fp32 bits: a valid TF32 operand
-__device__ __forceinline__ uint32_t to_bf16_bits(float x) {
-  unsigned short h;
-  asm("cvt.rn.bf16.f32 %0, %1;" : "=h"(h) : "f"(x));
-  return (uint32_t)h << 16;
-}
-
-// x as the hi and lo halves of 3xTF32; in the bf16 build, bf16(x) and 0
+// x as the hi and lo halves of 3xTF32
 __device__ __forceinline__ Split split(float x) {
-  if constexpr (kBf16) return {to_bf16_bits(x), 0u};
   const uint32_t hi = to_tf32(x);
   return {hi, to_tf32(x - __uint_as_float(hi))};
 }
@@ -187,14 +171,11 @@ __device__ __forceinline__ FragA split_a(float a0, float a1, float a2, float a3)
   return f;
 }
 
-// d += A B in 3xTF32, B given by its two fp32 elements; in the bf16 build
-// the hi*hi product alone
+// d += A B in 3xTF32, B given by its two fp32 elements
 __device__ __forceinline__ void mma3(float (&d)[4], const FragA& a, float b0, float b1) {
   const Split s0 = split(b0), s1 = split(b1);
-  if constexpr (!kBf16) {
-    mma_tf32(d, a.lo, s0.hi, s1.hi);
-    mma_tf32(d, a.hi, s0.lo, s1.lo);
-  }
+  mma_tf32(d, a.lo, s0.hi, s1.hi);
+  mma_tf32(d, a.hi, s0.lo, s1.lo);
   mma_tf32(d, a.hi, s0.hi, s1.hi);
 }
 
@@ -283,6 +264,113 @@ inline BwdParams bwd_params(const BwdArgs& a) {
 inline int warps_for(int tiles) {
   const int rounds = (tiles + kMaxWarps - 1) / kMaxWarps;
   return (tiles + rounds - 1) / rounds;
+}
+
+// ---------------------------------------------------------------------------
+// bf16 pieces: the one-head bf16 kernels' mma.sync products and fragment
+// loads; padded_dh and pack_bf16x2 also serve the long ones
+// ---------------------------------------------------------------------------
+// Fragments of mma.m16n8k16 (row.col, bf16 in pairs, lo element in the low
+// half), g = lane / 4, t = lane % 4:
+//   A (16 x 16): a0 = A[g][2t, 2t+1], a1 = A[g+8][2t, 2t+1],
+//                a2 = A[g][2t+8, 2t+9], a3 = A[g+8][2t+8, 2t+9]
+//   B (16 x 8):  b0 = B[2t, 2t+1][g], b1 = B[2t+8, 2t+9][g]
+//   C (16 x 8):  as m16n8k8's.
+// Each register of A or B is one 8 x 8 block of 16-bit values in the
+// layout ldmatrix gives (lane holds row g, columns 2t and 2t + 1); .trans
+// and movmatrix give a block's transpose in the same layout. So two n8
+// accumulator tiles, packed by cvt.rn.bf16x2, are the A fragment of one k16
+// step over their 16 columns, and a tile kept with its rows and columns
+// swapped is the A fragment of the transposed product after one movmatrix
+// a register.
+
+// a k16 step reads 16 columns: a head of width up to 8 runs at 16
+__host__ __device__ constexpr int padded_dh(int dh) { return dh < 16 ? 16 : dh; }
+
+// two fp32 values rounded to bf16 (nearest even) in one register, lo in the
+// low half
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
+// d += A B, bf16 operands, fp32 accumulator
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four 8 x 8 blocks of 16-bit values from shared memory: lanes 8i to 8i + 7
+// give the row addresses (16 bytes each) of block i, which lands in r[i].
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+// the same, each block transposed
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+// bf16 elements of a one-head bf16 kernel's staged row: dh_pad + 8, so that
+// the 8 rows an ldmatrix reads (16 bytes each) fall on 8 different 16-byte
+// bank groups
+__host__ __device__ constexpr int bf16_pitch(int dh) { return padded_dh(dh) + 8; }
+
+// whether every row of a [B, T, D] input starts on 16 bytes (its address,
+// batch and time strides), so that a head as wide as its template width
+// (a multiple of 8: h * dh floats) can be read 16 bytes at a time
+inline bool rows_on16(long long base, long long sb, long long st) {
+  return base % 16 == 0 && sb % 4 == 0 && st % 4 == 0;
+}
+
+// 8 fp32 values of one row from column c on, the columns from dh on zero:
+// two 16-byte loads where `vec` (the row on 16 bytes, dh = DH), else one by one
+__device__ __forceinline__ void load8(const float* row, int c, int dh, bool vec, float (&f)[8]) {
+  if (vec) {
+    const float4 x0 = __ldg(reinterpret_cast<const float4*>(row + c));
+    const float4 x1 = __ldg(reinterpret_cast<const float4*>(row + c) + 1);
+    f[0] = x0.x, f[1] = x0.y, f[2] = x0.z, f[3] = x0.w;
+    f[4] = x1.x, f[5] = x1.y, f[6] = x1.z, f[7] = x1.w;
+  } else {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) f[e] = c + e < dh ? __ldg(row + c + e) : 0.f;
+  }
+}
+
+// 8 fp32 values rounded to bf16, as one 16-byte store's worth
+__device__ __forceinline__ uint4 pack8(const float (&f)[8]) {
+  return make_uint4(pack_bf16x2(f[0], f[1]), pack_bf16x2(f[2], f[3]),
+                    pack_bf16x2(f[4], f[5]), pack_bf16x2(f[6], f[7]));
+}
+
+// columns c and c + 1 of a row as one bf16 pair (0 past dh, or where the row
+// is not `in`): an A fragment's register read from device memory
+__device__ __forceinline__ uint32_t load2_bf16(const float* row, int c, int dh, bool in,
+                                               bool vec) {
+  if (!in || c >= dh) return 0u;
+  if (vec) {
+    const float2 x = __ldg(reinterpret_cast<const float2*>(row + c));
+    return pack_bf16x2(x.x, x.y);
+  }
+  return pack_bf16x2(__ldg(row + c), c + 1 < dh ? __ldg(row + c + 1) : 0.f);
+}
+
+// an 8 x 8 block of 16-bit values held one register a lane, transposed
+__device__ __forceinline__ uint32_t movm_t(uint32_t x) {
+  uint32_t r;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n" : "=r"(r) : "r"(x));
+  return r;
 }
 
 }  // namespace amid_attention

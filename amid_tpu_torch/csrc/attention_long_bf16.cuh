@@ -45,7 +45,6 @@ constexpr int kThreads = 256;  // two consumer warpgroups; thread 0 also issues 
 constexpr int kOwn = 128;      // rows a block owns, 64 a warpgroup
 constexpr int kPadRows = 128;  // T_pad: T rounded up to this (a multiple of kOwn and of a stage)
 
-__host__ __device__ constexpr int padded_dh(int dh) { return dh < 16 ? 16 : dh; }
 inline long long padded_t(long long T) { return (T + kPadRows - 1) / kPadRows * kPadRows; }
 
 // the sizes of one head width's tiles, for stages of NS rows
@@ -68,14 +67,6 @@ __device__ __forceinline__ uint64_t kmajor_desc(const void* tile) {
 template <int DHP>
 __device__ __forceinline__ uint64_t mnmajor_desc(const void* tile) {
   return matrix_desc(smem_u32(tile), 16 * DHP, 128);
-}
-
-// two fp32 values rounded to bf16 (nearest even) in one register, lo in the
-// low half
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  uint32_t r;
-  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(r) : "f"(hi), "f"(lo));
-  return r;
 }
 
 // The A fragment of one k16 step from the 8 values a thread holds of two

@@ -8,16 +8,15 @@ the source, the headers and the flags, so an edited source or header is
 rebuilt on its next use and an unchanged one is loaded as it is. `build()`
 starts one `nvcc` per library at once and waits for all of them. A
 variant (`VARIANTS`) is a source compiled once more with a define, into a
-library of its own: the one-head attention kernels' bf16-operand builds
-(`attention_fwd_bf16`, `attention_bwd_bf16`, `-DAMID_ATTN_BF16=1`), so that
-the second set of instances compiles beside the first instead of after it;
-and the fp32 long attention paths' builds for padded head widths
-(`attention_fwd_long_pad`, `attention_bwd_long_pad`, `-DAMID_ATTN_PAD=1`),
-whose instances read dh at run time, so that the other build keeps each
-template width's own code.
-The long paths' bf16 mode has sources of its own
-(`csrc/attention_fwd_long_bf16.cu`, `csrc/attention_bwd_long_bf16.cu`:
-native bf16 products), built as any other source.
+library of its own: the fp32 long attention paths' builds for padded head
+widths (`attention_fwd_long_pad`, `attention_bwd_long_pad`,
+`-DAMID_ATTN_PAD=1`), whose instances read dh at run time, so that the
+other build keeps each template width's own code and the second set of
+instances compiles beside the first instead of after it. The bf16 mode of
+the attention kernels has sources of its own, built as any other source:
+the one-head pair (`csrc/attention_fwd_bf16.cu`, `csrc/attention_bwd_bf16.cu`:
+`mma.sync` k16 bf16) and the long paths (`csrc/attention_fwd_long_bf16.cu`,
+`csrc/attention_bwd_long_bf16.cu`: `wgmma` k16 bf16).
 
 Nothing is built at import: the first kernel call builds what it needs.
 
@@ -61,12 +60,11 @@ NVCC_FLAGS = (
 
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on sm_90 (227 KB)
 
-# library name -> (the source it compiles, extra nvcc flags): the one-head
-# attention sources' bf16 builds, and the fp32 long attention paths' builds
-# for head widths below their template width (csrc/attention_common.cuh)
-VARIANTS = {**{f"{n}_bf16": (n, ("-DAMID_ATTN_BF16=1",)) for n in (
-    "attention_fwd", "attention_bwd")}, **{f"{n}_pad": (n, ("-DAMID_ATTN_PAD=1",)) for n in (
-        "attention_fwd_long", "attention_bwd_long")}}
+# library name -> (the source it compiles, extra nvcc flags): the fp32 long
+# attention paths' builds for head widths below their template width
+# (csrc/attention_common.cuh)
+VARIANTS = {f"{n}_pad": (n, ("-DAMID_ATTN_PAD=1",)) for n in (
+    "attention_fwd_long", "attention_bwd_long")}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 

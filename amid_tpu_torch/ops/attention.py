@@ -100,15 +100,19 @@ sums. The plain versions round where the JAX kernel rounds: Q.K^T, and
 P.V with P normalised and the dropout applied; in the backward dO.V^T,
 Pd^T.dO, dS.K and dS^T.Q. D_i stays rowsum(dO o O) in fp32, as in the fp32
 mode (JAX sums dP o P instead, a difference of bf16 rounding). The row
-statistics come from the bf16-operand scores. The one-head kernels are
-their sources built with `AMID_ATTN_BF16=1` (`ops._build.VARIANTS`): each
-operand rounded to bf16 where the fp32 build splits it into TF32 halves, one
-product where it issues three. The long paths have native bf16 kernels
-(`csrc/attention_fwd_long_bf16.cu`, `csrc/attention_bwd_long_bf16.cu`,
-bound under the same library names): a pre-pass rounds q, k, v (and dout)
-to bf16 once a call into a packed scratch from the caching allocator
-(`pack_bf16_plain` is its plain version), and the products are `wgmma`
-k16 steps on 16-bit tiles. The one-head and long forwards run an online
+statistics come from the bf16-operand scores. Every path has native bf16
+kernels of its own, bound under the library names `<source>_bf16` and
+exporting their fp32 counterparts' entry points: the one-head pair
+(`csrc/attention_fwd_bf16.cu`, `csrc/attention_bwd_bf16.cu`) rounds q, k,
+v (and dout) to bf16 once, as a block stages them into 16-bit tiles, and
+its products are `mma.sync` k16 bf16 steps; the long paths
+(`csrc/attention_fwd_long_bf16.cu`, `csrc/attention_bwd_long_bf16.cu`) run
+a pre-pass that rounds them to bf16 once a call into a packed scratch from
+the caching allocator (`pack_bf16_plain` is its plain version), and their
+products are `wgmma` k16 steps on 16-bit tiles. The bf16 one-head kernels
+hold longer heads than the fp32 ones (half the bytes a staged row), so
+`forward_max_t` and `sweep_fits` read the limits of the mode's own kernel.
+The one-head and long forwards run an online
 softmax and so round the unnormalised exp(S - m) (dropout applied) where
 JAX rounds the normalised P, once a key chunk (32 keys; the long forward's
 stage, `LONG_BF16_STAGE_KEYS`): kernel and plain agree to bf16 rounding, not
@@ -403,7 +407,7 @@ def attention_bwd_plain(q, k, v, bias, out, row_max, row_inv_sum, dout,
 class _PlainAttentionBf16(torch.autograd.Function):
     """`attention_plain`'s bf16 mode under autograd: the forward and its row
     statistics by `attention_fwd_stats_plain`, the gradient by
-    `attention_bwd_plain`, the arithmetic of the kernels' bf16 builds."""
+    `attention_bwd_plain`, the arithmetic of the kernels' bf16 mode."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, seed, heads, rate, row_offset):
@@ -439,31 +443,36 @@ _BAD_HEAD_WIDTH, _BAD_SHAPE, _TOO_LONG, _MISALIGNED = -1, -2, -3, -4  # the refu
 _SMALL_SCRATCH = -5  # the fp32 long forward's scratch below its bytes
 _SOURCES = ["attention_fwd", "attention_fwd_long", "attention_bwd", "attention_bwd_long"]
 _PADDED = ["attention_fwd_long", "attention_bwd_long"]  # fp32 builds of their own for padded dh
-# and their bf16 builds, and the padded-width builds
+# the bf16 mode's sources (csrc/<name>_bf16.cu: each exports its fp32
+# counterpart's entry points), and the padded-width builds
 _LIBRARIES = _SOURCES + [f"{n}_bf16" for n in _SOURCES] + [f"{n}_pad" for n in _PADDED]
 
 _fwd = _fwd_long = _bwd = _bwd_long = None  # bound entry points, resolved at the first launch
-_bf16_entry: dict = {}  # entry point name -> the bf16 build's, bound with the others
+_bf16_entry: dict = {}  # entry point name -> the bf16 source's, bound with the others
 _pad_entry: dict = {}  # entry point name -> the padded-width build's (fp32 long paths)
 # the fp32 long forward's scratch bytes, of each build: True the padded-width one's
 _fwd_long_scratch: dict = {}
-_fwd_smem = _bwd_smem = None  # their shared-memory functions, (T, dh) -> bytes
+# mode -> the one-head forward's and the one-sweep backward's shared-memory
+# functions, (T, dh) -> bytes: each mode's kernels hold their own longest T
+_fwd_smem: dict = {}
+_bwd_smem: dict = {}
 _long_max_t = _fwd_long_max_t = None  # the longest T of the long backward and forward
-_fwd_max_t = None  # dh -> the longest T of the one-head forward kernel
-_bwd_fits: dict = {}  # (T, dh) -> whether the one-sweep backward kernel takes it
+_fwd_max_t: dict = {}  # mode -> dh -> the longest T of the one-head forward kernel
+_bwd_fits: dict = {}  # (T, dh, mode) -> whether the one-sweep backward kernel takes it
 
 
 def _bind() -> None:
-    global _fwd, _fwd_long, _bwd, _bwd_long, _fwd_smem, _bwd_smem, _long_max_t, _fwd_long_max_t
-    global _fwd_max_t
+    global _fwd, _fwd_long, _bwd, _bwd_long, _long_max_t, _fwd_long_max_t
     i = ctypes.c_int
     _build.build(_LIBRARIES)  # one nvcc each, all at once
     fwd, fwd_long, bwd, bwd_long = (_build.load(n) for n in _SOURCES)
-    _fwd_smem = _build.bind(fwd.attention_fwd_smem_bytes, [i, i], ctypes.c_size_t)
-    _bwd_smem = _build.bind(bwd.attention_bwd_smem_bytes, [i, i], ctypes.c_size_t)
+    for mode, (f, b) in (("fp32", (fwd, bwd)), ("bf16", (_build.load("attention_fwd_bf16"),
+                                                         _build.load("attention_bwd_bf16")))):
+        _fwd_smem[mode] = _build.bind(f.attention_fwd_smem_bytes, [i, i], ctypes.c_size_t)
+        _bwd_smem[mode] = _build.bind(b.attention_bwd_smem_bytes, [i, i], ctypes.c_size_t)
+        _fwd_max_t[mode] = {dh: _largest_t(_fwd_smem[mode], dh) for dh in KERNEL_HEAD_DIMS}
     _long_max_t = _build.bind(bwd_long.attention_bwd_long_max_t, [])()
     _fwd_long_max_t = _build.bind(fwd_long.attention_fwd_long_max_t, [])()
-    _fwd_max_t = {dh: _largest_t(_fwd_smem, dh) for dh in KERNEL_HEAD_DIMS}
     _fwd = _build.bind(fwd.attention_fwd, [ctypes.c_char_p])
     _fwd_long = _build.bind(fwd_long.attention_fwd_long, [ctypes.c_char_p])
     _bwd = _build.bind(bwd.attention_bwd, [ctypes.c_char_p])
@@ -512,16 +521,17 @@ def _raise(err: int, name: str, smem_bytes, t: int, d: int, heads: int):
     raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
 
 
-def forward_max_t(dh: int) -> int:
-    """The longest T the one-head forward kernel takes at head width `dh`
-    (0 at a width it does not take): one head's K and V at dh's template
-    width in one block's shared memory (`attention_fwd_smem_bytes`, a
-    function that grows with T, against SMEM_LIMIT), found once per template
-    width when the kernels are bound, since every forward launch routes by
-    it."""
+def forward_max_t(dh: int, mode: str = "fp32") -> int:
+    """The longest T the one-head forward kernel of `mode` takes at head
+    width `dh` (0 at a width it does not take): one head's K and V at dh's
+    template width in one block's shared memory (that kernel's
+    `attention_fwd_smem_bytes`, a function that grows with T, against
+    SMEM_LIMIT: fp32 tiles in the fp32 mode, bf16 ones in the bf16 mode),
+    found once per mode and template width when the kernels are bound,
+    since every forward launch routes by it."""
     if _fwd is None:
         _bind()
-    return _fwd_max_t.get(kernel_head_dim(dh), 0)
+    return _fwd_max_t[mode].get(kernel_head_dim(dh), 0)
 
 
 def long_backward_max_t() -> int:
@@ -553,29 +563,36 @@ MODES = ("fp32", "bf16")  # the kernels' modes: fp32 (3xTF32), bf16 operands (`m
 # against 0.510, key padding; causal 0.401 against 0.581); dh=16, the long
 # forward from 300 in both biases (key padding 0.400 and 0.407 against
 # 0.563, causal 0.417 and 0.415 against 0.642), the one-head kernel at 150
-# (0.169 against 0.193). bf16 (the native long forward
-# against the one-head kernel's bf16 build), taken where the long forward
-# was at least 10% faster in each of two sweeps: from 150 at dh=32 (key
-# padding 0.079 against 0.130 ms, causal 0.102 against 0.141); from 300 at
-# dh=16, where SASRec's causal bias reads 0.138 against 0.142 at 150, a 3%
-# margin, and 0.328 against 0.548 at 300. dh=128 (B=256, D=512, T=20, 40,
-# 80, 150 and 200, `chip_smoke.py`'s `width_crossover_sweeps`; the one-head
-# kernel holds T <= 216 there): the long forward the faster from 40 in both
-# modes and both biases (fp32 0.160 against 0.183 ms, key padding; bf16
-# 0.100 against 0.161), the one-head kernel at 20 (0.067 against 0.133).
-# Below it, and at the head widths not swept (8, 64), shapes stay on the
-# one-head kernel as long as it holds them (`forward_max_t`).
+# (0.169 against 0.193). dh=128 (B=256, D=512, T=20, 40, 80, 150 and 200,
+# `chip_smoke.py`'s `width_crossover_sweeps`; the fp32 one-head kernel
+# holds T <= 216 there): the long forward the faster from 40 in both biases
+# (0.160 against 0.183 ms, key padding), the one-head kernel at 20.
+# bf16 (the native long forward against the native one-head kernel,
+# `csrc/attention_fwd_bf16.cu`; its sweeps add T=40 and 1,200, and dh=128
+# T=300 and 400), taken where the long forward was at least 10% faster for
+# both biases in each of two sweeps, long over one-head device time: dh=32
+# from 800 (key padding 0.411 and 0.410, causal 0.478 and 0.484; key padding
+# alone from 300, 0.734 and 0.736, where causal reads 1.020 and 1.039: the
+# one-head kernel skips the causal chunks past a warp's rows, so BERT4Rec's
+# key padding at encoder T=300 runs the one-head kernel at 0.201 ms where
+# the long one takes 0.148); dh=16 from 1,200 (key padding 0.400 and 0.401,
+# causal 0.370 and 0.367; causal at 600 0.893 and 0.901, at 800 1.034 and
+# 1.048, so SASRec's causal T=150 to 800 stays on the one-head kernel); dh=128
+# from 80 (key padding 0.589 and 0.587, causal 0.668 and 0.668; at 40 0.974
+# and 0.970, causal 0.990 and 0.994). Below it, and at the head widths not
+# swept (8, 64), shapes stay on the one-head kernel as long as it holds them
+# (`forward_max_t`).
 LONG_FWD_FASTER_FROM = {"fp32": {16: 300, 32: 300, 128: 40},
-                        "bf16": {16: 300, 32: 150, 128: 40}}
+                        "bf16": {16: 1200, 32: 800, 128: 80}}
 
 
 def forward_route(t: int, dh: int, mode: str = "fp32") -> str:
-    """'long' (the long-sequence forward) where the one-head kernel cannot
-    hold the shape (`forward_max_t(dh) < t`) or from
+    """'long' (the long-sequence forward) where the one-head kernel of
+    `mode` cannot hold the shape (`forward_max_t(dh, mode) < t`) or from
     `LONG_FWD_FASTER_FROM[mode][dh]` on, else 'sweep' (the one-head kernel).
     Binds the kernels."""
     start = LONG_FWD_FASTER_FROM[mode].get(kernel_head_dim(dh))
-    return "long" if (start is not None and t >= start) or forward_max_t(dh) < t else "sweep"
+    return "long" if (start is not None and t >= start) or forward_max_t(dh, mode) < t else "sweep"
 
 
 # For each mode and head width, the shortest T from which the long path's
@@ -584,22 +601,25 @@ def forward_route(t: int, dh: int, mode: str = "fp32") -> str:
 # 512, at B=256, D=128, key padding, rate 0, where both paths take the shape;
 # `bwd_crossover` and `bwd_crossover_bf16` records; NVIDIA H100 80GB HBM3,
 # 700.00 W); a head width between template widths routes as its template
-# width (`kernel_head_dim`). SASRec's causal bias at dh=16 (150 to 600: C2DSR's views)
-# crosses at the same T in fp32. bf16 (the native long backward against
-# the one-sweep kernel's bf16 build), taken where the long path was at least
-# 10% faster in each of two sweeps: from 150 at dh=32 and 64 (0.180 against
-# 0.289 ms at dh=32); at dh=8 from 200 (a tie at 150, 0.384 against 0.384;
-# 0.482 against 0.700 at 200); at dh=16 from 200, where SASRec's causal
-# bias crosses (0.357 against 0.324 ms at 150, 0.465 against 0.568 at 200;
-# key padding from 150). dh=128 (T=20, 48, 64 and 80, where the one-sweep
-# kernel holds the shape; `width_crossover_sweeps`, two sweeps): the long
-# path from 48 in both modes and both biases, fp32 0.455 against 0.582 ms (key padding;
-# causal 0.481 against 0.595), bf16 0.220 against 0.520 (at 20 0.182
-# against 0.191, a 5% margin, and in fp32 0.327 against 0.215). Below it,
-# and wherever the one-sweep kernel was the faster, shapes stay on that
-# kernel.
+# width (`kernel_head_dim`). SASRec's causal bias at dh=16 (150 to 600:
+# C2DSR's views) crosses at the same T in fp32. fp32 dh=128 (T=20, 48, 64
+# and 80, where the one-sweep kernel holds the shape; `width_crossover_sweeps`,
+# two sweeps): the long path from 48 in both biases, 0.455 against 0.582 ms
+# (key padding; causal 0.481 against 0.595), the one-sweep kernel at 20
+# (0.215 against 0.327). bf16 (the native long backward against the native
+# one-sweep kernel, `csrc/attention_bwd_bf16.cu`; its sweeps add T=40, and at
+# dh=128 T=96 and 128), taken where the long path was at least 10% faster
+# for both biases in each of two sweeps, long over one-sweep device time:
+# dh=8 from 200 (0.796 and 0.798; 1.363 and 1.366 at 150); dh=16 from 512,
+# where SASRec's causal bias crosses (0.535 and 0.537; 0.998 and 0.995 at
+# 300, 1.008 and 1.007 at 368; key padding alone from 200, 0.822); dh=32
+# from 256 (0.843 and 0.849; at 200 0.954 and 0.969); dh=64 from 150 (0.868
+# and 0.865; 1.817 and 1.834 at 40); dh=128 from 128, the one-sweep kernel's
+# longest T (key padding 0.892 and 0.898, causal 0.781 and 0.778; at 96 key
+# padding 0.957 and 0.960). Below it, and wherever the one-sweep kernel was
+# the faster, shapes stay on that kernel.
 LONG_FASTER_FROM = {"fp32": {8: 512, 16: 368, 32: 150, 64: 150, 128: 48},
-                    "bf16": {8: 200, 16: 200, 32: 150, 64: 150, 128: 48}}
+                    "bf16": {8: 200, 16: 512, 32: 256, 64: 150, 128: 128}}
 
 
 def long_faster(t: int, dh: int, mode: str = "fp32") -> bool:
@@ -610,22 +630,23 @@ def long_faster(t: int, dh: int, mode: str = "fp32") -> bool:
     return start is not None and t >= start
 
 
-def sweep_fits(t: int, dh: int) -> bool:
-    """Whether the one-sweep kernel's shared memory holds a head of length
-    `t` at head width `dh`. Asks the kernel once per shape (binds them)."""
-    fits = _bwd_fits.get((t, dh))
+def sweep_fits(t: int, dh: int, mode: str = "fp32") -> bool:
+    """Whether the shared memory of the one-sweep kernel of `mode` holds a
+    head of length `t` at head width `dh`. Asks the kernel once per shape
+    and mode (binds them)."""
+    fits = _bwd_fits.get((t, dh, mode))
     if fits is None:
         if _bwd is None:
             _bind()
-        fits = _bwd_fits[(t, dh)] = _bwd_smem(t, dh) <= SMEM_LIMIT
+        fits = _bwd_fits[(t, dh, mode)] = _bwd_smem[mode](t, dh) <= SMEM_LIMIT
     return fits
 
 
 def backward_route(t: int, dh: int, mode: str = "fp32") -> str:
     """'long' (the long-sequence path) where `long_faster(t, dh, mode)` or
-    where the one-sweep kernel cannot hold the shape (`sweep_fits`), else
-    'sweep'."""
-    return "long" if long_faster(t, dh, mode) or not sweep_fits(t, dh) else "sweep"
+    where the one-sweep kernel of `mode` cannot hold the shape
+    (`sweep_fits`), else 'sweep'."""
+    return "long" if long_faster(t, dh, mode) or not sweep_fits(t, dh, mode) else "sweep"
 
 
 def _check_backward_fits(t: int, dh: int) -> None:
@@ -703,7 +724,7 @@ def _launch_forward(q, k, v, bias, seed, heads: int, rate: float, stats: bool, p
     """(out, row_max, row_inv_sum) from one forward launch of the path `path`
     ('sweep', the one-head kernel, or 'long'; None: `forward_route`'s) on
     checked CUDA tensors; the statistics are written (and returned) only with
-    `stats`; `bf16`: the bf16-operand build; `row_offset`: the dropout mask's
+    `stats`; `bf16`: the bf16-operand kernels; `row_offset`: the dropout mask's
     global row of row 0."""
     if _fwd is None:
         _bind()
@@ -719,7 +740,7 @@ def _launch_forward(q, k, v, bias, seed, heads: int, rate: float, stats: bool, p
                                              row_offset)
     err = (_bf16_entry["attention_fwd"] if bf16 else _fwd)(block)
     if err:
-        _raise(err, "attention_fwd", _fwd_smem, t, d, heads)
+        _raise(err, "attention_fwd", _fwd_smem["bf16" if bf16 else "fp32"], t, d, heads)
     if bf16:
         fused_attention.bf16_launches += 1
     else:
@@ -758,7 +779,7 @@ def _launch_forward_long(q, k, v, bias, seed, heads: int, rate: float, stats: bo
         raise ValueError(f"attention_fwd_long: T={t} is beyond its limit of "
                          f"T={_fwd_long_max_t} (or B*heads*ceil(T / 128) beyond 2^31 - 1)")
     if err:
-        _raise(err, "attention_fwd_long", _fwd_smem, t, d, heads)
+        _raise(err, "attention_fwd_long", _fwd_smem["bf16" if bf16 else "fp32"], t, d, heads)
     if bf16:
         fused_attention.long_forward_bf16_launches += 1
     else:
@@ -771,7 +792,7 @@ def _launch_backward(q, k, v, bias, out, row_max, row_inv_sum, dout,
                      row_offset: int = 0):
     """(dq, dk, dv) from one launch of the backward path `path` ('sweep' or
     'long'; None: `backward_route`'s) on checked CUDA tensors; `bf16`: the
-    bf16-operand build; `row_offset` as in `_launch_forward`."""
+    bf16-operand kernels; `row_offset` as in `_launch_forward`."""
     if _bwd is None:
         _bind()
     bsz, t, d = q.shape
@@ -815,7 +836,8 @@ def _launch_backward(q, k, v, bias, out, row_max, row_inv_sum, dout,
             raise ValueError(f"attention_bwd_long: T={t} is beyond its limit of "
                              f"T={_long_max_t} (or B*heads beyond 2^31 - 1)")
         if err:
-            _raise(err, "attention_bwd_long", _bwd_smem, t, d, heads)
+            _raise(err, "attention_bwd_long", _bwd_smem["bf16" if bf16 else "fp32"], t, d,
+                   heads)
         if bf16:
             fused_attention.long_backward_bf16_launches += 1
         else:
@@ -825,7 +847,7 @@ def _launch_backward(q, k, v, bias, out, row_max, row_inv_sum, dout,
         raise ValueError(f"the backward path is 'sweep' or 'long'; got {path!r}")
     err = (_bf16_entry["attention_bwd"] if bf16 else _bwd)(_PACK_BWD(*args))
     if err:
-        _raise(err, "attention_bwd", _bwd_smem, t, d, heads)
+        _raise(err, "attention_bwd", _bwd_smem["bf16" if bf16 else "fp32"], t, d, heads)
     if bf16:
         fused_attention.backward_bf16_launches += 1
     else:
@@ -978,7 +1000,7 @@ fused_attention.launches = 0  # one-head forward kernel launches since the last 
 fused_attention.long_forward_launches = 0  # long-sequence forward kernel launches
 fused_attention.backward_launches = 0  # one-sweep backward kernel launches
 fused_attention.long_backward_launches = 0  # long-sequence backward calls (two kernels each)
-fused_attention.bf16_launches = 0  # the same four of the bf16-operand builds
+fused_attention.bf16_launches = 0  # the same four of the bf16-operand kernels
 fused_attention.long_forward_bf16_launches = 0
 fused_attention.backward_bf16_launches = 0
 fused_attention.long_backward_bf16_launches = 0

@@ -8,10 +8,10 @@ JAX package. Phases, in order (any failure ends the run with a non-zero exit
 code and no result line):
 
 1. the card's name and power limit; build every CUDA kernel of the serving
-   and training paths from `amid_tpu_torch/csrc/` (eight sources, the long
-   attention paths' two native bf16 sources, the one-head attention
-   sources' bf16 builds and the fp32 long paths' builds for padded head
-   widths, one `nvcc` each, all started together), timing the build;
+   and training paths from `amid_tpu_torch/csrc/` (eight sources, the
+   attention paths' four native bf16 sources (one-head pair and long
+   paths) and the fp32 long paths' builds for padded head widths, one
+   `nvcc` each, all started together), timing the build;
 2. kernels: each kernel against its plain PyTorch version on the card, at
    the main paths' shapes, with its time beside the plain version's, one
    PyTorch library call's (a yardstick the port never calls) and the card's
@@ -183,9 +183,8 @@ code and no result line):
    27,000-row synthetic CSV packed by the native reader (the repository's
    library, or one built into `_build/`) and by the Python reader, the
    arrays equal, both times;
-10. the precision flags: each bf16-operand mode (K1's one-head paths built
-   with `AMID_ATTN_BF16=1`, its long paths' native bf16 kernels, K5's bf16
-   flag), on 3 draws a case, against an fp64 oracle of its own rounding
+10. the precision flags: each bf16-operand mode (K1's native bf16 kernels,
+   one-head and long, K5's bf16 flag), on 3 draws a case, against an fp64 oracle of its own rounding
    points, its plain bf16 version and (that version) an fp64 oracle of the
    JAX kernel's rounding, each within the case's limit (BF16_LIMITS), with
    the fp32 build at the same inputs outside the oracle's limit; timed
@@ -193,8 +192,9 @@ code and no result line):
    bound at the bf16 peak); both bf16 crossover sweeps (`fwd_crossover_bf16`,
    `bwd_crossover_bf16`: the numbers behind the routes' bf16 tables);
    `--bf16 True` on the run.sh model at T=20 (lazy, quirk) and T=150
-   (dense, pairwise) and on BERT4Rec at T=150 (both long paths): `run_seed`
-   with its launches on the bf16 builds, an eager phase-A and phase-B step
+   (dense, pairwise) and on BERT4Rec at T=150 (encoder T=300: the bf16
+   one-head forward and long backward): `run_seed`
+   with its launches on the bf16 kernels, an eager phase-A and phase-B step
    against the kernels='torch' bf16 model (losses, updates, moments),
    replayed steps bit-equal to eager ones, the
    feature pass against the fp32 model's and the replayed phase A beside
@@ -202,10 +202,11 @@ code and no result line):
    remat (8 attention forwards: the recompute), replayed remat steps
    bit-equal to eager ones, and the replayed phase A's time and peak memory
    with and without remat at batch 256 and 1,024; the owed many-step check
-   (`bf16_drift`): 100 phase-A steps of `--bf16` BERT4Rec at T=150 with
-   the kernels and with the plain versions from one seed, the fp32 pair
-   beside them, the loss gap every 10 steps and HIT/NDCG@10 of one
-   evaluation, the bf16 pair's final losses within 1% of each other, and
+   (`bf16_drift`): 100 phase-A steps of `--bf16` BERT4Rec at T=150 and 50
+   of `--bf16` SASRec at T=150 (the one-head pair) with
+   the kernels and with the plain versions from one seed, BERT4Rec's fp32
+   pair beside them, the loss gap every 10 steps and HIT/NDCG@10 of one
+   evaluation, each bf16 pair's final losses within 1% of each other, and
    every 10 steps the bf16 kernels on that step's own attention inputs
    against their fp64 oracles;
 11. the parallel layer (`amid_tpu_torch/parallel/`, `mesh_phase`) on a
@@ -225,15 +226,16 @@ code and no result line):
 12. K1 at every head width up to 128 (`width_kernel_phase`,
    `width_crossover_sweeps`, `width_config_phase`): all six attention paths
    (the one-head forward and one-sweep backward, the fp32 long forward and
-   backward, the bf16 builds and native bf16 long kernels) at dh 12, 24, 48
+   backward, the native bf16 one-head and long kernels) at dh 12, 24, 48
    (padded to the template widths 16, 32, 64) and 128, causal and key
    padding, rates 0 and 0.1, B=256, against their plain versions (fp32:
    `kernel_plain`'s tolerances, the row statistics at LONG_STATS_ATOL, the
    backward at `bwd_atol`; bf16: BF16_LIMITS of the path's existing case,
    the fp32 build outside it), each timed (device_ms, host_us, SDPA, the
-   bound); both paths' device time at dh=128 (forward T=150 and 200,
-   backward T=20 to 80, where the one-head kernels hold the shape, fp32 and
-   bf16: the routes' dh=128 entries); then configuration (a), BERT4Rec at
+   bound); both paths' device time at dh=128 (forward T=20 to 200,
+   backward T=20 to 80, in bf16 also forward T=300 and 400 and backward
+   T=96 and 128, where each mode's one-head kernels hold the shape: the
+   routes' dh=128 entries); then configuration (a), BERT4Rec at
    `--emb_dim 512` (4 heads of 128) and `--seq_len 150` (encoder T=300: both
    long paths at dh=128), dense Adam: serving (feature pass and top-100),
    `run_seed` on the fast loops, the step-level checks against
@@ -304,6 +306,11 @@ SMALLN_SWEEP = (8, 16, 20, 24, 32, 40, 48, 64, 80)  # N=M of the K6/K7 crossover
 BWD_SWEEP_T = (150, 200, 256, 300, 368, 512)
 BWD_SWEEP_HEADS = (4, 8, 2, 16)  # dh 32, 16, 64, 8
 FWD_SWEEP_T = (150, 300, 368, 512, 600, 800)  # the forward route's crossover, dh 32 and 16
+# the bf16 crossovers: the same T, 40 (BERT4Rec's encoder at T=20) and, for
+# the forward, 1,200; the native bf16 one-head kernels hold every T here at
+# these widths (the forward T <= 1,440 at dh=32)
+BF16_FWD_SWEEP_T = (40, *FWD_SWEEP_T, 1200)
+BF16_BWD_SWEEP_T = (40, *BWD_SWEEP_T)
 OPEN_SHARE = (0.05, 0.95)  # share of open gates the opened-threshold check needs
 TOPK_RTOL, TOPK_ATOL = 1e-5, 1e-6  # catalog top-k vs dense oracle
 FLAGSHIP = dict(
@@ -335,14 +342,13 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
                              "amid_tpu/ops/pallas_affinity.py:39"),
     "max_affinity_smalln": ("amid_tpu_torch/csrc/affinity.cu",
                             "amid_tpu/ops/pallas_affinity.py:127"),
-    # the bf16-operand modes (the model's --bf16): K1's one-head sources built
-    # with AMID_ATTN_BF16=1, its long paths' native bf16 sources, the
-    # kernel's bf16 flag (K5)
-    "attention_fwd_bf16": ("amid_tpu_torch/csrc/attention_fwd.cu",
+    # the bf16-operand modes (the model's --bf16): K1's native bf16 sources,
+    # one-head and long, the kernel's bf16 flag (K5)
+    "attention_fwd_bf16": ("amid_tpu_torch/csrc/attention_fwd_bf16.cu",
                            "amid_tpu/ops/pallas_attention.py:99"),
     "attention_fwd_long_bf16": ("amid_tpu_torch/csrc/attention_fwd_long_bf16.cu",
                                 "amid_tpu/ops/pallas_attention.py:99"),
-    "attention_bwd_bf16": ("amid_tpu_torch/csrc/attention_bwd.cu",
+    "attention_bwd_bf16": ("amid_tpu_torch/csrc/attention_bwd_bf16.cu",
                            "amid_tpu/ops/pallas_attention.py:118"),
     "attention_bwd_long_bf16": ("amid_tpu_torch/csrc/attention_bwd_long_bf16.cu",
                                 "amid_tpu/ops/pallas_attention.py:118"),
@@ -367,7 +373,9 @@ LN2_TOL = 0.05  # first loss_cls vs ln 2
 TRAIN_ROWS, VAL_ROWS, DR_ROWS = 4096, 1024, 4096  # 16 + 16 steps, 4 eval batches, twice
 GRAPH_STEPS = 4  # graph_steps: the eager step, the captured one and two replays
 RANKS_EQUAL_SHARE = 0.999  # replayed vs eager evaluation batch, same weights and key
-TIMED_STEPS = 10  # step_timing: steps timed and traced per step kind (a replay chunk: 16)
+# step_timing: eager steps timed and traced per step kind (a replay chunk: 16);
+# 5 since the script's time on a slow host neared its limit (10 before)
+TIMED_STEPS = 5
 FLIP_EPOCHS = 3  # phase 6: epochs of training before the gates are counted
 # phase 10, the bf16-operand modes. Each case is read as norms over its
 # outputs, ||x - y|| / ||y|| in fp64 (the largest over BF16_DRAWS draws and,
@@ -2841,8 +2849,9 @@ def bf16_attention_oracle(torch, q, k, v, bias, seed, heads, rate):
 
 def key_chunk(path: str, dh: int) -> int:
     """Keys a bf16 forward kernel takes per online-softmax step, at every
-    head width: kChunk = 32 in `attention_fwd.cu`, a stage of kStageKeys in
-    `attention_fwd_long_bf16.cu` (`ops/attention.py::LONG_BF16_STAGE_KEYS`)."""
+    head width: kChunk = 32 in `attention_fwd_bf16.cu`, a stage of
+    kStageKeys in `attention_fwd_long_bf16.cu`
+    (`ops/attention.py::LONG_BF16_STAGE_KEYS`)."""
     from amid_tpu_torch.ops.attention import LONG_BF16_STAGE_KEYS
 
     return 32 if path == "sweep" else LONG_BF16_STAGE_KEYS
@@ -2988,8 +2997,8 @@ def bf16_kernel_phase(torch, gen):
     key padding, rate 0.1), fed the plain forward's residuals; K5's pair at
     C=1000 and C=2. The first draw is timed (the fp32 build's `device_ms` at
     the same shape beside it; library: SDPA on bf16 q, k, v); `bound_ms` at
-    the bf16 tensor-core peak (the function: bf16 operands, fp32 sums), the
-    TF32 peak's, which the kernels' instructions run at, as `bound_tf32_ms`."""
+    the bf16 tensor-core peak (bf16 operands, fp32 sums: the function, and
+    the native kernels' instructions)."""
     import torch.nn.functional as F
 
     from amid_tpu_torch.ops import attention as attention_ops
@@ -3055,7 +3064,6 @@ def bf16_kernel_phase(torch, gen):
                         qh, kh, vh, attn_mask=mask, dropout_p=rate), iters, library=True))
                     rec["bound_ms"], rec["bound_by"] = attention_bound(
                         B, t, D, heads, bias.numel(), BF16_TENSOR_FLOPS)
-                    rec["bound_tf32_ms"] = attention_bound(B, t, D, heads, bias.numel())[0]
                     del qh, kh, vh, mask
         rec.update(readings.verdict(name), draws=BF16_DRAWS)
         emit({"kernel_case_bf16": rec})
@@ -3111,7 +3119,6 @@ def bf16_kernel_phase(torch, gen):
                 rec.update({key: both[key] - fwd_only[key] for key in both})
                 rec["bound_ms"], rec["bound_by"] = attention_bwd_bound(
                     B, t, D, heads, bias.numel(), BF16_TENSOR_FLOPS)
-                rec["bound_tf32_ms"] = attention_bwd_bound(B, t, D, heads, bias.numel())[0]
                 del leaves, g16, mask
         rec.update(readings.verdict(name), draws=BF16_DRAWS)
         emit({"kernel_case_bf16": rec})
@@ -3303,11 +3310,11 @@ BF16_CROSS_BWD_REL = 1e-3  # the two bf16 backward paths' gradients
 
 def bf16_crossover_sweeps(torch, gen):
     """Phase 10(b): the bf16 routes' crossovers, the sweeps of phase 2 with
-    the bf16 builds: both forward paths' `device_ms` at B=256, D=128, rate
-    0, key padding and causal, T in FWD_SWEEP_T at dh 32 and 16
-    (`fwd_crossover_bf16`), both backward paths' at T in BWD_SWEEP_T for
-    the head widths of BWD_SWEEP_HEADS wherever the one-sweep kernel holds
-    the shape, key padding, and causal at dh=16 up to T=600
+    the bf16 kernels: both forward paths' `device_ms` at B=256, D=128, rate
+    0, key padding and causal, T in BF16_FWD_SWEEP_T at dh 32 and 16
+    (`fwd_crossover_bf16`), both backward paths' at T in BF16_BWD_SWEEP_T
+    for the head widths of BWD_SWEEP_HEADS wherever the bf16 one-sweep
+    kernel holds the shape, key padding, and causal at dh=16 up to T=600
     (`bwd_crossover_bf16`): the numbers behind the "bf16" tables of
     `ops/attention.py`'s LONG_FWD_FASTER_FROM and LONG_FASTER_FROM. The two
     forwards round exp(S - m) at their own stages (32 and 64 keys), so their
@@ -3327,7 +3334,7 @@ def bf16_crossover_sweeps(torch, gen):
     for heads in (4, 8):
         dh = D // heads
         for kind in ("keypad", "causal"):
-            for t in FWD_SWEEP_T:
+            for t in BF16_FWD_SWEEP_T:
                 q, k, v = (torch.randn(B, t, D, device="cuda", generator=gen) for _ in range(3))
                 bias = keypad_bias(torch, gen, B, t) if kind == "keypad" else causal(t)
                 outs, ms = {}, {}
@@ -3368,8 +3375,8 @@ def bf16_crossover_sweeps(torch, gen):
 
     for heads in BWD_SWEEP_HEADS:
         dh = D // heads
-        for t in BWD_SWEEP_T:
-            if not sweep_fits(t, dh):
+        for t in BF16_BWD_SWEEP_T:
+            if not sweep_fits(t, dh, "bf16"):
                 continue
             ms, rel = bwd_pair(t, heads, keypad_bias(torch, gen, B, t), ("sweep", "long"))
             rec = {"T": t, "dh": dh, "bias": "keypad", "route": backward_route(t, dh, "bf16"),
@@ -3379,8 +3386,8 @@ def bf16_crossover_sweeps(torch, gen):
             emit({"bwd_crossover_bf16": rec})
             recs.append(("bwd", rec))
             torch.cuda.empty_cache()
-    for t in (*BWD_SWEEP_T, 600):
-        paths = ("sweep", "long") if sweep_fits(t, 16) else ("long",)
+    for t in (*BF16_BWD_SWEEP_T, 600):
+        paths = ("sweep", "long") if sweep_fits(t, 16, "bf16") else ("long",)
         ms, rel = bwd_pair(t, 8, causal(t), paths)
         rec = {"T": t, "dh": 16, "bias": "causal", "route": backward_route(t, 16, "bf16"),
                "long_faster": long_faster(t, 16, "bf16"), "measured_faster": min(ms, key=ms.get),
@@ -3391,12 +3398,24 @@ def bf16_crossover_sweeps(torch, gen):
     return recs
 
 
-DRIFT_STEPS, DRIFT_EVERY = 100, 10  # bf16_drift: phase-A steps, and the loss gap's cadence
+DRIFT_EVERY = 10  # bf16_drift: the loss gap's and the oracle checks' cadence
 DRIFT_LOSS_REL = 0.01  # the bf16 pair's final losses within 1% of each other
-# the bf16 long kernels on the drift run's own attention inputs, against the
-# fp64 oracles of their rounding: the long cases' kernel_oracle limits
-DRIFT_KERNEL_LIMITS = {"fwd": BF16_LIMITS["bf16_long_keypad_T600_h4_rate0.1"][0],
-                       "bwd": BF16_LIMITS["bf16_bwd_long_keypad_T600_h4_rate0.1"][0]}
+# bf16_drift's runs: (config, ModelConfig overrides of FLAGSHIP, modes,
+# phase-A steps). BERT4Rec (encoder T=300, dh=32) runs the bf16 one-head
+# forward and the long backward (the routes' bf16 tables), SASRec (dh=16)
+# the one-head pair. fp32 is the control pair, on BERT4Rec only, and SASRec
+# takes 50 steps (the script's time)
+DRIFT_RUNS = (
+    ("bert4rec_T150_dense", {"seq_len": 150, **BACKBONES["bert4rec"]}, ("bf16", "fp32"), 100),
+    ("sasrec_T150_dense", {"seq_len": 150}, ("bf16",), 50),
+)
+# the bf16 kernels on the runs' own attention inputs against the fp64
+# oracles of their rounding, by direction and path: the kernel_oracle limits
+# of the path's cases with dropout (both models train with it)
+DRIFT_KERNEL_LIMITS = {("fwd", "sweep"): BF16_LIMITS["bf16_causal_T150_h8_rate0.5"][0],
+                       ("fwd", "long"): BF16_LIMITS["bf16_long_keypad_T600_h4_rate0.1"][0],
+                       ("bwd", "sweep"): BF16_LIMITS["bf16_bwd_causal_T150_h8_rate0.5"][0],
+                       ("bwd", "long"): BF16_LIMITS["bf16_bwd_long_keypad_T600_h4_rate0.1"][0]}
 
 
 def trajectory_attention(torch, probe, model, batch, pools, key, gen):
@@ -3444,86 +3463,99 @@ def trajectory_attention(torch, probe, model, batch, pools, key, gen):
 
 def bf16_drift_check(torch, rng):
     """Phase 10(e): how far bf16 training with the kernels parts from bf16
-    training with the plain versions over many steps. BERT4Rec at T=150,
-    dense Adam (encoder T=300, dh=32: both bf16 long paths where the bf16
-    routes take them), DRIFT_STEPS eager phase-A steps from one seed and one
-    key a step over the same synthetic batches, with kernels='cuda' and
-    kernels='torch', in bf16 and, as the control, in fp32; the loss gap of
-    each pair every DRIFT_EVERY steps, and HIT/NDCG@10 of one evaluation
-    of the validation rows at the end. The bf16 pair's final losses must lie
-    within DRIFT_LOSS_REL of each other (a gap that grows step on step is a
-    fault of the kernels). Neither that gap nor a loss or gradient of
-    one step from shared weights tells a faulty kernel from a sound one at
-    these weights: the loss sits near ln 2, and bf16 rounding moves the
-    encoders' gradients as much as a dropout mask one key off does. So
-    every DRIFT_EVERY steps of the bf16 kernel run, the bf16 kernels are
-    also held to their fp64 oracles on that step's own attention inputs
-    (`trajectory_attention`, DRIFT_KERNEL_LIMITS)."""
+    training with the plain versions over many steps, for each run of
+    DRIFT_RUNS: BERT4Rec at T=150, dense Adam (encoder T=300, dh=32: the
+    paths the bf16 routes take), and the run.sh SASRec at T=150, dense Adam
+    (dh=16: the one-head pair). The run's eager phase-A steps from one seed
+    and one key a step over the same synthetic batches, with kernels='cuda'
+    and kernels='torch', in bf16 and, as the control on BERT4Rec, in fp32;
+    the loss gap of each pair every
+    DRIFT_EVERY steps, and HIT/NDCG@10 of one evaluation of the validation
+    rows at the end. The bf16 pair's final losses must lie within
+    DRIFT_LOSS_REL of each other (a gap that grows step on step is a fault
+    of the kernels). Neither that gap nor a loss or gradient of one step
+    from shared weights tells a faulty kernel from a sound one at these
+    weights: the loss sits near ln 2, and bf16 rounding moves the encoders'
+    gradients as much as a dropout mask one key off does. So every
+    DRIFT_EVERY steps of the bf16 kernel run, the bf16 kernels are also held
+    to their fp64 oracles on that step's own attention inputs
+    (`trajectory_attention`, DRIFT_KERNEL_LIMITS of the paths the routes
+    take)."""
     from amid_tpu_torch.config import DataConfig, ModelConfig, TrainConfig
     from amid_tpu_torch.data.loader import BatchIterator
     from amid_tpu_torch.data.synthetic import synth_packed
     from amid_tpu_torch.train.loop import _device_pools, _to_device
     from amid_tpu_torch.train.metrics import rank_metrics
 
-    base = ModelConfig(**{**FLAGSHIP, "seq_len": 150, **BACKBONES["bert4rec"]})
-    train_ds, val_ds = (synth_packed(base, rng, n) for n in (TRAIN_ROWS, VAL_ROWS))
-    batches = [_to_device(b, "cuda") for b in BatchIterator(train_ds, base.batch_size, False)]
-    val_batches = [_to_device(b, "cuda") for b in BatchIterator(val_ds, base.batch_size, False)]
-    pools = _device_pools(train_ds, "cuda")
-    val_pools = _device_pools(val_ds, "cuda")
-    rec = {"config": "bert4rec_T150_dense", "steps": DRIFT_STEPS}
-    kernel_readings = {}
     gen = torch.Generator(device="cuda")  # the trajectory checks' dO
     gen.manual_seed(int(rng.integers(2**31)))
-    t0 = time.perf_counter()
-    for mode in ("bf16", "fp32"):
-        cfg = dataclasses.replace(base, use_bf16=mode == "bf16")
-        tcfg = TrainConfig(epochs=1, seeds=1, model_dir="", lazy_table_adam=False,
-                           nan_policy="halt", checkpoint=False, model=cfg,
-                           data=DataConfig(neg_nums=999))
-        losses, evals = {}, {}
-        for kernels in ("cuda", "torch"):
-            model, state, step_a, _, eval_step = make_steps(cfg, tcfg, kernels)
-            # the kernel model that takes the bf16 kernel run's attention inputs
-            probe = make_steps(cfg, tcfg, "cuda")[:3] if (
-                mode, kernels) == ("bf16", "cuda") else None
-            got = []
-            for i in range(DRIFT_STEPS):
-                batch = batches[i % len(batches)]
-                if probe is not None and (i + 1) % DRIFT_EVERY == 0:
-                    kernel_readings[str(i + 1)] = trajectory_attention(
-                        torch, probe, model, batch, pools, 7000 + i, gen)
-                _, m = step_a(state, batch, *pools, 7000 + i)
-                got.append(m["loss"])
-            del probe
-            losses[kernels] = [float(x) for x in torch.stack(got).cpu()]
-            ranks = [eval_step(b, *val_pools, 9000 + i)["ranks_fixed"]
-                     for i, b in enumerate(val_batches)]
-            metrics = rank_metrics(torch.cat(ranks).cpu().numpy())
-            evals[kernels] = {k: metrics[k] for k in ("hit_10", "ndcg_10")}
-            del model, state, step_a, eval_step
-            torch.cuda.empty_cache()
-        require(all(math.isfinite(x) for run in losses.values() for x in run),
-                f"bf16_drift {mode}: a non-finite loss")
-        gaps = [abs(a - b) for a, b in zip(losses["cuda"], losses["torch"])]
-        rec[mode] = {
-            "loss_gap_every": {str(i + 1): gaps[i]
-                               for i in range(DRIFT_EVERY - 1, DRIFT_STEPS, DRIFT_EVERY)},
-            "final_loss": {k: run[-1] for k, run in losses.items()},
-            "final_rel_gap": gaps[-1] / abs(losses["torch"][-1]),
-            "eval": evals}
-    rec["bf16"]["kernel_oracle_every"] = kernel_readings
-    rec["bf16"]["kernel_oracle_limits"] = DRIFT_KERNEL_LIMITS
-    rec["seconds"] = time.perf_counter() - t0
-    emit({"bf16_drift": rec})
-    for what, limit in DRIFT_KERNEL_LIMITS.items():
-        worst = max(x[what] for x in kernel_readings.values())
-        require(worst <= limit, f"bf16_drift: the bf16 {what} kernel reads {worst} from its "
-                                f"fp64 oracle on the run's own inputs, above {limit}")
-    require(rec["bf16"]["final_rel_gap"] <= DRIFT_LOSS_REL,
-            f"bf16_drift: the bf16 pair's final losses are {rec['bf16']['final_rel_gap']} "
-            f"apart (relative), above {DRIFT_LOSS_REL}")
-    return rec
+    recs = {}
+    for config, overrides, modes, steps in DRIFT_RUNS:
+        base = ModelConfig(**{**FLAGSHIP, **overrides})
+        train_ds, val_ds = (synth_packed(base, rng, n) for n in (TRAIN_ROWS, VAL_ROWS))
+        batches = [_to_device(b, "cuda")
+                   for b in BatchIterator(train_ds, base.batch_size, False)]
+        val_batches = [_to_device(b, "cuda")
+                       for b in BatchIterator(val_ds, base.batch_size, False)]
+        pools = _device_pools(train_ds, "cuda")
+        val_pools = _device_pools(val_ds, "cuda")
+        rec = {"config": config, "steps": steps}
+        kernel_readings = {}
+        t0 = time.perf_counter()
+        for mode in modes:
+            cfg = dataclasses.replace(base, use_bf16=mode == "bf16")
+            tcfg = TrainConfig(epochs=1, seeds=1, model_dir="", lazy_table_adam=False,
+                               nan_policy="halt", checkpoint=False, model=cfg,
+                               data=DataConfig(neg_nums=999))
+            losses, evals = {}, {}
+            for kernels in ("cuda", "torch"):
+                model, state, step_a, _, eval_step = make_steps(cfg, tcfg, kernels)
+                # the kernel model that takes the bf16 kernel run's attention inputs
+                probe = make_steps(cfg, tcfg, "cuda")[:3] if (
+                    mode, kernels) == ("bf16", "cuda") else None
+                got = []
+                for i in range(steps):
+                    batch = batches[i % len(batches)]
+                    if probe is not None and (i + 1) % DRIFT_EVERY == 0:
+                        kernel_readings[str(i + 1)] = trajectory_attention(
+                            torch, probe, model, batch, pools, 7000 + i, gen)
+                    _, m = step_a(state, batch, *pools, 7000 + i)
+                    got.append(m["loss"])
+                del probe
+                losses[kernels] = [float(x) for x in torch.stack(got).cpu()]
+                ranks = [eval_step(b, *val_pools, 9000 + i)["ranks_fixed"]
+                         for i, b in enumerate(val_batches)]
+                metrics = rank_metrics(torch.cat(ranks).cpu().numpy())
+                evals[kernels] = {k: metrics[k] for k in ("hit_10", "ndcg_10")}
+                del model, state, step_a, eval_step
+                torch.cuda.empty_cache()
+            require(all(math.isfinite(x) for run in losses.values() for x in run),
+                    f"bf16_drift {config} {mode}: a non-finite loss")
+            gaps = [abs(a - b) for a, b in zip(losses["cuda"], losses["torch"])]
+            rec[mode] = {
+                "loss_gap_every": {str(i + 1): gaps[i]
+                                   for i in range(DRIFT_EVERY - 1, steps, DRIFT_EVERY)},
+                "final_loss": {k: run[-1] for k, run in losses.items()},
+                "final_rel_gap": gaps[-1] / abs(losses["torch"][-1]),
+                "eval": evals}
+        limits = {what: DRIFT_KERNEL_LIMITS[(what, path)]
+                  for what, path in kernel_readings[str(DRIFT_EVERY)]["paths"].items()}
+        rec["bf16"]["kernel_oracle_every"] = kernel_readings
+        rec["bf16"]["kernel_oracle_limits"] = limits
+        rec["seconds"] = time.perf_counter() - t0
+        emit({"bf16_drift": rec})
+        for what, limit in limits.items():
+            worst = max(x[what] for x in kernel_readings.values())
+            require(worst <= limit, f"bf16_drift {config}: the bf16 {what} kernel reads "
+                                    f"{worst} from its fp64 oracle on the run's own inputs, "
+                                    f"above {limit}")
+        require(rec["bf16"]["final_rel_gap"] <= DRIFT_LOSS_REL,
+                f"bf16_drift {config}: the bf16 pair's final losses are "
+                f"{rec['bf16']['final_rel_gap']} apart (relative), above {DRIFT_LOSS_REL}")
+        recs[config] = rec
+        del batches, val_batches, pools, val_pools
+        torch.cuda.empty_cache()
+    return recs
 
 
 def precision_phase(torch, rng):
@@ -3534,7 +3566,8 @@ def precision_phase(torch, rng):
     kernels='torch' bf16 model (`bf16_step_check`), replayed steps bit-equal
     to eager ones, the feature pass against the fp32 model's, and the
     replayed phase A beside fp32's. (c) BERT4Rec at T=150 under `--bf16
-    True` (encoder T=300, dh=32: both native bf16 long paths): `run_seed`,
+    True` (encoder T=300, dh=32: the bf16 routes take the one-head forward
+    and the long backward): `run_seed`,
     the step check, replayed steps bit-equal to eager ones, the replayed
     phase A beside fp32's. (d) `--remat
     True` on the run.sh model at T=150, dense: one phase-A step with and
@@ -3917,8 +3950,10 @@ WIDTH_BF16_LIMITS = {
     ("bwd", "long", False): "bf16_bwd_long_native",
     ("bwd", "long", True): "bf16_bwd_long_native",
 }
-WIDTH_FWD_SWEEP_T = (20, 40, 80, 150, 200)  # dh=128: the one-head forward holds T <= 216
-WIDTH_BWD_SWEEP_T = (20, 48, 64, 80)  # dh=128: the one-sweep backward holds T <= 80
+# dh=128, each mode up to the T its one-head kernels hold: the fp32 forward
+# T <= 216 and backward T <= 80, the bf16 ones T <= 416 and T <= 128
+WIDTH_FWD_SWEEP_T = {"fp32": (20, 40, 80, 150, 200), "bf16": (20, 40, 80, 150, 200, 300, 400)}
+WIDTH_BWD_SWEEP_T = {"fp32": (20, 48, 64, 80), "bf16": (20, 48, 64, 80, 96, 128)}
 # configuration (b)'s CLI runs: 4 phase-A and 4 phase-B steps, 2 evaluation batches
 WIDTH_CLI_ROWS = (1024, 1024, 512)  # train, DR, val
 
@@ -3941,7 +3976,7 @@ def width_kernel_phase(torch, gen):
     `device_ms`, `host_us` (one round of 10 calls), the plain version's ms,
     SDPA's (on bf16 q, k, v in bf16; its backward as forward + backward
     less the forward) and the bound (the TF32 peak in fp32, the bf16 peak
-    in bf16, `bound_tf32_ms` beside it)."""
+    in bf16)."""
     import torch.nn.functional as F
 
     from amid_tpu_torch.ops import attention as attention_ops
@@ -4037,8 +4072,6 @@ def width_kernel_phase(torch, gen):
         library(rec, q, k, v, None, bias, heads, rate, bf16)
         peak = BF16_TENSOR_FLOPS if bf16 else TF32_TENSOR_FLOPS
         rec["bound_ms"], rec["bound_by"] = attention_bound(B, t, d, heads, bias.numel(), peak)
-        if bf16:
-            rec["bound_tf32_ms"] = attention_bound(B, t, d, heads, bias.numel())[0]
         emit({"kernel_case_width": rec})
         cases[name] = rec
 
@@ -4108,8 +4141,6 @@ def width_kernel_phase(torch, gen):
         peak = BF16_TENSOR_FLOPS if bf16 else TF32_TENSOR_FLOPS
         rec["bound_ms"], rec["bound_by"] = attention_bwd_bound(B, t, d, heads, bias.numel(),
                                                                peak)
-        if bf16:
-            rec["bound_tf32_ms"] = attention_bwd_bound(B, t, d, heads, bias.numel())[0]
         emit({"kernel_case_width": rec})
         cases[name] = rec
 
@@ -4128,9 +4159,9 @@ def width_kernel_phase(torch, gen):
 
 def width_crossover_sweeps(torch, gen):
     """Phase 12(b): both forward paths' `device_ms` at dh=128 (B=256, D=512,
-    rate 0) at the T of WIDTH_FWD_SWEEP_T, where the one-head kernel holds
-    the shape, and both backward paths' at WIDTH_BWD_SWEEP_T, where the
-    one-sweep kernel does, key padding and causal, fp32 and bf16; the two
+    rate 0) at the T of WIDTH_FWD_SWEEP_T, where the mode's one-head kernel
+    holds the shape, and both backward paths' at WIDTH_BWD_SWEEP_T, where
+    the mode's one-sweep kernel does, key padding and causal, fp32 and bf16; the two
     paths' outputs agree (`fwd_crossover` / `bwd_crossover` records with
     "dh": 128, and their `_bf16` twins: the numbers behind the dh=128
     entries of `ops/attention.py`'s LONG_FWD_FASTER_FROM and
@@ -4138,14 +4169,17 @@ def width_crossover_sweeps(torch, gen):
     sends a shape to the long paths."""
     from amid_tpu_torch.ops import attention as attention_ops
     from amid_tpu_torch.ops.attention import (
-        attention_fwd_stats_plain, backward_route, forward_route, forward_max_t, sweep_fits,
+        MODES, attention_fwd_stats_plain, backward_route, forward_route, forward_max_t,
+        sweep_fits,
     )
 
     B, D, heads, dh = 256, 512, 4, 128
-    require(max(WIDTH_FWD_SWEEP_T) <= forward_max_t(dh) < 300,
-            f"the one-head forward at dh=128 holds T<={forward_max_t(dh)}")
-    require(sweep_fits(max(WIDTH_BWD_SWEEP_T), dh) and not sweep_fits(96, dh),
-            "the one-sweep backward at dh=128 holds T<=80")
+    for mode in MODES:
+        fwd_t, bwd_t = WIDTH_FWD_SWEEP_T[mode], WIDTH_BWD_SWEEP_T[mode]
+        require(max(fwd_t) <= forward_max_t(dh, mode),
+                f"the {mode} one-head forward at dh=128 holds T<={forward_max_t(dh, mode)}")
+        require(sweep_fits(max(bwd_t), dh, mode),
+                f"the {mode} one-sweep backward at dh=128 does not hold T={max(bwd_t)}")
 
     def causal(t):
         return torch.triu(torch.full((t, t), -1e9, device="cuda"), diagonal=1)[None, None]
@@ -4154,7 +4188,7 @@ def width_crossover_sweeps(torch, gen):
         mode = "bf16" if bf16 else "fp32"
         tag = "_bf16" if bf16 else ""
         for kind in ("keypad", "causal"):
-            for t in WIDTH_FWD_SWEEP_T:
+            for t in WIDTH_FWD_SWEEP_T[mode]:
                 q, k, v = (torch.randn(B, t, D, device="cuda", generator=gen) for _ in range(3))
                 bias = keypad_bias(torch, gen, B, t) if kind == "keypad" else causal(t)
                 outs, ms = {}, {}
@@ -4179,7 +4213,7 @@ def width_crossover_sweeps(torch, gen):
                     "T": t, "dh": dh, "bias": kind, "route": forward_route(t, dh, mode),
                     "measured_faster": min(ms, key=ms.get),
                     **{f"{p}_device_ms": x for p, x in ms.items()}, "max_abs_diff": diff}})
-            for t in WIDTH_BWD_SWEEP_T:
+            for t in WIDTH_BWD_SWEEP_T[mode]:
                 q, k, v, dout = (torch.randn(B, t, D, device="cuda", generator=gen)
                                  for _ in range(4))
                 bias = keypad_bias(torch, gen, B, t) if kind == "keypad" else causal(t)
@@ -4373,7 +4407,8 @@ def main() -> int:
     print(f"torch {torch.__version__}, cuda {torch.version.cuda}, "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
     t0 = time.perf_counter()
-    # every source, and the attention kernels' bf16 builds (ops/_build.py's VARIANTS)
+    # every source, and the fp32 long attention paths' padded-width builds
+    # (ops/_build.py's VARIANTS)
     sources = sorted({Path(src).stem for src, _ in KERNELS.values()} | set(_build.VARIANTS))
     _build.build(sources)
     print(f"build: {', '.join(sources)} in {time.perf_counter() - t0:.1f} s", flush=True)
@@ -4488,7 +4523,7 @@ def main() -> int:
         "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
         "library_ms": c["library_ms"], "case": c["case"],
         "device_ms": c["device_ms"], "host_us": c["host_us"],
-        **{k: c[k] for k in ("bound_tf32_ms", "bound_fp32_ms") if k in c},
+        **{k: c[k] for k in ("bound_fp32_ms",) if k in c},
     } for name, (c, every) in rows.items()]})
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(smi, flush=True)

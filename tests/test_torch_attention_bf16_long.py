@@ -88,8 +88,8 @@ def test_route_tables_are_kept_per_mode_and_bf16_calls_read_theirs(monkeypatch):
                                                       128: 48}
     assert set(attention_ops.LONG_FASTER_FROM) == set(attention_ops.MODES)
     assert set(attention_ops.LONG_FASTER_FROM["bf16"]) == set(attention_ops.KERNEL_HEAD_DIMS)
-    monkeypatch.setattr(attention_ops, "forward_max_t", lambda dh: 800)
-    monkeypatch.setattr(attention_ops, "sweep_fits", lambda t, dh: t <= 368)
+    monkeypatch.setattr(attention_ops, "forward_max_t", lambda dh, mode="fp32": 800)
+    monkeypatch.setattr(attention_ops, "sweep_fits", lambda t, dh, mode="fp32": t <= 368)
     monkeypatch.setattr(attention_ops, "LONG_FWD_FASTER_FROM",
                         {"fp32": {32: 300}, "bf16": {32: 150}})
     monkeypatch.setattr(attention_ops, "LONG_FASTER_FROM",
@@ -137,13 +137,14 @@ def _constant(source: str, name: str) -> int:
 
 def test_key_chunk_is_the_stage_of_each_bf16_forward_kernel():
     """The fp64 oracle of the bf16 forwards rounds exp(S - m) once a key
-    chunk: the one-head kernel's kChunk, the native long forward's
-    kStageKeys (mirrored in ops/attention.py), at every head width."""
+    chunk: the native one-head bf16 kernel's kChunk, the native long
+    forward's kStageKeys (mirrored in ops/attention.py), at every head
+    width."""
     cs = _chip_smoke()
     stage = _constant("attention_fwd_long_bf16.cu", "kStageKeys")
     assert stage == LONG_BF16_STAGE_KEYS
     assert _constant("attention_long_bf16.cuh", "kPadRows") == LONG_BF16_PAD_ROWS
-    chunk = _constant("attention_fwd.cu", "kChunk")
+    chunk = _constant("attention_fwd_bf16.cu", "kChunk")
     for dh in attention_ops.KERNEL_HEAD_DIMS:
         assert cs.key_chunk("long", dh) == stage, dh
         assert cs.key_chunk("sweep", dh) == chunk, dh

@@ -100,12 +100,15 @@ def test_backward_fed_the_streamed_statistics_matches_autograd(rng, bias_kind, r
 
 def test_forward_route_takes_the_long_path_beyond_the_one_head_kernel(kernel_limits,
                                                                       monkeypatch):
-    """'long' where the one-head kernel's shared memory cannot hold the head
-    (`forward_max_t`: 800 at dh=32, 1,448 at dh=16) or from
-    `LONG_FWD_FASTER_FROM[mode][dh]` on; 'sweep' otherwise."""
+    """'long' where the shared memory of the mode's one-head kernel cannot
+    hold the head (`forward_max_t`: in fp32 800 at dh=32, 1,448 at dh=16; in
+    bf16 1,440 and 2,400) or from `LONG_FWD_FASTER_FROM[mode][dh]` on;
+    'sweep' otherwise."""
     monkeypatch.setattr(attention_ops, "LONG_FWD_FASTER_FROM", {"fp32": {}, "bf16": {}})
-    for dh, limit in ((8, 2416), (16, 1448), (32, 800), (64, 424)):
-        for mode in attention_ops.MODES:
+    limits = {"fp32": ((8, 2416), (16, 1448), (32, 800), (64, 424)),  # each mode's own kernel
+              "bf16": ((8, 2400), (16, 2400), (32, 1440), (64, 800))}
+    for mode, pairs in limits.items():
+        for dh, limit in pairs:
             assert attention_ops.forward_route(limit, dh, mode) == "sweep"
             assert attention_ops.forward_route(limit + 1, dh, mode) == "long"
     monkeypatch.setattr(attention_ops, "LONG_FWD_FASTER_FROM", {"fp32": {32: 300}, "bf16": {}})
@@ -119,10 +122,10 @@ def test_every_measured_crossover_is_within_the_one_head_kernel(kernel_limits):
     """The table holds only shapes both paths take: a T past the one-head
     kernel's limit is long by the limit alone."""
     assert set(attention_ops.LONG_FWD_FASTER_FROM) == set(attention_ops.MODES)
-    for table in attention_ops.LONG_FWD_FASTER_FROM.values():
+    for mode, table in attention_ops.LONG_FWD_FASTER_FROM.items():
         for dh, start in table.items():
             assert dh in attention_ops.KERNEL_HEAD_DIMS
-            assert start <= attention_ops.forward_max_t(dh)
+            assert start <= attention_ops.forward_max_t(dh, mode)
 
 
 def test_long_launch_packs_the_forward_block_and_counts_apart(monkeypatch):

@@ -275,10 +275,14 @@ def _fake_entry(monkeypatch, code=0):
     monkeypatch.setattr(attention_ops, "_bwd_long", entry)
     monkeypatch.setattr(attention_ops, "_long_max_t", 65535 * 64)
     monkeypatch.setattr(attention_ops, "_fwd_long_max_t", 65535 * 128)
-    monkeypatch.setattr(attention_ops, "_fwd_smem", lambda t, dh: 1000 * t)
-    monkeypatch.setattr(attention_ops, "_fwd_max_t", {
-        dh: attention_ops.SMEM_LIMIT // 1000 for dh in attention_ops.KERNEL_HEAD_DIMS})
-    monkeypatch.setattr(attention_ops, "_bwd_smem", lambda t, dh: 2000 * t)
+    # the recorder's one-head kernels, alike in both modes
+    monkeypatch.setattr(attention_ops, "_fwd_smem", {
+        mode: (lambda t, dh: 1000 * t) for mode in attention_ops.MODES})
+    monkeypatch.setattr(attention_ops, "_fwd_max_t", {mode: {
+        dh: attention_ops.SMEM_LIMIT // 1000 for dh in attention_ops.KERNEL_HEAD_DIMS}
+        for mode in attention_ops.MODES})
+    monkeypatch.setattr(attention_ops, "_bwd_smem", {
+        mode: (lambda t, dh: 2000 * t) for mode in attention_ops.MODES})
     monkeypatch.setattr(attention_ops._build, "raw_stream", lambda index: 77)
     monkeypatch.setattr(attention_ops, "_bwd_fits", {})
     return seen
@@ -427,8 +431,9 @@ def test_backward_route_sends_each_shape_to_the_faster_path(monkeypatch, dh):
     at every T beyond the one-sweep kernel's shared memory."""
     _fake_entry(monkeypatch)
     fits = 900  # the recorder's one-sweep kernel holds T <= 900 at every head width
-    monkeypatch.setattr(attention_ops, "_bwd_smem",
-                        lambda t, dh: attention_ops.SMEM_LIMIT * t // fits)
+    monkeypatch.setattr(attention_ops, "_bwd_smem", {
+        mode: (lambda t, dh: attention_ops.SMEM_LIMIT * t // fits)
+        for mode in attention_ops.MODES})
     for mode in attention_ops.MODES:
         start = attention_ops.LONG_FASTER_FROM[mode][dh]
         for t in (1, 37, 150, 200, 256, 300, 368, 400, 600, fits):

@@ -253,9 +253,9 @@ def test_the_long_paths_copy_only_views_their_16_byte_copies_cannot_read():
 
 @pytest.fixture
 def kernel_limits(monkeypatch):
-    """The kernels' limits without the card: the one-head forward's and the
-    one-sweep backward's shared-memory functions at the template width, and
-    the long paths' longest T."""
+    """The kernels' limits without the card: the one-head forwards' and the
+    one-sweep backwards' shared-memory functions at the template width, in
+    each mode, and the long paths' longest T."""
     def fwd_smem(t, dh):
         return 4 * 2 * ((t + 7) & ~7) * (kernel_head_dim(dh) + 4)
 
@@ -264,13 +264,23 @@ def kernel_limits(monkeypatch):
         tq = -(-t // 16) * 16
         return 4 * ((4 if w < 64 else 5) * tq * (w + 4) + 4 * tq + 8 * 16 * 20)
 
+    def fwd_smem_bf16(t, dh):  # bf16 rows of max(dh, 16) + 8 values, T to 32 keys
+        return 2 * 2 * (-(-t // 32) * 32) * (max(kernel_head_dim(dh), 16) + 8)
+
+    def bwd_smem_bf16(t, dh):  # Q, dO, K (and V at 128) in bf16, dQ in fp32, 4 rows
+        w = max(kernel_head_dim(dh), 16)
+        tq = -(-t // 16) * 16
+        return (4 if w > 64 else 3) * tq * (w + 8) * 2 + tq * (w + 8) * 4 + 16 * tq
+
+    fwd = {"fp32": fwd_smem, "bf16": fwd_smem_bf16}
     monkeypatch.setattr(attention_ops, "_fwd", object())
     monkeypatch.setattr(attention_ops, "_bwd", object())
-    monkeypatch.setattr(attention_ops, "_fwd_smem", fwd_smem)
-    monkeypatch.setattr(attention_ops, "_bwd_smem", bwd_smem)
+    monkeypatch.setattr(attention_ops, "_fwd_smem", fwd)
+    monkeypatch.setattr(attention_ops, "_bwd_smem", {"fp32": bwd_smem, "bf16": bwd_smem_bf16})
     monkeypatch.setattr(attention_ops, "_bwd_fits", {})
-    monkeypatch.setattr(attention_ops, "_fwd_max_t", {
-        w: attention_ops._largest_t(fwd_smem, w) for w in attention_ops.KERNEL_HEAD_DIMS})
+    monkeypatch.setattr(attention_ops, "_fwd_max_t", {mode: {
+        w: attention_ops._largest_t(f, w) for w in attention_ops.KERNEL_HEAD_DIMS}
+        for mode, f in fwd.items()})
     monkeypatch.setattr(attention_ops, "_fwd_long", object())
     monkeypatch.setattr(attention_ops, "_fwd_long_max_t", 65535 * 128)
     monkeypatch.setattr(attention_ops, "_bwd_long", object())
@@ -282,8 +292,8 @@ def test_a_padded_width_routes_as_its_template_width(kernel_limits, dh):
     """The one-head forward's limit, both routes and both modes' tables read
     the template width's entries."""
     w = kernel_head_dim(dh)
-    assert attention_ops.forward_max_t(dh) == attention_ops.forward_max_t(w) > 0
     for mode in attention_ops.MODES:
+        assert attention_ops.forward_max_t(dh, mode) == attention_ops.forward_max_t(w, mode) > 0
         for t in (1, 20, 80, 150, 200, 300, 512, 1200):
             assert attention_ops.forward_route(t, dh, mode) == attention_ops.forward_route(
                 t, w, mode), (mode, t)

@@ -373,15 +373,26 @@ def _fwd_smem(t, dh):
     return 4 * 2 * ((t + 7) & ~7) * (dh + 4)
 
 
+def _fwd_smem_bf16(t, dh):
+    """`csrc/attention_fwd_bf16.cu::smem_bytes`: K and V of one head in
+    bf16, T padded to a multiple of 32 rows (the key chunk), a row pitch of
+    max(dh, 16) + 8 values."""
+    return 2 * 2 * (-(-t // 32) * 32) * (max(dh, 16) + 8)
+
+
+FWD_SMEM = {"fp32": _fwd_smem, "bf16": _fwd_smem_bf16}
+
+
 @pytest.fixture
 def kernel_limits(monkeypatch):
-    """The kernels' limits without the card: the one-head forward's
-    shared-memory function and the long paths' longest T (the grid's
-    65,535 blocks of 128 rows)."""
+    """The kernels' limits without the card: the one-head forwards'
+    shared-memory functions (fp32 and bf16) and the long paths' longest T
+    (the grid's 65,535 blocks of 128 rows)."""
     monkeypatch.setattr(attention_ops, "_fwd", object())
-    monkeypatch.setattr(attention_ops, "_fwd_smem", _fwd_smem)
+    monkeypatch.setattr(attention_ops, "_fwd_smem", dict(FWD_SMEM))
     monkeypatch.setattr(attention_ops, "_fwd_max_t", {
-        dh: attention_ops._largest_t(_fwd_smem, dh) for dh in attention_ops.KERNEL_HEAD_DIMS})
+        mode: {dh: attention_ops._largest_t(f, dh) for dh in attention_ops.KERNEL_HEAD_DIMS}
+        for mode, f in FWD_SMEM.items()})
     monkeypatch.setattr(attention_ops, "_fwd_long", object())
     monkeypatch.setattr(attention_ops, "_fwd_long_max_t", 65535 * 128)
     monkeypatch.setattr(attention_ops, "_bwd_long", object())
@@ -389,10 +400,17 @@ def kernel_limits(monkeypatch):
 
 
 def test_forward_max_t_is_the_longest_t_in_shared_memory(kernel_limits):
-    for dh, want in ((8, 2416), (16, 1448), (32, 800), (64, 424)):
-        got = attention_ops.forward_max_t(dh)
-        assert got == want
-        assert _fwd_smem(got, dh) <= attention_ops.SMEM_LIMIT < _fwd_smem(got + 1, dh)
+    """Each mode's longest T is its own kernel's: bf16 tiles hold longer
+    heads."""
+    wants = {"fp32": ((8, 2416), (16, 1448), (32, 800), (64, 424), (128, 216)),
+             "bf16": ((8, 2400), (16, 2400), (32, 1440), (64, 800), (128, 416))}
+    for mode, pairs in wants.items():
+        smem = FWD_SMEM[mode]
+        for dh, want in pairs:
+            got = attention_ops.forward_max_t(dh, mode)
+            assert got == want, (mode, dh)
+            assert smem(got, dh) <= attention_ops.SMEM_LIMIT < smem(got + 1, dh)
+    assert attention_ops.forward_max_t(16) == attention_ops.forward_max_t(16, "fp32")
 
 
 BERT_FULL = dict(backbone="bert4rec", emb_dim=128, bert_heads=4, seq_len=150, is_itc=True)

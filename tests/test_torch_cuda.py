@@ -6,6 +6,7 @@ no JAX, so it runs on a machine without it; from the repository root:
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 """
 
+import ctypes
 import dataclasses
 import importlib.util
 import struct
@@ -265,8 +266,8 @@ def test_kernels_at_the_largest_supported_t(gen):
     limit = attention_ops.SMEM_LIMIT
     fused_attention(*(torch.zeros(1, 8, 16, device="cuda") for _ in range(3)),
                     _bias("zeros", 1, 8, gen), 0, 1, 0.0)  # binds the entry points
-    t_fwd = max(n for n in range(1, 2000) if attention_ops._fwd_smem(n, 16) <= limit)
-    t_bwd = max(n for n in range(1, 2000) if attention_ops._bwd_smem(n, 16) <= limit)
+    t_fwd = max(n for n in range(1, 2000) if attention_ops._fwd_smem["fp32"](n, 16) <= limit)
+    t_bwd = max(n for n in range(1, 2000) if attention_ops._bwd_smem["fp32"](n, 16) <= limit)
     for t, backward in ((t_fwd, False), (t_bwd, True)):
         b, d, heads = 2, 64, 4
         q, k, v, dout = (torch.randn(b, t, d, device="cuda", generator=gen) for _ in range(4))
@@ -1884,6 +1885,119 @@ def test_bf16_attention_modes_match_their_plain_versions(gen, b, t, heads, kind,
     bwd = cs.Bf16Readings()
     bwd.draw(list(zip(got, fp32, plain, oracle, oracle)))
     bwd.verdict(f"bf16_bwd_{case}")
+
+
+def _bf16_limits(dh):
+    """The longest T of the bf16 one-head forward and of the bf16 one-sweep
+    backward at head width `dh`, asked of the kernels' own shared-memory
+    functions (T up to 4,096) after a launch has bound them."""
+    fused_attention(*(torch.zeros(1, 8, 16, device="cuda") for _ in range(3)),
+                    torch.zeros(1, 1, 1, 8, device="cuda"), 0, 1, 0.0, True)
+    out = []
+    for lib, fn in (("attention_fwd_bf16", "attention_fwd_smem_bytes"),
+                    ("attention_bwd_bf16", "attention_bwd_smem_bytes")):
+        smem = attention_ops._build.bind(getattr(attention_ops._build.load(lib), fn),
+                                         [ctypes.c_int, ctypes.c_int], ctypes.c_size_t)
+        out.append(max(n for n in range(1, 4097) if smem(n, dh) <= attention_ops.SMEM_LIMIT))
+    return out
+
+
+@pytest.mark.parametrize("t", [20, 150, "limit"])
+@pytest.mark.parametrize("rate", [0.0, 0.5])
+@pytest.mark.parametrize("kind", ["causal", "keypad"])
+@pytest.mark.parametrize("dh", [8, 12, 16, 32, 64, 128])
+def test_bf16_one_head_pair_at_every_width_matches_its_plain_versions(gen, dh, kind, rate, t):
+    """The native bf16 one-head forward and one-sweep backward at every
+    template width and at dh=12 (configuration (b)'s, padded to 16), both
+    biases, rates 0 and 0.5, at T=20, T=150 and the longest T each kernel
+    holds at that width ("limit": the forward's and the backward's own; at
+    dh=128 the backward holds T <= 128, its T=150 case runs there):
+    within chip_smoke.py's limits of the one-head case at that T and rate
+    (the backward: rate 0 the T=20 case's, dropout the T=150 case's, as the
+    width phase holds them) against the fp64 oracle of their own rounding
+    points, the plain versions with `mxu_bf16=True` and the oracle of the
+    JAX kernel's, with the fp32 mode outside the oracle limit (on the path
+    its route takes: its one-head kernels hold shorter heads); the row
+    statistics against the plain ones; two calls bit-equal; one launch of
+    each in its bf16 count."""
+    cs = _chip_smoke()
+    b, heads = 2, 2
+    d = dh * heads
+    t_fwd, t_bwd = _bf16_limits(dh)
+    if t != "limit":
+        t_fwd, t_bwd = t, min(t, t_bwd)
+    for direction, n in (("fwd", t_fwd), ("bwd", t_bwd)):
+        q, k, v, dout = (torch.randn(b, n, d, device="cuda", generator=gen) for _ in range(4))
+        bias = _bias(kind, b, n, gen)
+        args = (q, k, v, bias, 9, heads, rate)
+        want, wm, winv = attention_fwd_stats_plain(*args, True)
+        before = launches.read()
+        if direction == "fwd":
+            out, m, inv = attention_ops._launch_forward(*args, True, "sweep", bf16=True)
+            assert torch.equal(attention_ops._launch_forward(*args, False, "sweep",
+                                                             bf16=True)[0], out)
+            counted = {c: x for c, x in launches.since(before).items() if x}
+            torch.testing.assert_close(m, wm, atol=LONG_MAX_ATOL, rtol=1e-6)
+            torch.testing.assert_close(inv, winv, atol=LONG_INV_SUM_ATOL, rtol=1e-6)
+            readings = cs.Bf16Readings()
+            readings.draw([(out, attention_ops._launch_forward(*args, False)[0], want,
+                            cs.bf16_attention_kernel_oracle(torch, *args,
+                                                            cs.key_chunk("sweep", dh)),
+                            cs.bf16_attention_oracle(torch, *args))])
+            readings.verdict(f"fwd dh={dh} {kind} T={n} rate={rate}",
+                             f"bf16_causal_T{20 if n <= 20 else 150}_h8_rate{rate}")
+        else:
+            got = attention_ops._launch_backward(q, k, v, bias, want, wm, winv, dout, 9, heads,
+                                                 rate, "sweep", bf16=True)
+            assert all(torch.equal(a, g) for a, g in zip(attention_ops._launch_backward(
+                q, k, v, bias, want, wm, winv, dout, 9, heads, rate, "sweep", bf16=True), got))
+            counted = {c: x for c, x in launches.since(before).items() if x}
+            fp32 = attention_ops._launch_backward(q, k, v, bias, want, wm, winv, dout, 9, heads,
+                                                  rate)
+            plain = attention_bwd_plain(q, k, v, bias, want, wm, winv, dout, 9, heads, rate,
+                                        True)
+            oracle = cs.bf16_attention_bwd_oracle(torch, q, k, v, bias, want, dout, 9, heads,
+                                                  rate)
+            readings = cs.Bf16Readings()
+            readings.draw(list(zip(got, fp32, plain, oracle, oracle)))
+            readings.verdict(f"bwd dh={dh} {kind} T={n} rate={rate}",
+                             "bf16_bwd_causal_T150_h8_rate0.5" if rate > 0 else
+                             "bf16_bwd_causal_T20_h8_rate0.0")
+        assert counted == {f"attention_{direction}_bf16": 2}, counted
+
+
+@pytest.mark.parametrize("dh", attention_ops.KERNEL_HEAD_DIMS)
+def test_bf16_routes_read_the_bf16_kernels_own_limits(gen, dh):
+    """`forward_max_t(dh, "bf16")` and `sweep_fits(.., "bf16")` are the bf16
+    kernels' own longest T, not the fp32 kernels'; the one-head bf16
+    launches run at those T, refuse one more, and the bf16 routes send
+    one more to the long paths."""
+    t_fwd, t_bwd = _bf16_limits(dh)
+    assert attention_ops.forward_max_t(dh, "bf16") == t_fwd != attention_ops.forward_max_t(dh)
+    assert attention_ops.sweep_fits(t_bwd, dh, "bf16")
+    assert not attention_ops.sweep_fits(t_bwd + 1, dh, "bf16")
+    assert attention_ops.forward_route(t_fwd + 1, dh, "bf16") == "long"
+    assert attention_ops.backward_route(t_bwd + 1, dh, "bf16") == "long"
+    for n, direction, fits in ((t_fwd, "fwd", True), (t_fwd + 1, "fwd", False),
+                               (t_bwd, "bwd", True), (t_bwd + 1, "bwd", False)):
+        q, k, v, dout = (torch.randn(1, n, dh, device="cuda", generator=gen) for _ in range(4))
+        bias = _bias("causal", 1, n, gen)
+        if direction == "fwd":
+            def launch():
+                return attention_ops._launch_forward(q, k, v, bias, 0, 1, 0.0, False, "sweep",
+                                                     bf16=True)[:1]
+        else:
+            res = attention_fwd_stats_plain(q, k, v, bias, 0, 1, 0.0, True)
+
+            def launch():
+                return attention_ops._launch_backward(q, k, v, bias, *res, dout, 0, 1, 0.0,
+                                                      "sweep", bf16=True)
+        if fits:
+            assert all(torch.isfinite(x).all() for x in launch()), (direction, n)
+        else:
+            with pytest.raises(ValueError, match="shared memory"):
+                launch()
+    torch.cuda.synchronize()
 
 
 def test_bf16_long_paths_pack_a_padded_width_to_whole_k16_steps(gen, monkeypatch):

@@ -139,23 +139,26 @@ def test_cpu_attention_keeps_autograd():
 
 
 def test_the_port_ships_every_kernel_source():
-    """Ten CUDA sources under csrc/, each named by a wrapper's `_build.load`
-    (the attention wrapper's four through its `_SOURCES`, the long paths'
-    native bf16 two through its `_LIBRARIES`, not as variants of another
-    source), and the packaging glob that ships them."""
+    """Twelve CUDA sources under csrc/, each named by a wrapper's `_build.load`
+    (the attention wrapper's four through its `_SOURCES`, the bf16 mode's
+    four, native bf16 kernels of the one-head pair and of the long paths,
+    through its `_LIBRARIES`, not as variants of another source), and the
+    packaging glob that ships them."""
     from amid_tpu_torch.ops import _build
     from amid_tpu_torch.ops import attention as attention_ops
 
     sources = sorted(p.stem for p in (REPO / "amid_tpu_torch" / "csrc").glob("*.cu"))
-    assert sources == ["affinity", "attention_bwd", "attention_bwd_long",
-                       "attention_bwd_long_bf16", "attention_fwd", "attention_fwd_long",
-                       "attention_fwd_long_bf16", "gather_rows", "scatter_rows", "scoring_head"]
+    assert sources == ["affinity", "attention_bwd", "attention_bwd_bf16", "attention_bwd_long",
+                       "attention_bwd_long_bf16", "attention_fwd", "attention_fwd_bf16",
+                       "attention_fwd_long", "attention_fwd_long_bf16", "gather_rows",
+                       "scatter_rows", "scoring_head"]
     ops = "".join(p.read_text() for p in (REPO / "amid_tpu_torch" / "ops").glob("*.py"))
     for name in ("affinity", "gather_rows", "scatter_rows", "scoring_head"):
         assert f'_build.load("{name}")' in ops, name
     assert attention_ops._SOURCES == ["attention_fwd", "attention_fwd_long", "attention_bwd",
                                       "attention_bwd_long"]
-    for name in ("attention_fwd_long_bf16", "attention_bwd_long_bf16"):
+    for name in ("attention_fwd_bf16", "attention_fwd_long_bf16", "attention_bwd_bf16",
+                 "attention_bwd_long_bf16"):
         assert name in attention_ops._LIBRARIES and name not in _build.VARIANTS, name
         assert _build._source(name) == (REPO / "amid_tpu_torch" / "csrc" / f"{name}.cu", ())
     assert 'amid_tpu_torch = ["csrc/*.cu"]' in (REPO / "pyproject.toml").read_text()
