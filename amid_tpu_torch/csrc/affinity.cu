@@ -32,8 +32,9 @@
 // * A pre-pass (pack_kernel) rounds both inputs to bf16 once per call and
 //   writes them in the operand layout wgmma reads without swizzle: K-major
 //   core matrices of 8 rows x 16 bytes, each 128 contiguous bytes. Rows are
-//   padded with zeros to kKWidth = 128 columns (a zero adds nothing to a
-//   dot product), so the D / 16 products of a tile are always eight and
+//   padded with zeros to planes of kKWidth = 128 columns (a zero adds
+//   nothing to a dot product; one plane up to D = 128, see "Any D" below),
+//   so the products of a tile and plane are always eight k16 steps and
 //   unrolled: ptxas serialises wgmma issued from a loop it cannot unroll
 //   (it waits for each product before the next). Row group g = r / 8,
 //   16-byte column chunk k and row r % 8 sit at element (g * 128 + k * 8 +
@@ -101,6 +102,30 @@
 //   peers; 231,496 at W = 160 (K7, N = 20), four stages, 16 peers: one
 //   block an SM.
 //
+// * Any D. The pack pads a row with zeros to a multiple of 128 columns and
+//   writes each 128-column chunk as a plane of its own (the planes of the
+//   bank, then those of the query slots). Up to D = 128 there is one plane
+//   and the design above holds. Above it (the chunked instances, CH), a
+//   160-row slot of 1,024 columns would take 327,680 bytes and a 64-row
+//   bank tile 131,072, so neither stays whole in shared memory: each stage
+//   of the ring holds one plane of a bank tile (16 KB) and the same plane
+//   of the block's four query slots (4 W * 256 bytes), both landed by bulk
+//   copies on the stage's full barrier, and a tile is ceil(D / 128) stages
+//   in a row. The products of a tile's planes accumulate in the same
+//   wgmma accumulators (the scale flag clears them at the first k-step of
+//   the first plane only) and the fold runs after the last plane. Slots are
+//   then at most kChunkedMaxWidth = 80 rows wide, so that two stages and
+//   the [users, peers] table fit (K6 at N = 150: two slots of 80 a user;
+//   K7: N <= 40).
+// * Any N (K6). A user's query takes KC slots, KC in {1, 2, 4} or a
+//   multiple of 4 (the slots past its last row repeat that row). With KC
+//   > 4 a block holds four slots of one user, KC / 4 blocks share each
+//   out[b, c], and each folds its maximum into it with an atomic max on the
+//   float's order-preserving integer image, after the wrapper's memset of
+//   out to 0xff bytes (an image below every float's in both of the orders
+//   atomic_max_float uses). A max is order-free, so the result is the same
+//   bits from call to call.
+//
 // What bounds K7 at N = M = 20: 6.7 GFLOP is 0.0068 ms of tensor cores, and
 // every block also reads its 160 KB of query slots and its slice of the bank
 // from L2 before and while it multiplies; the pre-pass is a second kernel of
@@ -121,7 +146,7 @@ namespace {
 using namespace amid_hopper;
 
 constexpr int kTileRows = 64;          // bank rows per tile: wgmma's M
-constexpr int kKWidth = 128;           // operand columns, D padded with zeros
+constexpr int kKWidth = 128;           // operand columns of a plane, D padded with zeros
 constexpr int kKSteps = kKWidth / 16;  // wgmma k16 products per tile and slot
 constexpr int kTileBytes = kTileRows * kKWidth * 2;
 constexpr int kSlots = 4;              // query slots resident per block
@@ -130,6 +155,8 @@ constexpr int kMaxWidthSteps = 20;     // slot width W = 8 * K, K <= 20
 constexpr int kMaxStages = 8;
 constexpr int kMaxPeers = 256;         // peers per slice
 constexpr int kSmallnMaxN = 80;        // K7: at least two users a slot of 160
+constexpr int kChunkedMaxWidth = 80;   // slot rows of the chunked instances (D > 128)
+constexpr int kMaxD = 65536;           // columns a row may have
 
 // Refusals of the entry points (negative; a positive value is a cudaError_t).
 enum Refusal { kBadShape = -1, kBadPlan = -2, kLongQuery = -3 };
@@ -364,26 +391,33 @@ __device__ __forceinline__ void fold_users(const float (&acc)[4 * K], int tile, 
   }
 }
 
-// pack_kernel: both inputs as bf16 in the operand layout (header), rows of
-// kKWidth columns, those past D zero. Region 0 is the bank, bank_rows rows
-// (a multiple of 64; rows past R = C*M repeat row R - 1); region 1 the query
-// slots of W rows: slot s, row w holds user min((s / KC) U + (w % 8) / S,
-// B - 1) (S = 8 / U), its row min((s % KC) W + (w / 8) S + w % 8 % S, N - 1)
-// (U = 1: chunk s % KC of user s / KC, row w of the chunk). One thread
-// writes one 16-byte chunk; consecutive threads write consecutive chunks.
+// pack_kernel: both inputs as bf16 in the operand layout (header), in
+// planes of kKWidth columns (plane p: columns [128 p, 128 p + 128), those
+// past D zero): the dc planes of the bank, then the dc planes of the query
+// slots. The bank has bank_rows rows (a multiple of 64; rows past R = C*M
+// repeat row R - 1); the query slots are W rows each: slot s, row w holds
+// user min((s / KC) U + (w % 8) / S, B - 1) (S = 8 / U), its row
+// min((s % KC) W + (w / 8) S + w % 8 % S, N - 1) (U = 1: chunk s % KC of
+// user s / KC, row w of the chunk). One thread writes one 16-byte chunk;
+// consecutive threads write consecutive chunks. `vec`: rows start on 16
+// bytes and D is a multiple of 4 (16-byte loads), else element by element.
 __global__ void pack_kernel(const float* __restrict__ a, const float* __restrict__ bank,
                             __nv_bfloat16* __restrict__ out, long long bank_chunks,
-                            long long total_chunks, int D, long long R, int B, int N,
-                            int W, int KC, int U) {
+                            long long query_chunks, int dc, int D, long long R, int B, int N,
+                            int W, int KC, int U, int vec) {
   const int S = 8 / U;
+  const long long bank_all = bank_chunks * dc, total_chunks = bank_all + query_chunks * dc;
   for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x; e < total_chunks;
        e += (long long)gridDim.x * blockDim.x) {
-    const bool in_bank = e < bank_chunks;
-    const long long q = in_bank ? e : e - bank_chunks;
+    const bool in_bank = e < bank_all;
+    const long long plane_chunks = in_bank ? bank_chunks : query_chunks;
+    long long q = in_bank ? e : e - bank_all;
+    const int plane = (int)(q / plane_chunks);
+    q -= plane * plane_chunks;
     const long long group = q / kKWidth;  // 8-row group: 128 chunks of 16 bytes
     const int rem = (int)(q - group * kKWidth);
     const long long r = group * 8 + (rem & 7);
-    const int col = (rem >> 3) * 8;
+    const int col = plane * kKWidth + (rem >> 3) * 8;
     if (col >= D) {
       *reinterpret_cast<uint4*>(out + e * 8) = make_uint4(0u, 0u, 0u, 0u);
       continue;
@@ -400,32 +434,49 @@ __global__ void pack_kernel(const float* __restrict__ a, const float* __restrict
       if (row > N - 1) row = N - 1;
       src = a + (user * N + row) * D;
     }
-    const float4 x0 = *reinterpret_cast<const float4*>(src + col);
-    const float4 x1 = *reinterpret_cast<const float4*>(src + col + 4);
-    __nv_bfloat162 h[4] = {__floats2bfloat162_rn(x0.x, x0.y), __floats2bfloat162_rn(x0.z, x0.w),
-                           __floats2bfloat162_rn(x1.x, x1.y), __floats2bfloat162_rn(x1.z, x1.w)};
+    float x[8];
+    if (vec) {
+      const float4 x0 = *reinterpret_cast<const float4*>(src + col);
+      const float4 x1 = col + 4 < D ? *reinterpret_cast<const float4*>(src + col + 4)
+                                    : make_float4(0.f, 0.f, 0.f, 0.f);
+      x[0] = x0.x, x[1] = x0.y, x[2] = x0.z, x[3] = x0.w;
+      x[4] = x1.x, x[5] = x1.y, x[6] = x1.z, x[7] = x1.w;
+    } else {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) x[i] = col + i < D ? src[col + i] : 0.f;
+    }
+    __nv_bfloat162 h[4] = {__floats2bfloat162_rn(x[0], x[1]), __floats2bfloat162_rn(x[2], x[3]),
+                           __floats2bfloat162_rn(x[4], x[5]), __floats2bfloat162_rn(x[6], x[7])};
     *reinterpret_cast<uint4*>(out + e * 8) = *reinterpret_cast<uint4*>(h);
   }
 }
 
-template <int K, int U>
+// CH: the chunked instances (D > 128: each stage a plane of a bank tile and
+// of the four query slots); dc planes, each bank_plane (query_plane) bf16
+// values apart
+template <int K, int U, bool CH>
 __global__ void __launch_bounds__(kWgThreads, 1)
 affinity_wgmma_kernel(const __nv_bfloat16* __restrict__ bank,
                       const __nv_bfloat16* __restrict__ query, float* __restrict__ out,
-                      int B, int C, int M, int KC, int stages, int peers) {
+                      int B, int C, int M, int KC, int stages, int peers, int dc,
+                      long long bank_plane, long long query_plane) {
   constexpr int W = 8 * K, tile_bytes = kTileBytes, slot_bytes = W * kKWidth * 2;
+  constexpr int stage_bytes = tile_bytes + (CH ? kSlots * slot_bytes : 0);
   extern __shared__ __align__(1024) unsigned char smem[];
-  unsigned char* ring = smem + kSlots * slot_bytes;
-  float* omax = reinterpret_cast<float*>(ring + stages * tile_bytes);  // [4 U][peers]
+  unsigned char* ring = smem + (CH ? 0 : kSlots * slot_bytes);
+  float* omax = reinterpret_cast<float*>(ring + stages * stage_bytes);  // [4 U][peers]
   uint64_t* bars = reinterpret_cast<uint64_t*>(omax + kSlots * U * peers);
   // bars: full[stages], empty[stages], then the query's
 
   const int tid = threadIdx.x;
-  const int users = kSlots * U / KC;  // query users of this block
+  // query users of this block, the first of them; KC > 4: four slots of one user
+  const int users = KC > kSlots ? 1 : kSlots * U / KC;
+  const int u0 = KC > kSlots ? blockIdx.x * kSlots / KC : blockIdx.x * users;
   const int c_lo = blockIdx.y * peers;
   const int c_hi = C - c_lo < peers ? C : c_lo + peers;
   const int row_lo = c_lo * M, row_hi = c_hi * M;
   const int t_lo = row_lo / kTileRows, n_tiles = (row_hi + kTileRows - 1) / kTileRows - t_lo;
+  const int n_items = CH ? n_tiles * dc : n_tiles;  // stages streamed: (tile, plane)
 
   for (int i = tid; i < kSlots * U * peers; i += kWgThreads) omax[i] = -INFINITY;
   if (tid == 0) {
@@ -438,19 +489,26 @@ affinity_wgmma_kernel(const __nv_bfloat16* __restrict__ bank,
   }
   __syncthreads();
   const uint32_t qbar = smem_u32(bars + 2 * stages);
-  // tile i of this block goes to buffer i % stages (full barrier bars[s],
+  const __nv_bfloat16* block_query = query + (size_t)blockIdx.x * kSlots * W * kKWidth;
+  // item i of this block goes to buffer i % stages (full barrier bars[s],
   // empty barrier bars[stages + s]); thread 0 issues every copy
-  auto load_tile = [&](int i) {
+  auto load_item = [&](int i) {
     const int s = i % stages;
-    mbar_expect_tx(smem_u32(bars + s), tile_bytes);
-    bulk_copy(smem_u32(ring + s * tile_bytes), bank + (size_t)(t_lo + i) * kTileRows * kKWidth,
+    const int tile = CH ? i / dc : i, plane = CH ? i - tile * dc : 0;
+    mbar_expect_tx(smem_u32(bars + s), stage_bytes);
+    bulk_copy(smem_u32(ring + s * stage_bytes),
+              bank + plane * bank_plane + (size_t)(t_lo + tile) * kTileRows * kKWidth,
               tile_bytes, smem_u32(bars + s));
+    if constexpr (CH)
+      bulk_copy(smem_u32(ring + s * stage_bytes + tile_bytes), block_query + plane * query_plane,
+                kSlots * slot_bytes, smem_u32(bars + s));
   };
   if (tid == 0) {
-    mbar_expect_tx(qbar, kSlots * slot_bytes);
-    bulk_copy(smem_u32(smem), query + (size_t)blockIdx.x * kSlots * W * kKWidth,
-              kSlots * slot_bytes, qbar);
-    for (int i = 0; i < stages && i < n_tiles; ++i) load_tile(i);
+    if constexpr (!CH) {
+      mbar_expect_tx(qbar, kSlots * slot_bytes);
+      bulk_copy(smem_u32(smem), block_query, kSlots * slot_bytes, qbar);
+    }
+    for (int i = 0; i < stages && i < n_items; ++i) load_item(i);
   }
 
   const int wg = tid / 128, warp = (tid / 32) % 4, lane = tid % 32;
@@ -458,82 +516,99 @@ affinity_wgmma_kernel(const __nv_bfloat16* __restrict__ bank,
   // the block's user of each slot (K6), or of the slot's first column (K7)
   const int lu_a = U == 1 ? 2 * wg / KC : 2 * wg * U;
   const int lu_b = U == 1 ? (2 * wg + 1) / KC : (2 * wg + 1) * U;
-  const uint64_t q_a = operand_desc(smem_u32(smem + 2 * wg * slot_bytes));
-  const uint64_t q_b = operand_desc(smem_u32(smem + (2 * wg + 1) * slot_bytes));
+  // the slots of this warpgroup, at the start of the resident slots or of a
+  // stage's (CH: the stage's offset is added per item)
+  const uint32_t slots = CH ? tile_bytes : 0;
+  const uint64_t q_a = operand_desc(smem_u32(smem + slots + 2 * wg * slot_bytes));
+  const uint64_t q_b = operand_desc(smem_u32(smem + slots + (2 * wg + 1) * slot_bytes));
   float acc_a[4 * K], acc_b[4 * K];
 #pragma unroll
   for (int j = 0; j < 4 * K; ++j) acc_a[j] = acc_b[j] = 0.f;
-  mbar_wait(qbar, 0);
+  if constexpr (!CH) mbar_wait(qbar, 0);
 
   // named barriers 1 and 2 pass the turn to issue products between the two
   // warpgroups (128 threads arrive, the other 128 wait)
   const int my_turn = 1 + wg, their_turn = 2 - wg;
-  for (int i = 0; i < n_tiles; ++i) {
+  for (int i = 0; i < n_items; ++i) {
     const int s = i % stages;
+    const int tile = CH ? i / dc : i, plane = CH ? i - tile * dc : 0;
     mbar_wait(smem_u32(bars + s), (i / stages) & 1);
     if (wg == 1 || i > 0) named_sync(my_turn);
-    const uint64_t tile = operand_desc(smem_u32(ring + s * tile_bytes));
-    // both slots of tile i (a k16 step is 256 bytes: 16 in the descriptor)
+    const uint64_t bank_tile = operand_desc(smem_u32(ring + s * stage_bytes));
+    // CH: this stage's plane of the slots (a stage is a multiple of 16 bytes)
+    const uint64_t at = CH ? (uint64_t)(s * stage_bytes / 16) : 0;
+    // both slots of the item (a k16 step is 256 bytes: 16 in the descriptor);
+    // the first k-step of a tile's first plane clears the accumulators
     wgmma_fence();
     fence_regs(acc_a);
     fence_regs(acc_b);
 #pragma unroll
-    for (int k = 0; k < kKSteps; ++k) wgmma_bf16<K>(acc_a, tile + 16 * k, q_a + 16 * k, k);
+    for (int k = 0; k < kKSteps; ++k)
+      wgmma_bf16<K>(acc_a, bank_tile + 16 * k, q_a + at + 16 * k, k | plane);
     wgmma_commit();
 #pragma unroll
-    for (int k = 0; k < kKSteps; ++k) wgmma_bf16<K>(acc_b, tile + 16 * k, q_b + 16 * k, k);
+    for (int k = 0; k < kKSteps; ++k)
+      wgmma_bf16<K>(acc_b, bank_tile + 16 * k, q_b + at + 16 * k, k | plane);
     wgmma_commit();
     // slot a is done and slot b still runs: the other warpgroup may issue
     wgmma_wait<1>();
-    if (wg == 0 || i + 1 < n_tiles) named_arrive(their_turn);
+    if (wg == 0 || i + 1 < n_items) named_arrive(their_turn);
     wgmma_wait<0>();
     fence_regs(acc_a);
     fence_regs(acc_b);
     mbar_arrive(smem_u32(bars + stages + s));  // every thread: the buffer is read
-    if constexpr (U == 1) {
-      fold_tile<K>(acc_a, t_lo + i, lu_a, fold, warp, lane);
-      fold_tile<K>(acc_b, t_lo + i, lu_b, fold, warp, lane);
-    } else {
-      fold_users<K, U>(acc_a, t_lo + i, lu_a, fold, warp, lane);
-      fold_users<K, U>(acc_b, t_lo + i, lu_b, fold, warp, lane);
+    if (!CH || plane == dc - 1) {  // the tile's last plane: its scores are whole
+      if constexpr (U == 1) {
+        fold_tile<K>(acc_a, t_lo + tile, lu_a, fold, warp, lane);
+        fold_tile<K>(acc_b, t_lo + tile, lu_b, fold, warp, lane);
+      } else {
+        fold_users<K, U>(acc_a, t_lo + tile, lu_a, fold, warp, lane);
+        fold_users<K, U>(acc_b, t_lo + tile, lu_b, fold, warp, lane);
+      }
     }
-    if (tid == 0 && i > 0 && i - 1 + stages < n_tiles) {
-      // the other warpgroup released tile i - 1 one tile ago
+    if (tid == 0 && i > 0 && i - 1 + stages < n_items) {
+      // the other warpgroup released item i - 1 one item ago
       mbar_wait(smem_u32(bars + stages + (i - 1) % stages), ((i - 1) / stages) & 1);
-      load_tile(i - 1 + stages);
+      load_item(i - 1 + stages);
     }
   }
   __syncthreads();
   const int np = c_hi - c_lo;
   for (int i = tid; i < users * np; i += kWgThreads) {
     const int lu = i / np, p = i - lu * np;
-    const int b = blockIdx.x * users + lu;
-    if (b < B) out[(size_t)b * C + c_lo + p] = omax[lu * peers + p];
+    const int b = u0 + lu;
+    if (b >= B) continue;
+    float* dst = out + (size_t)b * C + c_lo + p;
+    if (KC > kSlots)  // the user's other blocks fold into the same element
+      atomic_max_float(dst, omax[lu * peers + p]);
+    else
+      *dst = omax[lu * peers + p];
   }
 }
 
-size_t wgmma_smem(int W, int U, int stages, int peers) {
-  return (size_t)kSlots * W * kKWidth * 2 + (size_t)stages * kTileBytes +
+size_t wgmma_smem(int W, int U, int stages, int peers, int dc) {
+  const size_t slots = (size_t)kSlots * W * kKWidth * 2;
+  return (dc > 1 ? (size_t)stages * (kTileBytes + slots) : slots + (size_t)stages * kTileBytes) +
          (size_t)kSlots * U * peers * sizeof(float) + (size_t)(2 * stages + 1) * 8;
 }
 
-template <int K, int U>
+template <int K, int U, bool CH>
 cudaError_t launch_wgmma(const __nv_bfloat16* bank, const __nv_bfloat16* query, float* out,
-                         int groups, int slices, int B, int C, int M, int KC,
-                         int stages, int peers, size_t smem, cudaStream_t s) {
+                         int groups, int slices, int B, int C, int M, int KC, int stages,
+                         int peers, int dc, long long bank_plane, long long query_plane,
+                         size_t smem, cudaStream_t s) {
   // every instance may take all 227 KB a block can have; asked once
   static const cudaError_t opted_in = cudaFuncSetAttribute(
-      affinity_wgmma_kernel<K, U>, cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
+      affinity_wgmma_kernel<K, U, CH>, cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
   if (opted_in != cudaSuccess) return opted_in;
-  affinity_wgmma_kernel<K, U><<<dim3(groups, slices), kWgThreads, smem, s>>>(
-      bank, query, out, B, C, M, KC, stages, peers);
+  affinity_wgmma_kernel<K, U, CH><<<dim3(groups, slices), kWgThreads, smem, s>>>(
+      bank, query, out, B, C, M, KC, stages, peers, dc, bank_plane, query_plane);
   return cudaGetLastError();
 }
 
 bool bad_shape(long long B, long long C, long long N, long long M, long long D) {
   return B < 1 || C < 1 || N < 1 || M < 1 || B > 0x7fffffffLL || C > 0x7fffffffLL ||
-         N > 0x7fffffffLL || M > 0x7fffffffLL ||
-         D < 8 || D > kKWidth || D % 8 != 0;  // rows padded to kKWidth by the pack
+         N > 0x7fffffffLL || M > 0x7fffffffLL || D < 1 || D > kMaxD;
 }
 
 template <typename T>
@@ -546,46 +621,65 @@ int run(const long long* a, long long KC, long long U) {
   const long long B = a[5], C = a[6], N = a[7], M = a[8], D = a[9];
   const long long W = a[10], slices = a[12], peers = a[13], stages = a[14];
   if (bad_shape(B, C, N, M, D) || C * M > 0x7fffffffLL - kTileRows) return kBadShape;
-  if (W < 8 || W > 8 * kMaxWidthSteps || W % 8 || W * KC < N * U || peers < 1 ||
-      peers > kMaxPeers || slices < 1 || slices > 65535 || slices * peers < C ||
-      stages < 2 || stages > kMaxStages)
+  const long long dc = (D + kKWidth - 1) / kKWidth;  // 128-column planes
+  const long long max_w = dc > 1 ? kChunkedMaxWidth : 8 * kMaxWidthSteps;
+  if (W < 8 || W > max_w || W % 8 || W * KC < N * U || peers < 1 || peers > kMaxPeers ||
+      slices < 1 || slices > 65535 || slices * peers < C || stages < 2 ||
+      stages > kMaxStages)
     return kBadPlan;
-  const size_t smem = wgmma_smem((int)W, (int)U, (int)stages, (int)peers);
+  const size_t smem = wgmma_smem((int)W, (int)U, (int)stages, (int)peers, (int)dc);
   if (smem > 232448) return kBadPlan;
   const long long groups = (B * KC + kSlots * U - 1) / (kSlots * U);
   if (groups > 0x7fffffffLL) return kBadShape;
   const long long bank_rows = (C * M + kTileRows - 1) / kTileRows * kTileRows;
-  const long long bank_chunks = bank_rows * kKWidth / 8;
-  const long long total_chunks = bank_chunks + groups * kSlots * W * kKWidth / 8;
+  const long long bank_chunks = bank_rows * kKWidth / 8;  // of one plane
+  const long long query_chunks = groups * kSlots * W * kKWidth / 8;
   cudaStream_t s = pointer<CUstream_st>(a[4]);
   __nv_bfloat16* scratch = pointer<__nv_bfloat16>(a[2]);
-  long long blocks = (total_chunks + 255) / 256;
+  float* out = pointer<float>(a[3]);
+  cudaError_t e;
+  if (KC > kSlots) {  // the blocks of a user fold into out: start below every float
+    e = cudaMemsetAsync(out, 0xff, (size_t)B * C * sizeof(float), s);
+    if (e != cudaSuccess) return (int)e;
+  }
+  long long blocks = ((bank_chunks + query_chunks) * dc + 255) / 256;
   if (blocks > 4096) blocks = 4096;
+  const int vec = D % 4 == 0 && a[0] % 16 == 0 && a[1] % 16 == 0;
   pack_kernel<<<(unsigned)blocks, 256, 0, s>>>(
       pointer<const float>(a[0]), pointer<const float>(a[1]), scratch, bank_chunks,
-      total_chunks, (int)D, C * M, (int)B, (int)N, (int)W, (int)KC, (int)U);
-  cudaError_t e = cudaGetLastError();
+      query_chunks, (int)dc, (int)D, C * M, (int)B, (int)N, (int)W, (int)KC, (int)U, vec);
+  e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  const __nv_bfloat16* query = scratch + bank_chunks * 8;
-  float* out = pointer<float>(a[3]);
-#define AFF_LAUNCH(K, U)                                                                  \
-  case (U) * 32 + (K):                                                                    \
-    e = launch_wgmma<K, U>(scratch, query, out, (int)groups, (int)slices, (int)B, (int)C, \
-                           (int)M, (int)KC, (int)stages, (int)peers, smem, s);            \
+  const long long bank_plane = bank_chunks * 8, query_plane = query_chunks * 8;
+  const __nv_bfloat16* query = scratch + dc * bank_plane;
+#define AFF_LAUNCH(K, U, CH)                                                             \
+  case (CH) * 1024 + (U) * 32 + (K):                                                     \
+    e = launch_wgmma<K, U, CH>(scratch, query, out, (int)groups, (int)slices, (int)B,    \
+                               (int)C, (int)M, (int)KC, (int)stages, (int)peers,         \
+                               (int)dc, bank_plane, query_plane, smem, s);               \
     break;
-#define AFF_LOW(U) \
-  AFF_LAUNCH(1, U) AFF_LAUNCH(2, U) AFF_LAUNCH(3, U) AFF_LAUNCH(4, U) AFF_LAUNCH(5, U) \
-  AFF_LAUNCH(6, U) AFF_LAUNCH(7, U) AFF_LAUNCH(8, U) AFF_LAUNCH(9, U) AFF_LAUNCH(10, U)
+#define AFF_LOW(U, CH)                                                                    \
+  AFF_LAUNCH(1, U, CH) AFF_LAUNCH(2, U, CH) AFF_LAUNCH(3, U, CH) AFF_LAUNCH(4, U, CH)    \
+  AFF_LAUNCH(5, U, CH) AFF_MID(U, CH)
+#define AFF_MID(U, CH) \
+  AFF_LAUNCH(6, U, CH) AFF_LAUNCH(7, U, CH) AFF_LAUNCH(8, U, CH) AFF_LAUNCH(9, U, CH) \
+  AFF_LAUNCH(10, U, CH)
 #define AFF_HIGH(U) \
-  AFF_LAUNCH(11, U) AFF_LAUNCH(12, U) AFF_LAUNCH(13, U) AFF_LAUNCH(14, U) AFF_LAUNCH(15, U) \
-  AFF_LAUNCH(16, U) AFF_LAUNCH(17, U) AFF_LAUNCH(18, U) AFF_LAUNCH(19, U) AFF_LAUNCH(20, U)
-  // K6 at every width; K7 at the widths its plan gives: W = 8 N with 8
-  // users a slot (N <= 20), 88..160 with 4 (N 21..40) and 2 (N 41..80)
-  switch (U * 32 + W / 8) {
-    AFF_LOW(1) AFF_HIGH(1) AFF_HIGH(2) AFF_HIGH(4) AFF_LOW(8) AFF_HIGH(8)
+  AFF_LAUNCH(11, U, false) AFF_LAUNCH(12, U, false) AFF_LAUNCH(13, U, false) \
+  AFF_LAUNCH(14, U, false) AFF_LAUNCH(15, U, false) AFF_LAUNCH(16, U, false) \
+  AFF_LAUNCH(17, U, false) AFF_LAUNCH(18, U, false) AFF_LAUNCH(19, U, false) \
+  AFF_LAUNCH(20, U, false)
+  // one plane: K6 at every width; K7 at the widths its plan gives: W = 8 N
+  // with 8 users a slot (N <= 20), 88..160 with 4 (N 21..40) and 2 (N
+  // 41..80). Chunked (W <= 80): K6 at every width, K7 W = 8 N with 8 users
+  // (N <= 10), 48..80 with 4 (N 11..20) and 2 (N 21..40)
+  switch ((dc > 1) * 1024 + U * 32 + W / 8) {
+    AFF_LOW(1, false) AFF_HIGH(1) AFF_HIGH(2) AFF_HIGH(4) AFF_LOW(8, false) AFF_HIGH(8)
+    AFF_LOW(1, true) AFF_MID(2, true) AFF_MID(4, true) AFF_LOW(8, true)
     default: return kBadPlan;
   }
 #undef AFF_HIGH
+#undef AFF_MID
 #undef AFF_LOW
 #undef AFF_LAUNCH
   return (int)e;
@@ -597,9 +691,9 @@ extern "C" {
 
 // Shared memory per block, in bytes, of either kernel: slot width W, U
 // users a slot (1: the blocked kernel), `stages` ring buffers, `peers` per
-// slice.
-size_t affinity_smem_bytes(int W, int U, int stages, int peers) {
-  return wgmma_smem(W, U, stages, peers);
+// slice, dc 128-column planes (above 1: the chunked instances).
+size_t affinity_smem_bytes(int W, int U, int stages, int peers, int dc) {
+  return wgmma_smem(W, U, stages, peers, dc);
 }
 
 // The blocked kernel (K6). The arguments come as one array of 64-bit
@@ -607,15 +701,16 @@ size_t affinity_smem_bytes(int W, int U, int stages, int peers) {
 // {a, bank, scratch, out, stream, B, C, N, M, D, W, KC, slices, peers, stages}.
 // a: contiguous fp32 [B, N, D]; bank: contiguous fp32 [C, M, D]; out:
 // contiguous fp32 [B, C]; scratch: room for (ceil64(C*M) + 4 * groups * W)
-// * 128 bf16 values, 16-byte aligned (groups = ceil(B * KC / 4)). The plan
-// (W, KC, slices, peers, stages) is ops/affinity.py::blocked_plan's: W a
-// multiple of 8 up to 160 with W * KC >= N, KC in {1, 2, 4}, slices * peers
-// >= C, peers <= 256, 2 <= stages <= 8, the shared memory within 232,448
-// bytes. Returns a Refusal, or the first failing launch's cudaError_t (0 on
-// success).
+// * 128 * dc bf16 values, 16-byte aligned (groups = ceil(B * KC / 4), dc =
+// ceil(D / 128)). The plan (W, KC, slices, peers, stages) is
+// ops/affinity.py::blocked_plan's: W a multiple of 8 up to 160 (80 where
+// D > 128) with W * KC >= N, KC in {1, 2} or a multiple of 4, slices *
+// peers >= C, peers <= 256, 2 <= stages <= 8, the shared memory within
+// 232,448 bytes. Any D from 1 to 65,536. Returns a Refusal, or the first
+// failing launch's cudaError_t (0 on success).
 int max_affinity_blocked(const long long* a) {
   const long long KC = a[11];
-  if (!(KC == 1 || KC == 2 || KC == 4)) return kBadPlan;
+  if (!(KC == 1 || KC == 2 || (KC >= 4 && KC % 4 == 0))) return kBadPlan;
   return run(a, KC, 1);
 }
 
@@ -623,7 +718,8 @@ int max_affinity_blocked(const long long* a) {
 // place of KC: {..., W, U, slices, peers, stages}; groups = ceil(B / (4 U)).
 // N <= 80 (kLongQuery otherwise); the plan is ops/affinity.py::
 // smalln_plan's: U = 8 for N <= 20, 4 for N <= 40, 2 for N <= 80, W = 8 *
-// ceil(N * U / 8).
+// ceil(N * U / 8) (where D > 128, W <= 80: U = 8 for N <= 10, 4 for N <=
+// 20, 2 for N <= 40).
 int max_affinity_smalln(const long long* a) {
   const long long N = a[7], U = a[11];
   if (N > kSmallnMaxN) return kLongQuery;

@@ -57,6 +57,18 @@
 //     split again at each k-step of each stage (raw_owned), in two buffers
 //     so that one k-step's products run while the next is split; a stage
 //     streams 16 rows.
+//   * dh = 256 (template width 256, any dh from 129 to 256). Two owned raw
+//     tiles of 128 rows would take 256 KB, and the dK and dV accumulators
+//     of 64 rows a warpgroup 256 registers a thread (the card allots at most
+//     255). So a block owns 64 rows, which both warpgroups share, and a
+//     stage streams 8 rows. In the dQ kernel warpgroup 0 computes S and
+//     warpgroup 1 dP, each hands its accumulator to the same thread of the
+//     other through shared memory, and each sums its half of dQ's columns
+//     (64 registers); in the dK/dV kernel (attention_bwd_dkdv_wide_kernel)
+//     warpgroup 0 computes S^T, hands it to warpgroup 1 and sums dV,
+//     warpgroup 1 computes dP^T and sums dK (128 registers each). S is
+//     computed twice (once a kernel, as at every width) and dP twice, each
+//     by 32 k-steps of m64n8k8 a stage: small products (PERF.md section 6).
 //   * A head of width dh runs at its template width DH (attention_common.cuh):
 //     its copies zero the columns from dh on, which then add nothing to S,
 //     dP and D_i and leave the gradients zero there; no column from dh on
@@ -103,70 +115,51 @@ namespace {
 using namespace amid_long;
 
 // Whether the owned side is kept as raw fp32 tiles, split at each use
-// (dh = 128), rather than split once
+// (dh >= 128), rather than split once
 template <int DH>
 __host__ __device__ constexpr bool raw_owned() {
-  return DH == 128;
+  return DH >= 128;
+}
+
+// dh = 256: a block owns 64 rows, which both warpgroups share
+template <int DH>
+__host__ __device__ constexpr bool wide() {
+  return DH == 256;
+}
+template <int DH>
+__host__ __device__ constexpr int own_rows() {
+  return wide<DH>() ? 64 : kOwn;
 }
 
 // floats of one owned input: its hi and lo tiles, or its raw tile (none
 // where its fragments are held in registers)
 template <int DH>
 __host__ __device__ constexpr int owned_floats() {
-  return raw_owned<DH>() ? kOwn * DH : 2 * Plan<DH>::OWN;
+  return raw_owned<DH>() ? own_rows<DH>() * DH : 2 * Plan<DH>::OWN;
+}
+
+// floats a wide kernel's warpgroups pass each other a stage (dh = 256): a
+// thread's NS / 2 accumulator values of S or dP (dQ kernel: both ways), of
+// S^T (dK/dV kernel: warpgroup 0 to 1)
+template <int DH>
+__host__ __device__ constexpr int exchange_floats(int ways) {
+  return wide<DH>() ? ways * 128 * Plan<DH>::NS / 2 : 0;
 }
 
 template <int DH>
 constexpr size_t dq_smem() {
   using P = Plan<DH>;
   return sizeof(float) * (2 * owned_floats<DH>() + 2 * (2 * P::TILE + P::NS) + 4 * P::TILE +
-                          2 * P::TR + P::NS + kOwn) + 2 * sizeof(uint64_t);
+                          2 * P::TR + P::NS + own_rows<DH>() + exchange_floats<DH>(2)) +
+         2 * sizeof(uint64_t);
 }
 
 template <int DH>
 constexpr size_t dkdv_smem() {
   using P = Plan<DH>;
   return sizeof(float) * (2 * owned_floats<DH>() + 2 * (2 * P::TILE + 3 * P::NS) +
-                          4 * P::TILE + 4 * P::TR + 4 * P::NS) + 2 * sizeof(uint64_t);
-}
-
-// S = Q K^T and dP = dO V^T of one stage (or S^T = K Q^T and dP^T = V dO^T),
-// 3xTF32, with the owned A operands of a raw tile: each k-step's fragments
-// split into one of two buffers, its products committed as a group, so
-// that the split of k-step k + 1 runs beside them
-template <int DH, int NS>
-__device__ __forceinline__ void products_raw(float (&sa)[NS / 2], float (&pa)[NS / 2],
-                                             const float* a_raw, const float* b_raw, int rl,
-                                             int t4, uint64_t sb_hi, uint64_t sb_lo,
-                                             uint64_t pb_hi, uint64_t pb_lo) {
-  uint32_t ah[2][4], al[2][4], bh[2][4], bl[2][4];
-#pragma unroll
-  for (int k = 0; k < DH / 8; ++k) {
-    const int u = k & 1;
-    if (k >= 2) wgmma_wait<1>();  // k-step k - 2 is done: its buffers are free
-    fence_regs(ah[u]);
-    fence_regs(al[u]);
-    fence_regs(bh[u]);
-    fence_regs(bl[u]);
-    raw_frag<DH>(a_raw, rl, k, t4, ah[u], al[u]);
-    raw_frag<DH>(b_raw, rl, k, t4, bh[u], bl[u]);
-    fence_regs(ah[u]);
-    fence_regs(al[u]);
-    fence_regs(bh[u]);
-    fence_regs(bl[u]);
-    wgmma_fence();
-    mma3_rs<NS>(sa, ah[u], al[u], sb_hi + 16 * k, sb_lo + 16 * k);
-    mma3_rs<NS>(pa, bh[u], bl[u], pb_hi + 16 * k, pb_lo + 16 * k);
-    wgmma_commit();
-  }
-  wgmma_wait<0>();
-#pragma unroll
-  for (int u = 0; u < 2; ++u) {
-    fence_regs(ah[u]);
-    fence_regs(al[u]);
-    fence_regs(bh[u]);
-    fence_regs(bl[u]);
-  }
+                          4 * P::TILE + 4 * P::TR + 4 * P::NS + exchange_floats<DH>(1)) +
+         2 * sizeof(uint64_t);
 }
 
 // BCAST: the bias broadcasts over queries (bias_si == 0); DROP: dropout on
@@ -176,7 +169,9 @@ attention_bwd_dq_kernel(const BwdParams p, float* dsum) {
   using P = Plan<DH>;
   constexpr int NS = P::NS, KS = DH / 8, JS = NS / 8;
   constexpr int RAW = 2 * P::TILE + NS;  // a raw stage: K, V, the bias row
-  constexpr bool OWN_RAW = raw_owned<DH>();
+  constexpr bool OWN_RAW = raw_owned<DH>(), WIDE = wide<DH>();
+  constexpr int OWNR = own_rows<DH>();
+  constexpr int DQW = WIDE ? DH / 2 : DH;  // dQ columns a warpgroup sums
   const int T = p.T, dh = kPadBuild ? p.dh : DH;
 
   extern __shared__ __align__(128) float smem[];
@@ -192,14 +187,15 @@ attention_bwd_dq_kernel(const BwdParams p, float* dsum) {
   float* kthi = vlo + P::TILE;   // [dh][NS] a stage's K, transposed
   float* ktlo = kthi + P::TR;
   float* bias_s = ktlo + P::TR;  // [NS] the stage's bias row (a bias broadcast over queries)
-  float* drow = bias_s + NS;     // [128] D_i
-  uint64_t* full = reinterpret_cast<uint64_t*>(drow + kOwn);  // [2] a raw stage landed
+  float* drow = bias_s + NS;     // [OWNR] D_i
+  float* xchg = drow + OWNR;     // WIDE: [2][128][NS / 2] S (warpgroup 0) and dP (1)
+  uint64_t* full = reinterpret_cast<uint64_t*>(xchg + exchange_floats<DH>(2));  // [2] landed
 
   const int tid = threadIdx.x;
   const int bh = blockIdx.x;
   const int b = bh / p.H;
   const int h = bh - b * p.H;
-  const int q0 = blockIdx.y * kOwn;
+  const int q0 = blockIdx.y * OWNR;
   const float* qb = p.q + b * p.q_sb + h * dh;
   const float* kb = p.k + b * p.k_sb + h * dh;
   const float* vb = p.v + b * p.v_sb + h * dh;
@@ -225,14 +221,14 @@ attention_bwd_dq_kernel(const BwdParams p, float* dsum) {
   issue(0);
   if (ns > 1) issue(1);
   if constexpr (OWN_RAW) {
-    load_owned_raw<DH>(qb, p.q_st, q0, T, dh, qhi, tid);
-    load_owned_raw<DH>(gb, p.g_st, q0, T, dh, ghi, tid);
+    load_owned_raw<DH, OWNR>(qb, p.q_st, q0, T, dh, qhi, tid);
+    load_owned_raw<DH, OWNR>(gb, p.g_st, q0, T, dh, ghi, tid);
   } else if constexpr (!P::REG_A) {
     load_owned<DH>(qb, p.q_st, q0, T, dh, qhi, qlo, tid);
     load_owned<DH>(gb, p.g_st, q0, T, dh, ghi, glo, tid);
   }
   // D_i of the block's queries, summed as the one-sweep kernel sums it
-  if (tid < kOwn) {
+  if (tid < OWNR) {
     const int i = q0 + tid;
     float d = 0.f;
     if (i < T) {
@@ -250,7 +246,8 @@ attention_bwd_dq_kernel(const BwdParams p, float* dsum) {
 
   const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
-  const int rl = wg * 64 + warp * 16 + g;  // this thread's rows rl, rl + 8 of the block
+  // this thread's rows rl, rl + 8 of the block (WIDE: both warpgroups' rows)
+  const int rl = (WIDE ? 0 : wg * 64) + warp * 16 + g;
   int i2[2];
   float m2[2], l2[2], d2[2];
   uint32_t key2[2];
@@ -278,12 +275,15 @@ attention_bwd_dq_kernel(const BwdParams p, float* dsum) {
   const uint64_t ga_lo = tile_desc<DH>(glo + wg * 64 * DH);
   const uint64_t kb_hi = tile_desc<DH>(khi), kb_lo = tile_desc<DH>(klo);
   const uint64_t vb_hi = tile_desc<DH>(vhi), vb_lo = tile_desc<DH>(vlo);
-  const uint64_t kt_hi = tr_desc<DH>(kthi), kt_lo = tr_desc<DH>(ktlo);
+  // WIDE: this warpgroup's columns of K^T, DQW rows of 8 on from wg * DQW
+  // (DQW / 8 core matrices of 128 bytes: DQW descriptor units)
+  const uint64_t half = WIDE ? (uint64_t)(wg * DQW) : 0;
+  const uint64_t kt_hi = tr_desc<DH>(kthi) + half, kt_lo = tr_desc<DH>(ktlo) + half;
   constexpr int kTrStep = 2 * P::TR_LBO / 16;  // a k-step of a [dh][NS] tile, in descriptor units
 
-  float dq[DH / 2];
+  float dq[DQW / 2];
 #pragma unroll
-  for (int x = 0; x < DH / 2; ++x) dq[x] = 0.f;
+  for (int x = 0; x < DQW / 2; ++x) dq[x] = 0.f;
 
   for (int s = 0; s < ns; ++s) {
     const float* r = raw + (s & 1) * RAW;
@@ -304,8 +304,27 @@ attention_bwd_dq_kernel(const BwdParams p, float* dsum) {
     for (int x = 0; x < NS / 2; ++x) sa[x] = pa[x] = 0.f;
     fence_regs(sa);
     fence_regs(pa);
-    if constexpr (OWN_RAW) {
-      products_raw<DH, NS>(sa, pa, qhi, ghi, rl, t4, kb_hi, kb_lo, vb_hi, vb_lo);
+    if constexpr (WIDE) {
+      // warpgroup 0 computes S, warpgroup 1 dP, over the same 64 rows; each
+      // hands its thread's values to the same thread of the other
+      if (wg == 0)
+        products_raw<DH, NS, false, 4>(sa, sa, qhi, qhi, rl, t4, kb_hi, kb_lo, kb_hi, kb_lo);
+      else
+        products_raw<DH, NS, false, 4>(pa, pa, ghi, ghi, rl, t4, vb_hi, vb_lo, vb_hi, vb_lo);
+      float* mine = xchg + tid * (NS / 2);
+      const float* theirs = xchg + (tid ^ 128) * (NS / 2);
+#pragma unroll
+      for (int x = 0; x < NS / 2; ++x) mine[x] = wg == 0 ? sa[x] : pa[x];
+      __syncthreads();
+#pragma unroll
+      for (int x = 0; x < NS / 2; ++x) {
+        if (wg == 0)
+          pa[x] = theirs[x];
+        else
+          sa[x] = theirs[x];
+      }
+    } else if constexpr (OWN_RAW) {
+      products_raw<DH, NS, true>(sa, pa, qhi, ghi, rl, t4, kb_hi, kb_lo, vb_hi, vb_lo);
     } else {
       wgmma_fence();
 #pragma unroll
@@ -357,7 +376,7 @@ attention_bwd_dq_kernel(const BwdParams p, float* dsum) {
       fence_regs(ahi[j & 1]);
       fence_regs(alo[j & 1]);
       wgmma_fence();
-      mma3_rs<DH>(dq, ahi[j & 1], alo[j & 1], kt_hi + j * kTrStep, kt_lo + j * kTrStep);
+      mma3_rs<DQW>(dq, ahi[j & 1], alo[j & 1], kt_hi + j * kTrStep, kt_lo + j * kTrStep);
       wgmma_commit();
     }
     wgmma_wait<0>();
@@ -372,8 +391,8 @@ attention_bwd_dq_kernel(const BwdParams p, float* dsum) {
 
   const long long out_base = (long long)b * T * p.D + h * dh;
 #pragma unroll
-  for (int c = 0; c < DH / 8; ++c) {
-    const int col = c * 8 + 2 * t4;
+  for (int c = 0; c < DQW / 8; ++c) {
+    const int col = (WIDE ? wg * DQW : 0) + c * 8 + 2 * t4;
 #pragma unroll
     for (int x = 0; x < 2; ++x) {
       const int i = q0 + rl + 8 * x;
@@ -505,7 +524,7 @@ attention_bwd_dkdv_kernel(const BwdParams p, const float* dsum) {
     fence_regs(st);
     fence_regs(dp);
     if constexpr (OWN_RAW) {
-      products_raw<DH, NS>(st, dp, khi, vhi, rl, t4, qb_hi, qb_lo, gb_hi, gb_lo);
+      products_raw<DH, NS, true>(st, dp, khi, vhi, rl, t4, qb_hi, qb_lo, gb_hi, gb_lo);
     } else {
       wgmma_fence();
 #pragma unroll
@@ -597,13 +616,209 @@ attention_bwd_dkdv_kernel(const BwdParams p, const float* dsum) {
   }
 }
 
+// dh = 256 (wide<DH>()): the block owns 64 keys, both warpgroups share
+// them; warpgroup 0 computes S^T = K Q^T, hands it to warpgroup 1 and sums
+// dV += Pd^T dO, warpgroup 1 computes dP^T = V dO^T and sums dK += dS^T Q,
+// each over all 256 columns (128 accumulators a thread)
+template <bool BCAST, bool DROP>
+__global__ void __launch_bounds__(kThreads, 1)
+attention_bwd_dkdv_wide_kernel(const BwdParams p, const float* dsum) {
+  constexpr int DH = 256;
+  using P = Plan<DH>;
+  constexpr int NS = P::NS, JS = NS / 8, OWNR = own_rows<DH>();
+  constexpr int RAW = 2 * P::TILE + 3 * NS;  // a raw stage: Q, dO, m, 1/l, D
+  const int T = p.T, dh = kPadBuild ? p.dh : DH;
+
+  extern __shared__ __align__(128) float smem[];
+  float* kraw = smem;              // [64][dh] the block's K, raw
+  float* vraw = kraw + OWNR * DH;  // [64][dh] the block's V, raw
+  float* raw = vraw + OWNR * DH;   // two raw stages
+  float* qhi = raw + 2 * RAW;      // [NS][dh] a stage's Q and dO
+  float* qlo = qhi + P::TILE;
+  float* ghi = qlo + P::TILE;
+  float* glo = ghi + P::TILE;
+  float* qthi = glo + P::TILE;     // [dh][NS] a stage's Q and dO, transposed
+  float* qtlo = qthi + P::TR;
+  float* gthi = qtlo + P::TR;
+  float* gtlo = gthi + P::TR;
+  // [NS] m_i, 1/l_i, D_i and the dropout key (its bits) of the stage's rows
+  float4* rows_s = reinterpret_cast<float4*>(gtlo + P::TR);
+  float* xchg = reinterpret_cast<float*>(rows_s + NS);  // [128][NS / 2] S^T, warpgroup 0 to 1
+  uint64_t* full = reinterpret_cast<uint64_t*>(xchg + exchange_floats<DH>(1));  // [2] landed
+
+  const int tid = threadIdx.x;
+  const int bh = blockIdx.x;
+  const int b = bh / p.H;
+  const int h = bh - b * p.H;
+  const int k0 = blockIdx.y * OWNR;
+  const float* qb = p.q + b * p.q_sb + h * dh;
+  const float* kb = p.k + b * p.k_sb + h * dh;
+  const float* vb = p.v + b * p.v_sb + h * dh;
+  const float* gb = p.dout + b * p.g_sb + h * dh;
+  const float* bias_b = p.bias + b * p.bias_sb;
+  const long long stat = (long long)bh * T;
+  const int ns = (T + NS - 1) / NS;
+  const uint32_t bh_key =
+      DROP ? mix(mix(kMixKey0, (uint32_t)*p.seed), (uint32_t)bh + p.bh_offset) : 0u;
+
+  if (tid == 0) {
+    mbar_init(smem_u32(full), kThreads);
+    mbar_init(smem_u32(full + 1), kThreads);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  auto issue = [&](int s) {  // stage s into raw stage s % 2
+    float* r = raw + (s & 1) * RAW;
+    copy_rows<DH>(r, qb, p.q_st, s * NS, T, dh, tid);
+    copy_rows<DH>(r + P::TILE, gb, p.g_st, s * NS, T, dh, tid);
+    copy_vals<NS>(r + 2 * P::TILE, p.row_max + stat, s * NS, T, tid);
+    copy_vals<NS>(r + 2 * P::TILE + NS, p.row_inv_sum + stat, s * NS, T, tid);
+    copy_vals<NS>(r + 2 * P::TILE + 2 * NS, dsum + stat, s * NS, T, tid);
+    cp_async_arrive(smem_u32(full + (s & 1)));
+  };
+  issue(0);
+  if (ns > 1) issue(1);
+  load_owned_raw<DH, OWNR>(kb, p.k_st, k0, T, dh, kraw, tid);
+  load_owned_raw<DH, OWNR>(vb, p.v_st, k0, T, dh, vraw, tid);
+  __syncthreads();
+
+  const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int rl = warp * 16 + g;  // this thread's key rows rl, rl + 8 of the block
+  const bool sums_dv = wg == 0;  // else dK
+  int j2[2];
+  float bk[2];
+#pragma unroll
+  for (int x = 0; x < 2; ++x) {
+    const int j = k0 + rl + 8 * x;
+    j2[x] = j;
+    bk[x] = BCAST ? bias_b[min(j, T - 1)] : 0.f;
+  }
+  const uint64_t qb_hi = tile_desc<DH>(qhi), qb_lo = tile_desc<DH>(qlo);
+  const uint64_t gb_hi = tile_desc<DH>(ghi), gb_lo = tile_desc<DH>(glo);
+  // B of this warpgroup's sum: dO^T for dV, Q^T for dK
+  const uint64_t tb_hi = tr_desc<DH>(sums_dv ? gthi : qthi);
+  const uint64_t tb_lo = tr_desc<DH>(sums_dv ? gtlo : qtlo);
+  constexpr int kTrStep = 2 * P::TR_LBO / 16;
+
+  float acc[DH / 2];  // dV (warpgroup 0) or dK (warpgroup 1)
+#pragma unroll
+  for (int x = 0; x < DH / 2; ++x) acc[x] = 0.f;
+
+  for (int s = 0; s < ns; ++s) {
+    const float* r = raw + (s & 1) * RAW;
+    const int s0 = s * NS;
+    mbar_wait(smem_u32(full + (s & 1)), (s >> 1) & 1);
+    split_stage<DH, true, true>(r, qhi, qlo, qthi, qtlo, tid);
+    split_stage<DH, true, true>(r + P::TILE, ghi, glo, gthi, gtlo, tid);
+    for (int c = tid; c < NS; c += kThreads)  // a query past T has m = inf: P = 0
+      rows_s[c] = make_float4(s0 + c < T ? r[2 * P::TILE + c] : INFINITY,
+                              r[2 * P::TILE + NS + c], r[2 * P::TILE + 2 * NS + c],
+                              __uint_as_float(DROP ? mix(bh_key, (uint32_t)(s0 + c)) : 0u));
+    fence_proxy_async();
+    __syncthreads();  // the split tiles are written and raw stage s % 2 is free
+    if (s + 2 < ns) issue(s + 2);
+
+    // S^T = K Q^T (warpgroup 0) and dP^T = V dO^T (warpgroup 1): keys in
+    // rows, the stage's queries in columns; warpgroup 0 hands S^T over
+    float st[NS / 2], dp[NS / 2];
+#pragma unroll
+    for (int x = 0; x < NS / 2; ++x) st[x] = dp[x] = 0.f;
+    fence_regs(st);
+    fence_regs(dp);
+    if (sums_dv)
+      products_raw<DH, NS, false, 4>(st, st, kraw, kraw, rl, t4, qb_hi, qb_lo, qb_hi, qb_lo);
+    else
+      products_raw<DH, NS, false, 4>(dp, dp, vraw, vraw, rl, t4, gb_hi, gb_lo, gb_hi, gb_lo);
+    fence_regs(st);
+    fence_regs(dp);
+    if (sums_dv) {
+#pragma unroll
+      for (int x = 0; x < NS / 2; ++x) xchg[tid * (NS / 2) + x] = st[x];
+    }
+    __syncthreads();
+    if (!sums_dv) {
+#pragma unroll
+      for (int x = 0; x < NS / 2; ++x) st[x] = xchg[(tid - 128) * (NS / 2) + x];
+    }
+
+    // Pd (dV) or dS (dK) element by element, then the sum, one k-step a
+    // column group j: element e of group j is key rl + 8 (e / 2), query
+    // 8 j + 2 t + e % 2 of the stage
+    uint32_t ahi[2][4], alo[2][4];
+    fence_regs(acc);
+#pragma unroll
+    for (int j = 0; j < JS; ++j) {
+      float av[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int x = e >> 1;
+        const int c = 8 * j + 2 * t4 + (e & 1);
+        const int i = s0 + c;
+        const int key = j2[x];
+        const float4 rv = rows_s[c];  // m, 1/l, D, the row's dropout key
+        const float bv = BCAST ? bk[x] : bias_b[min(i, T - 1) * p.bias_si + min(key, T - 1)];
+        const float pv = __expf(fmaf(st[4 * j + e], p.scale, bv) - rv.x) * rv.y;
+        float kf = 1.f;
+        if constexpr (DROP)
+          kf = (mix(__float_as_uint(rv.w), (uint32_t)key) >> 8) >= p.keep_threshold ? p.inv_keep
+                                                                                    : 0.f;
+        av[e] = sums_dv ? (DROP ? pv * kf : pv)
+                        : pv * ((DROP ? dp[4 * j + e] * kf : dp[4 * j + e]) - rv.z);
+      }
+      const int u = j & 1;
+      if (j >= 2) wgmma_wait<1>();  // group j - 2 is done: its buffers are free
+      fence_regs(ahi[u]);
+      fence_regs(alo[u]);
+      frag(av, ahi[u], alo[u]);
+      fence_regs(ahi[u]);
+      fence_regs(alo[u]);
+      wgmma_fence();
+      mma3_rs<DH>(acc, ahi[u], alo[u], tb_hi + j * kTrStep, tb_lo + j * kTrStep);
+      wgmma_commit();
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      fence_regs(ahi[x]);
+      fence_regs(alo[x]);
+    }
+    __syncthreads();  // the split tiles are read
+  }
+
+  const long long out_base = (long long)b * T * p.D + h * dh;
+  float* dst = sums_dv ? p.dv : p.dk;
+  const float scale = sums_dv ? 1.f : p.scale;
+#pragma unroll
+  for (int c = 0; c < DH / 8; ++c) {
+    const int col = c * 8 + 2 * t4;
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      const int j = j2[x];
+      if (j < T)
+        store2<DH>(dst + out_base + (long long)j * p.D, col, dh, acc[4 * c + 2 * x] * scale,
+                   acc[4 * c + 2 * x + 1] * scale);
+    }
+  }
+}
+
+// the dK/dV kernel of a head width
+template <int DH, bool BCAST, bool DROP>
+constexpr auto dkdv_kernel() {
+  if constexpr (wide<DH>())
+    return attention_bwd_dkdv_wide_kernel<BCAST, DROP>;
+  else
+    return attention_bwd_dkdv_kernel<DH, BCAST, DROP>;
+}
+
 template <int DH, bool BCAST, bool DROP>
 cudaError_t opt_in() {
   cudaError_t e = cudaFuncSetAttribute(attention_bwd_dq_kernel<DH, BCAST, DROP>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)dq_smem<DH>());
   if (e != cudaSuccess) return e;
-  return cudaFuncSetAttribute(attention_bwd_dkdv_kernel<DH, BCAST, DROP>,
+  return cudaFuncSetAttribute(dkdv_kernel<DH, BCAST, DROP>(),
                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dkdv_smem<DH>());
 }
 
@@ -612,7 +827,7 @@ cudaError_t launch_pair(const BwdParams& p, float* dsum, dim3 grid, cudaStream_t
   attention_bwd_dq_kernel<DH, BCAST, DROP><<<grid, kThreads, dq_smem<DH>(), stream>>>(p, dsum);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  attention_bwd_dkdv_kernel<DH, BCAST, DROP><<<grid, kThreads, dkdv_smem<DH>(), stream>>>(p, dsum);
+  dkdv_kernel<DH, BCAST, DROP>()<<<grid, kThreads, dkdv_smem<DH>(), stream>>>(p, dsum);
   return cudaGetLastError();
 }
 
@@ -629,7 +844,7 @@ cudaError_t launch(const BwdParams& p, float* dsum, int B, cudaStream_t stream) 
     return e;
   }();
   if (opted_in != cudaSuccess) return opted_in;
-  const dim3 grid(B * p.H, (p.T + kOwn - 1) / kOwn);
+  const dim3 grid(B * p.H, (p.T + own_rows<DH>() - 1) / own_rows<DH>());
   if (p.bias_si == 0)
     return p.dropout ? launch_pair<DH, true, true>(p, dsum, grid, stream)
                      : launch_pair<DH, true, false>(p, dsum, grid, stream);
@@ -648,7 +863,8 @@ struct BwdLongArgs {
 
 extern "C" {
 
-// Longest T the path takes: the grid's second dimension counts 128-row blocks.
+// Longest T the path takes at dh up to 128: the grid's second dimension
+// counts 128-row blocks. Above dh = 128 the blocks own 64 rows: half of it.
 int attention_bwd_long_max_t() { return 65535 * kOwn; }
 
 // Launches the dQ kernel, then the dK/dV kernel. `raw` is one BwdLongArgs
@@ -663,9 +879,10 @@ int attention_bwd_long(const void* raw) {
   const BwdArgs& a = la.a;
   if (a.B < 1 || a.T < 1 || a.H < 1 || a.D % a.H != 0) return kBadShape;
   const long long dh = a.D / a.H;
-  if (template_dh((int)dh) == 0) return kBadHeadWidth;
-  if (!kPadBuild && dh != template_dh((int)dh)) return kBadHeadWidth;  // the padded build's
-  if (a.T > attention_bwd_long_max_t() || a.B * a.H > 2147483647LL) return kTooLong;
+  if (long_template_dh((int)dh) == 0) return kBadHeadWidth;
+  if (!kPadBuild && dh != long_template_dh((int)dh)) return kBadHeadWidth;  // the padded build's
+  if (a.T > 65535LL * (dh > kMaxHeadDim ? own_rows<256>() : kOwn) || a.B * a.H > 2147483647LL)
+    return kTooLong;
   if (!rows_aligned(a.q, a.q_sb, a.q_st, dh) || !rows_aligned(a.k, a.k_sb, a.k_st, dh) ||
       !rows_aligned(a.v, a.v_sb, a.v_st, dh) || !rows_aligned(a.dout, a.g_sb, a.g_st, dh))
     return kMisaligned;
@@ -673,12 +890,13 @@ int attention_bwd_long(const void* raw) {
   float* dsum = ptr<float>(la.dsum);
   cudaStream_t s = ptr<CUstream_st>(a.stream);
   const int B = (int)a.B;
-  switch (template_dh((int)dh)) {
+  switch (long_template_dh((int)dh)) {
     case 8: return (int)launch<8>(p, dsum, B, s);
     case 16: return (int)launch<16>(p, dsum, B, s);
     case 32: return (int)launch<32>(p, dsum, B, s);
     case 64: return (int)launch<64>(p, dsum, B, s);
-    default: return (int)launch<128>(p, dsum, B, s);
+    case 128: return (int)launch<128>(p, dsum, B, s);
+    default: return (int)launch<256>(p, dsum, B, s);
   }
 }
 

@@ -69,6 +69,17 @@
 //     Such a head takes the build with AMID_ATTN_PAD=1 (its own library, dh
 //     read at run time); this build takes dh = DH only, a compile-time
 //     constant.
+//   * dh = 256 (template width 256, any dh from 129 to 256). The owned Q as
+//     TF32 halves would take 128 * 256 * 4 * 2 = 262,144 bytes, above a
+//     block's 232,448, and the O accumulator alone is 128 registers a
+//     thread. So Q is kept raw, one fp32 [128][256] tile (128 KB, chunks
+//     swizzled by row as the long backward's raw owned tiles), and its A
+//     fragments are split again at each k-step of each stage (raw_frag), in
+//     two buffers so that one k-step's products run while the next is split;
+//     a stage streams 8 keys (two or three in the ring), so that S = Q K^T is
+//     32 k-steps of m64n8k8, and O += P V is one m64n256k8 a stage. Right
+//     and simple, not fast: the small S products and the split of Q at every
+//     stage are the cost (PERF.md section 6).
 //   * Each instance is compiled for a bias that broadcasts over queries or
 //     not and for dropout on or off, so that no element pays for a branch.
 //   * At dh = 128 with one query block a head (T <= 128), or two (T <= 256)
@@ -125,6 +136,16 @@ template <int DH>
 __host__ __device__ constexpr bool q_in_regs() {
   return DH <= 16;
 }
+// Q raw in shared memory, its fragments split at each use (dh = 256)
+template <int DH>
+__host__ __device__ constexpr bool q_raw() {
+  return DH == 256;
+}
+// floats of Q in shared memory: none, its raw tile, or its hi and lo tiles
+template <int DH>
+__host__ __device__ constexpr int q_floats() {
+  return q_in_regs<DH>() ? 0 : q_raw<DH>() ? kOwn * DH : 2 * kOwn * DH;
+}
 
 // one stage of the scratch and of the ring, in floats: K hi, K lo, V hi,
 // V lo ([dh][NS]), then the bias's part
@@ -145,7 +166,7 @@ __host__ __device__ constexpr int stage_floats() {
 template <int DH, bool BCAST>
 __host__ __device__ constexpr size_t smem_with(int slots) {
   // the barriers (full and empty a slot), Q's halves, the ring
-  return 128 + (q_in_regs<DH>() ? 0 : sizeof(float) * 2 * kOwn * DH) +
+  return 128 + sizeof(float) * q_floats<DH>() +
          sizeof(float) * (size_t)slots * stage_floats<DH, BCAST>();
 }
 
@@ -288,7 +309,7 @@ attention_fwd_long_kernel(const FwdParams p, const Packed pk) {
   constexpr int NS = P::NS, KS = DH / 8, JS = NS / 8;
   constexpr int SLOTS = ring_stages<DH, BCAST>();
   constexpr int SF = stage_floats<DH, BCAST>();
-  constexpr bool QREG = q_in_regs<DH>();
+  constexpr bool QREG = q_in_regs<DH>(), QRAW = q_raw<DH>();
   constexpr uint32_t kKvBytes = S::KV * 4;
   constexpr uint32_t kBiasBytes = (BCAST ? S::BIAS_ROW : S::BIAS_TILE) * 4;
   const int T = p.T, dh = kPadBuild ? p.dh : DH;
@@ -297,8 +318,9 @@ attention_fwd_long_kernel(const FwdParams p, const Packed pk) {
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);  // [SLOTS] a stage landed
   uint64_t* empty = full + SLOTS;                      // [SLOTS] a stage read
   float* qhi = reinterpret_cast<float*>(smem + 128);   // [128][dh] Q's halves (dh >= 32)
-  float* qlo = qhi + (QREG ? 0 : kOwn * DH);
-  float* ring = qlo + (QREG ? 0 : kOwn * DH);          // SLOTS x (K, V, the bias's part)
+                                                       // or, at dh = 256, Q raw
+  float* qlo = qhi + (QREG || QRAW ? 0 : kOwn * DH);
+  float* ring = qhi + q_floats<DH>();                  // SLOTS x (K, V, the bias's part)
 
   const int tid = threadIdx.x;
   const int qb = blockIdx.x % pk.n_qb;
@@ -343,6 +365,9 @@ attention_fwd_long_kernel(const FwdParams p, const Packed pk) {
   uint32_t qf_hi[KA][4], qf_lo[KA][4];
   if constexpr (QREG) {
     owned_frags<DH>(qb_rows, p.q_st, q0 + rl, T, dh, t4, qf_hi, qf_lo);
+  } else if constexpr (QRAW) {
+    load_owned_raw<DH>(qb_rows, p.q_st, q0, T, dh, qhi, tid);
+    __syncthreads();
   } else {
     load_owned<DH>(qb_rows, p.q_st, q0, T, dh, qhi, qlo, tid);
     fence_proxy_async();
@@ -379,17 +404,22 @@ attention_fwd_long_kernel(const FwdParams p, const Packed pk) {
 #pragma unroll
     for (int x = 0; x < NS / 2; ++x) sa[x] = 0.f;
     fence_regs(sa);
-    wgmma_fence();
+    if constexpr (QRAW) {
+      products_raw<DH, NS, false, 4>(sa, sa, qhi, qhi, rl, t4, kb_hi, kb_lo, kb_hi,
+                                         kb_lo);
+    } else {
+      wgmma_fence();
 #pragma unroll
-    for (int k = 0; k < KS; ++k) {
-      if constexpr (QREG) {
-        mma3_rs<NS>(sa, qf_hi[k], qf_lo[k], kb_hi + 16 * k, kb_lo + 16 * k);
-      } else {
-        mma3_ss<NS>(sa, qa_hi + 16 * k, qa_lo + 16 * k, kb_hi + 16 * k, kb_lo + 16 * k);
+      for (int k = 0; k < KS; ++k) {
+        if constexpr (QREG) {
+          mma3_rs<NS>(sa, qf_hi[k], qf_lo[k], kb_hi + 16 * k, kb_lo + 16 * k);
+        } else {
+          mma3_ss<NS>(sa, qa_hi + 16 * k, qa_lo + 16 * k, kb_hi + 16 * k, kb_lo + 16 * k);
+        }
       }
+      wgmma_commit();
+      wgmma_wait<0>();
     }
-    wgmma_commit();
-    wgmma_wait<0>();
     fence_regs(sa);
 
     // the scores, scaled and biased (keys past T: bias -inf), and the
@@ -871,8 +901,8 @@ struct FwdLongArgs {
 int check(const FwdArgs& a) {
   if (a.B < 1 || a.T < 1 || a.H < 1 || a.D % a.H != 0) return kBadShape;
   const long long dh = a.D / a.H;
-  if (template_dh((int)dh) == 0) return kBadHeadWidth;
-  if (!kPadBuild && dh != template_dh((int)dh)) return kBadHeadWidth;  // the padded build's
+  if (long_template_dh((int)dh) == 0) return kBadHeadWidth;
+  if (!kPadBuild && dh != long_template_dh((int)dh)) return kBadHeadWidth;  // the padded build's
   if (a.T > 65535LL * kOwn || a.B * a.H * ((a.T + kOwn - 1) / kOwn) > 2147483647LL)
     return kTooLong;
   return 0;
@@ -893,12 +923,13 @@ long long attention_fwd_long_scratch(const void* raw) {
   const int refusal = check(a);
   if (refusal) return refusal;
   Layout L;
-  switch (template_dh((int)(a.D / a.H))) {
+  switch (long_template_dh((int)(a.D / a.H))) {
     case 8: L = layout<8>(a); break;
     case 16: L = layout<16>(a); break;
     case 32: L = layout<32>(a); break;
     case 64: L = layout<64>(a); break;
-    default: L = layout<128>(a); break;
+    case 128: L = layout<128>(a); break;
+    default: L = layout<256>(a); break;
   }
   return 4 * (L.kv_floats + L.bias_floats);
 }
@@ -924,12 +955,13 @@ int attention_fwd_long(const void* raw) {
   float* scratch = ptr<float>(la.scratch);
   int small = 0;
   cudaError_t e;
-  switch (template_dh((int)dh)) {
+  switch (long_template_dh((int)dh)) {
     case 8: e = launch<8>(p, a, scratch, la.scratch_bytes, s, small); break;
     case 16: e = launch<16>(p, a, scratch, la.scratch_bytes, s, small); break;
     case 32: e = launch<32>(p, a, scratch, la.scratch_bytes, s, small); break;
     case 64: e = launch<64>(p, a, scratch, la.scratch_bytes, s, small); break;
-    default: e = launch<128>(p, a, scratch, la.scratch_bytes, s, small); break;
+    case 128: e = launch<128>(p, a, scratch, la.scratch_bytes, s, small); break;
+    default: e = launch<256>(p, a, scratch, la.scratch_bytes, s, small); break;
   }
   return small ? small : (int)e;
 }

@@ -40,6 +40,11 @@ constexpr int kOwn = 128;      // rows a block owns, 64 a warpgroup
   BWL_L32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, " \
           "%47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "   \
           "%62, %63"
+#define BWL_L128 BWL_L64 ", " \
+  "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, " \
+  "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, " \
+  "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, " \
+  "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
 #define BWL_R(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
 #define BWL_O4 BWL_R(0)
 #define BWL_O8 BWL_O4, BWL_R(4)
@@ -47,6 +52,9 @@ constexpr int kOwn = 128;      // rows a block owns, 64 a warpgroup
 #define BWL_O32 BWL_O16, BWL_R(16), BWL_R(20), BWL_R(24), BWL_R(28)
 #define BWL_O64 BWL_O32, BWL_R(32), BWL_R(36), BWL_R(40), BWL_R(44), BWL_R(48), BWL_R(52), \
                 BWL_R(56), BWL_R(60)
+#define BWL_O128 BWL_O64, BWL_R(64), BWL_R(68), BWL_R(72), BWL_R(76), BWL_R(80), BWL_R(84), \
+                 BWL_R(88), BWL_R(92), BWL_R(96), BWL_R(100), BWL_R(104), BWL_R(108),      \
+                 BWL_R(112), BWL_R(116), BWL_R(120), BWL_R(124)
 
 template <int N>
 __device__ __forceinline__ void mma_ss(float (&d)[N / 2], uint64_t a, uint64_t b);
@@ -70,6 +78,16 @@ __device__ __forceinline__ void mma_ss<16>(float (&d)[8], uint64_t a, uint64_t b
       "}, %8, %9, p, 1, 1;\n}\n"
       : BWL_O8
       : "l"(a), "l"(b), "r"(1));
+}
+template <>
+__device__ __forceinline__ void mma_rs<256>(float (&d)[128], const uint32_t (&a)[4],
+                                            uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k8.f32.tf32.tf32 {" BWL_L128
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1;\n}\n"
+      : BWL_O128
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 template <>
 __device__ __forceinline__ void mma_rs<128>(float (&d)[64], const uint32_t (&a)[4],
@@ -143,13 +161,13 @@ template <int DH>
 struct Plan {
   // the owned side's A operands of S and dP: split once into registers
   // (dh <= 32), or into [128][dh] shared-memory tiles (dh >= 64: registers
-  // would not hold them; the long backward keeps them raw at dh = 128,
-  // raw_owned in attention_bwd_long.cu)
+  // would not hold them; the long backward keeps them raw at dh >= 128,
+  // raw_owned in attention_bwd_long.cu, and the long forward at dh = 256)
   static constexpr bool REG_A = DH <= 32;
   static constexpr int C = DH / 4;  // 16-byte chunks of a row
   // rows a stage streams: the tiles of a stage grow with dh, the block's
   // shared memory (227 KB) does not
-  static constexpr int NS = DH == 128 ? 16 : DH == 64 ? 32 : 64;
+  static constexpr int NS = DH == 256 ? 8 : DH == 128 ? 16 : DH == 64 ? 32 : 64;
   static constexpr int L = DH >= 32 ? 1 : 32 / DH;  // raw rows in one 128-byte line
   static constexpr int TILE = NS * DH;              // floats of a [NS][dh] tile
   static constexpr int TR = NS * DH + NS;           // of a [dh][NS] tile (chunk padding)
@@ -303,14 +321,14 @@ __device__ __forceinline__ int own_at(int r, int col) {
   return r * DH + (col ^ ((r & 7) << 2));
 }
 
-// rows [row0, row0 + 128) of a head in a raw owned tile (fp32, plain loads,
-// once a block); rows past T are zeros
-template <int DH>
+// rows [row0, row0 + ROWS) of a head in a raw owned tile (fp32, plain
+// loads, once a block); rows past T are zeros
+template <int DH, int ROWS = kOwn>
 __device__ __forceinline__ void load_owned_raw(const float* head, long long st, int row0,
                                                int T, int dh, float* raw, int tid) {
   static_assert(DH >= 32, "the swizzle permutes 8 chunks of a row");
-  for (int item = tid; item < kOwn * Plan<DH>::C; item += kThreads) {
-    const int c = item / kOwn, r = item - c * kOwn;
+  for (int item = tid; item < ROWS * Plan<DH>::C; item += kThreads) {
+    const int c = item / ROWS, r = item - c * ROWS;
     *reinterpret_cast<float4*>(raw + own_at<DH>(r, 4 * c)) =
         load_chunk(head, st, row0 + r, c, T, dh);
   }
@@ -365,6 +383,96 @@ __device__ __forceinline__ void frag(const float (&v)[4], uint32_t (&hi)[4], uin
     const Split s = split(a[x]);
     hi[x] = s.hi;
     lo[x] = s.lo;
+  }
+}
+
+// S = Q K^T and, with Two, dP = dO V^T of one stage (or S^T = K Q^T and
+// dP^T = V dO^T), 3xTF32, with the owned A operands of raw tiles: each
+// k-step's fragments split into one of two buffers, its products committed
+// as a group, so that the split of k-step k + 1 runs beside them. With
+// DEPTH > 1 (dh = 256, whose 32 k-steps of small products a stage would
+// otherwise wait on one another through one accumulator) k-step k sums into
+// partial k % DEPTH from a buffer of its own, DEPTH groups in flight, and
+// the partials are added into sa (pa) in pairs at the end.
+template <int DH, int NS, bool Two, int DEPTH = 1>
+__device__ __forceinline__ void products_raw(float (&sa)[NS / 2], float (&pa)[NS / 2],
+                                             const float* a_raw, const float* b_raw, int rl,
+                                             int t4, uint64_t sb_hi, uint64_t sb_lo,
+                                             uint64_t pb_hi, uint64_t pb_lo) {
+  constexpr int NB = DEPTH > 1 ? DEPTH : 2;  // fragment buffers: groups in flight
+  constexpr int NP = DEPTH > 1 ? DEPTH : 1;  // partial sums
+  static_assert(DEPTH == 1 || (DEPTH & (DEPTH - 1)) == 0, "partials are added in pairs");
+  uint32_t ah[NB][4], al[NB][4], bh[NB][4], bl[NB][4];
+  float sp[NP][NS / 2], pp[NP][NS / 2];
+  if constexpr (DEPTH > 1) {
+#pragma unroll
+    for (int r = 0; r < NP; ++r) {
+#pragma unroll
+      for (int x = 0; x < NS / 2; ++x) sp[r][x] = pp[r][x] = 0.f;
+      fence_regs(sp[r]);
+      fence_regs(pp[r]);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < DH / 8; ++k) {
+    const int u = k % NB;
+    if (k >= NB) wgmma_wait<NB - 1>();  // k-step k - NB is done: its buffers are free
+    fence_regs(ah[u]);
+    fence_regs(al[u]);
+    if constexpr (Two) {
+      fence_regs(bh[u]);
+      fence_regs(bl[u]);
+    }
+    raw_frag<DH>(a_raw, rl, k, t4, ah[u], al[u]);
+    if constexpr (Two) raw_frag<DH>(b_raw, rl, k, t4, bh[u], bl[u]);
+    fence_regs(ah[u]);
+    fence_regs(al[u]);
+    if constexpr (Two) {
+      fence_regs(bh[u]);
+      fence_regs(bl[u]);
+    }
+    wgmma_fence();
+    if constexpr (DEPTH > 1) {
+      mma3_rs<NS>(sp[k % NP], ah[u], al[u], sb_hi + 16 * k, sb_lo + 16 * k);
+      if constexpr (Two) mma3_rs<NS>(pp[k % NP], bh[u], bl[u], pb_hi + 16 * k, pb_lo + 16 * k);
+    } else {
+      mma3_rs<NS>(sa, ah[u], al[u], sb_hi + 16 * k, sb_lo + 16 * k);
+      if constexpr (Two) mma3_rs<NS>(pa, bh[u], bl[u], pb_hi + 16 * k, pb_lo + 16 * k);
+    }
+    wgmma_commit();
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int u = 0; u < NB; ++u) {
+    fence_regs(ah[u]);
+    fence_regs(al[u]);
+    if constexpr (Two) {
+      fence_regs(bh[u]);
+      fence_regs(bl[u]);
+    }
+  }
+  if constexpr (DEPTH > 1) {
+#pragma unroll
+    for (int r = 0; r < NP; ++r) {
+      fence_regs(sp[r]);
+      fence_regs(pp[r]);
+    }
+#pragma unroll
+    for (int step = NP / 2; step >= 1; step /= 2) {
+#pragma unroll
+      for (int r = 0; r < step; ++r) {
+#pragma unroll
+        for (int x = 0; x < NS / 2; ++x) {
+          sp[r][x] += sp[r + step][x];
+          if constexpr (Two) pp[r][x] += pp[r + step][x];
+        }
+      }
+    }
+#pragma unroll
+    for (int x = 0; x < NS / 2; ++x) {
+      sa[x] += sp[0][x];
+      if constexpr (Two) pa[x] += pp[0][x];
+    }
   }
 }
 

@@ -49,7 +49,19 @@
 //   users.
 // Shared memory of the main kernel: (D8 * (H8 + 4) + H8 + max(64 * (D8 + 4),
 // 4 * 64 * 33)) * 4 bytes when H <= 32 (the sum of the two past it): 52 KB at
-// D = 128, H = 32.
+// D = 128, H = 32 (KW in place of D8 in the tile's part: "Wide rows").
+//
+// Wide rows (scoring_head_chunked_kernel): where Wi^T and a whole tile of
+// D8 + 4 floats a row do not fit in a block's 227 KB (D8 (H8 + 4) + H8 +
+// 64 (D8 + 4) floats: above D = 560 at H = 32; BERT4Rec at --emb_dim 1024
+// needs 410,752 bytes), the tile is staged KW columns at a time (KW the
+// widest multiple of 16 that fits beside Wi^T: 320 at D = 1024, H = 32),
+// each chunk read into the same accumulators before the next is copied. A
+// warp's 4-column steps fall on the same columns in every chunk (KW is a
+// multiple of 16), so the products are summed in the same order as by the
+// whole-tile kernel and the two agree bit for bit. No copy overlaps the
+// products there; Wi^T and at least 16 columns of a tile must fit, which
+// bounds D at a given H (1,376 at H = 32, 704 at H = 64).
 //
 // bf16-operand mode (`bf16` set; the JAX head's dots under the bfloat16
 // context, ops/scoring.py): the operands of both products are rounded to
@@ -98,6 +110,7 @@ struct Params {
   float* up;  // [U][B][H8]
   int rows;  // B * C
   int B, C, D, H, D8, H8, tiles, tiles_per_block;
+  int KW;  // columns of a staged tile: D8, or a chunk (the chunked kernel)
 };
 
 // x rounded to bf16 (nearest even) and back to fp32
@@ -116,12 +129,26 @@ __device__ __forceinline__ float operand(float x) {
 
 __host__ __device__ inline int pitch(int d8) { return d8 + 4; }
 
-size_t smem_bytes(int D, int H) {
+// Shared memory of the main kernel with tiles of kw columns a row
+size_t smem_with(int D, int H, int kw) {
   const int d8 = (D + 7) & ~7, h8 = (H + 7) & ~7;
-  const size_t tile = (size_t)kTileRows * pitch(d8), red = (size_t)4 * kTileRows * kRedPitch;
+  const size_t tile = (size_t)kTileRows * pitch(kw), red = (size_t)4 * kTileRows * kRedPitch;
   return sizeof(float) * ((size_t)d8 * (h8 + 4) + h8 +
                           (h8 <= 32 ? (tile > red ? tile : red) : tile + red));
 }
+
+// The columns of a staged tile: the whole row (D8) where it fits, else the
+// widest multiple of 16 that does (the chunked kernel; D8 again where not
+// even 16 do: the launch is then refused)
+int tile_cols(int D, int H) {
+  const int d8 = (D + 7) & ~7;
+  if (smem_with(D, H, d8) <= 232448) return d8;
+  for (int kw = (d8 - 1) / 16 * 16; kw >= 16; kw -= 16)
+    if (smem_with(D, H, kw) <= 232448) return kw;
+  return d8;
+}
+
+size_t smem_bytes(int D, int H) { return smem_with(D, H, tile_cols(D, H)); }
 
 size_t user_half_smem_bytes(int D, int H) {
   return sizeof(float) * (size_t)D * (((H + 7) & ~7) + 1 + kThreads / 32);
@@ -132,19 +159,23 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
 }
 
-// Issues the copies of tile `tile` into `buf` ([64][pitch] floats), 16 bytes
-// at a time: thread tid takes chunks tid, tid + 128, ... of the tile's
-// 64 * D / 4, walking their (row, chunk) and the row's (user, candidate)
-// forward by additions (one division a tile). Rows past the last candidate
-// are left as they are.
-__device__ __forceinline__ void load_tile(const Params& p, float* buf, int tile, int tid) {
-  const int chunks = p.D / 4, P = pitch(p.D8);
+// Issues the copies of tile `tile` into `buf` ([64][pitch(KW)] floats), 16
+// bytes at a time: columns [col0, col0 + 4 chunks) of each row (the whole
+// row by default); thread tid takes chunks tid, tid + 128, ... of the
+// tile's 64 * chunks, walking their (row, chunk) and the row's (user,
+// candidate) forward by additions (one division a tile). Rows past the last
+// candidate are left as they are.
+__device__ __forceinline__ void load_tile(const Params& p, float* buf, int tile, int tid,
+                                          int col0 = 0, int chunks = 0) {
+  if (chunks == 0) chunks = p.D / 4;
+  const int P = pitch(p.KW);
   const int step_rows = kThreads / chunks, step_chunks = kThreads - step_rows * chunks;
   int rr = tid / chunks, ch = tid - rr * chunks;
   int r = tile * kTileRows + rr;
   int b = r / p.C, c = r - b * p.C;
   while (rr < kTileRows && r < p.rows) {
-    cp_async16(buf + rr * P + ch * 4, p.items + b * p.items_sb + c * p.items_sc + ch * 4);
+    cp_async16(buf + rr * P + ch * 4,
+               p.items + b * p.items_sb + c * p.items_sc + col0 + ch * 4);
     int dr = step_rows;
     ch += step_chunks;
     if (ch >= chunks) {
@@ -300,6 +331,108 @@ scoring_head_kernel(const Params p) {
   }
 }
 
+// The main kernel for rows too wide for a whole tile (header, "Wide rows"):
+// the tile staged KW columns at a time, each chunk's products summed into the
+// accumulators of the pass before the next chunk is copied
+template <int U, bool BF>
+__global__ void __launch_bounds__(kThreads)
+scoring_head_chunked_kernel(const Params p) {
+  extern __shared__ __align__(16) float sm[];
+  const int P = pitch(p.KW), WP = p.H8 + 4;
+  float* wit = sm;                          // [D8][WP]: Wi transposed
+  float* w2s = wit + p.D8 * WP;             // [H8]
+  float* buf = w2s + p.H8;                  // [64][P]: KW columns of a candidate tile
+  float* red = p.H8 <= 32 ? buf : buf + kTileRows * P;  // [4][64][kRedPitch]
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int rg = lane & 7, hg = lane >> 3;  // rows rg + 8m; units 8hg .. 8hg + 7 of a pass
+  const int row = tid >> 1, half = tid & 1;  // the epilogue's row and 16 units of a pass
+  const int t0 = blockIdx.x * p.tiles_per_block;
+  const int t1 = min(p.tiles, t0 + p.tiles_per_block);
+#pragma unroll 8
+  for (int i = tid; i < p.H8 * p.D8; i += kThreads) {
+    const int h = i / p.D8, d = i - h * p.D8;
+    wit[d * WP + h] = h < p.H && d < p.D ? operand<BF>(p.wi[h * p.wi_s + d]) : 0.f;
+  }
+  for (int h = tid; h < p.H8; h += kThreads) w2s[h] = h < p.H ? operand<BF>(p.w2[h]) : 0.f;
+  const float bias2 = p.b2[0];
+
+  for (int tile = t0; tile < t1; ++tile) {
+    const int r = tile * kTileRows + row;  // the epilogue's candidate row
+    const int b = min(r, p.rows - 1) / p.C;
+    float logit[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) logit[u] = 0.f;
+    for (int h0 = 0; h0 < p.H8; h0 += 32) {
+      const int h = h0 + 8 * hg;
+      float acc[8][8];
+#pragma unroll
+      for (int m = 0; m < 8; ++m) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[m][j] = 0.f;
+      }
+      for (int col0 = 0; col0 < p.D; col0 += p.KW) {
+        const int cols = min(p.KW, p.D - col0);  // a multiple of 4
+        __syncthreads();  // the buffer is free (the last chunk, or X's parts, is read)
+        load_tile(p, buf, tile, tid, col0, cols / 4);
+        asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+        __syncthreads();  // the chunk has landed (and, the first time, Wi and w2 are staged)
+        if constexpr (BF) {  // the chunk's values as bf16 operands, in place
+          for (int i = tid; i < kTileRows * P; i += kThreads) buf[i] = bf16_round(buf[i]);
+          __syncthreads();
+        }
+        if (h < p.H8) {
+          for (int k0 = 4 * warp; k0 < cols; k0 += 16) {
+            float4 x[8];
+#pragma unroll
+            for (int m = 0; m < 8; ++m)
+              x[m] = *reinterpret_cast<const float4*>(buf + (rg + 8 * m) * P + k0);
+#pragma unroll
+            for (int dk = 0; dk < 4; ++dk) {
+              const float* wrow = wit + (col0 + k0 + dk) * WP + h;
+              const float4 wl = *reinterpret_cast<const float4*>(wrow);
+              const float4 wh = *reinterpret_cast<const float4*>(wrow + 4);
+              const float w[8] = {wl.x, wl.y, wl.z, wl.w, wh.x, wh.y, wh.z, wh.w};
+#pragma unroll
+              for (int m = 0; m < 8; ++m) {
+                const float xv = dk == 0 ? x[m].x : dk == 1 ? x[m].y : dk == 2 ? x[m].z : x[m].w;
+#pragma unroll
+                for (int j = 0; j < 8; ++j) acc[m][j] = fmaf(xv, w[j], acc[m][j]);
+              }
+            }
+          }
+        }
+      }
+      __syncthreads();  // the last chunk is read (and the previous pass's parts)
+      float* mine = red + warp * kTileRows * kRedPitch;
+#pragma unroll
+      for (int m = 0; m < 8; ++m) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) mine[(rg + 8 * m) * kRedPitch + 8 * hg + j] = acc[m][j];
+      }
+      __syncthreads();  // X's parts are written
+      for (int j = 0; j < 16; ++j) {
+        const int hh = h0 + 16 * half + j;
+        if (hh < p.H8) {
+          const float* x = red + row * kRedPitch + 16 * half + j;
+          const float xs = (x[0] + x[kTileRows * kRedPitch]) +
+                           (x[2 * kTileRows * kRedPitch] + x[3 * kTileRows * kRedPitch]);
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+            const float up = p.up[((long long)u * p.B + b) * p.H8 + hh];
+            logit[u] = fmaf(operand<BF>(fmaxf(xs + up, 0.f)), w2s[hh], logit[u]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const float s = logit[u] + __shfl_xor_sync(0xffffffffu, logit[u], 1);
+      if (half == 0 && r < p.rows)
+        p.out[(long long)u * p.rows + r] = 1.f / (1.f + expf(-(s + bias2)));
+    }
+  }
+}
+
 // Both kernels may take all 227 KB of shared memory a block can have;
 // asked once per kernel (a launch asks for what it needs).
 template <int U, bool BF>
@@ -307,6 +440,9 @@ cudaError_t launch(const Params& p, unsigned grid, size_t smem, size_t smem_up,
                    cudaStream_t s) {
   static const cudaError_t opted_in = cudaFuncSetAttribute(
       scoring_head_kernel<U, BF>, cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
+  static const cudaError_t opted_in_chunked = cudaFuncSetAttribute(
+      scoring_head_chunked_kernel<U, BF>, cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
+  if (opted_in_chunked != cudaSuccess) return opted_in_chunked;
   static const cudaError_t opted_in_up = cudaFuncSetAttribute(
       user_half_kernel<BF>, cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
   if (opted_in != cudaSuccess) return opted_in;
@@ -317,7 +453,10 @@ cudaError_t launch(const Params& p, unsigned grid, size_t smem, size_t smem_up,
   user_half_kernel<BF><<<up_blocks, kThreads, smem_up, s>>>(p, pairs);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  scoring_head_kernel<U, BF><<<grid, kThreads, smem, s>>>(p);
+  if (p.KW == p.D8)
+    scoring_head_kernel<U, BF><<<grid, kThreads, smem, s>>>(p);
+  else
+    scoring_head_chunked_kernel<U, BF><<<grid, kThreads, smem, s>>>(p);
   return cudaGetLastError();
 }
 
@@ -385,6 +524,7 @@ int scoring_head(const long long* fields) {
   p.H8 = (int)((H + 7) & ~7LL);
   p.tiles = (int)tiles;
   p.tiles_per_block = (int)a->tiles_per_block;
+  p.KW = tile_cols((int)D, (int)H);
   cudaStream_t s = ptr<CUstream_st>(a->stream);
   const unsigned g = (unsigned)grid;
   cudaError_t e = a->bf16 ? (U == 2 ? launch<2, true>(p, g, smem, smem_up, s)

@@ -36,10 +36,10 @@ from amid_tpu_torch.ops import _build
 from amid_tpu_torch.ops._build import SMEM_LIMIT
 from amid_tpu_torch.ops.precision import bf16_round
 
-# D values the kernels take: the pre-pass pads every row to 128 columns with
-# zeros in 16-byte chunks of 8 values, so any multiple of 8 up to 128
-KERNEL_WIDTHS = tuple(range(8, 129, 8))
-
+# Operand columns of a plane: the pre-pass pads a row with zeros to a whole
+# number of 128-column planes, so the kernels take any D from 1 to MAX_D
+PLANE = 128
+MAX_D = 65536
 
 def diag_max_affinity(seq_a: torch.Tensor, seq_b: torch.Tensor,
                       bf16: bool = False) -> torch.Tensor:
@@ -79,17 +79,21 @@ def _ceil_to(x: int, mult: int) -> int:
 
 # Both kernels are one __global__ template (csrc/affinity.cu,
 # affinity_wgmma_kernel): the bank's [C*M, D] rows, as bf16 padded with zeros
-# to 128 columns, stream through in 64-row tiles; four query slots of W rows
-# (W a multiple of 8 up to 160) stay resident; the grid is (groups of four
-# slots) x (slices of the peers). The blocked kernel (K6) gives a slot one
-# user or 2 or 4 chunks of one; the small-N kernel (K7) packs U = 8, 4 or 2
-# users into each slot.
+# to planes of 128 columns, stream through in 64-row tiles; four query slots
+# of W rows (W a multiple of 8 up to 160) stay resident; the grid is (groups
+# of four slots) x (slices of the peers). The blocked kernel (K6) gives a slot
+# one user or KC chunks of one (KC in 1, 2 or a multiple of 4: from 8 on a
+# user's slots span KC / 4 blocks, which fold into its outputs by an atomic
+# max); the small-N kernel (K7) packs U = 8, 4 or 2 users into each slot.
+# Above D = 128 (more than one plane: the chunked instances) each ring
+# buffer holds a plane of a bank tile and the same plane of the four slots,
+# the planes of a tile in turn, and slots are at most 80 rows wide.
 TILE_ROWS = 64
-K_WIDTH = 128  # operand columns
+K_WIDTH = PLANE  # operand columns of a plane
 TILE_BYTES = TILE_ROWS * K_WIDTH * 2
 SLOTS = 4
 MAX_WIDTH = 160
-CHUNKS = (1, 2, 4)  # slots one user's query may take (K6)
+CHUNKED_MAX_WIDTH = 80  # slot rows above D = 128
 SMALLN_USERS = (8, 4, 2)  # users a slot may hold (K7), most first
 SMALLN_MAX_N = MAX_WIDTH // SMALLN_USERS[-1]  # 80: two users a slot
 MAX_PEERS = 256  # peers per slice: the block's [users, peers] table of maxima
@@ -100,7 +104,7 @@ SM_COUNT = 132  # the H100 SXM's; one block of the large shapes fills an SM
 class AffinityPlan(NamedTuple):
     """How a kernel takes one shape: slot width, chunks per user (K6), users
     per slot (K7; 1 for K6), the grid (groups x slices), peers per slice,
-    ring buffers, shared memory per block in bytes."""
+    ring buffers, shared memory per block in bytes, 128-column planes."""
     width: int
     chunks: int
     users: int
@@ -109,15 +113,36 @@ class AffinityPlan(NamedTuple):
     peers: int
     stages: int
     smem: int
+    planes: int = 1
 
 
-def affinity_smem_bytes(width: int, stages: int, peers: int, users: int = 1) -> int:
+def planes(d: int) -> int:
+    """The 128-column planes of a row of D columns."""
+    return -(-d // PLANE)
+
+
+def max_width(d: int) -> int:
+    """The widest query slot at D: 160 rows in one plane, 80 above."""
+    return MAX_WIDTH if planes(d) == 1 else CHUNKED_MAX_WIDTH
+
+
+def smalln_max_n(d: int) -> int:
+    """The longest query the small-N kernel takes at D (two users a slot):
+    80 up to D = 128, 40 above."""
+    return max_width(d) // SMALLN_USERS[-1]
+
+
+def affinity_smem_bytes(width: int, stages: int, peers: int, users: int = 1,
+                        dc: int = 1) -> int:
     """Shared memory of one block of either kernel: four query slots of
-    `width` bf16 rows, `stages` 64-row bank tiles (rows of 128 columns), a
-    float per (user, peer) for the 4 * `users` users of the block's slots,
-    two mbarriers per tile buffer and one for the query."""
-    return (SLOTS * width * K_WIDTH * 2 + stages * TILE_BYTES
-            + SLOTS * users * peers * 4 + (2 * stages + 1) * 8)
+    `width` bf16 rows of one plane and `stages` 64-row bank tiles of one
+    plane (with `dc` > 1 planes, each of the `stages` buffers holds a tile's
+    plane and the four slots' plane), a float per (user, peer) for the 4 *
+    `users` users of the block's slots, two mbarriers per buffer and one for
+    the query."""
+    slots = SLOTS * width * K_WIDTH * 2
+    ring = stages * (TILE_BYTES + slots) if dc > 1 else slots + stages * TILE_BYTES
+    return ring + SLOTS * users * peers * 4 + (2 * stages + 1) * 8
 
 
 def slice_tiles(c: int, m: int, peers: int) -> int:
@@ -127,17 +152,17 @@ def slice_tiles(c: int, m: int, peers: int) -> int:
 
 
 def _check_width(name: str, d: int) -> None:
-    if d not in KERNEL_WIDTHS:
-        raise ValueError(f"{name}: the affinity kernels take D in {KERNEL_WIDTHS}; got D={d}")
+    if not 1 <= d <= MAX_D:
+        raise ValueError(f"{name}: the affinity kernels take D from 1 to {MAX_D}; got D={d}")
 
 
-def _plan(b: int, c: int, m: int, width: int, chunks: int, users: int) -> AffinityPlan:
+def _plan(b: int, c: int, m: int, width: int, chunks: int, users: int, dc: int) -> AffinityPlan:
     """The grid and the ring for a slot layout. The peers are cut into the
     number of slices that minimises waves x tiles per block (blocks of all
     slices run on SM_COUNT SMs, one at a time at the large shapes), fewest
     slices on a tie, at most MAX_PEERS peers a slice. What shared memory is
-    left takes up to MAX_STAGES ring buffers of 64 bank rows (no more than a
-    block streams tiles; at least 2 fit at every width)."""
+    left takes up to MAX_STAGES ring buffers (no more than a block streams
+    items, a tile's planes each; at least 2 fit at every width)."""
     groups = -(-b * chunks // (SLOTS * users))
     best = None
     for s in range(-(-c // MAX_PEERS), min(c, 65535) + 1):
@@ -147,51 +172,55 @@ def _plan(b: int, c: int, m: int, width: int, chunks: int, users: int) -> Affini
         if best is None or cost < best[0]:
             best = (cost, slices, peers)
     _, slices, peers = best
-    fixed = affinity_smem_bytes(width, 0, peers, users)
-    stages = min(MAX_STAGES, max(2, slice_tiles(c, m, peers)),
-                 (SMEM_LIMIT - fixed) // (TILE_BYTES + 16))
+    fixed = affinity_smem_bytes(width, 0, peers, users, dc)
+    per_stage = affinity_smem_bytes(width, 1, 0, users, dc) - affinity_smem_bytes(
+        width, 0, 0, users, dc)
+    stages = min(MAX_STAGES, max(2, slice_tiles(c, m, peers) * dc),
+                 (SMEM_LIMIT - fixed) // per_stage)
     return AffinityPlan(width, chunks, users, groups, slices, peers, stages,
-                        affinity_smem_bytes(width, stages, peers, users))
+                        affinity_smem_bytes(width, stages, peers, users, dc), dc)
+
+
+def query_chunks(n: int, d: int) -> int:
+    """The slots a user's query of n rows takes in the blocked kernel: the
+    fewest KC in 1, 2 or a multiple of 4 whose slots of ceil8(N / KC) rows
+    fit `max_width(d)`."""
+    k = -(-n // max_width(d))
+    return k if k <= 2 else -(-k // SLOTS) * SLOTS
 
 
 @functools.lru_cache(maxsize=512)
 def blocked_plan(b: int, c: int, n: int, m: int, d: int) -> AffinityPlan:
-    """The blocked kernel's plan for [B, N, D] against [C, M, D]; raises
-    naming the limit where the kernel cannot take the shape. The query takes
-    the fewest chunks (1, 2 or 4 slots a user) whose width ceil8(N / chunks)
-    is at most 160 (N <= 640); the grid and ring are `_plan`'s."""
-    name = "max_affinity_blocked"
-    _check_width(name, d)
-    for chunks in CHUNKS:
-        width = _ceil_to(-(-n // chunks), 8)
-        if width <= MAX_WIDTH:
-            break
-    else:
-        raise ValueError(
-            f"{name}: N={n} is longer than the blocked kernel takes: at most "
-            f"{CHUNKS[-1]} slots of {MAX_WIDTH} query rows, N <= {CHUNKS[-1] * MAX_WIDTH}")
-    return _plan(b, c, m, width, chunks, 1)
+    """The blocked kernel's plan for [B, N, D] against [C, M, D]; any B, C,
+    N, M and D up to MAX_D (it raises naming the limit beyond). The query
+    takes `query_chunks(n, d)` slots a user of width ceil8(N / KC); the grid
+    and ring are `_plan`'s."""
+    _check_width("max_affinity_blocked", d)
+    chunks = query_chunks(n, d)
+    return _plan(b, c, m, _ceil_to(-(-n // chunks), 8), chunks, 1, planes(d))
 
 
 @functools.lru_cache(maxsize=512)
 def smalln_plan(b: int, c: int, n: int, m: int, d: int) -> AffinityPlan:
-    """The small-N kernel's plan; raises naming the limit (N <= 80) where
-    the kernel cannot take the shape. A slot holds the most users U in
-    (8, 4, 2) whose columns, N a user rounded up to a multiple of 8 / U,
-    fit in 160: U = 8 for N <= 20, 4 up to 40, 2 up to 80; the width is
-    8 * ceil(N * U / 8). Any B, C and M; the grid and ring are `_plan`'s."""
+    """The small-N kernel's plan; raises naming the limit (N <= 80, 40 above
+    D = 128: `smalln_max_n`) where the kernel cannot take the shape. A slot
+    holds the most users U in (8, 4, 2) whose columns, N a user rounded up
+    to a multiple of 8 / U, fit in `max_width(d)` (160; 80 above D = 128):
+    U = 8 for N <= 20, 4 up to 40, 2 up to 80 (above D = 128: 10, 20, 40);
+    the width is 8 * ceil(N * U / 8). Any B, C and M; the grid and ring are
+    `_plan`'s."""
     name = "max_affinity_smalln"
     _check_width(name, d)
     for users in SMALLN_USERS:
         width = _ceil_to(n * users, 8)
-        if width <= MAX_WIDTH:
+        if width <= max_width(d):
             break
     else:
         raise ValueError(
-            f"{name}: N={n} is longer than the small-N kernel takes: at least "
-            f"{SMALLN_USERS[-1]} users in a slot of {MAX_WIDTH} query columns, "
-            f"N <= {SMALLN_MAX_N}; use max_affinity_blocked")
-    return _plan(b, c, m, width, 1, users)
+            f"{name}: N={n} is longer than the small-N kernel takes at D={d}: at least "
+            f"{SMALLN_USERS[-1]} users in a slot of {max_width(d)} query columns, "
+            f"N <= {smalln_max_n(d)}; use max_affinity_blocked")
+    return _plan(b, c, m, width, 1, users, planes(d))
 
 
 def _check(seq_a: torch.Tensor, seq_b: torch.Tensor, name: str) -> None:
@@ -222,11 +251,11 @@ def _bind() -> None:
 
 
 def smem_bytes_of_the_kernels():
-    """`affinity_smem_bytes(W, U, stages, peers)` of the C library, typed: the
-    kernels' own shared-memory arithmetic, for the tests."""
+    """`affinity_smem_bytes(W, U, stages, peers, dc)` of the C library, typed:
+    the kernels' own shared-memory arithmetic, for the tests."""
     lib = _build.load("affinity")
     i = ctypes.c_int
-    return _build.bind(lib.affinity_smem_bytes, [i, i, i, i], ctypes.c_size_t)
+    return _build.bind(lib.affinity_smem_bytes, [i, i, i, i, i], ctypes.c_size_t)
 
 
 def _launch(seq_a, seq_b, smalln: bool) -> torch.Tensor:
@@ -239,8 +268,8 @@ def _launch(seq_a, seq_b, smalln: bool) -> torch.Tensor:
     a = seq_a if seq_a.is_contiguous() else seq_a.contiguous()
     b = seq_b if seq_b.is_contiguous() else seq_b.contiguous()
     # one allocation: the [B, C] result, then the kernels' bf16 operands (the
-    # bank's tiles, then the query slots) from a 16-byte boundary
-    halves = (_ceil_to(c * m, TILE_ROWS) + plan.groups * SLOTS * plan.width) * K_WIDTH
+    # bank's planes, then the query slots') from a 16-byte boundary
+    halves = (_ceil_to(c * m, TILE_ROWS) + plan.groups * SLOTS * plan.width) * K_WIDTH * plan.planes
     at = _ceil_to(bsz * c, 4)
     buf = a.new_empty(at + halves // 2)
     ptr = buf.data_ptr()
@@ -271,7 +300,7 @@ def _wrapper(seq_a, seq_b, smalln: bool, fn) -> torch.Tensor:
 def max_affinity_blocked(seq_a: torch.Tensor, seq_b: torch.Tensor) -> torch.Tensor:
     """A[b, c] = max_{i,j} bf16(seq_a[b, i]) . bf16(seq_b[c, j]) by the blocked
     kernel: [B, N, D], [C, M, D] float32 -> [B, C] float32, no gradient. Any
-    B, C, M, N up to 640 (it raises naming the limit), D in `KERNEL_WIDTHS`;
+    B, C, M, N and D up to MAX_D (it raises naming the limit beyond);
     `blocked_plan` says how it takes a shape. CUDA tensors launch the kernel
     (or raise); CPU tensors take `max_affinity_plain`."""
     return _wrapper(seq_a, seq_b, False, max_affinity_blocked)
@@ -279,8 +308,9 @@ def max_affinity_blocked(seq_a: torch.Tensor, seq_b: torch.Tensor) -> torch.Tens
 
 def max_affinity_smalln(seq_a: torch.Tensor, seq_b: torch.Tensor) -> torch.Tensor:
     """The same function by the small-N kernel: several query users in each
-    slot. Any B, C, M, N up to `SMALLN_MAX_N` = 80 (it raises naming the
-    limit), D in `KERNEL_WIDTHS`; `smalln_plan` says how it takes a shape.
+    slot. Any B, C, M, N up to `smalln_max_n(D)` (80, 40 above D = 128; it
+    raises naming the limit), D up to MAX_D; `smalln_plan` says how it takes
+    a shape.
     Bit-equal to `max_affinity_blocked` wherever both take a shape."""
     return _wrapper(seq_a, seq_b, True, max_affinity_smalln)
 
@@ -289,17 +319,18 @@ max_affinity_blocked.launches = 0  # kernel launches since the last reset
 max_affinity_smalln.launches = 0
 
 
-def smalln_faster(n: int) -> bool:
-    """Whether `max_affinity(..., 'cuda')` sends a query of length n to the
-    small-N kernel: where it was faster than the blocked kernel on the card,
-    which is everywhere it takes a shape. `chip_smoke.py`'s crossover sweep
+def smalln_faster(n: int, d: int = PLANE) -> bool:
+    """Whether `max_affinity(..., 'cuda')` sends a query of length n at width
+    d to the small-N kernel: where it was faster than the blocked kernel on
+    the card, which is everywhere it takes a shape (`smalln_max_n(d)`; above
+    D = 128 no crossover was swept, and the same rule holds). `chip_smoke.py`'s crossover sweep
     (`affinity_crossover` records; NVIDIA H100 80GB HBM3, 700.00 W), device
     ms of one call at B=C=256, D=128, N=M, small-N / blocked:
     N=8 0.0088 / 0.0255, 16 0.0144 / 0.0457, 20 0.0188 / 0.0571,
     24 0.0271 / 0.0659, 32 0.0389 / 0.0895, 40 0.0534 / 0.1142,
     48 0.0857 / 0.1355, 64 0.1379 / 0.1923, 80 0.1864 / 0.2403. Beyond
     N=80 only the blocked kernel takes the shape."""
-    return n <= SMALLN_MAX_N
+    return n <= smalln_max_n(d)
 
 
 def max_affinity(seq_a: torch.Tensor, seq_b: torch.Tensor,
@@ -311,7 +342,7 @@ def max_affinity(seq_a: torch.Tensor, seq_b: torch.Tensor,
     or with `bf16` (the model's bf16 mode) `max_affinity_plain`, the kernels'
     bf16 inputs, so that both routes compute the same gates."""
     if kernels == "cuda":
-        if smalln_faster(seq_a.shape[1]):
+        if smalln_faster(seq_a.shape[1], seq_a.shape[2]):
             return max_affinity_smalln(seq_a, seq_b)
         return max_affinity_blocked(seq_a, seq_b)
     return max_affinity_plain(seq_a, seq_b) if bf16 else max_affinity_xla(seq_a, seq_b)

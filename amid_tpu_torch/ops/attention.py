@@ -70,8 +70,11 @@ attention probabilities and scales the kept ones by 1/(1 - rate).
   (128), each at the smallest of KERNEL_HEAD_DIMS that holds it
   (`kernel_head_dim`; csrc/attention_common.cuh): columns from dh on are
   zero inside the kernel and never written, so a padded width computes the
-  function of its own width, the scale 1/sqrt(dh) included. A wider head is
-  refused (`head_width_refusal`, naming `--kernels torch`). The routes read
+  function of its own width, the scale 1/sqrt(dh) included. The fp32 long
+  paths also take dh from 129 to MAX_LONG_HEAD_DIM (256) at template width
+  256 (`long_head_dim`), and both routes send such a head there at every T
+  in fp32; the one-head kernels and the bf16 mode refuse it. A wider head
+  is refused (`head_width_refusal`, naming `--kernels torch`). The routes read
   a padded width's entries under its template width, and the long paths
   copy q, k, v (and dout) 16 bytes at a time only at widths that are a
   multiple of 4 (`_rows_aligned`), 4 bytes at a time at the others. A
@@ -146,17 +149,33 @@ _MIX_KEY0 = 0x9E3779B9
 # it, its columns from dh on zero in the kernel and never written
 KERNEL_HEAD_DIMS = (8, 16, 32, 64, 128)
 MAX_HEAD_DIM = KERNEL_HEAD_DIMS[-1]
+# the fp32 long paths' widths: also 256, for any dh from 129 to 256
+LONG_HEAD_DIMS = KERNEL_HEAD_DIMS + (256,)
+MAX_LONG_HEAD_DIM = LONG_HEAD_DIMS[-1]
 
 
 def kernel_head_dim(dh: int):
-    """The template width a head of width `dh` runs at in the kernels; None
-    where no kernel takes it (dh above MAX_HEAD_DIM)."""
+    """The template width a head of width `dh` runs at in every kernel; None
+    where not every kernel takes it (dh above MAX_HEAD_DIM: see
+    `long_head_dim`)."""
     return next((w for w in KERNEL_HEAD_DIMS if dh <= w), None) if dh >= 1 else None
 
 
-def head_width_refusal(dh: int) -> str:
-    """Why the kernels refuse heads of width `dh`, naming the way out."""
-    return (f"the attention kernels take head widths 1 to {MAX_HEAD_DIM}; got dh={dh} "
+def long_head_dim(dh: int):
+    """The template width a head of width `dh` runs at on the fp32 long
+    paths; None above MAX_LONG_HEAD_DIM."""
+    return next((w for w in LONG_HEAD_DIMS if dh <= w), None) if dh >= 1 else None
+
+
+def head_width_refusal(dh: int, mode: str = "fp32") -> str:
+    """Why the kernels of `mode` refuse heads of width `dh`, naming the way
+    out."""
+    if mode == "bf16" and dh <= MAX_LONG_HEAD_DIM:
+        return (f"the attention kernels' bf16 mode takes head widths 1 to {MAX_HEAD_DIM} "
+                f"(fp32 1 to {MAX_LONG_HEAD_DIM}); got dh={dh} (--kernels torch, "
+                f"kernels='torch', computes any width)")
+    return (f"the attention kernels take head widths 1 to {MAX_LONG_HEAD_DIM} "
+            f"(above {MAX_HEAD_DIM} on the fp32 long paths only); got dh={dh} "
             f"(--kernels torch, kernels='torch', computes any width)")
 
 
@@ -507,9 +526,10 @@ def _too_long(name: str, smem_bytes, t: int, dh: int) -> ValueError:
         f"block; the limit is {SMEM_LIMIT} (largest T at this head width: {largest})")
 
 
-def _raise(err: int, name: str, smem_bytes, t: int, d: int, heads: int):
+def _raise(err: int, name: str, smem_bytes, t: int, d: int, heads: int, mode: str = "fp32"):
     if err == _BAD_HEAD_WIDTH:
-        raise ValueError(f"{name}: {head_width_refusal(d // heads)} (D={d}, heads={heads})")
+        raise ValueError(f"{name}: {head_width_refusal(d // heads, mode)} (D={d}, "
+                         f"heads={heads})")
     if err == _TOO_LONG:
         raise _too_long(name, smem_bytes, t, d // heads)
     if err == _BAD_SHAPE:
@@ -581,16 +601,21 @@ MODES = ("fp32", "bf16")  # the kernels' modes: fp32 (3xTF32), bf16 operands (`m
 # from 80 (key padding 0.589 and 0.587, causal 0.668 and 0.668; at 40 0.974
 # and 0.970, causal 0.990 and 0.994). Below it, and at the head widths not
 # swept (8, 64), shapes stay on the one-head kernel as long as it holds them
-# (`forward_max_t`).
+# (`forward_max_t`). A head wider than 128 (dh 129 to 256, template width
+# 256) has no one-head kernel: it takes the fp32 long forward at every T
+# (`forward_route`), and the bf16 mode refuses it.
 LONG_FWD_FASTER_FROM = {"fp32": {16: 300, 32: 300, 128: 40},
                         "bf16": {16: 1200, 32: 800, 128: 80}}
 
 
 def forward_route(t: int, dh: int, mode: str = "fp32") -> str:
     """'long' (the long-sequence forward) where the one-head kernel of
-    `mode` cannot hold the shape (`forward_max_t(dh, mode) < t`) or from
+    `mode` cannot hold the shape (`forward_max_t(dh, mode) < t`: a head
+    wider than MAX_HEAD_DIM at every T) or from
     `LONG_FWD_FASTER_FROM[mode][dh]` on, else 'sweep' (the one-head kernel).
     Binds the kernels."""
+    if kernel_head_dim(dh) is None:
+        return "long"
     start = LONG_FWD_FASTER_FROM[mode].get(kernel_head_dim(dh))
     return "long" if (start is not None and t >= start) or forward_max_t(dh, mode) < t else "sweep"
 
@@ -617,7 +642,8 @@ def forward_route(t: int, dh: int, mode: str = "fp32") -> str:
 # and 0.865; 1.817 and 1.834 at 40); dh=128 from 128, the one-sweep kernel's
 # longest T (key padding 0.892 and 0.898, causal 0.781 and 0.778; at 96 key
 # padding 0.957 and 0.960). Below it, and wherever the one-sweep kernel was
-# the faster, shapes stay on that kernel.
+# the faster, shapes stay on that kernel. A head wider than 128 (dh 129 to
+# 256) takes the fp32 long path at every T (`backward_route`).
 LONG_FASTER_FROM = {"fp32": {8: 512, 16: 368, 32: 150, 64: 150, 128: 48},
                     "bf16": {8: 200, 16: 512, 32: 256, 64: 150, 128: 128}}
 
@@ -645,19 +671,35 @@ def sweep_fits(t: int, dh: int, mode: str = "fp32") -> bool:
 def backward_route(t: int, dh: int, mode: str = "fp32") -> str:
     """'long' (the long-sequence path) where `long_faster(t, dh, mode)` or
     where the one-sweep kernel of `mode` cannot hold the shape
-    (`sweep_fits`), else 'sweep'."""
+    (`sweep_fits`; a head wider than MAX_HEAD_DIM at every T), else
+    'sweep'."""
+    if kernel_head_dim(dh) is None:
+        return "long"
     return "long" if long_faster(t, dh, mode) or not sweep_fits(t, dh, mode) else "sweep"
 
 
-def _check_backward_fits(t: int, dh: int) -> None:
+def long_backward_max_t_at(dh: int) -> int:
+    """The longest T the long backward takes at head width `dh`: its blocks
+    own 128 rows up to dh=128 and 64 above (the grid's 65,535 of them)."""
+    limit = long_backward_max_t()
+    return limit if dh <= MAX_HEAD_DIM else limit // 2
+
+
+def check_head_width(dh: int, mode: str = "fp32") -> None:
+    """Raises naming `--kernels torch` if no kernel of `mode` takes heads of
+    width `dh`: above MAX_LONG_HEAD_DIM in fp32, above MAX_HEAD_DIM in bf16."""
+    if (long_head_dim if mode == "fp32" else kernel_head_dim)(dh) is None:
+        raise ValueError(head_width_refusal(dh, mode))
+
+
+def _check_backward_fits(t: int, dh: int, mode: str = "fp32") -> None:
     """Raises now if no backward path takes (T, dh), not in the middle of a
-    backward pass: a head width above MAX_HEAD_DIM, or a T beyond the long
-    path's."""
-    if kernel_head_dim(dh) is None:
-        raise ValueError(head_width_refusal(dh))
-    if t > long_backward_max_t():
+    backward pass: a head width no kernel of `mode` takes, or a T beyond the
+    long path's."""
+    check_head_width(dh, mode)
+    if t > long_backward_max_t_at(dh):
         raise ValueError(f"attention backward: T={t} is beyond the long-sequence path's "
-                         f"limit of T={_long_max_t}")
+                         f"limit of T={long_backward_max_t_at(dh)} at dh={dh}")
 
 
 def _strides(named, bias, dev, also=()) -> list:
@@ -729,6 +771,7 @@ def _launch_forward(q, k, v, bias, seed, heads: int, rate: float, stats: bool, p
     if _fwd is None:
         _bind()
     bsz, t, d = q.shape
+    check_head_width(d // heads, "bf16" if bf16 else "fp32")
     if path is None:
         path = forward_route(t, d // heads, "bf16" if bf16 else "fp32")
     if path == "long":
@@ -767,7 +810,7 @@ def _launch_forward_long(q, k, v, bias, seed, heads: int, rate: float, stats: bo
         scratch = _long_bf16_scratch(q, bias, heads, 3, 0)
         err = _bf16_entry["attention_fwd_long"](block + _PACK_PTR(scratch.data_ptr()))
     else:  # a padded width: its own build
-        padded = kernel_head_dim(d // heads) != d // heads
+        padded = long_head_dim(d // heads) != d // heads
         nbytes = _fwd_long_scratch[padded](block)
         if nbytes < 0:
             err = nbytes
@@ -779,7 +822,8 @@ def _launch_forward_long(q, k, v, bias, seed, heads: int, rate: float, stats: bo
         raise ValueError(f"attention_fwd_long: T={t} is beyond its limit of "
                          f"T={_fwd_long_max_t} (or B*heads*ceil(T / 128) beyond 2^31 - 1)")
     if err:
-        _raise(err, "attention_fwd_long", _fwd_smem["bf16" if bf16 else "fp32"], t, d, heads)
+        _raise(err, "attention_fwd_long", _fwd_smem["bf16" if bf16 else "fp32"], t, d, heads,
+               "bf16" if bf16 else "fp32")
     if bf16:
         fused_attention.long_forward_bf16_launches += 1
     else:
@@ -796,6 +840,7 @@ def _launch_backward(q, k, v, bias, out, row_max, row_inv_sum, dout,
     if _bwd is None:
         _bind()
     bsz, t, d = q.shape
+    check_head_width(d // heads, "bf16" if bf16 else "fp32")
     dev = q.device
     if dout.stride(-1) != 1:
         dout = dout.contiguous()
@@ -829,7 +874,7 @@ def _launch_backward(q, k, v, bias, out, row_max, row_inv_sum, dout,
             err = _bf16_entry["attention_bwd_long"](_PACK_BWD_LONG(*args, scratch.data_ptr()))
         else:  # D_i, from the dQ kernel to the dK/dV kernel; a padded width's own build
             dsum = q.new_empty((bsz, heads, t))
-            entry = _bwd_long if kernel_head_dim(d // heads) == d // heads else _pad_entry[
+            entry = _bwd_long if long_head_dim(d // heads) == d // heads else _pad_entry[
                 "attention_bwd_long"]
             err = entry(_PACK_BWD_LONG(*args, dsum.data_ptr()))
         if err == _TOO_LONG:
@@ -837,7 +882,7 @@ def _launch_backward(q, k, v, bias, out, row_max, row_inv_sum, dout,
                              f"T={_long_max_t} (or B*heads beyond 2^31 - 1)")
         if err:
             _raise(err, "attention_bwd_long", _bwd_smem["bf16" if bf16 else "fp32"], t, d,
-                   heads)
+                   heads, "bf16" if bf16 else "fp32")
         if bf16:
             fused_attention.long_backward_bf16_launches += 1
         else:
@@ -990,7 +1035,7 @@ def fused_attention(
         return attention_plain(q, k, v, bias, seed, heads, rate, mxu_bf16, row_offset)
     _check_inputs(q, k, v, bias, heads, rate)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        _check_backward_fits(q.shape[1], q.shape[2] // heads)
+        _check_backward_fits(q.shape[1], q.shape[2] // heads, "bf16" if mxu_bf16 else "fp32")
         return _FusedAttention.apply(q, k, v, bias, seed, heads, rate, mxu_bf16, row_offset)
     return _launch_forward(q, k, v, bias, seed, heads, rate, False, bf16=mxu_bf16,
                            row_offset=row_offset)[0]

@@ -139,14 +139,31 @@ class ScoringPlan(NamedTuple):
     smem: int
 
 
+def _smem_with(d: int, h: int, kw: int) -> int:
+    d8, h8 = -(-d // 8) * 8, -(-h // 8) * 8
+    tile, parts = TILE_ROWS * (kw + 4), 4 * TILE_ROWS * 33
+    return 4 * (d8 * (h8 + 4) + h8 + (max(tile, parts) if h8 <= 32 else tile + parts))
+
+
+def tile_cols(d: int, h: int) -> int:
+    """The columns of a staged candidate tile (csrc/scoring_head.cu,
+    `tile_cols`): the whole row, ceil8(D), where it fits beside Wi^T, else
+    the widest multiple of 16 that does (the column-chunked kernel: 320 at
+    D=1024, H=32), else ceil8(D) again (refused: Wi^T itself does not fit)."""
+    d8 = -(-d // 8) * 8
+    if _smem_with(d, h, d8) <= SMEM_LIMIT:
+        return d8
+    return next((kw for kw in range((d8 - 1) // 16 * 16, 15, -16)
+                 if _smem_with(d, h, kw) <= SMEM_LIMIT), d8)
+
+
 def scoring_smem_bytes(d: int, h: int) -> int:
     """Shared memory of one block of the main kernel: Wi transposed
-    ([ceil8(D)][ceil8(H) + 4] floats), w2, a candidate tile at a row pitch of
-    ceil8(D) + 4 floats and the four warps' parts of the item product ([4][64]
-    [33]), the parts in the tile's place when one pass of 32 units covers H."""
-    d8, h8 = -(-d // 8) * 8, -(-h // 8) * 8
-    tile, parts = TILE_ROWS * (d8 + 4), 4 * TILE_ROWS * 33
-    return 4 * (d8 * (h8 + 4) + h8 + (max(tile, parts) if h8 <= 32 else tile + parts))
+    ([ceil8(D)][ceil8(H) + 4] floats), w2, a candidate tile of `tile_cols`
+    columns at a row pitch of that + 4 floats and the four warps' parts of
+    the item product ([4][64][33]), the parts in the tile's place when one
+    pass of 32 units covers H."""
+    return _smem_with(d, h, tile_cols(d, h))
 
 
 def user_half_smem_bytes(d: int, h: int) -> int:

@@ -6,13 +6,17 @@ the DR trainer's steps at the full width of the `run.sh` model.
     python -m amid_tpu_torch.profile_step --seq_len 150 --pairwise
     python -m amid_tpu_torch.profile_step --seq_len 20 --lazy --fast
     python -m amid_tpu_torch.profile_step --seq_len 150 --model bert4rec --fast
+    python -m amid_tpu_torch.profile_step --seq_len 150 --model bert4rec --emb_dim 1024 \
+        --pairwise --fast
 
 Builds the model (SASRec, InterComp ts2=0.4, DR heads, emb 128, hid 32, batch
 256, 2 blocks, 8 heads, the 894,820-row table, random weights from a seed; with
 `--model bert4rec` or `gru4rec` that backbone at the same width, BERT4Rec with
 2 blocks of 4 heads, FFN 512, dropout 0.1; with `--inc` InnerComp too; with
 `--pairwise` in the pairwise mode, whose gates come from the max-affinity
-kernels) and a synthetic packed dataset (`data/synthetic.py`), then for the phase-A step,
+kernels; `--emb_dim` another width: 1024 with BERT4Rec is configuration (c),
+4 heads of 256 on the long attention paths) and a synthetic packed dataset
+(`data/synthetic.py`), then for the phase-A step,
 the phase-B step and the evaluation batch (999 negatives):
 
 * times `--steps` steps by the host clock, synchronised at both ends (no
@@ -196,6 +200,9 @@ def main(argv=None) -> int:
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--model", default="sasrec", choices=("sasrec", "bert4rec", "gru4rec"))
     ap.add_argument("--inc", action="store_true", help="InnerComp on (ts1=0.5)")
+    ap.add_argument("--emb_dim", type=int, default=128,
+                    help="the item embedding width (1024 with --model bert4rec: "
+                         "configuration (c), 4 heads of 256)")
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_step: no CUDA device", file=sys.stderr)
@@ -206,7 +213,7 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip(), flush=True)
 
-    cfg = ModelConfig(backbone=a.model, emb_dim=128, hid_dim=32, batch_size=256,
+    cfg = ModelConfig(backbone=a.model, emb_dim=a.emb_dim, hid_dim=32, batch_size=256,
                       seq_len=a.seq_len, is_inc=a.inc, is_itc=True, ts2=0.4, is_dr=True,
                       sasrec_blocks=2, sasrec_heads=8, comp_broadcast_quirk=not a.pairwise)
     tcfg = TrainConfig(model=cfg, data=DataConfig(neg_nums=999), lazy_table_adam=a.lazy)
@@ -225,7 +232,8 @@ def main(argv=None) -> int:
                       file=sys.stderr)
                 return 1
             print(json.dumps({
-                "step": name, "model": a.model, "inc": a.inc, "seq_len": a.seq_len,
+                "step": name, "model": a.model, "emb_dim": a.emb_dim, "inc": a.inc,
+                "seq_len": a.seq_len,
                 "optimizer": "lazy" if a.lazy else "dense", "pairwise": a.pairwise,
                 "loop": "fast (CUDA graph replays)" if a.fast else "per step (eager)",
                 "steps": calls * per_call, **rec,

@@ -259,9 +259,11 @@ def run_seed(
     With `model.is_c2dsr`, phase A adds `cl_w` * the C2DSR infomax loss
     (`train/c2dsr.py`); it is dense Adam only (ValueError with
     `lazy_table_adam`, as in the JAX package). On `cuda`, `build_model`
-    refuses, before the first step, a configuration whose attention no
-    kernel takes (`models.amid.check_attention_fits`: a head width above
-    the kernels' 128 or a T beyond the long-sequence paths').
+    refuses, before the first step, a configuration with a shape some
+    kernel does not take (`models.amid.check_kernels_fit`: a head width
+    above the attention kernels' 256, a T beyond the long-sequence paths',
+    a pairwise affinity row above 65,536 columns or a scoring head beyond a
+    block's shared memory).
 
     With `use_mesh`, every rank of the world calls it with the same
     arguments (`parallel/`; the module docstring).

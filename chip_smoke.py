@@ -35,7 +35,8 @@ code and no result line):
    dh=32, T=1,200 and T=600, rates 0 and 0.1; causal at dh=16, T=1,600;
    dh=64 at T=600; then both forward paths' `device_ms` at B=256, rate 0,
    key padding and causal, T=150 to 800 at dh 32 and 16 (`fwd_crossover`
-   records: the numbers behind `forward_route`'s table of crossovers).
+   records: the numbers behind `forward_route`'s table of crossovers; the
+   sweep is `fwd_crossover_sweep`, run by `tools/route_sweeps.py`).
    Attention backward: dq, dk, dv at the same cases from the plain
    forward's residuals (out, row max, 1 / row sum), the fully masked row
    included, each computed twice and required bit-equal (library: the
@@ -78,9 +79,9 @@ code and no result line):
    timed; library: the chunked `matmul` + `amax` on bf16 inputs, several
    calls; the bound is the bf16 tensor-core peak), a doubled time axis, then
    both kernels at ragged batches, N != M, peers straddling bank tiles and
-   slices and every compiled width, bit-equal to each other; last the
-   crossover of the dispatch: both kernels' `device_ms` at B=C=256, D=128,
-   N=M from 8 to 80, bit-equal, one `affinity_crossover` record a shape;
+   slices and every compiled width, bit-equal to each other (the crossover
+   of the dispatch, both kernels' `device_ms` at B=C=256, D=128, N=M from 8
+   to 80, is `affinity_crossover_sweep`, run by `tools/route_sweeps.py`);
 3. the serving path at the full width of the `run.sh` model (SASRec, InterComp
    ts2=0.4, DR heads, emb 128, hid 32, batch 256, 2 blocks, 8 heads) at the
    amazon shape T=150 with the 894,820-row item table, random weights from
@@ -114,9 +115,10 @@ code and no result line):
    near ln 2, no table gradient on the lazy path), and the ms per step;
    then four replayed steps of each phase and a replayed evaluation pass
    against the same steps taken eagerly from the same state, batches and
-   keys (`graph_steps`); then wall ms, device ms (a `torch.profiler` trace)
-   and the device's idle share per step kind, eager and replayed
-   (`step_timing`, `amid_tpu_torch/profile_step.py`'s functions);
+   keys (`graph_steps`); with STEP_TIMING (`tools/step_timings.py`; off
+   here) then wall ms, device ms (a `torch.profiler` trace) and the device's
+   idle share per step kind, eager and replayed (`step_timing`,
+   `amid_tpu_torch/profile_step.py`'s functions; phases 7 and 8 likewise);
 5. the pairwise-mode trainer from its CLI: `amid_tpu_torch.train_sr_dr.main`
    with `--comp_broadcast_quirk False --kernels cuda` on synthetic CSV files
    written to a temporary directory in the reference's format, (a) T=20 with
@@ -189,8 +191,9 @@ code and no result line):
    JAX kernel's rounding, each within the case's limit (BF16_LIMITS), with
    the fp32 build at the same inputs outside the oracle's limit; timed
    beside the fp32 mode at the same shape (library: SDPA on bf16 q, k, v;
-   bound at the bf16 peak); both bf16 crossover sweeps (`fwd_crossover_bf16`,
-   `bwd_crossover_bf16`: the numbers behind the routes' bf16 tables);
+   bound at the bf16 peak) (the bf16 crossover sweeps, `fwd_crossover_bf16`
+   and `bwd_crossover_bf16` records behind the routes' bf16 tables, are
+   `bf16_crossover_sweeps`, run by `tools/route_sweeps.py`);
    `--bf16 True` on the run.sh model at T=20 (lazy, quirk) and T=150
    (dense, pairwise) and on BERT4Rec at T=150 (encoder T=300: the bf16
    one-head forward and long backward): `run_seed`
@@ -224,7 +227,7 @@ code and no result line):
    at T=20 and T=150 (wall and device ms, NCCL kernels and copies a step
    from the trace, peak memory);
 12. K1 at every head width up to 128 (`width_kernel_phase`,
-   `width_crossover_sweeps`, `width_config_phase`): all six attention paths
+   `width_config_phase`): all six attention paths
    (the one-head forward and one-sweep backward, the fp32 long forward and
    backward, the native bf16 one-head and long kernels) at dh 12, 24, 48
    (padded to the template widths 16, 32, 64) and 128, causal and key
@@ -232,10 +235,9 @@ code and no result line):
    `kernel_plain`'s tolerances, the row statistics at LONG_STATS_ATOL, the
    backward at `bwd_atol`; bf16: BF16_LIMITS of the path's existing case,
    the fp32 build outside it), each timed (device_ms, host_us, SDPA, the
-   bound); both paths' device time at dh=128 (forward T=20 to 200,
-   backward T=20 to 80, in bf16 also forward T=300 and 400 and backward
-   T=96 and 128, where each mode's one-head kernels hold the shape: the
-   routes' dh=128 entries); then configuration (a), BERT4Rec at
+   bound) (both paths' device time at dh=128, the routes' dh=128 entries,
+   is `width_crossover_sweeps`, run by `tools/route_sweeps.py`); then
+   configuration (a), BERT4Rec at
    `--emb_dim 512` (4 heads of 128) and `--seq_len 150` (encoder T=300: both
    long paths at dh=128), dense Adam: serving (feature pass and top-100),
    `run_seed` on the fast loops, the step-level checks against
@@ -244,7 +246,23 @@ code and no result line):
    `--bf16`; and configuration (b), the run.sh SASRec at `--emb_dim 96` (8
    heads of 12: the one-head pair at a padded width) at T=20 lazy and T=150
    dense, quirk and pairwise: the CLI for a few steps with `--kernels auto`,
-   the step-level checks and replayed steps bit-equal to eager ones.
+   the step-level checks and replayed steps bit-equal to eager ones;
+13. the widths the JAX kernels take beyond those (`wide_kernel_phase`,
+   `wide_config_phase`): K1's fp32 long forward and backward at head width
+   256 (B=256, 4 heads, T=300, key padding and causal, rates 0 and 0.1)
+   against their plain versions at dh=128's tolerances (the backward also
+   against fp64), K6/K7 at D 20, 136 and
+   1,024 and N=M 20 and 150 and K6 at N=700 (several blocks a user), K5's
+   column-chunked kernel at D=1,024, each timed with its bound, the plain
+   version's and the library call's time; then configuration (c), BERT4Rec
+   at `--emb_dim 1024` (4 heads of 256) and `--seq_len 150` with InterComp
+   in pairwise mode: serving (the feature pass against `kernels='torch'`,
+   top-100), `run_seed` on the fast loops at T=150 dense and T=20 lazy with
+   their launches (the long K1 pair at dh=256, K6 and K7 at D=1,024), the
+   step-level checks against `kernels='torch'` and the replayed phase A's
+   time and peak memory; and configuration (a) in pairwise mode
+   (`--emb_dim 512 --comp_broadcast_quirk False`): replayed phase-A steps
+   through K6 at D=512.
 
 It prints a JSON line of per-kernel numbers, the total wall time, the
 `nvidia-smi` name and power line, and last `{"ok": true, "device": {...}}`.
@@ -283,7 +301,16 @@ ATOL, RTOL = 1e-5, 1e-4  # forward kernel vs plain, fp32
 # (B=256, T=64 and 300, causal, rates 0 and 0.1; NVIDIA H100 80GB HBM3,
 # 700.00 W) the kernels' errors against fp64 were 1.1e-5 to 3.8e-5, as at
 # dh=64 (the plain version's 2.3e-6 to 8.1e-6), and |kernel - plain| - RTOL
-# |plain| reached 1.9e-5, the largest error 3.0e-5 (dk, T=64, key padding)
+# |plain| reached 1.9e-5, the largest error 3.0e-5 (dk, T=64, key padding).
+# At dh=256 (the fp32 long pair alone; B=256, h=4, T=300, key padding and
+# causal, rates 0 and 0.1; NVIDIA H100 80GB HBM3, 700.00 W) it holds too, once
+# the 96 products of a stage's score sum into four partial accumulators
+# (`attention_long.cuh::products_raw`): the errors against fp64 then read
+# 1.7e-5 to 6.4e-5 and |kernel - plain| - RTOL |plain| up to 3.1e-5 per
+# T=150 over twelve readings (`wide_kernel_phase`,
+# `tools/wide_attention_draws.py`); with one accumulator they read up to
+# 1.45e-4 and 6.7e-5, above this tolerance, and the forward's 1 / row sum up
+# to 3.6e-6, above LONG_STATS_ATOL
 BWD_ATOL = 2e-5
 BWD_ATOL_DH64 = 5e-5
 DH64_DRAWS = 4  # more dh=64 draws held against fp64 (`kernel_case_bwd` `*_draw*` records)
@@ -376,6 +403,10 @@ RANKS_EQUAL_SHARE = 0.999  # replayed vs eager evaluation batch, same weights an
 # step_timing: eager steps timed and traced per step kind (a replay chunk: 16);
 # 5 since the script's time on a slow host neared its limit (10 before)
 TIMED_STEPS = 5
+# whether phases 4, 7 and 8 trace their steps (`step_timing`): off here, where
+# the traces took 247.5 s of the script's 1,096 s (NVIDIA H100 80GB HBM3,
+# 700.00 W); `tools/step_timings.py` runs those phases with them on
+STEP_TIMING = False
 FLIP_EPOCHS = 3  # phase 6: epochs of training before the gates are counted
 # phase 10, the bf16-operand modes. Each case is read as norms over its
 # outputs, ||x - y|| / ||y|| in fp64 (the largest over BF16_DRAWS draws and,
@@ -442,8 +473,8 @@ class SmokeFailure(RuntimeError):
 
 def bwd_atol(t: int, dh: int) -> float:
     """The backward's absolute tolerance at sequence length t and head width
-    dh (BWD_ATOL, BWD_ATOL_DH64 from dh=33 on: the template widths 64 and
-    128)."""
+    dh (BWD_ATOL, BWD_ATOL_DH64 from dh=33 on: the template widths 64, 128
+    and 256)."""
     return (BWD_ATOL_DH64 if dh > 32 else BWD_ATOL) * max(1.0, t / 150)
 
 
@@ -604,7 +635,7 @@ def expected_launches(cfg, train_steps=0, eval_batches=0, feature_passes=0,
     launch per head (both user representations in one launch; 3 heads with
     DR), and in pairwise mode 2 affinity launches per comp module pair
     (InnerComp at T, InterComp at the length it sees; the small-N kernel
-    where `smalln_faster(N)`, else the blocked one); per train step the
+    where `smalln_faster(N, D)`, else the blocked one); per train step the
     backward once a block and tower, on the path `backward_route` takes at
     the encoder's length and head width (the one-sweep kernel or the long
     path), and on the lazy path the table write-back. `c2dsr_steps` of the
@@ -638,8 +669,8 @@ def expected_launches(cfg, train_steps=0, eval_batches=0, feature_passes=0,
                     2 * blocks * n)
         if not cfg.comp_broadcast_quirk:
             for m in [t] * cfg.is_inc + [t * (2 if cfg.is_inc else 1)] * cfg.is_itc:
-                counts["max_affinity_smalln" if smalln_faster(m) else "max_affinity_blocked"] += (
-                    2 * n)
+                counts["max_affinity_smalln" if smalln_faster(m, cfg.emb_dim)
+                       else "max_affinity_blocked"] += 2 * n
 
     t = cfg.seq_len
     feature_passes_at(t, train_steps, True)
@@ -831,10 +862,42 @@ def kernel_phase(torch, gen):
     q, k, v = qkv(B, 600, D)
     cases["long_T600_h2"] = compare("long_keypad_T600_h2", q, k, v,
                                     keypad_bias(torch, gen, B, 600), 2, path="long")
-    # the forward route's crossover: both paths' device time at B=256, D=128,
-    # rate 0, key padding and causal, at dh 32 and 16 (`fwd_crossover`
-    # records: the numbers behind `ops/attention.py::LONG_FWD_FASTER_FROM`);
-    # the two kernels' outputs agree
+    t, heads, dh, seed = 20, 4, 32, 977
+    q, k, _ = qkv(B, t, D)
+    v = torch.zeros(B, t, D, device="cuda")
+    for h in range(heads):
+        v[:, torch.arange(t), h * dh + torch.arange(t)] = 1.0
+    zero_bias = torch.zeros(1, 1, 1, t, device="cuda")
+    with torch.no_grad():
+        out = fused_attention(q, k, v, zero_bias, seed, heads, 0.5)
+    got_mask = out.view(B, t, heads, dh)[..., :t].permute(0, 2, 1, 3) != 0
+    want_mask = dropout_keep_mask(seed, B, heads, t, 0.5, "cuda")
+    require(torch.equal(got_mask, want_mask), "kernel dropout mask != plain mask")
+    kept = want_mask.float().mean().item()
+    sigma = math.sqrt(0.25 / want_mask.numel())
+    require(abs(kept - 0.5) <= 3 * sigma, f"kept share {kept} not within 3 sigma of 0.5")
+    emit({"dropout_mask": {"equal": True, "kept_share": kept, "sigma": sigma,
+                           "elements": want_mask.numel()}})
+    return cases
+
+
+def fwd_crossover_sweep(torch, gen):
+    """The forward route's crossover: both paths' device time at B=256,
+    D=128, rate 0, key padding and causal, at dh 32 and 16 and each T of
+    FWD_SWEEP_T (`fwd_crossover` records: the numbers behind
+    `ops/attention.py::LONG_FWD_FASTER_FROM`); the two kernels' outputs
+    agree. Run by `tools/route_sweeps.py`, not by `main`."""
+    from amid_tpu_torch.ops import attention as attention_ops
+    from amid_tpu_torch.ops.attention import forward_route
+
+    B, D = FLAGSHIP["batch_size"], FLAGSHIP["emb_dim"]
+
+    def qkv(b, t, d):
+        return (torch.randn(b, t, d, device="cuda", generator=gen) for _ in range(3))
+
+    def causal(t):
+        return torch.triu(torch.full((t, t), -1e9, device="cuda"), diagonal=1)[None, None]
+
     for heads in (4, 8):
         dh = D // heads
         for kind in ("keypad", "causal"):
@@ -856,23 +919,6 @@ def kernel_phase(torch, gen):
                     "T": t, "dh": dh, "bias": kind, "route": forward_route(t, dh),
                     "measured_faster": min(ms, key=ms.get),
                     **{f"{p}_device_ms": v for p, v in ms.items()}, "max_abs_diff": diff}})
-    t, heads, dh, seed = 20, 4, 32, 977
-    q, k, _ = qkv(B, t, D)
-    v = torch.zeros(B, t, D, device="cuda")
-    for h in range(heads):
-        v[:, torch.arange(t), h * dh + torch.arange(t)] = 1.0
-    zero_bias = torch.zeros(1, 1, 1, t, device="cuda")
-    with torch.no_grad():
-        out = fused_attention(q, k, v, zero_bias, seed, heads, 0.5)
-    got_mask = out.view(B, t, heads, dh)[..., :t].permute(0, 2, 1, 3) != 0
-    want_mask = dropout_keep_mask(seed, B, heads, t, 0.5, "cuda")
-    require(torch.equal(got_mask, want_mask), "kernel dropout mask != plain mask")
-    kept = want_mask.float().mean().item()
-    sigma = math.sqrt(0.25 / want_mask.numel())
-    require(abs(kept - 0.5) <= 3 * sigma, f"kept share {kept} not within 3 sigma of 0.5")
-    emit({"dropout_mask": {"equal": True, "kept_share": kept, "sigma": sigma,
-                           "elements": want_mask.numel()}})
-    return cases
 
 
 def keypad_bias(torch, gen, b, t):
@@ -1386,32 +1432,41 @@ def scoring_kernel_phase(torch, gen):
     return cases
 
 
+def affinity_compare(torch, name, fn, a, b, timed=True, iters=20):
+    """One affinity kernel `fn` against `max_affinity_plain` at AFF_ATOL /
+    AFF_RTOL; with `timed` its times, the plain version's, the library
+    route's (chunked `matmul` + `amax` on bf16 inputs) and the bound. Emits
+    a `kernel_case_affinity` record; returns it and the kernel's output."""
+    from amid_tpu_torch.ops.affinity import max_affinity_plain, max_affinity_xla
+
+    got, want = fn(a, b), max_affinity_plain(a, b)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    require(tuple(got.shape) == (a.shape[0], b.shape[0]), f"{name}: shape")
+    require(torch.allclose(got, want, atol=AFF_ATOL, rtol=AFF_RTOL),
+            f"{name}: kernel vs plain max_abs_err {err}")
+    rec = {"case": name, "a": list(a.shape), "b": list(b.shape), "max_abs_err": err}
+    if timed:
+        a16, b16 = a.to(torch.bfloat16), b.to(torch.bfloat16)
+        rec.update(timings(torch, lambda: fn(a, b), iters))
+        rec["plain_ms"] = cuda_ms(torch, lambda: max_affinity_plain(a, b), 5)
+        # several library calls: 32 chunked matmuls and amax reductions
+        rec.update(timings(torch, lambda: max_affinity_xla(a16, b16), 5, library=True))
+        rec["bound_ms"], rec["bound_by"] = affinity_bound(
+            a.shape[0], b.shape[0], a.shape[1], b.shape[1], a.shape[2])
+    emit({"kernel_case_affinity": rec})
+    return rec, got
+
+
 def affinity_kernel_phase(torch, gen):
     from amid_tpu_torch.ops.affinity import (
-        max_affinity_blocked, max_affinity_plain, max_affinity_smalln, max_affinity_xla,
-        smalln_faster,
+        max_affinity_blocked, max_affinity_smalln, smalln_faster,
     )
 
     D = FLAGSHIP["emb_dim"]
 
     def compare(name, fn, a, b, timed=True):
-        got, want = fn(a, b), max_affinity_plain(a, b)
-        torch.cuda.synchronize()
-        err = (got - want).abs().max().item()
-        require(tuple(got.shape) == (a.shape[0], b.shape[0]), f"{name}: shape")
-        require(torch.allclose(got, want, atol=AFF_ATOL, rtol=AFF_RTOL),
-                f"{name}: kernel vs plain max_abs_err {err}")
-        rec = {"case": name, "a": list(a.shape), "b": list(b.shape), "max_abs_err": err}
-        if timed:
-            a16, b16 = a.to(torch.bfloat16), b.to(torch.bfloat16)
-            rec.update(timings(torch, lambda: fn(a, b), 20))
-            rec["plain_ms"] = cuda_ms(torch, lambda: max_affinity_plain(a, b), 5)
-            # several library calls: 32 chunked matmuls and amax reductions
-            rec.update(timings(torch, lambda: max_affinity_xla(a16, b16), 5, library=True))
-            rec["bound_ms"], rec["bound_by"] = affinity_bound(
-                a.shape[0], b.shape[0], a.shape[1], b.shape[1], a.shape[2])
-        emit({"kernel_case_affinity": rec})
-        return rec, got
+        return affinity_compare(torch, name, fn, a, b, timed)
 
     def pair(bsz, c, n, m, d=D):
         return (torch.randn(bsz, n, d, device="cuda", generator=gen),
@@ -1443,7 +1498,24 @@ def affinity_kernel_phase(torch, gen):
         _, k6 = compare(f"blocked_{name}", max_affinity_blocked, a, b, timed=False)
         _, k7 = compare(f"smalln_{name}", max_affinity_smalln, a, b, timed=False)
         require(torch.equal(k6, k7), f"blocked and small-N kernels differ at {name}")
-    # the dispatch's crossover: both kernels' device time at B=C=256, D=128
+    return cases
+
+
+def affinity_crossover_sweep(torch, gen):
+    """The dispatch's crossover: both affinity kernels' device time at
+    B=C=256, D=128 and N=M of SMALLN_SWEEP, bit-equal (`affinity_crossover`
+    records: the numbers behind `ops/affinity.py::smalln_faster`). Run by
+    `tools/route_sweeps.py`, not by `main`."""
+    from amid_tpu_torch.ops.affinity import (
+        max_affinity_blocked, max_affinity_smalln, smalln_faster,
+    )
+
+    B, D = FLAGSHIP["batch_size"], FLAGSHIP["emb_dim"]
+
+    def pair(bsz, c, n, m, d=D):
+        return (torch.randn(bsz, n, d, device="cuda", generator=gen),
+                torch.randn(c, m, d, device="cuda", generator=gen))
+
     for n in SMALLN_SWEEP:
         a, b = pair(B, B, n, n)
         k6, k7 = max_affinity_blocked(a, b), max_affinity_smalln(a, b)
@@ -1455,7 +1527,6 @@ def affinity_kernel_phase(torch, gen):
                "smalln_faster": smalln_faster(n)}
         rec["smalln_was_faster"] = rec["smalln_device_ms"] < rec["blocked_device_ms"]
         emit({"affinity_crossover": rec})
-    return cases
 
 
 # ---------------------------------------------------------------------------
@@ -1977,10 +2048,13 @@ def step_timing(torch, cfg, tcfg, ds, label, timed_steps=TIMED_STEPS):
     """Wall ms, device ms and the device's idle share per step kind, eager
     (the per-step loop's steps) and replayed (the fast loops' graphs), from
     `profile_step.py`'s `step_kinds` and `measure` on a fresh model each,
-    over `timed_steps` steps (a replay chunk: 16)."""
+    over `timed_steps` steps (a replay chunk: 16). Nothing (None) unless
+    STEP_TIMING is on (`tools/step_timings.py`)."""
     from amid_tpu_torch.profile_step import measure, step_kinds
     from amid_tpu_torch.train.graphs import GraphPool
 
+    if not STEP_TIMING:
+        return None
     out = {}
     t0 = time.perf_counter()
     for fast in (False, True):
@@ -3958,6 +4032,34 @@ WIDTH_BWD_SWEEP_T = {"fp32": (20, 48, 64, 80), "bf16": (20, 48, 64, 80, 96, 128)
 WIDTH_CLI_ROWS = (1024, 1024, 512)  # train, DR, val
 
 
+def sdpa_timings(torch, rec, q, k, v, dout, bias, heads, rate, bf16, iters=10):
+    """SDPA's times at an attention case's inputs, into `rec` (its
+    `library_*` keys): the forward, or (with dout) the backward as forward +
+    backward less the forward; on bf16 q, k, v in the bf16 mode."""
+    import torch.nn.functional as F
+
+    b, t, d = q.shape
+    dt = torch.bfloat16 if bf16 else torch.float32
+    split = [x.view(b, t, heads, d // heads).transpose(1, 2).to(dt) for x in (q, k, v)]
+    mask = bias.to(dt)
+    if dout is None:
+        with torch.no_grad():
+            rec.update(timings(torch, lambda: F.scaled_dot_product_attention(
+                *split, attn_mask=mask, dropout_p=rate), iters, library=True, rounds=1))
+        return
+    leaves = [x.detach().requires_grad_() for x in split]
+    g = dout.view(b, t, heads, d // heads).transpose(1, 2).to(dt)
+
+    def sdpa_fwd():
+        return F.scaled_dot_product_attention(*leaves, attn_mask=mask, dropout_p=rate)
+
+    both = timings(torch, lambda: torch.autograd.grad(sdpa_fwd(), leaves, g), iters,
+                   library=True, rounds=1)
+    with torch.no_grad():
+        fwd_only = timings(torch, sdpa_fwd, iters, library=True, rounds=1)
+    rec.update({key: both[key] - fwd_only[key] for key in both})
+
+
 def width_kernel_phase(torch, gen):
     """Phase 12(a): the six attention paths at each head width of
     WIDTH_HEADS (D = dh * heads, B=256), causal and key padding (batch row
@@ -3977,8 +4079,6 @@ def width_kernel_phase(torch, gen):
     SDPA's (on bf16 q, k, v in bf16; its backward as forward + backward
     less the forward) and the bound (the TF32 peak in fp32, the bf16 peak
     in bf16)."""
-    import torch.nn.functional as F
-
     from amid_tpu_torch.ops import attention as attention_ops
     from amid_tpu_torch.ops.attention import (
         attention_bwd_plain, attention_fwd_stats_plain, attention_fwd_stats_streamed_plain,
@@ -3992,28 +4092,7 @@ def width_kernel_phase(torch, gen):
         return torch.triu(torch.full((t, t), -1e9, device="cuda"), diagonal=1)[None, None]
 
     def library(rec, q, k, v, dout, bias, heads, rate, bf16):
-        """SDPA's times at the case's inputs: the forward, or (with dout)
-        the backward as forward + backward less the forward."""
-        b, t, d = q.shape
-        dt = torch.bfloat16 if bf16 else torch.float32
-        split = [x.view(b, t, heads, d // heads).transpose(1, 2).to(dt) for x in (q, k, v)]
-        mask = bias.to(dt)
-        if dout is None:
-            with torch.no_grad():
-                rec.update(timings(torch, lambda: F.scaled_dot_product_attention(
-                    *split, attn_mask=mask, dropout_p=rate), 10, library=True, rounds=1))
-            return
-        leaves = [x.detach().requires_grad_() for x in split]
-        g = dout.view(b, t, heads, d // heads).transpose(1, 2).to(dt)
-
-        def sdpa_fwd():
-            return F.scaled_dot_product_attention(*leaves, attn_mask=mask, dropout_p=rate)
-
-        both = timings(torch, lambda: torch.autograd.grad(sdpa_fwd(), leaves, g), 10,
-                       library=True, rounds=1)
-        with torch.no_grad():
-            fwd_only = timings(torch, sdpa_fwd, 10, library=True, rounds=1)
-        rec.update({key: both[key] - fwd_only[key] for key in both})
+        sdpa_timings(torch, rec, q, k, v, dout, bias, heads, rate, bf16)
 
     def fwd_case(dh, path, kind, rate, bf16, t=None):
         heads = WIDTH_HEADS[dh]
@@ -4378,6 +4457,287 @@ def width_config_phase(torch, rng):
     return out
 
 
+# phase 13: the widths the JAX kernels take beyond the port's earlier limits.
+# K1's fp32 long pair at head width 256 on configuration (c)'s attention
+# (BERT4Rec at --emb_dim 1024: B=256, 4 heads of 256, encoder T=300); K6/K7
+# at D not a multiple of 8 (20), above one 128-column plane (136) and at
+# configuration (c)'s width (1,024), at N=M of T=20 and T=150, and at N=700
+# (beyond four slots a user: KC=8 at D=128, 12 at D=1,024, two and three
+# blocks folding into one output); K5 at D=1,024 (the column-chunked kernel)
+WIDE_B, WIDE_HEADS, WIDE_DH, WIDE_T = 256, 4, 256, 300
+WIDE_AFF_D = (20, 136, 1024)
+WIDE_AFF_N = (20, 150)
+WIDE_LONG_N, WIDE_LONG_B = 700, 16  # B=C=16: the bound at D=1,024 is 0.26 ms
+
+
+def wide_kernel_phase(torch, gen):
+    """Phase 13(a): the new kernel instances against their plain versions,
+    each timed (`kernel_ms`, `device_ms`, `host_us`), with the plain
+    version's time, the library call's (SDPA; the chunked `matmul` + `amax`
+    route for K6/K7; none for K5) and the bound. K1: the fp32 long forward
+    and backward at WIDE_B, WIDE_HEADS heads of WIDE_DH, T=WIDE_T, key
+    padding (batch row 0 fully masked) and causal, rates 0 and 0.1; the
+    forward against `attention_fwd_stats_streamed_plain` at ATOL / RTOL, its
+    row statistics at LONG_STATS_ATOL; the backward from the plain forward's
+    residuals at `bwd_atol`, two calls bit-equal, and the kernel and the
+    plain fp32 version against the plain version in fp64 on ORACLE_ROWS
+    rows; both routes send the shape to the long paths. K6/K7 at
+    WIDE_AFF_D x WIDE_AFF_N (B=C=256; K7 where `smalln_max_n(D)` takes N,
+    bit-equal to K6) and K6 at N=M=WIDE_LONG_N, at AFF_ATOL / AFF_RTOL. K5's
+    pair at D=1,024, C=1000 and C=2, at SCORE_ATOL."""
+    from amid_tpu_torch.ops import attention as attention_ops
+    from amid_tpu_torch.ops.affinity import (
+        max_affinity_blocked, max_affinity_smalln, smalln_max_n,
+    )
+    from amid_tpu_torch.ops.attention import (
+        attention_bwd_plain, attention_fwd_stats_plain, attention_fwd_stats_streamed_plain,
+        backward_route, forward_route, long_head_dim,
+    )
+    from amid_tpu_torch.ops.scoring import scoring_head_pair, scoring_head_plain, tile_cols
+
+    OB = ORACLE_ROWS
+    B, heads, dh, t = WIDE_B, WIDE_HEADS, WIDE_DH, WIDE_T
+    d = heads * dh
+    require(forward_route(t, dh) == backward_route(t, dh) == "long" and long_head_dim(dh) == 256,
+            f"dh={dh}: the routes must take the long paths at template width 256")
+    cases = {"attention_fwd_long": {}, "attention_bwd_long": {}, "max_affinity_blocked": {},
+             "max_affinity_smalln": {}, "scoring_head": {}}
+    for kind in ("keypad", "causal"):
+        for rate in (0.0, 0.1):
+            q, k, v, dout = (torch.randn(B, t, d, device="cuda", generator=gen)
+                             for _ in range(4))
+            bias = (torch.triu(torch.full((t, t), -1e9, device="cuda"), diagonal=1)[None, None]
+                    if kind == "causal" else keypad_bias(torch, gen, B, t))
+            seed = torch.tensor([4242], dtype=torch.int64, device="cuda")
+            base = {"dh": dh, "template_dh": 256, "heads": heads, "shape": [B, t, d],
+                    "bias": kind, "rate": rate, "path": "long"}
+
+            def fwd(stats=False):
+                return attention_ops._launch_forward(q, k, v, bias, seed, heads, rate, stats,
+                                                     "long")
+
+            def plain_fwd():
+                return attention_fwd_stats_streamed_plain(q, k, v, bias, seed, heads, rate, 64)
+
+            name = f"wide_fwd_long_{kind}_T{t}_dh{dh}_rate{rate}"
+            rec = {"case": name, **base}
+            with torch.no_grad():
+                got, want = fwd()[0], plain_fwd()[0]
+                require(torch.equal(fwd()[0], got), f"{name}: two calls differ")
+                require(torch.isfinite(got).all().item(), f"{name}: non-finite output")
+                stats = fwd(True)
+                require(torch.equal(stats[0], got), f"{name}: out differs with statistics")
+                want_stats = attention_fwd_stats_plain(q[:OB], k[:OB], v[:OB], bias[:OB], seed,
+                                                       heads, rate)
+                rec["stats_max_abs_err"] = {}
+                for n, g, w in zip(("row_max", "row_inv_sum"), stats[1:], want_stats[1:]):
+                    err = rec["stats_max_abs_err"][n] = (g[:OB] - w).abs().max().item()
+                    require(torch.allclose(g[:OB], w, atol=LONG_STATS_ATOL[n], rtol=STATS_RTOL),
+                            f"{name}: kernel vs plain {n} max_abs_err {err}")
+                rec["max_abs_err"] = (got - want).abs().max().item()
+                require(torch.allclose(got, want, atol=ATOL, rtol=RTOL),
+                        f"{name}: kernel vs plain max_abs_err {rec['max_abs_err']}")
+                del got, want, stats, want_stats
+                rec.update(timings(torch, lambda: fwd()[0], 10, rounds=1))
+                rec["plain_ms"] = cuda_ms(torch, plain_fwd, 2, 1)
+            sdpa_timings(torch, rec, q, k, v, None, bias, heads, rate, False)
+            rec["bound_ms"], rec["bound_by"] = attention_bound(B, t, d, heads, bias.numel())
+            emit({"kernel_case_wide": rec})
+            cases["attention_fwd_long"][name] = rec
+
+            name = f"wide_bwd_long_{kind}_T{t}_dh{dh}_rate{rate}"
+            rec = {"case": name, **base}
+            with torch.no_grad():
+                res = attention_fwd_stats_plain(q, k, v, bias, seed, heads, rate)
+
+                def bwd():
+                    return attention_ops._launch_backward(q, k, v, bias, *res, dout, seed,
+                                                          heads, rate, "long")
+
+                def plain_bwd():
+                    return attention_bwd_plain(q, k, v, bias, *res, dout, seed, heads, rate)
+
+                got, want = bwd(), plain_bwd()
+                require(all(torch.equal(a, b) for a, b in zip(bwd(), got)),
+                        f"{name}: two backward calls differ")
+                require(all(torch.isfinite(g).all().item() for g in got),
+                        f"{name}: non-finite gradient")
+                names = ("dq", "dk", "dv")
+                atol = bwd_atol(t, dh)
+                rec["errs"] = {n: (g - w).abs().max().item() for n, g, w in zip(names, got, want)}
+                rec["max_abs_err"], rec["bwd_atol"] = max(rec["errs"].values()), atol
+                rec["atol_needed"] = max(((g - w).abs() - RTOL * w.abs()).max().item()
+                                         for g, w in zip(got, want))
+                wide = [x[:OB].double() for x in (q, k, v, bias)]
+                exact = attention_bwd_plain(*wide, *attention_fwd_stats_plain(
+                    *wide, seed, heads, rate), dout[:OB].double(), seed, heads, rate)
+                live = ~(bias[:OB] <= -1e8).reshape(bias[:OB].shape[0], -1).all(dim=1)
+                live = live.expand(OB) if live.numel() == 1 else live
+                for which, grads in (("plain", want), ("kernel", got)):
+                    rec[f"{which}_vs_fp64"] = {
+                        n: (g[:OB][live].double() - w[live]).abs().max().item()
+                        for n, g, w in zip(names, grads, exact)}
+                del exact, wide
+                for n, g, w in zip(names, got, want):
+                    require(torch.allclose(g, w, atol=atol, rtol=RTOL),
+                            f"{name}: kernel vs plain {n} max_abs_err {rec['errs'][n]} "
+                            f"(atol {atol})")
+                del got, want
+                rec.update(timings(torch, bwd, 10, rounds=1))
+                rec["plain_ms"] = cuda_ms(torch, plain_bwd, 2, 1)
+            sdpa_timings(torch, rec, q, k, v, dout, bias, heads, rate, False)
+            rec["bound_ms"], rec["bound_by"] = attention_bwd_bound(B, t, d, heads, bias.numel())
+            emit({"kernel_case_wide": rec})
+            cases["attention_bwd_long"][name] = rec
+            del q, k, v, dout, res
+            torch.cuda.empty_cache()
+
+    def pair(bsz, c, n, m, width):
+        return (torch.randn(bsz, n, width, device="cuda", generator=gen),
+                torch.randn(c, m, width, device="cuda", generator=gen))
+
+    for width in WIDE_AFF_D:
+        for n in WIDE_AFF_N:
+            a, b = pair(256, 256, n, n, width)
+            rec, k6 = affinity_compare(torch, f"wide_blocked_N{n}_D{width}", max_affinity_blocked,
+                                       a, b, iters=10)
+            cases["max_affinity_blocked"][(n, width)] = rec
+            if n <= smalln_max_n(width):
+                rec, k7 = affinity_compare(torch, f"wide_smalln_N{n}_D{width}",
+                                           max_affinity_smalln, a, b, iters=10)
+                require(torch.equal(k6, k7), f"blocked and small-N kernels differ at N={n}, "
+                                             f"D={width}")
+                cases["max_affinity_smalln"][(n, width)] = rec
+            del a, b, k6
+            torch.cuda.empty_cache()
+    for width in (128, 1024):
+        n = WIDE_LONG_N
+        rec, _ = affinity_compare(torch, f"wide_blocked_N{n}_D{width}", max_affinity_blocked,
+                                  *pair(WIDE_LONG_B, WIDE_LONG_B, n, n, width), iters=10)
+        cases["max_affinity_blocked"][(n, width)] = rec
+
+    width, hid = 1024, FLAGSHIP["hid_dim"]
+    require(tile_cols(width, hid) < width, "K5 at D=1,024 takes the column-chunked kernel")
+
+    def rand(*shape, scale=1.0):
+        return torch.randn(*shape, device="cuda", generator=gen) * scale
+
+    fc1 = rand(hid, 2 * width, scale=(2 * width) ** -0.5)
+    params = (fc1[:, :width], fc1[:, width:], rand(hid, scale=0.1),
+              rand(1, hid, scale=hid ** -0.5), rand(1, scale=0.1))
+    for c in (1000, 2):
+        user, other, items = rand(B, width), rand(B, width), rand(B, c, width)
+        name = f"wide_scoring_pair_C{c}_D{width}"
+        with torch.no_grad():
+            got = scoring_head_pair(user, other, items, *params)
+
+            def plain():
+                return (scoring_head_plain(user, items, *params),
+                        scoring_head_plain(other, items, *params))
+
+            err = max((g - w).abs().max().item() for g, w in zip(got, plain()))
+            require(all(torch.isfinite(g).all().item() and tuple(g.shape) == (B, c) for g in got),
+                    f"{name}: non-finite output or wrong shape")
+            require(err <= SCORE_ATOL, f"{name}: kernel vs plain max_abs_err {err}")
+            rec = {"case": name, "shape": [B, c, width], "H": hid, "users": 2,
+                   "tile_cols": tile_cols(width, hid), "max_abs_err": err,
+                   **timings(torch, lambda: scoring_head_pair(user, other, items, *params), 20),
+                   "plain_ms": cuda_ms(torch, plain, 5), "library_ms": None}
+        rec["bound_ms"], rec["bound_by"] = scoring_bound(B, c, width, hid, 2)
+        emit({"kernel_case_scoring": rec})
+        cases["scoring_head"][c] = rec
+    return cases
+
+
+def wide_config_phase(torch, rng):
+    """Phase 13(b): configuration (c), BERT4Rec at `--emb_dim 1024` (4 heads
+    of 256, FFN 512 as configuration (a)) and `--seq_len 150` with
+    InterComp in pairwise mode (`comp_broadcast_quirk=False`), fp32,
+    through the entry points a user calls with kernels='auto' (cuda on the
+    card) and no refusal: serving (the feature pass against kernels='torch',
+    top-100 over the 894,820-row table); `run_seed` for one epoch on the
+    fast loops at T=150 with dense Adam (encoder T=300: both long K1 paths
+    at dh=256, K6 at D=1,024, K5's column-chunked kernel) and at T=20 with
+    the lazy table Adam (encoder T=40, K7 at D=1,024), each with its
+    launches against `expected_launches`; one eager phase-A and phase-B step
+    and one evaluation batch of each against the kernels='torch' model
+    (`step_checks`: the first losses at LOSS_TOL); the replayed phase A's
+    wall and device ms and peak memory at T=150. Then configuration (a) in
+    pairwise mode (`--emb_dim 512 --comp_broadcast_quirk False`): replayed
+    phase-A steps through K6 at D=512, with their launches. Returns the
+    runs' records (with their launches)."""
+    import shutil
+    import tempfile
+
+    from amid_tpu_torch.config import DataConfig, ModelConfig, TrainConfig
+    from amid_tpu_torch.data.synthetic import synth_packed
+    from amid_tpu_torch.models.amid import head_width
+    from amid_tpu_torch.train.loop import run_seed
+
+    out = {}
+    base = {**FLAGSHIP, **BACKBONES["bert4rec"], "emb_dim": 1024, "comp_broadcast_quirk": False}
+    for t, lazy_adam in ((150, False), (20, True)):
+        label = f"bert4rec_D1024_T{t}_{'lazy' if lazy_adam else 'dense'}_pairwise"
+        cfg = ModelConfig(**{**base, "seq_len": t})
+        require(head_width(cfg) == 256 and cfg.enc_seq_len == 2 * t,
+                f"{label}: dh={head_width(cfg)}, encoder T={cfg.enc_seq_len}")
+        rec = {}
+        if t == 150:
+            rec["serve"] = serve_check(torch, cfg, backbone_batch(cfg, rng), label, topk=True)
+        train_ds, val_ds, dr_ds = (synth_packed(cfg, rng, n)
+                                   for n in (TRAIN_ROWS, VAL_ROWS, DR_ROWS))
+        work = tempfile.mkdtemp(prefix="chip_smoke_")
+        tcfg = TrainConfig(epochs=1, seeds=1, model_dir=work, lazy_table_adam=lazy_adam,
+                           nan_policy="halt", checkpoint=False, model=cfg,
+                           data=DataConfig(neg_nums=999))
+        try:
+            reset_counts()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            best = run_seed(tcfg, 0, train_ds, val_ds, dr_ds)  # on cuda, kernels='auto'
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            rec["launches"] = read_counts()
+            check_run(f"{label} run_seed fast", cfg, lazy_adam, rec["launches"], best,
+                      {"loop": "fast", "seconds": seconds,
+                       "examples_per_s": best["examples_per_s"],
+                       "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()})
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        torch.cuda.empty_cache()
+        rec["train_steps"] = step_checks(torch, cfg, tcfg, train_ds, val_ds, dr_ds, label)
+        torch.cuda.empty_cache()
+        if t == 150:
+            rec["replayed_phase_a"] = replayed_phase_a(torch, cfg, tcfg, train_ds)
+            emit({"wide_config": {"config": label, **{
+                k: rec["replayed_phase_a"][k] for k in ("wall_ms_per_step", "device_ms_per_step",
+                                                        "device_idle_share",
+                                                        "max_memory_allocated_bytes")},
+                "feature_ms": rec["serve"]["feature_ms"],
+                "catalog_ms_per_domain": rec["serve"]["catalog_ms_per_domain"]}})
+        out[label] = rec
+        del train_ds, val_ds, dr_ds
+        torch.cuda.empty_cache()
+
+    # configuration (a) in pairwise mode: replayed phase-A steps through K6 at D=512
+    label = "bert4rec_D512_T150_dense_pairwise"
+    cfg = ModelConfig(**{**base, "emb_dim": 512, "seq_len": 150})
+    train_ds = synth_packed(cfg, rng, TRAIN_ROWS)
+    tcfg = TrainConfig(epochs=1, seeds=1, model_dir="", lazy_table_adam=False,
+                       nan_policy="halt", checkpoint=False, model=cfg,
+                       data=DataConfig(neg_nums=999))
+    reset_counts()
+    replayed = replayed_phase_a(torch, cfg, tcfg, train_ds)
+    counts = read_counts()
+    require(counts["max_affinity_blocked"] > 0 and counts["attention_bwd_long"] > 0,
+            f"{label}: replayed phase A launched K6 {counts['max_affinity_blocked']} times")
+    emit({"wide_config": {"config": label, "launches": counts, **{
+        k: replayed[k] for k in ("wall_ms_per_step", "device_ms_per_step", "device_idle_share",
+                                 "max_memory_allocated_bytes")}}})
+    out[label] = {"replayed_phase_a": replayed, "replay_launches": counts}
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -4437,13 +4797,13 @@ def main() -> int:
     c2dsr_runs = phase(c2dsr_phase, np.random.default_rng(4))
     checkpoint_runs = phase(checkpoint_phase, np.random.default_rng(5))
     bf16 = phase(bf16_kernel_phase, gen)
-    phase(bf16_crossover_sweeps, gen)
     precision_runs = phase(precision_phase, np.random.default_rng(6))
     phase(bf16_drift_check, np.random.default_rng(7))
     mesh_runs = phase(mesh_phase, np.random.default_rng(8))
     widths = phase(width_kernel_phase, gen)
-    phase(width_crossover_sweeps, gen)
     width_runs = phase(width_config_phase, np.random.default_rng(9))
+    wides = phase(wide_kernel_phase, gen)
+    wide_runs = phase(wide_config_phase, np.random.default_rng(10))
 
     # launches on the main paths: the serving passes, the run_seed runs and
     # the CLI runs (each on the fast loops and per step), the backbones'
@@ -4459,6 +4819,11 @@ def main() -> int:
                  *(r for r in mesh_runs.values() if "launches" in r),
                  *width_runs.values(),
                  *(r["serve"] for r in width_runs.values() if "serve" in r)]
+    # configuration (c)'s runs: every attention launch of its model is at
+    # dh=256, every affinity and scoring launch at D=1,024
+    wide_main = [r for label, rec in wide_runs.items() if "D1024" in label
+                 for r in (rec, rec.get("serve")) if r and "launches" in r]
+    main_runs += wide_main
     launches = {name: sum(r["launches"][name] for r in main_runs) for name in KERNELS}
     # run_seed scatters fused; the single-array kernel's path is the lazy step
     # built with fused_scatter=False, driven once in step_checks
@@ -4515,9 +4880,26 @@ def main() -> int:
         extra = [w for w in widths.values() if w["case"].startswith(
             f"width_{mode}_{direction}_{path}_")]
         rows[name] = (c, [*every, *extra])
+    # phase 13's instances, rows of their own: the launches of configuration
+    # (c)'s runs; K1 at its training shape (key padding, rate 0.1), K6 at
+    # T=150, K7 at T=20, K5's pair at C=1000
+    wide_rows = {
+        "attention_fwd_long_dh256": ("attention_fwd_long",
+                                     "wide_fwd_long_keypad_T300_dh256_rate0.1"),
+        "attention_bwd_long_dh256": ("attention_bwd_long",
+                                     "wide_bwd_long_keypad_T300_dh256_rate0.1"),
+        "max_affinity_blocked_D1024": ("max_affinity_blocked", (150, 1024)),
+        "max_affinity_smalln_D1024": ("max_affinity_smalln", (20, 1024)),
+        "scoring_head_D1024": ("scoring_head", 1000)}
+    kernel_of = {name: name for name in rows}
+    for name, (kernel, key) in wide_rows.items():
+        launches[name] = sum(r["launches"][kernel] for r in wide_main)
+        require(launches[name] > 0, f"{name} was launched no time on configuration (c)'s runs")
+        rows[name] = (wides[kernel][key], wides[kernel].values())
+        kernel_of[name] = kernel
     emit({"kernels": [{
-        "name": name, "route": "cuda", "source": KERNELS[name][0],
-        "replaces": KERNELS[name][1], "launches": launches[name],
+        "name": name, "route": "cuda", "source": KERNELS[kernel_of[name]][0],
+        "replaces": KERNELS[kernel_of[name]][1], "launches": launches[name],
         "max_abs_err": max(r["max_abs_err"] for r in every),
         "ms": c["kernel_ms"], "plain_ms": c["plain_ms"],
         "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],

@@ -349,8 +349,11 @@ def test_launch_refusals_become_exceptions(monkeypatch):
         attention_ops._check_backward_fits(65535 * 64 + 1, 8)
     attention_ops._check_backward_fits(300, 12)  # a padded width: template 16
     attention_ops._check_backward_fits(300, 128)
-    with pytest.raises(ValueError, match="head widths 1 to 128; got dh=136"):
-        attention_ops._check_backward_fits(300, 136)
+    attention_ops._check_backward_fits(300, 136)  # the fp32 long pair: template 256
+    with pytest.raises(ValueError, match="bf16 mode takes head widths 1 to 128 .*got dh=136"):
+        attention_ops._check_backward_fits(300, 136, "bf16")
+    with pytest.raises(ValueError, match="head widths 1 to 256 .*got dh=264"):
+        attention_ops._check_backward_fits(300, 264)
     with pytest.raises(ValueError, match="beyond its limit of T=4194240"):
         attention_ops._launch_backward(q, q, q, bias, q, *[torch.zeros(1, 2, 300)] * 2, q,
                                        0, 2, 0.0, path="long")

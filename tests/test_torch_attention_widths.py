@@ -30,7 +30,7 @@ from amid_tpu.models.amid import build_model as jax_build_model
 from amid_tpu.ops.pallas_attention import fused_attention as jax_fused_attention
 from amid_tpu_torch.config import ModelConfig
 from amid_tpu_torch.convert import params_from_flax
-from amid_tpu_torch.models.amid import build_model, check_attention_fits, head_width
+from amid_tpu_torch.models.amid import build_model, check_kernels_fit, head_width
 from amid_tpu_torch.ops import attention as attention_ops
 from amid_tpu_torch.ops.attention import (
     attention_bwd_plain,
@@ -301,21 +301,33 @@ def test_a_padded_width_routes_as_its_template_width(kernel_limits, dh):
                 t, w, mode), (mode, t)
 
 
-def test_check_attention_fits_takes_every_width_up_to_128(kernel_limits):
+@pytest.mark.parametrize("widest", [128, 256])
+def test_check_attention_fits_takes_every_width_up_to_128(kernel_limits, widest):
     """dh=12 (SASRec at --emb_dim 96) and dh=128 (BERT4Rec at --emb_dim 512)
-    pass; dh=136 is refused before any launch, naming the width, the limit
-    and --kernels torch."""
+    pass `check_kernels_fit`; since the fp32 long paths take template width
+    256, so do dh=136 and dh=256 (BERT4Rec at --emb_dim 1024, configuration
+    (c)) in fp32, while the bf16 mode stops at 128. Each refusal comes
+    before any launch, naming the width, the limit and --kernels torch:
+    above `widest`, the mode's largest width."""
     sasrec = ModelConfig(backbone="sasrec", emb_dim=96, seq_len=150)
     bert = ModelConfig(backbone="bert4rec", emb_dim=512, seq_len=150, is_itc=True)
     assert (head_width(sasrec), head_width(bert)) == (12, 128)
-    check_attention_fits(sasrec)
-    check_attention_fits(bert)
+    check_kernels_fit(sasrec)
+    check_kernels_fit(bert)
+    bf16 = widest == 128
+    wide = ModelConfig(backbone="bert4rec", emb_dim=4 * widest, seq_len=150, is_itc=True,
+                       use_bf16=bf16)
+    check_kernels_fit(wide)  # the mode's widest head
+    over = dataclasses.replace(wide, emb_dim=4 * (widest + 8))
     with pytest.raises(ValueError) as err:
-        check_attention_fits(ModelConfig(backbone="bert4rec", emb_dim=544, seq_len=150))
-    for part in ("dh=136", "head widths 1 to 128", "--kernels torch"):
+        check_kernels_fit(over)
+    mode = " in the bf16 mode" if bf16 else ""
+    for part in (f"dh={widest + 8}", f"head widths 1 to {widest}{mode}", "--kernels torch"):
         assert part in str(err.value), part
-    with pytest.raises(ValueError, match="head widths 1 to 128; got dh=136"):
-        attention_ops._check_backward_fits(150, 136)
+    mode = "bf16" if bf16 else "fp32"
+    with pytest.raises(ValueError, match=f"got dh={widest + 8}"):
+        attention_ops._check_backward_fits(150, widest + 8, mode)
+    attention_ops._check_backward_fits(150, widest, mode)
 
 
 def test_a_padded_width_takes_the_padded_build_of_the_fp32_long_paths(monkeypatch):

@@ -23,7 +23,7 @@ from amid_tpu.train.loop import run_seed as jax_run_seed
 from amid_tpu_torch.config import ModelConfig, encoder_length
 from amid_tpu_torch.convert import adam_state_from_optax
 from amid_tpu_torch.data.sampler import interleave_corr_seq
-from amid_tpu_torch.models.amid import build_model, check_attention_fits, head_width
+from amid_tpu_torch.models.amid import build_model, check_kernels_fit, head_width
 from amid_tpu_torch.ops import attention as attention_ops
 from amid_tpu_torch.ops.rng import StepRandom, fold_in
 from amid_tpu_torch.train import aux_losses, c2dsr, loop, steps
@@ -427,11 +427,11 @@ def test_only_bert4rec_with_both_comps_and_c2dsr_is_refused_at_l150(kernel_limit
     """The C2DSR encoder lengths at amazon's L=150. Only T=1,200 at dh=32 is
     refused by the one-head forward kernel (T<=800): `forward_route` hands it
     to the long forward, and all five configurations pass
-    `check_attention_fits`, with and without C2DSR."""
+    `check_kernels_fit`, with and without C2DSR."""
     cfg = ModelConfig(**kw, is_c2dsr=True)
     assert head_width(cfg) == dh
-    check_attention_fits(cfg)
-    check_attention_fits(ModelConfig(**kw))  # without C2DSR: the encoder at L
+    check_kernels_fit(cfg)
+    check_kernels_fit(ModelConfig(**kw))  # without C2DSR: the encoder at L
     if dh is None:
         return
     assert encoder_length(cfg, 2 * cfg.seq_len) == cfg.enc_seq_len == t
@@ -442,17 +442,18 @@ def test_only_bert4rec_with_both_comps_and_c2dsr_is_refused_at_l150(kernel_limit
 
 
 def test_check_attention_fits_refuses_what_no_kernel_takes(kernel_limits):
-    """A head width above the kernels' 128, or a T beyond the long paths'
-    limit, is refused before any launch, naming the backbone, the length,
-    the head width, the limits and the way out."""
-    check_attention_fits(ModelConfig(**{**BERT_FULL, "bert_heads": 1}))  # dh=128 runs
+    """A head width above the kernels' 256, or a T beyond the long paths'
+    limit, is refused before any launch (`check_kernels_fit`), naming the
+    backbone, the length, the head width, the limits and the way out."""
+    check_kernels_fit(ModelConfig(**{**BERT_FULL, "bert_heads": 1}))  # dh=128 runs
+    check_kernels_fit(ModelConfig(**{**BERT_FULL, "emb_dim": 544}))  # dh=136 runs since 256
     with pytest.raises(ValueError) as err:
-        check_attention_fits(ModelConfig(**{**BERT_FULL, "emb_dim": 544}))
-    for part in ("bert4rec", "T=300", "dh=136", "widths 1 to 128", "--kernels torch"):
+        check_kernels_fit(ModelConfig(**{**BERT_FULL, "emb_dim": 1056}))
+    for part in ("bert4rec", "T=300", "dh=264", "widths 1 to 256", "--kernels torch"):
         assert part in str(err.value), part
     with pytest.raises(ValueError, match=r"T=8388608 at head width dh=32.*T<=8388480"):
-        check_attention_fits(ModelConfig(**{**BERT_FULL, "is_itc": False,
-                                            "seq_len": 65536 * 128}))
+        check_kernels_fit(ModelConfig(**{**BERT_FULL, "is_itc": False,
+                                         "seq_len": 65536 * 128}))
 
 
 def test_the_refused_configuration_runs_on_the_cpu_with_plain_kernels(rng):

@@ -773,14 +773,41 @@ def test_gru_step_replays_equal_eager_steps(gen):
         pool.close()
 
 
-@pytest.mark.parametrize("d,heads", [(272, 2), (129, 1)])  # dh 136 and 129: above 128
-def test_kernel_rejects_unsupported_head_width(gen, d, heads):
+@pytest.mark.parametrize("d,heads,bf16,words", [
+    (528, 2, False, "head widths 1 to 256"), (257, 1, False, "head widths 1 to 256"),
+    (272, 2, True, "bf16 mode takes head widths 1 to 128"),
+    (129, 1, True, "bf16 mode takes head widths 1 to 128")])  # dh 264, 257; 136, 129 in bf16
+def test_kernel_rejects_unsupported_head_width(gen, d, heads, bf16, words):
     q = torch.randn(2, 8, d, device="cuda", generator=gen)
-    with pytest.raises(ValueError, match="head widths 1 to 128"):
-        fused_attention(q, q, q, _bias("zeros", 2, 8, gen), 0, heads, 0.0)
-    with pytest.raises(ValueError, match="head widths 1 to 128"):
+    with pytest.raises(ValueError, match=words):
+        fused_attention(q, q, q, _bias("zeros", 2, 8, gen), 0, heads, 0.0, bf16)
+    with pytest.raises(ValueError, match=words):
         attention_ops._launch_forward(q, q, q, _bias("zeros", 2, 8, gen), 0, heads, 0.0, False,
-                                      "long")
+                                      "long", bf16=bf16)
+
+
+@pytest.mark.parametrize("d,heads", [(272, 2), (129, 1), (256, 1)])  # dh 136, 129 and 256
+@pytest.mark.parametrize("kind", ["causal", "keypad"])
+def test_fp32_long_pair_takes_heads_above_128(gen, d, heads, kind):
+    """Heads of 129 to 256 run on the fp32 long pair at template width 256
+    (the padded build below 256), at every T: the forward and, through
+    autograd, the backward against the plain versions, one launch each."""
+    t, b = 37, 3
+    q, k, v, g = (torch.randn(b, t, d, device="cuda", generator=gen) for _ in range(4))
+    bias = _bias(kind, b, t, gen)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    before = (fused_attention.long_forward_launches, fused_attention.long_backward_launches)
+    out = fused_attention(*leaves, bias, 0, heads, 0.0)
+    grads = torch.autograd.grad(out, leaves, g)
+    assert (fused_attention.long_forward_launches, fused_attention.long_backward_launches) == (
+        before[0] + 1, before[1] + 1)
+    plain = [x.clone().requires_grad_() for x in (q, k, v)]
+    want = attention_plain(*plain, bias, 0, heads, 0.0)
+    want_grads = torch.autograd.grad(want, plain, g)
+    torch.testing.assert_close(out, want, atol=ATOL, rtol=RTOL)
+    atol = _chip_smoke().bwd_atol(t, d // heads)  # dh=64's start holds every width above 32
+    for got, w in zip(grads, want_grads):
+        torch.testing.assert_close(got, w, atol=atol, rtol=RTOL)
 
 
 def test_kernel_rejects_too_long_sequences(gen):
@@ -827,6 +854,8 @@ AFF_ATOL, AFF_RTOL = 1e-4, 1e-5  # same bf16 inputs, fp32 sums in another order
     ((37, 300, 20, 9), 128), ((256, 256, 80, 20), 128), ((3, 5, 7, 64), 128),
     ((1, 1, 1, 150), 128),
     ((256, 256, 20, 20), 96), ((11, 13, 40, 40), 96), ((3, 5, 7, 9), 8),  # D not a power of 2
+    ((5, 7, 33, 9), 20), ((3, 4, 17, 24), 44),  # D not a multiple of 8
+    ((256, 256, 20, 20), 1024), ((11, 13, 40, 40), 136), ((37, 300, 10, 9), 300),  # planes
 ])
 def test_affinity_kernels_match_plain_and_each_other(gen, shape, d):
     """Both kernels at shapes the small-N kernel takes: ragged batches (no
@@ -850,13 +879,16 @@ def test_affinity_kernels_match_plain_and_each_other(gen, shape, d):
 
 @pytest.mark.parametrize("shape", [(64, 64, 150, 150), (11, 13, 150, 150), (4, 6, 300, 300),
                                    (7, 3, 150, 20), (256, 256, 150, 150), (3, 5, 450, 450),
-                                   (2, 3, 640, 17), (256, 255, 150, 150)])
-def test_blocked_affinity_kernel_takes_long_sequences(gen, shape):
-    """Up to four query slots a user (N up to 640), and a peer count the
-    slices do not divide (C=255 in two slices of 128 and 127)."""
+                                   (2, 3, 640, 17), (256, 255, 150, 150), (3, 5, 700, 9),
+                                   (2, 3, 1300, 17)])
+@pytest.mark.parametrize("d", [128, 1024])
+def test_blocked_affinity_kernel_takes_long_sequences(gen, shape, d):
+    """Up to four query slots a user (N up to 640) in one block, beyond that
+    KC / 4 blocks a user folding into its outputs, a peer count the slices
+    do not divide (C=255 in two slices of 128 and 127), one plane and eight."""
     b, c, n, m = shape
-    a = torch.randn(b, n, 128, device="cuda", generator=gen)
-    bank = torch.randn(c, m, 128, device="cuda", generator=gen)
+    a = torch.randn(b, n, d, device="cuda", generator=gen)
+    bank = torch.randn(c, m, d, device="cuda", generator=gen)
     torch.testing.assert_close(max_affinity_blocked(a, bank), max_affinity_plain(a, bank),
                                atol=AFF_ATOL, rtol=AFF_RTOL)
 
@@ -885,16 +917,16 @@ def test_affinity_dispatch_and_refusals(gen):
     a81 = torch.randn(2, 81, 128, device="cuda", generator=gen)
     with pytest.raises(ValueError, match="N <= 80"):
         max_affinity_smalln(a81, a20)
-    long = torch.randn(1, 641, 128, device="cuda", generator=gen)
-    with pytest.raises(ValueError, match="N <= 640"):
-        max_affinity_blocked(long, long)
+    long = torch.randn(1, 641, 128, device="cuda", generator=gen)  # eight slots, two blocks
+    torch.testing.assert_close(max_affinity_blocked(long, long), max_affinity_plain(long, long),
+                               atol=AFF_ATOL, rtol=AFF_RTOL)
     odd = torch.randn(2, 4, 44, device="cuda", generator=gen)  # not a multiple of 8
     for fn in (max_affinity_blocked, max_affinity_smalln):
-        with pytest.raises(ValueError, match="D in"):
-            fn(odd, odd)
+        torch.testing.assert_close(fn(odd, odd), max_affinity_plain(odd, odd),
+                                   atol=AFF_ATOL, rtol=AFF_RTOL)
         with pytest.raises(ValueError, match="seq_b on cpu"):
             fn(a20, a20.cpu())
-    assert (max_affinity_blocked.launches, max_affinity_smalln.launches) == (k6 + 1, k7 + 1)
+    assert (max_affinity_blocked.launches, max_affinity_smalln.launches) == (k6 + 3, k7 + 2)
     # the C side refuses a query longer than its limit, and a plan it has no
     # instance for, on its own
     out = torch.empty(2, 4, device="cuda")
@@ -907,12 +939,13 @@ def test_affinity_dispatch_and_refusals(gen):
     from amid_tpu_torch.ops.affinity import smem_bytes_of_the_kernels
     smem_bytes = smem_bytes_of_the_kernels()
     for n, m, d in ((150, 150, 128), (20, 20, 128), (33, 9, 32), (300, 300, 64), (80, 80, 128),
-                    (1, 150, 16), (41, 7, 64)):
+                    (1, 150, 16), (41, 7, 64), (150, 150, 1024), (20, 20, 1024), (700, 9, 136)):
         plans = [blocked_plan(256, 256, n, m, d)] + ([smalln_plan(256, 256, n, m, d)]
-                                                     if n <= 80 else [])
+                                                     if n <= affinity_ops.smalln_max_n(d) else [])
         for plan in plans:
-            assert smem_bytes(plan.width, plan.users, plan.stages, plan.peers) == plan.smem == \
-                affinity_smem_bytes(plan.width, plan.stages, plan.peers, plan.users)
+            assert smem_bytes(plan.width, plan.users, plan.stages, plan.peers,
+                              plan.planes) == plan.smem == affinity_smem_bytes(
+                plan.width, plan.stages, plan.peers, plan.users, plan.planes)
 
 
 # ---------------------------------------------------------------------------

@@ -81,10 +81,11 @@ def test_smalln_plan_at_its_edges():
     """The small-N kernel packs U = 8, 4 or 2 users into a slot of at most
     160 query columns, W = ceil8(N * U): 8 users of 20 rows fill a slot
     exactly, two users of 80 are the last that fit, N = 81 is refused naming
-    the limit; the plan does not depend on D. The dispatch sends every N the
-    small-N kernel takes to it."""
+    the limit; the plan does not depend on D within one 128-column plane
+    (any D from 1 to 128). The dispatch sends every N the small-N kernel
+    takes to it."""
     assert affinity.SMALLN_MAX_N == 80
-    for d in affinity.KERNEL_WIDTHS:
+    for d in (*range(8, 129, 8), 1, 20, 100):
         plan = affinity.smalln_plan(256, 256, 20, 20, d)  # the mybank shape
         assert (plan.width, plan.users, plan.chunks, plan.groups, plan.slices, plan.peers,
                 plan.stages) == (160, 8, 1, 8, 16, 16, 4)
@@ -95,8 +96,9 @@ def test_smalln_plan_at_its_edges():
         assert affinity.smalln_plan(3, 5, 41, 7, d)[:3] == (88, 1, 2)  # 2 users of 44 columns
         with pytest.raises(ValueError, match="N <= 80"):
             affinity.smalln_plan(256, 256, 81, 20, d)
-    with pytest.raises(ValueError, match="D in"):
-        affinity.smalln_plan(4, 4, 20, 20, 100)  # a width the kernels are not built for
+    for d in (0, affinity.MAX_D + 1):  # widths no plane count takes
+        with pytest.raises(ValueError, match="D from 1 to 65536"):
+            affinity.smalln_plan(4, 4, 20, 20, d)
     assert affinity.smalln_faster(1) and affinity.smalln_faster(20)
     assert affinity.smalln_faster(80) and not affinity.smalln_faster(81)
     assert not affinity.smalln_faster(150)  # the amazon shape: blocked kernel
@@ -108,8 +110,8 @@ def test_smalln_plan_at_its_edges():
     assert plan.smem == 4 * 152 * 256 + 4 * 64 * 256 + 4 * 128 * 4 + 9 * 8 == 223304
     assert affinity.blocked_plan(4, 6, 300, 300, 128)[:2] == (152, 2)  # two slots a user
     assert affinity.blocked_plan(1, 1, 640, 1, 128)[:2] == (160, 4)
-    with pytest.raises(ValueError, match="N <= 640"):
-        affinity.blocked_plan(1, 1, 641, 1, 128)
+    # beyond four slots a user: KC a multiple of 4, the user's slots in KC / 4 blocks
+    assert affinity.blocked_plan(1, 1, 641, 1, 128)[:4] == (88, 8, 1, 2)
 
 
 PLAN_SHAPES = [  # B, C, N, M, D
@@ -117,11 +119,15 @@ PLAN_SHAPES = [  # B, C, N, M, D
     (11, 13, 150, 150, 128), (4, 6, 300, 300, 128), (7, 3, 150, 20, 128),
     (5, 7, 33, 9, 32), (3, 4, 17, 24, 16), (1, 1, 1, 1, 128), (9, 5, 40, 48, 64),
     (3, 700, 640, 3, 128), (512, 1000, 161, 7, 64),
+    (256, 256, 150, 150, 1024), (256, 256, 20, 20, 1024), (2, 2, 700, 700, 1024),
+    (256, 256, 700, 150, 128), (5, 7, 33, 9, 20), (9, 5, 40, 48, 136),
 ]
 SMALLN_PLAN_SHAPES = [  # B, C, N, M, D
     (256, 256, 20, 20, 128), (11, 13, 20, 20, 128), (5, 7, 33, 9, 32), (3, 4, 17, 24, 16),
     (9, 5, 40, 48, 64), (1, 1, 1, 1, 128), (37, 300, 20, 9, 128), (256, 256, 80, 20, 128),
     (3, 5, 7, 64, 128), (1, 1, 1, 150, 128), (512, 1000, 80, 80, 64), (256, 256, 41, 41, 128),
+    (256, 256, 20, 20, 1024), (37, 300, 20, 9, 1024), (11, 13, 40, 40, 136),
+    (3, 5, 7, 9, 300), (5, 7, 33, 9, 44),
 ]
 
 
@@ -159,12 +165,12 @@ def _check_grid(plan, c, m):
     assert cost(plan.slices) == best
     assert all(len(_slice_rows(c, m, -(-c // s))) >= plan.slices
                for s in counts if cost(s) == best)
-    w = plan.width
-    assert plan.smem == affinity.affinity_smem_bytes(w, plan.stages, plan.peers, plan.users)
+    w, dc = plan.width, plan.planes
+    assert plan.smem == affinity.affinity_smem_bytes(w, plan.stages, plan.peers, plan.users, dc)
     assert plan.smem <= affinity.SMEM_LIMIT and 2 <= plan.stages <= affinity.MAX_STAGES
-    most = max(t for _, _, t in slices)
+    most = max(t for _, _, t in slices) * dc  # items a block streams: a tile's planes each
     assert (plan.stages == affinity.MAX_STAGES or plan.stages >= most
-            or affinity.affinity_smem_bytes(w, plan.stages + 1, plan.peers, plan.users)
+            or affinity.affinity_smem_bytes(w, plan.stages + 1, plan.peers, plan.users, dc)
             > affinity.SMEM_LIMIT)
 
 
@@ -175,9 +181,12 @@ def test_blocked_plan_against_a_brute_force_count(shape):
     b, c, n, m, d = shape
     plan = affinity.blocked_plan(*shape)
     w, kc = plan.width, plan.chunks
-    assert plan.users == 1
-    assert w % 8 == 0 and w <= affinity.MAX_WIDTH and w == -(-(-(-n // kc)) // 8) * 8
-    assert all(-(-n // k) > affinity.MAX_WIDTH for k in affinity.CHUNKS if k < kc)
+    assert plan.users == 1 and plan.planes == -(-d // 128)
+    wmax = affinity.MAX_WIDTH if d <= 128 else affinity.CHUNKED_MAX_WIDTH
+    assert w % 8 == 0 and w <= wmax and w == -(-(-(-n // kc)) // 8) * 8
+    # the fewest chunks a user among 1, 2 and the multiples of 4
+    assert kc in (1, 2) or kc % 4 == 0
+    assert all(-(-n // k) > wmax for k in (1, 2, *range(4, kc, 4)) if k < kc)
     assert plan.groups * affinity.SLOTS >= b * kc > (plan.groups - 1) * affinity.SLOTS
     # slot s holds chunk s % kc of user s // kc: every (user, row) once
     held = {(s // kc, (s % kc) * w + j) for s in range(b * kc) for j in range(w)
@@ -194,10 +203,11 @@ def test_smalln_plan_against_a_brute_force_count(shape):
     b, c, n, m, d = shape
     plan = affinity.smalln_plan(*shape)
     w, u = plan.width, plan.users
-    assert plan.chunks == 1 and u in affinity.SMALLN_USERS
-    assert w % 8 == 0 and w <= affinity.MAX_WIDTH and w == -(-n * u // 8) * 8
+    wmax = affinity.MAX_WIDTH if d <= 128 else affinity.CHUNKED_MAX_WIDTH
+    assert plan.chunks == 1 and u in affinity.SMALLN_USERS and plan.planes == -(-d // 128)
+    assert w % 8 == 0 and w <= wmax and w == -(-n * u // 8) * 8
     assert w // u >= n  # 8 / U column places in each group of 8, w / 8 groups
-    assert all(-(-n * k // 8) * 8 > affinity.MAX_WIDTH for k in affinity.SMALLN_USERS if k > u)
+    assert all(-(-n * k // 8) * 8 > wmax for k in affinity.SMALLN_USERS if k > u)
     assert plan.groups * affinity.SLOTS * u >= b > (plan.groups - 1) * affinity.SLOTS * u
     _check_grid(plan, c, m)
 
