@@ -29,7 +29,7 @@
 //     and re-split every stage once per owned block, with a transposing
 //     store of K, Q and dO.
 //   * dQ kernel: owns 128 queries (Q and dO land once by bulk copy), streams
-//     K, V (and the bias row) through a ring of kStages stages of kDqRows
+//     K, V (and the bias row) through a ring of kStages stages of dq_rows
 //     keys. dK/dV kernel: owns 128 keys (K, V), streams Q, dO and the
 //     stage's row float4s, kDkdvRows queries a stage. S and dP are computed in both (seven products).
 //   * Two warpgroups of 64 owned rows share each stage; thread 0 issues
@@ -44,6 +44,17 @@
 //     done.
 //   * Each instance is compiled for a bias that broadcasts over queries or
 //     not and for dropout on or off.
+//   * dh = 256 (template width 256, any dh from 129 to 256; the build with
+//     AMID_BF16_WIDE=1, ops/_build.py's VARIANTS, which holds these
+//     instances alone). The dQ kernel keeps its 128 owned queries (Q and dO:
+//     128 KB) and streams stages of 32 keys (32 KB of K and V), three in the
+//     ring: 225 KB. In the dK/dV kernel dK and dV of 64 keys a warpgroup
+//     would take 256 registers a thread, so a block owns 64 keys, which both
+//     warpgroups share (attention_bwd_dkdv_bf16_wide_kernel): warpgroup 0
+//     computes S^T = K Q^T, hands P^T to warpgroup 1 through shared memory
+//     and sums dV += Pd^T dO; warpgroup 1 computes dP^T = V dO^T and sums
+//     dK += dS^T Q; each m64n256, 128 registers a thread. The grid of the
+//     dK/dV kernel has twice the blocks a head, so T's limit is half.
 //   * A head of width dh runs at its template width (attention_common.cuh):
 //     the pre-pass packs it to that width with zero columns, D_i sums its dh
 //     columns, and no gradient column from dh on is written.
@@ -54,19 +65,34 @@
 // written, 0.164 ms at 3.35 TB/s: bound by bytes. This design issues seven
 // products where the function has five, pads T to the 128-row blocks,
 // moves the pre-pass's bytes, and does the per-element exp, hash and
-// products' conversion twice (once a kernel).
+// products' conversion twice (once a kernel). At configuration (d)'s shape
+// (B=256, H=4, dh=256, T=300): 2.4e11 operations, 0.239 ms at the bf16
+// peak, against 2.2 GB of q, k, v, dO read and dq, dk, dv written, 0.657
+// ms: bound by bytes.
 
 #include <string.h>
 
 #include "attention_long_bf16.cuh"
 
+#ifndef AMID_BF16_WIDE
+#define AMID_BF16_WIDE 0
+#endif
+
 namespace {
 
 using namespace amid_bf16;
 
-constexpr int kDqRows = 64;    // streamed keys a stage of the dQ kernel
+constexpr bool kWideBuild = AMID_BF16_WIDE != 0;  // the template width 256 build alone
 constexpr int kDkdvRows = 32;  // streamed queries a stage of the dK/dV kernel
 constexpr int kStages = 3;     // the ring
+constexpr int kWideOwn = 64;   // keys a block of the dh = 256 dK/dV kernel owns
+
+// streamed keys a stage of the dQ kernel: 64, 32 at dh = 256 (three stages
+// beside the owned Q and dO)
+template <int DH>
+__host__ __device__ constexpr int dq_rows() {
+  return DH == 256 ? 32 : 64;
+}
 
 // blocks an SM: registers (at most 128 a thread for two) against latency
 template <int DH>
@@ -80,7 +106,7 @@ __host__ __device__ constexpr int min_blocks_dkdv() {
 
 template <int DH, bool BCAST>
 __host__ __device__ constexpr int dq_stage_bytes() {
-  return 2 * Tiles<DH, kDqRows>::TILE + (BCAST ? kDqRows * 4 : 0);
+  return 2 * Tiles<DH, dq_rows<DH>()>::TILE + (BCAST ? dq_rows<DH>() * 4 : 0);
 }
 
 template <int DH>
@@ -90,12 +116,15 @@ __host__ __device__ constexpr int dkdv_stage_bytes() {
 
 template <int DH, bool BCAST>
 __host__ __device__ constexpr size_t dq_smem() {
-  return 128 + 2 * Tiles<DH, kDqRows>::OWN + kStages * dq_stage_bytes<DH, BCAST>();
+  return 128 + 2 * Tiles<DH, dq_rows<DH>()>::OWN + kStages * dq_stage_bytes<DH, BCAST>();
 }
 
+// the dh = 256 kernel: 64 owned keys' K and V, the two P^T buffers, the ring
 template <int DH>
 __host__ __device__ constexpr size_t dkdv_smem() {
-  return 128 + 2 * Tiles<DH, kDkdvRows>::OWN + kStages * dkdv_stage_bytes<DH>();
+  return DH == 256 ? 128 + 2 * Tiles<DH, kDkdvRows>::WG_OWN + 2 * kDkdvRows / 2 * 128 * 4 +
+                         kStages * dkdv_stage_bytes<DH>()
+                   : 128 + 2 * Tiles<DH, kDkdvRows>::OWN + kStages * dkdv_stage_bytes<DH>();
 }
 
 // The packed operands of one call (the scratch the wrapper allocates).
@@ -108,15 +137,17 @@ struct Packed {
 
 // Each query row's float4 (m_i, 1/l_i, D_i, the row's dropout key
 // mix(mix(mix(K0, seed), bh + row_offset * H), i)) for rows i < T_pad of every (b, h); +inf,
-// 0, 0 past T. One thread a 16-byte chunk of the row's dO and O: DH / 4
-// threads a row, consecutive along it, so a warp reads whole rows (a chunk
-// from column dh on reads zeros; at a dh not a multiple of 4 a chunk is read
-// value by value). D_i is each chunk's four products summed in order, then
-// the chunks' sums added by a butterfly of shuffles: a fixed order, the same
-// bits in every lane.
+// 0, 0 past T. One thread a 16-byte chunk of the row's dO and O (two at
+// dh = 256, 128 columns apart): DH / 4 threads a row (32 at dh = 256),
+// consecutive along it, so a warp reads whole rows (a chunk from column dh
+// on reads zeros; at a dh not a multiple of 4 a chunk is read value by
+// value). D_i is each chunk's four products summed in order (a thread's two
+// chunks added), then the threads' sums added by a butterfly of shuffles: a
+// fixed order, the same bits in every lane.
 template <int DH>
 __global__ void rows_kernel(const BwdParams p, float4* __restrict__ rows, int Tp, long long n) {
-  constexpr int C = DH / 4;  // threads a row
+  constexpr int V = DH > 128 ? 2 : 1;  // chunks a thread
+  constexpr int C = DH / (4 * V);      // threads a row: at most a warp
   const uint32_t seed_key = p.dropout ? mix(kMixKey0, (uint32_t)*p.seed) : 0u;
   const long long total = n * C, span = (long long)gridDim.x * blockDim.x;
   // the bound is the block's, so every lane of a warp reaches the shuffles
@@ -129,25 +160,30 @@ __global__ void rows_kernel(const BwdParams p, float4* __restrict__ rows, int Tp
     const long long b = bh / p.H, h = bh - b * p.H;
     const bool real = e < total && i < p.T;
     float d = 0.f;
-    if (real && 4 * c < p.dh) {
-      const float* gp = p.dout + b * p.g_sb + i * p.g_st + h * p.dh + 4 * c;
-      const float* op = p.out + b * p.o_sb + i * p.o_st + h * p.dh + 4 * c;
-      float4 g, o;
-      if ((p.dh & 3) == 0) {
-        g = __ldg(reinterpret_cast<const float4*>(gp));
-        o = __ldg(reinterpret_cast<const float4*>(op));
-      } else {
-        float gv[4], ov[4];
 #pragma unroll
-        for (int x = 0; x < 4; ++x) {
-          const bool in = 4 * c + x < p.dh;
-          gv[x] = in ? __ldg(gp + x) : 0.f;
-          ov[x] = in ? __ldg(op + x) : 0.f;
+    for (int w = 0; w < V; ++w) {
+      const int col = 4 * (c + w * C);
+      if (real && col < p.dh) {
+        const float* gp = p.dout + b * p.g_sb + i * p.g_st + h * p.dh + col;
+        const float* op = p.out + b * p.o_sb + i * p.o_st + h * p.dh + col;
+        float4 g, o;
+        if ((p.dh & 3) == 0) {
+          g = __ldg(reinterpret_cast<const float4*>(gp));
+          o = __ldg(reinterpret_cast<const float4*>(op));
+        } else {
+          float gv[4], ov[4];
+#pragma unroll
+          for (int x = 0; x < 4; ++x) {
+            const bool in = col + x < p.dh;
+            gv[x] = in ? __ldg(gp + x) : 0.f;
+            ov[x] = in ? __ldg(op + x) : 0.f;
+          }
+          g = make_float4(gv[0], gv[1], gv[2], gv[3]);
+          o = make_float4(ov[0], ov[1], ov[2], ov[3]);
         }
-        g = make_float4(gv[0], gv[1], gv[2], gv[3]);
-        o = make_float4(ov[0], ov[1], ov[2], ov[3]);
+        const float chunk = fmaf(g.w, o.w, fmaf(g.z, o.z, fmaf(g.y, o.y, g.x * o.x)));
+        d = w == 0 ? chunk : d + chunk;
       }
-      d = fmaf(g.w, o.w, fmaf(g.z, o.z, fmaf(g.y, o.y, g.x * o.x)));
     }
 #pragma unroll
     for (int w = C / 2; w >= 1; w >>= 1) d += __shfl_xor_sync(0xffffffffu, d, w);
@@ -165,8 +201,9 @@ __global__ void rows_kernel(const BwdParams p, float4* __restrict__ rows, int Tp
 template <int DH, bool BCAST, bool DROP>
 __global__ void __launch_bounds__(kThreads, min_blocks_dq<DH>())
 attention_bwd_dq_bf16_kernel(const BwdParams p, const Packed pk) {
-  using L = Tiles<DH, kDqRows>;
-  constexpr int NS = kDqRows, DHP = L::DHP;
+  constexpr int NS = dq_rows<DH>();
+  using L = Tiles<DH, NS>;
+  constexpr int DHP = L::DHP;
   constexpr int STAGE = dq_stage_bytes<DH, BCAST>();
   const int T = p.T, dh = p.dh;
 
@@ -504,31 +541,238 @@ attention_bwd_dkdv_bf16_kernel(const BwdParams p, const Packed pk) {
   }
 }
 
+// dh = 256 (header, "dh = 256"): the block owns kWideOwn keys, which both
+// warpgroups share; warpgroup 0 computes S^T = K Q^T, hands P^T (before the
+// dropout) to warpgroup 1 through shared memory and sums dV += Pd^T dO;
+// warpgroup 1 computes dP^T = V dO^T and sums dK += dS^T Q, each over all
+// 256 columns. The two sides run the same code on their own operands: each
+// element's factor is Pd = P (1 kf - 0) on warpgroup 0 and dS = P (dP kf -
+// D) on warpgroup 1, the arithmetic of the other widths' kernel.
+template <bool BCAST, bool DROP>
+__global__ void __launch_bounds__(kThreads, 1)
+attention_bwd_dkdv_bf16_wide_kernel(const BwdParams p, const Packed pk) {
+  constexpr int DH = 256;
+  using L = Tiles<DH, kDkdvRows>;
+  constexpr int NS = kDkdvRows, DHP = L::DHP, HALF = NS / 2;
+  constexpr int STAGE = dkdv_stage_bytes<DH>();
+  const int T = p.T, dh = p.dh;
+
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + kStages;
+  uint64_t* obar = empty + kStages;
+  unsigned char* ks = smem + 128;        // [64][dh_pad] the block's K
+  unsigned char* vs = ks + L::WG_OWN;    // [64][dh_pad] the block's V
+  // [2][HALF][128]: P^T of a stage, warpgroup 0 to 1, in two buffers that
+  // take turns (a thread's values 128 floats apart: no bank conflict)
+  float* xchg = reinterpret_cast<float*>(vs + L::WG_OWN);
+  unsigned char* ring = reinterpret_cast<unsigned char*>(xchg + 2 * HALF * 128);
+
+  const int tid = threadIdx.x;
+  const int bh = blockIdx.x;
+  const int b = bh / p.H;
+  const int h = bh - b * p.H;
+  const int k0 = blockIdx.y * kWideOwn;
+  const size_t head = (size_t)bh * pk.Tp * DHP;
+  const __nv_bfloat16* qp = pk.q + head;
+  const __nv_bfloat16* gp = pk.g + head;
+  const float4* rows = pk.rows + (size_t)bh * pk.Tp;
+  const float* bias_b = p.bias + b * p.bias_sb;
+  const int ns = (T + NS - 1) / NS;
+
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(smem_u32(full + s), 1);
+      mbar_init(smem_u32(empty + s), kThreads);
+    }
+    mbar_init(smem_u32(obar), 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  auto issue = [&](int s) {
+    unsigned char* st = ring + (s % kStages) * STAGE;
+    const uint32_t bar = smem_u32(full + s % kStages);
+    mbar_expect_tx(bar, STAGE);
+    bulk_copy(smem_u32(st), qp + (size_t)s * NS * DHP, L::TILE, bar);
+    bulk_copy(smem_u32(st + L::TILE), gp + (size_t)s * NS * DHP, L::TILE, bar);
+    bulk_copy(smem_u32(st + 2 * L::TILE), rows + s * NS, NS * 16, bar);
+  };
+  if (tid == 0) {
+    mbar_expect_tx(smem_u32(obar), 2 * L::WG_OWN);
+    bulk_copy(smem_u32(ks), pk.k + head + (size_t)k0 * DHP, L::WG_OWN, smem_u32(obar));
+    bulk_copy(smem_u32(vs), pk.v + head + (size_t)k0 * DHP, L::WG_OWN, smem_u32(obar));
+    for (int s = 0; s < kStages && s < ns; ++s) issue(s);
+  }
+
+  const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3, wt = tid & 127;
+  const int rl = warp * 16 + g;  // this thread's key rows rl, rl + 8 of the block
+  const bool sums_dv = wg == 0;  // else dK
+  int j2[2];
+  float bk[2];
+#pragma unroll
+  for (int x = 0; x < 2; ++x) {  // a key past T gets bias -inf (BCAST) and writes nothing
+    const int j = k0 + rl + 8 * x;
+    j2[x] = j;
+    bk[x] = BCAST ? pk.bias[(size_t)(p.bias_sb ? b : 0) * pk.Tp + j] : 0.f;
+  }
+  // A of this warpgroup's scores: K (S^T) or V (dP^T)
+  const uint64_t oa = kmajor_desc<DHP>(sums_dv ? ks : vs);
+
+  float acc[DHP / 2];  // dV (warpgroup 0) or dK (warpgroup 1)
+#pragma unroll
+  for (int x = 0; x < DHP / 2; ++x) acc[x] = 0.f;
+  mbar_wait(smem_u32(obar), 0);
+
+  for (int s = 0; s < ns; ++s) {
+    if (tid == 0 && s > 0 && s - 1 + kStages < ns) {
+      mbar_wait(smem_u32(empty + (s - 1) % kStages), ((s - 1) / kStages) & 1);
+      issue(s - 1 + kStages);
+    }
+    __syncwarp();
+    const int slot = s % kStages;
+    const unsigned char* st = ring + slot * STAGE;
+    const float4* rows_s = reinterpret_cast<const float4*>(st + 2 * L::TILE);
+    const int s0 = s * NS;
+    // B of the scores: the stage's Q (S^T) or dO (dP^T), K-major; B of the
+    // sum: its dO (dV) or Q (dK), MN-major
+    const uint64_t sb = kmajor_desc<DHP>(sums_dv ? st : st + L::TILE);
+    const uint64_t tb = mnmajor_desc<DHP>(sums_dv ? st + L::TILE : st);
+    mbar_wait(smem_u32(full + slot), (s / kStages) & 1);
+
+    // S^T = K Q^T (warpgroup 0) or dP^T = V dO^T (warpgroup 1): keys in
+    // rows, the stage's queries in columns
+    float sa[HALF];
+#pragma unroll
+    for (int x = 0; x < HALF; ++x) sa[x] = 0.f;
+    fence_regs(sa);
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < L::KSTEPS; ++k) mma_ss<NS>(sa, oa + 16 * k, sb + 16 * k);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sa);
+
+    // P^T from warpgroup 0 to the same thread of warpgroup 1: element e of
+    // group j is key rl + 8 (e / 2), query 8 j + 2 t + e % 2 of the stage
+    float* xb = xchg + (s & 1) * HALF * 128;
+    float pt[HALF];
+    if (sums_dv) {
+#pragma unroll
+      for (int j = 0; j < NS / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int x = e >> 1;
+          const int i = s0 + 8 * j + 2 * t4 + (e & 1);
+          const int key = j2[x];
+          const float4 rv = rows_s[8 * j + 2 * t4 + (e & 1)];
+          const float bv =
+              BCAST ? bk[x] : bias_b[min(i, T - 1) * p.bias_si + min(key, T - 1)];
+          pt[4 * j + e] = __expf(fmaf(sa[4 * j + e], p.scale, bv) - rv.x) * rv.y;
+          xb[(4 * j + e) * 128 + wt] = pt[4 * j + e];
+        }
+      }
+    }
+    __syncthreads();  // P^T is written (and the buffer's turn before it read)
+    if (!sums_dv) {
+#pragma unroll
+      for (int x = 0; x < HALF; ++x) pt[x] = xb[x * 128 + wt];
+    }
+
+    // Pd (warpgroup 0) or dS (1) element by element, then the sum, one k16
+    // step (column groups 2 kk, 2 kk + 1) at a time
+    uint32_t af[2][4];
+    fence_regs(acc);
+#pragma unroll
+    for (int kk = 0; kk < L::RSTEPS; ++kk) {
+      float av[8];
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        const int j = 2 * kk + jj;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int x = e >> 1;
+          const float4 rv = rows_s[8 * j + 2 * t4 + (e & 1)];
+          const float dp = sums_dv ? 1.f : sa[4 * j + e];
+          const float dsub = sums_dv ? 0.f : rv.z;
+          float kf = 1.f;
+          if constexpr (DROP)
+            kf = (mix(__float_as_uint(rv.w), (uint32_t)j2[x]) >> 8) >= p.keep_threshold
+                     ? p.inv_keep
+                     : 0.f;
+          av[4 * jj + e] = pt[4 * j + e] * ((DROP ? dp * kf : dp) - dsub);
+        }
+      }
+      const int u = kk & 1;
+      if (kk >= 2) wgmma_wait<1>();  // k-step kk - 2 is done: its buffer is free
+      fence_regs(af[u]);
+      a_frag(av, af[u]);
+      fence_regs(af[u]);
+      wgmma_fence();
+      mma_rs_t<DHP>(acc, af[u], tb + kk * L::RSTEP);
+      wgmma_commit();
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    fence_regs(af[0]);
+    fence_regs(af[1]);
+    mbar_arrive(smem_u32(empty + slot));
+  }
+
+  const long long out_base = (long long)b * T * p.D + h * dh;
+  float* dst = sums_dv ? p.dv : p.dk;
+  const float scale = sums_dv ? 1.f : p.scale;
+#pragma unroll
+  for (int c = 0; c < DH / 8; ++c) {
+    const int col = c * 8 + 2 * t4;
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      const int j = j2[x];
+      if (j < T)
+        store2<DH>(dst + out_base + (long long)j * p.D, col, dh, acc[4 * c + 2 * x] * scale,
+                   acc[4 * c + 2 * x + 1] * scale);
+    }
+  }
+}
+
+// the dK/dV kernel of a head width, and the keys a block of it owns
+template <int DH, bool BCAST, bool DROP>
+constexpr auto dkdv_kernel() {
+  if constexpr (DH == 256)
+    return attention_bwd_dkdv_bf16_wide_kernel<BCAST, DROP>;
+  else
+    return attention_bwd_dkdv_bf16_kernel<DH, BCAST, DROP>;
+}
+template <int DH>
+constexpr int dkdv_own() {
+  return DH == 256 ? kWideOwn : kOwn;
+}
+
 template <int DH, bool BCAST, bool DROP>
 cudaError_t opt_in() {
   cudaError_t e = cudaFuncSetAttribute(attention_bwd_dq_bf16_kernel<DH, BCAST, DROP>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)dq_smem<DH, BCAST>());
   if (e != cudaSuccess) return e;
-  return cudaFuncSetAttribute(attention_bwd_dkdv_bf16_kernel<DH, BCAST, DROP>,
+  return cudaFuncSetAttribute(dkdv_kernel<DH, BCAST, DROP>(),
                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dkdv_smem<DH>());
 }
 
 template <int DH, bool BCAST, bool DROP>
-cudaError_t launch_pair(const BwdParams& p, const Packed& pk, dim3 grid, cudaStream_t stream) {
+cudaError_t launch_pair(const BwdParams& p, const Packed& pk, int bh, cudaStream_t stream) {
   attention_bwd_dq_bf16_kernel<DH, BCAST, DROP>
-      <<<grid, kThreads, dq_smem<DH, BCAST>(), stream>>>(p, pk);
+      <<<dim3(bh, (p.T + kOwn - 1) / kOwn), kThreads, dq_smem<DH, BCAST>(), stream>>>(p, pk);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  attention_bwd_dkdv_bf16_kernel<DH, BCAST, DROP>
-      <<<grid, kThreads, dkdv_smem<DH>(), stream>>>(p, pk);
+  dkdv_kernel<DH, BCAST, DROP>()<<<dim3(bh, (p.T + dkdv_own<DH>() - 1) / dkdv_own<DH>()),
+                                   kThreads, dkdv_smem<DH>(), stream>>>(p, pk);
   return cudaGetLastError();
 }
 
 template <int DH>
 cudaError_t launch(const BwdParams& p, const Packed& pk, int B, cudaStream_t stream) {
   const long long n_rows = (long long)B * p.H * pk.Tp;
-  rows_kernel<DH><<<blocks_for(n_rows * (DH / 4)), 256, 0, stream>>>(
+  rows_kernel<DH><<<blocks_for(n_rows * (DH > 128 ? 32 : DH / 4)), 256, 0, stream>>>(
       p, const_cast<float4*>(pk.rows), pk.Tp, n_rows);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
@@ -543,12 +787,12 @@ cudaError_t launch(const BwdParams& p, const Packed& pk, int B, cudaStream_t str
     return e;
   }();
   if (opted_in != cudaSuccess) return opted_in;
-  const dim3 grid(B * p.H, (p.T + kOwn - 1) / kOwn);
+  const int bh = B * p.H;
   if (p.bias_si == 0)
-    return p.dropout ? launch_pair<DH, true, true>(p, pk, grid, stream)
-                     : launch_pair<DH, true, false>(p, pk, grid, stream);
-  return p.dropout ? launch_pair<DH, false, true>(p, pk, grid, stream)
-                   : launch_pair<DH, false, false>(p, pk, grid, stream);
+    return p.dropout ? launch_pair<DH, true, true>(p, pk, bh, stream)
+                     : launch_pair<DH, true, false>(p, pk, bh, stream);
+  return p.dropout ? launch_pair<DH, false, true>(p, pk, bh, stream)
+                   : launch_pair<DH, false, false>(p, pk, bh, stream);
 }
 
 // The entry point's argument block: the fp32 backward's BwdArgs, then the
@@ -567,7 +811,9 @@ extern "C" {
 // dK/dV kernel. `raw` is one BwdLongArgs block: the tensors as for
 // attention_bwd (attention_bwd.cu), then the scratch: 4 * B * H * T_pad *
 // dh_pad bf16 values (q, k, v, dout; T_pad = T rounded up to 128, dh_pad =
-// dh's template width, at least 16), B * H * T_pad float4s, and, when
+// dh's template width, at least 16: 256 for dh 129 to 256, the widths of the
+// AMID_BF16_WIDE build, which refuses the others, as the other build refuses
+// those; there T is at most 65,535 * 64), B * H * T_pad float4s, and, when
 // bias_si == 0, rows * T_pad floats (rows = B where bias_sb != 0, else 1),
 // 16-byte aligned. Where dh is a multiple of 4, q, k, v, out and dout rows
 // must start on 16 bytes (kMisaligned otherwise). Returns 0, a Refusal, or
@@ -578,8 +824,11 @@ int attention_bwd_long(const void* raw) {
   const BwdArgs& a = la.a;
   if (a.B < 1 || a.T < 1 || a.H < 1 || a.D % a.H != 0) return kBadShape;
   const long long dh = a.D / a.H;
-  if (template_dh((int)dh) == 0) return kBadHeadWidth;
-  if (a.T > 65535LL * kOwn || a.B * a.H > 2147483647LL) return kTooLong;
+  // this build's widths: 1 to 128, or (AMID_BF16_WIDE) 129 to 256
+  if (dh > kMaxLongHeadDim || (long_template_dh((int)dh) == 256) != kWideBuild)
+    return kBadHeadWidth;
+  if (a.T > 65535LL * (kWideBuild ? kWideOwn : kOwn) || a.B * a.H > 2147483647LL)
+    return kTooLong;
   if (!rows_aligned(a.q, a.q_sb, a.q_st, dh) || !rows_aligned(a.k, a.k_sb, a.k_st, dh) ||
       !rows_aligned(a.v, a.v_sb, a.v_st, dh) || !rows_aligned(a.dout, a.g_sb, a.g_st, dh) ||
       !rows_aligned(a.out, a.o_sb, a.o_st, dh) || la.scratch % 16 != 0)
@@ -587,7 +836,7 @@ int attention_bwd_long(const void* raw) {
   const BwdParams p = bwd_params(a);
   cudaStream_t s = ptr<CUstream_st>(a.stream);
   const int Tp = (int)padded_t(a.T);
-  const long long region = a.B * a.H * Tp * padded_dh(template_dh((int)dh));
+  const long long region = a.B * a.H * Tp * padded_dh(long_template_dh((int)dh));
   __nv_bfloat16* packed = ptr<__nv_bfloat16>(la.scratch);
   const float* src[4] = {p.q, p.k, p.v, p.dout};
   const long long sb[4] = {a.q_sb, a.k_sb, a.v_sb, a.g_sb};
@@ -607,6 +856,9 @@ int attention_bwd_long(const void* raw) {
   const Packed pk = {packed, packed + region, packed + 2 * region, packed + 3 * region, rows,
                      a.bias_si == 0 ? bias_rows : nullptr, Tp};
   const int B = (int)a.B;
+#if AMID_BF16_WIDE
+  return (int)launch<256>(p, pk, B, s);
+#else
   switch (template_dh((int)dh)) {
     case 8: return (int)launch<8>(p, pk, B, s);
     case 16: return (int)launch<16>(p, pk, B, s);
@@ -614,6 +866,7 @@ int attention_bwd_long(const void* raw) {
     case 64: return (int)launch<64>(p, pk, B, s);
     default: return (int)launch<128>(p, pk, B, s);
   }
+#endif
 }
 
 }  // extern "C"

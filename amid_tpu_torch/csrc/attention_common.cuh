@@ -36,8 +36,9 @@
 //
 // Head widths. Every kernel is instantiated at the template widths 8, 16,
 // 32, 64 and 128 and takes any dh from 1 to 128 at the smallest template
-// width DH that holds it (template_dh); the fp32 long paths also at 256,
-// for any dh from 129 to 256 (long_template_dh): lanes at or past dh read as zero
+// width DH that holds it (template_dh); the long paths also at 256, for
+// any dh from 129 to 256 (long_template_dh; the bf16 ones in builds of their
+// own with AMID_BF16_WIDE=1): lanes at or past dh read as zero
 // (so they add nothing to Q.K^T, and P.V and the gradients leave zeros
 // there) and are never written; the scale is the caller's 1/sqrt(dh) of
 // the real width; the dropout hash does not see the width. Head h starts at
@@ -67,7 +68,7 @@ constexpr int kMaxWarps = 8;  // warps of one block
 
 // Refusals of the entry points (negative; a positive value is a cudaError_t).
 enum Refusal {
-  kBadHeadWidth = -1,  // dh above kMaxHeadDim (kMaxLongHeadDim on the fp32 long paths)
+  kBadHeadWidth = -1,  // dh above kMaxHeadDim (kMaxLongHeadDim on the long paths), or not the build's
   kBadShape = -2,      // B, T or H below 1, or D not a multiple of H
   kTooLong = -3,       // the block's shared memory is above the card's limit
   kMisaligned = -4,    // a row of q, k, v or dout not on 16 bytes (the long path)
@@ -114,10 +115,10 @@ __host__ __device__ constexpr int template_dh(int dh) {
                                     : 128;
 }
 
-constexpr int kMaxLongHeadDim = 256;  // the fp32 long paths' widest template width
+constexpr int kMaxLongHeadDim = 256;  // the long paths' widest template width
 
-// The template width a head of width dh runs at on the fp32 long paths (0:
-// none, dh above 256)
+// The template width a head of width dh runs at on the long paths, fp32 and
+// bf16 (0: none, dh above 256)
 __host__ __device__ constexpr int long_template_dh(int dh) {
   return dh <= kMaxHeadDim ? template_dh(dh) : dh <= kMaxLongHeadDim ? 256 : 0;
 }

@@ -46,6 +46,13 @@
 //     exponentials; one at dh = 128 (161 KB; the output alone takes 64
 //     registers). The warpgroups of a block pass no turn between them;
 //     each releases a stage on its own.
+//   * dh = 256 (template width 256, any dh from 129 to 256; the build with
+//     AMID_BF16_WIDE=1, ops/_build.py's VARIANTS, which holds these
+//     instances alone so that its nvcc runs beside the others): the owned
+//     Q is 64 KB and a stage of 64 keys' K and V another 64 KB, so the ring
+//     has two stages (193 KB a block, one block an SM); O is one m64n256
+//     accumulator, 128 registers a thread beside S's 32, and O += P V one
+//     m64n256k16 a k-step. The stage stays 64 keys: it is the rounding point.
 //   * A head of width dh runs at its template width (attention_common.cuh):
 //     the pre-pass packs it to that width with zero columns, and no output
 //     column from dh on is written.
@@ -59,18 +66,31 @@
 // 3.35 TB/s: bound by operations. What bounds this design: the
 // per-element work on the CUDA cores (scale and bias, the running max, one
 // exp, the dropout hash and the conversion: 1.5e9 elements at T=1,200), the
-// pre-pass's 0.7 GB, and T padded to the 128-row blocks.
+// pre-pass's 0.7 GB, and T padded to the 128-row blocks. At configuration
+// (d)'s shape (B=256, H=4, dh=256, T=300): 9.4e10 operations, 0.095 ms at
+// the bf16 peak, against 1.26 GB of q, k, v read and o written, 0.376 ms:
+// bound by bytes.
 
 #include <string.h>
 
 #include "attention_long_bf16.cuh"
 
+#ifndef AMID_BF16_WIDE
+#define AMID_BF16_WIDE 0
+#endif
+
 namespace {
 
 using namespace amid_bf16;
 
+constexpr bool kWideBuild = AMID_BF16_WIDE != 0;  // the template width 256 build alone
 constexpr int kStageKeys = 64;  // keys a stage: the online softmax's rounding point
-constexpr int kStages = 4;      // the ring
+
+// stages of the ring: four, two at dh = 256 (a stage's K and V take 64 KB)
+template <int DH>
+__host__ __device__ constexpr int stages() {
+  return DH == 256 ? 2 : 4;
+}
 
 // blocks an SM: two, for one block's products to overlap the other's
 // exponentials, where 128 registers a thread hold the output and the scores
@@ -87,7 +107,7 @@ __host__ __device__ constexpr int stage_bytes() {
 template <int DH, bool BCAST>
 __host__ __device__ constexpr size_t fwd_smem() {
   // the barriers (full and empty a slot, the owned rows'), the owned Q, the ring
-  return 128 + Tiles<DH, kStageKeys>::OWN + kStages * stage_bytes<DH, BCAST>();
+  return 128 + Tiles<DH, kStageKeys>::OWN + stages<DH>() * stage_bytes<DH, BCAST>();
 }
 
 // The packed operands of one call (the scratch the wrapper allocates).
@@ -103,7 +123,7 @@ __global__ void __launch_bounds__(kThreads, min_blocks<DH>())
 attention_fwd_long_bf16_kernel(const FwdParams p, const Packed pk) {
   using L = Tiles<DH, kStageKeys>;
   constexpr int NS = kStageKeys, DHP = L::DHP, JS = NS / 8;
-  constexpr int STAGE = stage_bytes<DH, BCAST>();
+  constexpr int STAGE = stage_bytes<DH, BCAST>(), kStages = stages<DH>();
   const int T = p.T, dh = p.dh;
 
   extern __shared__ __align__(128) unsigned char smem[];
@@ -346,7 +366,7 @@ struct FwdLongArgs {
 // The scratch: packed q, k, v ([B, H, T_pad, dh_pad] bf16 each), then, for a
 // bias that broadcasts over queries, its rows padded to T_pad (fp32).
 long long region_elems(long long B, long long T, long long H, long long dh) {
-  return B * H * padded_t(T) * padded_dh(template_dh((int)dh));
+  return B * H * padded_t(T) * padded_dh(long_template_dh((int)dh));
 }
 
 }  // namespace
@@ -357,7 +377,9 @@ extern "C" {
 // broadcasts over queries) and the kernel. `raw` is one FwdLongArgs block:
 // the tensors as for attention_fwd_long (attention_fwd_long.cu), then the
 // scratch, 3 * B * H * T_pad * dh_pad bf16 values (T_pad = T rounded up to
-// 128, dh_pad = dh's template width, at least 16) and, when bias_si == 0,
+// 128, dh_pad = dh's template width, at least 16: 256 for dh 129 to 256, the
+// widths of the AMID_BF16_WIDE build, which refuses the others, as the other
+// build refuses those) and, when bias_si == 0,
 // rows * T_pad floats (rows = B where bias_sb != 0, else 1), 16-byte
 // aligned. Where dh is a multiple of 4, q, k and v rows must start on 16
 // bytes (kMisaligned otherwise). Returns 0, a Refusal, or the first failing
@@ -368,7 +390,9 @@ int attention_fwd_long(const void* raw) {
   const FwdArgs& a = la.a;
   if (a.B < 1 || a.T < 1 || a.H < 1 || a.D % a.H != 0) return kBadShape;
   const long long dh = a.D / a.H;
-  if (template_dh((int)dh) == 0) return kBadHeadWidth;
+  // this build's widths: 1 to 128, or (AMID_BF16_WIDE) 129 to 256
+  if (dh > kMaxLongHeadDim || (long_template_dh((int)dh) == 256) != kWideBuild)
+    return kBadHeadWidth;
   if (a.T > 65535LL * kOwn || a.B * a.H > 2147483647LL) return kTooLong;
   if (!rows_aligned(a.q, a.q_sb, a.q_st, dh) || !rows_aligned(a.k, a.k_sb, a.k_st, dh) ||
       !rows_aligned(a.v, a.v_sb, a.v_st, dh) || la.scratch % 16 != 0)
@@ -394,6 +418,9 @@ int attention_fwd_long(const void* raw) {
   const Packed pk = {packed, packed + region, packed + 2 * region,
                      a.bias_si == 0 ? bias_rows : nullptr, Tp};
   const int B = (int)a.B;
+#if AMID_BF16_WIDE
+  return (int)launch<256>(p, pk, B, s);
+#else
   switch (template_dh((int)dh)) {
     case 8: return (int)launch<8>(p, pk, B, s);
     case 16: return (int)launch<16>(p, pk, B, s);
@@ -401,6 +428,7 @@ int attention_fwd_long(const void* raw) {
     case 64: return (int)launch<64>(p, pk, B, s);
     default: return (int)launch<128>(p, pk, B, s);
   }
+#endif
 }
 
 }  // extern "C"

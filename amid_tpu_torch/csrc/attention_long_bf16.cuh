@@ -9,8 +9,9 @@
 // swizzle: core matrices of 8 rows x 8 columns (16 bytes a row, 128 bytes
 // contiguous), core matrix (r / 8, c / 8) at byte ((r / 8) * CB + c / 8) * 128
 // of its head, CB = dh_pad / 8. T_pad is T rounded up to kPadRows (rows past T
-// zero), dh_pad is dh's template width (attention_common.cuh), or 16 at
-// dh <= 8 (a k16 step reads 16 columns); the padding columns are zero. So
+// zero), dh_pad is dh's template width on the long paths (attention_common.cuh,
+// long_template_dh: 256 for dh 129 to 256), or 16 at dh <= 8 (a k16 step
+// reads 16 columns); the padding columns are zero. So
 // any run of rows of one head, a streamed stage or a block's owned rows, is
 // one contiguous block, landed by one cp.async.bulk.
 //
@@ -96,12 +97,20 @@ __device__ __forceinline__ void a_frag(const float (&v)[8], uint32_t (&a)[4]) {
   BFL_L32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, " \
           "%47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "   \
           "%62, %63"
+#define BFL_L128 BFL_L64 ", " \
+  "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, " \
+  "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, " \
+  "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, " \
+  "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
 #define BFL_R(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
 #define BFL_O8 BFL_R(0), BFL_R(4)
 #define BFL_O16 BFL_O8, BFL_R(8), BFL_R(12)
 #define BFL_O32 BFL_O16, BFL_R(16), BFL_R(20), BFL_R(24), BFL_R(28)
 #define BFL_O64 BFL_O32, BFL_R(32), BFL_R(36), BFL_R(40), BFL_R(44), BFL_R(48), BFL_R(52), \
                 BFL_R(56), BFL_R(60)
+#define BFL_O128 BFL_O64, BFL_R(64), BFL_R(68), BFL_R(72), BFL_R(76), BFL_R(80), BFL_R(84), \
+                 BFL_R(88), BFL_R(92), BFL_R(96), BFL_R(100), BFL_R(104), BFL_R(108),      \
+                 BFL_R(112), BFL_R(116), BFL_R(120), BFL_R(124)
 
 template <int N>
 __device__ __forceinline__ void mma_ss(float (&d)[N / 2], uint64_t a, uint64_t b);
@@ -125,6 +134,18 @@ __device__ __forceinline__ void mma_ss<32>(float (&d)[16], uint64_t a, uint64_t 
       "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
       : BFL_O16
       : "l"(a), "l"(b), "r"(1));
+}
+// m64n256k16: the output of a head of template width 256 (the dh = 256
+// builds, attention_*_long_bf16.cu with AMID_BF16_WIDE=1), 128 registers a thread
+template <>
+__device__ __forceinline__ void mma_rs_t<256>(float (&d)[128], const uint32_t (&a)[4],
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {" BFL_L128
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : BFL_O128
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 template <>
 __device__ __forceinline__ void mma_rs_t<128>(float (&d)[64], const uint32_t (&a)[4],
@@ -256,7 +277,7 @@ inline void launch_pack(const float* const* src, const long long* sb, const long
   a.Tp = (int)padded_t(T);
   a.H = H;
   a.dh = dh;
-  a.dhp = padded_dh(template_dh(dh));
+  a.dhp = padded_dh(long_template_dh(dh));
   a.region = B * H * a.Tp * (long long)a.dhp;
   dim3 grid = blocks_for(a.region / 8);
   grid.y = nsrc;

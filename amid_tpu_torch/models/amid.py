@@ -202,54 +202,39 @@ def check_kernels_fit(cfg: ModelConfig) -> None:
     """Raises, before any forward, if a kernel of a kernels='cuda' model of
     `cfg` cannot take a shape the model hands it, naming the limit and
     `--kernels torch`:
-    * K1 (attention; not GRU4Rec): a head width above the fp32 long paths'
-      256 (`ops.attention.MAX_LONG_HEAD_DIM`; every width up to it runs at a
-      template width), above 128 in the bf16 mode (`MAX_HEAD_DIM`), or the
-      longest attention call (the encoder at L, or at 2L on C2DSR's views)
-      beyond the long forward's or backward's limit at that width
-      (`long_forward_max_t`, `long_backward_max_t_at`; the one-head kernels
-      hand longer or wider shapes to the long paths);
+    * K1 (attention; not GRU4Rec): a head width above the long paths' 256
+      (`ops.attention.MAX_LONG_HEAD_DIM`, in fp32 and bf16; every width up
+      to it runs at a template width), or the longest attention call (the
+      encoder at L, or at 2L on C2DSR's views) beyond the long forward's or
+      backward's limit at that width (`long_forward_max_t`,
+      `long_backward_max_t_at`; the one-head kernels hand longer or wider
+      shapes to the long paths);
     * K6/K7 (the pairwise affinity, with a comp and
       `comp_broadcast_quirk=False`): a row wider than `ops.affinity.MAX_D`
-      (any N and any narrower D run);
-    * K5 (the scoring head): D not a multiple of 4, or Wi^T with 16 columns
-      of a candidate tile, or the user half's Wu^T, beyond a block's shared
-      memory (`ops.scoring.scoring_smem_bytes`, `user_half_smem_bytes`).
+      (any N and any narrower D run).
+    K5 (the scoring head) takes every D and H (`ops.scoring.scoring_kernel`).
     Binds the attention kernels."""
     from amid_tpu_torch.ops import affinity as affinity_ops
-    from amid_tpu_torch.ops import scoring as scoring_ops
     from amid_tpu_torch.ops.attention import (
-        MAX_HEAD_DIM, MAX_LONG_HEAD_DIM, kernel_head_dim, long_backward_max_t_at,
-        long_forward_max_t, long_head_dim,
+        MAX_LONG_HEAD_DIM, long_backward_max_t_at, long_forward_max_t, long_head_dim,
     )
 
     way_out = "so kernels='cuda' cannot run it (--kernels torch, kernels='torch', can)"
     dh = head_width(cfg)
     if dh is not None:
-        bf16 = resolve_precision(cfg) == "bf16"
-        widest = MAX_HEAD_DIM if bf16 else MAX_LONG_HEAD_DIM
-        width_ok = (kernel_head_dim if bf16 else long_head_dim)(dh) is not None
         t = cfg.enc_seq_len
         limit = min(long_forward_max_t(), long_backward_max_t_at(dh))
-        if not width_ok or t > limit:
+        if long_head_dim(dh) is None or t > limit:
             parts = [name for name, on in (("InnerComp", cfg.is_inc), ("InterComp", cfg.is_itc),
                                            ("C2DSR", cfg.is_c2dsr)) if on]
             raise ValueError(
                 f"{cfg.backbone} at seq_len={cfg.seq_len} with {', '.join(parts) or 'no comp'} "
                 f"attends over T={t} at head width dh={dh}; the attention kernels take head "
-                f"widths 1 to {widest}{' in the bf16 mode' if bf16 else ''} and T<={limit}, "
-                f"{way_out}")
+                f"widths 1 to {MAX_LONG_HEAD_DIM} (fp32 and bf16) and T<={limit}, {way_out}")
     d = cfg.emb_dim
     if (cfg.is_inc or cfg.is_itc) and not cfg.comp_broadcast_quirk and d > affinity_ops.MAX_D:
         raise ValueError(f"the pairwise affinity at --emb_dim {d}: the affinity kernels take "
                          f"D from 1 to {affinity_ops.MAX_D}, {way_out}")
-    smem = max(scoring_ops.scoring_smem_bytes(d, cfg.hid_dim),
-               scoring_ops.user_half_smem_bytes(d, cfg.hid_dim))
-    if d % 4 or smem > scoring_ops.SMEM_LIMIT:
-        raise ValueError(
-            f"the scoring head at --emb_dim {d}, --hid_dim {cfg.hid_dim}: the kernel takes D a "
-            f"multiple of 4 and {scoring_ops.SMEM_LIMIT} bytes of shared memory a block "
-            f"(this shape needs {smem}), {way_out}")
 
 
 def resolve_device(device=None) -> torch.device:

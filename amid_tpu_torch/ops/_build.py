@@ -12,7 +12,11 @@ library of its own: the fp32 long attention paths' builds for padded head
 widths (`attention_fwd_long_pad`, `attention_bwd_long_pad`,
 `-DAMID_ATTN_PAD=1`), whose instances read dh at run time, so that the
 other build keeps each template width's own code and the second set of
-instances compiles beside the first instead of after it. The bf16 mode of
+instances compiles beside the first instead of after it; and the bf16 long
+attention paths' builds at template width 256
+(`attention_fwd_long_bf16_dh256`, `attention_bwd_long_bf16_dh256`,
+`-DAMID_BF16_WIDE=1`), whose instances alone take dh 129 to 256, so that
+their `nvcc` runs beside the other widths' instead of adding to it. The bf16 mode of
 the attention kernels has sources of its own, built as any other source:
 the one-head pair (`csrc/attention_fwd_bf16.cu`, `csrc/attention_bwd_bf16.cu`:
 `mma.sync` k16 bf16) and the long paths (`csrc/attention_fwd_long_bf16.cu`,
@@ -62,9 +66,14 @@ SMEM_LIMIT = 232448  # bytes of shared memory one block may use on sm_90 (227 KB
 
 # library name -> (the source it compiles, extra nvcc flags): the fp32 long
 # attention paths' builds for head widths below their template width
-# (csrc/attention_common.cuh)
-VARIANTS = {f"{n}_pad": (n, ("-DAMID_ATTN_PAD=1",)) for n in (
-    "attention_fwd_long", "attention_bwd_long")}
+# (csrc/attention_common.cuh), and the bf16 long paths' builds at template
+# width 256
+VARIANTS = {
+    **{f"{n}_pad": (n, ("-DAMID_ATTN_PAD=1",)) for n in (
+        "attention_fwd_long", "attention_bwd_long")},
+    **{f"{n}_bf16_dh256": (f"{n}_bf16", ("-DAMID_BF16_WIDE=1",)) for n in (
+        "attention_fwd_long", "attention_bwd_long")},
+}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 

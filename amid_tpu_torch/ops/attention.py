@@ -70,11 +70,13 @@ attention probabilities and scales the kept ones by 1/(1 - rate).
   (128), each at the smallest of KERNEL_HEAD_DIMS that holds it
   (`kernel_head_dim`; csrc/attention_common.cuh): columns from dh on are
   zero inside the kernel and never written, so a padded width computes the
-  function of its own width, the scale 1/sqrt(dh) included. The fp32 long
-  paths also take dh from 129 to MAX_LONG_HEAD_DIM (256) at template width
-  256 (`long_head_dim`), and both routes send such a head there at every T
-  in fp32; the one-head kernels and the bf16 mode refuse it. A wider head
-  is refused (`head_width_refusal`, naming `--kernels torch`). The routes read
+  function of its own width, the scale 1/sqrt(dh) included. The long paths
+  of both modes also take dh from 129 to MAX_LONG_HEAD_DIM (256) at
+  template width 256 (`long_head_dim`), and both routes send such a head
+  there at every T; the one-head kernels refuse it. The bf16 long paths'
+  instances at that width are builds of their own (`<source>_dh256`,
+  `-DAMID_BF16_WIDE=1`), bound beside the others. A wider head is refused
+  (`head_width_refusal`, naming `--kernels torch`). The routes read
   a padded width's entries under its template width, and the long paths
   copy q, k, v (and dout) 16 bytes at a time only at widths that are a
   multiple of 4 (`_rows_aligned`), 4 bytes at a time at the others. A
@@ -82,7 +84,8 @@ attention probabilities and scales the kept ones by 1/(1 - rate).
   one-head kernels' exact instances; the fp32 long paths' libraries as
   they are), a padded width instances that read it at run time (the
   one-head kernels' PAD instances; the fp32 long paths' `_pad` builds,
-  `_pad_entry`), so that the template widths keep their code.
+  chosen with the others in `_entry_point`), so that the template widths
+  keep their code.
 
 The dropout `seed` is a Python int or a one-element int64 tensor on the
 inputs' device (what a training step draws, `ops.rng.StepRandom.
@@ -149,7 +152,7 @@ _MIX_KEY0 = 0x9E3779B9
 # it, its columns from dh on zero in the kernel and never written
 KERNEL_HEAD_DIMS = (8, 16, 32, 64, 128)
 MAX_HEAD_DIM = KERNEL_HEAD_DIMS[-1]
-# the fp32 long paths' widths: also 256, for any dh from 129 to 256
+# the long paths' widths, in both modes: also 256, for any dh from 129 to 256
 LONG_HEAD_DIMS = KERNEL_HEAD_DIMS + (256,)
 MAX_LONG_HEAD_DIM = LONG_HEAD_DIMS[-1]
 
@@ -162,21 +165,17 @@ def kernel_head_dim(dh: int):
 
 
 def long_head_dim(dh: int):
-    """The template width a head of width `dh` runs at on the fp32 long
-    paths; None above MAX_LONG_HEAD_DIM."""
+    """The template width a head of width `dh` runs at on the long paths
+    (fp32 and bf16); None above MAX_LONG_HEAD_DIM."""
     return next((w for w in LONG_HEAD_DIMS if dh <= w), None) if dh >= 1 else None
 
 
-def head_width_refusal(dh: int, mode: str = "fp32") -> str:
-    """Why the kernels of `mode` refuse heads of width `dh`, naming the way
-    out."""
-    if mode == "bf16" and dh <= MAX_LONG_HEAD_DIM:
-        return (f"the attention kernels' bf16 mode takes head widths 1 to {MAX_HEAD_DIM} "
-                f"(fp32 1 to {MAX_LONG_HEAD_DIM}); got dh={dh} (--kernels torch, "
-                f"kernels='torch', computes any width)")
+def head_width_refusal(dh: int) -> str:
+    """Why the kernels refuse heads of width `dh` (in either mode), naming
+    the way out."""
     return (f"the attention kernels take head widths 1 to {MAX_LONG_HEAD_DIM} "
-            f"(above {MAX_HEAD_DIM} on the fp32 long paths only); got dh={dh} "
-            f"(--kernels torch, kernels='torch', computes any width)")
+            f"(above {MAX_HEAD_DIM} on the long paths only), in fp32 and bf16; got "
+            f"dh={dh} (--kernels torch, kernels='torch', computes any width)")
 
 
 def check_bias(bias: torch.Tensor, bsz: int, t: int) -> None:
@@ -463,12 +462,13 @@ _SMALL_SCRATCH = -5  # the fp32 long forward's scratch below its bytes
 _SOURCES = ["attention_fwd", "attention_fwd_long", "attention_bwd", "attention_bwd_long"]
 _PADDED = ["attention_fwd_long", "attention_bwd_long"]  # fp32 builds of their own for padded dh
 # the bf16 mode's sources (csrc/<name>_bf16.cu: each exports its fp32
-# counterpart's entry points), and the padded-width builds
-_LIBRARIES = _SOURCES + [f"{n}_bf16" for n in _SOURCES] + [f"{n}_pad" for n in _PADDED]
+# counterpart's entry points), the padded-width builds and the bf16 long
+# paths' builds at template width 256 (ops/_build.py's VARIANTS): library ->
+# its source, whose entry point it exports
+_LIBRARIES = {**{n: n for n in _SOURCES}, **{f"{n}_bf16": n for n in _SOURCES},
+              **{f"{n}_pad": n for n in _PADDED}, **{f"{n}_bf16_dh256": n for n in _PADDED}}
 
-_fwd = _fwd_long = _bwd = _bwd_long = None  # bound entry points, resolved at the first launch
-_bf16_entry: dict = {}  # entry point name -> the bf16 source's, bound with the others
-_pad_entry: dict = {}  # entry point name -> the padded-width build's (fp32 long paths)
+_entry: dict = {}  # library of _LIBRARIES -> its entry point, bound at the first launch
 # the fp32 long forward's scratch bytes, of each build: True the padded-width one's
 _fwd_long_scratch: dict = {}
 # mode -> the one-head forward's and the one-sweep backward's shared-memory
@@ -481,9 +481,9 @@ _bwd_fits: dict = {}  # (T, dh, mode) -> whether the one-sweep backward kernel t
 
 
 def _bind() -> None:
-    global _fwd, _fwd_long, _bwd, _bwd_long, _long_max_t, _fwd_long_max_t
+    global _long_max_t, _fwd_long_max_t
     i = ctypes.c_int
-    _build.build(_LIBRARIES)  # one nvcc each, all at once
+    _build.build(list(_LIBRARIES))  # one nvcc each, all at once
     fwd, fwd_long, bwd, bwd_long = (_build.load(n) for n in _SOURCES)
     for mode, (f, b) in (("fp32", (fwd, bwd)), ("bf16", (_build.load("attention_fwd_bf16"),
                                                          _build.load("attention_bwd_bf16")))):
@@ -492,19 +492,24 @@ def _bind() -> None:
         _fwd_max_t[mode] = {dh: _largest_t(_fwd_smem[mode], dh) for dh in KERNEL_HEAD_DIMS}
     _long_max_t = _build.bind(bwd_long.attention_bwd_long_max_t, [])()
     _fwd_long_max_t = _build.bind(fwd_long.attention_fwd_long_max_t, [])()
-    _fwd = _build.bind(fwd.attention_fwd, [ctypes.c_char_p])
-    _fwd_long = _build.bind(fwd_long.attention_fwd_long, [ctypes.c_char_p])
-    _bwd = _build.bind(bwd.attention_bwd, [ctypes.c_char_p])
-    _bwd_long = _build.bind(bwd_long.attention_bwd_long, [ctypes.c_char_p])
-    for name in _SOURCES:
-        _bf16_entry[name] = _build.bind(getattr(_build.load(f"{name}_bf16"), name),
-                                        [ctypes.c_char_p])
-    for name in _PADDED:
-        _pad_entry[name] = _build.bind(getattr(_build.load(f"{name}_pad"), name),
-                                       [ctypes.c_char_p])
     for padded, lib in ((False, fwd_long), (True, _build.load("attention_fwd_long_pad"))):
         _fwd_long_scratch[padded] = _build.bind(lib.attention_fwd_long_scratch,
                                                 [ctypes.c_char_p], ctypes.c_longlong)
+    # last, and whole: a bound table means every other table is too
+    _entry.update({lib: _build.bind(getattr(_build.load(lib), name), [ctypes.c_char_p])
+                   for lib, name in _LIBRARIES.items()})
+
+
+def _entry_point(name: str, bf16: bool, dh: int):
+    """The bound entry point of source `name` (of _SOURCES) for mode `bf16`
+    at head width `dh`: the long paths' own builds at a padded fp32 width
+    and at a bf16 width above MAX_HEAD_DIM (binds the kernels)."""
+    if not _entry:
+        _bind()
+    lib = f"{name}_bf16" if bf16 else name
+    if name in _PADDED and (dh > MAX_HEAD_DIM if bf16 else long_head_dim(dh) != dh):
+        lib = f"{name}_bf16_dh256" if bf16 else f"{name}_pad"
+    return _entry[lib]
 
 
 def _largest_t(smem_bytes, dh: int) -> int:
@@ -526,10 +531,9 @@ def _too_long(name: str, smem_bytes, t: int, dh: int) -> ValueError:
         f"block; the limit is {SMEM_LIMIT} (largest T at this head width: {largest})")
 
 
-def _raise(err: int, name: str, smem_bytes, t: int, d: int, heads: int, mode: str = "fp32"):
+def _raise(err: int, name: str, smem_bytes, t: int, d: int, heads: int):
     if err == _BAD_HEAD_WIDTH:
-        raise ValueError(f"{name}: {head_width_refusal(d // heads, mode)} (D={d}, "
-                         f"heads={heads})")
+        raise ValueError(f"{name}: {head_width_refusal(d // heads)} (D={d}, heads={heads})")
     if err == _TOO_LONG:
         raise _too_long(name, smem_bytes, t, d // heads)
     if err == _BAD_SHAPE:
@@ -549,21 +553,21 @@ def forward_max_t(dh: int, mode: str = "fp32") -> int:
     SMEM_LIMIT: fp32 tiles in the fp32 mode, bf16 ones in the bf16 mode),
     found once per mode and template width when the kernels are bound,
     since every forward launch routes by it."""
-    if _fwd is None:
+    if not _entry:
         _bind()
     return _fwd_max_t[mode].get(kernel_head_dim(dh), 0)
 
 
 def long_backward_max_t() -> int:
     """The longest T the long-sequence backward takes (binds the kernels)."""
-    if _bwd_long is None:
+    if not _entry:
         _bind()
     return _long_max_t
 
 
 def long_forward_max_t() -> int:
     """The longest T the long-sequence forward takes (binds the kernels)."""
-    if _fwd_long is None:
+    if not _entry:
         _bind()
     return _fwd_long_max_t
 
@@ -602,8 +606,8 @@ MODES = ("fp32", "bf16")  # the kernels' modes: fp32 (3xTF32), bf16 operands (`m
 # and 0.970, causal 0.990 and 0.994). Below it, and at the head widths not
 # swept (8, 64), shapes stay on the one-head kernel as long as it holds them
 # (`forward_max_t`). A head wider than 128 (dh 129 to 256, template width
-# 256) has no one-head kernel: it takes the fp32 long forward at every T
-# (`forward_route`), and the bf16 mode refuses it.
+# 256) has no one-head kernel: it takes the long forward of its mode at
+# every T (`forward_route`).
 LONG_FWD_FASTER_FROM = {"fp32": {16: 300, 32: 300, 128: 40},
                         "bf16": {16: 1200, 32: 800, 128: 80}}
 
@@ -643,7 +647,7 @@ def forward_route(t: int, dh: int, mode: str = "fp32") -> str:
 # longest T (key padding 0.892 and 0.898, causal 0.781 and 0.778; at 96 key
 # padding 0.957 and 0.960). Below it, and wherever the one-sweep kernel was
 # the faster, shapes stay on that kernel. A head wider than 128 (dh 129 to
-# 256) takes the fp32 long path at every T (`backward_route`).
+# 256) takes the long path of its mode at every T (`backward_route`).
 LONG_FASTER_FROM = {"fp32": {8: 512, 16: 368, 32: 150, 64: 150, 128: 48},
                     "bf16": {8: 200, 16: 512, 32: 256, 64: 150, 128: 128}}
 
@@ -662,7 +666,7 @@ def sweep_fits(t: int, dh: int, mode: str = "fp32") -> bool:
     and mode (binds them)."""
     fits = _bwd_fits.get((t, dh, mode))
     if fits is None:
-        if _bwd is None:
+        if not _entry:
             _bind()
         fits = _bwd_fits[(t, dh, mode)] = _bwd_smem[mode](t, dh) <= SMEM_LIMIT
     return fits
@@ -679,24 +683,25 @@ def backward_route(t: int, dh: int, mode: str = "fp32") -> str:
 
 
 def long_backward_max_t_at(dh: int) -> int:
-    """The longest T the long backward takes at head width `dh`: its blocks
-    own 128 rows up to dh=128 and 64 above (the grid's 65,535 of them)."""
+    """The longest T the long backward takes at head width `dh`, in either
+    mode: its blocks own 128 rows up to dh=128 and 64 above (the fp32 pair's
+    blocks, the bf16 dK/dV kernel's; the grid's 65,535 of them)."""
     limit = long_backward_max_t()
     return limit if dh <= MAX_HEAD_DIM else limit // 2
 
 
-def check_head_width(dh: int, mode: str = "fp32") -> None:
-    """Raises naming `--kernels torch` if no kernel of `mode` takes heads of
-    width `dh`: above MAX_LONG_HEAD_DIM in fp32, above MAX_HEAD_DIM in bf16."""
-    if (long_head_dim if mode == "fp32" else kernel_head_dim)(dh) is None:
-        raise ValueError(head_width_refusal(dh, mode))
+def check_head_width(dh: int) -> None:
+    """Raises naming `--kernels torch` if no kernel takes heads of width
+    `dh`: above MAX_LONG_HEAD_DIM, in either mode."""
+    if long_head_dim(dh) is None:
+        raise ValueError(head_width_refusal(dh))
 
 
-def _check_backward_fits(t: int, dh: int, mode: str = "fp32") -> None:
+def _check_backward_fits(t: int, dh: int) -> None:
     """Raises now if no backward path takes (T, dh), not in the middle of a
-    backward pass: a head width no kernel of `mode` takes, or a T beyond the
-    long path's."""
-    check_head_width(dh, mode)
+    backward pass: a head width no kernel takes, or a T beyond the long
+    path's."""
+    check_head_width(dh)
     if t > long_backward_max_t_at(dh):
         raise ValueError(f"attention backward: T={t} is beyond the long-sequence path's "
                          f"limit of T={long_backward_max_t_at(dh)} at dh={dh}")
@@ -768,10 +773,10 @@ def _launch_forward(q, k, v, bias, seed, heads: int, rate: float, stats: bool, p
     checked CUDA tensors; the statistics are written (and returned) only with
     `stats`; `bf16`: the bf16-operand kernels; `row_offset`: the dropout mask's
     global row of row 0."""
-    if _fwd is None:
+    if not _entry:
         _bind()
     bsz, t, d = q.shape
-    check_head_width(d // heads, "bf16" if bf16 else "fp32")
+    check_head_width(d // heads)
     if path is None:
         path = forward_route(t, d // heads, "bf16" if bf16 else "fp32")
     if path == "long":
@@ -781,7 +786,7 @@ def _launch_forward(q, k, v, bias, seed, heads: int, rate: float, stats: bool, p
         raise ValueError(f"the forward path is 'sweep' or 'long'; got {path!r}")
     block, outs, _seed_alive = _pack_forward(q, k, v, bias, seed, heads, rate, stats,
                                              row_offset)
-    err = (_bf16_entry["attention_fwd"] if bf16 else _fwd)(block)
+    err = _entry_point("attention_fwd", bf16, d // heads)(block)
     if err:
         _raise(err, "attention_fwd", _fwd_smem["bf16" if bf16 else "fp32"], t, d, heads)
     if bf16:
@@ -800,7 +805,7 @@ def _launch_forward_long(q, k, v, bias, seed, heads: int, rate: float, stats: bo
     from the caching allocator first (so a CUDA graph's capture keeps it):
     the fp32 kernel K and V split into TF32 halves and the bias, as many
     bytes as its `attention_fwd_long_scratch` asks."""
-    if _fwd_long is None:
+    if not _entry:
         _bind()
     bsz, t, d = q.shape
     q, k, v = (x if _rows_aligned(x, d // heads) else x.contiguous() for x in (q, k, v))
@@ -808,7 +813,8 @@ def _launch_forward_long(q, k, v, bias, seed, heads: int, rate: float, stats: bo
                                              row_offset)
     if bf16:  # the native bf16 path: the packed operands' scratch after the block
         scratch = _long_bf16_scratch(q, bias, heads, 3, 0)
-        err = _bf16_entry["attention_fwd_long"](block + _PACK_PTR(scratch.data_ptr()))
+        err = _entry_point("attention_fwd_long", True, d // heads)(
+            block + _PACK_PTR(scratch.data_ptr()))
     else:  # a padded width: its own build
         padded = long_head_dim(d // heads) != d // heads
         nbytes = _fwd_long_scratch[padded](block)
@@ -816,14 +822,13 @@ def _launch_forward_long(q, k, v, bias, seed, heads: int, rate: float, stats: bo
             err = nbytes
         else:
             scratch = torch.empty(nbytes, dtype=torch.uint8, device=q.device)
-            entry = _pad_entry["attention_fwd_long"] if padded else _fwd_long
-            err = entry(block + _PACK_SCRATCH(scratch.data_ptr(), nbytes))
+            err = _entry_point("attention_fwd_long", False, d // heads)(
+                block + _PACK_SCRATCH(scratch.data_ptr(), nbytes))
     if err == _TOO_LONG:
         raise ValueError(f"attention_fwd_long: T={t} is beyond its limit of "
                          f"T={_fwd_long_max_t} (or B*heads*ceil(T / 128) beyond 2^31 - 1)")
     if err:
-        _raise(err, "attention_fwd_long", _fwd_smem["bf16" if bf16 else "fp32"], t, d, heads,
-               "bf16" if bf16 else "fp32")
+        _raise(err, "attention_fwd_long", _fwd_smem["bf16" if bf16 else "fp32"], t, d, heads)
     if bf16:
         fused_attention.long_forward_bf16_launches += 1
     else:
@@ -837,10 +842,10 @@ def _launch_backward(q, k, v, bias, out, row_max, row_inv_sum, dout,
     """(dq, dk, dv) from one launch of the backward path `path` ('sweep' or
     'long'; None: `backward_route`'s) on checked CUDA tensors; `bf16`: the
     bf16-operand kernels; `row_offset` as in `_launch_forward`."""
-    if _bwd is None:
+    if not _entry:
         _bind()
     bsz, t, d = q.shape
-    check_head_width(d // heads, "bf16" if bf16 else "fp32")
+    check_head_width(d // heads)
     dev = q.device
     if dout.stride(-1) != 1:
         dout = dout.contiguous()
@@ -871,18 +876,16 @@ def _launch_backward(q, k, v, bias, out, row_max, row_inv_sum, dout,
     if path == "long":
         if bf16:  # the native bf16 path: packed q, k, v, dout, the rows' float4s
             scratch = _long_bf16_scratch(q, bias, heads, 4, 16)
-            err = _bf16_entry["attention_bwd_long"](_PACK_BWD_LONG(*args, scratch.data_ptr()))
-        else:  # D_i, from the dQ kernel to the dK/dV kernel; a padded width's own build
-            dsum = q.new_empty((bsz, heads, t))
-            entry = _bwd_long if long_head_dim(d // heads) == d // heads else _pad_entry[
-                "attention_bwd_long"]
-            err = entry(_PACK_BWD_LONG(*args, dsum.data_ptr()))
+        else:  # D_i, from the dQ kernel to the dK/dV kernel
+            scratch = q.new_empty((bsz, heads, t))
+        err = _entry_point("attention_bwd_long", bf16, d // heads)(
+            _PACK_BWD_LONG(*args, scratch.data_ptr()))
         if err == _TOO_LONG:
             raise ValueError(f"attention_bwd_long: T={t} is beyond its limit of "
-                             f"T={_long_max_t} (or B*heads beyond 2^31 - 1)")
+                             f"T={long_backward_max_t_at(d // heads)} at dh={d // heads} "
+                             f"(or B*heads beyond 2^31 - 1)")
         if err:
-            _raise(err, "attention_bwd_long", _bwd_smem["bf16" if bf16 else "fp32"], t, d,
-                   heads, "bf16" if bf16 else "fp32")
+            _raise(err, "attention_bwd_long", _bwd_smem["bf16" if bf16 else "fp32"], t, d, heads)
         if bf16:
             fused_attention.long_backward_bf16_launches += 1
         else:
@@ -890,7 +893,7 @@ def _launch_backward(q, k, v, bias, out, row_max, row_inv_sum, dout,
         return dq, dk, dv
     if path != "sweep":
         raise ValueError(f"the backward path is 'sweep' or 'long'; got {path!r}")
-    err = (_bf16_entry["attention_bwd"] if bf16 else _bwd)(_PACK_BWD(*args))
+    err = _entry_point("attention_bwd", bf16, d // heads)(_PACK_BWD(*args))
     if err:
         _raise(err, "attention_bwd", _bwd_smem["bf16" if bf16 else "fp32"], t, d, heads)
     if bf16:
@@ -921,9 +924,10 @@ LONG_BF16_PAD_ROWS = 128  # kPadRows: a packed head's T_pad is T rounded up to i
 
 def bf16_packed_shape(t: int, dh: int) -> tuple[int, int]:
     """(T_pad, dh_pad) of a packed head: T rounded up to LONG_BF16_PAD_ROWS,
-    dh's template width (`kernel_head_dim`), at least 16 (a k16 step reads
-    16 columns): a whole number of k16 steps at every width."""
-    return -(-t // LONG_BF16_PAD_ROWS) * LONG_BF16_PAD_ROWS, max(kernel_head_dim(dh), 16)
+    dh's template width on the long paths (`long_head_dim`: 256 for dh 129
+    to 256), at least 16 (a k16 step reads 16 columns): a whole number of
+    k16 steps at every width."""
+    return -(-t // LONG_BF16_PAD_ROWS) * LONG_BF16_PAD_ROWS, max(long_head_dim(dh), 16)
 
 
 def pack_bf16_plain(x: torch.Tensor, heads: int) -> torch.Tensor:
@@ -1035,7 +1039,7 @@ def fused_attention(
         return attention_plain(q, k, v, bias, seed, heads, rate, mxu_bf16, row_offset)
     _check_inputs(q, k, v, bias, heads, rate)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        _check_backward_fits(q.shape[1], q.shape[2] // heads, "bf16" if mxu_bf16 else "fp32")
+        _check_backward_fits(q.shape[1], q.shape[2] // heads)
         return _FusedAttention.apply(q, k, v, bias, seed, heads, rate, mxu_bf16, row_offset)
     return _launch_forward(q, k, v, bias, seed, heads, rate, False, bf16=mxu_bf16,
                            row_offset=row_offset)[0]

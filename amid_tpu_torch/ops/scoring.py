@@ -15,6 +15,10 @@ The forward is the kernel of `csrc/scoring_head.cu`, which never builds the
 `[B, C, H]` hidden tensor; `scoring_head_pair` scores both user
 representations in one launch and computes the item half `items W_i^T` once
 for both (what `models/heads.py::PredictHead` calls: one launch per head).
+Any D and H: `scoring_kernel` names the main kernel a shape takes (the
+whole-tile kernel, the column-chunked one beside a whole Wi^T, or the wide
+one, which also stages Wi^T in chunks of 256 rows and 32 units), and
+`scoring_plan` its grid and shared memory.
 The backward is plain PyTorch that recomputes the hidden layer (the TPU
 package has no backward kernel here either); it is the transcription of
 `pallas_scoring.py::_bwd` to torch's `[out, in]` weights, with the item half
@@ -50,6 +54,9 @@ from amid_tpu_torch.ops._build import SMEM_LIMIT
 from amid_tpu_torch.ops.precision import bf16_round, einsum, linear, matmul
 
 TILE_ROWS = 64  # candidates a block takes at a time (csrc/scoring_head.cu)
+PASS_UNITS = 32  # hidden units a pass of the main kernels (kPass)
+WIDE_COLS = 256  # columns of D a chunk of the wide kernel (kWideCols)
+USER_ROWS, USER_UNITS = 128, 128  # the wide user half's chunk: columns of D, units
 SM_COUNT = 132  # the H100 SXM's
 _SM_SHARED = 233472  # shared memory of one SM, bytes; 1 KB of it is reserved per block
 
@@ -145,44 +152,71 @@ def _smem_with(d: int, h: int, kw: int) -> int:
     return 4 * (d8 * (h8 + 4) + h8 + (max(tile, parts) if h8 <= 32 else tile + parts))
 
 
+_WIDE_SMEM = 4 * (TILE_ROWS * (WIDE_COLS + 4) + WIDE_COLS * (PASS_UNITS + 4) + PASS_UNITS)
+
+
+def scoring_kernel(d: int, h: int) -> str:
+    """The main kernel that takes (D, H) (csrc/scoring_head.cu,
+    `main_kernel`): 'whole' (Wi^T and a whole candidate tile in shared
+    memory: D up to 576 at H=32) or 'chunked' (Wi^T whole beside tiles
+    staged in column chunks: D up to 1,376 at H=32, 704 at H=64), both at D
+    a multiple of 4; 'wide' at every other shape (Wi^T staged in chunks
+    too, and 4-byte copies at a D not a multiple of 4)."""
+    if d % 4:
+        return "wide"
+    if _smem_with(d, h, -(-d // 8) * 8) <= SMEM_LIMIT:
+        return "whole"
+    return "chunked" if _smem_with(d, h, 16) <= SMEM_LIMIT else "wide"
+
+
 def tile_cols(d: int, h: int) -> int:
     """The columns of a staged candidate tile (csrc/scoring_head.cu,
-    `tile_cols`): the whole row, ceil8(D), where it fits beside Wi^T, else
-    the widest multiple of 16 that does (the column-chunked kernel: 320 at
-    D=1024, H=32), else ceil8(D) again (refused: Wi^T itself does not fit)."""
-    d8 = -(-d // 8) * 8
-    if _smem_with(d, h, d8) <= SMEM_LIMIT:
-        return d8
-    return next((kw for kw in range((d8 - 1) // 16 * 16, 15, -16)
-                 if _smem_with(d, h, kw) <= SMEM_LIMIT), d8)
+    `tile_cols`): the whole row, ceil8(D), on the whole-tile kernel; the
+    widest multiple of 16 that fits beside Wi^T on the chunked one (320 at
+    D=1024, H=32); WIDE_COLS on the wide one."""
+    kernel = scoring_kernel(d, h)
+    if kernel == "whole":
+        return -(-d // 8) * 8
+    if kernel == "wide":
+        return WIDE_COLS
+    return next(kw for kw in range((-(-d // 8) * 8 - 1) // 16 * 16, 15, -16)
+                if _smem_with(d, h, kw) <= SMEM_LIMIT)
 
 
 def scoring_smem_bytes(d: int, h: int) -> int:
-    """Shared memory of one block of the main kernel: Wi transposed
-    ([ceil8(D)][ceil8(H) + 4] floats), w2, a candidate tile of `tile_cols`
-    columns at a row pitch of that + 4 floats and the four warps' parts of
-    the item product ([4][64][33]), the parts in the tile's place when one
-    pass of 32 units covers H."""
+    """Shared memory of one block of the main kernel. The whole-tile and
+    chunked kernels: Wi transposed ([ceil8(D)][ceil8(H) + 4] floats), w2, a
+    candidate tile of `tile_cols` columns at a row pitch of that + 4 floats
+    and the four warps' parts of the item product ([4][64][33]), the parts
+    in the tile's place when one pass of 32 units covers H. The wide kernel,
+    at every D and H: a chunk of the tile (the parts in its place), the
+    chunk's rows of Wi^T for a pass ([WIDE_COLS][PASS_UNITS + 4]) and the
+    pass's w2, 103,552 bytes."""
+    if scoring_kernel(d, h) == "wide":
+        return _WIDE_SMEM
     return _smem_with(d, h, tile_cols(d, h))
+
+
+def _user_half_whole(d: int, h: int) -> bool:
+    return d % 4 == 0 and 4 * d * (-(-h // 8) * 8 + 1 + 4) <= SMEM_LIMIT
 
 
 def user_half_smem_bytes(d: int, h: int) -> int:
     """Shared memory of one block of the user-half kernel: Wu transposed,
-    [D][ceil8(H) + 1] floats, and a user row for each of its 4 warps."""
-    return 4 * d * (-(-h // 8) * 8 + 1 + 4)
+    [D][ceil8(H) + 1] floats, and a user row for each of its 4 warps, where
+    that fits and D is a multiple of 4; else its wide form's chunk,
+    [USER_ROWS][USER_UNITS + 1] floats and 4 rows of USER_ROWS."""
+    if _user_half_whole(d, h):
+        return 4 * d * (-(-h // 8) * 8 + 1 + 4)
+    return 4 * USER_ROWS * (USER_UNITS + 1 + 4)
 
 
 @functools.lru_cache(maxsize=512)
 def scoring_plan(b: int, c: int, d: int, h: int) -> ScoringPlan:
     """Blocks of contiguous tile ranges: as many blocks as fit on the card at
     once (SM_COUNT SMs, each as many as its shared memory holds), the tiles
-    spread evenly over them. Raises naming the limit where a block does not
-    fit."""
+    spread evenly over them. Every (D, H) has one (`scoring_kernel`)."""
     smem = scoring_smem_bytes(d, h)
-    if max(smem, user_half_smem_bytes(d, h)) > SMEM_LIMIT:
-        raise ValueError(f"scoring_head: D={d}, H={h} needs "
-                         f"{max(smem, user_half_smem_bytes(d, h))} bytes of shared memory "
-                         f"per block; the limit is {SMEM_LIMIT}")
     tiles = -(-b * c // TILE_ROWS)
     per_sm = max(1, _SM_SHARED // (smem + 1024))
     tpb = -(-tiles // min(tiles, SM_COUNT * per_sm)) if tiles else 1
@@ -223,14 +257,13 @@ def _launch(users, items, w_user, w_item, b1, w2, b2, bf16=False):
         _bind()
     bsz, c, d = items.shape
     h = b1.shape[0]
-    if d & 3:
-        raise ValueError(f"scoring_head: the kernel takes D a multiple of 4; got D={d}")
     n = len(users)
     plan = scoring_plan(bsz, c, d, h)
     # copies stay referenced until the launch is in the stream; the item rows
-    # are copied 16 bytes at a time, the rest is read by element
+    # are copied 16 bytes at a time (4 at a D not a multiple of 4), the rest
+    # is read by element
     ist, iptr = items.stride(), items.data_ptr()
-    if ist[2] != 1 or (ist[0] | ist[1]) & 3 or iptr & 15:
+    if ist[2] != 1 or (d % 4 == 0 and ((ist[0] | ist[1]) & 3 or iptr & 15)):
         items = items.contiguous()
         ist, iptr = items.stride(), items.data_ptr()
     user0, st0 = _unit(users[0])

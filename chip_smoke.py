@@ -234,9 +234,10 @@ code and no result line):
    padding, rates 0 and 0.1, B=256, against their plain versions (fp32:
    `kernel_plain`'s tolerances, the row statistics at LONG_STATS_ATOL, the
    backward at `bwd_atol`; bf16: BF16_LIMITS of the path's existing case,
-   the fp32 build outside it), each timed (device_ms, host_us, SDPA, the
-   bound) (both paths' device time at dh=128, the routes' dh=128 entries,
-   is `width_crossover_sweeps`, run by `tools/route_sweeps.py`); then
+   the fp32 build outside it), each timed but the rate-0.1 cases at dh 24
+   and 48 (device_ms, host_us, SDPA, the bound) (both paths' device time
+   at dh=128, the routes' dh=128 entries, is `width_crossover_sweeps`, run
+   by `tools/route_sweeps.py`); then
    configuration (a), BERT4Rec at
    `--emb_dim 512` (4 heads of 128) and `--seq_len 150` (encoder T=300: both
    long paths at dh=128), dense Adam: serving (feature pass and top-100),
@@ -251,18 +252,25 @@ code and no result line):
    `wide_config_phase`): K1's fp32 long forward and backward at head width
    256 (B=256, 4 heads, T=300, key padding and causal, rates 0 and 0.1)
    against their plain versions at dh=128's tolerances (the backward also
-   against fp64), K6/K7 at D 20, 136 and
+   against fp64), and its bf16 long pair at the same inputs against its
+   plain versions and fp64 oracles (BF16_LIMITS), K6/K7 at D 20, 136 and
    1,024 and N=M 20 and 150 and K6 at N=700 (several blocks a user), K5's
-   column-chunked kernel at D=1,024, each timed with its bound, the plain
-   version's and the library call's time; then configuration (c), BERT4Rec
-   at `--emb_dim 1024` (4 heads of 256) and `--seq_len 150` with InterComp
-   in pairwise mode: serving (the feature pass against `kernels='torch'`,
-   top-100), `run_seed` on the fast loops at T=150 dense and T=20 lazy with
-   their launches (the long K1 pair at dh=256, K6 and K7 at D=1,024), the
-   step-level checks against `kernels='torch'` and the replayed phase A's
-   time and peak memory; and configuration (a) in pairwise mode
-   (`--emb_dim 512 --comp_broadcast_quirk False`): replayed phase-A steps
-   through K6 at D=512.
+   column-chunked kernel at D=1,024 and its wide kernel at (D, H) of
+   (1,024, 64) in both modes, (2,048, 32) and (1,026, 32), each timed with
+   its bound, the plain version's and the library call's time; then
+   configuration (c), BERT4Rec at `--emb_dim 1024` (4 heads of 256) and
+   `--seq_len 150` with InterComp in pairwise mode: serving (the feature
+   pass against `kernels='torch'`, top-100), `run_seed` on the fast loops
+   at T=150 dense and T=20 lazy with their launches (the long K1 pair at
+   dh=256, K6 and K7 at D=1,024), the step-level checks against
+   `kernels='torch'` and the replayed phase A's time and peak memory;
+   configuration (d), (c) under `--bf16` with `--hid_dim 64` at T=150
+   dense (the bf16 long K1 pair at dh=256, K5's wide kernel): serving,
+   `run_seed` with its launches, the step check against `kernels='torch'`
+   and replayed steps bit-equal to eager ones (its replayed phase A's time
+   with STEP_TIMING, `tools/step_timings.py wide_config`); and configuration
+   (a) in pairwise mode (`--emb_dim 512 --comp_broadcast_quirk False`):
+   replayed phase-A steps through K6 at D=512.
 
 It prints a JSON line of per-kernel numbers, the total wall time, the
 `nvidia-smi` name and power line, and last `{"ok": true, "device": {...}}`.
@@ -449,6 +457,18 @@ BF16_LIMITS = {
     # 700.00 W), rounded up
     "bf16_long_native": (1.2e-4, 1e-2, 2e-4),
     "bf16_bwd_long_native": (4e-4, 3e-4, 4e-4),
+    # phase 13's bf16 long pair at template width 256 (B=256, h=4, T=300, key
+    # padding and causal, rates 0 and 0.1) and K5's wide kernel in bf16
+    # (D=1,024, H=64, C=1000 and 2): 4x the largest reading, rounded up, over
+    # the draws of `tools/wide_bf16_draws.py` (3 a case) and phase 13's (1)
+    # and, for K5, 6 more of the same arithmetic; forward 4.8e-5 / 2.3e-3 /
+    # 5.0e-5, backward 7.6e-5 / 2.5e-5 / 7.6e-5, K5 C=1000 1.0e-5 / 3.0e-5 /
+    # 3.0e-5, C=2 1.9e-5 / 5.4e-5 / 5.4e-5; the fp32 builds 2.7e-3, 4.2e-3,
+    # 5.4e-4 and 9.2e-4 at the least (NVIDIA H100 80GB HBM3, 700.00 W)
+    "bf16_long_dh256": (2e-4, 1e-2, 2e-4),
+    "bf16_bwd_long_dh256": (3.1e-4, 1.1e-4, 3.1e-4),
+    "bf16_scoring_wide_C1000": (5e-5, 1.2e-4, 1.2e-4),
+    "bf16_scoring_wide_C2": (8e-5, 2.2e-4, 2.2e-4),
 }
 # a bf16 step, kernels='cuda' against kernels='torch' (`bf16_step_check`):
 # losses 2.0e-5 apart at most (T=150 pairwise), held at 5x. The forward
@@ -1597,33 +1617,38 @@ def as_plain_reference(ref):
     return ref
 
 
+def gated_pass(model, batch):
+    """`serve.user_representations` of `model` on `batch` and the inputs of
+    its InterComp modules (GATED), by name."""
+    from amid_tpu_torch.serve import user_representations
+
+    inputs = {}
+    hooks = [getattr(model, name).register_forward_hook(
+        lambda mod, args, out, name=name: inputs.__setitem__(name, args)) for name in GATED]
+    feats = user_representations(model, batch)
+    for h in hooks:
+        h.remove()
+    return feats, inputs
+
+
+def gates(model, inputs):
+    """The InterComp gate decisions of `model` at the inputs `gated_pass` saw."""
+    return {n: getattr(model, n).message.gate(*a) for n, a in inputs.items()}
+
+
 def feature_check(torch, model, ref, batch, label):
     """Runs the feature pass on both models and compares InterComp gates
     first and then the features, twice: at the configured threshold, and at
     one chosen so that gates really open and close. Returns the kernel
     model's features and its first pass's launch counts."""
     from amid_tpu_torch.ops.affinity import max_affinity_xla
-    from amid_tpu_torch.serve import user_representations
-
-    def run(m):
-        inputs = {}
-        hooks = [getattr(m, name).register_forward_hook(
-            lambda mod, args, out, name=name: inputs.__setitem__(name, args))
-            for name in GATED]
-        feats = user_representations(m, batch)
-        for h in hooks:
-            h.remove()
-        return feats, inputs
-
-    def gates(m, inputs):
-        return {n: getattr(m, n).message.gate(*a) for n, a in inputs.items()}
 
     def compare(tag):
         reset_counts()
-        feats, inputs = run(model)
+        feats, inputs = gated_pass(model, batch)
         torch.cuda.synchronize()
         counts = read_counts()
-        ref_feats, ref_inputs = run(ref)
+        ref_feats, ref_inputs = gated_pass(ref, batch)
         got, want = gates(model, inputs), gates(ref, ref_inputs)
         shares = {}
         for name in got:
@@ -1694,12 +1719,13 @@ def dense_topk(torch, u, table, head, k):
 def serve_check(torch, cfg, batch, label, topk=False):
     """One serving configuration on the card: `serve.user_representations`
     of a kernels='cuda' model against a kernels='torch' model from the same
-    weights (`feature_check`; in pairwise mode the plain model's affinity is
-    `max_affinity_plain`), its launches, and with `topk`
+    weights (`feature_check`; under `--bf16` `bf16_feature_check`; in
+    pairwise mode the plain model's affinity is `max_affinity_plain`), its
+    launches, and with `topk`
     `serve.full_catalog_topk` at k=100 for both domains over the whole
     table against a dense oracle for 8 users."""
     from amid_tpu_torch.models.amid import build_model
-    from amid_tpu_torch.serve import full_catalog_topk, user_representations
+    from amid_tpu_torch.serve import user_representations
 
     model = build_model(cfg, seed=0)  # default device: cuda
     require(model.cfg.kernels == "cuda", f"kernels resolved to {model.cfg.kernels}")
@@ -1708,37 +1734,80 @@ def serve_check(torch, cfg, batch, label, topk=False):
     if not cfg.comp_broadcast_quirk:
         as_plain_reference(ref)
     batch = {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
-    (u_d1, u_d2), counts = feature_check(torch, model, ref, batch, label)
+    if cfg.use_bf16:
+        (u_d1, u_d2), counts, gaps = bf16_feature_check(torch, model, ref, batch, label)
+    else:
+        ((u_d1, u_d2), counts), gaps = feature_check(torch, model, ref, batch, label), {}
     want = expected_launches(model.cfg, feature_passes=1)
     require(counts == want, f"{label}: feature pass launches {counts}, want {want}")
     rec = {"backbone": cfg.backbone, "T": cfg.seq_len, "pairwise": not cfg.comp_broadcast_quirk,
-           "launches": counts,
+           "launches": counts, **gaps,
            "feature_ms": cuda_ms(torch, lambda: user_representations(model, batch), 10)}
     if topk:
-        table = model.item_embedding.detach()
-        head = model.predict.state_dict()
-        k = 100
-        for dom, u in (("d1", u_d1), ("d2", u_d2)):
-            scores, ids = full_catalog_topk(u, table, head, k=k)
-            require(tuple(scores.shape) == (cfg.batch_size, k), f"{label} {dom}: top-k shape")
-            require(torch.isfinite(scores).all().item(), f"{label} {dom}: non-finite top-k")
-            require(bool((ids >= 0).all() and (ids < table.shape[0]).all()),
-                    f"{label} {dom}: item id out of range")
-            dense, want_k = dense_topk(torch, u[:8], table, head, k)
-            require(torch.allclose(scores[:8], want_k, rtol=TOPK_RTOL, atol=TOPK_ATOL),
-                    f"{label} {dom}: top-k scores differ from the dense oracle")
-            # ids may differ from the oracle's only where scores tie
-            require(torch.allclose(torch.gather(dense, 1, ids[:8]), want_k,
-                                   rtol=TOPK_RTOL, atol=TOPK_ATOL),
-                    f"{label} {dom}: top-k ids are not the dense oracle's")
-        rec["catalog_rows"] = table.shape[0]
-        rec["catalog_ms_per_domain"] = cuda_ms(
-            torch, lambda: full_catalog_topk(u_d1, table, head, k=k), 5)
-        rec["topk_vs_dense_oracle"] = "match (8 users, both domains)"
+        rec.update(topk_check(torch, model, (u_d1, u_d2), label))
     emit({"main_path": {"config": label, **rec}})
     del model, ref
     torch.cuda.empty_cache()
     return rec
+
+
+def topk_check(torch, model, feats, label):
+    """`serve.full_catalog_topk` at k=100 for both domains' features over the
+    whole table against a dense oracle for 8 users, and its time."""
+    from amid_tpu_torch.serve import full_catalog_topk
+
+    table = model.item_embedding.detach()
+    head = model.predict.state_dict()
+    k = 100
+    for dom, u in zip(("d1", "d2"), feats):
+        scores, ids = full_catalog_topk(u, table, head, k=k)
+        require(tuple(scores.shape) == (model.cfg.batch_size, k), f"{label} {dom}: top-k shape")
+        require(torch.isfinite(scores).all().item(), f"{label} {dom}: non-finite top-k")
+        require(bool((ids >= 0).all() and (ids < table.shape[0]).all()),
+                f"{label} {dom}: item id out of range")
+        dense, want_k = dense_topk(torch, u[:8], table, head, k)
+        require(torch.allclose(scores[:8], want_k, rtol=TOPK_RTOL, atol=TOPK_ATOL),
+                f"{label} {dom}: top-k scores differ from the dense oracle")
+        # ids may differ from the oracle's only where scores tie
+        require(torch.allclose(torch.gather(dense, 1, ids[:8]), want_k,
+                               rtol=TOPK_RTOL, atol=TOPK_ATOL),
+                f"{label} {dom}: top-k ids are not the dense oracle's")
+    return {"catalog_rows": table.shape[0],
+            "catalog_ms_per_domain": cuda_ms(
+                torch, lambda: full_catalog_topk(feats[0], table, head, k=k), 5),
+            "topk_vs_dense_oracle": "match (8 users, both domains)"}
+
+
+def bf16_feature_check(torch, model, ref, batch, label):
+    """The feature pass of a `--bf16` kernels='cuda' model against a
+    kernels='torch' bf16 model from the same weights: the kernels round where
+    the plain version does not, so at BF16_FEATURE_TOL of the features'
+    largest value, over the users whose InterComp gates agree (the gates
+    that differ are counted). Returns the kernel model's features, its
+    launch counts and the comparison's record."""
+    n_users, width = model.cfg.batch_size, model.cfg.emb_dim
+    with torch.no_grad():
+        reset_counts()
+        feats, inputs = gated_pass(model, batch)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        ref_feats, ref_inputs = gated_pass(ref, batch)
+        got, want = gates(model, inputs), gates(ref, ref_inputs)
+    # a user whose gate decisions all agree in both modules
+    agree = torch.ones(n_users, dtype=torch.bool, device="cuda")
+    for n in GATED:
+        agree &= (got[n] == want[n]).reshape(n_users, -1).all(dim=1)
+    scale = max(r.abs().max().item() for r in ref_feats)
+    gap = max((f[agree] - r[agree]).abs().max().item() for f, r in zip(feats, ref_feats))
+    for f in feats:
+        require(tuple(f.shape) == (n_users, width) and torch.isfinite(f).all().item(),
+                f"{label}: feature shape {tuple(f.shape)} or non-finite features")
+    require(int(agree.sum()) > 0 and gap <= BF16_FEATURE_TOL * scale,
+            f"{label}: bf16 features {gap} from plain's (largest {scale}) over "
+            f"{int(agree.sum())} users")
+    return feats, counts, {
+        "feature_gap": gap, "feature_scale": scale, "users_gates_agree": int(agree.sum()),
+        "gates_differing": {n: int((got[n] != want[n]).sum()) for n in GATED}}
 
 
 def main_path_phase(torch, rng):
@@ -1932,14 +2001,16 @@ def graph_checks(torch, cfg, tcfg, train_ds, val_ds, dr_ds, label, exact=False,
                  evaluate=True):
     """The fast loops' graphs against eager steps: GRAPH_STEPS steps of phase
     A, then of phase B, through a resident chunk runner (the first eager, the
-    second captured and replayed, then replays) against the same steps of a
-    second kernels='cuda' model taken eagerly from the same state, batches
-    and keys; then (with `evaluate`) two evaluation passes over the val
-    batches (graph replays) against the eval step batch by batch, on one
-    model. Losses within LOSS_TOL (`losses_agree`), moments within
+    second captured and replayed, then replays), then (with `evaluate`) two
+    evaluation passes over the val batches (graph replays) against the eval
+    step batch by batch, on that model; then the same steps of a second
+    kernels='cuda' model taken eagerly from the same state, batches and
+    keys. Losses within LOSS_TOL (`losses_agree`), moments within
     MOMENT_TOL of their largest value; with `exact`, losses and moments
     bit-equal (every sum of a dense step runs in a fixed order, the gather's
-    backward included)."""
+    backward included). The replayed model is freed, but for the moments
+    compared, before the eager one is built: at configuration (d)'s width
+    two models and a captured step do not fit the card together."""
     from amid_tpu_torch.ops.rng import fold_in
     from amid_tpu_torch.train import steps
     from amid_tpu_torch.train.graphs import GraphPool
@@ -1947,41 +2018,31 @@ def graph_checks(torch, cfg, tcfg, train_ds, val_ds, dr_ds, label, exact=False,
 
     bs = cfg.batch_size
     is_lazy = tcfg.lazy_table_adam
+    dense_name = DENSE_PARAM[cfg.backbone]
     t0 = time.perf_counter()
-    _, est, ea, eb, _ = make_steps(cfg, tcfg, "cuda")
     gmodel, gst, ga, gb, geval = make_steps(cfg, tcfg, "cuda")
     pool = GraphPool("cuda")
     rec = {"config": label}
+    replayed = []  # per phase: its data, each step's losses, the moments after it
     try:
-        for phase, slot, ds, estep, gstep in (("A", 1, train_ds, ea, ga),
-                                              ("B", 2, dr_ds, eb, gb)):
+        for phase, slot, ds, gstep in (("A", 1, train_ds, ga), ("B", 2, dr_ds, gb)):
             arrays = _resident(ds.batch_arrays(), "cuda")
             pools = _device_pools(ds, "cuda")
             order = np.random.default_rng(slot).permutation(len(ds))[:GRAPH_STEPS * bs]
             perm = torch.as_tensor(order.astype(np.int32), device="cuda")
             runner = steps.make_resident_chunk_runner(gstep, bs, pool)
-            diffs = []
+            losses = []
             for i in range(GRAPH_STEPS):
                 _, m0, nf = runner(gst, arrays, perm, *pools, 77, range(i, i + 1),
                                    range(i, i + 1))
-                batch = {k: v.index_select(0, perm[i * bs:(i + 1) * bs])
-                         for k, v in arrays.items()}
-                _, m = estep(est, batch, *pools, fold_in(77, i))
                 require(float(nf) == 0.0, f"{label} graph phase {phase}: non-finite flag")
-                diffs.append(max(abs(float(v) - float(m[k])) for k, v in m0.items()))
-                require(all(losses_agree(k, float(v), m) for k, v in m0.items())
-                        and not (exact and diffs[-1] > 0.0),
-                        f"{label} graph phase {phase} step {i}: replayed vs eager {m0} {m}")
-            dense_name = DENSE_PARAM[cfg.backbone]
-            rels = {k: rel_to_max(v, moments_of(est, slot, is_lazy, dense_name)[k])
-                    for k, v in moments_of(gst, slot, is_lazy, dense_name).items()}
-            require(max(rels.values()) <= (0.0 if exact else MOMENT_TOL),
-                    f"{label} graph phase {phase}: moments differ from eager: {rels}")
+                losses.append({k: float(v) for k, v in m0.items()})
             graph = pool.graphs[-1]
             require(graph.replays == GRAPH_STEPS - 1,
                     f"{label} graph phase {phase}: {graph.replays} replays")
-            rec[f"phase_{phase}"] = {"loss_diff": diffs, "moment_rel_err": rels,
-                                     "replays": graph.replays,
+            moments = moments_of(gst, slot, is_lazy, dense_name)
+            replayed.append((phase, slot, ds, order, losses, moments))
+            rec[f"phase_{phase}"] = {"replays": graph.replays,
                                      "launches_per_replay": graph.captured}
         if evaluate:
             vpools = _device_pools(val_ds, "cuda")
@@ -2005,6 +2066,26 @@ def graph_checks(torch, cfg, tcfg, train_ds, val_ds, dr_ds, label, exact=False,
                            "replays": pool.graphs[-1].replays}
     finally:
         pool.close()
+    del gmodel, gst, ga, gb, geval
+    torch.cuda.empty_cache()
+    _, est, ea, eb, _ = make_steps(cfg, tcfg, "cuda")
+    for (phase, slot, ds, order, losses, moments), estep in zip(replayed, (ea, eb)):
+        arrays = _resident(ds.batch_arrays(), "cuda")
+        pools = _device_pools(ds, "cuda")
+        perm = torch.as_tensor(order.astype(np.int32), device="cuda")
+        diffs = []
+        for i, m0 in enumerate(losses):
+            batch = {k: v.index_select(0, perm[i * bs:(i + 1) * bs]) for k, v in arrays.items()}
+            _, m = estep(est, batch, *pools, fold_in(77, i))
+            diffs.append(max(abs(v - float(m[k])) for k, v in m0.items()))
+            require(all(losses_agree(k, v, m) for k, v in m0.items())
+                    and not (exact and diffs[-1] > 0.0),
+                    f"{label} graph phase {phase} step {i}: replayed vs eager {m0} {m}")
+        eager = moments_of(est, slot, is_lazy, dense_name)
+        rels = {k: rel_to_max(v, eager[k]) for k, v in moments.items()}
+        require(max(rels.values()) <= (0.0 if exact else MOMENT_TOL),
+                f"{label} graph phase {phase}: moments differ from eager: {rels}")
+        rec[f"phase_{phase}"].update(loss_diff=diffs, moment_rel_err=rels)
     rec["seconds"] = time.perf_counter() - t0
     emit({"graph_steps": rec})
     return rec
@@ -4004,6 +4085,10 @@ WIDTH_T = {"sweep": 150, "long": 300}  # the main paths' lengths: the encoder at
 # (b)), 64 elsewhere (the phase's time)
 WIDTH_MAIN = {(128, "long", "keypad"), (12, "sweep", "causal")}
 WIDTH_B = {True: 256, False: 64}
+# the rate-0.1 cases timed: those at the configurations' widths (the mask
+# does not see the width); the others are held to their plain versions
+# untimed (their time gave way to phase 13's)
+WIDTH_DROPOUT_DH = (12, 128)
 # the one-sweep backward at dh=128 holds T <= 80 (`sweep_fits`): its cases take 64
 WIDTH_BWD_SWEEP_T128 = 64
 # the fp32 long forward at dh=128 takes its in-block kernel at one query
@@ -4074,7 +4159,8 @@ def width_kernel_phase(torch, gen):
     against the plain version in fp64. fp32: ATOL / RTOL, the statistics at
     LONG_STATS_ATOL, the gradients at `bwd_atol`; bf16: one draw a case held
     to WIDTH_BF16_LIMITS (`Bf16Readings`), the fp32 build at the same inputs
-    outside the kernel_oracle limit. Every case is timed: `kernel_ms`,
+    outside the kernel_oracle limit. Every case but those at rate 0.1 off
+    WIDTH_DROPOUT_DH is timed: `kernel_ms`,
     `device_ms`, `host_us` (one round of 10 calls), the plain version's ms,
     SDPA's (on bf16 q, k, v in bf16; its backward as forward + backward
     less the forward) and the bound (the TF32 peak in fp32, the bf16 peak
@@ -4093,6 +4179,9 @@ def width_kernel_phase(torch, gen):
 
     def library(rec, q, k, v, dout, bias, heads, rate, bf16):
         sdpa_timings(torch, rec, q, k, v, dout, bias, heads, rate, bf16)
+
+    def timed(dh, rate):
+        return rate == 0 or dh in WIDTH_DROPOUT_DH
 
     def fwd_case(dh, path, kind, rate, bf16, t=None):
         heads = WIDTH_HEADS[dh]
@@ -4146,11 +4235,14 @@ def width_kernel_phase(torch, gen):
                 require(torch.allclose(got, want, atol=ATOL, rtol=RTOL),
                         f"{name}: kernel vs plain max_abs_err {rec['max_abs_err']}")
             del got, want
-            rec.update(timings(torch, fwd, 10, rounds=1))
-            rec["plain_ms"] = cuda_ms(torch, plain, 3, 1)
-        library(rec, q, k, v, None, bias, heads, rate, bf16)
-        peak = BF16_TENSOR_FLOPS if bf16 else TF32_TENSOR_FLOPS
-        rec["bound_ms"], rec["bound_by"] = attention_bound(B, t, d, heads, bias.numel(), peak)
+            if timed(dh, rate):
+                rec.update(timings(torch, fwd, 10, rounds=1))
+                rec["plain_ms"] = cuda_ms(torch, plain, 3, 1)
+        if timed(dh, rate):
+            library(rec, q, k, v, None, bias, heads, rate, bf16)
+            peak = BF16_TENSOR_FLOPS if bf16 else TF32_TENSOR_FLOPS
+            rec["bound_ms"], rec["bound_by"] = attention_bound(B, t, d, heads, bias.numel(),
+                                                               peak)
         emit({"kernel_case_width": rec})
         cases[name] = rec
 
@@ -4214,12 +4306,14 @@ def width_kernel_phase(torch, gen):
                             f"{name}: kernel vs plain {n} max_abs_err {rec['errs'][n]} "
                             f"(atol {atol})")
             del got, want
-            rec.update(timings(torch, bwd, 10, rounds=1))
-            rec["plain_ms"] = cuda_ms(torch, plain, 3, 1)
-        library(rec, q, k, v, dout, bias, heads, rate, bf16)
-        peak = BF16_TENSOR_FLOPS if bf16 else TF32_TENSOR_FLOPS
-        rec["bound_ms"], rec["bound_by"] = attention_bwd_bound(B, t, d, heads, bias.numel(),
-                                                               peak)
+            if timed(dh, rate):
+                rec.update(timings(torch, bwd, 10, rounds=1))
+                rec["plain_ms"] = cuda_ms(torch, plain, 3, 1)
+        if timed(dh, rate):
+            library(rec, q, k, v, dout, bias, heads, rate, bf16)
+            peak = BF16_TENSOR_FLOPS if bf16 else TF32_TENSOR_FLOPS
+            rec["bound_ms"], rec["bound_by"] = attention_bwd_bound(B, t, d, heads, bias.numel(),
+                                                                   peak)
         emit({"kernel_case_width": rec})
         cases[name] = rec
 
@@ -4458,16 +4552,22 @@ def width_config_phase(torch, rng):
 
 
 # phase 13: the widths the JAX kernels take beyond the port's earlier limits.
-# K1's fp32 long pair at head width 256 on configuration (c)'s attention
-# (BERT4Rec at --emb_dim 1024: B=256, 4 heads of 256, encoder T=300); K6/K7
-# at D not a multiple of 8 (20), above one 128-column plane (136) and at
-# configuration (c)'s width (1,024), at N=M of T=20 and T=150, and at N=700
-# (beyond four slots a user: KC=8 at D=128, 12 at D=1,024, two and three
-# blocks folding into one output); K5 at D=1,024 (the column-chunked kernel)
+# K1's long pair at head width 256, fp32 and bf16, on configuration (c)'s
+# and (d)'s attention (BERT4Rec at --emb_dim 1024: B=256, 4 heads of 256,
+# encoder T=300); K6/K7 at D not a multiple of 8 (20), above one 128-column
+# plane (136) and at configuration (c)'s width (1,024), at N=M of T=20 and
+# T=150, and at N=700 (beyond four slots a user: KC=8 at D=128, 12 at
+# D=1,024, two and three blocks folding into one output); K5 at D=1,024 (the
+# column-chunked kernel) and, on its wide kernel, at WIDE_SCORING's (D, H,
+# bf16): configuration (d)'s (1,024, 64) in both modes, D=2,048 and D=1,026
+# (not a multiple of 4) at H=32
 WIDE_B, WIDE_HEADS, WIDE_DH, WIDE_T = 256, 4, 256, 300
 WIDE_AFF_D = (20, 136, 1024)
 WIDE_AFF_N = (20, 150)
 WIDE_LONG_N, WIDE_LONG_B = 700, 16  # B=C=16: the bound at D=1,024 is 0.26 ms
+WIDE_HID = 64  # configuration (d)'s --hid_dim
+WIDE_SCORING = ((1024, WIDE_HID, True), (1024, WIDE_HID, False), (2048, 32, False),
+                (1026, 32, False))
 
 
 def wide_kernel_phase(torch, gen):
@@ -4481,27 +4581,110 @@ def wide_kernel_phase(torch, gen):
     row statistics at LONG_STATS_ATOL; the backward from the plain forward's
     residuals at `bwd_atol`, two calls bit-equal, and the kernel and the
     plain fp32 version against the plain version in fp64 on ORACLE_ROWS
-    rows; both routes send the shape to the long paths. K6/K7 at
-    WIDE_AFF_D x WIDE_AFF_N (B=C=256; K7 where `smalln_max_n(D)` takes N,
-    bit-equal to K6) and K6 at N=M=WIDE_LONG_N, at AFF_ATOL / AFF_RTOL. K5's
-    pair at D=1,024, C=1000 and C=2, at SCORE_ATOL."""
+    rows; both routes send the shape to the long paths. The bf16 long pair
+    at the same inputs (`wide_bf16_*` cases): one draw a case held to
+    BF16_LIMITS' "bf16_long_dh256" and "bf16_bwd_long_dh256" (the fp32
+    build at the same inputs outside the kernel_oracle limit), the row
+    statistics at LONG_STATS_ATOL, two calls bit-equal, SDPA on bf16 q, k, v
+    and the bound at the bf16 peak. K6/K7 at WIDE_AFF_D x WIDE_AFF_N
+    (B=C=256; K7 where `smalln_max_n(D)` takes N, bit-equal to K6) and K6 at
+    N=M=WIDE_LONG_N, at AFF_ATOL / AFF_RTOL. K5's pair at D=1,024, C=1000
+    and C=2, at SCORE_ATOL; and on its wide kernel at WIDE_SCORING, the
+    fp32 cases at SCORE_ATOL, the bf16 one held to "bf16_scoring_wide_C*"
+    (the fp32 mode as the control)."""
     from amid_tpu_torch.ops import attention as attention_ops
     from amid_tpu_torch.ops.affinity import (
         max_affinity_blocked, max_affinity_smalln, smalln_max_n,
     )
     from amid_tpu_torch.ops.attention import (
-        attention_bwd_plain, attention_fwd_stats_plain, attention_fwd_stats_streamed_plain,
-        backward_route, forward_route, long_head_dim,
+        LONG_BF16_STAGE_KEYS, MODES, attention_bwd_plain, attention_fwd_stats_plain,
+        attention_fwd_stats_streamed_plain, backward_route, forward_route, long_head_dim,
     )
-    from amid_tpu_torch.ops.scoring import scoring_head_pair, scoring_head_plain, tile_cols
+    from amid_tpu_torch.ops.scoring import (
+        scoring_head_pair, scoring_head_pair_plain, scoring_head_plain, scoring_kernel, tile_cols,
+    )
 
     OB = ORACLE_ROWS
     B, heads, dh, t = WIDE_B, WIDE_HEADS, WIDE_DH, WIDE_T
     d = heads * dh
-    require(forward_route(t, dh) == backward_route(t, dh) == "long" and long_head_dim(dh) == 256,
+    require(all(forward_route(t, dh, m) == backward_route(t, dh, m) == "long" for m in MODES)
+            and long_head_dim(dh) == 256,
             f"dh={dh}: the routes must take the long paths at template width 256")
     cases = {"attention_fwd_long": {}, "attention_bwd_long": {}, "max_affinity_blocked": {},
-             "max_affinity_smalln": {}, "scoring_head": {}}
+             "max_affinity_smalln": {}, "scoring_head": {}, "attention_fwd_long_bf16": {},
+             "attention_bwd_long_bf16": {}, "scoring_head_wide": {}}
+
+    def bf16_cases(q, k, v, dout, bias, seed, kind, rate, base):
+        """The bf16 long pair at dh=256 on one case's inputs."""
+        name = f"wide_bf16_fwd_long_{kind}_T{t}_dh{dh}_rate{rate}"
+        rec = {"case": name, "mode": "bf16", **base}
+
+        def fwd(stats=False, bf16=True):
+            return attention_ops._launch_forward(q, k, v, bias, seed, heads, rate, stats,
+                                                 "long", bf16=bf16)
+
+        def plain_fwd():
+            return attention_fwd_stats_streamed_plain(q, k, v, bias, seed, heads, rate,
+                                                      LONG_BF16_STAGE_KEYS, True)[0]
+
+        with torch.no_grad():
+            got, want = fwd()[0], plain_fwd()
+            require(torch.equal(fwd()[0], got), f"{name}: two calls differ")
+            require(torch.isfinite(got).all().item(), f"{name}: non-finite output")
+            stats = fwd(True)
+            require(torch.equal(stats[0], got), f"{name}: out differs with statistics")
+            rows = (q[:OB], k[:OB], v[:OB], bias[:OB], seed, heads, rate)
+            want_stats = attention_fwd_stats_plain(*rows, True)
+            rec["stats_max_abs_err"] = {}
+            for n, g, w in zip(("row_max", "row_inv_sum"), stats[1:], want_stats[1:]):
+                err = rec["stats_max_abs_err"][n] = (g[:OB] - w).abs().max().item()
+                require(torch.allclose(g[:OB], w, atol=LONG_STATS_ATOL[n], rtol=STATS_RTOL),
+                        f"{name}: kernel vs plain {n} max_abs_err {err}")
+            readings = Bf16Readings()
+            readings.draw([(got, fwd(bf16=False)[0], want,
+                            bf16_attention_kernel_oracle(torch, *rows, LONG_BF16_STAGE_KEYS),
+                            bf16_attention_oracle(torch, *rows))])
+            rec.update(readings.verdict(name, "bf16_long_dh256"))
+            del got, want, stats, want_stats
+            rec.update(timings(torch, lambda: fwd()[0], 10, rounds=1))
+            rec["plain_ms"] = cuda_ms(torch, plain_fwd, 2, 1)
+        sdpa_timings(torch, rec, q, k, v, None, bias, heads, rate, True)
+        rec["bound_ms"], rec["bound_by"] = attention_bound(B, t, d, heads, bias.numel(),
+                                                           BF16_TENSOR_FLOPS)
+        emit({"kernel_case_wide": rec})
+        cases["attention_fwd_long_bf16"][name] = rec
+
+        name = f"wide_bf16_bwd_long_{kind}_T{t}_dh{dh}_rate{rate}"
+        rec = {"case": name, "mode": "bf16", **base}
+        with torch.no_grad():
+            res = attention_fwd_stats_plain(q, k, v, bias, seed, heads, rate, True)
+
+            def bwd(bf16=True):
+                return attention_ops._launch_backward(q, k, v, bias, *res, dout, seed, heads,
+                                                      rate, "long", bf16=bf16)
+
+            def plain_bwd():
+                return attention_bwd_plain(q, k, v, bias, *res, dout, seed, heads, rate, True)
+
+            got = bwd()
+            require(all(torch.equal(a, b) for a, b in zip(bwd(), got)),
+                    f"{name}: two backward calls differ")
+            require(all(torch.isfinite(g).all().item() for g in got),
+                    f"{name}: non-finite gradient")
+            oracle = bf16_attention_bwd_oracle(torch, q[:OB], k[:OB], v[:OB], bias[:OB],
+                                               res[0][:OB], dout[:OB], seed, heads, rate)
+            readings = Bf16Readings()
+            readings.draw(list(zip(got, bwd(False), plain_bwd(), oracle, oracle)))
+            rec.update(readings.verdict(name, "bf16_bwd_long_dh256"))
+            del got, oracle
+            rec.update(timings(torch, bwd, 10, rounds=1))
+            rec["plain_ms"] = cuda_ms(torch, plain_bwd, 2, 1)
+        sdpa_timings(torch, rec, q, k, v, dout, bias, heads, rate, True)
+        rec["bound_ms"], rec["bound_by"] = attention_bwd_bound(B, t, d, heads, bias.numel(),
+                                                               BF16_TENSOR_FLOPS)
+        emit({"kernel_case_wide": rec})
+        cases["attention_bwd_long_bf16"][name] = rec
+        del res
     for kind in ("keypad", "causal"):
         for rate in (0.0, 0.1):
             q, k, v, dout = (torch.randn(B, t, d, device="cuda", generator=gen)
@@ -4589,7 +4772,10 @@ def wide_kernel_phase(torch, gen):
             rec["bound_ms"], rec["bound_by"] = attention_bwd_bound(B, t, d, heads, bias.numel())
             emit({"kernel_case_wide": rec})
             cases["attention_bwd_long"][name] = rec
-            del q, k, v, dout, res
+            del res
+            torch.cuda.empty_cache()
+            bf16_cases(q, k, v, dout, bias, seed, kind, rate, base)
+            del q, k, v, dout
             torch.cuda.empty_cache()
 
     def pair(bsz, c, n, m, width):
@@ -4646,6 +4832,51 @@ def wide_kernel_phase(torch, gen):
         rec["bound_ms"], rec["bound_by"] = scoring_bound(B, c, width, hid, 2)
         emit({"kernel_case_scoring": rec})
         cases["scoring_head"][c] = rec
+
+    for width, hid, bf16 in WIDE_SCORING:
+        require(scoring_kernel(width, hid) == "wide", f"K5 at D={width}, H={hid} takes "
+                                                      f"{scoring_kernel(width, hid)}")
+        fc1 = rand(hid, 2 * width, scale=(2 * width) ** -0.5)
+        params = (fc1[:, :width], fc1[:, width:], rand(hid, scale=0.1),
+                  rand(1, hid, scale=hid ** -0.5), rand(1, scale=0.1))
+        for c in (1000, 2):
+            user, other, items = rand(B, width), rand(B, width), rand(B, c, width)
+            name = f"wide_scoring_pair_C{c}_D{width}_H{hid}" + ("_bf16" if bf16 else "")
+
+            def fn(mode=bf16):
+                return scoring_head_pair(user, other, items, *params, bf16=mode)
+
+            def plain():
+                return scoring_head_pair_plain(user, other, items, *params, bf16=bf16)
+
+            rec = {"case": name, "mode": "bf16" if bf16 else "fp32", "shape": [B, c, width],
+                   "H": hid, "users": 2, "kernel": "wide", "tile_cols": tile_cols(width, hid)}
+            with torch.no_grad():
+                got, want = fn(), plain()
+                require(all(torch.equal(a, b) for a, b in zip(fn(), got)),
+                        f"{name}: two calls differ")
+                require(all(torch.isfinite(g).all().item() and tuple(g.shape) == (B, c)
+                            for g in got), f"{name}: non-finite output or wrong shape")
+                if bf16:
+                    readings = Bf16Readings()
+                    oracles = [bf16_scoring_oracle(torch, u, items, *params) for u in (user, other)]
+                    readings.draw(list(zip(got, fn(False), want, oracles, oracles)))
+                    rec.update(readings.verdict(name, f"bf16_scoring_wide_C{c}"))
+                    del oracles
+                else:
+                    rec["max_abs_err"] = max((g - w).abs().max().item() for g, w in zip(got, want))
+                    require(rec["max_abs_err"] <= SCORE_ATOL,
+                            f"{name}: kernel vs plain max_abs_err {rec['max_abs_err']}")
+                rec.update(timings(torch, fn, 20, rounds=1))
+                rec["plain_ms"], rec["library_ms"] = cuda_ms(torch, plain, 3, 1), None
+            # the bf16 mode's bound at the bf16 peak, the fp32 peak's beside it
+            rec["bound_ms"], rec["bound_by"] = scoring_bound(
+                B, c, width, hid, 2, BF16_TENSOR_FLOPS if bf16 else FP32_FLOPS)
+            rec["bound_fp32_ms"] = scoring_bound(B, c, width, hid, 2)[0]
+            emit({"kernel_case_scoring": rec})
+            cases["scoring_head_wide"][(c, width, hid, bf16)] = rec
+            del user, other, items, got, want
+        torch.cuda.empty_cache()
     return cases
 
 
@@ -4662,16 +4893,25 @@ def wide_config_phase(torch, rng):
     launches against `expected_launches`; one eager phase-A and phase-B step
     and one evaluation batch of each against the kernels='torch' model
     (`step_checks`: the first losses at LOSS_TOL); the replayed phase A's
-    wall and device ms and peak memory at T=150. Then configuration (a) in
-    pairwise mode (`--emb_dim 512 --comp_broadcast_quirk False`): replayed
-    phase-A steps through K6 at D=512, with their launches. Returns the
-    runs' records (with their launches)."""
+    wall and device ms and peak memory at T=150. Configuration (d), (c)
+    under `--bf16` with `--hid_dim 64` (K1's bf16 long pair at dh=256, K5's
+    wide kernel at D=1,024, H=64): serving (`serve_check`: the feature
+    pass against the kernels='torch' bf16 model, top-100), `run_seed` for
+    one epoch at T=150 with dense Adam and its launches, one eager phase-A
+    and phase-B step against the kernels='torch' bf16 model
+    (`bf16_step_check`), replayed steps bit-equal to eager ones
+    (`graph_checks`), and with STEP_TIMING the replayed phase A's wall and
+    device ms and peak memory. Then configuration (a) in pairwise mode
+    (`--emb_dim 512 --comp_broadcast_quirk False`): replayed phase-A steps
+    through K6 at D=512, with their launches. Returns the runs' records
+    (with their launches)."""
     import shutil
     import tempfile
 
     from amid_tpu_torch.config import DataConfig, ModelConfig, TrainConfig
     from amid_tpu_torch.data.synthetic import synth_packed
     from amid_tpu_torch.models.amid import head_width
+    from amid_tpu_torch.ops.scoring import scoring_kernel
     from amid_tpu_torch.train.loop import run_seed
 
     out = {}
@@ -4718,6 +4958,48 @@ def wide_config_phase(torch, rng):
         out[label] = rec
         del train_ds, val_ds, dr_ds
         torch.cuda.empty_cache()
+
+    # configuration (d): (c) under --bf16, with --hid_dim 64
+    label = "bert4rec_D1024_H64_T150_dense_pairwise_bf16"
+    cfg = ModelConfig(**{**base, "seq_len": 150, "hid_dim": WIDE_HID, "use_bf16": True})
+    require(head_width(cfg) == 256 and scoring_kernel(cfg.emb_dim, cfg.hid_dim) == "wide",
+            f"{label}: dh={head_width(cfg)}, K5 {scoring_kernel(cfg.emb_dim, cfg.hid_dim)}")
+    rec = {"serve": serve_check(torch, cfg, backbone_batch(cfg, rng), label, topk=True)}
+    train_ds, val_ds, dr_ds = (synth_packed(cfg, rng, n) for n in (TRAIN_ROWS, VAL_ROWS, DR_ROWS))
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    tcfg = TrainConfig(epochs=1, seeds=1, model_dir=work, lazy_table_adam=False,
+                       nan_policy="halt", checkpoint=False, model=cfg,
+                       data=DataConfig(neg_nums=999))
+    try:
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        best = run_seed(tcfg, 0, train_ds, val_ds, dr_ds)  # on cuda, kernels='auto'
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        rec["launches"] = read_counts()
+        check_run(f"{label} run_seed fast", cfg, False, rec["launches"], best,
+                  {"loop": "fast", "seconds": seconds, "examples_per_s": best["examples_per_s"],
+                   "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()})
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    rec["train_steps"] = bf16_step_check(torch, cfg, tcfg, train_ds, dr_ds, label, fresh=True)
+    torch.cuda.empty_cache()
+    rec["graph_steps"] = graph_checks(torch, cfg, tcfg, train_ds, val_ds, dr_ds, label,
+                                      exact=True, evaluate=False)
+    torch.cuda.empty_cache()
+    if STEP_TIMING:
+        rec["replayed_phase_a"] = replayed_phase_a(torch, cfg, tcfg, train_ds)
+        emit({"wide_config": {"config": label, **{
+            k: rec["replayed_phase_a"][k] for k in ("wall_ms_per_step", "device_ms_per_step",
+                                                    "device_idle_share",
+                                                    "max_memory_allocated_bytes")},
+            "feature_ms": rec["serve"]["feature_ms"],
+            "catalog_ms_per_domain": rec["serve"]["catalog_ms_per_domain"]}})
+    out[label] = rec
+    del train_ds, val_ds, dr_ds
+    torch.cuda.empty_cache()
 
     # configuration (a) in pairwise mode: replayed phase-A steps through K6 at D=512
     label = "bert4rec_D512_T150_dense_pairwise"
@@ -4819,8 +5101,10 @@ def main() -> int:
                  *(r for r in mesh_runs.values() if "launches" in r),
                  *width_runs.values(),
                  *(r["serve"] for r in width_runs.values() if "serve" in r)]
-    # configuration (c)'s runs: every attention launch of its model is at
-    # dh=256, every affinity and scoring launch at D=1,024
+    # configuration (c)'s and (d)'s runs: every attention launch of their
+    # models is at dh=256 (fp32 in (c), bf16 in (d)), every affinity and
+    # scoring launch at D=1,024 (K5 at H=32 in fp32 on the chunked kernel,
+    # at H=64 in bf16 on the wide one)
     wide_main = [r for label, rec in wide_runs.items() if "D1024" in label
                  for r in (rec, rec.get("serve")) if r and "launches" in r]
     main_runs += wide_main
@@ -4880,22 +5164,31 @@ def main() -> int:
         extra = [w for w in widths.values() if w["case"].startswith(
             f"width_{mode}_{direction}_{path}_")]
         rows[name] = (c, [*every, *extra])
-    # phase 13's instances, rows of their own: the launches of configuration
-    # (c)'s runs; K1 at its training shape (key padding, rate 0.1), K6 at
-    # T=150, K7 at T=20, K5's pair at C=1000
+    # phase 13's instances, rows of their own: the launches (by the count of
+    # their wrapper) of configuration (c)'s and (d)'s runs, and their cases;
+    # K1 at its training shape (key padding, rate 0.1), K6 at T=150, K7 at
+    # T=20, K5's pair at C=1000
     wide_rows = {
-        "attention_fwd_long_dh256": ("attention_fwd_long",
+        "attention_fwd_long_dh256": ("attention_fwd_long", "attention_fwd_long",
                                      "wide_fwd_long_keypad_T300_dh256_rate0.1"),
-        "attention_bwd_long_dh256": ("attention_bwd_long",
+        "attention_bwd_long_dh256": ("attention_bwd_long", "attention_bwd_long",
                                      "wide_bwd_long_keypad_T300_dh256_rate0.1"),
-        "max_affinity_blocked_D1024": ("max_affinity_blocked", (150, 1024)),
-        "max_affinity_smalln_D1024": ("max_affinity_smalln", (20, 1024)),
-        "scoring_head_D1024": ("scoring_head", 1000)}
+        "max_affinity_blocked_D1024": ("max_affinity_blocked", "max_affinity_blocked",
+                                       (150, 1024)),
+        "max_affinity_smalln_D1024": ("max_affinity_smalln", "max_affinity_smalln", (20, 1024)),
+        "scoring_head_D1024": ("scoring_head", "scoring_head", 1000),
+        "attention_fwd_long_bf16_dh256": ("attention_fwd_long_bf16", "attention_fwd_long_bf16",
+                                          "wide_bf16_fwd_long_keypad_T300_dh256_rate0.1"),
+        "attention_bwd_long_bf16_dh256": ("attention_bwd_long_bf16", "attention_bwd_long_bf16",
+                                          "wide_bf16_bwd_long_keypad_T300_dh256_rate0.1"),
+        "scoring_head_wide": ("scoring_head_bf16", "scoring_head_wide",
+                              (1000, 1024, WIDE_HID, True))}
     kernel_of = {name: name for name in rows}
-    for name, (kernel, key) in wide_rows.items():
+    for name, (kernel, group, key) in wide_rows.items():
         launches[name] = sum(r["launches"][kernel] for r in wide_main)
-        require(launches[name] > 0, f"{name} was launched no time on configuration (c)'s runs")
-        rows[name] = (wides[kernel][key], wides[kernel].values())
+        require(launches[name] > 0,
+                f"{name} was launched no time on configuration (c)'s and (d)'s runs")
+        rows[name] = (wides[group][key], wides[group].values())
         kernel_of[name] = kernel
     emit({"kernels": [{
         "name": name, "route": "cuda", "source": KERNELS[kernel_of[name]][0],

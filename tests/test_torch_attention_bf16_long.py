@@ -103,8 +103,7 @@ def test_route_tables_are_kept_per_mode_and_bf16_calls_read_theirs(monkeypatch):
 
     # the launches ask the route of their own mode
     asked = []
-    monkeypatch.setattr(attention_ops, "_fwd", object())
-    monkeypatch.setattr(attention_ops, "_bwd", object())
+    monkeypatch.setattr(attention_ops, "_entry", dict.fromkeys(attention_ops._LIBRARIES, object()))
     monkeypatch.setattr(attention_ops._build, "raw_stream", lambda index: 0)
     monkeypatch.setattr(attention_ops, "forward_route",
                         lambda t, dh, mode="fp32": asked.append(("fwd", mode)) or "neither")

@@ -104,7 +104,11 @@ def test_the_bf16_one_head_pair_are_sources_of_their_own():
             assert tf32 not in text, (name, tf32)
     assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in (
         CSRC / "attention_common.cuh").read_text()
-    assert all(n.endswith("_pad") for n in _build.VARIANTS)
+    # the variants: the fp32 long paths' padded builds and the bf16 long
+    # paths' template width 256; none of the one-head pair's sources
+    assert all(n.endswith(("_pad", "_bf16_dh256")) for n in _build.VARIANTS)
+    assert not {"attention_fwd_bf16", "attention_bwd_bf16"} & {
+        src for src, _ in _build.VARIANTS.values()}
     port = ROOT / "amid_tpu_torch"
     for path in [*port.rglob("*.py"), *port.rglob("*.cu"), *port.rglob("*.cuh")]:
         assert "AMID_ATTN_BF16" not in path.read_text(), path
@@ -116,8 +120,7 @@ def mode_limits(monkeypatch):
     """Recorder kernels whose bf16 builds hold twice the T of the fp32 ones
     (the fp32 forward 1,000 bytes a key, the backward 2,000; bf16 half)."""
     fwd = {"fp32": lambda t, dh: 1000 * t, "bf16": lambda t, dh: 500 * t}
-    monkeypatch.setattr(attention_ops, "_fwd", object())
-    monkeypatch.setattr(attention_ops, "_bwd", object())
+    monkeypatch.setattr(attention_ops, "_entry", dict.fromkeys(attention_ops._LIBRARIES, object()))
     monkeypatch.setattr(attention_ops, "_fwd_smem", fwd)
     monkeypatch.setattr(attention_ops, "_fwd_max_t", {mode: {
         dh: attention_ops._largest_t(f, dh) for dh in attention_ops.KERNEL_HEAD_DIMS}
@@ -157,8 +160,8 @@ def test_a_refused_bf16_launch_names_the_bf16_kernels_limit(mode_limits, monkeyp
     """A one-head bf16 launch the kernel refuses as too long reports the
     bf16 kernel's longest T, not the fp32 one's."""
     refused = lambda block: -3  # noqa: E731 (kTooLong)
-    monkeypatch.setattr(attention_ops, "_bf16_entry", {"attention_fwd": refused,
-                                                       "attention_bwd": refused})
+    monkeypatch.setattr(attention_ops, "_entry", {"attention_fwd_bf16": refused,
+                                                  "attention_bwd_bf16": refused})
     t, d, heads = 8, 32, 2
     x = torch.zeros(1, t, d)
     bias = torch.zeros(1, 1, 1, t)

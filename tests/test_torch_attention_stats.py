@@ -266,13 +266,10 @@ def _fake_entry(monkeypatch, code=0):
     entry.seeds = []
     _fake_entry.seeds = entry.seeds
 
-    monkeypatch.setattr(attention_ops, "_fwd", entry)
-    monkeypatch.setattr(attention_ops, "_fwd_long", entry)
+    monkeypatch.setattr(attention_ops, "_entry", dict.fromkeys(attention_ops._LIBRARIES, entry))
     # the fp32 long forward's scratch: 64 bytes, whatever the shape
     monkeypatch.setattr(attention_ops, "_fwd_long_scratch", {False: lambda raw: 64,
                                                              True: lambda raw: 64})
-    monkeypatch.setattr(attention_ops, "_bwd", entry)
-    monkeypatch.setattr(attention_ops, "_bwd_long", entry)
     monkeypatch.setattr(attention_ops, "_long_max_t", 65535 * 64)
     monkeypatch.setattr(attention_ops, "_fwd_long_max_t", 65535 * 128)
     # the recorder's one-head kernels, alike in both modes
@@ -349,9 +346,7 @@ def test_launch_refusals_become_exceptions(monkeypatch):
         attention_ops._check_backward_fits(65535 * 64 + 1, 8)
     attention_ops._check_backward_fits(300, 12)  # a padded width: template 16
     attention_ops._check_backward_fits(300, 128)
-    attention_ops._check_backward_fits(300, 136)  # the fp32 long pair: template 256
-    with pytest.raises(ValueError, match="bf16 mode takes head widths 1 to 128 .*got dh=136"):
-        attention_ops._check_backward_fits(300, 136, "bf16")
+    attention_ops._check_backward_fits(300, 136)  # the long pairs (both modes): template 256
     with pytest.raises(ValueError, match="head widths 1 to 256 .*got dh=264"):
         attention_ops._check_backward_fits(300, 264)
     with pytest.raises(ValueError, match="beyond its limit of T=4194240"):

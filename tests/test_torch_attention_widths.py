@@ -273,17 +273,14 @@ def kernel_limits(monkeypatch):
         return (4 if w > 64 else 3) * tq * (w + 8) * 2 + tq * (w + 8) * 4 + 16 * tq
 
     fwd = {"fp32": fwd_smem, "bf16": fwd_smem_bf16}
-    monkeypatch.setattr(attention_ops, "_fwd", object())
-    monkeypatch.setattr(attention_ops, "_bwd", object())
+    monkeypatch.setattr(attention_ops, "_entry", dict.fromkeys(attention_ops._LIBRARIES, object()))
     monkeypatch.setattr(attention_ops, "_fwd_smem", fwd)
     monkeypatch.setattr(attention_ops, "_bwd_smem", {"fp32": bwd_smem, "bf16": bwd_smem_bf16})
     monkeypatch.setattr(attention_ops, "_bwd_fits", {})
     monkeypatch.setattr(attention_ops, "_fwd_max_t", {mode: {
         w: attention_ops._largest_t(f, w) for w in attention_ops.KERNEL_HEAD_DIMS}
         for mode, f in fwd.items()})
-    monkeypatch.setattr(attention_ops, "_fwd_long", object())
     monkeypatch.setattr(attention_ops, "_fwd_long_max_t", 65535 * 128)
-    monkeypatch.setattr(attention_ops, "_bwd_long", object())
     monkeypatch.setattr(attention_ops, "_long_max_t", 65535 * 128)
 
 
@@ -301,33 +298,32 @@ def test_a_padded_width_routes_as_its_template_width(kernel_limits, dh):
                 t, w, mode), (mode, t)
 
 
-@pytest.mark.parametrize("widest", [128, 256])
-def test_check_attention_fits_takes_every_width_up_to_128(kernel_limits, widest):
+@pytest.mark.parametrize("bf16", [False, True])
+def test_check_attention_fits_takes_every_width_up_to_128(kernel_limits, bf16):
     """dh=12 (SASRec at --emb_dim 96) and dh=128 (BERT4Rec at --emb_dim 512)
-    pass `check_kernels_fit`; since the fp32 long paths take template width
-    256, so do dh=136 and dh=256 (BERT4Rec at --emb_dim 1024, configuration
-    (c)) in fp32, while the bf16 mode stops at 128. Each refusal comes
-    before any launch, naming the width, the limit and --kernels torch:
-    above `widest`, the mode's largest width."""
-    sasrec = ModelConfig(backbone="sasrec", emb_dim=96, seq_len=150)
-    bert = ModelConfig(backbone="bert4rec", emb_dim=512, seq_len=150, is_itc=True)
+    pass `check_kernels_fit`; since the long paths take template width 256
+    in both modes, so do dh=136 and dh=256 (BERT4Rec at --emb_dim 1024,
+    configurations (c) and (d)). Each refusal comes before any launch,
+    naming the width, the limit and --kernels torch: above 256, in either
+    mode."""
+    sasrec = ModelConfig(backbone="sasrec", emb_dim=96, seq_len=150, use_bf16=bf16)
+    bert = ModelConfig(backbone="bert4rec", emb_dim=512, seq_len=150, is_itc=True,
+                       use_bf16=bf16)
     assert (head_width(sasrec), head_width(bert)) == (12, 128)
     check_kernels_fit(sasrec)
     check_kernels_fit(bert)
-    bf16 = widest == 128
-    wide = ModelConfig(backbone="bert4rec", emb_dim=4 * widest, seq_len=150, is_itc=True,
-                       use_bf16=bf16)
-    check_kernels_fit(wide)  # the mode's widest head
-    over = dataclasses.replace(wide, emb_dim=4 * (widest + 8))
+    widest = 256
+    for dh in (136, widest):  # a padded width of template 256, and the widest head
+        check_kernels_fit(dataclasses.replace(bert, emb_dim=4 * dh))
+    over = dataclasses.replace(bert, emb_dim=4 * (widest + 8))
     with pytest.raises(ValueError) as err:
         check_kernels_fit(over)
-    mode = " in the bf16 mode" if bf16 else ""
-    for part in (f"dh={widest + 8}", f"head widths 1 to {widest}{mode}", "--kernels torch"):
+    for part in (f"dh={widest + 8}", f"head widths 1 to {widest} (fp32 and bf16)",
+                 "--kernels torch"):
         assert part in str(err.value), part
-    mode = "bf16" if bf16 else "fp32"
     with pytest.raises(ValueError, match=f"got dh={widest + 8}"):
-        attention_ops._check_backward_fits(150, widest + 8, mode)
-    attention_ops._check_backward_fits(150, widest, mode)
+        attention_ops._check_backward_fits(150, widest + 8)
+    attention_ops._check_backward_fits(150, widest)
 
 
 def test_a_padded_width_takes_the_padded_build_of_the_fp32_long_paths(monkeypatch):
@@ -343,12 +339,9 @@ def test_a_padded_width_takes_the_padded_build_of_the_fp32_long_paths(monkeypatc
             return 0
         return launch
 
-    monkeypatch.setattr(attention_ops, "_fwd", object())
-    monkeypatch.setattr(attention_ops, "_bwd", object())
-    monkeypatch.setattr(attention_ops, "_fwd_long", entry("fwd"))
-    monkeypatch.setattr(attention_ops, "_bwd_long", entry("bwd"))
-    monkeypatch.setattr(attention_ops, "_pad_entry", {"attention_fwd_long": entry("fwd_pad"),
-                                                      "attention_bwd_long": entry("bwd_pad")})
+    monkeypatch.setattr(attention_ops, "_entry", {
+        "attention_fwd_long": entry("fwd"), "attention_bwd_long": entry("bwd"),
+        "attention_fwd_long_pad": entry("fwd_pad"), "attention_bwd_long_pad": entry("bwd_pad")})
     monkeypatch.setattr(attention_ops, "_fwd_long_scratch", {False: lambda raw: 16,
                                                              True: lambda raw: 16})
     monkeypatch.setattr(attention_ops._build, "raw_stream", lambda index: 0)

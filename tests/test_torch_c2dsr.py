@@ -388,14 +388,12 @@ def kernel_limits(monkeypatch):
     """The kernels' limits without the card: the one-head forwards'
     shared-memory functions (fp32 and bf16) and the long paths' longest T
     (the grid's 65,535 blocks of 128 rows)."""
-    monkeypatch.setattr(attention_ops, "_fwd", object())
+    monkeypatch.setattr(attention_ops, "_entry", dict.fromkeys(attention_ops._LIBRARIES, object()))
     monkeypatch.setattr(attention_ops, "_fwd_smem", dict(FWD_SMEM))
     monkeypatch.setattr(attention_ops, "_fwd_max_t", {
         mode: {dh: attention_ops._largest_t(f, dh) for dh in attention_ops.KERNEL_HEAD_DIMS}
         for mode, f in FWD_SMEM.items()})
-    monkeypatch.setattr(attention_ops, "_fwd_long", object())
     monkeypatch.setattr(attention_ops, "_fwd_long_max_t", 65535 * 128)
-    monkeypatch.setattr(attention_ops, "_bwd_long", object())
     monkeypatch.setattr(attention_ops, "_long_max_t", 65535 * 128)
 
 

@@ -775,8 +775,8 @@ def test_gru_step_replays_equal_eager_steps(gen):
 
 @pytest.mark.parametrize("d,heads,bf16,words", [
     (528, 2, False, "head widths 1 to 256"), (257, 1, False, "head widths 1 to 256"),
-    (272, 2, True, "bf16 mode takes head widths 1 to 128"),
-    (129, 1, True, "bf16 mode takes head widths 1 to 128")])  # dh 264, 257; 136, 129 in bf16
+    (528, 2, True, "head widths 1 to 256"),
+    (257, 1, True, "head widths 1 to 256")])  # dh 264, 257 in fp32 and in bf16
 def test_kernel_rejects_unsupported_head_width(gen, d, heads, bf16, words):
     q = torch.randn(2, 8, d, device="cuda", generator=gen)
     with pytest.raises(ValueError, match=words):
@@ -962,11 +962,14 @@ def _head(gen, b, c, d, h):
 
 
 @pytest.mark.parametrize("b,c,d,h", [(256, 1000, 128, 32), (256, 2, 128, 32), (7, 37, 64, 8),
-                                     (5, 9, 32, 40), (3, 1, 128, 33), (2, 130, 256, 64)])
+                                     (5, 9, 32, 40), (3, 1, 128, 33), (2, 130, 256, 64),
+                                     (5, 70, 1024, 64), (3, 33, 2048, 32), (4, 37, 1026, 32),
+                                     (2, 65, 90, 12), (2, 9, 258, 300)])
 def test_scoring_head_kernel_matches_plain(gen, b, c, d, h):
     """Candidate counts that are no multiple of the 4 a warp scores together,
     hidden widths below, at and above one warp, fc1 read through the row
-    stride of its two halves."""
+    stride of its two halves; the wide kernel's shapes (Wi^T beyond a block,
+    D not a multiple of 4, H above the user half's pass of 128 units)."""
     user, items, fc1, b1, w2, b2 = _head(gen, b, c, d, h)
     args = (user, items, fc1[:, :d], fc1[:, d:], b1, w2, b2)
     before = scoring_head.launches
@@ -1021,9 +1024,16 @@ def test_scoring_head_pair_gradients_match_autograd_through_the_plain_pair(gen):
 
 def test_scoring_plan_is_the_kernels_shared_memory(gen):
     smem, smem_up = scoring_ops.smem_bytes_of_the_kernels()
-    for b, c, d, h in ((256, 1000, 128, 32), (256, 2, 128, 33), (2, 130, 256, 64)):
+    lib = scoring_ops._build.load("scoring_head")
+    which = scoring_ops._build.bind(lib.scoring_head_main_kernel, [ctypes.c_int] * 2)
+    cols = scoring_ops._build.bind(lib.scoring_head_tile_cols, [ctypes.c_int] * 2)
+    for b, c, d, h in ((256, 1000, 128, 32), (256, 2, 128, 33), (2, 130, 256, 64),
+                       (256, 1000, 1024, 32), (256, 1000, 1024, 64), (4, 5, 2048, 32),
+                       (4, 5, 1026, 32), (3, 7, 30, 4), (2, 3, 4096, 256)):
         assert smem(d, h) == scoring_ops.scoring_plan(b, c, d, h).smem
         assert smem_up(d, h) == scoring_ops.user_half_smem_bytes(d, h)
+        assert ("whole", "chunked", "wide")[which(d, h)] == scoring_ops.scoring_kernel(d, h)
+        assert cols(d, h) == scoring_ops.tile_cols(d, h)
 
 
 def test_scoring_head_gradients_reach_fc1_as_one_parameter(gen):
@@ -1044,15 +1054,18 @@ def test_scoring_head_gradients_reach_fc1_as_one_parameter(gen):
 
 
 def test_scoring_head_refusals(gen):
-    user, items, fc1, b1, w2, b2 = _head(gen, 2, 3, 30, 4)  # D not a multiple of 4
-    with pytest.raises(ValueError, match="multiple of 4"):
-        scoring_head(user, items, fc1[:, :30], fc1[:, 30:], b1, w2, b2)
+    """A tensor on another device is refused; D not a multiple of 4 and a D
+    whose Wi^T does not fit a block run on the wide kernel, as the plain
+    version computes them."""
+    for b, c, d, h in ((2, 3, 30, 4), (1, 1, 1024, 64), (3, 70, 1030, 40)):
+        user, items, fc1, b1, w2, b2 = _head(gen, b, c, d, h)
+        args = (user, items, fc1[:, :d], fc1[:, d:], b1, w2, b2)
+        assert scoring_ops.scoring_kernel(d, h) == "wide"
+        torch.testing.assert_close(scoring_head(*args), scoring_head_plain(*args), atol=1e-5,
+                                   rtol=1e-5)
     user, items, fc1, b1, w2, b2 = _head(gen, 2, 3, 32, 4)
     with pytest.raises(ValueError, match="b1 on cpu"):
         scoring_head(user, items, fc1[:, :32], fc1[:, 32:], b1.cpu(), w2, b2)
-    user, items, fc1, b1, w2, b2 = _head(gen, 1, 1, 1024, 64)
-    with pytest.raises(ValueError, match="shared memory"):
-        scoring_head(user, items, fc1[:, :1024], fc1[:, 1024:], b1, w2, b2)
 
 
 # ---------------------------------------------------------------------------
@@ -1874,7 +1887,13 @@ def _chip_smoke():
     (8, 300, 1, "keypad", 0.1, "long", "long_native", 128),
     (8, 600, 4, "causal", 0.0, "long", "long_native", 512),
     (8, 1000, 8, "keypad", 0.1, "long", "long_native", 96),
-    (64, 150, 8, "causal", 0.5, "sweep", "causal_T150_h8_rate0.5", 96)])
+    (64, 150, 8, "causal", 0.5, "sweep", "causal_T150_h8_rate0.5", 96),
+    # template width 256 (the AMID_BF16_WIDE builds): dh 256, and 160 and
+    # 136 (padded), configuration (d)'s width at T=300, 1,000 and 37
+    (8, 300, 4, "keypad", 0.1, "long", "long_dh256", 1024),
+    (8, 1000, 2, "causal", 0.0, "long", "long_dh256", 512),
+    (8, 600, 1, "causal", 0.1, "long", "long_dh256", 160),
+    (8, 37, 2, "keypad", 0.0, "long", "long_dh256", 272)])
 def test_bf16_attention_modes_match_their_plain_versions(gen, b, t, heads, kind, rate, path,
                                                          case, d):
     """The forward's and the backward's bf16 builds on one path within

@@ -142,7 +142,8 @@ def test_the_port_ships_every_kernel_source():
     """Twelve CUDA sources under csrc/, each named by a wrapper's `_build.load`
     (the attention wrapper's four through its `_SOURCES`, the bf16 mode's
     four, native bf16 kernels of the one-head pair and of the long paths,
-    through its `_LIBRARIES`, not as variants of another source), and the
+    through its `_LIBRARIES`, not as variants of another source; the bf16
+    long paths' template width 256 as variants of theirs), and the
     packaging glob that ships them."""
     from amid_tpu_torch.ops import _build
     from amid_tpu_torch.ops import attention as attention_ops
@@ -161,6 +162,12 @@ def test_the_port_ships_every_kernel_source():
                  "attention_bwd_long_bf16"):
         assert name in attention_ops._LIBRARIES and name not in _build.VARIANTS, name
         assert _build._source(name) == (REPO / "amid_tpu_torch" / "csrc" / f"{name}.cu", ())
+    # the bf16 long paths' template width 256: builds of their own sources
+    for name in ("attention_fwd_long", "attention_bwd_long"):
+        wide = f"{name}_bf16_dh256"
+        assert wide in attention_ops._LIBRARIES, wide
+        assert _build._source(wide) == (REPO / "amid_tpu_torch" / "csrc" / f"{name}_bf16.cu",
+                                        ("-DAMID_BF16_WIDE=1",))
     assert 'amid_tpu_torch = ["csrc/*.cu"]' in (REPO / "pyproject.toml").read_text()
     for name in sources:  # a __global__ kernel in each
         assert "__global__" in (REPO / "amid_tpu_torch" / "csrc" / f"{name}.cu").read_text()

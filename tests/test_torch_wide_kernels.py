@@ -1,16 +1,19 @@
 """The kernels at the widths the JAX kernels take, on the CPU.
 
-The fp32 long attention pair takes head widths up to 256 (template width 256
-for dh 129 to 256), the affinity kernels (K6/K7) any D and any N, the
-scoring head (K5) rows too wide for a whole staged tile. On the card each
-kernel is held to its plain version; here the plain versions are held to
-the JAX package's Pallas kernels in interpret mode: the long forward in key
-tiles (`attention_fwd_stats_streamed_plain`) and the backward at dh=160 and
-256, `max_affinity_plain` at D 20, 136 and 256 and at N=700. Then the plans
-at D=1,024 and N=700 counted out, the fold of a query that spans several
-blocks, a configuration-(c)-shaped model (BERT4Rec at dh=256, pairwise,
-InterComp) against the JAX model, and `check_kernels_fit`'s refusals. fp32
-on both sides, dropout off, atol 1e-5 / rtol 1e-4."""
+The long attention pair takes head widths up to 256 in fp32 and in bf16
+(template width 256 for dh 129 to 256), the affinity kernels (K6/K7) any D
+and any N, the scoring head (K5) any D and H. On the card each kernel is
+held to its plain version; here the plain versions are held to the JAX
+package's Pallas kernels in interpret mode: the long forward in key tiles
+(`attention_fwd_stats_streamed_plain`) and the backward at dh=160 and 256,
+in fp32 and with `mxu_bf16`, `max_affinity_plain` at D 20, 136 and 256 and
+at N=700, the scoring head at D 90, 258 and 1,030. Then the plans at
+D=1,024 and N=700 and K5's at any (D, H) counted out, the fold of a query
+that spans several blocks, a configuration-(c)-shaped model (BERT4Rec at
+dh=256, pairwise, InterComp) and a configuration-(d)-shaped one (the same
+under `use_bf16`) against the JAX model, and what `check_kernels_fit`
+takes and refuses. fp32 on both sides, dropout off, atol 1e-5 / rtol 1e-4,
+unless a test says otherwise."""
 
 import functools
 
@@ -27,6 +30,7 @@ from amid_tpu.data.sampler import sample_negatives as jax_sample_negatives
 from amid_tpu.models.amid import build_model as jax_build_model
 from amid_tpu.ops.pallas_affinity import max_affinity_pallas, max_affinity_pallas_smalln
 from amid_tpu.ops.pallas_attention import fused_attention as jax_fused_attention
+from amid_tpu.ops.pallas_scoring import scoring_head_pallas
 from amid_tpu.serve import user_representations as jax_user_representations
 from amid_tpu.train import steps as jax_steps
 from amid_tpu_torch.config import ModelConfig
@@ -42,6 +46,10 @@ from amid_tpu_torch.serve import user_representations
 from amid_tpu_torch.train import steps
 from amid_tpu_torch.train.optim import Adam
 from test_torch_c2dsr import kernel_limits  # noqa: F401 (a fixture)
+from test_torch_precision import (
+    BF16_GRAD_TOL, BF16_LEAF_TOL, BF16_OUT_TOL, BWD_BF16_TOL, OUT_KEYS,
+    _jax_outputs_and_grads, _port_outputs_and_grads, _weights,
+)
 
 ATOL, RTOL = 1e-5, 1e-4
 
@@ -96,11 +104,80 @@ def test_long_plain_versions_match_the_pallas_kernel_above_128(rng, dh, heads, k
             np.testing.assert_allclose(g.numpy(), w, atol=ATOL, rtol=RTOL,
                                        err_msg=f"block_k={block_k} d{name}")
     assert attention_ops.long_head_dim(dh) == 256 and attention_ops.kernel_head_dim(dh) is None
-    for t_route in (1, 20, 300):
-        assert attention_ops.forward_route(t_route, dh) == "long"
-        assert attention_ops.backward_route(t_route, dh) == "long"
-    with pytest.raises(ValueError, match="bf16 mode takes head widths 1 to 128"):
-        attention_ops.check_head_width(dh, "bf16")
+    for mode in attention_ops.MODES:
+        for t_route in (1, 20, 300):
+            assert attention_ops.forward_route(t_route, dh, mode) == "long"
+            assert attention_ops.backward_route(t_route, dh, mode) == "long"
+    attention_ops.check_head_width(dh)  # both modes take it
+    assert attention_ops.bf16_packed_shape(13, dh) == (128, 256)
+
+
+@pytest.mark.parametrize("kind", ["causal", "keypad"])
+@pytest.mark.parametrize("dh,heads", [(160, 1), (256, 2)])
+def test_bf16_plain_versions_match_the_pallas_bf16_mode_above_128(rng, dh, heads, kind):
+    """The bf16 mode's plain versions at template width 256, as
+    `test_torch_precision.py` holds them at dh=8: attention_plain,
+    attention_fwd_stats_plain and the streamed version (tiles of 8 and of 64,
+    the bf16 long forward's stage) against `fused_attention(...,
+    mxu_bf16=True)` in interpret mode at 1e-5; the row statistics of the
+    streamed version against the whole-row ones; attention_bwd_plain from
+    those residuals, equal to attention_plain's autograd gradient, within
+    BWD_BF16_TOL of the largest of `jax.vjp`'s (D_i's rounding; see there)."""
+    b, t = 2, 13
+    q, k, v, bias, dout = _attention_inputs(rng, b, t, dh * heads, kind)
+    seed = jnp.zeros((1,), jnp.int32)
+
+    def f(q_, k_, v_):
+        return jax_fused_attention(q_, k_, v_, jnp.asarray(bias), seed, heads, 0.0, True)
+
+    with pltpu.force_tpu_interpret_mode():
+        want, vjp = jax.vjp(f, *map(jnp.asarray, (q, k, v)))
+        want_grads = [np.asarray(g) for g in vjp(jnp.asarray(dout))]
+    want = np.asarray(want)
+    tq, tk, tv, tbias, tdout = map(torch.as_tensor, (q, k, v, bias, dout))
+    out, m, inv = attention_fwd_stats_plain(tq, tk, tv, tbias, 0, heads, 0.0, True)
+    outs = {"attention_plain": attention_ops.attention_plain(tq, tk, tv, tbias, 0, heads, 0.0,
+                                                             True), "fwd_stats": out}
+    for block_k in (8, 64):
+        res = attention_fwd_stats_streamed_plain(tq, tk, tv, tbias, 0, heads, 0.0, block_k, True)
+        outs[f"streamed_{block_k}"] = res[0]
+        torch.testing.assert_close(res[1], m, atol=1e-6, rtol=1e-6)
+        torch.testing.assert_close(res[2], inv, atol=1e-7, rtol=1e-6)
+    for name, got in outs.items():
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5, err_msg=name)
+    exact = attention_ops.attention_plain(tq, tk, tv, tbias, 0, heads, 0.0).numpy()
+    assert np.abs(exact - want).max() > 1e-4  # the mode is on
+    grads = attention_bwd_plain(tq, tk, tv, tbias, out, m, inv, tdout, 0, heads, 0.0, True)
+    leaves = [x.clone().requires_grad_() for x in (tq, tk, tv)]
+    auto = torch.autograd.grad(attention_ops.attention_plain(*leaves, tbias, 0, heads, 0.0, True),
+                               leaves, tdout)
+    for name, got, auto_g, w in zip("qkv", grads, auto, want_grads):
+        assert torch.equal(got, auto_g), name
+        assert np.abs(got.numpy() - w).max() <= BWD_BF16_TOL * np.abs(w).max(), name
+
+
+@pytest.mark.parametrize("name,bf16,dh,lib", [
+    ("attention_fwd", False, 12, "attention_fwd"),
+    ("attention_fwd", True, 128, "attention_fwd_bf16"),
+    ("attention_bwd", False, 48, "attention_bwd"),
+    ("attention_bwd", True, 24, "attention_bwd_bf16"),
+    ("attention_fwd_long", False, 128, "attention_fwd_long"),
+    ("attention_fwd_long", False, 256, "attention_fwd_long"),
+    ("attention_fwd_long", False, 12, "attention_fwd_long_pad"),
+    ("attention_fwd_long", False, 160, "attention_fwd_long_pad"),
+    ("attention_bwd_long", False, 96, "attention_bwd_long_pad"),
+    ("attention_bwd_long", True, 128, "attention_bwd_long_bf16"),
+    ("attention_bwd_long", True, 12, "attention_bwd_long_bf16"),
+    ("attention_fwd_long", True, 129, "attention_fwd_long_bf16_dh256"),
+    ("attention_bwd_long", True, 256, "attention_bwd_long_bf16_dh256"),
+])
+def test_each_launch_takes_the_build_of_its_mode_and_width(monkeypatch, name, bf16, dh, lib):
+    """The one entry table: the fp32 long paths take their `_pad` build at a
+    padded width (not 16, 32, 64, 128 or 256), the bf16 long paths their
+    `_bf16_dh256` build above head width 128, every other launch its
+    source's (the bf16 mode's `_bf16` source) at every width."""
+    monkeypatch.setattr(attention_ops, "_entry", {n: n for n in attention_ops._LIBRARIES})
+    assert attention_ops._entry_point(name, bf16, dh) == lib
 
 
 # ---------------------------------------------------------------------------
@@ -189,24 +266,116 @@ def test_a_query_of_more_than_four_slots_folds_across_blocks(rng, n, d):
 
 
 # ---------------------------------------------------------------------------
-# K5: rows too wide for a whole staged tile
+# K5: any D and H
 # ---------------------------------------------------------------------------
 
 def test_scoring_plan_takes_wide_rows_in_column_chunks():
     """Up to D=560 at H=32 a whole candidate tile fits beside Wi^T; beyond,
     the tile is staged in chunks of the widest multiple of 16 columns that
     fits (320 at configuration (c)'s D=1,024), within a block's 232,448
-    bytes; D above 1,376 at H=32 (704 at H=64) is refused."""
+    bytes, up to D=1,376 at H=32 (704 at H=64); beyond that, and at a D not
+    a multiple of 4, the wide kernel takes the shape in chunks of 256
+    columns of the tile and of Wi^T, 103,552 bytes at every D and H."""
     assert scoring.tile_cols(512, 32) == 512 and scoring.scoring_smem_bytes(512, 32) == 205952
     assert scoring.tile_cols(1024, 32) == 320
     assert scoring.scoring_smem_bytes(1024, 32) == 4 * (1024 * 36 + 32 + 64 * 324) == 230528
     plan = scoring.scoring_plan(256, 1000, 1024, 32)
     assert plan.smem == 230528 and plan.tiles == 4000
     for d, h in ((1376, 32), (704, 64)):
+        assert scoring.scoring_kernel(d, h) == "chunked"
         assert scoring.scoring_plan(4, 5, d, h).smem <= scoring.SMEM_LIMIT
         assert scoring.tile_cols(d, h) % 16 == 0
-        with pytest.raises(ValueError, match="shared memory"):
-            scoring.scoring_plan(4, 5, d + 8, h)
+        wide = scoring.scoring_plan(4, 5, d + 8, h)
+        assert scoring.scoring_kernel(d + 8, h) == "wide" and scoring.tile_cols(d + 8, h) == 256
+        assert wide.smem == 4 * (64 * 260 + 256 * 36 + 32) == 103552
+    assert scoring.scoring_kernel(1024, 64) == scoring.scoring_kernel(1026, 32) == "wide"
+    assert scoring.scoring_kernel(30, 4) == "wide"  # D not a multiple of 4
+    assert scoring.scoring_plan(256, 1000, 1024, 64) == (4000, 16, 250, 103552)  # 2 an SM
+
+
+@pytest.mark.parametrize("d", [4, 30, 90, 128, 258, 560, 704, 1024, 1026, 1376, 2048, 4096])
+def test_scoring_plans_fit_and_cover_every_column_and_unit_once(d):
+    """At every D and H up to (4,096, 256) the main kernel's and the user
+    half's shared memory is within a block's 232,448 bytes, and the main
+    kernel's loops (csrc/scoring_head.cu: passes of 32 units from `h0` over
+    ceil8(H), within each chunks of `tile_cols` columns from `col0` over D)
+    emulated here cover every column [0, D) and every unit [0, ceil8(H))
+    exactly once, and the chunks' item products summed per pass are the
+    whole product; the whole-tile kernel takes one chunk, the chunked one
+    stages Wi^T whole, the wide one exactly where neither fits or D is not a
+    multiple of 4."""
+    rng = np.random.default_rng(d)
+    items = rng.normal(size=(3, d))
+    for h in (1, 8, 12, 32, 33, 64, 100, 256):
+        kernel = scoring.scoring_kernel(d, h)
+        assert scoring.scoring_smem_bytes(d, h) <= scoring.SMEM_LIMIT
+        assert scoring.user_half_smem_bytes(d, h) <= scoring.SMEM_LIMIT
+        assert scoring.scoring_plan(3, 7, d, h).smem == scoring.scoring_smem_bytes(d, h)
+        kw, h8 = scoring.tile_cols(d, h), -(-h // 8) * 8
+        w_item = np.zeros((d, h8))
+        w_item[:, :h] = rng.normal(size=(d, h))
+        seen = np.zeros((d, h8), int)
+        got = np.zeros((3, h8))
+        chunks = 0
+        for h0 in range(0, h8, 32):
+            units = slice(h0, min(h0 + 32, h8))
+            for col0 in range(0, d, kw):
+                cols = slice(col0, min(col0 + kw, d))
+                seen[cols, units] += 1
+                got[:, units] += items[:, cols] @ w_item[cols, units]
+                chunks += h0 == 0
+        assert (seen == 1).all()
+        np.testing.assert_allclose(got, items @ w_item, rtol=1e-12, atol=1e-12)
+        whole_fits = d % 4 == 0 and scoring._smem_with(d, h, -(-d // 8) * 8) <= 232448
+        some_fit = d % 4 == 0 and scoring._smem_with(d, h, 16) <= 232448
+        assert kernel == ("whole" if whole_fits else "chunked" if some_fit else "wide")
+        assert (chunks == 1) == (kernel == "whole" or d <= 256)
+
+
+@pytest.mark.parametrize("d,h", [(90, 12), (258, 64), (1030, 8)])
+def test_scoring_plain_versions_match_the_pallas_kernel_at_any_width(rng, d, h):
+    """`scoring_head_plain` and `scoring_head_pair_plain`, forward and all
+    gradients, against `scoring_head_pallas` in interpret mode and its
+    `jax.grad` at D not a multiple of 4 (90, 1,030), above two 128-column
+    planes (258) and H not a multiple of 8 (12), as
+    `test_torch_kernel_ops.py` holds them at D=128: forward 1e-5, gradients
+    rtol 1e-4 / atol 1e-5."""
+    b, c = 3, 37
+    user, other = (rng.normal(size=(b, d)).astype(np.float32) for _ in range(2))
+    items = rng.normal(size=(b, c, d)).astype(np.float32)
+    fc1 = (rng.normal(size=(h, 2 * d)) * 0.05).astype(np.float32)
+    b1, w2, b2 = ((rng.normal(size=s) * 0.1).astype(np.float32) for s in ((h,), (1, h), (1,)))
+
+    def jax_args(u):
+        return tuple(map(jnp.asarray, (u, items, fc1[:, :d].T, fc1[:, d:].T, b1, w2.T, b2)))
+
+    def jax_loss(*a):
+        return jnp.sum(scoring_head_pallas(*a) ** 2)
+
+    with pltpu.force_tpu_interpret_mode():
+        want = [np.asarray(scoring_head_pallas(*jax_args(u))) for u in (user, other)]
+        want_grads = jax.grad(jax_loss, argnums=tuple(range(7)))(*jax_args(user))
+    leaves = [torch.tensor(x, requires_grad=True) for x in (user, other, items, fc1, b1, w2, b2)]
+    u, o, it, w, tb1, tw2, tb2 = leaves
+    params = (w[:, :d], w[:, d:], tb1, tw2, tb2)
+    single = scoring.scoring_head_plain(u, it, *params)
+    pair = scoring.scoring_head_pair_plain(u, o, it, *params)
+    for got, w_ in zip((single, *pair), (want[0], *want)):
+        np.testing.assert_allclose(got.detach().numpy(), w_, rtol=1e-5, atol=1e-5)
+    got = torch.autograd.grad((single ** 2).sum(), [u, it, w, tb1, tw2, tb2])
+    duser, ditems, dku, dki, db1, dk2, db2 = (np.asarray(g) for g in want_grads)
+    want_torch = [duser, ditems, np.concatenate([dku.T, dki.T], axis=1), db1, dk2.T, db2]
+    for name, g, w_ in zip(("user", "items", "fc1", "b1", "w2", "b2"), got, want_torch):
+        np.testing.assert_allclose(g.numpy(), w_, rtol=1e-4, atol=1e-5, err_msg=name)
+    # the pair's gradients are both users' terms: the same as two single calls
+    pair_grads = torch.autograd.grad(sum((x ** 2).sum() for x in pair), leaves[2:])
+    two = torch.autograd.grad(sum((scoring.scoring_head_plain(x, it, *params) ** 2).sum()
+                                  for x in (u, o)), leaves[2:])
+    for g, w_ in zip(pair_grads, two):
+        torch.testing.assert_close(g, w_, rtol=1e-4, atol=1e-5)
+    # the wrappers take the plain versions on CPU tensors at every width
+    with torch.no_grad():
+        assert torch.equal(scoring.scoring_head(u, it, *params), single.detach())
 
 
 # ---------------------------------------------------------------------------
@@ -322,26 +491,97 @@ def test_check_kernels_fit_takes_configuration_c(kernel_limits):  # noqa: F811
     check_kernels_fit(ModelConfig(**{**CONFIG_C, "seq_len": 20}))
 
 
+@pytest.mark.parametrize("overrides", [
+    dict(use_bf16=True),  # configuration (c) under --bf16: dh=256 on the bf16 long pair
+    dict(use_bf16=True, hid_dim=64),  # configuration (d)
+    dict(backbone="gru4rec", emb_dim=1026, comp_broadcast_quirk=True),  # D not a multiple of 4
+    dict(backbone="gru4rec", emb_dim=1408),  # K5's wide kernel: Wi^T beyond a block
+    dict(backbone="gru4rec", emb_dim=1024, hid_dim=64),
+    dict(backbone="gru4rec", emb_dim=2048, comp_broadcast_quirk=True),
+])
+def test_check_kernels_fit_takes_the_widths_the_kernels_take(kernel_limits,  # noqa: F811
+                                                              overrides):
+    """What waited before the bf16 long pair took head width 256 and K5 any
+    D and H: each runs on kernels='cuda' with no refusal."""
+    check_kernels_fit(ModelConfig(**{**CONFIG_C, **overrides}))
+
+
 @pytest.mark.parametrize("overrides,words", [
     (dict(emb_dim=1056), ("dh=264", "head widths 1 to 256", "T<=")),  # dh above 256
-    (dict(use_bf16=True), ("dh=256", "head widths 1 to 128 in the bf16 mode")),
+    (dict(emb_dim=1056, use_bf16=True), ("dh=264", "head widths 1 to 256 (fp32 and bf16)")),
     (dict(seq_len=2 ** 22, is_itc=False),  # dh=256: the long backward's 64-row blocks
      ("T=4194304", "T<=4194240")),
+    (dict(seq_len=2 ** 22, is_itc=False, use_bf16=True),  # the bf16 dK/dV kernel's 64 rows
+     ("T=4194304", "T<=4194240")),
     (dict(backbone="gru4rec", emb_dim=65540), ("affinity kernels take D from 1 to 65536",)),
-    (dict(backbone="gru4rec", emb_dim=1026, comp_broadcast_quirk=True),
-     ("multiple of 4", "scoring head at --emb_dim 1026")),
-    (dict(backbone="gru4rec", emb_dim=1408), ("scoring head", "needs", "232448")),
-    (dict(backbone="gru4rec", emb_dim=1024, hid_dim=64), ("--hid_dim 64",)),
 ])
 def test_check_kernels_fit_refuses_what_waits(kernel_limits, overrides, words):  # noqa: F811
     """Each shape that no kernel of a kernels='cuda' model takes is refused
     before any forward, naming its limit and --kernels torch: a head above
-    256 in fp32 or 128 in bf16, a T beyond the long backward's 64-row
-    blocks at dh=256, a pairwise affinity row above 65,536 columns, a
-    scoring head whose D is not a multiple of 4 or whose shared memory
-    exceeds a block's."""
+    256 in either mode, a T beyond the long backward's 64-row blocks at
+    dh=256 (the fp32 pair's and the bf16 dK/dV kernel's), a pairwise
+    affinity row above 65,536 columns."""
     cfg = ModelConfig(**{**CONFIG_C, **overrides})
     with pytest.raises(ValueError) as err:
         check_kernels_fit(cfg)
     for part in (*words, "--kernels torch"):
         assert part in str(err.value), part
+
+
+# ---------------------------------------------------------------------------
+# a configuration-(d)-shaped model: configuration (c)'s under use_bf16
+# ---------------------------------------------------------------------------
+
+BF16_KW = dict(backbone="bert4rec", emb_dim=256, bert_heads=1, bert_ff_dim=32,
+               bert_dropout=0.0, hid_dim=12, seq_len=6, batch_size=8, is_itc=True, ts2=0.12,
+               is_dr=True, comp_broadcast_quirk=False, item_length=50, user_length=50,
+               use_bf16=True)
+
+
+def test_a_head_width_256_bf16_pairwise_model_matches_jax(rng):
+    """BERT4Rec with one head of 256, pairwise InterComp, the DR heads at
+    hid_dim 12 (K5's wide kernel's shape class on the card) and
+    `use_bf16=True`: outputs and every leaf's gradient against the JAX
+    model built with `use_bf16=True` (fp32 on this CPU) at
+    `test_torch_precision.py`'s bf16 tolerances (BF16_OUT_TOL,
+    BF16_GRAD_TOL, BF16_LEAF_TOL). Both sides take the affinity in fp32
+    (JAX's XLA route), so a gate does not flip on the bf16 inputs of the
+    port's K6/K7; no history is fully masked (there the port's additive key
+    mask and JAX's XLA route part)."""
+    jcfg = JaxModelConfig(**BF16_KW, kernels="xla")
+    jmodel = jax_build_model(jcfg)
+    b, t, v = BF16_KW["batch_size"], BF16_KW["seq_len"], 2 * BF16_KW["item_length"]
+    batch = {"seq_d1": rng.integers(1, v, (b, t)).astype(np.int32),
+             "seq_d2": rng.integers(1, v, (b, t)).astype(np.int32),
+             "target": rng.integers(0, v, b).astype(np.int32),
+             "neg_samples": rng.integers(0, v, (b, 3)).astype(np.int32)}
+    key = jax.random.PRNGKey(0)
+    params = jmodel.init({"params": key, "dropout": key},
+                         {k: jnp.asarray(x) for k, x in batch.items()}, train=False)["params"]
+    port = AMIDModel(ModelConfig(**BF16_KW, kernels="cuda"))
+    assert head_width(port.cfg) == 256 and port.precision == "bf16"
+    port.load_state_dict(params_from_flax(_np_tree(params)), strict=True)
+    for name in ("itc_d1", "itc_d2"):
+        getattr(port, name).message.affinity = max_affinity_xla
+    weights = _weights(rng)
+    for k in OUT_KEYS:  # this width's outputs
+        if not k.startswith(("logits", "ips", "gfunc")):
+            weights[k] = rng.normal(size=(b, BF16_KW["emb_dim"])).astype(np.float32)
+    want, want_grads = _jax_outputs_and_grads(jmodel, params, batch, weights)
+    _, out, grads = _port_outputs_and_grads(port, batch, weights)
+    for k in OUT_KEYS:
+        ref = np.asarray(want[k])
+        assert np.abs(out[k].detach().numpy() - ref).max() <= BF16_OUT_TOL * np.abs(ref).max(), k
+    assert grads.keys() == want_grads.keys()
+    diff = ref_norm = 0.0
+    for name, g in grads.items():
+        ref = want_grads[name].numpy()
+        d = np.linalg.norm(g.numpy() - ref)
+        diff, ref_norm = diff + d ** 2, ref_norm + np.linalg.norm(ref) ** 2
+        if np.abs(ref).max() > 1e-6:
+            assert d <= BF16_LEAF_TOL * np.linalg.norm(ref), name
+    assert np.sqrt(diff) <= BF16_GRAD_TOL * np.sqrt(ref_norm)
+    fp32 = AMIDModel(ModelConfig(**{**BF16_KW, "use_bf16": False}, kernels="cuda"))
+    fp32.load_state_dict(port.state_dict())
+    with torch.no_grad():
+        assert (fp32(batch)["logits_d1"] - port(batch)["logits_d1"]).abs().max() > 1e-6

@@ -6,9 +6,11 @@ that each configuration's phase-A and phase-B steps and evaluation batch are
 timed and traced eager and replayed (`step_timing` records: wall ms, device
 ms from a `torch.profiler` trace, the device's idle share, the top
 kernels). The phases' checks run as in `chip_smoke.py`; the traces take
-about four minutes of the run (NVIDIA H100 80GB HBM3, 700.00 W).
+about four minutes of the run (NVIDIA H100 80GB HBM3, 700.00 W). Phase
+13(b), `wide_config`, adds configuration (d)'s replayed phase A (wall and
+device ms, peak memory: its `wide_config` record) to the steps it replays.
 
-    python3 tools/step_timings.py [training backbone c2dsr]
+    python3 tools/step_timings.py [training backbone c2dsr wide_config]
 
 Needs one CUDA card and nvcc; imports nothing of JAX."""
 
@@ -22,7 +24,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 # phase -> (chip_smoke's function, the numpy seed main() gives it)
 PHASES = {"training": ("training_phase", 1), "backbone": ("backbone_phase", 3),
-          "c2dsr": ("c2dsr_phase", 4)}
+          "c2dsr": ("c2dsr_phase", 4), "wide_config": ("wide_config_phase", 10)}
 
 
 def main(argv: list[str]) -> int:
