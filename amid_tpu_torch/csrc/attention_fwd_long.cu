@@ -38,11 +38,11 @@
 //     dh on. The bias is packed beside them (bias_pack_kernel): a bias
 //     broadcast over queries (BERT4Rec's key padding) as rows padded to
 //     whole stages with -inf; any other (SASRec's causal [1, 1, T, T]) as one
-//     [128][NS] tile per query block and stage, -inf past T, in the order
-//     the accumulator's threads read it, so that a thread's 4 values of a
-//     column group are one conflict-free 16-byte read. So no query block
-//     splits a stage again (10 blocks a head at T=1,200), and no block reads
-//     a bias element by element from L2.
+//     [128][NS] tile ([64][16] at dh = 256) per query block and stage, -inf
+//     past T, in the order the accumulator's threads read it, so that a
+//     thread's 4 values of a column group are one conflict-free 16-byte read.
+//     So no query block splits a stage again (10 blocks a head at T=1,200),
+//     and no block reads a bias element by element from L2.
 //   * A block owns 128 queries of one (b, h), two warpgroups of 64; the
 //     query blocks of one head are neighbours in the grid, so the head's
 //     packed stages are read from L2 by all of them. Q is split once a
@@ -69,17 +69,24 @@
 //     Such a head takes the build with AMID_ATTN_PAD=1 (its own library, dh
 //     read at run time); this build takes dh = DH only, a compile-time
 //     constant.
-//   * dh = 256 (template width 256, any dh from 129 to 256). The owned Q as
-//     TF32 halves would take 128 * 256 * 4 * 2 = 262,144 bytes, above a
-//     block's 232,448, and the O accumulator alone is 128 registers a
-//     thread. So Q is kept raw, one fp32 [128][256] tile (128 KB, chunks
-//     swizzled by row as the long backward's raw owned tiles), and its A
-//     fragments are split again at each k-step of each stage (raw_frag), in
-//     two buffers so that one k-step's products run while the next is split;
-//     a stage streams 8 keys (two or three in the ring), so that S = Q K^T is
-//     32 k-steps of m64n8k8, and O += P V is one m64n256k8 a stage. Right
-//     and simple, not fast: the small S products and the split of Q at every
-//     stage are the cost (PERF.md section 6).
+//   * dh = 256 (template width 256, any dh from 129 to 256):
+//     attention_fwd_long_wide_kernel. The owned Q of 128 rows as TF32 halves
+//     would take 256 KB, above a block's 227 KB, and an m64n256 O
+//     accumulator alone is 128 registers a thread. So a block owns 64
+//     queries and its two warpgroups split the head width: warpgroup w holds
+//     columns [128 w, 128 w + 128) of all 64 rows, Q's hi halves as A
+//     fragments in registers (64 a thread) and its lo halves in a [64][128]
+//     shared-memory tile (32 KB), both split once a block, and O for its 128
+//     columns (m64n128, 64 registers). A stage streams 16 keys (66 KB of
+//     split K and V, two in the ring). S = Q K^T is each warpgroup's partial
+//     product over its 128 columns (16 k-steps of m64n16k8, three a k-step:
+//     lo hi from shared memory, hi lo and hi hi from registers), the two
+//     partials added through shared memory (one block barrier a stage): the
+//     sum of two 48-product chains, each as long as dh = 128's, which keeps
+//     dh = 128's precision. Both warpgroups then take the same softmax of the
+//     same S (the same bits: the sum is commutative) and each adds P V for its
+//     columns (m64n128k8). Shared memory: 64 KB of Q lo, 2 x 70 KB of ring,
+//     16 KB of exchanged partials (216 KB, one block an SM).
 //   * Each instance is compiled for a bias that broadcasts over queries or
 //     not and for dropout on or off, so that no element pays for a branch.
 //   * At dh = 128 with one query block a head (T <= 128), or two (T <= 256)
@@ -97,7 +104,13 @@
 // written: 0.28 ms at 3.35 TB/s). What is left: the per-element work on the
 // CUDA cores (scale and bias, the running max, one exp, the dropout hash,
 // the split of P: 1.5e9 elements at T=1,200), as much as the products'; every
-// block reads all key stages, also the causally masked ones.
+// block reads all key stages, also the causally masked ones. At dh = 256
+// (B=256, H=4, T=300): 9.4e10 operations, 0.19 ms at the TF32 peak (0.57 ms
+// as 3xTF32), against 1.26 GB of q, k, v read and o written, 0.376 ms: bound
+// by bytes. The wide kernel's pre-pass moves 1.9 GB (K and V read, their
+// halves written) and each stage of a block issues 48 m64n16k8 and 6
+// m64n128k8 products a warpgroup, one block an SM (216 KB of shared memory,
+// 174-186 registers).
 
 #include <string.h>
 
@@ -136,26 +149,36 @@ template <int DH>
 __host__ __device__ constexpr bool q_in_regs() {
   return DH <= 16;
 }
-// Q raw in shared memory, its fragments split at each use (dh = 256)
-template <int DH>
-__host__ __device__ constexpr bool q_raw() {
-  return DH == 256;
-}
-// floats of Q in shared memory: none, its raw tile, or its hi and lo tiles
+// floats of Q in shared memory: none, or its hi and lo tiles (dh <= 128);
+// at dh = 256 each warpgroup's [64][128] tile of lo halves
 template <int DH>
 __host__ __device__ constexpr int q_floats() {
-  return q_in_regs<DH>() ? 0 : q_raw<DH>() ? kOwn * DH : 2 * kOwn * DH;
+  return q_in_regs<DH>() ? 0 : DH == 256 ? 2 * 64 * 128 : 2 * kOwn * DH;
 }
 
-// one stage of the scratch and of the ring, in floats: K hi, K lo, V hi,
-// V lo ([dh][NS]), then the bias's part
+// queries a block owns: 128, 64 at dh = 256 (attention_fwd_long_wide_kernel)
+template <int DH>
+__host__ __device__ constexpr int own_rows() {
+  return DH == 256 ? 64 : kOwn;
+}
+// the threads whose accumulator rows a bias tile is laid out for: both
+// warpgroups, or at dh = 256 one (the two hold the same rows)
+template <int DH>
+__host__ __device__ constexpr int tile_threads() {
+  return DH == 256 ? 128 : kThreads;
+}
+
+// one stage of the scratch and of the ring, in floats: K hi, K lo ([NS][dh]),
+// V hi, V lo ([dh][NS]), then the bias's part; NS keys, Plan's (16 at dh = 256)
 template <int DH>
 struct Stage {
   using P = Plan<DH>;
-  static constexpr int NS = P::NS;
-  static constexpr int KV = 2 * P::TILE + 2 * P::TR;
-  static constexpr int BIAS_ROW = NS;          // a bias broadcast over queries
-  static constexpr int BIAS_TILE = kOwn * NS;  // any other
+  static constexpr int NS = DH == 256 ? 16 : P::NS;
+  static constexpr int TILE = NS * DH;   // floats of a [NS][dh] tile
+  static constexpr int TR = NS * DH + NS;  // of a [dh][NS] tile (chunk padding)
+  static constexpr int KV = 2 * TILE + 2 * TR;
+  static constexpr int BIAS_ROW = NS;                    // a bias broadcast over queries
+  static constexpr int BIAS_TILE = own_rows<DH>() * NS;  // any other
 };
 
 template <int DH, bool BCAST>
@@ -214,8 +237,8 @@ __device__ __forceinline__ int unperm8(int p) {
 template <int DH>
 __global__ void __launch_bounds__(kThreads)
 split_kv_kernel(const FwdParams p, float* __restrict__ out, int ns) {
-  using P = Plan<DH>;
-  constexpr int NS = P::NS, C = P::C;
+  using P = Stage<DH>;
+  constexpr int NS = P::NS, C = Plan<DH>::C;
   __shared__ __align__(16) float kr[NS * DH];
   __shared__ __align__(16) float vr[NS * DH];
   const int tid = threadIdx.x;
@@ -256,11 +279,12 @@ split_kv_kernel(const FwdParams p, float* __restrict__ out, int ns) {
 }
 
 // The bias beside them: with bcast, each of `rows` rows as ns * NS values,
-// -inf past T; else each row's [128][NS] tile of each query block and
+// -inf past T; else each row's [own][NS] tile of each query block and
 // stage in tile order: float4 (j, tid) holds thread tid's 4 values of
-// column group j. A query row past T reads row T - 1 (it writes nothing).
+// column group j, for `threads` threads. A query row past T reads row T - 1
+// (it writes nothing).
 __global__ void bias_pack_kernel(const FwdParams p, float* __restrict__ out, int rows, int ns,
-                                 int ns_keys, int n_qb, int bcast) {
+                                 int ns_keys, int n_qb, int own, int threads, int bcast) {
   const int T = p.T;
   if (bcast) {
     const long long n = (long long)rows * ns * ns_keys;
@@ -273,11 +297,11 @@ __global__ void bias_pack_kernel(const FwdParams p, float* __restrict__ out, int
     return;
   }
   const int groups = ns_keys / 8;
-  const long long n = (long long)rows * n_qb * ns * groups * kThreads;
+  const long long n = (long long)rows * n_qb * ns * groups * threads;
   for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x; e < n;
        e += (long long)gridDim.x * blockDim.x) {
-    const int tid = (int)(e % kThreads);
-    long long rest = e / kThreads;
+    const int tid = (int)(e % threads);
+    long long rest = e / threads;
     const int j = (int)(rest % groups);
     rest /= groups;
     const int s = (int)(rest % ns);
@@ -288,7 +312,7 @@ __global__ void bias_pack_kernel(const FwdParams p, float* __restrict__ out, int
     float v[4];
 #pragma unroll
     for (int x = 0; x < 4; ++x) {
-      const int i = min(qb * kOwn + rl + 8 * (x >> 1), T - 1);
+      const int i = min(qb * own + rl + 8 * (x >> 1), T - 1);
       const int key = s * ns_keys + 8 * j + 2 * t4 + (x & 1);
       v[x] = key < T ? p.bias[r * p.bias_sb + (long long)i * p.bias_si + key] : -INFINITY;
     }
@@ -304,12 +328,13 @@ __global__ void bias_pack_kernel(const FwdParams p, float* __restrict__ out, int
 template <int DH, bool BCAST, bool DROP>
 __global__ void __launch_bounds__(kThreads, min_blocks<DH>())
 attention_fwd_long_kernel(const FwdParams p, const Packed pk) {
+  static_assert(DH <= 128, "dh = 256 has attention_fwd_long_wide_kernel");
   using P = Plan<DH>;
   using S = Stage<DH>;
   constexpr int NS = P::NS, KS = DH / 8, JS = NS / 8;
   constexpr int SLOTS = ring_stages<DH, BCAST>();
   constexpr int SF = stage_floats<DH, BCAST>();
-  constexpr bool QREG = q_in_regs<DH>(), QRAW = q_raw<DH>();
+  constexpr bool QREG = q_in_regs<DH>();
   constexpr uint32_t kKvBytes = S::KV * 4;
   constexpr uint32_t kBiasBytes = (BCAST ? S::BIAS_ROW : S::BIAS_TILE) * 4;
   const int T = p.T, dh = kPadBuild ? p.dh : DH;
@@ -318,8 +343,7 @@ attention_fwd_long_kernel(const FwdParams p, const Packed pk) {
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);  // [SLOTS] a stage landed
   uint64_t* empty = full + SLOTS;                      // [SLOTS] a stage read
   float* qhi = reinterpret_cast<float*>(smem + 128);   // [128][dh] Q's halves (dh >= 32)
-                                                       // or, at dh = 256, Q raw
-  float* qlo = qhi + (QREG || QRAW ? 0 : kOwn * DH);
+  float* qlo = qhi + (QREG ? 0 : kOwn * DH);
   float* ring = qhi + q_floats<DH>();                  // SLOTS x (K, V, the bias's part)
 
   const int tid = threadIdx.x;
@@ -365,9 +389,6 @@ attention_fwd_long_kernel(const FwdParams p, const Packed pk) {
   uint32_t qf_hi[KA][4], qf_lo[KA][4];
   if constexpr (QREG) {
     owned_frags<DH>(qb_rows, p.q_st, q0 + rl, T, dh, t4, qf_hi, qf_lo);
-  } else if constexpr (QRAW) {
-    load_owned_raw<DH>(qb_rows, p.q_st, q0, T, dh, qhi, tid);
-    __syncthreads();
   } else {
     load_owned<DH>(qb_rows, p.q_st, q0, T, dh, qhi, qlo, tid);
     fence_proxy_async();
@@ -404,22 +425,17 @@ attention_fwd_long_kernel(const FwdParams p, const Packed pk) {
 #pragma unroll
     for (int x = 0; x < NS / 2; ++x) sa[x] = 0.f;
     fence_regs(sa);
-    if constexpr (QRAW) {
-      products_raw<DH, NS, false, 4>(sa, sa, qhi, qhi, rl, t4, kb_hi, kb_lo, kb_hi,
-                                         kb_lo);
-    } else {
-      wgmma_fence();
+    wgmma_fence();
 #pragma unroll
-      for (int k = 0; k < KS; ++k) {
-        if constexpr (QREG) {
-          mma3_rs<NS>(sa, qf_hi[k], qf_lo[k], kb_hi + 16 * k, kb_lo + 16 * k);
-        } else {
-          mma3_ss<NS>(sa, qa_hi + 16 * k, qa_lo + 16 * k, kb_hi + 16 * k, kb_lo + 16 * k);
-        }
+    for (int k = 0; k < KS; ++k) {
+      if constexpr (QREG) {
+        mma3_rs<NS>(sa, qf_hi[k], qf_lo[k], kb_hi + 16 * k, kb_lo + 16 * k);
+      } else {
+        mma3_ss<NS>(sa, qa_hi + 16 * k, qa_lo + 16 * k, kb_hi + 16 * k, kb_lo + 16 * k);
       }
-      wgmma_commit();
-      wgmma_wait<0>();
     }
+    wgmma_commit();
+    wgmma_wait<0>();
     fence_regs(sa);
 
     // the scores, scaled and biased (keys past T: bias -inf), and the
@@ -517,6 +533,273 @@ attention_fwd_long_kernel(const FwdParams p, const Packed pk) {
     }
   }
   if (p.row_max != nullptr && t4 == 0) {
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      const int i = q0 + rl + 8 * x;
+      if (i < T) {
+        p.row_max[(long long)bh * T + i] = m[x];
+        p.row_inv_sum[(long long)bh * T + i] = inv[x];
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// dh = 256: a block owns 64 queries, its warpgroups split the head width
+// (the design notes at the top)
+// ---------------------------------------------------------------------------
+
+constexpr int kWideHalf = 128;  // columns of the head a warpgroup holds at dh = 256
+
+template <bool BCAST>
+__host__ __device__ constexpr size_t wide_smem() {
+  // the barriers, Q's lo halves, two ring slots, the exchanged partial S of
+  // two stages (every thread's NS / 2 values)
+  return 128 + sizeof(float) * (q_floats<256>() + 2 * stage_floats<256, BCAST>() +
+                                2 * kThreads * Stage<256>::NS / 2);
+}
+
+// BCAST: the bias broadcasts over queries (bias_si == 0); DROP: dropout on
+template <bool BCAST, bool DROP>
+__global__ void __launch_bounds__(kThreads, 1)
+attention_fwd_long_wide_kernel(const FwdParams p, const Packed pk) {
+  constexpr int DH = 256, HALF = kWideHalf, OWN = own_rows<256>();
+  using S = Stage<DH>;
+  constexpr int NS = S::NS, KH = HALF / 8, JS = NS / 8, SLOTS = 2;
+  constexpr int SF = stage_floats<DH, BCAST>();
+  constexpr uint32_t kKvBytes = S::KV * 4;
+  constexpr uint32_t kBiasBytes = (BCAST ? S::BIAS_ROW : S::BIAS_TILE) * 4;
+  constexpr int kTrStep = 2 * Plan<DH>::TR_LBO / 16;  // a k-step of a [dh][NS] tile
+  const int T = p.T, dh = kPadBuild ? p.dh : DH;
+
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);  // [SLOTS] a stage landed
+  uint64_t* empty = full + SLOTS;                      // [SLOTS] a stage read
+  float* qlo = reinterpret_cast<float*>(smem + 128);   // [2][64][128] each warpgroup's Q lo
+  float* ring = qlo + q_floats<DH>();                  // SLOTS x (K, V, the bias's part)
+  float4* xs = reinterpret_cast<float4*>(ring + SLOTS * SF);  // [2][NS / 8][256] partial S
+
+  const int tid = threadIdx.x;
+  const int qb = blockIdx.x % pk.n_qb;
+  const int bh = blockIdx.x / pk.n_qb;
+  const int b = bh / p.H;
+  const int h = bh - b * p.H;
+  const int q0 = qb * OWN;
+  const int ns = (T + NS - 1) / NS;
+  const float* kv = pk.kv + (size_t)bh * ns * S::KV;
+  const float* bias_src =
+      BCAST ? pk.bias + (size_t)(p.bias_sb ? b : 0) * ns * NS
+            : pk.bias + ((size_t)(p.bias_sb ? b : 0) * pk.n_qb + qb) * ns * S::BIAS_TILE;
+
+  if (tid == 0) {
+    for (int s = 0; s < SLOTS; ++s) {
+      mbar_init(smem_u32(full + s), 1);
+      mbar_init(smem_u32(empty + s), kThreads);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  auto issue = [&](int s) {  // stage s into slot s % SLOTS
+    float* st = ring + (s % SLOTS) * SF;
+    const uint32_t bar = smem_u32(full + s % SLOTS);
+    mbar_expect_tx(bar, kKvBytes + kBiasBytes);
+    bulk_copy(smem_u32(st), kv + (size_t)s * S::KV, kKvBytes, bar);
+    bulk_copy(smem_u32(st + S::KV), bias_src + (size_t)s * (kBiasBytes / 4), kBiasBytes, bar);
+  };
+  if (tid == 0)
+    for (int s = 0; s < SLOTS && s < ns; ++s) issue(s);
+
+  const int wg = tid >> 7, lt = tid & 127, t4 = tid & 3;
+  const int rl = acc_row(lt);  // this thread's rows rl, rl + 8 of the block, in either warpgroup
+  const int c0 = wg * HALF;    // the first of this warpgroup's columns
+  uint32_t key2[2];
+  const uint32_t bh_key =
+      DROP ? mix(mix(kMixKey0, (uint32_t)*p.seed), (uint32_t)bh + p.bh_offset) : 0u;
+#pragma unroll
+  for (int x = 0; x < 2; ++x) key2[x] = DROP ? mix(bh_key, (uint32_t)(q0 + rl + 8 * x)) : 0u;
+
+  // Q split once: the hi halves as the A fragments of the warpgroup's 16
+  // k-steps (rows rl and rl + 8, columns c0 + 8 k + t and + 4), the lo halves
+  // into its [64][128] tile at the same places; rows past T and columns from
+  // dh on are zeros
+  uint32_t qf[KH][4];
+  float* mylo = qlo + wg * OWN * HALF;
+  {
+    const float* qh = p.q + b * p.q_sb + h * dh;
+    const int r0 = q0 + rl;
+    const bool in0 = r0 < T, in1 = r0 + 8 < T;
+    const float* a0 = qh + (long long)(in0 ? r0 : 0) * p.q_st;
+    const float* a1 = qh + (long long)(in1 ? r0 + 8 : 0) * p.q_st;
+#pragma unroll
+    for (int k = 0; k < KH; ++k) {
+      const int c = c0 + 8 * k + t4;
+      const bool lo_in = !kPadBuild || c < dh, hi_in = !kPadBuild || c + 4 < dh;
+      const float v[4] = {in0 && lo_in ? __ldg(a0 + c) : 0.f, in1 && lo_in ? __ldg(a1 + c) : 0.f,
+                          in0 && hi_in ? __ldg(a0 + c + 4) : 0.f,
+                          in1 && hi_in ? __ldg(a1 + c + 4) : 0.f};
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        const Split sp = split(v[x]);
+        qf[k][x] = sp.hi;
+        const int col = 8 * k + t4 + 4 * (x >> 1);  // within the warpgroup's half
+        mylo[tile_at<HALF>(rl + 8 * (x & 1), col >> 2) + (col & 3)] = __uint_as_float(sp.lo);
+      }
+    }
+  }
+  fence_proxy_async();
+  __syncthreads();
+  const uint64_t qa_lo = tile_desc<HALF>(mylo);
+
+  float o[HALF / 2];
+#pragma unroll
+  for (int x = 0; x < HALF / 2; ++x) o[x] = 0.f;
+  // row max and this thread's part of the row sum, rows rl and rl + 8: the
+  // same in both warpgroups
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+  for (int s = 0; s < ns; ++s) {
+    if (tid == 0 && s > 0 && s - 1 + SLOTS < ns) {
+      // every thread released stage s - 1: its slot takes stage s - 1 + SLOTS
+      mbar_wait(smem_u32(empty + (s - 1) % SLOTS), ((s - 1) / SLOTS) & 1);
+      issue(s - 1 + SLOTS);
+    }
+    __syncwarp();
+    const int slot = s % SLOTS;
+    const float* st = ring + slot * SF;
+    const float* bias_s = st + S::KV;
+    const int j0 = s * NS;
+    // this warpgroup's columns of K (k-steps 16 wg on) and of V^T (rows c0 on)
+    const uint64_t kb_hi = tile_desc<DH>(st) + 16 * KH * wg;
+    const uint64_t kb_lo = tile_desc<DH>(st + S::TILE) + 16 * KH * wg;
+    const uint64_t vt_hi = tr_desc<DH>(st + 2 * S::TILE) + c0;  // 16 bytes a column
+    const uint64_t vt_lo = tr_desc<DH>(st + 2 * S::TILE + S::TR) + c0;
+    mbar_wait(smem_u32(full + slot), (s / SLOTS) & 1);
+
+    // the warpgroup's part of S = Q K^T, 3xTF32 (lo hi, hi lo, hi hi a k-step)
+    float sa[NS / 2];
+#pragma unroll
+    for (int x = 0; x < NS / 2; ++x) sa[x] = 0.f;
+    fence_regs(sa);
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < KH; ++k) {
+      mma_ss<NS>(sa, qa_lo + 16 * k, kb_hi + 16 * k);
+      mma_rs<NS>(sa, qf[k], kb_lo + 16 * k);
+      mma_rs<NS>(sa, qf[k], kb_hi + 16 * k);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sa);
+    // S: the two warpgroups' parts added (the same bits in both), through
+    // the exchange buffer of this stage's parity
+    float4* xb = xs + (s & 1) * (NS / 8) * kThreads;
+#pragma unroll
+    for (int c = 0; c < NS / 8; ++c)
+      xb[c * kThreads + tid] = make_float4(sa[4 * c], sa[4 * c + 1], sa[4 * c + 2], sa[4 * c + 3]);
+    __syncthreads();
+#pragma unroll
+    for (int c = 0; c < NS / 8; ++c) {
+      const float4 r = xb[c * kThreads + (tid ^ 128)];
+      sa[4 * c] += r.x;
+      sa[4 * c + 1] += r.y;
+      sa[4 * c + 2] += r.z;
+      sa[4 * c + 3] += r.w;
+    }
+
+    // the scores, scaled and biased (keys past T: bias -inf), and the
+    // stage's row max: element e of column group j is row rl + 8 (e / 2),
+    // key 8 j + 2 t + e % 2 of the stage
+    float cm[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < JS; ++j) {
+      float bv[4];
+      if constexpr (BCAST) {
+        const float2 r = *reinterpret_cast<const float2*>(bias_s + 8 * j + 2 * t4);
+        bv[0] = bv[2] = r.x;
+        bv[1] = bv[3] = r.y;
+      } else {
+        const float4 r = reinterpret_cast<const float4*>(bias_s)[j * 128 + lt];
+        bv[0] = r.x, bv[1] = r.y, bv[2] = r.z, bv[3] = r.w;
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float sv = fmaf(sa[4 * j + e], p.scale, bv[e]);
+        sa[4 * j + e] = sv;
+        cm[e >> 1] = fmaxf(cm[e >> 1], sv);
+      }
+    }
+    // every stage holds a real key, so the new maxima are finite
+    float al[2];
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      const float mn = fmaxf(m[x], quad_max(cm[x]));
+      al[x] = __expf(m[x] - mn);
+      m[x] = mn;
+      l[x] *= al[x];
+    }
+#pragma unroll
+    for (int c = 0; c < HALF / 8; ++c) {
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+        o[4 * c + 2 * x] *= al[x];
+        o[4 * c + 2 * x + 1] *= al[x];
+      }
+    }
+
+    // P of 8 keys a column group j, then O += P V for this warpgroup's
+    // columns; group j's products run while group j + 1 is computed
+    uint32_t ahi[2][4], alo[2][4];
+    fence_regs(o);
+#pragma unroll
+    for (int j = 0; j < JS; ++j) {
+      float pv[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int x = e >> 1;
+        float ev = __expf(sa[4 * j + e] - m[x]);
+        l[x] += ev;
+        if constexpr (DROP) {
+          const uint32_t key = (uint32_t)(j0 + 8 * j + 2 * t4 + (e & 1));
+          ev = (mix(key2[x], key) >> 8) >= p.keep_threshold ? ev * p.inv_keep : 0.f;
+        }
+        pv[e] = ev;
+      }
+      if (j >= 2) wgmma_wait<1>();  // group j - 2 is done: its buffer is free
+      fence_regs(ahi[j & 1]);
+      fence_regs(alo[j & 1]);
+      frag(pv, ahi[j & 1], alo[j & 1]);
+      fence_regs(ahi[j & 1]);
+      fence_regs(alo[j & 1]);
+      wgmma_fence();
+      mma3_rs<HALF>(o, ahi[j & 1], alo[j & 1], vt_hi + j * kTrStep, vt_lo + j * kTrStep);
+      wgmma_commit();
+    }
+    wgmma_wait<0>();
+    fence_regs(o);
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      fence_regs(ahi[x]);
+      fence_regs(alo[x]);
+    }
+    mbar_arrive(smem_u32(empty + slot));  // this thread is done with the stage
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int x = 0; x < 2; ++x) inv[x] = 1.f / quad_sum(l[x]);
+  const long long out_base = (long long)b * T * p.D + h * dh;
+#pragma unroll
+  for (int c = 0; c < HALF / 8; ++c) {
+    const int col = c0 + c * 8 + 2 * t4;
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      const int i = q0 + rl + 8 * x;
+      if (i < T)
+        store2<DH>(p.out + out_base + (long long)i * p.D, col, dh, o[4 * c + 2 * x] * inv[x],
+                   o[4 * c + 2 * x + 1] * inv[x]);
+    }
+  }
+  if (p.row_max != nullptr && t4 == 0 && wg == 0) {
 #pragma unroll
     for (int x = 0; x < 2; ++x) {
       const int i = q0 + rl + 8 * x;
@@ -800,9 +1083,9 @@ struct Layout {
 template <int DH>
 Layout layout(const FwdArgs& a) {
   Layout L;
-  constexpr int NS = Plan<DH>::NS;
+  constexpr int NS = Stage<DH>::NS, OWN = own_rows<DH>();
   L.ns = (int)((a.T + NS - 1) / NS);
-  L.n_qb = (int)((a.T + kOwn - 1) / kOwn);
+  L.n_qb = (int)((a.T + OWN - 1) / OWN);
   L.rows = a.bias_sb ? (int)a.B : 1;
   L.bcast = a.bias_si == 0;
   L.inblock = DH == 128 && L.n_qb <= (L.bcast ? kInblockMaxQb : kInblockMaxQbTile);
@@ -852,43 +1135,80 @@ cudaError_t launch_inblock(const FwdParams& p, int B, cudaStream_t stream) {
                    : inblock_one<128, false, false>(p, grid, stream);
 }
 
+template <bool BCAST, bool DROP>
+cudaError_t wide_opt_in() {
+  return cudaFuncSetAttribute(attention_fwd_long_wide_kernel<BCAST, DROP>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)wide_smem<BCAST>());
+}
+
+template <bool BCAST, bool DROP>
+cudaError_t wide_one(const FwdParams& p, const Packed& pk, unsigned blocks, cudaStream_t stream) {
+  attention_fwd_long_wide_kernel<BCAST, DROP>
+      <<<blocks, kThreads, wide_smem<BCAST>(), stream>>>(p, pk);
+  return cudaGetLastError();
+}
+
+// the kernel of template width DH, its four instances asked once for their
+// shared memory at the first launch at that width (not a stream operation:
+// it stays out of a CUDA graph's capture)
+template <int DH>
+cudaError_t launch_kernel(const FwdParams& p, const Packed& pk, unsigned blocks, bool bcast,
+                          cudaStream_t stream) {
+  if constexpr (DH == 256) {
+    static_assert(wide_smem<false>() <= 232448 && wide_smem<true>() <= 232448,
+                  "a block's shared memory");
+    static const cudaError_t opted_in = [] {
+      cudaError_t e = wide_opt_in<true, false>();
+      if (e == cudaSuccess) e = wide_opt_in<true, true>();
+      if (e == cudaSuccess) e = wide_opt_in<false, false>();
+      if (e == cudaSuccess) e = wide_opt_in<false, true>();
+      return e;
+    }();
+    if (opted_in != cudaSuccess) return opted_in;
+    if (bcast)
+      return p.dropout ? wide_one<true, true>(p, pk, blocks, stream)
+                       : wide_one<true, false>(p, pk, blocks, stream);
+    return p.dropout ? wide_one<false, true>(p, pk, blocks, stream)
+                     : wide_one<false, false>(p, pk, blocks, stream);
+  } else {
+    static_assert(fwd_long_smem<DH, false>() <= 232448 && fwd_long_smem<DH, true>() <= 232448,
+                  "a block's shared memory");
+    static const cudaError_t opted_in = [] {
+      cudaError_t e = opt_in<DH, true, false>();
+      if (e == cudaSuccess) e = opt_in<DH, true, true>();
+      if (e == cudaSuccess) e = opt_in<DH, false, false>();
+      if (e == cudaSuccess) e = opt_in<DH, false, true>();
+      return e;
+    }();
+    if (opted_in != cudaSuccess) return opted_in;
+    if (bcast)
+      return p.dropout ? launch_one<DH, true, true>(p, pk, blocks, stream)
+                       : launch_one<DH, true, false>(p, pk, blocks, stream);
+    return p.dropout ? launch_one<DH, false, true>(p, pk, blocks, stream)
+                     : launch_one<DH, false, false>(p, pk, blocks, stream);
+  }
+}
+
 template <int DH>
 cudaError_t launch(const FwdParams& p, const FwdArgs& a, float* scratch, long long bytes,
                    cudaStream_t stream, int& refusal) {
-  static_assert(fwd_long_smem<DH, false>() <= 232448 && fwd_long_smem<DH, true>() <= 232448,
-                "a block's shared memory");
   const Layout L = layout<DH>(a);
   if (L.inblock) return launch_inblock(p, (int)a.B, stream);
   if (bytes < 4 * (L.kv_floats + L.bias_floats)) {
     refusal = kSmallScratch;
     return cudaSuccess;
   }
-  // asked once for the four instances, at the first launch at this head
-  // width (not a stream operation: it stays out of a CUDA graph's capture)
-  static const cudaError_t opted_in = [] {
-    cudaError_t e = opt_in<DH, true, false>();
-    if (e == cudaSuccess) e = opt_in<DH, true, true>();
-    if (e == cudaSuccess) e = opt_in<DH, false, false>();
-    if (e == cudaSuccess) e = opt_in<DH, false, true>();
-    return e;
-  }();
-  if (opted_in != cudaSuccess) return opted_in;
   split_kv_kernel<DH><<<(unsigned)(a.B * a.H * L.ns), kThreads, 0, stream>>>(p, scratch, L.ns);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   float* bias = scratch + L.kv_floats;
   const long long items = L.bcast ? L.bias_floats : L.bias_floats / 4;
-  bias_pack_kernel<<<blocks_for(items), 256, 0, stream>>>(p, bias, L.rows, L.ns, Plan<DH>::NS,
-                                                         L.n_qb, L.bcast);
+  bias_pack_kernel<<<blocks_for(items), 256, 0, stream>>>(
+      p, bias, L.rows, L.ns, Stage<DH>::NS, L.n_qb, own_rows<DH>(), tile_threads<DH>(), L.bcast);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   const Packed pk = {scratch, bias, L.n_qb};
-  const unsigned blocks = (unsigned)(a.B * a.H * L.n_qb);
-  if (L.bcast)
-    return p.dropout ? launch_one<DH, true, true>(p, pk, blocks, stream)
-                     : launch_one<DH, true, false>(p, pk, blocks, stream);
-  return p.dropout ? launch_one<DH, false, true>(p, pk, blocks, stream)
-                   : launch_one<DH, false, false>(p, pk, blocks, stream);
+  return launch_kernel<DH>(p, pk, (unsigned)(a.B * a.H * L.n_qb), L.bcast, stream);
 }
 
 // The entry point's argument block: the forward's FwdArgs, then the scratch
@@ -903,7 +1223,8 @@ int check(const FwdArgs& a) {
   const long long dh = a.D / a.H;
   if (long_template_dh((int)dh) == 0) return kBadHeadWidth;
   if (!kPadBuild && dh != long_template_dh((int)dh)) return kBadHeadWidth;  // the padded build's
-  if (a.T > 65535LL * kOwn || a.B * a.H * ((a.T + kOwn - 1) / kOwn) > 2147483647LL)
+  const int own = long_template_dh((int)dh) == 256 ? own_rows<256>() : kOwn;
+  if (a.T > 65535LL * kOwn || a.B * a.H * ((a.T + own - 1) / own) > 2147483647LL)
     return kTooLong;
   return 0;
 }

@@ -23,29 +23,49 @@
 // same bits.
 //
 // Design (attention_long_bf16.cuh has the layout and the products):
-//   * A pre-pass (pack_kernel) rounds q, k and v to bf16 once a call into a
-//     scratch the wrapper allocates, [B, H, T_pad, dh_pad] in the tile order
-//     wgmma reads; a bias that broadcasts over queries is padded to T_pad
-//     with -inf beside it. The fp32 build re-read and re-split every K and
-//     V stage once per query block (10 blocks a head at T=1,200).
-//   * A block owns 128 queries of one (b, h), two warpgroups of 64. Its Q
-//     rows land once by one bulk copy; K, V and the bias row stream through
-//     a ring of kStages stages of kStageKeys keys, each stage landed by bulk
-//     copies on a full mbarrier. Thread 0 issues every copy: it refills the
-//     slot of stage s - 1 at the top of stage s, once both warpgroups have
-//     arrived on that slot's empty mbarrier, so it seldom waits; no ninth
-//     warp (ptxas serialises wgmma with one).
+//   * A block owns 128 queries of one (b, h), two warpgroups of 64; the
+//     query blocks of one head are neighbours in a 1-D grid (block x: head
+//     x / n_qb, query block x % n_qb), so that the head's K and V stages are
+//     read from L2 by every query block after the first. Its Q rows become
+//     the K-major owned tile once; K, V and the bias row stream in stages of
+//     kStageKeys keys. Where the operands come from depends on the template
+//     width (packed_operands):
+//       - dh <= 64: a pre-pass (pack_kernel) rounds q, k and v to bf16 once a
+//         call into a scratch the wrapper allocates, [B, H, T_pad, dh_pad] in
+//         the tile order wgmma reads (T_pad: T rounded up to 128 rows); a bias
+//         that broadcasts over queries is padded to T_pad with -inf beside
+//         them. The owned Q lands by one bulk copy, and the stages through a
+//         ring of stages() slots, each landed by bulk copies on a full
+//         mbarrier. Thread 0 issues every copy: it refills the slot of stage
+//         s - 1 at the top of stage s, once both warpgroups have arrived on
+//         that slot's empty mbarrier, so it seldom waits; no ninth warp
+//         (ptxas serialises wgmma with one).
+//       - dh = 128 and 256: each block reads its own Q rows as fp32 once and
+//         rounds them (cvt.rn.bf16x2, as the pre-pass does; zeros past T and
+//         from dh on) into the owned tile, its loads batched eight 16-byte
+//         chunks a thread; the pre-pass packs K and V alone, to T rounded up
+//         to a stage (a third less pre-pass traffic than q, k and v to 128-row
+//         blocks), and they stream through a ring of two stages as above.
+//         K and V rounded in the block instead (no pre-pass) measured slower
+//         at dh = 128 in both forms tried, fp32 stages landed by cp.async in a
+//         ring of two and rounded in shared memory, or loaded into registers a
+//         stage ahead (PERF.md section 6); at dh = 256 a stage's K and
+//         V as fp32 are 128 registers a thread beside the output's 128, or 128
+//         KB of shared memory beside Q's 64 KB and a packed stage's 64 KB.
+//     The rounding in the block gives the bits the pre-pass wrote, so every
+//     instance computes what the all-packed design computed, bit for bit.
 //   * S = Q K^T: wgmma m64n64k16 with both operands in shared memory (K
 //     K-major). P leaves the accumulator as k16 A fragments (two column
 //     groups a k-step, cvt.rn.bf16x2) and O += P V is issued one k-step (16
 //     keys) at a time with V's tile read MN-major (the transpose
 //     immediate), so that one k-step's products run while the next one's
 //     exponentials and dropout hash are taken.
-//   * Two blocks an SM (46-82 KB of shared memory a block; at most 128
-//     registers a thread): one block's products overlap the other's
-//     exponentials; one at dh = 128 (161 KB; the output alone takes 64
-//     registers). The warpgroups of a block pass no turn between them;
-//     each releases a stage on its own.
+//   * Two blocks an SM up to dh = 128 (46-97 KB of shared memory a block;
+//     at most 128 registers a thread, of which the output takes 64 at dh =
+//     128, where ptxas spills 0-180 bytes): one block's products, waits and
+//     first loads overlap the other's exponentials; one at dh = 256. The
+//     warpgroups of a block pass no turn between them; each releases a stage
+//     on its own.
 //   * dh = 256 (template width 256, any dh from 129 to 256; the build with
 //     AMID_BF16_WIDE=1, ops/_build.py's VARIANTS, which holds these
 //     instances alone so that its nvcc runs beside the others): the owned
@@ -54,7 +74,7 @@
 //     accumulator, 128 registers a thread beside S's 32, and O += P V one
 //     m64n256k16 a k-step. The stage stays 64 keys: it is the rounding point.
 //   * A head of width dh runs at its template width (attention_common.cuh):
-//     the pre-pass packs it to that width with zero columns, and no output
+//     it is packed or rounded to that width with zero columns, and no output
 //     column from dh on is written.
 //   * Each instance is compiled for a bias that broadcasts over queries or
 //     not and for dropout on or off. A causal [1, 1, T, T] bias is read
@@ -67,9 +87,15 @@
 // per-element work on the CUDA cores (scale and bias, the running max, one
 // exp, the dropout hash and the conversion: 1.5e9 elements at T=1,200), the
 // pre-pass's 0.7 GB, and T padded to the 128-row blocks. At configuration
+// (a)'s shape (B=256, H=4, dh=128, T=300): 4.7e10 operations, 0.048 ms at
+// the bf16 peak, against 629 MB of q, k, v read and o written, 0.188 ms:
+// bound by bytes; this design adds the pre-pass's round trip of K and V
+// (0.31 GB read, 0.17 GB written) and the kernel's read of the packed 0.17
+// GB (the head's three query blocks re-read it from L2). At configuration
 // (d)'s shape (B=256, H=4, dh=256, T=300): 9.4e10 operations, 0.095 ms at
 // the bf16 peak, against 1.26 GB of q, k, v read and o written, 0.376 ms:
-// bound by bytes.
+// bound by bytes; the pre-pass adds 0.63 GB read and 0.34 GB written, the
+// kernel 0.34 GB read.
 
 #include <string.h>
 
@@ -86,19 +112,33 @@ using namespace amid_bf16;
 constexpr bool kWideBuild = AMID_BF16_WIDE != 0;  // the template width 256 build alone
 constexpr int kStageKeys = 64;  // keys a stage: the online softmax's rounding point
 
-// stages of the ring: four, two at dh = 256 (a stage's K and V take 64 KB)
+// Q read as fp32 by its block and rounded there (template widths 128, 256)
+__host__ __device__ constexpr bool q_inblock(int DH) { return DH >= 128; }
+// the inputs the pre-pass packs: q, k and v (dh <= 64), k and v (128, 256)
+__host__ __device__ constexpr int packed_operands(int DH) { return q_inblock(DH) ? 2 : 3; }
+// rows of a packed head: T rounded up to the 128-row blocks where Q is packed
+// (a block's rows land by one bulk copy), else to whole stages
+inline long long packed_rows(int DH, long long T) {
+  return packed_operands(DH) == 3 ? padded_t(T)
+                                  : (T + kStageKeys - 1) / kStageKeys * kStageKeys;
+}
+
+// slots of the ring: four; two from dh = 128 (two blocks an SM at dh = 128,
+// and at dh = 256 a stage's K and V take 64 KB)
 template <int DH>
 __host__ __device__ constexpr int stages() {
-  return DH == 256 ? 2 : 4;
+  return DH >= 128 ? 2 : 4;
 }
 
-// blocks an SM: two, for one block's products to overlap the other's
-// exponentials, where 128 registers a thread hold the output and the scores
+// blocks an SM: two, for one block's products, waits and first loads to
+// overlap the other's exponentials (at dh = 128 the output and the scores
+// take 96 of the 128 registers a thread; a few bytes spill); one at dh = 256
 template <int DH>
 __host__ __device__ constexpr int min_blocks() {
-  return DH <= 64 ? 2 : 1;
+  return DH <= 128 ? 2 : 1;
 }
 
+// bytes of a packed stage: K, V ([NS][dh_pad] bf16) and the bias row
 template <int DH, bool BCAST>
 __host__ __device__ constexpr int stage_bytes() {
   return 2 * Tiles<DH, kStageKeys>::TILE + (BCAST ? kStageKeys * 4 : 0);
@@ -110,12 +150,41 @@ __host__ __device__ constexpr size_t fwd_smem() {
   return 128 + Tiles<DH, kStageKeys>::OWN + stages<DH>() * stage_bytes<DH, BCAST>();
 }
 
-// The packed operands of one call (the scratch the wrapper allocates).
+// The packed operands of one call (the scratch the wrapper allocates); null
+// where the block reads the input itself.
 struct Packed {
   const __nv_bfloat16 *q, *k, *v;
-  const float* bias;  // [rows][T_pad] (a bias broadcast over queries), else null
-  int Tp;
+  const float* bias;  // [rows][Tp] (a bias broadcast over queries, packed K and V), else null
+  int Tp;             // rows of a packed head
 };
+
+// rows [row0, row0 + ROWS) of a head of width dh (row stride st) rounded to
+// bf16 into a packed [ROWS][dh_pad] tile (one 16-byte chunk a thread and
+// step, consecutive threads on consecutive chunks); zeros past T and from dh
+// on. A thread's loads go out G chunks at a time, so that their latencies
+// overlap: 16-byte loads where the head is as wide as its template (its rows
+// then start on 16 bytes), else value by value.
+template <int DHP, int ROWS>
+__device__ __forceinline__ void round_rows(unsigned char* tile, const float* head, long long st,
+                                           int row0, int T, int dh, int tid) {
+  constexpr int CB = DHP / 8, N = ROWS * CB / kThreads, G = N < 8 ? N : 8;
+  static_assert(N * kThreads == ROWS * CB && N % G == 0, "whole chunks a thread");
+#pragma unroll
+  for (int g = 0; g < N; g += G) {
+    float f[G][8];
+#pragma unroll
+    for (int u = 0; u < G; ++u) {
+      const int z = tid + (g + u) * kThreads;
+      const int i = row0 + ((z >> 3) / CB) * 8 + (z & 7), c = ((z >> 3) % CB) * 8;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) f[u][e] = 0.f;
+      if (i < T) load8(head + (long long)i * st, c, dh, dh == DHP, f[u]);
+    }
+#pragma unroll
+    for (int u = 0; u < G; ++u)
+      reinterpret_cast<uint4*>(tile)[tid + (g + u) * kThreads] = pack8(f[u]);
+  }
+}
 
 // BCAST: the bias broadcasts over queries (bias_si == 0); DROP: dropout on
 template <int DH, bool BCAST, bool DROP>
@@ -123,6 +192,7 @@ __global__ void __launch_bounds__(kThreads, min_blocks<DH>())
 attention_fwd_long_bf16_kernel(const FwdParams p, const Packed pk) {
   using L = Tiles<DH, kStageKeys>;
   constexpr int NS = kStageKeys, DHP = L::DHP, JS = NS / 8;
+  constexpr bool QIN = q_inblock(DH);
   constexpr int STAGE = stage_bytes<DH, BCAST>(), kStages = stages<DH>();
   const int T = p.T, dh = p.dh;
 
@@ -134,10 +204,12 @@ attention_fwd_long_bf16_kernel(const FwdParams p, const Packed pk) {
   unsigned char* ring = qs + L::OWN;                   // kStages x (K, V, the bias row)
 
   const int tid = threadIdx.x;
-  const int bh = blockIdx.x;
+  const int n_qb = (T + kOwn - 1) / kOwn;
+  const int qb = blockIdx.x % n_qb;
+  const int bh = blockIdx.x / n_qb;
   const int b = bh / p.H;
   const int h = bh - b * p.H;
-  const int q0 = blockIdx.y * kOwn;
+  const int q0 = qb * kOwn;
   const size_t head = (size_t)bh * pk.Tp * DHP;
   const __nv_bfloat16* kp = pk.k + head;
   const __nv_bfloat16* vp = pk.v + head;
@@ -154,7 +226,7 @@ attention_fwd_long_bf16_kernel(const FwdParams p, const Packed pk) {
     mbar_init_fence();
   }
   __syncthreads();
-  auto issue = [&](int s) {  // stage s into slot s % kStages
+  auto issue = [&](int s) {  // stage s into slot s % kStages (packed K and V)
     unsigned char* st = ring + (s % kStages) * STAGE;
     const uint32_t bar = smem_u32(full + s % kStages);
     mbar_expect_tx(bar, STAGE);
@@ -163,9 +235,16 @@ attention_fwd_long_bf16_kernel(const FwdParams p, const Packed pk) {
     if constexpr (BCAST) bulk_copy(smem_u32(st + 2 * L::TILE), bias_row + s * NS, NS * 4, bar);
   };
   if (tid == 0) {
-    mbar_expect_tx(smem_u32(qbar), L::OWN);
-    bulk_copy(smem_u32(qs), pk.q + head + (size_t)q0 * DHP, L::OWN, smem_u32(qbar));
+    if constexpr (!QIN) {
+      mbar_expect_tx(smem_u32(qbar), L::OWN);
+      bulk_copy(smem_u32(qs), pk.q + head + (size_t)q0 * DHP, L::OWN, smem_u32(qbar));
+    }
     for (int s = 0; s < kStages && s < ns; ++s) issue(s);
+  }
+  if constexpr (QIN) {  // the owned rows, rounded here
+    round_rows<DHP, kOwn>(qs, p.q + b * p.q_sb + h * dh, p.q_st, q0, T, dh, tid);
+    fence_proxy_async();
+    __syncthreads();
   }
 
   const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
@@ -188,7 +267,7 @@ attention_fwd_long_bf16_kernel(const FwdParams p, const Packed pk) {
   for (int x = 0; x < DHP / 2; ++x) o[x] = 0.f;
   // row max and this thread's part of the row sum, rows rl and rl + 8
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  mbar_wait(smem_u32(qbar), 0);
+  if constexpr (!QIN) mbar_wait(smem_u32(qbar), 0);
 
   for (int s = 0; s < ns; ++s) {
     if (tid == 0 && s > 0 && s - 1 + kStages < ns) {
@@ -328,15 +407,17 @@ cudaError_t opt_in() {
 }
 
 template <int DH, bool BCAST, bool DROP>
-cudaError_t launch_one(const FwdParams& p, const Packed& pk, dim3 grid, cudaStream_t stream) {
+cudaError_t launch_one(const FwdParams& p, const Packed& pk, unsigned blocks,
+                       cudaStream_t stream) {
   attention_fwd_long_bf16_kernel<DH, BCAST, DROP>
-      <<<grid, kThreads, fwd_smem<DH, BCAST>(), stream>>>(p, pk);
+      <<<blocks, kThreads, fwd_smem<DH, BCAST>(), stream>>>(p, pk);
   return cudaGetLastError();
 }
 
 template <int DH>
 cudaError_t launch(const FwdParams& p, const Packed& pk, int B, cudaStream_t stream) {
-  static_assert(min_blocks<DH>() * fwd_smem<DH, true>() <= 232448,
+  static_assert(min_blocks<DH>() * fwd_smem<DH, true>() <= 232448 &&
+                    min_blocks<DH>() * fwd_smem<DH, false>() <= 232448,
                 "shared memory of the blocks an SM");
   // asked once for the four instances, at the first launch at this head
   // width (not a stream operation: it stays out of a CUDA graph's capture)
@@ -348,42 +429,38 @@ cudaError_t launch(const FwdParams& p, const Packed& pk, int B, cudaStream_t str
     return e;
   }();
   if (opted_in != cudaSuccess) return opted_in;
-  const dim3 grid(B * p.H, (p.T + kOwn - 1) / kOwn);
+  const unsigned blocks = (unsigned)((long long)B * p.H * ((p.T + kOwn - 1) / kOwn));
   if (p.bias_si == 0)
-    return p.dropout ? launch_one<DH, true, true>(p, pk, grid, stream)
-                     : launch_one<DH, true, false>(p, pk, grid, stream);
-  return p.dropout ? launch_one<DH, false, true>(p, pk, grid, stream)
-                   : launch_one<DH, false, false>(p, pk, grid, stream);
+    return p.dropout ? launch_one<DH, true, true>(p, pk, blocks, stream)
+                     : launch_one<DH, true, false>(p, pk, blocks, stream);
+  return p.dropout ? launch_one<DH, false, true>(p, pk, blocks, stream)
+                   : launch_one<DH, false, false>(p, pk, blocks, stream);
 }
 
 // The entry point's argument block: the fp32 forward's FwdArgs, then the
-// address of the scratch the wrapper allocates (`attention_long_bf16_scratch`).
+// address of the scratch the wrapper allocates (ops/attention.py's
+// `_long_bf16_forward_scratch`).
 struct FwdLongArgs {
   FwdArgs a;
   long long scratch;
 };
 
-// The scratch: packed q, k, v ([B, H, T_pad, dh_pad] bf16 each), then, for a
-// bias that broadcasts over queries, its rows padded to T_pad (fp32).
-long long region_elems(long long B, long long T, long long H, long long dh) {
-  return B * H * padded_t(T) * padded_dh(long_template_dh((int)dh));
-}
-
 }  // namespace
 
 extern "C" {
 
-// Launches the pack pre-pass, the bias rows' padding (a bias that
-// broadcasts over queries) and the kernel. `raw` is one FwdLongArgs block:
-// the tensors as for attention_fwd_long (attention_fwd_long.cu), then the
-// scratch, 3 * B * H * T_pad * dh_pad bf16 values (T_pad = T rounded up to
-// 128, dh_pad = dh's template width, at least 16: 256 for dh 129 to 256, the
-// widths of the AMID_BF16_WIDE build, which refuses the others, as the other
-// build refuses those) and, when bias_si == 0,
-// rows * T_pad floats (rows = B where bias_sb != 0, else 1), 16-byte
-// aligned. Where dh is a multiple of 4, q, k and v rows must start on 16
-// bytes (kMisaligned otherwise). Returns 0, a Refusal, or the first failing
-// launch's cudaError_t.
+// Launches the pack pre-pass, the bias rows' padding (a bias that broadcasts
+// over queries) and the kernel. `raw` is one FwdLongArgs block: the tensors
+// as for attention_fwd_long (attention_fwd_long.cu), then the scratch,
+// 16-byte aligned, as the template width dh_pad (dh's, at least 16: 256 for
+// dh 129 to 256, the widths of the AMID_BF16_WIDE build, which refuses the
+// others, as the other build refuses those) asks: at dh_pad <= 64 packed q,
+// k and v, 3 * B * H * T_pad * dh_pad bf16 values (T_pad = T rounded up to
+// 128), from dh_pad = 128 on packed k and v, 2 * B * H * T_pad * dh_pad
+// (T_pad = T rounded up to 64), each followed, when bias_si == 0, by rows *
+// T_pad floats (rows = B where bias_sb != 0, else 1). Where dh is a multiple
+// of 4, q, k and v rows must start on 16 bytes (kMisaligned otherwise).
+// Returns 0, a Refusal, or the first failing launch's cudaError_t.
 int attention_fwd_long(const void* raw) {
   FwdLongArgs la;
   memcpy(&la, raw, sizeof la);
@@ -393,21 +470,25 @@ int attention_fwd_long(const void* raw) {
   // this build's widths: 1 to 128, or (AMID_BF16_WIDE) 129 to 256
   if (dh > kMaxLongHeadDim || (long_template_dh((int)dh) == 256) != kWideBuild)
     return kBadHeadWidth;
-  if (a.T > 65535LL * kOwn || a.B * a.H > 2147483647LL) return kTooLong;
+  if (a.T > 65535LL * kOwn || a.B * a.H * ((a.T + kOwn - 1) / kOwn) > 2147483647LL)
+    return kTooLong;
   if (!rows_aligned(a.q, a.q_sb, a.q_st, dh) || !rows_aligned(a.k, a.k_sb, a.k_st, dh) ||
       !rows_aligned(a.v, a.v_sb, a.v_st, dh) || la.scratch % 16 != 0)
     return kMisaligned;
   const FwdParams p = fwd_params(a);
   cudaStream_t s = ptr<CUstream_st>(a.stream);
-  const long long region = region_elems(a.B, a.T, a.H, dh);
+  const int width = long_template_dh((int)dh);
+  const int nops = packed_operands(width), first = 3 - nops;  // k and v alone from 128 on
+  const int Tp = (int)packed_rows(width, a.T);
+  const long long region = a.B * a.H * Tp * (long long)padded_dh(width);
   __nv_bfloat16* packed = ptr<__nv_bfloat16>(la.scratch);
   const float* src[3] = {p.q, p.k, p.v};
   const long long sb[3] = {a.q_sb, a.k_sb, a.v_sb}, st[3] = {a.q_st, a.k_st, a.v_st};
-  launch_pack(src, sb, st, 3, packed, a.B, (int)a.T, (int)a.H, (int)dh, s);
+  launch_pack(src + first, sb + first, st + first, nops, packed, a.B, (int)a.T, (int)a.H,
+              (int)dh, s, Tp);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  const int Tp = (int)padded_t(a.T);
-  float* bias_rows = reinterpret_cast<float*>(packed + 3 * region);
+  float* bias_rows = reinterpret_cast<float*>(packed + nops * region);
   if (a.bias_si == 0) {
     const int rows = a.bias_sb ? (int)a.B : 1;
     bias_rows_kernel<<<blocks_for((long long)rows * Tp), 256, 0, s>>>(
@@ -415,8 +496,8 @@ int attention_fwd_long(const void* raw) {
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
-  const Packed pk = {packed, packed + region, packed + 2 * region,
-                     a.bias_si == 0 ? bias_rows : nullptr, Tp};
+  const Packed pk = {nops == 3 ? packed : nullptr, packed + (nops - 2) * region,
+                     packed + (nops - 1) * region, a.bias_si == 0 ? bias_rows : nullptr, Tp};
   const int B = (int)a.B;
 #if AMID_BF16_WIDE
   return (int)launch<256>(p, pk, B, s);

@@ -162,11 +162,12 @@ struct Plan {
   // the owned side's A operands of S and dP: split once into registers
   // (dh <= 32), or into [128][dh] shared-memory tiles (dh >= 64: registers
   // would not hold them; the long backward keeps them raw at dh >= 128,
-  // raw_owned in attention_bwd_long.cu, and the long forward at dh = 256)
+  // raw_owned in attention_bwd_long.cu; the long forward at dh = 256 has a
+  // layout of its own, attention_fwd_long.cu's wide kernel)
   static constexpr bool REG_A = DH <= 32;
   static constexpr int C = DH / 4;  // 16-byte chunks of a row
   // rows a stage streams: the tiles of a stage grow with dh, the block's
-  // shared memory (227 KB) does not
+  // shared memory (227 KB) does not (the long forward streams 16 at dh = 256)
   static constexpr int NS = DH == 256 ? 8 : DH == 128 ? 16 : DH == 64 ? 32 : 64;
   static constexpr int L = DH >= 32 ? 1 : 32 / DH;  // raw rows in one 128-byte line
   static constexpr int TILE = NS * DH;              // floats of a [NS][dh] tile

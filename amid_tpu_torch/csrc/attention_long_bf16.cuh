@@ -9,7 +9,8 @@
 // swizzle: core matrices of 8 rows x 8 columns (16 bytes a row, 128 bytes
 // contiguous), core matrix (r / 8, c / 8) at byte ((r / 8) * CB + c / 8) * 128
 // of its head, CB = dh_pad / 8. T_pad is T rounded up to kPadRows (rows past T
-// zero), dh_pad is dh's template width on the long paths (attention_common.cuh,
+// zero; the forward at template width 256 packs K and V alone, to whole
+// 64-key stages), dh_pad is dh's template width on the long paths (attention_common.cuh,
 // long_template_dh: 256 for dh 129 to 256), or 16 at dh <= 8 (a k16 step
 // reads 16 columns); the padding columns are zero. So
 // any run of rows of one head, a streamed stage or a block's owned rows, is
@@ -261,11 +262,12 @@ inline dim3 blocks_for(long long n) {
   return dim3((unsigned)(g < 65535 * 16 ? (g < 1 ? 1 : g) : 65535 * 16));
 }
 
-// Packs `nsrc` inputs (the first of `src`, with their strides) and launches
-// nothing else; the caller checks cudaGetLastError.
+// Packs `nsrc` inputs (the first of `src`, with their strides) to `Tp` rows
+// a head (0: padded_t(T)) and launches nothing else; the caller checks
+// cudaGetLastError.
 inline void launch_pack(const float* const* src, const long long* sb, const long long* st,
                         int nsrc, __nv_bfloat16* out, long long B, int T, int H, int dh,
-                        cudaStream_t stream) {
+                        cudaStream_t stream, int Tp = 0) {
   PackArgs a;
   for (int z = 0; z < 4; ++z) {
     a.src[z] = z < nsrc ? src[z] : nullptr;
@@ -274,7 +276,7 @@ inline void launch_pack(const float* const* src, const long long* sb, const long
   }
   a.out = out;
   a.T = T;
-  a.Tp = (int)padded_t(T);
+  a.Tp = Tp > 0 ? Tp : (int)padded_t(T);
   a.H = H;
   a.dh = dh;
   a.dhp = padded_dh(long_template_dh(dh));

@@ -591,25 +591,27 @@ MODES = ("fp32", "bf16")  # the kernels' modes: fp32 (3xTF32), bf16 operands (`m
 # `chip_smoke.py`'s `width_crossover_sweeps`; the fp32 one-head kernel
 # holds T <= 216 there): the long forward the faster from 40 in both biases
 # (0.160 against 0.183 ms, key padding), the one-head kernel at 20.
-# bf16 (the native long forward against the native one-head kernel,
-# `csrc/attention_fwd_bf16.cu`; its sweeps add T=40 and 1,200, and dh=128
-# T=300 and 400), taken where the long forward was at least 10% faster for
-# both biases in each of two sweeps, long over one-head device time: dh=32
-# from 800 (key padding 0.411 and 0.410, causal 0.478 and 0.484; key padding
-# alone from 300, 0.734 and 0.736, where causal reads 1.020 and 1.039: the
-# one-head kernel skips the causal chunks past a warp's rows, so BERT4Rec's
-# key padding at encoder T=300 runs the one-head kernel at 0.201 ms where
-# the long one takes 0.148); dh=16 from 1,200 (key padding 0.400 and 0.401,
-# causal 0.370 and 0.367; causal at 600 0.893 and 0.901, at 800 1.034 and
-# 1.048, so SASRec's causal T=150 to 800 stays on the one-head kernel); dh=128
-# from 80 (key padding 0.589 and 0.587, causal 0.668 and 0.668; at 40 0.974
-# and 0.970, causal 0.990 and 0.994). Below it, and at the head widths not
-# swept (8, 64), shapes stay on the one-head kernel as long as it holds them
-# (`forward_max_t`). A head wider than 128 (dh 129 to 256, template width
-# 256) has no one-head kernel: it takes the long forward of its mode at
-# every T (`forward_route`).
+# bf16 (the native long forward, its query blocks of a head neighbours in
+# the grid and at dh=128 two blocks an SM, against the native one-head
+# kernel, `csrc/attention_fwd_bf16.cu`; its sweeps add T=40 and 1,200, and
+# dh=128 T=300 and 400), taken from the shortest T at and after which the
+# long forward was at least 10% faster for both biases in each of two
+# sweeps, long over one-head device time: dh=32 from 600 (key padding 0.648
+# and 0.652, causal 0.794 and 0.790; at 512 causal 1.036 and 1.038, at 368
+# 0.834 and 0.829, at 300 key padding 0.747 where causal reads 0.924 and
+# 0.917: the one-head kernel skips the causal chunks past a warp's rows, so
+# BERT4Rec's key padding at encoder T=300 runs the one-head kernel where
+# the long one would take 0.75 of its time); dh=16 from 600 (key padding
+# 0.660 and 0.655, causal 0.691 and 0.689; causal at 512 0.938 and 0.934,
+# at 368 1.039 and 1.036, so SASRec's causal T=150 to 512 stays on the
+# one-head kernel); dh=128 from 40 (key padding 0.627 and 0.629, causal 0.701
+# and 0.701; at 20 1.148 and 1.136, causal 1.239 and 1.222). Below it, and at
+# the head widths not swept (8, 64), shapes stay on the one-head kernel as
+# long as it holds them (`forward_max_t`). A head wider than 128 (dh 129 to
+# 256, template width 256) has no one-head kernel: it takes the long forward
+# of its mode at every T (`forward_route`).
 LONG_FWD_FASTER_FROM = {"fp32": {16: 300, 32: 300, 128: 40},
-                        "bf16": {16: 1200, 32: 800, 128: 80}}
+                        "bf16": {16: 600, 32: 600, 128: 40}}
 
 
 def forward_route(t: int, dh: int, mode: str = "fp32") -> str:
@@ -801,10 +803,12 @@ def _launch_forward_long(q, k, v, bias, seed, heads: int, rate: float, stats: bo
     """`_launch_forward` on the long-sequence path: its copies read 16-byte
     chunks of q, k and v rows, so a view whose rows do not start on 16 bytes
     is copied first (at a head width that is a multiple of 4; others are
-    read 4 bytes at a time). Both modes pack their operands into a scratch
-    from the caching allocator first (so a CUDA graph's capture keeps it):
-    the fp32 kernel K and V split into TF32 halves and the bias, as many
-    bytes as its `attention_fwd_long_scratch` asks."""
+    read 4 bytes at a time). Both modes pack operands into a scratch from the
+    caching allocator first (so a CUDA graph's capture keeps it): the fp32
+    kernel K and V split into TF32 halves and the bias, as many bytes as its
+    `attention_fwd_long_scratch` asks; the bf16 kernel what
+    `bf16_forward_packing` names at the head's template width (k and v
+    alone from 128 on, where its blocks round their Q rows themselves)."""
     if not _entry:
         _bind()
     bsz, t, d = q.shape
@@ -812,7 +816,7 @@ def _launch_forward_long(q, k, v, bias, seed, heads: int, rate: float, stats: bo
     block, outs, _seed_alive = _pack_forward(q, k, v, bias, seed, heads, rate, stats,
                                              row_offset)
     if bf16:  # the native bf16 path: the packed operands' scratch after the block
-        scratch = _long_bf16_scratch(q, bias, heads, 3, 0)
+        scratch = _long_bf16_forward_scratch(q, bias, heads)
         err = _entry_point("attention_fwd_long", True, d // heads)(
             block + _PACK_PTR(scratch.data_ptr()))
     else:  # a padded width: its own build
@@ -955,18 +959,38 @@ def unpack_bf16_plain(packed: torch.Tensor, t: int, dh: int) -> torch.Tensor:
     return _merge(rows[:, :, :t, :dh].float())
 
 
-def _long_bf16_scratch(q, bias, heads: int, operands: int, row_bytes: int) -> torch.Tensor:
+def _long_bf16_scratch(q, bias, heads: int, operands: int, row_bytes: int,
+                       pad_rows: int = LONG_BF16_PAD_ROWS) -> torch.Tensor:
     """The scratch of one native bf16 long launch, from the caching allocator
     (so a CUDA graph's capture keeps it): `operands` packed bf16 inputs of
-    [B, h, T_pad, dh_pad], `row_bytes` more a packed row (the backward's
-    float4 of m, 1/l, D and the dropout key), and a bias that broadcasts over
-    queries padded to T_pad (fp32), as the entry point carves it."""
+    [B, h, T_pad, dh_pad] (T_pad: T rounded up to `pad_rows`), `row_bytes`
+    more a packed row (the backward's float4 of m, 1/l, D and the dropout
+    key), and a bias that broadcasts over queries padded to T_pad (fp32), as
+    the entry point carves it."""
     bsz, t, d = q.shape
-    tp, dhp = bf16_packed_shape(t, d // heads)
+    tp, dhp = -(-t // pad_rows) * pad_rows, bf16_packed_shape(t, d // heads)[1]
     nbytes = bsz * heads * tp * (operands * dhp * 2 + row_bytes)
     if (bias.stride(2) if bias.shape[2] > 1 else 0) == 0:
         nbytes += (bsz if bias.shape[0] > 1 else 1) * tp * 4
     return torch.empty(nbytes, dtype=torch.uint8, device=q.device)
+
+
+def bf16_forward_packing(dh: int) -> tuple[int, int]:
+    """(operands, pad_rows): what the bf16 long forward's pre-pass packs at
+    head width `dh` (`packed_operands` and `packed_rows` of
+    csrc/attention_fwd_long_bf16.cu): q, k and v to 128-row blocks up to
+    template width 64 (a block's Q rows land by one bulk copy), k and v to
+    whole stages from 128 on (the blocks round their Q rows themselves)."""
+    if long_head_dim(dh) >= 128:
+        return 2, LONG_BF16_STAGE_KEYS
+    return 3, LONG_BF16_PAD_ROWS
+
+
+def _long_bf16_forward_scratch(q, bias, heads: int) -> torch.Tensor:
+    """The scratch of one bf16 long forward: `_long_bf16_scratch` of the
+    operands `bf16_forward_packing` names."""
+    operands, pad_rows = bf16_forward_packing(q.shape[2] // heads)
+    return _long_bf16_scratch(q, bias, heads, operands, 0, pad_rows)
 
 
 def _device_route(q, name: str) -> bool:

@@ -13,11 +13,15 @@ fp64 oracles and plain versions). Here, on the CPU:
 * the route tables per mode: the fp32 values as the fp32 sweeps set them,
   and bf16 calls reading the bf16 table;
 * `chip_smoke.py::key_chunk`, the rounding point of the bf16 forward
-  kernels' fp64 oracle, equals the sources' stage constants.
+  kernels' fp64 oracle, equals the sources' stage constants;
+* the long forward's operands at each template width
+  (`bf16_forward_packing`, mirroring the source): the scratch it allocates,
+  the argument block its launch passes and the build it calls.
 """
 
 import importlib.util
 import re
+import struct
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -147,3 +151,81 @@ def test_key_chunk_is_the_stage_of_each_bf16_forward_kernel():
     for dh in attention_ops.KERNEL_HEAD_DIMS:
         assert cs.key_chunk("long", dh) == stage, dh
         assert cs.key_chunk("sweep", dh) == chunk, dh
+
+
+# the bf16 long forward's operands at each template width: (dh, what its
+# pre-pass packs, the rows it pads a packed head to); 24 and 100 and 200 are
+# padded widths of the template widths 32, 128 and 256
+FORWARD_PACKING = [(8, 3, 128), (16, 3, 128), (24, 3, 128), (32, 3, 128), (64, 3, 128),
+                   (100, 2, 64), (128, 2, 64), (200, 2, 64), (256, 2, 64)]
+
+
+@pytest.mark.parametrize("dh,operands,pad_rows", FORWARD_PACKING)
+def test_bf16_forward_scratch_holds_what_its_width_packs(dh, operands, pad_rows):
+    """Up to template width 64 the forward's pre-pass packs q, k and v to
+    128-row blocks; from 128 on k and v alone, to whole 64-key stages (the
+    blocks round their Q rows themselves). The scratch holds exactly those
+    packed regions and, for a bias that broadcasts over queries, its rows
+    padded to the same T_pad."""
+    assert attention_ops.bf16_forward_packing(dh) == (operands, pad_rows)
+    heads, t, bsz = 2, 150, 3
+    q = torch.zeros(bsz, t, heads * dh)
+    keypad, causal = torch.zeros(bsz, 1, 1, t), torch.zeros(1, 1, t, t)
+    scratch = [attention_ops._long_bf16_forward_scratch(q, bias, heads)
+               for bias in (causal, keypad, keypad[:1])]
+    tp = -(-t // pad_rows) * pad_rows
+    assert tp == (256 if pad_rows == 128 else 192)
+    region = bsz * heads * tp * max(attention_ops.long_head_dim(dh), 16) * 2
+    assert [x.numel() for x in scratch] == [operands * region, operands * region + bsz * tp * 4,
+                                            operands * region + tp * 4]
+
+
+@pytest.mark.parametrize("dh,operands,pad_rows", FORWARD_PACKING)
+def test_bf16_forward_argument_block_names_its_scratch_and_build(monkeypatch, dh, operands,
+                                                                 pad_rows):
+    """A bf16 long forward launch calls its width's build (the
+    `_bf16_dh256` one above 128) once with FwdArgs and then the address of
+    the scratch `_long_bf16_forward_scratch` allocated; the launch is
+    counted once."""
+    calls = []
+
+    def entry(lib):
+        def launch(block):
+            calls.append((lib, block))
+            return 0
+        return launch
+
+    monkeypatch.setattr(attention_ops, "_entry", {n: entry(n) for n in attention_ops._LIBRARIES})
+    monkeypatch.setattr(attention_ops._build, "raw_stream", lambda index: 0)
+    made = []
+    scratch_of = attention_ops._long_bf16_forward_scratch
+    monkeypatch.setattr(attention_ops, "_long_bf16_forward_scratch",
+                        lambda *a: made.append(scratch_of(*a)) or made[-1])
+    heads, t, bsz = 2, 37, 3
+    x = torch.zeros(bsz, t, heads * dh)
+    before = attention_ops.fused_attention.long_forward_bf16_launches
+    attention_ops._launch_forward(x, x, x, torch.zeros(bsz, 1, 1, t), 5, heads, 0.1, True,
+                                  "long", bf16=True)
+    assert attention_ops.fused_attention.long_forward_bf16_launches == before + 1
+    (lib, block), = calls
+    assert lib == ("attention_fwd_long_bf16_dh256" if dh > 128 else "attention_fwd_long_bf16")
+    fields = struct.unpack("<24q2d", block[:-8])
+    assert fields[7:11] == (bsz, t, heads * dh, heads)  # B, T, D, H
+    scratch, = struct.unpack("<q", block[-8:])
+    assert len(block) == struct.calcsize("<24q2d") + 8
+    assert scratch == made[0].data_ptr() and made[0].numel() > 0
+
+
+def test_bf16_forward_packing_mirrors_the_source():
+    """`bf16_forward_packing` is the source's `q_inblock`, `packed_operands`
+    and `packed_rows`: Q rounded in the block from template width 128 on,
+    and then K and V packed alone to whole stages."""
+    src = (CSRC / "attention_fwd_long_bf16.cu").read_text()
+    assert "constexpr bool q_inblock(int DH) { return DH >= 128; }" in src
+    assert "constexpr int packed_operands(int DH) { return q_inblock(DH) ? 2 : 3; }" in src
+    assert re.search(r"packed_operands\(DH\) == 3 \? padded_t\(T\)\s*:\s*\(T \+ kStageKeys - 1\) "
+                     r"/ kStageKeys \* kStageKeys", src)
+    for width in attention_ops.KERNEL_HEAD_DIMS + (256,):
+        operands, pad_rows = attention_ops.bf16_forward_packing(width)
+        assert operands == (2 if width >= 128 else 3), width
+        assert pad_rows == {3: LONG_BF16_PAD_ROWS, 2: LONG_BF16_STAGE_KEYS}[operands]

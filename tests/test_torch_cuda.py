@@ -2080,6 +2080,74 @@ def test_bf16_long_paths_pack_a_padded_width_to_whole_k16_steps(gen, monkeypatch
         assert ((out - plain).norm() / plain.norm()).item() < 1e-2
 
 
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("kind", ["keypad", "causal"])
+@pytest.mark.parametrize("t", [37, 129, 300])
+@pytest.mark.parametrize("heads,d", [(2, 256), (3, 300), (1, 256), (2, 400)])
+def test_bf16_long_forward_at_wide_heads_ragged_t_and_padded_widths(gen, heads, d, t, kind,
+                                                                   rate):
+    """The bf16 long forward at template widths 128 (dh 128, and 100
+    padded) and 256 (dh 256, and 200 padded), where each block rounds its
+    own Q rows and the pre-pass packs K and V alone to whole stages, at T no
+    multiple of a stage or of a block's 128 rows, both biases and rates:
+    within chip_smoke.py's limits of its width against the fp64 oracle of
+    its rounding points and the plain version, the fp32 build outside the
+    oracle limit; the row statistics against the plain ones; two calls
+    bit-equal, one launch counted a call."""
+    cs = _chip_smoke()
+    b, dh = 2, d // heads
+    q, k, v = torch.randn(b, t, 3 * d, device="cuda", generator=gen).split(d, dim=-1)
+    bias = _bias(kind, b, t, gen)
+    seed = torch.tensor([77], dtype=torch.int64, device="cuda")
+    before = launches.read()
+    got = attention_ops._launch_forward(q, k, v, bias, seed, heads, rate, True, "long", bf16=True)
+    again = attention_ops._launch_forward(q, k, v, bias, seed, heads, rate, True, "long",
+                                          bf16=True)
+    assert {n: c for n, c in launches.since(before).items() if c} == {
+        "attention_fwd_long_bf16": 2}
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+    args = (q, k, v, bias, seed, heads, rate)
+    want, wm, winv = attention_fwd_stats_plain(*args, True)
+    torch.testing.assert_close(got[1], wm, atol=LONG_MAX_ATOL, rtol=1e-6)
+    torch.testing.assert_close(got[2], winv, atol=LONG_INV_SUM_ATOL, rtol=1e-6)
+    readings = cs.Bf16Readings()
+    readings.draw([(got[0], attention_ops._launch_forward(*args, False, "long")[0],
+                    attention_fwd_stats_streamed_plain(*args, attention_ops.LONG_BF16_STAGE_KEYS,
+                                                       True)[0],
+                    cs.bf16_attention_kernel_oracle(torch, *args, cs.key_chunk("long", dh)),
+                    cs.bf16_attention_oracle(torch, *args))])
+    readings.verdict(f"bf16_long_{kind}_T{t}_dh{dh}",
+                     "bf16_long_dh256" if dh > 128 else "bf16_long_native")
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("kind", ["keypad", "causal"])
+@pytest.mark.parametrize("t", [37, 129, 300])
+@pytest.mark.parametrize("heads,d", [(1, 256), (2, 512), (1, 200), (2, 400)])
+def test_fp32_long_forward_at_head_width_256_ragged_t(gen, heads, d, t, kind, rate):
+    """The fp32 long forward at template width 256 (64 queries a block, the
+    warpgroups on the two halves of the head width; dh 256, and 200 on the
+    padded build), at T no multiple of its 16-key stages or 64-row blocks,
+    both biases and rates: against the plain version in key tiles of 16 at
+    ATOL / RTOL, the row statistics at the long forward's tolerances, two
+    calls bit-equal, one launch counted a call."""
+    b = 2
+    q, k, v = torch.randn(b, t, 3 * d, device="cuda", generator=gen).split(d, dim=-1)
+    bias = _bias(kind, b, t, gen)
+    seed = torch.tensor([77], dtype=torch.int64, device="cuda")
+    before = fused_attention.long_forward_launches
+    got = attention_ops._launch_forward(q, k, v, bias, seed, heads, rate, True, "long")
+    again = attention_ops._launch_forward(q, k, v, bias, seed, heads, rate, True, "long")
+    assert fused_attention.long_forward_launches == before + 2
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+    want = attention_fwd_stats_streamed_plain(q, k, v, bias, seed, heads, rate, 16)
+    torch.testing.assert_close(got[0], want[0], atol=ATOL, rtol=RTOL)
+    torch.testing.assert_close(got[1], want[1], atol=LONG_MAX_ATOL, rtol=1e-6)
+    torch.testing.assert_close(got[2], want[2], atol=LONG_INV_SUM_ATOL, rtol=1e-6)
+
+
 def test_replayed_d512_bert4rec_steps_equal_eager_steps(gen):
     """Configuration (a)'s width: BERT4Rec at emb_dim 512 (4 heads of 128)
     and T=150 (encoder T=300, both long paths at dh=128), dense phase-A
